@@ -4,7 +4,9 @@
     python3 chip_smoke.py          # one NVIDIA card; exits 0 only if all pass
 
 Phases:
-  0. build   -- compile ``csrc/arena_scan.cu`` with nvcc (ptxas report).
+  0. build   -- compile the arena-scan kernels (``csrc/arena_scan.cuh``; one
+                nvcc per entry-point source, all at once) and print ptxas's
+                register and spill report.
   1. kernel  -- the arena-scan kernel against its plain PyTorch version on
                 the card over a grid of N, D, B, G and k (k > N included),
                 plus category 31 / high ACL bits, a BLOCK_ALL group,
@@ -20,16 +22,41 @@ Phases:
                 front door: one batch of 32 requests in 4 predicate groups,
                 every row held to `unified_query_ref` on the card; then an
                 update and a delete, and the cache must miss.
-  3. prod    -- production width on one card: StoreConfig(2^23 x 768) (the
+  3. hybrid_kernel -- the hybrid scan (the arena-scan kernel's lexical
+                modes, through `hybrid_score_cuda`) against its plain
+                version over N, D, B, G, T lanes, QT query terms and k (k > N
+                included), wsum (w_dense 0.8, w_lex 1.7) and rrf: padding
+                query terms, empty lanes, category 31, high ACL bits, a
+                BLOCK_ALL group and adversarial donors (rows of another
+                tenant carrying exactly the query's terms). Fused and dense
+                scores within rtol = atol = 1e-5, the bm25 list exact, slots
+                as in phase 1, no leak; the public `hybrid_score` (rrf fused
+                and lists=True, k > N) against the plain oracle too.
+  4. bench   -- the paper's benchmark deployment (StoreConfig 65,536 x 128,
+                50,000 docs, 20 tenants, 5 categories; repro's
+                configs/rag_unified.py BENCH / BENCH_CORPUS) through the
+                front door: one batch of 32 requests in 4 predicate groups,
+                every row held to `unified_query_ref` on the card; then an
+                update and a delete, and the cache must miss.
+  5. hybrid_bench -- the same deployment with a lexical arena: 32 match()
+                requests (`make_keyword_queries`) in 4 groups, wsum and then
+                rrf, one launch a batch, every row held to
+                `hybrid_score_ref` on the card; hybrid recall@10 above
+                dense-only; a lexical write, and the cache must miss.
+  6. prod    -- production width on one card: StoreConfig(2^23 x 768) (the
                 paper's 2^26-row production hot tier cut to what one 80 GB
-                card holds twice during an out-of-place commit), data drawn
-                on the card and ingested through RagDB in 2^20-row chunks,
-                batches of 32 requests in 4 groups through run(): median
-                batch latency, the kernel's own time (CUDA events) beside
-                its bound, the plain version, and a matmul + where + topk
-                yardstick.
+                card holds twice during an out-of-place commit) with 16
+                postings lanes a row, data drawn on the card and ingested
+                through RagDB in 2^20-row chunks, batches of 32 requests in
+                4 groups through run(): median batch latency, the kernel's
+                own time (CUDA events) beside its bound, the plain version,
+                and a matmul + where + topk yardstick.
+  7. hybrid_prod -- the same arena: 6 wsum and 6 rrf batches of 32 match()
+                requests in 4 groups (3 terms from a live row's lanes, q
+                near its embedding), with the same measurements plus a
+                matmul + BM25 + where + topk yardstick and a profile split.
 
-Prints the card's name and power limit, one line per phase, a
+Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no card is present or the package is
 missing.
@@ -58,6 +85,16 @@ GRID_N = (1, 513, 1000, 65_553)
 GRID_D = (64, 96, 128, 768)
 GRID_B = (1, 3, 8, 32, 64)
 GRID_G = (1, 2, 7, 16)
+# phase 3 grid (lanes T and query terms QT cycle with the other axes)
+HYB_N = (1, 513, 1000, 65_553)
+HYB_D = (64, 768)
+HYB_T = (4, 16)
+HYB_B = (1, 8, 32, 64)
+HYB_QT = (1, 4, 16)
+HYB_K = (1, 10, 32, 33, 300)
+W_DENSE, W_LEX = 0.8, 1.7     # the wsum mix of phase 3
+LEX_V = 64                    # vocabulary of phase 3's lanes
+RRF_C = 60.0
 
 
 def check(cond, msg):
@@ -92,11 +129,13 @@ def host_mask(meta, preds):
 
 
 def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
-            dup_pairs=()):
+            dup_pairs=(), lower_slot_ties=True):
     """Hold a kernel result (s_k, i_k) to the plain one (s_p, i_p): both
     (B, k) numpy. ``mask_rows`` (B, N) bool is each row's host mask;
     ``scores_full`` (B, N) the plain scores (to check every returned
-    slot's score). Returns the max abs score error."""
+    slot's score). ``lower_slot_ties`` checks that exact ties go to the
+    lower slot (rrf-fused lists break ties by list position instead).
+    Returns the max abs score error."""
     neg = np.float32(np.finfo(np.float32).min)
     check(s_k.shape == s_p.shape and i_k.shape == i_p.shape,
           f"{name}: shape {s_k.shape} vs {s_p.shape}")
@@ -127,7 +166,7 @@ def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
         # ties go to the lower slot: among exactly equal scores slots rise
         sk = s_k[b][:len(real)]
         eq = sk[1:] == sk[:-1]
-        check((real[1:][eq] > real[:-1][eq]).all(),
+        check(not lower_slot_ties or (real[1:][eq] > real[:-1][eq]).all(),
               f"{name}: row {b} tie not broken toward the lower slot")
         got = set(real.tolist())
         for lo, hi in dup_pairs:
@@ -231,12 +270,162 @@ def phase_kernel():
     return max(errs)
 
 
+def tnp(*ts):
+    return [x.cpu().numpy() for x in ts]
+
+
+def make_lex(rng, meta, T, hot):
+    """Lanes for an arena: terms (N, T) int32 with empty lanes (-1),
+    lexnorm (N, T) f32, and a quarter of the rows turned into adversarial
+    donors -- tenant 6, which only a pass-all tenant clause admits,
+    carrying exactly the ``hot`` query terms at lexnorm 10."""
+    N = meta.shape[0]
+    terms = rng.integers(-1, LEX_V, (N, T)).astype(np.int32)
+    lexnorm = np.where(terms >= 0, rng.random((N, T)) * 2,
+                       0).astype(np.float32)
+    donors = rng.random(N) < 0.25
+    h = min(len(hot), T)
+    terms[np.ix_(donors, np.arange(h))] = hot[:h]
+    lexnorm[np.ix_(donors, np.arange(h))] = 10.0
+    meta = meta.copy()
+    meta[donors, 0] = 6
+    return terms, lexnorm, meta
+
+
+def make_qterms(rng, B, QT, hot):
+    """(B, QT) query terms: the hot terms first, random ids, and -1
+    padding in the last quarter of the columns."""
+    qt = rng.integers(0, LEX_V, (B, QT)).astype(np.int32)
+    h = min(len(hot), QT)
+    qt[:, :h] = hot[:h]
+    if QT >= 4:
+        qt[:, QT - QT // 4:] = -1
+    return qt
+
+
+def hybrid_case(name, arena, lexd, batch, qterms, k, errs):
+    """The hybrid kernel against its plain version, wsum and rrf, on one
+    input set; every list checked as in phase 1 against the full signals,
+    the bm25 list exactly, the rrf fusion of both sides' lists."""
+    from repro_torch.kernels.arena_scan.stages import bm25_scores
+    from repro_torch.kernels.hybrid_score.ref import _fold, qidf_of, rrf_fuse
+    (emb_d, meta_d, meta, _), (q, preds, gids) = arena, batch
+    terms_d, lexnorm_d, idf_d = lexd
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    qt_d = t(qterms)
+    qidf = qidf_of(idf_d, qt_d).contiguous()
+    args = (t(q), emb_d, meta_d, terms_d, lexnorm_d, t(gids), t(preds), qt_d,
+            qidf, k)
+    mask = host_mask(meta, preds)[gids]
+    for mode in ("wsum", "rrf"):
+        kw = dict(mode=mode, w_dense=W_DENSE, w_lex=W_LEX)
+        out_k = hyb_mod.hybrid_score_cuda(*args, **kw)
+        out_p = hyb_mod.hybrid_score_plain(*args, **kw)
+        sync()
+        qf, qidf_f = _fold(args[0], qidf, mode, W_DENSE, W_LEX)
+        dense = qf @ emb_d.T
+        bm = bm25_scores(terms_d, lexnorm_d, qt_d, qidf_f)
+        if mode == "wsum":
+            errs.append(compare(f"{name}-wsum", *tnp(*out_k), *tnp(*out_p),
+                                mask, (dense + bm).cpu().numpy()))
+            continue
+        d_k, di_k, l_k, li_k = tnp(*out_k)
+        d_p, di_p, l_p, li_p = tnp(*out_p)
+        errs.append(compare(f"{name}-rrf-dense", d_k, di_k, d_p, di_p, mask,
+                            dense.cpu().numpy()))
+        check((l_k == l_p).all() and (li_k == li_p).all(),
+              f"{name}: bm25 list differs from the plain version's")
+        compare(f"{name}-rrf-bm25", l_k, li_k, l_p, li_p, mask,
+                bm.cpu().numpy())
+        f_s, f_i = tnp(*rrf_fuse(*out_k, k, RRF_C))
+        p_s, p_i = tnp(*rrf_fuse(*out_p, k, RRF_C))
+        if (di_k == di_p).all():
+            check((f_s == p_s).all() and (f_i == p_i).all(),
+                  f"{name}: rrf fusion differs on equal lists")
+        for b in range(f_i.shape[0]):
+            real = f_i[b][f_i[b] >= 0]
+            check(mask[b][real].all(), f"{name}: rrf row {b} leaked")
+
+
+def ops_case(name, arena, lexd, batch, qterms, k, errs):
+    """The public `hybrid_score` on the card (rrf fused, rrf lists=True,
+    wsum) against the plain oracle `hybrid_score_ref` / its lists."""
+    from repro_torch.kernels.hybrid_score.ops import hybrid_score
+    from repro_torch.kernels.hybrid_score.ref import (hybrid_score_ref,
+                                                      qidf_of)
+    (emb_d, meta_d, meta, _), (q, preds, gids) = arena, batch
+    terms_d, lexnorm_d, idf_d = lexd
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    cols = [meta_d[:, j].contiguous() for j in range(4)]
+    mask = host_mask(meta, preds)[gids]
+    qidf = qidf_of(idf_d, t(qterms))
+    for mode, lists in (("wsum", False), ("rrf", False), ("rrf", True)):
+        kw = dict(mode=mode, w_dense=W_DENSE, w_lex=W_LEX, rrf_c=RRF_C)
+        out = hybrid_score(t(q), emb_d, cols[0], cols[1], cols[2], cols[3],
+                           terms_d, lexnorm_d, idf_d, t(gids), t(preds),
+                           t(qterms), k, lists=lists, **kw)
+        if lists:
+            ref = hyb_mod.hybrid_score_plain(
+                t(q), emb_d, meta_d, terms_d, lexnorm_d, t(gids), t(preds),
+                t(qterms), qidf, k, mode=mode, w_dense=W_DENSE, w_lex=W_LEX)
+        else:
+            ref = hybrid_score_ref(t(q), emb_d, meta_d, terms_d, lexnorm_d,
+                                   t(gids), t(preds), t(qterms), qidf, k,
+                                   **kw)
+        sync()
+        for j in range(0, len(out), 2):
+            errs.append(compare(f"{name}-ops-{mode}{'-lists' * lists}-{j}",
+                                *tnp(out[j], out[j + 1]),
+                                *tnp(ref[j], ref[j + 1]), mask,
+                                lower_slot_ties=mode == "wsum" or lists))
+
+
+def phase_hybrid_kernel():
+    rng = np.random.default_rng(SEED + 10)
+    errs = []
+    n_cases = 0
+    t0 = time.perf_counter()
+    for N in HYB_N:
+        for D in HYB_D:
+            for T in HYB_T:
+                hot = rng.integers(0, LEX_V, 3).astype(np.int32)
+                emb, meta, _ = make_arena(rng, N, D)
+                terms, lexnorm, meta = make_lex(rng, meta, T, hot)
+                arena = upload(emb, meta, ())
+                lexd = (torch.from_numpy(terms).to(DEV),
+                        torch.from_numpy(lexnorm).to(DEV),
+                        torch.from_numpy((rng.random(LEX_V) * 5)
+                                         .astype(np.float32)).to(DEV))
+                ks = HYB_K + ((N + 7,) if N < 2048 else ())
+                for bi, B in enumerate(HYB_B):
+                    G = (1, 4)[(bi + N + T) % 2]
+                    batch = make_batch(rng, emb, B, G, block_all=(G == 4))
+                    for ki, k in enumerate(ks):
+                        QT = HYB_QT[(bi + ki) % 3]
+                        qterms = make_qterms(rng, B, QT, hot)
+                        hybrid_case(f"N{N}-D{D}-T{T}-B{B}-G{G}-QT{QT}-k{k}",
+                                    arena, lexd, batch, qterms, k, errs)
+                        n_cases += 1
+                qterms = make_qterms(rng, 8, 4, hot)
+                batch = make_batch(rng, emb, 8, 4, block_all=True)
+                for k in ks[1:2] + ks[5:]:      # 10, and N + 7 for small N
+                    ops_case(f"N{N}-D{D}-T{T}-k{k}", arena, lexd, batch,
+                             qterms, k, errs)
+                    n_cases += 1
+    emit("hybrid_kernel", cases=n_cases, modes=["wsum", "rrf", "rrf-lists"],
+         max_abs_err=max(errs), seconds=time.perf_counter() - t0, tol=TOL,
+         bm25_list="exact", leaked_slots=0)
+    return max(errs)
+
+
 def phase_bench(dev):
     from repro_torch.api import RagDB
     from repro_torch.core.query import unified_query_ref
     from repro_torch.core.store import StoreConfig
     from repro_torch.core.tenancy import Principal
     from repro_torch.data.corpus import DAY_S, CorpusConfig, make_corpus
+
+    t_phase = time.perf_counter()
 
     ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
     db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
@@ -308,11 +497,120 @@ def phase_bench(dev):
     s2, sl2, _ = db.execute(plans())
     check(gone_slot not in sl2[0::4].ravel().tolist(),
           "the deleted doc is still served")
-    emit("bench", rows=32, groups=4, engine="cuda", launches=launches,
+    emit("bench", seconds=time.perf_counter() - t_phase, rows=32, groups=4,
+         engine="cuda", launches=launches,
          fused_scans=1, device_calls=1, rows_scanned=65_536,
          max_abs_err=max(errs),
          writes="deleted doc gone, updated doc top-1, cache missed")
     return launches, max(errs)
+
+
+def phase_hybrid_bench(dev):
+    from repro_torch.api import RagDB
+    from repro_torch.core.store import DocBatch, StoreConfig
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import (CorpusConfig, make_corpus,
+                                         make_keyword_queries)
+    from repro_torch.index.lexical import LexicalConfig
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.hybrid_score.ref import hybrid_score_ref, qidf_of
+
+    t_phase = time.perf_counter()
+
+    ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
+    db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
+               lexical_cfg=LexicalConfig(), device=dev)
+    corpus = make_corpus(ccfg, device=dev)
+    db.ingest(corpus)
+    q, terms_list, relevant = make_keyword_queries(ccfg, corpus, 32,
+                                                   seed=SEED + 3)
+    acls = (0xFF, 0x0F, 0xF0, 0x33)           # 4 predicate groups
+    doc_acl = corpus.acl.cpu().numpy().view(np.uint32)   # doc_id == row
+
+    def plans(mode=None):
+        out = []
+        for r in range(32):
+            b = db.session(Principal(-2, acls[r % 4])).search(q[r]).limit(10)
+            if mode is not None:
+                b = b.match(terms_list[r]).fuse(mode)
+            out.append(b.plan())
+        return out
+
+    snap = db.log.snapshot()
+    doc_ids = snap["doc_id"].cpu().numpy()
+    meta = _packed_meta(snap["tenant"], snap["updated_at"], snap["category"],
+                        snap["acl"])
+    meta_np = meta.cpu().numpy()
+
+    def recall(slots):
+        tot, n = 0.0, 0
+        for r in range(32):
+            rel = {int(d) for d in relevant[r] if doc_acl[d] & acls[r % 4]}
+            if rel:
+                got = {int(doc_ids[x]) for x in slots[r] if x >= 0}
+                tot += len(got & rel) / min(10, len(rel))
+                n += 1
+        return tot / n
+
+    dense_s, dense_sl, _ = db.execute(plans(), use_cache=False)
+    out = {"recall_dense": recall(dense_sl)}
+    errs = []
+    lx = db.lex.snapshot()
+    for mode in ("wsum", "rrf"):
+        batch = plans(mode)
+        check(all(p.engine == "hybrid" for p in batch),
+              "match() plans must pick 'hybrid'")
+        before = dataclasses.replace(db.stats)
+        hyb_mod.LAUNCHES = 0
+        s, sl, _ = db.execute(batch, use_cache=False)
+        launches = hyb_mod.LAUNCHES
+        st = db.stats
+        check(launches == 1, f"{launches} hybrid launches for one batch")
+        check(st.fused_scans - before.fused_scans == 1, "batch did not fuse")
+        check(st.device_calls - before.device_calls == 1, "device_calls != 1")
+        check(st.terms_scanned - before.terms_scanned == 65_536 * 16,
+              "terms_scanned != arena rows x lanes")
+        for r, plan in enumerate(batch):
+            qt = np.full((1, plan.lex[1]), -1, np.int32)
+            qt[0, :len(plan.logical.match_terms)] = plan.logical.match_terms
+            qt_d = torch.from_numpy(qt).to(dev)
+            pa = plan.pred.as_array(dev)
+            rs, ri = hybrid_score_ref(
+                torch.from_numpy(plan.logical.q).to(dev), snap["emb"], meta,
+                lx["terms"], lx["lexnorm"],
+                torch.zeros(1, dtype=torch.int32, device=dev), pa[None, :],
+                qt_d, qidf_of(lx["idf"], qt_d), 10, mode=mode,
+                rrf_c=float(db.lex.cfg.rrf_c))
+            errs.append(compare(f"hybrid-bench-{mode}-row{r}", s[r:r + 1],
+                                sl[r:r + 1], *tnp(rs, ri),
+                                host_mask(meta_np, pa.cpu().numpy()[None]),
+                                lower_slot_ties=mode == "wsum"))
+        out[f"launches_{mode}"] = launches
+        out[f"recall_{mode}"] = recall(sl)
+    check(out["recall_wsum"] > out["recall_dense"],
+          f"hybrid recall {out['recall_wsum']} <= dense {out['recall_dense']}")
+    # a lexical write: one doc carrying the rarest term at the highest tf
+    # and the shortest length, so it outranks every other carrier
+    rare = int(np.argmin(db.lex.stats.df))
+    admin = db.admin_session()
+    run = lambda: admin.search(q[0]).match([rare]).limit(5).run()
+    check(not run().cached and run().cached, "repeat must hit the cache")
+    one = np.random.default_rng(SEED + 4).standard_normal((1, 128))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    db.ingest(DocBatch(emb=torch.from_numpy(one.astype(np.float32)).to(dev),
+                       tenant=i32([0]), category=i32([0]),
+                       updated_at=i32([ccfg.now_ts]), acl=i32([-1]),
+                       doc_id=i32([990_000]), terms=i32([[rare]]),
+                       tfs=i32([[3]])))
+    res = run()
+    check(not res.cached, "the cache must miss after a lexical write")
+    check(int(res.slots[0, 0]) == db.log.slot_of(990_000),
+          "the written doc is not the top-1 of its only term")
+    emit("hybrid_bench", seconds=time.perf_counter() - t_phase, rows=32,
+         groups=4, engine="hybrid",
+         max_abs_err=max(errs), writes="lexical write visible, cache missed",
+         **out)
+    return max(errs)
 
 
 def peak_gb():
@@ -320,8 +618,10 @@ def peak_gb():
 
 
 def profile_batch(fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of the call's wall time."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler), its
+    split into the scan's tile_scan / merge / finish kernels, copies and
+    other PyTorch kernels (input staging, rrf_fuse), and the device's idle
+    share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -334,12 +634,22 @@ def profile_batch(fn):
         dev_us = getattr(ev, "device_time_total", 0) or 0
         if dev_us > 0 and getattr(ev, "device_type", None) is not None \
                 and "CUDA" in str(ev.device_type):
-            rows.append((ev.key[:60], ev.count, dev_us / 1e3))
+            rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
+    split = dict.fromkeys(("tile_scan", "merge", "finish", "memcpy",
+                           "other"), 0.0)
+    for name, _, ms in rows:
+        part = next((c for c, tag in (("tile_scan", "tile_scan_kernel"),
+                                      ("merge", "merge_kernel"),
+                                      ("finish", "finish_kernel"),
+                                      ("memcpy", "Memcpy")) if tag in name),
+                    "other")
+        split[part] += ms
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / (wall_us / 1e3)),
-            "kernels": [{"name": n, "calls": c, "ms": ms}
+            "split_ms": split,
+            "kernels": [{"name": n[:60], "calls": c, "ms": ms}
                         for n, c, ms in rows[:8]]}
 
 
@@ -361,10 +671,14 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
     from repro_torch.core.store import StoreConfig
     from repro_torch.core.tenancy import Principal
     from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
+    from repro_torch.index.lexical import LexicalConfig
     from repro_torch.kernels.arena_scan.ops import _packed_meta
 
+    t_phase = time.perf_counter()
+
     ccfg = CorpusConfig(n_docs=n_rows, dim=dim, n_tenants=20, n_categories=5)
-    db = RagDB(StoreConfig(capacity=n_rows, dim=dim), device=dev)
+    db = RagDB(StoreConfig(capacity=n_rows, dim=dim),
+               lexical_cfg=LexicalConfig(), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     host_s = []
     t_ingest0 = time.perf_counter()
@@ -378,6 +692,7 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
     sync()
     ingest_s = time.perf_counter() - t_ingest0
     check(int(db.log.snapshot()["n_live"]) == n_rows, "n_live after ingest")
+    check(db.lex.stats.n_docs == n_rows, "lexical docs after ingest")
 
     rng = np.random.default_rng(SEED + 2)
     qs = rng.standard_normal((32, dim)).astype(np.float32)
@@ -438,7 +753,9 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
     nbytes = N * (4 * D + 16) + B * D * 4 + B * 4 + G * 16 + B * k * 8
     flops = 2 * B * N * D
     bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
-    emit("prod", rows=N, dim=D, batch=B, groups=G, k=k,
+    emit("prod", seconds=time.perf_counter() - t_phase, rows=N, dim=D,
+         lanes=db.lex.cfg.doc_terms, batch=B,
+         groups=G, k=k,
          batch_ms_median=statistics.median(lat), batch_ms=lat,
          launches=launches, kernel_ms=ms, bound_ms=bound_ms,
          bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS
@@ -450,7 +767,141 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
     return dict(launches=launches, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, max_abs_err=err,
                 bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS
-                else "operations")
+                else "operations", db=db, groups=groups,
+                ingest_host_s=sum(host_s))
+
+
+def phase_hybrid_prod(dev, prod):
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.arena_scan.stages import (bm25_scores,
+                                                       predicate_keep)
+    from repro_torch.kernels.hybrid_score.ref import _fold, qidf_of, rrf_fuse
+
+    t_phase = time.perf_counter()
+
+    db, groups = prod["db"], prod["groups"]
+    snap, lx = db.log.snapshot(), db.lex.snapshot()
+    N, D = snap["emb"].shape
+    T = lx["terms"].shape[1]
+    meta = _packed_meta(snap["tenant"], snap["updated_at"],
+                        snap["category"], snap["acl"])
+    rng = np.random.default_rng(SEED + 5)
+    # each request: a live row its group can see, 3 of that row's term ids,
+    # q near that row's embedding
+    probe = [db.session(p).search(np.ones(D, np.float32)).newer_than(ts)
+             .in_categories(c).plan().pred for p, ts, c in groups]
+    keep = predicate_keep(meta, torch.stack([pr.as_array(dev)
+                                             for pr in probe]))
+    anchors = []
+    for r in range(32):
+        rows = torch.nonzero(keep[r % 4]).squeeze(1)
+        anchors.append(int(rows[int(rng.integers(0, rows.numel()))]))
+    a_terms = lx["terms"][anchors].cpu().numpy()
+    a_emb = snap["emb"][anchors].cpu().numpy()
+    qs, mts = [], []
+    for r in range(32):
+        live = a_terms[r][a_terms[r] >= 0]
+        mts.append(tuple(int(x) for x in rng.choice(live, 3, replace=False)))
+        v = a_emb[r] + 0.02 * rng.standard_normal(D).astype(np.float32)
+        qs.append(v / np.linalg.norm(v))
+
+    def plans(mode):
+        out = []
+        for r in range(32):
+            p, ts, cats = groups[r % 4]
+            out.append(db.session(p).search(qs[r]).newer_than(ts)
+                       .in_categories(cats).match(mts[r]).fuse(mode)
+                       .limit(10).plan())
+        return out
+
+    by_mode = {m: plans(m) for m in ("wsum", "rrf")}
+    check(all(p.engine == "hybrid" for ps in by_mode.values() for p in ps),
+          "match() plans must pick 'hybrid'")
+    n_batches = 6
+    hyb_mod.LAUNCHES = 0
+    lat, res = {}, {}
+    for mode, ps in by_mode.items():
+        lat[mode] = []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            res[mode] = db.execute(ps, use_cache=False)
+            lat[mode].append((time.perf_counter() - t0) * 1e3)
+    launches = hyb_mod.LAUNCHES
+    check(launches == 2 * n_batches, f"{launches} hybrid launches for "
+          f"{2 * n_batches} fused batches")
+    profiles = {m: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False))
+                for m, ps in by_mode.items()}
+
+    # the kernel's inputs exactly as the executor builds them
+    order = [r for g in range(4) for r in range(g, 32, 4)]
+    inv = np.argsort(order)
+    q = torch.from_numpy(np.concatenate([by_mode["wsum"][r].logical.q
+                                         for r in order])).to(dev)
+    gids = torch.tensor([g for g in range(4) for _ in range(8)],
+                        dtype=torch.int32, device=dev)
+    preds = torch.stack([by_mode["wsum"][g].pred.as_array(dev)
+                         for g in range(4)])
+    qt = np.full((32, 4), -1, np.int32)
+    for j, r in enumerate(order):
+        qt[j, :3] = mts[r]
+    qterms = torch.from_numpy(qt).to(dev)
+    qidf = qidf_of(lx["idf"], qterms).contiguous()
+    args = (q, snap["emb"], meta, lx["terms"], lx["lexnorm"], gids, preds,
+            qterms, qidf, 10)
+    mask = host_mask(meta.cpu().numpy(), preds.cpu().numpy())[gids.cpu()
+                                                              .numpy()]
+    errs, out = [], {}
+    for mode in ("wsum", "rrf"):
+        out_k = hyb_mod.hybrid_score_cuda(*args, mode=mode)
+        out_p = hyb_mod.hybrid_score_plain(*args, mode=mode)
+        sync()
+        for j in range(0, len(out_k), 2):
+            errs.append(compare(f"hybrid-prod-{mode}-{j}",
+                                *tnp(out_k[j], out_k[j + 1]),
+                                *tnp(out_p[j], out_p[j + 1]), mask))
+        fused = out_k if mode == "wsum" else rrf_fuse(*out_k, 10, RRF_C)
+        s, sl, _ = res[mode]
+        check((sl == fused[1].cpu().numpy()[inv]).all()
+              and (s == fused[0].cpu().numpy()[inv]).all(),
+              f"run() rows != kernel rows ({mode})")
+        out[mode] = dict(
+            batch_ms_median=statistics.median(lat[mode]),
+            batch_ms=lat[mode],
+            ms=events_ms(lambda m=mode: hyb_mod.hybrid_score_cuda(
+                *args, mode=m), 10),
+            plain_ms=events_ms(lambda m=mode: hyb_mod.hybrid_score_plain(
+                *args, mode=m), 3),
+            anchor_in_top10=float(np.mean([anchors[r] in sl[r].tolist()
+                                           for r in range(32)])),
+            profile=profiles[mode])
+        if mode == "rrf":
+            out[mode]["rrf_fuse_ms"] = events_ms(
+                lambda: rrf_fuse(*out_k, 10, RRF_C), 10)
+    mask_d = torch.from_numpy(mask).to(dev)
+    qf, qidf_f = _fold(q, qidf, "wsum", 1.0, 1.0)
+
+    def yardstick():
+        sc = torch.matmul(qf, snap["emb"].T) + bm25_scores(
+            lx["terms"], lx["lexnorm"], qterms, qidf_f)
+        return torch.topk(torch.where(mask_d, sc, -3.4e38), 10, dim=1)
+
+    yard_ms = events_ms(yardstick, 3)
+    B, G, QT, k = 32, 4, 4, 10
+    nbytes = (N * (4 * D + 16 + 8 * T) + B * D * 4 + B * 4 + G * 16
+              + B * QT * 8 + B * k * 8)
+    flops = 2 * B * N * D
+    bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS \
+        else "operations"
+    emit("hybrid_prod", seconds=time.perf_counter() - t_phase, rows=N,
+         dim=D, lanes=T, batch=B, groups=G,
+         query_terms=3, qt_bucket=QT, k=k, launches=launches,
+         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+         yardstick_ms=yard_ms, ingest_host_s=prod["ingest_host_s"],
+         peak_mem_gb=peak_gb(), max_abs_err=max(errs), **out)
+    return dict(launches=launches, ms=out["wsum"]["ms"],
+                plain_ms=out["wsum"]["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max(errs))
 
 
 def main() -> int:
@@ -465,7 +916,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    global hyb_mod
     from repro_torch.kernels.arena_scan import kernel as kernel_mod
+    from repro_torch.kernels.hybrid_score import hybrid_score as hyb_mod
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -482,16 +935,27 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     err1 = phase_kernel()
+    herr1 = phase_hybrid_kernel()
     _, err2 = phase_bench(dev)
+    herr2 = phase_hybrid_bench(dev)
     prod = phase_prod(dev)
+    hprod = phase_hybrid_prod(dev, prod)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/arena_scan.cu",
+        "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
         "launches": prod["launches"],
         "max_abs_err": max(err1, err2, prod["max_abs_err"]),
         "ms": prod["ms"], "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
+        "library_ms": None}, {
+        "name": "hybrid_score", "route": "cuda",
+        "source": "src/repro_torch/csrc/arena_scan.cuh",
+        "replaces": "src/repro/kernels/hybrid_score/hybrid_score.py:55",
+        "launches": hprod["launches"],
+        "max_abs_err": max(herr1, herr2, hprod["max_abs_err"]),
+        "ms": hprod["ms"], "plain_ms": hprod["plain_ms"],
+        "bound_ms": hprod["bound_ms"], "bound_by": hprod["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

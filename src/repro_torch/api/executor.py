@@ -6,14 +6,17 @@ calls for the front door (port of ``repro.api.executor``):
     its stacked query rows;
   * grouped-scan fusion: exact-engine groups sharing a `fuse_key` collapse
     into ONE `unified_query_grouped` call that streams the arena once for
-    all of them (`ExecStats.fused_groups / fused_scans` audit);
+    all of them (`ExecStats.fused_groups / fused_scans` audit); hybrid
+    groups sharing a score mix collapse into ONE fused dense+BM25 scan
+    (`kernels.hybrid_score.ops.hybrid_score`);
   * async dispatch: every dispatch unit is launched before the first
     host copy of any result (``.cpu()`` in `finish_plans` is the sync);
   * bucketed batching: each unit's row count pads to a power-of-two bucket
     (`plan.bucket_rows`), tracked by the `CompiledShapes` LRU.
 
-This slice is hot-tier only: the warm probe and tier merge arrive with the
-warm-tier slice, and the ivf / hybrid / sharded dispatch with theirs.
+This slice is hot-tier only: the warm probe and tier merge (with the rrf
+per-signal merge across tiers) arrive with the warm-tier slice, and the
+ivf / sharded dispatch with theirs.
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
 """
@@ -55,7 +58,7 @@ class ExecStats:
     padded_groups: int = 0        # BLOCK_ALL blocker lanes launched for pow2
                                   # group padding (k=0 semantics: asserted
                                   # to allocate no result rows)
-    terms_scanned: int = 0        # postings lanes streamed (hybrid slice)
+    terms_scanned: int = 0        # postings lanes streamed by hybrid scans
     degraded_plans: int = 0       # plans executed with a degradation ladder
     stale_serves: int = 0         # cache results served PAST their snapshot
                                   # under a declared staleness bound
@@ -67,8 +70,9 @@ class ExecStats:
 
 class CompiledShapes:
     """Small LRU tracking the resident retrieval shapes ``(engine,
-    bucket_rows, k, groups)`` -- the working set bucketed batching keeps
-    small. `touch()` returns True on a hit and records the miss otherwise.
+    bucket_rows, k, groups, lex)`` -- the working set bucketed batching
+    keeps small (``lex`` is a hybrid scan's score-mix identity). `touch()`
+    returns True on a hit and records the miss otherwise.
 
     >>> shapes = CompiledShapes(cap=2)
     >>> shapes.touch("ref", 8, 5)          # first sight: miss
@@ -93,8 +97,8 @@ class CompiledShapes:
         return len(self._lru)
 
     def touch(self, engine: str, bucket: int, k: int,
-              groups: int | None = None) -> bool:
-        key = (engine, bucket, k, groups)
+              groups: int | None = None, lex=None) -> bool:
+        key = (engine, bucket, k, groups, lex)
         if key in self._lru:
             self.hits += 1
             self._lru.move_to_end(key)
@@ -127,6 +131,9 @@ class _Hot:
     pad_check: int | None = None  # first padded (blocker-lane) row index
     launch_ms: float = 0.0        # host-side dispatch cost (perf_counter)
     sync_ms: float = 0.0          # finish-time copy-to-host wait
+    terms: int = 0                # postings lanes this call streamed
+                                  # (hybrid only) -- the calibration audit's
+                                  # per-unit twin of stats.terms_scanned
 
 
 def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
@@ -155,7 +162,7 @@ def _finish_hot(hot: _Hot) -> tuple[np.ndarray, np.ndarray]:
 def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
                       preds: list[Predicate], k: int, engine: str, *,
                       stats: ExecStats | None,
-                      shapes: CompiledShapes | None):
+                      shapes: CompiledShapes | None, lex=None):
     """Shared bucket/blocker padding for fused grouped launches: the
     predicate stack pads to a pow2 group count with `BLOCK_ALL` rows and
     (when ``shapes`` tracks shape reuse) the query rows to their pow2
@@ -174,7 +181,7 @@ def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
     if stats is not None:
         stats.padded_groups += g_bucket - g_real
     if shapes is not None:
-        shapes.touch(engine, bucket, k, groups=g_bucket)
+        shapes.touch(engine, bucket, k, groups=g_bucket, lex=lex)
         if stats is not None:
             stats.padded_rows += bucket - n_valid
         q = _pad_rows(q, bucket)
@@ -197,6 +204,41 @@ def _launch_grouped(store: Store, q: np.ndarray, gids: np.ndarray,
                                   stack_predicates(preds, dev), k,
                                   engine=engine)
     return _Hot(s, sl, store["emb"].shape[0], pad_check=n_valid)
+
+
+def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
+                   gids: np.ndarray, preds: list[Predicate],
+                   qterms: np.ndarray, k: int, *, mode: str,
+                   w_dense: float, w_lex: float, rrf_c: float,
+                   stats: ExecStats | None = None,
+                   shapes: CompiledShapes | None = None,
+                   lex_key=None) -> _Hot:
+    """Launch ONE fused hybrid dense+BM25 scan answering every predicate
+    group in ``preds`` -- the hybrid engine's only dispatch shape (a single
+    group is G=1). ``lex_snap`` is `LexicalArena.snapshot()`; ``qterms``
+    is (B, QT) int32 per-row query terms, already bucketed to the plan's
+    query-term-count bucket. A store on the card runs the CUDA kernel, a
+    store on the CPU the plain streaming scan."""
+    from repro_torch.kernels.hybrid_score.ops import hybrid_score
+    q, gids, preds, n_valid = _pad_group_launch(
+        q, gids, preds, k, "hybrid", stats=stats, shapes=shapes, lex=lex_key)
+    if q.shape[0] != qterms.shape[0]:
+        qterms = np.concatenate(
+            [qterms, np.full((q.shape[0] - qterms.shape[0], qterms.shape[1]),
+                             -1, np.int32)])
+    dev = store["emb"].device
+    s, sl = hybrid_score(_to_device(q, store), store["emb"], store["tenant"],
+                         store["updated_at"], store["category"], store["acl"],
+                         lex_snap["terms"], lex_snap["lexnorm"],
+                         lex_snap["idf"], _to_device(gids, store),
+                         stack_predicates(preds, dev),
+                         _to_device(qterms, store), k, mode=mode,
+                         w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c)
+    n_arena = store["emb"].shape[0]
+    terms = n_arena * int(lex_snap["terms"].shape[1])
+    if stats is not None:
+        stats.terms_scanned += terms
+    return _Hot(s, sl, n_arena, pad_check=n_valid, terms=terms)
 
 
 def run_grouped(store: Store, q: np.ndarray, preds: list[Predicate], k: int,
@@ -262,6 +304,17 @@ def run_grouped_fused(store: Store, q: np.ndarray, preds: list[Predicate],
     return s[:B], sl[:B], 1
 
 
+def _qterms_rows(row_plans, idxs, qt_bucket: int) -> np.ndarray:
+    """Per-row query-term matrix for a hybrid dispatch: row i's plan
+    supplies its lowered match() ids, padded with -1 to the unit's
+    query-term-count bucket (part of the fuse key, so every member fits)."""
+    qt = np.full((len(idxs), qt_bucket), -1, np.int32)
+    for r, i in enumerate(idxs):
+        t = row_plans[i].logical.match_terms or ()
+        qt[r, :len(t)] = t
+    return qt
+
+
 @dataclasses.dataclass
 class InFlightPlans:
     """A launched-but-unsynced `launch_plans` batch: every device call is
@@ -278,23 +331,27 @@ class InFlightPlans:
 
 def execute_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                   stats: ExecStats | None = None,
-                  shapes: CompiledShapes | None = None, planner_cfg=None):
+                  shapes: CompiledShapes | None = None, planner_cfg=None,
+                  lex=None):
     """Batched execution of compiled plans: `launch_plans` then
     `finish_plans`. Every plan must carry its query rows (`logical.q`,
-    (B_i, D)) and all must share one k. Returns (scores (B, k), slots
-    (B, k), tiers (B, k)) numpy arrays, B = total query rows, in plan
-    order."""
+    (B_i, D)) and all must share one k. ``lex`` is the RagDB's
+    `LexicalArena`, consumed by engine-'hybrid' groups. Returns (scores
+    (B, k), slots (B, k), tiers (B, k)) numpy arrays, B = total query rows,
+    in plan order."""
     return finish_plans(launch_plans(hot_store, plans, stats=stats,
-                                     shapes=shapes, planner_cfg=planner_cfg))
+                                     shapes=shapes, planner_cfg=planner_cfg,
+                                     lex=lex))
 
 
 def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                  stats: ExecStats | None = None,
                  shapes: CompiledShapes | None = None, planner_cfg=None,
-                 obs=None, calib=None) -> InFlightPlans:
+                 lex=None, obs=None, calib=None) -> InFlightPlans:
     """LAUNCH phase: group plans by `group_key`, hand the distinct groups
     to `planner.fuse_batch`, and launch EVERY dispatch unit without
-    syncing. ``obs`` (one obs.Trace per plan) records a ``launch`` span per
+    syncing. ``lex`` (the RagDB's `LexicalArena`) serves engine-'hybrid'
+    groups. ``obs`` (one obs.Trace per plan) records a ``launch`` span per
     unit into each member request's trace; ``calib`` is carried to
     `finish_plans`, which records the predicted-vs-measured audit."""
     from repro_torch.api.planner import PlannerConfig, fuse_batch
@@ -344,7 +401,28 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                           "launch", engine=rep.engine, fused=unit.fused,
                           groups=len(unit.plans))
         t_launch0 = time.perf_counter()
-        if unit.fused:
+        if rep.engine == "hybrid":
+            # hybrid always dispatches through the grouped fused scan (a
+            # single predicate group is simply G=1): ONE pass computes
+            # dense + BM25 + predicate masks for every member group
+            if lex is None:
+                raise ValueError("engine='hybrid' requires a lexical arena "
+                                 "— construct the RagDB with lexical_cfg")
+            idxs = [i for m in member_idxs for i in m]
+            gids = np.concatenate(
+                [np.full(len(m), g, np.int32)
+                 for g, m in enumerate(member_idxs)])
+            mode, qt_bucket, w_d, w_l = rep.lex
+            hot = _launch_hybrid(
+                hot_store, lex.snapshot(), q_all[np.asarray(idxs)], gids,
+                [p.pred for p in unit.plans],
+                _qterms_rows(row_plans, idxs, qt_bucket), k, mode=mode,
+                w_dense=w_d, w_lex=w_l, rrf_c=lex.cfg.rrf_c, stats=stats,
+                shapes=shapes, lex_key=rep.lex)
+            if stats is not None and unit.fused:
+                stats.fused_groups += len(unit.plans)
+                stats.fused_scans += 1
+        elif unit.fused:
             idxs = [i for m in member_idxs for i in m]
             gids = np.concatenate(
                 [np.full(len(m), g, np.int32)
@@ -407,7 +485,8 @@ def finish_plans(pending: InFlightPlans):
                 groups=len(unit.plans), k=k,
                 rows=sum(len(m) for m in member_idxs),
                 predicted_ms=rep.est_cost_ms, launch_ms=hot.launch_ms,
-                sync_ms=hot.sync_ms, rows_scanned=hot.rows)
+                sync_ms=hot.sync_ms, rows_scanned=hot.rows,
+                terms_scanned=hot.terms)
         if stats is not None:
             stats.rows_scanned += hot.rows
         merge_fan = (FanSpan(unit_traces, "merge", groups=len(member_idxs))

@@ -3,6 +3,9 @@
 Compilation is deterministic and fully reported by ``explain()``.
 
 Engine selection, first match wins:
+  0. a match() clause compiles to "hybrid" -- the only engine that scores
+     the lexical signal (the arena-scan kernel in its lexical modes for a
+     store on the card, the plain streaming scan on the CPU);
   1. the builder's explicit `.using(engine)` hint;
   2. "cuda" for every exact plan whose store lies on a CUDA device -- the
      hand-written arena-scan kernel;
@@ -16,8 +19,8 @@ cost estimate until the port has its own bench.
 Tier routing keeps the paper's §7.3 rule. This slice has no warm tier, so
 every plan routes "hot" with the reason "warm tier empty".
 
-Engines of later slices -- "ivf", "sharded", "hybrid" (and the match()
-clause) -- raise NotImplementedError naming their ROADMAP queue item.
+Engines of later slices -- "ivf" and "sharded" -- raise
+NotImplementedError naming their ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -26,11 +29,10 @@ import math
 
 import torch
 
-from repro_torch.api.plan import LogicalPlan, PhysicalPlan
+from repro_torch.api.plan import LogicalPlan, PhysicalPlan, bucket_rows
 
 #: engines of later slices -> the ROADMAP queue-1 item that brings them
 LATER_ENGINES = {
-    "hybrid": "lexical/hybrid slice (ROADMAP queue 1, 'Lexical arena and hybrid search')",
     "ivf": "IVF slice (ROADMAP queue 1, 'IVF')",
     "sharded": "sharded-engine slice (ROADMAP queue 1, 'Sharded engine')",
 }
@@ -155,7 +157,7 @@ def fuse_batch(plans, *, cfg: PlannerConfig = PlannerConfig()) -> list[FusedGrou
     once at least ``cfg.fuse_min_groups`` of them do -- the arena then
     streams once for all of them (`rows_scanned` G*N -> N).
 
-    >>> from repro_torch.api.plan import LogicalPlan, PhysicalPlan
+    >>> from repro_torch.api.plan import LogicalPlan, PhysicalPlan, bucket_rows
     >>> mk = lambda t: PhysicalPlan(
     ...     logical=LogicalPlan(tenant=t, k=5),
     ...     pred=LogicalPlan(tenant=t, k=5).predicate(), engine="ref",
@@ -206,9 +208,10 @@ def fuse_batch(plans, *, cfg: PlannerConfig = PlannerConfig()) -> list[FusedGrou
 
 def choose_engine(logical: LogicalPlan, *, n_rows: int,
                   cfg: PlannerConfig = PlannerConfig(),
-                  device="cpu") -> tuple[str, str]:
+                  device="cpu", has_lex: bool = False) -> tuple[str, str]:
     """Pick the execution engine and an auditable reason string.
-    ``device`` is the device the store lies on.
+    ``device`` is the device the store lies on; ``has_lex`` whether the
+    RagDB carries a lexical arena (which admits match() clauses).
 
     >>> choose_engine(LogicalPlan(k=5), n_rows=512)
     ('ref', 'cpu backend, 512 rows')
@@ -217,11 +220,31 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
     >>> choose_engine(LogicalPlan(k=5, engine="ref"), n_rows=512,
     ...               device="cuda")[0]
     'ref'
+    >>> choose_engine(LogicalPlan(match_terms=(3, 7), k=5), n_rows=512,
+    ...               has_lex=True)[0]
+    'hybrid'
     """
+    # a match() clause is a CORRECTNESS requirement, not a speed choice:
+    # only the hybrid engine scores the lexical signal, so every other
+    # engine would silently drop the clause -- the planner refuses instead
     if logical.match_terms is not None:
-        raise NotImplementedError(
-            "match() is not ported yet: it arrives with the "
-            + LATER_ENGINES["hybrid"])
+        if not has_lex:
+            raise ValueError("match() requires a lexical arena — construct "
+                             "the RagDB with lexical_cfg")
+        if logical.engine not in (None, "hybrid"):
+            raise ValueError(
+                f"a match() query must run on the hybrid engine, "
+                f"not .using({logical.engine!r}) — drop the hint or the "
+                f"match() clause")
+        reason = "match() clause — fused dense+BM25 one-pass scan"
+        cm = cfg.cost_model
+        est = cm.estimate_ms("hybrid", n_rows) if cm is not None else None
+        if est is not None:
+            reason += f" (cost model: ~{est:.2f}ms)"
+        return "hybrid", reason
+    if logical.engine == "hybrid":
+        raise ValueError("engine='hybrid' requires a match() clause — "
+                         "there is no lexical signal to fuse")
     check_engine_hint(logical.engine)
     if (logical.fusion, logical.w_dense, logical.w_lex) != ("wsum", 1.0, 1.0):
         raise ValueError("fuse() requires a match() clause — without one "
@@ -270,29 +293,53 @@ def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
 def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(),
-                 device="cpu") -> PhysicalPlan:
+                 device="cpu", lex=None) -> PhysicalPlan:
     """Compile WHAT (LogicalPlan) into HOW (PhysicalPlan): engine + route +
     the predicate-group batching key, with any cost estimate attached so
-    ``explain()`` can render it. ``device`` is the store's device."""
+    ``explain()`` can render it. ``device`` is the store's device; ``lex``
+    the RagDB's `LexicalArena` (or None): its presence admits match()
+    clauses, which compile to the "hybrid" engine with the score-mix
+    identity (fusion mode, query-term-count bucket, weights) stamped into
+    the group key.
+
+    >>> p = compile_plan(LogicalPlan(match_terms=(5, 9), k=5), n_rows=64,
+    ...                  hot_window_s=10, now_ts=0, warm_rows=0,
+    ...                  lex=object())
+    >>> p.engine, p.lex
+    ('hybrid', ('wsum', 2, 1.0, 1.0))
+    """
     engine, engine_reason = choose_engine(logical, n_rows=n_rows, cfg=cfg,
-                                          device=device)
+                                          device=device,
+                                          has_lex=lex is not None)
     route, route_reason = choose_route(logical, hot_window_s=hot_window_s,
                                        now_ts=now_ts, warm_rows=warm_rows,
                                        cost_model=cfg.cost_model)
     est = (cfg.cost_model.estimate_ms(engine, n_rows)
            if cfg.cost_model is not None else None)
+    lex_key = None
+    if engine == "hybrid":
+        qt_bucket = bucket_rows(len(logical.match_terms))
+        # rrf ranks ignore the weights -- normalize them out of the identity
+        # so rrf groups differing only in unused weights still fuse
+        if logical.fusion == "wsum":
+            lex_key = ("wsum", qt_bucket, float(logical.w_dense),
+                       float(logical.w_lex))
+        else:
+            lex_key = ("rrf", qt_bucket, 1.0, 1.0)
     return PhysicalPlan(logical=logical, pred=logical.predicate(),
                         engine=engine, engine_reason=engine_reason,
                         route=route, route_reason=route_reason, n_rows=n_rows,
                         est_cost_ms=est,
                         cost_source=("measured" if est is not None
-                                     else "static-thresholds"))
+                                     else "static-thresholds"),
+                        lex=lex_key)
 
 
 def degrade_plan(plan: PhysicalPlan) -> PhysicalPlan | None:
     """One rung DOWN the degradation ladder, or None when it is exhausted.
     The rungs (ivf probe depth, hybrid -> dense, ivf -> exact) belong to
-    engines of later slices; an exact plan has nothing to shed.
+    later slices (the hybrid -> dense rung arrives with serving); an exact
+    plan has nothing to shed.
 
     >>> from repro_torch.api.plan import LogicalPlan
     >>> p = compile_plan(LogicalPlan(k=5), n_rows=1 << 10, hot_window_s=10,

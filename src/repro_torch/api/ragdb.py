@@ -19,10 +19,13 @@ hand them to `db.execute`, which collapses plans sharing a predicate group
 into one device call each, fuses exact-engine groups into ONE grouped arena
 scan, and launches every call before the first sync.
 
-This slice holds the hot arena's `TransactionLog` directly as ``db.log``.
-The warm tier and router, the cold archive, IVF, the lexical arena and the
-mesh arrive with later slices; their constructor arguments and builder
-methods raise NotImplementedError naming their ROADMAP queue item.
+This slice holds the hot arena's `TransactionLog` directly as ``db.log``,
+and with ``lexical_cfg`` a `LexicalArena` beside it as ``db.lex`` (written
+through the log's ``lex`` hook), which admits `QueryBuilder.match()` and
+`.fuse()`: the hybrid dense+BM25 scan. The warm tier and router, the cold
+archive, IVF and the mesh arrive with later slices; their constructor
+arguments and builder methods raise NotImplementedError naming their
+ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.api.planner import (LATER_ENGINES, PlannerConfig,
 from repro_torch.core.store import DocBatch, StoreConfig
 from repro_torch.core.tenancy import Principal, TenantRegistry, category_mask
 from repro_torch.core.transactions import TransactionLog
+from repro_torch.index.lexical import LexicalArena, LexicalConfig
 from repro_torch.obs import CalibrationTable, Tracer
 from repro_torch.obs.tracer import NULL_TRACE, TraceGroup
 from repro_torch.serving.faults import HotLaunchError, WedgedBatchError
@@ -202,7 +206,7 @@ class RagDB:
     def __init__(self, hot_cfg: StoreConfig, *, warm_cfg: StoreConfig | None = None,
                  hot_window_s: int | None = None, now_ts: int = 0,
                  planner_cfg: PlannerConfig = PlannerConfig(),
-                 mesh=None, lexical_cfg=None,
+                 mesh=None, lexical_cfg: LexicalConfig | None = None,
                  result_cache_size: int = 256, shape_cache_size: int = 32,
                  device=None):
         if warm_cfg is not None or hot_window_s is not None:
@@ -210,9 +214,16 @@ class RagDB:
                               "warm-tier slice (ROADMAP queue 1, 'Warm tier and router')")
         if mesh is not None:
             raise _not_ported("mesh=", LATER_ENGINES["sharded"])
-        if lexical_cfg is not None:
-            raise _not_ported("lexical_cfg=", LATER_ENGINES["hybrid"])
         self.log = TransactionLog(hot_cfg, device=device)
+        # lexical scoring arena (lexical_cfg given): postings lanes beside
+        # the vector arena, slot-aligned and written through the log's lex
+        # hook, so they commit with the rows. None means match() is
+        # structurally unavailable.
+        self.lex: LexicalArena | None = None
+        if lexical_cfg is not None:
+            self.lex = LexicalArena(hot_cfg.capacity, lexical_cfg,
+                                    device=self.log.device)
+            self.log.lex = self.lex
         self.hot_window_s = _FOREVER
         self.now_ts = now_ts
         self.tenants = TenantRegistry()
@@ -314,20 +325,27 @@ class RagDB:
         return compile_plan(
             logical, n_rows=snap["emb"].shape[0],
             hot_window_s=self.hot_window_s, now_ts=self.now_ts,
-            warm_rows=0, cfg=self.planner_cfg, device=snap["emb"].device)
+            warm_rows=0, cfg=self.planner_cfg, device=snap["emb"].device,
+            lex=self.lex)
 
     def _result_key(self, plan: PhysicalPlan) -> tuple | None:
         """Snapshot-exact cache key for one plan, or None when the plan is
-        uncacheable (no query rows). The warm commit counter, index epoch
-        and lexical version keep their places in the key, pinned to -1
-        until their slices exist."""
+        uncacheable (no query rows). Hybrid plans also key on their term
+        ids (in the digest) and on the `LexicalStats` version, because a
+        lexical write moves idf/avgdl and therefore hybrid scores. The warm
+        commit counter and index epoch keep their places in the key, pinned
+        to -1 until their slices exist."""
         lp = plan.logical
         if lp.q is None:
             return None
         q = np.ascontiguousarray(np.atleast_2d(lp.q), np.float32)
-        digest = hashlib.blake2b(q.tobytes(), digest_size=16).digest()
-        return (plan.group_key, q.shape, digest, self.log.commit_count,
-                -1, -1, -1)
+        h = hashlib.blake2b(q.tobytes(), digest_size=16)
+        lex_version = -1
+        if plan.engine == "hybrid" and self.lex is not None:
+            h.update(repr(lp.match_terms).encode())
+            lex_version = self.lex.stats.version
+        return (plan.group_key, q.shape, h.digest(), self.log.commit_count,
+                -1, -1, lex_version)
 
     def degrade(self, plan: PhysicalPlan) -> PhysicalPlan | None:
         """One rung down the degradation ladder for ``plan``, or None when
@@ -424,7 +442,7 @@ class RagDB:
                 inflight = launch_plans(
                     self.log.snapshot(), run_plans, stats=self.stats,
                     shapes=self.shapes, planner_cfg=self.planner_cfg,
-                    obs=run_traces, calib=self.calibration)
+                    lex=self.lex, obs=run_traces, calib=self.calibration)
             finally:
                 if group is not None:
                     self.tracer.pop()
@@ -496,6 +514,14 @@ class RagDB:
                        f"{rc.hits} hits / {rc.misses} misses")
         else:
             results = "disabled"
+        if self.lex is not None:
+            lx = self.lex
+            lexical = (f"{lx.stats.n_docs} docs with postings, vocab "
+                       f"{lx.cfg.vocab_size}, {lx.cfg.doc_terms} lanes/doc, "
+                       f"avgdl {lx.stats.avgdl:.1f}, "
+                       f"stats v{lx.stats.version}")
+        else:
+            lexical = "none (match() unavailable)"
         st = self.stats
         lines = [
             f"RagDB  {snap['emb'].shape[0]} hot-tier rows "
@@ -517,7 +543,7 @@ class RagDB:
             f"{st.warm_failovers} warm failovers (hot-only), "
             f"{st.stale_epoch_rejected} stale-epoch cache reads rejected",
             "  ivf index:    none (exact scans only)",
-            "  lexical:      none (match() unavailable)",
+            f"  lexical:      {lexical}",
             f"  calibration:  {self.calibration.explain_line()}",
         ]
         if self.tracer.enabled:
@@ -587,16 +613,41 @@ class QueryBuilder:
         return self._with(k=int(k))
 
     def match(self, text) -> "QueryBuilder":
-        raise _not_ported("match()", LATER_ENGINES["hybrid"])
+        """Lexical clause: blend BM25 over the given terms into the
+        ranking. ``text`` is a string (tokenized and hashed through the
+        arena vocabulary) or an iterable of term ids; it lowers to unique
+        term ids HERE, so the logical plan the planner sees is already
+        vocabulary-resolved. Compiles to the "hybrid" engine (fused
+        dense+BM25 one-pass scan); requires the RagDB to carry a lexical
+        arena (``lexical_cfg``)."""
+        lex = self._db.lex
+        if lex is None:
+            raise ValueError("match() requires a lexical arena — construct "
+                             "the RagDB with lexical_cfg=LexicalConfig(...)")
+        ids = lex.lower_terms(text)
+        if not ids:
+            raise ValueError(f"match() lowered to no valid terms: {text!r}")
+        return self._with(match_terms=ids)
 
     def fuse(self, mode: str = "wsum", *, w_dense: float = 1.0,
              w_lex: float = 1.0) -> "QueryBuilder":
-        raise _not_ported("fuse()", LATER_ENGINES["hybrid"])
+        """Score-mix knobs for a match() query: ``"wsum"`` ranks on
+        w_dense*dense + w_lex*bm25 in one running top-k; ``"rrf"`` retrieves
+        both per-signal k-lists in the same scan and fuses by reciprocal
+        rank (weights unused). The mix is part of the plan's group key, so
+        differently-fused queries never share a device program."""
+        if mode not in ("wsum", "rrf"):
+            raise ValueError(f"unknown fusion mode {mode!r} "
+                             "(expected 'wsum' or 'rrf')")
+        return self._with(fusion=mode, w_dense=float(w_dense),
+                          w_lex=float(w_lex))
 
     def using(self, engine: str) -> "QueryBuilder":
         """Force an execution engine: "ref" (plain PyTorch, on the store's
-        device) or "cuda" (the arena-scan kernel). "pallas" and the engines
-        of later slices are refused here."""
+        device) or "cuda" (the arena-scan kernel). match() queries always
+        run on "hybrid", so a conflicting hint is refused at plan time, as
+        is "hybrid" without a match() clause. "pallas" and the engines of
+        later slices are refused here."""
         check_engine_hint(engine)
         return self._with(engine=engine)
 

@@ -213,18 +213,59 @@ def make_keyword_queries(cfg: CorpusConfig, corpus: DocBatch,
     return np.asarray(qs, np.float32), match_terms, relevant
 
 
+def _device_lexical(cfg: CorpusConfig, tid: torch.Tensor,
+                    gen: torch.Generator):
+    """`_doc_lexical`'s distributions drawn on ``gen``'s device: topic-
+    correlated lanes, a Zipfian background (inverse-CDF draws), a rare
+    entity term on `entity_frac` of docs, tf in 1..3. (n, T) int32."""
+    dev = gen.device
+    n = tid.shape[0]
+    t_lanes = cfg.doc_terms
+    v_common = cfg.n_common_terms
+    block = max(v_common // cfg.n_topics, 1)
+    n_topic = min(cfg.topic_term_lanes, t_lanes)
+    ri = lambda hi, size: torch.randint(0, hi, size, generator=gen,
+                                        device=dev, dtype=torch.int64)
+    base = (tid[:, None] * block) % v_common
+    topical = (base + ri(block, (n, n_topic))) % v_common
+    ranks = torch.arange(1, v_common + 1, dtype=torch.float64, device=dev)
+    cdf = torch.cumsum(ranks ** -cfg.zipf_alpha, 0)
+    cdf = cdf / cdf[-1]
+    u = torch.rand((n, t_lanes - n_topic), generator=gen, device=dev,
+                   dtype=torch.float64)
+    background = torch.clamp(torch.searchsorted(cdf, u), max=v_common - 1)
+    terms = torch.cat([topical, background], dim=1)
+    if cfg.n_entity_terms and cfg.entity_frac > 0:
+        has_ent = torch.rand(n, generator=gen, device=dev) < cfg.entity_frac
+        e_block = max(cfg.n_entity_terms // cfg.n_topics, 1)
+        ent = v_common + (tid * e_block + ri(e_block, (n,))) % cfg.n_entity_terms
+        terms[:, t_lanes - 1] = torch.where(has_ent, ent,
+                                            terms[:, t_lanes - 1])
+    tfs = torch.randint(1, 4, (n, t_lanes), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return terms.to(torch.int32), tfs
+
+
 def device_corpus(cfg: CorpusConfig, start: int, n: int,
                   gen: torch.Generator) -> DocBatch:
     """``n`` docs (doc ids ``start..start+n-1``) drawn on ``gen``'s device
     from the same distributions as `make_corpus`: topic mixture on the
     sphere (the cfg's `topic_basis`), uniform tenant / category /
-    timestamp, 1..3 ACL groups of ``n_acl_groups``. No lexical lanes. For
-    arenas too large to draw on the host; not byte-identical to numpy."""
+    timestamp, 1..3 ACL groups of ``n_acl_groups``, and T lexical lanes
+    from `_doc_lexical`'s distributions. For arenas too large to draw on
+    the host; not byte-identical to numpy.
+
+    >>> cfg = CorpusConfig(n_docs=64, dim=8, vocab_size=512)
+    >>> b = device_corpus(cfg, 0, 64, torch.Generator().manual_seed(0))
+    >>> tuple(b.terms.shape), int(b.terms.min()) >= 0, int(b.tfs.max()) <= 3
+    ((64, 16), True, True)
+    """
     dev = gen.device
     topics = torch.from_numpy(topic_basis(cfg)).to(dev)
     ri = lambda hi, size: torch.randint(0, hi, size, generator=gen,
                                         device=dev, dtype=torch.int64)
-    x = topics[ri(cfg.n_topics, (n,))] + cfg.topic_sigma * torch.randn(
+    tid = ri(cfg.n_topics, (n,))
+    x = topics[tid] + cfg.topic_sigma * torch.randn(
         (n, cfg.dim), generator=gen, device=dev)
     x = x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
                         min=1e-12)
@@ -234,9 +275,12 @@ def device_corpus(cfg: CorpusConfig, start: int, n: int,
         acl |= torch.where(on, 1 << ri(cfg.n_acl_groups, (n,)), 0)
     acl |= 1 << ri(cfg.n_acl_groups, (n,))
     i32 = lambda t: t.to(torch.int32)
+    tenant = i32(ri(cfg.n_tenants, (n,)))
+    category = i32(ri(cfg.n_categories, (n,)))
+    updated_at = i32(ri(cfg.days_span * DAY_S, (n,)))
+    terms, tfs = _device_lexical(cfg, tid, gen)
     return DocBatch(
-        emb=x.float(), tenant=i32(ri(cfg.n_tenants, (n,))),
-        category=i32(ri(cfg.n_categories, (n,))),
-        updated_at=i32(ri(cfg.days_span * DAY_S, (n,))),
-        acl=i32(acl), doc_id=torch.arange(start, start + n, dtype=torch.int32,
-                                          device=dev))
+        emb=x.float(), tenant=tenant, category=category,
+        updated_at=updated_at, acl=i32(acl),
+        doc_id=torch.arange(start, start + n, dtype=torch.int32, device=dev),
+        terms=terms, tfs=tfs)

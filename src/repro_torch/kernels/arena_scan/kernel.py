@@ -1,12 +1,16 @@
 """The unified arena scan on the card: the CUDA kernel's wrapper and its
 plain PyTorch version.
 
-`arena_scan_cuda` launches ``csrc/arena_scan.cu`` (the Hopper port of the
-Pallas kernel ``arena_scan_pallas``, resident regime, dense spec --
-``src/repro/kernels/arena_scan/kernel.py:97,171``; its header states the
-design and its bound). The library is built with ``nvcc`` at first use,
-from the sources in the package only, into ``src/repro_torch/build/``
-(listed in ``.gitignore``), and loaded with ``ctypes``.
+`arena_scan_cuda` launches the kernels of ``csrc/arena_scan.cuh`` (the
+Hopper port of the Pallas kernel ``arena_scan_pallas``, resident regime --
+``src/repro/kernels/arena_scan/kernel.py:97,171`` -- in its dense spec and
+its two lexical specs, ``ScanSpec("fused" | "both")``, which
+``hybrid_score_pallas`` runs; the header states the design and its bound).
+Each spec's C entry point is one source (``arena_scan.cu``,
+``arena_scan_fused.cu``, ``arena_scan_both.cu``); at first use one ``nvcc``
+per source compiles them all at once, from the sources in the package only,
+and the objects link into one library in ``src/repro_torch/build/`` (listed
+in ``.gitignore``), loaded with ``ctypes``.
 
 `arena_scan` is the dispatch every caller uses: CUDA tensors go to the
 kernel, CPU tensors to `arena_scan_plain`, and nothing else is taken.
@@ -28,12 +32,19 @@ from repro_torch.kernels.arena_scan.stages import ScanSpec
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "arena_scan.cu")
+CSRC = os.path.join(_PKG, "csrc")
+HEADER = os.path.join(CSRC, "arena_scan.cuh")
+#: one source per score mode's C entry point, compiled in parallel
+SOURCES = tuple(os.path.join(CSRC, f) for f in (
+    "arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu"))
 BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-#: kernel launches through `arena_scan_cuda` (the main-path audit)
+#: dense-spec kernel launches through `arena_scan_cuda` (the main-path
+#: audit); the lexical specs are counted by their one caller,
+#: ``kernels.hybrid_score.hybrid_score.LAUNCHES``
 LAUNCHES = 0
 #: nvcc's output of the build this process made (ptxas register and
 #: shared-memory report), or "" when the library was already built
@@ -54,27 +65,45 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernel library if this source has not been built yet.
-    Returns the path of the shared library."""
+    """Compile the kernel library if these sources have not been built yet:
+    one nvcc per source, all started together, then one link. Returns the
+    path of the shared library."""
     global BUILD_LOG
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libarena_scan-{digest}.so")
+    h = hashlib.sha256()
+    for path in (HEADER, *SOURCES):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libarena_scan-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        try:
+            logs = [proc.communicate()[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        BUILD_LOG = "".join(logs)
+        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True, check=False)
-        BUILD_LOG = proc.stdout + proc.stderr
+        BUILD_LOG += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"linking the kernel library failed:\n"
+                               f"{BUILD_LOG}")
+        os.replace(lib, out)
     return out
 
 
@@ -86,6 +115,10 @@ def _load():
         lib.arena_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                           p, p, p, p, p, p, p]
         lib.arena_scan_launch.restype = i
+        for fn in (lib.arena_scan_fused_launch, lib.arena_scan_both_launch):
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                           p, p, p, p, p, p, p]
+            fn.restype = i
         lib.arena_scan_error_string.argtypes = [i]
         lib.arena_scan_error_string.restype = ctypes.c_char_p
         lib.arena_scan_tile_rows.argtypes = []
@@ -106,11 +139,14 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def arena_scan_cuda(q, emb, meta, gids, preds, k: int):
+def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
+                    spec: ScanSpec = ScanSpec(), lex: tuple | None = None):
     """Launch the CUDA arena scan on the current stream (no sync). q (B, D)
     f32; emb (N, D) f32; meta (N, 4) int32; gids (B,) int32; preds (G, 4)
-    int32; all contiguous on one CUDA device. Returns (scores (B, k) f32,
-    slots (B, k) int32). Raises on any input it cannot take."""
+    int32; for the lexical specs lex = (terms (N, T) int32, lexnorm (N, T)
+    f32, qterms (B, QT) int32, qidf (B, QT) f32); all contiguous on one
+    CUDA device. Returns `spec.n_lists` (scores (B, k) f32, slots (B, k)
+    int32) pairs flattened. Raises on any input it cannot take."""
     global LAUNCHES
     dev = q.device
     if dev.type != "cuda":
@@ -132,29 +168,58 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int):
                          "shared-memory block (8192)")
     if max(B, N, k) >= 1 << 31:
         raise ValueError("B, N and k must fit in int32")
+    T = QT = 0
+    if spec.has_lex:
+        if lex is None:
+            raise ValueError(f"ScanSpec(score={spec.score!r}) needs "
+                             "lex=(terms, lexnorm, qterms, qidf)")
+        terms, lexnorm, qterms, qidf = lex
+        if terms.dim() != 2 or qterms.dim() != 2:
+            raise ValueError("terms and qterms must be 2-D")
+        T, QT = terms.shape[1], qterms.shape[1]
+        _check("terms", terms, torch.int32, (N, T), dev)
+        _check("lexnorm", lexnorm, torch.float32, (N, T), dev)
+        _check("qterms", qterms, torch.int32, (B, QT), dev)
+        _check("qidf", qidf, torch.float32, (B, QT), dev)
+        if not (1 <= T <= 64 and 1 <= QT <= 64):
+            raise ValueError(f"the kernel stages T={T} lanes and QT={QT} "
+                             "query terms in shared memory: each in [1, 64]")
     lib = _load()
     tile = lib.arena_scan_tile_rows()
     n_tiles = -(-N // tile)
     n_pow2 = 1 << (n_tiles - 1).bit_length()
-    cand = B * n_pow2 * min(k, tile)
+    rows = spec.n_lists * B
+    cand = rows * n_pow2 * min(k, tile)
     s0 = torch.empty(cand, dtype=torch.float32, device=dev)
     i0 = torch.empty(cand, dtype=torch.int32, device=dev)
     s1 = torch.empty(cand, dtype=torch.float32, device=dev)
     i1 = torch.empty(cand, dtype=torch.int32, device=dev)
-    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-    rc = lib.arena_scan_launch(
-        q.data_ptr(), emb.data_ptr(), meta.data_ptr(), gids.data_ptr(),
-        preds.data_ptr(), B, N, D, G, k, s0.data_ptr(), i0.data_ptr(),
-        s1.data_ptr(), i1.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        stream)
+    scratch = (s0.data_ptr(), i0.data_ptr(), s1.data_ptr(), i1.data_ptr(),
+               out_s.data_ptr(), out_i.data_ptr(), stream)
+    dense_in = (q.data_ptr(), emb.data_ptr(), meta.data_ptr(),
+                gids.data_ptr(), preds.data_ptr())
+    if spec.has_lex:
+        launch = (lib.arena_scan_fused_launch if spec.score == "fused"
+                  else lib.arena_scan_both_launch)
+        rc = launch(*dense_in, terms.data_ptr(), lexnorm.data_ptr(),
+                    qterms.data_ptr(), qidf.data_ptr(), B, N, D, G, T, QT, k,
+                    *scratch)
+    else:
+        rc = lib.arena_scan_launch(*dense_in, B, N, D, G, k, *scratch)
     if rc != 0:
-        raise RuntimeError("arena_scan kernel launch failed: "
-                           + lib.arena_scan_error_string(rc).decode())
-    LAUNCHES += 1
-    return out_s, out_i
+        raise RuntimeError(
+            f"arena_scan kernel launch failed (spec {spec.score!r}, B={B} "
+            f"N={N} D={D} G={G} T={T} QT={QT} k={k}): "
+            + lib.arena_scan_error_string(rc).decode())
+    if not spec.has_lex:
+        LAUNCHES += 1
+    if spec.n_lists == 1:
+        return out_s, out_i
+    return out_s[:B], out_i[:B], out_s[B:], out_i[B:]
 
 
 #: The plain PyTorch version of the kernel (the port of `arena_scan_ref`):
@@ -165,11 +230,13 @@ arena_scan_plain = arena_scan_ref
 
 
 def arena_scan(q, emb, meta, gids, preds, k: int, *,
-               spec: ScanSpec = ScanSpec()):
+               spec: ScanSpec = ScanSpec(), lex: tuple | None = None):
     """The unified scan: the CUDA kernel for tensors on the card, the plain
     version for tensors on the CPU; any other device raises."""
     if q.device.type == "cuda":
-        return arena_scan_cuda(q, emb, meta, gids, preds, k)
+        return arena_scan_cuda(q, emb, meta, gids, preds, k, spec=spec,
+                               lex=lex)
     if q.device.type == "cpu":
-        return arena_scan_plain(q, emb, meta, gids, preds, k, spec=spec)
+        return arena_scan_plain(q, emb, meta, gids, preds, k, spec=spec,
+                                lex=lex)
     raise ValueError(f"no arena-scan engine for device {q.device}")

@@ -3,17 +3,21 @@ streaming scan (port of ``repro.kernels.arena_scan.ref``).
 
 The oracle materialises the full (B, N) score block. The streaming scan is
 the CUDA kernel's schedule without the card: tiles of ``blk_n`` rows scored
-independently, a local top-k per tile, one merge over the candidates. It is
-the port's "ref" engine for grouped scans, and on the CPU it emulates what
-each block of ``csrc/arena_scan.cu`` keeps, so the kernel's algorithm is
-tested where the kernel cannot run.
+independently, a local top-k per tile and running list, one merge over the
+candidates. It is the port's "ref" engine for grouped scans, and on the CPU
+it emulates what each block of ``csrc/arena_scan.cu`` keeps, so the
+kernel's algorithm is tested where the kernel cannot run.
+
+Both take a `ScanSpec` and, for the lexical specs, ``lex=(terms, lexnorm,
+qterms, qidf)``, and return `spec.n_lists` (scores (B, k) f32, slots (B, k)
+int32) pairs flattened.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.arena_scan.stages import (NEG_INF, ScanSpec,
-                                                   tile_mask, tile_scores,
+                                                   tile_mask, tile_signals,
                                                    topk_ordered)
 
 
@@ -28,43 +32,63 @@ def _finish(top_s, top_i, k: int):
     return top_s, torch.where(top_s > NEG_INF, top_i, -1).to(torch.int32)
 
 
-def _check(spec: ScanSpec, meta):
+def _check(spec: ScanSpec, meta, lex):
     if meta.shape[1] != spec.meta_width:
         raise ValueError(f"meta must be (N, {spec.meta_width}), got "
                          f"{tuple(meta.shape)}")
+    if spec.has_lex and lex is None:
+        raise ValueError(f"ScanSpec(score={spec.score!r}) needs lex=(terms, "
+                         "lexnorm, qterms, qidf)")
 
 
 def arena_scan_ref(q, emb, meta, gids, preds, k: int, *,
-                   spec: ScanSpec = ScanSpec()):
+                   spec: ScanSpec = ScanSpec(), lex: tuple | None = None):
     """Dense oracle. q: (B, D); emb: (N, D); meta: (N, 4) int32; gids: (B,)
-    int32 group id per row; preds: (G, 4) int32. Returns (scores (B, k)
-    f32, slots (B, k) int32), NEG_INF / -1 past the fill."""
-    _check(spec, meta)
+    int32 group id per row; preds: (G, 4) int32; lex: (terms (N, T) int32,
+    lexnorm (N, T) f32, qterms (B, QT) int32, qidf (B, QT) f32) for the
+    lexical specs. Returns `spec.n_lists` (scores (B, k) f32, slots (B, k)
+    int32) pairs flattened, NEG_INF / -1 past the fill."""
+    _check(spec, meta, lex)
     n = emb.shape[0]
-    scores = tile_scores(q, emb, tile_mask(meta, preds, gids))
+    signals = tile_signals(spec, q, emb, tile_mask(meta, preds, gids), lex)
     idx = torch.arange(n, dtype=torch.int32,
                        device=q.device).expand(q.shape[0], n)
-    return _finish(*topk_ordered(scores, idx, min(k, n)), k)
+    out = []
+    for sig in signals:
+        out.extend(_finish(*topk_ordered(sig, idx, min(k, n)), k))
+    return tuple(out)
 
 
 def arena_scan_scan_ref(q, emb, meta, gids, preds, k: int, blk_n: int, *,
-                        spec: ScanSpec = ScanSpec()):
+                        spec: ScanSpec = ScanSpec(),
+                        lex: tuple | None = None):
     """Streaming scan: (blk_n,)-row tiles, a LOCAL top-min(k, blk_n) per
-    tile, one final merge over the candidates in tile order. Never holds
-    more than one (B, blk_n) score tile. The last tile may be ragged."""
-    _check(spec, meta)
+    tile and running list, one final merge over the candidates in tile
+    order. Never holds more than one (B, blk_n) score tile per list. The
+    last tile may be ragged."""
+    _check(spec, meta, lex)
     n = emb.shape[0]
     b = q.shape[0]
     k_loc = min(k, blk_n)
-    cand_s, cand_i = [], []
+    cand = [([], []) for _ in range(spec.n_lists)]
     for base in range(0, n, blk_n):
         stop = min(base + blk_n, n)
-        s = tile_scores(q, emb[base:stop], tile_mask(meta[base:stop], preds,
-                                                     gids))
+        lex_tile = None
+        if spec.has_lex:
+            terms, lexnorm, qterms, qidf = lex
+            lex_tile = (terms[base:stop], lexnorm[base:stop], qterms, qidf)
+        signals = tile_signals(spec, q, emb[base:stop],
+                               tile_mask(meta[base:stop], preds, gids),
+                               lex_tile)
         idx = torch.arange(base, stop, dtype=torch.int32,
                            device=q.device).expand(b, stop - base)
-        ts, ti = topk_ordered(s, idx, k_loc)
-        cand_s.append(ts)
-        cand_i.append(ti)
-    all_s, all_i = torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1)
-    return _finish(*topk_ordered(all_s, all_i, min(k, all_s.shape[1])), k)
+        for (cs, ci), sig in zip(cand, signals):
+            ts, ti = topk_ordered(sig, idx, k_loc)
+            cs.append(ts)
+            ci.append(ti)
+    out = []
+    for cs, ci in cand:
+        all_s, all_i = torch.cat(cs, dim=1), torch.cat(ci, dim=1)
+        out.extend(_finish(*topk_ordered(all_s, all_i,
+                                         min(k, all_s.shape[1])), k))
+    return tuple(out)

@@ -19,22 +19,39 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 @dataclasses.dataclass(frozen=True)
 class ScanSpec:
-    """What one arena-scan program computes. This slice of the port
-    carries the dense spec only: one running k-list on the masked dot
-    product."""
+    """What one arena-scan program computes.
+
+    score:
+      * ``"dense"`` -- similarity only (filtered_topk / grouped_topk): ONE
+        running k-list on the masked dot product;
+      * ``"fused"`` -- hybrid wsum: ONE running k-list on ``dense + bm25``
+        (fusion weights pre-folded into q / qidf by the caller);
+      * ``"both"``  -- hybrid rrf: TWO running k-lists (dense, bm25); rank
+        fusion happens after the scan.
+    slot_lane: the IVF candidate scan's 5th metadata lane, which arrives
+      with the IVF slice.
+
+    >>> ScanSpec("both").n_lists, ScanSpec("fused").has_lex
+    (2, True)
+    """
     score: str = "dense"
     slot_lane: bool = False
 
     def __post_init__(self):
-        if self.score != "dense":
-            raise NotImplementedError(
-                f"ScanSpec(score={self.score!r}) is the hybrid dense+BM25 "
-                "scan, which arrives with the lexical/hybrid slice "
-                "(ROADMAP queue 1, 'Lexical arena and hybrid search')")
+        if self.score not in ("dense", "fused", "both"):
+            raise ValueError(f"unknown ScanSpec score {self.score!r}")
         if self.slot_lane:
             raise NotImplementedError(
                 "ScanSpec(slot_lane=True) is the IVF candidate scan, which "
                 "arrives with the IVF slice (ROADMAP queue 1, 'IVF')")
+
+    @property
+    def n_lists(self) -> int:
+        return 2 if self.score == "both" else 1
+
+    @property
+    def has_lex(self) -> bool:
+        return self.score in ("fused", "both")
 
     @property
     def meta_width(self) -> int:
@@ -65,6 +82,33 @@ def dense_scores(q: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q.float(), e.float().T)
 
 
+def bm25_scores(terms, lexnorm, qterms, qidf) -> torch.Tensor:
+    """Lexical stage: masked-gather BM25 over one tile's postings lanes.
+    terms: (n, T) int32 lane term ids (-1 empty); lexnorm: (n, T) f32
+    per-lane tf/length weight; qterms: (B, QT) int32 (-1 padding); qidf:
+    (B, QT) f32 per-term idf (0 on padding, fusion weight already folded
+    in). Returns (B, n) f32.
+
+    The accumulation order is FIXED -- lanes outer, query terms inner --
+    and the lane product is select-guarded (``acc + where(w != 0, w * ln,
+    0)``), each step its own IEEE operation; the CUDA kernel computes the
+    same steps with ``__fadd_rn`` / ``__fmul_rn``, so the signal is the
+    same value bit for bit. A padding query term (-1) can only "match" an
+    empty doc lane (-1), and its idf is 0, so it contributes exactly 0."""
+    qidf = qidf.float()
+    bm25 = torch.zeros((qterms.shape[0], terms.shape[0]), dtype=torch.float32,
+                       device=terms.device)
+    for t in range(terms.shape[1]):
+        lane = terms[:, t][None, :]
+        ln = lexnorm[:, t].float()[None, :]
+        w = torch.zeros_like(bm25)
+        for j in range(qterms.shape[1]):
+            hit = lane == qterms[:, j][:, None]
+            w = w + torch.where(hit, qidf[:, j][:, None], 0.0)
+        bm25 = bm25 + torch.where(w != 0.0, w * ln, 0.0)
+    return bm25
+
+
 def predicate_keep(meta: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     """Mask stage: all G WHERE clauses over one metadata tile. meta: (n, 4)
     int32 [tenant, updated_at, category, acl bits]; preds: (G, 4) int32
@@ -92,5 +136,22 @@ def tile_mask(meta: torch.Tensor, preds: torch.Tensor,
 def tile_scores(q, e, row_keep) -> torch.Tensor:
     """Masked dense scores for one tile: NEG_INF where a row fails its
     group's predicate."""
-    return torch.where(row_keep, dense_scores(q, e),
-                       torch.tensor(NEG_INF, device=q.device))
+    return tile_signals(ScanSpec(), q, e, row_keep)[0]
+
+
+def tile_signals(spec: ScanSpec, q, e, row_keep, lex=None):
+    """Score stage for one tile: the masked running-list signals, one per
+    `spec.n_lists`. ``lex`` is (terms, lexnorm, qterms, qidf) for this
+    tile's rows when `spec.has_lex`. The mask lands on every signal before
+    any ranking, so a row outside its group's predicate never surfaces,
+    however high its BM25 score."""
+    neg = torch.tensor(NEG_INF, device=q.device)
+    dense = dense_scores(q, e)
+    if spec.score == "dense":
+        return (torch.where(row_keep, dense, neg),)
+    bm25 = bm25_scores(*lex)
+    if spec.score == "fused":
+        # weights are pre-folded into q / qidf: the combine is a bare add
+        return (torch.where(row_keep, dense + bm25, neg),)
+    return (torch.where(row_keep, dense, neg),
+            torch.where(row_keep, bm25, neg))

@@ -302,8 +302,10 @@ def test_engine_names_and_later_specs_are_refused():
     with pytest.raises(ValueError, match="unknown"):
         unified_query_grouped(store, q, torch.zeros(1, dtype=torch.int32),
                               [Predicate()], 2, engine="bogus")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        ScanSpec(score="fused")
+    assert (ScanSpec(score="fused").n_lists,
+            ScanSpec(score="both").n_lists) == (1, 2)
+    with pytest.raises(ValueError, match="unknown"):
+        ScanSpec(score="bogus")
     with pytest.raises(NotImplementedError, match="IVF"):
         ScanSpec(slot_lane=True)
 

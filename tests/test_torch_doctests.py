@@ -1,5 +1,5 @@
-"""Doctest smoke for the port's front door, observability and corpus
-docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
+"""Doctest smoke for the port's front door, lexical arena, hybrid
+reference, observability and corpus docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
 here on the CPU, so the runnable examples cannot rot."""
 import doctest
 
@@ -12,6 +12,9 @@ import repro_torch.api.planner
 import repro_torch.api.ragdb
 import repro_torch.core.query
 import repro_torch.data.corpus
+import repro_torch.index.lexical.arena
+import repro_torch.kernels.arena_scan.stages
+import repro_torch.kernels.hybrid_score.ref
 import repro_torch.obs.calibration
 import repro_torch.obs.recorder
 import repro_torch.obs.tracer
@@ -27,6 +30,9 @@ MODULES = [
     repro_torch.api.ragdb,
     repro_torch.core.query,
     repro_torch.data.corpus,
+    repro_torch.index.lexical.arena,
+    repro_torch.kernels.arena_scan.stages,
+    repro_torch.kernels.hybrid_score.ref,
     repro_torch.obs.tracer,
     repro_torch.obs.recorder,
     repro_torch.obs.calibration,

@@ -170,17 +170,21 @@ def test_misuse_probes_match_reference(probe):
 def test_later_slices_and_tpu_engine_are_refused():
     tdb = RagDB(StoreConfig(capacity=8, dim=4), device="cpu")
     b = tdb.admin_session().search(np.ones(4, np.float32))
-    for eng in ("ivf", "sharded", "hybrid"):
+    for eng in ("ivf", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             b.using(eng)
     with pytest.raises(ValueError, match="cuda"):
         b.using("pallas")
-    with pytest.raises(NotImplementedError):
+    # the hybrid slice is ported: without a lexical arena match() refuses,
+    # and "hybrid" without a match() clause is refused at plan time
+    with pytest.raises(ValueError, match="lexical arena"):
         b.match("error 17")
+    with pytest.raises(ValueError, match="match\\(\\) clause"):
+        b.using("hybrid").plan()
     with pytest.raises(NotImplementedError):
         tdb.build_index()
     for kw in (dict(warm_cfg=StoreConfig(capacity=8, dim=4)),
-               dict(mesh=object()), dict(lexical_cfg=object())):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             RagDB(StoreConfig(capacity=8, dim=4), device="cpu", **kw)
     assert b.plan().route_reason == "warm tier empty"
@@ -204,7 +208,7 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor(monkeypatch):
     calls = []
     monkeypatch.setattr(kernel_mod, "arena_scan_plain", plain)
     monkeypatch.setattr(kernel_mod, "arena_scan_cuda",
-                        lambda *a: calls.append(a) or "kernel")
+                        lambda *a, **kw: calls.append(a) or "kernel")
     assert kernel_mod.arena_scan(CudaClaim(), None, None, None, None, 3) == "kernel"
     assert len(calls) == 1
     monkeypatch.undo()
