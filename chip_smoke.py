@@ -16,13 +16,7 @@ Phases:
                 tied scores at the k-th place, ties go to the lower slot,
                 and no returned slot fails its group's predicate (checked
                 against a numpy mask computed on the host).
-  2. bench   -- the paper's benchmark deployment (StoreConfig 65,536 x 128,
-                50,000 docs, 20 tenants, 5 categories; repro's
-                configs/rag_unified.py BENCH / BENCH_CORPUS) through the
-                front door: one batch of 32 requests in 4 predicate groups,
-                every row held to `unified_query_ref` on the card; then an
-                update and a delete, and the cache must miss.
-  3. hybrid_kernel -- the hybrid scan (the arena-scan kernel's lexical
+  2. hybrid_kernel -- the hybrid scan (the arena-scan kernel's lexical
                 modes, through `hybrid_score_cuda`) against its plain
                 version over N, D, B, G, T lanes, QT query terms and k (k > N
                 included), wsum (w_dense 0.8, w_lex 1.7) and rrf: padding
@@ -32,6 +26,18 @@ Phases:
                 scores within rtol = atol = 1e-5, the bm25 list exact, slots
                 as in phase 1, no leak; the public `hybrid_score` (rrf fused
                 and lists=True, k > N) against the plain oracle too.
+  3. ivf_kernel -- the IVF probe (the arena-scan kernel's slot-indirect
+                PROBE mode, through `ivf_probe_cuda`) against its plain
+                version over candidate counts P, D (50 takes the scalar
+                loads), B and k (k > P included), on candidate vectors with
+                member padding, repeats and slots past or below the arena;
+                through the public `ivf_probe`: a padded cluster list, an
+                overflow tail, a poisoned member table, all-dead and empty
+                sets, and duplicate embeddings listed high slot first. Scores
+                within rtol = atol = 1e-5, slots as in phase 1 except that a
+                slot listed m times may come out m times and exact ties go
+                to the lower CANDIDATE POSITION; no returned slot fails the
+                host mask over the arena's metadata.
   4. bench   -- the paper's benchmark deployment (StoreConfig 65,536 x 128,
                 50,000 docs, 20 tenants, 5 categories; repro's
                 configs/rag_unified.py BENCH / BENCH_CORPUS) through the
@@ -43,7 +49,17 @@ Phases:
                 rrf, one launch a batch, every row held to
                 `hybrid_score_ref` on the card; hybrid recall@10 above
                 dense-only; a lexical write, and the cache must miss.
-  6. prod    -- production width on one card: StoreConfig(2^23 x 768) (the
+  6. ivf_bench -- the same deployment with `RagDB.build_index()`: a batch
+                of 32 admin requests plans "ivf" and runs as one probe
+                launch scanning the probe's candidate rows, every row held
+                to the plain version; recall@10 against the exact kernel
+                engine over 64 queries; a tenant session stays exact ("ivf
+                skipped") and a forced probe leaks nothing; a recency bound
+                only ~20 rows clear fires the exact rescan and equals the
+                exact engine; a write at a query's embedding patches the
+                mirror and is visible; a rebuild bumps the epoch and the
+                cache misses.
+  7. prod    -- production width on one card: StoreConfig(2^23 x 768) (the
                 paper's 2^26-row production hot tier cut to what one 80 GB
                 card holds twice during an out-of-place commit) with 16
                 postings lanes a row, data drawn on the card and ingested
@@ -51,10 +67,18 @@ Phases:
                 4 groups through run(): median batch latency, the kernel's
                 own time (CUDA events) beside its bound, the plain version,
                 and a matmul + where + topk yardstick.
-  7. hybrid_prod -- the same arena: 6 wsum and 6 rrf batches of 32 match()
+  8. hybrid_prod -- the same arena: 6 wsum and 6 rrf batches of 32 match()
                 requests in 4 groups (3 terms from a live row's lanes, q
                 near its embedding), with the same measurements plus a
                 matmul + BM25 + where + topk yardstick and a profile split.
+  9. ivf_prod -- the prod arena with the auto-sized index (8192 clusters):
+                build time (k-means and assignment on the card, layout on
+                the host), 6 batches of 32 admin requests with a recency
+                bound, q near a live row: batch latency, host probe time,
+                the kernel's time beside its bound, the plain version, a
+                gather + matmul + where + topk yardstick, the exact kernel
+                on the same rows, recall@10 against it, a profile split,
+                and no (P, D) copy allocated by the kernel.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -70,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -78,7 +103,7 @@ TOL = 1e-5                    # rtol = atol on unit-norm data
 HBM_BPS = 3.35e12             # H100 SXM device memory rate
 FP32_FLOPS = 67e12            # H100 SXM fp32 peak outside the tensor cores
 SEED = 0
-DEV = None                    # the card, set in main()
+DEV = None                    # the card, set in setup()
 # phase 1 grid: odd and pow2-adjacent N, serving widths D, B up to a full
 # serving batch (and past one kernel block), G with a BLOCK_ALL lane at 7
 GRID_N = (1, 513, 1000, 65_553)
@@ -95,6 +120,12 @@ HYB_K = (1, 10, 32, 33, 300)
 W_DENSE, W_LEX = 0.8, 1.7     # the wsum mix of phase 3
 LEX_V = 64                    # vocabulary of phase 3's lanes
 RRF_C = 60.0
+# phase ivf_kernel grid: candidate counts P odd and next to a power of two,
+# D with a scalar-load width (50), k past the warp selection and past P
+IVF_P = (1, 255, 1025, 4097, 65_537)
+IVF_D = (48, 50, 128, 768)
+IVF_B = (1, 8, 11, 32, 64)
+IVF_K = (1, 10, 32, 33, 100)
 
 
 def check(cond, msg):
@@ -129,12 +160,16 @@ def host_mask(meta, preds):
 
 
 def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
-            dup_pairs=(), lower_slot_ties=True):
+            dup_pairs=(), lower_slot_ties=True, cand_pos=None):
     """Hold a kernel result (s_k, i_k) to the plain one (s_p, i_p): both
     (B, k) numpy. ``mask_rows`` (B, N) bool is each row's host mask;
     ``scores_full`` (B, N) the plain scores (to check every returned
     slot's score). ``lower_slot_ties`` checks that exact ties go to the
     lower slot (rrf-fused lists break ties by list position instead).
+    ``cand_pos`` (slot -> its positions in an IVF candidate vector) sets
+    the probe's rules: a slot listed m times may come out up to m times,
+    fills and k-th place ties compare as multisets, and exact ties go to
+    the lower candidate position (checked among slots listed once).
     Returns the max abs score error."""
     neg = np.float32(np.finfo(np.float32).min)
     check(s_k.shape == s_p.shape and i_k.shape == i_p.shape,
@@ -146,7 +181,13 @@ def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
     err = float(np.max(np.abs(s_k - s_p))) if s_k.size else 0.0
     for b in range(s_k.shape[0]):
         real = i_k[b][i_k[b] >= 0]
-        check(len(set(real.tolist())) == len(real), f"{name}: dup slot row {b}")
+        if cand_pos is None:
+            check(len(set(real.tolist())) == len(real),
+                  f"{name}: dup slot row {b}")
+        else:
+            got_n = Counter(real.tolist())
+            check(all(n <= len(cand_pos.get(x, ())) for x, n in got_n.items()),
+                  f"{name}: row {b} returned a slot more often than listed")
         check(mask_rows[b][real].all(), f"{name}: row {b} leaked "
               f"{real[~mask_rows[b][real]]}")
         ref_real = i_p[b][i_p[b] >= 0]
@@ -154,7 +195,8 @@ def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
         if len(real) == 0:
             continue
         kth = s_p[b][len(ref_real) - 1]
-        for slot in set(real.tolist()) ^ set(ref_real.tolist()):
+        got_c, ref_c = Counter(real.tolist()), Counter(ref_real.tolist())
+        for slot in (got_c - ref_c) + (ref_c - got_c):
             sc = scores_full[b][slot] if scores_full is not None else kth
             check(abs(sc - kth) <= TOL * (1 + abs(kth)),
                   f"{name}: row {b} slot {slot} differs away from a k-th "
@@ -163,11 +205,21 @@ def compare(name, s_k, i_k, s_p, i_p, mask_rows, scores_full=None,
             check(np.allclose(s_k[b][:len(real)], scores_full[b][real],
                               rtol=TOL, atol=TOL),
                   f"{name}: row {b} slot/score pairing off")
-        # ties go to the lower slot: among exactly equal scores slots rise
+        # ties go to the lower slot (the probe: to the lower candidate
+        # position): among exactly equal scores the keys rise
         sk = s_k[b][:len(real)]
         eq = sk[1:] == sk[:-1]
-        check(not lower_slot_ties or (real[1:][eq] > real[:-1][eq]).all(),
-              f"{name}: row {b} tie not broken toward the lower slot")
+        if cand_pos is None:
+            check(not lower_slot_ties or (real[1:][eq] > real[:-1][eq]).all(),
+                  f"{name}: row {b} tie not broken toward the lower slot")
+        else:
+            once = lambda x: len(cand_pos[x]) == 1
+            for lo_s, hi_s in zip(real[:-1][eq].tolist(),
+                                  real[1:][eq].tolist()):
+                check(not (once(lo_s) and once(hi_s))
+                      or cand_pos[lo_s][0] < cand_pos[hi_s][0],
+                      f"{name}: row {b} tie not broken toward the lower "
+                      f"candidate position")
         got = set(real.tolist())
         for lo, hi in dup_pairs:
             check(hi not in got or lo in got,
@@ -418,6 +470,153 @@ def phase_hybrid_kernel():
     return max(errs)
 
 
+def make_cand(rng, P, N):
+    """(P,) int32 candidate slots over an N-row arena, as a poisoned member
+    table gives them: arena slots drawn with repeats, ~4% member padding
+    (-1), ~2% past the arena (N..N+99) and ~2% negative (-5..-2)."""
+    cand = rng.integers(0, N, P)
+    u = rng.random(P)
+    cand[u < 0.04] = -1
+    far = (u >= 0.04) & (u < 0.06)
+    cand[far] = rng.integers(N, N + 100, int(far.sum()))
+    neg = (u >= 0.06) & (u < 0.08)
+    cand[neg] = rng.integers(-5, -1, int(neg.sum()))
+    return cand.astype(np.int32)
+
+
+def cand_positions(cand, N):
+    """slot -> its positions in the candidate vector (live slots only)."""
+    pos = {}
+    for p, x in enumerate(cand.tolist()):
+        if 0 <= x < N:
+            pos.setdefault(x, []).append(p)
+    return pos
+
+
+def probe_case(name, arena, cand, pred, q, k, errs, pairs=()):
+    """`ivf_probe_cuda` against `ivf_probe_plain` on one candidate vector
+    over the arena, checked by `compare` under the probe's rules against
+    the arena-wide scores and the host mask over ARENA metadata."""
+    emb_d, meta_d, meta, _ = arena
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    args = (t(q), emb_d, meta_d, t(cand), t(pred), k)
+    s_k, i_k = ivf_mod.ivf_probe_cuda(*args)
+    s_p, i_p = ivf_mod.ivf_probe_plain(*args)
+    sync()
+    N = meta.shape[0]
+    full = (args[0] @ emb_d.T).cpu().numpy()
+    mask = np.broadcast_to(host_mask(meta, pred[None])[0], (q.shape[0], N))
+    errs.append(compare(name, *tnp(s_k, i_k, s_p, i_p), mask, full, pairs,
+                        cand_pos=cand_positions(cand, N)))
+
+
+def probe_ops_case(name, arena, members, overflow, clusters, pred, q, k,
+                   errs, pairs=()):
+    """The public `ivf_probe` (kernel on the card) against its plain path
+    (``use_kernel=False``) from a member table, an overflow tail and a
+    padded cluster list: `_assemble`'s rules (cluster padding, dead slots)
+    and the empty set run here."""
+    from repro_torch.kernels.ivf_probe.ops import ivf_probe
+    from repro_torch.kernels.ivf_probe.ref import candidate_slots
+    emb_d, meta_d, meta, _ = arena
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    cols = [meta_d[:, j].contiguous() for j in range(4)]
+    args = (t(q), emb_d, *cols, t(members), t(overflow), clusters, t(pred), k)
+    s_k, i_k = ivf_probe(*args)
+    s_p, i_p = ivf_probe(*args, use_kernel=False)
+    sync()
+    N = meta.shape[0]
+    cand = candidate_slots(t(members), t(overflow), clusters).cpu().numpy()
+    full = (args[0] @ emb_d.T).cpu().numpy()
+    mask = np.broadcast_to(host_mask(meta, pred[None])[0], (q.shape[0], N))
+    errs.append(compare(name, *tnp(s_k, i_k, s_p, i_p), mask, full, pairs,
+                        cand_pos=cand_positions(cand, N)))
+    return tnp(s_k, i_k)
+
+
+def member_table(rng, N, C, cap):
+    """(C, cap) int32 member table: each cluster filled to a random depth
+    with arena slots, -1 after."""
+    members = np.full((C, cap), -1, np.int32)
+    for c in range(C):
+        fill = int(rng.integers(0, cap + 1))
+        members[c, :fill] = rng.integers(0, N, fill)
+    return members
+
+
+def phase_ivf_kernel():
+    rng = np.random.default_rng(SEED + 20)
+    errs = []
+    n_cases = 0
+    t0 = time.perf_counter()
+    for P in IVF_P:
+        for D in IVF_D:
+            N = P + P // 2 + 3
+            emb, meta, pairs = make_arena(rng, N, D, dups=8)
+            arena = upload(emb, meta, pairs)
+            cand = make_cand(rng, P, N)
+            for bi, B in enumerate(IVF_B):
+                q, preds, _ = make_batch(rng, emb, B, 2, pairs)
+                pred = preds[(bi + P) % 2]          # pass-all or random
+                for k in IVF_K + (P + 5,):
+                    probe_case(f"P{P}-D{D}-B{B}-k{k}", arena, cand, pred, q,
+                               k, errs)
+                    n_cases += 1
+    # through the public ivf_probe: member padding, a padded cluster list,
+    # an overflow tail, a poisoned table, dead and empty sets, ties
+    N, D, C, cap = 5000, 128, 20, 300
+    emb, meta, _ = make_arena(rng, N, D)
+    arena = upload(emb, meta, ())
+    members = member_table(rng, N, C, cap)
+    overflow = rng.integers(0, N, 37).astype(np.int32)
+    clusters = np.array([3, 0, 7, 11, 19, 5, 2, 14] + [-1] * 8, np.int32)
+    poisoned = members.copy()
+    junk = rng.integers(-5, N + 500, members.shape)
+    bad = rng.random(members.shape) < 0.25
+    poisoned[bad] = junk[bad]
+    poisoned[1, :40] = poisoned[0, :40]             # duplicate slots
+    bad_over = rng.integers(-5, N + 500, 16).astype(np.int32)
+    q, preds, _ = make_batch(rng, emb, 11, 3)
+    for name, mem, over in (("padded", members, overflow),
+                            ("poisoned", poisoned, bad_over)):
+        P = cap * len(clusters) + len(over)
+        for g in range(3):
+            for k in (10, 100, P + 3):
+                probe_ops_case(f"{name}-g{g}-k{k}", arena, mem, over,
+                               clusters, preds[g], q, k, errs)
+                n_cases += 1
+    dead = upload(*make_arena(rng, 600, 64, dead=True))
+    q, preds, _ = make_batch(rng, dead[0].cpu().numpy(), 8, 1)
+    s_k, i_k = probe_ops_case("all-dead", dead, member_table(rng, 600, 4, 128),
+                              overflow[:5] % 600, np.arange(4, dtype=np.int32),
+                              preds[0], q, 10, errs)
+    check((i_k == -1).all(), "all-dead: a dead row was returned")
+    q, preds, _ = make_batch(rng, arena[0].cpu().numpy(), 3, 1)
+    s_k, i_k = probe_ops_case("empty", arena, members, overflow[:0],
+                              np.zeros(0, np.int32), preds[0], q, 10, errs)
+    check((i_k == -1).all(), "empty set: a row was returned")
+    n_cases += 2
+    # ties: duplicate embeddings listed high slot first, so candidate
+    # position and slot order disagree; the kernel must follow position
+    emb, meta, pairs = make_arena(rng, 700, 64, dups=40)
+    meta[:, 0] = np.maximum(meta[:, 0], 0)          # every pair row live
+    arena = upload(emb, meta, pairs)
+    tied = np.full((4, 128), -1, np.int32)
+    tied.reshape(-1)[:2 * len(pairs)] = ([hi for _, hi in pairs]
+                                         + [lo for lo, _ in pairs])
+    q, _, _ = make_batch(rng, emb, 8, 1, pairs)
+    for k in (1, 10, 33, 100):
+        probe_ops_case(f"ties-k{k}", arena, tied, overflow[:0] % 700,
+                       np.arange(4, dtype=np.int32),
+                       np.array([-2, 0, -1, -1], np.int32), q, k, errs,
+                       [(hi, lo) for lo, hi in pairs])
+        n_cases += 1
+    emit("ivf_kernel", cases=n_cases, max_abs_err=max(errs),
+         seconds=time.perf_counter() - t0, tol=TOL, leaked_slots=0,
+         ties="lower candidate position")
+    return max(errs)
+
+
 def phase_bench(dev):
     from repro_torch.api import RagDB
     from repro_torch.core.query import unified_query_ref
@@ -611,6 +810,127 @@ def phase_hybrid_bench(dev):
          max_abs_err=max(errs), writes="lexical write visible, cache missed",
          **out)
     return max(errs)
+
+
+def phase_ivf_bench(dev):
+    from repro_torch.api import RagDB
+    from repro_torch.core.store import DocBatch, StoreConfig
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import CorpusConfig, make_corpus, make_queries
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.ivf_probe.ref import candidate_slots
+
+    t_phase = time.perf_counter()
+
+    ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
+    db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
+               device=dev)
+    db.ingest(make_corpus(ccfg, device=dev))
+    t0 = time.perf_counter()
+    ix = db.build_index()
+    sync()
+    build_s = time.perf_counter() - t0
+    admin = db.admin_session()
+    qs = make_queries(ccfg, 64, seed=SEED + 6, device="cpu").numpy()[:, 0]
+    batch = [admin.search(qs[r]).limit(10).plan() for r in range(32)]
+    check(all(p.engine == "ivf" for p in batch), "admin plans must pick 'ivf'")
+    before = dataclasses.replace(db.stats)
+    ivf_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    s, sl, _ = db.execute(batch, use_cache=False)
+    launches = ivf_mod.LAUNCHES
+    check(launches == 1, f"{launches} ivf launches for one batch")
+    check(kernel_mod.LAUNCHES == 0, "an admin batch ran a rescan")
+    check(db.stats.device_calls - before.device_calls == 1, "device_calls != 1")
+    q = np.stack([p.logical.q[0] for p in batch])
+    clusters, n_probed, P = ix.probe(q, ix.cfg.nprobe)
+    check(db.stats.rows_scanned - before.rows_scanned == P,
+          "rows_scanned != the probe's candidate rows")
+    # every row of the batch against the plain version on the same inputs
+    snap = db.log.snapshot()
+    meta = _packed_meta(snap["tenant"], snap["updated_at"], snap["category"],
+                        snap["acl"])
+    d = ix.device_arrays()
+    cand = candidate_slots(d["members"], d["overflow"], clusters)
+    pred = batch[0].pred.as_array(dev)
+    q_d = torch.from_numpy(q).to(dev)
+    s_p, i_p = ivf_mod.ivf_probe_plain(q_d, snap["emb"], meta, cand, pred, 10)
+    cand_np = cand.cpu().numpy()
+    mask = np.broadcast_to(host_mask(meta.cpu().numpy(),
+                                     pred.cpu().numpy()[None])[0],
+                           (32, meta.shape[0]))
+    err = compare("ivf-bench", s, sl, *tnp(s_p, i_p), mask,
+                  (q_d @ snap["emb"].T).cpu().numpy(),
+                  cand_pos=cand_positions(cand_np, meta.shape[0]))
+    # recall@10 against the exact kernel engine over 64 query rows
+    iv = db.execute([admin.search(qs[r]).limit(10).plan()
+                     for r in range(64)], use_cache=False)[1]
+    ex = db.execute([admin.search(qs[r]).limit(10).using("cuda").plan()
+                     for r in range(64)], use_cache=False)[1]
+    recall = float(np.mean([len(set(iv[r].tolist()) & set(ex[r].tolist()))
+                            / 10 for r in range(64)]))
+    # a tenant session: the selectivity guard keeps it exact; a forced
+    # probe leaks nothing
+    tenant_of = snap["tenant"].cpu().numpy()
+    acl_of = snap["acl"].cpu().numpy().view(np.uint32)
+    sess = db.session(Principal(3, 0xFF))
+    plan = sess.search(qs[0]).limit(10).plan()
+    exact = "cuda" if dev.type == "cuda" else "ref"
+    check(plan.engine == exact and "ivf skipped" in plan.engine_reason,
+          f"tenant plan: {plan.engine} ({plan.engine_reason})")
+    forced = sess.search(qs[0]).limit(10).using("ivf").run()
+    got = forced.slots[forced.slots >= 0]
+    check(len(got) == 10 and (tenant_of[got] == 3).all()
+          and ((acl_of[got] & 0xFF) != 0).all(), "forced ivf leaked")
+    # a recency bound only ~20 rows clear: the rescan completes the k-list
+    ts = snap["updated_at"].cpu().numpy()
+    min_ts = int(np.sort(ts[tenant_of >= 0])[-20])
+    tight = admin.search(qs[1]).newer_than(min_ts).limit(10)
+    check(tight.plan().engine == "ivf", "a recency-only plan must pick 'ivf'")
+    kernel_mod.LAUNCHES = 0
+    rows0 = db.stats.rows_scanned
+    res = tight.run()
+    _, _, P1 = ix.probe(res.plan.logical.q, ix.cfg.nprobe)
+    check(kernel_mod.LAUNCHES == int(exact == "cuda"),
+          "the completeness rescan did not run on the kernel")
+    check(db.stats.rows_scanned - rows0 == P1 + 65_536,
+          "rows_scanned != probe + one arena rescan")
+    ref = admin.search(qs[1]).newer_than(min_ts).limit(10).using("cuda").run()
+    check((res.slots == ref.slots).all() and (res.scores == ref.scores).all(),
+          "the rescanned rows differ from the exact engine's")
+    # a write at the query's embedding: the mirror patches in place, the
+    # cache misses and the new slot comes first
+    q0 = batch[0].logical.q[0]
+    check(not admin.search(q0).limit(10).run().cached
+          and admin.search(q0).limit(10).run().cached, "repeat must hit")
+    uploads, patches = ix.mirror_uploads, ix.mirror_patches
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    db.ingest(DocBatch(emb=torch.from_numpy(q0[None]).to(dev),
+                       tenant=i32([0]), category=i32([0]),
+                       updated_at=i32([ccfg.now_ts]), acl=i32([-1]),
+                       doc_id=i32([990_001])))
+    res = admin.search(q0).limit(10).run()
+    check(not res.cached and res.plan.engine == "ivf",
+          "the cache must miss after a write")
+    check(int(res.slots[0, 0]) == db.log.slot_of(990_001),
+          "the written doc is not its query's top-1")
+    in_table = ix._slot_pos[db.log.slot_of(990_001)][0] >= 0
+    check(ix.mirror_uploads == uploads
+          and ix.mirror_patches == patches + int(in_table),
+          "a write must patch the mirror, not re-upload it")
+    # a rebuild bumps the epoch, and ivf cache entries miss
+    check(admin.search(q0).limit(10).run().cached, "repeat must hit")
+    epoch = ix.epoch
+    db.build_index(ix.cfg)
+    check(db.index.epoch == epoch + 1, "a rebuild must bump the epoch")
+    check(not admin.search(q0).limit(10).run().cached,
+          "the cache must miss after a rebuild")
+    emit("ivf_bench", seconds=time.perf_counter() - t_phase, rows=32,
+         engine="ivf", launches=launches, build_s=build_s,
+         clusters=ix.n_clusters, cap=ix.cluster_cap,
+         overflow=len(ix.overflow), probed_clusters=n_probed,
+         rows_scanned=P, recall_at_10=recall, max_abs_err=err,
+         writes="rescan exact, write visible, mirror patched, epoch miss")
+    return err
 
 
 def peak_gb():
@@ -904,29 +1224,189 @@ def phase_hybrid_prod(dev, prod):
                 bound_by=bound_by, max_abs_err=max(errs))
 
 
-def main() -> int:
-    global np, torch, kernel_mod
+def phase_ivf_prod(dev, prod):
+    from repro_torch.core import ivf as ivf_core
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.arena_scan.stages import predicate_keep
+    from repro_torch.kernels.ivf_probe.ref import candidate_slots
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    db, groups = prod["db"], prod["groups"]
+    snap = db.log.snapshot()
+    N, D = snap["emb"].shape
+    meta = _packed_meta(snap["tenant"], snap["updated_at"],
+                        snap["category"], snap["acl"])
+    # the auto-sized build, split into k-means and the assignment on the
+    # card and the member-table layout and slot map on the host
+    spent = {"kmeans": 0.0, "assign": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    kmeans, assign = ivf_core._kmeans, ivf_core._assign
+    ivf_core._kmeans = timed("kmeans", kmeans)
+    ivf_core._assign = timed("assign", assign)
+    try:
+        t0 = time.perf_counter()
+        ix = db.build_index()
+        build_s = time.perf_counter() - t0
+    finally:
+        ivf_core._kmeans, ivf_core._assign = kmeans, assign
+    t0 = time.perf_counter()
+    ivf_core.IVFIndex(ix.cfg, ix.centroids, ix.members, ix.fill, ix.overflow,
+                      ix.n_at_build, device=dev)
+    slot_map_s = time.perf_counter() - t0
+
+    # 32 admin requests with a recency bound only (the guard admits it),
+    # each q near a live row that clears the bound
+    min_ts = groups[3][1]
+    rng = np.random.default_rng(SEED + 7)
+    admin = db.admin_session()
+    pred = admin.search(np.ones(D, np.float32)).newer_than(min_ts).plan().pred
+    keep = predicate_keep(meta, pred.as_array(dev)[None])[0]
+    rows = torch.nonzero(keep).squeeze(1)
+    anchors = [int(rows[int(rng.integers(0, rows.numel()))])
+               for _ in range(32)]
+    a_emb = snap["emb"][anchors].cpu().numpy()
+    qs = a_emb + 0.02 * rng.standard_normal(a_emb.shape).astype(np.float32)
+    plans = [admin.search(qs[r]).newer_than(min_ts).limit(10).plan()
+             for r in range(32)]
+    check(all(p.engine == "ivf" for p in plans), "plans must pick 'ivf'")
+    n_batches = 6
+    ivf_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    lat = []
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        s, sl, _ = db.execute(plans, use_cache=False)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = ivf_mod.LAUNCHES
+    check(launches == n_batches, f"{launches} ivf launches for {n_batches} "
+          "batches")
+    check(kernel_mod.LAUNCHES == 0, "a prod batch ran a completeness rescan")
+    profile = profile_batch(lambda: db.execute(plans, use_cache=False))
+
+    # the kernel's inputs exactly as the executor builds them
+    q = np.stack([p.logical.q[0] for p in plans])
+    probe_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        clusters, n_probed, P = ix.probe(q, ix.cfg.nprobe)
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    d = ix.device_arrays()
+    cand = candidate_slots(d["members"], d["overflow"], clusters)
+    check(cand.numel() == P, "candidate vector != the probe's rows")
+    p_valid = int((cand >= 0).sum())
+    q_d = torch.from_numpy(q).to(dev)
+    pa = pred.as_array(dev)
+    args = (q_d, snap["emb"], meta, cand, pa, 10)
+    peak_phase = peak_gb()
+    # the slot-indirect kernel writes no (P, D) gathered copy
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s_k, i_k = ivf_mod.ivf_probe_cuda(*args)
+    sync()
+    kernel_extra = torch.cuda.max_memory_allocated() - base
+    check(kernel_extra < P * D * 4 // 8,
+          f"the probe kernel allocated {kernel_extra} bytes")
+    s_p, i_p = ivf_mod.ivf_probe_plain(*args)
+    sync()
+    cand_np = cand.cpu().numpy()
+    mask = np.broadcast_to(host_mask(meta.cpu().numpy(),
+                                     pa.cpu().numpy()[None])[0], (32, N))
+    err = compare("ivf-prod", *tnp(s_k, i_k, s_p, i_p), mask,
+                  cand_pos=cand_positions(cand_np, N))
+    # the front door's rows equal the direct kernel call's rows
+    check((sl == i_k.cpu().numpy()).all() and (s == s_k.cpu().numpy()).all(),
+          "run() rows != kernel rows")
+
+    ms = events_ms(lambda: ivf_mod.ivf_probe_cuda(*args), 10)
+    plain_ms = events_ms(lambda: ivf_mod.ivf_probe_plain(*args), 3)
+    safe = cand.clamp(min=0).long()
+    live_c = (cand >= 0) & keep[safe]
+
+    def yardstick():
+        sc = torch.matmul(q_d, snap["emb"][safe].T)
+        return torch.topk(torch.where(live_c, sc, -3.4e38), 10, dim=1)
+
+    yard_ms = events_ms(yardstick, 3)
+    gids = torch.zeros(32, dtype=torch.int32, device=dev)
+    exact = lambda: kernel_mod.arena_scan_cuda(q_d, snap["emb"], meta, gids,
+                                               pa[None], 10)
+    exact_ms = events_ms(exact, 3)
+    ex_i = exact()[1].cpu().numpy()
+    recall = float(np.mean([len(set(sl[r].tolist()) & set(ex_i[r].tolist()))
+                            / 10 for r in range(32)]))
+    B, k = 32, 10
+    nbytes = p_valid * (4 * D + 16) + P * 4 + B * D * 4 + 16 + B * k * 8
+    flops = 2 * B * p_valid * D
+    bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS \
+        else "operations"
+    # the same bound had every one of the P rows, padding included, been
+    # read and scored (what the kernel's schedule computes)
+    bound_ms_all_rows = max((P * (4 * D + 16 + 4) + B * D * 4 + B * k * 8)
+                            / HBM_BPS, 2 * B * P * D / FP32_FLOPS) * 1e3
+    emit("ivf_prod", seconds=time.perf_counter() - t_phase, rows=N, dim=D,
+         batch=B, k=k, clusters=ix.n_clusters, nprobe=ix.cfg.nprobe,
+         cap=ix.cluster_cap, overflow=len(ix.overflow),
+         probed_clusters=n_probed, P=P, P_valid=p_valid, P_over_N=P / N,
+         build_s=build_s, kmeans_s=spent["kmeans"], assign_s=spent["assign"],
+         build_host_s=build_s - spent["kmeans"] - spent["assign"],
+         slot_map_s=slot_map_s, batch_ms_median=statistics.median(lat),
+         batch_ms=lat, probe_host_ms_median=statistics.median(probe_ms),
+         launches=launches, kernel_ms=ms, plain_ms=plain_ms,
+         yardstick_ms=yard_ms, exact_kernel_ms=exact_ms, bound_ms=bound_ms,
+         bound_by=bound_by, bound_bytes=nbytes,
+         bound_ms_all_rows=bound_ms_all_rows, recall_at_10=recall,
+         anchor_in_top10=float(np.mean([anchors[r] in sl[r].tolist()
+                                        for r in range(32)])),
+         profile=profile, peak_mem_gb=peak_phase,
+         kernel_extra_mem_gb=kernel_extra / 1e9, max_abs_err=err)
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def setup():
+    """Import the port and set this module's globals; None (after saying
+    why on stderr) when there is no card or no package."""
+    global np, torch, kernel_mod, hyb_mod, ivf_mod, DEV
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+        return None
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: {SRC}/repro_torch not found: run from a "
               "checkout of the repository", file=sys.stderr)
-        return 2
+        return None
     sys.path.insert(0, SRC)
-    global hyb_mod
     from repro_torch.kernels.arena_scan import kernel as kernel_mod
     from repro_torch.kernels.hybrid_score import hybrid_score as hyb_mod
+    from repro_torch.kernels.ivf_probe import ivf_probe as ivf_mod
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
+    DEV = torch.device("cuda")
+    return DEV
+
+
+def main() -> int:
+    dev = setup()
+    if dev is None:
+        return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    global DEV
-    dev = DEV = torch.device("cuda")
 
     t0 = time.perf_counter()
     kernel_mod.build()
@@ -936,10 +1416,13 @@ def main() -> int:
 
     err1 = phase_kernel()
     herr1 = phase_hybrid_kernel()
+    ierr1 = phase_ivf_kernel()
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
+    ierr2 = phase_ivf_bench(dev)
     prod = phase_prod(dev)
     hprod = phase_hybrid_prod(dev, prod)
+    iprod = phase_ivf_prod(dev, prod)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
@@ -956,6 +1439,14 @@ def main() -> int:
         "max_abs_err": max(herr1, herr2, hprod["max_abs_err"]),
         "ms": hprod["ms"], "plain_ms": hprod["plain_ms"],
         "bound_ms": hprod["bound_ms"], "bound_by": hprod["bound_by"],
+        "library_ms": None}, {
+        "name": "ivf_probe", "route": "cuda",
+        "source": "src/repro_torch/csrc/arena_scan.cuh",
+        "replaces": "src/repro/kernels/ivf_probe/ivf_probe.py:32",
+        "launches": iprod["launches"],
+        "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"]),
+        "ms": iprod["ms"], "plain_ms": iprod["plain_ms"],
+        "bound_ms": iprod["bound_ms"], "bound_by": iprod["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,16 @@ calls for the front door (port of ``repro.api.executor``):
   * async dispatch: every dispatch unit is launched before the first
     host copy of any result (``.cpu()`` in `finish_plans` is the sync);
   * bucketed batching: each unit's row count pads to a power-of-two bucket
-    (`plan.bucket_rows`), tracked by the `CompiledShapes` LRU.
+    (`plan.bucket_rows`), tracked by the `CompiledShapes` LRU;
+  * the ivf engine: each ivf group runs ONE probe launch over its probed
+    clusters' candidate rows (`kernels.ivf_probe.ops.ivf_probe`), and the
+    finish phase completes an under-filled k-list with one exact rescan
+    (the ``starved`` memo sends a predicate the whole arena cannot fill
+    straight to the exact engine).
 
 This slice is hot-tier only: the warm probe and tier merge (with the rrf
 per-signal merge across tiers) arrive with the warm-tier slice, and the
-ivf / sharded dispatch with theirs.
+sharded dispatch with its own.
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
 """
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.plan import PhysicalPlan, bucket_rows
+from repro_torch.api.planner import PlannerConfig, exact_engine, fuse_batch
 from repro_torch.core.query import (BLOCK_ALL, NEG_INF, Predicate,
                                     stack_predicates, unified_query,
                                     unified_query_grouped)
@@ -52,7 +58,9 @@ class ExecStats:
     padded_rows: int = 0          # bucket-padding rows added across calls
     rows_scanned: int = 0         # hot-tier arena rows scored across calls:
                                   # arena N per exact scan (ONCE per fused
-                                  # grouped scan, not once per group)
+                                  # grouped scan, not once per group),
+                                  # padded candidate rows per ivf probe
+                                  # (+ the arena on a completeness rescan)
     fused_groups: int = 0         # predicate groups answered by fused scans
     fused_scans: int = 0          # fused grouped-scan programs launched
     padded_groups: int = 0        # BLOCK_ALL blocker lanes launched for pow2
@@ -122,15 +130,19 @@ def _pad_rows(q: np.ndarray, bucket: int) -> np.ndarray:
 @dataclasses.dataclass
 class _Hot:
     """One in-flight hot-tier device call: launched, NOT yet synced.
-    ``pad_check`` is the real row count of a fused grouped launch whose
-    padding rows point at a BLOCK_ALL blocker lane: finish asserts those
-    rows allocated no result rows (k=0 semantics)."""
+    ``rescan`` carries the ivf completeness-net context so the under-fill
+    check (which must read results) happens at finish time, after every
+    other launch went out. ``pad_check`` is the real row count of a fused
+    grouped launch whose padding rows point at a BLOCK_ALL blocker lane:
+    finish asserts those rows allocated no result rows (k=0 semantics)."""
     s: torch.Tensor
     sl: torch.Tensor
     rows: int                     # arena rows this call scored
+    rescan: tuple | None = None   # (store, q, pred, k, exact_engine, nv, ivf)
     pad_check: int | None = None  # first padded (blocker-lane) row index
     launch_ms: float = 0.0        # host-side dispatch cost (perf_counter)
     sync_ms: float = 0.0          # finish-time copy-to-host wait
+                                  # (+ rescans)
     terms: int = 0                # postings lanes this call streamed
                                   # (hybrid only) -- the calibration audit's
                                   # per-unit twin of stats.terms_scanned
@@ -141,21 +153,74 @@ def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
 
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
-                engine: str) -> _Hot:
+                engine: str, ivf=None, nprobe=None,
+                n_valid: int | None = None, skip_rescan: bool = False) -> _Hot:
     """Launch one retrieval device call WITHOUT syncing on its result
-    (the returned tensors are futures until finish copies them)."""
+    (the returned tensors are futures until finish copies them).
+
+    `ivf`/`nprobe` are the IVFIndex and probe depth when engine == 'ivf';
+    `n_valid` is the real row count when q is bucket-padded (the probe
+    union must come from real rows -- zero padding rows would drag
+    arbitrary clusters into the union). ``skip_rescan`` waives the ivf
+    completeness net: degraded plans set it, because their contract is
+    already "recall narrows" -- an under-filled k-list IS the degraded
+    answer."""
+    n_arena = store["emb"].shape[0]
+    if engine == "ivf":
+        if ivf is None:
+            raise ValueError("engine='ivf' requires a built index — "
+                             "call RagDB.build_index() first")
+        from repro_torch.kernels.ivf_probe.ops import ivf_probe
+        nv = q.shape[0] if n_valid is None else n_valid
+        # the rescan's and the starved path's engine: the store's exact one
+        exact = exact_engine(store["emb"].device)
+        if (pred, k) in ivf.starved:
+            # learned: the WHOLE arena can't fill k for this predicate --
+            # probing first would be pure waste (memo clears on any write)
+            s, sl = unified_query(store, _to_device(q, store), pred, k,
+                                  engine=exact)
+            return _Hot(s, sl, n_arena)
+        clusters, _, rows = ivf.probe(q[:nv], nprobe or ivf.cfg.nprobe)
+        dev = ivf.device_arrays()
+        s, sl = ivf_probe(_to_device(q, store), store["emb"], store["tenant"],
+                          store["updated_at"], store["category"],
+                          store["acl"], dev["members"], dev["overflow"],
+                          clusters, pred.as_array(store["emb"].device), k)
+        rescan = None if skip_rescan else (store, q, pred, k, exact, nv, ivf)
+        return _Hot(s, sl, rows, rescan=rescan)
     s, sl = unified_query(store, _to_device(q, store), pred, k, engine=engine)
-    return _Hot(s, sl, store["emb"].shape[0])
+    return _Hot(s, sl, n_arena)
 
 
-def _finish_hot(hot: _Hot) -> tuple[np.ndarray, np.ndarray]:
-    """Sync one launched call: the copy to the host waits for the device."""
+def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
+    """Sync one launched call: the copy to the host waits for the device.
+    The ivf completeness net runs HERE: a pruned scan can under-fill the
+    k-list when qualifying rows sit outside the probed clusters (a tight
+    recency bound, or a forced .using("ivf") on a selective predicate). An
+    under-filled row falls back to ONE exact rescan -- completeness beats
+    speed, and the extra arena scan shows up in `hot.rows`. ``trace_fan``
+    (member request traces, tracer-enabled path only) nests a ``rescan``
+    span under the caller's open ``device_sync`` span exactly when the net
+    fires."""
     s, sl = hot.s.cpu().numpy(), hot.sl.cpu().numpy()
     if hot.pad_check is not None and sl.shape[0] > hot.pad_check:
         # padded rows point at a BLOCK_ALL blocker lane: their k-lists must
         # be empty -- a hit here means a padding lane allocated result rows
         assert (sl[hot.pad_check:] == -1).all(), (
             "blocker-lane padding rows allocated result rows")
+    if hot.rescan is not None:
+        store, q, pred, k, exact, nv, ivf = hot.rescan
+        if bool((sl[:nv] < 0).any()):
+            fan = (FanSpan(trace_fan, "rescan", engine=exact)
+                   if trace_fan is not None else None)
+            s, sl = unified_query(store, _to_device(q, store), pred, k,
+                                  engine=exact)
+            s, sl = s.cpu().numpy(), sl.cpu().numpy()
+            if bool((sl[:nv] < 0).any()):
+                ivf.starved.add((pred, k))
+            hot.rows += store["emb"].shape[0]
+            if fan is not None:
+                fan.end(rows=store["emb"].shape[0])
     return s, sl
 
 
@@ -331,31 +396,32 @@ class InFlightPlans:
 
 def execute_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                   stats: ExecStats | None = None,
-                  shapes: CompiledShapes | None = None, planner_cfg=None,
-                  lex=None):
+                  shapes: CompiledShapes | None = None, index=None,
+                  planner_cfg=None, lex=None):
     """Batched execution of compiled plans: `launch_plans` then
     `finish_plans`. Every plan must carry its query rows (`logical.q`,
-    (B_i, D)) and all must share one k. ``lex`` is the RagDB's
+    (B_i, D)) and all must share one k. ``index`` is the RagDB's
+    `IVFIndex`, consumed by engine-'ivf' groups; ``lex`` its
     `LexicalArena`, consumed by engine-'hybrid' groups. Returns (scores
     (B, k), slots (B, k), tiers (B, k)) numpy arrays, B = total query rows,
     in plan order."""
     return finish_plans(launch_plans(hot_store, plans, stats=stats,
-                                     shapes=shapes, planner_cfg=planner_cfg,
-                                     lex=lex))
+                                     shapes=shapes, index=index,
+                                     planner_cfg=planner_cfg, lex=lex))
 
 
 def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                  stats: ExecStats | None = None,
-                 shapes: CompiledShapes | None = None, planner_cfg=None,
-                 lex=None, obs=None, calib=None) -> InFlightPlans:
+                 shapes: CompiledShapes | None = None, index=None,
+                 planner_cfg=None, lex=None, obs=None,
+                 calib=None) -> InFlightPlans:
     """LAUNCH phase: group plans by `group_key`, hand the distinct groups
     to `planner.fuse_batch`, and launch EVERY dispatch unit without
-    syncing. ``lex`` (the RagDB's `LexicalArena`) serves engine-'hybrid'
-    groups. ``obs`` (one obs.Trace per plan) records a ``launch`` span per
-    unit into each member request's trace; ``calib`` is carried to
-    `finish_plans`, which records the predicted-vs-measured audit."""
-    from repro_torch.api.planner import PlannerConfig, fuse_batch
-
+    syncing. ``index`` (the RagDB's `IVFIndex`) serves engine-'ivf' groups
+    and ``lex`` (its `LexicalArena`) engine-'hybrid' groups. ``obs`` (one
+    obs.Trace per plan) records a ``launch`` span per unit into each member
+    request's trace; ``calib`` is carried to `finish_plans`, which records
+    the predicted-vs-measured audit."""
     ks = {p.logical.k for p in plans}
     if len(ks) != 1:
         raise ValueError(f"batched execution needs a single k, got {sorted(ks)}")
@@ -434,15 +500,19 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                 stats.fused_groups += len(unit.plans)
                 stats.fused_scans += 1
         else:
+            (plan,) = unit.plans
             (idxs,) = member_idxs
             q_g = q_all[np.asarray(idxs)]
+            n_valid = q_g.shape[0]
             if shapes is not None:
-                bucket = bucket_rows(q_g.shape[0])
-                shapes.touch(rep.engine, bucket, k)
+                bucket = bucket_rows(n_valid)
+                shapes.touch(plan.engine, bucket, k)
                 if stats is not None:
-                    stats.padded_rows += bucket - q_g.shape[0]
+                    stats.padded_rows += bucket - n_valid
                 q_g = _pad_rows(q_g, bucket)
-            hot = _launch_hot(hot_store, q_g, rep.pred, k, rep.engine)
+            hot = _launch_hot(hot_store, q_g, plan.pred, k, plan.engine,
+                              index, plan.nprobe, n_valid,
+                              skip_rescan=bool(plan.degraded))
         hot.launch_ms = (time.perf_counter() - t_launch0) * 1e3
         if fan is not None:
             fan.end(rows=sum(len(m) for m in member_idxs))
@@ -458,10 +528,11 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
 
 def finish_plans(pending: InFlightPlans):
     """FINISH phase: the first copy to the host. Syncs every in-flight
-    unit and scatters into row order. Each unit's sync is a
-    ``device_sync`` span and its scatter a ``merge`` span in every member
-    request's trace, and each unit lands one predicted-vs-measured row in
-    `pending.calib`. Returns (scores, slots, tiers)."""
+    unit, runs ivf completeness rescans and scatters into row order. Each
+    unit's sync is a ``device_sync`` span (rescans nest inside it) and its
+    scatter a ``merge`` span in every member request's trace, and each
+    unit lands one predicted-vs-measured row in `pending.calib`. Returns
+    (scores, slots, tiers)."""
     B, k, stats = pending.B, pending.k, pending.stats
     row_traces, calib = pending.row_traces, pending.calib
     scores = np.full((B, k), np.float32(NEG_INF), np.float32)
@@ -474,7 +545,7 @@ def finish_plans(pending: InFlightPlans):
                             engine=unit.plans[0].engine)
                     if unit_traces is not None else None)
         t_sync0 = time.perf_counter()
-        hs, hi = _finish_hot(hot)
+        hs, hi = _finish_hot(hot, trace_fan=unit_traces)
         hot.sync_ms = (time.perf_counter() - t_sync0) * 1e3
         if sync_fan is not None:
             sync_fan.end(rows_scanned=hot.rows)

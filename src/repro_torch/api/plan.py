@@ -101,17 +101,17 @@ class PhysicalPlan:
     """How the engine will answer it. Produced only by planner.compile_plan."""
     logical: LogicalPlan
     pred: Predicate                   # lowered clause set (the kernel contract)
-    engine: str                       # "ref" | "cuda" | "hybrid" (the
-                                      # port's engines so far; later slices
-                                      # add "sharded" and "ivf")
+    engine: str                       # "ref" | "cuda" | "hybrid" | "ivf"
+                                      # (the port's engines so far; a later
+                                      # slice adds "sharded")
     engine_reason: str
     route: str                        # "hot" | "hot+warm"
     route_reason: str
     n_rows: int                       # hot-tier arena rows the scan covers
     # The fields below keep the reference's plan and key layout. The
-    # planner sets ``lex`` for hybrid plans and none of nprobe / ivf_est /
-    # page_rows / shards / placement yet; their engines and the paged
-    # regime arrive with later slices.
+    # planner sets ``lex`` for hybrid plans and nprobe / ivf_est for ivf
+    # plans, and none of page_rows / shards / placement yet: the sharded
+    # engine and the paged regime arrive with later slices.
     est_cost_ms: float | None = None  # cost-model estimate for the chosen
                                       # engine at n_rows (None = no model)
     cost_source: str = "static-thresholds"   # "measured" | "static-thresholds"

@@ -7,9 +7,18 @@ Engine selection, first match wins:
      the lexical signal (the arena-scan kernel in its lexical modes for a
      store on the card, the plain streaming scan on the CPU);
   1. the builder's explicit `.using(engine)` hint;
-  2. "cuda" for every exact plan whose store lies on a CUDA device -- the
+  2. "ivf" if the RagDB carries an index and the arena is at least
+     `ivf_min_rows` (the pruned scan: the probe kernel over the probed
+     clusters' rows) -- unless the selectivity guard blocks it;
+  3. "cuda" for every exact plan whose store lies on a CUDA device -- the
      hand-written arena-scan kernel;
-  3. "ref" otherwise (plain PyTorch; the only engine for a store on the CPU).
+  4. "ref" otherwise (plain PyTorch; the only exact engine for a store on
+     the CPU).
+
+Selectivity guard: a pruned scan scores at most nprobe clusters' rows, so
+a tenant / category / ACL clause can under-fill the k-list even when
+qualifying rows exist elsewhere in the arena. Those plans fall back to an
+exact engine and the reason string says so (`ivf_blocked_reason`).
 
 A `CostModel` holds measured per-engine curves when one is given; the port
 ships none (the reference's ``results/bench_latency.json`` curves are CPU
@@ -19,21 +28,22 @@ cost estimate until the port has its own bench.
 Tier routing keeps the paper's §7.3 rule. This slice has no warm tier, so
 every plan routes "hot" with the reason "warm tier empty".
 
-Engines of later slices -- "ivf" and "sharded" -- raise
-NotImplementedError naming their ROADMAP queue item.
+The "sharded" engine belongs to a later slice and raises
+NotImplementedError naming its ROADMAP queue item.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.api.plan import LogicalPlan, PhysicalPlan, bucket_rows
+from repro_torch.api.plan import (ALL_BITS, ANY_TENANT, LogicalPlan,
+                                  PhysicalPlan, bucket_rows)
 
 #: engines of later slices -> the ROADMAP queue-1 item that brings them
 LATER_ENGINES = {
-    "ivf": "IVF slice (ROADMAP queue 1, 'IVF')",
     "sharded": "sharded-engine slice (ROADMAP queue 1, 'Sharded engine')",
 }
 
@@ -132,11 +142,14 @@ class PlannerConfig:
     >>> PlannerConfig().cost_model is None
     True
     """
+    ivf_min_rows: int = 1 << 12       # below this the exact scan is trivial
+    ivf_nprobe: int | None = None     # probe depth; None = the index default
     fuse_min_groups: int = 2          # grouped-scan fusion floor: batches with
                                       # at least this many exact-engine groups
                                       # sharing a fuse key scan once (a huge
                                       # value disables fusion)
     cost_model: CostModel | None = None
+    degrade_min_nprobe: int = 1       # nprobe floor for the ivf rung
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,12 +219,56 @@ def fuse_batch(plans, *, cfg: PlannerConfig = PlannerConfig()) -> list[FusedGrou
     return units
 
 
+def exact_engine(device) -> str:
+    """The exact engine for a store on ``device``: the arena-scan kernel on
+    the card, plain PyTorch elsewhere (also the ivf rescan's engine)."""
+    return "cuda" if torch.device(device).type == "cuda" else "ref"
+
+
+def _candidate_engines(device="cpu", has_index: bool = False) -> list[str]:
+    """Engines the store can actually run: its exact engine always, ivf
+    when the RagDB carries a built index.
+
+    >>> _candidate_engines("cpu", has_index=True)
+    ['ref', 'ivf']
+    """
+    cands = [exact_engine(device)]
+    if has_index:
+        cands.append("ivf")
+    return cands
+
+
+def ivf_blocked_reason(logical: LogicalPlan) -> str | None:
+    """Why the planner must not route this plan through the pruned scan, or
+    None when ivf is admissible. The pruned scan only scores nprobe
+    clusters' rows, so a selective predicate can under-fill the k-list even
+    though qualifying rows exist outside the probed clusters -- exactness
+    requires the exact engines there. The check runs on the LOWERED
+    predicate, so a no-op clause (e.g. in_categories(range(32)), which
+    lowers to the pass-all mask) doesn't forfeit the pruned scan. Recency
+    alone is admissible: the hot arena covers the bound by tier placement,
+    and a tight bound that still under-fills is completed by the executor's
+    exact-rescan net."""
+    pred = logical.predicate()
+    if pred.tenant != ANY_TENANT:
+        return "selective predicate (tenant clause) could under-fill the pruned scan"
+    if pred.cat_mask != ALL_BITS:
+        return "selective predicate (category clause) could under-fill the pruned scan"
+    if pred.acl_bits != ALL_BITS:
+        return "selective predicate (ACL clause) could under-fill the pruned scan"
+    return None
+
+
 def choose_engine(logical: LogicalPlan, *, n_rows: int,
                   cfg: PlannerConfig = PlannerConfig(),
-                  device="cpu", has_lex: bool = False) -> tuple[str, str]:
+                  device="cpu", has_index: bool = False,
+                  has_lex: bool = False) -> tuple[str, str]:
     """Pick the execution engine and an auditable reason string.
-    ``device`` is the device the store lies on; ``has_lex`` whether the
-    RagDB carries a lexical arena (which admits match() clauses).
+    ``device`` is the device the store lies on; ``has_index`` whether the
+    RagDB carries a built IVF index; ``has_lex`` whether it carries a
+    lexical arena (which admits match() clauses). The selectivity guard
+    removes "ivf" from the candidates for constrained plans (see
+    `ivf_blocked_reason`) -- the reason string records the skip.
 
     >>> choose_engine(LogicalPlan(k=5), n_rows=512)
     ('ref', 'cpu backend, 512 rows')
@@ -220,6 +277,12 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
     >>> choose_engine(LogicalPlan(k=5, engine="ref"), n_rows=512,
     ...               device="cuda")[0]
     'ref'
+    >>> choose_engine(LogicalPlan(k=5), n_rows=1 << 16, has_index=True)[0]
+    'ivf'
+    >>> eng, why = choose_engine(LogicalPlan(tenant=3, k=5), n_rows=1 << 16,
+    ...                          has_index=True)
+    >>> eng, "ivf skipped" in why
+    ('ref', True)
     >>> choose_engine(LogicalPlan(match_terms=(3, 7), k=5), n_rows=512,
     ...               has_lex=True)[0]
     'hybrid'
@@ -252,15 +315,26 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
                          "ignoring the knobs would misreport the ranking")
     if logical.engine is not None:
         return logical.engine, "caller hint (.using())"
-    dev = torch.device(device)
-    engine = "cuda" if dev.type == "cuda" else "ref"
+    cands = _candidate_engines(device, has_index)
+    note = ""
+    if "ivf" in cands:
+        blocked = ivf_blocked_reason(logical)
+        if blocked is not None:
+            cands.remove("ivf")
+            note = f"; ivf skipped: {blocked}"
     cm = cfg.cost_model
-    est = cm.estimate_ms(engine, n_rows) if cm is not None else None
-    if est is not None:
-        return engine, f"cost model: {engine} ~{est:.2f}ms"
-    if engine == "cuda":
-        return "cuda", f"store on {dev}: arena-scan kernel, {n_rows} rows"
-    return "ref", f"{dev.type} backend, {n_rows} rows"
+    if cm is not None:
+        ests = {e: cm.estimate_ms(e, n_rows) for e in cands}
+        if all(v is not None for v in ests.values()):
+            best = min(ests, key=lambda e: ests[e])
+            detail = ", ".join(f"{e} ~{ests[e]:.2f}ms" for e in cands)
+            return best, f"cost model: {detail}{note}"
+    if "ivf" in cands and n_rows >= cfg.ivf_min_rows:
+        return "ivf", f"index present and {n_rows} rows >= {cfg.ivf_min_rows}"
+    dev = torch.device(device)
+    if cands[0] == "cuda":
+        return "cuda", f"store on {dev}: arena-scan kernel, {n_rows} rows{note}"
+    return "ref", f"{dev.type} backend, {n_rows} rows{note}"
 
 
 def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
@@ -293,30 +367,38 @@ def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
 def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(),
-                 device="cpu", lex=None) -> PhysicalPlan:
+                 device="cpu", index=None, lex=None) -> PhysicalPlan:
     """Compile WHAT (LogicalPlan) into HOW (PhysicalPlan): engine + route +
     the predicate-group batching key, with any cost estimate attached so
-    ``explain()`` can render it. ``device`` is the store's device; ``lex``
-    the RagDB's `LexicalArena` (or None): its presence admits match()
-    clauses, which compile to the "hybrid" engine with the score-mix
-    identity (fusion mode, query-term-count bucket, weights) stamped into
-    the group key.
+    ``explain()`` can render it. ``device`` is the store's device; ``index``
+    the RagDB's `IVFIndex` (or None): its presence adds "ivf" to the
+    candidate engines, and ivf plans carry nprobe + the candidate-row
+    estimate for explain(). ``lex`` is the RagDB's `LexicalArena` (or
+    None): its presence admits match() clauses, which compile to the
+    "hybrid" engine with the score-mix identity (fusion mode,
+    query-term-count bucket, weights) stamped into the group key.
 
     >>> p = compile_plan(LogicalPlan(match_terms=(5, 9), k=5), n_rows=64,
     ...                  hot_window_s=10, now_ts=0, warm_rows=0,
     ...                  lex=object())
     >>> p.engine, p.lex
     ('hybrid', ('wsum', 2, 1.0, 1.0))
+    >>> compile_plan(LogicalPlan(k=5, engine="ivf"), n_rows=64,
+    ...              hot_window_s=10, now_ts=0, warm_rows=0)
+    Traceback (most recent call last):
+    ...
+    ValueError: engine='ivf' requires a built index — call RagDB.build_index() first
     """
     engine, engine_reason = choose_engine(logical, n_rows=n_rows, cfg=cfg,
                                           device=device,
+                                          has_index=index is not None,
                                           has_lex=lex is not None)
     route, route_reason = choose_route(logical, hot_window_s=hot_window_s,
                                        now_ts=now_ts, warm_rows=warm_rows,
                                        cost_model=cfg.cost_model)
     est = (cfg.cost_model.estimate_ms(engine, n_rows)
            if cfg.cost_model is not None else None)
-    lex_key = None
+    nprobe = ivf_est = lex_key = None
     if engine == "hybrid":
         qt_bucket = bucket_rows(len(logical.match_terms))
         # rrf ranks ignore the weights -- normalize them out of the identity
@@ -326,25 +408,81 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                        float(logical.w_lex))
         else:
             lex_key = ("rrf", qt_bucket, 1.0, 1.0)
+    if engine == "ivf":
+        if index is None:
+            raise ValueError("engine='ivf' requires a built index — "
+                             "call RagDB.build_index() first")
+        nprobe = cfg.ivf_nprobe or index.cfg.nprobe
+        q_rows = 1 if logical.q is None else len(np.atleast_2d(logical.q))
+        ivf_est = (index.n_clusters, index.cluster_cap,
+                   index.candidate_rows(nprobe, rows=q_rows))
     return PhysicalPlan(logical=logical, pred=logical.predicate(),
                         engine=engine, engine_reason=engine_reason,
                         route=route, route_reason=route_reason, n_rows=n_rows,
                         est_cost_ms=est,
                         cost_source=("measured" if est is not None
                                      else "static-thresholds"),
-                        lex=lex_key)
+                        nprobe=nprobe, ivf_est=ivf_est, lex=lex_key)
 
 
-def degrade_plan(plan: PhysicalPlan) -> PhysicalPlan | None:
+def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
+                 now_ts: int, warm_rows: int,
+                 cfg: PlannerConfig = PlannerConfig(), device="cpu",
+                 index=None, lex=None) -> PhysicalPlan | None:
     """One rung DOWN the degradation ladder, or None when it is exhausted.
-    The rungs (ivf probe depth, hybrid -> dense, ivf -> exact) belong to
-    later slices (the hybrid -> dense rung arrives with serving); an exact
-    plan has nothing to shed.
+    What degrades is the query contract (probe depth), never the isolation
+    clauses. The rungs of the ivf engine:
+
+      1. nprobe shrink -- halve the probe depth (floor
+         ``cfg.degrade_min_nprobe``): recall narrows, the scan shrinks,
+         predicate exactness is untouched. Degraded probes also WAIVE the
+         executor's completeness rescan (an under-filled k-list is the
+         degraded answer);
+      2. ivf -> exact -- at the nprobe floor, switch to the store's exact
+         engine when the cost model prices it under the floored probe. The
+         port ships no cost model, so without one this rung is None.
+
+    The hybrid -> dense rung arrives with the serving slice; an exact plan
+    has nothing to shed.
 
     >>> from repro_torch.api.plan import LogicalPlan
-    >>> p = compile_plan(LogicalPlan(k=5), n_rows=1 << 10, hot_window_s=10,
-    ...                  now_ts=0, warm_rows=0)
-    >>> degrade_plan(p) is None          # ref plan: nothing to shed
+    >>> kw = dict(n_rows=1 << 10, hot_window_s=10, now_ts=0, warm_rows=0)
+    >>> p = compile_plan(LogicalPlan(k=5), **kw)
+    >>> degrade_plan(p, **kw) is None          # ref plan: nothing to shed
     True
     """
+    kw = dict(n_rows=n_rows, hot_window_s=hot_window_s, now_ts=now_ts,
+              warm_rows=warm_rows, cfg=cfg, device=device, index=index,
+              lex=lex)
+    if plan.engine == "ivf" and plan.nprobe is not None:
+        floor = max(int(cfg.degrade_min_nprobe), 1)
+        if plan.nprobe > floor:
+            new_nprobe = max(plan.nprobe // 2, floor)
+            ivf_est, est = plan.ivf_est, plan.est_cost_ms
+            if index is not None:
+                q_rows = (1 if plan.logical.q is None
+                          else len(np.atleast_2d(plan.logical.q)))
+                cand = index.candidate_rows(new_nprobe, rows=q_rows)
+                ivf_est = (index.n_clusters, index.cluster_cap, cand)
+                if est is not None and plan.ivf_est and plan.ivf_est[2]:
+                    # the measured curve prices the DEFAULT probe depth; a
+                    # shallower probe scans proportionally fewer candidates
+                    est = est * cand / plan.ivf_est[2]
+            return dataclasses.replace(
+                plan, nprobe=new_nprobe, ivf_est=ivf_est, est_cost_ms=est,
+                degraded=plan.degraded + (
+                    f"nprobe {plan.nprobe}->{new_nprobe}",))
+        # at the floor: switch to the exact engine only when the cost model
+        # actually prices it under the floored probe
+        cm = cfg.cost_model
+        if cm is not None:
+            exact = exact_engine(device)
+            ex_est = cm.estimate_ms(exact, n_rows)
+            if ex_est is not None and plan.est_cost_ms is not None \
+                    and ex_est < plan.est_cost_ms:
+                fresh = compile_plan(dataclasses.replace(
+                    plan.logical, engine=exact), **kw)
+                return dataclasses.replace(
+                    fresh, degraded=plan.degraded + (f"ivf->{exact}",))
+        return None
     return None

@@ -22,10 +22,11 @@ scan, and launches every call before the first sync.
 This slice holds the hot arena's `TransactionLog` directly as ``db.log``,
 and with ``lexical_cfg`` a `LexicalArena` beside it as ``db.lex`` (written
 through the log's ``lex`` hook), which admits `QueryBuilder.match()` and
-`.fuse()`: the hybrid dense+BM25 scan. The warm tier and router, the cold
-archive, IVF and the mesh arrive with later slices; their constructor
-arguments and builder methods raise NotImplementedError naming their
-ROADMAP queue item.
+`.fuse()`: the hybrid dense+BM25 scan. `RagDB.build_index()` attaches an
+`IVFIndex` as ``db.index`` (written through the log's ``ivf`` hook), which
+adds the pruned "ivf" engine. The warm tier and router, the cold archive
+and the mesh arrive with later slices; their constructor arguments raise
+NotImplementedError naming their ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.api.plan import ALL_BITS, ANY_TENANT, LogicalPlan, PhysicalPlan
 from repro_torch.api.planner import (LATER_ENGINES, PlannerConfig,
                                      check_engine_hint, compile_plan,
                                      degrade_plan)
+from repro_torch.core.ivf import IVFConfig, IVFIndex, build_ivf
 from repro_torch.core.store import DocBatch, StoreConfig
 from repro_torch.core.tenancy import Principal, TenantRegistry, category_mask
 from repro_torch.core.transactions import TransactionLog
@@ -224,6 +226,10 @@ class RagDB:
             self.lex = LexicalArena(hot_cfg.capacity, lexical_cfg,
                                     device=self.log.device)
             self.log.lex = self.lex
+        # ANN tier: hot-arena IVF index (build_index creates it); None means
+        # the planner only has exact engines
+        self.index: IVFIndex | None = None
+        self._index_auto = False      # was the last build auto-sized?
         self.hot_window_s = _FOREVER
         self.now_ts = now_ts
         self.tenants = TenantRegistry()
@@ -279,6 +285,7 @@ class RagDB:
         self.log.ingest(batch)
         for tid, n in charges:
             self.tenants.charge(tid, n)
+        self._maybe_rebuild_index()
 
     def update(self, doc_ids, new_emb, updated_at) -> None:
         """Re-embed documents; an unknown doc_id raises KeyError (before
@@ -289,6 +296,7 @@ class RagDB:
             raise KeyError(f"unknown doc_ids {unknown}")
         ts = torch.as_tensor(updated_at).reshape(-1)
         self.log.update(ids, new_emb, ts)
+        self._maybe_rebuild_index()
 
     def delete(self, doc_ids) -> None:
         """Delete documents; refunds registered tenants' quota (slot
@@ -303,12 +311,42 @@ class RagDB:
         for tid in owners.cpu().tolist():
             if tid in self.tenants.doc_count and self.tenants.doc_count[tid] > 0:
                 self.tenants.doc_count[tid] -= 1
+        self._maybe_rebuild_index()
 
     def create_tenant(self, quota: int = 1 << 30) -> int:
         return self.tenants.create_tenant(quota)
 
-    def build_index(self, cfg=None):
-        raise _not_ported("build_index()", LATER_ENGINES["ivf"])
+    # -- ANN tier (IVF index over the hot arena) --------------------------
+    def build_index(self, cfg: IVFConfig | None = None) -> IVFIndex:
+        """(Re)build the hot-arena IVF index on the arena's device and
+        attach it for incremental write-through maintenance. Adds "ivf" to
+        the planner's candidate engines. ``cfg=None`` auto-sizes n_clusters
+        near 2*sqrt(live rows).
+
+        Every (re)build bumps the index epoch -- ivf-plan result-cache
+        entries key on it, so a rebuild (which changes which rows get
+        scored without any arena commit) can never serve a stale hit."""
+        snap = self.log.snapshot()
+        self._index_auto = cfg is None
+        if cfg is None:
+            # ~2*sqrt(N) clusters (pow2): fine enough that nprobe clusters
+            # stay well under a quarter of the arena, coarse enough that the
+            # centroid product stays negligible next to the pruned scan
+            n_live = max(int(snap["n_live"]), 1)
+            c = 1 << max(int(2 * n_live ** 0.5), 1).bit_length()
+            cfg = IVFConfig(n_clusters=max(8, min(c, n_live)))
+        epoch = self.index.epoch + 1 if self.index is not None else 0
+        self.index = build_ivf(snap, cfg, epoch=epoch)
+        self.log.ivf = self.index     # commits write through from here on
+        return self.index
+
+    def _maybe_rebuild_index(self) -> None:
+        """Drift rule: once incremental churn passes the configured fraction
+        of the built size, the centroids no longer describe the data --
+        rebuild (synchronously). An auto-sized index re-auto-sizes, so
+        n_clusters tracks the grown corpus."""
+        if self.index is not None and self.index.needs_rebuild():
+            self.build_index(None if self._index_auto else self.index.cfg)
 
     # -- sessions (the only way to query) --------------------------------
     def session(self, principal: Principal) -> "Session":
@@ -326,15 +364,16 @@ class RagDB:
             logical, n_rows=snap["emb"].shape[0],
             hot_window_s=self.hot_window_s, now_ts=self.now_ts,
             warm_rows=0, cfg=self.planner_cfg, device=snap["emb"].device,
-            lex=self.lex)
+            index=self.index, lex=self.lex)
 
     def _result_key(self, plan: PhysicalPlan) -> tuple | None:
         """Snapshot-exact cache key for one plan, or None when the plan is
         uncacheable (no query rows). Hybrid plans also key on their term
         ids (in the digest) and on the `LexicalStats` version, because a
-        lexical write moves idf/avgdl and therefore hybrid scores. The warm
-        commit counter and index epoch keep their places in the key, pinned
-        to -1 until their slices exist."""
+        lexical write moves idf/avgdl and therefore hybrid scores. ivf
+        plans key on the index epoch: a rebuild changes which rows get
+        SCORED without any arena commit. The warm commit counter keeps its
+        place in the key, pinned to -1 until the warm tier's slice."""
         lp = plan.logical
         if lp.q is None:
             return None
@@ -344,13 +383,22 @@ class RagDB:
         if plan.engine == "hybrid" and self.lex is not None:
             h.update(repr(lp.match_terms).encode())
             lex_version = self.lex.stats.version
+        index_epoch = (self.index.epoch
+                       if plan.engine == "ivf" and self.index is not None
+                       else -1)
         return (plan.group_key, q.shape, h.digest(), self.log.commit_count,
-                -1, -1, lex_version)
+                -1, index_epoch, lex_version)
 
     def degrade(self, plan: PhysicalPlan) -> PhysicalPlan | None:
-        """One rung down the degradation ladder for ``plan``, or None when
-        the ladder is exhausted (see planner.degrade_plan)."""
-        return degrade_plan(plan)
+        """One rung down the degradation ladder for ``plan`` in THIS db's
+        compile context, or None when the ladder is exhausted (see
+        planner.degrade_plan)."""
+        snap = self.log.snapshot()
+        return degrade_plan(
+            plan, n_rows=snap["emb"].shape[0],
+            hot_window_s=self.hot_window_s, now_ts=self.now_ts, warm_rows=0,
+            cfg=self.planner_cfg, device=snap["emb"].device,
+            index=self.index, lex=self.lex)
 
     def execute(self, plans: list[PhysicalPlan], *, use_cache: bool = True,
                 stale_within_s: float | None = None):
@@ -441,8 +489,9 @@ class RagDB:
                     self.faults.raise_if("hot.launch", HotLaunchError)
                 inflight = launch_plans(
                     self.log.snapshot(), run_plans, stats=self.stats,
-                    shapes=self.shapes, planner_cfg=self.planner_cfg,
-                    lex=self.lex, obs=run_traces, calib=self.calibration)
+                    shapes=self.shapes, index=self.index,
+                    planner_cfg=self.planner_cfg, lex=self.lex,
+                    obs=run_traces, calib=self.calibration)
             finally:
                 if group is not None:
                     self.tracer.pop()
@@ -514,6 +563,13 @@ class RagDB:
                        f"{rc.hits} hits / {rc.misses} misses")
         else:
             results = "disabled"
+        if self.index is not None:
+            ix = self.index
+            index = (f"{ix.n_clusters} clusters (cap {ix.cluster_cap}, "
+                     f"{len(ix.overflow)} overflow), epoch {ix.epoch}, "
+                     f"churn {ix.churn}/{ix.n_at_build}")
+        else:
+            index = "none (exact scans only)"
         if self.lex is not None:
             lx = self.lex
             lexical = (f"{lx.stats.n_docs} docs with postings, vocab "
@@ -542,7 +598,7 @@ class RagDB:
             f"{st.stale_serves} stale serves (within declared bound), "
             f"{st.warm_failovers} warm failovers (hot-only), "
             f"{st.stale_epoch_rejected} stale-epoch cache reads rejected",
-            "  ivf index:    none (exact scans only)",
+            f"  ivf index:    {index}",
             f"  lexical:      {lexical}",
             f"  calibration:  {self.calibration.explain_line()}",
         ]
@@ -644,10 +700,14 @@ class QueryBuilder:
 
     def using(self, engine: str) -> "QueryBuilder":
         """Force an execution engine: "ref" (plain PyTorch, on the store's
-        device) or "cuda" (the arena-scan kernel). match() queries always
-        run on "hybrid", so a conflicting hint is refused at plan time, as
-        is "hybrid" without a match() clause. "pallas" and the engines of
-        later slices are refused here."""
+        device), "cuda" (the arena-scan kernel) or "ivf" (the pruned probe,
+        overriding the planner's selectivity guard: an under-filled probe
+        is completed by the executor's exact rescan, so forcing "ivf"
+        trades speed, never completeness; it requires
+        `RagDB.build_index()` first, or plan() raises). match() queries
+        always run on "hybrid", so a conflicting hint is refused at plan
+        time, as is "hybrid" without a match() clause. "pallas" and the
+        engines of later slices are refused here."""
         check_engine_hint(engine)
         return self._with(engine=engine)
 

@@ -1,0 +1,370 @@
+"""IVF cluster index -- the pruned route of the unified scan (port of
+``repro.core.ivf``).
+
+A coarse quantizer (one small product with C centroids) selects nprobe
+clusters, and the fused filtered scan runs only over those clusters' rows.
+
+Layout: a padded cluster-major MEMBER table (C, cap) of arena slot ids. The
+probe takes the deduplicated union of the predicate group's probed clusters
+and reads those members' embeddings + metadata from the ARENA once per
+group (kernels/ivf_probe) -- slot-indirect, so the arena stays the single
+source of truth and the index never carries a second copy of any column.
+
+Rows that don't fit their cluster's cap land in an explicit ``overflow``
+tail that every probe scans exactly -- overfull clusters cost a little
+speed, never recall.
+
+The predicate mask still runs INSIDE the probe scan, on arena metadata:
+IVF changes which rows are scored, never which rows may be returned --
+isolation is preserved even against a corrupted member table.
+
+Maintenance is incremental and host-side (numpy, as in the reference):
+writes assign new rows to their nearest centroid (recycling member-table
+slots), `epoch` bumps on every (re)build so snapshot-keyed caches stay
+exact, and accumulated churn past ``drift_rebuild_frac`` of the built size
+marks the index for a rebuild. The device mirror is patched in place: a
+write marks the touched member-table rows, and the next probe uploads only
+those (see `IVFIndex.device_arrays`).
+
+The build differs from the reference in two ways, neither in what the
+index means. k-means seeds with ``torch.multinomial`` over the live rows
+(``jax.random.choice`` cannot be reproduced in torch), so a port-built
+index is held to recall, not to the reference's bits. And the Lloyd steps
+and the final assignment run in row chunks with ``index_add_`` for the
+cluster sums: the reference's (N, C) similarity and one-hot blocks would
+be 256 GB each at 2^23 rows and 8192 clusters.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.store import Store, resolve_device
+
+#: largest (rows, C) f32 similarity block the build materialises (2 GiB)
+_BLOCK_BYTES = 1 << 31
+
+
+@dataclasses.dataclass(frozen=True)
+class IVFConfig:
+    n_clusters: int = 64
+    nprobe: int = 8
+    cluster_cap: int | None = None   # padded rows per cluster; None = auto
+                                     # (largest built cluster, 128-rounded)
+    kmeans_iters: int = 10
+    seed: int = 0
+    drift_rebuild_frac: float = 0.25  # churn fraction that flags a rebuild
+
+
+def _chunk_rows(n_clusters: int) -> int:
+    """Rows per chunk so that a (rows, C) f32 block stays under
+    `_BLOCK_BYTES`."""
+    return max(1, _BLOCK_BYTES // (4 * max(int(n_clusters), 1)))
+
+
+def _assign(emb: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid (argmax of the dot product, first index on ties)
+    of every row, in row chunks: (N,) int64."""
+    step = _chunk_rows(cent.shape[0])
+    return torch.cat([torch.argmax(emb[s:s + step].float() @ cent.T, dim=1)
+                      for s in range(0, emb.shape[0], step)])
+
+
+def _kmeans(emb: torch.Tensor, live: torch.Tensor, n_clusters: int,
+            iters: int, seed: int) -> torch.Tensor:
+    """Spherical Lloyd iterations over live rows; centroids (C, D) f32 on
+    emb's device. Seeds are C distinct live rows drawn by
+    ``torch.multinomial`` on a generator seeded with ``seed``."""
+    dev = emb.device
+    C = n_clusters
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = live.float()
+    if not bool(w.any()):       # no live row: draw the seeds uniformly
+        w = torch.ones_like(w)
+    init = torch.multinomial(w, C, replacement=False, generator=gen)
+    cent = emb[init].float()
+    step = _chunk_rows(C)
+    for _ in range(iters):
+        sums = torch.zeros_like(cent)
+        counts = torch.zeros(C, dtype=torch.float32, device=dev)
+        for s in range(0, emb.shape[0], step):
+            e = emb[s:s + step].float()
+            keep = live[s:s + step]
+            a = torch.argmax(e @ cent.T, dim=1)[keep]
+            sums.index_add_(0, a, e[keep])
+            counts.index_add_(0, a, torch.ones_like(a, dtype=torch.float32))
+        new = torch.where(counts[:, None] > 0,
+                          sums / torch.clamp(counts, min=1)[:, None], cent)
+        norm = torch.linalg.vector_norm(new, dim=1, keepdim=True)
+        cent = new / torch.clamp(norm, min=1e-12)
+    return cent
+
+
+def _pow2(n: int, floor: int = 1) -> int:
+    return 1 << max(max(int(n), floor) - 1, 0).bit_length()
+
+
+class IVFIndex:
+    """Host-managed coarse index over the hot arena.
+
+    Mutable on the host (incremental upkeep rides every commit), consumed on
+    ``device`` through a cached mirror (`device_arrays`) that is PATCHED in
+    place: a write marks the member-table rows it touched and the next probe
+    uploads only those rows, so upload bytes scale with the write, not with
+    the (C, cap) table. `epoch` identifies the centroid generation -- result
+    caches key ivf-engine entries on it because a rebuild changes which
+    rows get *scored* without any arena commit.
+
+    >>> idx = IVFIndex(IVFConfig(n_clusters=2, nprobe=1),
+    ...                np.eye(2, 4, dtype=np.float32),
+    ...                np.array([[0, 2], [1, -1]], np.int32),
+    ...                np.array([2, 1]), [5], n_at_build=4, device="cpu")
+    >>> clusters, n_probed, rows = idx.probe(np.array([[0, 1, 0, 0]]), 1)
+    >>> clusters.tolist(), n_probed, rows
+    ([1], 1, 10)
+    >>> idx.remove_slots([0]); idx.members.tolist(), idx.churn
+    ([[2, -1], [1, -1]], 1)
+    """
+
+    def __init__(self, cfg: IVFConfig, centroids: np.ndarray,
+                 members: np.ndarray, fill: np.ndarray, overflow: list[int],
+                 n_at_build: int, epoch: int = 0, *, device=None):
+        self.cfg = cfg
+        self.centroids = centroids          # (C, D) f32, unit rows
+        self.members = members              # (C, cap) i32 arena slots, -1 pad
+        self.fill = fill                    # (C,) live entries per cluster
+        self.overflow = list(overflow)      # spilled slots -- scanned exactly
+        self.n_at_build = n_at_build
+        self.epoch = epoch
+        self.device = resolve_device(device)   # where the mirror lives
+        self.churn = 0                      # incremental ops since (re)build
+        # predicates the WHOLE arena cannot fill k for (learned by the
+        # executor's exact-rescan net): probing them is pure waste, so the
+        # dispatch goes straight to the exact engine. Any data change can
+        # un-starve a predicate, so mutations clear the memo.
+        self.starved: set = set()
+        # slot -> (cluster, position); (-1, i) for overflow entry i. Built
+        # in the reference's loop order (clusters ascending, positions in
+        # fill order, then the tail), so a slot listed twice keeps its
+        # last position, as there -- vectorised, for 2^23-entry tables.
+        pos = np.arange(members.shape[1])[None, :]
+        c_idx, p_idx = np.nonzero(pos < np.asarray(fill)[:, None])
+        self._slot_pos: dict[int, tuple[int, int]] = dict(zip(
+            members[c_idx, p_idx].tolist(),
+            zip(c_idx.tolist(), p_idx.tolist())))
+        for i, s in enumerate(self.overflow):
+            self._slot_pos[int(s)] = (-1, i)
+        self._dev: dict | None = None
+        # incremental-mirror bookkeeping: writes mark the touched member-table
+        # rows (cluster ids) dirty instead of dropping the whole mirror, and
+        # device_arrays patches only those rows in place. The byte counter is
+        # the auditable trail a write-heavy deployment watches.
+        self._dirty_clusters: set[int] = set()
+        self._overflow_dirty = False
+        self.mirror_uploads = 0           # full mirror uploads
+        self.mirror_patches = 0           # in-place row patches
+        self.mirror_bytes_uploaded = 0    # cumulative host->device bytes
+
+    # -- shape facts ------------------------------------------------------
+    @property
+    def n_clusters(self) -> int:
+        return self.members.shape[0]
+
+    @property
+    def cluster_cap(self) -> int:
+        return self.members.shape[1]
+
+    @property
+    def overflow_padded(self) -> int:
+        """Device length of the overflow tail (pow2-bucketed for shape reuse)."""
+        return _pow2(len(self.overflow), 8) if self.overflow else 0
+
+    def candidate_rows(self, nprobe: int, rows: int = 1) -> int:
+        """Upper bound on rows ONE probe scans for a ``rows``-row batch --
+        execution dedups the union of all rows' probed clusters, and the
+        union is pow2-bucketed, so the bound is _pow2(min(rows*nprobe, C))
+        clusters (explain()'s estimate)."""
+        u = min(max(int(rows), 1) * max(1, min(int(nprobe), self.n_clusters)),
+                self.n_clusters)
+        return _pow2(u) * self.cluster_cap + self.overflow_padded
+
+    # -- device mirror ----------------------------------------------------
+    def _overflow_host(self) -> np.ndarray:
+        over = np.full(self.overflow_padded, -1, np.int32)
+        over[:len(self.overflow)] = self.overflow
+        return over
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)      # always a copy
+
+    def device_arrays(self) -> dict[str, torch.Tensor]:
+        """Cached device view, maintained INCREMENTALLY: a write marks only
+        the member-table rows (clusters) it touched, and the next probe
+        patches those rows of the mirror in place (index assignment)
+        instead of re-uploading the whole (C, cap) table. The overflow tail
+        re-uploads whole when touched (it is pow2-padded and small).
+        Centroids only change on rebuild, which constructs a fresh index
+        (and mirror). Counters and byte counts are the reference's."""
+        if self._dev is None:
+            over = self._overflow_host()
+            self._dev = {"centroids": self._upload(self.centroids),
+                         "members": self._upload(self.members),
+                         "overflow": self._upload(over)}
+            self.mirror_uploads += 1
+            self.mirror_bytes_uploaded += (self.centroids.nbytes
+                                           + self.members.nbytes
+                                           + over.nbytes)
+        else:
+            if self._dirty_clusters:
+                rows = np.asarray(sorted(self._dirty_clusters), np.int64)
+                patch = self.members[rows]
+                self._dev["members"][torch.from_numpy(rows).to(
+                    self.device)] = self._upload(patch)
+                self.mirror_patches += 1
+                self.mirror_bytes_uploaded += patch.nbytes
+            if self._overflow_dirty:
+                over = self._overflow_host()
+                self._dev["overflow"] = self._upload(over)
+                self.mirror_bytes_uploaded += over.nbytes
+        self._dirty_clusters.clear()
+        self._overflow_dirty = False
+        return self._dev
+
+    # -- the coarse quantizer (host side: centroids are tiny) -------------
+    def probe(self, q: np.ndarray, nprobe: int):
+        """Deduplicated probed-cluster union for a batch of query rows.
+
+        Returns (clusters (U_pad,) i32 -- -1 padded; n_probed -- real
+        clusters in the union; rows_scanned -- padded candidate rows the
+        device scan will score). U_pad is `candidate_rows`'s bound,
+        _pow2(min(B*nprobe, C)) -- a function of (B, nprobe) alone, NOT of
+        the actual union size, so the scan's shape space stays enumerable."""
+        q = np.atleast_2d(np.asarray(q, np.float32))
+        nprobe = max(1, min(int(nprobe), self.n_clusters))
+        sims = q @ self.centroids.T                         # (B, C)
+        if nprobe < self.n_clusters:
+            top = np.argpartition(-sims, nprobe - 1, axis=1)[:, :nprobe]
+        else:
+            top = np.broadcast_to(np.arange(self.n_clusters), sims.shape)
+        uniq = np.unique(top)
+        u_pad = _pow2(min(q.shape[0] * nprobe, self.n_clusters))
+        clusters = np.full(u_pad, -1, np.int32)
+        clusters[:len(uniq)] = uniq
+        rows = len(clusters) * self.cluster_cap + self.overflow_padded
+        return clusters, len(uniq), rows
+
+    # -- incremental maintenance (rides every commit) ----------------------
+    def add_rows(self, slots, emb) -> None:
+        """Assign fresh/re-embedded rows to their nearest centroid,
+        recycling member-table slots; overfull clusters spill to the
+        exact-scan overflow tail."""
+        slots = [int(s) for s in slots]
+        emb = np.asarray(emb, np.float32).reshape(len(slots), -1)
+        assign = np.argmax(emb @ self.centroids.T, axis=1)
+        for slot, c in zip(slots, assign):
+            if slot in self._slot_pos:      # re-embed: move, don't duplicate
+                self._remove(slot)
+            c = int(c)
+            if self.fill[c] < self.cluster_cap:
+                pos = int(self.fill[c])
+                self.members[c, pos] = slot
+                self.fill[c] += 1
+                self._slot_pos[slot] = (c, pos)
+                self._dirty_clusters.add(c)
+            else:
+                self._slot_pos[slot] = (-1, len(self.overflow))
+                self.overflow.append(slot)
+                self._overflow_dirty = True
+            self.churn += 1
+        self.starved.clear()
+
+    def remove_slots(self, slots) -> None:
+        for s in slots:
+            self._remove(int(s))
+            self.churn += 1
+        self.starved.clear()
+
+    def _remove(self, slot: int) -> None:
+        ent = self._slot_pos.pop(slot, None)
+        if ent is None:
+            return
+        c, pos = ent
+        if c < 0:                            # overflow tail: swap-with-last
+            last = self.overflow.pop()
+            if pos < len(self.overflow):
+                self.overflow[pos] = last
+                self._slot_pos[last] = (-1, pos)
+            self._overflow_dirty = True
+        else:                                # member table: swap-with-last
+            last_pos = int(self.fill[c]) - 1
+            last_slot = int(self.members[c, last_pos])
+            self.members[c, last_pos] = -1
+            self.fill[c] = last_pos
+            if pos != last_pos:
+                self.members[c, pos] = last_slot
+                self._slot_pos[last_slot] = (c, pos)
+            self._dirty_clusters.add(c)
+
+    def needs_rebuild(self) -> bool:
+        """Drift rule: incremental churn past ``drift_rebuild_frac`` of the
+        built size means the centroids no longer describe the data."""
+        return self.churn > self.cfg.drift_rebuild_frac * max(self.n_at_build, 1)
+
+
+def build_ivf(store: Store, cfg: IVFConfig, *, epoch: int = 0) -> IVFIndex:
+    """Cluster the live rows into a cluster-major member table, on the
+    store's device (k-means and the assignment), then lay the table out on
+    the host with one argsort + searchsorted scatter, as the reference
+    does; rows beyond a cluster's cap spill into the overflow tail, which
+    probes scan exactly, so capacity pressure degrades speed, never
+    recall."""
+    emb = store["emb"]
+    live = store["tenant"] >= 0
+    n_live = int(live.sum())
+    C = max(1, min(cfg.n_clusters, n_live))
+    cent = _kmeans(emb, live, C, cfg.kmeans_iters, cfg.seed)
+    assign = torch.where(live, _assign(emb, cent), -1).cpu().numpy()
+
+    order = np.argsort(assign, kind="stable")
+    sorted_assign = assign[order]
+    first_live = np.searchsorted(sorted_assign, 0)
+    rows = order[first_live:].astype(np.int64)
+    ca = sorted_assign[first_live:]
+    counts = np.bincount(ca, minlength=C)
+    if cfg.cluster_cap is not None:
+        cap = cfg.cluster_cap
+    else:
+        cap = max(128, int(np.ceil(max(int(counts.max(initial=0)), 1) / 128)) * 128)
+    start = np.searchsorted(ca, np.arange(C))
+    pos = np.arange(len(rows)) - start[ca]
+    members = np.full((C, cap), -1, np.int32)
+    in_cap = pos < cap
+    members[ca[in_cap], pos[in_cap]] = rows[in_cap]
+    overflow = rows[~in_cap].astype(int).tolist()
+    fill = np.minimum(counts, cap).astype(np.int64)
+    return IVFIndex(cfg, cent.cpu().numpy(), members, fill, overflow,
+                    n_at_build=len(rows), epoch=epoch, device=emb.device)
+
+
+def ivf_query(store: Store, index: IVFIndex, q, pred, k: int,
+              nprobe: int | None = None, *, use_kernel: bool | None = None):
+    """Single-call convenience over probe + fused scan (the executor drives
+    the two stages itself so it can count rows_scanned).
+
+    ``pred`` is a Predicate or its packed (4,) int32 array. Returns
+    (scores (B, k), ARENA slots (B, k))."""
+    from repro_torch.core.query import Predicate
+    from repro_torch.kernels.ivf_probe.ops import ivf_probe
+    dev = store["emb"].device
+    pa = (pred.as_array(dev) if isinstance(pred, Predicate)
+          else torch.as_tensor(pred, dtype=torch.int32, device=dev))
+    q_np = (q.detach().cpu().numpy() if isinstance(q, torch.Tensor)
+            else np.asarray(q, np.float32))
+    clusters, _, _ = index.probe(q_np, nprobe or index.cfg.nprobe)
+    d = index.device_arrays()
+    return ivf_probe(torch.as_tensor(q_np, dtype=torch.float32, device=dev),
+                     store["emb"], store["tenant"], store["updated_at"],
+                     store["category"], store["acl"], d["members"],
+                     d["overflow"], clusters, pa, k, use_kernel=use_kernel)

@@ -134,9 +134,10 @@ class TransactionLog:
     Readers call `snapshot()` and get a dict no later write changes.
     Writers go through ingest/update/delete. ``store=None`` starts from an
     empty arena on ``device`` (the card unless the caller asks for another).
-    The ``ivf`` and ``lex`` write-through hooks stay None in this slice:
-    the IVF and lexical arenas arrive with their slices, and only then do
-    writes carry their (host-copied) payloads.
+    The ``ivf`` and ``lex`` write-through hooks are None until a RagDB
+    attaches its `IVFIndex` (`RagDB.build_index`) or its `LexicalArena`
+    (``lexical_cfg``); only then do writes carry their payloads (the ivf
+    step's embeddings copied to the host, where the index lives).
     """
 
     def __init__(self, cfg: StoreConfig, store: Store | None = None,

@@ -23,8 +23,8 @@ int arena_scan_launch(const float* q, const float* emb, const int* meta,
                       int G, int k, float* s0, int* i0, float* s1, int* i1,
                       float* out_s, int* out_i, void* stream_ptr) {
   const Lex none{nullptr, nullptr, nullptr, nullptr, 0, 0};
-  return run_scan<DENSE>(q, emb, meta, gids, preds, none, B, N, D, G, k, s0,
-                         i0, s1, i1, out_s, out_i,
+  return run_scan<DENSE>(q, emb, meta, gids, preds, none, kNoCand, B, N, D,
+                         G, k, s0, i0, s1, i1, out_s, out_i,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 

@@ -1,11 +1,12 @@
 // The unified arena scan on Hopper: masked dense (and hybrid dense+BM25)
 // top-k over a columnar arena, every predicate group of a batch in one pass.
-// This header holds the kernels; each score mode's C entry point is its own
+// This header holds the kernels; each mode's C entry point is its own
 // translation unit (arena_scan.cu: DENSE, arena_scan_fused.cu: FUSED,
-// arena_scan_both.cu: BOTH), so the three compile in parallel.
+// arena_scan_both.cu: BOTH, arena_scan_probe.cu: PROBE), so the four
+// compile in parallel.
 //
 // Replaces the Pallas TPU kernel `arena_scan_pallas`, resident regime
-// (src/repro/kernels/arena_scan/kernel.py:97,171), in three score modes:
+// (src/repro/kernels/arena_scan/kernel.py:97,171), in four modes:
 //   * DENSE  -- ScanSpec(score="dense"), which `filtered_topk_pallas`
 //               (G = 1) and `grouped_topk_pallas` (G >= 1) wrap. For each
 //               query row b the top-k of q_b . e_n over arena rows n that
@@ -16,10 +17,26 @@
 //               hybrid_score.py:55): the top-k of q_b . e_n + bm25_b(n),
 //               fusion weights folded into q and qidf by the caller;
 //   * BOTH   -- ScanSpec(score="both"), its rrf mode: two lists, the dense
-//               one and the bm25 one, each masked before any ranking.
-// Lists are ordered by score descending and then arena index ascending;
-// slot -1 wherever the score is NEG_INF, and (NEG_INF, -1) padding past
-// the fill when k > N.
+//               one and the bm25 one, each masked before any ranking;
+//   * PROBE  -- ScanSpec("dense", slot_lane=True), which `ivf_probe_pallas`
+//               (src/repro/kernels/ivf_probe/ivf_probe.py:32) runs: the
+//               dense top-k over an IVF candidate set of P rows, one
+//               predicate. The Pallas kernel scans a (P, D) copy of the
+//               candidates' rows that `_assemble` gathers first; here the
+//               gather is folded into the kernel's loads. The candidate
+//               vector cand (P,) holds arena slots (the probed clusters'
+//               member rows, then the overflow tail); thread r of a tile
+//               reads slot = cand[base + r] and loads emb and meta row
+//               `slot` in place of row base + r. A slot outside [0, N_arena)
+//               is dead (masked), never clamped, and no (P, D) copy is ever
+//               written. Selection and merges carry the CANDIDATE POSITION
+//               base + r, so ties fall where the reference puts them (the
+//               lower position first: clusters ascending, members in fill
+//               order, the overflow tail last; a slot listed twice comes out
+//               twice); finish maps position -> cand[position].
+// Lists are ordered by score descending and then arena index (PROBE:
+// candidate position) ascending; slot -1 wherever the score is NEG_INF,
+// and (NEG_INF, -1) padding past the fill when k > N.
 //
 // BM25 over the postings lanes (terms (N, T) int32, -1 empty; lexnorm
 // (N, T) f32) against the query terms (qterms (B, QT) int32, -1 padding;
@@ -72,7 +89,10 @@
 //          at T = 16 that is 26.98 GB, 8.05 ms. The BM25 compares
 //          (B * N * T * QT, 1.7e10 at QT = 4) are integer work well under
 //          it.
-// Memory-bound, with the fp32 FMA work close behind.
+//   PROBE: the P candidates' rows plus their slots,
+//          max(P * (4D + 16 + 4) B / 3.35 TB/s, 2 * B * P * D / 67 TFLOP/s).
+// Memory-bound, with the fp32 FMA work close behind. PROBE's gathered rows
+// are whole 4D-byte rows, so its loads coalesce as DENSE's do.
 //
 // What this simple design leaves on the table: each FMA group waits on a
 // 16-byte broadcast load from shared memory (most likely the shared-memory
@@ -117,6 +137,7 @@ static_assert(4 * RS * TILE_N <= TILE_N * (DK + 1),
 constexpr int DENSE = 0;   // one list on the dense score
 constexpr int FUSED = 1;   // one list on dense + bm25 (wsum)
 constexpr int BOTH = 2;    // two lists, dense and bm25 (rrf)
+constexpr int PROBE = 3;   // one dense list over slot-indirect candidates
 
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
@@ -273,8 +294,9 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
                  const int* __restrict__ terms,
                  const float* __restrict__ lexnorm,
                  const int* __restrict__ qterms,
-                 const float* __restrict__ qidf, int B, int N, int D, int G,
-                 int T, int QT, int k_loc, int n_tiles,
+                 const float* __restrict__ qidf,
+                 const int* __restrict__ cand, int n_arena, int B, int N,
+                 int D, int G, int T, int QT, int k_loc, int n_tiles,
                  float* __restrict__ cand_s, int* __restrict__ cand_i) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* e_sh = reinterpret_cast<float*>(smem_raw);     // TILE_N x (DK+1)
@@ -294,6 +316,8 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
   float* ll_sh = reinterpret_cast<float*>(lt_sh + TILE_N * LS);
   int* qt_sh = reinterpret_cast<int*>(ll_sh + TILE_N * LS);  // BB x QT
   float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QT);  // BB x QT
+  // PROBE: the tile's arena slots (-1 for a dead or padding candidate)
+  int* sl_sh = g_sh + BB;                                // TILE_N
 
   const int tid = threadIdx.x;
   const int tile = blockIdx.x;
@@ -302,10 +326,21 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
 
   for (int i = tid; i < 4 * G; i += THREADS) p_sh[i] = preds[i];
   for (int i = tid; i < BB; i += THREADS) {
-    const int g = (b0 + i < B) ? gids[b0 + i] : -1;
+    int g;
+    if constexpr (MODE == PROBE) {
+      g = (b0 + i < B) ? 0 : -1;              // one predicate, no gids
+    } else {
+      g = (b0 + i < B) ? gids[b0 + i] : -1;
+    }
     g_sh[i] = (g >= 0 && g < G) ? g : -1;   // out-of-range ids match nothing
   }
-  if constexpr (MODE != DENSE) {
+  if constexpr (MODE == PROBE) {
+    for (int r = tid; r < TILE_N; r += THREADS) {
+      const int slot = base + r < N ? cand[base + r] : -1;
+      sl_sh[r] = (slot >= 0 && slot < n_arena) ? slot : -1;
+    }
+  }
+  if constexpr (MODE == FUSED || MODE == BOTH) {
     for (int f = tid; f < TILE_N * T; f += THREADS) {
       const int r = f / T;
       const int t = f % T;
@@ -332,9 +367,10 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
       for (int f = tid; f < TILE_N * (DK / 4); f += THREADS) {
         const int r = f / (DK / 4);
         const int c = 4 * (f % (DK / 4));
-        const int row = base + r;
+        const int row = MODE == PROBE ? sl_sh[r] : base + r;
+        const bool in = MODE == PROBE ? row >= 0 : row < N;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < N && d0 + c < D)
+        if (in && d0 + c < D)
           v = *reinterpret_cast<const float4*>(emb + (size_t)row * D + d0 + c);
         float* dst = e_sh + r * (DK + 1) + c;
         dst[0] = v.x;
@@ -346,10 +382,11 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
       for (int f = tid; f < TILE_N * DK; f += THREADS) {
         const int r = f / DK;
         const int c = f % DK;
-        const int row = base + r;
+        const int row = MODE == PROBE ? sl_sh[r] : base + r;
+        const bool in = MODE == PROBE ? row >= 0 : row < N;
         const int d = d0 + c;
         e_sh[r * (DK + 1) + c] =
-            (row < N && d < D) ? emb[(size_t)row * D + d] : 0.f;
+            (in && d < D) ? emb[(size_t)row * D + d] : 0.f;
       }
     }
     for (int f = tid; f < BB * DK; f += THREADS) {
@@ -377,10 +414,14 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
   __syncthreads();   // every thread is done with e_sh before it is reused
 
   // 1 << 31 is the sign bit, as uint32 bitmasks require; categories
-  // outside [0, 32) match no category set
+  // outside [0, 32) match no category set. `row` is what the lists carry:
+  // the arena row, or in PROBE the candidate position, whose metadata is
+  // arena row sl_sh[tid]
   const int row = base + tid;
-  const int4 m = row < N ? reinterpret_cast<const int4*>(meta)[row]
-                         : make_int4(-1, 0, 0, 0);   // past N: never live
+  const int src = MODE == PROBE ? sl_sh[tid] : row;
+  const bool live_src = MODE == PROBE ? src >= 0 : row < N;
+  const int4 m = live_src ? reinterpret_cast<const int4*>(meta)[src]
+                          : make_int4(-1, 0, 0, 0);   // dead: never live
   const unsigned cat_bit = ((unsigned)m.z < 32u) ? (1u << m.z) : 0u;
 
 #pragma unroll
@@ -402,7 +443,7 @@ tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
       s_sort[j * TILE_N + tid] = keep ? acc[r0 + j] : NEG_INF;
       i_sort[j * TILE_N + tid] = keep ? row : NO_ROW;
     }
-    if constexpr (MODE != DENSE) {
+    if constexpr (MODE == FUSED || MODE == BOTH) {
       // the lexical stage, in a loop that is not unrolled (one copy of the
       // BM25 loop per chunk): each thread reads back its own column, and a
       // row that failed its predicate (index NO_ROW) skips the BM25
@@ -491,8 +532,11 @@ __global__ void merge_kernel(const float* __restrict__ in_s,
   }
 }
 
+// The final lists, padded to k. With `cand` (PROBE) the lists carry
+// candidate positions and each becomes its arena slot cand[position].
 __global__ void finish_kernel(const float* __restrict__ in_s,
-                              const int* __restrict__ in_i, int B, int L,
+                              const int* __restrict__ in_i,
+                              const int* __restrict__ cand, int B, int L,
                               int k, float* __restrict__ out_s,
                               int* __restrict__ out_i) {
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -503,7 +547,10 @@ __global__ void finish_kernel(const float* __restrict__ in_s,
   int ix = -1;
   if (j < L) {
     s = in_s[(size_t)b * L + j];
-    ix = s > NEG_INF ? in_i[(size_t)b * L + j] : -1;
+    if (s > NEG_INF) {
+      ix = in_i[(size_t)b * L + j];
+      if (cand != nullptr) ix = cand[ix];
+    }
   }
   out_s[t] = s;
   out_i[t] = ix;
@@ -517,15 +564,23 @@ struct Lex {                 // the lexical modes' inputs (unused by DENSE)
   int T, QT;
 };
 
+struct Cand {                // PROBE's candidate vector (unused otherwise)
+  const int* slots;          // (N,) arena slots of the N candidate rows
+  int n_arena;               // arena rows: slots outside [0, n_arena) are dead
+};
+constexpr Cand kNoCand{nullptr, 0};
+
 template <int BB, int MODE>
 cudaError_t launch_tiles(const float* q, const float* emb, const int* meta,
                          const int* gids, const int* preds, const Lex& lx,
-                         int B, int N, int D, int G, int k_loc, int n_tiles,
-                         float* cand_s, int* cand_i, cudaStream_t stream) {
+                         const Cand& cd, int B, int N, int D, int G,
+                         int k_loc, int n_tiles, float* cand_s, int* cand_i,
+                         cudaStream_t stream) {
   size_t smem = sizeof(float) * (TILE_N * (DK + 1) + DK * BB) +
                 sizeof(int) * (4 * (size_t)G + BB);
-  if (MODE != DENSE)
+  if (MODE == FUSED || MODE == BOTH)
     smem += 8 * ((size_t)TILE_N * (lx.T | 1) + (size_t)BB * lx.QT);
+  if (MODE == PROBE) smem += sizeof(int) * TILE_N;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         tile_scan_kernel<BB, MODE>,
@@ -534,33 +589,36 @@ cudaError_t launch_tiles(const float* q, const float* emb, const int* meta,
   }
   const dim3 grid(n_tiles, (B + BB - 1) / BB);
   tile_scan_kernel<BB, MODE><<<grid, THREADS, smem, stream>>>(
-      q, emb, meta, gids, preds, lx.terms, lx.lexnorm, lx.qterms, lx.qidf, B,
-      N, D, G, lx.T, lx.QT, k_loc, n_tiles, cand_s, cand_i);
+      q, emb, meta, gids, preds, lx.terms, lx.lexnorm, lx.qterms, lx.qidf,
+      cd.slots, cd.n_arena, B, N, D, G, lx.T, lx.QT, k_loc, n_tiles, cand_s,
+      cand_i);
   return cudaGetLastError();
 }
 
 // tile_scan, the merge rounds and finish over n_lists * B virtual rows.
-// Returns the first CUDA error (0 on success); does not synchronise.
+// N is the rows scanned: the arena's, or PROBE's candidates. Returns the
+// first CUDA error (0 on success); does not synchronise.
 template <int MODE>
 int run_scan(const float* q, const float* emb, const int* meta,
-             const int* gids, const int* preds, const Lex& lx, int B, int N,
-             int D, int G, int k, float* s0, int* i0, float* s1, int* i1,
-             float* out_s, int* out_i, cudaStream_t stream) {
+             const int* gids, const int* preds, const Lex& lx,
+             const Cand& cd, int B, int N, int D, int G, int k, float* s0,
+             int* i0, float* s1, int* i1, float* out_s, int* out_i,
+             cudaStream_t stream) {
   const int n_tiles = (N + TILE_N - 1) / TILE_N;
   const int k_loc = k < TILE_N ? k : TILE_N;
   cudaError_t err;
   if (B <= 8) {
-    err = launch_tiles<8, MODE>(q, emb, meta, gids, preds, lx, B, N, D, G,
-                                k_loc, n_tiles, s0, i0, stream);
+    err = launch_tiles<8, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                G, k_loc, n_tiles, s0, i0, stream);
   } else if (B <= 16) {
-    err = launch_tiles<16, MODE>(q, emb, meta, gids, preds, lx, B, N, D, G,
-                                 k_loc, n_tiles, s0, i0, stream);
+    err = launch_tiles<16, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k_loc, n_tiles, s0, i0, stream);
   } else if (B <= 32) {
-    err = launch_tiles<32, MODE>(q, emb, meta, gids, preds, lx, B, N, D, G,
-                                 k_loc, n_tiles, s0, i0, stream);
+    err = launch_tiles<32, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k_loc, n_tiles, s0, i0, stream);
   } else {
-    err = launch_tiles<64, MODE>(q, emb, meta, gids, preds, lx, B, N, D, G,
-                                 k_loc, n_tiles, s0, i0, stream);
+    err = launch_tiles<64, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k_loc, n_tiles, s0, i0, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (MODE == BOTH ? 2 : 1) * B;
@@ -586,7 +644,8 @@ int run_scan(const float* q, const float* emb, const int* meta,
   }
   const size_t total = (size_t)rows * k;
   finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      cur_s, cur_i, rows, L, k, out_s, out_i);
+      cur_s, cur_i, MODE == PROBE ? cd.slots : nullptr, rows, L, k, out_s,
+      out_i);
   return static_cast<int>(cudaGetLastError());
 }
 

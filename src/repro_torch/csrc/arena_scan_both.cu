@@ -19,8 +19,8 @@ int arena_scan_both_launch(const float* q, const float* emb,
                            float* s1, int* i1, float* out_s, int* out_i,
                            void* stream_ptr) {
   const Lex lx{terms, lexnorm, qterms, qidf, T, QT};
-  return run_scan<BOTH>(q, emb, meta, gids, preds, lx, B, N, D, G, k, s0,
-                        i0, s1, i1, out_s, out_i,
+  return run_scan<BOTH>(q, emb, meta, gids, preds, lx, kNoCand, B, N, D,
+                        G, k, s0, i0, s1, i1, out_s, out_i,
                         static_cast<cudaStream_t>(stream_ptr));
 }
 

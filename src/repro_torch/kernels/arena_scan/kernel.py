@@ -3,11 +3,13 @@ plain PyTorch version.
 
 `arena_scan_cuda` launches the kernels of ``csrc/arena_scan.cuh`` (the
 Hopper port of the Pallas kernel ``arena_scan_pallas``, resident regime --
-``src/repro/kernels/arena_scan/kernel.py:97,171`` -- in its dense spec and
-its two lexical specs, ``ScanSpec("fused" | "both")``, which
-``hybrid_score_pallas`` runs; the header states the design and its bound).
-Each spec's C entry point is one source (``arena_scan.cu``,
-``arena_scan_fused.cu``, ``arena_scan_both.cu``); at first use one ``nvcc``
+``src/repro/kernels/arena_scan/kernel.py:97,171`` -- in its dense spec, its
+two lexical specs, ``ScanSpec("fused" | "both")``, which
+``hybrid_score_pallas`` runs, and its slot-lane spec, which
+``ivf_probe_pallas`` runs; the header states the design and its bound).
+`arena_scan_probe_cuda` launches the slot-lane mode. Each mode's C entry
+point is one source (``arena_scan.cu``, ``arena_scan_fused.cu``,
+``arena_scan_both.cu``, ``arena_scan_probe.cu``); at first use one ``nvcc``
 per source compiles them all at once, from the sources in the package only,
 and the objects link into one library in ``src/repro_torch/build/`` (listed
 in ``.gitignore``), loaded with ``ctypes``.
@@ -34,17 +36,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 HEADER = os.path.join(CSRC, "arena_scan.cuh")
-#: one source per score mode's C entry point, compiled in parallel
+#: one source per mode's C entry point, compiled in parallel
 SOURCES = tuple(os.path.join(CSRC, f) for f in (
-    "arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu"))
+    "arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu",
+    "arena_scan_probe.cu"))
 BUILD_DIR = os.path.join(_PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: dense-spec kernel launches through `arena_scan_cuda` (the main-path
-#: audit); the lexical specs are counted by their one caller,
-#: ``kernels.hybrid_score.hybrid_score.LAUNCHES``
+#: audit); the lexical specs and the slot-lane mode are counted by their
+#: one caller each, ``kernels.hybrid_score.hybrid_score.LAUNCHES`` and
+#: ``kernels.ivf_probe.ivf_probe.LAUNCHES``
 LAUNCHES = 0
 #: nvcc's output of the build this process made (ptxas register and
 #: shared-memory report), or "" when the library was already built
@@ -119,6 +123,9 @@ def _load():
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                            p, p, p, p, p, p, p]
             fn.restype = i
+        lib.arena_scan_probe_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                p, p, p, p, p, p, p]
+        lib.arena_scan_probe_launch.restype = i
         lib.arena_scan_error_string.argtypes = [i]
         lib.arena_scan_error_string.restype = ctypes.c_char_p
         lib.arena_scan_tile_rows.argtypes = []
@@ -139,6 +146,25 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _scratch(lib, rows: int, n: int, k: int, dev):
+    """Outputs (rows, k) and the merge rounds' two candidate buffers for a
+    scan of ``n`` rows: (out_s, out_i, buffers, the launch's pointer tuple
+    ending with the stream). The caller holds ``buffers`` until the launch
+    is enqueued."""
+    tile = lib.arena_scan_tile_rows()
+    n_tiles = -(-n // tile)
+    n_pow2 = 1 << (n_tiles - 1).bit_length()
+    cand = rows * n_pow2 * min(k, tile)
+    bufs = [torch.empty(cand, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32) * 2]
+    out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    return out_s, out_i, bufs, (*(b.data_ptr() for b in bufs),
+                                out_s.data_ptr(), out_i.data_ptr(), stream)
+
+
 def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
                     spec: ScanSpec = ScanSpec(), lex: tuple | None = None):
     """Launch the CUDA arena scan on the current stream (no sync). q (B, D)
@@ -146,11 +172,15 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
     int32; for the lexical specs lex = (terms (N, T) int32, lexnorm (N, T)
     f32, qterms (B, QT) int32, qidf (B, QT) f32); all contiguous on one
     CUDA device. Returns `spec.n_lists` (scores (B, k) f32, slots (B, k)
-    int32) pairs flattened. Raises on any input it cannot take."""
+    int32) pairs flattened. Raises on any input it cannot take; the
+    slot-lane spec is `arena_scan_probe_cuda`'s."""
     global LAUNCHES
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"arena_scan_cuda needs CUDA tensors, got {dev}")
+    if spec.slot_lane:
+        raise ValueError("the slot-lane scan gathers its candidates by slot: "
+                         "launch it with arena_scan_probe_cuda")
     if q.dim() != 2 or emb.dim() != 2 or preds.dim() != 2:
         raise ValueError("q, emb and preds must be 2-D")
     B, D = q.shape
@@ -185,21 +215,8 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
             raise ValueError(f"the kernel stages T={T} lanes and QT={QT} "
                              "query terms in shared memory: each in [1, 64]")
     lib = _load()
-    tile = lib.arena_scan_tile_rows()
-    n_tiles = -(-N // tile)
-    n_pow2 = 1 << (n_tiles - 1).bit_length()
-    rows = spec.n_lists * B
-    cand = rows * n_pow2 * min(k, tile)
-    s0 = torch.empty(cand, dtype=torch.float32, device=dev)
-    i0 = torch.empty(cand, dtype=torch.int32, device=dev)
-    s1 = torch.empty(cand, dtype=torch.float32, device=dev)
-    i1 = torch.empty(cand, dtype=torch.int32, device=dev)
-    out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-    scratch = (s0.data_ptr(), i0.data_ptr(), s1.data_ptr(), i1.data_ptr(),
-               out_s.data_ptr(), out_i.data_ptr(), stream)
+    out_s, out_i, _bufs, scratch = _scratch(lib, spec.n_lists * B, N, k,
+                                            dev)
     dense_in = (q.data_ptr(), emb.data_ptr(), meta.data_ptr(),
                 gids.data_ptr(), preds.data_ptr())
     if spec.has_lex:
@@ -220,6 +237,45 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
     if spec.n_lists == 1:
         return out_s, out_i
     return out_s[:B], out_i[:B], out_s[B:], out_i[B:]
+
+
+def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int):
+    """Launch the slot-lane (IVF candidate) scan on the current stream (no
+    sync). q (B, D) f32; the ARENA's emb (N, D) f32 and packed meta (N, 4)
+    int32; cand (P,) int32 arena slots of the candidate rows, in candidate
+    order (slots outside [0, N) are dead rows); pred (4,) int32; all
+    contiguous on one CUDA device. The kernel reads each candidate's rows
+    through its slot; no (P, D) copy is made. Returns (scores (B, k) f32,
+    arena slots (B, k) int32): ties to the lower candidate position, -1
+    wherever the score is NEG_INF. Raises on any input it cannot take."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"arena_scan_probe_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    if q.dim() != 2 or emb.dim() != 2 or cand.dim() != 1:
+        raise ValueError("q and emb must be 2-D, cand 1-D")
+    B, D = q.shape
+    N, P = emb.shape[0], cand.shape[0]
+    _check("q", q, torch.float32, (B, D), dev)
+    _check("emb", emb, torch.float32, (N, D), dev)
+    _check("meta", meta, torch.int32, (N, 4), dev)
+    _check("cand", cand, torch.int32, (P,), dev)
+    _check("pred", pred, torch.int32, (4,), dev)
+    if B < 1 or N < 1 or P < 1 or D < 1 or k < 1:
+        raise ValueError(f"arena_scan_probe_cuda needs B, N, P, D, k >= 1, "
+                         f"got B={B} N={N} P={P} D={D} k={k}")
+    if max(B, N, P, k) >= 1 << 31:
+        raise ValueError("B, N, P and k must fit in int32")
+    lib = _load()
+    out_s, out_i, _bufs, scratch = _scratch(lib, B, P, k, dev)
+    rc = lib.arena_scan_probe_launch(q.data_ptr(), emb.data_ptr(),
+                                     meta.data_ptr(), cand.data_ptr(),
+                                     pred.data_ptr(), B, N, P, D, k, *scratch)
+    if rc != 0:
+        raise RuntimeError(
+            f"arena_scan probe kernel launch failed (B={B} N={N} P={P} "
+            f"D={D} k={k}): " + lib.arena_scan_error_string(rc).decode())
+    return out_s, out_i
 
 
 #: The plain PyTorch version of the kernel (the port of `arena_scan_ref`):

@@ -10,7 +10,10 @@ kernel's algorithm is tested where the kernel cannot run.
 
 Both take a `ScanSpec` and, for the lexical specs, ``lex=(terms, lexnorm,
 qterms, qidf)``, and return `spec.n_lists` (scores (B, k) f32, slots (B, k)
-int32) pairs flattened.
+int32) pairs flattened. Under ``ScanSpec(slot_lane=True)`` the rows are an
+IVF candidate set with meta (P, 5): both engines select on candidate
+positions (ties to the lower position, tile order in the merge) and gather
+each winner's arena slot from the 5th lane afterwards.
 """
 from __future__ import annotations
 
@@ -32,6 +35,12 @@ def _finish(top_s, top_i, k: int):
     return top_s, torch.where(top_s > NEG_INF, top_i, -1).to(torch.int32)
 
 
+def _slots(spec: ScanSpec, meta, pos):
+    """Output indices for selected rows: the rows' positions, or under the
+    slot lane the arena slots gathered from the 5th lane at them."""
+    return meta[:, 4][pos.long()] if spec.slot_lane else pos
+
+
 def _check(spec: ScanSpec, meta, lex):
     if meta.shape[1] != spec.meta_width:
         raise ValueError(f"meta must be (N, {spec.meta_width}), got "
@@ -43,19 +52,22 @@ def _check(spec: ScanSpec, meta, lex):
 
 def arena_scan_ref(q, emb, meta, gids, preds, k: int, *,
                    spec: ScanSpec = ScanSpec(), lex: tuple | None = None):
-    """Dense oracle. q: (B, D); emb: (N, D); meta: (N, 4) int32; gids: (B,)
-    int32 group id per row; preds: (G, 4) int32; lex: (terms (N, T) int32,
-    lexnorm (N, T) f32, qterms (B, QT) int32, qidf (B, QT) f32) for the
-    lexical specs. Returns `spec.n_lists` (scores (B, k) f32, slots (B, k)
-    int32) pairs flattened, NEG_INF / -1 past the fill."""
+    """Dense oracle. q: (B, D); emb: (N, D); meta: (N, 4) int32 ((N, 5) with
+    the slot lane); gids: (B,) int32 group id per row; preds: (G, 4) int32;
+    lex: (terms (N, T) int32, lexnorm (N, T) f32, qterms (B, QT) int32,
+    qidf (B, QT) f32) for the lexical specs. Returns `spec.n_lists` (scores
+    (B, k) f32, slots (B, k) int32) pairs flattened, NEG_INF / -1 past the
+    fill."""
     _check(spec, meta, lex)
     n = emb.shape[0]
-    signals = tile_signals(spec, q, emb, tile_mask(meta, preds, gids), lex)
+    signals = tile_signals(spec, q, emb, tile_mask(meta, preds, gids, spec),
+                           lex)
     idx = torch.arange(n, dtype=torch.int32,
                        device=q.device).expand(q.shape[0], n)
     out = []
     for sig in signals:
-        out.extend(_finish(*topk_ordered(sig, idx, min(k, n)), k))
+        top_s, pos = topk_ordered(sig, idx, min(k, n))
+        out.extend(_finish(top_s, _slots(spec, meta, pos), k))
     return tuple(out)
 
 
@@ -65,7 +77,8 @@ def arena_scan_scan_ref(q, emb, meta, gids, preds, k: int, blk_n: int, *,
     """Streaming scan: (blk_n,)-row tiles, a LOCAL top-min(k, blk_n) per
     tile and running list, one final merge over the candidates in tile
     order. Never holds more than one (B, blk_n) score tile per list. The
-    last tile may be ragged."""
+    last tile may be ragged. Candidates carry row positions; the slot lane
+    is gathered after the merge."""
     _check(spec, meta, lex)
     n = emb.shape[0]
     b = q.shape[0]
@@ -78,7 +91,7 @@ def arena_scan_scan_ref(q, emb, meta, gids, preds, k: int, blk_n: int, *,
             terms, lexnorm, qterms, qidf = lex
             lex_tile = (terms[base:stop], lexnorm[base:stop], qterms, qidf)
         signals = tile_signals(spec, q, emb[base:stop],
-                               tile_mask(meta[base:stop], preds, gids),
+                               tile_mask(meta[base:stop], preds, gids, spec),
                                lex_tile)
         idx = torch.arange(base, stop, dtype=torch.int32,
                            device=q.device).expand(b, stop - base)
@@ -89,6 +102,6 @@ def arena_scan_scan_ref(q, emb, meta, gids, preds, k: int, blk_n: int, *,
     out = []
     for cs, ci in cand:
         all_s, all_i = torch.cat(cs, dim=1), torch.cat(ci, dim=1)
-        out.extend(_finish(*topk_ordered(all_s, all_i,
-                                         min(k, all_s.shape[1])), k))
+        top_s, pos = topk_ordered(all_s, all_i, min(k, all_s.shape[1]))
+        out.extend(_finish(top_s, _slots(spec, meta, pos), k))
     return tuple(out)

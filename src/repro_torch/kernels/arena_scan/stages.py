@@ -7,6 +7,12 @@ The plain engines (`ref.arena_scan_ref`, the streaming
 them all: a selection orders by score descending, then by arena index
 ascending, so ties go to the lower slot -- in a tile and in every merge.
 `torch.topk` does not promise that order; a stable descending sort does.
+
+The slot-lane scan (``ScanSpec(slot_lane=True)``, the IVF candidate set)
+scores gathered candidate rows whose 5th metadata lane holds each row's
+arena slot. There ties go to the lower CANDIDATE POSITION, as in the
+reference: selection runs on positions, and the slots are gathered after
+it, never sorted on.
 """
 from __future__ import annotations
 
@@ -28,11 +34,16 @@ class ScanSpec:
         (fusion weights pre-folded into q / qidf by the caller);
       * ``"both"``  -- hybrid rrf: TWO running k-lists (dense, bm25); rank
         fusion happens after the scan.
-    slot_lane: the IVF candidate scan's 5th metadata lane, which arrives
-      with the IVF slice.
+    slot_lane: the metadata block carries a 5th lane with each row's ARENA
+      slot (IVF candidate sets): the slot is the output index, rows with
+      ``slot < 0`` (member-table padding, dead slots) are masked, and the
+      selection orders by candidate position -- the slots are gathered
+      after it (see `topk_ordered`).
 
     >>> ScanSpec("both").n_lists, ScanSpec("fused").has_lex
     (2, True)
+    >>> ScanSpec(slot_lane=True).meta_width
+    5
     """
     score: str = "dense"
     slot_lane: bool = False
@@ -40,10 +51,6 @@ class ScanSpec:
     def __post_init__(self):
         if self.score not in ("dense", "fused", "both"):
             raise ValueError(f"unknown ScanSpec score {self.score!r}")
-        if self.slot_lane:
-            raise NotImplementedError(
-                "ScanSpec(slot_lane=True) is the IVF candidate scan, which "
-                "arrives with the IVF slice (ROADMAP queue 1, 'IVF')")
 
     @property
     def n_lists(self) -> int:
@@ -55,14 +62,17 @@ class ScanSpec:
 
     @property
     def meta_width(self) -> int:
-        return 4
+        return 5 if self.slot_lane else 4
 
 
 def topk_ordered(scores: torch.Tensor, idx: torch.Tensor, k: int):
     """The top ``k`` of each row of (B, M) ``scores`` by (score desc, then
     position asc), with their ``idx`` entries. ``idx`` must be ascending
-    along each row wherever scores tie, which holds for arena positions and
-    for candidate lists concatenated in tile order."""
+    along each row wherever scores tie, which holds for arena positions,
+    for candidate positions of a slot-lane scan and for candidate lists
+    concatenated in tile order. It does NOT hold for arena slots of a
+    slot-lane scan (a candidate set lists them cluster by cluster): select
+    on positions, then gather the slots."""
     top_s, pos = torch.sort(scores, dim=1, descending=True, stable=True)
     return top_s[:, :k], torch.gather(idx, 1, pos[:, :k])
 
@@ -126,11 +136,15 @@ def predicate_keep(meta: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-def tile_mask(meta: torch.Tensor, preds: torch.Tensor,
-              gids: torch.Tensor) -> torch.Tensor:
+def tile_mask(meta: torch.Tensor, preds: torch.Tensor, gids: torch.Tensor,
+              spec: ScanSpec = ScanSpec()) -> torch.Tensor:
     """Per-row mask for one tile: each query row picks ITS group's
-    predicate row by direct index. Returns (B, n) bool."""
-    return predicate_keep(meta, preds)[gids.long()]
+    predicate row by direct index (+ slot-lane membership for candidate-set
+    scans: ``slot < 0`` rows are out). Returns (B, n) bool."""
+    row_keep = predicate_keep(meta, preds)[gids.long()]
+    if spec.slot_lane:
+        row_keep = row_keep & (meta[:, 4] >= 0)[None, :]   # member padding out
+    return row_keep
 
 
 def tile_scores(q, e, row_keep) -> torch.Tensor:

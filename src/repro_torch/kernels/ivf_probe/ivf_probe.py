@@ -1,0 +1,41 @@
+"""The fused IVF probe on the card (port of ``ivf_probe_pallas``,
+``src/repro/kernels/ivf_probe/ivf_probe.py:32``): the pruned unified query.
+
+The exact scan streams the WHOLE arena every batch; the probe scores only
+the candidate rows a predicate group's probed clusters name. The Pallas
+kernel scans a (P, D) copy of those rows that the wrapper gathers first;
+here the arena-scan kernel's PROBE mode (``csrc/arena_scan.cuh``,
+``arena_scan_probe.cu``) reads each candidate's embedding and metadata
+through its arena slot, so the gather costs no copy. The predicate runs on
+ARENA metadata: a corrupt member table can only change which rows are
+scored, never let a row that fails the WHERE clause surface.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.arena_scan.kernel import arena_scan_probe_cuda
+from repro_torch.kernels.ivf_probe.ref import gather_candidates, ivf_probe_ref
+
+#: probe kernel launches through `ivf_probe_cuda` (the main-path audit)
+LAUNCHES = 0
+
+
+def ivf_probe_cuda(q, emb, meta, cand, pred, k: int):
+    """Launch the probe on the current stream (no sync). q: (B, D) f32;
+    emb: (N, D) f32 and meta: (N, 4) int32 -- the ARENA's columns; cand:
+    (P,) int32 arena slots of the candidate rows (`candidate_slots`);
+    pred: (4,) int32; all on one CUDA device. Returns (scores (B, k) f32,
+    arena slots (B, k) int32, -1 past the fill); ties go to the lower
+    candidate position."""
+    global LAUNCHES
+    out = arena_scan_probe_cuda(q, emb, meta, cand, pred, k)
+    LAUNCHES += 1
+    return out
+
+
+def ivf_probe_plain(q, emb, meta, cand, pred, k: int):
+    """The kernel's plain PyTorch version, same contract as
+    `ivf_probe_cuda`: the candidates gathered by torch indexing (dead slots
+    masked), then the slot-lane dense oracle. On the card, callers keep
+    TF32 off."""
+    cand_emb, cand_meta = gather_candidates(emb, meta, cand)
+    return ivf_probe_ref(q, cand_emb, cand_meta, pred, k)

@@ -306,8 +306,9 @@ def test_engine_names_and_later_specs_are_refused():
             ScanSpec(score="both").n_lists) == (1, 2)
     with pytest.raises(ValueError, match="unknown"):
         ScanSpec(score="bogus")
-    with pytest.raises(NotImplementedError, match="IVF"):
-        ScanSpec(slot_lane=True)
+    # the IVF slice is ported: the slot lane is a 5-wide metadata block
+    assert (ScanSpec(slot_lane=True).meta_width, ScanSpec().meta_width) == (
+        5, 4)
 
 
 # ---------------------------------------------------------------------------

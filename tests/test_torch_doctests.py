@@ -1,5 +1,5 @@
-"""Doctest smoke for the port's front door, lexical arena, hybrid
-reference, observability and corpus docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
+"""Doctest smoke for the port's front door, IVF index, lexical arena,
+hybrid reference, observability and corpus docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
 here on the CPU, so the runnable examples cannot rot."""
 import doctest
 
@@ -10,6 +10,7 @@ import repro_torch.api.executor
 import repro_torch.api.plan
 import repro_torch.api.planner
 import repro_torch.api.ragdb
+import repro_torch.core.ivf
 import repro_torch.core.query
 import repro_torch.data.corpus
 import repro_torch.index.lexical.arena
@@ -28,6 +29,7 @@ MODULES = [
     repro_torch.api.planner,
     repro_torch.api.executor,
     repro_torch.api.ragdb,
+    repro_torch.core.ivf,
     repro_torch.core.query,
     repro_torch.data.corpus,
     repro_torch.index.lexical.arena,
