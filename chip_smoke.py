@@ -79,6 +79,25 @@ Phases:
                 gather + matmul + where + topk yardstick, the exact kernel
                 on the same rows, recall@10 against it, a profile split,
                 and no (P, D) copy allocated by the kernel.
+ 10. paged_kernel (runs after ivf_kernel) -- the paged kernel
+                (`page_rows=`, one running list per page, rows staged
+                through a cp.async ring) in its four modes (dense, wsum, rrf,
+                probe) over page sizes 128, 256, 1000, 4096 and P >= N, B,
+                k (k > 256, k > P, k > N), D (130 takes the 4-byte copies),
+                ragged N, G up to 8, T = 16 lanes with QT 1 or 4, duplicate
+                rows and a dead stretch of whole pages: its lists equal the
+                resident kernel's bit for bit and its plain version's (the
+                streaming scan at blk_n = P) under phase 1's contract, no
+                leak, and `PAGED_LAUNCHES` counts every case.
+ 11. paged_prod -- the prod arena under PlannerConfig(paged_min_rows=2^20):
+                the dense, wsum and rrf batches recompiled (a `paging:`
+                explain line), 6 of each through `RagDB.execute` as one
+                paged launch each, rows bit-identical to the resident
+                batch's, `paged_scans` one per fused scan, batch latency and
+                a profile; then the kernel alone at pages of 2^13..2^16
+                rows beside the resident kernel: CUDA-event time, bound,
+                profile split, candidate-buffer bytes, blocks per SM and
+                shared memory a block, the plain version's time.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -126,6 +145,16 @@ IVF_P = (1, 255, 1025, 4097, 65_537)
 IVF_D = (48, 50, 128, 768)
 IVF_B = (1, 8, 11, 32, 64)
 IVF_K = (1, 10, 32, 33, 100)
+# phase paged_kernel grid: page sizes below, at and past the 256-row
+# sub-tile, one not a multiple of it, and None for P >= N; ragged N; D = 130
+# takes the 4-byte copies
+PAGED_MODES = ("dense", "wsum", "rrf", "probe")
+PAGED_P = (128, 256, 1000, 4096, None)
+PAGED_B = (1, 8, 33, 64)
+PAGED_D = (64, 96, 130)
+PAGED_N = (1000, 4099, 9001)
+# phase paged_prod: page sizes timed at the prod shape (2^15 the planner's)
+PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 
 
 def check(cond, msg):
@@ -617,6 +646,133 @@ def phase_ivf_kernel():
     return max(errs)
 
 
+def bits_equal(a, b):
+    """Two result tuples equal bit for bit (scores compared as int32)."""
+    return all(x.shape == y.shape and (
+        x.view(np.int32) == y.view(np.int32)).all()
+        for x, y in zip(tnp(*a), tnp(*b)))
+
+
+def paged_case(mode, name, arena, lexd, cand, batch, k, P, errs):
+    """One paged-kernel case: the paged lists against the resident
+    kernel's (bit for bit) and against the paged kernel's plain version,
+    the streaming scan at blk_n = P (`compare`'s contract, 0 leaks). One
+    paged launch."""
+    from repro_torch.kernels.arena_scan.stages import bm25_scores
+    from repro_torch.kernels.hybrid_score.ref import _fold, qidf_of
+    (emb_d, meta_d, meta, pairs), (q, preds, gids, qterms) = arena, batch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    if mode == "probe":
+        args = (t(q), emb_d, meta_d, t(cand), t(preds[0]), k)
+        res = ivf_mod.ivf_probe_cuda(*args)
+        pg = ivf_mod.ivf_probe_cuda(*args, page_rows=P)
+        pl = ivf_mod.ivf_probe_plain(*args, page_rows=P)
+        sync()
+        check(bits_equal(pg, res), f"{name}: paged lists != resident lists")
+        N = meta.shape[0]
+        mask = np.broadcast_to(host_mask(meta, preds[:1])[0],
+                               (q.shape[0], N))
+        errs.append(compare(name, *tnp(*pg, *pl), mask,
+                            (args[0] @ emb_d.T).cpu().numpy(),
+                            cand_pos=cand_positions(cand, N)))
+        return
+    mask = host_mask(meta, preds)[gids]
+    if mode == "dense":
+        args = (t(q), emb_d, meta_d, t(gids), t(preds))
+        res = kernel_mod.arena_scan_cuda(*args, k)
+        pg = kernel_mod.arena_scan_cuda(*args, k, page_rows=P)
+        pl = kernel_mod.arena_scan_scan_ref(*args, k, P)
+        sync()
+        check(bits_equal(pg, res), f"{name}: paged lists != resident lists")
+        errs.append(compare(name, *tnp(*pg, *pl), mask,
+                            (args[0] @ emb_d.T).cpu().numpy(), pairs))
+        return
+    terms_d, lexnorm_d, idf_d = lexd
+    qt_d = t(qterms)
+    qidf = qidf_of(idf_d, qt_d).contiguous()
+    args = (t(q), emb_d, meta_d, terms_d, lexnorm_d, t(gids), t(preds), qt_d,
+            qidf, k)
+    kw = dict(mode=mode, w_dense=W_DENSE, w_lex=W_LEX)
+    res = hyb_mod.hybrid_score_cuda(*args, **kw)
+    pg = hyb_mod.hybrid_score_cuda(*args, **kw, page_rows=P)
+    pl = hyb_mod.hybrid_score_plain(*args, **kw, page_rows=P)
+    sync()
+    check(bits_equal(pg, res), f"{name}: paged lists != resident lists")
+    qf, qidf_f = _fold(args[0], qidf, mode, W_DENSE, W_LEX)
+    dense = qf @ emb_d.T
+    bm = bm25_scores(terms_d, lexnorm_d, qt_d, qidf_f)
+    # (make_lex redraws each row's lanes and tenant: no duplicate pairs)
+    if mode == "wsum":
+        errs.append(compare(name, *tnp(*pg, *pl), mask,
+                            (dense + bm).cpu().numpy()))
+        return
+    d_k, di_k, l_k, li_k = tnp(*pg)
+    d_p, di_p, l_p, li_p = tnp(*pl)
+    errs.append(compare(f"{name}-dense", d_k, di_k, d_p, di_p, mask,
+                        dense.cpu().numpy()))
+    check((l_k == l_p).all() and (li_k == li_p).all(),
+          f"{name}: bm25 list differs from the plain version's")
+    compare(f"{name}-bm25", l_k, li_k, l_p, li_p, mask, bm.cpu().numpy())
+
+
+def phase_paged_kernel():
+    """The paged kernel in its four modes over page sizes P (128, 256,
+    1000, 4096 and P >= N), B, k (k > 256, k > P, k > N), D (130 takes the
+    4-byte copies), ragged N, G up to 8 with a BLOCK_ALL lane, T = 16 lanes
+    with QT in {1, 4}, duplicate rows across pages and a dead stretch of
+    1100 rows (whole pages with no live row)."""
+    rng = np.random.default_rng(SEED + 30)
+    errs = []
+    n_cases = 0
+    t0 = time.perf_counter()
+    kernel_mod.PAGED_LAUNCHES = 0
+    for mode in PAGED_MODES:
+        for di, D in enumerate(PAGED_D):
+            for ni, N in enumerate(PAGED_N):
+                hot = rng.integers(0, LEX_V, 3).astype(np.int32)
+                n_arena = N + N // 2 + 3 if mode == "probe" else N
+                emb, meta, pairs = make_arena(rng, n_arena, D, dups=8)
+                lexd = cand = None
+                if mode in ("wsum", "rrf"):
+                    terms, lexnorm, meta = make_lex(rng, meta, 16, hot)
+                    lexd = (torch.from_numpy(terms).to(DEV),
+                            torch.from_numpy(lexnorm).to(DEV),
+                            torch.from_numpy((rng.random(LEX_V) * 5)
+                                             .astype(np.float32)).to(DEV))
+                dead = slice(N // 3, N // 3 + 1100)
+                if mode == "probe":
+                    cand = make_cand(rng, N, n_arena)
+                    cand[dead] = -1
+                else:
+                    meta[dead, 0] = -1
+                arena = upload(emb, meta, pairs)
+                for pi, P in enumerate(PAGED_P):
+                    P = P or N + 13
+                    B = PAGED_B[(pi + di + ni) % len(PAGED_B)]
+                    G = 2 if mode == "probe" else (1, 3, 8)[(pi + ni) % 3]
+                    q, preds, gids = make_batch(rng, emb, B, G, pairs,
+                                                block_all=G == 8)
+                    if mode == "probe":     # one predicate: pass-all or not
+                        preds = preds[pi % 2:][:1]
+                    QT = (1, 4)[(pi + di) % 2]
+                    qterms = make_qterms(rng, B, QT, hot)
+                    choices = (1, 10, 33, 300, P + 5, N + 7)
+                    for k in sorted({choices[(pi + di) % 6],
+                                     choices[(pi + di + ni + 3) % 6]}):
+                        paged_case(
+                            mode, f"{mode}-N{N}-D{D}-P{P}-B{B}-G{G}-k{k}",
+                            arena, lexd, cand, (q, preds, gids, qterms), k, P,
+                            errs)
+                        n_cases += 1
+    launches = kernel_mod.PAGED_LAUNCHES
+    check(launches == n_cases,
+          f"PAGED_LAUNCHES {launches} != {n_cases} paged calls")
+    emit("paged_kernel", cases=n_cases, paged_launches=launches,
+         modes=list(PAGED_MODES), page_rows=[p or "N+13" for p in PAGED_P],
+         max_abs_err=max(errs), seconds=time.perf_counter() - t0, tol=TOL,
+         resident="bit-identical", leaked_slots=0)
+    return max(errs)
+
 def phase_bench(dev):
     from repro_torch.api import RagDB
     from repro_torch.core.query import unified_query_ref
@@ -938,29 +1094,39 @@ def peak_gb():
 
 
 def profile_batch(fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler), its
-    split into the scan's tile_scan / merge / finish kernels, copies and
-    other PyTorch kernels (input staging, rrf_fuse), and the device's idle
-    share of the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """Device time by kernel over one call of ``fn`` (torch.profiler, after
+    an untimed warm-up call), its split into the scan's tile_scan (or
+    paged_scan) / merge / finish kernels, copies and other PyTorch kernels
+    (input staging, rrf_fuse), and the device's idle share of the call's
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # one traced warm-up call first: without it the trace can miss the
+    # first kernels of the call (seen on the card for a lone long kernel)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        sync()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
+        # no step here: ending the cycle would clear its events
     rows = []
     for ev in prof.key_averages():
+        if ev.key.startswith("ProfilerStep"):   # the step's own span
+            continue
         dev_us = getattr(ev, "device_time_total", 0) or 0
         if dev_us > 0 and getattr(ev, "device_type", None) is not None \
                 and "CUDA" in str(ev.device_type):
             rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
-    split = dict.fromkeys(("tile_scan", "merge", "finish", "memcpy",
-                           "other"), 0.0)
+    split = dict.fromkeys(("tile_scan", "page_scan", "merge", "finish",
+                           "memcpy", "other"), 0.0)
     for name, _, ms in rows:
         part = next((c for c, tag in (("tile_scan", "tile_scan_kernel"),
+                                      ("page_scan", "paged_scan_kernel"),
                                       ("merge", "merge_kernel"),
                                       ("finish", "finish_kernel"),
                                       ("memcpy", "Memcpy")) if tag in name),
@@ -1088,7 +1254,7 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
                 bound_ms=bound_ms, max_abs_err=err,
                 bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS
                 else "operations", db=db, groups=groups,
-                ingest_host_s=sum(host_s))
+                ingest_host_s=sum(host_s), plans=plans, args=args)
 
 
 def phase_hybrid_prod(dev, prod):
@@ -1221,7 +1387,8 @@ def phase_hybrid_prod(dev, prod):
          peak_mem_gb=peak_gb(), max_abs_err=max(errs), **out)
     return dict(launches=launches, ms=out["wsum"]["ms"],
                 plain_ms=out["wsum"]["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=max(errs))
+                bound_by=bound_by, max_abs_err=max(errs), plans=by_mode,
+                args=args)
 
 
 def phase_ivf_prod(dev, prod):
@@ -1376,6 +1543,140 @@ def phase_ivf_prod(dev, prod):
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
+def alloc_bytes(fn):
+    """Device memory a call allocates beyond what is live before it (its
+    outputs and scratch: for the scans, the candidate buffers)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    sync()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    return extra
+
+
+def phase_paged_prod(dev, prod, hprod):
+    """The prod arena through the front door under PlannerConfig(
+    paged_min_rows=2^20): the dense, wsum and rrf batches of phases prod
+    and hybrid_prod recompiled, each run 6 times as one paged launch equal
+    bit for bit to the resident rows of this run; then the paged kernel
+    alone at several page sizes beside the resident kernel."""
+    from repro_torch.api.planner import PlannerConfig
+    from repro_torch.kernels.arena_scan.stages import ScanSpec
+
+    t_phase = time.perf_counter()
+    db = prod["db"]
+    N = db.log.snapshot()["emb"].shape[0]
+    T = db.lex.cfg.doc_terms
+    batches = {"dense": prod["plans"], "wsum": hprod["plans"]["wsum"],
+               "rrf": hprod["plans"]["rrf"]}
+    resident = {m: db.execute(ps, use_cache=False)
+                for m, ps in batches.items()}
+    resident_cfg = db.planner_cfg
+    db.planner_cfg = cfg = PlannerConfig(paged_min_rows=1 << 20)
+    P = cfg.page_rows
+    try:
+        paged = {m: [db.compile(p.logical) for p in ps]
+                 for m, ps in batches.items()}
+        for m, ps in paged.items():
+            check(all(p.page_rows == P and p.engine == q.engine
+                      for p, q in zip(ps, batches[m])),
+                  f"{m}: plans not stamped paged")
+            check("paging:" in ps[0].explain(), f"{m}: no paging: line")
+        paging_line = next(ln.strip() for ln in
+                           paged["dense"][0].explain().splitlines()
+                           if "paging:" in ln)
+        n_batches = 6
+        before = dataclasses.replace(db.stats)
+        kernel_mod.PAGED_LAUNCHES = kernel_mod.LAUNCHES = 0
+        hyb_mod.LAUNCHES = 0
+        lat = {}
+        for m, ps in paged.items():
+            lat[m] = []
+            for _ in range(n_batches):
+                t0 = time.perf_counter()
+                s, sl, _ = db.execute(ps, use_cache=False)
+                lat[m].append((time.perf_counter() - t0) * 1e3)
+                rs, rsl, _ = resident[m]
+                check((s.view(np.int32) == rs.view(np.int32)).all()
+                      and (sl == rsl).all(),
+                      f"{m}: paged rows != resident rows")
+        launches = kernel_mod.PAGED_LAUNCHES
+        st = db.stats
+        check(launches == 3 * n_batches,
+              f"{launches} paged launches for {3 * n_batches} batches")
+        check(kernel_mod.LAUNCHES == 0, "a paged batch ran the resident "
+              "dense kernel")
+        check(st.paged_scans - before.paged_scans == 3 * n_batches
+              and st.fused_scans - before.fused_scans == 3 * n_batches,
+              "paged_scans != one per fused scan")
+        profiles = {m: profile_batch(lambda ps=ps: db.execute(
+            ps, use_cache=False)) for m, ps in paged.items()}
+    finally:
+        db.planner_cfg = resident_cfg
+
+    # the kernel alone at several page sizes, on the executor's inputs
+    dargs, hargs = prod["args"], hprod["args"]
+    q, emb, meta, gids, preds, k = dargs
+    B, G = q.shape[0], preds.shape[0]
+    QT = hargs[7].shape[1]
+    calls = {
+        "dense": lambda p: kernel_mod.arena_scan_cuda(*dargs, page_rows=p),
+        "wsum": lambda p: hyb_mod.hybrid_score_cuda(*hargs, mode="wsum",
+                                                    page_rows=p),
+        "rrf": lambda p: hyb_mod.hybrid_score_cuda(*hargs, mode="rrf",
+                                                   page_rows=p),
+    }
+    plains = {
+        "dense": lambda p: kernel_mod.arena_scan_scan_ref(*dargs, p),
+        "wsum": lambda p: hyb_mod.hybrid_score_plain(*hargs, mode="wsum",
+                                                     page_rows=p),
+        "rrf": lambda p: hyb_mod.hybrid_score_plain(*hargs, mode="rrf",
+                                                    page_rows=p),
+    }
+    specs = {"dense": ScanSpec(), "wsum": ScanSpec(score="fused"),
+             "rrf": ScanSpec(score="both")}
+    bounds = {"dense": prod["bound_ms"], "wsum": hprod["bound_ms"],
+              "rrf": hprod["bound_ms"]}
+    sweep = {}
+    for m, call in calls.items():
+        row = {"resident_ms": events_ms(lambda: call(None), 10),
+               "resident_alloc_bytes": alloc_bytes(lambda: call(None)),
+               "resident_profile_ms": profile_batch(
+                   lambda: call(None))["split_ms"],
+               "bound_ms": bounds[m], "pages": {}}
+        for p in PAGED_PROD_P:
+            info = kernel_mod.paged_info(specs[m], B, N, G, k, p, T, QT)
+            cell = {"ms": events_ms(lambda: call(p), 10),
+                    "alloc_bytes": alloc_bytes(lambda: call(p)),
+                    "profile_ms": profile_batch(lambda: call(p))["split_ms"],
+                    **info}
+            if m == "dense" or p == P:
+                cell["plain_ms"] = events_ms(lambda: plains[m](p),
+                                             2 if m == "dense" else 1)
+            row["pages"][p] = cell
+        row["resident_ms_after"] = events_ms(lambda: call(None), 10)
+        sweep[m] = row
+    # the paged kernel against its plain version at the planner's page
+    s_k, i_k = calls["dense"](P)
+    s_p, i_p = plains["dense"](P)
+    sync()
+    mask = host_mask(meta.cpu().numpy(), preds.cpu().numpy())[gids.cpu()
+                                                              .numpy()]
+    err = compare("paged-prod", *tnp(s_k, i_k, s_p, i_p), mask)
+    emit("paged_prod", seconds=time.perf_counter() - t_phase, rows=N,
+         batch=B, groups=G, k=k, lanes=T, qt_bucket=QT, page_rows=P,
+         paging_line=paging_line, launches=launches,
+         paged_scans=3 * n_batches,
+         batch_ms_median={m: statistics.median(v) for m, v in lat.items()},
+         batch_ms=lat, profile=profiles, kernel_sweep=sweep,
+         max_abs_err=err, front_door_rows="bit-identical to resident")
+    best = sweep["dense"]["pages"][P]
+    return dict(launches=launches, ms=best["ms"], plain_ms=best["plain_ms"],
+                bound_ms=prod["bound_ms"], bound_by=prod["bound_by"],
+                max_abs_err=err)
+
 def setup():
     """Import the port and set this module's globals; None (after saying
     why on stderr) when there is no card or no package."""
@@ -1417,12 +1718,14 @@ def main() -> int:
     err1 = phase_kernel()
     herr1 = phase_hybrid_kernel()
     ierr1 = phase_ivf_kernel()
+    perr1 = phase_paged_kernel()
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
     ierr2 = phase_ivf_bench(dev)
     prod = phase_prod(dev)
     hprod = phase_hybrid_prod(dev, prod)
     iprod = phase_ivf_prod(dev, prod)
+    pprod = phase_paged_prod(dev, prod, hprod)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
@@ -1447,6 +1750,14 @@ def main() -> int:
         "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"]),
         "ms": iprod["ms"], "plain_ms": iprod["plain_ms"],
         "bound_ms": iprod["bound_ms"], "bound_by": iprod["bound_by"],
+        "library_ms": None}, {
+        "name": "arena_scan_paged", "route": "cuda",
+        "source": "src/repro_torch/csrc/arena_scan.cuh",
+        "replaces": "src/repro/kernels/arena_scan/kernel.py:121",
+        "launches": pprod["launches"],
+        "max_abs_err": max(perr1, pprod["max_abs_err"]),
+        "ms": pprod["ms"], "plain_ms": pprod["plain_ms"],
+        "bound_ms": pprod["bound_ms"], "bound_by": pprod["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ calls for the front door (port of ``repro.api.executor``):
     clusters' candidate rows (`kernels.ivf_probe.ops.ivf_probe`), and the
     finish phase completes an under-filled k-list with one exact rescan
     (the ``starved`` memo sends a predicate the whole arena cannot fill
-    straight to the exact engine).
+    straight to the exact engine);
+  * the paged regime: a unit whose representative plan carries
+    ``page_rows`` launches the arena scan's paged form
+    (`ExecStats.paged_scans` counts those launches).
 
 This slice is hot-tier only: the warm probe and tier merge (with the rrf
 per-signal merge across tiers) arrive with the warm-tier slice, and the
@@ -67,6 +70,10 @@ class ExecStats:
                                   # group padding (k=0 semantics: asserted
                                   # to allocate no result rows)
     terms_scanned: int = 0        # postings lanes streamed by hybrid scans
+    paged_scans: int = 0          # hot-tier launches in the paged arena-scan
+                                  # regime (plan.page_rows set): the same
+                                  # rows and lists as resident, only the
+                                  # staging schedule differs
     degraded_plans: int = 0       # plans executed with a degradation ladder
     stale_serves: int = 0         # cache results served PAST their snapshot
                                   # under a declared staleness bound
@@ -78,9 +85,11 @@ class ExecStats:
 
 class CompiledShapes:
     """Small LRU tracking the resident retrieval shapes ``(engine,
-    bucket_rows, k, groups, lex)`` -- the working set bucketed batching
-    keeps small (``lex`` is a hybrid scan's score-mix identity). `touch()`
-    returns True on a hit and records the miss otherwise.
+    bucket_rows, k, groups, lex, page_rows)`` -- the working set bucketed
+    batching keeps small (``lex`` is a hybrid scan's score-mix identity,
+    ``page_rows`` the paged regime's page size: paged and resident launches
+    run different kernels, so they key apart). `touch()` returns True on a
+    hit and records the miss otherwise.
 
     >>> shapes = CompiledShapes(cap=2)
     >>> shapes.touch("ref", 8, 5)          # first sight: miss
@@ -93,6 +102,8 @@ class CompiledShapes:
     False
     >>> (shapes.hits, shapes.misses)
     (1, 4)
+    >>> shapes.touch("ref", 8, 5, page_rows=256)   # paged: its own key
+    False
     """
 
     def __init__(self, cap: int = 32):
@@ -105,8 +116,9 @@ class CompiledShapes:
         return len(self._lru)
 
     def touch(self, engine: str, bucket: int, k: int,
-              groups: int | None = None, lex=None) -> bool:
-        key = (engine, bucket, k, groups, lex)
+              groups: int | None = None, lex=None,
+              page_rows: int | None = None) -> bool:
+        key = (engine, bucket, k, groups, lex, page_rows)
         if key in self._lru:
             self.hits += 1
             self._lru.move_to_end(key)
@@ -154,7 +166,8 @@ def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
                 engine: str, ivf=None, nprobe=None,
-                n_valid: int | None = None, skip_rescan: bool = False) -> _Hot:
+                n_valid: int | None = None, skip_rescan: bool = False,
+                page_rows: int | None = None) -> _Hot:
     """Launch one retrieval device call WITHOUT syncing on its result
     (the returned tensors are futures until finish copies them).
 
@@ -164,7 +177,7 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
     arbitrary clusters into the union). ``skip_rescan`` waives the ivf
     completeness net: degraded plans set it, because their contract is
     already "recall narrows" -- an under-filled k-list IS the degraded
-    answer."""
+    answer. ``page_rows`` selects the paged regime of the exact scans."""
     n_arena = store["emb"].shape[0]
     if engine == "ivf":
         if ivf is None:
@@ -178,7 +191,7 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
             # learned: the WHOLE arena can't fill k for this predicate --
             # probing first would be pure waste (memo clears on any write)
             s, sl = unified_query(store, _to_device(q, store), pred, k,
-                                  engine=exact)
+                                  engine=exact, page_rows=page_rows)
             return _Hot(s, sl, n_arena)
         clusters, _, rows = ivf.probe(q[:nv], nprobe or ivf.cfg.nprobe)
         dev = ivf.device_arrays()
@@ -188,7 +201,8 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
                           clusters, pred.as_array(store["emb"].device), k)
         rescan = None if skip_rescan else (store, q, pred, k, exact, nv, ivf)
         return _Hot(s, sl, rows, rescan=rescan)
-    s, sl = unified_query(store, _to_device(q, store), pred, k, engine=engine)
+    s, sl = unified_query(store, _to_device(q, store), pred, k, engine=engine,
+                          page_rows=page_rows)
     return _Hot(s, sl, n_arena)
 
 
@@ -227,7 +241,8 @@ def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
 def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
                       preds: list[Predicate], k: int, engine: str, *,
                       stats: ExecStats | None,
-                      shapes: CompiledShapes | None, lex=None):
+                      shapes: CompiledShapes | None, lex=None,
+                      page_rows: int | None = None):
     """Shared bucket/blocker padding for fused grouped launches: the
     predicate stack pads to a pow2 group count with `BLOCK_ALL` rows and
     (when ``shapes`` tracks shape reuse) the query rows to their pow2
@@ -246,7 +261,8 @@ def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
     if stats is not None:
         stats.padded_groups += g_bucket - g_real
     if shapes is not None:
-        shapes.touch(engine, bucket, k, groups=g_bucket, lex=lex)
+        shapes.touch(engine, bucket, k, groups=g_bucket, lex=lex,
+                     page_rows=page_rows)
         if stats is not None:
             stats.padded_rows += bucket - n_valid
         q = _pad_rows(q, bucket)
@@ -258,16 +274,19 @@ def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
 def _launch_grouped(store: Store, q: np.ndarray, gids: np.ndarray,
                     preds: list[Predicate], k: int, engine: str, *,
                     stats: ExecStats | None = None,
-                    shapes: CompiledShapes | None = None) -> _Hot:
+                    shapes: CompiledShapes | None = None,
+                    page_rows: int | None = None) -> _Hot:
     """Launch ONE fused grouped scan answering every predicate group in
-    ``preds`` (rows and groups padded as `_pad_group_launch` says)."""
+    ``preds`` (rows and groups padded as `_pad_group_launch` says), paged
+    with ``page_rows``."""
     q, gids, preds, n_valid = _pad_group_launch(
-        q, gids, preds, k, engine, stats=stats, shapes=shapes)
+        q, gids, preds, k, engine, stats=stats, shapes=shapes,
+        page_rows=page_rows)
     dev = store["emb"].device
     s, sl = unified_query_grouped(store, _to_device(q, store),
                                   _to_device(gids, store),
                                   stack_predicates(preds, dev), k,
-                                  engine=engine)
+                                  engine=engine, page_rows=page_rows)
     return _Hot(s, sl, store["emb"].shape[0], pad_check=n_valid)
 
 
@@ -277,16 +296,18 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
                    w_dense: float, w_lex: float, rrf_c: float,
                    stats: ExecStats | None = None,
                    shapes: CompiledShapes | None = None,
-                   lex_key=None) -> _Hot:
+                   lex_key=None, page_rows: int | None = None) -> _Hot:
     """Launch ONE fused hybrid dense+BM25 scan answering every predicate
     group in ``preds`` -- the hybrid engine's only dispatch shape (a single
     group is G=1). ``lex_snap`` is `LexicalArena.snapshot()`; ``qterms``
     is (B, QT) int32 per-row query terms, already bucketed to the plan's
-    query-term-count bucket. A store on the card runs the CUDA kernel, a
-    store on the CPU the plain streaming scan."""
+    query-term-count bucket. A store on the card runs the CUDA kernel
+    (paged with ``page_rows``), a store on the CPU the plain streaming
+    scan."""
     from repro_torch.kernels.hybrid_score.ops import hybrid_score
     q, gids, preds, n_valid = _pad_group_launch(
-        q, gids, preds, k, "hybrid", stats=stats, shapes=shapes, lex=lex_key)
+        q, gids, preds, k, "hybrid", stats=stats, shapes=shapes, lex=lex_key,
+        page_rows=page_rows)
     if q.shape[0] != qterms.shape[0]:
         qterms = np.concatenate(
             [qterms, np.full((q.shape[0] - qterms.shape[0], qterms.shape[1]),
@@ -298,7 +319,8 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
                          lex_snap["idf"], _to_device(gids, store),
                          stack_predicates(preds, dev),
                          _to_device(qterms, store), k, mode=mode,
-                         w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c)
+                         w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c,
+                         page_rows=page_rows)
     n_arena = store["emb"].shape[0]
     terms = n_arena * int(lex_snap["terms"].shape[1])
     if stats is not None:
@@ -308,12 +330,13 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
 
 def run_grouped(store: Store, q: np.ndarray, preds: list[Predicate], k: int,
                 engine: str = "ref", *, stats: ExecStats | None = None,
-                shapes: CompiledShapes | None = None):
+                shapes: CompiledShapes | None = None,
+                page_rows: int | None = None):
     """Predicate-group batched retrieval -- the per-group LOOP: one device
     call per unique predicate, each streaming the arena. q: (B, D) host
     array, preds: B predicates (one per row). Returns (scores (B, k) f32,
     slots (B, k) i32, n_device_calls). All calls launch before the first
-    sync."""
+    sync; ``page_rows`` runs them in the paged regime."""
     B = q.shape[0]
     groups: dict[Predicate, list[int]] = {}
     for i, p in enumerate(preds):
@@ -323,11 +346,12 @@ def run_grouped(store: Store, q: np.ndarray, preds: list[Predicate], k: int,
         q_g = np.asarray(q[np.asarray(idxs)], np.float32)
         if shapes is not None:
             bucket = bucket_rows(q_g.shape[0])
-            shapes.touch(engine, bucket, k)
+            shapes.touch(engine, bucket, k, page_rows=page_rows)
             if stats is not None:
                 stats.padded_rows += bucket - q_g.shape[0]
             q_g = _pad_rows(q_g, bucket)
-        launched.append((idxs, _launch_hot(store, q_g, pred, k, engine)))
+        launched.append((idxs, _launch_hot(store, q_g, pred, k, engine,
+                                           page_rows=page_rows)))
     scores = np.full((B, k), np.float32(NEG_INF), np.float32)
     slots = np.full((B, k), -1, np.int32)
     for idxs, hot in launched:
@@ -345,11 +369,13 @@ def run_grouped(store: Store, q: np.ndarray, preds: list[Predicate], k: int,
 def run_grouped_fused(store: Store, q: np.ndarray, preds: list[Predicate],
                       k: int, engine: str = "ref", *,
                       stats: ExecStats | None = None,
-                      shapes: CompiledShapes | None = None):
+                      shapes: CompiledShapes | None = None,
+                      page_rows: int | None = None):
     """Scan-once counterpart of `run_grouped`: the G unique predicates
     stack into one (G, 4) block and ONE fused grouped call answers every
-    row -- `rows_scanned` is the arena N, not G*N. Same contract and
-    return shape as `run_grouped` (n_device_calls is always 1)."""
+    row -- `rows_scanned` is the arena N, not G*N, paged or not. Same
+    contract and return shape as `run_grouped` (n_device_calls is always
+    1)."""
     B = q.shape[0]
     uniq: dict[Predicate, int] = {}
     for p in preds:
@@ -357,7 +383,8 @@ def run_grouped_fused(store: Store, q: np.ndarray, preds: list[Predicate],
             uniq[p] = len(uniq)
     gids = np.asarray([uniq[p] for p in preds], np.int32)
     hot = _launch_grouped(store, np.asarray(q, np.float32), gids,
-                          list(uniq), k, engine, stats=stats, shapes=shapes)
+                          list(uniq), k, engine, stats=stats, shapes=shapes,
+                          page_rows=page_rows)
     s, sl = _finish_hot(hot)
     if stats is not None:
         stats.device_calls += 1
@@ -484,7 +511,7 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                 [p.pred for p in unit.plans],
                 _qterms_rows(row_plans, idxs, qt_bucket), k, mode=mode,
                 w_dense=w_d, w_lex=w_l, rrf_c=lex.cfg.rrf_c, stats=stats,
-                shapes=shapes, lex_key=rep.lex)
+                shapes=shapes, lex_key=rep.lex, page_rows=rep.page_rows)
             if stats is not None and unit.fused:
                 stats.fused_groups += len(unit.plans)
                 stats.fused_scans += 1
@@ -495,7 +522,8 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                  for g, m in enumerate(member_idxs)])
             hot = _launch_grouped(hot_store, q_all[np.asarray(idxs)], gids,
                                   [p.pred for p in unit.plans], k,
-                                  rep.engine, stats=stats, shapes=shapes)
+                                  rep.engine, stats=stats, shapes=shapes,
+                                  page_rows=rep.page_rows)
             if stats is not None:
                 stats.fused_groups += len(unit.plans)
                 stats.fused_scans += 1
@@ -506,22 +534,27 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
             n_valid = q_g.shape[0]
             if shapes is not None:
                 bucket = bucket_rows(n_valid)
-                shapes.touch(plan.engine, bucket, k)
+                shapes.touch(plan.engine, bucket, k,
+                             page_rows=plan.page_rows)
                 if stats is not None:
                     stats.padded_rows += bucket - n_valid
                 q_g = _pad_rows(q_g, bucket)
             hot = _launch_hot(hot_store, q_g, plan.pred, k, plan.engine,
                               index, plan.nprobe, n_valid,
-                              skip_rescan=bool(plan.degraded))
+                              skip_rescan=bool(plan.degraded),
+                              page_rows=plan.page_rows)
         hot.launch_ms = (time.perf_counter() - t_launch0) * 1e3
         if fan is not None:
-            fan.end(rows=sum(len(m) for m in member_idxs))
+            fan.end(rows=sum(len(m) for m in member_idxs),
+                    page_rows=rep.page_rows)
         inflight.append((unit, member_idxs, hot))
         if stats is not None:
             n_rows_unit = sum(len(m) for m in member_idxs)
             stats.device_calls += 1
             stats.queries += n_rows_unit
             stats.hot_queries += n_rows_unit
+            if rep.page_rows is not None:
+                stats.paged_scans += 1
     return InFlightPlans(inflight=inflight, B=B, k=k, stats=stats,
                          row_traces=row_traces, calib=calib)
 

@@ -109,9 +109,9 @@ class PhysicalPlan:
     route_reason: str
     n_rows: int                       # hot-tier arena rows the scan covers
     # The fields below keep the reference's plan and key layout. The
-    # planner sets ``lex`` for hybrid plans and nprobe / ivf_est for ivf
-    # plans, and none of page_rows / shards / placement yet: the sharded
-    # engine and the paged regime arrive with later slices.
+    # planner sets ``lex`` for hybrid plans, nprobe / ivf_est for ivf
+    # plans and ``page_rows`` for paged full-arena plans, and neither
+    # shards nor placement yet: the sharded engine arrives with its slice.
     est_cost_ms: float | None = None  # cost-model estimate for the chosen
                                       # engine at n_rows (None = no model)
     cost_source: str = "static-thresholds"   # "measured" | "static-thresholds"

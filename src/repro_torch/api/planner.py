@@ -25,6 +25,12 @@ ships none (the reference's ``results/bench_latency.json`` curves are CPU
 curves of the JAX engines and are never loaded here), so plans carry no
 cost estimate until the port has its own bench.
 
+Paged regime: with ``PlannerConfig.paged_min_rows`` set, plans of the
+full-arena engines ("ref", "cuda", "hybrid") over arenas of at least that
+many rows carry ``page_rows`` and scan the arena in pages (the kernel's
+paged form, one running list per page; bit-identical to resident). ivf
+plans never take the knob.
+
 Tier routing keeps the paper's §7.3 rule. This slice has no warm tier, so
 every plan routes "hot" with the reason "warm tier empty".
 
@@ -148,6 +154,14 @@ class PlannerConfig:
                                       # at least this many exact-engine groups
                                       # sharing a fuse key scan once (a huge
                                       # value disables fusion)
+    paged_min_rows: int | None = None  # paged-regime threshold: arenas at or
+                                       # above this row count scan in pages
+                                       # (the arena-scan kernel's paged form:
+                                       # one running list per page, rows
+                                       # staged through a cp.async ring).
+                                       # None (the default) keeps every scan
+                                       # resident. Bit-identical either way.
+    page_rows: int = 1 << 15          # rows per page in the paged regime
     cost_model: CostModel | None = None
     degrade_min_nprobe: int = 1       # nprobe floor for the ivf rung
 
@@ -383,6 +397,10 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
     ...                  lex=object())
     >>> p.engine, p.lex
     ('hybrid', ('wsum', 2, 1.0, 1.0))
+    >>> cfg = PlannerConfig(paged_min_rows=64, page_rows=16)
+    >>> compile_plan(LogicalPlan(k=5), n_rows=64, hot_window_s=10,
+    ...              now_ts=0, warm_rows=0, cfg=cfg).page_rows
+    16
     >>> compile_plan(LogicalPlan(k=5, engine="ivf"), n_rows=64,
     ...              hot_window_s=10, now_ts=0, warm_rows=0)
     Traceback (most recent call last):
@@ -398,6 +416,14 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                                        cost_model=cfg.cost_model)
     est = (cfg.cost_model.estimate_ms(engine, n_rows)
            if cfg.cost_model is not None else None)
+    page_rows = None
+    if (cfg.paged_min_rows is not None and n_rows >= cfg.paged_min_rows
+            and engine in ("ref", "cuda", "hybrid")):
+        # the full-arena engines scan in pages; ivf scans per-group
+        # candidate sets and never takes the knob
+        page_rows = cfg.page_rows
+        engine_reason += (f"; paged regime (n_rows >= {cfg.paged_min_rows}, "
+                          f"{page_rows} rows/page)")
     nprobe = ivf_est = lex_key = None
     if engine == "hybrid":
         qt_bucket = bucket_rows(len(logical.match_terms))
@@ -422,7 +448,8 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                         est_cost_ms=est,
                         cost_source=("measured" if est is not None
                                      else "static-thresholds"),
-                        nprobe=nprobe, ivf_est=ivf_est, lex=lex_key)
+                        nprobe=nprobe, ivf_est=ivf_est, lex=lex_key,
+                        page_rows=page_rows)
 
 
 def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,

@@ -17,7 +17,12 @@ Engines:
   * ``"ref"``  -- plain PyTorch: `unified_query_ref` for one group, the
     streaming scan for grouped batches (any device);
   * ``"cuda"`` -- the hand-written arena-scan kernel
-    (``csrc/arena_scan.cu``) through `filtered_topk` / `grouped_topk`.
+    (``csrc/arena_scan.cuh``) through `filtered_topk` / `grouped_topk`.
+
+Both front doors take ``page_rows``: the paged arena-scan regime (the
+kernel streams pages of that many rows with one running list per page; the
+ref engine tiles its streaming scan at the page). The results equal the
+resident regime's.
 """
 from __future__ import annotations
 
@@ -121,20 +126,26 @@ def _engine_error(engine: str) -> Exception:
 
 
 def unified_query(store: Store, q: torch.Tensor, pred: Predicate, k: int,
-                  engine: str = "ref"):
+                  engine: str = "ref", page_rows: int | None = None):
     """Front door for one predicate group: ``engine="ref"`` runs
     `unified_query_ref`, ``"cuda"`` the arena-scan kernel (its plain
-    version for a store on the CPU)."""
+    version for a store on the CPU). ``page_rows`` selects the paged
+    regime: the kernel's paged form, or for "ref" the streaming scan tiled
+    at the page (through `unified_query_grouped`, as the reference does)."""
     dev = store["emb"].device
     pa = pred.as_array(dev)
     q = torch.as_tensor(q, dtype=torch.float32, device=dev)
     if engine == "ref":
-        return unified_query_ref(store, q, pa, k)
+        if page_rows is None:
+            return unified_query_ref(store, q, pa, k)
+        gids = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+        return unified_query_grouped(store, q, gids, pa[None, :], k,
+                                     engine="ref", page_rows=page_rows)
     if engine == "cuda":
         from repro_torch.kernels.filtered_topk.ops import filtered_topk
         return filtered_topk(q, store["emb"], store["tenant"],
                              store["updated_at"], store["category"],
-                             store["acl"], pa, k)
+                             store["acl"], pa, k, page_rows=page_rows)
     raise _engine_error(engine)
 
 
@@ -157,15 +168,16 @@ def stack_predicates(preds, device="cpu") -> torch.Tensor:
 
 
 def unified_query_grouped(store: Store, q, gids, preds, k: int,
-                          engine: str = "ref"):
+                          engine: str = "ref", page_rows: int | None = None):
     """Grouped front door: ONE arena scan answers every predicate group.
 
     q: (B, D) stacked query rows across ALL groups; gids: (B,) int32 group
     id per row; preds: a list of G `Predicate`s (or a pre-stacked (G, 4)
     int32 tensor). Per query row the result is exactly
     ``unified_query(store, q[row], preds[gids[row]], k)``. ``engine="ref"``
-    runs the streaming scan, ``"cuda"`` the kernel. Returns (scores (B, k),
-    slots (B, k))."""
+    runs the streaming scan, ``"cuda"`` the kernel; ``page_rows`` selects
+    the paged regime (same results). Returns (scores (B, k), slots (B,
+    k))."""
     from repro_torch.kernels.grouped_topk.ops import grouped_topk
     dev = store["emb"].device
     pa = (stack_predicates(preds, dev) if isinstance(preds, (list, tuple))
@@ -174,4 +186,5 @@ def unified_query_grouped(store: Store, q, gids, preds, k: int,
         raise _engine_error(engine)
     return grouped_topk(q, store["emb"], store["tenant"],
                         store["updated_at"], store["category"], store["acl"],
-                        gids, pa, k, use_kernel=(engine == "cuda"))
+                        gids, pa, k, use_kernel=(engine == "cuda"),
+                        page_rows=page_rows)

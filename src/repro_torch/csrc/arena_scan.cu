@@ -28,4 +28,29 @@ int arena_scan_launch(const float* q, const float* emb, const int* meta,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
+// The paged regime (`arena_scan_pallas(page_rows=)`'s `_paged_kernel`,
+// src/repro/kernels/arena_scan/kernel.py:121): the inputs of
+// arena_scan_launch plus page_rows >= 1. Scratch: two candidate buffers of
+// B * next_pow2(ceil(N / page_rows)) * min(k, page_rows) entries each.
+// Stream and error contract as arena_scan_launch.
+int arena_scan_paged_launch(const float* q, const float* emb,
+                            const int* meta, const int* gids,
+                            const int* preds, int B, int N, int D, int G,
+                            int k, int page_rows, float* s0, int* i0,
+                            float* s1, int* i1, float* out_s, int* out_i,
+                            void* stream_ptr) {
+  const Lex none{nullptr, nullptr, nullptr, nullptr, 0, 0};
+  return run_paged<DENSE>(q, emb, meta, gids, preds, none, kNoCand, B, N,
+                          D, G, k, page_rows, s0, i0, s1, i1, out_s, out_i,
+                          static_cast<cudaStream_t>(stream_ptr));
+}
+
+// What a paged launch of these shapes uses: out[5] = {shared memory bytes
+// a block, ring stages, running lists in shared memory (0/1), blocks an SM
+// holds, pages}. Returns 0 or a CUDA error.
+int arena_scan_paged_info(int B, int N, int G, int k, int page_rows,
+                          int* out) {
+  return paged_info<DENSE>(B, N, G, 0, 0, k, page_rows, out);
+}
+
 }  // extern "C"

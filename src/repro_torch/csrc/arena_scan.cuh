@@ -107,6 +107,29 @@
 // without overlap; they add 35-43 KB of shared memory a block at T = 16
 // (an SM still holds as many blocks at B = 32 and 64). The merge rounds
 // add one small launch each.
+//
+// The paged regime (paged_scan_kernel) replaces the Pallas kernel's
+// `_paged_kernel` (src/repro/kernels/arena_scan/kernel.py:121), which keeps
+// the arena in HBM and streams pages of `page_rows` rows through a
+// double-buffered DMA loop with one running top-k. Here page p of P rows
+// (P a runtime argument >= 1; the last page ragged) is one block per B
+// block: grid (pages, B blocks). The block walks its page in 256-row
+// sub-tiles, selects each sub-tile's top min(L, 256) with the resident
+// kernel's selection (in its own shared-memory buffers), folds
+// it into one running list of L = min(k, P) entries per query row by rank
+// merge, and writes that list as the page's; merge and finish then run
+// over the page lists. Scores and lists equal the resident kernel's bit
+// for bit (same FMA chain, same BM25, exact total orders). Staging: emb
+// and query chunks of 16 dims go through a ring of 2-4 shared-memory
+// stages filled by cp.async (16-byte .cg copies when D % 4 == 0, 4-byte
+// .ca otherwise, zero-filled past the page, B and D), issued stages - 1
+// chunks ahead of the FMAs and across sub-tile boundaries, so a chunk's
+// load latency hides behind the previous chunks' FMAs and the sub-tile's
+// selection. The emb chunk is stored as float4 columns, so each thread
+// reads its row without bank conflicts. Its bound is the resident
+// regime's (the same bytes and FMAs: 7.7 ms DENSE, 8.05 ms FUSED / BOTH at
+// the shapes above); the candidate buffers shrink from n_tiles to n_pages
+// lists a row.
 
 #pragma once
 
@@ -556,6 +579,432 @@ __global__ void finish_kernel(const float* __restrict__ in_s,
   out_i[t] = ix;
 }
 
+// ---------------------------------------------------------------------------
+// The paged regime: one block per (page, B block), one running list per
+// query row, the arena staged through a cp.async ring.
+// ---------------------------------------------------------------------------
+
+constexpr int CH = 16;          // D chunk a ring stage holds (divides DK)
+constexpr int MAX_STAGES = 4;   // deepest ring the launcher picks
+// running lists go to shared memory when both copies fit in this budget
+constexpr size_t RUN_SMEM_BUDGET = 24 * 1024;
+
+// Shared-memory layout of paged_scan_kernel, computed alike on the host
+// (to size the launch) and on the device (to carve the buffer). Every
+// offset is a multiple of 16 bytes.
+struct PagedLayout {
+  size_t ring, stage, sel, sub, run, preds, gids, lanes, qlex, total;
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+__host__ __device__ inline PagedLayout paged_layout(int BB, int n_lists,
+                                                    bool lexical, int G,
+                                                    int T, int QT, int L,
+                                                    int stages,
+                                                    bool run_smem) {
+  PagedLayout p;
+  p.stage = sizeof(float) * (size_t)(TILE_N + BB) * CH;
+  p.ring = 0;
+  p.sel = p.ring + (size_t)stages * p.stage;
+  p.sub = p.sel + (size_t)n_lists * RS * TILE_N * 8;
+  p.run = p.sub + align16((size_t)n_lists * RS * (L < TILE_N ? L : TILE_N) * 8);
+  p.preds = p.run + (run_smem ? align16((size_t)2 * n_lists * BB * L * 8) : 0);
+  p.gids = p.preds + align16(sizeof(int) * 4 * (size_t)G);
+  p.lanes = p.gids + align16(sizeof(int) * (size_t)BB);
+  p.qlex = p.lanes + (lexical ? align16((size_t)8 * TILE_N * (T | 1)) : 0);
+  p.total = p.qlex + (lexical ? align16((size_t)8 * BB * QT) : 0);
+  return p;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Fold the first n_rows of RS sorted sub-tile lists (k_sub entries each,
+// row stride k_sub) into the running lists `cur` (L entries a row, row
+// stride rstride) as `nxt`: the top L of their union, each element placed
+// by its rank (a binary search in the other list), the running list's
+// element first on an exact tie -- merge_kernel's rule, so ranks are unique.
+__device__ __forceinline__ void fold_lists(const float* sub_s,
+                                           const int* sub_i, int k_sub,
+                                           const float* cur_s,
+                                           const int* cur_i, float* nxt_s,
+                                           int* nxt_i, size_t rstride, int L,
+                                           int n_rows) {
+  const int per = L + k_sub;
+  for (int f = threadIdx.x; f < RS * per; f += THREADS) {
+    const int j = f / per;
+    const int e = f % per;
+    if (j >= n_rows) break;         // rows ascend with f
+    const float* as = cur_s + j * rstride;
+    const int* ai = cur_i + j * rstride;
+    const float* bs = sub_s + j * k_sub;
+    const int* bi = sub_i + j * k_sub;
+    float s;
+    int ix, rank, lo = 0, hi;
+    if (e < L) {                    // count sub entries strictly before
+      s = as[e];
+      ix = ai[e];
+      hi = k_sub;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(bs[mid], bi[mid], s, ix)) lo = mid + 1; else hi = mid;
+      }
+      rank = e + lo;
+    } else {                        // count running entries not after
+      const int jj = e - L;
+      s = bs[jj];
+      ix = bi[jj];
+      hi = L;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (!before(s, ix, as[mid], ai[mid])) lo = mid + 1; else hi = mid;
+      }
+      rank = jj + lo;
+    }
+    if (rank < L) {
+      nxt_s[j * rstride + rank] = s;
+      nxt_i[j * rstride + rank] = ix;
+    }
+  }
+}
+
+// One block scans rows [page * P, min((page + 1) * P, N)) for query rows
+// [b0, b0 + BB) in sub-tiles of TILE_N rows, keeping one running list of
+// L = min(k, P) entries per query row (per list in BOTH), and writes it as
+// the page's list at (list * B * n_pages + b * n_pages + page) * L of s0.
+// The arena's rows (emb chunks of CH dims) and the query chunks stream
+// through a ring of `stages` buffers filled by cp.async, `stages - 1`
+// chunks ahead of the FMAs, across sub-tile boundaries too; the selection
+// and merge buffers have their own space, so the copies in flight never
+// land on data in use. Scores are the resident kernel's bit for bit: the
+// same fmaf chain with d ascending over D padded to a multiple of DK with
+// zeros, the same BM25 and mask stages. Up to BB = 32 the registers are
+// capped at 128 a thread so that two blocks share an SM (ptxas spills a
+// few bytes); rolling the FMA loop's CH / 4 float4 columns in BOTH keeps
+// the compiler from hoisting every query load of the chunk there.
+template <int BB, int MODE>
+__global__ void __launch_bounds__(THREADS, BB <= 32 ? 2 : 1)
+paged_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
+                  const int* __restrict__ meta, const int* __restrict__ gids,
+                  const int* __restrict__ preds,
+                  const int* __restrict__ terms,
+                  const float* __restrict__ lexnorm,
+                  const int* __restrict__ qterms,
+                  const float* __restrict__ qidf,
+                  const int* __restrict__ cand, int n_arena, int B, int N,
+                  int D, int G, int T, int QT, int P, int n_pages, int L,
+                  int stages, int run_smem, float* s0, int* i0, float* s1,
+                  int* i1) {
+  constexpr bool LEX = MODE == FUSED || MODE == BOTH;
+  constexpr int NL = MODE == BOTH ? 2 : 1;
+  // the FMA loop's float4 columns: unrolled, but rolled in BOTH, whose
+  // second list's buffers leave the unrolled loop short of registers
+  constexpr int C4_UNROLL = MODE == BOTH ? 1 : CH / 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PagedLayout lay =
+      paged_layout(BB, NL, LEX, G, T, QT, L, stages, run_smem != 0);
+  float* s_sort = reinterpret_cast<float*>(smem_raw + lay.sel);
+  int* i_sort = reinterpret_cast<int*>(s_sort + RS * TILE_N);
+  float* s_lex = s_sort + 2 * RS * TILE_N;      // BOTH: the bm25 list's
+  int* i_lex = reinterpret_cast<int*>(s_sort + 3 * RS * TILE_N);
+  const int k_sub = min(L, TILE_N);
+  // each sub-tile's selected lists: RS rows of k_sub, the bm25 list's after
+  float* sub_s = reinterpret_cast<float*>(smem_raw + lay.sub);
+  int* sub_i = reinterpret_cast<int*>(sub_s + NL * RS * k_sub);
+  float* sub_ls = sub_s + RS * k_sub;
+  int* sub_li = sub_i + RS * k_sub;
+  int* p_sh = reinterpret_cast<int*>(smem_raw + lay.preds);
+  int* g_sh = reinterpret_cast<int*>(smem_raw + lay.gids);
+  const int LS = T | 1;
+  int* lt_sh = reinterpret_cast<int*>(smem_raw + lay.lanes);   // TILE_N x LS
+  float* ll_sh = reinterpret_cast<float*>(lt_sh + TILE_N * LS);
+  int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);    // BB x QT
+  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QT);
+
+  const int tid = threadIdx.x;
+  const int page = blockIdx.x;
+  const int b0 = blockIdx.y * BB;
+  const int nb = min(BB, B - b0);                 // real query rows here
+  const int page_base = page * P;                 // P * n_pages < 2^31
+  const int page_end = (int)min((long long)page_base + P, (long long)N);
+  const int n_sub = (page_end - page_base + TILE_N - 1) / TILE_N;
+  const int n_ch = ((D + DK - 1) / DK) * (DK / CH);
+  const int total = n_sub * n_ch;
+
+  for (int i = tid; i < 4 * G; i += THREADS) p_sh[i] = preds[i];
+  for (int i = tid; i < BB; i += THREADS) {
+    int g;
+    if constexpr (MODE == PROBE) {
+      g = (b0 + i < B) ? 0 : -1;
+    } else {
+      g = (b0 + i < B) ? gids[b0 + i] : -1;
+    }
+    g_sh[i] = (g >= 0 && g < G) ? g : -1;
+  }
+  if constexpr (LEX) {
+    for (int i = tid; i < BB * QT; i += THREADS) {
+      const int b = b0 + i / QT;
+      const size_t src = (size_t)b * QT + i % QT;
+      qt_sh[i] = b < B ? qterms[src] : -1;
+      qw_sh[i] = b < B ? qidf[src] : 0.f;
+    }
+  }
+
+  // The running lists: both copies in shared memory, or this page's slots
+  // of s0 and s1 (the merge rounds' buffers, unused until this kernel
+  // ends), started in the one that leaves the last fold's result in s0.
+  const size_t g_list = (size_t)B * n_pages * L;  // list stride in s0 / s1
+  const size_t g_row = (size_t)n_pages * L;       // row stride in s0 / s1
+  const size_t g_off = (size_t)b0 * g_row + (size_t)page * L;
+  float *cur_s, *nxt_s;
+  int *cur_i, *nxt_i;
+  size_t rstride, lstride;
+  if (run_smem) {
+    cur_s = reinterpret_cast<float*>(smem_raw + lay.run);
+    cur_i = reinterpret_cast<int*>(cur_s + NL * BB * L);
+    nxt_s = reinterpret_cast<float*>(cur_i + NL * BB * L);
+    nxt_i = reinterpret_cast<int*>(nxt_s + NL * BB * L);
+    rstride = L;
+    lstride = (size_t)BB * L;
+  } else {
+    const bool odd = n_sub & 1;
+    cur_s = (odd ? s1 : s0) + g_off;
+    cur_i = (odd ? i1 : i0) + g_off;
+    nxt_s = (odd ? s0 : s1) + g_off;
+    nxt_i = (odd ? i0 : i1) + g_off;
+    rstride = g_row;
+    lstride = g_list;
+  }
+  for (int f = tid; f < NL * nb * L; f += THREADS) {
+    const int l = f / (nb * L);
+    const int j = (f / L) % nb;
+    const size_t o = l * lstride + j * rstride + f % L;
+    cur_s[o] = NEG_INF;
+    cur_i[o] = NO_ROW;
+  }
+
+  // Copy chunk gi (sub-tile gi / n_ch, dims (gi % n_ch) * CH ...) into ring
+  // stage gi % stages: emb as float4 column blocks ([c4][row], so thread r
+  // reads its row conflict-free), q row-major ([bb][c]), zeros past the
+  // page, past B and past D.
+  auto issue = [&](int gi) {
+    const int base = page_base + (gi / n_ch) * TILE_N;
+    const int d0 = (gi % n_ch) * CH;
+    float* e_st = reinterpret_cast<float*>(smem_raw + lay.ring +
+                                           (size_t)(gi % stages) * lay.stage);
+    float* q_st = e_st + TILE_N * CH;
+    auto src_row = [&](int r) {     // the arena row of sub-tile row r, or -1
+      const int pos = base + r;
+      if (pos >= page_end) return -1;
+      if constexpr (MODE == PROBE) {
+        const int slot = __ldg(cand + pos);
+        return (slot >= 0 && slot < n_arena) ? slot : -1;
+      } else {
+        return pos;
+      }
+    };
+    if ((D & 3) == 0) {             // 16-byte copies: rows stay aligned
+      for (int f = tid; f < TILE_N * (CH / 4); f += THREADS) {
+        const int r = f / (CH / 4);
+        const int c4 = f % (CH / 4);
+        const int d = d0 + 4 * c4;
+        const int row = src_row(r);
+        const bool ok = row >= 0 && d < D;
+        cp_async16(e_st + (c4 * TILE_N + r) * 4,
+                   ok ? emb + (size_t)row * D + d : emb, ok);
+      }
+      for (int f = tid; f < BB * (CH / 4); f += THREADS) {
+        const int bb = f / (CH / 4);
+        const int d = d0 + 4 * (f % (CH / 4));
+        const bool ok = b0 + bb < B && d < D;
+        cp_async16(q_st + bb * CH + (d - d0),
+                   ok ? q + (size_t)(b0 + bb) * D + d : q, ok);
+      }
+    } else {                        // 4-byte copies
+      for (int f = tid; f < TILE_N * CH; f += THREADS) {
+        const int r = f / CH;
+        const int c = f % CH;
+        const int d = d0 + c;
+        const int row = src_row(r);
+        const bool ok = row >= 0 && d < D;
+        cp_async4(e_st + ((c / 4) * TILE_N + r) * 4 + (c & 3),
+                  ok ? emb + (size_t)row * D + d : emb, ok);
+      }
+      for (int f = tid; f < BB * CH; f += THREADS) {
+        const int bb = f / CH;
+        const int d = d0 + f % CH;
+        const bool ok = b0 + bb < B && d < D;
+        cp_async4(q_st + bb * CH + (d - d0),
+                  ok ? q + (size_t)(b0 + bb) * D + d : q, ok);
+      }
+    }
+  };
+
+  for (int s = 0; s < stages - 1; ++s) {   // prologue: stages - 1 chunks
+    if (s < total) issue(s);
+    cp_async_commit();                      // empty groups keep the count
+  }
+
+  float acc[BB];
+#pragma unroll
+  for (int j = 0; j < BB; ++j) acc[j] = 0.f;
+
+  for (int gi = 0; gi < total; ++gi) {
+    cp_async_wait(stages - 2);   // chunk gi has landed (this thread's part)
+    __syncthreads();             // ... everyone's; stage gi - 1 is consumed
+    if (gi + stages - 1 < total) issue(gi + stages - 1);
+    cp_async_commit();
+    const int st = gi / n_ch;
+    const int c = gi % n_ch;
+    const int base = page_base + st * TILE_N;
+    if constexpr (LEX) {
+      if (c == 0) {              // the sub-tile's lanes, read at its end
+        for (int f = tid; f < TILE_N * T; f += THREADS) {
+          const int r = f / T;
+          const int t = f % T;
+          const bool in = base + r < page_end;
+          const size_t src = (size_t)(base + r) * T + t;
+          lt_sh[r * LS + t] = in ? terms[src] : -1;
+          ll_sh[r * LS + t] = in ? lexnorm[src] : 0.f;
+        }
+      }
+    }
+    const float4* e4 = reinterpret_cast<const float4*>(
+        smem_raw + lay.ring + (size_t)(gi % stages) * lay.stage);
+    const float4* q4 = e4 + TILE_N * (CH / 4);
+#pragma unroll (C4_UNROLL)
+    for (int c4 = 0; c4 < CH / 4; ++c4) {
+      const float4 e = e4[c4 * TILE_N + tid];
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        const float4 v = q4[j * (CH / 4) + c4];
+        acc[j] = fmaf(v.x, e.x, acc[j]);
+        acc[j] = fmaf(v.y, e.y, acc[j]);
+        acc[j] = fmaf(v.z, e.z, acc[j]);
+        acc[j] = fmaf(v.w, e.w, acc[j]);
+      }
+    }
+    if (c != n_ch - 1) continue;   // block-uniform
+
+    // End of a sub-tile: mask, select its top k_sub per query row in place
+    // in the selection buffers, fold them into the running lists.
+    if constexpr (LEX) __syncthreads();   // the lanes are staged
+    const int row = base + tid;
+    int src = row;
+    bool live_src = row < page_end;
+    if constexpr (MODE == PROBE) {
+      const int slot = live_src ? __ldg(cand + row) : -1;
+      live_src = slot >= 0 && slot < n_arena;
+      src = slot;
+    }
+    const int4 m = live_src ? reinterpret_cast<const int4*>(meta)[src]
+                            : make_int4(-1, 0, 0, 0);
+    const unsigned cat_bit = ((unsigned)m.z < 32u) ? (1u << m.z) : 0u;
+#pragma unroll
+    for (int r0 = 0; r0 < BB; r0 += RS) {
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int g = g_sh[r0 + j];
+        int pt = -3, pts = 0;
+        unsigned pc = 0u, pa = 0u;
+        if (g >= 0) {
+          pt = p_sh[4 * g + 0];
+          pts = p_sh[4 * g + 1];
+          pc = (unsigned)p_sh[4 * g + 2];
+          pa = (unsigned)p_sh[4 * g + 3];
+        }
+        const bool keep = g >= 0 && m.x >= 0 && (pt == -2 || m.x == pt) &&
+                          m.y >= pts && (cat_bit & pc) != 0u &&
+                          ((unsigned)m.w & pa) != 0u;
+        s_sort[j * TILE_N + tid] = keep ? acc[r0 + j] : NEG_INF;
+        i_sort[j * TILE_N + tid] = keep ? row : NO_ROW;
+      }
+      if constexpr (LEX) {
+#pragma unroll 1
+        for (int j = 0; j < RS; ++j) {
+          const int o = j * TILE_N + tid;
+          const bool keep = i_sort[o] != NO_ROW;
+          const float b25 =
+              keep ? bm25_row(lt_sh + tid * LS, ll_sh + tid * LS, T,
+                              qt_sh + (r0 + j) * QT, qw_sh + (r0 + j) * QT,
+                              QT)
+                   : 0.f;
+          if constexpr (MODE == FUSED) {
+            if (keep) s_sort[o] = __fadd_rn(s_sort[o], b25);
+          } else {
+            s_lex[o] = keep ? b25 : NEG_INF;
+            i_lex[o] = i_sort[o];
+          }
+        }
+      }
+      __syncthreads();
+      // the resident kernel's selection, as a one-tile scan of the rows
+      // still real here (<= 0 past them), into the sub-list buffers
+      const int rows = nb - r0;
+      emit(s_sort, i_sort, k_sub, 0, rows, 0, 1, sub_s, sub_i);
+      if constexpr (MODE == BOTH) {
+        emit(s_lex, i_lex, k_sub, 0, rows, 0, 1, sub_ls, sub_li);
+      }
+      const size_t o = (size_t)r0 * rstride;
+      fold_lists(sub_s, sub_i, k_sub, cur_s + o, cur_i + o, nxt_s + o,
+                 nxt_i + o, rstride, L, rows);
+      if constexpr (MODE == BOTH) {
+        fold_lists(sub_ls, sub_li, k_sub, cur_s + lstride + o,
+                   cur_i + lstride + o, nxt_s + lstride + o,
+                   nxt_i + lstride + o, rstride, L, rows);
+      }
+      __syncthreads();             // the selection buffers are free again
+    }
+    float* ts = cur_s; cur_s = nxt_s; nxt_s = ts;
+    int* ti = cur_i; cur_i = nxt_i; nxt_i = ti;
+#pragma unroll
+    for (int j = 0; j < BB; ++j) acc[j] = 0.f;
+  }
+  cp_async_wait(0);                // no copy outlives the block
+
+  if (run_smem) {                  // the page's lists, out to s0
+    for (int f = tid; f < NL * nb * L; f += THREADS) {
+      const int l = f / (nb * L);
+      const int j = (f / L) % nb;
+      const int e = f % L;
+      const size_t o = g_off + l * g_list + j * g_row + e;
+      s0[o] = cur_s[l * lstride + j * rstride + e];
+      i0[o] = cur_i[l * lstride + j * rstride + e];
+    }
+  }
+}
+
 struct Lex {                 // the lexical modes' inputs (unused by DENSE)
   const int* terms;
   const float* lexnorm;
@@ -595,6 +1044,10 @@ cudaError_t launch_tiles(const float* q, const float* emb, const int* meta,
   return cudaGetLastError();
 }
 
+inline int merge_and_finish(int rows, int n, int L, int k, const int* slots,
+                            float* s0, int* i0, float* s1, int* i1,
+                            float* out_s, int* out_i, cudaStream_t stream);
+
 // tile_scan, the merge rounds and finish over n_lists * B virtual rows.
 // N is the rows scanned: the arena's, or PROBE's candidates. Returns the
 // first CUDA error (0 on success); does not synchronise.
@@ -621,13 +1074,22 @@ int run_scan(const float* q, const float* emb, const int* meta,
                                  G, k_loc, n_tiles, s0, i0, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = (MODE == BOTH ? 2 : 1) * B;
+  return merge_and_finish((MODE == BOTH ? 2 : 1) * B, n_tiles, k_loc, k,
+                          MODE == PROBE ? cd.slots : nullptr, s0, i0, s1, i1,
+                          out_s, out_i, stream);
+}
+
+// The merge rounds over n sorted lists of L entries per row (in s0, s1 the
+// other buffer) and finish, for `rows` virtual rows; with `slots` (PROBE)
+// the lists carry candidate positions that finish maps to arena slots.
+inline int merge_and_finish(int rows, int n, int L, int k, const int* slots,
+                            float* s0, int* i0, float* s1, int* i1,
+                            float* out_s, int* out_i, cudaStream_t stream) {
+  cudaError_t err;
   float* cur_s = s0;
   int* cur_i = i0;
   float* nxt_s = s1;
   int* nxt_i = i1;
-  int n = n_tiles;
-  int L = k_loc;
   while (n > 1) {
     const int n_out = (n + 1) / 2;
     const int L2 = (2 * L < k) ? 2 * L : k;
@@ -644,9 +1106,142 @@ int run_scan(const float* q, const float* emb, const int* meta,
   }
   const size_t total = (size_t)rows * k;
   finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      cur_s, cur_i, MODE == PROBE ? cd.slots : nullptr, rows, L, k, out_s,
-      out_i);
+      cur_s, cur_i, slots, rows, L, k, out_s, out_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shape of one paged launch: ring depth, where the running lists live and
+// the block's shared memory. The deepest ring (2..MAX_STAGES) that keeps
+// two blocks on an SM (<= 113 KB each) -- with the running lists in shared
+// memory when they fit RUN_SMEM_BUDGET, else (or if that is what it takes)
+// in the wrapper's buffers -- and failing that the deepest that fits one.
+struct PagedConfig {
+  int stages;
+  bool run_smem;
+  size_t smem;
+};
+
+inline bool paged_config(int BB, int mode, int G, int T, int QT, int L,
+                         PagedConfig* cfg) {
+  const int nl = mode == BOTH ? 2 : 1;
+  const bool lex = mode == FUSED || mode == BOTH;
+  const bool run_fits = (size_t)2 * nl * BB * L * 8 <= RUN_SMEM_BUDGET;
+  const size_t caps[2] = {(size_t)113 * 1024, (size_t)227 * 1024};
+  for (const size_t cap : caps) {
+    const bool where[2] = {run_fits, false};
+    for (const bool run_smem : where) {
+      for (int st = MAX_STAGES; st >= 2; --st) {
+        const size_t smem =
+            paged_layout(BB, nl, lex, G, T, QT, L, st, run_smem).total;
+        if (smem <= cap) {
+          cfg->stages = st;
+          cfg->run_smem = run_smem;
+          cfg->smem = smem;
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+template <int BB, int MODE>
+cudaError_t launch_paged(const float* q, const float* emb, const int* meta,
+                         const int* gids, const int* preds, const Lex& lx,
+                         const Cand& cd, int B, int N, int D, int G, int k,
+                         int P, int n_pages, int L, float* s0, int* i0,
+                         float* s1, int* i1, cudaStream_t stream) {
+  PagedConfig cfg;
+  if (!paged_config(BB, MODE, G, lx.T, lx.QT, L, &cfg))
+    return cudaErrorInvalidValue;
+  if (cfg.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_scan_kernel<BB, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(n_pages, (B + BB - 1) / BB);
+  paged_scan_kernel<BB, MODE><<<grid, THREADS, cfg.smem, stream>>>(
+      q, emb, meta, gids, preds, lx.terms, lx.lexnorm, lx.qterms, lx.qidf,
+      cd.slots, cd.n_arena, B, N, D, G, lx.T, lx.QT, P, n_pages, L,
+      cfg.stages, cfg.run_smem ? 1 : 0, s0, i0, s1, i1);
+  return cudaGetLastError();
+}
+
+// The paged regime: paged_scan (one list per page and query row), then the
+// resident regime's merge rounds and finish over the n_pages page lists.
+// Scratch: two buffers of n_lists * B * next_pow2(n_pages) * min(k, P)
+// entries. Returns the first CUDA error (0 on success); does not
+// synchronise.
+template <int MODE>
+int run_paged(const float* q, const float* emb, const int* meta,
+              const int* gids, const int* preds, const Lex& lx,
+              const Cand& cd, int B, int N, int D, int G, int k, int P,
+              float* s0, int* i0, float* s1, int* i1, float* out_s,
+              int* out_i, cudaStream_t stream) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_pages = (int)(((long long)N + P - 1) / P);
+  const int L = k < P ? k : P;
+  cudaError_t err;
+  if (B <= 8) {
+    err = launch_paged<8, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                G, k, P, n_pages, L, s0, i0, s1, i1, stream);
+  } else if (B <= 16) {
+    err = launch_paged<16, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
+  } else if (B <= 32) {
+    err = launch_paged<32, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
+  } else {
+    err = launch_paged<64, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
+                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return merge_and_finish((MODE == BOTH ? 2 : 1) * B, n_pages, L, k,
+                          MODE == PROBE ? cd.slots : nullptr, s0, i0, s1, i1,
+                          out_s, out_i, stream);
+}
+
+template <int BB, int MODE>
+int paged_occupancy(const PagedConfig& cfg) {
+  if (cfg.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_scan_kernel<BB, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+    if (err != cudaSuccess) return -1;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, paged_scan_kernel<BB, MODE>, THREADS, cfg.smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// What a paged launch of these shapes would use: out = {shared memory
+// bytes a block, ring stages, running lists in shared memory (0/1), blocks
+// an SM holds, pages}. Returns 0, or a CUDA error.
+template <int MODE>
+int paged_info(int B, int N, int G, int T, int QT, int k, int P, int* out) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int BB = B <= 8 ? 8 : B <= 16 ? 16 : B <= 32 ? 32 : 64;
+  PagedConfig cfg;
+  if (!paged_config(BB, MODE, G, T, QT, k < P ? k : P, &cfg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = BB == 8    ? paged_occupancy<8, MODE>(cfg)
+                     : BB == 16 ? paged_occupancy<16, MODE>(cfg)
+                     : BB == 32 ? paged_occupancy<32, MODE>(cfg)
+                                : paged_occupancy<64, MODE>(cfg);
+  if (blocks < 0) {
+    const int err = static_cast<int>(cudaGetLastError());
+    return err ? err : static_cast<int>(cudaErrorUnknown);
+  }
+  out[0] = (int)cfg.smem;
+  out[1] = cfg.stages;
+  out[2] = cfg.run_smem ? 1 : 0;
+  out[3] = blocks;
+  out[4] = (int)(((long long)N + P - 1) / P);
+  return 0;
 }
 
 }  // namespace

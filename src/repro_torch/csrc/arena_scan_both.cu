@@ -24,4 +24,25 @@ int arena_scan_both_launch(const float* q, const float* emb,
                         static_cast<cudaStream_t>(stream_ptr));
 }
 
+// The paged regime of this mode: the inputs of arena_scan_both_launch plus
+// page_rows >= 1; scratch twice what arena_scan_paged_launch takes (the
+// two lists). Stream and error contract as arena_scan_launch.
+int arena_scan_both_paged_launch(
+    const float* q, const float* emb, const int* meta, const int* gids,
+    const int* preds, const int* terms, const float* lexnorm,
+    const int* qterms, const float* qidf, int B, int N, int D, int G, int T,
+    int QT, int k, int page_rows, float* s0, int* i0, float* s1, int* i1,
+    float* out_s, int* out_i, void* stream_ptr) {
+  const Lex lx{terms, lexnorm, qterms, qidf, T, QT};
+  return run_paged<BOTH>(q, emb, meta, gids, preds, lx, kNoCand, B, N, D,
+                         G, k, page_rows, s0, i0, s1, i1, out_s, out_i,
+                         static_cast<cudaStream_t>(stream_ptr));
+}
+
+// arena_scan_paged_info for this mode, T lanes and QT query terms.
+int arena_scan_both_paged_info(int B, int N, int G, int T, int QT,
+                               int k, int page_rows, int* out) {
+  return paged_info<BOTH>(B, N, G, T, QT, k, page_rows, out);
+}
+
 }  // extern "C"

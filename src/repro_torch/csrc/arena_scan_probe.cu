@@ -25,4 +25,26 @@ int arena_scan_probe_launch(const float* q, const float* emb,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
+// The paged regime of the probe (`ivf_probe_pallas(page_rows=)`): pages
+// of page_rows >= 1 candidate positions; the inputs of
+// arena_scan_probe_launch plus page_rows, scratch as arena_scan_paged_launch
+// takes it for P rows. Stream and error contract as arena_scan_launch.
+int arena_scan_probe_paged_launch(const float* q, const float* emb,
+                                  const int* meta, const int* cand,
+                                  const int* pred, int B, int N, int P,
+                                  int D, int k, int page_rows, float* s0,
+                                  int* i0, float* s1, int* i1, float* out_s,
+                                  int* out_i, void* stream_ptr) {
+  const Lex none{nullptr, nullptr, nullptr, nullptr, 0, 0};
+  return run_paged<PROBE>(q, emb, meta, nullptr, pred, none, Cand{cand, N},
+                          B, P, D, 1, k, page_rows, s0, i0, s1, i1, out_s,
+                          out_i, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// arena_scan_paged_info for the probe over P candidates.
+int arena_scan_probe_paged_info(int B, int P, int k, int page_rows,
+                                int* out) {
+  return paged_info<PROBE>(B, P, 1, 0, 0, k, page_rows, out);
+}
+
 }  // extern "C"

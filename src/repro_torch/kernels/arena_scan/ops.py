@@ -53,8 +53,15 @@ def default_use_kernel(use_kernel: bool | None, x: torch.Tensor) -> bool:
     return use_kernel
 
 
-def default_blk_n(n: int) -> int:
+def default_blk_n(n: int, page_rows: int | None = None) -> int:
     """Streaming-scan tile: `BLK_SCAN` clamped to the pow2 arena bucket,
-    so small stores stay single-tile."""
+    so small stores stay single-tile. An explicit ``page_rows`` (the
+    planner's paged-regime knob) overrides it: the scan tile IS the page.
+
+    >>> default_blk_n(1000), default_blk_n(1 << 20), default_blk_n(1000, 256)
+    (1024, 32768, 256)
+    """
+    if page_rows is not None:
+        return page_rows
     cap = 1 << max(int(n) - 1, 0).bit_length()
     return min(BLK_SCAN, max(cap, 1))

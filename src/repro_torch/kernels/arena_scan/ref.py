@@ -5,8 +5,11 @@ The oracle materialises the full (B, N) score block. The streaming scan is
 the CUDA kernel's schedule without the card: tiles of ``blk_n`` rows scored
 independently, a local top-k per tile and running list, one merge over the
 candidates. It is the port's "ref" engine for grouped scans, and on the CPU
-it emulates what each block of ``csrc/arena_scan.cu`` keeps, so the
-kernel's algorithm is tested where the kernel cannot run.
+it emulates what each block of ``csrc/arena_scan.cuh`` keeps, so the
+kernel's algorithm is tested where the kernel cannot run. The scan's blk_n
+IS the page size: ``arena_scan_scan_ref(..., blk_n=page_rows)`` is the
+plain version of the paged kernel (one list per page of ``page_rows``
+rows, one merge), as it is of the reference's paged Pallas kernel.
 
 Both take a `ScanSpec` and, for the lexical specs, ``lex=(terms, lexnorm,
 qterms, qidf)``, and return `spec.n_lists` (scores (B, k) f32, slots (B, k)

@@ -10,11 +10,13 @@ import torch
 from repro_torch.kernels.arena_scan.kernel import arena_scan
 
 
-def filtered_topk_cuda(q, emb, meta, pred, k: int):
+def filtered_topk_cuda(q, emb, meta, pred, k: int,
+                       page_rows: int | None = None):
     """q: (B, D) f32; emb: (N, D) f32; meta: (N, 4) int32 [tenant, ts, cat,
     acl]; pred: (4,) int32. Returns (scores (B, k) f32, slots (B, k)
-    int32). CUDA tensors launch the kernel; CPU tensors take its plain
-    version."""
+    int32). CUDA tensors launch the kernel (the paged one with
+    ``page_rows``); CPU tensors take its plain version."""
     gids = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     return arena_scan(q, emb, meta, gids,
-                      pred.to(torch.int32).reshape(1, 4).contiguous(), k)
+                      pred.to(torch.int32).reshape(1, 4).contiguous(), k,
+                      page_rows=page_rows)

@@ -9,9 +9,10 @@ from __future__ import annotations
 from repro_torch.kernels.arena_scan.kernel import arena_scan
 
 
-def grouped_topk_cuda(q, emb, meta, gids, preds, k: int):
+def grouped_topk_cuda(q, emb, meta, gids, preds, k: int,
+                      page_rows: int | None = None):
     """q: (B, D) f32; emb: (N, D) f32; meta: (N, 4) int32; gids: (B,)
     int32 group id per row; preds: (G, 4) int32. Returns (scores (B, k)
-    f32, slots (B, k) int32). CUDA tensors launch the kernel; CPU tensors
-    take its plain version."""
-    return arena_scan(q, emb, meta, gids, preds, k)
+    f32, slots (B, k) int32). CUDA tensors launch the kernel (the paged one
+    with ``page_rows``); CPU tensors take its plain version."""
+    return arena_scan(q, emb, meta, gids, preds, k, page_rows=page_rows)

@@ -10,7 +10,8 @@ Fusion weights are folded into the inputs here (``w_dense`` into q,
 from __future__ import annotations
 
 from repro_torch.kernels.arena_scan.kernel import arena_scan_cuda
-from repro_torch.kernels.arena_scan.ref import arena_scan_ref
+from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
+                                                arena_scan_scan_ref)
 from repro_torch.kernels.hybrid_score.ref import _fold, _spec
 
 #: hybrid kernel launches through `hybrid_score_cuda` (the main-path audit)
@@ -19,8 +20,10 @@ LAUNCHES = 0
 
 def hybrid_score_cuda(q, emb, meta, terms, lexnorm, gids, preds, qterms,
                       qidf, k: int, *, mode: str = "wsum",
-                      w_dense: float = 1.0, w_lex: float = 1.0):
-    """Launch the hybrid scan on the current stream (no sync). q: (B, D)
+                      w_dense: float = 1.0, w_lex: float = 1.0,
+                      page_rows: int | None = None):
+    """Launch the hybrid scan on the current stream (no sync), the paged
+    kernel with ``page_rows`` (an int >= 1). q: (B, D)
     f32; emb: (N, D) f32; meta: (N, 4) int32; terms / lexnorm: (N, T)
     int32 / f32; gids: (B,) int32; preds: (G, 4) int32; qterms: (B, QT)
     int32 (-1 padding); qidf: (B, QT) f32 (0 on padding); all on one CUDA
@@ -30,17 +33,25 @@ def hybrid_score_cuda(q, emb, meta, terms, lexnorm, gids, preds, qterms,
     global LAUNCHES
     q, qidf = _fold(q, qidf, mode, w_dense, w_lex)
     out = arena_scan_cuda(q, emb, meta, gids, preds, k, spec=_spec(mode),
-                          lex=(terms, lexnorm, qterms, qidf))
+                          lex=(terms, lexnorm, qterms, qidf),
+                          page_rows=page_rows)
     LAUNCHES += 1
     return out
 
 
 def hybrid_score_plain(q, emb, meta, terms, lexnorm, gids, preds, qterms,
                        qidf, k: int, *, mode: str = "wsum",
-                       w_dense: float = 1.0, w_lex: float = 1.0):
+                       w_dense: float = 1.0, w_lex: float = 1.0,
+                       page_rows: int | None = None):
     """The kernel's plain PyTorch version, same contract as
     `hybrid_score_cuda`: the same weight folding, then the dense oracle
-    under the same `ScanSpec`. On the card, callers keep TF32 off."""
+    under the same `ScanSpec` -- or, with ``page_rows``, the paged kernel's
+    plain version, the streaming scan tiled at the page. On the card,
+    callers keep TF32 off."""
     q, qidf = _fold(q, qidf, mode, w_dense, w_lex)
+    lex = (terms, lexnorm, qterms, qidf)
+    if page_rows is not None:
+        return arena_scan_scan_ref(q, emb, meta, gids, preds, k, page_rows,
+                                   spec=_spec(mode), lex=lex)
     return arena_scan_ref(q, emb, meta, gids, preds, k, spec=_spec(mode),
-                          lex=(terms, lexnorm, qterms, qidf))
+                          lex=lex)

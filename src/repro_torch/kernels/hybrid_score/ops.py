@@ -25,7 +25,7 @@ def hybrid_score(q, emb, tenant, updated_at, category, acl, terms, lexnorm,
                  idf, gids, preds, qterms, k: int, *, mode: str = "wsum",
                  w_dense: float = 1.0, w_lex: float = 1.0,
                  rrf_c: float = 60.0, lists: bool = False,
-                 blk_n: int | None = None):
+                 blk_n: int | None = None, page_rows: int | None = None):
     """Fused hybrid dense+BM25 grouped top-k over ONE arena scan.
 
     q: (B, D) stacked query rows for every predicate group in the batch;
@@ -40,6 +40,9 @@ def hybrid_score(q, emb, tenant, updated_at, category, acl, terms, lexnorm,
     the same pass and rank-fuses them (1/(rrf_c + rank), deduplicated
     union). ``lists=True`` (rrf only) skips the fusion and returns (d_s,
     d_i, l_s, l_i). ``blk_n`` is the CPU streaming scan's tile.
+    ``page_rows`` selects the paged regime: the kernel streams pages of
+    that many rows, the CPU scan tiles at the page; the lists are
+    unchanged.
 
     Returns (scores (B, k) f32, slots (B, k) int32, -1 past the fill)."""
     if lists and mode != "rrf":
@@ -51,7 +54,7 @@ def hybrid_score(q, emb, tenant, updated_at, category, acl, terms, lexnorm,
         out = hybrid_score(q, emb, tenant, updated_at, category, acl, terms,
                            lexnorm, idf, gids, preds, qterms, n, mode=mode,
                            w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c,
-                           lists=lists, blk_n=blk_n)
+                           lists=lists, blk_n=blk_n, page_rows=page_rows)
         pad = k - n
         return tuple(torch.cat([a, a.new_full((a.shape[0], pad),
                                               NEG_INF if j % 2 == 0 else -1)],
@@ -71,14 +74,14 @@ def hybrid_score(q, emb, tenant, updated_at, category, acl, terms, lexnorm,
     if dev.type == "cpu":
         return hybrid_score_scan_ref(q, emb, meta, terms, lexnorm, gids,
                                      preds, qterms, qidf, k,
-                                     blk_n or default_blk_n(n), mode=mode,
-                                     w_dense=w_dense, w_lex=w_lex,
+                                     default_blk_n(n, page_rows or blk_n),
+                                     mode=mode, w_dense=w_dense, w_lex=w_lex,
                                      rrf_c=rrf_c, lists=lists)
     if dev.type != "cuda":
         raise ValueError(f"no hybrid engine for device {dev}")
     out = hybrid_score_cuda(q, emb, meta, terms, lexnorm, gids, preds,
                             qterms, qidf, k, mode=mode, w_dense=w_dense,
-                            w_lex=w_lex)
+                            w_lex=w_lex, page_rows=page_rows)
     if mode == "wsum" or lists:
         return out
     return rrf_fuse(*out, k, rrf_c)

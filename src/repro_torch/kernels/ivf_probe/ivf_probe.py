@@ -13,29 +13,39 @@ scored, never let a row that fails the WHERE clause surface.
 from __future__ import annotations
 
 from repro_torch.kernels.arena_scan.kernel import arena_scan_probe_cuda
-from repro_torch.kernels.ivf_probe.ref import gather_candidates, ivf_probe_ref
+from repro_torch.kernels.ivf_probe.ref import (gather_candidates,
+                                               ivf_probe_ref,
+                                               ivf_probe_scan_ref)
 
 #: probe kernel launches through `ivf_probe_cuda` (the main-path audit)
 LAUNCHES = 0
 
 
-def ivf_probe_cuda(q, emb, meta, cand, pred, k: int):
+def ivf_probe_cuda(q, emb, meta, cand, pred, k: int, *,
+                   page_rows: int | None = None):
     """Launch the probe on the current stream (no sync). q: (B, D) f32;
     emb: (N, D) f32 and meta: (N, 4) int32 -- the ARENA's columns; cand:
     (P,) int32 arena slots of the candidate rows (`candidate_slots`);
-    pred: (4,) int32; all on one CUDA device. Returns (scores (B, k) f32,
-    arena slots (B, k) int32, -1 past the fill); ties go to the lower
-    candidate position."""
+    pred: (4,) int32; all on one CUDA device. ``page_rows`` (an int >= 1,
+    as ``ivf_probe_pallas(page_rows=)`` takes it) launches the paged kernel
+    over pages of that many candidates. Returns (scores (B, k) f32, arena
+    slots (B, k) int32, -1 past the fill); ties go to the lower candidate
+    position."""
     global LAUNCHES
-    out = arena_scan_probe_cuda(q, emb, meta, cand, pred, k)
+    out = arena_scan_probe_cuda(q, emb, meta, cand, pred, k,
+                                page_rows=page_rows)
     LAUNCHES += 1
     return out
 
 
-def ivf_probe_plain(q, emb, meta, cand, pred, k: int):
+def ivf_probe_plain(q, emb, meta, cand, pred, k: int, *,
+                    page_rows: int | None = None):
     """The kernel's plain PyTorch version, same contract as
     `ivf_probe_cuda`: the candidates gathered by torch indexing (dead slots
-    masked), then the slot-lane dense oracle. On the card, callers keep
+    masked), then the slot-lane dense oracle -- or, with ``page_rows``, the
+    slot-lane streaming scan tiled at the page. On the card, callers keep
     TF32 off."""
     cand_emb, cand_meta = gather_candidates(emb, meta, cand)
+    if page_rows is not None:
+        return ivf_probe_scan_ref(q, cand_emb, cand_meta, pred, k, page_rows)
     return ivf_probe_ref(q, cand_emb, cand_meta, pred, k)

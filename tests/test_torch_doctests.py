@@ -1,5 +1,6 @@
 """Doctest smoke for the port's front door, IVF index, lexical arena,
-hybrid reference, observability and corpus docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
+arena-scan tile policy, hybrid reference, observability and corpus
+docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
 here on the CPU, so the runnable examples cannot rot."""
 import doctest
 
@@ -14,6 +15,7 @@ import repro_torch.core.ivf
 import repro_torch.core.query
 import repro_torch.data.corpus
 import repro_torch.index.lexical.arena
+import repro_torch.kernels.arena_scan.ops
 import repro_torch.kernels.arena_scan.stages
 import repro_torch.kernels.hybrid_score.ref
 import repro_torch.obs.calibration
@@ -33,6 +35,7 @@ MODULES = [
     repro_torch.core.query,
     repro_torch.data.corpus,
     repro_torch.index.lexical.arena,
+    repro_torch.kernels.arena_scan.ops,
     repro_torch.kernels.arena_scan.stages,
     repro_torch.kernels.hybrid_score.ref,
     repro_torch.obs.tracer,
