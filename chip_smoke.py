@@ -4,9 +4,11 @@
     python3 chip_smoke.py          # one NVIDIA card; exits 0 only if all pass
 
 Phases:
-  0. build   -- compile the arena-scan kernels (``csrc/arena_scan.cuh``; one
-                nvcc per entry-point source, all at once) and print ptxas's
-                register and spill report.
+  0. build   -- compile the two kernel libraries: the arena scan
+                (``csrc/arena_scan.cuh`` and its four entry-point sources)
+                and the attention kernels (``csrc/flash_attention.cu``,
+                ``csrc/decode_attention.cu``), one nvcc per source, all six
+                at once, and print ptxas's register and spill report.
   1. kernel  -- the arena-scan kernel against its plain PyTorch version on
                 the card over a grid of N, D, B, G and k (k > N included),
                 plus category 31 / high ACL bits, a BLOCK_ALL group,
@@ -99,6 +101,32 @@ Phases:
                 profile split, candidate-buffer bytes, blocks per SM and
                 shared memory a block, the plain version's time.
 
+ 12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
+                (causal and full) and the flash-decode kernel against their
+                plain versions on the card over bf16 and f32, G 1 / 4 / 8, hd
+                64 / 128 and S 1 / 17 / 512 / 2064 / 4096; decode batches
+                lengths 0 (the mean of V, as the reference), 1, random and
+                S + 3. Flash within rtol 1e-2, atol 8e-3 of its plain version
+                (the chunked online softmax; P and V rounded to bf16 for P.V)
+                and of the f32 oracle; decode's output, m and l within rtol =
+                atol = 2e-5 (all f32 math on both sides).
+ 13. lm_serve (runs last, after the prod arena is freed) -- the LM serving
+                path at qwen3-4b FULL width (36 layers, bf16, weights from a
+                seeded generator on the card) behind the bench RagDB: 8
+                requests in 4 tenants, k = 4 docs of 504 seeded tokens and a
+                32-token question (prompt 2048, so "auto" prefill takes the
+                flash kernel), 16 greedy tokens, cache of 2064. A warm-up
+                serve, then 3 serves: retrieval, prefill and decode times,
+                tokens/s, 36 flash launches a prefill and 576 decode launches
+                a serve, 0 plain-version calls on CUDA tensors, equal greedy
+                tokens, no slot of another tenant; each kernel against its
+                plain version on layer 0's and layer 35's inputs of the real
+                prefill and first decode step; chunked-vs-naive prefill
+                logits; a profile of one prefill and one decode step
+                (device time by kernel, idle share); kernel times beside
+                the bound, the plain version and SDPA (a yardstick the port
+                never calls); peak memory.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no card is present or the package is
@@ -107,6 +135,7 @@ missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -114,6 +143,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -155,6 +185,21 @@ PAGED_D = (64, 96, 130)
 PAGED_N = (1000, 4099, 9001)
 # phase paged_prod: page sizes timed at the prod shape (2^15 the planner's)
 PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
+# phase attn_kernel grid: G of the three dense configs' groupings, the
+# served head dims, S from one token through ragged (17, 2064 = the serve
+# cache) to past the prefill shape
+ATTN_G = (1, 4, 8)
+ATTN_HD = (64, 128)
+ATTN_S = (1, 17, 512, 2064, 4096)
+# tolerances: flash rounds P and V to bf16 for P.V (test_kernels.py:96-97);
+# decode is all f32 math (test_kernels.py:60)
+FLASH_RTOL, FLASH_ATOL = 1e-2, 8e-3
+DEC_TOL = 2e-5
+# lm_serve: prefill logits through the flash kernel against the naive path
+# may differ by bf16 rounding carried through 36 layers, not by more than
+# this share of the largest logit
+LOGIT_REL = 0.05
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 
 
 def check(cond, msg):
@@ -1677,10 +1722,359 @@ def phase_paged_prod(dev, prod, hprod):
                 bound_ms=prod["bound_ms"], bound_by=prod["bound_by"],
                 max_abs_err=err)
 
+def attn_ok(got, want, rtol, atol):
+    """(max abs error, max of |err| / (atol + rtol |want|)): the second is
+    <= 1 exactly when allclose(got, want, rtol, atol) holds."""
+    err = (got.float() - want.float()).abs()
+    ratio = err / (atol + rtol * want.float().abs())
+    return float(err.max()), float(ratio.max())
+
+
+def flash_check(q, k, v, causal):
+    """The flash kernel against its plain version (the chunked online
+    softmax, 512-key blocks) and the f32 oracle on the same tensors."""
+    o_k = fa_mod.flash_attention_cuda(q, k, v, causal=causal)
+    o_p = fa_mod.flash_attention_plain(q, k, v, causal=causal, blk_q=512,
+                                       blk_k=512)
+    o_r = fa_ref(q, k, v, causal=causal)
+    sync()
+    err, ratio = attn_ok(o_k, o_p, FLASH_RTOL, FLASH_ATOL)
+    err_r, ratio_r = attn_ok(o_k, o_r, FLASH_RTOL, FLASH_ATOL)
+    check(ratio <= 1 and ratio_r <= 1 and torch.isfinite(o_k).all(),
+          f"flash kernel off its plain version: err {err} (x{ratio} of the "
+          f"tolerance), oracle err {err_r} (x{ratio_r})")
+    return err, err_r
+
+
+def decode_check(q, kc, vc, lengths):
+    """The decode kernel against its plain version: the normalised output,
+    m and l, all f32 math on both sides."""
+    a_k, m_k, l_k = dec_mod.decode_attention_cuda(q, kc, vc, lengths)
+    a_p, m_p, l_p = dec_mod.decode_attention_plain(q, kc, vc, lengths)
+    sync()
+    err, ratio = attn_ok(a_k / l_k, a_p / l_p, DEC_TOL, DEC_TOL)
+    _, ratio_m = attn_ok(m_k, m_p, DEC_TOL, DEC_TOL)
+    _, ratio_l = attn_ok(l_k, l_p, DEC_TOL, DEC_TOL)
+    check(max(ratio, ratio_m, ratio_l) <= 1 and torch.isfinite(a_k).all(),
+          f"decode kernel off its plain version: out err {err} (x{ratio}), "
+          f"m x{ratio_m}, l x{ratio_l} of the tolerance")
+    return err
+
+
+def phase_attn_kernel():
+    """Both attention kernels against their plain versions over dtypes, G,
+    hd, S (ragged and past the prefill shape) and, for decode, lengths 0,
+    1, random and past S in one batch."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+    errs = {"flash": {}, "flash_oracle": {}, "decode": {}}
+    cases = 0
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for G in ATTN_G:
+            for hd in ATTN_HD:
+                for S in ATTN_S:
+                    B, KV = 4, 2
+
+                    def rnd(*shape):
+                        return torch.randn(*shape, generator=gen,
+                                           device=DEV).to(dt)
+
+                    k, v = rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+                    rand_len = int(torch.randint(1, S + 1, (1,),
+                                                 generator=gen,
+                                                 device=DEV))
+                    lengths = torch.tensor([0, 1, rand_len, S + 3],
+                                           dtype=torch.int32, device=DEV)
+                    e = decode_check(rnd(B, KV, G, hd), k, v, lengths)
+                    errs["decode"][name] = max(errs["decode"].get(name, 0), e)
+                    for causal in (True, False):
+                        e, e_r = flash_check(rnd(2, S, KV, G, hd), k[:2],
+                                             v[:2], causal)
+                        errs["flash"][name] = max(errs["flash"].get(name, 0),
+                                                  e)
+                        errs["flash_oracle"][name] = max(
+                            errs["flash_oracle"].get(name, 0), e_r)
+                    cases += 1
+    check(fa_mod.LAUNCHES == 2 * cases and dec_mod.LAUNCHES == cases,
+          "launch counts of the grid")
+    emit("attn_kernel", seconds=time.perf_counter() - t_phase, cases=cases,
+         grid={"dtype": ["bfloat16", "float32"], "G": ATTN_G, "hd": ATTN_HD,
+               "S": ATTN_S, "lengths": "0, 1, random, S + 3",
+               "causal": [True, False]},
+         flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
+         max_abs_err=errs,
+         tolerance={"flash": f"rtol {FLASH_RTOL}, atol {FLASH_ATOL} (bf16 "
+                             "P.V, as test_kernels.py:96-97)",
+                    "decode": f"rtol = atol = {DEC_TOL} (all f32 math, as "
+                              "test_kernels.py:60)"})
+    return (max(errs["flash"].values()), max(errs["decode"].values()))
+
+
+class Capture:
+    """Wraps an ops entry point: counts its calls and keeps clones of the
+    arguments of the calls whose index is in ``keep`` (layer 0 and the last
+    layer of the first prefill or decode step)."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.args = fn, keep, 0, {}
+
+    def __call__(self, *args, **kw):
+        if self.calls in self.keep:
+            self.args[self.calls] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+class PlainOnCard:
+    """Wraps a plain version: counts the calls that got a CUDA tensor."""
+
+    def __init__(self, fn):
+        self.fn, self.cuda_calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        if args[0].device.type == "cuda":
+            self.cuda_calls += 1
+        return self.fn(*args, **kw)
+
+
+def doc_tokens_of(vocab, n):
+    def doc_tokens(slot):
+        return np.random.default_rng([SEED, slot]).integers(
+            0, vocab, n, dtype=np.int32)
+    return doc_tokens
+
+
+def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
+                   dim=128, doc_len=504, q_len=32, new_tokens=16, serves=3):
+    """The LM serving path at qwen3-4b full width: RAGEngine over the bench
+    RagDB -> prompt of 4 x 504 doc tokens + 32 question tokens (2048) ->
+    prefill (the flash kernel, 36 launches) -> 16 decode steps (the decode
+    kernel, 36 launches each)."""
+    from repro_torch.api import RagDB
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.core.store import StoreConfig
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import RAGEngine, Request
+
+    t_phase = time.perf_counter()
+    cfg = cfg or qwen3_4b.FULL
+    L, k_docs, B = cfg.n_layers, 4, 8
+    max_prompt = k_docs * doc_len + q_len
+    max_len = max_prompt + new_tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init(cfg, generator=torch.Generator(device=dev)
+                     .manual_seed(SEED), device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    ccfg = CorpusConfig(n_docs=n_docs, dim=dim, n_tenants=20, n_categories=5)
+    db = RagDB(StoreConfig(capacity=capacity, dim=dim, metric="cosine"),
+               result_cache_size=0, device=dev)
+    db.ingest(make_corpus(ccfg, device=dev))
+    engine = RAGEngine(db, cfg, model, k=k_docs, max_prompt=max_prompt,
+                       max_len=max_len,
+                       doc_token_fn=doc_tokens_of(cfg.vocab_size, doc_len),
+                       engine="cuda", device=dev)
+    rng = np.random.default_rng(SEED + 12)
+    tenants = (3, 7, 12, 18)
+    requests = [Request(principal=Principal(tenants[i % 4], 0xFF),
+                        query_emb=rng.standard_normal(dim).astype(np.float32),
+                        prompt_tokens=rng.integers(0, cfg.vocab_size, q_len,
+                                                   dtype=np.int32),
+                        max_new_tokens=new_tokens)
+                for i in range(B)]
+
+    # warm-up serve, capturing layer 0's and the last layer's attention
+    # inputs of the prefill and of the first decode step
+    flash_entry, dec_entry = fa_ops.flash_attention, dec_ops.decode_attention
+    cap_f = Capture(flash_entry, {0, L - 1})
+    cap_d = Capture(dec_entry, {0, L - 1})
+    fa_ops.flash_attention, dec_ops.decode_attention = cap_f, cap_d
+    try:
+        warm = engine.serve(requests)
+    finally:
+        fa_ops.flash_attention, dec_ops.decode_attention = flash_entry, dec_entry
+    check(cap_f.calls == L and cap_d.calls == L * new_tokens,
+          f"warm-up serve: {cap_f.calls} flash / {cap_d.calls} decode calls")
+
+    # the main path: counts to 0, serves, counts read
+    plain_f = PlainOnCard(fa_mod.flash_attention_plain)
+    plain_d = PlainOnCard(dec_mod.decode_attention_plain)
+    fa_mod.flash_attention_plain = plain_f
+    dec_mod.decode_attention_plain = plain_d
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    resps, wall = [], []
+    try:
+        for _ in range(serves):
+            t0 = time.perf_counter()
+            resps.append(engine.serve(requests))
+            wall.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        fa_mod.flash_attention_plain = plain_f.fn
+        dec_mod.decode_attention_plain = plain_d.fn
+    flash_launches, dec_launches = fa_mod.LAUNCHES, dec_mod.LAUNCHES
+    scan_launches = kernel_mod.LAUNCHES
+    check(flash_launches == L * serves,
+          f"{flash_launches} flash launches for {serves} prefills")
+    check(dec_launches == L * new_tokens * serves,
+          f"{dec_launches} decode launches for {serves} serves")
+    check(scan_launches >= serves, "retrieval did not run the arena scan")
+    check(plain_f.cuda_calls == 0 and plain_d.cuda_calls == 0,
+          "a plain version ran on CUDA tensors")
+
+    # outputs: greedy tokens equal across serves, in range; no leaked slot
+    snap = db.log.snapshot()
+    tenant_of = snap["tenant"].cpu().numpy()
+    acl_of = snap["acl"].cpu().numpy()
+    leaks = 0
+    for run in [warm, *resps]:
+        for r, resp in zip(requests, run):
+            check(resp.tokens.shape == (new_tokens,)
+                  and (resp.tokens >= 0).all()
+                  and (resp.tokens < cfg.vocab_size).all(), "bad tokens")
+            got = resp.doc_slots[resp.doc_slots >= 0]
+            check(len(got) == k_docs, "a request retrieved fewer than k docs")
+            leaks += int(((tenant_of[got] != r.principal.tenant_id)
+                          | ((acl_of[got] & 0xFF) == 0)).sum())
+    check(leaks == 0, f"{leaks} retrieved slots of another tenant / ACL")
+    for run in resps:
+        check(all((a.tokens == b.tokens).all() and
+                  (a.doc_slots == b.doc_slots).all()
+                  for a, b in zip(warm, run)), "two greedy serves differ")
+
+    # each kernel against its plain version on the path's own tensors
+    errs_f, errs_d = [], []
+    for i in (0, L - 1):
+        q, k, v, n_kv = cap_f.args[i][:4]
+        Bq, S, H, hd = q.shape
+        errs_f.append(flash_check(q.reshape(Bq, S, n_kv, H // n_kv, hd), k,
+                                  v, True)[0])
+        qd, kc, vc, lengths, n_kv = cap_d.args[i][:5]
+        errs_d.append(decode_check(qd.reshape(B, n_kv, H // n_kv, hd), kc,
+                                   vc, lengths))
+
+    # prefill logits through the flash kernel against the naive path
+    slots = np.stack([resp.doc_slots for resp in warm])
+    prompts = engine._build_prompts(requests, slots, np.zeros_like(slots))
+    toks = torch.from_numpy(prompts).to(dev)
+    lg_chunked, _ = tfm.prefill(model, dataclasses.replace(
+        cfg, attn_impl="chunked"), toks, max_len)
+    lg_naive, _ = tfm.prefill(model, dataclasses.replace(
+        cfg, attn_impl="naive"), toks, max_len)
+    sync()
+    lg_c, lg_n = lg_chunked.float(), lg_naive.float()
+    logit_diff = float((lg_c - lg_n).abs().max())
+    logit_scale = float(lg_n.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(lg_c, lg_n, dim=1).min())
+    argmax_agree = float((lg_c.argmax(1) == lg_n.argmax(1)).float().mean())
+    check(torch.isfinite(lg_c).all() and logit_diff <= LOGIT_REL * logit_scale,
+          f"chunked vs naive logits differ by {logit_diff} "
+          f"(max |logit| {logit_scale})")
+    del lg_chunked, lg_naive, lg_c, lg_n
+
+    # device time by kernel and the device's idle share: one prefill, one
+    # decode step (at position max_prompt of a prefilled cache)
+    lg, cache = tfm.prefill(model, cfg, toks, max_len)
+    cur = lg.argmax(-1).to(torch.int32)
+    profiles = {}
+    for name, fn in (("prefill", lambda: tfm.prefill(model, cfg, toks,
+                                                     max_len)),
+                     ("decode_step", lambda: tfm.decode_step(
+                         model, cfg, cur, cache, max_prompt))):
+        prof = profile_batch(fn)
+        prof.pop("split_ms")
+        profiles[name] = prof
+    del lg, cache
+
+    # kernel times at the path's shapes, beside plain and SDPA
+    q, k, v, n_kv = cap_f.args[0][:4]
+    Bq, S, H, hd = q.shape
+    q5 = q.reshape(Bq, S, n_kv, H // n_kv, hd)
+    f_ms = events_ms(lambda: fa_mod.flash_attention_cuda(q5, k, v), 5)
+    f_plain = events_ms(lambda: fa_mod.flash_attention_plain(
+        q5, k, v, causal=True, blk_q=512, blk_k=512), 2)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f_lib = events_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                   enable_gqa=True), 5)
+    esz = q.element_size()
+    f_flops = 4 * hd * (S * (S + 1) // 2) * Bq * H
+    f_bytes = esz * (2 * q.numel() + k.numel() + v.numel())
+    f_bound = max(f_flops / BF16_FLOPS, f_bytes / HBM_BPS) * 1e3
+    del qs, ks, vs
+
+    qd, kc, vc, lengths, n_kv = cap_d.args[0][:5]
+    qg = qd.reshape(B, n_kv, H // n_kv, hd)
+    d_ms = events_ms(lambda: dec_mod.decode_attention_cuda(qg, kc, vc,
+                                                           lengths), 50)
+    d_plain = events_ms(lambda: dec_mod.decode_attention_plain(
+        qg, kc, vc, lengths), 10)
+    live = int(lengths[0])
+    check(bool((lengths == live).all()), "decode lengths differ in a batch")
+    ql = qd[:, :, None, :]                                    # (B, H, 1, hd)
+    kl = kc[:, :live].transpose(1, 2).contiguous()
+    vl = vc[:, :live].transpose(1, 2).contiguous()
+    d_lib = events_ms(lambda: sdpa(ql, kl, vl, enable_gqa=True), 50)
+    live_total = int(lengths.clamp(max=kc.shape[1]).sum())
+    d_bytes = (2 * live_total * n_kv * hd * kc.element_size()
+               + qd.numel() * qd.element_size() + B * H * (hd + 2) * 4)
+    d_flops = 4 * hd * H * live_total
+    d_bound = max(d_bytes / HBM_BPS, d_flops / FP32_FLOPS) * 1e3
+    del kl, vl
+
+    med = statistics.median
+    retrieval = [run[0].retrieval_ms * B for run in resps]
+    prefill = [run[0].prefill_ms for run in resps]
+    decode = [run[0].decode_ms for run in resps]
+    emit("lm_serve", seconds=time.perf_counter() - t_phase, model=cfg.name,
+         params=cfg.param_count(), layers=L, batch=B, k=k_docs,
+         prompt=max_prompt, new_tokens=new_tokens, max_len=max_len,
+         init_s=init_s, serves=serves,
+         retrieval_ms_median=med(retrieval), prefill_ms_median=med(prefill),
+         decode_ms_per_token_median=med(decode) / new_tokens,
+         tokens_per_s_median=B * new_tokens / (med(decode) / 1e3),
+         serve_ms=wall, retrieval_ms=retrieval, prefill_ms=prefill,
+         decode_ms=decode, flash_launches=flash_launches,
+         decode_launches=dec_launches, scan_launches=scan_launches,
+         plain_calls_on_cuda=plain_f.cuda_calls + plain_d.cuda_calls,
+         leaked_slots=leaks, tokens_equal=True,
+         flash_err_layers=errs_f, decode_err_layers=errs_d,
+         logits_chunked_vs_naive={"max_abs_diff": logit_diff,
+                                  "max_abs_logit": logit_scale,
+                                  "min_cosine": cos,
+                                  "argmax_agree": argmax_agree},
+         flash={"ms": f_ms, "plain_ms": f_plain, "sdpa_ms": f_lib,
+                "bound_ms": f_bound, "gflop": f_flops / 1e9,
+                "mbytes": f_bytes / 1e6},
+         decode={"ms": d_ms, "plain_ms": d_plain, "sdpa_ms": d_lib,
+                 "bound_ms": d_bound, "live_len": live,
+                 "mbytes": d_bytes / 1e6},
+         profile=profiles, peak_mem_gb=peak_gb())
+    return {
+        "flash": dict(launches=flash_launches, ms=f_ms, plain_ms=f_plain,
+                      bound_ms=f_bound, library_ms=f_lib,
+                      bound_by="operations" if f_flops / BF16_FLOPS
+                      >= f_bytes / HBM_BPS else "bytes",
+                      max_abs_err=max(errs_f)),
+        "decode": dict(launches=dec_launches, ms=d_ms, plain_ms=d_plain,
+                       bound_ms=d_bound, library_ms=d_lib,
+                       bound_by="bytes" if d_bytes / HBM_BPS
+                       >= d_flops / FP32_FLOPS else "operations",
+                       max_abs_err=max(errs_d))}
+
+
 def setup():
     """Import the port and set this module's globals; None (after saying
     why on stderr) when there is no card or no package."""
-    global np, torch, kernel_mod, hyb_mod, ivf_mod, DEV
+    global np, torch, kernel_mod, hyb_mod, ivf_mod, attn_lib, fa_mod, \
+        dec_mod, fa_ref, DEV
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1694,6 +2088,12 @@ def setup():
     from repro_torch.kernels.arena_scan import kernel as kernel_mod
     from repro_torch.kernels.hybrid_score import hybrid_score as hyb_mod
     from repro_torch.kernels.ivf_probe import ivf_probe as ivf_mod
+    from repro_torch.kernels import _attention as attn_lib
+    from repro_torch.kernels.decode_attention import \
+        decode_attention as dec_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_ref as fa_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
     DEV = torch.device("cuda")
@@ -1710,15 +2110,20 @@ def main() -> int:
     print(smi[0], flush=True)
 
     t0 = time.perf_counter()
-    kernel_mod.build()
-    ptxas = [ln.strip() for ln in kernel_mod.BUILD_LOG.splitlines()
-             if "registers" in ln or "Compiling" in ln]
+    # both libraries at once: one nvcc per source, all six started together
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(kernel_mod.build), pool.submit(attn_lib.build)]:
+            fut.result()
+    ptxas = [ln.strip() for ln in (kernel_mod.BUILD_LOG
+                                   + attn_lib.BUILD_LOG).splitlines()
+             if "registers" in ln or "Compiling" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     err1 = phase_kernel()
     herr1 = phase_hybrid_kernel()
     ierr1 = phase_ivf_kernel()
     perr1 = phase_paged_kernel()
+    ferr1, derr1 = phase_attn_kernel()
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
     ierr2 = phase_ivf_bench(dev)
@@ -1726,6 +2131,15 @@ def main() -> int:
     hprod = phase_hybrid_prod(dev, prod)
     iprod = phase_ivf_prod(dev, prod)
     pprod = phase_paged_prod(dev, prod, hprod)
+    # free the 2^23-row arena (and every tensor the rows hold) before the
+    # model and its cache take the card
+    row_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")
+    prod, hprod, iprod, pprod = ({key: d[key] for key in row_keys}
+                                 for d in (prod, hprod, iprod, pprod))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm_serve(dev)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
@@ -1758,7 +2172,25 @@ def main() -> int:
         "max_abs_err": max(perr1, pprod["max_abs_err"]),
         "ms": pprod["ms"], "plain_ms": pprod["plain_ms"],
         "bound_ms": pprod["bound_ms"], "bound_by": pprod["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
+        "launches": lm["flash"]["launches"],
+        "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"]),
+        "ms": lm["flash"]["ms"], "plain_ms": lm["flash"]["plain_ms"],
+        "bound_ms": lm["flash"]["bound_ms"],
+        "bound_by": lm["flash"]["bound_by"],
+        "library_ms": lm["flash"]["library_ms"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:77",
+        "launches": lm["decode"]["launches"],
+        "max_abs_err": max(derr1, lm["decode"]["max_abs_err"]),
+        "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
+        "bound_ms": lm["decode"]["bound_ms"],
+        "bound_by": lm["decode"]["bound_by"],
+        "library_ms": lm["decode"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,64 @@
+"""The attention kernels' library: ``csrc/flash_attention.cu`` and
+``csrc/decode_attention.cu`` (with ``csrc/attention.cuh``), built by
+`_nvcc.build` at first use into ``src/repro_torch/build/`` and loaded with
+``ctypes``. The wrappers in ``kernels/flash_attention/flash_attention.py``
+and ``kernels/decode_attention/decode_attention.py`` call it; nothing here
+runs at import."""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from repro_torch.kernels import _nvcc
+
+HEADER = os.path.join(_nvcc.CSRC, "attention.cuh")
+SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
+    "flash_attention.cu", "decode_attention.cu"))
+#: dtype codes of the C interface
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: nvcc's output of the build this process made, or "" when it was built
+BUILD_LOG = ""
+
+_lib = None
+
+
+def build() -> str:
+    """Compile the attention library unless these sources are built (one
+    nvcc per source, all at once, then one link). Returns its path."""
+    global BUILD_LOG
+    path, log = _nvcc.build("attention", (HEADER,), SOURCES)
+    if log:
+        BUILD_LOG = log
+    return path
+
+
+def load():
+    """The loaded library, its C functions typed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                               i, p]
+        lib.flash_attention_launch.restype = i
+        lib.decode_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                i, p, p, p, p, p, p, p]
+        lib.decode_attention_launch.restype = i
+        lib.attention_error_string.argtypes = [i]
+        lib.attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_rc(lib, rc: int, what: str) -> None:
+    """Raise with CUDA's message when a launch returned an error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.attention_error_string(rc).decode())
+
+
+def stream_of(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream

@@ -28,31 +28,22 @@ no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import operator
 import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels._nvcc import check_tensor as _check
 from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
                                                 arena_scan_scan_ref)
 from repro_torch.kernels.arena_scan.stages import ScanSpec
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-CSRC = os.path.join(_PKG, "csrc")
-HEADER = os.path.join(CSRC, "arena_scan.cuh")
+HEADER = os.path.join(_nvcc.CSRC, "arena_scan.cuh")
 #: one source per mode's C entry point, compiled in parallel
-SOURCES = tuple(os.path.join(CSRC, f) for f in (
+SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
     "arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu",
     "arena_scan_probe.cu"))
-BUILD_DIR = os.path.join(_PKG, "build")
-ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 
 #: dense-spec kernel launches through `arena_scan_cuda` (the main-path
 #: audit); the lexical specs and the slot-lane mode are counted by their
@@ -69,58 +60,15 @@ BUILD_LOG = ""
 _lib = None
 
 
-def _nvcc() -> str:
-    """nvcc on PATH, else under the CUDA toolkit PyTorch itself found."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc") or (
-        CUDA_HOME and shutil.which(os.path.join(CUDA_HOME, "bin", "nvcc")))
-    if not found:
-        raise RuntimeError("nvcc not found: the arena-scan kernel is built "
-                           "from csrc/arena_scan.cu with the CUDA toolkit")
-    return found
-
-
 def build() -> str:
-    """Compile the kernel library if these sources have not been built yet:
-    one nvcc per source, all started together, then one link. Returns the
-    path of the shared library."""
+    """Compile the kernel library if these sources have not been built yet
+    (`_nvcc.build`: one nvcc per source, all started together, then one
+    link). Returns the path of the shared library."""
     global BUILD_LOG
-    h = hashlib.sha256()
-    for path in (HEADER, *SOURCES):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"libarena_scan-{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
-                for src in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(SOURCES, objs)]
-        try:
-            logs = [proc.communicate()[0] for proc in procs]
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        BUILD_LOG = "".join(logs)
-        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
-        lib = os.path.join(tmp, "lib.so")
-        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib, *objs],
-                              capture_output=True, text=True, check=False)
-        BUILD_LOG += proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"linking the kernel library failed:\n"
-                               f"{BUILD_LOG}")
-        os.replace(lib, out)
-    return out
+    path, log = _nvcc.build("arena_scan", (HEADER,), SOURCES)
+    if log:
+        BUILD_LOG = log
+    return path
 
 
 def _load():
@@ -167,18 +115,6 @@ def _load():
         lib.arena_scan_tile_rows.restype = i
         _lib = lib
     return _lib
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def _check_page_rows(page_rows):

@@ -1,0 +1,112 @@
+"""Flash-attention forward on the card: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+`flash_attention_cuda` launches ``csrc/flash_attention.cu``, the Hopper
+port of the Pallas kernel ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention/flash_attention.py:79``): one block per
+(q tile, kv head, sequence) holding the tile's rows for all G query heads,
+looping over the key tiles up to the diagonal with an online softmax in
+registers; f32 scores, P and V rounded to bf16 for P . V with f32
+accumulation, as the reference kernel. bf16 inputs run both products on
+the tensor cores (mma.sync, bf16 -> f32), f32 inputs on scalar f32 FMAs;
+head_dim 64 or 128 (the served models'). It is bound by operations at the prefill shape (the source
+states the bound and the design).
+
+`flash_attention_plain` is the chunked online softmax of the reference's
+``models/layers.py:gqa_chunked`` in the kernel's (B, S, KV, G, hd) layout:
+f32 Q . K^T, blocks of ``blk_q`` x ``blk_k``, P and V rounded to bf16 for
+P . V whose block product is bf16, f32 accumulators. It takes any S (the
+last block may be ragged) and skips key blocks wholly above the diagonal,
+which contribute exactly nothing. It is the CPU path of ``ops`` and of the
+port's ``gqa_chunked``, and the kernel's on-card reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _attention, _nvcc
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+#: kernel launches through `flash_attention_cuda` (the main-path audit)
+LAUNCHES = 0
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          blk_q: int = 1024, blk_k: int = 1024):
+    """q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, KV, G, hd)
+    in q's dtype. Causality compares absolute positions (query i sees keys
+    j <= i), as the reference does."""
+    B, Sq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    blk_q, blk_k = min(blk_q, Sq), min(blk_k, Sk)
+    scale = 1.0 / np.sqrt(hd)
+    kt = k.float().permute(0, 2, 3, 1)[:, :, None]             # (B,KV,1,hd,Sk)
+    vb = v.to(torch.bfloat16).permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Sk,hd)
+    out = torch.empty_like(q)
+    dev = q.device
+    for q0 in range(0, Sq, blk_q):
+        q1 = min(q0 + blk_q, Sq)
+        qb = q[:, q0:q1].float().permute(0, 2, 3, 1, 4)          # (B,KV,G,bq,hd)
+        bq = q1 - q0
+        m = torch.full((B, KV, G, bq, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, bq, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=dev)
+        k_end = min(Sk, q1) if causal else Sk
+        qpos = torch.arange(q0, q1, device=dev)
+        for k0 in range(0, k_end, blk_k):
+            k1 = min(k0 + blk_k, Sk)
+            s = torch.matmul(qb, kt[..., k0:k1]) * scale          # (B,KV,G,bq,bk)
+            if causal and k1 - 1 > q0:
+                keep = qpos[:, None] >= torch.arange(k0, k1, device=dev)[None]
+                s = torch.where(keep, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(
+                p.to(torch.bfloat16), vb[..., k0:k1, :]).float()
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True):
+    """Launch the kernel on the current stream (no sync). q (B, S, KV, G,
+    hd), k / v (B, S, KV, hd), all f32 or all bf16, hd in {64, 128},
+    1 <= G <= 64, any S >= 1; all contiguous on one CUDA device. Returns o
+    (B, S, KV, G, hd) in q's dtype. Raises on any input it cannot take."""
+    global LAUNCHES
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if q.dim() != 5 or k.dim() != 4:
+        raise ValueError("q must be (B, S, KV, G, hd) and k, v (B, S, KV, hd)")
+    B, S, KV, G, hd = q.shape
+    dt = q.dtype
+    if dt not in _attention.DTYPES:
+        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16, "
+                         f"got {dt}")
+    _nvcc.check_tensor("q", q, dt, (B, S, KV, G, hd), dev)
+    _nvcc.check_tensor("k", k, dt, (B, S, KV, hd), dev)
+    _nvcc.check_tensor("v", v, dt, (B, S, KV, hd), dev)
+    if hd not in (64, 128):
+        raise ValueError(f"head_dim {hd} not in (64, 128): the kernel is "
+                         "built for the served models' head dims")
+    if not 1 <= G <= 64 or min(B, S, KV) < 1:
+        raise ValueError(f"flash_attention_cuda needs 1 <= G <= 64 and B, S, "
+                         f"KV >= 1, got B={B} S={S} KV={KV} G={G}")
+    if B > 65535 or KV > 65535 or B * S * KV * G * hd >= 1 << 62:
+        raise ValueError("shapes past the kernel's grid or index range")
+    lib = _attention.load()
+    o = torch.empty_like(q)
+    rc = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _attention.DTYPES[dt], B, S, KV, G, hd, int(bool(causal)),
+        _attention.stream_of(dev))
+    _attention.check_rc(lib, rc, f"flash_attention (B={B} S={S} KV={KV} "
+                                 f"G={G} hd={hd} {dt} causal={causal})")
+    LAUNCHES += 1
+    return o

@@ -1,0 +1,340 @@
+"""Decoder-only transformer for serving (port of
+``repro/models/transformer.py``, dense configs).
+
+  init(cfg, generator=, device=)                    -> Transformer
+  from_numpy(tree, cfg, device=) / to_numpy(model)  <-> the reference's
+                                                       params pytree
+  make_cache(cfg, batch, max_len, device=)          -> {"k", "v"}
+  prefill(model, cfg, tokens, cache_len)            -> (logits_last, cache)
+  decode_step(model, cfg, token, cache, cur_index)  -> (logits, cache)
+
+The weights keep the reference's ``x @ w`` layout (d_in, d_out), so moving
+the reference's parameters across is a copy, never a transpose. Layers are
+a Python loop (``cfg.unroll_layers`` and ``cfg.remat`` are accepted and do
+nothing). The KV cache is written in place: ``prefill`` fills positions
+[0, S) of a cache it allocates, ``decode_step`` writes position cur_index
+of the cache it is given and returns the same tensors. MoE configs raise:
+``models/moe.py`` is a later slice, as are ``forward`` / ``loss_fn`` /
+``make_vp_loss_fn`` (training).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.store import resolve_device
+from repro_torch.models import layers as L
+
+_MOE_LATER = ("MoE configs need models/moe.py, which the port has not "
+              "reached (ROADMAP queue 1, 'LM side')")
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None          # None -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    # numerics / compilation
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    remat: bool = True
+    attn_impl: str = "auto"      # "naive" | "chunked" | "auto" (see layers)
+    moe_group: int = 1024        # tokens per MoE dispatch group
+    unroll_layers: bool = False  # accepted; the port always loops in Python
+    moe_impl: str = "einsum"     # "einsum" | "scatter"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def attn_spec(self) -> L.AttentionSpec:
+        return L.AttentionSpec(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+            head_dim=self.hd, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
+            rope_theta=self.rope_theta, norm_eps=self.norm_eps)
+
+    def moe_spec(self):
+        raise NotImplementedError(_MOE_LATER)
+
+    def param_count(self) -> int:
+        """Exact parameter count (for 6·N·D roofline accounting)."""
+        D, hd, H, KV, F, V = self.d_model, self.hd, self.n_heads, self.n_kv_heads, self.d_ff, self.vocab_size
+        attn = D * H * hd + 2 * D * KV * hd + H * hd * D
+        if self.qkv_bias:
+            attn += H * hd + 2 * KV * hd
+        if self.qk_norm:
+            attn += 2 * hd
+        if self.is_moe:
+            ffn = D * self.n_experts + self.n_experts * 3 * D * F
+        else:
+            ffn = 3 * D * F
+        per_layer = attn + ffn + 2 * D
+        head = 0 if self.tie_embeddings else D * V
+        return V * D + self.n_layers * per_layer + D + head
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        dense_like = self.param_count() - self.n_layers * self.n_experts * 3 * D * F
+        return dense_like + self.n_layers * self.top_k * 3 * D * F
+
+
+def compute_dtype(cfg: TransformerConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+def _param(shape, dtype, device, fill=None) -> nn.Parameter:
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm block: ``attn_norm``, ``attn`` (a ParameterDict with the
+    reference's keys wq / wk / wv / wo, bq / bk / bv, q_norm / k_norm),
+    ``ffn_norm``, ``ffn`` (w_gate / w_up / w_down)."""
+
+    def __init__(self, cfg: TransformerConfig, dtype, device):
+        super().__init__()
+        D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.d_ff)
+        self.attn_norm = _param((D,), dtype, device, 1.0)
+        attn = {"wq": _param((D, H * hd), dtype, device),
+                "wk": _param((D, KV * hd), dtype, device),
+                "wv": _param((D, KV * hd), dtype, device),
+                "wo": _param((H * hd, D), dtype, device)}
+        if cfg.qkv_bias:
+            attn.update(bq=_param((H * hd,), dtype, device, 0.0),
+                        bk=_param((KV * hd,), dtype, device, 0.0),
+                        bv=_param((KV * hd,), dtype, device, 0.0))
+        if cfg.qk_norm:
+            attn.update(q_norm=_param((hd,), dtype, device, 1.0),
+                        k_norm=_param((hd,), dtype, device, 1.0))
+        self.attn = nn.ParameterDict(attn)
+        self.ffn_norm = _param((D,), dtype, device, 1.0)
+        self.ffn = nn.ParameterDict({
+            "w_gate": _param((D, F), dtype, device),
+            "w_up": _param((D, F), dtype, device),
+            "w_down": _param((F, D), dtype, device)})
+
+
+class Transformer(nn.Module):
+    """The dense decoder's parameters, named as the reference's tree:
+    ``embed``, ``layers[i]`` (`DecoderLayer`), ``final_norm`` and, unless
+    the embeddings are tied, ``lm_head`` (D, V). Construction allocates
+    uninitialised weights on ``device`` (the card unless the caller asks
+    for another; raises with no card); `init` and `from_numpy` fill them."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(_MOE_LATER)
+        dev = resolve_device(device)
+        dtype = compute_dtype(cfg)
+        self.cfg = cfg
+        self.embed = _param((cfg.vocab_size, cfg.d_model), dtype, dev)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, dev)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, dev, 1.0)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param((cfg.d_model, cfg.vocab_size), dtype, dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _dense_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """Truncated-normal fan-in init (``dense_init``): N(0, 1) cut at +-3,
+    times 1/sqrt(d_in), drawn in f32 and cast."""
+    t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0, generator=gen)
+    w.copy_(t.mul_(1.0 / np.sqrt(w.shape[0])))
+
+
+@torch.no_grad()
+def init(cfg: TransformerConfig, *, generator: torch.Generator,
+         device=None) -> Transformer:
+    """A model with the reference's init laws, drawn from ``generator``
+    (which must live on ``device``): dense weights truncated normal / sqrt
+    (d_in), embeddings N(0, 0.02^2), norms one, biases zero. The numbers
+    differ from ``repro``'s ``init`` (another generator); the tests carry
+    the reference's parameters across with `from_numpy`."""
+    model = Transformer(cfg, device=device)
+    t = torch.empty(model.embed.shape, dtype=torch.float32,
+                    device=model.device)
+    model.embed.copy_(t.normal_(0.0, 0.02, generator=generator))
+    del t
+    for layer in model.layers:
+        for key in ("wq", "wk", "wv", "wo"):
+            _dense_init_(layer.attn[key], generator)
+        for key in ("w_gate", "w_up", "w_down"):
+            _dense_init_(layer.ffn[key], generator)
+    if model.lm_head is not None:
+        _dense_init_(model.lm_head, generator)
+    return model
+
+
+def _tensor_of(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bf16 included: a numpy ``bfloat16`` array (the
+    reference's, as ml_dtypes gives it) or its uint16 bit pattern becomes a
+    torch bfloat16 tensor bit for bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+@torch.no_grad()
+def from_numpy(tree: dict, cfg: TransformerConfig, device=None) -> Transformer:
+    """The port's model from the reference's parameters as numpy arrays
+    (``jax.tree.map(np.asarray, params)``): ``embed``, ``layers`` stacked on
+    a leading n_layers axis, ``final_norm``, ``lm_head``. Every tensor is
+    copied bit for bit into the compute dtype's storage; shapes must match."""
+    model = Transformer(cfg, device=device)
+
+    def put(dst: torch.Tensor, src, name: str):
+        t = _tensor_of(np.asarray(src))
+        if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(t)
+
+    put(model.embed, tree["embed"], "embed")
+    put(model.final_norm, tree["final_norm"], "final_norm")
+    if model.lm_head is not None:
+        put(model.lm_head, tree["lm_head"], "lm_head")
+    stacked = tree["layers"]
+    for i, layer in enumerate(model.layers):
+        put(layer.attn_norm, stacked["attn_norm"][i], f"layers.{i}.attn_norm")
+        put(layer.ffn_norm, stacked["ffn_norm"][i], f"layers.{i}.ffn_norm")
+        for key, p in layer.attn.items():
+            put(p, stacked["attn"][key][i], f"layers.{i}.attn.{key}")
+        for key, p in layer.ffn.items():
+            put(p, stacked["ffn"][key][i], f"layers.{i}.ffn.{key}")
+    return model
+
+
+def _array_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def to_numpy(model: Transformer) -> dict:
+    """The model as the reference's tree of numpy arrays, layers stacked;
+    bf16 tensors come back as their uint16 bit patterns (numpy has no
+    bfloat16), which `from_numpy` takes back."""
+    layers = model.layers
+    tree = {"embed": _array_of(model.embed),
+            "final_norm": _array_of(model.final_norm),
+            "layers": {
+                "attn_norm": np.stack([_array_of(m.attn_norm) for m in layers]),
+                "ffn_norm": np.stack([_array_of(m.ffn_norm) for m in layers]),
+                "attn": {k: np.stack([_array_of(m.attn[k]) for m in layers])
+                         for k in layers[0].attn},
+                "ffn": {k: np.stack([_array_of(m.ffn[k]) for m in layers])
+                        for k in layers[0].ffn}}}
+    if model.lm_head is not None:
+        tree["lm_head"] = _array_of(model.lm_head)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+
+def _ffn_block(layer: DecoderLayer, cfg: TransformerConfig, x: torch.Tensor):
+    return L.swiglu(layer.ffn, L.rmsnorm(x, layer.ffn_norm, cfg.norm_eps))
+
+
+def lm_head_matrix(model: Transformer, cfg: TransformerConfig) -> torch.Tensor:
+    return model.embed.T if cfg.tie_embeddings else model.lm_head
+
+
+def make_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """Zeroed {"k", "v"}, each (n_layers, batch, max_len, n_kv_heads, hd)."""
+    dev = resolve_device(device)
+    dtype = dtype or compute_dtype(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+@torch.no_grad()
+def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
+            cache_len: int):
+    """tokens: (B, S) int -> (last-position logits (B, V), cache dict). The
+    head multiplies the last position only: no (B, S, V) tensor exists."""
+    if cfg.is_moe:
+        raise NotImplementedError(_MOE_LATER)
+    B, S = tokens.shape
+    cache = make_cache(cfg, B, cache_len, device=model.device)
+    x = model.embed[tokens.to(model.device)]
+    spec = cfg.attn_spec()
+    for i, layer in enumerate(model.layers):
+        h = L.rmsnorm(x, layer.attn_norm, cfg.norm_eps)
+        attn_out, _ = L.attention_prefill(
+            layer.attn, spec, h, cache_len, impl=cfg.attn_impl,
+            cache=(cache["k"][i], cache["v"][i]))
+        x = x + attn_out
+        x = x + _ffn_block(layer, cfg, x)
+    x = L.rmsnorm(x[:, -1, :], model.final_norm, cfg.norm_eps)
+    return x @ lm_head_matrix(model, cfg), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cfg: TransformerConfig,
+                token: torch.Tensor, cache: dict, cur_index):
+    """token: (B,) int; cache from make_cache / prefill; cur_index: int.
+
+    Writes position cur_index of every layer's cache in place and returns
+    (logits (B, V), the same cache). Cost is O(S_max) per token."""
+    if cfg.is_moe:
+        raise NotImplementedError(_MOE_LATER)
+    x = model.embed[token.to(model.device)[:, None]]
+    spec = cfg.attn_spec()
+    for i, layer in enumerate(model.layers):
+        h = L.rmsnorm(x, layer.attn_norm, cfg.norm_eps)
+        attn_out, _ = L.attention_decode(layer.attn, spec, h, cache["k"][i],
+                                         cache["v"][i], cur_index)
+        x = x + attn_out
+        x = x + _ffn_block(layer, cfg, x)
+    x = L.rmsnorm(x[:, -1, :], model.final_norm, cfg.norm_eps)
+    return x @ lm_head_matrix(model, cfg), cache

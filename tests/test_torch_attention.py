@@ -1,0 +1,257 @@
+"""Parity of the port's two attention kernels' plain versions with the
+reference (``repro.kernels.decode_attention`` / ``flash_attention``).
+
+The same numpy inputs go through the reference's oracles (and, on two
+shapes each, its Pallas kernels in interpret mode) and through the port's
+CPU path, which is each CUDA kernel's plain version: the wrappers take it
+only because the tensors lie on the CPU. Tolerances: decode is all f32 math
+(rtol = atol = 2e-5, as ``test_kernels.py:60``; bf16 outputs rounded once
+more, 3e-2); flash rounds P and V to bf16 for P . V (rtol 1e-2, atol 8e-3,
+as ``test_kernels.py:96-97``); the port's f32 oracles against the
+reference's at 1e-5. The dispatch rules are checked too: a CUDA tensor goes
+to the kernel's wrapper and never to the plain version, and the wrappers
+refuse CPU tensors.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.decode_attention import \
+    decode_attention_pallas
+from repro.kernels.decode_attention.ops import decode_attention as j_decode
+from repro.kernels.decode_attention.ref import decode_attention_ref as j_dref
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_fref
+from repro_torch.kernels.decode_attention import decode_attention as dec_mod
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.torch_port
+
+DEC_TOL = 2e-5
+FLASH_RTOL, FLASH_ATOL = 1e-2, 8e-3
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape, dtype=np.float32)
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a).astype(dtype)
+    t = torch.from_numpy(a).to(getattr(torch, dtype))
+    return j, t
+
+
+def _decode_inputs(seed, B, S, KV, G, hd, lengths=None):
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (B, KV * G, hd))
+    k = _normal(rng, (B, S, KV, hd))
+    v = _normal(rng, (B, S, KV, hd))
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, B, dtype=np.int32)
+    return q, k, v, np.asarray(lengths, np.int32)
+
+
+# the reference's decode grid (test_kernels.py:44-50) at S <= 512, plus
+# ragged S and lengths 0 and past S
+DECODE_GRID = [
+    (2, 512, 4, 8, 128, None),
+    (1, 512, 2, 1, 64, None),
+    (4, 512, 8, 4, 128, None),
+    (2, 512, 1, 16, 64, None),      # MQA
+    (3, 17, 2, 4, 64, [0, 5, 17]),
+    (2, 300, 2, 2, 32, [0, 0]),
+    (2, 257, 1, 4, 64, [400, 1]),
+]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,lengths", DECODE_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_reference_oracle(B, S, KV, G, hd, lengths,
+                                               dtype):
+    q, k, v, L = _decode_inputs(S + G, B, S, KV, G, hd, lengths)
+    jq, tq = _both(q, dtype)
+    jk, tk = _both(k, dtype)
+    jv, tv = _both(v, dtype)
+    want = np.asarray(j_dref(jq.reshape(B, KV, G, hd), jk, jv,
+                             jnp.asarray(L)))
+    acc, m, l = dec_mod.decode_attention_plain(tq.reshape(B, KV, G, hd), tk,
+                                               tv, torch.from_numpy(L))
+    np.testing.assert_allclose((acc / l).numpy(), want, rtol=DEC_TOL,
+                               atol=DEC_TOL)
+    got = dec_ops.decode_attention(tq, tk, tv, torch.from_numpy(L), KV)
+    assert got.dtype == tq.dtype and got.shape == (B, KV * G, hd)
+    tol = DEC_TOL if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), want.reshape(B, -1, hd),
+                               rtol=tol, atol=tol)
+    ported = decode_attention_ref(tq.reshape(B, KV, G, hd), tk, tv,
+                                  torch.from_numpy(L))
+    np.testing.assert_allclose(ported.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_length_zero_is_the_mean_of_v():
+    """lengths[b] = 0: every score is NEG_INF, so p = exp(0) = 1 and the
+    reference returns the mean of V over the whole cache; so does the port."""
+    B, S, KV, G, hd = 2, 40, 2, 2, 32
+    q, k, v, L = _decode_inputs(3, B, S, KV, G, hd, [0, 0])
+    acc, m, l = dec_mod.decode_attention_plain(
+        torch.from_numpy(q).reshape(B, KV, G, hd), torch.from_numpy(k),
+        torch.from_numpy(v), torch.from_numpy(L))
+    assert (m == torch.finfo(torch.float32).min).all()
+    assert (l == S).all()
+    mean_v = v.mean(axis=1)                                  # (B, KV, hd)
+    for g in range(G):
+        np.testing.assert_allclose((acc / l)[:, :, g].numpy(), mean_v,
+                                   rtol=DEC_TOL, atol=DEC_TOL)
+    want = np.asarray(j_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(L), n_kv=KV, blk_s=8))
+    np.testing.assert_allclose((acc / l).reshape(B, -1, hd).numpy(), want,
+                               rtol=DEC_TOL, atol=DEC_TOL)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,blk,lengths", [
+    (2, 256, 2, 4, 64, 64, [37, 256]),
+    (1, 128, 1, 8, 32, 32, [0]),
+])
+def test_decode_plain_matches_pallas_triple(B, S, KV, G, hd, blk, lengths):
+    """The un-normalised (acc, m, l) of the reference kernel in interpret
+    mode, its lane-uniform m and l read at lane 0."""
+    q, k, v, L = _decode_inputs(11, B, S, KV, G, hd, lengths)
+    qg = q.reshape(B, KV, G, hd)
+    acc, m, l = decode_attention_pallas(jnp.asarray(qg), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(L),
+                                        blk_s=blk, interpret=True)
+    ta, tm, tl = dec_mod.decode_attention_plain(
+        torch.from_numpy(qg), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(L))
+    assert ta.shape == (B, KV, G, hd) and tm.shape == tl.shape == (B, KV, G, 1)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(m)[..., :1],
+                               rtol=DEC_TOL, atol=DEC_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(l)[..., :1],
+                               rtol=DEC_TOL, atol=DEC_TOL)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(acc), rtol=DEC_TOL,
+                               atol=DEC_TOL)
+
+
+def _flash_inputs(seed, B, S, KV, G, hd):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (B, S, KV * G, hd)), _normal(rng, (B, S, KV, hd)),
+            _normal(rng, (B, S, KV, hd)))
+
+
+# the reference's flash grid (test_kernels.py:80-84) plus ragged S
+FLASH_GRID = [
+    (2, 256, 2, 4, 64, 64, 64),
+    (1, 512, 4, 2, 128, 128, 128),
+    (2, 256, 1, 8, 64, 128, 64),    # MQA, rectangular blocks
+    (2, 100, 2, 2, 32, 64, 32),     # ragged: S not a multiple of a block
+    (1, 1, 2, 4, 64, 512, 512),     # one token
+]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,blkq,blkk", FLASH_GRID)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_reference_oracle(B, S, KV, G, hd, blkq, blkk,
+                                              causal):
+    q, k, v = _flash_inputs(S + hd, B, S, KV, G, hd)
+    want = np.asarray(j_fref(jnp.asarray(q).reshape(B, S, KV, G, hd),
+                             jnp.asarray(k), jnp.asarray(v), causal=causal))
+    got = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), KV, causal=causal,
+                                 blk_q=blkq, blk_k=blkk)
+    assert got.shape == (B, S, KV * G, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.reshape(B, S, -1, hd),
+                               rtol=FLASH_RTOL, atol=FLASH_ATOL)
+    ported = flash_attention_ref(torch.from_numpy(q).reshape(B, S, KV, G, hd),
+                                 torch.from_numpy(k), torch.from_numpy(v),
+                                 causal=causal)
+    np.testing.assert_allclose(ported.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,blk,causal", [
+    (2, 128, 2, 4, 64, 64, True),
+    (1, 128, 1, 2, 32, 32, False),
+])
+def test_flash_plain_matches_pallas_interpret(B, S, KV, G, hd, blk, causal):
+    q, k, v = _flash_inputs(7, B, S, KV, G, hd)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              n_kv=KV, causal=causal, blk_q=blk, blk_k=blk,
+                              interpret=True))
+    got = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), KV, causal=causal,
+                                 blk_q=blk, blk_k=blk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=FLASH_RTOL,
+                               atol=FLASH_ATOL)
+
+
+def test_flash_plain_in_bf16_keeps_dtype_and_tolerance():
+    B, S, KV, G, hd = 1, 96, 2, 2, 64
+    q, k, v = _flash_inputs(5, B, S, KV, G, hd)
+    jq, tq = _both(q, "bfloat16")
+    jk, tk = _both(k, "bfloat16")
+    jv, tv = _both(v, "bfloat16")
+    want = np.asarray(j_fref(jq.reshape(B, S, KV, G, hd), jk, jv,
+                             causal=True).astype(jnp.float32))
+    got = fa_ops.flash_attention(tq, tk, tv, KV, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.reshape(B, S, -1, hd),
+                               rtol=FLASH_RTOL, atol=FLASH_ATOL)
+
+
+class _CudaClaim:
+    """Stands in for a tensor on the card: only its device is read before
+    the dispatch hands it to the kernel's wrapper."""
+    device = torch.device("cuda")
+    dtype = torch.float32
+    shape = (2, 4, 8, 16)
+
+    def reshape(self, *shape):
+        out = _CudaClaim()
+        out.shape = shape
+        return out
+
+    def contiguous(self):
+        return self
+
+
+def test_dispatch_sends_cuda_tensors_to_the_kernels(monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("plain version ran on a CUDA tensor")
+
+    calls = []
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", plain)
+    monkeypatch.setattr(dec_mod, "decode_attention_plain", plain)
+    monkeypatch.setattr(fa_mod, "flash_attention_cuda",
+                        lambda q, k, v, causal: calls.append("flash") or q)
+
+    def fake_decode(q, k, v, lengths):
+        calls.append("decode")
+        one = torch.ones((2, 2, 2, 1))
+        return torch.zeros((2, 2, 2, 16)), one, one
+
+    monkeypatch.setattr(dec_mod, "decode_attention_cuda", fake_decode)
+    q = _CudaClaim()
+    fa_ops.flash_attention(q, q, q, 2, causal=True)
+    q.shape = (2, 4, 16)
+    dec_ops.decode_attention(q, None, None, None, 2)
+    assert calls == ["flash", "decode"]
+
+
+def test_wrappers_refuse_cpu_and_other_devices():
+    x = torch.zeros((1, 4, 2, 2, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa_mod.flash_attention_cuda(x, x[:, :, :, 0], x[:, :, :, 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dec_mod.decode_attention_cuda(x[:, 0], x[:, :, :, 0], x[:, :, :, 0],
+                                      torch.zeros(1, dtype=torch.int32))
+    m = torch.zeros((1, 4, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="no flash-attention engine"):
+        fa_ops.flash_attention(m, m, m, 2)
+    with pytest.raises(ValueError, match="no decode-attention engine"):
+        dec_ops.decode_attention(m[:, 0], m, m, m[:, 0, 0, 0], 2)
