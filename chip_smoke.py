@@ -102,14 +102,16 @@ Phases:
                 shared memory a block, the plain version's time.
 
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
-                (causal and full) and the flash-decode kernel against their
-                plain versions on the card over bf16 and f32, G 1 / 4 / 8, hd
-                64 / 128 and S 1 / 17 / 512 / 2064 / 4096; decode batches
-                lengths 0 (the mean of V, as the reference), 1, random and
-                S + 3. Flash within rtol 1e-2, atol 8e-3 of its plain version
-                (the chunked online softmax; P and V rounded to bf16 for P.V)
-                and of the f32 oracle; decode's output, m and l within rtol =
-                atol = 2e-5 (all f32 math on both sides).
+                (causal and full) and the flash-decode kernel against their plain versions on
+                the card over bf16 and f32, G 1 / 4 / 8, hd 64 / 128 and
+                S 1 / 17 / 512 / 2064 / 4096, then in bf16 at the edges of
+                the tiles: G 3 (a flash tile of 126 rows in use) and S 127 /
+                129 / 2047; decode batches lengths 0 (the mean of V, as the
+                reference), 1, random and S + 3. Flash within
+                rtol 1e-2, atol 8e-3 of its plain version (the chunked
+                online softmax; P and V rounded to bf16 for P.V) and of the
+                f32 oracle; decode's output, m and l within rtol = atol =
+                2e-5 (all f32 math on both sides).
  13. lm_serve (runs last, after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
@@ -123,9 +125,12 @@ Phases:
                 plain version on layer 0's and layer 35's inputs of the real
                 prefill and first decode step; chunked-vs-naive prefill
                 logits; a profile of one prefill and one decode step
-                (device time by kernel, idle share); kernel times beside
-                the bound, the plain version and SDPA (a yardstick the port
-                never calls); peak memory.
+                (device time by kernel, idle share); kernel times (CUDA
+                events and profiled device time, one kernel a call) beside
+                the bound, the plain version and SDPA's events and device
+                time (a yardstick the port never calls); the decode
+                workspace's bytes and 1 allocation a call (its outputs);
+                peak memory.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -187,10 +192,14 @@ PAGED_N = (1000, 4099, 9001)
 PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 # phase attn_kernel grid: G of the three dense configs' groupings, the
 # served head dims, S from one token through ragged (17, 2064 = the serve
-# cache) to past the prefill shape
+# cache) to past the prefill shape, both dtypes; then, for the bf16 kernel's
+# tiles, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
+# use) and S 127 / 129 / 2047 (64- and 128-key tiles)
 ATTN_G = (1, 4, 8)
 ATTN_HD = (64, 128)
 ATTN_S = (1, 17, 512, 2064, 4096)
+ATTN_EDGE_G = (1, 3, 4, 8)
+ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
 # tolerances: flash rounds P and V to bf16 for P.V (test_kernels.py:96-97);
 # decode is all f32 math (test_kernels.py:60)
 FLASH_RTOL, FLASH_ATOL = 1e-2, 8e-3
@@ -1184,6 +1193,35 @@ def profile_batch(fn):
                         for n, c, ms in rows[:8]]}
 
 
+def device_ms(fn, iters):
+    """Device time a call of ``fn`` under torch.profiler over ``iters``
+    calls (after a traced warm-up cycle, as in `profile_batch`), and the
+    kernels the calls launched, by name, with their launches captured. The
+    trace may drop some or all launches of a long kernel, so a call's time
+    is the sum over kernels of the mean time a launch times the launches a
+    call (one when fewer than ``iters`` were captured), and None when none
+    was captured (the CUDA-event time stands then)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        sync()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        sync()
+    ms, kernels = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("ProfilerStep"):
+            continue
+        dev_us = getattr(ev, "device_time_total", 0) or 0
+        if dev_us > 0 and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            kernels[ev.key[:60]] = ev.count
+            ms += dev_us / ev.count * max(1, round(ev.count / iters)) / 1e3
+    return (ms if kernels else None), kernels
+
+
 def events_ms(fn, iters):
     fn()
     sync()
@@ -1764,45 +1802,53 @@ def decode_check(q, kc, vc, lengths):
 def phase_attn_kernel():
     """Both attention kernels against their plain versions over dtypes, G,
     hd, S (ragged and past the prefill shape) and, for decode, lengths 0,
-    1, random and past S in one batch."""
+    1, random and past S in one batch; then the bf16 kernels at the edges
+    of their tiles (G 3, S 127 / 129 / 2047)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
     errs = {"flash": {}, "flash_oracle": {}, "decode": {}}
-    cases = 0
-    for dt in (torch.bfloat16, torch.float32):
+    counts = {"cases": 0}
+
+    def case(dt, G, hd, S):
         name = str(dt).split(".")[-1]
+        B, KV = 4, 2
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=DEV).to(dt)
+
+        k, v = rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+        rand_len = int(torch.randint(1, S + 1, (1,), generator=gen,
+                                     device=DEV))
+        lengths = torch.tensor([0, 1, rand_len, S + 3], dtype=torch.int32,
+                               device=DEV)
+        e = decode_check(rnd(B, KV, G, hd), k, v, lengths)
+        errs["decode"][name] = max(errs["decode"].get(name, 0), e)
+        for causal in (True, False):
+            e, e_r = flash_check(rnd(2, S, KV, G, hd), k[:2], v[:2], causal)
+            errs["flash"][name] = max(errs["flash"].get(name, 0), e)
+            errs["flash_oracle"][name] = max(
+                errs["flash_oracle"].get(name, 0), e_r)
+        counts["cases"] += 1
+
+    for dt in (torch.bfloat16, torch.float32):
         for G in ATTN_G:
             for hd in ATTN_HD:
                 for S in ATTN_S:
-                    B, KV = 4, 2
-
-                    def rnd(*shape):
-                        return torch.randn(*shape, generator=gen,
-                                           device=DEV).to(dt)
-
-                    k, v = rnd(B, S, KV, hd), rnd(B, S, KV, hd)
-                    rand_len = int(torch.randint(1, S + 1, (1,),
-                                                 generator=gen,
-                                                 device=DEV))
-                    lengths = torch.tensor([0, 1, rand_len, S + 3],
-                                           dtype=torch.int32, device=DEV)
-                    e = decode_check(rnd(B, KV, G, hd), k, v, lengths)
-                    errs["decode"][name] = max(errs["decode"].get(name, 0), e)
-                    for causal in (True, False):
-                        e, e_r = flash_check(rnd(2, S, KV, G, hd), k[:2],
-                                             v[:2], causal)
-                        errs["flash"][name] = max(errs["flash"].get(name, 0),
-                                                  e)
-                        errs["flash_oracle"][name] = max(
-                            errs["flash_oracle"].get(name, 0), e_r)
-                    cases += 1
+                    case(dt, G, hd, S)
+    for G in ATTN_EDGE_G:
+        for hd in ATTN_HD:
+            for S in ATTN_EDGE_S:
+                if G not in ATTN_G or S not in ATTN_S:
+                    case(torch.bfloat16, G, hd, S)
+    cases = counts["cases"]
     check(fa_mod.LAUNCHES == 2 * cases and dec_mod.LAUNCHES == cases,
           "launch counts of the grid")
     emit("attn_kernel", seconds=time.perf_counter() - t_phase, cases=cases,
          grid={"dtype": ["bfloat16", "float32"], "G": ATTN_G, "hd": ATTN_HD,
                "S": ATTN_S, "lengths": "0, 1, random, S + 3",
-               "causal": [True, False]},
+               "causal": [True, False],
+               "bf16_tile_edges": {"G": ATTN_EDGE_G, "S": ATTN_EDGE_S}},
          flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
          max_abs_err=errs,
          tolerance={"flash": f"rtol {FLASH_RTOL}, atol {FLASH_ATOL} (bf16 "
@@ -2004,6 +2050,12 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f_lib = events_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
                                    enable_gqa=True), 5)
+    f_dev, f_kernels = device_ms(lambda: fa_mod.flash_attention_cuda(q5, k, v),
+                                 10)
+    f_lib_dev, _ = device_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                          enable_gqa=True), 10)
+    check(all("flash_fwd_wgmma_kernel" in name for name in f_kernels),
+          f"flash calls launched other kernels: {f_kernels}")
     esz = q.element_size()
     f_flops = 4 * hd * (S * (S + 1) // 2) * Bq * H
     f_bytes = esz * (2 * q.numel() + k.numel() + v.numel())
@@ -2022,6 +2074,31 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     kl = kc[:, :live].transpose(1, 2).contiguous()
     vl = vc[:, :live].transpose(1, 2).contiguous()
     d_lib = events_ms(lambda: sdpa(ql, kl, vl, enable_gqa=True), 50)
+    d_dev, d_kernels = device_ms(lambda: dec_mod.decode_attention_cuda(
+        qg, kc, vc, lengths), 50)
+    d_lib_dev, _ = device_ms(lambda: sdpa(ql, kl, vl, enable_gqa=True), 50)
+    check(all("decode_attention_kernel" in name for name in d_kernels)
+          and sum(d_kernels.values()) <= 50,
+          f"decode calls launched {d_kernels} (one kernel a call, merge "
+          "included)")
+    # a call allocates one buffer (its three outputs) and nothing else: the
+    # partials and counters live in the workspace, allocated once
+    sync()
+    n_alloc0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    outs = [dec_mod.decode_attention_cuda(qg, kc, vc, lengths)
+            for _ in range(10)]
+    d_allocs = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                - n_alloc0) / 10
+    del outs
+    check(d_allocs == 1, f"decode allocates {d_allocs} tensors a call, not 1")
+    d_split = dec_mod.split_for(B, n_kv, H // n_kv, kc.shape[1],
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count)
+    d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
+        attn_lib.DTYPES[kc.dtype], hd, H // n_kv, d_split)
+    check(d_blocks == dec_mod.BLOCKS_PER_SM,
+          f"{d_blocks} decode blocks an SM, the split assumes "
+          f"{dec_mod.BLOCKS_PER_SM}")
     live_total = int(lengths.clamp(max=kc.shape[1]).sum())
     d_bytes = (2 * live_total * n_kv * hd * kc.element_size()
                + qd.numel() * qd.element_size() + B * H * (hd + 2) * 4)
@@ -2050,12 +2127,19 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                                   "max_abs_logit": logit_scale,
                                   "min_cosine": cos,
                                   "argmax_agree": argmax_agree},
-         flash={"ms": f_ms, "plain_ms": f_plain, "sdpa_ms": f_lib,
+         flash={"ms": f_ms, "device_ms": f_dev, "plain_ms": f_plain,
+                "sdpa_ms": f_lib, "sdpa_device_ms": f_lib_dev,
                 "bound_ms": f_bound, "gflop": f_flops / 1e9,
-                "mbytes": f_bytes / 1e6},
-         decode={"ms": d_ms, "plain_ms": d_plain, "sdpa_ms": d_lib,
+                "mbytes": f_bytes / 1e6, "key_tile": fa_mod.KEY_TILE,
+                "kernels_traced_in_10_calls": f_kernels},
+         decode={"ms": d_ms, "device_ms": d_dev, "plain_ms": d_plain,
+                 "sdpa_ms": d_lib, "sdpa_device_ms": d_lib_dev,
                  "bound_ms": d_bound, "live_len": live,
-                 "mbytes": d_bytes / 1e6},
+                 "mbytes": d_bytes / 1e6,
+                 "kernels_traced_in_50_calls": d_kernels,
+                 "allocations_a_call": d_allocs,
+                 "workspace_bytes": dec_mod.workspace_bytes(),
+                 "split": d_split, "blocks_per_sm": d_blocks},
          profile=profiles, peak_mem_gb=peak_gb())
     return {
         "flash": dict(launches=flash_launches, ms=f_ms, plain_ms=f_plain,

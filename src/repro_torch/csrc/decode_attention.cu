@@ -1,4 +1,4 @@
-// Split-K flash-decode: the Hopper port of the Pallas kernel
+// Split-K flash-decode in one launch: the Hopper port of the Pallas kernel
 // `decode_attention_pallas` (src/repro/kernels/decode_attention/
 // decode_attention.py:77, pallas_call :111).
 //
@@ -16,23 +16,44 @@
 //
 // Bound. Decode reads every live K and V row once and does 4 flops per
 // element read: memory-bound. At the serving shape (B 8, KV 8, G 4, hd 128,
-// bf16, ~2057 live rows) that is 32,768 B a live position, 67.4 MB, i.e.
-// 20.1 us at 3.35 TB/s per layer and token.
+// bf16, 2049 live rows) that is 32,768 B a live position, 67.3 MB, i.e.
+// 20.1 us at 3.35 TB/s per layer and token. Streaming HBM at that rate
+// needs megabytes in flight across the card, and the math has to hide
+// under the copies.
 //
 // Design. The Pallas grid walks S in sequence per (b, kv): 64 programs at
 // the serving shape, which would leave most of the 132 SMs idle. Here S is
-// split in chunks of `split` positions (256 by default) and every
-// (chunk, kv, b) is a block: 576 blocks at the serving shape. A block loads
-// its K chunk once for all G query heads of its KV head (16-byte loads, a
-// row spread over a group of lanes, the dot products reduced by shuffles),
-// keeps the chunk's scores in shared memory, takes the chunk's max and sum,
-// then streams its V chunk once, each row group accumulating G x hd partial
-// sums in registers that shared memory reduces in a fixed order. It writes
-// the chunk's (acc, m, l). A chunk that starts at or past lengths[b] > 0
-// writes (0, NEG_INF, 0) without reading the cache. A second small kernel
-// merges the chunks by the logsumexp rule of the reference's sharded
-// combine (decode_attention/ops.py:43-46): m* = max m_i, w_i = exp(m_i -
-// m*), l* = sum w_i l_i, acc* = sum w_i acc_i, in chunk order.
+// split in chunks of `split` positions (the wrapper sizes them so that the
+// chunks of all (b, kv) fill the card's resident blocks once: 512 blocks
+// of 288 rows, 4 an SM, at the serving shape) and every (chunk, kv, b) is
+// a block of 4 warps, in ONE launch:
+//  * Copies. Thread 0 streams the chunk's live K rows, then its V rows,
+//    through a 4-stage ring of 8 KB sub-tiles in shared memory: one TMA
+//    tile load (cp.async.bulk.tensor of a 4-D map {hd, KV, S, B}, rows past
+//    S zero-filled) a sub-tile, full and empty mbarriers, so 3-4 sub-tiles
+//    are in flight a block (~16 MB over the card) and the V rows are on
+//    their way while the chunk's softmax statistics are taken. The warps
+//    wait on the full barriers, not on each other, except at the K -> V
+//    boundary and for the final sums.
+//  * Math, all f32 with expf. From one read of K a row group of lanes
+//    scores all G query heads of its KV head: each lane holds 16 bytes of a
+//    row, its partial dot products of 4 rows x 4 heads are summed over the
+//    row group by a butterfly reduce-scatter (a shuffle step halves the
+//    values a lane holds), and the scores go to shared memory as
+//    [row][head]. The chunk's max and sum, p = exp(s - m), then one read of
+//    V: a row's p's for 4 heads come in one 16-byte load and accumulate
+//    into G x hd partial sums in registers (heads in groups of 4 when
+//    G <= 4, else 8; G > 8 streams V once a group), summed across the row
+//    groups of a warp by shuffles and across warps in a fixed order.
+//  * Merge. A block writes its chunk's (acc, m, l) to the wrapper's
+//    workspace; a chunk that starts at or past lengths[b] > 0 writes
+//    nothing and reads no cache. The last block of a (b, kv) to finish --
+//    found by an atomic counter after a __threadfence, the counter then
+//    reset for the next call -- merges the partials in chunk order by the
+//    logsumexp rule of the reference's sharded combine
+//    (decode_attention/ops.py:43-46): m* = max m_i, w_i = exp(m_i - m*),
+//    l* = sum w_i l_i, acc* = sum w_i acc_i, the loads of 8 chunks at a
+//    time. Which block finishes last does not change the result.
 
 #include <cmath>
 
@@ -44,228 +65,497 @@ using attn::kNegInf;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGChunk = 8;  // query heads accumulated at once in P . V
+constexpr int kGChunkMax = 8;    // query heads accumulated at once in P . V
+constexpr int kGScore = 4;       // query heads scored at once from K
+constexpr int kStages = 4;       // depth of the ring
+constexpr int kSubBytes = 8192;  // bytes of a ring stage (a sub-tile)
+constexpr int kMergeBatch = 8;   // chunks whose partials load at once
 
 template <typename T, int HD>
 struct Tile {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   static constexpr int LPR = (HD / VEC) < 32 ? (HD / VEC) : 32;  // lanes a row
-  static constexpr int EPL = HD / LPR;       // elements a lane holds
+  static constexpr int EPL = HD / LPR;       // elements a lane holds (16 B)
   static constexpr int RPW = 32 / LPR;       // rows a warp holds at once
   static constexpr int NRG = kWarps * RPW;   // row groups in a block
+  static constexpr int ROWB = HD * static_cast<int>(sizeof(T));  // bytes a row
+  static constexpr int TR = kSubBytes / ROWB;  // rows a sub-tile
+  static constexpr int RB = TR / NRG;          // rows a row group a sub-tile
+  static constexpr int NV = RB * kGScore;      // dot products a lane holds
+  static_assert(RB * NRG == TR, "tile shape");
 };
 
-template <typename T, int HD>
-size_t split_smem_bytes(int G, int split) {
-  using Tl = Tile<T, HD>;
-  return sizeof(float) * (static_cast<size_t>(G) * HD +
-                          static_cast<size_t>(G) * split +
-                          static_cast<size_t>(Tl::NRG) * kGChunk * HD);
+// heads of a row of the chunk's scores: G rounded up to whole float4s
+__host__ __device__ __forceinline__ int score_stride(int G) {
+  return (G + 3) / 4 * 4;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ lengths,
-                    int S, int KV, int G, int split, float scale,
-                    float* __restrict__ part_acc, float* __restrict__ part_m,
-                    float* __restrict__ part_l) {
+// Query heads accumulated at once in P . V: 4 when G <= 4 (fewer
+// registers), else 8; G > 8 streams V once a group.
+inline int head_group(int G) { return G <= 4 ? 4 : kGChunkMax; }
+
+// 128 bytes of alignment slack, the ring, the cross-warp reduction
+// [kWarps][GC][HD], q [G][HD] and the chunk's scores
+// [split][score_stride(G)] (f32), then the mbarriers full[kStages] and
+// empty[kStages]
+template <int HD>
+size_t smem_bytes(int G, int split) {
+  const size_t floats = static_cast<size_t>(kWarps) * head_group(G) * HD +
+                        static_cast<size_t>(G) * HD +
+                        static_cast<size_t>(score_stride(G)) * split;
+  return 128 + static_cast<size_t>(kStages) * kSubBytes +
+         (sizeof(float) * floats + 7) / 8 * 8 + 16 * kStages;
+}
+
+// One 16-byte vector of shared memory widened to f32.
+__device__ __forceinline__ void widen(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// q of heads gs .. gs + kGScore - 1 at this lane's dims d0.., zero past G
+template <int EPL>
+__device__ __forceinline__ void load_q(const float* q_s, int G, int gs,
+                                       int d0, int hd,
+                                       float (&qf)[kGScore][EPL]) {
+#pragma unroll
+  for (int gi = 0; gi < kGScore; ++gi) {
+    if (gs + gi < G) {
+      widen(q_s + (gs + gi) * hd + d0, qf[gi]);
+      if constexpr (EPL == 8) widen(q_s + (gs + gi) * hd + d0 + 4, qf[gi] + 4);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[gi][e] = 0.f;
+    }
+  }
+}
+
+// One step of the butterfly reduce-scatter over the lanes of a row group:
+// a lane holding C values keeps the half its partner at distance OFF
+// sends it (the upper half when its OFF bit is set, which advances `idx`,
+// the index of its first value), then recurses with OFF / 2; with one
+// value left the steps are plain sums, so LPR / NV lanes end with copies.
+template <int C, int OFF, int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane,
+                                               int& idx) {
+  if constexpr (OFF > 0) {
+    if constexpr (C > 1) {
+      const bool up = lane & OFF;
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) {
+        const float send = up ? v[i] : v[i + C / 2];
+        const float keep = up ? v[i + C / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      if (up) idx += C / 2;
+      reduce_scatter<C / 2, OFF / 2>(v, lane, idx);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      reduce_scatter<1, OFF / 2>(v, lane, idx);
+    }
+  }
+}
+
+// Sub-tile j of a block's sequence -- the K sub-tiles of the `live` rows,
+// then the V sub-tiles of the n_pv rows once for every group of GC
+// heads -- into ring stage j % kStages: one TMA load of TR cache rows
+// (rows past S come back zero; the rows of a last sub-tile past the live
+// ones arrive and go unused).
+__device__ __forceinline__ void issue_subtile(uint32_t ring, uint32_t full,
+                                              const CUtensorMap* kmap,
+                                              const CUtensorMap* vmap, int j,
+                                              int n_k, int n_v, int tr,
+                                              int start, int kv, int b) {
+  const int s = j % kStages;
+  const bool is_k = j < n_k;
+  const int r0 = (is_k ? j : (j - n_k) % n_v) * tr;
+  attn::mbar_expect_tx(full + 8 * s, kSubBytes);
+  attn::tma_load_4d(ring + s * kSubBytes, is_k ? kmap : vmap, full + 8 * s,
+                    0, kv, start + r0, b);
+}
+
+template <typename T, int HD, int GC>
+__global__ void __launch_bounds__(kThreads, 4)
+decode_attention_kernel(const T* __restrict__ q,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const int* __restrict__ lengths, int S, int KV, int G,
+                        int split, float scale, float* __restrict__ part_acc,
+                        float* __restrict__ part_m,
+                        float* __restrict__ part_l, int* __restrict__ counters,
+                        float* __restrict__ acc_out, float* __restrict__ m_out,
+                        float* __restrict__ l_out) {
   using Tl = Tile<T, HD>;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [G][HD]
-  float* p_s = q_s + G * HD;                     // [G][split]
-  float* red = p_s + G * split;                  // [NRG][kGChunk][HD]
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = attn::smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((raw + 127u) & ~127u) - raw);  // TMA: 128 B
+  float* red = reinterpret_cast<float*>(ring + kStages * kSubBytes);
+  float* q_s = red + kWarps * GC * HD;  // [G][HD]
+  float* p_s = q_s + G * HD;                 // [split][GP]
+  const int GP = score_stride(G);
+  const uint32_t ring_u32 = attn::smem_u32(ring);
+  const uint32_t full =
+      (attn::smem_u32(p_s + static_cast<size_t>(GP) * split) + 7u) & ~7u;
+  const uint32_t empty = full + 8 * kStages;
+  __shared__ int is_last;
 
   const int sp = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&kmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&vmap)) : "memory");
+  }
   int len = lengths[b];
   const bool none_live = len <= 0;  // every score masked: p = exp(0) = 1
   if (len > S) len = S;
   const int start = sp * split;
   const int n = min(split, S - start);
-  const size_t part = (static_cast<size_t>(b) * KV + kv) * gridDim.x + sp;
+  const size_t bk = static_cast<size_t>(b) * KV + kv;
+  const size_t part = bk * n_split + sp;
 
-  if (!none_live && start >= len) {  // nothing live in this chunk
-    for (int i = tid; i < G * HD; i += kThreads)
-      part_acc[part * G * HD + i] = 0.f;
-    for (int g = tid; g < G; g += kThreads) {
-      part_m[part * G + g] = kNegInf;
-      part_l[part * G + g] = 0.f;
+  if (none_live || start < len) {
+    const int live = none_live ? 0 : min(len - start, n);
+    // rows whose p can be nonzero: all n when nothing is live (p = 1), else
+    // the live ones (a masked row's p = exp(NEG_INF - m) is 0)
+    const int n_pv = none_live ? n : live;
+    const int n_k = (live + Tl::TR - 1) / Tl::TR;
+    const int n_v = (n_pv + Tl::TR - 1) / Tl::TR;
+    const int total = n_k + (G + GC - 1) / GC * n_v;
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        attn::mbar_init(full + 8 * s, 1);
+        attn::mbar_init(empty + 8 * s, kWarps);  // one arrival a warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    return;
+    const T* qb = q + bk * G * HD;
+    for (int i = tid; i < G * HD; i += kThreads) q_s[i] = attn::to_float(qb[i]);
+    __syncthreads();  // the barriers are set up and q is in shared memory
+    // the first loads after the barrier: the issue may wait for the copy
+    // engine while the whole grid's first loads queue, and no other warp
+    // should wait with it
+    if (tid == 0)
+      for (int j = 0; j < min(kStages, total); ++j)
+        issue_subtile(ring_u32, full, &kmap, &vmap, j, n_k, n_v, Tl::TR,
+                      start, kv, b);
+
+    const int rg = warp * Tl::RPW + lane / Tl::LPR;  // this lane's row group
+    const int d0 = (lane % Tl::LPR) * Tl::EPL;
+    float acc[GC][Tl::EPL];
+    for (int j = 0; j < total; ++j) {
+      const int s = j % kStages;
+      attn::mbar_wait(full + 8 * s, (j / kStages) & 1);
+      const T* tile = reinterpret_cast<const T*>(ring + s * kSubBytes);
+      if (j < n_k) {
+        // scores of the sub-tile's rows: row group rg holds rows
+        // rg + i NRG (i < RB); a lane's partial dot products of RB rows x
+        // kGScore heads are summed over the row group's LPR lanes by a
+        // butterfly reduce-scatter, every lane on every step
+        const int r0 = j * Tl::TR, rows = min(Tl::TR, live - r0);
+        float kf[Tl::RB][Tl::EPL];
+#pragma unroll
+        for (int i = 0; i < Tl::RB; ++i) {
+          if (rg + i * Tl::NRG < rows) {
+            widen(tile + (rg + i * Tl::NRG) * HD + d0, kf[i]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < Tl::EPL; ++e) kf[i][e] = 0.f;
+          }
+        }
+        for (int gs = 0; gs < G; gs += kGScore) {
+          float v[Tl::NV];
+          float qf[kGScore][Tl::EPL];
+          load_q<Tl::EPL>(q_s, G, gs, d0, HD, qf);
+#pragma unroll
+          for (int gi = 0; gi < kGScore; ++gi) {
+#pragma unroll
+            for (int i = 0; i < Tl::RB; ++i) {
+              float dot = 0.f;
+#pragma unroll
+              for (int e = 0; e < Tl::EPL; ++e)
+                dot = fmaf(qf[gi][e], kf[i][e], dot);
+              v[i * kGScore + gi] = dot;
+            }
+          }
+          int idx = 0;  // first of the values this lane ends up holding
+          reduce_scatter<Tl::NV, Tl::LPR / 2>(v, lane, idx);
+          constexpr int kHeld = Tl::NV >= Tl::LPR ? Tl::NV / Tl::LPR : 1;
+          constexpr int kCopies = Tl::NV >= Tl::LPR ? 1 : Tl::LPR / Tl::NV;
+          const bool writer = lane % kCopies == 0;  // one of equal copies
+#pragma unroll
+          for (int f = 0; f < kHeld; ++f) {
+            const int r = rg + (idx + f) / kGScore * Tl::NRG;
+            const int g = gs + (idx + f) % kGScore;
+            if (writer && r < rows && g < G)
+              p_s[(r0 + r) * GP + g] = v[f] * scale;
+          }
+        }
+      } else {
+        const int jv = j - n_k, g0 = jv / n_v * GC, jr = jv % n_v;
+        const int gn = min(GC, G - g0);
+        if (jv == 0) {
+          // the chunk's softmax statistics, one warp a query head
+          __syncthreads();  // every score of the chunk is in p_s
+          for (int g = warp; g < G; g += kWarps) {
+            float* pg = p_s + g;  // row r at pg[r * GP]
+            float m = kNegInf, l = 0.f;
+            if (none_live) {
+              for (int r = lane; r < n; r += 32) pg[r * GP] = 1.f;
+              l = static_cast<float>(n);
+            } else {
+              for (int r = lane; r < live; r += 32) m = fmaxf(m, pg[r * GP]);
+#pragma unroll
+              for (int off = 16; off > 0; off /= 2)
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+              for (int r = lane; r < live; r += 32) {
+                const float p = expf(pg[r * GP] - m);
+                pg[r * GP] = p;
+                l += p;
+              }
+#pragma unroll
+              for (int off = 16; off > 0; off /= 2)
+                l += __shfl_xor_sync(0xffffffffu, l, off);
+            }
+            if (lane == 0) {
+              part_m[part * G + g] = m;
+              part_l[part * G + g] = l;
+            }
+          }
+          __syncthreads();
+        }
+        if (jr == 0) {
+#pragma unroll
+          for (int g = 0; g < GC; ++g)
+#pragma unroll
+            for (int e = 0; e < Tl::EPL; ++e) acc[g][e] = 0.f;
+        }
+        // P . V over the sub-tile's rows: a row group's RB rows (unrolled,
+        // so loads can run ahead), p of 4 heads a float4
+        const int r0 = jr * Tl::TR, rows = min(Tl::TR, n_pv - r0);
+#pragma unroll
+        for (int i = 0; i < Tl::RB; ++i) {
+          const int r = rg + i * Tl::NRG;
+          if (r < rows) {
+            float vf[Tl::EPL];
+            widen(tile + r * HD + d0, vf);
+            const float4* pr =
+                reinterpret_cast<const float4*>(p_s + (r0 + r) * GP + g0);
+#pragma unroll
+            for (int h = 0; h < GC / 4; ++h) {
+              if (4 * h < gn) {
+                const float4 p4 = pr[h];
+                const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  if (4 * h + c < gn)
+#pragma unroll
+                    for (int e = 0; e < Tl::EPL; ++e)
+                      acc[4 * h + c][e] = fmaf(p[c], vf[e], acc[4 * h + c][e]);
+              }
+            }
+          }
+        }
+        if (jr == n_v - 1) {
+          // this head group's sums: the row groups of a warp by shuffles,
+          // the warps through shared memory, in a fixed order
+#pragma unroll
+          for (int g = 0; g < GC; ++g)
+#pragma unroll
+            for (int e = 0; e < Tl::EPL; ++e)
+#pragma unroll
+              for (int off = Tl::LPR; off < 32; off *= 2)
+                acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+          if (lane < Tl::LPR) {
+#pragma unroll
+            for (int g = 0; g < GC; ++g)
+              if (g < gn)
+#pragma unroll
+                for (int e = 0; e < Tl::EPL; ++e)
+                  red[(warp * GC + g) * HD + d0 + e] = acc[g][e];
+          }
+          __syncthreads();
+          for (int i = tid; i < gn * HD; i += kThreads) {
+            const int g = i / HD, d = i % HD;
+            float sum = 0.f;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w)
+              sum += red[(w * GC + g) * HD + d];
+            part_acc[(part * G + g0 + g) * HD + d] = sum;
+          }
+          __syncthreads();
+        }
+      }
+      // this warp is done with the stage; thread 0 refills it once all are
+      __syncwarp();
+      if (lane == 0) attn::mbar_arrive(empty + 8 * s);
+      if (tid == 0 && j + kStages < total) {
+        attn::mbar_wait(empty + 8 * s, (j / kStages) & 1);
+        issue_subtile(ring_u32, full, &kmap, &vmap, j + kStages, n_k, n_v,
+                      Tl::TR, start, kv, b);
+      }
+    }
   }
-  const int live = none_live ? 0 : min(len - start, n);
-  // rows whose p can be nonzero: all n when nothing is live (p = 1), else
-  // the live ones (a masked row's p = exp(NEG_INF - m) is 0)
-  const int n_pv = none_live ? n : live;
 
-  const T* qb = q + (static_cast<size_t>(b) * KV + kv) * G * HD;
-  for (int i = tid; i < G * HD; i += kThreads) q_s[i] = attn::to_float(qb[i]);
+  // the last block of this (b, kv) merges the chunks that wrote partials
+  __threadfence();
   __syncthreads();
-
-  // scores of the chunk: one row a row group, the lanes of a group holding
-  // EPL consecutive dims; every lane runs every iteration (the shuffles)
-  const size_t row_stride = static_cast<size_t>(KV) * HD;
-  const size_t base = static_cast<size_t>(b) * S * row_stride +
-                      static_cast<size_t>(kv) * HD;
-  const T* kb = kc + base;
-  const T* vb = vc + base;
-  const int rg = warp * Tl::RPW + lane / Tl::LPR;
-  const int d0 = (lane % Tl::LPR) * Tl::EPL;
-  for (int r0 = 0; r0 < n; r0 += Tl::NRG) {
-    const int r = r0 + rg;
-    float kf[Tl::EPL];
-    if (r < live) {  // a masked row's score is NEG_INF whatever k holds
-      const T* row = kb + static_cast<size_t>(start + r) * row_stride + d0;
-#pragma unroll
-      for (int e = 0; e < Tl::EPL; e += Tl::VEC) attn::load_vec(row + e, kf + e);
-    } else {
-#pragma unroll
-      for (int e = 0; e < Tl::EPL; ++e) kf[e] = 0.f;
-    }
-    for (int g = 0; g < G; ++g) {
-      const float* qg = q_s + g * HD + d0;
-      float acc = 0.f;
-#pragma unroll
-      for (int e = 0; e < Tl::EPL; ++e) acc = fmaf(qg[e], kf[e], acc);
-#pragma unroll
-      for (int off = Tl::LPR / 2; off > 0; off /= 2)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (r < n && lane % Tl::LPR == 0)
-        p_s[g * split + r] = r < live ? acc * scale : kNegInf;
-    }
-  }
+  if (tid == 0) is_last = atomicAdd(counters + bk, 1) == n_split - 1;
   __syncthreads();
-
-  // the chunk's softmax statistics, one warp a query head
-  for (int g = warp; g < G; g += kWarps) {
-    float* pg = p_s + g * split;
+  if (!is_last) return;
+  __threadfence();
+  // a thread merges 4 consecutive dims of one head, in chunk order, the
+  // loads of kMergeBatch chunks issued together
+  const int n_live = none_live ? n_split : (len + split - 1) / split;
+  const size_t first = bk * n_split;
+  for (int i = tid; i < G * HD / 4; i += kThreads) {
+    const int g = i / (HD / 4), d = i % (HD / 4) * 4;
     float m = kNegInf;
-    for (int r = lane; r < n; r += 32) m = fmaxf(m, pg[r]);
+    for (int c0 = 0; c0 < n_live; c0 += kMergeBatch) {
+      float mv[kMergeBatch];
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      for (int u = 0; u < kMergeBatch; ++u)
+        mv[u] = c0 + u < n_live ? __ldcg(part_m + (first + c0 + u) * G + g)
+                                : kNegInf;
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u) m = fmaxf(m, mv[u]);
+    }
     float l = 0.f;
-    for (int r = lane; r < n; r += 32) {
-      const float p = expf(pg[r] - m);
-      pg[r] = p;
-      l += p;
-    }
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < n_live; c0 += kMergeBatch) {
+      float mv[kMergeBatch], lv[kMergeBatch];
+      float4 av[kMergeBatch];
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) {
-      part_m[part * G + g] = m;
-      part_l[part * G + g] = l;
-    }
-  }
-  __syncthreads();
-
-  // P . V: each row group accumulates its rows, shared memory sums the
-  // groups in a fixed order
-  for (int g0 = 0; g0 < G; g0 += kGChunk) {
-    const int gn = min(kGChunk, G - g0);
-    float acc[kGChunk][Tl::EPL];
+      for (int u = 0; u < kMergeBatch; ++u) {
+        if (c0 + u < n_live) {
+          const size_t pc = (first + c0 + u) * G + g;
+          mv[u] = __ldcg(part_m + pc);
+          lv[u] = __ldcg(part_l + pc);
+          av[u] = __ldcg(
+              reinterpret_cast<const float4*>(part_acc + pc * HD + d));
+        }
+      }
 #pragma unroll
-    for (int g = 0; g < kGChunk; ++g)
-#pragma unroll
-      for (int e = 0; e < Tl::EPL; ++e) acc[g][e] = 0.f;
-    for (int r = rg; r < n_pv; r += Tl::NRG) {
-      float vf[Tl::EPL];
-      const T* row = vb + static_cast<size_t>(start + r) * row_stride + d0;
-#pragma unroll
-      for (int e = 0; e < Tl::EPL; e += Tl::VEC) attn::load_vec(row + e, vf + e);
-#pragma unroll
-      for (int g = 0; g < kGChunk; ++g) {
-        if (g < gn) {
-          const float p = p_s[(g0 + g) * split + r];
-#pragma unroll
-          for (int e = 0; e < Tl::EPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      for (int u = 0; u < kMergeBatch; ++u) {
+        if (c0 + u < n_live) {
+          const float w = expf(mv[u] - m);
+          l = fmaf(lv[u], w, l);
+          a.x = fmaf(av[u].x, w, a.x);
+          a.y = fmaf(av[u].y, w, a.y);
+          a.z = fmaf(av[u].z, w, a.z);
+          a.w = fmaf(av[u].w, w, a.w);
         }
       }
     }
-#pragma unroll
-    for (int g = 0; g < kGChunk; ++g)
-      if (g < gn)
-#pragma unroll
-        for (int e = 0; e < Tl::EPL; ++e)
-          red[(rg * kGChunk + g) * HD + d0 + e] = acc[g][e];
-    __syncthreads();
-    for (int i = tid; i < gn * HD; i += kThreads) {
-      const int g = i / HD, d = i % HD;
-      float s = 0.f;
-      for (int j = 0; j < Tl::NRG; ++j) s += red[(j * kGChunk + g) * HD + d];
-      part_acc[(part * G + g0 + g) * HD + d] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// The logsumexp merge of the chunks: one block a (b, kv).
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      int G, int HD, int n_split,
-                                      float* __restrict__ acc,
-                                      float* __restrict__ m_out,
-                                      float* __restrict__ l_out) {
-  const size_t bk = blockIdx.x;
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    float m = kNegInf;
-    for (int s = 0; s < n_split; ++s)
-      m = fmaxf(m, part_m[(bk * n_split + s) * G + g]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t ps = (bk * n_split + s) * G + g;
-      const float w = expf(part_m[ps] - m);
-      l = fmaf(part_l[ps], w, l);
-      a = fmaf(part_acc[ps * HD + d], w, a);
-    }
-    acc[(bk * G + g) * HD + d] = a;
+    *reinterpret_cast<float4*>(acc_out + (bk * G + g) * HD + d) = a;
     if (d == 0) {
       m_out[bk * G + g] = m;
       l_out[bk * G + g] = l;
     }
   }
+  if (tid == 0) counters[bk] = 0;  // ready for the next call
+}
+
+template <typename T, int HD, int GC>
+int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
+                  const int* lengths, int B, int S, int KV, int G, int split,
+                  float scale, float* part_acc, float* part_m, float* part_l,
+                  int* counters, float* acc, float* m, float* l,
+                  cudaStream_t stream) {
+  const int n_split = (S + split - 1) / split;
+  const size_t smem = smem_bytes<HD>(G, split);
+  auto kern = decode_attention_kernel<T, HD, GC>;
+  static size_t smem_set = 0;  // the largest size this kernel was allowed
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), km, vm, lengths, S, KV, G, split, scale,
+      part_acc, part_m, part_l, counters, acc, m, l);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            int B, int S, int KV, int G, int split, float* part_acc,
-           float* part_m, float* part_l, float* acc, float* m, float* l,
-           cudaStream_t stream) {
-  const int n_split = (S + split - 1) / split;
-  const size_t smem = split_smem_bytes<T, HD>(G, split);
-  auto kern = decode_split_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+           float* part_m, float* part_l, int* counters, float* acc, float* m,
+           float* l, cudaStream_t stream) {
+  using Tl = Tile<T, HD>;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(KV),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {HD * e, dims[1] * HD * e,
+                                 dims[2] * dims[1] * HD * e};
+  const cuuint32_t box[4] = {HD, 1, Tl::TR, 1};
+  const CUtensorMapDataType dt = sizeof(T) == 2
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap km, vm;
+  int err = attn::make_map(&km, dt, k, 4, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0)
+    err = attn::make_map(&vm, dt, v, 4, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  const size_t smem = smem_bytes<HD>(G, split);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, S, KV, G, split, scale, part_acc,
-      part_m, part_l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<B * KV, 256, 0, stream>>>(
-      part_acc, part_m, part_l, G, HD, n_split, acc, m, l);
-  return static_cast<int>(cudaGetLastError());
+  if (head_group(G) == 4)
+    return launch_kernel<T, HD, 4>(q, km, vm, lengths, B, S, KV, G, split,
+                                   scale, part_acc, part_m, part_l, counters,
+                                   acc, m, l, stream);
+  return launch_kernel<T, HD, kGChunkMax>(q, km, vm, lengths, B, S, KV, G,
+                                          split, scale, part_acc, part_m,
+                                          part_l, counters, acc, m, l,
+                                          stream);
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               const int* lengths, int B, int S, int KV, int G, int split,
-              float* pa, float* pm, float* pl, float* acc, float* m, float* l,
-              cudaStream_t st) {
+              float* pa, float* pm, float* pl, int* counters, float* acc,
+              float* m, float* l, cudaStream_t st) {
   if (hd == 64)
     return launch<T, 64>(q, k, v, lengths, B, S, KV, G, split, pa, pm, pl,
-                         acc, m, l, st);
+                         counters, acc, m, l, st);
   if (hd == 128)
     return launch<T, 128>(q, k, v, lengths, B, S, KV, G, split, pa, pm, pl,
-                          acc, m, l, st);
+                          counters, acc, m, l, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int HD>
+int occupancy(int G, int split) {
+  int blocks = 0;
+  const size_t smem = smem_bytes<HD>(G, split);
+  auto kern = head_group(G) == 4 ? decode_attention_kernel<T, HD, 4>
+                                 : decode_attention_kernel<T, HD, kGChunkMax>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        kThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -279,22 +569,38 @@ const char* attention_error_string(int err) {
 // q (B, KV, G, hd), k / v (B, S, KV, hd), all of `dtype` (0 f32, 1 bf16),
 // hd in {64, 128}, 1 <= G <= 32;
 // lengths (B,) int32 -> acc (B, KV, G, hd) f32, m and l (B, KV, G) f32.
-// Scratch: part_acc (B, KV, n_split, G, hd) f32 and part_m / part_l
-// (B, KV, n_split, G) f32 with n_split = ceil(S / split). Two launches on
-// `stream`, no synchronisation. Returns the first CUDA error (0 on success).
+// Workspace: part_acc (B, KV, n_split, G, hd) f32, part_m / part_l
+// (B, KV, n_split, G) f32 with n_split = ceil(S / split), and counters
+// (B, KV) int32, zero before the first call (each call leaves them zero).
+// One launch on `stream`, no synchronisation. Returns the first CUDA error
+// (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* lengths, int dtype, int B, int S,
                             int KV, int G, int hd, int split, float* part_acc,
-                            float* part_m, float* part_l, float* acc,
-                            float* m, float* l, void* stream_ptr) {
+                            float* part_m, float* part_l, int* counters,
+                            float* acc, float* m, float* l, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == attn::kBF16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, lengths, B, S, KV, G, split,
-                                    part_acc, part_m, part_l, acc, m, l, st);
+                                    part_acc, part_m, part_l, counters, acc,
+                                    m, l, st);
   if (dtype == attn::kF32)
     return launch_hd<float>(hd, q, k, v, lengths, B, S, KV, G, split,
-                            part_acc, part_m, part_l, acc, m, l, st);
+                            part_acc, part_m, part_l, counters, acc, m, l, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resident blocks an SM of the decode kernel at (dtype, hd, G, split), or
+// minus a CUDA error.
+int decode_attention_blocks_per_sm(int dtype, int hd, int G, int split) {
+  const bool bf = dtype == attn::kBF16;
+  if ((!bf && dtype != attn::kF32) || (hd != 64 && hd != 128))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf)
+    return hd == 64 ? occupancy<__nv_bfloat16, 64>(G, split)
+                    : occupancy<__nv_bfloat16, 128>(G, split);
+  return hd == 64 ? occupancy<float, 64>(G, split)
+                  : occupancy<float, 128>(G, split);
 }
 
 }  // extern "C"

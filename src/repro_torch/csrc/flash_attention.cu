@@ -15,27 +15,46 @@
 // S^2 pairs when causal. At the prefill shape (B 8, S 2048, KV 8, G 4,
 // hd 128, bf16, causal) that is 274.9 GFLOP, 0.278 ms at the card's
 // 989 TFLOP/s bf16 peak, against 335.5 MB of q, k, v and o (0.100 ms at
-// 3.35 TB/s): bound by operations.
+// 3.35 TB/s): bound by operations, and only wgmma reaches the tensor
+// cores' full rate.
 //
 // Design. The Pallas grid walks the kv blocks of a q block in sequence
-// with its accumulators in VMEM. Here one block of 128 threads owns a tile
-// of 64 rows, a row being a (query position, query head) pair of one
-// (b, kv): 64 / G positions times all G heads of that KV head, so every K
-// and V tile it loads serves the G heads at once. It loops over the 64-key
-// tiles up to the diagonal (skipping those above it), masks only where a
-// tile crosses the diagonal or the end of S, and keeps the row statistics
-// and the 64 x hd output accumulator in registers. Blocks run the heaviest
-// (last) causal q tiles first. Two bodies share that schedule:
-//  * bf16 with hd 64 or 128 (the served models): both products on the
-//    tensor cores as mma.sync m16n8k16 bf16 -> f32, one warp per 16 rows
-//    (flash_fwd_mma_kernel below);
-//  * f32 (hd 64 or 128): scalar f32 FMAs on the same rounded values, Q (and
-//    K) transposed, V and P in shared memory as f32, each thread a 4 x 8
+// with its accumulators in VMEM. Here one block owns a tile of 128 rows, a
+// row being a (query position, query head) pair of one (b, kv):
+// 128 / G positions times all G heads of that KV head (the rows in use are
+// (128 / G) * G when G does not divide 128), so every K and V tile it loads
+// serves the G heads at once. It walks the key tiles up to the diagonal
+// (skipping those above it), masks only where a tile crosses the diagonal
+// or the end of S, and runs the heaviest (last) causal q tiles first. Two
+// bodies share that schedule:
+//  * bf16, hd 64 or 128 (the served models): flash_fwd_wgmma_kernel, a
+//    warp-specialised block of three warpgroups. One producer thread
+//    issues TMA loads (cp.async.bulk.tensor) of Q once and of the K and V
+//    tiles into a ring in shared memory (3 stages of 64-key tiles), with
+//    full and empty mbarriers, 128-byte
+//    swizzled; q is a 5-D tensor map {hd, G, KV, S, B} and k / v 4-D maps
+//    {hd, KV, S, B}, so a ragged tile past S is zero-filled by the
+//    hardware and never reads the next sequence (hd 128 takes two 64-column
+//    boxes a row). Two consumer warpgroups own 64 rows each (setmaxnreg
+//    gives them the producer's registers): S = Q . K^T is wgmma m64nKNk16
+//    with both operands in shared memory (products of bf16 values are exact
+//    in f32, so the scores are the reference's f32 scores); the online
+//    softmax runs in registers in the log2 domain, scale * log2(e) folded
+//    into one multiply, exponentials on ex2.approx; P is rounded to bf16 in
+//    registers and O += P . V is wgmma with P from registers and V read in
+//    its natural [keys][hd] layout through the descriptor's transpose. A
+//    consumer issues S_t and P_{t-1} . V_{t-1} together and takes the
+//    softmax of S_t while the second product runs; a K stage is released
+//    when its S is done, a V stage when its product is. The two consumers
+//    take turns to issue (two named barriers: FA3's ping-pong), so one's
+//    softmax runs under the other's products.
+//  * f32 (hd 64 or 128): flash_fwd_kernel, scalar f32 FMAs on the same
+//    rounded values over 64-row tiles and 64-key tiles: Q (and K)
+//    transposed, V and P in shared memory as f32, each thread a 4 x 8
 //    block of scores and a 4 x (hd / 8) block of the output, read in
-//    16-byte vectors laid out so that a quarter warp hits distinct banks
-//    (flash_fwd_kernel). Q . K^T of f32 inputs cannot take bf16 operands.
-// Neither pipelines its loads (no cp.async / TMA ring) nor uses wgmma:
-// the staging and the Hopper-only instructions are a later redesign.
+//    16-byte vectors laid out so that a quarter warp hits distinct banks.
+//    Q . K^T of f32 inputs cannot take bf16 operands; it is off the served
+//    path.
 
 #include <cmath>
 
@@ -252,31 +271,96 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same tiles on the tensor cores
+// bf16 inputs: a TMA ring feeding wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kPad = 8;  // bf16 elements of padding a shared-memory row
+namespace tma {
 
-template <int HD>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         (static_cast<size_t>(kRows) * (HD + kPad) +    // Qs [rows][HD]
-          static_cast<size_t>(kKeys) * (HD + kPad) +    // Ks [keys][HD]
-          static_cast<size_t>(HD) * (kKeys + kPad));    // Vt [HD][keys]
+using attn::mbar_arrive;
+using attn::mbar_expect_tx;
+using attn::mbar_init;
+using attn::mbar_wait;
+using attn::smem_u32;
+using attn::tma_load_4d;
+using attn::tma_load_5d;
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kWgRows = 64;                        // rows a consumer: wgmma M
+constexpr int kTileRows = kConsumers * kWgRows;    // rows a block
+constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer warpgroup
+constexpr int kLine = 128;                         // bytes a swizzled line
+constexpr int kBox = kLine / 2;                    // bf16 columns a TMA box
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// Shared memory, each region 1024-byte aligned (the 128-byte swizzle's
+// period): Q [HD / 64][128 rows][64], the K ring and the V ring
+// [kStages][HD / 64][KN rows][64], then the mbarriers full_q,
+// full_k[kStages], full_v[kStages], empty_k[kStages], empty_v[kStages].
+template <int HD, int KN>
+struct Layout {
+  static constexpr int kStages = 3;                      // ring depth
+  static constexpr int kHalves = HD / kBox;              // boxes a row
+  static constexpr int kTileBytes = kHalves * KN * kLine;  // a K or V tile
+  static constexpr int kK = kHalves * kTileRows * kLine;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col): bf16 products, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// The consumers' ping-pong: named barrier 1 + w is consumer warpgroup w's
+// turn to issue its products; the other warpgroup arrives on it once it
+// has issued its own. So the two issue in alternation and one's softmax
+// runs while the other's products occupy the tensor cores.
+__device__ __forceinline__ void wait_turn(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x on the special-function unit, denormal results flushed to zero: a
+// masked score (NEG_INF - m) gives exactly 0, as exp2f does
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -284,208 +368,389 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// For bf16 inputs both products run as mma.sync m16n8k16 bf16 -> f32: the
-// products of bf16 values are exact in f32, so Q . K^T keeps the
-// reference's f32 scores, and P . V takes P rounded to bf16 (V is bf16
-// already) with f32 accumulation, as the reference kernel. Each of the 4
-// warps owns 16 of the block's 64 rows; Q's fragments stay in registers for
-// the whole loop, the scores' accumulator layout is reused as P's operand
-// layout (no shared-memory round trip for P), and V is stored transposed so
-// that its operand fragments are 32-bit loads. Rows of shared memory are
-// padded by 16 bytes so that a warp's fragment loads hit 32 distinct banks.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int KV, int G,
-                     int causal, float scale) {
-  constexpr int CH = HD / 8;       // 16-byte chunks a row
-  constexpr int KS = HD / 16;      // k-steps of Q . K^T
-  constexpr int NT = HD / 8;       // n-tiles of P . V
-  constexpr int QLD = HD + kPad, VLD = kKeys + kPad;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + kRows * QLD;
-  __nv_bfloat16* Vt = Ks + kKeys * QLD;
+// d (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64): both bf16 in shared
+// memory, K-major; ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const int BQ = kRows / G, R = BQ * G;
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16
+// in shared memory, MN-major: the descriptor's transpose of B)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16
+// in shared memory, MN-major: the descriptor's transpose of B)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+}  // namespace tma
+
+// S = Q . K^T of one key tile, issued (not waited for): Q's 64 rows of
+// this warpgroup and the tile's KN keys, k-steps of 16 columns, i.e.
+// 32 bytes into a swizzled line, the second 64 columns of hd 128 in the
+// second box of each.
+template <int HD, int KN>
+__device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
+                                             uint32_t q_rows, uint32_t kt) {
+  using namespace tma;
+  static_assert(KN == 64, "S = Q . K^T is issued as wgmma m64n64k16");
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    const uint64_t da = desc_sw128(q_rows + (ks / 4) * kTileRows * kLine + col,
+                                   16, 8 * kLine);
+    const uint64_t db =
+        desc_sw128(kt + (ks / 4) * KN * kLine + col, 16, 8 * kLine);
+    wgmma_ss_n64(sc, da, db, ks > 0);
+  }
+  tma::wgmma_commit();
+}
+
+// O += P . V of one key tile, issued: V [keys][hd] is B in MN-major form,
+// a k-step being 16 key lines (2 KB), the two 64-column halves of hd 128
+// one tile apart (the leading byte offset).
+template <int HD, int KN>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
+                                         const uint32_t (&pa)[KN / 16][4],
+                                         uint32_t vt) {
+  using namespace tma;
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk)
+    wgmma_rs<HD>(acc, pa[kk],
+                 desc_sw128(vt + kk * 16 * kLine, KN * kLine, 8 * kLine));
+  tma::wgmma_commit();
+}
+
+// The online softmax of one key tile k0.. in the log2 domain: the raw
+// scores masked only on an edge tile, the rows' max over the quad of lanes
+// that holds a row, scaled by c = scale * log2(e) into the running max m;
+// sc replaced by p = exp2(s c - m) (one FFMA and ex2.approx), l = l * alpha
+// + (this thread's sum of the unrounded p; the quad's sum is taken at the
+// end); returns the alphas. A row's first tile always holds a live key
+// (key 0), so a masked score's p is exp2(-huge) = 0.
+template <int KN>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[KN / 2], int k0, bool edge, int S, int causal, int pos0,
+    int pos1, int tig, float scale_log2, float& m0, float& m1, float& l0,
+    float& l1, float& al0, float& al1) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < KN / 2; ++j) {
+    if (edge) {
+      const int c = k0 + (j / 4) * 8 + tig * 2 + (j & 1);
+      if (c >= S || (causal && c > ((j & 2) ? pos1 : pos0))) sc[j] = kNegInf;
+    }
+    if (j & 2) mx1 = fmaxf(mx1, sc[j]); else mx0 = fmaxf(mx0, sc[j]);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  al0 = tma::fast_exp2(m0 - mn0);
+  al1 = tma::fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KN / 2; ++j) {
+    const float p =
+        tma::fast_exp2(fmaf(sc[j], scale_log2, (j & 2) ? -mn1 : -mn0));
+    if (j & 2) sum1 += p; else sum0 += p;
+    sc[j] = p;
+  }
+  l0 = l0 * al0 + sum0;
+  l1 = l1 * al1 + sum1;
+}
+
+// P rounded to bf16 (RNE) as wgmma's A fragments: the score accumulator's
+// layout is the A operand's layout, 16 keys a k-step.
+template <int KN>
+__device__ __forceinline__ void pack_p(const float (&sc)[KN / 2],
+                                       uint32_t (&pa)[KN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk) {
+    pa[kk][0] = tma::pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = tma::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = tma::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = tma::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One block: 128 rows (position, head) of one (b, kv), three warpgroups.
+// Warpgroup 2 is the producer (one thread issues every TMA load);
+// warpgroups 0 and 1 are the consumers, 64 rows each. A consumer thread
+// holds rows r0 = 64 wg + 16 warp + lane / 4 and r1 = r0 + 8: the wgmma
+// accumulator layout, element j of a row's accumulators being column
+// 8 (j / 4) + 2 (lane % 4) + (j % 2) of row (j & 2 ? r1 : r0). A consumer
+// pipelines its tiles: it issues S_t = Q . K_t^T and O += P_{t-1} . V_{t-1}
+// together, takes the softmax of S_t while the second product runs, then
+// rescales O and packs P_t; K_t's stage is released as soon as S_t is
+// done, V_{t-1}'s when its product is.
+template <int HD, int KN>
+__global__ void __launch_bounds__(tma::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ o, int S, int KV, int G,
+                       int causal, float scale_log2) {
+  using namespace tma;
+  using Lt = Layout<HD, KN>;
+  constexpr int NS = Lt::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + Lt::kK, sv = sq + Lt::kV;
+  const uint32_t full_q = sq + Lt::kBars;
+  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * NS;
+  const uint32_t empty_k = full_v + 8 * NS, empty_v = empty_k + 8 * NS;
+
+  const int BQ = kTileRows / G, R = BQ * G;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int kv = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
+  const int p_last = min(S, q0 + BQ) - 1;  // last live position of the tile
+  const int n_tiles = causal ? p_last / KN + 1 : (S + KN - 1) / KN;
+  const int wg = threadIdx.x / 128;
 
-  const size_t q_row = static_cast<size_t>(KV) * G * HD;
-  const size_t k_row = static_cast<size_t>(KV) * HD;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * S * q_row +
-                            static_cast<size_t>(kv) * G * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * k_row +
-                            static_cast<size_t>(kv) * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * k_row +
-                            static_cast<size_t>(kv) * HD;
-
-  for (int idx = tid; idx < kRows * CH; idx += kThreads) {
-    const int r = idx / CH, ch = idx % CH;
-    const int p = r / G, g = r % G;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R && q0 + p < S)
-      x = __ldg(reinterpret_cast<const uint4*>(
-          qb + static_cast<size_t>(q0 + p) * q_row + g * HD + ch * 8));
-    *reinterpret_cast<uint4*>(Qs + r * QLD + ch * 8) = x;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, kConsumers * 4);  // one arrival a warp
+      mbar_init(empty_v + 8 * s, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int r0 = warp * 16 + gid, r1 = r0 + 8;  // this thread's two rows
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qa[ks][0] = ld32(Qs + r0 * QLD + c);
-    qa[ks][1] = ld32(Qs + r1 * QLD + c);
-    qa[ks][2] = ld32(Qs + r0 * QLD + c + 8);
-    qa[ks][3] = ld32(Qs + r1 * QLD + c + 8);
-  }
-  const int pos0 = q0 + r0 / G, pos1 = q0 + r1 / G;
 
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float acc[NT][4];
+  if (wg == kConsumers) {
+    // ---- producer: Q once, then K and V tiles through the ring ----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(full_q, Lt::kHalves * R * kLine);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+      for (int h = 0; h < Lt::kHalves; ++h)
+        tma_load_5d(sq + h * kTileRows * kLine, &qmap, full_q, h * kBox, 0,
+                    kv, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % NS;
+        // the consumers released this stage's previous K (then V) tile
+        const uint32_t parity = (t / NS - 1) & 1;
+        const uint32_t kt = sk + s * Lt::kTileBytes;
+        const uint32_t vt = sv + s * Lt::kTileBytes;
+        if (t >= NS) mbar_wait(empty_k + 8 * s, parity);
+        mbar_expect_tx(full_k + 8 * s, Lt::kTileBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  const int p_last = min(S, q0 + BQ) - 1;
-  const int n_tiles = causal ? p_last / kKeys + 1 : (S + kKeys - 1) / kKeys;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kKeys;
-    __syncthreads();  // the previous tile's Ks and Vt are consumed
-    for (int idx = tid; idx < kKeys * CH; idx += kThreads) {
-      const int c = idx / CH, ch = idx % CH;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + c < S)
-        x = __ldg(reinterpret_cast<const uint4*>(
-            kb + static_cast<size_t>(k0 + c) * k_row + ch * 8));
-      *reinterpret_cast<uint4*>(Ks + c * QLD + ch * 8) = x;
-    }
-    for (int idx = tid; idx < kKeys * CH; idx += kThreads) {
-      const int c = idx % kKeys, ch = idx / kKeys;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + c < S)
-        x = __ldg(reinterpret_cast<const uint4*>(
-            vb + static_cast<size_t>(k0 + c) * k_row + ch * 8));
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&x);
+        for (int h = 0; h < Lt::kHalves; ++h)
+          tma_load_4d(kt + h * KN * kLine, &kmap, full_k + 8 * s, h * kBox,
+                      kv, t * KN, b);
+        if (t >= NS) mbar_wait(empty_v + 8 * s, parity);
+        mbar_expect_tx(full_v + 8 * s, Lt::kTileBytes);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(ch * 8 + e) * VLD + c] = xe[e];
-    }
-    __syncthreads();
-
-    // scores: 8 n-tiles of 8 keys, rows r0 (s[j][0..1]) and r1 (s[j][2..3])
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* kr = Ks + (j * 8 + gid) * QLD + ks * 16 + tig * 2;
-        mma_bf16(s[j], qa[ks], ld32(kr), ld32(kr + 8));
-      }
-
-    const bool edge = k0 + kKeys > S || (causal && k0 + kKeys - 1 > q0);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = k0 + j * 8 + tig * 2 + (e & 1);
-        const int pos = e < 2 ? pos0 : pos1;
-        float x = s[j][e] * scale;
-        if (edge && (c >= S || (causal && c > pos))) x = kNegInf;
-        s[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m_r[0], mx0), mn1 = fmaxf(m_r[1], mx1);
-    const float al0 = expf(m_r[0] - mn0), al1 = expf(m_r[1] - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - (e < 2 ? mn0 : mn1));
-        if (e < 2) sum0 += p; else sum1 += p;
-        s[j][e] = p;
-      }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    l_r[0] = l_r[0] * al0 + sum0;
-    l_r[1] = l_r[1] * al1 + sum1;
-    m_r[0] = mn0;
-    m_r[1] = mn1;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[nt][0] *= al0;
-      acc[nt][1] *= al0;
-      acc[nt][2] *= al1;
-      acc[nt][3] *= al1;
-    }
-
-    // P . V: the scores' accumulators become P's operand fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* vr = Vt + (nt * 8 + gid) * VLD + kk * 16 + tig * 2;
-        mma_bf16(acc[nt], pa, ld32(vr), ld32(vr + 8));
+        for (int h = 0; h < Lt::kHalves; ++h)
+          tma_load_4d(vt + h * KN * kLine, &vmap, full_v + 8 * s, h * kBox,
+                      kv, t * KN, b);
       }
     }
-  }
+  } else {
+    // ---- consumers: 64 rows each ----------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int tig = lane % 4;
+    const int r0 = wg * kWgRows + warp * 16 + lane / 4, r1 = r0 + 8;
+    const int pos0 = q0 + r0 / G, pos1 = q0 + r1 / G;
+    const uint32_t q_rows = sq + wg * kWgRows * kLine;  // this group's Q
+    float acc[HD / 2], sc[KN / 2];
+    uint32_t pa[KN / 16][4];
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, al0, al1;
 
-  // o = acc / max(l, 1e-30), rows in use and positions inside S only
+    // tile 0: its scores and softmax (O is zero: nothing to rescale);
+    // warpgroup 0 takes the first turn
+    if (wg == 1) pass_turn(wg);
+    mbar_wait(full_q, 0);
+    mbar_wait(full_k, 0);
+    wait_turn(wg);
+    wgmma_fence();
+    issue_scores<HD, KN>(sc, q_rows, sk);
+    pass_turn(wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(empty_k);
+    online_softmax<KN>(sc, 0, KN > S || (causal && KN - 1 > q0), S, causal,
+                       pos0, pos1, tig, scale_log2, m0, m1, l0, l1, al0, al1);
+    pack_p<KN>(sc, pa);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % NS, sp = (t - 1) % NS;
+      const int k0 = t * KN;
+      mbar_wait(full_k + 8 * s, (t / NS) & 1);
+      mbar_wait(full_v + 8 * sp, ((t - 1) / NS) & 1);
+      wait_turn(wg);
+      wgmma_fence();
+      issue_scores<HD, KN>(sc, q_rows, sk + s * Lt::kTileBytes);
+      issue_pv<HD, KN>(acc, pa, sv + sp * Lt::kTileBytes);
+      pass_turn(wg);
+      wgmma_wait<1>();  // S_t is done, P_{t-1} . V_{t-1} may still run
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+      online_softmax<KN>(sc, k0, k0 + KN > S || (causal && k0 + KN - 1 > q0),
+                         S, causal, pos0, pos1, tig, scale_log2, m0, m1, l0,
+                         l1, al0, al1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty_v + 8 * sp);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = h ? r1 : r0;
-    const int p = r / G, g = r % G;
-    if (r >= R || q0 + p >= S) continue;
-    const float den = fmaxf(l_r[h], 1e-30f);
-    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * S + q0 + p) * q_row +
-                          static_cast<size_t>(kv) * G * HD + g * HD;
+      for (int j = 0; j < HD / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
+      pack_p<KN>(sc, pa);
+    }
+    const int sl = (n_tiles - 1) % NS;
+    mbar_wait(full_v + 8 * sl, ((n_tiles - 1) / NS) & 1);
+    fence_regs(acc);
+    wait_turn(wg);
+    wgmma_fence();
+    issue_pv<HD, KN>(acc, pa, sv + sl * Lt::kTileBytes);
+    if (wg == 0) pass_turn(wg);  // the turns balance: n_tiles + 1 each
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+
+    // o = acc / max(l, 1e-30), rows in use and positions inside S only
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat162 y = __floats2bfloat162_rn(acc[nt][2 * h] / den,
-                                                     acc[nt][2 * h + 1] / den);
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + tig * 2) = y;
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      const int p = r / G, g = r % G;
+      if (r >= R || q0 + p >= S) continue;
+      const float den = fmaxf(h ? l1 : l0, 1e-30f);
+      __nv_bfloat16* orow =
+          o + ((static_cast<size_t>(b) * S + q0 + p) * KV + kv) * G * HD +
+          static_cast<size_t>(g) * HD;
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) {
+        const __nv_bfloat162 y = __floats2bfloat162_rn(
+            acc[4 * nb + 2 * h] / den, acc[4 * nb + 2 * h + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) = y;
+      }
     }
   }
 }
 
-template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int KV, int G, int causal, cudaStream_t stream) {
-  const int BQ = kRows / G;
+template <int HD, int KN>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int KV, int G, int causal, cudaStream_t stream) {
+  using Lt = tma::Layout<HD, KN>;
+  const int BQ = tma::kTileRows / G;
   const int n_qt = (S + BQ - 1) / BQ;
-  constexpr size_t smem = mma_smem_bytes<HD>();
-  auto kern = flash_fwd_mma_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kern<<<dim3(n_qt, KV, B), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      KV, G, causal, scale);
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t qdims[5] = {HD, static_cast<cuuint64_t>(G),
+                               static_cast<cuuint64_t>(KV),
+                               static_cast<cuuint64_t>(S),
+                               static_cast<cuuint64_t>(B)};
+  const cuuint64_t qstrides[4] = {HD * e, qdims[1] * HD * e,
+                                  qdims[2] * qdims[1] * HD * e,
+                                  qdims[3] * qdims[2] * qdims[1] * HD * e};
+  const cuuint32_t qbox[5] = {tma::kBox, static_cast<cuuint32_t>(G), 1,
+                              static_cast<cuuint32_t>(BQ), 1};
+  const cuuint64_t kdims[4] = {HD, static_cast<cuuint64_t>(KV),
+                               static_cast<cuuint64_t>(S),
+                               static_cast<cuuint64_t>(B)};
+  const cuuint64_t kvstrides[3] = {HD * e, kdims[1] * HD * e,
+                                   kdims[2] * kdims[1] * HD * e};
+  const cuuint32_t kbox[4] = {tma::kBox, 1, KN, 1};
+  CUtensorMap qm, km, vm;
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int err = attn::make_map(&qm, kBf16, q, 5, qdims, qstrides, qbox, kSw);
+  if (err == 0)
+    err = attn::make_map(&km, kBf16, k, 4, kdims, kvstrides, kbox, kSw);
+  if (err == 0)
+    err = attn::make_map(&vm, kBf16, v, 4, kdims, kvstrides, kbox, kSw);
+  if (err != 0) return err;
+  auto kern = flash_fwd_wgmma_kernel<HD, KN>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::kSmem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const float scale_log2 = static_cast<float>(
+      1.4426950408889634 / sqrt(static_cast<double>(HD)));
+  kern<<<dim3(n_qt, KV, B), tma::kThreads, Lt::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, KV, G, causal,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,8 +776,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 extern "C" {
 
+// Keys a tile of the bf16 kernel: 64 measured faster than 128 at the
+// prefill shape (at 128 the consumers' accumulators outgrow their registers
+// and ptxas serializes the wgmmas).
+constexpr int kKeyTile = 64;
+
 // q (B, S, KV, G, hd), k / v (B, S, KV, hd) -> o (B, S, KV, G, hd), all of
-// `dtype` (0 f32: the scalar kernel, 1 bf16: the tensor-core kernel), hd in
+// `dtype` (0 f32: the scalar kernel, 1 bf16: the TMA + wgmma kernel), hd in
 // {64, 128}, 1 <= G <= 64. One launch on `stream`, no synchronisation.
 // Returns the first CUDA error (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -523,9 +793,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if ((!bf && dtype != attn::kF32) || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return bf ? launch_mma<64>(q, k, v, o, B, S, KV, G, causal, st)
+    return bf ? launch_wgmma<64, kKeyTile>(q, k, v, o, B, S, KV, G, causal, st)
               : launch<float, 64>(q, k, v, o, B, S, KV, G, causal, st);
-  return bf ? launch_mma<128>(q, k, v, o, B, S, KV, G, causal, st)
+  return bf ? launch_wgmma<128, kKeyTile>(q, k, v, o, B, S, KV, G, causal, st)
             : launch<float, 128>(q, k, v, o, B, S, KV, G, causal, st);
 }
 

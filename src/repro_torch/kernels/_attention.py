@@ -44,8 +44,10 @@ def load():
                                                i, p]
         lib.flash_attention_launch.restype = i
         lib.decode_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                i, p, p, p, p, p, p, p]
+                                                i, p, p, p, p, p, p, p, p]
         lib.decode_attention_launch.restype = i
+        lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, i]
+        lib.decode_attention_blocks_per_sm.restype = i
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -59,6 +61,15 @@ def check_rc(lib, rc: int, what: str) -> None:
                            + lib.attention_error_string(rc).decode())
 
 
+#: the current stream's raw handle without a Stream object (Triton's
+#: launcher reads it the same way); the public call where torch lacks it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    """The raw handle of ``device``'s current stream."""
+    if _raw_stream is not None:
+        index = device.index
+        return _raw_stream(torch.cuda.current_device() if index is None
+                           else index)
+    return torch.cuda.current_stream(device).cuda_stream

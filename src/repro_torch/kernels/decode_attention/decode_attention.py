@@ -1,16 +1,21 @@
-"""Flash-decode on the card: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Flash-decode on the card: the CUDA kernel's wrapper, its plain PyTorch
+version and an emulator of the kernel's schedule.
 
 `decode_attention_cuda` launches ``csrc/decode_attention.cu``, the Hopper
 port of the Pallas kernel ``decode_attention_pallas``
 (``src/repro/kernels/decode_attention/decode_attention.py:77``): a split-K
-flash-decode, one block per (S chunk, kv head, sequence), whose partial
-(acc, m, l) a second launch merges by the logsumexp rule. Decode is bound by
-the bytes of the live K and V rows (the source states the bound and the
-design). `decode_attention_plain` computes the same un-normalised triple in
-plain PyTorch, all in f32; it is the CPU path and the kernel's on-card
-reference. The Pallas kernel's (B, KV, G, 128) lane-uniform m and l are
-(B, KV, G, 1) here: the lanes were a TPU artefact.
+flash-decode in ONE launch, one block per (S chunk, kv head, sequence)
+streaming its K and V rows through a ring of TMA tile loads, the last block
+of each (b, kv) merging the chunks' partial (acc, m, l) by the logsumexp
+rule.
+Decode is bound by the bytes of the live K and V rows (the source states
+the bound and the design). `decode_attention_plain` computes the same
+un-normalised triple in plain PyTorch, all in f32; it is the CPU path and
+the kernel's on-card reference. `decode_attention_tiled` replays the
+kernel's own schedule (the split into chunks, dead chunks skipped, the
+merge in chunk order) so that the CPU tests check its algorithm. The
+Pallas kernel's (B, KV, G, 128) lane-uniform m and l are (B, KV, G, 1)
+here: the lanes were a TPU artefact.
 """
 from __future__ import annotations
 
@@ -19,10 +24,35 @@ import torch
 from repro_torch.kernels import _attention, _nvcc
 from repro_torch.kernels.decode_attention.ref import NEG_INF
 
-#: positions a split block covers (576 blocks at B 8, KV 8, S 2064)
-SPLIT = 256
 #: kernel launches through `decode_attention_cuda` (the main-path audit)
 LAUNCHES = 0
+#: resident blocks of the kernel an SM at the served shapes (4 at bf16,
+#: hd 128, G 4: 47.8 KB of shared memory and 116 registers a thread); sizes
+#: the split
+BLOCKS_PER_SM = 4
+#: rows of the smallest chunk, and of the kernel's sub-tile (8 KB of bf16
+#: hd-128 rows), to which a chunk is rounded up
+MIN_SPLIT, SPLIT_ROUND = 64, 32
+#: f32 scores a block keeps in shared memory (G x split)
+MAX_SCORES = 8192
+
+_SM_COUNT: dict = {}
+#: the kernel's workspace by (device, B, KV, n_split, G, hd): partials and
+#: counters, allocated once (see `decode_attention_cuda`)
+_WORKSPACE: dict = {}
+#: a shape's launch plan by (device, dtype, B, S, KV, G, hd): its dtype
+#: code, split and workspace pointers, checked and sized on first use
+_PLANS: dict = {}
+
+
+def split_for(B: int, KV: int, G: int, S: int, n_sm: int) -> int:
+    """Positions a block covers: enough chunks that B * KV * chunks fill the
+    card's resident blocks about once, rounded up to whole sub-tiles, no
+    chunk under MIN_SPLIT rows and no chunk's scores past MAX_SCORES."""
+    n_chunks = max(1, n_sm * BLOCKS_PER_SM // (B * KV))
+    split = -(-S // n_chunks)
+    split = -(-split // SPLIT_ROUND) * SPLIT_ROUND
+    return min(max(split, MIN_SPLIT), max(MIN_SPLIT, MAX_SCORES // G))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths):
@@ -45,13 +75,110 @@ def decode_attention_plain(q, k_cache, v_cache, lengths):
     return acc, m, l
 
 
+def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int):
+    """The kernel's schedule in plain PyTorch, same contract as
+    `decode_attention_plain`: S cut in chunks of ``split`` positions; a
+    chunk that starts at or past lengths[b] > 0 is skipped; a live chunk
+    takes (acc, m, l) over its live rows (every row, with p = 1, when
+    lengths[b] <= 0); the chunks merge in order by m* = max m_i,
+    w_i = exp(m_i - m*), l* = sum w_i l_i, acc* = sum w_i acc_i."""
+    B, KV, G, hd = q.shape
+    S = k_cache.shape[1]
+    scale = 1.0 / (hd ** 0.5)
+    qf = q.float()
+    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    m_out = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
+    l_out = torch.empty_like(m_out)
+    for b in range(B):
+        length = int(lengths[b])
+        none_live, length = length <= 0, min(length, S)
+        parts = []
+        for start in range(0, S, split):
+            n = min(split, S - start)
+            if not none_live and start >= length:
+                continue
+            if none_live:
+                p = torch.ones((KV, G, n), dtype=torch.float32,
+                               device=q.device)
+                m = torch.full((KV, G, 1), NEG_INF, dtype=torch.float32,
+                               device=q.device)
+            else:
+                n = min(length - start, n)
+                s = torch.einsum("kgh,skh->kgs", qf[b],
+                                 k_cache[b, start:start + n].float()) * scale
+                m = s.amax(dim=-1, keepdim=True)
+                p = torch.exp(s - m)
+            parts.append((torch.einsum("kgs,skh->kgh", p,
+                                       v_cache[b, start:start + n].float()),
+                          m, p.sum(dim=-1, keepdim=True)))
+        m = torch.stack([part[1] for part in parts]).amax(dim=0)
+        a = torch.zeros((KV, G, hd), dtype=torch.float32, device=q.device)
+        l = torch.zeros((KV, G, 1), dtype=torch.float32, device=q.device)
+        for acc_i, m_i, l_i in parts:
+            w = torch.exp(m_i - m)
+            l = l + l_i * w
+            a = a + acc_i * w
+        acc[b], m_out[b], l_out[b] = a, m, l
+    return acc, m_out, l_out
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def _workspace(dev, B, KV, n_split, G, hd):
+    key = (dev, B, KV, n_split, G, hd)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        f32 = dict(dtype=torch.float32, device=dev)
+        ws = (torch.empty((B, KV, n_split, G, hd), **f32),
+              torch.empty((B, KV, n_split, G), **f32),
+              torch.empty((B, KV, n_split, G), **f32),
+              torch.zeros((B, KV), dtype=torch.int32, device=dev))
+        _WORKSPACE[key] = ws
+    return ws
+
+
+def workspace_bytes() -> int:
+    """Device bytes the kernel's workspaces hold, all keys together."""
+    return sum(t.numel() * t.element_size()
+               for ws in _WORKSPACE.values() for t in ws)
+
+
+def _plan(dev, dt, B, S, KV, G, hd):
+    """Validate a shape the kernel takes and size its launch: (dtype code,
+    split, workspace pointers (part_acc, part_m, part_l, counters), the
+    workspace itself, which the plan keeps alive)."""
+    if dt not in _attention.DTYPES:
+        raise ValueError(f"decode_attention_cuda takes float32 or bfloat16, "
+                         f"got {dt}")
+    if hd not in (64, 128):
+        raise ValueError(f"head_dim {hd} not in (64, 128): the kernel is "
+                         "built for the served models' head dims")
+    if not 1 <= G <= 32 or min(B, S, KV) < 1:
+        raise ValueError(f"decode_attention_cuda needs 1 <= G <= 32 and B, "
+                         f"S, KV >= 1, got B={B} S={S} KV={KV} G={G}")
+    if B * S * KV * hd >= 1 << 62 or KV > 65535 or B > 65535:
+        raise ValueError("shapes past the kernel's grid or index range")
+    split = split_for(B, KV, G, S, _sm_count(dev))
+    ws = _workspace(dev, B, KV, -(-S // split), G, hd)
+    return (_attention.DTYPES[dt], split, tuple(t.data_ptr() for t in ws), ws)
+
+
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
-    """Launch the split-K kernel and its merge on the current stream (no
-    sync). q (B, KV, G, hd), k_cache / v_cache (B, S, KV, hd), all f32 or
-    all bf16, hd in {64, 128}, 1 <= G <= 32; lengths (B,) int32;
-    all contiguous on one CUDA device. Returns the merged UN-normalised
-    (acc (B, KV, G, hd), m (B, KV, G, 1), l (B, KV, G, 1)), f32. Raises on
-    any input it cannot take."""
+    """Launch the kernel on the current stream (no sync): one launch, which
+    also merges the chunks. q (B, KV, G, hd), k_cache / v_cache
+    (B, S, KV, hd), all f32 or all bf16, hd in {64, 128}, 1 <= G <= 32;
+    lengths (B,) int32; all contiguous on one CUDA device. Returns the
+    merged UN-normalised (acc (B, KV, G, hd), m (B, KV, G, 1),
+    l (B, KV, G, 1)), f32: views of the one buffer a call allocates. The
+    partials and the merge counters live in a workspace kept per (device,
+    B, KV, n_split, G, hd) and allocated once; it assumes ONE stream: two
+    calls of the same shape in flight on two streams at once would share
+    it. Raises on any input it cannot take."""
     global LAUNCHES
     dev = q.device
     if dev.type != "cuda":
@@ -62,36 +189,39 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     B, KV, G, hd = q.shape
     S = k_cache.shape[1]
     dt = q.dtype
-    if dt not in _attention.DTYPES:
-        raise ValueError(f"decode_attention_cuda takes float32 or bfloat16, "
-                         f"got {dt}")
-    _nvcc.check_tensor("q", q, dt, (B, KV, G, hd), dev)
-    _nvcc.check_tensor("k_cache", k_cache, dt, (B, S, KV, hd), dev)
-    _nvcc.check_tensor("v_cache", v_cache, dt, (B, S, KV, hd), dev)
-    _nvcc.check_tensor("lengths", lengths, torch.int32, (B,), dev)
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not in (64, 128): the kernel is "
-                         "built for the served models' head dims")
-    if not 1 <= G <= 32 or min(B, S, KV) < 1:
-        raise ValueError(f"decode_attention_cuda needs 1 <= G <= 32 and B, "
-                         f"S, KV >= 1, got B={B} S={S} KV={KV} G={G}")
-    if B * S * KV * hd >= 1 << 62 or KV > 65535 or B > 65535:
-        raise ValueError("shapes past the kernel's grid or index range")
+    key = (dev, dt, B, S, KV, G, hd)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _plan(dev, dt, B, S, KV, G, hd)
+    code, split, ws, _ = plan
+    # device, dtype, shape, contiguity and alignment of each argument, each
+    # pointer read once (the host paces a decode call as much as the card);
+    # check_tensor names the fault
+    kv_shape = (B, S, KV, hd)
+    ptrs = []
+    for name, t, dtype, shape in (("q", q, dt, q.shape),
+                                  ("k_cache", k_cache, dt, kv_shape),
+                                  ("v_cache", v_cache, dt, kv_shape),
+                                  ("lengths", lengths, torch.int32, (B,))):
+        ptr = t.data_ptr()
+        if (t.device != dev or t.dtype != dtype or t.shape != shape
+                or ptr % 16 or not t.is_contiguous()):
+            _nvcc.check_tensor(name, t, dtype, shape, dev)
+        ptrs.append(ptr)
     lib = _attention.load()
-    n_split = -(-S // SPLIT)
-    f32 = dict(dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, KV, n_split, G, hd), **f32)
-    part_m = torch.empty((B, KV, n_split, G), **f32)
-    part_l = torch.empty((B, KV, n_split, G), **f32)
-    acc = torch.empty((B, KV, G, hd), **f32)
-    m = torch.empty((B, KV, G, 1), **f32)
-    l = torch.empty((B, KV, G, 1), **f32)
+    n_acc, n_ml = B * KV * G * hd, B * KV * G
+    out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=dev)
+    p_out = out.data_ptr()
     rc = lib.decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), _attention.DTYPES[dt], B, S, KV, G, hd, SPLIT,
-        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), _attention.stream_of(dev))
-    _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} KV={KV} "
-                                 f"G={G} hd={hd} {dt})")
+        *ptrs, code, B, S, KV, G, hd, split, *ws, p_out, p_out + 4 * n_acc,
+        p_out + 4 * (n_acc + n_ml), _attention.stream_of(dev))
+    if rc:
+        _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} "
+                                     f"KV={KV} G={G} hd={hd} {dt})")
     LAUNCHES += 1
-    return acc, m, l
+    # acc, m and l as views of the one buffer (as_strided: the cheapest
+    # view on the host, which paces a decode call as much as the card)
+    ml = (KV * G, G, 1, 1)
+    return (out.as_strided((B, KV, G, hd), (KV * G * hd, G * hd, hd, 1)),
+            out.as_strided((B, KV, G, 1), ml, n_acc),
+            out.as_strided((B, KV, G, 1), ml, n_acc + n_ml))

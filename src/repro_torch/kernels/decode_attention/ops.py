@@ -18,8 +18,8 @@ def decode_attention(q, k_cache, v_cache, lengths, n_kv: int,
     """q: (B, H, hd); caches (B, S, KV, hd); lengths (B,) int32 ->
     (B, H, hd) in q's dtype. ``blk_s`` is the Pallas kernel's S block,
     kept for the reference's signature: the CUDA kernel splits S by its own
-    ``SPLIT`` and the plain version takes S whole. Any device but the card
-    and the CPU raises."""
+    rule (`decode_attention.split_for`) and the plain version takes S
+    whole. Any device but the card and the CPU raises."""
     B, H, hd = q.shape
     qg = q.reshape(B, n_kv, H // n_kv, hd)
     if q.device.type == "cuda":

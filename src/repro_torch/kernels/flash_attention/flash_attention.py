@@ -1,15 +1,16 @@
-"""Flash-attention forward on the card: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Flash-attention forward on the card: the CUDA kernel's wrapper, its plain
+PyTorch version and an emulator of the kernel's tile schedule.
 
 `flash_attention_cuda` launches ``csrc/flash_attention.cu``, the Hopper
 port of the Pallas kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/flash_attention.py:79``): one block per
-(q tile, kv head, sequence) holding the tile's rows for all G query heads,
-looping over the key tiles up to the diagonal with an online softmax in
+(q tile, kv head, sequence) holding the tile's 128 rows for all G query
+heads, walking the key tiles up to the diagonal with an online softmax in
 registers; f32 scores, P and V rounded to bf16 for P . V with f32
-accumulation, as the reference kernel. bf16 inputs run both products on
-the tensor cores (mma.sync, bf16 -> f32), f32 inputs on scalar f32 FMAs;
-head_dim 64 or 128 (the served models'). It is bound by operations at the prefill shape (the source
+accumulation, as the reference kernel. bf16 inputs run a warp-specialised
+kernel: TMA loads of K and V into a 2-stage ring of shared memory, both
+products on wgmma; f32 inputs run scalar f32 FMAs; head_dim 64 or 128 (the
+served models'). It is bound by operations at the prefill shape (the source
 states the bound and the design).
 
 `flash_attention_plain` is the chunked online softmax of the reference's
@@ -19,6 +20,12 @@ P . V whose block product is bf16, f32 accumulators. It takes any S (the
 last block may be ragged) and skips key blocks wholly above the diagonal,
 which contribute exactly nothing. It is the CPU path of ``ops`` and of the
 port's ``gqa_chunked``, and the kernel's on-card reference.
+
+`flash_attention_tiled` replays the bf16 kernel's own schedule in plain
+PyTorch (128-row tiles of (position, head) rows, ``KEY_TILE``-key tiles,
+the diagonal skip, edge-only masks, exp2 with the scale folded in, P
+rounded to bf16 with l from the unrounded p), so that the CPU tests check
+the kernel's algorithm against the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +37,11 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 #: kernel launches through `flash_attention_cuda` (the main-path audit)
 LAUNCHES = 0
+#: rows (query position, head) a block of the bf16 kernel
+TILE_ROWS = 128
+#: keys a tile of the bf16 kernel (``kKeyTile`` in the source)
+KEY_TILE = 64
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -70,6 +82,60 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out
+
+
+def flash_attention_tiled(q, k, v, *, causal: bool = True):
+    """The bf16 kernel's schedule in plain PyTorch, same contract as
+    `flash_attention_plain`: per (b, kv), tiles of TILE_ROWS // G positions
+    times G heads (rows (position, head), (TILE_ROWS // G) * G of them in
+    use); per tile the key tiles of KEY_TILE keys up to the diagonal,
+    zero-padded past S, masked only where a tile crosses the diagonal or
+    the end of S; the online softmax in the log2 domain, the row max taken
+    on the raw scores and scaled by scale * log2(e), p = exp2(s c - m);
+    P rounded to bf16 (RNE)
+    and V to bf16 for P . V with f32 products and sums; l summed from the
+    unrounded p; o = acc / max(l, 1e-30)."""
+    B, S, KV, G, hd = q.shape
+    BQ, kn = TILE_ROWS // G, KEY_TILE
+    scale_log2 = float(np.float32(LOG2E / np.sqrt(hd)))
+    dev = q.device
+    n_keys = -(-S // kn) * kn
+    pad = (0, 0, 0, 0, 0, n_keys - S)                       # keys to a tile
+    kt = torch.nn.functional.pad(k.float(), pad).permute(0, 2, 3, 1)
+    vb = torch.nn.functional.pad(v.to(torch.bfloat16).float(),
+                                 pad).permute(0, 2, 1, 3)   # (B,KV,keys,hd)
+    out = torch.empty_like(q)
+    for q0 in range(0, S, BQ):
+        n = min(S, q0 + BQ) - q0                            # live positions
+        rows = q[:, q0:q0 + n].float().permute(0, 2, 1, 3, 4).reshape(
+            B, KV, n * G, hd)                               # row p * G + g
+        pos = q0 + torch.arange(n * G, device=dev)[:, None] // G
+        m = torch.full((B, KV, n * G, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, n * G, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, n * G, hd), dtype=torch.float32,
+                          device=dev)
+        n_tiles = (q0 + n - 1) // kn + 1 if causal else n_keys // kn
+        for t in range(n_tiles):
+            k0 = t * kn
+            s = torch.matmul(rows, kt[..., k0:k0 + kn])
+            if k0 + kn > S or (causal and k0 + kn - 1 > q0):
+                col = torch.arange(k0, k0 + kn, device=dev)[None]
+                keep = col < S
+                if causal:
+                    keep = keep & (col <= pos)
+                s = torch.where(keep, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s * scale_log2 - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(
+                p.to(torch.bfloat16).float(), vb[:, :, k0:k0 + kn])
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)
+        out[:, q0:q0 + n] = o.reshape(B, KV, n, G, hd).permute(
+            0, 2, 1, 3, 4).to(q.dtype)
     return out
 
 

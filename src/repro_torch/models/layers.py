@@ -219,23 +219,32 @@ def attention_prefill(p: Params, spec: AttentionSpec, x: torch.Tensor,
 
 def attention_decode(p: Params, spec: AttentionSpec, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cur_index):
+                     cur_index, lengths: torch.Tensor | None = None):
     """Single-token decode. x: (B, 1, D); caches (B, S_max, KV, hd);
-    cur_index: int -- the number of tokens already in the cache.
+    cur_index: int -- the number of tokens already in the cache, below
+    S_max (ValueError otherwise: the reference clamps the write onto the
+    last row, the port refuses).
 
     The new K/V row is written into the caches IN PLACE at cur_index (the
     reference's dynamic_update_slice returns a copy; a 2.43 GB cache copied
     a token is not an option), and attention runs through the decode kernel
     with lengths = cur_index + 1 for every sequence -- the reference's
-    mask ``arange(S_max) <= cur_index``. Returns (out (B,1,D), (k_cache,
-    v_cache))."""
+    mask ``arange(S_max) <= cur_index``. ``lengths`` is that (B,) int32
+    tensor when the caller has built it (``decode_step`` builds it once a
+    step for all layers); None builds it here. Returns (out (B,1,D),
+    (k_cache, v_cache))."""
     B = x.shape[0]
     idx = int(cur_index)
+    if not 0 <= idx < k_cache.shape[1]:
+        raise ValueError(f"decode at cur_index {idx} is past the KV cache: "
+                         f"max_len {k_cache.shape[1]}")
     positions = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, spec, x, positions)
     k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
     v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
-    lengths = torch.full((B,), idx + 1, dtype=torch.int32, device=x.device)
+    if lengths is None:
+        lengths = torch.full((B,), idx + 1, dtype=torch.int32,
+                             device=x.device)
     out = dec_ops.decode_attention(q[:, 0], k_cache, v_cache, lengths,
                                    spec.n_kv_heads)
     return out.reshape(B, 1, -1) @ p["wo"], (k_cache, v_cache)

@@ -322,18 +322,27 @@ def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(model: Transformer, cfg: TransformerConfig,
                 token: torch.Tensor, cache: dict, cur_index):
-    """token: (B,) int; cache from make_cache / prefill; cur_index: int.
+    """token: (B,) int; cache from make_cache / prefill; cur_index: int,
+    below the cache's max_len.
 
     Writes position cur_index of every layer's cache in place and returns
-    (logits (B, V), the same cache). Cost is O(S_max) per token."""
+    (logits (B, V), the same cache). Cost is O(S_max) per token. The decode
+    kernel's ``lengths`` (cur_index + 1 for every sequence) is built once
+    here for all layers. A cur_index at or past max_len raises ValueError
+    (`layers.attention_decode`, before any cache write): the reference
+    clamps the write onto the last cached row and returns logits from a
+    corrupted cache; the port refuses."""
     if cfg.is_moe:
         raise NotImplementedError(_MOE_LATER)
+    idx = int(cur_index)
     x = model.embed[token.to(model.device)[:, None]]
+    lengths = torch.full((x.shape[0],), idx + 1, dtype=torch.int32,
+                         device=x.device)
     spec = cfg.attn_spec()
     for i, layer in enumerate(model.layers):
         h = L.rmsnorm(x, layer.attn_norm, cfg.norm_eps)
         attn_out, _ = L.attention_decode(layer.attn, spec, h, cache["k"][i],
-                                         cache["v"][i], cur_index)
+                                         cache["v"][i], idx, lengths)
         x = x + attn_out
         x = x + _ffn_block(layer, cfg, x)
     x = L.rmsnorm(x[:, -1, :], model.final_norm, cfg.norm_eps)

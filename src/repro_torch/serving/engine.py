@@ -178,6 +178,13 @@ class RAGEngine:
         assembly -> batched prefill -> decode loop. Returns one `Response`
         per request, in request order."""
         B = len(requests)
+        max_new = max(r.max_new_tokens for r in requests)
+        if self.max_prompt + max_new > self.max_len:
+            # decode would write past the KV cache (the reference clamps and
+            # corrupts it): refuse before any retrieval or prefill runs
+            raise ValueError(
+                f"max_prompt {self.max_prompt} + max_new_tokens {max_new} "
+                f"exceeds the KV cache: max_len {self.max_len}")
         t0 = time.perf_counter()
         # 1) retrieval: predicates are server-built, and the batch is
         # predicate-group batched
@@ -212,7 +219,6 @@ class RAGEngine:
         t2 = time.perf_counter()
 
         # 3) decode loop (greedy or temperature sampling)
-        max_new = max(r.max_new_tokens for r in requests)
         out_tokens = np.zeros((B, max_new), np.int32)
         rng = np.random.default_rng(seed)
         cur = torch.argmax(logits, dim=-1).to(torch.int32)   # first max wins

@@ -4,7 +4,14 @@ reference (``repro.kernels.decode_attention`` / ``flash_attention``).
 The same numpy inputs go through the reference's oracles (and, on two
 shapes each, its Pallas kernels in interpret mode) and through the port's
 CPU path, which is each CUDA kernel's plain version: the wrappers take it
-only because the tensors lie on the CPU. Tolerances: decode is all f32 math
+only because the tensors lie on the CPU. Each kernel's own schedule is
+emulated in plain torch too (`flash_attention_tiled`: 128-row tiles of
+(position, head) rows, ragged when G does not divide 128, the chosen key
+tile, the diagonal skip, exp2 with the scale folded in, P rounded to bf16
+and l from the unrounded p; `decode_attention_tiled`: the kernel's split of
+S into chunks and the merge in chunk order) and held to the reference's
+oracles over G 1 / 3 / 4 / 8, hd 64 / 128, S 1 / 17 / 129 / 300, causal
+and full, and lengths 0, 1, random and past S. Tolerances: decode is all f32 math
 (rtol = atol = 2e-5, as ``test_kernels.py:60``; bf16 outputs rounded once
 more, 3e-2); flash rounds P and V to bf16 for P . V (rtol 1e-2, atol 8e-3,
 as ``test_kernels.py:96-97``); the port's f32 oracles against the
@@ -255,3 +262,86 @@ def test_wrappers_refuse_cpu_and_other_devices():
         fa_ops.flash_attention(m, m, m, 2)
     with pytest.raises(ValueError, match="no decode-attention engine"):
         dec_ops.decode_attention(m[:, 0], m, m, m[:, 0, 0, 0], 2)
+
+
+# the kernels' own schedules, emulated in plain torch, against the
+# reference's oracles
+SCHED_G = (1, 3, 4, 8)
+SCHED_HD = (64, 128)
+SCHED_S = (1, 17, 129, 300)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", SCHED_S)
+@pytest.mark.parametrize("hd", SCHED_HD)
+@pytest.mark.parametrize("G", SCHED_G)
+def test_flash_tile_schedule_matches_reference_oracle(G, hd, S, causal):
+    B, KV = 2, 2
+    q, k, v = _flash_inputs(G * 1000 + S + hd, B, S, KV, G, hd)
+    q5 = q.reshape(B, S, KV, G, hd)
+    want = np.asarray(j_fref(jnp.asarray(q5), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal))
+    got = fa_mod.flash_attention_tiled(torch.from_numpy(q5),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), causal=causal)
+    assert got.shape == q5.shape and got.dtype == torch.float32
+    assert fa_mod.TILE_ROWS // G * G <= fa_mod.TILE_ROWS
+    np.testing.assert_allclose(got.numpy(), want, rtol=FLASH_RTOL,
+                               atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("S", SCHED_S)
+@pytest.mark.parametrize("hd", SCHED_HD)
+@pytest.mark.parametrize("G", SCHED_G)
+def test_decode_split_schedule_matches_reference_oracle(G, hd, S):
+    """lengths 0 (the mean of V), 1, random and past S in one batch; the
+    split is the kernel's own rule on a 132-SM card, so S 129 and 300 merge
+    several chunks."""
+    B, KV = 4, 2
+    rng = np.random.default_rng(G * 1000 + S + hd)
+    lengths = [0, 1, int(rng.integers(1, S + 1)), S + 3]
+    q, k, v, L = _decode_inputs(G + S + hd, B, S, KV, G, hd, lengths)
+    qg = q.reshape(B, KV, G, hd)
+    want = np.asarray(j_dref(jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(L)))
+    split = dec_mod.split_for(B, KV, G, S, 132)
+    args = (torch.from_numpy(qg), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(L))
+    acc, m, l = dec_mod.decode_attention_tiled(*args, split)
+    np.testing.assert_allclose((acc / l).numpy(), want, rtol=DEC_TOL,
+                               atol=DEC_TOL)
+    acc_p, m_p, l_p = dec_mod.decode_attention_plain(*args)
+    np.testing.assert_allclose(m.numpy(), m_p.numpy(), rtol=DEC_TOL,
+                               atol=DEC_TOL)
+    np.testing.assert_allclose(l.numpy(), l_p.numpy(), rtol=DEC_TOL,
+                               atol=DEC_TOL)
+
+
+def test_decode_split_rule_fills_the_card_once():
+    """The serving shape takes 8 chunks of 288 rows (512 blocks for 528
+    resident ones on 132 SMs); chunks are whole 32-row sub-tiles, never
+    under MIN_SPLIT rows, and their scores fit the block's share."""
+    assert dec_mod.split_for(8, 8, 4, 2064, 132) == 288
+    for B, KV, G, S in [(1, 1, 1, 1), (1, 1, 32, 100_000), (64, 8, 8, 64),
+                        (2, 2, 3, 4096), (8, 8, 4, 32_768)]:
+        split = dec_mod.split_for(B, KV, G, S, 132)
+        assert split % dec_mod.SPLIT_ROUND == 0
+        assert split >= dec_mod.MIN_SPLIT
+        assert G * split <= max(dec_mod.MAX_SCORES,
+                                G * dec_mod.MIN_SPLIT)
+
+
+def test_decode_workspace_is_allocated_once():
+    """One workspace a (device, B, KV, n_split, G, hd), counters zero."""
+    dev = torch.device("cpu")
+    dec_mod._WORKSPACE.clear()
+    first = dec_mod._workspace(dev, 2, 3, 4, 5, 64)
+    again = dec_mod._workspace(dev, 2, 3, 4, 5, 64)
+    assert all(a is b for a, b in zip(first, again))
+    assert first[0].shape == (2, 3, 4, 5, 64) and first[1].shape == (2, 3, 4, 5)
+    assert first[3].dtype == torch.int32 and (first[3] == 0).all()
+    dec_mod._workspace(dev, 2, 3, 8, 5, 64)
+    assert len(dec_mod._WORKSPACE) == 2
+    assert dec_mod.workspace_bytes() == 4 * (2 * 3 * 4 * 5 * 66
+                                             + 2 * 3 * 8 * 5 * 66 + 2 * 6)
+    dec_mod._WORKSPACE.clear()

@@ -9,6 +9,14 @@ with ``attn_impl`` "naive" and "chunked" (the flash kernel's plain
 version): logits within rtol = atol = 1e-4 (naive) or 1e-2 / 8e-3 (bf16
 P . V in chunked), the KV cache within 1e-4, the greedy tokens equal.
 `to_numpy(from_numpy(tree))` must give the tree back bit for bit.
+
+The bf16 path -- the one served on the card -- is held to the reference
+too: the three REDUCED configs cast to bf16 with the reference's weights,
+B 3, S 24, 16 decode steps each fed the reference's token, logits within
+3% of the largest logit (the reference's own bf16-against-f32 noise on
+these configs is 1.7-2.1%; the port's decode is all f32 where the
+reference casts P to bf16). A decode past the cache's end is refused with
+a ValueError (the reference clamps the write onto the last row).
 """
 import dataclasses
 
@@ -261,3 +269,93 @@ def test_moe_raises_naming_the_queue():
         tt.Transformer(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="moe"):
         cfg.moe_spec()
+
+
+# the bf16 LM path against the reference: logits, not greedy tokens
+BF16_LOGIT_REL = 0.03
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+@pytest.mark.parametrize("arch", sorted(J_CONFIGS))
+def test_bf16_path_logits_match_reference(arch, impl):
+    cfg = dataclasses.replace(J_CONFIGS[arch].REDUCED, dtype="bfloat16",
+                              attn_impl=impl)
+    params = jt.init(jax.random.PRNGKey(0), cfg)
+    tcfg = _port_cfg(cfg)
+    model = tt.from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                          device="cpu")
+    B, S, L = 3, 24, 40
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S),
+                                             dtype=np.int32)
+    jl, jc = jt.prefill(params, cfg, jnp.asarray(toks), L)
+    tl, tc = tt.prefill(model, tcfg, _t(toks), L)
+
+    def close(j, t, what):
+        want = np.asarray(j.astype(jnp.float32))
+        got = t.float().numpy()
+        assert np.isfinite(got).all(), what
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        assert rel <= BF16_LOGIT_REL, f"{what}: {rel:.4f} of the largest logit"
+
+    close(jl, tl, "prefill")
+    cur = jnp.argmax(jl, -1).astype(jnp.int32)
+    for t in range(16):
+        jl, jc = jt.decode_step(params, cfg, cur, jc, jnp.int32(S + t))
+        tl, tc = tt.decode_step(model, tcfg, _t(cur), tc, S + t)
+        close(jl, tl, f"decode step {t}")
+        cur = jnp.argmax(jl, -1).astype(jnp.int32)   # the reference's token
+
+
+def test_decode_past_the_cache_raises():
+    """qwen3-4b REDUCED, max_len 8: decode_step at cur_index 8 would write
+    past the cache; the port refuses, naming both (the reference clamps the
+    write onto row 7 and returns logits from a corrupted cache)."""
+    tcfg = tconfigs.get("qwen3-4b").reduced
+    model = tt.init(tcfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    logits, cache = tt.prefill(model, tcfg, toks, 8)
+    cur = logits.argmax(-1).to(torch.int32)
+    before = cache["k"].clone()
+    with pytest.raises(ValueError, match="cur_index 8.*max_len 8"):
+        tt.decode_step(model, tcfg, cur, cache, 8)
+    assert torch.equal(cache["k"], before), "a refused step wrote the cache"
+    logits, _ = tt.decode_step(model, tcfg, cur, cache, 7)   # the last row
+    assert torch.isfinite(logits).all()
+    spec = tcfg.attn_spec()
+    x = torch.zeros((2, 1, tcfg.d_model))
+    with pytest.raises(ValueError, match="max_len 8"):
+        TL.attention_decode(model.layers[0].attn, spec, x, cache["k"][0],
+                            cache["v"][0], 8)
+
+
+def test_decode_lengths_built_once_a_step(monkeypatch):
+    """decode_step hands every layer the same lengths tensor; a layer
+    given none builds the same values."""
+    tcfg = tconfigs.get("qwen3-4b").reduced
+    model = tt.init(tcfg, generator=torch.Generator().manual_seed(1),
+                    device="cpu")
+    toks = torch.zeros((2, 5), dtype=torch.int32)
+    logits, cache = tt.prefill(model, tcfg, toks, 12)
+    seen = []
+    entry = TL.dec_ops.decode_attention
+
+    def spy(q, k, v, lengths, n_kv, **kw):
+        seen.append(lengths)
+        return entry(q, k, v, lengths, n_kv, **kw)
+
+    monkeypatch.setattr(TL.dec_ops, "decode_attention", spy)
+    cur = logits.argmax(-1).to(torch.int32)
+    want, _ = tt.decode_step(model, tcfg, cur, cache, 5)
+    assert len(seen) == tcfg.n_layers
+    assert all(t is seen[0] for t in seen)
+    assert seen[0].dtype == torch.int32 and (seen[0] == 6).all()
+    layer = model.layers[0]
+    x = torch.randn((2, 1, tcfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    a, _ = TL.attention_decode(layer.attn, tcfg.attn_spec(), x,
+                               cache["k"][0], cache["v"][0], 6)
+    b, _ = TL.attention_decode(layer.attn, tcfg.attn_spec(), x,
+                               cache["k"][0], cache["v"][0], 6,
+                               torch.full((2,), 7, dtype=torch.int32))
+    assert torch.equal(a, b)

@@ -8,8 +8,9 @@ reference's parameters carried across by `from_numpy`: the retrieved slots
 and the greedy tokens must be equal, scores within 1e-5, and no slot of
 another tenant may surface. Sampled decoding draws from the reference's
 numpy generator and must give the same tokens. The engine's refusals are
-checked too: ``scheduler=``, an MoE config, a model on another device, and
-no device with no card.
+checked too: ``scheduler=``, an MoE config, a model on another device,
+no device with no card, and a batch whose decode would run past the KV
+cache (refused before retrieval).
 """
 import dataclasses
 
@@ -29,6 +30,7 @@ from repro.models.transformer import TransformerConfig as JTransformerConfig
 from repro.models.transformer import init as j_init
 from repro.serving.engine import RAGEngine as JRAGEngine
 from repro.serving.engine import Request as JRequest
+from repro_torch import configs as tconfigs
 from repro_torch.api import RagDB
 from repro_torch.core.store import StoreConfig
 from repro_torch.core.tenancy import Principal
@@ -182,3 +184,24 @@ def test_engine_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RAGEngine(snap, tcfg, model)
+
+
+def test_serve_refuses_a_batch_past_the_cache():
+    """qwen3-4b REDUCED, max_len 8, max_prompt 6: 4 new tokens would
+    decode at cur_index 8; serve raises before any retrieval runs (the
+    reference clamps the cache writes and returns corrupted tokens)."""
+    tcfg = tconfigs.get("qwen3-4b").reduced
+    model = tt.init(tcfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    tdb = RagDB(StoreConfig(capacity=CAP, dim=CCFG["dim"]), device="cpu")
+    tdb.ingest(make_corpus(CorpusConfig(**CCFG), device="cpu"))
+    eng = RAGEngine(tdb, tcfg, model, k=2, max_prompt=6, max_len=8,
+                    device="cpu")
+    _, treqs = _requests(n_tokens=4)
+    calls = tdb.stats.device_calls
+    with pytest.raises(ValueError, match="max_len 8"):
+        eng.serve(treqs)
+    assert tdb.stats.device_calls == calls, "retrieval ran before refusing"
+    _, treqs = _requests(n_tokens=2)          # 6 + 2 = 8 fits exactly
+    resps = eng.serve(treqs)
+    assert all(r.tokens.shape == (2,) for r in resps)
