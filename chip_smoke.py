@@ -8,7 +8,13 @@ Phases:
                 (``csrc/arena_scan.cuh`` and its four entry-point sources)
                 and the attention kernels (``csrc/flash_attention.cu``,
                 ``csrc/decode_attention.cu``), one nvcc per source, all six
-                at once, and print ptxas's register and spill report.
+                at once, and print ptxas's register and spill report; fail
+                when a DENSE instantiation of tile_scan_kernel or
+                paged_scan_kernel up to 32 query rows a block spills, and
+                hold the host mirror of the scan's launch geometry
+                (`kernel.scan_geometry`) to the library's
+                (`kernel.scan_info`) over block rows, modes, lanes, groups
+                and both regimes.
   1. kernel  -- the arena-scan kernel against its plain PyTorch version on
                 the card over a grid of N, D, B, G and k (k > N included),
                 plus category 31 / high ACL bits, a BLOCK_ALL group,
@@ -17,7 +23,10 @@ Phases:
                 in different orders), slots agree except inside a run of
                 tied scores at the k-th place, ties go to the lower slot,
                 and no returned slot fails its group's predicate (checked
-                against a numpy mask computed on the host).
+                against a numpy mask computed on the host). After that
+                grid, the micro-tile's edges: B 5 / 17 / 33 / 63, D 1 / 3
+                / 4 / 100, N 255 / 257, k 1 / 10 / 33, each also paged
+                (128-row pages) and bit-identical to the resident lists.
   2. hybrid_kernel -- the hybrid scan (the arena-scan kernel's lexical
                 modes, through `hybrid_score_cuda`) against its plain
                 version over N, D, B, G, T lanes, QT query terms and k (k > N
@@ -67,8 +76,10 @@ Phases:
                 postings lanes a row, data drawn on the card and ingested
                 through RagDB in 2^20-row chunks, batches of 32 requests in
                 4 groups through run(): median batch latency, the kernel's
-                own time (CUDA events) beside its bound, the plain version,
-                and a matmul + where + topk yardstick.
+                own time (CUDA events, and profiled device time) beside its
+                bound, the SM clock and power draw while it runs, blocks an
+                SM (>= 2 required), ptxas's report of the DENSE kernels,
+                the plain version, and a matmul + where + topk yardstick.
   8. hybrid_prod -- the same arena: 6 wsum and 6 rrf batches of 32 match()
                 requests in 4 groups (3 terms from a live row's lanes, q
                 near its embedding), with the same measurements plus a
@@ -97,9 +108,11 @@ Phases:
                 paged launch each, rows bit-identical to the resident
                 batch's, `paged_scans` one per fused scan, batch latency and
                 a profile; then the kernel alone at pages of 2^13..2^16
-                rows beside the resident kernel: CUDA-event time, bound,
-                profile split, candidate-buffer bytes, blocks per SM and
-                shared memory a block, the plain version's time.
+                rows beside the resident kernel: CUDA-event and profiled
+                device time, bound, profile split, candidate-buffer bytes,
+                the launch geometry (blocks per SM, >= 2 required for dense
+                at 2^15; shared memory a block; ring stages), the plain
+                version's time.
 
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
                 (causal and full) and the flash-decode kernel against their plain versions on
@@ -143,6 +156,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -164,6 +178,14 @@ GRID_N = (1, 513, 1000, 65_553)
 GRID_D = (64, 96, 128, 768)
 GRID_B = (1, 3, 8, 32, 64)
 GRID_G = (1, 2, 7, 16)
+# the micro-tile's edges, drawn after the grid above: B across the query
+# groups and block sizes, D below a float4, odd and past a chunk, N one
+# short of and one past a tile
+EDGE_B = (5, 17, 33, 63)
+EDGE_D = (1, 3, 4, 100)
+EDGE_N = (255, 257)
+EDGE_K = (1, 10, 33)
+EDGE_PAGE = 128               # each edge also paged, bit-identical
 # phase 3 grid (lanes T and query terms QT cycle with the other axes)
 HYB_N = (1, 513, 1000, 65_553)
 HYB_D = (64, 768)
@@ -222,6 +244,77 @@ def sync():
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def ptxas_kernels(log):
+    """ptxas's report (``-Xptxas -v``) by kernel entry: {mangled name:
+    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}."""
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and props in out:
+            out[props].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+            entry = None
+    return out
+
+
+def dense_scan_ptxas(log):
+    """The DENSE instantiations of tile_scan_kernel and paged_scan_kernel
+    (BB = 8, 16, 32, 64) as ptxas reported them; fails when one at
+    BB <= 32 spills."""
+    rows = []
+    for name, rep in ptxas_kernels(log).items():
+        m = re.search(r"(tile_scan_kernel|paged_scan_kernel)ILi(\d+)ELi0E",
+                      name)
+        if m:
+            rows.append({"kernel": m.group(1), "BB": int(m.group(2)), **rep})
+    rows.sort(key=lambda r: (r["kernel"], r["BB"]))
+    check(len(rows) == 8, f"ptxas reported {len(rows)} DENSE scan kernels, "
+          "expected 8")
+    for r in rows:
+        check(r["BB"] > 32 or (r.get("spill_stores") == 0
+                               and r.get("spill_loads") == 0),
+              f"ptxas: {r['kernel']}<{r['BB']}, DENSE> spills: {r}")
+    return rows
+
+
+def check_geometry():
+    """The host mirror of the scan's launch geometry
+    (`kernel.scan_geometry`) against the C launcher's (`kernel.scan_info`)
+    over block rows, modes, lanes, predicate groups and both regimes.
+    Returns the number of shapes compared."""
+    from repro_torch.kernels.arena_scan.stages import ScanSpec
+    specs = (ScanSpec(), ScanSpec(score="fused"), ScanSpec(score="both"),
+             ScanSpec(slot_lane=True))
+    n = 0
+    for spec in specs:
+        for B in (8, 16, 32, 64):
+            for T in ((16, 32) if spec.has_lex else (0,)):
+                for G in ((1,) if spec.slot_lane else (1, 16)):
+                    for P in (None, 1 << 15):
+                        geo = kernel_mod.scan_geometry(spec, B, G, 10, P,
+                                                       T=T, QT=4)
+                        info = kernel_mod.scan_info(spec, B, 1 << 20, G, 10,
+                                                    P, T=T, QT=4)
+                        check(all(info[key] == v for key, v in geo.items()),
+                              f"geometry mirror {geo} != launcher {info}")
+                        n += 1
+    return n
 
 
 def host_mask(meta, preds):
@@ -352,12 +445,20 @@ def make_batch(rng, emb, B, G, pairs=(), *, block_all=False):
     return q, preds.astype(np.int32), gids
 
 
-def run_case(name, arena, batch, k, errs):
+def run_case(name, arena, batch, k, errs, page_rows=None):
+    """The resident kernel against its plain version (`compare`); with
+    ``page_rows`` also the paged kernel, whose lists must equal the
+    resident ones bit for bit."""
     (emb_d, meta_d, meta, pairs), (q, preds, gids) = arena, batch
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
     args = (t(q), emb_d, meta_d, t(gids), t(preds))
     s_k, i_k = kernel_mod.arena_scan_cuda(*args, k)
     s_p, i_p = kernel_mod.arena_scan_plain(*args, k)
+    if page_rows is not None:
+        pg = kernel_mod.arena_scan_cuda(*args, k, page_rows=page_rows)
+        sync()
+        check(bits_equal(pg, (s_k, i_k)),
+              f"{name}: paged lists != resident lists")
     sync()
     full = (args[0] @ emb_d.T).cpu().numpy()
     mask = host_mask(meta, preds)[gids]
@@ -400,8 +501,20 @@ def phase_kernel():
         for k in (1, 10, 300, 3100):
             run_case(f"{name}-k{k}", arena, batch, k, errs)
             n_cases += 1
-    emit("kernel", cases=n_cases, max_abs_err=max(errs),
-         seconds=time.perf_counter() - t0, tol=TOL, leaked_slots=0)
+    n_edges = 0
+    for B in EDGE_B:
+        for D in EDGE_D:
+            for N in EDGE_N:
+                emb, meta, pairs = make_arena(rng, N, D, dups=3)
+                arena = upload(emb, meta, pairs)
+                batch = make_batch(rng, emb, B, 3, pairs, block_all=True)
+                for k in EDGE_K:
+                    run_case(f"edge-N{N}-D{D}-B{B}-k{k}", arena, batch, k,
+                             errs, page_rows=EDGE_PAGE)
+                    n_edges += 1
+    emit("kernel", cases=n_cases + n_edges, edge_cases=n_edges,
+         max_abs_err=max(errs), seconds=time.perf_counter() - t0, tol=TOL,
+         leaked_slots=0, edges_paged="bit-identical")
     return max(errs)
 
 
@@ -1222,6 +1335,21 @@ def device_ms(fn, iters):
     return (ms if kernels else None), kernels
 
 
+def sampled(fn):
+    """fn() with the card's SM clock (MHz) and power draw (W) sampled
+    every 100 ms by nvidia-smi: (fn's result, [[MHz, W], ...])."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    return out, [[float(x) for x in ln.split(",")]
+                 for ln in text.splitlines() if ln.count(",") == 1]
+
+
 def events_ms(fn, iters):
     fn()
     sync()
@@ -1235,13 +1363,14 @@ def events_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
+def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
     from repro_torch.api import RagDB
     from repro_torch.core.store import StoreConfig
     from repro_torch.core.tenancy import Principal
     from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
     from repro_torch.index.lexical import LexicalConfig
     from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.arena_scan.stages import ScanSpec
 
     t_phase = time.perf_counter()
 
@@ -1310,6 +1439,12 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
     check((sl == i_k.cpu().numpy()[inv]).all(), "run() rows != kernel rows")
 
     ms = events_ms(lambda: kernel_mod.arena_scan_cuda(*args), 10)
+    _, clocks = sampled(
+        lambda: events_ms(lambda: kernel_mod.arena_scan_cuda(*args), 60))
+    dev_ms, _ = device_ms(lambda: kernel_mod.arena_scan_cuda(*args), 5)
+    info = kernel_mod.scan_info(ScanSpec(), 32, n_rows, 4, 10)
+    check(info["blocks_per_sm"] >= 2, f"resident dense kernel: "
+          f"{info['blocks_per_sm']} block(s) an SM, expected >= 2")
     plain_ms = events_ms(lambda: kernel_mod.arena_scan_plain(*args), 3)
     keep = torch.ones((32, n_rows), dtype=torch.bool, device=dev)
 
@@ -1326,7 +1461,9 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20):
          lanes=db.lex.cfg.doc_terms, batch=B,
          groups=G, k=k,
          batch_ms_median=statistics.median(lat), batch_ms=lat,
-         launches=launches, kernel_ms=ms, bound_ms=bound_ms,
+         launches=launches, kernel_ms=ms, kernel_device_ms=dev_ms,
+         kernel_clock_mhz_power_w=clocks,
+         scan_info=info, dense_scan_ptxas=list(ptxas), bound_ms=bound_ms,
          bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS
          else "operations", plain_ms=plain_ms, yardstick_ms=yard_ms,
          ingest_s=ingest_s, ingest_host_s=sum(host_s),
@@ -1639,7 +1776,7 @@ def alloc_bytes(fn):
     return extra
 
 
-def phase_paged_prod(dev, prod, hprod):
+def phase_paged_prod(dev, prod, hprod, ptxas=()):
     """The prod arena through the front door under PlannerConfig(
     paged_min_rows=2^20): the dense, wsum and rrf batches of phases prod
     and hybrid_prod recompiled, each run 6 times as one paged launch equal
@@ -1725,13 +1862,17 @@ def phase_paged_prod(dev, prod, hprod):
     sweep = {}
     for m, call in calls.items():
         row = {"resident_ms": events_ms(lambda: call(None), 10),
+               "resident_device_ms": device_ms(lambda: call(None), 5)[0],
+               "resident_info": kernel_mod.scan_info(specs[m], B, N, G, k,
+                                                     None, T, QT),
                "resident_alloc_bytes": alloc_bytes(lambda: call(None)),
                "resident_profile_ms": profile_batch(
                    lambda: call(None))["split_ms"],
                "bound_ms": bounds[m], "pages": {}}
         for p in PAGED_PROD_P:
-            info = kernel_mod.paged_info(specs[m], B, N, G, k, p, T, QT)
+            info = kernel_mod.scan_info(specs[m], B, N, G, k, p, T, QT)
             cell = {"ms": events_ms(lambda: call(p), 10),
+                    "device_ms": device_ms(lambda: call(p), 5)[0],
                     "alloc_bytes": alloc_bytes(lambda: call(p)),
                     "profile_ms": profile_batch(lambda: call(p))["split_ms"],
                     **info}
@@ -1741,6 +1882,9 @@ def phase_paged_prod(dev, prod, hprod):
             row["pages"][p] = cell
         row["resident_ms_after"] = events_ms(lambda: call(None), 10)
         sweep[m] = row
+    blocks = sweep["dense"]["pages"][P]["blocks_per_sm"]
+    check(blocks >= 2, f"paged dense kernel: {blocks} block(s) an SM, "
+          "expected >= 2")
     # the paged kernel against its plain version at the planner's page
     s_k, i_k = calls["dense"](P)
     s_p, i_p = plains["dense"](P)
@@ -1754,7 +1898,8 @@ def phase_paged_prod(dev, prod, hprod):
          paged_scans=3 * n_batches,
          batch_ms_median={m: statistics.median(v) for m, v in lat.items()},
          batch_ms=lat, profile=profiles, kernel_sweep=sweep,
-         max_abs_err=err, front_door_rows="bit-identical to resident")
+         dense_scan_ptxas=list(ptxas), max_abs_err=err,
+         front_door_rows="bit-identical to resident")
     best = sweep["dense"]["pages"][P]
     return dict(launches=launches, ms=best["ms"], plain_ms=best["plain_ms"],
                 bound_ms=prod["bound_ms"], bound_by=prod["bound_by"],
@@ -2201,7 +2346,11 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (kernel_mod.BUILD_LOG
                                    + attn_lib.BUILD_LOG).splitlines()
              if "registers" in ln or "Compiling" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_s = time.perf_counter() - t0
+    scan_ptxas = dense_scan_ptxas(kernel_mod.BUILD_LOG)
+    emit("build", seconds=build_s, ptxas=ptxas, dense_scan_ptxas=scan_ptxas,
+         geometry_shapes=check_geometry(),
+         geometry="host mirror == C launcher")
 
     err1 = phase_kernel()
     herr1 = phase_hybrid_kernel()
@@ -2211,10 +2360,10 @@ def main() -> int:
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
     ierr2 = phase_ivf_bench(dev)
-    prod = phase_prod(dev)
+    prod = phase_prod(dev, ptxas=scan_ptxas)
     hprod = phase_hybrid_prod(dev, prod)
     iprod = phase_ivf_prod(dev, prod)
-    pprod = phase_paged_prod(dev, prod, hprod)
+    pprod = phase_paged_prod(dev, prod, hprod, ptxas=scan_ptxas)
     # free the 2^23-row arena (and every tensor the rows hold) before the
     # model and its cache take the card
     row_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -24,7 +24,7 @@ int arena_scan_launch(const float* q, const float* emb, const int* meta,
                       float* out_s, int* out_i, void* stream_ptr) {
   const Lex none{nullptr, nullptr, nullptr, nullptr, 0, 0};
   return run_scan<DENSE>(q, emb, meta, gids, preds, none, kNoCand, B, N, D,
-                         G, k, s0, i0, s1, i1, out_s, out_i,
+                         G, k, 0, s0, i0, s1, i1, out_s, out_i,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -45,12 +45,15 @@ int arena_scan_paged_launch(const float* q, const float* emb,
                           static_cast<cudaStream_t>(stream_ptr));
 }
 
-// What a paged launch of these shapes uses: out[5] = {shared memory bytes
-// a block, ring stages, running lists in shared memory (0/1), blocks an SM
-// holds, pages}. Returns 0 or a CUDA error.
-int arena_scan_paged_info(int B, int N, int G, int k, int page_rows,
-                          int* out) {
-  return paged_info<DENSE>(B, N, G, 0, 0, k, page_rows, out);
+// What a launch of these shapes uses, resident (page_rows 0) or paged
+// (page_rows >= 1): out[INFO_LEN] as scan_info in arena_scan.cuh fills it
+// (shared memory a block, ring stages, running lists in shared memory,
+// blocks an SM holds, blocks along x, tile rows, micro-tile MR x QN, dims
+// a stage, query rows a block). T and QT are unused in this mode. Returns
+// 0 or a CUDA error.
+int arena_scan_info(int B, int N, int G, int T, int QT, int k, int page_rows,
+                    int* out) {
+  return scan_info<DENSE>(B, N, G, T, QT, k, page_rows, out);
 }
 
 }  // extern "C"

@@ -50,30 +50,12 @@
 // running top-k in VMEM. Blocks on Hopper run in parallel and in no order,
 // so this kernel uses the streaming scan's schedule instead
 // (kernels/arena_scan/ref.py, arena_scan_scan_ref):
-//   1. tile_scan: grid (N tiles of 256 rows, B blocks of up to 64 rows).
-//      One block covers every query row of a serving batch (B <= 64), so
-//      the arena streams from device memory once per batch. Each thread
-//      owns one arena row of the tile and accumulates its dot product with
-//      every query row of the block in fp32 FMAs (no TF32, no tensor
-//      cores), staging D in chunks of 32 through shared memory (16-byte
-//      loads when D % 4 == 0); a broadcast float4 of queries feeds 4 FMAs.
-//      The lexical modes also stage the tile's T lanes (row-major, odd
-//      stride: conflict-free) and the block's query terms in shared memory;
-//      after each chunk's dense scores are staged, a loop that is not
-//      unrolled (one copy of the BM25 code per chunk, not one per query
-//      row) computes a row's BM25 for a query row only where the row passes
-//      that row's predicate.
-//      The predicate of each row's group is read by direct index from
-//      shared memory; rows that fail it, and rows past N, score NEG_INF.
-//      Eight query rows at a time go through shared memory, where the
-//      tile's top k_loc = min(k, 256) by (score desc, index asc) is
-//      selected -- by a warp-wide argmax per row for k_loc <= 32, by a
-//      bitonic sort of the whole tile above that -- into a candidate
-//      buffer that the wrapper allocates. BOTH selects the dense list and
-//      then the bm25 list of the same eight rows; its candidates lie as
-//      2B virtual rows (list l, row b at l * B + b). Every NEG_INF entry
-//      carries the index INT_MAX, so it sorts after all real entries and
-//      padding appended to a sorted list keeps it sorted.
+//   1. tile_scan: grid (N tiles of 256 rows, B blocks of up to BB = 64
+//      query rows). One B block covers every query row of a serving batch
+//      (B <= 64), so the arena streams from device memory once per batch.
+//      A block runs its tile through the score stage and the epilogue
+//      below; the tile's top k_loc = min(k, 256) per query row goes to a
+//      candidate buffer that the wrapper allocates.
 //   2. merge: the sorted per-tile lists merge pairwise, round after round
 //      (log2 of the tile count), each output element placed by its rank
 //      (a binary search in the partner list), keeping min(k, 2L) per pair.
@@ -81,9 +63,64 @@
 //   3. finish: the single remaining list per row, padded to k, with slot -1
 //      wherever the score is NEG_INF.
 //
+// The score stage (scan_block, shared by tile_scan_kernel and
+// paged_scan_kernel): fp32 FMAs only -- no TF32, no tensor cores.
+//   * Micro-tile. Thread t holds the scores of 4 arena rows x QN = BB / 4
+//     query rows in registers: rows rg + 64 i (i < 4) and query rows
+//     qg * QN + j (j < QN), rg = 32 ((t / 32) % 2) + t % 32, qg = t / 64.
+//     So 64 row groups x 4 query groups make the 256 threads; a warp holds
+//     32 row groups and one query group, so its query loads are
+//     warp-uniform. Per 4 dims a thread reads 4 + QN float4s from shared
+//     memory (12 at BB = 32) for 16 QN FMAs (128). (Larger micro-tiles
+//     ran no faster on the card: the FMA loop's own rate is the ceiling,
+//     PERF.md.)
+//   * Ring. The chunks -- emb [256 rows][CH dims] and the queries [BB][CH]
+//     -- stream through a ring of 2-4 shared-memory stages, CH = 32 dims
+//     (16 in the lexical modes, whose lanes take the room). One thread
+//     issues each chunk as two TMA tile loads (cp.async.bulk.tensor, 2-D
+//     tensor maps of emb and q; zeros past N, B and D) landing on the
+//     stage's mbarrier, stages - 1 chunks ahead of the FMAs. The emb box
+//     uses the TMA swizzle of its row size (64 or 128 bytes), so eight
+//     consecutive rows at one float4 column fall in distinct banks
+//     (e_col). PROBE gathers its rows by slot with cp.async (sm_90's TMA
+//     has no row gather), as does D % 4 != 0 (4-byte copies); both write
+//     the same swizzled layout and zero-fill past the tile, B and D.
+//   * Bit identity. Every (row, query) score is one fp32 chain: acc = 0,
+//     then acc = fmaf(q[d], e[d], acc) for d ascending over D zero-padded
+//     to a multiple of DK = 32. The micro-tile and the ring change which
+//     thread holds an accumulator and how the operands arrive, not the
+//     chain, so both kernels return the lists of the thread-per-row
+//     design before them bit for bit, and the paged lists equal the
+//     resident ones.
+//
+// The epilogue, eight query rows at a time: the micro-tiles holding them
+// mask their scores in registers -- the predicate of each query row's
+// group read by direct index from shared memory, each arena row's
+// metadata from device memory; rows that fail it, and rows past N, score
+// NEG_INF with the index INT_MAX -- and store scores and indices into the
+// [8][256] selection buffers. The lexical modes then compute, thread per
+// row, a row's BM25 for a query row only where the row passed (the tile's
+// T lanes staged row-major at an odd stride at its first chunk, the
+// block's query terms once; a loop that is not unrolled). Then the tile's
+// top k_loc by (score desc, index asc) is selected -- by a warp-wide
+// argmax per row for k_loc <= 32, by a bitonic sort of the whole tile
+// above that. BOTH selects the dense list and then the bm25 list of the
+// same eight rows; its candidates lie as 2B virtual rows (list l, row b
+// at l * B + b). Every NEG_INF entry carries the index INT_MAX, so it
+// sorts after all real entries and padding appended to a sorted list
+// keeps it sorted.
+//
+// Registers and shared memory. Up to BB = 32 both kernels are bounded to
+// 128 registers a thread, so two blocks of 256 share an SM; the launcher
+// takes the deepest ring (2..4 stages) whose block fits 113 KB (two an
+// SM), else the deepest that fits 227 KB (scan_config; arena_scan_info
+// reports the choice and the blocks an SM holds).
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores):
 //   DENSE: max(N * (4D + 16) B / 3.35 TB/s, 2 * B * N * D / 67 TFLOP/s).
-//          At N = 2^23, D = 768, B = 32 that is max(7.7 ms, 6.1 ms).
+//          At N = 2^23, D = 768, B = 32 that is max(7.7 ms, 6.1 ms): 16
+//          FLOP a byte, just under fp32's ridge of 20, so the design has
+//          to keep both the FMA pipe and the copies busy at once.
 //   lexical modes: the lanes add 8T bytes a row,
 //          max(N * (4D + 16 + 8T) B / 3.35 TB/s, the same FLOP bound);
 //          at T = 16 that is 26.98 GB, 8.05 ms. The BM25 compares
@@ -91,22 +128,21 @@
 //          it.
 //   PROBE: the P candidates' rows plus their slots,
 //          max(P * (4D + 16 + 4) B / 3.35 TB/s, 2 * B * P * D / 67 TFLOP/s).
-// Memory-bound, with the fp32 FMA work close behind. PROBE's gathered rows
-// are whole 4D-byte rows, so its loads coalesce as DENSE's do.
+// PROBE's gathered rows are whole 4D-byte rows, so its loads coalesce as
+// DENSE's do.
 //
-// What this simple design leaves on the table: each FMA group waits on a
-// 16-byte broadcast load from shared memory (most likely the shared-memory
-// pipe, not the FMA units, sets the pace; a register-tiled micro-tile of
-// queries x rows would cut those loads), and each tile's staging waits for
-// its loads (no cp.async/TMA pipelining), so it reaches neither rate.
-// Tensor cores (wgmma; TF32 or bf16 with an fp32 rescore of the winners)
-// and a cheaper selection than the full bitonic sort for k > 32 are later
-// work too. The lexical modes compute BM25 serially over T x QT per kept
-// (row, query) pair -- a warp runs the loop whenever any of its rows is
-// kept, so the divergence costs more than the work -- and stage the lanes
-// without overlap; they add 35-43 KB of shared memory a block at T = 16
-// (an SM still holds as many blocks at B = 32 and 64). The merge rounds
-// add one small launch each.
+// What is left on the table: (1) the FMA loop -- a SIMT fp32 loop reaches
+// about two thirds of the datasheet rate on this card, so the FLOP bound
+// is not reachable this way; tensor cores (a 3xTF32 split on wgmma, or
+// TF32 / bf16 candidates widened and rescored in fp32) would lift that
+// ceiling but change the scores' bits (and the paged-vs-resident identity
+// with them) unless the rescore restores the fp32 chain; (2) the lexical
+// stage -- BM25 runs serially over T x QT per kept (row, query) pair, a
+// warp runs the loop whenever any of its rows is kept (the divergence
+// costs more than the work), and its lanes are staged by synchronous
+// loads; (3) selection -- for k > 32 the bitonic sort of the whole tile
+// does far more work than k entries need, and the warp argmax takes a
+// share of every tile. The merge rounds add one small launch each.
 //
 // The paged regime (paged_scan_kernel) replaces the Pallas kernel's
 // `_paged_kernel` (src/repro/kernels/arena_scan/kernel.py:121), which keeps
@@ -114,22 +150,13 @@
 // double-buffered DMA loop with one running top-k. Here page p of P rows
 // (P a runtime argument >= 1; the last page ragged) is one block per B
 // block: grid (pages, B blocks). The block walks its page in 256-row
-// sub-tiles, selects each sub-tile's top min(L, 256) with the resident
-// kernel's selection (in its own shared-memory buffers), folds
-// it into one running list of L = min(k, P) entries per query row by rank
-// merge, and writes that list as the page's; merge and finish then run
-// over the page lists. Scores and lists equal the resident kernel's bit
-// for bit (same FMA chain, same BM25, exact total orders). Staging: emb
-// and query chunks of 16 dims go through a ring of 2-4 shared-memory
-// stages filled by cp.async (16-byte .cg copies when D % 4 == 0, 4-byte
-// .ca otherwise, zero-filled past the page, B and D), issued stages - 1
-// chunks ahead of the FMAs and across sub-tile boundaries, so a chunk's
-// load latency hides behind the previous chunks' FMAs and the sub-tile's
-// selection. The emb chunk is stored as float4 columns, so each thread
-// reads its row without bank conflicts. Its bound is the resident
-// regime's (the same bytes and FMAs: 7.7 ms DENSE, 8.05 ms FUSED / BOTH at
-// the shapes above); the candidate buffers shrink from n_tiles to n_pages
-// lists a row.
+// sub-tiles through the same score stage and epilogue -- the ring running
+// on across sub-tile boundaries -- selects each sub-tile's top
+// min(L, 256) into buffers of its own, folds it into one running list of
+// L = min(k, P) entries per query row by rank merge, and writes that list
+// as the page's; merge and finish then run over the page lists. Its bound
+// is the resident regime's (the same bytes and FMAs); the candidate
+// buffers shrink from n_tiles to n_pages lists a row.
 
 #pragma once
 
@@ -138,29 +165,43 @@
 #include <climits>
 #include <cstdint>
 
+#include "attention.cuh"   // mbarriers, TMA loads, tensor maps
+
 namespace {
 
-constexpr int THREADS = 256;      // threads per tile block
-constexpr int TILE_N = THREADS;   // arena rows per block, one per thread
-constexpr int DK = 32;            // D chunk staged through shared memory
+constexpr int THREADS = 256;      // threads per block
+constexpr int TILE_N = THREADS;   // arena rows a block scores at once
+constexpr int DK = 32;            // D is zero-padded to a multiple of DK
+constexpr int MR = 4;             // arena rows of a thread's micro-tile
+constexpr int NQG = 4;            // query groups: QN = BB / NQG rows each
+constexpr int NRG = TILE_N / MR;  // row groups
 constexpr int RS = THREADS / 32;  // query rows selected together, one a warp
 constexpr int WARP_K = 32;        // largest k_loc the warp selection takes
+constexpr int MAX_STAGES = 4;     // deepest ring the launcher picks
+// a paged block's running lists go to shared memory when both copies fit
+constexpr size_t RUN_SMEM_BUDGET = 24 * 1024;
 constexpr float NEG_INF = -FLT_MAX;
 // Index carried by every NEG_INF entry (masked rows, rows past N, merge
 // padding): all of them tie and sort after every real entry, so each list
 // stays sorted when padding is appended. `finish` turns them into slot -1.
 constexpr int NO_ROW = INT_MAX;
 
-// after the dot products the emb staging area holds the selection
-// buffers: the dense list's scores and indices, and BOTH's bm25 list's
-static_assert(4 * RS * TILE_N <= TILE_N * (DK + 1),
-              "selection buffers exceed the emb staging area");
+static_assert(NRG * NQG == THREADS, "the micro-tiles cover the block");
+static_assert(NRG == 64 && NQG * 2 == THREADS / 32,
+              "two warps a query group, 32 row groups a warp");
 
 // score modes: ScanSpec(score=...) of the plain version
 constexpr int DENSE = 0;   // one list on the dense score
 constexpr int FUSED = 1;   // one list on dense + bm25 (wsum)
 constexpr int BOTH = 2;    // two lists, dense and bm25 (rrf)
 constexpr int PROBE = 3;   // one dense list over slot-indirect candidates
+
+// Dims a ring stage holds: 32 (128-byte rows) where shared memory allows
+// two stages of them beside the rest, 16 (64-byte rows) in the lexical
+// modes, whose staged lanes take that room. Either divides DK.
+__host__ __device__ constexpr int chunk_dims(int mode) {
+  return (mode == FUSED || mode == BOTH) ? 16 : 32;
+}
 
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
@@ -309,193 +350,6 @@ __device__ __forceinline__ float bm25_row(const int* lt, const float* ll,
   return acc;
 }
 
-template <int BB, int MODE>
-__global__ void __launch_bounds__(THREADS)
-tile_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
-                 const int* __restrict__ meta, const int* __restrict__ gids,
-                 const int* __restrict__ preds,
-                 const int* __restrict__ terms,
-                 const float* __restrict__ lexnorm,
-                 const int* __restrict__ qterms,
-                 const float* __restrict__ qidf,
-                 const int* __restrict__ cand, int n_arena, int B, int N,
-                 int D, int G, int T, int QT, int k_loc, int n_tiles,
-                 float* __restrict__ cand_s, int* __restrict__ cand_i) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* e_sh = reinterpret_cast<float*>(smem_raw);     // TILE_N x (DK+1)
-  float* q_sh = e_sh + TILE_N * (DK + 1);                // DK x BB
-  int* p_sh = reinterpret_cast<int*>(q_sh + DK * BB);    // G x 4
-  int* g_sh = p_sh + 4 * G;                              // BB
-  // the sort buffers reuse the emb staging area once the dots are done
-  float* s_sort = e_sh;                                  // RS x TILE_N
-  int* i_sort = reinterpret_cast<int*>(e_sh + RS * TILE_N);
-  // BOTH: the bm25 list's buffers, behind the dense list's in the same area
-  float* s_lex = e_sh + 2 * RS * TILE_N;                 // RS x TILE_N
-  int* i_lex = reinterpret_cast<int*>(e_sh + 3 * RS * TILE_N);
-  // lexical modes: the tile's lanes (row-major, odd stride LS so a thread
-  // walking its own row hits a distinct bank) and the block's query terms
-  const int LS = T | 1;
-  int* lt_sh = g_sh + BB;                                // TILE_N x LS
-  float* ll_sh = reinterpret_cast<float*>(lt_sh + TILE_N * LS);
-  int* qt_sh = reinterpret_cast<int*>(ll_sh + TILE_N * LS);  // BB x QT
-  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QT);  // BB x QT
-  // PROBE: the tile's arena slots (-1 for a dead or padding candidate)
-  int* sl_sh = g_sh + BB;                                // TILE_N
-
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int b0 = blockIdx.y * BB;
-  const int base = tile * TILE_N;
-
-  for (int i = tid; i < 4 * G; i += THREADS) p_sh[i] = preds[i];
-  for (int i = tid; i < BB; i += THREADS) {
-    int g;
-    if constexpr (MODE == PROBE) {
-      g = (b0 + i < B) ? 0 : -1;              // one predicate, no gids
-    } else {
-      g = (b0 + i < B) ? gids[b0 + i] : -1;
-    }
-    g_sh[i] = (g >= 0 && g < G) ? g : -1;   // out-of-range ids match nothing
-  }
-  if constexpr (MODE == PROBE) {
-    for (int r = tid; r < TILE_N; r += THREADS) {
-      const int slot = base + r < N ? cand[base + r] : -1;
-      sl_sh[r] = (slot >= 0 && slot < n_arena) ? slot : -1;
-    }
-  }
-  if constexpr (MODE == FUSED || MODE == BOTH) {
-    for (int f = tid; f < TILE_N * T; f += THREADS) {
-      const int r = f / T;
-      const int t = f % T;
-      const bool in = base + r < N;
-      const size_t src = (size_t)(base + r) * T + t;
-      lt_sh[r * LS + t] = in ? terms[src] : -1;
-      ll_sh[r * LS + t] = in ? lexnorm[src] : 0.f;
-    }
-    for (int i = tid; i < BB * QT; i += THREADS) {
-      const int b = b0 + i / QT;
-      const size_t src = (size_t)b * QT + i % QT;
-      qt_sh[i] = b < B ? qterms[src] : -1;
-      qw_sh[i] = b < B ? qidf[src] : 0.f;
-    }
-  }
-
-  float acc[BB];                   // arena row base + tid, every query row
-#pragma unroll
-  for (int j = 0; j < BB; ++j) acc[j] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += DK) {
-    __syncthreads();   // the previous chunk is consumed
-    if ((D & 3) == 0) {              // 16-byte loads: rows stay aligned
-      for (int f = tid; f < TILE_N * (DK / 4); f += THREADS) {
-        const int r = f / (DK / 4);
-        const int c = 4 * (f % (DK / 4));
-        const int row = MODE == PROBE ? sl_sh[r] : base + r;
-        const bool in = MODE == PROBE ? row >= 0 : row < N;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (in && d0 + c < D)
-          v = *reinterpret_cast<const float4*>(emb + (size_t)row * D + d0 + c);
-        float* dst = e_sh + r * (DK + 1) + c;
-        dst[0] = v.x;
-        dst[1] = v.y;
-        dst[2] = v.z;
-        dst[3] = v.w;
-      }
-    } else {
-      for (int f = tid; f < TILE_N * DK; f += THREADS) {
-        const int r = f / DK;
-        const int c = f % DK;
-        const int row = MODE == PROBE ? sl_sh[r] : base + r;
-        const bool in = MODE == PROBE ? row >= 0 : row < N;
-        const int d = d0 + c;
-        e_sh[r * (DK + 1) + c] =
-            (in && d < D) ? emb[(size_t)row * D + d] : 0.f;
-      }
-    }
-    for (int f = tid; f < BB * DK; f += THREADS) {
-      const int bb = f / DK;
-      const int c = f % DK;
-      const int b = b0 + bb;
-      const int d = d0 + c;
-      q_sh[c * BB + bb] = (b < B && d < D) ? q[(size_t)b * D + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int dd = 0; dd < DK; ++dd) {
-      const float e = e_sh[tid * (DK + 1) + dd];
-      const float4* qv = reinterpret_cast<const float4*>(q_sh + dd * BB);
-#pragma unroll
-      for (int j = 0; j < BB / 4; ++j) {
-        const float4 v = qv[j];
-        acc[4 * j + 0] = fmaf(v.x, e, acc[4 * j + 0]);
-        acc[4 * j + 1] = fmaf(v.y, e, acc[4 * j + 1]);
-        acc[4 * j + 2] = fmaf(v.z, e, acc[4 * j + 2]);
-        acc[4 * j + 3] = fmaf(v.w, e, acc[4 * j + 3]);
-      }
-    }
-  }
-  __syncthreads();   // every thread is done with e_sh before it is reused
-
-  // 1 << 31 is the sign bit, as uint32 bitmasks require; categories
-  // outside [0, 32) match no category set. `row` is what the lists carry:
-  // the arena row, or in PROBE the candidate position, whose metadata is
-  // arena row sl_sh[tid]
-  const int row = base + tid;
-  const int src = MODE == PROBE ? sl_sh[tid] : row;
-  const bool live_src = MODE == PROBE ? src >= 0 : row < N;
-  const int4 m = live_src ? reinterpret_cast<const int4*>(meta)[src]
-                          : make_int4(-1, 0, 0, 0);   // dead: never live
-  const unsigned cat_bit = ((unsigned)m.z < 32u) ? (1u << m.z) : 0u;
-
-#pragma unroll
-  for (int r0 = 0; r0 < BB; r0 += RS) {
-#pragma unroll
-    for (int j = 0; j < RS; ++j) {
-      const int g = g_sh[r0 + j];
-      int pt = -3, pts = 0;
-      unsigned pc = 0u, pa = 0u;
-      if (g >= 0) {
-        pt = p_sh[4 * g + 0];
-        pts = p_sh[4 * g + 1];
-        pc = (unsigned)p_sh[4 * g + 2];
-        pa = (unsigned)p_sh[4 * g + 3];
-      }
-      const bool keep = g >= 0 && m.x >= 0 && (pt == -2 || m.x == pt) &&
-                        m.y >= pts && (cat_bit & pc) != 0u &&
-                        ((unsigned)m.w & pa) != 0u;
-      s_sort[j * TILE_N + tid] = keep ? acc[r0 + j] : NEG_INF;
-      i_sort[j * TILE_N + tid] = keep ? row : NO_ROW;
-    }
-    if constexpr (MODE == FUSED || MODE == BOTH) {
-      // the lexical stage, in a loop that is not unrolled (one copy of the
-      // BM25 loop per chunk): each thread reads back its own column, and a
-      // row that failed its predicate (index NO_ROW) skips the BM25
-#pragma unroll 1
-      for (int j = 0; j < RS; ++j) {
-        const int o = j * TILE_N + tid;
-        const bool keep = i_sort[o] != NO_ROW;
-        const float b25 =
-            keep ? bm25_row(lt_sh + tid * LS, ll_sh + tid * LS, T,
-                            qt_sh + (r0 + j) * QT, qw_sh + (r0 + j) * QT, QT)
-                 : 0.f;
-        if constexpr (MODE == FUSED) {
-          if (keep) s_sort[o] = __fadd_rn(s_sort[o], b25);
-        } else {
-          s_lex[o] = keep ? b25 : NEG_INF;
-          i_lex[o] = i_sort[o];
-        }
-      }
-    }
-    __syncthreads();
-    emit(s_sort, i_sort, k_loc, b0 + r0, B, tile, n_tiles, cand_s, cand_i);
-    if constexpr (MODE == BOTH) {   // the same rows' bm25 list: list 1
-      const size_t list = (size_t)B * n_tiles * k_loc;
-      emit(s_lex, i_lex, k_loc, b0 + r0, B, tile, n_tiles, cand_s + list,
-           cand_i + list);
-    }
-  }
-}
-
 // One merge round: lists 2p and 2p+1 of every row (each sorted, length L)
 // become list p (length L2 = min(k, 2L)). Thread per input element: its
 // output position is its rank in the union. Ties between the two lists
@@ -580,44 +434,8 @@ __global__ void finish_kernel(const float* __restrict__ in_s,
 }
 
 // ---------------------------------------------------------------------------
-// The paged regime: one block per (page, B block), one running list per
-// query row, the arena staged through a cp.async ring.
+// cp.async and the paged regime's rank fold.
 // ---------------------------------------------------------------------------
-
-constexpr int CH = 16;          // D chunk a ring stage holds (divides DK)
-constexpr int MAX_STAGES = 4;   // deepest ring the launcher picks
-// running lists go to shared memory when both copies fit in this budget
-constexpr size_t RUN_SMEM_BUDGET = 24 * 1024;
-
-// Shared-memory layout of paged_scan_kernel, computed alike on the host
-// (to size the launch) and on the device (to carve the buffer). Every
-// offset is a multiple of 16 bytes.
-struct PagedLayout {
-  size_t ring, stage, sel, sub, run, preds, gids, lanes, qlex, total;
-};
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
-__host__ __device__ inline PagedLayout paged_layout(int BB, int n_lists,
-                                                    bool lexical, int G,
-                                                    int T, int QT, int L,
-                                                    int stages,
-                                                    bool run_smem) {
-  PagedLayout p;
-  p.stage = sizeof(float) * (size_t)(TILE_N + BB) * CH;
-  p.ring = 0;
-  p.sel = p.ring + (size_t)stages * p.stage;
-  p.sub = p.sel + (size_t)n_lists * RS * TILE_N * 8;
-  p.run = p.sub + align16((size_t)n_lists * RS * (L < TILE_N ? L : TILE_N) * 8);
-  p.preds = p.run + (run_smem ? align16((size_t)2 * n_lists * BB * L * 8) : 0);
-  p.gids = p.preds + align16(sizeof(int) * 4 * (size_t)G);
-  p.lanes = p.gids + align16(sizeof(int) * (size_t)BB);
-  p.qlex = p.lanes + (lexical ? align16((size_t)8 * TILE_N * (T | 1)) : 0);
-  p.total = p.qlex + (lexical ? align16((size_t)8 * BB * QT) : 0);
-  return p;
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -699,266 +517,434 @@ __device__ __forceinline__ void fold_lists(const float* sub_s,
   }
 }
 
-// One block scans rows [page * P, min((page + 1) * P, N)) for query rows
-// [b0, b0 + BB) in sub-tiles of TILE_N rows, keeping one running list of
-// L = min(k, P) entries per query row (per list in BOTH), and writes it as
-// the page's list at (list * B * n_pages + b * n_pages + page) * L of s0.
-// The arena's rows (emb chunks of CH dims) and the query chunks stream
-// through a ring of `stages` buffers filled by cp.async, `stages - 1`
-// chunks ahead of the FMAs, across sub-tile boundaries too; the selection
-// and merge buffers have their own space, so the copies in flight never
-// land on data in use. Scores are the resident kernel's bit for bit: the
-// same fmaf chain with d ascending over D padded to a multiple of DK with
-// zeros, the same BM25 and mask stages. Up to BB = 32 the registers are
-// capped at 128 a thread so that two blocks share an SM (ptxas spills a
-// few bytes); rolling the FMA loop's CH / 4 float4 columns in BOTH keeps
-// the compiler from hoisting every query load of the chunk there.
-template <int BB, int MODE>
-__global__ void __launch_bounds__(THREADS, BB <= 32 ? 2 : 1)
-paged_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
-                  const int* __restrict__ meta, const int* __restrict__ gids,
-                  const int* __restrict__ preds,
-                  const int* __restrict__ terms,
-                  const float* __restrict__ lexnorm,
-                  const int* __restrict__ qterms,
-                  const float* __restrict__ qidf,
-                  const int* __restrict__ cand, int n_arena, int B, int N,
-                  int D, int G, int T, int QT, int P, int n_pages, int L,
-                  int stages, int run_smem, float* s0, int* i0, float* s1,
-                  int* i1) {
+// ---------------------------------------------------------------------------
+// The score stage and the epilogue, shared by the resident and the paged
+// kernel.
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of a scan block, computed alike on the host (to
+// size the launch) and on the device (to carve the buffer). Offsets count
+// from the buffer's first 1024-byte boundary (the TMA swizzle's period;
+// `total` includes the slack to reach it): the ring first, each stage the
+// emb chunk [TILE_N rows][CH] (TMA-swizzled, e_col) then the query chunk
+// [BB][CH], then the other regions at multiples of 16 bytes. `paged` adds
+// the sub-tile lists and, with `run_smem`, both copies of the running
+// lists.
+struct ScanLayout {
+  size_t stage, sel, sub, run, preds, gids, lanes, qlex, bars, total;
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+__host__ __device__ inline size_t align1024(size_t x) {
+  return (x + 1023) & ~(size_t)1023;
+}
+
+__host__ __device__ inline ScanLayout scan_layout(int BB, int ch,
+                                                  int n_lists, bool lexical,
+                                                  bool paged, int G, int T,
+                                                  int QT, int L, int stages,
+                                                  bool run_smem) {
+  ScanLayout p;
+  p.stage = align1024(sizeof(float) * (size_t)(TILE_N + BB) * ch);
+  p.sel = (size_t)stages * p.stage;
+  p.sub = p.sel + (size_t)n_lists * RS * TILE_N * 8;
+  p.run = p.sub + (paged ? align16((size_t)n_lists * RS *
+                                   (L < TILE_N ? L : TILE_N) * 8)
+                         : 0);
+  p.preds = p.run + (run_smem ? align16((size_t)2 * n_lists * BB * L * 8) : 0);
+  p.gids = p.preds + align16(sizeof(int) * 4 * (size_t)G);
+  p.lanes = p.gids + align16(sizeof(int) * (size_t)BB);
+  p.qlex = p.lanes + (lexical ? align16((size_t)8 * TILE_N * (T | 1)) : 0);
+  p.bars = p.qlex + (lexical ? align16((size_t)8 * BB * QT) : 0);
+  p.total = p.bars + align16((size_t)8 * stages) + 1024;
+  return p;
+}
+
+// One launch's inputs and outputs, passed to the kernels by value.
+struct ScanArgs {
+  const float* q;          // (B, D)
+  const float* emb;        // (n_arena, D)
+  const int* meta;         // (n_arena, 4)
+  const int* gids;         // (B,); PROBE: unused (one predicate)
+  const int* preds;        // (G, 4)
+  const int* terms;        // lexical modes: (N, T)
+  const float* lexnorm;    // (N, T)
+  const int* qterms;       // (B, QT)
+  const float* qidf;       // (B, QT)
+  const int* cand;         // PROBE: (N,) arena slots of the N candidates
+  int n_arena, B, N, D, G, T, QT;
+  int L;         // entries a tile's (resident) or a page's (paged) list
+  int n_lists;   // tiles (resident) or pages (paged): lists a query row
+  int P;         // paged: rows a page
+  int stages;    // ring stages
+  int run_smem;  // paged: running lists in shared memory (0/1)
+  float* s0;     // resident: the tile lists; paged: the page lists
+  int* i0;
+  float* s1;     // paged: the other merge buffer (running lists when
+  int* i1;       //   they do not fit shared memory)
+};
+
+// The float4 column that holds dims 4 c4 .. 4 c4 + 3 of row r in a stage's
+// emb chunk of CHD dims a row: the TMA's swizzle of the row's size -- the
+// 16-byte unit c4 XOR bits 1-2 of the row for 64-byte rows, bits 0-2 for
+// 128-byte rows -- so that eight consecutive rows at one c4 fall in
+// distinct banks.
+template <int CHD>
+__device__ __forceinline__ int e_col(int r, int c4) {
+  static_assert(CHD == 16 || CHD == 32, "64- or 128-byte rows");
+  return r * (CHD / 4) + (c4 ^ (CHD == 16 ? (r >> 1) & 3 : r & 7));
+}
+
+// One block of either kernel: the score stage and the epilogue over the
+// block's 256-row sub-tiles -- resident, its one tile; paged, the
+// sub-tiles of page blockIdx.x -- for query rows [b0, b0 + BB). Resident,
+// the tile's lists go to the candidate buffer at (list * B * n_tiles + b *
+// n_tiles + tile) * k_loc of s0. Paged, one running list of L = min(k, P)
+// entries per query row (per list in BOTH) absorbs each sub-tile's lists
+// and is written as the page's at (list * B * n_pages + b * n_pages +
+// page) * L of s0. The ring runs across sub-tile boundaries; the
+// selection, sub-tile and running-list buffers have their own space, so
+// copies in flight never land on data in use.
+template <int BB, int MODE, bool PAGED>
+__device__ __forceinline__ void scan_block(const ScanArgs a,
+                                           const CUtensorMap* emb_map,
+                                           const CUtensorMap* q_map) {
   constexpr bool LEX = MODE == FUSED || MODE == BOTH;
   constexpr int NL = MODE == BOTH ? 2 : 1;
-  // the FMA loop's float4 columns: unrolled, but rolled in BOTH, whose
-  // second list's buffers leave the unrolled loop short of registers
-  constexpr int C4_UNROLL = MODE == BOTH ? 1 : CH / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const PagedLayout lay =
-      paged_layout(BB, NL, LEX, G, T, QT, L, stages, run_smem != 0);
-  float* s_sort = reinterpret_cast<float*>(smem_raw + lay.sel);
+  constexpr int CH = chunk_dims(MODE);
+  constexpr int QN = BB / NQG;          // query rows of a micro-tile
+  static_assert(QN * NQG == BB, "BB splits into the query groups");
+  extern __shared__ __align__(16) unsigned char smem_buf[];
+  unsigned char* smem_raw =
+      smem_buf + ((1024 - (attn::smem_u32(smem_buf) & 1023)) & 1023);
+  const ScanLayout lay = scan_layout(BB, CH, NL, LEX, PAGED, a.G, a.T,
+                                     a.QT, a.L, a.stages, a.run_smem != 0);
+  // the chunks come by TMA (one thread, a 2-D box of each tensor, landing
+  // on the stage's mbarrier), except for PROBE's gathered rows and D % 4
+  // != 0, which come by cp.async (every thread, waited per thread)
+  const bool use_tma = MODE != PROBE && (a.D & 3) == 0;
+  const uint32_t bars = attn::smem_u32(smem_raw + lay.bars);
+  float* s_sort = reinterpret_cast<float*>(smem_raw + lay.sel);  // RS x TILE_N
   int* i_sort = reinterpret_cast<int*>(s_sort + RS * TILE_N);
   float* s_lex = s_sort + 2 * RS * TILE_N;      // BOTH: the bm25 list's
   int* i_lex = reinterpret_cast<int*>(s_sort + 3 * RS * TILE_N);
-  const int k_sub = min(L, TILE_N);
-  // each sub-tile's selected lists: RS rows of k_sub, the bm25 list's after
+  const int k_sub = min(a.L, TILE_N);
+  // paged: each sub-tile's selected lists, RS rows of k_sub, bm25's after
   float* sub_s = reinterpret_cast<float*>(smem_raw + lay.sub);
   int* sub_i = reinterpret_cast<int*>(sub_s + NL * RS * k_sub);
   float* sub_ls = sub_s + RS * k_sub;
   int* sub_li = sub_i + RS * k_sub;
-  int* p_sh = reinterpret_cast<int*>(smem_raw + lay.preds);
-  int* g_sh = reinterpret_cast<int*>(smem_raw + lay.gids);
-  const int LS = T | 1;
-  int* lt_sh = reinterpret_cast<int*>(smem_raw + lay.lanes);   // TILE_N x LS
+  int* p_sh = reinterpret_cast<int*>(smem_raw + lay.preds);      // G x 4
+  int* g_sh = reinterpret_cast<int*>(smem_raw + lay.gids);       // BB
+  const int LS = a.T | 1;
+  int* lt_sh = reinterpret_cast<int*>(smem_raw + lay.lanes);     // TILE_N x LS
   float* ll_sh = reinterpret_cast<float*>(lt_sh + TILE_N * LS);
-  int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);    // BB x QT
-  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QT);
+  int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);      // BB x QT
+  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * a.QT);
 
   const int tid = threadIdx.x;
-  const int page = blockIdx.x;
+  // rows rg + NRG * i, query rows qg * QN + j: a warp holds 32 row groups
+  // and one query group
+  const int rg = ((tid >> 5) & 1) * 32 + (tid & 31);
+  const int qg = tid >> 6;
   const int b0 = blockIdx.y * BB;
-  const int nb = min(BB, B - b0);                 // real query rows here
-  const int page_base = page * P;                 // P * n_pages < 2^31
-  const int page_end = (int)min((long long)page_base + P, (long long)N);
-  const int n_sub = (page_end - page_base + TILE_N - 1) / TILE_N;
-  const int n_ch = ((D + DK - 1) / DK) * (DK / CH);
+  const int nb = min(BB, a.B - b0);           // real query rows here
+  // the block's sub-tiles: sub-tile s covers rows [first + s * step, ...)
+  // below row_end
+  int first, step, row_end, n_sub;
+  if constexpr (PAGED) {
+    first = blockIdx.x * a.P;                 // P * n_pages < 2^31
+    step = TILE_N;
+    row_end = (int)min((long long)first + a.P, (long long)a.N);
+    n_sub = (row_end - first + TILE_N - 1) / TILE_N;
+  } else {
+    first = blockIdx.x * TILE_N;            // one tile a block
+    step = TILE_N;
+    row_end = a.N;
+    n_sub = 1;
+  }
+  const int n_ch = ((a.D + DK - 1) / DK) * (DK / CH);
   const int total = n_sub * n_ch;
 
-  for (int i = tid; i < 4 * G; i += THREADS) p_sh[i] = preds[i];
+  for (int i = tid; i < 4 * a.G; i += THREADS) p_sh[i] = a.preds[i];
   for (int i = tid; i < BB; i += THREADS) {
     int g;
     if constexpr (MODE == PROBE) {
-      g = (b0 + i < B) ? 0 : -1;
+      g = (b0 + i < a.B) ? 0 : -1;            // one predicate, no gids
     } else {
-      g = (b0 + i < B) ? gids[b0 + i] : -1;
+      g = (b0 + i < a.B) ? a.gids[b0 + i] : -1;
     }
-    g_sh[i] = (g >= 0 && g < G) ? g : -1;
+    g_sh[i] = (g >= 0 && g < a.G) ? g : -1;   // out-of-range ids match nothing
   }
   if constexpr (LEX) {
-    for (int i = tid; i < BB * QT; i += THREADS) {
-      const int b = b0 + i / QT;
-      const size_t src = (size_t)b * QT + i % QT;
-      qt_sh[i] = b < B ? qterms[src] : -1;
-      qw_sh[i] = b < B ? qidf[src] : 0.f;
+    for (int i = tid; i < BB * a.QT; i += THREADS) {
+      const int b = b0 + i / a.QT;
+      const size_t src = (size_t)b * a.QT + i % a.QT;
+      qt_sh[i] = b < a.B ? a.qterms[src] : -1;
+      qw_sh[i] = b < a.B ? a.qidf[src] : 0.f;
     }
   }
 
-  // The running lists: both copies in shared memory, or this page's slots
-  // of s0 and s1 (the merge rounds' buffers, unused until this kernel
-  // ends), started in the one that leaves the last fold's result in s0.
-  const size_t g_list = (size_t)B * n_pages * L;  // list stride in s0 / s1
-  const size_t g_row = (size_t)n_pages * L;       // row stride in s0 / s1
-  const size_t g_off = (size_t)b0 * g_row + (size_t)page * L;
-  float *cur_s, *nxt_s;
-  int *cur_i, *nxt_i;
-  size_t rstride, lstride;
-  if (run_smem) {
-    cur_s = reinterpret_cast<float*>(smem_raw + lay.run);
-    cur_i = reinterpret_cast<int*>(cur_s + NL * BB * L);
-    nxt_s = reinterpret_cast<float*>(cur_i + NL * BB * L);
-    nxt_i = reinterpret_cast<int*>(nxt_s + NL * BB * L);
-    rstride = L;
-    lstride = (size_t)BB * L;
-  } else {
-    const bool odd = n_sub & 1;
-    cur_s = (odd ? s1 : s0) + g_off;
-    cur_i = (odd ? i1 : i0) + g_off;
-    nxt_s = (odd ? s0 : s1) + g_off;
-    nxt_i = (odd ? i0 : i1) + g_off;
-    rstride = g_row;
-    lstride = g_list;
+  if (use_tma && tid == 0) {
+    for (int st = 0; st < a.stages; ++st) attn::mbar_init(bars + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int f = tid; f < NL * nb * L; f += THREADS) {
-    const int l = f / (nb * L);
-    const int j = (f / L) % nb;
-    const size_t o = l * lstride + j * rstride + f % L;
-    cur_s[o] = NEG_INF;
-    cur_i[o] = NO_ROW;
+  __syncthreads();   // the barriers are initialised before any wait
+
+  // paged: the running lists, both copies in shared memory, or this page's
+  // slots of s0 and s1 (the merge rounds' buffers, unused until this
+  // kernel ends), started in the one that leaves the last fold's result in
+  // s0
+  float *cur_s = nullptr, *nxt_s = nullptr;
+  int *cur_i = nullptr, *nxt_i = nullptr;
+  size_t rstride = 0, lstride = 0;
+  const size_t g_list = (size_t)a.B * a.n_lists * a.L;  // list stride in s0
+  const size_t g_row = (size_t)a.n_lists * a.L;         // row stride in s0
+  const size_t g_off = (size_t)b0 * g_row + (size_t)blockIdx.x * a.L;
+  if constexpr (PAGED) {
+    if (a.run_smem) {
+      cur_s = reinterpret_cast<float*>(smem_raw + lay.run);
+      cur_i = reinterpret_cast<int*>(cur_s + NL * BB * a.L);
+      nxt_s = reinterpret_cast<float*>(cur_i + NL * BB * a.L);
+      nxt_i = reinterpret_cast<int*>(nxt_s + NL * BB * a.L);
+      rstride = a.L;
+      lstride = (size_t)BB * a.L;
+    } else {
+      const bool odd = n_sub & 1;
+      cur_s = (odd ? a.s1 : a.s0) + g_off;
+      cur_i = (odd ? a.i1 : a.i0) + g_off;
+      nxt_s = (odd ? a.s0 : a.s1) + g_off;
+      nxt_i = (odd ? a.i0 : a.i1) + g_off;
+      rstride = g_row;
+      lstride = g_list;
+    }
+    for (int f = tid; f < NL * nb * a.L; f += THREADS) {
+      const int l = f / (nb * a.L);
+      const int j = (f / a.L) % nb;
+      const size_t o = l * lstride + j * rstride + f % a.L;
+      cur_s[o] = NEG_INF;
+      cur_i[o] = NO_ROW;
+    }
   }
 
-  // Copy chunk gi (sub-tile gi / n_ch, dims (gi % n_ch) * CH ...) into ring
-  // stage gi % stages: emb as float4 column blocks ([c4][row], so thread r
-  // reads its row conflict-free), q row-major ([bb][c]), zeros past the
-  // page, past B and past D.
-  auto issue = [&](int gi) {
-    const int base = page_base + (gi / n_ch) * TILE_N;
-    const int d0 = (gi % n_ch) * CH;
-    float* e_st = reinterpret_cast<float*>(smem_raw + lay.ring +
-                                           (size_t)(gi % stages) * lay.stage);
+  // The arena row of sub-tile row r at `base`, or -1 (past the sub-tile's
+  // end; PROBE: a dead or padding candidate).
+  auto src_row = [&](int base, int r) {
+    const int pos = base + r;
+    if (pos >= row_end) return -1;
+    if constexpr (MODE == PROBE) {
+      const int slot = __ldg(a.cand + pos);
+      return (slot >= 0 && slot < a.n_arena) ? slot : -1;
+    } else {
+      return pos;
+    }
+  };
+  // A thread's 16-byte copies of a chunk (the cp.async path): float4
+  // column c4 = tid % C4 of tile rows tid / C4 + m * ROW_STEP (m < C4), and
+  // of query rows (tid + m * THREADS) / C4 for m < Q_COPIES.
+  constexpr int C4 = CH / 4;
+  constexpr int ROW_STEP = THREADS / C4;
+  constexpr int Q_COPIES = (BB * C4 + THREADS - 1) / THREADS;
+  constexpr uint32_t STAGE_TX = sizeof(float) * (TILE_N + BB) * CH;
+  const int my_c4 = tid % C4;
+  const int my_r = tid / C4;
+  // Copy the chunk at dims d0.. of the sub-tile at `base` into ring stage
+  // `st`: emb as [row][CH] under the TMA's swizzle (e_col), the queries as
+  // [query row][CH]; zeros past the tensors (TMA) or past the sub-tile, B
+  // and D (cp.async). Rows past a page's end but inside the arena are
+  // copied and masked in the epilogue.
+  auto issue = [&](int base, int d0, int st) {
+    float* e_st = reinterpret_cast<float*>(smem_raw +
+                                           (size_t)st * lay.stage);
     float* q_st = e_st + TILE_N * CH;
-    auto src_row = [&](int r) {     // the arena row of sub-tile row r, or -1
-      const int pos = base + r;
-      if (pos >= page_end) return -1;
-      if constexpr (MODE == PROBE) {
-        const int slot = __ldg(cand + pos);
-        return (slot >= 0 && slot < n_arena) ? slot : -1;
-      } else {
-        return pos;
+    if (use_tma) {
+      if (tid == 0) {
+        const uint32_t bar = bars + 8 * st;
+        attn::mbar_expect_tx(bar, STAGE_TX);
+        attn::tma_load_2d(attn::smem_u32(e_st), emb_map, bar, d0, base);
+        attn::tma_load_2d(attn::smem_u32(q_st), q_map, bar, d0, b0);
       }
-    };
-    if ((D & 3) == 0) {             // 16-byte copies: rows stay aligned
-      for (int f = tid; f < TILE_N * (CH / 4); f += THREADS) {
-        const int r = f / (CH / 4);
-        const int c4 = f % (CH / 4);
-        const int d = d0 + 4 * c4;
-        const int row = src_row(r);
-        const bool ok = row >= 0 && d < D;
-        cp_async16(e_st + (c4 * TILE_N + r) * 4,
-                   ok ? emb + (size_t)row * D + d : emb, ok);
+    } else if ((a.D & 3) == 0) {    // PROBE: 16-byte copies of gathered rows
+#pragma unroll
+      for (int m = 0; m < C4; ++m) {
+        const int r = my_r + m * ROW_STEP;
+        const int row = src_row(base, r);
+        const int d = d0 + 4 * my_c4;
+        const bool ok = row >= 0 && d < a.D;
+        cp_async16(e_st + 4 * e_col<CH>(r, my_c4),
+                   ok ? a.emb + (size_t)row * a.D + d : a.emb, ok);
       }
-      for (int f = tid; f < BB * (CH / 4); f += THREADS) {
-        const int bb = f / (CH / 4);
-        const int d = d0 + 4 * (f % (CH / 4));
-        const bool ok = b0 + bb < B && d < D;
-        cp_async16(q_st + bb * CH + (d - d0),
-                   ok ? q + (size_t)(b0 + bb) * D + d : q, ok);
+#pragma unroll
+      for (int m = 0; m < Q_COPIES; ++m) {
+        const int f = tid + m * THREADS;
+        const int bb = f / C4;
+        const int dq = d0 + 4 * (f % C4);
+        if (BB * C4 % THREADS == 0 || f < BB * C4) {
+          const bool ok = b0 + bb < a.B && dq < a.D;
+          cp_async16(q_st + bb * CH + 4 * (f % C4),
+                     ok ? a.q + (size_t)(b0 + bb) * a.D + dq : a.q, ok);
+        }
       }
     } else {                        // 4-byte copies
       for (int f = tid; f < TILE_N * CH; f += THREADS) {
         const int r = f / CH;
         const int c = f % CH;
         const int d = d0 + c;
-        const int row = src_row(r);
-        const bool ok = row >= 0 && d < D;
-        cp_async4(e_st + ((c / 4) * TILE_N + r) * 4 + (c & 3),
-                  ok ? emb + (size_t)row * D + d : emb, ok);
+        const int row = src_row(base, r);
+        const bool ok = row >= 0 && d < a.D;
+        cp_async4(e_st + 4 * e_col<CH>(r, c / 4) + (c & 3),
+                  ok ? a.emb + (size_t)row * a.D + d : a.emb, ok);
       }
       for (int f = tid; f < BB * CH; f += THREADS) {
         const int bb = f / CH;
-        const int d = d0 + f % CH;
-        const bool ok = b0 + bb < B && d < D;
-        cp_async4(q_st + bb * CH + (d - d0),
-                  ok ? q + (size_t)(b0 + bb) * D + d : q, ok);
+        const int c = f % CH;
+        const int d = d0 + c;
+        const bool ok = b0 + bb < a.B && d < a.D;
+        cp_async4(q_st + bb * CH + c,
+                  ok ? a.q + (size_t)(b0 + bb) * a.D + d : a.q, ok);
       }
     }
   };
+  // the next chunk to issue (stages - 1 ahead of the one consumed): its
+  // sub-tile's first row, its chunk in the sub-tile and its ring stage
+  int i_base = first, i_c = 0, i_st = 0, issued = 0;
+  auto issue_next = [&]() {
+    if (issued < total) issue(i_base, i_c * CH, i_st);
+    if (!use_tma) cp_async_commit();  // empty groups keep the count
+    ++issued;
+    if (++i_c == n_ch) {
+      i_c = 0;
+      i_base += step;
+    }
+    if (++i_st == a.stages) i_st = 0;
+  };
 
-  for (int s = 0; s < stages - 1; ++s) {   // prologue: stages - 1 chunks
-    if (s < total) issue(s);
-    cp_async_commit();                      // empty groups keep the count
+  for (int s = 0; s < a.stages - 1; ++s) issue_next();  // the prologue
+
+  float acc[MR][QN];
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+#pragma unroll
+    for (int j = 0; j < QN; ++j) acc[i][j] = 0.f;
   }
 
-  float acc[BB];
+  // the chunk consumed: its sub-tile's first row, chunk, ring stage and
+  // the parity of the stage's barrier phase
+  int base = first, c = 0, c_st = 0;
+  uint32_t parity = 0;
+  // the micro-tile's emb float4 columns in a stage (64 rows apart)
+  int e_off[C4];
 #pragma unroll
-  for (int j = 0; j < BB; ++j) acc[j] = 0.f;
-
+  for (int c4 = 0; c4 < C4; ++c4) e_off[c4] = e_col<CH>(rg, c4);
   for (int gi = 0; gi < total; ++gi) {
-    cp_async_wait(stages - 2);   // chunk gi has landed (this thread's part)
-    __syncthreads();             // ... everyone's; stage gi - 1 is consumed
-    if (gi + stages - 1 < total) issue(gi + stages - 1);
-    cp_async_commit();
-    const int st = gi / n_ch;
-    const int c = gi % n_ch;
-    const int base = page_base + st * TILE_N;
+    if (use_tma) {                // chunk gi has landed
+      attn::mbar_wait(bars + 8 * c_st, parity);
+    } else {                      // (this thread's part)
+      cp_async_wait(a.stages - 2);
+    }
+    __syncthreads();              // ... everyone's; stage gi - 1 is consumed
+    issue_next();
     if constexpr (LEX) {
-      if (c == 0) {              // the sub-tile's lanes, read at its end
-        for (int f = tid; f < TILE_N * T; f += THREADS) {
-          const int r = f / T;
-          const int t = f % T;
-          const bool in = base + r < page_end;
-          const size_t src = (size_t)(base + r) * T + t;
-          lt_sh[r * LS + t] = in ? terms[src] : -1;
-          ll_sh[r * LS + t] = in ? lexnorm[src] : 0.f;
+      if (c == 0) {               // the sub-tile's lanes, read at its end
+        for (int f = tid; f < TILE_N * a.T; f += THREADS) {
+          const int r = f / a.T;
+          const int t = f % a.T;
+          const bool in = base + r < row_end;
+          const size_t src = (size_t)(base + r) * a.T + t;
+          lt_sh[r * LS + t] = in ? a.terms[src] : -1;
+          ll_sh[r * LS + t] = in ? a.lexnorm[src] : 0.f;
         }
       }
     }
+    // the micro-tile: per float4 column, MR emb float4s and QN query
+    // float4s feed 4 MR QN FMAs, each (row, query) chain in d order
     const float4* e4 = reinterpret_cast<const float4*>(
-        smem_raw + lay.ring + (size_t)(gi % stages) * lay.stage);
-    const float4* q4 = e4 + TILE_N * (CH / 4);
-#pragma unroll (C4_UNROLL)
-    for (int c4 = 0; c4 < CH / 4; ++c4) {
-      const float4 e = e4[c4 * TILE_N + tid];
+        smem_raw + (size_t)c_st * lay.stage);
+    const float4* q4 = e4 + TILE_N * C4 + qg * QN * C4;
 #pragma unroll
-      for (int j = 0; j < BB; ++j) {
-        const float4 v = q4[j * (CH / 4) + c4];
-        acc[j] = fmaf(v.x, e.x, acc[j]);
-        acc[j] = fmaf(v.y, e.y, acc[j]);
-        acc[j] = fmaf(v.z, e.z, acc[j]);
-        acc[j] = fmaf(v.w, e.w, acc[j]);
-      }
-    }
-    if (c != n_ch - 1) continue;   // block-uniform
-
-    // End of a sub-tile: mask, select its top k_sub per query row in place
-    // in the selection buffers, fold them into the running lists.
-    if constexpr (LEX) __syncthreads();   // the lanes are staged
-    const int row = base + tid;
-    int src = row;
-    bool live_src = row < page_end;
-    if constexpr (MODE == PROBE) {
-      const int slot = live_src ? __ldg(cand + row) : -1;
-      live_src = slot >= 0 && slot < n_arena;
-      src = slot;
-    }
-    const int4 m = live_src ? reinterpret_cast<const int4*>(meta)[src]
-                            : make_int4(-1, 0, 0, 0);
-    const unsigned cat_bit = ((unsigned)m.z < 32u) ? (1u << m.z) : 0u;
+    for (int c4 = 0; c4 < C4; ++c4) {
+      float4 e[MR];
 #pragma unroll
-    for (int r0 = 0; r0 < BB; r0 += RS) {
+      for (int i = 0; i < MR; ++i) e[i] = e4[e_off[c4] + NRG * C4 * i];
 #pragma unroll
-      for (int j = 0; j < RS; ++j) {
-        const int g = g_sh[r0 + j];
-        int pt = -3, pts = 0;
-        unsigned pc = 0u, pa = 0u;
-        if (g >= 0) {
-          pt = p_sh[4 * g + 0];
-          pts = p_sh[4 * g + 1];
-          pc = (unsigned)p_sh[4 * g + 2];
-          pa = (unsigned)p_sh[4 * g + 3];
+      for (int j = 0; j < QN; ++j) {
+        const float4 v = q4[j * C4 + c4];   // warp-uniform
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          acc[i][j] = fmaf(v.x, e[i].x, acc[i][j]);
+          acc[i][j] = fmaf(v.y, e[i].y, acc[i][j]);
+          acc[i][j] = fmaf(v.z, e[i].z, acc[i][j]);
+          acc[i][j] = fmaf(v.w, e[i].w, acc[i][j]);
         }
-        const bool keep = g >= 0 && m.x >= 0 && (pt == -2 || m.x == pt) &&
-                          m.y >= pts && (cat_bit & pc) != 0u &&
-                          ((unsigned)m.w & pa) != 0u;
-        s_sort[j * TILE_N + tid] = keep ? acc[r0 + j] : NEG_INF;
-        i_sort[j * TILE_N + tid] = keep ? row : NO_ROW;
       }
+    }
+    if (++c_st == a.stages) {
+      c_st = 0;
+      parity ^= 1;
+    }
+    if (++c != n_ch) continue;     // block-uniform: the sub-tile goes on
+    c = 0;
+
+    // End of a sub-tile: eight query rows at a time, the micro-tiles that
+    // hold them mask their scores in registers and store them, with the
+    // indices the lists carry, into the selection buffer; then the top
+    // k_loc (paged: k_sub) is selected and written out (paged: folded into
+    // the running lists). The index is the arena row, or in PROBE the
+    // candidate position, whose metadata is arena row src_row.
+    int4 m[MR];
+    unsigned cat_bit[MR];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int src = src_row(base, rg + NRG * i);
+      m[i] = src >= 0 ? reinterpret_cast<const int4*>(a.meta)[src]
+                      : make_int4(-1, 0, 0, 0);   // dead: never live
+      // 1 << 31 is the sign bit, as uint32 bitmasks require; categories
+      // outside [0, 32) match no category set
+      cat_bit[i] = ((unsigned)m[i].z < 32u) ? (1u << m[i].z) : 0u;
+    }
+#pragma unroll 1
+    for (int r0 = 0; r0 < nb; r0 += RS) {
+#pragma unroll
+      for (int j = 0; j < QN; ++j) {
+        const int jj = qg * QN + j - r0;
+        if (jj >= 0 && jj < RS) {
+          const int g = g_sh[qg * QN + j];
+          int pt = -3, pts = 0;
+          unsigned pc = 0u, pa = 0u;
+          if (g >= 0) {
+            pt = p_sh[4 * g + 0];
+            pts = p_sh[4 * g + 1];
+            pc = (unsigned)p_sh[4 * g + 2];
+            pa = (unsigned)p_sh[4 * g + 3];
+          }
+#pragma unroll
+          for (int i = 0; i < MR; ++i) {
+            const bool keep = g >= 0 && m[i].x >= 0 &&
+                              (pt == -2 || m[i].x == pt) && m[i].y >= pts &&
+                              (cat_bit[i] & pc) != 0u &&
+                              ((unsigned)m[i].w & pa) != 0u;
+            const int o = jj * TILE_N + rg + NRG * i;
+            s_sort[o] = keep ? acc[i][j] : NEG_INF;
+            i_sort[o] = keep ? base + rg + NRG * i : NO_ROW;
+          }
+        }
+      }
+      __syncthreads();             // the eight rows' lists are staged
       if constexpr (LEX) {
+        // the lexical stage, in a loop that is not unrolled (one copy of
+        // the BM25 loop): each thread reads back its own column, and a row
+        // that failed its predicate (index NO_ROW) skips the BM25
 #pragma unroll 1
         for (int j = 0; j < RS; ++j) {
           const int o = j * TILE_N + tid;
           const bool keep = i_sort[o] != NO_ROW;
           const float b25 =
-              keep ? bm25_row(lt_sh + tid * LS, ll_sh + tid * LS, T,
-                              qt_sh + (r0 + j) * QT, qw_sh + (r0 + j) * QT,
-                              QT)
+              keep ? bm25_row(lt_sh + tid * LS, ll_sh + tid * LS, a.T,
+                              qt_sh + (r0 + j) * a.QT,
+                              qw_sh + (r0 + j) * a.QT, a.QT)
                    : 0.f;
           if constexpr (MODE == FUSED) {
             if (keep) s_sort[o] = __fadd_rn(s_sort[o], b25);
@@ -967,42 +953,81 @@ paged_scan_kernel(const float* __restrict__ q, const float* __restrict__ emb,
             i_lex[o] = i_sort[o];
           }
         }
+        __syncthreads();
       }
-      __syncthreads();
-      // the resident kernel's selection, as a one-tile scan of the rows
-      // still real here (<= 0 past them), into the sub-list buffers
-      const int rows = nb - r0;
-      emit(s_sort, i_sort, k_sub, 0, rows, 0, 1, sub_s, sub_i);
-      if constexpr (MODE == BOTH) {
-        emit(s_lex, i_lex, k_sub, 0, rows, 0, 1, sub_ls, sub_li);
+      if constexpr (PAGED) {
+        // the resident kernel's selection, as a one-tile scan of the rows
+        // still real here, into the sub-list buffers
+        const int rows = nb - r0;
+        emit(s_sort, i_sort, k_sub, 0, rows, 0, 1, sub_s, sub_i);
+        if constexpr (MODE == BOTH) {
+          emit(s_lex, i_lex, k_sub, 0, rows, 0, 1, sub_ls, sub_li);
+        }
+        const size_t o = (size_t)r0 * rstride;
+        fold_lists(sub_s, sub_i, k_sub, cur_s + o, cur_i + o, nxt_s + o,
+                   nxt_i + o, rstride, a.L, rows);
+        if constexpr (MODE == BOTH) {
+          fold_lists(sub_ls, sub_li, k_sub, cur_s + lstride + o,
+                     cur_i + lstride + o, nxt_s + lstride + o,
+                     nxt_i + lstride + o, rstride, a.L, rows);
+        }
+        __syncthreads();           // the selection buffers are free again
+      } else {
+        const int tile = base / TILE_N;
+        emit(s_sort, i_sort, a.L, b0 + r0, a.B, tile, a.n_lists, a.s0,
+             a.i0);
+        if constexpr (MODE == BOTH) {   // the same rows' bm25 list: list 1
+          const size_t list = (size_t)a.B * a.n_lists * a.L;
+          emit(s_lex, i_lex, a.L, b0 + r0, a.B, tile, a.n_lists,
+               a.s0 + list, a.i0 + list);
+        }
       }
-      const size_t o = (size_t)r0 * rstride;
-      fold_lists(sub_s, sub_i, k_sub, cur_s + o, cur_i + o, nxt_s + o,
-                 nxt_i + o, rstride, L, rows);
-      if constexpr (MODE == BOTH) {
-        fold_lists(sub_ls, sub_li, k_sub, cur_s + lstride + o,
-                   cur_i + lstride + o, nxt_s + lstride + o,
-                   nxt_i + lstride + o, rstride, L, rows);
-      }
-      __syncthreads();             // the selection buffers are free again
     }
-    float* ts = cur_s; cur_s = nxt_s; nxt_s = ts;
-    int* ti = cur_i; cur_i = nxt_i; nxt_i = ti;
+    if constexpr (PAGED) {
+      float* ts = cur_s; cur_s = nxt_s; nxt_s = ts;
+      int* ti = cur_i; cur_i = nxt_i; nxt_i = ti;
+    }
 #pragma unroll
-    for (int j = 0; j < BB; ++j) acc[j] = 0.f;
+    for (int i = 0; i < MR; ++i) {
+#pragma unroll
+      for (int j = 0; j < QN; ++j) acc[i][j] = 0.f;
+    }
+    base += step;
   }
-  cp_async_wait(0);                // no copy outlives the block
+  if (!use_tma) cp_async_wait(0);  // no copy outlives the block
 
-  if (run_smem) {                  // the page's lists, out to s0
-    for (int f = tid; f < NL * nb * L; f += THREADS) {
-      const int l = f / (nb * L);
-      const int j = (f / L) % nb;
-      const int e = f % L;
-      const size_t o = g_off + l * g_list + j * g_row + e;
-      s0[o] = cur_s[l * lstride + j * rstride + e];
-      i0[o] = cur_i[l * lstride + j * rstride + e];
+  if constexpr (PAGED) {
+    if (a.run_smem) {              // the page's lists, out to s0
+      for (int f = tid; f < NL * nb * a.L; f += THREADS) {
+        const int l = f / (nb * a.L);
+        const int j = (f / a.L) % nb;
+        const int e = f % a.L;
+        const size_t o = g_off + l * g_list + j * g_row + e;
+        a.s0[o] = cur_s[l * lstride + j * rstride + e];
+        a.i0[o] = cur_i[l * lstride + j * rstride + e];
+      }
     }
   }
+}
+
+// Both kernels are bounded to 128 registers a thread up to BB = 32, so two
+// blocks share an SM.
+// The tensor maps describe emb (D, rows) and q (D, B) in boxes of
+// {CH, TILE_N} and {CH, BB}; PROBE and D % 4 != 0 launches pass them
+// unused.
+template <int BB, int MODE>
+__global__ void __launch_bounds__(THREADS, BB <= 32 ? 2 : 1)
+tile_scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap emb_map,
+                 const __grid_constant__ CUtensorMap q_map) {
+  scan_block<BB, MODE, false>(a, &emb_map, &q_map);
+}
+
+template <int BB, int MODE>
+__global__ void __launch_bounds__(THREADS, BB <= 32 ? 2 : 1)
+paged_scan_kernel(const ScanArgs a,
+                  const __grid_constant__ CUtensorMap emb_map,
+                  const __grid_constant__ CUtensorMap q_map) {
+  scan_block<BB, MODE, true>(a, &emb_map, &q_map);
 }
 
 struct Lex {                 // the lexical modes' inputs (unused by DENSE)
@@ -1019,28 +1044,108 @@ struct Cand {                // PROBE's candidate vector (unused otherwise)
 };
 constexpr Cand kNoCand{nullptr, 0};
 
-template <int BB, int MODE>
-cudaError_t launch_tiles(const float* q, const float* emb, const int* meta,
-                         const int* gids, const int* preds, const Lex& lx,
-                         const Cand& cd, int B, int N, int D, int G,
-                         int k_loc, int n_tiles, float* cand_s, int* cand_i,
-                         cudaStream_t stream) {
-  size_t smem = sizeof(float) * (TILE_N * (DK + 1) + DK * BB) +
-                sizeof(int) * (4 * (size_t)G + BB);
-  if (MODE == FUSED || MODE == BOTH)
-    smem += 8 * ((size_t)TILE_N * (lx.T | 1) + (size_t)BB * lx.QT);
-  if (MODE == PROBE) smem += sizeof(int) * TILE_N;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tile_scan_kernel<BB, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+// Shape of one launch: ring depth, where a paged block's running lists
+// live, and the block's shared memory. The deepest ring (2..MAX_STAGES)
+// that keeps two blocks on an SM (<= 113 KB each) -- a paged block's
+// running lists in shared memory when they fit RUN_SMEM_BUDGET, else (or
+// if that is what it takes) in the wrapper's buffers -- and failing that
+// the deepest that fits one (<= 227 KB).
+struct ScanConfig {
+  int stages;
+  bool run_smem;
+  size_t smem;
+};
+
+inline bool scan_config(int BB, int mode, bool paged, int G, int T, int QT,
+                        int L, ScanConfig* cfg) {
+  const int ch = chunk_dims(mode);
+  const int nl = mode == BOTH ? 2 : 1;
+  const bool lex = mode == FUSED || mode == BOTH;
+  const bool run_fits =
+      paged && (size_t)2 * nl * BB * L * 8 <= RUN_SMEM_BUDGET;
+  const size_t caps[2] = {(size_t)113 * 1024, (size_t)227 * 1024};
+  for (const size_t cap : caps) {
+    const bool where[2] = {run_fits, false};
+    for (const bool run_smem : where) {
+      for (int st = MAX_STAGES; st >= 2; --st) {
+        const size_t smem = scan_layout(BB, ch, nl, lex, paged, G, T, QT, L,
+                                        st, run_smem).total;
+        if (smem <= cap) {
+          cfg->stages = st;
+          cfg->run_smem = run_smem;
+          cfg->smem = smem;
+          return true;
+        }
+      }
+    }
   }
-  const dim3 grid(n_tiles, (B + BB - 1) / BB);
-  tile_scan_kernel<BB, MODE><<<grid, THREADS, smem, stream>>>(
-      q, emb, meta, gids, preds, lx.terms, lx.lexnorm, lx.qterms, lx.qidf,
-      cd.slots, cd.n_arena, B, N, D, G, lx.T, lx.QT, k_loc, n_tiles, cand_s,
-      cand_i);
+  return false;
+}
+
+using ScanKernel = void (*)(ScanArgs, CUtensorMap, CUtensorMap);
+
+template <int BB, int MODE, bool PAGED>
+inline ScanKernel scan_kernel() {
+  if constexpr (PAGED) {
+    return paged_scan_kernel<BB, MODE>;
+  } else {
+    return tile_scan_kernel<BB, MODE>;
+  }
+}
+
+// Lets the kernel take `smem` bytes of dynamic shared memory.
+template <int BB, int MODE, bool PAGED>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(scan_kernel<BB, MODE, PAGED>(),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The blocks an SM holds at `smem` bytes a block: > 0, or a CUDA error
+// negated.
+template <int BB, int MODE, bool PAGED>
+int blocks_per_sm(size_t smem) {
+  cudaError_t err = allow_smem<BB, MODE, PAGED>(smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, scan_kernel<BB, MODE, PAGED>(), THREADS, smem);
+  if (err == cudaSuccess && blocks < 1) err = cudaErrorInvalidConfiguration;
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+template <int BB, int MODE, bool PAGED>
+cudaError_t launch_scan(ScanArgs a, cudaStream_t stream) {
+  ScanConfig cfg;
+  if (!scan_config(BB, MODE, PAGED, a.G, a.T, a.QT, a.L, &cfg))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<BB, MODE, PAGED>(cfg.smem);
+  if (err != cudaSuccess) return err;
+  a.stages = cfg.stages;
+  a.run_smem = cfg.run_smem ? 1 : 0;
+  CUtensorMap emb_map{}, q_map{};
+  if (MODE != PROBE && (a.D & 3) == 0) {   // the chunks come by TMA
+    const cuuint64_t e_dims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.N};
+    const cuuint64_t q_dims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.B};
+    const cuuint64_t stride[1] = {(cuuint64_t)a.D * sizeof(float)};
+    constexpr int CH = chunk_dims(MODE);
+    const cuuint32_t e_box[2] = {CH, TILE_N};
+    const cuuint32_t q_box[2] = {CH, BB};
+    int map_err = attn::make_map(&emb_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                 a.emb, 2, e_dims, stride, e_box,
+                                 CH == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_128B);
+    if (map_err == 0)
+      map_err = attn::make_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.q,
+                               2, q_dims, stride, q_box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (map_err != 0) return static_cast<cudaError_t>(map_err);
+  }
+  const int ny = (a.B + BB - 1) / BB;
+  const dim3 grid(a.n_lists, ny);     // a block a tile, or a page
+  const ScanKernel kern = scan_kernel<BB, MODE, PAGED>();
+  kern<<<grid, THREADS, cfg.smem, stream>>>(a, emb_map, q_map);
   return cudaGetLastError();
 }
 
@@ -1048,35 +1153,56 @@ inline int merge_and_finish(int rows, int n, int L, int k, const int* slots,
                             float* s0, int* i0, float* s1, int* i1,
                             float* out_s, int* out_i, cudaStream_t stream);
 
-// tile_scan, the merge rounds and finish over n_lists * B virtual rows.
-// N is the rows scanned: the arena's, or PROBE's candidates. Returns the
-// first CUDA error (0 on success); does not synchronise.
+// The scan kernel, then the merge rounds and finish over n_lists * B
+// virtual rows. P == 0: the resident regime (n_tiles lists of min(k, 256)
+// a row); P >= 1: the paged regime (n_pages lists of min(k, P)). N is the
+// rows scanned: the arena's, or PROBE's candidates. Scratch: two buffers
+// of n_lists * B * next_pow2(lists) * L entries. Returns the first CUDA
+// error (0 on success); does not synchronise.
 template <int MODE>
 int run_scan(const float* q, const float* emb, const int* meta,
              const int* gids, const int* preds, const Lex& lx,
-             const Cand& cd, int B, int N, int D, int G, int k, float* s0,
-             int* i0, float* s1, int* i1, float* out_s, int* out_i,
-             cudaStream_t stream) {
-  const int n_tiles = (N + TILE_N - 1) / TILE_N;
-  const int k_loc = k < TILE_N ? k : TILE_N;
+             const Cand& cd, int B, int N, int D, int G, int k, int P,
+             float* s0, int* i0, float* s1, int* i1, float* out_s,
+             int* out_i, cudaStream_t stream) {
+  if (P < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool paged = P > 0;
+  const int tile = paged ? P : TILE_N;
+  const int n_lists = (int)(((long long)N + tile - 1) / tile);
+  const int L = k < tile ? k : tile;
+  const ScanArgs a{q, emb, meta, gids, preds, lx.terms, lx.lexnorm,
+                   lx.qterms, lx.qidf, cd.slots, cd.n_arena, B, N, D, G,
+                   lx.T, lx.QT, L, n_lists, P, 0, 0, s0, i0, s1, i1};
   cudaError_t err;
   if (B <= 8) {
-    err = launch_tiles<8, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                G, k_loc, n_tiles, s0, i0, stream);
+    err = paged ? launch_scan<8, MODE, true>(a, stream)
+                : launch_scan<8, MODE, false>(a, stream);
   } else if (B <= 16) {
-    err = launch_tiles<16, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k_loc, n_tiles, s0, i0, stream);
+    err = paged ? launch_scan<16, MODE, true>(a, stream)
+                : launch_scan<16, MODE, false>(a, stream);
   } else if (B <= 32) {
-    err = launch_tiles<32, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k_loc, n_tiles, s0, i0, stream);
+    err = paged ? launch_scan<32, MODE, true>(a, stream)
+                : launch_scan<32, MODE, false>(a, stream);
   } else {
-    err = launch_tiles<64, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k_loc, n_tiles, s0, i0, stream);
+    err = paged ? launch_scan<64, MODE, true>(a, stream)
+                : launch_scan<64, MODE, false>(a, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  return merge_and_finish((MODE == BOTH ? 2 : 1) * B, n_tiles, k_loc, k,
+  return merge_and_finish((MODE == BOTH ? 2 : 1) * B, n_lists, L, k,
                           MODE == PROBE ? cd.slots : nullptr, s0, i0, s1, i1,
                           out_s, out_i, stream);
+}
+
+// The paged regime's entry: run_scan with page_rows >= 1.
+template <int MODE>
+int run_paged(const float* q, const float* emb, const int* meta,
+              const int* gids, const int* preds, const Lex& lx,
+              const Cand& cd, int B, int N, int D, int G, int k, int P,
+              float* s0, int* i0, float* s1, int* i1, float* out_s,
+              int* out_i, cudaStream_t stream) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run_scan<MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D, G, k, P,
+                        s0, i0, s1, i1, out_s, out_i, stream);
 }
 
 // The merge rounds over n sorted lists of L entries per row (in s0, s1 the
@@ -1110,139 +1236,42 @@ inline int merge_and_finish(int rows, int n, int L, int k, const int* slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shape of one paged launch: ring depth, where the running lists live and
-// the block's shared memory. The deepest ring (2..MAX_STAGES) that keeps
-// two blocks on an SM (<= 113 KB each) -- with the running lists in shared
-// memory when they fit RUN_SMEM_BUDGET, else (or if that is what it takes)
-// in the wrapper's buffers -- and failing that the deepest that fits one.
-struct PagedConfig {
-  int stages;
-  bool run_smem;
-  size_t smem;
-};
-
-inline bool paged_config(int BB, int mode, int G, int T, int QT, int L,
-                         PagedConfig* cfg) {
-  const int nl = mode == BOTH ? 2 : 1;
-  const bool lex = mode == FUSED || mode == BOTH;
-  const bool run_fits = (size_t)2 * nl * BB * L * 8 <= RUN_SMEM_BUDGET;
-  const size_t caps[2] = {(size_t)113 * 1024, (size_t)227 * 1024};
-  for (const size_t cap : caps) {
-    const bool where[2] = {run_fits, false};
-    for (const bool run_smem : where) {
-      for (int st = MAX_STAGES; st >= 2; --st) {
-        const size_t smem =
-            paged_layout(BB, nl, lex, G, T, QT, L, st, run_smem).total;
-        if (smem <= cap) {
-          cfg->stages = st;
-          cfg->run_smem = run_smem;
-          cfg->smem = smem;
-          return true;
-        }
-      }
-    }
-  }
-  return false;
-}
+// What a launch of these shapes uses (P == 0: resident, P >= 1: paged):
+// out[INFO_LEN] = {shared memory bytes a block, ring stages, running
+// lists in shared memory (0/1), blocks an SM holds, blocks along x (the
+// tiles or pages), rows a tile, the micro-tile's rows MR and query rows
+// QN, dims a ring stage, query rows a block BB}. Returns 0, or a CUDA
+// error.
+constexpr int INFO_LEN = 10;
 
 template <int BB, int MODE>
-cudaError_t launch_paged(const float* q, const float* emb, const int* meta,
-                         const int* gids, const int* preds, const Lex& lx,
-                         const Cand& cd, int B, int N, int D, int G, int k,
-                         int P, int n_pages, int L, float* s0, int* i0,
-                         float* s1, int* i1, cudaStream_t stream) {
-  PagedConfig cfg;
-  if (!paged_config(BB, MODE, G, lx.T, lx.QT, L, &cfg))
-    return cudaErrorInvalidValue;
-  if (cfg.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_scan_kernel<BB, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(n_pages, (B + BB - 1) / BB);
-  paged_scan_kernel<BB, MODE><<<grid, THREADS, cfg.smem, stream>>>(
-      q, emb, meta, gids, preds, lx.terms, lx.lexnorm, lx.qterms, lx.qidf,
-      cd.slots, cd.n_arena, B, N, D, G, lx.T, lx.QT, P, n_pages, L,
-      cfg.stages, cfg.run_smem ? 1 : 0, s0, i0, s1, i1);
-  return cudaGetLastError();
-}
-
-// The paged regime: paged_scan (one list per page and query row), then the
-// resident regime's merge rounds and finish over the n_pages page lists.
-// Scratch: two buffers of n_lists * B * next_pow2(n_pages) * min(k, P)
-// entries. Returns the first CUDA error (0 on success); does not
-// synchronise.
-template <int MODE>
-int run_paged(const float* q, const float* emb, const int* meta,
-              const int* gids, const int* preds, const Lex& lx,
-              const Cand& cd, int B, int N, int D, int G, int k, int P,
-              float* s0, int* i0, float* s1, int* i1, float* out_s,
-              int* out_i, cudaStream_t stream) {
-  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_pages = (int)(((long long)N + P - 1) / P);
-  const int L = k < P ? k : P;
-  cudaError_t err;
-  if (B <= 8) {
-    err = launch_paged<8, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                G, k, P, n_pages, L, s0, i0, s1, i1, stream);
-  } else if (B <= 16) {
-    err = launch_paged<16, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
-  } else if (B <= 32) {
-    err = launch_paged<32, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
-  } else {
-    err = launch_paged<64, MODE>(q, emb, meta, gids, preds, lx, cd, B, N, D,
-                                 G, k, P, n_pages, L, s0, i0, s1, i1, stream);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return merge_and_finish((MODE == BOTH ? 2 : 1) * B, n_pages, L, k,
-                          MODE == PROBE ? cd.slots : nullptr, s0, i0, s1, i1,
-                          out_s, out_i, stream);
-}
-
-template <int BB, int MODE>
-int paged_occupancy(const PagedConfig& cfg) {
-  if (cfg.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_scan_kernel<BB, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
-    if (err != cudaSuccess) return -1;
-  }
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, paged_scan_kernel<BB, MODE>, THREADS, cfg.smem) !=
-      cudaSuccess)
-    return -1;
-  return blocks;
-}
-
-// What a paged launch of these shapes would use: out = {shared memory
-// bytes a block, ring stages, running lists in shared memory (0/1), blocks
-// an SM holds, pages}. Returns 0, or a CUDA error.
-template <int MODE>
-int paged_info(int B, int N, int G, int T, int QT, int k, int P, int* out) {
-  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int BB = B <= 8 ? 8 : B <= 16 ? 16 : B <= 32 ? 32 : 64;
-  PagedConfig cfg;
-  if (!paged_config(BB, MODE, G, T, QT, k < P ? k : P, &cfg))
+int info_for(int B, int N, int G, int T, int QT, int k, int P, int* out) {
+  const bool paged = P > 0;
+  const int tile = paged ? P : TILE_N;
+  const int n_lists = (int)(((long long)N + tile - 1) / tile);
+  const int L = k < tile ? k : tile;
+  ScanConfig cfg;
+  if (!scan_config(BB, MODE, paged, G, T, QT, L, &cfg))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = BB == 8    ? paged_occupancy<8, MODE>(cfg)
-                     : BB == 16 ? paged_occupancy<16, MODE>(cfg)
-                     : BB == 32 ? paged_occupancy<32, MODE>(cfg)
-                                : paged_occupancy<64, MODE>(cfg);
-  if (blocks < 0) {
-    const int err = static_cast<int>(cudaGetLastError());
-    return err ? err : static_cast<int>(cudaErrorUnknown);
-  }
-  out[0] = (int)cfg.smem;
-  out[1] = cfg.stages;
-  out[2] = cfg.run_smem ? 1 : 0;
-  out[3] = blocks;
-  out[4] = (int)(((long long)N + P - 1) / P);
+  const int blocks = paged ? blocks_per_sm<BB, MODE, true>(cfg.smem)
+                           : blocks_per_sm<BB, MODE, false>(cfg.smem);
+  if (blocks < 0) return -blocks;
+  const int vals[INFO_LEN] = {
+      (int)cfg.smem, cfg.stages, cfg.run_smem ? 1 : 0, blocks,
+      n_lists, TILE_N, MR,
+      BB / NQG, chunk_dims(MODE), BB};
+  for (int i = 0; i < INFO_LEN; ++i) out[i] = vals[i];
   return 0;
 }
 
-}  // namespace
+template <int MODE>
+int scan_info(int B, int N, int G, int T, int QT, int k, int P, int* out) {
+  if (B < 1 || N < 1 || k < 1 || P < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return B <= 8    ? info_for<8, MODE>(B, N, G, T, QT, k, P, out)
+         : B <= 16 ? info_for<16, MODE>(B, N, G, T, QT, k, P, out)
+         : B <= 32 ? info_for<32, MODE>(B, N, G, T, QT, k, P, out)
+                   : info_for<64, MODE>(B, N, G, T, QT, k, P, out);
+}
 
+}  // namespace

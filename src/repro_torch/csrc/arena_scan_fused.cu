@@ -21,7 +21,7 @@ int arena_scan_fused_launch(const float* q, const float* emb,
                             void* stream_ptr) {
   const Lex lx{terms, lexnorm, qterms, qidf, T, QT};
   return run_scan<FUSED>(q, emb, meta, gids, preds, lx, kNoCand, B, N, D,
-                         G, k, s0, i0, s1, i1, out_s, out_i,
+                         G, k, 0, s0, i0, s1, i1, out_s, out_i,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -40,10 +40,10 @@ int arena_scan_fused_paged_launch(
                           static_cast<cudaStream_t>(stream_ptr));
 }
 
-// arena_scan_paged_info for this mode, T lanes and QT query terms.
-int arena_scan_fused_paged_info(int B, int N, int G, int T, int QT,
-                                int k, int page_rows, int* out) {
-  return paged_info<FUSED>(B, N, G, T, QT, k, page_rows, out);
+// arena_scan_info for this mode, T lanes and QT query terms.
+int arena_scan_fused_info(int B, int N, int G, int T, int QT, int k,
+                          int page_rows, int* out) {
+  return scan_info<FUSED>(B, N, G, T, QT, k, page_rows, out);
 }
 
 }  // extern "C"

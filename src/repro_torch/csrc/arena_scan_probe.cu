@@ -21,7 +21,7 @@ int arena_scan_probe_launch(const float* q, const float* emb,
                             float* out_s, int* out_i, void* stream_ptr) {
   const Lex none{nullptr, nullptr, nullptr, nullptr, 0, 0};
   return run_scan<PROBE>(q, emb, meta, nullptr, pred, none, Cand{cand, N}, B,
-                         P, D, 1, k, s0, i0, s1, i1, out_s, out_i,
+                         P, D, 1, k, 0, s0, i0, s1, i1, out_s, out_i,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -41,10 +41,11 @@ int arena_scan_probe_paged_launch(const float* q, const float* emb,
                           out_i, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// arena_scan_paged_info for the probe over P candidates.
-int arena_scan_probe_paged_info(int B, int P, int k, int page_rows,
-                                int* out) {
-  return paged_info<PROBE>(B, P, 1, 0, 0, k, page_rows, out);
+// arena_scan_info for the probe over N = P candidates (G = 1; T and QT
+// unused).
+int arena_scan_probe_info(int B, int N, int G, int T, int QT, int k,
+                          int page_rows, int* out) {
+  return scan_info<PROBE>(B, N, G, T, QT, k, page_rows, out);
 }
 
 }  // extern "C"

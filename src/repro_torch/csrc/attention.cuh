@@ -1,8 +1,9 @@
 // Helpers shared by the two attention kernels of the port
 // (flash_attention.cu, decode_attention.cu): element types, 16-byte vector
 // loads widened to f32, bf16 rounding, the reference's NEG_INF, and the
-// Hopper copy machinery both use: mbarriers, TMA tile loads and the tensor
-// maps that describe them.
+// Hopper copy machinery both use -- mbarriers, TMA tile loads and the tensor
+// maps that describe them -- which the arena scan (arena_scan.cuh) uses
+// too.
 #pragma once
 
 #include <cfloat>
@@ -98,6 +99,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > kWaitCycles) __trap();
   }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,

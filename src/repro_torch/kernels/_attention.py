@@ -18,7 +18,7 @@ SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
     "flash_attention.cu", "decode_attention.cu"))
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: nvcc's output of the build this process made, or "" when it was built
+#: nvcc's output of the build that made the library, set by `build`
 BUILD_LOG = ""
 
 _lib = None

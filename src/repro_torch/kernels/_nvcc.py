@@ -52,15 +52,20 @@ def check_tensor(name, t, dtype, shape, device) -> None:
 def build(name: str, headers, sources) -> tuple[str, str]:
     """Compile ``lib<name>-<hash>.so`` from ``sources`` (paths; ``headers``
     enter the hash) unless it is built already. Returns (path of the
-    library, nvcc's output of this build or "" when it was found built).
-    Raises with nvcc's output when a source does not compile or link."""
+    library, nvcc's output of the build that made it, kept beside it as
+    ``<library>.log``). Raises with nvcc's output when a source does not
+    compile or link."""
     h = hashlib.sha256()
     for path in (*headers, *sources):
         with open(path, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        return out, ""
+        try:
+            with open(out + ".log") as f:
+                return out, f.read()
+        except OSError:
+            return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     exe = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -87,5 +92,7 @@ def build(name: str, headers, sources) -> tuple[str, str]:
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"linking lib{name} failed:\n{log}")
+        with open(out + ".log", "w") as f:
+            f.write(log)
         os.replace(lib, out)
     return out, log

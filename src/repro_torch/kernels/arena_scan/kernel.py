@@ -18,7 +18,12 @@ Both take ``page_rows``: ``None`` launches the resident kernel, an int >= 1
 the paged kernel (``paged_scan_kernel`` in the header, the Hopper port of
 the Pallas kernel's paged regime ``_paged_kernel``,
 ``src/repro/kernels/arena_scan/kernel.py:121``), which returns the same
-lists bit for bit.
+lists bit for bit. The two share one score stage: each thread holds a
+register micro-tile of 4 arena rows x BB / 4 query rows, fed by a ring of
+shared-memory stages that TMA tile loads fill (``cp.async`` for the
+slot-lane gather). `scan_geometry` mirrors the launcher's choice of
+geometry on the host, and `scan_info` asks the library for it (with the
+blocks an SM holds) on the card.
 
 `arena_scan` is the dispatch every caller uses: CUDA tensors go to the
 kernel, CPU tensors to `arena_scan_plain` (resident) or to the streaming
@@ -39,7 +44,10 @@ from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
                                                 arena_scan_scan_ref)
 from repro_torch.kernels.arena_scan.stages import ScanSpec
 
-HEADER = os.path.join(_nvcc.CSRC, "arena_scan.cuh")
+#: the kernels, and the mbarrier / TMA helpers they share with the
+#: attention kernels
+HEADERS = tuple(os.path.join(_nvcc.CSRC, f) for f in (
+    "arena_scan.cuh", "attention.cuh"))
 #: one source per mode's C entry point, compiled in parallel
 SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
     "arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu",
@@ -53,8 +61,8 @@ LAUNCHES = 0
 #: paged-kernel launches through `arena_scan_cuda` and
 #: `arena_scan_probe_cuda` (``page_rows`` set), every spec
 PAGED_LAUNCHES = 0
-#: nvcc's output of the build this process made (ptxas register and
-#: shared-memory report), or "" when the library was already built
+#: nvcc's output of the build that made the library (ptxas register,
+#: spill and shared-memory report), set by `build`
 BUILD_LOG = ""
 
 _lib = None
@@ -65,7 +73,7 @@ def build() -> str:
     (`_nvcc.build`: one nvcc per source, all started together, then one
     link). Returns the path of the shared library."""
     global BUILD_LOG
-    path, log = _nvcc.build("arena_scan", (HEADER,), SOURCES)
+    path, log = _nvcc.build("arena_scan", HEADERS, SOURCES)
     if log:
         BUILD_LOG = log
     return path
@@ -95,19 +103,17 @@ def _load():
         lib.arena_scan_probe_paged_launch.argtypes = [p, p, p, p, p, i, i, i,
                                                       i, i, i, p, p, p, p, p,
                                                       p, p]
-        lib.arena_scan_paged_info.argtypes = [i, i, i, i, i, p]
-        for fn in (lib.arena_scan_fused_paged_info,
-                   lib.arena_scan_both_paged_info):
+        for fn in (lib.arena_scan_info, lib.arena_scan_fused_info,
+                   lib.arena_scan_both_info, lib.arena_scan_probe_info):
             fn.argtypes = [i, i, i, i, i, i, i, p]
-        lib.arena_scan_probe_paged_info.argtypes = [i, i, i, i, p]
         for fn in (lib.arena_scan_paged_launch,
                    lib.arena_scan_fused_paged_launch,
                    lib.arena_scan_both_paged_launch,
                    lib.arena_scan_probe_paged_launch,
-                   lib.arena_scan_paged_info,
-                   lib.arena_scan_fused_paged_info,
-                   lib.arena_scan_both_paged_info,
-                   lib.arena_scan_probe_paged_info):
+                   lib.arena_scan_info,
+                   lib.arena_scan_fused_info,
+                   lib.arena_scan_both_info,
+                   lib.arena_scan_probe_info):
             fn.restype = i
         lib.arena_scan_error_string.argtypes = [i]
         lib.arena_scan_error_string.restype = ctypes.c_char_p
@@ -282,26 +288,125 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
     return out_s, out_i
 
 
-def paged_info(spec: ScanSpec, B: int, N: int, G: int, k: int,
-               page_rows: int, T: int = 0, QT: int = 0) -> dict:
-    """What a paged launch of these shapes uses on this card (builds the
-    kernels if needed): shared memory a block, ring stages, whether the
-    running lists live in shared memory, blocks an SM holds, and pages."""
+def scan_info(spec: ScanSpec, B: int, N: int, G: int, k: int,
+              page_rows: int | None = None, T: int = 0, QT: int = 0) -> dict:
+    """What a launch of these shapes uses on this card, from the library's
+    info entry point (builds the kernels if needed): `scan_geometry`'s keys
+    as the C launcher computes them, plus the blocks an SM holds at that
+    shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    the blocks along x (resident: tiles; paged: pages)."""
     lib = _load()
-    out = (ctypes.c_int * 5)()
-    if spec.slot_lane:
-        rc = lib.arena_scan_probe_paged_info(B, N, k, page_rows, out)
-    elif spec.has_lex:
-        rc = getattr(lib, f"arena_scan_{spec.score}_paged_info")(
-            B, N, G, T, QT, k, page_rows, out)
-    else:
-        rc = lib.arena_scan_paged_info(B, N, G, k, page_rows, out)
+    out = (ctypes.c_int * 10)()
+    name = ("arena_scan_probe_info" if spec.slot_lane else
+            f"arena_scan_{spec.score}_info" if spec.has_lex else
+            "arena_scan_info")
+    rc = getattr(lib, name)(B, N, G, T, QT, k,
+                            _check_page_rows(page_rows) or 0, out)
     if rc != 0:
-        raise RuntimeError("paged_info failed: "
+        raise RuntimeError(f"{name} failed: "
                            + lib.arena_scan_error_string(rc).decode())
     return dict(smem_bytes=out[0], stages=out[1],
                 run_lists_in_smem=bool(out[2]), blocks_per_sm=out[3],
-                pages=out[4])
+                grid_x=out[4], tile_rows=out[5], micro_tile=(out[6], out[7]),
+                chunk_dims=out[8], block_rows=out[9])
+
+
+# ---------------------------------------------------------------------------
+# The launch geometry of csrc/arena_scan.cuh, mirrored on the host (the CPU
+# tests hold it to its invariants; chip_smoke.py holds it to `scan_info`)
+# ---------------------------------------------------------------------------
+
+THREADS = 256            #: threads a block
+TILE_ROWS = THREADS      #: arena rows a block scores at once
+MICRO_ROWS = 4           #: arena rows of a thread's micro-tile
+QUERY_GROUPS = 4         #: a micro-tile holds block_rows / 4 query rows
+SEL_ROWS = 8             #: query rows selected together, one a warp
+MAX_STAGES = 4
+RUN_SMEM_BUDGET = 24 * 1024
+#: shared memory a block may take to keep two blocks on an SM, then one
+SMEM_CAPS = (113 * 1024, 227 * 1024)
+
+
+def chunk_dims(spec: ScanSpec) -> int:
+    """Dims a ring stage holds (``chunk_dims``): 32, 128-byte rows, except
+    in the lexical specs, whose staged lanes leave room for 16."""
+    return 16 if spec.has_lex else 32
+
+
+def block_rows(B: int) -> int:
+    """Query rows a block covers (BB): the kernels are instantiated at 8,
+    16, 32 and 64; a batch above 64 takes more blocks along y."""
+    return 8 if B <= 8 else 16 if B <= 16 else 32 if B <= 32 else 64
+
+
+def _align(x: int, to: int = 16) -> int:
+    return (x + to - 1) & ~(to - 1)
+
+
+def scan_smem(BB: int, spec: ScanSpec, G: int, T: int, QT: int, L: int,
+              stages: int, paged: bool, run_smem: bool) -> int:
+    """Bytes of a block's shared memory (``scan_layout``): the ring (each
+    stage a 1024-byte multiple: the TMA swizzle's period), the selection
+    buffers, a paged block's sub-tile lists and running lists, the
+    predicates, the group ids, the lexical modes' lanes and query terms,
+    the ring's mbarriers and 1024 bytes of slack to align the ring."""
+    nl = spec.n_lists
+    ring = stages * _align(4 * (TILE_ROWS + BB) * chunk_dims(spec), 1024)
+    sel = nl * SEL_ROWS * TILE_ROWS * 8
+    sub = _align(nl * SEL_ROWS * min(L, TILE_ROWS) * 8) if paged else 0
+    run = _align(2 * nl * BB * L * 8) if run_smem else 0
+    fixed = _align(16 * G) + _align(4 * BB)
+    lex = (_align(8 * TILE_ROWS * (T | 1)) + _align(8 * BB * QT)
+           if spec.has_lex else 0)
+    return ring + sel + sub + run + fixed + lex + _align(8 * stages) + 1024
+
+
+def scan_geometry(spec: ScanSpec, B: int, G: int, k: int,
+                  page_rows: int | None = None, T: int = 0,
+                  QT: int = 0) -> dict:
+    """The launch geometry the C launcher picks (``scan_config``): block
+    rows BB, the micro-tile (MICRO_ROWS arena rows x BB / 4 query rows a
+    thread), the ring's depth, where a paged block's running lists live and
+    the block's shared memory -- the deepest ring (2..4 stages) that fits
+    two blocks an SM, running lists in shared memory when both copies fit
+    24 KB, else the deepest that fits one. Raises when nothing fits."""
+    BB = block_rows(B)
+    paged = page_rows is not None
+    L = min(k, page_rows if paged else TILE_ROWS)
+    run_fits = paged and 2 * spec.n_lists * BB * L * 8 <= RUN_SMEM_BUDGET
+    for cap in SMEM_CAPS:
+        for run_smem in (run_fits, False):
+            for stages in range(MAX_STAGES, 1, -1):
+                smem = scan_smem(BB, spec, G, T, QT, L, stages, paged,
+                                 run_smem)
+                if smem <= cap:
+                    return dict(block_rows=BB, tile_rows=TILE_ROWS,
+                                micro_tile=(MICRO_ROWS, BB // QUERY_GROUPS),
+                                chunk_dims=chunk_dims(spec), stages=stages,
+                                run_lists_in_smem=run_smem, smem_bytes=smem)
+    raise ValueError(f"no launch of BB={BB} G={G} T={T} QT={QT} L={L} fits "
+                     "a block's shared memory")
+
+
+def micro_tile(tid: int, BB: int) -> tuple[list[int], list[int]]:
+    """Thread ``tid``'s micro-tile in the kernel's map: its tile rows
+    rg + 64 i (i < MICRO_ROWS) and its query rows qg * QN + j (j < QN),
+    rg = 32 ((tid // 32) % 2) + tid % 32, qg = tid // 64 -- a warp holds 32
+    row groups and one query group, so its query loads are warp-uniform."""
+    rg = ((tid // 32) % 2) * 32 + tid % 32
+    qg = tid // 64
+    qn = BB // QUERY_GROUPS
+    n_rg = TILE_ROWS // MICRO_ROWS
+    return ([rg + n_rg * i for i in range(MICRO_ROWS)],
+            [qg * qn + j for j in range(qn)])
+
+
+def emb_column(r: int, c4: int, ch: int) -> int:
+    """The float4 slot of a ring stage that holds dims 4 c4 .. 4 c4 + 3 of
+    tile row ``r`` (``e_col``): rows of ``ch`` floats under the TMA's
+    swizzle of their size, the 16-byte unit c4 XOR bits 1-2 of the row
+    (64-byte rows) or bits 0-2 (128-byte rows)."""
+    return r * (ch // 4) + (c4 ^ ((r >> 1) & 3 if ch == 16 else r & 7))
 
 
 #: The plain PyTorch version of the resident kernel (the port of

@@ -422,3 +422,83 @@ def test_merge_topk_stage_matches_reference():
     js, ji = j_merge_topk(*(jnp.asarray(a) for a in args), 6)
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch geometry (csrc/arena_scan.cuh), mirrored on the host
+# ---------------------------------------------------------------------------
+
+GEOMETRY_SPECS = {"dense": ScanSpec(), "wsum": ScanSpec(score="fused"),
+                  "rrf": ScanSpec(score="both"),
+                  "probe": ScanSpec(slot_lane=True)}
+
+
+def check_geometry(mode, BB, G, T, page_rows):
+    """The launch the C launcher would pick for these shapes, as
+    `scan_geometry` mirrors it: the micro-tiles cover the block's TILE_ROWS
+    x BB scores exactly once, a warp holds 32 row groups and one query
+    group, the shared memory is the layout's and fits a block, two blocks
+    an SM where the modes without lanes run at BB <= 32, and the same
+    shapes give the same geometry."""
+    from repro_torch.kernels.arena_scan import kernel as K
+    spec = GEOMETRY_SPECS[mode]
+    geo = K.scan_geometry(spec, BB, G, 10, page_rows, T=T, QT=4)
+    assert geo == K.scan_geometry(spec, BB, G, 10, page_rows, T=T, QT=4)
+    R, QN = geo["micro_tile"]
+    assert geo["block_rows"] == BB and geo["tile_rows"] == K.TILE_ROWS
+    assert R * QN * K.THREADS == K.TILE_ROWS * BB
+    owned = []
+    for tid in range(K.THREADS):
+        rows, qrows = K.micro_tile(tid, BB)
+        assert len(rows) == R and len(qrows) == QN
+        owned += [(r, b) for r in rows for b in qrows]
+    assert sorted(owned) == [(r, b) for r in range(K.TILE_ROWS)
+                             for b in range(BB)]
+    for w in range(K.THREADS // 32):
+        tiles = [K.micro_tile(t, BB) for t in range(32 * w, 32 * w + 32)]
+        assert len({rows[0] for rows, _ in tiles}) == 32
+        assert len({tuple(qrows) for _, qrows in tiles}) == 1
+    L = min(10, page_rows or K.TILE_ROWS)
+    assert geo["smem_bytes"] == K.scan_smem(
+        BB, spec, G, T, 4, L, geo["stages"], page_rows is not None,
+        geo["run_lists_in_smem"])
+    assert 2 <= geo["stages"] <= K.MAX_STAGES
+    assert geo["smem_bytes"] <= K.SMEM_CAPS[1]
+    assert not geo["run_lists_in_smem"] or page_rows is not None
+    if BB <= 32 and not spec.has_lex:
+        assert geo["smem_bytes"] <= K.SMEM_CAPS[0]
+
+
+@pytest.mark.parametrize("mode", list(GEOMETRY_SPECS))
+@pytest.mark.parametrize("BB", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [0, 16, 32])
+@pytest.mark.parametrize("G", [1, 16])
+def test_resident_launch_geometry(mode, BB, T, G):
+    check_geometry(mode, BB, G, T, None)
+
+
+@pytest.mark.parametrize("ch", [16, 32])
+def test_stage_swizzle_is_conflict_free(ch):
+    """The emb chunk's swizzled float4 slots (`emb_column`, the kernel's
+    e_col) hold every (row, column) of a stage once, and eight consecutive
+    rows at one column -- a quarter warp's float4 loads in the micro-tile --
+    fall in eight distinct 16-byte bank groups, for both chunk widths."""
+    from repro_torch.kernels.arena_scan import kernel as K
+    c4s = ch // 4
+    slots = [K.emb_column(r, c, ch) for r in range(K.TILE_ROWS)
+             for c in range(c4s)]
+    assert sorted(slots) == list(range(K.TILE_ROWS * c4s))
+    for r0 in range(0, K.TILE_ROWS, 8):
+        for c in range(c4s):
+            assert len({K.emb_column(r, c, ch) % 8
+                        for r in range(r0, r0 + 8)}) == 8
+
+
+def test_geometry_block_rows_and_misfit():
+    """B maps to the instantiated block rows; a predicate block that fits
+    no shared memory is refused, not launched."""
+    from repro_torch.kernels.arena_scan import kernel as K
+    assert [K.block_rows(b) for b in (1, 8, 9, 16, 17, 32, 33, 64, 100)] \
+        == [8, 8, 16, 16, 32, 32, 64, 64, 64]
+    with pytest.raises(ValueError, match="fits"):
+        K.scan_geometry(ScanSpec(), 32, 1 << 15, 10)

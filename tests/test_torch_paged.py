@@ -68,8 +68,9 @@ from repro_torch.kernels.ivf_probe.ivf_probe import ivf_probe_plain
 from repro_torch.kernels.ivf_probe.ref import (gather_candidates,
                                                ivf_probe_ref,
                                                ivf_probe_scan_ref)
-from tests.test_torch_arena_scan import (NEG, NO_ROW, _before, _count,
-                                         assert_no_leak, assert_topk_agree,
+from tests.test_torch_arena_scan import (GEOMETRY_SPECS, NEG, NO_ROW,
+                                         _before, _count, assert_no_leak,
+                                         assert_topk_agree, check_geometry,
                                          jpred, np_arena, np_mask, np_meta,
                                          torch_cols, unit)
 
@@ -406,6 +407,17 @@ def test_paged_schedule_emulation_matches_oracle(n, k, P, dead):
         np.testing.assert_array_equal(i, i_o[b])
     if dead is not None and dead.stop - dead.start >= P:
         assert not np.isin(i_o, np.arange(n)[dead]).any()
+
+
+@pytest.mark.parametrize("mode", list(GEOMETRY_SPECS))
+@pytest.mark.parametrize("BB", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [0, 16, 32])
+@pytest.mark.parametrize("G", [1, 16])
+def test_paged_launch_geometry(mode, BB, T, G):
+    """The paged kernel's launch at the planner's default page (2^15 rows):
+    the resident kernel's micro-tile and ring, plus the sub-tile lists and,
+    where they fit 24 KB, the running lists in shared memory."""
+    check_geometry(mode, BB, G, T, 1 << 15)
 
 
 def _caught(fn) -> bool:

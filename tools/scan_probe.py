@@ -1,0 +1,342 @@
+#!/usr/bin/env python3
+"""Probe of the arena-scan kernels on one NVIDIA card: bit identity with an
+earlier version of the kernels, where the time goes, and the FMA loop's
+ceiling.
+
+    git archive <commit> src/repro_torch/csrc | tar -x -C tmp/parent
+    python3 tools/scan_probe.py --parent tmp/parent/src/repro_torch/csrc
+
+Builds, one nvcc per source and all at once, into src/repro_torch/build/
+probe/ (git-ignored): the checkout's arena-scan library, a copy of it with
+the FMAs taken out of the score stage (`nofma`: every score 0, so the
+copies, the epilogue and the merges alone), the library of ``--parent``
+(the same C entry points, an earlier design) and tools/scan_probe_fma.cu.
+Then prints one JSON line each for:
+
+* ``identity``: every mode (dense, fused, both, probe), resident and paged
+  (pages of 128, 1000, 4096 rows), over chip_smoke.py's kernel draws at
+  N in 1..65553, D in 1..768 (D 1 and 3 take the 4-byte copies), B in
+  1..100, k in 1..300: the lists of this checkout against ``--parent``'s,
+  scores and slots compared bit for bit, and each paged list against the
+  resident one;
+* ``prod``: 2^23 x 768 f32 rows drawn on the card (seed 0), 32 queries in 4
+  predicate groups, k 10, 16 lanes a row and 4 query terms for the
+  lexical modes, 393,216 candidates for the probe: bit identity with
+  ``--parent`` in every mode and regime, then CUDA-event times taken in
+  turns (parent, this, this, parent), ``nofma`` beside them, the matmul +
+  where + topk yardstick, and the SM clock and power while the dense
+  kernel runs;
+* ``fma``: tools/scan_probe_fma.cu at 2 blocks of 256 an SM, the score
+  stage's FMA loop without copies or epilogue: TFLOP/s of the 4 x 8
+  micro-tile and of 8 x 8 and 4 x 16.
+
+Exits 2 without a card or without ``--parent``'s sources.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
+BUILD = os.path.join(ROOT, "src", "repro_torch", "build", "probe")
+SOURCES = ("arena_scan.cu", "arena_scan_fused.cu", "arena_scan_both.cu",
+           "arena_scan_probe.cu")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC"]
+MODES = {"dense": 0, "fused": 1, "both": 2, "probe": 3}
+#: the score stage's FMAs, taken out in the `nofma` copy
+FMA_LINES = [f"acc[i][j] = fmaf(v.{c}, e[i].{c}, acc[i][j]);" for c in "xyzw"]
+
+
+def emit(name, **fields):
+    print(json.dumps({"probe": name, **fields}), flush=True)
+
+
+def copy_sources(name, csrc, subs=()):
+    """The scan's sources and headers of ``csrc`` in BUILD/name, with the
+    text substitutions ``subs`` applied to arena_scan.cuh."""
+    d = os.path.join(BUILD, name)
+    os.makedirs(d, exist_ok=True)
+    for f in os.listdir(csrc):
+        if f in SOURCES or f.endswith(".cuh"):
+            text = open(os.path.join(csrc, f)).read()
+            for old, new in subs if f == "arena_scan.cuh" else ():
+                if old not in text:
+                    raise RuntimeError(f"{name}: {old!r} not in {csrc}")
+                text = text.replace(old, new)
+            with open(os.path.join(d, f), "w") as out:
+                out.write(text)
+    return d
+
+
+def build_all(nvcc, dirs, fma_src):
+    """Every library at once: {name: CDLL}."""
+    procs = {}
+    for name, d in dirs.items():
+        procs[name] = [subprocess.Popen(
+            [nvcc, *FLAGS, "-c", "-o", os.path.join(d, s + ".o"),
+             os.path.join(d, s)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for s in SOURCES]
+    fma_so = os.path.join(BUILD, "fma.so")
+    fma = subprocess.Popen([nvcc, *FLAGS, "-shared", "-o", fma_so, fma_src],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    libs = {}
+    for name, d in dirs.items():
+        for p in procs[name]:
+            log = p.communicate()[0]
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        so = os.path.join(d, "lib.so")
+        subprocess.run([nvcc, *FLAGS[:2], "-shared", "-o", so,
+                        *[os.path.join(d, s + ".o") for s in SOURCES]],
+                       check=True)
+        libs[name] = bind(ctypes.CDLL(so))
+    log = fma.communicate()[0]
+    if fma.returncode:
+        raise RuntimeError(f"nvcc failed for the FMA probe:\n{log[-4000:]}")
+    libs["fma"] = ctypes.CDLL(fma_so)
+    libs["fma"].scan_probe_fma.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2
+    return libs
+
+
+def bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.arena_scan_launch.argtypes = [p] * 5 + [i] * 5 + [p] * 7
+    lib.arena_scan_paged_launch.argtypes = [p] * 5 + [i] * 6 + [p] * 7
+    for m in ("fused", "both"):
+        getattr(lib, f"arena_scan_{m}_launch").argtypes = (
+            [p] * 9 + [i] * 7 + [p] * 7)
+        getattr(lib, f"arena_scan_{m}_paged_launch").argtypes = (
+            [p] * 9 + [i] * 8 + [p] * 7)
+    lib.arena_scan_probe_launch.argtypes = [p] * 5 + [i] * 5 + [p] * 7
+    lib.arena_scan_probe_paged_launch.argtypes = [p] * 5 + [i] * 6 + [p] * 7
+    return lib
+
+
+def launch(torch, lib, mode, args, k, page_rows=None):
+    """One launch; (scores, slots). The candidate buffers are sized for the
+    smallest tile any version of the kernels uses (256 rows)."""
+    q, emb, meta, gids, preds, lex, cand = args
+    dev = q.device
+    B, D = q.shape
+    n = cand.shape[0] if mode == "probe" else emb.shape[0]
+    lists = 2 if mode == "both" else 1
+    tile = page_rows or 256
+    n_tiles = -(-n // tile)
+    size = lists * B * (1 << (n_tiles - 1).bit_length()) * min(k, tile)
+    bufs = [torch.empty(size, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32) * 2]
+    out_s = torch.empty((lists * B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((lists * B, k), dtype=torch.int32, device=dev)
+    tail = (*(b.data_ptr() for b in bufs), out_s.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    pg = () if page_rows is None else (page_rows,)
+    sfx = "_paged" if page_rows else ""
+    N, G = emb.shape[0], preds.shape[0]
+    dense_in = (q.data_ptr(), emb.data_ptr(), meta.data_ptr())
+    if mode == "dense":
+        rc = getattr(lib, f"arena_scan{sfx}_launch")(
+            *dense_in, gids.data_ptr(), preds.data_ptr(), B, N, D, G, k, *pg,
+            *tail)
+    elif mode in ("fused", "both"):
+        terms, lexnorm, qterms, qidf = lex
+        rc = getattr(lib, f"arena_scan_{mode}{sfx}_launch")(
+            *dense_in, gids.data_ptr(), preds.data_ptr(), terms.data_ptr(),
+            lexnorm.data_ptr(), qterms.data_ptr(), qidf.data_ptr(), B, N, D,
+            G, terms.shape[1], qterms.shape[1], k, *pg, *tail)
+    else:
+        rc = getattr(lib, f"arena_scan_probe{sfx}_launch")(
+            *dense_in, cand.data_ptr(), preds[0].contiguous().data_ptr(), B,
+            N, cand.shape[0], D, k, *pg, *tail)
+    if rc:
+        raise RuntimeError(f"{mode} launch failed: {rc}")
+    return out_s, out_i, bufs
+
+
+def same(torch, a, b):
+    return bool((a[0].view(torch.int32) == b[0].view(torch.int32)).all()
+                and (a[1] == b[1]).all())
+
+
+def events_ms(torch, fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def identity(np, torch, cs, libs):
+    """chip_smoke.py's kernel draws through both versions, every mode."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases, bad = 0, []
+    for N in (1, 255, 257, 513, 1000, 65553):
+        for D in (1, 3, 4, 64, 96, 100, 768):
+            for mode in MODES:
+                if mode != "dense" and D < 4 and N > 600:
+                    continue
+                for B in (1, 5, 17, 32, 33, 63, 64, 100):
+                    if N == 65553 and B not in (5, 32, 64):
+                        continue
+                    emb, meta, pairs = cs.make_arena(rng, N, D, dups=4)
+                    q, preds, gids = cs.make_batch(rng, emb, B,
+                                                   1 if mode == "probe" else 4,
+                                                   pairs, block_all=True)
+                    lex = cand = None
+                    if mode in ("fused", "both"):
+                        lex = tuple(map(t, (
+                            rng.integers(-1, 64, (N, 16)).astype(np.int32),
+                            rng.random((N, 16)).astype(np.float32),
+                            rng.integers(-1, 64, (B, 4)).astype(np.int32),
+                            rng.random((B, 4)).astype(np.float32))))
+                    if mode == "probe":
+                        cand = t(rng.integers(-3, N + 3, N).astype(np.int32))
+                    args = (t(q), t(emb), t(meta), t(gids), t(preds), lex,
+                            cand)
+                    for k in (1, 10, 33, 300):
+                        res = launch(torch, libs["this"], mode, args, k)[:2]
+                        old = launch(torch, libs["parent"], mode, args,
+                                     k)[:2]
+                        if not same(torch, res, old):
+                            bad.append([mode, N, D, B, k, None])
+                        for P in (128, 1000, 4096):
+                            pg = launch(torch, libs["this"], mode, args, k,
+                                        P)[:2]
+                            if not same(torch, pg, res):
+                                bad.append([mode, N, D, B, k, P])
+                        cases += 1
+    emit("identity", cases=cases, mismatches=len(bad), first=bad[:20])
+    return not bad
+
+
+def prod(torch, libs):
+    dev = torch.device("cuda")
+    N, D, B, G, k, T, QT = 1 << 23, 768, 32, 4, 10, 16, 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((N, D), generator=gen, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    meta = torch.stack([
+        torch.randint(-1, 20, (N,), generator=gen, device=dev),
+        torch.randint(0, 1000, (N,), generator=gen, device=dev),
+        torch.randint(0, 5, (N,), generator=gen, device=dev),
+        torch.randint(0, 256, (N,), generator=gen, device=dev)], 1).int()
+    q = torch.randn((B, D), generator=gen, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    gids = torch.arange(B, device=dev, dtype=torch.int32) // 8
+    preds = torch.tensor([[2, 100, 3, 255], [5, 300, 12, 255],
+                          [11, 50, 16, 255], [-2, 600, 21, 255]],
+                         dtype=torch.int32, device=dev)
+    lex = (torch.randint(-1, 4096, (N, T), generator=gen, device=dev).int(),
+           torch.rand((N, T), generator=gen, device=dev),
+           torch.randint(0, 4096, (B, QT), generator=gen, device=dev).int(),
+           torch.rand((B, QT), generator=gen, device=dev))
+    cand = torch.randint(0, N, (393216,), generator=gen, device=dev).int()
+    args = (q, emb, meta, gids, preds, lex, cand)
+    ok = True
+    for mode in MODES:
+        for P in (None,) if mode == "probe" else (None, 1 << 15):
+            run = {n: (lambda n=n: launch(torch, libs[n], mode, args, k, P))
+                   for n in ("parent", "this", "nofma")}
+            res, old = run["this"]()[:2], run["parent"]()[:2]
+            ident = same(torch, res, old)
+            ok &= ident
+            ms = {n: [] for n in run}
+            for n in ("parent", "this", "nofma", "this", "parent", "nofma"):
+                ms[n].append(events_ms(torch, run[n], 10))
+            emit("prod", mode=mode, page_rows=P, identical=ident, ms=ms)
+    keep = torch.ones((B, N), dtype=torch.bool, device=dev)
+
+    def yardstick():
+        sc = torch.matmul(q, emb.T)
+        return torch.topk(torch.where(keep, sc, -3.4e38), k, dim=1)
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        dense_ms = events_ms(
+            torch, lambda: launch(torch, libs["this"], "dense", args, k), 60)
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=30)[0]
+    emit("prod", yardstick_ms=events_ms(torch, yardstick, 3),
+         dense_ms_60_calls=dense_ms,
+         clock_mhz_power_w=[[float(x) for x in ln.split(",")]
+                            for ln in samples.splitlines()
+                            if ln.count(",") == 1])
+    return ok
+
+
+def fma(torch, lib):
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(4096, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for shape, (mr, qn) in enumerate(((4, 8), (8, 8), (4, 16))):
+        blocks, iters = 2 * sms, 2000
+
+        def run():
+            rc = lib.scan_probe_fma(shape, blocks, iters, out.data_ptr(),
+                                    stream)
+            if rc:
+                raise RuntimeError(f"FMA probe failed: {rc}")
+
+        ms = events_ms(torch, run, 5)
+        flops = blocks * 256 * iters * 16 * mr * qn * 2
+        rates[f"{mr}x{qn}"] = {"ms": ms, "tflops": flops / ms / 1e9}
+    emit("fma", blocks_per_sm=2, dims_per_barrier=16, rates=rates)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="csrc directory of the version to compare with")
+    opts = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("scan_probe: no CUDA device available", file=sys.stderr)
+        return 2
+    if not os.path.isfile(os.path.join(opts.parent, "arena_scan.cuh")):
+        print(f"scan_probe: no arena_scan.cuh in {opts.parent}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    cs.np, cs.torch = np, torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    dirs = {"this": copy_sources("this", CSRC),
+            "nofma": copy_sources("nofma", CSRC,
+                                  [(line, "") for line in FMA_LINES]),
+            "parent": copy_sources("parent", opts.parent)}
+    libs = build_all(nvcc, dirs, os.path.join(ROOT, "tools",
+                                              "scan_probe_fma.cu"))
+    ok = identity(np, torch, cs, libs)
+    ok &= prod(torch, libs)
+    fma(torch, libs["fma"])
+    print(json.dumps({"identical": ok}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
