@@ -8,9 +8,10 @@ Phases:
                 (``csrc/arena_scan.cuh`` and its four entry-point sources)
                 and the attention kernels (``csrc/flash_attention.cu``,
                 ``csrc/decode_attention.cu``), one nvcc per source, all six
-                at once, and print ptxas's register and spill report; fail
-                when a DENSE instantiation of tile_scan_kernel or
-                paged_scan_kernel up to 32 query rows a block spills, and
+                at once, and print ptxas's register and spill report of
+                every scan instantiation; fail when a DENSE, FUSED or BOTH
+                instantiation of tile_scan_kernel or paged_scan_kernel up
+                to 32 query rows a block spills, and
                 hold the host mirror of the scan's launch geometry
                 (`kernel.scan_geometry`) to the library's
                 (`kernel.scan_info`) over block rows, modes, lanes, groups
@@ -36,7 +37,12 @@ Phases:
                 tenant carrying exactly the query's terms). Fused and dense
                 scores within rtol = atol = 1e-5, the bm25 list exact, slots
                 as in phase 1, no leak; the public `hybrid_score` (rrf fused
-                and lists=True, k > N) against the plain oracle too.
+                and lists=True, k > N) against the plain oracle too. Then
+                the lexical stage's edges (`lex_edge_draws`): tiles where
+                every pair is kept, none is, one pair a warp is; T 32 with
+                QT 16; T 6 (one lane at a time) -- each also paged at
+                100-row pages (a page ends inside a tile) and bit-identical
+                to the resident lists.
   3. ivf_kernel -- the IVF probe (the arena-scan kernel's slot-indirect
                 PROBE mode, through `ivf_probe_cuda`) against its plain
                 version over candidate counts P, D (50 takes the scalar
@@ -83,7 +89,14 @@ Phases:
   8. hybrid_prod -- the same arena: 6 wsum and 6 rrf batches of 32 match()
                 requests in 4 groups (3 terms from a live row's lanes, q
                 near its embedding), with the same measurements plus a
-                matmul + BM25 + where + topk yardstick and a profile split.
+                matmul + BM25 + where + topk yardstick and a profile split;
+                each group's kept share of (row, query) pairs, the bound
+                over all lanes and over the kept rows' lanes only (the one
+                the kernel's data needs), `scan_info` of FUSED and BOTH at
+                B 32 (>= 2 blocks an SM required); then the keep-all draw
+                (every group any tenant, no recency cut, every category
+                and ACL bit) held to the plain version (BM25 bit-exact)
+                and timed.
   9. ivf_prod -- the prod arena with the auto-sized index (8192 clusters):
                 build time (k-means and assignment on the card, layout on
                 the host), 6 batches of 32 admin requests with a recency
@@ -98,10 +111,12 @@ Phases:
                 probe) over page sizes 128, 256, 1000, 4096 and P >= N, B,
                 k (k > 256, k > P, k > N), D (130 takes the 4-byte copies),
                 ragged N, G up to 8, T = 16 lanes with QT 1 or 4, duplicate
-                rows and a dead stretch of whole pages: its lists equal the
-                resident kernel's bit for bit and its plain version's (the
-                streaming scan at blk_n = P) under phase 1's contract, no
-                leak, and `PAGED_LAUNCHES` counts every case.
+                rows and a dead stretch of whole pages, and phase 2's
+                lexical edges in wsum and rrf at pages of 100 and 300 rows:
+                its lists equal the resident kernel's bit for bit and its
+                plain version's (the streaming scan at blk_n = P) under
+                phase 1's contract, no leak, and `PAGED_LAUNCHES` counts
+                every case.
  11. paged_prod -- the prod arena under PlannerConfig(paged_min_rows=2^20):
                 the dense, wsum and rrf batches recompiled (a `paging:`
                 explain line), 6 of each through `RagDB.execute` as one
@@ -195,6 +210,7 @@ HYB_QT = (1, 4, 16)
 HYB_K = (1, 10, 32, 33, 300)
 W_DENSE, W_LEX = 0.8, 1.7     # the wsum mix of phase 3
 LEX_V = 64                    # vocabulary of phase 3's lanes
+EDGE_LEX_PAGE = 100           # lexical edges paged: a page ends mid-tile
 RRF_C = 60.0
 # phase ivf_kernel grid: candidate counts P odd and next to a power of two,
 # D with a scalar-load width (50), k past the warp selection and past P
@@ -273,23 +289,28 @@ def ptxas_kernels(log):
     return out
 
 
-def dense_scan_ptxas(log):
-    """The DENSE instantiations of tile_scan_kernel and paged_scan_kernel
-    (BB = 8, 16, 32, 64) as ptxas reported them; fails when one at
-    BB <= 32 spills."""
+SCAN_MODES = ("dense", "fused", "both", "probe")   # the header's MODE ids
+
+
+def scan_ptxas(log):
+    """Every instantiation of tile_scan_kernel and paged_scan_kernel (BB =
+    8, 16, 32, 64; the four modes) as ptxas reported it; fails when a
+    DENSE, FUSED or BOTH one at BB <= 32 spills."""
     rows = []
     for name, rep in ptxas_kernels(log).items():
-        m = re.search(r"(tile_scan_kernel|paged_scan_kernel)ILi(\d+)ELi0E",
+        m = re.search(r"(tile_scan_kernel|paged_scan_kernel)ILi(\d+)ELi(\d)E",
                       name)
         if m:
-            rows.append({"kernel": m.group(1), "BB": int(m.group(2)), **rep})
-    rows.sort(key=lambda r: (r["kernel"], r["BB"]))
-    check(len(rows) == 8, f"ptxas reported {len(rows)} DENSE scan kernels, "
-          "expected 8")
+            rows.append({"kernel": m.group(1), "BB": int(m.group(2)),
+                         "mode": SCAN_MODES[int(m.group(3))], **rep})
+    rows.sort(key=lambda r: (SCAN_MODES.index(r["mode"]), r["kernel"],
+                             r["BB"]))
+    check(len(rows) == 32, f"ptxas reported {len(rows)} scan kernels, "
+          "expected 32")
     for r in rows:
-        check(r["BB"] > 32 or (r.get("spill_stores") == 0
-                               and r.get("spill_loads") == 0),
-              f"ptxas: {r['kernel']}<{r['BB']}, DENSE> spills: {r}")
+        check(r["mode"] == "probe" or r["BB"] > 32
+              or (r.get("spill_stores") == 0 and r.get("spill_loads") == 0),
+              f"ptxas: {r['kernel']}<{r['BB']}, {r['mode']}> spills: {r}")
     return rows
 
 
@@ -304,13 +325,13 @@ def check_geometry():
     n = 0
     for spec in specs:
         for B in (8, 16, 32, 64):
-            for T in ((16, 32) if spec.has_lex else (0,)):
+            for QT in ((1, 4, 16) if spec.has_lex else (0,)):
                 for G in ((1,) if spec.slot_lane else (1, 16)):
                     for P in (None, 1 << 15):
                         geo = kernel_mod.scan_geometry(spec, B, G, 10, P,
-                                                       T=T, QT=4)
+                                                       QT=QT)
                         info = kernel_mod.scan_info(spec, B, 1 << 20, G, 10,
-                                                    P, T=T, QT=4)
+                                                    P, QT=QT)
                         check(all(info[key] == v for key, v in geo.items()),
                               f"geometry mirror {geo} != launcher {info}")
                         n += 1
@@ -551,10 +572,12 @@ def make_qterms(rng, B, QT, hot):
     return qt
 
 
-def hybrid_case(name, arena, lexd, batch, qterms, k, errs):
+def hybrid_case(name, arena, lexd, batch, qterms, k, errs, page_rows=None):
     """The hybrid kernel against its plain version, wsum and rrf, on one
     input set; every list checked as in phase 1 against the full signals,
-    the bm25 list exactly, the rrf fusion of both sides' lists."""
+    the bm25 list exactly, the rrf fusion of both sides' lists. With
+    ``page_rows`` the paged kernel's lists must equal the resident ones
+    bit for bit."""
     from repro_torch.kernels.arena_scan.stages import bm25_scores
     from repro_torch.kernels.hybrid_score.ref import _fold, qidf_of, rrf_fuse
     (emb_d, meta_d, meta, _), (q, preds, gids) = arena, batch
@@ -569,6 +592,11 @@ def hybrid_case(name, arena, lexd, batch, qterms, k, errs):
         kw = dict(mode=mode, w_dense=W_DENSE, w_lex=W_LEX)
         out_k = hyb_mod.hybrid_score_cuda(*args, **kw)
         out_p = hyb_mod.hybrid_score_plain(*args, **kw)
+        if page_rows is not None:
+            pg = hyb_mod.hybrid_score_cuda(*args, **kw, page_rows=page_rows)
+            sync()
+            check(bits_equal(pg, out_k),
+                  f"{name}-{mode}: paged lists != resident lists")
         sync()
         qf, qidf_f = _fold(args[0], qidf, mode, W_DENSE, W_LEX)
         dense = qf @ emb_d.T
@@ -628,6 +656,41 @@ def ops_case(name, arena, lexd, batch, qterms, k, errs):
                                 lower_slot_ties=mode == "wsum" or lists))
 
 
+def lex_edge_draws(rng):
+    """The lexical stage's edges, each (name, arena, lexd, (q, preds, gids),
+    qterms), B = 32 in 4 groups: tiles where every (row, query) pair is
+    kept, where none is, and where one pair of each warp's 32 rows is; 32
+    lanes against 16 query terms; 6 lanes (the one-lane-at-a-time path, T
+    % 4 != 0). Lanes carry the hot query terms in 30% of rows and no
+    donors, so the masks stay as built."""
+    out = []
+    for name, N, D, T, QT, keep in (
+            ("all-kept", 1000, 64, 16, 4, "all"),
+            ("none-kept", 1000, 64, 16, 4, "none"),
+            ("one-a-warp", 1000, 64, 16, 4, "one"),
+            ("T32-QT16", 777, 96, 32, 16, None),
+            ("T6-QT3", 600, 64, 6, 3, None)):
+        hot = rng.integers(0, LEX_V, 3).astype(np.int32)
+        emb, meta, _ = make_arena(rng, N, D)
+        terms = rng.integers(-1, LEX_V, (N, T)).astype(np.int32)
+        h = min(3, T)
+        terms[np.ix_(rng.random(N) < 0.3, np.arange(h))] = hot[:h]
+        lexnorm = np.where(terms >= 0, rng.random((N, T)) * 2,
+                           0).astype(np.float32)
+        q, preds, gids = make_batch(rng, emb, 32, 4, block_all=True)
+        if keep is not None:
+            meta[:, 0], meta[:, 3] = 0, -1     # live, every ACL bit
+            preds[:] = [-3 if keep == "none" else -2, 0, -1, -1]
+            if keep == "one":
+                r = np.arange(N)
+                meta[:, 0] = np.where(r % 32 == (r // 32) % 32, 0, -1)
+        lexd = tuple(torch.from_numpy(a).to(DEV) for a in (
+            terms, lexnorm, (rng.random(LEX_V) * 5).astype(np.float32)))
+        out.append((name, upload(emb, meta, ()), lexd, (q, preds, gids),
+                    make_qterms(rng, 32, QT, hot)))
+    return out
+
+
 def phase_hybrid_kernel():
     rng = np.random.default_rng(SEED + 10)
     errs = []
@@ -660,9 +723,16 @@ def phase_hybrid_kernel():
                     ops_case(f"N{N}-D{D}-T{T}-k{k}", arena, lexd, batch,
                              qterms, k, errs)
                     n_cases += 1
+    edges = lex_edge_draws(rng)
+    for name, arena, lexd, batch, qterms in edges:
+        for k in (10, 33):
+            hybrid_case(f"edge-{name}-k{k}", arena, lexd, batch, qterms, k,
+                        errs, page_rows=EDGE_LEX_PAGE)
+            n_cases += 1
     emit("hybrid_kernel", cases=n_cases, modes=["wsum", "rrf", "rrf-lists"],
+         lexical_edges=[e[0] for e in edges], edges_paged_rows=EDGE_LEX_PAGE,
          max_abs_err=max(errs), seconds=time.perf_counter() - t0, tol=TOL,
-         bm25_list="exact", leaked_slots=0)
+         bm25_list="exact", leaked_slots=0, edges_paged="bit-identical")
     return max(errs)
 
 
@@ -931,6 +1001,12 @@ def phase_paged_kernel():
                             arena, lexd, cand, (q, preds, gids, qterms), k, P,
                             errs)
                         n_cases += 1
+    for name, arena, lexd, (q, preds, gids), qterms in lex_edge_draws(rng):
+        for mode in ("wsum", "rrf"):
+            for P, k in ((EDGE_LEX_PAGE, 10), (300, 33)):
+                paged_case(mode, f"edge-{name}-{mode}-P{P}-k{k}", arena, lexd,
+                           None, (q, preds, gids, qterms), k, P, errs)
+                n_cases += 1
     launches = kernel_mod.PAGED_LAUNCHES
     check(launches == n_cases,
           f"PAGED_LAUNCHES {launches} != {n_cases} paged calls")
@@ -1479,7 +1555,7 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
 
 def phase_hybrid_prod(dev, prod):
     from repro_torch.kernels.arena_scan.ops import _packed_meta
-    from repro_torch.kernels.arena_scan.stages import (bm25_scores,
+    from repro_torch.kernels.arena_scan.stages import (ScanSpec, bm25_scores,
                                                        predicate_keep)
     from repro_torch.kernels.hybrid_score.ref import _fold, qidf_of, rrf_fuse
 
@@ -1498,6 +1574,10 @@ def phase_hybrid_prod(dev, prod):
              .in_categories(c).plan().pred for p, ts, c in groups]
     keep = predicate_keep(meta, torch.stack([pr.as_array(dev)
                                              for pr in probe]))
+    # each group's share of (row, query) pairs kept, and the rows some
+    # group keeps (the only rows whose lanes the kernel reads)
+    kept_share = keep.float().mean(dim=1).tolist()
+    rows_kept = int(keep.any(dim=0).sum())
     anchors = []
     for r in range(32):
         rows = torch.nonzero(keep[r % 4]).squeeze(1)
@@ -1592,17 +1672,52 @@ def phase_hybrid_prod(dev, prod):
         return torch.topk(torch.where(mask_d, sc, -3.4e38), 10, dim=1)
 
     yard_ms = events_ms(yardstick, 3)
+
+    # the keep-all draw: every group of any tenant, no recency cut, every
+    # category and ACL bit, so the lexical stage runs for every live pair
+    preds_all = torch.tensor([[-2, 0, -1, -1]] * 4, dtype=torch.int32,
+                             device=dev)
+    args_all = args[:6] + (preds_all,) + args[7:]
+    mask_all = host_mask(meta.cpu().numpy(),
+                         preds_all.cpu().numpy())[gids.cpu().numpy()]
+    keep_all = {"kept_share": float(mask_all.mean())}
+    for mode in ("wsum", "rrf"):
+        out_k = hyb_mod.hybrid_score_cuda(*args_all, mode=mode)
+        out_p = hyb_mod.hybrid_score_plain(*args_all, mode=mode)
+        sync()
+        for j in range(0, len(out_k), 2):
+            errs.append(compare(f"hybrid-keepall-{mode}-{j}",
+                                *tnp(out_k[j], out_k[j + 1]),
+                                *tnp(out_p[j], out_p[j + 1]), mask_all))
+        if mode == "rrf":
+            check(bits_equal(out_k[2:], out_p[2:]),
+                  "keep-all: bm25 list differs from the plain version's")
+        keep_all[f"{mode}_ms"] = events_ms(
+            lambda m=mode: hyb_mod.hybrid_score_cuda(*args_all, mode=m), 10)
+    infos = {m: kernel_mod.scan_info(ScanSpec(score=s), 32, N, 4, 10, QT=4)
+             for m, s in (("wsum", "fused"), ("rrf", "both"))}
+    for m, info in infos.items():
+        check(info["blocks_per_sm"] >= 2, f"resident {m} kernel: "
+              f"{info['blocks_per_sm']} block(s) an SM, expected >= 2")
+
     B, G, QT, k = 32, 4, 4, 10
-    nbytes = (N * (4 * D + 16 + 8 * T) + B * D * 4 + B * 4 + G * 16
-              + B * QT * 8 + B * k * 8)
+    small = B * D * 4 + B * 4 + G * 16 + B * QT * 8 + B * k * 8
+    # all lanes (the plain version's reads), and the lanes of the rows some
+    # group keeps (what this run's data needs: the kernel reads no other)
+    bytes_all = N * (4 * D + 16 + 8 * T) + small
+    nbytes = N * (4 * D + 16) + rows_kept * 8 * T + small
     flops = 2 * B * N * D
+    bound_all_ms = max(bytes_all / HBM_BPS, flops / FP32_FLOPS) * 1e3
     bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS \
         else "operations"
     emit("hybrid_prod", seconds=time.perf_counter() - t_phase, rows=N,
          dim=D, lanes=T, batch=B, groups=G,
          query_terms=3, qt_bucket=QT, k=k, launches=launches,
+         kept_share=kept_share, rows_kept=rows_kept,
          bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+         bound_all_lanes_ms=bound_all_ms, bound_all_lanes_bytes=bytes_all,
+         scan_info=infos, keep_all=keep_all,
          yardstick_ms=yard_ms, ingest_host_s=prod["ingest_host_s"],
          peak_mem_gb=peak_gb(), max_abs_err=max(errs), **out)
     return dict(launches=launches, ms=out["wsum"]["ms"],
@@ -1864,13 +1979,13 @@ def phase_paged_prod(dev, prod, hprod, ptxas=()):
         row = {"resident_ms": events_ms(lambda: call(None), 10),
                "resident_device_ms": device_ms(lambda: call(None), 5)[0],
                "resident_info": kernel_mod.scan_info(specs[m], B, N, G, k,
-                                                     None, T, QT),
+                                                     None, QT=QT),
                "resident_alloc_bytes": alloc_bytes(lambda: call(None)),
                "resident_profile_ms": profile_batch(
                    lambda: call(None))["split_ms"],
                "bound_ms": bounds[m], "pages": {}}
         for p in PAGED_PROD_P:
-            info = kernel_mod.scan_info(specs[m], B, N, G, k, p, T, QT)
+            info = kernel_mod.scan_info(specs[m], B, N, G, k, p, QT=QT)
             cell = {"ms": events_ms(lambda: call(p), 10),
                     "device_ms": device_ms(lambda: call(p), 5)[0],
                     "alloc_bytes": alloc_bytes(lambda: call(p)),
@@ -2347,8 +2462,9 @@ def main() -> int:
                                    + attn_lib.BUILD_LOG).splitlines()
              if "registers" in ln or "Compiling" in ln or "spill" in ln]
     build_s = time.perf_counter() - t0
-    scan_ptxas = dense_scan_ptxas(kernel_mod.BUILD_LOG)
-    emit("build", seconds=build_s, ptxas=ptxas, dense_scan_ptxas=scan_ptxas,
+    all_scan_ptxas = scan_ptxas(kernel_mod.BUILD_LOG)
+    dense_ptxas = [r for r in all_scan_ptxas if r["mode"] == "dense"]
+    emit("build", seconds=build_s, ptxas=ptxas, scan_ptxas=all_scan_ptxas,
          geometry_shapes=check_geometry(),
          geometry="host mirror == C launcher")
 
@@ -2360,10 +2476,10 @@ def main() -> int:
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
     ierr2 = phase_ivf_bench(dev)
-    prod = phase_prod(dev, ptxas=scan_ptxas)
+    prod = phase_prod(dev, ptxas=dense_ptxas)
     hprod = phase_hybrid_prod(dev, prod)
     iprod = phase_ivf_prod(dev, prod)
-    pprod = phase_paged_prod(dev, prod, hprod, ptxas=scan_ptxas)
+    pprod = phase_paged_prod(dev, prod, hprod, ptxas=dense_ptxas)
     # free the 2^23-row arena (and every tensor the rows hold) before the
     # model and its cache take the card
     row_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -49,11 +49,11 @@ int arena_scan_paged_launch(const float* q, const float* emb,
 // (page_rows >= 1): out[INFO_LEN] as scan_info in arena_scan.cuh fills it
 // (shared memory a block, ring stages, running lists in shared memory,
 // blocks an SM holds, blocks along x, tile rows, micro-tile MR x QN, dims
-// a stage, query rows a block). T and QT are unused in this mode. Returns
-// 0 or a CUDA error.
-int arena_scan_info(int B, int N, int G, int T, int QT, int k, int page_rows,
+// a stage, query rows a block). QT is unused in this mode. Returns 0 or a
+// CUDA error.
+int arena_scan_info(int B, int N, int G, int QT, int k, int page_rows,
                     int* out) {
-  return scan_info<DENSE>(B, N, G, T, QT, k, page_rows, out);
+  return scan_info<DENSE>(B, N, G, QT, k, page_rows, out);
 }
 
 }  // extern "C"

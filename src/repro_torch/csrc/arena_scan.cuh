@@ -44,7 +44,8 @@
 // lanes outer, query terms inner, w += hit ? qidf : 0, then
 // bm25 += w != 0 ? w * lexnorm : 0 -- every step an _rn intrinsic, so nvcc
 // contracts nothing into an FMA and the signal is the plain version's IEEE
-// value bit for bit. The fused score is __fadd_rn(dense, bm25).
+// value bit for bit. The fused score is __fadd_rn(dense, bm25). Only the
+// (row, query) pairs that pass the mask compute it (the epilogue below).
 //
 // Schedule. The Pallas kernel walks N in sequence per 8-row B block with a
 // running top-k in VMEM. Blocks on Hopper run in parallel and in no order,
@@ -75,12 +76,11 @@
 //     ran no faster on the card: the FMA loop's own rate is the ceiling,
 //     PERF.md.)
 //   * Ring. The chunks -- emb [256 rows][CH dims] and the queries [BB][CH]
-//     -- stream through a ring of 2-4 shared-memory stages, CH = 32 dims
-//     (16 in the lexical modes, whose lanes take the room). One thread
-//     issues each chunk as two TMA tile loads (cp.async.bulk.tensor, 2-D
-//     tensor maps of emb and q; zeros past N, B and D) landing on the
-//     stage's mbarrier, stages - 1 chunks ahead of the FMAs. The emb box
-//     uses the TMA swizzle of its row size (64 or 128 bytes), so eight
+//     -- stream through a ring of 2-4 shared-memory stages, CH = 32 dims in
+//     every mode. One thread issues each chunk as two TMA tile loads
+//     (cp.async.bulk.tensor, 2-D tensor maps of emb and q; zeros past N, B
+//     and D) landing on the stage's mbarrier, stages - 1 chunks ahead of
+//     the FMAs. The emb box uses the TMA's 128-byte swizzle, so eight
 //     consecutive rows at one float4 column fall in distinct banks
 //     (e_col). PROBE gathers its rows by slot with cp.async (sm_90's TMA
 //     has no row gather), as does D % 4 != 0 (4-byte copies); both write
@@ -98,15 +98,21 @@
 // group read by direct index from shared memory, each arena row's
 // metadata from device memory; rows that fail it, and rows past N, score
 // NEG_INF with the index INT_MAX -- and store scores and indices into the
-// [8][256] selection buffers. The lexical modes then compute, thread per
-// row, a row's BM25 for a query row only where the row passed (the tile's
-// T lanes staged row-major at an odd stride at its first chunk, the
-// block's query terms once; a loop that is not unrolled). Then the tile's
-// top k_loc by (score desc, index asc) is selected -- by a warp-wide
-// argmax per row for k_loc <= 32, by a bitonic sort of the whole tile
-// above that. BOTH selects the dense list and then the bm25 list of the
-// same eight rows; its candidates lie as 2B virtual rows (list l, row b
-// at l * B + b). Every NEG_INF entry carries the index INT_MAX, so it
+// [8][256] selection buffers. The lexical modes then run the lexical
+// stage (lexical_stage): the kept (query row, tile row) pairs of the eight
+// rows are compacted into one list per row (a warp's ballot and popc per
+// row, the block's offsets from the eight counts), and the block's threads
+// take the pairs in turn, so BM25 runs for kept pairs only and at full
+// width however few they are. A pair reads its row's 64 + 64 bytes of
+// lanes straight from device memory in 16-byte read-only loads and its
+// query's terms and idf from shared memory (held in registers for QT <=
+// 4); FUSED adds the BM25 to the dense score in place, BOTH writes it to
+// the bm25 list (whose masked entries the micro-tiles stored as NEG_INF).
+// Then the tile's top k_loc by (score desc, index asc) is selected -- by a
+// warp-wide argmax per row for k_loc <= 32, by a bitonic sort of the whole
+// tile above that. BOTH selects the dense list and then the bm25 list of
+// the same eight rows; its candidates lie as 2B virtual rows (list l, row
+// b at l * B + b). Every NEG_INF entry carries the index INT_MAX, so it
 // sorts after all real entries and padding appended to a sorted list
 // keeps it sorted.
 //
@@ -121,11 +127,13 @@
 //          At N = 2^23, D = 768, B = 32 that is max(7.7 ms, 6.1 ms): 16
 //          FLOP a byte, just under fp32's ridge of 20, so the design has
 //          to keep both the FMA pipe and the copies busy at once.
-//   lexical modes: the lanes add 8T bytes a row,
+//   lexical modes: the lanes add at most 8T bytes a row,
 //          max(N * (4D + 16 + 8T) B / 3.35 TB/s, the same FLOP bound);
-//          at T = 16 that is 26.98 GB, 8.05 ms. The BM25 compares
-//          (B * N * T * QT, 1.7e10 at QT = 4) are integer work well under
-//          it.
+//          at T = 16 that is 26.98 GB, 8.05 ms. This design reads a row's
+//          lanes only where some query row keeps it, so at low keep rates
+//          the bytes fall toward DENSE's (plus 8T for each kept row). The
+//          BM25 steps (T * QT a kept pair, at most B * N * T * QT = 1.7e10
+//          at QT = 4) are integer and fp32 work well under the bound.
 //   PROBE: the P candidates' rows plus their slots,
 //          max(P * (4D + 16 + 4) B / 3.35 TB/s, 2 * B * P * D / 67 TFLOP/s).
 // PROBE's gathered rows are whole 4D-byte rows, so its loads coalesce as
@@ -137,12 +145,13 @@
 // TF32 / bf16 candidates widened and rescored in fp32) would lift that
 // ceiling but change the scores' bits (and the paged-vs-resident identity
 // with them) unless the rescore restores the fp32 chain; (2) the lexical
-// stage -- BM25 runs serially over T x QT per kept (row, query) pair, a
-// warp runs the loop whenever any of its rows is kept (the divergence
-// costs more than the work), and its lanes are staged by synchronous
-// loads; (3) selection -- for k > 32 the bitonic sort of the whole tile
-// does far more work than k entries need, and the warp argmax takes a
-// share of every tile. The merge rounds add one small launch each.
+// stage's latency -- a pair's lane loads are issued when the block
+// reaches it, so a block with few pairs waits on one round trip to device
+// memory per eight query rows (the other block on the SM computes
+// meanwhile); BOTH's second list costs a second selection; (3) selection
+// -- for k > 32 the bitonic sort of the whole tile does far more work
+// than k entries need, and the warp argmax takes a share of every tile.
+// The merge rounds add one small launch each.
 //
 // The paged regime (paged_scan_kernel) replaces the Pallas kernel's
 // `_paged_kernel` (src/repro/kernels/arena_scan/kernel.py:121), which keeps
@@ -164,6 +173,7 @@
 #include <cfloat>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "attention.cuh"   // mbarriers, TMA loads, tensor maps
 
@@ -196,12 +206,8 @@ constexpr int FUSED = 1;   // one list on dense + bm25 (wsum)
 constexpr int BOTH = 2;    // two lists, dense and bm25 (rrf)
 constexpr int PROBE = 3;   // one dense list over slot-indirect candidates
 
-// Dims a ring stage holds: 32 (128-byte rows) where shared memory allows
-// two stages of them beside the rest, 16 (64-byte rows) in the lexical
-// modes, whose staged lanes take that room. Either divides DK.
-__host__ __device__ constexpr int chunk_dims(int mode) {
-  return (mode == FUSED || mode == BOTH) ? 16 : 32;
-}
+// Dims a ring stage holds in every mode: 128-byte rows, DK itself.
+constexpr int CH = 32;
 
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
@@ -333,19 +339,78 @@ __device__ __forceinline__ void emit(float* s_sort, int* i_sort, int k_loc,
   }
 }
 
-// BM25 of one arena row (its T lanes: lt term ids, ll lexnorm weights) for
-// one query row (QT terms qt with their idf qw), in the plain version's
-// order and rounding: lanes outer, query terms inner, the lane product
-// select-guarded, each step rounded on its own (no FMA contraction).
-__device__ __forceinline__ float bm25_row(const int* lt, const float* ll,
-                                          int T, const int* qt,
-                                          const float* qw, int QT) {
+// The BM25 chain of the plain version, each step rounded on its own (no
+// FMA contraction): per lane, w = 0 and then w += hit ? qidf : 0 over the
+// query terms in order; per row, acc = 0 and then acc += w != 0 ? w * ln :
+// 0 over the lanes in order. lane_w takes four query terms of a lane's w,
+// lane_add one lane's product into acc.
+__device__ __forceinline__ float lane_w(float w, int lane, int4 qt,
+                                        float4 qw) {
+  w = __fadd_rn(w, lane == qt.x ? qw.x : 0.f);
+  w = __fadd_rn(w, lane == qt.y ? qw.y : 0.f);
+  w = __fadd_rn(w, lane == qt.z ? qw.z : 0.f);
+  return __fadd_rn(w, lane == qt.w ? qw.w : 0.f);
+}
+
+__device__ __forceinline__ float lane_add(float acc, float w, float ln) {
+  return __fadd_rn(acc, w != 0.f ? __fmul_rn(w, ln) : 0.f);
+}
+
+// BM25 of one arena row for one query row, its lanes read straight from
+// device memory in 16-byte pieces of four lanes (ld.global.nc.v4: lt4 / ll4
+// the row's term ids and weights, n4 pieces), the query's terms and idf from
+// shared memory in pieces of four (nq4 pieces, padded with (-1, 0)). The
+// four lanes of a piece keep their own w, so each lane's chain runs over
+// the query terms in order whichever loop is outer; a padding term adds
+// +0 to w, which leaves it unchanged (w starts at +0 and, under round to
+// nearest, is never -0). ONE_PIECE (QT <= 4): the query's terms are read
+// once, into registers, for the whole row.
+template <bool ONE_PIECE>
+__device__ __forceinline__ float bm25_vec(const int4* __restrict__ lt4,
+                                          const float4* __restrict__ ll4,
+                                          int n4, const int4* qt4,
+                                          const float4* qw4, int nq4) {
+  int4 q1 = make_int4(0, 0, 0, 0);
+  float4 f1 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ONE_PIECE) {
+    q1 = qt4[0];
+    f1 = qw4[0];
+  }
+  float acc = 0.f;
+#pragma unroll 2
+  for (int p = 0; p < n4; ++p) {
+    const int4 lt = __ldg(lt4 + p);
+    const float4 ll = __ldg(ll4 + p);
+    float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
+    for (int c = 0; c < (ONE_PIECE ? 1 : nq4); ++c) {
+      const int4 qt = ONE_PIECE ? q1 : qt4[c];
+      const float4 qw = ONE_PIECE ? f1 : qw4[c];
+      w0 = lane_w(w0, lt.x, qt, qw);
+      w1 = lane_w(w1, lt.y, qt, qw);
+      w2 = lane_w(w2, lt.z, qt, qw);
+      w3 = lane_w(w3, lt.w, qt, qw);
+    }
+    acc = lane_add(acc, w0, ll.x);
+    acc = lane_add(acc, w1, ll.y);
+    acc = lane_add(acc, w2, ll.z);
+    acc = lane_add(acc, w3, ll.w);
+  }
+  return acc;
+}
+
+// The same chain one lane at a time (T % 4 != 0, or lanes not 16-byte
+// aligned): lt / ll the row's T lanes in device memory, qt / qw the QT
+// query terms in shared memory.
+__device__ __forceinline__ float bm25_lanes(const int* __restrict__ lt,
+                                            const float* __restrict__ ll,
+                                            int T, const int* qt,
+                                            const float* qw, int QT) {
   float acc = 0.f;
   for (int t = 0; t < T; ++t) {
-    const int lane = lt[t];
+    const int lane = __ldg(lt + t);
     float w = 0.f;
     for (int j = 0; j < QT; ++j) w = __fadd_rn(w, lane == qt[j] ? qw[j] : 0.f);
-    acc = __fadd_rn(acc, w != 0.f ? __fmul_rn(w, ll[t]) : 0.f);
+    acc = lane_add(acc, w, __ldg(ll + t));
   }
   return acc;
 }
@@ -473,7 +538,10 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 // stride rstride) as `nxt`: the top L of their union, each element placed
 // by its rank (a binary search in the other list), the running list's
 // element first on an exact tie -- merge_kernel's rule, so ranks are unique.
-__device__ __forceinline__ void fold_lists(const float* sub_s,
+// Not inlined: the paged epilogue holds the micro-tile's accumulators, and
+// an inlined fold pushed it past the 128 registers that let two blocks
+// share an SM (ptxas spilled).
+__device__ __noinline__ void fold_lists(const float* sub_s,
                                            const int* sub_i, int k_sub,
                                            const float* cur_s,
                                            const int* cur_i, float* nxt_s,
@@ -529,10 +597,25 @@ __device__ __forceinline__ void fold_lists(const float* sub_s,
 // emb chunk [TILE_N rows][CH] (TMA-swizzled, e_col) then the query chunk
 // [BB][CH], then the other regions at multiples of 16 bytes. `paged` adds
 // the sub-tile lists and, with `run_smem`, both copies of the running
-// lists.
+// lists; `lexical` the query terms and idf ([BB][QT rounded up to 4]) and
+// the pair lists (RS counts, then RS x TILE_N one-byte tile rows). BOTH's
+// selection buffers hold three [RS][TILE_N] arrays where its lists share
+// their indices (shares_indices: paged), else four.
 struct ScanLayout {
-  size_t stage, sel, sub, run, preds, gids, lanes, qlex, bars, total;
+  size_t stage, sel, sub, run, preds, gids, qlex, pairs, bars, total;
 };
+
+__host__ __device__ constexpr int pad4(int x) { return (x + 3) & ~3; }
+
+// A paged BOTH block's two lists share one index buffer when a list holds
+// at most WARP_K entries (L; a sub-tile's lists hold min(L, TILE_N)): the
+// warp argmax selects them and moves nothing, and both carry the same
+// indices. The 8 KB it frees lets the running lists into shared memory at
+// BB = 32 (measured: 0.8 ms a batch at 2^15-row pages, PERF.md).
+__host__ __device__ constexpr bool shares_indices(int n_lists, bool paged,
+                                                  int L) {
+  return paged && n_lists == 2 && L <= WARP_K;
+}
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~(size_t)15;
@@ -542,23 +625,23 @@ __host__ __device__ inline size_t align1024(size_t x) {
   return (x + 1023) & ~(size_t)1023;
 }
 
-__host__ __device__ inline ScanLayout scan_layout(int BB, int ch,
-                                                  int n_lists, bool lexical,
-                                                  bool paged, int G, int T,
-                                                  int QT, int L, int stages,
-                                                  bool run_smem) {
+__host__ __device__ inline ScanLayout scan_layout(int BB, int n_lists,
+                                                  bool lexical, bool paged,
+                                                  int G, int QT, int L,
+                                                  int stages, bool run_smem) {
   ScanLayout p;
-  p.stage = align1024(sizeof(float) * (size_t)(TILE_N + BB) * ch);
+  p.stage = align1024(sizeof(float) * (size_t)(TILE_N + BB) * CH);
   p.sel = (size_t)stages * p.stage;
-  p.sub = p.sel + (size_t)n_lists * RS * TILE_N * 8;
+  p.sub = p.sel + (size_t)n_lists * RS * TILE_N * 8 -
+          (shares_indices(n_lists, paged, L) ? (size_t)RS * TILE_N * 4 : 0);
   p.run = p.sub + (paged ? align16((size_t)n_lists * RS *
                                    (L < TILE_N ? L : TILE_N) * 8)
                          : 0);
   p.preds = p.run + (run_smem ? align16((size_t)2 * n_lists * BB * L * 8) : 0);
   p.gids = p.preds + align16(sizeof(int) * 4 * (size_t)G);
-  p.lanes = p.gids + align16(sizeof(int) * (size_t)BB);
-  p.qlex = p.lanes + (lexical ? align16((size_t)8 * TILE_N * (T | 1)) : 0);
-  p.bars = p.qlex + (lexical ? align16((size_t)8 * BB * QT) : 0);
+  p.qlex = p.gids + align16(sizeof(int) * (size_t)BB);
+  p.pairs = p.qlex + (lexical ? align16((size_t)8 * BB * pad4(QT)) : 0);
+  p.bars = p.pairs + (lexical ? align16((size_t)RS * (4 + TILE_N)) : 0);
   p.total = p.bars + align16((size_t)8 * stages) + 1024;
   return p;
 }
@@ -588,14 +671,82 @@ struct ScanArgs {
 };
 
 // The float4 column that holds dims 4 c4 .. 4 c4 + 3 of row r in a stage's
-// emb chunk of CHD dims a row: the TMA's swizzle of the row's size -- the
-// 16-byte unit c4 XOR bits 1-2 of the row for 64-byte rows, bits 0-2 for
-// 128-byte rows -- so that eight consecutive rows at one c4 fall in
-// distinct banks.
-template <int CHD>
+// emb chunk: the TMA's 128-byte swizzle -- the 16-byte unit c4 XOR bits 0-2
+// of the row -- so that eight consecutive rows at one c4 fall in distinct
+// banks.
 __device__ __forceinline__ int e_col(int r, int c4) {
-  static_assert(CHD == 16 || CHD == 32, "64- or 128-byte rows");
-  return r * (CHD / 4) + (c4 ^ (CHD == 16 ? (r >> 1) & 3 : r & 7));
+  return r * (CH / 4) + (c4 ^ (r & 7));
+}
+
+// The lexical stage of RS selection rows whose masked scores are staged in
+// s_sort / i_sort (an index of NO_ROW marks a masked pair), for the tile
+// rows at `base` (lanes: terms / lexnorm, T a row). The kept (selection
+// row j, tile row r) pairs are compacted -- warp j ballots over row j's 256
+// entries and writes the kept tile rows, ascending, to its list pair_r[j]
+// [0, pair_n[j]) -- and then taken in turn: pair p of the lists in (j, r)
+// order by thread p mod THREADS, so no warp runs BM25 for a masked pair
+// and no lane waits on another's loop. A pair reads its row's lanes from
+// device memory (`vec`: 16-byte pieces) and its query row's terms (qt /
+// qw, QTP = QT rounded up to 4 a row) from shared memory. FUSED adds the
+// BM25 to the dense score in place; BOTH writes it to the bm25 list's
+// entry (s_lex, whose masked entries are NEG_INF already).
+template <int MODE>
+__device__ __forceinline__ void lexical_stage(
+    const int* __restrict__ terms, const float* __restrict__ lexnorm, int T,
+    int QT, int base, float* s_sort, const int* i_sort, float* s_lex,
+    int* pair_n, unsigned char* pair_r, const int* qt, const float* qw,
+    int QTP, bool vec) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  int n = 0;
+#pragma unroll
+  for (int c = 0; c < TILE_N / 32; ++c) {
+    const int r = 32 * c + lane;
+    const bool kept = i_sort[warp * TILE_N + r] != NO_ROW;
+    const unsigned bal = __ballot_sync(FULL, kept);
+    if (kept)
+      pair_r[warp * TILE_N + n + __popc(bal & ((1u << lane) - 1u))] =
+          (unsigned char)r;
+    n += __popc(bal);
+  }
+  if (lane == 0) pair_n[warp] = n;
+  __syncthreads();               // every list and count is written
+  int total = 0;
+#pragma unroll
+  for (int j = 0; j < RS; ++j) total += pair_n[j];
+  int j = 0, start = 0;          // the list holding pair p, its first pair
+  for (int p = tid; p < total; p += THREADS) {
+    while (p - start >= pair_n[j]) start += pair_n[j++];
+    const int r = pair_r[j * TILE_N + p - start];
+    const size_t lanes = (size_t)(base + r) * T;
+    const int* q_t = qt + j * QTP;
+    const float* q_w = qw + j * QTP;
+    float b25;
+    if (!vec) {
+      b25 = bm25_lanes(terms + lanes, lexnorm + lanes, T, q_t, q_w, QT);
+    } else if (QTP == 4) {
+      b25 = bm25_vec<true>(
+          reinterpret_cast<const int4*>(terms + lanes),
+          reinterpret_cast<const float4*>(lexnorm + lanes), T / 4,
+          reinterpret_cast<const int4*>(q_t),
+          reinterpret_cast<const float4*>(q_w), 1);
+    } else {
+      b25 = bm25_vec<false>(
+          reinterpret_cast<const int4*>(terms + lanes),
+          reinterpret_cast<const float4*>(lexnorm + lanes), T / 4,
+          reinterpret_cast<const int4*>(q_t),
+          reinterpret_cast<const float4*>(q_w), QTP / 4);
+    }
+    const int o = j * TILE_N + r;
+    if constexpr (MODE == FUSED) {
+      s_sort[o] = __fadd_rn(s_sort[o], b25);
+    } else {
+      s_lex[o] = b25;
+    }
+  }
+  __syncthreads();               // the lexical scores are in place
 }
 
 // One block of either kernel: the score stage and the epilogue over the
@@ -614,14 +765,17 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
                                            const CUtensorMap* q_map) {
   constexpr bool LEX = MODE == FUSED || MODE == BOTH;
   constexpr int NL = MODE == BOTH ? 2 : 1;
-  constexpr int CH = chunk_dims(MODE);
   constexpr int QN = BB / NQG;          // query rows of a micro-tile
   static_assert(QN * NQG == BB, "BB splits into the query groups");
+  // the micro-tile's mask, MR x QN bits
+  using KeptBits = typename std::conditional<(MR * QN > 32),
+                                             unsigned long long,
+                                             unsigned>::type;
   extern __shared__ __align__(16) unsigned char smem_buf[];
   unsigned char* smem_raw =
       smem_buf + ((1024 - (attn::smem_u32(smem_buf) & 1023)) & 1023);
-  const ScanLayout lay = scan_layout(BB, CH, NL, LEX, PAGED, a.G, a.T,
-                                     a.QT, a.L, a.stages, a.run_smem != 0);
+  const ScanLayout lay = scan_layout(BB, NL, LEX, PAGED, a.G, a.QT, a.L,
+                                     a.stages, a.run_smem != 0);
   // the chunks come by TMA (one thread, a 2-D box of each tensor, landing
   // on the stage's mbarrier), except for PROBE's gathered rows and D % 4
   // != 0, which come by cp.async (every thread, waited per thread)
@@ -629,8 +783,13 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   const uint32_t bars = attn::smem_u32(smem_raw + lay.bars);
   float* s_sort = reinterpret_cast<float*>(smem_raw + lay.sel);  // RS x TILE_N
   int* i_sort = reinterpret_cast<int*>(s_sort + RS * TILE_N);
-  float* s_lex = s_sort + 2 * RS * TILE_N;      // BOTH: the bm25 list's
-  int* i_lex = reinterpret_cast<int*>(s_sort + 3 * RS * TILE_N);
+  // BOTH: the bm25 list's scores, and its indices (i_sort itself where the
+  // lists share them; the micro-tiles then store each index twice, which a
+  // branch around the second store would cost a spill in the paged kernel)
+  float* s_lex = s_sort + 2 * RS * TILE_N;
+  int* i_lex = shares_indices(NL, PAGED, a.L)
+                   ? i_sort
+                   : reinterpret_cast<int*>(s_sort + 3 * RS * TILE_N);
   const int k_sub = min(a.L, TILE_N);
   // paged: each sub-tile's selected lists, RS rows of k_sub, bm25's after
   float* sub_s = reinterpret_cast<float*>(smem_raw + lay.sub);
@@ -639,11 +798,18 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   int* sub_li = sub_i + RS * k_sub;
   int* p_sh = reinterpret_cast<int*>(smem_raw + lay.preds);      // G x 4
   int* g_sh = reinterpret_cast<int*>(smem_raw + lay.gids);       // BB
-  const int LS = a.T | 1;
-  int* lt_sh = reinterpret_cast<int*>(smem_raw + lay.lanes);     // TILE_N x LS
-  float* ll_sh = reinterpret_cast<float*>(lt_sh + TILE_N * LS);
-  int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);      // BB x QT
-  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * a.QT);
+  const int QTP = pad4(a.QT);
+  int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);      // BB x QTP
+  float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QTP);
+  int* pair_n = reinterpret_cast<int*>(smem_raw + lay.pairs);    // RS
+  unsigned char* pair_r =                                        // RS x TILE_N
+      reinterpret_cast<unsigned char*>(pair_n + RS);
+  // the lanes come in 16-byte pieces when rows of T lanes keep them aligned
+  // (the test is cheap; without it ptxas spilled in paged BOTH<32>)
+  const bool vec_lanes =
+      (a.T & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(a.terms) |
+        reinterpret_cast<uintptr_t>(a.lexnorm)) & 15) == 0;
 
   const int tid = threadIdx.x;
   // rows rg + NRG * i, query rows qg * QN + j: a warp holds 32 row groups
@@ -679,12 +845,14 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
     }
     g_sh[i] = (g >= 0 && g < a.G) ? g : -1;   // out-of-range ids match nothing
   }
-  if constexpr (LEX) {
-    for (int i = tid; i < BB * a.QT; i += THREADS) {
-      const int b = b0 + i / a.QT;
-      const size_t src = (size_t)b * a.QT + i % a.QT;
-      qt_sh[i] = b < a.B ? a.qterms[src] : -1;
-      qw_sh[i] = b < a.B ? a.qidf[src] : 0.f;
+  if constexpr (LEX) {            // rows padded with (-1, 0) to QTP terms
+    for (int i = tid; i < BB * QTP; i += THREADS) {
+      const int b = b0 + i / QTP;
+      const int j = i % QTP;
+      const bool in = b < a.B && j < a.QT;
+      const size_t src = (size_t)b * a.QT + j;
+      qt_sh[i] = in ? a.qterms[src] : -1;
+      qw_sh[i] = in ? a.qidf[src] : 0.f;
     }
   }
 
@@ -774,7 +942,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
         const int row = src_row(base, r);
         const int d = d0 + 4 * my_c4;
         const bool ok = row >= 0 && d < a.D;
-        cp_async16(e_st + 4 * e_col<CH>(r, my_c4),
+        cp_async16(e_st + 4 * e_col(r, my_c4),
                    ok ? a.emb + (size_t)row * a.D + d : a.emb, ok);
       }
 #pragma unroll
@@ -795,7 +963,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
         const int d = d0 + c;
         const int row = src_row(base, r);
         const bool ok = row >= 0 && d < a.D;
-        cp_async4(e_st + 4 * e_col<CH>(r, c / 4) + (c & 3),
+        cp_async4(e_st + 4 * e_col(r, c / 4) + (c & 3),
                   ok ? a.emb + (size_t)row * a.D + d : a.emb, ok);
       }
       for (int f = tid; f < BB * CH; f += THREADS) {
@@ -838,7 +1006,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   // the micro-tile's emb float4 columns in a stage (64 rows apart)
   int e_off[C4];
 #pragma unroll
-  for (int c4 = 0; c4 < C4; ++c4) e_off[c4] = e_col<CH>(rg, c4);
+  for (int c4 = 0; c4 < C4; ++c4) e_off[c4] = e_col(rg, c4);
   for (int gi = 0; gi < total; ++gi) {
     if (use_tma) {                // chunk gi has landed
       attn::mbar_wait(bars + 8 * c_st, parity);
@@ -847,18 +1015,6 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
     }
     __syncthreads();              // ... everyone's; stage gi - 1 is consumed
     issue_next();
-    if constexpr (LEX) {
-      if (c == 0) {               // the sub-tile's lanes, read at its end
-        for (int f = tid; f < TILE_N * a.T; f += THREADS) {
-          const int r = f / a.T;
-          const int t = f % a.T;
-          const bool in = base + r < row_end;
-          const size_t src = (size_t)(base + r) * a.T + t;
-          lt_sh[r * LS + t] = in ? a.terms[src] : -1;
-          ll_sh[r * LS + t] = in ? a.lexnorm[src] : 0.f;
-        }
-      }
-    }
     // the micro-tile: per float4 column, MR emb float4s and QN query
     // float4s feed 4 MR QN FMAs, each (row, query) chain in d order
     const float4* e4 = reinterpret_cast<const float4*>(
@@ -905,55 +1061,91 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
       // outside [0, 32) match no category set
       cat_bit[i] = ((unsigned)m[i].z < 32u) ? (1u << m[i].z) : 0u;
     }
+    // The resident kernel takes the micro-tile's whole mask (bit MR j + i
+    // for row i, query row j) before any store, so the metadata leaves the
+    // registers early (3-4% faster, PERF.md); the paged kernel tests each
+    // pair where it stores it (the early mask pushed it past 128 registers).
+    KeptBits kept = 0;
+    if constexpr (!PAGED) {
+#pragma unroll 1
+      for (int j = 0; j < QN; ++j) {
+        const int g = g_sh[qg * QN + j];
+        int pt = -3, pts = 0;
+        unsigned pc = 0u, pa = 0u;
+        if (g >= 0) {
+          pt = p_sh[4 * g + 0];
+          pts = p_sh[4 * g + 1];
+          pc = (unsigned)p_sh[4 * g + 2];
+          pa = (unsigned)p_sh[4 * g + 3];
+        }
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          const bool keep = g >= 0 && m[i].x >= 0 &&
+                            (pt == -2 || m[i].x == pt) && m[i].y >= pts &&
+                            (cat_bit[i] & pc) != 0u &&
+                            ((unsigned)m[i].w & pa) != 0u;
+          kept |= (KeptBits)keep << (MR * j + i);
+        }
+      }
+    }
 #pragma unroll 1
     for (int r0 = 0; r0 < nb; r0 += RS) {
+      if constexpr (PAGED) {
 #pragma unroll
-      for (int j = 0; j < QN; ++j) {
-        const int jj = qg * QN + j - r0;
-        if (jj >= 0 && jj < RS) {
-          const int g = g_sh[qg * QN + j];
-          int pt = -3, pts = 0;
-          unsigned pc = 0u, pa = 0u;
-          if (g >= 0) {
-            pt = p_sh[4 * g + 0];
-            pts = p_sh[4 * g + 1];
-            pc = (unsigned)p_sh[4 * g + 2];
-            pa = (unsigned)p_sh[4 * g + 3];
+        for (int j = 0; j < QN; ++j) {
+          const int jj = qg * QN + j - r0;
+          if (jj >= 0 && jj < RS) {
+            const int g = g_sh[qg * QN + j];
+            int pt = -3, pts = 0;
+            unsigned pc = 0u, pa = 0u;
+            if (g >= 0) {
+              pt = p_sh[4 * g + 0];
+              pts = p_sh[4 * g + 1];
+              pc = (unsigned)p_sh[4 * g + 2];
+              pa = (unsigned)p_sh[4 * g + 3];
+            }
+#pragma unroll
+            for (int i = 0; i < MR; ++i) {
+              const bool keep = g >= 0 && m[i].x >= 0 &&
+                                (pt == -2 || m[i].x == pt) && m[i].y >= pts &&
+                                (cat_bit[i] & pc) != 0u &&
+                                ((unsigned)m[i].w & pa) != 0u;
+              const int o = jj * TILE_N + rg + NRG * i;
+              const int ix = keep ? base + rg + NRG * i : NO_ROW;
+              s_sort[o] = keep ? acc[i][j] : NEG_INF;
+              i_sort[o] = ix;
+              if constexpr (MODE == BOTH) {   // the bm25 list, its BM25 later
+                s_lex[o] = NEG_INF;
+                i_lex[o] = ix;
+              }
+            }
           }
+        }
+      } else {
 #pragma unroll
-          for (int i = 0; i < MR; ++i) {
-            const bool keep = g >= 0 && m[i].x >= 0 &&
-                              (pt == -2 || m[i].x == pt) && m[i].y >= pts &&
-                              (cat_bit[i] & pc) != 0u &&
-                              ((unsigned)m[i].w & pa) != 0u;
-            const int o = jj * TILE_N + rg + NRG * i;
-            s_sort[o] = keep ? acc[i][j] : NEG_INF;
-            i_sort[o] = keep ? base + rg + NRG * i : NO_ROW;
+        for (int j = 0; j < QN; ++j) {
+          const int jj = qg * QN + j - r0;
+          if (jj >= 0 && jj < RS) {
+#pragma unroll
+            for (int i = 0; i < MR; ++i) {
+              const bool keep = ((kept >> (MR * j + i)) & 1u) != 0u;
+              const int o = jj * TILE_N + rg + NRG * i;
+              const int ix = keep ? base + rg + NRG * i : NO_ROW;
+              s_sort[o] = keep ? acc[i][j] : NEG_INF;
+              i_sort[o] = ix;
+              if constexpr (MODE == BOTH) {
+                s_lex[o] = NEG_INF;
+                i_lex[o] = ix;
+              }
+            }
           }
         }
       }
       __syncthreads();             // the eight rows' lists are staged
       if constexpr (LEX) {
-        // the lexical stage, in a loop that is not unrolled (one copy of
-        // the BM25 loop): each thread reads back its own column, and a row
-        // that failed its predicate (index NO_ROW) skips the BM25
-#pragma unroll 1
-        for (int j = 0; j < RS; ++j) {
-          const int o = j * TILE_N + tid;
-          const bool keep = i_sort[o] != NO_ROW;
-          const float b25 =
-              keep ? bm25_row(lt_sh + tid * LS, ll_sh + tid * LS, a.T,
-                              qt_sh + (r0 + j) * a.QT,
-                              qw_sh + (r0 + j) * a.QT, a.QT)
-                   : 0.f;
-          if constexpr (MODE == FUSED) {
-            if (keep) s_sort[o] = __fadd_rn(s_sort[o], b25);
-          } else {
-            s_lex[o] = keep ? b25 : NEG_INF;
-            i_lex[o] = i_sort[o];
-          }
-        }
-        __syncthreads();
+        lexical_stage<MODE>(a.terms, a.lexnorm, a.T, a.QT, base, s_sort,
+                            i_sort, s_lex, pair_n, pair_r, qt_sh + r0 * QTP,
+                            qw_sh + r0 * QTP, QTP, vec_lanes);
       }
       if constexpr (PAGED) {
         // the resident kernel's selection, as a one-tile scan of the rows
@@ -1056,9 +1248,8 @@ struct ScanConfig {
   size_t smem;
 };
 
-inline bool scan_config(int BB, int mode, bool paged, int G, int T, int QT,
-                        int L, ScanConfig* cfg) {
-  const int ch = chunk_dims(mode);
+inline bool scan_config(int BB, int mode, bool paged, int G, int QT, int L,
+                        ScanConfig* cfg) {
   const int nl = mode == BOTH ? 2 : 1;
   const bool lex = mode == FUSED || mode == BOTH;
   const bool run_fits =
@@ -1068,8 +1259,8 @@ inline bool scan_config(int BB, int mode, bool paged, int G, int T, int QT,
     const bool where[2] = {run_fits, false};
     for (const bool run_smem : where) {
       for (int st = MAX_STAGES; st >= 2; --st) {
-        const size_t smem = scan_layout(BB, ch, nl, lex, paged, G, T, QT, L,
-                                        st, run_smem).total;
+        const size_t smem =
+            scan_layout(BB, nl, lex, paged, G, QT, L, st, run_smem).total;
         if (smem <= cap) {
           cfg->stages = st;
           cfg->run_smem = run_smem;
@@ -1118,7 +1309,7 @@ int blocks_per_sm(size_t smem) {
 template <int BB, int MODE, bool PAGED>
 cudaError_t launch_scan(ScanArgs a, cudaStream_t stream) {
   ScanConfig cfg;
-  if (!scan_config(BB, MODE, PAGED, a.G, a.T, a.QT, a.L, &cfg))
+  if (!scan_config(BB, MODE, PAGED, a.G, a.QT, a.L, &cfg))
     return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem<BB, MODE, PAGED>(cfg.smem);
   if (err != cudaSuccess) return err;
@@ -1129,13 +1320,11 @@ cudaError_t launch_scan(ScanArgs a, cudaStream_t stream) {
     const cuuint64_t e_dims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.N};
     const cuuint64_t q_dims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.B};
     const cuuint64_t stride[1] = {(cuuint64_t)a.D * sizeof(float)};
-    constexpr int CH = chunk_dims(MODE);
     const cuuint32_t e_box[2] = {CH, TILE_N};
     const cuuint32_t q_box[2] = {CH, BB};
     int map_err = attn::make_map(&emb_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                                  a.emb, 2, e_dims, stride, e_box,
-                                 CH == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                          : CU_TENSOR_MAP_SWIZZLE_128B);
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
     if (map_err == 0)
       map_err = attn::make_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.q,
                                2, q_dims, stride, q_box,
@@ -1245,13 +1434,13 @@ inline int merge_and_finish(int rows, int n, int L, int k, const int* slots,
 constexpr int INFO_LEN = 10;
 
 template <int BB, int MODE>
-int info_for(int B, int N, int G, int T, int QT, int k, int P, int* out) {
+int info_for(int B, int N, int G, int QT, int k, int P, int* out) {
   const bool paged = P > 0;
   const int tile = paged ? P : TILE_N;
   const int n_lists = (int)(((long long)N + tile - 1) / tile);
   const int L = k < tile ? k : tile;
   ScanConfig cfg;
-  if (!scan_config(BB, MODE, paged, G, T, QT, L, &cfg))
+  if (!scan_config(BB, MODE, paged, G, QT, L, &cfg))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = paged ? blocks_per_sm<BB, MODE, true>(cfg.smem)
                            : blocks_per_sm<BB, MODE, false>(cfg.smem);
@@ -1259,19 +1448,19 @@ int info_for(int B, int N, int G, int T, int QT, int k, int P, int* out) {
   const int vals[INFO_LEN] = {
       (int)cfg.smem, cfg.stages, cfg.run_smem ? 1 : 0, blocks,
       n_lists, TILE_N, MR,
-      BB / NQG, chunk_dims(MODE), BB};
+      BB / NQG, CH, BB};
   for (int i = 0; i < INFO_LEN; ++i) out[i] = vals[i];
   return 0;
 }
 
 template <int MODE>
-int scan_info(int B, int N, int G, int T, int QT, int k, int P, int* out) {
+int scan_info(int B, int N, int G, int QT, int k, int P, int* out) {
   if (B < 1 || N < 1 || k < 1 || P < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return B <= 8    ? info_for<8, MODE>(B, N, G, T, QT, k, P, out)
-         : B <= 16 ? info_for<16, MODE>(B, N, G, T, QT, k, P, out)
-         : B <= 32 ? info_for<32, MODE>(B, N, G, T, QT, k, P, out)
-                   : info_for<64, MODE>(B, N, G, T, QT, k, P, out);
+  return B <= 8    ? info_for<8, MODE>(B, N, G, QT, k, P, out)
+         : B <= 16 ? info_for<16, MODE>(B, N, G, QT, k, P, out)
+         : B <= 32 ? info_for<32, MODE>(B, N, G, QT, k, P, out)
+                   : info_for<64, MODE>(B, N, G, QT, k, P, out);
 }
 
 }  // namespace

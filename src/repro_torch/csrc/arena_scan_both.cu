@@ -39,10 +39,11 @@ int arena_scan_both_paged_launch(
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
-// arena_scan_info for this mode, T lanes and QT query terms.
-int arena_scan_both_info(int B, int N, int G, int T, int QT, int k,
+// arena_scan_info for this mode and QT query terms (the lanes a row do not
+// change the launch: they never pass through shared memory).
+int arena_scan_both_info(int B, int N, int G, int QT, int k,
                          int page_rows, int* out) {
-  return scan_info<BOTH>(B, N, G, T, QT, k, page_rows, out);
+  return scan_info<BOTH>(B, N, G, QT, k, page_rows, out);
 }
 
 }  // extern "C"

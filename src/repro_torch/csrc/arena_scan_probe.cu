@@ -41,11 +41,10 @@ int arena_scan_probe_paged_launch(const float* q, const float* emb,
                           out_i, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// arena_scan_info for the probe over N = P candidates (G = 1; T and QT
-// unused).
-int arena_scan_probe_info(int B, int N, int G, int T, int QT, int k,
-                          int page_rows, int* out) {
-  return scan_info<PROBE>(B, N, G, T, QT, k, page_rows, out);
+// arena_scan_info for the probe over N = P candidates (G = 1; QT unused).
+int arena_scan_probe_info(int B, int N, int G, int QT, int k, int page_rows,
+                          int* out) {
+  return scan_info<PROBE>(B, N, G, QT, k, page_rows, out);
 }
 
 }  // extern "C"

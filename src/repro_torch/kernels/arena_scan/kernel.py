@@ -20,10 +20,13 @@ the Pallas kernel's paged regime ``_paged_kernel``,
 ``src/repro/kernels/arena_scan/kernel.py:121``), which returns the same
 lists bit for bit. The two share one score stage: each thread holds a
 register micro-tile of 4 arena rows x BB / 4 query rows, fed by a ring of
-shared-memory stages that TMA tile loads fill (``cp.async`` for the
-slot-lane gather). `scan_geometry` mirrors the launcher's choice of
-geometry on the host, and `scan_info` asks the library for it (with the
-blocks an SM holds) on the card.
+shared-memory stages of 32 dims that TMA tile loads fill (``cp.async`` for
+the slot-lane gather). In the lexical specs the epilogue compacts the
+(query row, arena row) pairs that pass the mask and computes BM25 for
+those alone, reading their lanes straight from device memory
+(`ref.lexical_pairs` and `ref.bm25_pairs` emulate it). `scan_geometry`
+mirrors the launcher's choice of geometry on the host, and `scan_info`
+asks the library for it (with the blocks an SM holds) on the card.
 
 `arena_scan` is the dispatch every caller uses: CUDA tensors go to the
 kernel, CPU tensors to `arena_scan_plain` (resident) or to the streaming
@@ -105,7 +108,7 @@ def _load():
                                                       p, p]
         for fn in (lib.arena_scan_info, lib.arena_scan_fused_info,
                    lib.arena_scan_both_info, lib.arena_scan_probe_info):
-            fn.argtypes = [i, i, i, i, i, i, i, p]
+            fn.argtypes = [i, i, i, i, i, i, p]
         for fn in (lib.arena_scan_paged_launch,
                    lib.arena_scan_fused_paged_launch,
                    lib.arena_scan_both_paged_launch,
@@ -205,8 +208,8 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
         _check("qterms", qterms, torch.int32, (B, QT), dev)
         _check("qidf", qidf, torch.float32, (B, QT), dev)
         if not (1 <= T <= 64 and 1 <= QT <= 64):
-            raise ValueError(f"the kernel stages T={T} lanes and QT={QT} "
-                             "query terms in shared memory: each in [1, 64]")
+            raise ValueError(f"the kernel takes T={T} lanes and QT={QT} "
+                             "query terms: each in [1, 64]")
     lib = _load()
     out_s, out_i, _bufs, scratch = _scratch(lib, spec.n_lists * B, N, k,
                                             dev, page_rows)
@@ -289,18 +292,19 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
 
 
 def scan_info(spec: ScanSpec, B: int, N: int, G: int, k: int,
-              page_rows: int | None = None, T: int = 0, QT: int = 0) -> dict:
+              page_rows: int | None = None, QT: int = 0) -> dict:
     """What a launch of these shapes uses on this card, from the library's
     info entry point (builds the kernels if needed): `scan_geometry`'s keys
     as the C launcher computes them, plus the blocks an SM holds at that
     shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
-    the blocks along x (resident: tiles; paged: pages)."""
+    the blocks along x (resident: tiles; paged: pages). The lanes a row do
+    not change the launch: they never pass through shared memory."""
     lib = _load()
     out = (ctypes.c_int * 10)()
     name = ("arena_scan_probe_info" if spec.slot_lane else
             f"arena_scan_{spec.score}_info" if spec.has_lex else
             "arena_scan_info")
-    rc = getattr(lib, name)(B, N, G, T, QT, k,
+    rc = getattr(lib, name)(B, N, G, QT, k,
                             _check_page_rows(page_rows) or 0, out)
     if rc != 0:
         raise RuntimeError(f"{name} failed: "
@@ -321,16 +325,13 @@ TILE_ROWS = THREADS      #: arena rows a block scores at once
 MICRO_ROWS = 4           #: arena rows of a thread's micro-tile
 QUERY_GROUPS = 4         #: a micro-tile holds block_rows / 4 query rows
 SEL_ROWS = 8             #: query rows selected together, one a warp
+WARP_K = 32              #: largest list the warp argmax selects
 MAX_STAGES = 4
+#: dims a ring stage holds in every spec (``CH``): 128-byte rows
+CHUNK_DIMS = 32
 RUN_SMEM_BUDGET = 24 * 1024
 #: shared memory a block may take to keep two blocks on an SM, then one
 SMEM_CAPS = (113 * 1024, 227 * 1024)
-
-
-def chunk_dims(spec: ScanSpec) -> int:
-    """Dims a ring stage holds (``chunk_dims``): 32, 128-byte rows, except
-    in the lexical specs, whose staged lanes leave room for 16."""
-    return 16 if spec.has_lex else 32
 
 
 def block_rows(B: int) -> int:
@@ -343,27 +344,30 @@ def _align(x: int, to: int = 16) -> int:
     return (x + to - 1) & ~(to - 1)
 
 
-def scan_smem(BB: int, spec: ScanSpec, G: int, T: int, QT: int, L: int,
+def scan_smem(BB: int, spec: ScanSpec, G: int, QT: int, L: int,
               stages: int, paged: bool, run_smem: bool) -> int:
     """Bytes of a block's shared memory (``scan_layout``): the ring (each
     stage a 1024-byte multiple: the TMA swizzle's period), the selection
-    buffers, a paged block's sub-tile lists and running lists, the
-    predicates, the group ids, the lexical modes' lanes and query terms,
-    the ring's mbarriers and 1024 bytes of slack to align the ring."""
+    buffers (a paged block's two lists of the "both" spec share their index
+    array when a list holds at most WARP_K entries), a paged block's
+    sub-tile lists and running lists, the predicates, the group ids, the
+    lexical modes' query terms and idf (QT rounded up to 4 a row) and pair
+    lists (SEL_ROWS counts and SEL_ROWS x TILE_ROWS one-byte rows), the
+    ring's mbarriers and 1024 bytes of slack to align the ring."""
     nl = spec.n_lists
-    ring = stages * _align(4 * (TILE_ROWS + BB) * chunk_dims(spec), 1024)
-    sel = nl * SEL_ROWS * TILE_ROWS * 8
+    ring = stages * _align(4 * (TILE_ROWS + BB) * CHUNK_DIMS, 1024)
+    sel = nl * SEL_ROWS * TILE_ROWS * 8 - (
+        SEL_ROWS * TILE_ROWS * 4 if paged and nl == 2 and L <= WARP_K else 0)
     sub = _align(nl * SEL_ROWS * min(L, TILE_ROWS) * 8) if paged else 0
     run = _align(2 * nl * BB * L * 8) if run_smem else 0
     fixed = _align(16 * G) + _align(4 * BB)
-    lex = (_align(8 * TILE_ROWS * (T | 1)) + _align(8 * BB * QT)
+    lex = (_align(8 * BB * _align(QT, 4)) + _align(SEL_ROWS * (4 + TILE_ROWS))
            if spec.has_lex else 0)
     return ring + sel + sub + run + fixed + lex + _align(8 * stages) + 1024
 
 
 def scan_geometry(spec: ScanSpec, B: int, G: int, k: int,
-                  page_rows: int | None = None, T: int = 0,
-                  QT: int = 0) -> dict:
+                  page_rows: int | None = None, QT: int = 0) -> dict:
     """The launch geometry the C launcher picks (``scan_config``): block
     rows BB, the micro-tile (MICRO_ROWS arena rows x BB / 4 query rows a
     thread), the ring's depth, where a paged block's running lists live and
@@ -377,15 +381,14 @@ def scan_geometry(spec: ScanSpec, B: int, G: int, k: int,
     for cap in SMEM_CAPS:
         for run_smem in (run_fits, False):
             for stages in range(MAX_STAGES, 1, -1):
-                smem = scan_smem(BB, spec, G, T, QT, L, stages, paged,
-                                 run_smem)
+                smem = scan_smem(BB, spec, G, QT, L, stages, paged, run_smem)
                 if smem <= cap:
                     return dict(block_rows=BB, tile_rows=TILE_ROWS,
                                 micro_tile=(MICRO_ROWS, BB // QUERY_GROUPS),
-                                chunk_dims=chunk_dims(spec), stages=stages,
+                                chunk_dims=CHUNK_DIMS, stages=stages,
                                 run_lists_in_smem=run_smem, smem_bytes=smem)
-    raise ValueError(f"no launch of BB={BB} G={G} T={T} QT={QT} L={L} fits "
-                     "a block's shared memory")
+    raise ValueError(f"no launch of BB={BB} G={G} QT={QT} L={L} fits a "
+                     "block's shared memory")
 
 
 def micro_tile(tid: int, BB: int) -> tuple[list[int], list[int]]:
@@ -401,12 +404,11 @@ def micro_tile(tid: int, BB: int) -> tuple[list[int], list[int]]:
             [qg * qn + j for j in range(qn)])
 
 
-def emb_column(r: int, c4: int, ch: int) -> int:
+def emb_column(r: int, c4: int) -> int:
     """The float4 slot of a ring stage that holds dims 4 c4 .. 4 c4 + 3 of
-    tile row ``r`` (``e_col``): rows of ``ch`` floats under the TMA's
-    swizzle of their size, the 16-byte unit c4 XOR bits 1-2 of the row
-    (64-byte rows) or bits 0-2 (128-byte rows)."""
-    return r * (ch // 4) + (c4 ^ ((r >> 1) & 3 if ch == 16 else r & 7))
+    tile row ``r`` (``e_col``): rows of CHUNK_DIMS floats under the TMA's
+    128-byte swizzle, the 16-byte unit c4 XOR bits 0-2 of the row."""
+    return r * (CHUNK_DIMS // 4) + (c4 ^ (r & 7))
 
 
 #: The plain PyTorch version of the resident kernel (the port of

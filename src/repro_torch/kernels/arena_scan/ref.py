@@ -17,6 +17,11 @@ int32) pairs flattened. Under ``ScanSpec(slot_lane=True)`` the rows are an
 IVF candidate set with meta (P, 5): both engines select on candidate
 positions (ties to the lower position, tile order in the merge) and gather
 each winner's arena slot from the 5th lane afterwards.
+
+`lexical_pairs`, `bm25_pairs` and `lexical_stage` emulate the kernel's
+lexical stage (the lexical specs' epilogue in ``csrc/arena_scan.cuh``):
+which (query row, arena row) pairs it computes BM25 for, in which order and
+on which thread, and each pair's chain as the kernel rounds it.
 """
 from __future__ import annotations
 
@@ -25,6 +30,67 @@ import torch
 from repro_torch.kernels.arena_scan.stages import (NEG_INF, ScanSpec,
                                                    tile_mask, tile_signals,
                                                    topk_ordered)
+
+
+#: threads of a scan block: pair p of the lexical stage's lists is thread
+#: p mod LEX_THREADS's
+LEX_THREADS = 256
+#: the index the kernel stages for a masked (row, query) pair
+NO_ROW = 2**31 - 1
+
+
+def lexical_pairs(keep):
+    """The kernel's pair lists for one sub-tile: ``keep`` (R, n) bool, the
+    mask of R selection rows over the sub-tile's n rows. Returns the kept
+    pairs as (selection rows j, tile rows r, threads), int64 tensors in the
+    kernel's order -- selection row ascending, then tile row ascending (the
+    list warp j's ballots write for row j) -- with pair p on thread p mod
+    LEX_THREADS. A masked pair is in no list."""
+    j, r = torch.nonzero(keep, as_tuple=True)
+    return j, r, torch.arange(j.numel()) % LEX_THREADS
+
+
+def bm25_pairs(lt, ll, qt, qw):
+    """The kernel's BM25 chain for P pairs: lt / ll (P, T) each pair's row
+    lanes (term ids, lexnorm), qt / qw (P, QT) its query row's terms and
+    idf. With T % 4 == 0 the kernel reads the query terms padded with (-1,
+    0) to a multiple of 4 (its shared rows), else as they are; per lane, w
+    = 0 and w += hit ? idf : 0 over the (padded) terms in order; per pair,
+    acc = 0 and acc += w != 0 ? w * ln : 0 over the lanes in order, every
+    step one f32 operation. Returns (P,) f32."""
+    T, QT = lt.shape[1], qt.shape[1]
+    pad = -QT % 4 if T % 4 == 0 else 0
+    qt = torch.cat([qt, qt.new_full((qt.shape[0], pad), -1)], dim=1)
+    qw = torch.cat([qw.float(), qw.new_zeros((qw.shape[0], pad),
+                                             dtype=torch.float32)], dim=1)
+    acc = torch.zeros(lt.shape[0], dtype=torch.float32)
+    for t in range(T):
+        lane, ln = lt[:, t], ll[:, t].float()
+        w = torch.zeros_like(acc)
+        for j in range(qt.shape[1]):
+            w = w + torch.where(lane == qt[:, j], qw[:, j], 0.0)
+        acc = acc + torch.where(w != 0.0, w * ln, 0.0)
+    return acc
+
+
+def lexical_stage(spec: ScanSpec, s, ix, base: int, lex):
+    """The kernel's lexical stage for R selection rows of one sub-tile: s /
+    ix (R, n) the staged masked dense scores and indices (NO_ROW where the
+    pair is masked), ``base`` the sub-tile's first arena row, lex = (terms,
+    lexnorm, qterms, qidf) with the arena's lanes and the R query rows'
+    terms. Returns FUSED: the list's scores, dense + bm25 on kept pairs;
+    BOTH: the bm25 list's scores, NEG_INF on masked pairs."""
+    terms, lexnorm, qterms, qidf = lex
+    j, r, _ = lexical_pairs(ix != NO_ROW)
+    rows = base + r
+    b25 = bm25_pairs(terms[rows], lexnorm[rows], qterms[j], qidf[j])
+    if spec.score == "fused":
+        out = s.clone()
+        out[j, r] = out[j, r] + b25
+    else:
+        out = torch.full_like(s, NEG_INF)
+        out[j, r] = b25
+    return out
 
 
 def _finish(top_s, top_i, k: int):

@@ -433,17 +433,19 @@ GEOMETRY_SPECS = {"dense": ScanSpec(), "wsum": ScanSpec(score="fused"),
                   "probe": ScanSpec(slot_lane=True)}
 
 
-def check_geometry(mode, BB, G, T, page_rows):
+def check_geometry(mode, BB, G, QT, page_rows):
     """The launch the C launcher would pick for these shapes, as
     `scan_geometry` mirrors it: the micro-tiles cover the block's TILE_ROWS
     x BB scores exactly once, a warp holds 32 row groups and one query
-    group, the shared memory is the layout's and fits a block, two blocks
-    an SM where the modes without lanes run at BB <= 32, and the same
-    shapes give the same geometry."""
+    group, the shared memory is the layout's and fits a block, every mode
+    (the lexical ones too, now that their lanes never pass through shared
+    memory) keeps 32-dim stages and two blocks an SM at BB <= 32, and the
+    same shapes give the same geometry."""
     from repro_torch.kernels.arena_scan import kernel as K
     spec = GEOMETRY_SPECS[mode]
-    geo = K.scan_geometry(spec, BB, G, 10, page_rows, T=T, QT=4)
-    assert geo == K.scan_geometry(spec, BB, G, 10, page_rows, T=T, QT=4)
+    QT = QT if spec.has_lex else 0
+    geo = K.scan_geometry(spec, BB, G, 10, page_rows, QT=QT)
+    assert geo == K.scan_geometry(spec, BB, G, 10, page_rows, QT=QT)
     R, QN = geo["micro_tile"]
     assert geo["block_rows"] == BB and geo["tile_rows"] == K.TILE_ROWS
     assert R * QN * K.THREADS == K.TILE_ROWS * BB
@@ -460,37 +462,40 @@ def check_geometry(mode, BB, G, T, page_rows):
         assert len({tuple(qrows) for _, qrows in tiles}) == 1
     L = min(10, page_rows or K.TILE_ROWS)
     assert geo["smem_bytes"] == K.scan_smem(
-        BB, spec, G, T, 4, L, geo["stages"], page_rows is not None,
+        BB, spec, G, QT, L, geo["stages"], page_rows is not None,
         geo["run_lists_in_smem"])
+    assert geo["chunk_dims"] == K.CHUNK_DIMS == 32
     assert 2 <= geo["stages"] <= K.MAX_STAGES
     assert geo["smem_bytes"] <= K.SMEM_CAPS[1]
     assert not geo["run_lists_in_smem"] or page_rows is not None
-    if BB <= 32 and not spec.has_lex:
+    if BB <= 32:
         assert geo["smem_bytes"] <= K.SMEM_CAPS[0]
 
 
 @pytest.mark.parametrize("mode", list(GEOMETRY_SPECS))
 @pytest.mark.parametrize("BB", [8, 16, 32, 64])
-@pytest.mark.parametrize("T", [0, 16, 32])
+@pytest.mark.parametrize("QT", [1, 4, 16])
 @pytest.mark.parametrize("G", [1, 16])
-def test_resident_launch_geometry(mode, BB, T, G):
-    check_geometry(mode, BB, G, T, None)
+def test_resident_launch_geometry(mode, BB, QT, G):
+    check_geometry(mode, BB, G, QT, None)
 
 
-@pytest.mark.parametrize("ch", [16, 32])
+@pytest.mark.parametrize("ch", [32])
 def test_stage_swizzle_is_conflict_free(ch):
     """The emb chunk's swizzled float4 slots (`emb_column`, the kernel's
-    e_col) hold every (row, column) of a stage once, and eight consecutive
-    rows at one column -- a quarter warp's float4 loads in the micro-tile --
-    fall in eight distinct 16-byte bank groups, for both chunk widths."""
+    e_col, 128-byte rows of CHUNK_DIMS floats) hold every (row, column) of
+    a stage once, and eight consecutive rows at one column -- a quarter
+    warp's float4 loads in the micro-tile -- fall in eight distinct 16-byte
+    bank groups."""
     from repro_torch.kernels.arena_scan import kernel as K
+    assert ch == K.CHUNK_DIMS
     c4s = ch // 4
-    slots = [K.emb_column(r, c, ch) for r in range(K.TILE_ROWS)
+    slots = [K.emb_column(r, c) for r in range(K.TILE_ROWS)
              for c in range(c4s)]
     assert sorted(slots) == list(range(K.TILE_ROWS * c4s))
     for r0 in range(0, K.TILE_ROWS, 8):
         for c in range(c4s):
-            assert len({K.emb_column(r, c, ch) % 8
+            assert len({K.emb_column(r, c) % 8
                         for r in range(r0, r0 + 8)}) == 8
 
 

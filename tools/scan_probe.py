@@ -7,11 +7,13 @@ ceiling.
     python3 tools/scan_probe.py --parent tmp/parent/src/repro_torch/csrc
 
 Builds, one nvcc per source and all at once, into src/repro_torch/build/
-probe/ (git-ignored): the checkout's arena-scan library, a copy of it with
-the FMAs taken out of the score stage (`nofma`: every score 0, so the
-copies, the epilogue and the merges alone), the library of ``--parent``
-(the same C entry points, an earlier design) and tools/scan_probe_fma.cu.
-Then prints one JSON line each for:
+probe/ (git-ignored): the checkout's arena-scan library, copies of it with
+one part of the work taken out (`VARIANTS`: the FMAs of the score stage;
+the BM25 arithmetic; the lanes' loads; in the staged-lanes design of
+1b2c4c4 also the whole lane staging, at 16 and at 32 dims a chunk), the
+library of ``--parent`` (the same C entry points, an earlier design) and
+tools/scan_probe_fma.cu. A variant whose text is not in the checkout's
+header is left out and reported so. Then prints one JSON line each for:
 
 * ``identity``: every mode (dense, fused, both, probe), resident and paged
   (pages of 128, 1000, 4096 rows), over chip_smoke.py's kernel draws at
@@ -21,15 +23,19 @@ Then prints one JSON line each for:
   resident one;
 * ``prod``: 2^23 x 768 f32 rows drawn on the card (seed 0), 32 queries in 4
   predicate groups, k 10, 16 lanes a row and 4 query terms for the
-  lexical modes, 393,216 candidates for the probe: bit identity with
-  ``--parent`` in every mode and regime, then CUDA-event times taken in
-  turns (parent, this, this, parent), ``nofma`` beside them, the matmul +
-  where + topk yardstick, and the SM clock and power while the dense
-  kernel runs;
+  lexical modes, 393,216 candidates for the probe, under two predicate
+  draws (`DRAWS`: ``prod``, three tenant-scoped groups and one of any
+  tenant; ``keepall``, every live row kept by every group), each group's
+  kept share of (row, query) pairs, then per mode and regime (resident;
+  paged at 2^15 rows): bit identity with ``--parent``, and CUDA-event
+  times taken in turns (parent, this, the variants, this, parent, the
+  variants); the matmul + where + topk yardstick, and the SM clock and
+  power while the dense kernel runs;
 * ``fma``: tools/scan_probe_fma.cu at 2 blocks of 256 an SM, the score
   stage's FMA loop without copies or epilogue: TFLOP/s of the 4 x 8
   micro-tile and of 8 x 8 and 4 x 16.
 
+``--phases`` picks some of the three (default all).
 Exits 2 without a card or without ``--parent``'s sources.
 """
 from __future__ import annotations
@@ -52,23 +58,72 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MODES = {"dense": 0, "fused": 1, "both": 2, "probe": 3}
 #: the score stage's FMAs, taken out in the `nofma` copy
 FMA_LINES = [f"acc[i][j] = fmaf(v.{c}, e[i].{c}, acc[i][j]);" for c in "xyzw"]
+# the staged-lanes lexical stage of 1b2c4c4: its BM25 result, its lane
+# loads, the staging block as a whole, the lexical modes' chunk width and
+# the staging buffer
+_OLD_BM25 = ("0.f);\n  }\n  return acc;\n}\n\n// One merge round",
+             "0.f);\n  }\n  return 0.f;\n}\n\n// One merge round")
+_OLD_LANES = [("lt_sh[r * LS + t] = in ? a.terms[src] : -1;",
+               "lt_sh[r * LS + t] = -1;"),
+              ("ll_sh[r * LS + t] = in ? a.lexnorm[src] : 0.f;",
+               "ll_sh[r * LS + t] = 0.f;")]
+_OLD_STAGING = ("if (c == 0) {               // the sub-tile's lanes",
+                "if (false) {               // the sub-tile's lanes")
+_OLD_RING32 = [("return (mode == FUSED || mode == BOTH) ? 16 : 32;",
+                "return 32;"),
+               ("p.qlex = p.lanes + (lexical ? align16((size_t)8 * TILE_N * "
+                "(T | 1)) : 0);", "p.qlex = p.lanes;")]
+# the compacted lexical stage: its two BM25 results (16-byte pieces, one
+# lane at a time) and its lane loads
+_NEW_BM25 = [(f"{last}\n  }}\n  return acc;", f"{last}\n  }}\n  return 0.f;")
+             for last in ("    acc = lane_add(acc, w3, ll.w);",
+                          "    acc = lane_add(acc, w, __ldg(ll + t));")]
+_NEW_LANES = [("const int4 lt = __ldg(lt4 + p);",
+               "const int4 lt = make_int4(-1, -1, -1, -1);"),
+              ("const float4 ll = __ldg(ll4 + p);",
+               "const float4 ll = make_float4(0.f, 0.f, 0.f, 0.f);"),
+              ("const int lane = __ldg(lt + t);", "const int lane = -1;"),
+              ("acc = lane_add(acc, w, __ldg(ll + t));",
+               "acc = lane_add(acc, w, 0.f);")]
+#: variant -> alternative substitution lists for arena_scan.cuh (the first
+#: whose every text is in the header applies): the work each takes out
+VARIANTS = {
+    "nofma": [[(line, "") for line in FMA_LINES]],
+    "nolex": [[_OLD_BM25], _NEW_BM25],
+    "nolanes": [_OLD_LANES, _NEW_LANES],
+    "bare16": [[_OLD_BM25, _OLD_STAGING]],
+    "bare32": [[_OLD_BM25, _OLD_STAGING, *_OLD_RING32]],
+}
+#: the lexical variants, timed in the lexical modes only
+LEX_VARIANTS = ("nolex", "nolanes", "bare16", "bare32")
+#: predicate draws of the prod batch, (tenant, min_ts, category mask, ACL
+#: mask) for groups 0..3
+DRAWS = {
+    "prod": [[2, 100, 3, 255], [5, 300, 12, 255], [11, 50, 16, 255],
+             [-2, 600, 21, 255]],
+    "keepall": [[-2, 0, -1, -1]] * 4,
+}
 
 
 def emit(name, **fields):
     print(json.dumps({"probe": name, **fields}), flush=True)
 
 
-def copy_sources(name, csrc, subs=()):
+def copy_sources(name, csrc, alternatives=((),)):
     """The scan's sources and headers of ``csrc`` in BUILD/name, with the
-    text substitutions ``subs`` applied to arena_scan.cuh."""
+    first substitution list of ``alternatives`` whose every text is in
+    arena_scan.cuh applied to it; None when none applies."""
+    header = open(os.path.join(csrc, "arena_scan.cuh")).read()
+    subs = next((alt for alt in alternatives
+                 if all(old in header for old, _ in alt)), None)
+    if subs is None:
+        return None
     d = os.path.join(BUILD, name)
     os.makedirs(d, exist_ok=True)
     for f in os.listdir(csrc):
         if f in SOURCES or f.endswith(".cuh"):
             text = open(os.path.join(csrc, f)).read()
             for old, new in subs if f == "arena_scan.cuh" else ():
-                if old not in text:
-                    raise RuntimeError(f"{name}: {old!r} not in {csrc}")
                 text = text.replace(old, new)
             with open(os.path.join(d, f), "w") as out:
                 out.write(text)
@@ -224,9 +279,10 @@ def identity(np, torch, cs, libs):
     return not bad
 
 
-def prod(torch, libs):
+def prod_arena(torch):
+    """The prod shape drawn on the card: (q, emb, meta, gids, lex, cand)."""
     dev = torch.device("cuda")
-    N, D, B, G, k, T, QT = 1 << 23, 768, 32, 4, 10, 16, 4
+    N, D, B, T, QT = 1 << 23, 768, 32, 16, 4
     gen = torch.Generator(device=dev).manual_seed(0)
     emb = torch.randn((N, D), generator=gen, device=dev)
     emb /= emb.norm(dim=1, keepdim=True)
@@ -238,28 +294,59 @@ def prod(torch, libs):
     q = torch.randn((B, D), generator=gen, device=dev)
     q /= q.norm(dim=1, keepdim=True)
     gids = torch.arange(B, device=dev, dtype=torch.int32) // 8
-    preds = torch.tensor([[2, 100, 3, 255], [5, 300, 12, 255],
-                          [11, 50, 16, 255], [-2, 600, 21, 255]],
-                         dtype=torch.int32, device=dev)
     lex = (torch.randint(-1, 4096, (N, T), generator=gen, device=dev).int(),
            torch.rand((N, T), generator=gen, device=dev),
            torch.randint(0, 4096, (B, QT), generator=gen, device=dev).int(),
            torch.rand((B, QT), generator=gen, device=dev))
     cand = torch.randint(0, N, (393216,), generator=gen, device=dev).int()
-    args = (q, emb, meta, gids, preds, lex, cand)
+    return q, emb, meta, gids, lex, cand
+
+
+def kept_share(torch, meta, preds):
+    """Each group's share of arena rows it keeps (the kernels' mask)."""
+    t, ts, cat, acl = (meta[:, j] for j in range(4))
+    out = []
+    for pt, pts, pc, pa in preds.tolist():
+        keep = (t >= 0) & ((t == pt) | (pt == -2)) & (ts >= pts)
+        keep &= ((torch.bitwise_left_shift(torch.ones_like(cat), cat) & pc)
+                 != 0) & ((acl & pa) != 0)
+        out.append(float(keep.float().mean()))
+    return out
+
+
+def prod(torch, libs, arena):
+    dev = torch.device("cuda")
+    q, emb, meta, gids, lex, cand = arena
+    k = 10
     ok = True
-    for mode in MODES:
-        for P in (None,) if mode == "probe" else (None, 1 << 15):
-            run = {n: (lambda n=n: launch(torch, libs[n], mode, args, k, P))
-                   for n in ("parent", "this", "nofma")}
-            res, old = run["this"]()[:2], run["parent"]()[:2]
-            ident = same(torch, res, old)
-            ok &= ident
-            ms = {n: [] for n in run}
-            for n in ("parent", "this", "nofma", "this", "parent", "nofma"):
-                ms[n].append(events_ms(torch, run[n], 10))
-            emit("prod", mode=mode, page_rows=P, identical=ident, ms=ms)
-    keep = torch.ones((B, N), dtype=torch.bool, device=dev)
+    for draw, rows in DRAWS.items():
+        preds = torch.tensor(rows, dtype=torch.int32, device=dev)
+        args = (q, emb, meta, gids, preds, lex, cand)
+        emit("prod_draw", draw=draw, preds=rows,
+             kept_share=kept_share(torch, meta, preds))
+        for mode in MODES:
+            if mode == "probe" and draw != "prod":
+                continue
+            lexical = mode in ("fused", "both")
+            variants = [n for n in libs if n in VARIANTS
+                        and (lexical or n not in LEX_VARIANTS)]
+            for P in (None,) if mode == "probe" else (None, 1 << 15):
+                run = {n: (lambda n=n: launch(torch, libs[n], mode, args, k,
+                                              P))
+                       for n in ("parent", "this", *variants)}
+                res, old = run["this"]()[:2], run["parent"]()[:2]
+                ident = same(torch, res, old)
+                ok &= ident
+                ms = {n: [] for n in run}
+                for n in ("parent", "this", *variants, "this", "parent",
+                          *variants):
+                    ms[n].append(events_ms(torch, run[n], 10))
+                emit("prod", draw=draw, mode=mode, page_rows=P,
+                     identical=ident, ms=ms)
+    preds = torch.tensor(DRAWS["prod"], dtype=torch.int32, device=dev)
+    args = (q, emb, meta, gids, preds, lex, cand)
+    keep = torch.ones((q.shape[0], emb.shape[0]), dtype=torch.bool,
+                      device=dev)
 
     def yardstick():
         sc = torch.matmul(q, emb.T)
@@ -307,6 +394,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True,
                     help="csrc directory of the version to compare with")
+    ap.add_argument("--phases", default="identity,prod,fma",
+                    help="comma-separated subset of identity, prod, fma")
     opts = ap.parse_args()
     import numpy as np
     import torch
@@ -325,15 +414,24 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    phases = set(opts.phases.split(","))
     dirs = {"this": copy_sources("this", CSRC),
-            "nofma": copy_sources("nofma", CSRC,
-                                  [(line, "") for line in FMA_LINES]),
             "parent": copy_sources("parent", opts.parent)}
-    libs = build_all(nvcc, dirs, os.path.join(ROOT, "tools",
-                                              "scan_probe_fma.cu"))
-    ok = identity(np, torch, cs, libs)
-    ok &= prod(torch, libs)
-    fma(torch, libs["fma"])
+    if "prod" in phases:
+        for name, alts in VARIANTS.items():
+            dirs[name] = copy_sources(name, CSRC, alts)
+        emit("variants", built=[n for n in VARIANTS if dirs[n]],
+             not_in_this_design=[n for n in VARIANTS if not dirs[n]])
+    libs = build_all(nvcc, {n: d for n, d in dirs.items() if d},
+                     os.path.join(ROOT, "tools", "scan_probe_fma.cu"))
+    ok = True
+    if "prod" in phases:
+        ok &= prod(torch, libs, prod_arena(torch))
+        torch.cuda.empty_cache()
+    if "identity" in phases:
+        ok &= identity(np, torch, cs, libs)
+    if "fma" in phases:
+        fma(torch, libs["fma"])
     print(json.dumps({"identical": ok}), flush=True)
     return 0 if ok else 1
 
