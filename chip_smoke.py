@@ -9,9 +9,9 @@ Phases:
                 and the attention kernels (``csrc/flash_attention.cu``,
                 ``csrc/decode_attention.cu``), one nvcc per source, all six
                 at once, and print ptxas's register and spill report of
-                every scan instantiation; fail when a DENSE, FUSED or BOTH
-                instantiation of tile_scan_kernel or paged_scan_kernel up
-                to 32 query rows a block spills, and
+                every scan instantiation; fail when an instantiation of
+                tile_scan_kernel or paged_scan_kernel (any mode, PROBE
+                included) up to 32 query rows a block spills, and
                 hold the host mirror of the scan's launch geometry
                 (`kernel.scan_geometry`) to the library's
                 (`kernel.scan_info`) over block rows, modes, lanes, groups
@@ -48,13 +48,20 @@ Phases:
                 version over candidate counts P, D (50 takes the scalar
                 loads), B and k (k > P included), on candidate vectors with
                 member padding, repeats and slots past or below the arena;
-                through the public `ivf_probe`: a padded cluster list, an
-                overflow tail, a poisoned member table, all-dead and empty
-                sets, and duplicate embeddings listed high slot first. Scores
-                within rtol = atol = 1e-5, slots as in phase 1 except that a
-                slot listed m times may come out m times and exact ties go
-                to the lower CANDIDATE POSITION; no returned slot fails the
-                host mask over the arena's metadata.
+                each vector also compacted on the card (the compaction
+                kernel, `compact_candidates_cuda`, equal to its plain
+                version) and scanned from the live count it leaves there,
+                resident and paged, bit-identical to the uncompacted
+                vector's lists; the compaction's edges (every slot dead, 3
+                live under k, live counts 1 / 255 / 257 / 511 / 1000 of
+                4097, poisoned slots only); through the public `ivf_probe`:
+                a padded cluster list, an overflow tail, a poisoned member
+                table, all-dead and empty sets, and duplicate embeddings
+                listed high slot first. Scores within rtol = atol = 1e-5,
+                slots as in phase 1 except that a slot listed m times may
+                come out m times and exact ties go to the lower CANDIDATE
+                POSITION; no returned slot fails the host mask over the
+                arena's metadata.
   4. bench   -- the paper's benchmark deployment (StoreConfig 65,536 x 128,
                 50,000 docs, 20 tenants, 5 categories; repro's
                 configs/rag_unified.py BENCH / BENCH_CORPUS) through the
@@ -100,11 +107,19 @@ Phases:
   9. ivf_prod -- the prod arena with the auto-sized index (8192 clusters):
                 build time (k-means and assignment on the card, layout on
                 the host), 6 batches of 32 admin requests with a recency
-                bound, q near a live row: batch latency, host probe time,
-                the kernel's time beside its bound, the plain version, a
-                gather + matmul + where + topk yardstick, the exact kernel
-                on the same rows, recall@10 against it, a profile split,
-                and no (P, D) copy allocated by the kernel.
+                bound, q near a live row: batch latency and idle share, one
+                compaction and one probe launch a batch and no rescan; one
+                executor launch under torch.cuda.set_sync_debug_mode
+                ("error") (no sync between the quantizer and the scan) whose
+                rows equal the batch's; the device quantizer's time beside
+                the host probe's and the rows whose top-nprobe clusters
+                differ (only at a tie within TIE_MARGIN); P, P_live, the
+                compaction's and the kernel's times (on the compacted and
+                on the padded vector) beside their bounds (over the live
+                rows and over all P), the plain versions, a gather + matmul
+                + where + topk yardstick, the exact kernel on the same
+                rows, recall@10 against it, a profile split, and no (P, D)
+                copy allocated by the kernel.
  10. paged_kernel (runs after ivf_kernel) -- the paged kernel
                 (`page_rows=`, one running list per page, rows staged
                 through a cp.async ring) in its four modes (dense, wsum, rrf,
@@ -242,6 +257,10 @@ ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
 # decode is all f32 math (test_kernels.py:60)
 FLASH_RTOL, FLASH_ATOL = 1e-2, 8e-3
 DEC_TOL = 2e-5
+# the device quantizer's union may differ from the host probe's only in a
+# row whose nprobe-th and (nprobe+1)-th sims lie this close (f32 products
+# in two reduction orders)
+TIE_MARGIN = 1e-5
 # lm_serve: prefill logits through the flash kernel against the naive path
 # may differ by bf16 rounding carried through 36 layers, not by more than
 # this share of the largest logit
@@ -294,8 +313,8 @@ SCAN_MODES = ("dense", "fused", "both", "probe")   # the header's MODE ids
 
 def scan_ptxas(log):
     """Every instantiation of tile_scan_kernel and paged_scan_kernel (BB =
-    8, 16, 32, 64; the four modes) as ptxas reported it; fails when a
-    DENSE, FUSED or BOTH one at BB <= 32 spills."""
+    8, 16, 32, 64; the four modes) as ptxas reported it; fails when one at
+    BB <= 32 spills."""
     rows = []
     for name, rep in ptxas_kernels(log).items():
         m = re.search(r"(tile_scan_kernel|paged_scan_kernel)ILi(\d+)ELi(\d)E",
@@ -308,7 +327,7 @@ def scan_ptxas(log):
     check(len(rows) == 32, f"ptxas reported {len(rows)} scan kernels, "
           "expected 32")
     for r in rows:
-        check(r["mode"] == "probe" or r["BB"] > 32
+        check(r["BB"] > 32
               or (r.get("spill_stores") == 0 and r.get("spill_loads") == 0),
               f"ptxas: {r['kernel']}<{r['BB']}, {r['mode']}> spills: {r}")
     return rows
@@ -759,21 +778,48 @@ def cand_positions(cand, N):
     return pos
 
 
+def compact_vector(cand, n):
+    """A candidate vector compacted on the card (the compaction kernel,
+    the vector given as one cluster of a member table) and by its plain
+    version, which must agree exactly: (cand (P,), n_live (1,)) on the
+    card."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    args = (t(cand)[None], t(np.zeros(0, np.int32)),
+            t(np.zeros(1, np.int32)), n)
+    c_k, n_k = ivf_mod.compact_candidates_cuda(*args)
+    c_p, n_p = ivf_mod.compact_candidates_plain(*args)
+    sync()
+    check(torch.equal(c_k, c_p) and torch.equal(n_k, n_p),
+          "compaction kernel != its plain version")
+    return c_k, n_k
+
+
 def probe_case(name, arena, cand, pred, q, k, errs, pairs=()):
     """`ivf_probe_cuda` against `ivf_probe_plain` on one candidate vector
     over the arena, checked by `compare` under the probe's rules against
-    the arena-wide scores and the host mask over ARENA metadata."""
+    the arena-wide scores and the host mask over ARENA metadata; then the
+    same vector compacted on the card (`compact_vector`) through the
+    resident and the paged kernel (pages of EDGE_PAGE candidates), whose
+    lists must equal the uncompacted vector's bit for bit."""
     emb_d, meta_d, meta, _ = arena
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    N = meta.shape[0]
     args = (t(q), emb_d, meta_d, t(cand), t(pred), k)
     s_k, i_k = ivf_mod.ivf_probe_cuda(*args)
+    c_d, n_live = compact_vector(cand, N)
+    live = ivf_mod.ivf_probe_cuda(*args[:3], c_d, *args[4:], n_live=n_live)
+    paged = ivf_mod.ivf_probe_cuda(*args[:3], c_d, *args[4:], n_live=n_live,
+                                   page_rows=EDGE_PAGE)
     s_p, i_p = ivf_mod.ivf_probe_plain(*args)
     sync()
-    N = meta.shape[0]
+    check(bits_equal(live, (s_k, i_k)),
+          f"{name}: compacted lists != the padded vector's")
+    check(bits_equal(paged, live), f"{name}: paged lists != resident lists")
     full = (args[0] @ emb_d.T).cpu().numpy()
     mask = np.broadcast_to(host_mask(meta, pred[None])[0], (q.shape[0], N))
     errs.append(compare(name, *tnp(s_k, i_k, s_p, i_p), mask, full, pairs,
                         cand_pos=cand_positions(cand, N)))
+    return int(n_live.item())
 
 
 def probe_ops_case(name, arena, members, overflow, clusters, pred, q, k,
@@ -851,6 +897,35 @@ def phase_ivf_kernel():
                 probe_ops_case(f"{name}-g{g}-k{k}", arena, mem, over,
                                clusters, preds[g], q, k, errs)
                 n_cases += 1
+    # the compaction's edges: every slot dead (P_live 0), fewer live slots
+    # than k, live counts off a tile multiple, poisoned slots only
+    N, D = 3000, 96
+    emb, meta, pairs = make_arena(rng, N, D, dups=8)
+    arena = upload(emb, meta, pairs)
+    q, preds, _ = make_batch(rng, emb, 17, 2, pairs)
+    edges = {"all-dead": np.where(rng.random(4097) < 0.5, -1,
+                                  N + rng.integers(0, 50, 4097)),
+             "live-under-k": np.full(1000, -1),
+             "poisoned": rng.integers(-5, N + 500, 4097)}
+    edges["live-under-k"][[3, 400, 999]] = rng.integers(0, N, 3)
+    for n_live in (1, 255, 257, 511, 1000):
+        v = np.empty(4097, np.int64)
+        keep = np.sort(rng.choice(4097, n_live, replace=False))
+        dead = np.setdiff1d(np.arange(4097), keep)
+        v[keep] = rng.integers(0, N, n_live)
+        v[dead] = np.where(rng.random(dead.size) < 0.5, -1, N + 7)
+        edges[f"live-{n_live}"] = v
+    live_counts = {}
+    for name, v in edges.items():
+        for g, k in ((0, 10), (1, 33)):
+            live_counts[name] = probe_case(f"edge-{name}-g{g}-k{k}", arena,
+                                           v.astype(np.int32), preds[g], q,
+                                           k, errs)
+            n_cases += 1
+    check(live_counts["all-dead"] == 0 and live_counts["live-under-k"] == 3
+          and all(live_counts[f"live-{n}"] == n
+                  for n in (1, 255, 257, 511, 1000)),
+          f"compaction counts {live_counts}")
     dead = upload(*make_arena(rng, 600, 64, dead=True))
     q, preds, _ = make_batch(rng, dead[0].cpu().numpy(), 8, 1)
     s_k, i_k = probe_ops_case("all-dead", dead, member_table(rng, 600, 4, 128),
@@ -879,7 +954,10 @@ def phase_ivf_kernel():
         n_cases += 1
     emit("ivf_kernel", cases=n_cases, max_abs_err=max(errs),
          seconds=time.perf_counter() - t0, tol=TOL, leaked_slots=0,
-         ties="lower candidate position")
+         ties="lower candidate position", compaction="equal to its plain "
+         "version", compacted="bit-identical to the padded vector's lists, "
+         f"resident and paged at {EDGE_PAGE}-row pages",
+         edge_live_counts=live_counts)
     return max(errs)
 
 
@@ -1234,10 +1312,12 @@ def phase_ivf_bench(dev):
     batch = [admin.search(qs[r]).limit(10).plan() for r in range(32)]
     check(all(p.engine == "ivf" for p in batch), "admin plans must pick 'ivf'")
     before = dataclasses.replace(db.stats)
-    ivf_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = kernel_mod.LAUNCHES = 0
     s, sl, _ = db.execute(batch, use_cache=False)
     launches = ivf_mod.LAUNCHES
-    check(launches == 1, f"{launches} ivf launches for one batch")
+    check(launches == 1 and ivf_mod.COMPACT_LAUNCHES == 1,
+          f"{launches} ivf launches, {ivf_mod.COMPACT_LAUNCHES} compactions "
+          "for one batch")
     check(kernel_mod.LAUNCHES == 0, "an admin batch ran a rescan")
     check(db.stats.device_calls - before.device_calls == 1, "device_calls != 1")
     q = np.stack([p.logical.q[0] for p in batch])
@@ -1784,7 +1864,7 @@ def phase_ivf_prod(dev, prod):
              for r in range(32)]
     check(all(p.engine == "ivf" for p in plans), "plans must pick 'ivf'")
     n_batches = 6
-    ivf_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = kernel_mod.LAUNCHES = 0
     lat = []
     for _ in range(n_batches):
         t0 = time.perf_counter()
@@ -1794,20 +1874,72 @@ def phase_ivf_prod(dev, prod):
     check(launches == n_batches, f"{launches} ivf launches for {n_batches} "
           "batches")
     check(kernel_mod.LAUNCHES == 0, "a prod batch ran a completeness rescan")
+    compact_launches = ivf_mod.COMPACT_LAUNCHES
+    check(compact_launches == n_batches,
+          f"{compact_launches} compactions for {n_batches} batches")
     profile = profile_batch(lambda: db.execute(plans, use_cache=False))
 
-    # the kernel's inputs exactly as the executor builds them
+    # the executor's launch, with every synchronising CUDA call an error:
+    # the quantizer, the compaction and the scan are queued without a wait
+    from repro_torch.api.executor import _finish_hot, _launch_hot
     q = np.stack([p.logical.q[0] for p in plans])
+    nprobe = ix.cfg.nprobe
+    store = db.log.snapshot()
+    _finish_hot(_launch_hot(store, q, pred, 10, "ivf", ix, nprobe, 32))
+    sync()
+    ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = kernel_mod.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hot = _launch_hot(store, q, pred, 10, "ivf", ix, nprobe, 32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h_s, h_i = _finish_hot(hot)
+    check((h_i == sl).all() and (h_s == s).all(),
+          "the sync-checked launch's rows != the batch's")
+    check(ivf_mod.LAUNCHES == 1 and ivf_mod.COMPACT_LAUNCHES == 1
+          and kernel_mod.LAUNCHES == 0,
+          "one ivf launch: one compaction, one probe, no rescan")
+
+    # the host union (the reference's contract) beside the device one: per
+    # row, the top-nprobe sets; a row may differ only where its nprobe-th
+    # and (nprobe+1)-th sims lie within TIE_MARGIN
     probe_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
-        clusters, n_probed, P = ix.probe(q, ix.cfg.nprobe)
+        clusters, n_probed, P = ix.probe(q, nprobe)
         probe_ms.append((time.perf_counter() - t0) * 1e3)
-    d = ix.device_arrays()
-    cand = candidate_slots(d["members"], d["overflow"], clusters)
-    check(cand.numel() == P, "candidate vector != the probe's rows")
-    p_valid = int((cand >= 0).sum())
     q_d = torch.from_numpy(q).to(dev)
+    cl_d = ix.probe_device(q_d, nprobe)
+    # a few small launches each: CUDA events time the host's launch pace,
+    # the profiler the device's work
+    quant_ms = events_ms(lambda: ix.probe_device(q_d, nprobe), 20)
+    quant_dev_ms, _ = device_ms(lambda: ix.probe_device(q_d, nprobe), 20)
+    sims = q @ ix.centroids.T
+    host_top = np.argpartition(-sims, nprobe - 1, axis=1)[:, :nprobe]
+    dev_top = torch.topk(q_d @ ix.device_arrays()["centroids"].T,
+                         nprobe, dim=1).indices.cpu().numpy()
+    srt = -np.sort(-sims, axis=1)
+    near_tie = np.abs(srt[:, nprobe - 1] - srt[:, nprobe]) <= TIE_MARGIN
+    differ = np.array([set(a.tolist()) != set(b.tolist())
+                       for a, b in zip(host_top, dev_top)])
+    check(not (differ & ~near_tie).any(),
+          f"device union rows {np.nonzero(differ & ~near_tie)[0]} differ "
+          "from the host probe's away from a tie")
+    union_equal = bool((cl_d.cpu().numpy() == clusters).all())
+    check(union_equal or differ.any(), "unions differ with every row equal")
+
+    # the kernel's inputs exactly as the executor builds them
+    d = ix.device_arrays()
+    compact = lambda: ivf_mod.compact_candidates_cuda(
+        d["members"], d["overflow"], cl_d, N)
+    cand, n_live = compact()
+    padded = candidate_slots(d["members"], d["overflow"], cl_d)
+    check(padded.numel() == P, "candidate vector != the probe's rows")
+    c_p, n_p = ivf_mod.compact_candidates_plain(d["members"], d["overflow"],
+                                                cl_d, N)
+    check(torch.equal(cand, c_p) and torch.equal(n_live, n_p),
+          "compaction kernel != its plain version")
+    p_valid = int(n_live.item())
     pa = pred.as_array(dev)
     args = (q_d, snap["emb"], meta, cand, pa, 10)
     peak_phase = peak_gb()
@@ -1815,26 +1947,33 @@ def phase_ivf_prod(dev, prod):
     sync()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    s_k, i_k = ivf_mod.ivf_probe_cuda(*args)
+    s_k, i_k = ivf_mod.ivf_probe_cuda(*args, n_live=n_live)
     sync()
     kernel_extra = torch.cuda.max_memory_allocated() - base
     check(kernel_extra < P * D * 4 // 8,
           f"the probe kernel allocated {kernel_extra} bytes")
-    s_p, i_p = ivf_mod.ivf_probe_plain(*args)
+    padded_args = (q_d, snap["emb"], meta, padded, pa, 10)
+    s_p, i_p = ivf_mod.ivf_probe_plain(*padded_args)
     sync()
-    cand_np = cand.cpu().numpy()
     mask = np.broadcast_to(host_mask(meta.cpu().numpy(),
                                      pa.cpu().numpy()[None])[0], (32, N))
     err = compare("ivf-prod", *tnp(s_k, i_k, s_p, i_p), mask,
-                  cand_pos=cand_positions(cand_np, N))
+                  cand_pos=cand_positions(padded.cpu().numpy(), N))
+    check(bits_equal((s_k, i_k), ivf_mod.ivf_probe_cuda(*padded_args)),
+          "the compacted vector's lists != the padded vector's")
     # the front door's rows equal the direct kernel call's rows
     check((sl == i_k.cpu().numpy()).all() and (s == s_k.cpu().numpy()).all(),
           "run() rows != kernel rows")
 
-    ms = events_ms(lambda: ivf_mod.ivf_probe_cuda(*args), 10)
-    plain_ms = events_ms(lambda: ivf_mod.ivf_probe_plain(*args), 3)
-    safe = cand.clamp(min=0).long()
-    live_c = (cand >= 0) & keep[safe]
+    ms = events_ms(lambda: ivf_mod.ivf_probe_cuda(*args, n_live=n_live), 10)
+    padded_ms = events_ms(lambda: ivf_mod.ivf_probe_cuda(*padded_args), 10)
+    plain_ms = events_ms(lambda: ivf_mod.ivf_probe_plain(*padded_args), 3)
+    compact_ms = events_ms(compact, 20)
+    compact_dev_ms, _ = device_ms(compact, 20)
+    compact_plain_ms = events_ms(lambda: ivf_mod.compact_candidates_plain(
+        d["members"], d["overflow"], cl_d, N), 3)
+    safe = padded.clamp(min=0).long()
+    live_c = (padded >= 0) & keep[safe]
 
     def yardstick():
         sc = torch.matmul(q_d, snap["emb"][safe].T)
@@ -1855,27 +1994,48 @@ def phase_ivf_prod(dev, prod):
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS \
         else "operations"
     # the same bound had every one of the P rows, padding included, been
-    # read and scored (what the kernel's schedule computes)
+    # read and scored (what the parent design's schedule computed)
     bound_ms_all_rows = max((P * (4 * D + 16 + 4) + B * D * 4 + B * k * 8)
                             / HBM_BPS, 2 * B * P * D / FP32_FLOPS) * 1e3
+    # the compaction: the probed clusters' member rows, the overflow tail
+    # and the cluster list read once, the vector and its count written
+    c_bytes = 4 * (P + cl_d.numel()) + 4 * P + 4
+    compact_bound_ms = c_bytes / HBM_BPS * 1e3
     emit("ivf_prod", seconds=time.perf_counter() - t_phase, rows=N, dim=D,
-         batch=B, k=k, clusters=ix.n_clusters, nprobe=ix.cfg.nprobe,
+         batch=B, k=k, clusters=ix.n_clusters, nprobe=nprobe,
          cap=ix.cluster_cap, overflow=len(ix.overflow),
-         probed_clusters=n_probed, P=P, P_valid=p_valid, P_over_N=P / N,
+         probed_clusters=n_probed, P=P, P_live=p_valid,
+         live_tiles=-(-p_valid // kernel_mod.TILE_ROWS),
+         tiles=-(-P // kernel_mod.TILE_ROWS), P_over_N=P / N,
          build_s=build_s, kmeans_s=spent["kmeans"], assign_s=spent["assign"],
          build_host_s=build_s - spent["kmeans"] - spent["assign"],
          slot_map_s=slot_map_s, batch_ms_median=statistics.median(lat),
-         batch_ms=lat, probe_host_ms_median=statistics.median(probe_ms),
-         launches=launches, kernel_ms=ms, plain_ms=plain_ms,
-         yardstick_ms=yard_ms, exact_kernel_ms=exact_ms, bound_ms=bound_ms,
-         bound_by=bound_by, bound_bytes=nbytes,
-         bound_ms_all_rows=bound_ms_all_rows, recall_at_10=recall,
+         batch_ms=lat, idle_share=profile["idle_share"],
+         probe_host_ms_median=statistics.median(probe_ms),
+         quantizer_events_ms=quant_ms, quantizer_device_ms=quant_dev_ms,
+         union_equal=union_equal,
+         union_rows_differing=int(differ.sum()),
+         union_rows_near_tie=int(near_tie.sum()), tie_margin=TIE_MARGIN,
+         sync_debug="no sync in the ivf launch", launches=launches,
+         kernel_ms=ms, padded_vector_kernel_ms=padded_ms, plain_ms=plain_ms,
+         compact_events_ms=compact_ms, compact_device_ms=compact_dev_ms,
+         compact_plain_ms=compact_plain_ms,
+         compact_bound_ms=compact_bound_ms, yardstick_ms=yard_ms,
+         exact_kernel_ms=exact_ms, bound_ms=bound_ms, bound_by=bound_by,
+         bound_bytes=nbytes, bound_ms_all_rows=bound_ms_all_rows,
+         recall_at_10=recall,
          anchor_in_top10=float(np.mean([anchors[r] in sl[r].tolist()
                                         for r in range(32)])),
          profile=profile, peak_mem_gb=peak_phase,
          kernel_extra_mem_gb=kernel_extra / 1e9, max_abs_err=err)
     return dict(launches=launches, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                compact=dict(launches=compact_launches,
+                             ms=compact_ms if compact_dev_ms is None
+                             else compact_dev_ms,
+                             plain_ms=compact_plain_ms,
+                             bound_ms=compact_bound_ms, bound_by="bytes",
+                             max_abs_err=0.0))
 
 
 def alloc_bytes(fn):
@@ -2483,8 +2643,8 @@ def main() -> int:
     # free the 2^23-row arena (and every tensor the rows hold) before the
     # model and its cache take the card
     row_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")
-    prod, hprod, iprod, pprod = ({key: d[key] for key in row_keys}
+                "max_abs_err", "compact")
+    prod, hprod, iprod, pprod = ({key: d[key] for key in row_keys if key in d}
                                  for d in (prod, hprod, iprod, pprod))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2513,6 +2673,16 @@ def main() -> int:
         "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"]),
         "ms": iprod["ms"], "plain_ms": iprod["plain_ms"],
         "bound_ms": iprod["bound_ms"], "bound_by": iprod["bound_by"],
+        "library_ms": None}, {
+        "name": "ivf_compact", "route": "cuda",
+        "source": "src/repro_torch/csrc/arena_scan_probe.cu",
+        "replaces": "src/repro/kernels/ivf_probe/ops.py:34",
+        "launches": iprod["compact"]["launches"],
+        "max_abs_err": 0.0,
+        "ms": iprod["compact"]["ms"],
+        "plain_ms": iprod["compact"]["plain_ms"],
+        "bound_ms": iprod["compact"]["bound_ms"],
+        "bound_by": iprod["compact"]["bound_by"],
         "library_ms": None}, {
         "name": "arena_scan_paged", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",

@@ -13,10 +13,12 @@ calls for the front door (port of ``repro.api.executor``):
     host copy of any result (``.cpu()`` in `finish_plans` is the sync);
   * bucketed batching: each unit's row count pads to a power-of-two bucket
     (`plan.bucket_rows`), tracked by the `CompiledShapes` LRU;
-  * the ivf engine: each ivf group runs ONE probe launch over its probed
-    clusters' candidate rows (`kernels.ivf_probe.ops.ivf_probe`), and the
-    finish phase completes an under-filled k-list with one exact rescan
-    (the ``starved`` memo sends a predicate the whole arena cannot fill
+  * the ivf engine: each ivf group runs the coarse quantizer on the
+    device (`IVFIndex.probe_device`), then ONE probe launch over its probed
+    clusters' live candidate rows (`kernels.ivf_probe.ops.ivf_probe`: the
+    compaction, then the scan), with no host sync in between; the finish
+    phase completes an under-filled k-list with one exact rescan (the
+    ``starved`` memo sends a predicate the whole arena cannot fill
     straight to the exact engine);
   * the paged regime: a unit whose representative plan carries
     ``page_rows`` launches the arena scan's paged form
@@ -161,7 +163,13 @@ class _Hot:
 
 
 def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(store["emb"].device)
+    """A host array on the store's device; to the card by an asynchronous
+    copy from pinned memory, so that a launch never waits on the device."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    dev = store["emb"].device
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
@@ -193,9 +201,14 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
             s, sl = unified_query(store, _to_device(q, store), pred, k,
                                   engine=exact, page_rows=page_rows)
             return _Hot(s, sl, n_arena)
-        clusters, _, rows = ivf.probe(q[:nv], nprobe or ivf.cfg.nprobe)
+        # the quantizer on the device over the real rows, and rows_scanned
+        # as the host probe counts it (a function of (nv, nprobe) alone)
+        nprobe = nprobe or ivf.cfg.nprobe
+        q_d = _to_device(q, store)
+        clusters = ivf.probe_device(q_d[:nv], nprobe)
+        rows = ivf.candidate_rows(nprobe, nv)
         dev = ivf.device_arrays()
-        s, sl = ivf_probe(_to_device(q, store), store["emb"], store["tenant"],
+        s, sl = ivf_probe(q_d, store["emb"], store["tenant"],
                           store["updated_at"], store["category"],
                           store["acl"], dev["members"], dev["overflow"],
                           clusters, pred.as_array(store["emb"].device), k)

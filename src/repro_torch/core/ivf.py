@@ -3,6 +3,10 @@
 
 A coarse quantizer (one small product with C centroids) selects nprobe
 clusters, and the fused filtered scan runs only over those clusters' rows.
+The executor runs the quantizer on the index's device (`probe_device`:
+the product, each row's top nprobe and their union, with no host round
+trip); `IVFIndex.probe` is the same union on the host, the reference's
+contract, which the audits (`candidate_rows`) and the tests use.
 
 Layout: a padded cluster-major MEMBER table (C, cap) of arena slot ids. The
 probe takes the deduplicated union of the predicate group's probed clusters
@@ -104,6 +108,37 @@ def _kmeans(emb: torch.Tensor, live: torch.Tensor, n_clusters: int,
 
 def _pow2(n: int, floor: int = 1) -> int:
     return 1 << max(max(int(n), floor) - 1, 0).bit_length()
+
+
+def probe_union(q: torch.Tensor, centroids: torch.Tensor, nprobe: int,
+                u_pad: int) -> torch.Tensor:
+    """The coarse quantizer on ``q``'s device: sims = q @ centroids.T in
+    full f32 (TF32 off for the product), each row's top ``nprobe``
+    clusters, and their deduplicated union ascending, -1 padded to
+    ``u_pad`` (>= the union's size). Nothing here reads a result on the
+    host, so on the card the whole quantizer is queued without a sync. It
+    equals `IVFIndex.probe`'s union except where a row's nprobe-th and
+    (nprobe+1)-th sims tie within the two products' rounding. Returns
+    (u_pad,) int32."""
+    dev = q.device
+    C = centroids.shape[0]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sims = torch.matmul(q.to(torch.float32), centroids.T)   # (B, C)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    top = torch.topk(sims, nprobe, dim=1, sorted=False).indices
+    # (index_fill_ takes its value as a scalar: an assignment of True would
+    # copy it to the card and wait)
+    hit = torch.zeros(C, dtype=torch.bool, device=dev).index_fill_(
+        0, top.reshape(-1), True)
+    # cluster c goes to the union's position (hits before c); misses to a
+    # dropped slot past u_pad
+    at = torch.where(hit, torch.cumsum(hit, 0) - 1, u_pad)
+    out = torch.full((u_pad + 1,), -1, dtype=torch.int32, device=dev)
+    out.scatter_(0, at, torch.arange(C, dtype=torch.int32, device=dev))
+    return out[:u_pad]
 
 
 class IVFIndex:
@@ -232,7 +267,19 @@ class IVFIndex:
         self._overflow_dirty = False
         return self._dev
 
-    # -- the coarse quantizer (host side: centroids are tiny) -------------
+    # -- the coarse quantizer ----------------------------------------------
+    def probe_device(self, q: torch.Tensor, nprobe: int) -> torch.Tensor:
+        """`probe`'s clusters computed on the mirror's device from the
+        mirror's centroids (`probe_union`): (U_pad,) int32, -1 padded, the
+        same U_pad. q: (B, D) f32 query rows on that device, the batch's
+        real rows only. No host sync: the probe scan reads the union where
+        it lies. `probe` stays the host contract; `candidate_rows(nprobe,
+        B)` is its rows_scanned."""
+        nprobe = max(1, min(int(nprobe), self.n_clusters))
+        u_pad = _pow2(min(q.shape[0] * nprobe, self.n_clusters))
+        return probe_union(q, self.device_arrays()["centroids"], nprobe,
+                           u_pad)
+
     def probe(self, q: np.ndarray, nprobe: int):
         """Deduplicated probed-cluster union for a batch of query rows.
 
@@ -360,11 +407,9 @@ def ivf_query(store: Store, index: IVFIndex, q, pred, k: int,
     dev = store["emb"].device
     pa = (pred.as_array(dev) if isinstance(pred, Predicate)
           else torch.as_tensor(pred, dtype=torch.int32, device=dev))
-    q_np = (q.detach().cpu().numpy() if isinstance(q, torch.Tensor)
-            else np.asarray(q, np.float32))
-    clusters, _, _ = index.probe(q_np, nprobe or index.cfg.nprobe)
+    q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    clusters = index.probe_device(q, nprobe or index.cfg.nprobe)
     d = index.device_arrays()
-    return ivf_probe(torch.as_tensor(q_np, dtype=torch.float32, device=dev),
-                     store["emb"], store["tenant"], store["updated_at"],
+    return ivf_probe(q, store["emb"], store["tenant"], store["updated_at"],
                      store["category"], store["acl"], d["members"],
                      d["overflow"], clusters, pa, k, use_kernel=use_kernel)

@@ -25,15 +25,22 @@
 //               candidates' rows that `_assemble` gathers first; here the
 //               gather is folded into the kernel's loads. The candidate
 //               vector cand (P,) holds arena slots (the probed clusters'
-//               member rows, then the overflow tail); thread r of a tile
-//               reads slot = cand[base + r] and loads emb and meta row
-//               `slot` in place of row base + r. A slot outside [0, N_arena)
-//               is dead (masked), never clamped, and no (P, D) copy is ever
-//               written. Selection and merges carry the CANDIDATE POSITION
-//               base + r, so ties fall where the reference puts them (the
-//               lower position first: clusters ascending, members in fill
-//               order, the overflow tail last; a slot listed twice comes out
-//               twice); finish maps position -> cand[position].
+//               member rows, then the overflow tail), as a rule compacted
+//               to its live slots on the card first (arena_scan_probe.cu),
+//               the count `n_live` left in device memory: the kernel walks
+//               cand[0, n_live), its grid sized by P, and a block past
+//               n_live writes empty lists and returns. Thread r of a tile
+//               reads slot = cand[base + r] once a tile into shared memory,
+//               whence the tile's copies take it, and emb and meta row
+//               `slot` stand in for row base + r. A slot outside
+//               [0, N_arena) is dead (masked, never copied), never clamped,
+//               and no (P, D) copy is ever written. Selection and merges
+//               carry the CANDIDATE POSITION base + r, so ties fall where
+//               the reference puts them (the lower position first: clusters
+//               ascending, members in fill order, the overflow tail last; a
+//               slot listed twice comes out twice); finish maps position ->
+//               cand[position]. The compaction keeps the live positions'
+//               order, so the lists equal the padded vector's bit for bit.
 // Lists are ordered by score descending and then arena index (PROBE:
 // candidate position) ascending; slot -1 wherever the score is NEG_INF,
 // and (NEG_INF, -1) padding past the fill when k > N.
@@ -82,9 +89,14 @@
 //     and D) landing on the stage's mbarrier, stages - 1 chunks ahead of
 //     the FMAs. The emb box uses the TMA's 128-byte swizzle, so eight
 //     consecutive rows at one float4 column fall in distinct banks
-//     (e_col). PROBE gathers its rows by slot with cp.async (sm_90's TMA
-//     has no row gather), as does D % 4 != 0 (4-byte copies); both write
-//     the same swizzled layout and zero-fill past the tile, B and D.
+//     (e_col). PROBE gathers its rows by slot with 16-byte cp.async from
+//     every thread (sm_90's TMA has no row gather; one 1-D bulk copy a row
+//     a chunk moved the same scattered 128-byte pieces at a lower rate,
+//     PERF.md), the tile's slots staged once in shared memory, no dead
+//     row copied; D % 4 != 0 takes 4-byte copies in every mode; both write
+//     the same swizzled layout and zero-fill past the tile, B and D. (A
+//     third ring stage, the selection buffers sharing the ring's memory,
+//     and an L2 prefetch of the rows' next chunks bought nothing either.)
 //   * Bit identity. Every (row, query) score is one fp32 chain: acc = 0,
 //     then acc = fmaf(q[d], e[d], acc) for d ascending over D zero-padded
 //     to a multiple of DK = 32. The micro-tile and the ring change which
@@ -134,10 +146,15 @@
 //          the bytes fall toward DENSE's (plus 8T for each kept row). The
 //          BM25 steps (T * QT a kept pair, at most B * N * T * QT = 1.7e10
 //          at QT = 4) are integer and fp32 work well under the bound.
-//   PROBE: the P candidates' rows plus their slots,
-//          max(P * (4D + 16 + 4) B / 3.35 TB/s, 2 * B * P * D / 67 TFLOP/s).
-// PROBE's gathered rows are whole 4D-byte rows, so its loads coalesce as
-// DENSE's do.
+//   PROBE: the P_live live candidates' rows and metadata plus the P
+//          slots of the vector, max((P_live * (4D + 16) + 4P) B / 3.35
+//          TB/s, 2 * B * P_live * D / 67 TFLOP/s); at the IVF prod shape
+//          (P_live 264,707 of 393,216, B 32, D 768) 0.244 ms, by bytes.
+//          The design before scored all P rows (padding included: 0.363
+//          ms of bytes, 19.3 GFLOP) and reloaded each row's slot every
+//          chunk. The gather's scattered 128-byte pieces are what bound
+//          it: the copies alone take 0.38 ms of the 0.50 on the live rows,
+//          about 2.1 TB/s (PERF.md).
 //
 // What is left on the table: (1) the FMA loop -- a SIMT fp32 loop reaches
 // about two thirds of the datasheet rate on this card, so the FLOP bound
@@ -598,11 +615,12 @@ __device__ __noinline__ void fold_lists(const float* sub_s,
 // [BB][CH], then the other regions at multiples of 16 bytes. `paged` adds
 // the sub-tile lists and, with `run_smem`, both copies of the running
 // lists; `lexical` the query terms and idf ([BB][QT rounded up to 4]) and
-// the pair lists (RS counts, then RS x TILE_N one-byte tile rows). BOTH's
-// selection buffers hold three [RS][TILE_N] arrays where its lists share
-// their indices (shares_indices: paged), else four.
+// the pair lists (RS counts, then RS x TILE_N one-byte tile rows); `probe`
+// the sub-tile's TILE_N slots. BOTH's selection buffers hold three
+// [RS][TILE_N] arrays where its lists share their indices
+// (shares_indices: paged), else four.
 struct ScanLayout {
-  size_t stage, sel, sub, run, preds, gids, qlex, pairs, bars, total;
+  size_t stage, sel, sub, run, preds, gids, slots, qlex, pairs, bars, total;
 };
 
 __host__ __device__ constexpr int pad4(int x) { return (x + 3) & ~3; }
@@ -627,8 +645,9 @@ __host__ __device__ inline size_t align1024(size_t x) {
 
 __host__ __device__ inline ScanLayout scan_layout(int BB, int n_lists,
                                                   bool lexical, bool paged,
-                                                  int G, int QT, int L,
-                                                  int stages, bool run_smem) {
+                                                  bool probe, int G, int QT,
+                                                  int L, int stages,
+                                                  bool run_smem) {
   ScanLayout p;
   p.stage = align1024(sizeof(float) * (size_t)(TILE_N + BB) * CH);
   p.sel = (size_t)stages * p.stage;
@@ -639,7 +658,8 @@ __host__ __device__ inline ScanLayout scan_layout(int BB, int n_lists,
                          : 0);
   p.preds = p.run + (run_smem ? align16((size_t)2 * n_lists * BB * L * 8) : 0);
   p.gids = p.preds + align16(sizeof(int) * 4 * (size_t)G);
-  p.qlex = p.gids + align16(sizeof(int) * (size_t)BB);
+  p.slots = p.gids + align16(sizeof(int) * (size_t)BB);
+  p.qlex = p.slots + (probe ? align16(sizeof(int) * (size_t)TILE_N) : 0);
   p.pairs = p.qlex + (lexical ? align16((size_t)8 * BB * pad4(QT)) : 0);
   p.bars = p.pairs + (lexical ? align16((size_t)RS * (4 + TILE_N)) : 0);
   p.total = p.bars + align16((size_t)8 * stages) + 1024;
@@ -658,6 +678,8 @@ struct ScanArgs {
   const int* qterms;       // (B, QT)
   const float* qidf;       // (B, QT)
   const int* cand;         // PROBE: (N,) arena slots of the N candidates
+  const int* n_live;       // PROBE: live candidates, a prefix of cand (one
+                           // int in device memory), or nullptr: all N
   int n_arena, B, N, D, G, T, QT;
   int L;         // entries a tile's (resident) or a page's (paged) list
   int n_lists;   // tiles (resident) or pages (paged): lists a query row
@@ -774,8 +796,9 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   extern __shared__ __align__(16) unsigned char smem_buf[];
   unsigned char* smem_raw =
       smem_buf + ((1024 - (attn::smem_u32(smem_buf) & 1023)) & 1023);
-  const ScanLayout lay = scan_layout(BB, NL, LEX, PAGED, a.G, a.QT, a.L,
-                                     a.stages, a.run_smem != 0);
+  const ScanLayout lay = scan_layout(BB, NL, LEX, PAGED, MODE == PROBE,
+                                     a.G, a.QT, a.L, a.stages,
+                                     a.run_smem != 0);
   // the chunks come by TMA (one thread, a 2-D box of each tensor, landing
   // on the stage's mbarrier), except for PROBE's gathered rows and D % 4
   // != 0, which come by cp.async (every thread, waited per thread)
@@ -798,6 +821,8 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   int* sub_li = sub_i + RS * k_sub;
   int* p_sh = reinterpret_cast<int*>(smem_raw + lay.preds);      // G x 4
   int* g_sh = reinterpret_cast<int*>(smem_raw + lay.gids);       // BB
+  // PROBE: the arena slots of the sub-tile being issued (-1: dead)
+  int* slot_sh = reinterpret_cast<int*>(smem_raw + lay.slots);   // TILE_N
   const int QTP = pad4(a.QT);
   int* qt_sh = reinterpret_cast<int*>(smem_raw + lay.qlex);      // BB x QTP
   float* qw_sh = reinterpret_cast<float*>(qt_sh + BB * QTP);
@@ -818,19 +843,35 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   const int qg = tid >> 6;
   const int b0 = blockIdx.y * BB;
   const int nb = min(BB, a.B - b0);           // real query rows here
+  // PROBE walks the live prefix of its candidate vector, whose length the
+  // compaction kernel left in device memory: the host's bound a.N sizes
+  // the grid, and a block wholly past the live count writes empty lists
+  int n_rows = a.N;
+  if constexpr (MODE == PROBE) {
+    if (a.n_live != nullptr) n_rows = min(a.N, max(0, __ldg(a.n_live)));
+  }
   // the block's sub-tiles: sub-tile s covers rows [first + s * step, ...)
   // below row_end
   int first, step, row_end, n_sub;
   if constexpr (PAGED) {
     first = blockIdx.x * a.P;                 // P * n_pages < 2^31
     step = TILE_N;
-    row_end = (int)min((long long)first + a.P, (long long)a.N);
+    row_end = (int)min((long long)first + a.P, (long long)n_rows);
     n_sub = (row_end - first + TILE_N - 1) / TILE_N;
   } else {
     first = blockIdx.x * TILE_N;            // one tile a block
     step = TILE_N;
-    row_end = a.N;
+    row_end = n_rows;
     n_sub = 1;
+  }
+  if (MODE == PROBE && first >= row_end) {  // block-uniform: no live row
+    for (int f = tid; f < nb * a.L; f += THREADS) {
+      const size_t o = ((size_t)(b0 + f / a.L) * a.n_lists + blockIdx.x) *
+                           a.L + f % a.L;
+      a.s0[o] = NEG_INF;
+      a.i0[o] = NO_ROW;
+    }
+    return;
   }
   const int n_ch = ((a.D + DK - 1) / DK) * (DK / CH);
   const int total = n_sub * n_ch;
@@ -910,7 +951,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
       return pos;
     }
   };
-  // A thread's 16-byte copies of a chunk (the cp.async path): float4
+  // A thread's 16-byte copies of a chunk (PROBE's cp.async path): float4
   // column c4 = tid % C4 of tile rows tid / C4 + m * ROW_STEP (m < C4), and
   // of query rows (tid + m * THREADS) / C4 for m < Q_COPIES.
   constexpr int C4 = CH / 4;
@@ -923,7 +964,8 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   // `st`: emb as [row][CH] under the TMA's swizzle (e_col), the queries as
   // [query row][CH]; zeros past the tensors (TMA) or past the sub-tile, B
   // and D (cp.async). Rows past a page's end but inside the arena are
-  // copied and masked in the epilogue.
+  // copied and masked in the epilogue; PROBE reads its rows' slots from
+  // slot_sh, staged once a sub-tile, and copies no dead row.
   auto issue = [&](int base, int d0, int st) {
     float* e_st = reinterpret_cast<float*>(smem_raw +
                                            (size_t)st * lay.stage);
@@ -939,7 +981,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
 #pragma unroll
       for (int m = 0; m < C4; ++m) {
         const int r = my_r + m * ROW_STEP;
-        const int row = src_row(base, r);
+        const int row = slot_sh[r];
         const int d = d0 + 4 * my_c4;
         const bool ok = row >= 0 && d < a.D;
         cp_async16(e_st + 4 * e_col(r, my_c4),
@@ -961,7 +1003,7 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
         const int r = f / CH;
         const int c = f % CH;
         const int d = d0 + c;
-        const int row = src_row(base, r);
+        const int row = MODE == PROBE ? slot_sh[r] : src_row(base, r);
         const bool ok = row >= 0 && d < a.D;
         cp_async4(e_st + 4 * e_col(r, c / 4) + (c & 3),
                   ok ? a.emb + (size_t)row * a.D + d : a.emb, ok);
@@ -980,7 +1022,19 @@ __device__ __forceinline__ void scan_block(const ScanArgs a,
   // sub-tile's first row, its chunk in the sub-tile and its ring stage
   int i_base = first, i_c = 0, i_st = 0, issued = 0;
   auto issue_next = [&]() {
-    if (issued < total) issue(i_base, i_c * CH, i_st);
+    if (issued < total) {
+      if constexpr (MODE == PROBE) {
+        // a new sub-tile: its slots, read once (block-uniform; the
+        // barriers keep the last sub-tile's copies off the new slots)
+        if (i_c == 0) {
+          const int slot = src_row(i_base, tid);
+          __syncthreads();
+          slot_sh[tid] = slot;
+          __syncthreads();
+        }
+      }
+      issue(i_base, i_c * CH, i_st);
+    }
     if (!use_tma) cp_async_commit();  // empty groups keep the count
     ++issued;
     if (++i_c == n_ch) {
@@ -1233,8 +1287,10 @@ struct Lex {                 // the lexical modes' inputs (unused by DENSE)
 struct Cand {                // PROBE's candidate vector (unused otherwise)
   const int* slots;          // (N,) arena slots of the N candidate rows
   int n_arena;               // arena rows: slots outside [0, n_arena) are dead
+  const int* n_live;         // device int: the live prefix of slots (the
+                             // compaction's count), or nullptr: all N
 };
-constexpr Cand kNoCand{nullptr, 0};
+constexpr Cand kNoCand{nullptr, 0, nullptr};
 
 // Shape of one launch: ring depth, where a paged block's running lists
 // live, and the block's shared memory. The deepest ring (2..MAX_STAGES)
@@ -1260,7 +1316,8 @@ inline bool scan_config(int BB, int mode, bool paged, int G, int QT, int L,
     for (const bool run_smem : where) {
       for (int st = MAX_STAGES; st >= 2; --st) {
         const size_t smem =
-            scan_layout(BB, nl, lex, paged, G, QT, L, st, run_smem).total;
+            scan_layout(BB, nl, lex, paged, mode == PROBE, G, QT, L, st,
+                        run_smem).total;
         if (smem <= cap) {
           cfg->stages = st;
           cfg->run_smem = run_smem;
@@ -1360,8 +1417,9 @@ int run_scan(const float* q, const float* emb, const int* meta,
   const int n_lists = (int)(((long long)N + tile - 1) / tile);
   const int L = k < tile ? k : tile;
   const ScanArgs a{q, emb, meta, gids, preds, lx.terms, lx.lexnorm,
-                   lx.qterms, lx.qidf, cd.slots, cd.n_arena, B, N, D, G,
-                   lx.T, lx.QT, L, n_lists, P, 0, 0, s0, i0, s1, i1};
+                   lx.qterms, lx.qidf, cd.slots, cd.n_live, cd.n_arena, B,
+                   N, D, G, lx.T, lx.QT, L, n_lists, P, 0, 0, s0, i0, s1,
+                   i1};
   cudaError_t err;
   if (B <= 8) {
     err = paged ? launch_scan<8, MODE, true>(a, stream)

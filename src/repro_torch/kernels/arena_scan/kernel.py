@@ -94,18 +94,21 @@ def _load():
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                            p, p, p, p, p, p, p]
             fn.restype = i
-        lib.arena_scan_probe_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                                p, p, p, p, p, p, p]
+        lib.arena_scan_probe_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                i, p, p, p, p, p, p, p]
         lib.arena_scan_probe_launch.restype = i
+        lib.arena_scan_compact_launch.argtypes = [p, i, i, p, i, p, i, i, p,
+                                                  p, p, p]
+        lib.arena_scan_compact_blocks.argtypes = [i]
         lib.arena_scan_paged_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                 i, p, p, p, p, p, p, p]
         for fn in (lib.arena_scan_fused_paged_launch,
                    lib.arena_scan_both_paged_launch):
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                            p, p, p, p, p, p, p]
-        lib.arena_scan_probe_paged_launch.argtypes = [p, p, p, p, p, i, i, i,
-                                                      i, i, i, p, p, p, p, p,
-                                                      p, p]
+        lib.arena_scan_probe_paged_launch.argtypes = [p, p, p, p, p, p, i, i,
+                                                      i, i, i, i, p, p, p, p,
+                                                      p, p, p]
         for fn in (lib.arena_scan_info, lib.arena_scan_fused_info,
                    lib.arena_scan_both_info, lib.arena_scan_probe_info):
             fn.argtypes = [i, i, i, i, i, i, p]
@@ -113,6 +116,8 @@ def _load():
                    lib.arena_scan_fused_paged_launch,
                    lib.arena_scan_both_paged_launch,
                    lib.arena_scan_probe_paged_launch,
+                   lib.arena_scan_compact_launch,
+                   lib.arena_scan_compact_blocks,
                    lib.arena_scan_info,
                    lib.arena_scan_fused_info,
                    lib.arena_scan_both_info,
@@ -242,17 +247,20 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
 
 
 def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
-                          page_rows: int | None = None):
+                          n_live=None, page_rows: int | None = None):
     """Launch the slot-lane (IVF candidate) scan on the current stream (no
     sync). q (B, D) f32; the ARENA's emb (N, D) f32 and packed meta (N, 4)
     int32; cand (P,) int32 arena slots of the candidate rows, in candidate
     order (slots outside [0, N) are dead rows); pred (4,) int32; all
-    contiguous on one CUDA device. The kernel reads each candidate's rows
-    through its slot; no (P, D) copy is made. ``page_rows`` (an int >= 1)
-    takes the paged kernel over pages of that many candidate positions.
-    Returns (scores (B, k) f32, arena slots (B, k) int32): ties to the lower
-    candidate position, -1 wherever the score is NEG_INF. Raises on any
-    input it cannot take."""
+    contiguous on one CUDA device. ``n_live`` ((1,) int32 on the card, as
+    `arena_scan_compact_cuda` leaves it) makes the kernel walk only
+    ``cand[:n_live]``, read from device memory: P still sizes the launch,
+    and blocks past the live count write empty lists; None walks all P.
+    The kernel reads each candidate's rows through its slot; no (P, D) copy
+    is made. ``page_rows`` (an int >= 1) takes the paged kernel over pages
+    of that many candidate positions. Returns (scores (B, k) f32, arena
+    slots (B, k) int32): ties to the lower candidate position, -1 wherever
+    the score is NEG_INF. Raises on any input it cannot take."""
     global PAGED_LAUNCHES
     page_rows = _check_page_rows(page_rows)
     dev = q.device
@@ -268,6 +276,8 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
     _check("meta", meta, torch.int32, (N, 4), dev)
     _check("cand", cand, torch.int32, (P,), dev)
     _check("pred", pred, torch.int32, (4,), dev)
+    if n_live is not None:
+        _check("n_live", n_live, torch.int32, (1,), dev)
     if B < 1 or N < 1 or P < 1 or D < 1 or k < 1:
         raise ValueError(f"arena_scan_probe_cuda needs B, N, P, D, k >= 1, "
                          f"got B={B} N={N} P={P} D={D} k={k}")
@@ -276,7 +286,8 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
     lib = _load()
     out_s, out_i, _bufs, scratch = _scratch(lib, B, P, k, dev, page_rows)
     inputs = (q.data_ptr(), emb.data_ptr(), meta.data_ptr(), cand.data_ptr(),
-              pred.data_ptr(), B, N, P, D, k)
+              None if n_live is None else n_live.data_ptr(), pred.data_ptr(),
+              B, N, P, D, k)
     if page_rows is None:
         rc = lib.arena_scan_probe_launch(*inputs, *scratch)
     else:
@@ -289,6 +300,47 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
     if page_rows is not None:
         PAGED_LAUNCHES += 1
     return out_s, out_i
+
+
+def arena_scan_compact_cuda(members, overflow, clusters, n_arena: int):
+    """Launch the candidate compaction on the current stream (no sync):
+    members (C, cap) int32, overflow (O,) int32 and clusters (U,) int32
+    (-1 padding; an id outside [0, C) counts as padding), contiguous on one
+    CUDA device, U * cap + O = P >= 1. Returns (cand (P,) int32: the live
+    slots -- inside [0, n_arena) -- of the probed clusters' member rows
+    and the overflow tail, in candidate order, then -1; n_live (1,) int32,
+    their count, left on the card for `arena_scan_probe_cuda`). Raises on
+    any input it cannot take."""
+    dev = members.device
+    if dev.type != "cuda":
+        raise ValueError(f"arena_scan_compact_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    if members.dim() != 2 or overflow.dim() != 1 or clusters.dim() != 1:
+        raise ValueError("members must be 2-D, overflow and clusters 1-D")
+    (C, cap), O, U = members.shape, overflow.shape[0], clusters.shape[0]
+    _check("members", members, torch.int32, (C, cap), dev)
+    _check("overflow", overflow, torch.int32, (O,), dev)
+    _check("clusters", clusters, torch.int32, (U,), dev)
+    P = U * cap + O
+    if not 1 <= P < 1 << 31 or not 0 <= n_arena < 1 << 31:
+        raise ValueError(f"the compaction needs 1 <= U * cap + O < 2^31 and "
+                         f"an int32 arena, got P={P} n_arena={n_arena}")
+    lib = _load()
+    counts = torch.empty(lib.arena_scan_compact_blocks(P), dtype=torch.int32,
+                         device=dev)
+    cand = torch.empty(P, dtype=torch.int32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.arena_scan_compact_launch(
+        members.data_ptr(), C, cap, clusters.data_ptr(), U,
+        overflow.data_ptr(), O, int(n_arena), counts.data_ptr(),
+        cand.data_ptr(), n_live.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"candidate compaction launch failed (C={C} cap={cap} U={U} "
+            f"O={O}): " + lib.arena_scan_error_string(rc).decode())
+    return cand, n_live
 
 
 def scan_info(spec: ScanSpec, B: int, N: int, G: int, k: int,
@@ -351,16 +403,18 @@ def scan_smem(BB: int, spec: ScanSpec, G: int, QT: int, L: int,
     buffers (a paged block's two lists of the "both" spec share their index
     array when a list holds at most WARP_K entries), a paged block's
     sub-tile lists and running lists, the predicates, the group ids, the
-    lexical modes' query terms and idf (QT rounded up to 4 a row) and pair
-    lists (SEL_ROWS counts and SEL_ROWS x TILE_ROWS one-byte rows), the
-    ring's mbarriers and 1024 bytes of slack to align the ring."""
+    slot-lane spec's TILE_ROWS slots, the lexical modes' query terms and
+    idf (QT rounded up to 4 a row) and pair lists (SEL_ROWS counts and
+    SEL_ROWS x TILE_ROWS one-byte rows), the ring's mbarriers and 1024
+    bytes of slack to align the ring."""
     nl = spec.n_lists
     ring = stages * _align(4 * (TILE_ROWS + BB) * CHUNK_DIMS, 1024)
     sel = nl * SEL_ROWS * TILE_ROWS * 8 - (
         SEL_ROWS * TILE_ROWS * 4 if paged and nl == 2 and L <= WARP_K else 0)
     sub = _align(nl * SEL_ROWS * min(L, TILE_ROWS) * 8) if paged else 0
     run = _align(2 * nl * BB * L * 8) if run_smem else 0
-    fixed = _align(16 * G) + _align(4 * BB)
+    fixed = _align(16 * G) + _align(4 * BB) + (
+        _align(4 * TILE_ROWS) if spec.slot_lane else 0)
     lex = (_align(8 * BB * _align(QT, 4)) + _align(SEL_ROWS * (4 + TILE_ROWS))
            if spec.has_lex else 0)
     return ring + sel + sub + run + fixed + lex + _align(8 * stages) + 1024

@@ -3,24 +3,29 @@
 
   probed cluster ids (deduplicated union for ONE predicate group)
     -> member-table rows (U, cap) + the exact-scan overflow tail
-    -> ONE candidate vector of arena slots (P,) for the whole group
+    -> ONE candidate vector of arena slots for the whole group, compacted
+       to its live slots (in candidate order; the count stays on the card)
     -> the probe: mask + score + top-k over arena slots
 
-CUDA tensors go to the kernel (`ivf_probe_cuda`), which reads each
-candidate's rows through its slot; CPU tensors to the plain version
-(`ivf_probe_plain`), which gathers them as `_assemble` does; nothing else
-is taken. Metadata comes from the ARENA columns, never from an index-side
-copy, so a stale or poisoned member table can only waste score work.
-Unlike the reference, no dead rows pad P to a tile multiple: the kernel
-masks its ragged last tile itself.
+CUDA tensors go to the kernels (`compact_candidates_cuda`, then
+`ivf_probe_cuda`, which reads each live candidate's rows through its slot;
+no host sync between them); CPU tensors to the plain versions
+(`compact_candidates_plain`, `ivf_probe_plain`, which gathers the rows as
+`_assemble` does); nothing else is taken. Metadata comes from the ARENA
+columns, never from an index-side copy, so a stale or poisoned member
+table can only waste score work. Unlike the reference, nothing pads P to a
+tile multiple and the scan walks only the live candidates: the lists are
+the padded vector's, since selection breaks ties by candidate position
+and the compaction keeps the live positions' order.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.arena_scan.ops import _pack_meta, _packed_meta
-from repro_torch.kernels.ivf_probe.ivf_probe import (ivf_probe_cuda,
-                                                     ivf_probe_plain)
+from repro_torch.kernels.ivf_probe.ivf_probe import (
+    compact_candidates_cuda, compact_candidates_plain, ivf_probe_cuda,
+    ivf_probe_plain)
 from repro_torch.kernels.ivf_probe.ref import (NEG_INF, candidate_slots,
                                                gather_candidates)
 
@@ -42,9 +47,10 @@ def ivf_probe(q, emb, tenant, updated_at, category, acl, members, overflow,
     q: (B, D) stacked query rows; emb/tenant/updated_at/category/acl: the
     ARENA columns (source of truth); members: (C, cap) int32 member table;
     overflow: (O,) int32 exact-scan tail; clusters: (U,) probed cluster
-    ids, -1-padded to a bucketed length (numpy or tensor); pred: (4,)
-    int32. Returns (scores (B, k) f32, ARENA slots (B, k) int32, -1 past
-    the fill).
+    ids, -1-padded to a bucketed length (numpy, or a tensor on emb's
+    device, as `IVFIndex.probe_device` leaves it: then nothing here waits
+    on the device); pred: (4,) int32. Returns (scores (B, k) f32, ARENA
+    slots (B, k) int32, -1 past the fill).
 
     ``use_kernel=None`` takes the kernel for tensors on the card and the
     plain version for tensors on the CPU; ``False`` takes the plain version
@@ -68,7 +74,11 @@ def ivf_probe(q, emb, tenant, updated_at, category, acl, members, overflow,
     meta = _packed_meta(tenant, updated_at, category, acl)
     q = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
     pred = torch.as_tensor(pred, dtype=torch.int32, device=dev).contiguous()
-    cand = candidate_slots(members, overflow, clusters)
     if dev.type == "cuda" and use_kernel is not False:
-        return ivf_probe_cuda(q, emb, meta, cand, pred, k)
+        cl = torch.as_tensor(clusters, dtype=torch.int32, device=dev)
+        cand, n_live = compact_candidates_cuda(members, overflow,
+                                               cl.contiguous(), emb.shape[0])
+        return ivf_probe_cuda(q, emb, meta, cand, pred, k, n_live=n_live)
+    cand, _ = compact_candidates_plain(members, overflow, clusters,
+                                       emb.shape[0])
     return ivf_probe_plain(q, emb, meta, cand, pred, k)

@@ -18,7 +18,7 @@ from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
 from repro_torch.kernels.arena_scan.stages import NEG_INF, ScanSpec
 
 __all__ = ["NEG_INF", "candidate_slots", "gather_candidates",
-           "ivf_probe_ref", "ivf_probe_scan_ref"]
+           "ivf_probe_ref", "ivf_probe_scan_ref", "live_candidates"]
 
 _SPEC = ScanSpec(score="dense", slot_lane=True)
 
@@ -35,6 +35,25 @@ def candidate_slots(members, overflow, clusters) -> torch.Tensor:
     m = torch.where((cl >= 0)[:, None], m, -1)                # cluster-list pad
     return torch.cat([m.reshape(-1), overflow.to(m.dtype)]).to(
         torch.int32).contiguous()
+
+
+def live_candidates(members, overflow, clusters, n_arena: int):
+    """The compaction kernel's plain version: `candidate_slots`' live
+    entries -- arena slots inside [0, n_arena) -- in candidate order, then
+    -1 to the same length P, and their count. A cluster id outside [-1, C)
+    counts as padding, as in the kernel. Scanning the compacted vector
+    gives the padded one's lists exactly: selection breaks ties by
+    candidate position, and compaction keeps the live positions' order.
+    Returns (cand (P,) int32, n_live (1,) int32) on members' device."""
+    cl = torch.as_tensor(clusters, dtype=torch.int64, device=members.device)
+    cl = torch.where(cl < members.shape[0], cl, -1)
+    cand = candidate_slots(members, overflow, cl)
+    live = (cand >= 0) & (cand < n_arena)
+    kept = cand[live]
+    out = torch.full_like(cand, -1)
+    out[:kept.numel()] = kept
+    return out, torch.tensor([kept.numel()], dtype=torch.int32,
+                             device=cand.device)
 
 
 def gather_candidates(emb, meta, cand):

@@ -8,29 +8,40 @@ ceiling.
 
 Builds, one nvcc per source and all at once, into src/repro_torch/build/
 probe/ (git-ignored): the checkout's arena-scan library, copies of it with
-one part of the work taken out (`VARIANTS`: the FMAs of the score stage;
-the BM25 arithmetic; the lanes' loads; in the staged-lanes design of
-1b2c4c4 also the whole lane staging, at 16 and at 32 dims a chunk), the
-library of ``--parent`` (the same C entry points, an earlier design) and
+one part of the work taken out or switched (`VARIANTS`: the FMAs of the
+score stage; the BM25 arithmetic; the lanes' loads; in the staged-lanes
+design of 1b2c4c4 also the whole lane staging, at 16 and at 32 dims a
+chunk; PROBE's slot loads replaced by a hash of the position), the
+library of ``--parent`` (an
+earlier design; PROBE's entry points before the compacted design take no
+live count, and the tool calls each library by its own signature) and
 tools/scan_probe_fma.cu. A variant whose text is not in the checkout's
-header is left out and reported so. Then prints one JSON line each for:
+header is left out and reported so, and one of modes not asked for is not
+built. Then prints one JSON line each for:
 
-* ``identity``: every mode (dense, fused, both, probe), resident and paged
-  (pages of 128, 1000, 4096 rows), over chip_smoke.py's kernel draws at
-  N in 1..65553, D in 1..768 (D 1 and 3 take the 4-byte copies), B in
-  1..100, k in 1..300: the lists of this checkout against ``--parent``'s,
-  scores and slots compared bit for bit, and each paged list against the
-  resident one;
+* ``identity``: each mode of ``--modes`` (dense, fused, both, probe),
+  resident and paged (pages of 128, 1000, 4096 rows), over chip_smoke.py's
+  kernel draws at N in 1..65553, D in 1..768 (D 1 and 3 take the 4-byte
+  copies), B in 1..100, k in 1..300: the lists of this checkout against
+  ``--parent``'s, scores and slots compared bit for bit, and each paged
+  list against the resident one; PROBE's poisoned candidate vectors also
+  compacted on the card and scanned from the live count, against the
+  parent's lists on the uncompacted vector;
 * ``prod``: 2^23 x 768 f32 rows drawn on the card (seed 0), 32 queries in 4
   predicate groups, k 10, 16 lanes a row and 4 query terms for the
-  lexical modes, 393,216 candidates for the probe, under two predicate
-  draws (`DRAWS`: ``prod``, three tenant-scoped groups and one of any
-  tenant; ``keepall``, every live row kept by every group), each group's
-  kept share of (row, query) pairs, then per mode and regime (resident;
-  paged at 2^15 rows): bit identity with ``--parent``, and CUDA-event
-  times taken in turns (parent, this, the variants, this, parent, the
-  variants); the matmul + where + topk yardstick, and the SM clock and
-  power while the dense kernel runs;
+  lexical modes, under two predicate draws (`DRAWS`: ``prod``, three
+  tenant-scoped groups and one of any tenant; ``keepall``, every live row
+  kept by every group), each group's kept share of (row, query) pairs,
+  then per mode and regime (resident; paged at 2^15 rows): bit identity
+  with ``--parent``, and CUDA-event times taken in turns (parent, this,
+  the variants, this, parent, the variants); the matmul + where + topk
+  yardstick, and the SM clock and power while the dense kernel runs.
+  PROBE (`probe_prod`, the ``prod`` draw) scans an IVF-shaped candidate
+  vector -- 256 probed clusters of cap 1536, the last a padding cluster,
+  about 265,000 of its 393,216 slots live -- padded, compacted on the
+  host, and compacted on the card (the compaction timed too), every
+  library in turns, and a persistent-grid stand-in (the paged kernel at
+  pages of P_live / 2 SMs);
 * ``fma``: tools/scan_probe_fma.cu at 2 blocks of 256 an SM, the score
   stage's FMA loop without copies or epilogue: TFLOP/s of the 4 x 8
   micro-tile and of 8 x 8 and 4 x 16.
@@ -85,10 +96,18 @@ _NEW_LANES = [("const int4 lt = __ldg(lt4 + p);",
               ("const int lane = __ldg(lt + t);", "const int lane = -1;"),
               ("acc = lane_add(acc, w, __ldg(ll + t));",
                "acc = lane_add(acc, w, 0.f);")]
+# PROBE's slot loads (the parent's: every chunk reloads a row's slot from
+# the candidate vector): a hash of the candidate position (a multiply-high
+# into [0, n_arena)) takes the loaded slot's place, so the rows stay
+# scattered over the arena but no slot is read
+_HASH = "(int)__umulhi((unsigned)pos * 2654435761u, (unsigned)a.n_arena)"
+_OLD_SLOT = [("const int slot = __ldg(a.cand + pos);",
+              f"const int slot = {_HASH};")]
 #: variant -> alternative substitution lists for arena_scan.cuh (the first
 #: whose every text is in the header applies): the work each takes out
 VARIANTS = {
     "nofma": [[(line, "") for line in FMA_LINES]],
+    "noslot": [_OLD_SLOT],
     "nolex": [[_OLD_BM25], _NEW_BM25],
     "nolanes": [_OLD_LANES, _NEW_LANES],
     "bare16": [[_OLD_BM25, _OLD_STAGING]],
@@ -96,6 +115,8 @@ VARIANTS = {
 }
 #: the lexical variants, timed in the lexical modes only
 LEX_VARIANTS = ("nolex", "nolanes", "bare16", "bare32")
+#: the PROBE-only variants
+PROBE_VARIANTS = ("noslot",)
 #: predicate draws of the prod batch, (tenant, min_ts, category mask, ACL
 #: mask) for groups 0..3
 DRAWS = {
@@ -171,15 +192,47 @@ def bind(lib):
             [p] * 9 + [i] * 7 + [p] * 7)
         getattr(lib, f"arena_scan_{m}_paged_launch").argtypes = (
             [p] * 9 + [i] * 8 + [p] * 7)
-    lib.arena_scan_probe_launch.argtypes = [p] * 5 + [i] * 5 + [p] * 7
-    lib.arena_scan_probe_paged_launch.argtypes = [p] * 5 + [i] * 6 + [p] * 7
+    # PROBE's entry points: with the live count (and the compaction that
+    # makes it) since the compacted design, without it before
+    lib.probe_live = hasattr(lib, "arena_scan_compact_launch")
+    n_in = 6 if lib.probe_live else 5
+    lib.arena_scan_probe_launch.argtypes = [p] * n_in + [i] * 5 + [p] * 7
+    lib.arena_scan_probe_paged_launch.argtypes = ([p] * n_in + [i] * 6
+                                                  + [p] * 7)
+    if lib.probe_live:
+        lib.arena_scan_compact_launch.argtypes = ([p, i, i, p, i, p, i, i]
+                                                  + [p] * 4)
+        lib.arena_scan_compact_blocks.argtypes = [i]
     return lib
+
+
+def compact(torch, lib, members, clusters, overflow, n_arena):
+    """The compaction kernel of a library that has it: (the live slots of
+    the probed clusters' members and the overflow tail, in candidate order
+    and -1 after; the live count (1,) int32 on the card)."""
+    C, cap = members.shape
+    P = clusters.shape[0] * cap + overflow.shape[0]
+    dev = members.device
+    counts = torch.empty(lib.arena_scan_compact_blocks(P), dtype=torch.int32,
+                         device=dev)
+    out = torch.empty(P, dtype=torch.int32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = lib.arena_scan_compact_launch(
+        members.data_ptr(), C, cap, clusters.data_ptr(), clusters.shape[0],
+        overflow.data_ptr(), overflow.shape[0], n_arena, counts.data_ptr(),
+        out.data_ptr(), n_live.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"compaction launch failed: {rc}")
+    return out, n_live
 
 
 def launch(torch, lib, mode, args, k, page_rows=None):
     """One launch; (scores, slots). The candidate buffers are sized for the
     smallest tile any version of the kernels uses (256 rows)."""
     q, emb, meta, gids, preds, lex, cand = args
+    # PROBE: cand walks all its P slots, or (cand, n_live) its live prefix
+    cand, n_live = cand if isinstance(cand, tuple) else (cand, None)
     dev = q.device
     B, D = q.shape
     n = cand.shape[0] if mode == "probe" else emb.shape[0]
@@ -208,9 +261,16 @@ def launch(torch, lib, mode, args, k, page_rows=None):
             lexnorm.data_ptr(), qterms.data_ptr(), qidf.data_ptr(), B, N, D,
             G, terms.shape[1], qterms.shape[1], k, *pg, *tail)
     else:
+        if lib.probe_live:
+            live = (None if n_live is None else n_live.data_ptr(),)
+        elif n_live is None:
+            live = ()
+        else:
+            raise ValueError("this library's PROBE takes no live count")
         rc = getattr(lib, f"arena_scan_probe{sfx}_launch")(
-            *dense_in, cand.data_ptr(), preds[0].contiguous().data_ptr(), B,
-            N, cand.shape[0], D, k, *pg, *tail)
+            *dense_in, cand.data_ptr(), *live,
+            preds[0].contiguous().data_ptr(), B, N, cand.shape[0], D, k,
+            *pg, *tail)
     if rc:
         raise RuntimeError(f"{mode} launch failed: {rc}")
     return out_s, out_i, bufs
@@ -234,15 +294,18 @@ def events_ms(torch, fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def identity(np, torch, cs, libs):
-    """chip_smoke.py's kernel draws through both versions, every mode."""
+def identity(np, torch, cs, libs, modes):
+    """chip_smoke.py's kernel draws through both versions, each mode of
+    ``modes``; PROBE's poisoned candidate vectors also compacted on the
+    card (when this library has the compaction), its lists held to the
+    parent's on the uncompacted vector."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     cases, bad = 0, []
     for N in (1, 255, 257, 513, 1000, 65553):
         for D in (1, 3, 4, 64, 96, 100, 768):
-            for mode in MODES:
+            for mode in modes:
                 if mode != "dense" and D < 4 and N > 600:
                     continue
                 for B in (1, 5, 17, 32, 33, 63, 64, 100):
@@ -259,28 +322,46 @@ def identity(np, torch, cs, libs):
                             rng.random((N, 16)).astype(np.float32),
                             rng.integers(-1, 64, (B, 4)).astype(np.int32),
                             rng.random((B, 4)).astype(np.float32))))
+                    forms = [None]
                     if mode == "probe":
                         cand = t(rng.integers(-3, N + 3, N).astype(np.int32))
+                        if libs["this"].probe_live:
+                            forms.append(compact(
+                                torch, libs["this"], cand[None],
+                                t(np.zeros(1, np.int32)),
+                                t(np.zeros(0, np.int32)), N))
                     args = (t(q), t(emb), t(meta), t(gids), t(preds), lex,
                             cand)
                     for k in (1, 10, 33, 300):
-                        res = launch(torch, libs["this"], mode, args, k)[:2]
                         old = launch(torch, libs["parent"], mode, args,
                                      k)[:2]
-                        if not same(torch, res, old):
-                            bad.append([mode, N, D, B, k, None])
-                        for P in (128, 1000, 4096):
-                            pg = launch(torch, libs["this"], mode, args, k,
-                                        P)[:2]
-                            if not same(torch, pg, res):
-                                bad.append([mode, N, D, B, k, P])
-                        cases += 1
+                        for form in forms:
+                            a = args if form is None else (*args[:6], form)
+                            tag = "compacted" if form else None
+                            res = launch(torch, libs["this"], mode, a, k)[:2]
+                            if not same(torch, res, old):
+                                bad.append([mode, N, D, B, k, None, tag])
+                            for P in (128, 1000, 4096):
+                                pg = launch(torch, libs["this"], mode, a, k,
+                                            P)[:2]
+                                if not same(torch, pg, res):
+                                    bad.append([mode, N, D, B, k, P, tag])
+                            cases += 1
     emit("identity", cases=cases, mismatches=len(bad), first=bad[:20])
     return not bad
 
 
+#: the probe's candidates in the prod batch, shaped as chip_smoke.py's
+#: ivf_prod index gives them: 256 probed clusters (the last a padding
+#: cluster, as a union of 255 is padded to 256) of cap 1536, each filled
+#: to PROBE_FILL..cap members drawn over the arena (about 265,000 live of
+#: the vector's 393,216), no overflow tail
+PROBE_CLUSTERS, PROBE_CAP, PROBE_FILL = 256, 1536, (540,)
+
+
 def prod_arena(torch):
-    """The prod shape drawn on the card: (q, emb, meta, gids, lex, cand)."""
+    """The prod shape drawn on the card: (q, emb, meta, gids, lex, the
+    probe's member table of the probed clusters)."""
     dev = torch.device("cuda")
     N, D, B, T, QT = 1 << 23, 768, 32, 16, 4
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -298,8 +379,14 @@ def prod_arena(torch):
            torch.rand((N, T), generator=gen, device=dev),
            torch.randint(0, 4096, (B, QT), generator=gen, device=dev).int(),
            torch.rand((B, QT), generator=gen, device=dev))
-    cand = torch.randint(0, N, (393216,), generator=gen, device=dev).int()
-    return q, emb, meta, gids, lex, cand
+    fill = torch.randint(PROBE_FILL[0], PROBE_CAP + 1, (PROBE_CLUSTERS,),
+                         generator=gen, device=dev)
+    fill[-1] = 0                                  # the padding cluster
+    slots = torch.randint(0, N, (PROBE_CLUSTERS, PROBE_CAP), generator=gen,
+                          device=dev)
+    pos = torch.arange(PROBE_CAP, device=dev)
+    members = torch.where(pos[None] < fill[:, None], slots, -1).int()
+    return q, emb, meta, gids, lex, members
 
 
 def kept_share(torch, meta, preds):
@@ -314,7 +401,83 @@ def kept_share(torch, meta, preds):
     return out
 
 
-def prod(torch, libs, arena):
+def probe_prod(torch, libs, args):
+    """PROBE on the prod batch's IVF-shaped candidates, every library in
+    turns over the vectors it takes: ``padded`` (the probed clusters'
+    member rows as the parent walked them, padding included), ``live``
+    (the live slots compacted on the host: the dead rows skipped) and, in a
+    library with the compaction kernel, ``device`` (compacted on the card,
+    the scan reading the live count there) and ``device-persistent`` (the
+    same through the paged kernel at pages of P_live / (2 SMs), rounded up
+    to 256: one block an SM slot walking its tiles). Bit identity of every
+    vector against the parent's padded lists, resident and paged."""
+    dev = torch.device("cuda")
+    q, emb, meta, gids, preds, lex, members = args
+    k, N = 10, emb.shape[0]
+    cand = members.reshape(-1).contiguous()
+    clusters = torch.arange(members.shape[0], dtype=torch.int32, device=dev)
+    no_over = torch.empty(0, dtype=torch.int32, device=dev)
+    vectors = {"padded": cand, "live": cand[cand >= 0].contiguous()}
+    p_live = vectors["live"].shape[0]
+    new = libs["this"].probe_live
+    if new:
+        vectors["device"] = compact(torch, libs["this"], members, clusters,
+                                    no_over, N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    persistent = -(-p_live // (2 * sms) // 256) * 256
+    at = lambda v: (*args[:6], vectors[v])
+    ok = True
+    ident = {}
+    want = launch(torch, libs["parent"], "probe", at("padded"), k)[:2]
+    want_pg = launch(torch, libs["parent"], "probe", at("padded"), k,
+                     1 << 15)[:2]
+    for v in vectors:
+        for P, ref in ((None, want), (1 << 15, want_pg)):
+            for n in ("parent", "this"):
+                if v == "device" and n == "parent":
+                    continue
+                got = launch(torch, libs[n], "probe", at(v), k, P)[:2]
+                ident[f"{n}-{v}-{P or 'resident'}"] = same(torch, got, ref)
+                if n == "this":
+                    ok &= ident[f"{n}-{v}-{P or 'resident'}"]
+    if new:
+        got = launch(torch, libs["this"], "probe", at("device"), k,
+                     persistent)[:2]
+        ident["this-device-persistent"] = same(torch, got, want)
+        ok &= ident["this-device-persistent"]
+    names = [n for n in libs if n in VARIANTS and n not in LEX_VARIANTS]
+    runs = {}
+    for n in ("parent", "this", *names):
+        for v in vectors:
+            if v == "device" and not libs[n].probe_live:
+                continue
+            runs[f"{n}-{v}"] = (lambda n=n, v=v: launch(
+                torch, libs[n], "probe", at(v), k))
+            if v == "device" and n == "this":
+                runs["this-device-persistent"] = (lambda: launch(
+                    torch, libs["this"], "probe", at("device"), k,
+                    persistent))
+    compaction = None
+    if new:
+        run_c = lambda: compact(torch, libs["this"], members, clusters,
+                                no_over, N)
+        runs["compaction"] = run_c
+        # CUDA events time a short launch pair at the host's pace: the
+        # profiler gives the device's time
+        import chip_smoke as cs
+        compaction = cs.device_ms(run_c, 20)
+    order = list(runs)
+    ms = {r: [] for r in runs}
+    for r in order + order[::-1]:
+        ms[r].append(events_ms(torch, runs[r], 10))
+    emit("probe", P=cand.shape[0], P_live=p_live, page_rows=1 << 15,
+         persistent_page_rows=persistent, identical=ident, ms=ms,
+         compaction_device_ms=compaction and compaction[0],
+         compaction_kernels=compaction and compaction[1])
+    return ok
+
+
+def prod(torch, libs, arena, modes):
     dev = torch.device("cuda")
     q, emb, meta, gids, lex, cand = arena
     k = 10
@@ -324,13 +487,16 @@ def prod(torch, libs, arena):
         args = (q, emb, meta, gids, preds, lex, cand)
         emit("prod_draw", draw=draw, preds=rows,
              kept_share=kept_share(torch, meta, preds))
-        for mode in MODES:
-            if mode == "probe" and draw != "prod":
+        for mode in modes:
+            if mode == "probe":
+                if draw == "prod":
+                    ok &= probe_prod(torch, libs, args)
                 continue
             lexical = mode in ("fused", "both")
             variants = [n for n in libs if n in VARIANTS
+                        and n not in PROBE_VARIANTS
                         and (lexical or n not in LEX_VARIANTS)]
-            for P in (None,) if mode == "probe" else (None, 1 << 15):
+            for P in (None, 1 << 15):
                 run = {n: (lambda n=n: launch(torch, libs[n], mode, args, k,
                                               P))
                        for n in ("parent", "this", *variants)}
@@ -343,6 +509,8 @@ def prod(torch, libs, arena):
                     ms[n].append(events_ms(torch, run[n], 10))
                 emit("prod", draw=draw, mode=mode, page_rows=P,
                      identical=ident, ms=ms)
+    if "dense" not in modes:
+        return ok
     preds = torch.tensor(DRAWS["prod"], dtype=torch.int32, device=dev)
     args = (q, emb, meta, gids, preds, lex, cand)
     keep = torch.ones((q.shape[0], emb.shape[0]), dtype=torch.bool,
@@ -396,6 +564,9 @@ def main() -> int:
                     help="csrc directory of the version to compare with")
     ap.add_argument("--phases", default="identity,prod,fma",
                     help="comma-separated subset of identity, prod, fma")
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="comma-separated subset of the scan modes "
+                    "(identity, prod)")
     opts = ap.parse_args()
     import numpy as np
     import torch
@@ -415,21 +586,25 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     phases = set(opts.phases.split(","))
+    modes = [m for m in MODES if m in opts.modes.split(",")]
     dirs = {"this": copy_sources("this", CSRC),
             "parent": copy_sources("parent", opts.parent)}
     if "prod" in phases:
         for name, alts in VARIANTS.items():
-            dirs[name] = copy_sources(name, CSRC, alts)
+            wanted = (("fused" in modes or "both" in modes)
+                      if name in LEX_VARIANTS else "probe" in modes
+                      if name in PROBE_VARIANTS else True)
+            dirs[name] = copy_sources(name, CSRC, alts) if wanted else None
         emit("variants", built=[n for n in VARIANTS if dirs[n]],
              not_in_this_design=[n for n in VARIANTS if not dirs[n]])
     libs = build_all(nvcc, {n: d for n, d in dirs.items() if d},
                      os.path.join(ROOT, "tools", "scan_probe_fma.cu"))
     ok = True
     if "prod" in phases:
-        ok &= prod(torch, libs, prod_arena(torch))
+        ok &= prod(torch, libs, prod_arena(torch), modes)
         torch.cuda.empty_cache()
     if "identity" in phases:
-        ok &= identity(np, torch, cs, libs)
+        ok &= identity(np, torch, cs, libs, modes)
     if "fma" in phases:
         fma(torch, libs["fma"])
     print(json.dumps({"identical": ok}), flush=True)
