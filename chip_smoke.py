@@ -155,7 +155,33 @@ Phases:
                 online softmax; P and V rounded to bf16 for P.V) and of the
                 f32 oracle; decode's output, m and l within rtol = atol =
                 2e-5 (all f32 math on both sides).
- 13. lm_serve (runs last, after the prod arena is freed) -- the LM serving
+ 13. tiered_prod (runs after the prod arena is freed) -- the three-tier
+                deployment at production width: rag_unified.PRODUCTION cut
+                to 2^23 x 768 rows with 16 lanes, drawn on the card and
+                placed by the router (hot window = a quarter of the 180-day
+                span: ~2.10 M rows in a 2^22-row hot arena, ~6.29 M in a
+                6,400,000-row warm split-stack tier whose lanes share the
+                hot arena's LexicalStats); the ingest's host time split (hot
+                commit, warm commits, warm lanes, warm bookkeeping). Batches
+                of 32 requests in 4 tenant groups through RagDB.execute: hot
+                (a recency bound inside the window: route "hot", no warm
+                probe, one dense scan), tail (no recency bound: "hot+warm",
+                one dense scan + 4 warm pushdown probes), tail wsum and rrf
+                (FUSED / BOTH-in-lists-mode + 4 warm hybrid probes); gates:
+                routes, warm_queries / device_calls / terms_scanned per
+                batch, both tiers in every tail batch, one arena_scan or
+                hybrid_score launch a batch; every batch kind held to a
+                plain global top-k over the union of both tiers' rows that
+                pass each request's predicate (BM25 from idf / avgdl
+                recounted over both tiers' lanes; rrf per signal, then
+                fused), 0 rows failing their predicate; a warm delete
+                invalidates cached hot+warm results, leaves hot ones cached
+                and never comes back; a warm doc updated at now moves hot
+                and tops the next hot batch from tier 0. Batch medians and
+                idle shares, the hot kernels' CUDA-event times, the warm
+                probe's wall and device time beside its bound, the host
+                merge, peak memory.
+ 14. lm_serve (runs last, after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
                 requests in 4 tenants, k = 4 docs of 504 seeded tokens and a
@@ -2180,6 +2206,491 @@ def phase_paged_prod(dev, prod, hprod, ptxas=()):
                 bound_ms=prod["bound_ms"], bound_by=prod["bound_by"],
                 max_abs_err=err)
 
+NEG = -3.4028234663852886e38    # float32's lowest: NEG_INF of the port
+
+
+def plain_bm25(terms, lexnorm, qterms, qidf):
+    """(B, N) BM25 over one tier's lanes, written here: lanes outer, query
+    terms inner, each lane's product added only where its weight is not
+    zero (the order every engine of the port uses)."""
+    out = torch.zeros((qterms.shape[0], terms.shape[0]), dtype=torch.float32,
+                      device=terms.device)
+    for t in range(terms.shape[1]):
+        lane = terms[:, t][None, :]
+        w = torch.zeros_like(out)
+        for j in range(qterms.shape[1]):
+            w = w + torch.where(lane == qterms[:, j][:, None],
+                                qidf[:, j][:, None], 0.0)
+        out = out + torch.where(w != 0.0, w * lexnorm[:, t][None, :], 0.0)
+    return out
+
+
+def union_topk(sig_hot, sig_warm, k):
+    """The plain global top-k over the union of two tiers' masked (B, N)
+    signals: one stable descending sort of [hot | warm], so ties go to the
+    hot tier, then to the lower slot. Numpy (scores, slots, tiers)."""
+    s, pos = torch.sort(torch.cat([sig_hot, sig_warm], 1), dim=1,
+                        descending=True, stable=True)
+    s, pos = s[:, :k], pos[:, :k]
+    nh = sig_hot.shape[1]
+    tier = (pos >= nh).int()
+    slot = torch.where(pos >= nh, pos - nh, pos).int()
+    live = s > NEG
+    return (s.cpu().numpy(), torch.where(live, slot, -1).cpu().numpy(),
+            torch.where(live, tier, 0).cpu().numpy())
+
+
+def tiered_compare(name, got, want, sigs, keeps):
+    """Hold a tiered result (scores, slots, tiers) (B, k) numpy to the
+    plain union answer: scores within rtol = atol = 1e-5, slot -1 iff
+    NEG_INF, no (slot, tier) twice, every returned row passes its group's
+    predicate in its tier (``keeps``: [hot, warm] (N,) bool), its score is
+    the plain signal's there (``sigs``), and the (slot, tier) sets differ
+    only inside a run of scores tied at the k-th place. Returns the max abs
+    score error."""
+    s_g, i_g, t_g = got
+    s_w, i_w, t_w = want
+    check(np.isfinite(s_g).all(), f"{name}: non-finite scores")
+    check(np.allclose(s_g, s_w, rtol=TOL, atol=TOL),
+          f"{name}: scores differ beyond {TOL}")
+    check(((s_g == NEG) == (i_g == -1)).all(), f"{name}: slot -1 iff NEG_INF")
+    real = i_g >= 0
+    for t in (0, 1):
+        sel = real & (t_g == t)
+        b, sl = (torch.from_numpy(a.astype(np.int64)).to(DEV)
+                 for a in (np.nonzero(sel)[0], i_g[sel]))
+        check(bool(keeps[t][sl].all()), f"{name}: a row of tier {t} "
+              "fails its group's predicate")
+        check(np.allclose(s_g[sel], sigs[t][b, sl].cpu().numpy(), rtol=TOL,
+                          atol=TOL), f"{name}: tier {t} slot/score pairing")
+    for r in range(s_g.shape[0]):
+        kg = [(int(t), int(s)) for s, t in zip(i_g[r], t_g[r]) if s >= 0]
+        kw = [(int(t), int(s)) for s, t in zip(i_w[r], t_w[r]) if s >= 0]
+        check(len(set(kg)) == len(kg), f"{name}: row {r} repeats a row")
+        check(len(kg) == len(kw), f"{name}: row {r} fill differs")
+        if not kw:
+            continue
+        kth = s_w[r][len(kw) - 1]
+        for t, sl in set(kg) ^ set(kw):
+            sc = float(sigs[t][r, sl])
+            check(abs(sc - kth) <= TOL * (1 + abs(kth)),
+                  f"{name}: row {r} ({sl}, tier {t}) differs away from a "
+                  "k-th place tie")
+    return float(np.max(np.abs(s_g - s_w))) if s_g.size else 0.0
+
+
+def plain_rrf(d_keys, l_keys, k, c):
+    """Reciprocal-rank fusion of two per-signal key lists, written here:
+    score = sum of 1 / (c + rank) over the lists holding the key; ties go
+    to the dense list, then to the better rank. [(score, key)] of k."""
+    score, pos = {}, {}
+    for r, key in enumerate(d_keys):
+        score[key] = score.get(key, 0.0) + 1.0 / (c + r + 1)
+        pos.setdefault(key, r)
+    for r, key in enumerate(l_keys):
+        score[key] = score.get(key, 0.0) + 1.0 / (c + r + 1)
+        pos.setdefault(key, len(d_keys) + r)
+    return sorted(((s, key) for key, s in score.items()),
+                  key=lambda e: (-e[0], pos[e[1]]))[:k]
+
+
+def phase_tiered_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20,
+                      hot_cap=1 << 22, warm_cap=6_400_000, n_batches=6,
+                      n_lex_batches=3):
+    from repro_torch.api import RagDB
+    from repro_torch.api.executor import merge_tiers
+    from repro_torch.core.store import StoreConfig
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
+    from repro_torch.index.lexical import LexicalConfig
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ccfg = CorpusConfig(n_docs=n_rows, dim=dim, n_tenants=20, n_categories=5)
+    window = ccfg.days_span * DAY_S // 4
+    lcfg = LexicalConfig()
+    db = RagDB(StoreConfig(capacity=hot_cap, dim=dim),
+               warm_cfg=StoreConfig(capacity=warm_cap, dim=dim),
+               hot_window_s=window, now_ts=ccfg.now_ts, lexical_cfg=lcfg,
+               device=dev)
+    warm = db.router.warm
+
+    # ingest through the router, the host time split by tier: the hot
+    # commit (enqueued, not waited for), the warm tier's two synced commits,
+    # its lanes, and its host bookkeeping (the _slot_of_doc dict and the
+    # cache invalidation: the rest of its ingest)
+    split = dict.fromkeys(("hot", "warm", "warm_lanes"), 0.0)
+
+    def timed(obj, name, key):
+        real = getattr(obj, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            split[key] += time.perf_counter() - t0
+            return out
+        setattr(obj, name, wrapper)
+
+    for obj, name, key in ((db.router.hot, "ingest", "hot"),
+                           (warm, "ingest", "warm"),
+                           (warm.lex, "write_rows", "warm_lanes")):
+        timed(obj, name, key)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    host_s = []
+    t_ingest0 = time.perf_counter()
+    for start in range(0, n_rows, chunk):
+        batch = device_corpus(ccfg, start, min(chunk, n_rows - start), gen)
+        sync()
+        t0 = time.perf_counter()
+        db.ingest(batch)
+        host_s.append(time.perf_counter() - t0)
+        del batch
+    sync()
+    ingest_s = time.perf_counter() - t_ingest0
+    for obj, name in ((db.router.hot, "ingest"), (warm, "ingest"),
+                      (warm.lex, "write_rows")):
+        del obj.__dict__[name]
+    warm_commits_s = sum(warm.stats.write_latencies_s)
+    n_hot = int(db.log.snapshot()["n_live"])
+    check(n_hot + warm.n_docs == n_rows, "hot + warm rows != corpus rows")
+    check(0 < n_hot <= hot_cap and warm.n_docs <= warm_cap,
+          f"placement: {n_hot} hot, {warm.n_docs} warm")
+    check(db.lex.stats.n_docs == n_rows and warm.lex.stats is db.lex.stats,
+          "the two tiers' lanes must share one LexicalStats")
+
+    # the plain answer's inputs: each tier's columns, and BM25's global
+    # statistics recounted from both tiers' lanes
+    hot = db.log.snapshot()
+    N_h, N_w = hot["emb"].shape[0], warm.emb.shape[0]
+    metas = [torch.stack(c, dim=1).cpu().numpy() for c in (
+        (hot["tenant"], hot["updated_at"], hot["category"], hot["acl"]),
+        (warm.meta["tenant"], warm.meta["updated_at"],
+         warm.meta["category"], warm.meta["acl"]))]
+    live_w = warm.valid.cpu().numpy()
+
+    def tier_masks(preds):
+        """Each predicate's [hot, warm] row masks (`host_mask`, on the
+        host), on the card."""
+        pa = np.stack([p.as_array().numpy() for p in preds])
+        hm = host_mask(metas[0], pa)
+        wm = host_mask(metas[1], pa) & live_w
+        return {p: [torch.from_numpy(hm[g]).to(dev),
+                    torch.from_numpy(wm[g]).to(dev)]
+                for g, p in enumerate(preds)}
+
+    lanes = [(db.lex.snapshot()["terms"], db.lex.snapshot()["tfs"]),
+             (warm.lex.snapshot()["terms"], warm.lex.snapshot()["tfs"])]
+    V = lcfg.vocab_size
+    df = sum(torch.bincount(torch.where(t >= 0, t, V).reshape(-1).long(),
+                            minlength=V + 1)[:V] for t, _ in lanes)
+    total_len = sum(int(torch.where(t >= 0, f, 0).sum()) for t, f in lanes)
+    n_docs = sum(int((t >= 0).any(dim=1).sum()) for t, _ in lanes)
+    df = df.cpu().numpy().astype(np.float64)
+    idf_tab = torch.from_numpy(np.maximum(np.log1p(
+        (n_docs - df + 0.5) / (df + 0.5)), 0.0).astype(np.float32)).to(dev)
+    avg = torch.clamp(torch.tensor(total_len / max(n_docs, 1),
+                                   dtype=torch.float32, device=dev), min=1.0)
+
+    def lexnorm(tfs):
+        tf = tfs.to(torch.float32)
+        dl = tfs.sum(dim=1, keepdim=True).to(torch.float32)
+        return tf * (lcfg.k1 + 1.0) / (tf + lcfg.k1 * (
+            1.0 - lcfg.b + lcfg.b * dl / avg))
+
+    lexn = [lexnorm(f) for _, f in lanes]
+
+    # requests: 4 tenant groups of 8; even rows near a live HOT row the
+    # group's tail predicate keeps, odd rows near a live WARM one, each
+    # with 3 of that row's term ids
+    rng = np.random.default_rng(SEED + 11)
+    tenants = ((2, [0, 1]), (5, [2, 3]), (11, [4]), (19, [0, 2, 4]))
+    days = (10, 20, 30, 40)                     # inside the 45-day window
+    groups = [(Principal(t, 0xFF), cats) for t, cats in tenants]
+    tail_pred = [db.session(p).search(np.ones(dim, np.float32))
+                 .in_categories(c).plan().pred for p, c in groups]
+    masks = tier_masks(tail_pred)
+    keep_tail = [masks[p] for p in tail_pred]
+    embs = [hot["emb"], warm.emb]
+    anchors, qs, mts = [], [], []
+    for r in range(32):
+        t = r % 2
+        rows = torch.nonzero(keep_tail[r % 4][t]).squeeze(1)
+        a = int(rows[int(rng.integers(0, rows.numel()))])
+        anchors.append((t, a))
+        v = embs[t][a].cpu().numpy() + 0.02 * rng.standard_normal(
+            dim).astype(np.float32)
+        qs.append(v / np.linalg.norm(v))
+        live = lanes[t][0][a].cpu().numpy()
+        live = live[live >= 0]
+        mts.append(tuple(int(x) for x in rng.choice(live, 3, replace=False)))
+
+    def plans(kind):
+        out = []
+        for r in range(32):
+            p, cats = groups[r % 4]
+            b = db.session(p).search(qs[r]).in_categories(cats).limit(10)
+            if kind == "hot":
+                b = b.newer_than(ccfg.now_ts - days[r % 4] * DAY_S)
+            elif kind in ("wsum", "rrf"):
+                b = b.match(mts[r]).fuse(kind)
+            out.append(b.plan())
+        return out
+
+    by_kind = {k: plans(k) for k in ("hot", "tail", "wsum", "rrf")}
+    masks.update(tier_masks([p.pred for p in by_kind["hot"][:4]]))
+    for kind, ps in by_kind.items():
+        want_route = "hot" if kind == "hot" else "hot+warm"
+        want_eng = "hybrid" if kind in ("wsum", "rrf") else "cuda"
+        check(all(p.route == want_route and p.engine == want_eng
+                  for p in ps), f"{kind} plans: route / engine")
+
+    # the main path: every batch kind through RagDB.execute, the kernels'
+    # counts set to 0 just before and read just after each run
+    st = db.stats
+    runs, res, lat = {}, {}, {}
+    for kind, ps in by_kind.items():
+        nb = n_lex_batches if kind in ("wsum", "rrf") else n_batches
+        kernel_mod.LAUNCHES = hyb_mod.LAUNCHES = 0
+        lat[kind], res[kind] = [], []
+        for _ in range(nb):
+            w0, c0, t0_ = st.warm_queries, st.device_calls, st.terms_scanned
+            t0 = time.perf_counter()
+            out = db.execute(ps, use_cache=False)
+            lat[kind].append((time.perf_counter() - t0) * 1e3)
+            res[kind].append(out)
+            dw, dc = st.warm_queries - w0, st.device_calls - c0
+            if kind == "hot":
+                check(dw == 0, "a hot batch probed the warm tier")
+                check(dc == 1, f"hot batch: {dc} device calls, expected 1")
+                check((out[2] == 0).all(), "hot batch returned warm rows")
+            else:
+                check(dw == 32, f"{kind}: warm_queries +{dw}, expected 32")
+                check(dc == 1 + 4, f"{kind}: {dc} device calls, expected 5")
+                check({0, 1} <= set(out[2][out[1] >= 0].tolist()),
+                      f"{kind}: tiers must hold both 0 and 1")
+            if kind in ("wsum", "rrf"):
+                dt = st.terms_scanned - t0_
+                check(dt == (N_h + 4 * warm_cap) * lcfg.doc_terms,
+                      f"{kind}: terms_scanned +{dt}")
+        runs[kind] = dict(arena_scan=kernel_mod.LAUNCHES,
+                          hybrid_score=hyb_mod.LAUNCHES)
+        want = ((nb, 0) if kind in ("hot", "tail") else (0, nb))
+        check((kernel_mod.LAUNCHES, hyb_mod.LAUNCHES) == want,
+              f"{kind}: launches {runs[kind]}, expected {want} "
+              f"(one a hot unit)")
+        # the batches of one kind return the same rows
+        check(all((o[1] == res[kind][0][1]).all() for o in res[kind]),
+              f"{kind}: batches disagree")
+
+    # correctness: each tail batch against the plain global top-k over the
+    # union of both tiers' rows that pass each request's predicate (f32,
+    # TF32 off); rrf per signal, then fused
+    errs, rrf_rows_skipped = [], 0
+    order = [r for g in range(4) for r in range(g, 32, 4)]
+
+    def group_inputs(rows, pred):
+        keeps = masks[pred]
+        q = torch.from_numpy(np.stack([qs[r] for r in rows])).to(dev)
+        qt = torch.full((len(rows), 4), -1, dtype=torch.int32, device=dev)
+        qt[:, :3] = torch.tensor([mts[r] for r in rows], dtype=torch.int32,
+                                 device=dev)
+        qidf = torch.where(qt >= 0, idf_tab[qt.clamp(min=0).long()], 0.0)
+        return keeps, q, qt, qidf
+
+    for kind in ("hot", "tail", "wsum"):
+        s_g, i_g, t_g = res[kind][0]
+        for g in range(4):
+            rows = list(range(g, 32, 4))
+            keeps, q, qt, qidf = group_inputs(rows, by_kind[kind][g].pred)
+            sig = [torch.matmul(q, e.T) for e in embs]
+            if kind == "wsum":
+                sig = [d + plain_bm25(lanes[t][0], lexn[t], qt, qidf)
+                       for t, d in enumerate(sig)]
+            sig = [torch.where(k_, x, NEG) for k_, x in zip(keeps, sig)]
+            # the union over both tiers for every kind: a hot plan's
+            # recency bound lies inside the window, so no warm row passes
+            errs.append(tiered_compare(
+                f"tiered-{kind}-g{g}", (s_g[rows], i_g[rows], t_g[rows]),
+                union_topk(*sig, 10), sig, keeps))
+            del sig
+    # rrf: rebuild the executor's per-signal tier-merged lists from one
+    # launched batch and hold each to the plain per-signal union lists; a
+    # row whose two lists equal the plain ones must fuse to plain_rrf
+    pend = db.launch(by_kind["rrf"], use_cache=False)
+    s_f, i_f, t_f = db.finish(pend)
+    check((i_f == res["rrf"][0][1]).all(), "rrf: batches disagree")
+    (unit, member_idxs, hot_u), probes = (pend.inflight.inflight[0],
+                                          pend.inflight.warm_results[0])
+    hs, hi = hot_u.s.cpu().numpy(), hot_u.sl.cpu().numpy()
+    h_ls, h_li = hot_u.extra_np
+    off = 0
+    for gi, m in enumerate(member_idxs):
+        span = slice(off, off + len(m))
+        off += len(m)
+        w_ds, w_di, w_ls, w_li = probes[gi]
+        merged = {"dense": merge_tiers(hs[span], hi[span], w_ds, w_di, 10),
+                  "bm25": merge_tiers(h_ls[span], h_li[span], w_ls, w_li,
+                                      10)}
+        keeps, q, qt, qidf = group_inputs(m, unit.plans[gi].pred)
+        sig = {"dense": [torch.where(keeps[t], torch.matmul(q, embs[t].T),
+                                     NEG) for t in (0, 1)],
+               "bm25": [torch.where(keeps[t], plain_bm25(
+                   lanes[t][0], lexn[t], qt, qidf), NEG) for t in (0, 1)]}
+        plain = {}
+        for name in ("dense", "bm25"):
+            plain[name] = union_topk(*sig[name], 10)
+            errs.append(tiered_compare(f"tiered-rrf-{name}-g{gi}",
+                                       merged[name], plain[name], sig[name],
+                                       keeps))
+        keys = lambda lst, j: [(int(t), int(s)) for s, t in
+                               zip(lst[1][j], lst[2][j]) if s >= 0]
+        for j, r in enumerate(m):
+            same = all(keys(merged[n], j) == keys(plain[n], j)
+                       for n in ("dense", "bm25"))
+            if not same:
+                rrf_rows_skipped += 1
+                continue
+            want = plain_rrf(keys(plain["dense"], j), keys(plain["bm25"], j),
+                             10, RRF_C)
+            got_keys = [(int(t), int(s)) for s, t in zip(i_f[r], t_f[r])
+                        if s >= 0]
+            check(got_keys == [k_ for _, k_ in want],
+                  f"rrf fused: row {r} differs from the plain fusion")
+            check(np.allclose(s_f[r][:len(want)], [s for s, _ in want],
+                              rtol=TOL, atol=TOL), f"rrf fused: row {r} "
+                  "scores")
+        del sig
+    check(rrf_rows_skipped <= 4, f"rrf: {rrf_rows_skipped} rows' per-signal "
+          "lists tie-differ from the plain ones (expected few)")
+
+    # timings: each batch's idle share; the hot kernels alone (CUDA events)
+    # on the tail batch's inputs; the warm probe's wall and device time per
+    # probe; the host merge
+    profiles = {k: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False))
+                for k, ps in by_kind.items()}
+    meta = _packed_meta(hot["tenant"], hot["updated_at"], hot["category"],
+                        hot["acl"])
+    qo = torch.from_numpy(np.stack([qs[r] for r in order])).to(dev)
+    gids = torch.tensor([g for g in range(4) for _ in range(8)],
+                        dtype=torch.int32, device=dev)
+    preds = torch.stack([by_kind["tail"][g].pred.as_array(dev)
+                         for g in range(4)])
+    lx = db.lex.snapshot()
+    qt_o = torch.full((32, 4), -1, dtype=torch.int32, device=dev)
+    qt_o[:, :3] = torch.tensor([mts[r] for r in order], dtype=torch.int32,
+                               device=dev)
+    hargs = (qo, hot["emb"], meta, lx["terms"], lx["lexnorm"], gids, preds,
+             qt_o, torch.where(qt_o >= 0, lx["idf"][qt_o.clamp(min=0).long()],
+                               0.0), 10)
+    hot_kernel_ms = {
+        "dense": events_ms(lambda: kernel_mod.arena_scan_cuda(
+            qo, hot["emb"], meta, gids, preds, 10), 10),
+        "wsum": events_ms(lambda: hyb_mod.hybrid_score_cuda(
+            *hargs, mode="wsum"), 10),
+        "rrf": events_ms(lambda: hyb_mod.hybrid_score_cuda(
+            *hargs, mode="rrf"), 10)}
+    probe_ms = {}
+    for kind in ("tail", "wsum", "rrf"):
+        p0 = by_kind[kind][0]
+        q8 = np.stack([qs[r] for r in range(0, 32, 4)])
+        qt8 = np.full((8, 4), -1, np.int32)
+        qt8[:, :3] = [mts[r] for r in range(0, 32, 4)]
+        if kind == "tail":
+            fn = lambda: warm.query(q8, p0.pred, 10, pushdown=True)
+        else:
+            fn = lambda m=kind: warm.query_hybrid(
+                q8, qt8, p0.pred, 10, mode=m, lists=(m == "rrf"))
+        fn()
+        wall = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        dev_probe, _ = device_ms(fn, 2)
+        probe_ms[kind] = dict(wall_ms=statistics.median(wall),
+                              device_ms=dev_probe, profile=profile_batch(fn))
+    # the host merge of one tail batch (4 groups) and of one rrf batch
+    tail_probes = [warm.query(np.stack([qs[r] for r in range(g, 32, 4)]),
+                              by_kind["tail"][g].pred, 10, pushdown=True)
+                   for g in range(4)]
+    hot_lists = db.execute(by_kind["hot"], use_cache=False)
+    t0 = time.perf_counter()
+    for g in range(4):
+        rows = list(range(g, 32, 4))
+        merge_tiers(hot_lists[0][rows], hot_lists[1][rows], *tail_probes[g],
+                    10)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+
+    # freshness, isolation of writes and the cache
+    rc = db.result_cache
+    for kind in ("hot", "tail"):
+        db.execute(by_kind[kind])                    # fill the cache
+    h0 = rc.hits
+    db.execute(by_kind["hot"])
+    tail_before = db.execute(by_kind["tail"])
+    check(rc.hits - h0 == 64, "repeats must hit the result cache")
+    r_v = int(np.nonzero((tail_before[2] == 1).any(axis=1))[0][0])
+    j_v = int(np.nonzero(tail_before[2][r_v] == 1)[0][0])
+    victim_slot = int(tail_before[1][r_v, j_v])
+    victim = int(warm.meta["doc_id"][victim_slot])
+    db.delete([victim])                              # a warm write
+    h0 = rc.hits
+    tail_after = db.execute(by_kind["tail"])
+    check(rc.hits == h0, "a warm write must invalidate hot+warm results")
+    db.execute(by_kind["hot"])
+    check(rc.hits == h0 + 32, "a warm write must leave hot results cached")
+    for out in (tail_after, db.execute(by_kind["tail"], use_cache=False)):
+        check(not ((out[1] == victim_slot) & (out[2] == 1)).any(),
+              "a deleted warm doc came back")
+    # promotion: a warm doc the group-0 tail predicate keeps, updated at now
+    # with request 0's query as its embedding, moves hot and answers the
+    # next hot batch from tier 0
+    w_rows = torch.nonzero(keep_tail[0][1] & warm.valid).squeeze(1)
+    promo = int(warm.meta["doc_id"][int(w_rows[0])])
+    db.update([promo], qs[0][None, :], [ccfg.now_ts])
+    check(db.log.has_doc(promo) and not warm.has_doc(promo),
+          "a fresh warm doc must move to the hot tier")
+    s_h, i_h, t_h = db.execute(by_kind["hot"], use_cache=False)
+    check(i_h[0, 0] == db.log.slot_of(promo) and t_h[0, 0] == 0,
+          "the promoted doc must top request 0's hot batch from tier 0")
+
+    B, G, k, T = 32, 4, 10, lcfg.doc_terms
+    bq = 8 * dim * 4 + 8 * k * 8
+    probe_bytes = N_w * (4 * dim + 4 * 4 + 1) + bq
+    probe_flops = 2 * 8 * N_w * dim
+    bound = lambda nb, fl: max(nb / HBM_BPS, fl / FP32_FLOPS) * 1e3
+    warm_bound = {"tail": bound(probe_bytes, probe_flops),
+                  "hybrid": bound(probe_bytes + N_w * 8 * T, probe_flops)}
+    emit("tiered_prod", seconds=time.perf_counter() - t_phase, rows=n_rows,
+         dim=dim, lanes=T, hot_window_s=window, hot_capacity=N_h,
+         warm_capacity=N_w, hot_rows=n_hot, warm_rows=warm.n_docs, batch=B,
+         groups=G, k=k,
+         batches={k_: len(v) for k_, v in lat.items()},
+         batch_ms_median={k_: statistics.median(v) for k_, v in lat.items()},
+         batch_ms=lat,
+         idle_share={k_: p["idle_share"] for k_, p in profiles.items()},
+         launches=runs, hot_kernel_ms=hot_kernel_ms,
+         warm_probe=probe_ms,
+         warm_probe_batch_device_ms={
+             k_: (4 * v["device_ms"] if v["device_ms"] is not None
+                  else None) for k_, v in probe_ms.items()},
+         warm_probe_bound_ms=warm_bound, warm_probe_bound_by="bytes"
+         if probe_bytes / HBM_BPS >= probe_flops / FP32_FLOPS
+         else "operations", warm_probe_bytes=probe_bytes,
+         merge_host_ms_tail_batch=merge_ms,
+         ingest_s=ingest_s, ingest_host_s=sum(host_s),
+         ingest_split_s=dict(
+             hot=split["hot"], warm=split["warm"],
+             warm_commits=warm_commits_s, warm_lanes=split["warm_lanes"],
+             warm_bookkeeping=split["warm"] - warm_commits_s
+             - split["warm_lanes"]),
+         warm_inconsistency_window_ms_median=1e3 * statistics.median(
+             warm.stats.inconsistency_windows_s),
+         rrf_rows_skipped=rrf_rows_skipped, max_abs_err=max(errs),
+         profile=profiles, peak_mem_gb=peak_gb())
+
+
 def attn_ok(got, want, rtol, atol):
     """(max abs error, max of |err| / (atol + rtol |want|)): the second is
     <= 1 exactly when allclose(got, want, rtol, atol) holds."""
@@ -2646,6 +3157,9 @@ def main() -> int:
                 "max_abs_err", "compact")
     prod, hprod, iprod, pprod = ({key: d[key] for key in row_keys if key in d}
                                  for d in (prod, hprod, iprod, pprod))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tiered_prod(dev)
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)

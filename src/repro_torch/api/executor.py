@@ -22,11 +22,15 @@ calls for the front door (port of ``repro.api.executor``):
     straight to the exact engine);
   * the paged regime: a unit whose representative plan carries
     ``page_rows`` launches the arena scan's paged form
-    (`ExecStats.paged_scans` counts those launches).
+    (`ExecStats.paged_scans` counts those launches);
+  * tier merge: once every hot unit is launched, each "hot+warm" plan
+    probes the warm tier (`SplitStackClient.query` with the predicate
+    pushed down, or `query_hybrid` for a match() plan), and the finish
+    phase merges the hot and warm k-lists on the host (`merge_tiers`; rrf
+    merges per signal across the tiers, then rank-fuses). The warm probe
+    returns host arrays, so it waits behind the hot scans already queued.
 
-This slice is hot-tier only: the warm probe and tier merge (with the rrf
-per-signal merge across tiers) arrive with the warm-tier slice, and the
-sharded dispatch with its own.
+The sharded dispatch arrives with its own slice.
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
 """
@@ -47,9 +51,9 @@ from repro_torch.core.query import (BLOCK_ALL, NEG_INF, Predicate,
 from repro_torch.core.store import Store
 from repro_torch.obs.tracer import FanSpan
 
-#: tier tag of every row in the returned `tiers` array (the warm tier's
-#: tag, 1, arrives with the warm-tier slice)
+#: tier tags in the returned `tiers` array
 TIER_HOT = 0
+TIER_WARM = 1
 
 
 @dataclasses.dataclass
@@ -79,8 +83,8 @@ class ExecStats:
     degraded_plans: int = 0       # plans executed with a degradation ladder
     stale_serves: int = 0         # cache results served PAST their snapshot
                                   # under a declared staleness bound
-    warm_failovers: int = 0       # hot+warm plans served hot-only (warm
-                                  # slice)
+    warm_failovers: int = 0       # hot+warm plans served hot-only because
+                                  # the guarded warm probe gave up
     stale_epoch_rejected: int = 0 # poisoned cache reads refused because the
                                   # entry's commit-epoch key no longer matches
 
@@ -148,12 +152,16 @@ class _Hot:
     check (which must read results) happens at finish time, after every
     other launch went out. ``pad_check`` is the real row count of a fused
     grouped launch whose padding rows point at a BLOCK_ALL blocker lane:
-    finish asserts those rows allocated no result rows (k=0 semantics)."""
+    finish asserts those rows allocated no result rows (k=0 semantics).
+    ``extra`` carries the bm25 list of a hybrid rrf launch in lists mode
+    (copied into ``extra_np`` at finish)."""
     s: torch.Tensor
     sl: torch.Tensor
     rows: int                     # arena rows this call scored
     rescan: tuple | None = None   # (store, q, pred, k, exact_engine, nv, ivf)
     pad_check: int | None = None  # first padded (blocker-lane) row index
+    extra: tuple | None = None    # (lex_s, lex_i) tensors (hybrid rrf lists)
+    extra_np: tuple | None = None # their host copies
     launch_ms: float = 0.0        # host-side dispatch cost (perf_counter)
     sync_ms: float = 0.0          # finish-time copy-to-host wait
                                   # (+ rescans)
@@ -230,6 +238,11 @@ def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
     span under the caller's open ``device_sync`` span exactly when the net
     fires."""
     s, sl = hot.s.cpu().numpy(), hot.sl.cpu().numpy()
+    if hot.extra is not None:
+        hot.extra_np = tuple(a.cpu().numpy() for a in hot.extra)
+        if hot.pad_check is not None:
+            assert (hot.extra_np[1][hot.pad_check:] == -1).all(), (
+                "blocker-lane padding rows allocated result rows (lex list)")
     if hot.pad_check is not None and sl.shape[0] > hot.pad_check:
         # padded rows point at a BLOCK_ALL blocker lane: their k-lists must
         # be empty -- a hit here means a padding lane allocated result rows
@@ -307,6 +320,7 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
                    gids: np.ndarray, preds: list[Predicate],
                    qterms: np.ndarray, k: int, *, mode: str,
                    w_dense: float, w_lex: float, rrf_c: float,
+                   lists: bool = False,
                    stats: ExecStats | None = None,
                    shapes: CompiledShapes | None = None,
                    lex_key=None, page_rows: int | None = None) -> _Hot:
@@ -316,7 +330,9 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
     is (B, QT) int32 per-row query terms, already bucketed to the plan's
     query-term-count bucket. A store on the card runs the CUDA kernel
     (paged with ``page_rows``), a store on the CPU the plain streaming
-    scan."""
+    scan. ``lists=True`` (rrf + the tiered route) keeps the two per-signal
+    lists unfused: dense rides `_Hot.s / .sl`, bm25 `_Hot.extra`, and the
+    finish phase rank-fuses after the tier merges."""
     from repro_torch.kernels.hybrid_score.ops import hybrid_score
     q, gids, preds, n_valid = _pad_group_launch(
         q, gids, preds, k, "hybrid", stats=stats, shapes=shapes, lex=lex_key,
@@ -326,18 +342,23 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
             [qterms, np.full((q.shape[0] - qterms.shape[0], qterms.shape[1]),
                              -1, np.int32)])
     dev = store["emb"].device
-    s, sl = hybrid_score(_to_device(q, store), store["emb"], store["tenant"],
-                         store["updated_at"], store["category"], store["acl"],
-                         lex_snap["terms"], lex_snap["lexnorm"],
-                         lex_snap["idf"], _to_device(gids, store),
-                         stack_predicates(preds, dev),
-                         _to_device(qterms, store), k, mode=mode,
-                         w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c,
-                         page_rows=page_rows)
+    out = hybrid_score(_to_device(q, store), store["emb"], store["tenant"],
+                       store["updated_at"], store["category"], store["acl"],
+                       lex_snap["terms"], lex_snap["lexnorm"],
+                       lex_snap["idf"], _to_device(gids, store),
+                       stack_predicates(preds, dev),
+                       _to_device(qterms, store), k, mode=mode,
+                       w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c,
+                       lists=lists, page_rows=page_rows)
     n_arena = store["emb"].shape[0]
     terms = n_arena * int(lex_snap["terms"].shape[1])
     if stats is not None:
         stats.terms_scanned += terms
+    if lists:
+        d_s, d_i, l_s, l_i = out
+        return _Hot(d_s, d_i, n_arena, pad_check=n_valid,
+                    extra=(l_s, l_i), terms=terms)
+    s, sl = out
     return _Hot(s, sl, n_arena, pad_check=n_valid, terms=terms)
 
 
@@ -409,6 +430,119 @@ def run_grouped_fused(store: Store, q: np.ndarray, preds: list[Predicate],
     return s[:B], sl[:B], 1
 
 
+def merge_tiers(hs, hi, ws, wi, k: int):
+    """Merge hot and warm k-lists into the global top-k (host-side).
+
+    On every hot+warm query's critical path, so the selection is
+    argpartition (O(m)) + a small sort of the k winners, not a full
+    argsort of the concatenated 2k-wide lists; ties break toward the
+    lowest concatenated column (hot before warm), deterministically -- also
+    AT the k boundary, where raw argpartition would split tied scores
+    arbitrarily (the selection among columns tied at the k-th value is
+    re-derived in column order).
+
+    >>> hs = np.array([[3.0, 1.0]]); hi = np.array([[7, 5]])
+    >>> ws = np.array([[2.0, 0.5]]); wi = np.array([[9, 4]])
+    >>> s, i, t = merge_tiers(hs, hi, ws, wi, k=3)
+    >>> i.tolist(), t.tolist()
+    ([[7, 9, 5]], [[0, 1, 0]])
+    """
+    scores = np.concatenate([hs, ws], axis=1)
+    slots = np.concatenate([hi, wi], axis=1)
+    tiers = np.concatenate([np.full_like(hi, TIER_HOT),
+                            np.full_like(wi, TIER_WARM)], axis=1)
+    m = scores.shape[1]
+    if k < m:
+        # the partition only fixes the kth VALUE; select deterministically:
+        # every column strictly above it, then lowest columns tied at it
+        kth = np.take_along_axis(
+            scores, np.argpartition(-scores, k - 1, axis=1)[:, k - 1:k],
+            axis=1)                                        # (B, 1)
+        gt = scores > kth
+        eq = scores == kth
+        n_eq = k - gt.sum(axis=1, keepdims=True)
+        sel = gt | (eq & (np.cumsum(eq, axis=1) <= n_eq))
+        cols = np.nonzero(sel)[1].reshape(scores.shape[0], k)  # ascending
+        order = np.take_along_axis(
+            cols, np.argsort(-np.take_along_axis(scores, cols, axis=1),
+                             axis=1, kind="stable"), axis=1)
+    else:
+        order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    gather = lambda a: np.take_along_axis(a, order, axis=1)
+    return gather(scores), gather(slots), gather(tiers)
+
+
+def _rrf_merge_np(ds, di, dt, ls, li, lt, k: int, c: float):
+    """Host-side reciprocal-rank fusion of two TIER-MERGED per-signal
+    k-lists (numpy twin of `kernels.hybrid_score.ref.rrf_fuse`, with tier
+    tags carried through): candidates are identified by (slot, tier) --
+    the hot and warm tiers are separate arenas, so a bare slot number is
+    ambiguous across the merge. A candidate in both lists is represented
+    by its dense-list copy; ties break dense-first then rank order,
+    deterministically (stable argsort over the [dense | lex] concat)."""
+    neg = np.float32(np.finfo(np.float32).min)
+    kd, kl = di.shape[1], li.shape[1]
+    rd = (1.0 / (c + np.arange(1, kd + 1))).astype(np.float32)
+    rl = (1.0 / (c + np.arange(1, kl + 1))).astype(np.float32)
+    d_valid = di >= 0
+    l_valid = li >= 0
+    cross = ((di[:, :, None] == li[:, None, :])
+             & (dt[:, :, None] == lt[:, None, :])
+             & d_valid[:, :, None] & l_valid[:, None, :])
+    d_score = (np.where(d_valid, rd[None, :], neg)
+               + (cross * rl[None, None, :]).sum(axis=2, dtype=np.float32))
+    in_dense = cross.any(axis=1)
+    l_score = np.where(l_valid & ~in_dense, rl[None, :], neg)
+    all_s = np.concatenate([d_score, l_score], axis=1)
+    all_i = np.concatenate([di, li], axis=1)
+    all_t = np.concatenate([dt, lt], axis=1)
+    order = np.argsort(-all_s, axis=1, kind="stable")[:, :k]
+    gather = lambda a: np.take_along_axis(a, order, axis=1)
+    s, sl, tr = gather(all_s), gather(all_i), gather(all_t)
+    live = s > neg
+    return (np.where(live, s, neg), np.where(live, sl, -1),
+            np.where(live, tr, TIER_HOT))
+
+
+def query_tiered(hot_store: Store, warm, q: np.ndarray, pred: Predicate,
+                 k: int, *, engine: str = "ref", probe_warm: bool = False,
+                 ivf=None, nprobe=None, stats: ExecStats | None = None,
+                 n_valid: int | None = None, page_rows: int | None = None):
+    """Single-predicate tiered retrieval (`TieredRouter.query`'s engine
+    room). The hot call is LAUNCHED first and synced last: the warm probe
+    (its own round trip, pushed down) is issued while the hot scan is in
+    flight.
+
+    ``n_valid`` is the count of real query rows when the caller padded q
+    to a bucket -- the warm probe sees the UNPADDED rows. Returns (scores,
+    slots, tiers) numpy arrays of q's full row count without a warm probe,
+    and of ``n_valid`` rows with one; callers slice ``[:n_valid]``."""
+    q = np.atleast_2d(np.asarray(q, np.float32))
+    n_logical = q.shape[0] if n_valid is None else n_valid
+    hot = _launch_hot(hot_store, q, pred, k, engine, ivf, nprobe,
+                      n_logical, page_rows=page_rows)
+    ws = wi = None
+    warm_calls = 0
+    if probe_warm:
+        # the warm client's round trips are device calls too -- count them,
+        # or device_calls would under-report exactly when the expensive
+        # route runs
+        rt0 = warm.stats.round_trips
+        ws, wi = warm.query(q[:n_logical], pred, k, pushdown=True)
+        warm_calls = warm.stats.round_trips - rt0
+    hs, hi = _finish_hot(hot)
+    if stats is not None:
+        stats.device_calls += 1 + warm_calls
+        stats.queries += n_logical
+        stats.hot_queries += n_logical
+        stats.rows_scanned += hot.rows
+        if probe_warm:
+            stats.warm_queries += n_logical
+    if not probe_warm:
+        return hs, hi, np.full_like(hi, TIER_HOT)
+    return merge_tiers(hs[:n_logical], hi[:n_logical], ws, wi, k)
+
+
 def _qterms_rows(row_plans, idxs, qt_bucket: int) -> np.ndarray:
     """Per-row query-term matrix for a hybrid dispatch: row i's plan
     supplies its lowered match() ids, padded with -1 to the unit's
@@ -422,46 +556,65 @@ def _qterms_rows(row_plans, idxs, qt_bucket: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class InFlightPlans:
-    """A launched-but-unsynced `launch_plans` batch: every device call is
-    in flight and no result has been copied to the host. `finish_plans`
-    consumes it."""
+    """A launched-but-unsynced `launch_plans` batch: every hot device call
+    is in flight and every warm probe has been issued; no hot result has
+    been copied to the host. `finish_plans` consumes it."""
     inflight: list               # (FusedGroup, member row-index lists, _Hot)
+    warm_results: list           # per unit: list of probe tuples (an entry
+                                 # is None when the guarded probe gave up),
+                                 # or None for hot-route units
     B: int                       # total query rows across plans
     k: int
     stats: "ExecStats | None"
+    lex: object = None           # hot-tier LexicalArena (rrf merge's rrf_c)
+    warm_failed: set = dataclasses.field(default_factory=set)
+                                 # group_keys whose warm probe failed over
+                                 # to hot-only (RagDB.finish stamps the
+                                 # explicit degradation, skips the cache)
     row_traces: list | None = None   # per query row: the owning request's
                                  # obs.Trace (tracer-enabled path only)
     calib: object = None         # obs.CalibrationTable (always-on audit)
 
 
-def execute_plans(hot_store: Store, plans: list[PhysicalPlan], *,
+def execute_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
                   stats: ExecStats | None = None,
                   shapes: CompiledShapes | None = None, index=None,
                   planner_cfg=None, lex=None):
     """Batched execution of compiled plans: `launch_plans` then
-    `finish_plans`. Every plan must carry its query rows (`logical.q`,
-    (B_i, D)) and all must share one k. ``index`` is the RagDB's
-    `IVFIndex`, consumed by engine-'ivf' groups; ``lex`` its
-    `LexicalArena`, consumed by engine-'hybrid' groups. Returns (scores
-    (B, k), slots (B, k), tiers (B, k)) numpy arrays, B = total query rows,
-    in plan order."""
-    return finish_plans(launch_plans(hot_store, plans, stats=stats,
+    `finish_plans`. ``warm`` is the warm tier's `SplitStackClient`, probed
+    by "hot+warm" groups (None when no plan routes there). Every plan must
+    carry its query rows (`logical.q`, (B_i, D)) and all must share one k.
+    ``index`` is the RagDB's `IVFIndex`, consumed by engine-'ivf' groups;
+    ``lex`` its hot-tier `LexicalArena`, consumed by engine-'hybrid'
+    groups. Returns (scores (B, k), slots (B, k), tiers (B, k)) numpy
+    arrays, B = total query rows, in plan order."""
+    return finish_plans(launch_plans(hot_store, warm, plans, stats=stats,
                                      shapes=shapes, index=index,
                                      planner_cfg=planner_cfg, lex=lex))
 
 
-def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
+def launch_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
                  stats: ExecStats | None = None,
                  shapes: CompiledShapes | None = None, index=None,
-                 planner_cfg=None, lex=None, obs=None,
-                 calib=None) -> InFlightPlans:
-    """LAUNCH phase: group plans by `group_key`, hand the distinct groups
-    to `planner.fuse_batch`, and launch EVERY dispatch unit without
-    syncing. ``index`` (the RagDB's `IVFIndex`) serves engine-'ivf' groups
-    and ``lex`` (its `LexicalArena`) engine-'hybrid' groups. ``obs`` (one
-    obs.Trace per plan) records a ``launch`` span per unit into each member
-    request's trace; ``calib`` is carried to `finish_plans`, which records
-    the predicted-vs-measured audit."""
+                 planner_cfg=None, lex=None, warm_guard=None, obs=None,
+                 tracer=None, calib=None) -> InFlightPlans:
+    """LAUNCH phase, in two steps. (1) Group plans by `group_key`, hand the
+    distinct groups to `planner.fuse_batch`, and launch EVERY hot dispatch
+    unit without syncing. (2) Only then, issue one warm probe per member
+    plan of each "hot+warm" unit (`warm`, the `SplitStackClient`; its
+    result is a host array, so the probe waits behind the hot scans already
+    queued). ``index`` (the RagDB's `IVFIndex`) serves engine-'ivf' groups
+    and ``lex`` (its `LexicalArena`) engine-'hybrid' groups.
+
+    ``warm_guard`` (`serving.faults.WarmGuard`) wraps each warm probe with
+    timeout / bounded retry / hedge / circuit breaker; when it gives up,
+    that group fails over to hot-only (its probe entry is None and its
+    group_key lands in `InFlightPlans.warm_failed`). ``obs`` (one obs.Trace
+    per plan) records a ``launch`` span per unit and a ``warm_probe`` span
+    per probe into each member request's trace; ``tracer`` is the
+    active-sink stack warm faults and guard decisions annotate through;
+    ``calib`` is carried to `finish_plans`, which records the
+    predicted-vs-measured audit."""
     ks = {p.logical.k for p in plans}
     if len(ks) != 1:
         raise ValueError(f"batched execution needs a single k, got {sorted(ks)}")
@@ -474,10 +627,6 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
     for p in plans:
         if p.logical.q is None:
             raise ValueError("plan carries no query embedding")
-        if p.route != "hot":
-            raise NotImplementedError(
-                f"route {p.route!r} needs the warm tier, which arrives with "
-                "the warm-tier slice (ROADMAP queue 1, 'Warm tier and router')")
         q = np.atleast_2d(np.asarray(p.logical.q, np.float32))
         qs.append(q)
         row_plans.extend([p] * q.shape[0])
@@ -523,8 +672,10 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
                 hot_store, lex.snapshot(), q_all[np.asarray(idxs)], gids,
                 [p.pred for p in unit.plans],
                 _qterms_rows(row_plans, idxs, qt_bucket), k, mode=mode,
-                w_dense=w_d, w_lex=w_l, rrf_c=lex.cfg.rrf_c, stats=stats,
-                shapes=shapes, lex_key=rep.lex, page_rows=rep.page_rows)
+                w_dense=w_d, w_lex=w_l, rrf_c=lex.cfg.rrf_c,
+                lists=(mode == "rrf" and rep.route == "hot+warm"),
+                stats=stats, shapes=shapes, lex_key=rep.lex,
+                page_rows=rep.page_rows)
             if stats is not None and unit.fused:
                 stats.fused_groups += len(unit.plans)
                 stats.fused_scans += 1
@@ -568,23 +719,87 @@ def launch_plans(hot_store: Store, plans: list[PhysicalPlan], *,
             stats.hot_queries += n_rows_unit
             if rep.page_rows is not None:
                 stats.paged_scans += 1
-    return InFlightPlans(inflight=inflight, B=B, k=k, stats=stats,
+
+    # -- step 2: warm probes, issued after every hot unit is launched ----
+    warm_results: list[list[tuple] | None] = []
+    warm_failed: set = set()
+    for unit, member_idxs, _ in inflight:
+        if unit.plans[0].route != "hot+warm":
+            warm_results.append(None)
+            continue
+        probes = []
+        for plan, m in zip(unit.plans, member_idxs):
+            rt0 = warm.stats.round_trips
+            if plan.engine == "hybrid":
+                # warm-tier LEXICAL pushdown: predicate AND query terms
+                # travel into the warm scan, scored by the same formula
+                # (global idf / avgdl), so the merge compares like with like
+                mode, qt_bucket, w_d, w_l = plan.lex
+
+                def probe(plan=plan, m=m, mode=mode, qt_bucket=qt_bucket,
+                          w_d=w_d, w_l=w_l):
+                    return warm.query_hybrid(
+                        q_all[np.asarray(m)],
+                        _qterms_rows(row_plans, m, qt_bucket), plan.pred, k,
+                        mode=mode, w_dense=w_d, w_lex=w_l,
+                        rrf_c=lex.cfg.rrf_c, lists=(mode == "rrf"))
+            else:
+                def probe(plan=plan, m=m):
+                    return warm.query(q_all[np.asarray(m)], plan.pred, k,
+                                      pushdown=True)
+
+            wspan = None
+            if row_traces is not None:
+                wspan = FanSpan([row_traces[i] for i in m], "warm_probe",
+                                engine=plan.engine)
+                if tracer is not None:
+                    # warm faults + WarmGuard decisions annotate this span
+                    tracer.push(wspan)
+            try:
+                res = (warm_guard.call(probe) if warm_guard is not None
+                       else probe())
+            finally:
+                if wspan is not None and tracer is not None:
+                    tracer.pop()
+            if wspan is not None:
+                wspan.end(failover=res is None)
+            if stats is not None:
+                # real round trips issued, successful or not (retries count)
+                stats.device_calls += warm.stats.round_trips - rt0
+            if res is None:
+                # the guard gave up: this group serves hot-only, explicitly
+                warm_failed.add(plan.group_key)
+                probes.append(None)
+                if stats is not None:
+                    stats.warm_failovers += 1
+                continue
+            probes.append(res)
+            if stats is not None:
+                stats.warm_queries += len(m)
+                if plan.engine == "hybrid" and warm.lex is not None:
+                    stats.terms_scanned += (warm.cfg.capacity
+                                            * warm.lex.cfg.doc_terms)
+        warm_results.append(probes)
+    return InFlightPlans(inflight=inflight, warm_results=warm_results, B=B,
+                         k=k, stats=stats, lex=lex, warm_failed=warm_failed,
                          row_traces=row_traces, calib=calib)
 
 
 def finish_plans(pending: InFlightPlans):
-    """FINISH phase: the first copy to the host. Syncs every in-flight
-    unit, runs ivf completeness rescans and scatters into row order. Each
-    unit's sync is a ``device_sync`` span (rescans nest inside it) and its
-    scatter a ``merge`` span in every member request's trace, and each
-    unit lands one predicted-vs-measured row in `pending.calib`. Returns
-    (scores, slots, tiers)."""
-    B, k, stats = pending.B, pending.k, pending.stats
+    """FINISH phase: the first copy of a hot result to the host. Syncs
+    every in-flight unit, runs ivf completeness rescans, merges the tiers
+    (rrf hybrid merges per SIGNAL across the tiers, then rank-fuses) and
+    scatters into row order. Each unit's sync is a ``device_sync`` span
+    (rescans nest inside it) and its merge a ``merge`` span in every member
+    request's trace, and each unit lands one predicted-vs-measured row in
+    `pending.calib`. Returns (scores, slots, tiers)."""
+    B, k, stats, lex = pending.B, pending.k, pending.stats, pending.lex
     row_traces, calib = pending.row_traces, pending.calib
     scores = np.full((B, k), np.float32(NEG_INF), np.float32)
     slots = np.full((B, k), -1, np.int32)
     tiers = np.full((B, k), TIER_HOT, np.int32)
-    for unit, member_idxs, hot in pending.inflight:
+    for (unit, member_idxs, hot), probes in zip(pending.inflight,
+                                                pending.warm_results):
         unit_traces = ([row_traces[i] for m in member_idxs for i in m]
                        if row_traces is not None else None)
         sync_fan = (FanSpan(unit_traces, "device_sync",
@@ -609,8 +824,38 @@ def finish_plans(pending: InFlightPlans):
         merge_fan = (FanSpan(unit_traces, "merge", groups=len(member_idxs))
                      if unit_traces is not None else None)
         off = 0
-        for m in member_idxs:
-            scores[m], slots[m] = hs[off:off + len(m)], hi[off:off + len(m)]
+        for gi, m in enumerate(member_idxs):
+            span = slice(off, off + len(m))
+            if probes is None:
+                s_m, sl_m = hs[span], hi[span]
+                t_m = np.full_like(sl_m, TIER_HOT)
+            elif probes[gi] is None and hot.extra_np is not None:
+                # the guarded warm probe failed for an rrf hybrid group: the
+                # hot scan ran in lists mode, so rank-fuse the two HOT lists
+                h_ls, h_li = hot.extra_np
+                s_m, sl_m, t_m = _rrf_merge_np(
+                    hs[span], hi[span], np.full_like(hi[span], TIER_HOT),
+                    h_ls[span], h_li[span],
+                    np.full_like(h_li[span], TIER_HOT), k, lex.cfg.rrf_c)
+            elif probes[gi] is None:
+                # the guarded warm probe failed: this group serves hot-only
+                s_m, sl_m = hs[span], hi[span]
+                t_m = np.full_like(sl_m, TIER_HOT)
+            elif hot.extra_np is not None:
+                # rrf hybrid across tiers: merge per SIGNAL first, then
+                # rank-fuse -- ranks only mean something over the complete
+                # per-signal candidate list
+                w_ds, w_di, w_ls, w_li = probes[gi]
+                ds, di, dt = merge_tiers(hs[span], hi[span], w_ds, w_di, k)
+                h_ls, h_li = hot.extra_np
+                ls2, li2, lt2 = merge_tiers(h_ls[span], h_li[span],
+                                            w_ls, w_li, k)
+                s_m, sl_m, t_m = _rrf_merge_np(ds, di, dt, ls2, li2, lt2, k,
+                                               lex.cfg.rrf_c)
+            else:
+                ws, wi = probes[gi]
+                s_m, sl_m, t_m = merge_tiers(hs[span], hi[span], ws, wi, k)
+            scores[m], slots[m], tiers[m] = s_m, sl_m, t_m
             off += len(m)
         if merge_fan is not None:
             merge_fan.end()

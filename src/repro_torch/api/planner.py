@@ -31,8 +31,10 @@ many rows carry ``page_rows`` and scan the arena in pages (the kernel's
 paged form, one running list per page; bit-identical to resident). ivf
 plans never take the knob.
 
-Tier routing keeps the paper's §7.3 rule. This slice has no warm tier, so
-every plan routes "hot" with the reason "warm tier empty".
+Tier routing keeps the paper's §7.3 rule (`choose_route`): a constrained
+plan inside the hot window stays "hot"; long-tail similarity routes
+"hot+warm" and also probes the warm tier, unless that tier is empty or the
+plan has a match() clause and the warm tier carries no lexical lanes.
 
 The "sharded" engine belongs to a later slice and raises
 NotImplementedError naming its ROADMAP queue item.
@@ -353,9 +355,13 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
 
 def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
                  warm_rows: int,
-                 cost_model: CostModel | None = None) -> tuple[str, str]:
+                 cost_model: CostModel | None = None,
+                 warm_lex: bool = False) -> tuple[str, str]:
     """Tier routing (paper §7.3): the warm probe runs exactly when it could
-    contribute rows; the cost model only annotates the reason.
+    contribute rows; the cost model only annotates the reason. A match()
+    query spills warm only when the warm tier carries lexical lanes
+    (``warm_lex``): a lanes-less warm store would score its rows dense-only
+    and change the clause's meaning mid-merge.
 
     >>> choose_route(LogicalPlan(tenant=1, min_ts=950, k=3),
     ...              hot_window_s=100, now_ts=1000, warm_rows=10)[0]
@@ -366,9 +372,14 @@ def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
     >>> choose_route(LogicalPlan(k=3), hot_window_s=100, now_ts=1000,
     ...              warm_rows=0)
     ('hot', 'warm tier empty')
+    >>> choose_route(LogicalPlan(k=3, match_terms=(5,)), hot_window_s=100,
+    ...              now_ts=1000, warm_rows=10)
+    ('hot', 'warm tier has no lexical lanes — hybrid stays hot')
     """
     if warm_rows == 0:
         return "hot", "warm tier empty"
+    if logical.match_terms is not None and not warm_lex:
+        return "hot", "warm tier has no lexical lanes — hybrid stays hot"
     recent_only = logical.min_ts >= now_ts - hot_window_s
     if logical.constrained and recent_only:
         return "hot", "constrained query within the hot window"
@@ -381,7 +392,8 @@ def choose_route(logical: LogicalPlan, *, hot_window_s: int, now_ts: int,
 def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(),
-                 device="cpu", index=None, lex=None) -> PhysicalPlan:
+                 device="cpu", index=None, lex=None,
+                 warm_lex: bool = False) -> PhysicalPlan:
     """Compile WHAT (LogicalPlan) into HOW (PhysicalPlan): engine + route +
     the predicate-group batching key, with any cost estimate attached so
     ``explain()`` can render it. ``device`` is the store's device; ``index``
@@ -390,7 +402,9 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
     estimate for explain(). ``lex`` is the RagDB's `LexicalArena` (or
     None): its presence admits match() clauses, which compile to the
     "hybrid" engine with the score-mix identity (fusion mode,
-    query-term-count bucket, weights) stamped into the group key.
+    query-term-count bucket, weights) stamped into the group key;
+    ``warm_lex`` says whether the warm tier carries lanes (hybrid plans
+    only spill warm when it does).
 
     >>> p = compile_plan(LogicalPlan(match_terms=(5, 9), k=5), n_rows=64,
     ...                  hot_window_s=10, now_ts=0, warm_rows=0,
@@ -413,7 +427,8 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                                           has_lex=lex is not None)
     route, route_reason = choose_route(logical, hot_window_s=hot_window_s,
                                        now_ts=now_ts, warm_rows=warm_rows,
-                                       cost_model=cfg.cost_model)
+                                       cost_model=cfg.cost_model,
+                                       warm_lex=warm_lex)
     est = (cfg.cost_model.estimate_ms(engine, n_rows)
            if cfg.cost_model is not None else None)
     page_rows = None
@@ -455,7 +470,8 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
 def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(), device="cpu",
-                 index=None, lex=None) -> PhysicalPlan | None:
+                 index=None, lex=None,
+                 warm_lex: bool = False) -> PhysicalPlan | None:
     """One rung DOWN the degradation ladder, or None when it is exhausted.
     What degrades is the query contract (probe depth), never the isolation
     clauses. The rungs of the ivf engine:
@@ -480,7 +496,7 @@ def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
     """
     kw = dict(n_rows=n_rows, hot_window_s=hot_window_s, now_ts=now_ts,
               warm_rows=warm_rows, cfg=cfg, device=device, index=index,
-              lex=lex)
+              lex=lex, warm_lex=warm_lex)
     if plan.engine == "ivf" and plan.nprobe is not None:
         floor = max(int(cfg.degrade_min_nprobe), 1)
         if plan.nprobe > floor:

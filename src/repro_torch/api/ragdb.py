@@ -1,8 +1,8 @@
 """`RagDB` -- one front door for the unified data layer (port of
-``repro.api.ragdb``, single-tier):
+``repro.api.ragdb``):
 
-    db = RagDB(StoreConfig(...))            # device="cuda" by default
-    db.ingest(batch)
+    db = RagDB(StoreConfig(...), warm_cfg=..., hot_window_s=..., now_ts=...)
+    db.ingest(batch)                        # tier placement by recency
     sess = db.session(Principal(tenant_id=3, group_bits=0b0011))
     res = (sess.search(q_emb)
                .newer_than(ccfg.now_ts - 60 * DAY_S)
@@ -19,14 +19,19 @@ hand them to `db.execute`, which collapses plans sharing a predicate group
 into one device call each, fuses exact-engine groups into ONE grouped arena
 scan, and launches every call before the first sync.
 
-This slice holds the hot arena's `TransactionLog` directly as ``db.log``,
-and with ``lexical_cfg`` a `LexicalArena` beside it as ``db.lex`` (written
-through the log's ``lex`` hook), which admits `QueryBuilder.match()` and
+The storage engine is a `TieredRouter` (``db.router``): the hot arena's
+`TransactionLog` (``db.log``), the warm similarity tier (a
+`SplitStackClient`, probed with the predicate pushed down by "hot+warm"
+plans) and the cold archive (`archive` / `fetch_cold`). Without
+``warm_cfg`` the db is single-tier: the warm client holds one row and the
+hot window never expires, so every plan routes "hot". With
+``lexical_cfg`` a `LexicalArena` sits beside the hot arena as ``db.lex``
+(written through the log's ``lex`` hook), and a tiered db grows warm lanes
+that share its `LexicalStats`; it admits `QueryBuilder.match()` and
 `.fuse()`: the hybrid dense+BM25 scan. `RagDB.build_index()` attaches an
 `IVFIndex` as ``db.index`` (written through the log's ``ivf`` hook), which
-adds the pruned "ivf" engine. The warm tier and router, the cold archive
-and the mesh arrive with later slices; their constructor arguments raise
-NotImplementedError naming their ROADMAP queue item.
+adds the pruned "ivf" engine. ``mesh=`` arrives with a later slice and
+raises NotImplementedError naming its ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -46,13 +51,15 @@ from repro_torch.api.planner import (LATER_ENGINES, PlannerConfig,
                                      check_engine_hint, compile_plan,
                                      degrade_plan)
 from repro_torch.core.ivf import IVFConfig, IVFIndex, build_ivf
+from repro_torch.core.router import TieredRouter
 from repro_torch.core.store import DocBatch, StoreConfig
 from repro_torch.core.tenancy import Principal, TenantRegistry, category_mask
 from repro_torch.core.transactions import TransactionLog
 from repro_torch.index.lexical import LexicalArena, LexicalConfig
 from repro_torch.obs import CalibrationTable, Tracer
 from repro_torch.obs.tracer import NULL_TRACE, TraceGroup
-from repro_torch.serving.faults import HotLaunchError, WedgedBatchError
+from repro_torch.serving.faults import (FaultPlan, HotLaunchError,
+                                        WedgedBatchError)
 
 _FOREVER = (1 << 31) - 1     # hot window that never expires (single-tier mode)
 
@@ -172,14 +179,17 @@ class PendingExecution:
     served: list[str]                 # "cache" | "stale" | "fresh" per plan
     stale_age_s: list[float | None]   # age of each stale serve, else None
     use_cache: bool
+    before_hot: int = 0               # stats watermarks for the router
+    before_warm: int = 0              # counter reconciliation in finish()
     traces: list | None = None        # per-plan obs.Trace handles
     owns_traces: bool = False         # launch() created the traces
 
 
 class RagDB:
-    """Owns the hot arena's `TransactionLog` (``db.log``) and the
+    """Owns the storage engine (hot `TransactionLog` inside a
+    `TieredRouter`, warm similarity tier, cold archive) and the
     `TenantRegistry`, and is the only object that executes query plans.
-    ``device`` is where the arena lives: the card unless the caller asks
+    ``device`` is where both tiers live: the card unless the caller asks
     for another; with no card and no ``device="cpu"`` it raises.
 
     >>> import numpy as np, torch
@@ -211,27 +221,38 @@ class RagDB:
                  mesh=None, lexical_cfg: LexicalConfig | None = None,
                  result_cache_size: int = 256, shape_cache_size: int = 32,
                  device=None):
-        if warm_cfg is not None or hot_window_s is not None:
-            raise _not_ported("the warm tier (warm_cfg / hot_window_s)",
-                              "warm-tier slice (ROADMAP queue 1, 'Warm tier and router')")
         if mesh is not None:
             raise _not_ported("mesh=", LATER_ENGINES["sharded"])
-        self.log = TransactionLog(hot_cfg, device=device)
+        tiered = warm_cfg is not None
+        if tiered and hot_window_s is None:
+            raise ValueError("a tiered RagDB (warm_cfg given) needs "
+                             "hot_window_s to place and route documents")
+        if not tiered:
+            # single-tier mode: the warm client exists for the router's
+            # plumbing but is never routed to (the hot window covers
+            # everything) -- a 1-row arena instead of a copy of the hot one
+            warm_cfg = dataclasses.replace(hot_cfg, capacity=1)
+        self.router = TieredRouter(
+            hot_cfg, warm_cfg,
+            hot_window_s=hot_window_s if tiered else _FOREVER,
+            now_ts=now_ts, device=device)
         # lexical scoring arena (lexical_cfg given): postings lanes beside
         # the vector arena, slot-aligned and written through the log's lex
-        # hook, so they commit with the rows. None means match() is
+        # hook, so they commit with the rows; a tiered RagDB grows warm
+        # lanes too, sharing the corpus-global LexicalStats so idf / avgdl
+        # compare across the tier merge. None means match() is
         # structurally unavailable.
         self.lex: LexicalArena | None = None
         if lexical_cfg is not None:
             self.lex = LexicalArena(hot_cfg.capacity, lexical_cfg,
                                     device=self.log.device)
             self.log.lex = self.lex
+            if tiered:
+                self.router.warm.attach_lexical(lexical_cfg, self.lex.stats)
         # ANN tier: hot-arena IVF index (build_index creates it); None means
         # the planner only has exact engines
         self.index: IVFIndex | None = None
         self._index_auto = False      # was the last build auto-sized?
-        self.hot_window_s = _FOREVER
-        self.now_ts = now_ts
         self.tenants = TenantRegistry()
         self.planner_cfg = planner_cfg
         self.stats = ExecStats()
@@ -242,8 +263,10 @@ class RagDB:
         self.result_cache = (ResultCache(result_cache_size)
                              if result_cache_size else None)
         # chaos wiring (serving.faults): attach_faults threads one FaultPlan
-        # through the commit log and the launch/finish path
+        # through the commit log, the warm client and the launch/finish
+        # path; a `WarmGuard` installed here wraps every warm probe
         self.faults = None
+        self.warm_guard = None
         # the tracer is OFF by default; the calibration audit is always on
         self.tracer = Tracer(enabled=False)
         self.calibration = CalibrationTable()
@@ -251,20 +274,31 @@ class RagDB:
     def attach_faults(self, plan) -> None:
         """Thread one `serving.faults.FaultPlan` through the injection
         sites: hot.launch / hot.wedge / hot.finish_error / cache.stale
-        here, and the txn.<op>.<point> crash points in the log."""
+        here, warm.error / warm.stall in the warm client, and the
+        txn.<op>.<point> crash points in the log."""
         self.faults = plan
         self.log.faults = plan
         if plan is not None:
             plan.obs = self.tracer
+        # the warm client always holds a plan (the filter_bug shim needs
+        # one) -- detaching restores a fresh no-rule plan there
+        self.router.warm.faults = plan if plan is not None else FaultPlan()
 
     def attach_tracer(self, tracer) -> None:
         """Install an `obs.Tracer` as this db's span-tree factory and
-        active-sink stack."""
+        active-sink stack (re-pointing the fault plan's and the warm
+        guard's annotation hooks)."""
         self.tracer = tracer
         if self.faults is not None:
             self.faults.obs = tracer
+        if self.warm_guard is not None:
+            self.warm_guard.tracer = tracer
 
     # -- storage facade --------------------------------------------------
+    @property
+    def log(self) -> TransactionLog:
+        return self.router.hot
+
     @property
     def hot_cfg(self) -> StoreConfig:
         return self.log.cfg
@@ -274,44 +308,102 @@ class RagDB:
         return self.log.device
 
     def ingest(self, batch: DocBatch) -> None:
-        """Registered tenants are quota-charged; quotas are validated for
-        the WHOLE batch before any charge or write."""
+        """Tier placement by recency; registered tenants are quota-charged.
+        Quotas are validated for the WHOLE batch before any charge or
+        write."""
         tenants, counts = np.unique(torch.as_tensor(batch.tenant).cpu().numpy(),
                                     return_counts=True)
         charges = [(tid, n) for tid, n in zip(tenants.tolist(), counts.tolist())
                    if tid in self.tenants.doc_quota]
         for tid, n in charges:
             self.tenants.precheck(tid, n)
-        self.log.ingest(batch)
+        self.router.ingest(batch)
         for tid, n in charges:
             self.tenants.charge(tid, n)
         self._maybe_rebuild_index()
 
+    def _unknown(self, ids) -> list[int]:
+        warm = self.router.warm
+        return [d for d in ids if not (self.log.has_doc(d) or warm.has_doc(d))]
+
     def update(self, doc_ids, new_emb, updated_at) -> None:
-        """Re-embed documents; an unknown doc_id raises KeyError (before
-        anything is written)."""
+        """Re-embed documents wherever the router placed them (hot log or
+        warm client); an unknown doc_id raises KeyError before either tier
+        is written. A warm doc whose fresh timestamp falls inside the hot
+        window MOVES to the hot tier: recency-constrained queries are
+        answered hot-only, so leaving it warm would hide it."""
         ids = [int(d) for d in doc_ids]
-        unknown = [d for d in ids if not self.log.has_doc(d)]
+        unknown = self._unknown(ids)
         if unknown:
             raise KeyError(f"unknown doc_ids {unknown}")
-        ts = torch.as_tensor(updated_at).reshape(-1)
-        self.log.update(ids, new_emb, ts)
+        emb = torch.as_tensor(new_emb)
+        ts = torch.as_tensor(updated_at).reshape(-1).cpu()
+        hot = [i for i, d in enumerate(ids) if self.log.has_doc(d)]
+        hot_set = set(hot)
+        warm = [i for i in range(len(ids)) if i not in hot_set]
+        if hot:
+            self.log.update([ids[i] for i in hot], emb[hot], ts[hot])
+        if warm:
+            hot_floor = self.router.now_ts - self.router.hot_window_s
+            promote = {i for i in warm if int(ts[i]) >= hot_floor}
+            stay = [i for i in warm if i not in promote]
+            if stay:
+                self.router.warm.update([ids[i] for i in stay], emb[stay],
+                                        ts[stay])
+            if promote:
+                self._promote_to_hot(sorted(promote), ids, emb, ts)
         self._maybe_rebuild_index()
 
+    def _promote_to_hot(self, idx: list[int], ids, emb, ts) -> None:
+        """Move docs from the warm client to the hot log, carrying their
+        metadata, their postings lanes and the fresh embedding / timestamp.
+        Quota is untouched: the docs were charged at ingest and stay live."""
+        warm = self.router.warm
+        wslots = torch.as_tensor([warm.slot_of(ids[i]) for i in idx],
+                                 dtype=torch.int64, device=warm.device)
+        meta = {k: warm.meta[k][wslots] for k in ("tenant", "category", "acl")}
+        terms = tfs = None
+        if warm.lex is not None:     # postings move with the doc
+            terms, tfs = warm.lex.rows(wslots)
+        warm.delete([ids[i] for i in idx])
+        self.log.ingest(DocBatch(
+            emb=emb[idx], tenant=meta["tenant"], category=meta["category"],
+            updated_at=ts[idx].to(torch.int32), acl=meta["acl"],
+            doc_id=torch.as_tensor([ids[i] for i in idx], dtype=torch.int32),
+            terms=terms, tfs=tfs))
+
     def delete(self, doc_ids) -> None:
-        """Delete documents; refunds registered tenants' quota (slot
+        """Tier-aware delete; an unknown doc_id raises KeyError before
+        either tier is written. Refunds registered tenants' quota (slot
         recycling frees the arena rows, so the quota must free with them)."""
         uniq = list(dict.fromkeys(int(d) for d in doc_ids))
-        unknown = [d for d in uniq if not self.log.has_doc(d)]
+        unknown = self._unknown(uniq)
         if unknown:
             raise KeyError(f"unknown doc_ids {unknown}")
-        snap = self.log.snapshot()
-        freed = self.log.delete(uniq)
-        owners = snap["tenant"][torch.as_tensor(freed, device=self.device)]
-        for tid in owners.cpu().tolist():
+        hot_ids = [d for d in uniq if self.log.has_doc(d)]
+        warm_ids = [d for d in uniq if not self.log.has_doc(d)]
+        owners: list[int] = []
+        if hot_ids:
+            snap = self.log.snapshot()
+            freed = self.log.delete(hot_ids)
+            owners += snap["tenant"][torch.as_tensor(
+                freed, device=self.device)].cpu().tolist()
+        if warm_ids:
+            warm = self.router.warm
+            wslots = torch.as_tensor([warm.slot_of(d) for d in warm_ids],
+                                     device=warm.device)
+            owners += warm.meta["tenant"][wslots].cpu().tolist()
+            warm.delete(warm_ids)
+        for tid in owners:
             if tid in self.tenants.doc_count and self.tenants.doc_count[tid] > 0:
                 self.tenants.doc_count[tid] -= 1
         self._maybe_rebuild_index()
+
+    def archive(self, doc_id: int, payload) -> None:
+        self.router.archive(doc_id, payload)
+
+    def fetch_cold(self, doc_id: int):
+        return self.router.fetch_cold(doc_id)
 
     def create_tenant(self, quota: int = 1 << 30) -> int:
         return self.tenants.create_tenant(quota)
@@ -362,18 +454,20 @@ class RagDB:
         snap = self.log.snapshot()
         return compile_plan(
             logical, n_rows=snap["emb"].shape[0],
-            hot_window_s=self.hot_window_s, now_ts=self.now_ts,
-            warm_rows=0, cfg=self.planner_cfg, device=snap["emb"].device,
-            index=self.index, lex=self.lex)
+            hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
+            warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
+            device=snap["emb"].device, index=self.index, lex=self.lex,
+            warm_lex=self.router.warm.lex is not None)
 
     def _result_key(self, plan: PhysicalPlan) -> tuple | None:
         """Snapshot-exact cache key for one plan, or None when the plan is
-        uncacheable (no query rows). Hybrid plans also key on their term
-        ids (in the digest) and on the `LexicalStats` version, because a
-        lexical write moves idf/avgdl and therefore hybrid scores. ivf
-        plans key on the index epoch: a rebuild changes which rows get
-        SCORED without any arena commit. The warm commit counter keeps its
-        place in the key, pinned to -1 until the warm tier's slice."""
+        uncacheable (no query rows). Hot-only plans pin the warm commit
+        counter to -1: warm writes provably cannot change their results.
+        Hybrid plans also key on their term ids (in the digest) and on the
+        `LexicalStats` version, because a lexical write on EITHER tier
+        moves idf/avgdl and therefore hybrid scores. ivf plans key on the
+        index epoch: a rebuild changes which rows get SCORED without any
+        arena commit."""
         lp = plan.logical
         if lp.q is None:
             return None
@@ -383,11 +477,13 @@ class RagDB:
         if plan.engine == "hybrid" and self.lex is not None:
             h.update(repr(lp.match_terms).encode())
             lex_version = self.lex.stats.version
+        warm_commits = (self.router.warm.commit_count
+                        if plan.route == "hot+warm" else -1)
         index_epoch = (self.index.epoch
                        if plan.engine == "ivf" and self.index is not None
                        else -1)
         return (plan.group_key, q.shape, h.digest(), self.log.commit_count,
-                -1, index_epoch, lex_version)
+                warm_commits, index_epoch, lex_version)
 
     def degrade(self, plan: PhysicalPlan) -> PhysicalPlan | None:
         """One rung down the degradation ladder for ``plan`` in THIS db's
@@ -396,9 +492,10 @@ class RagDB:
         snap = self.log.snapshot()
         return degrade_plan(
             plan, n_rows=snap["emb"].shape[0],
-            hot_window_s=self.hot_window_s, now_ts=self.now_ts, warm_rows=0,
-            cfg=self.planner_cfg, device=snap["emb"].device,
-            index=self.index, lex=self.lex)
+            hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
+            warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
+            device=snap["emb"].device, index=self.index, lex=self.lex,
+            warm_lex=self.router.warm.lex is not None)
 
     def execute(self, plans: list[PhysicalPlan], *, use_cache: bool = True,
                 stale_within_s: float | None = None):
@@ -475,8 +572,11 @@ class RagDB:
                 t.end(sid, outcome="miss")
             misses.append((i, key))
         inflight = None
+        before_hot = before_warm = 0
         if misses:
             run_plans = [plans[i] for i, _ in misses]
+            before_hot = self.stats.hot_queries
+            before_warm = self.stats.warm_queries
             run_traces = ([traces[i] for i, _ in misses]
                           if traces is not None else None)
             group = TraceGroup(run_traces) if run_traces is not None else None
@@ -488,10 +588,11 @@ class RagDB:
                     # is issued
                     self.faults.raise_if("hot.launch", HotLaunchError)
                 inflight = launch_plans(
-                    self.log.snapshot(), run_plans, stats=self.stats,
-                    shapes=self.shapes, index=self.index,
+                    self.log.snapshot(), self.router.warm, run_plans,
+                    stats=self.stats, shapes=self.shapes, index=self.index,
                     planner_cfg=self.planner_cfg, lex=self.lex,
-                    obs=run_traces, calib=self.calibration)
+                    warm_guard=self.warm_guard, obs=run_traces,
+                    tracer=self.tracer, calib=self.calibration)
             finally:
                 if group is not None:
                     self.tracer.pop()
@@ -499,6 +600,8 @@ class RagDB:
                                 rows=rows, misses=misses, inflight=inflight,
                                 served=served, stale_age_s=stale_age_s,
                                 use_cache=cache is not None,
+                                before_hot=before_hot,
+                                before_warm=before_warm,
                                 traces=traces, owns_traces=owns_traces)
 
     def finish(self, pending: "PendingExecution"):
@@ -522,13 +625,32 @@ class RagDB:
             finally:
                 if group is not None:
                     self.tracer.pop()
+            self.router.stats.hot_queries += (self.stats.hot_queries
+                                              - pending.before_hot)
+            self.router.stats.warm_queries += (self.stats.warm_queries
+                                               - pending.before_warm)
+            warm_failed = pending.inflight.warm_failed
             now = self.clock()
             off = 0
             for i, key in pending.misses:
                 n = pending.rows[i]
                 chunk = (s[off:off + n], sl[off:off + n], tr[off:off + n])
                 pending.per_plan[i] = chunk
-                if cache is not None and key is not None:
+                p = pending.plans[i]
+                if warm_failed and p.group_key in warm_failed:
+                    # the guarded warm probe gave up: stamp the EXPLICIT
+                    # degradation and keep the chunk OUT of the cache (the
+                    # key does not encode degradation, so caching would
+                    # later serve this hot-only answer as complete)
+                    pending.plans[i] = dataclasses.replace(
+                        p, degraded=p.degraded
+                        + ("warm-unavailable: served hot-only",))
+                    if (traces is not None and traces[i] is not None
+                            and traces[i].enabled):
+                        traces[i].annotate("degraded",
+                                           pending.plans[i].degraded)
+                        traces[i].pin("degraded")
+                elif cache is not None and key is not None:
                     cache.put(key, chunk, now=now, stale_key=key[:3])
                 off += n
         if traces is not None:
@@ -581,7 +703,7 @@ class RagDB:
         st = self.stats
         lines = [
             f"RagDB  {snap['emb'].shape[0]} hot-tier rows "
-            f"({int(snap['n_live'])} live), 0 warm docs, "
+            f"({int(snap['n_live'])} live), {self.router.warm.n_docs} warm docs, "
             f"commit_count={self.log.commit_count}",
             f"  planner:      {planner}",
             f"  shape cache:  {shapes}",

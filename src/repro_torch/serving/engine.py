@@ -63,7 +63,7 @@ class Response:
     retrieval_ms: float
     prefill_ms: float
     decode_ms: float
-    doc_tiers: np.ndarray | None = None   # (k,) 0 = hot arena
+    doc_tiers: np.ndarray | None = None   # (k,) 0 = hot arena, 1 = warm arena
 
 
 class RAGEngine:
@@ -114,8 +114,9 @@ class RAGEngine:
         self.engine = engine
         # maps a retrieved doc slot to its "content" tokens (the corpus side
         # of the prompt); synthetic corpora supply a deterministic stub.
-        # doc_token_fn indexes the HOT arena; warm-tier slots (none in the
-        # port's single-tier RagDB) need their own mapping.
+        # doc_token_fn indexes the HOT arena; warm-tier slots index a
+        # different arena and need their own mapping -- without one they
+        # contribute provenance only (counted in last_warm_docs_skipped).
         self.doc_token_fn = doc_token_fn or (lambda slot: np.asarray(
             [int(slot) % max(cfg.vocab_size - 1, 1)], np.int32))
         self.warm_doc_token_fn = warm_doc_token_fn

@@ -1,7 +1,7 @@
-"""Doctest smoke for the port's front door, IVF index, lexical arena,
-arena-scan tile policy, hybrid reference, observability and corpus
-docstrings (the twin of tests/test_doctests.py): every ``>>>`` example runs
-here on the CPU, so the runnable examples cannot rot."""
+"""Doctest smoke for the port's front door, IVF index, warm tier, router,
+lexical arena, arena-scan tile policy, hybrid reference, observability and
+corpus docstrings (the twin of tests/test_doctests.py): every ``>>>``
+example runs here on the CPU, so the runnable examples cannot rot."""
 import doctest
 
 import pytest
@@ -13,6 +13,8 @@ import repro_torch.api.planner
 import repro_torch.api.ragdb
 import repro_torch.core.ivf
 import repro_torch.core.query
+import repro_torch.core.router
+import repro_torch.core.splitstack
 import repro_torch.data.corpus
 import repro_torch.index.lexical.arena
 import repro_torch.kernels.arena_scan.ops
@@ -33,6 +35,8 @@ MODULES = [
     repro_torch.api.ragdb,
     repro_torch.core.ivf,
     repro_torch.core.query,
+    repro_torch.core.router,
+    repro_torch.core.splitstack,
     repro_torch.data.corpus,
     repro_torch.index.lexical.arena,
     repro_torch.kernels.arena_scan.ops,

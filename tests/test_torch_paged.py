@@ -599,7 +599,7 @@ def test_paged_plan_execution_bit_identical():
         jst, tst = JExecStats(), ExecStats()
         js, ji, _ = j_executor.execute_plans(dict(jstore), None, jplans,
                                              stats=jst, planner_cfg=jcfg)
-        ts, ti, _ = t_executor.execute_plans(dict(tstore), tplans,
+        ts, ti, _ = t_executor.execute_plans(dict(tstore), None, tplans,
                                              stats=tst, planner_cfg=tcfg)
         assert_topk_agree(ts, ti, np.asarray(js), np.asarray(ji))
         assert_no_leak(a, [p.pred for p in tplans for _ in range(2)],

@@ -184,8 +184,9 @@ def test_later_slices_and_tpu_engine_are_refused():
         b.match("error 17")
     with pytest.raises(ValueError, match="match\\(\\) clause"):
         b.using("hybrid").plan()
-    for kw in (dict(warm_cfg=StoreConfig(capacity=8, dim=4)),
-               dict(mesh=object())):
+    # the warm tier is ported: warm_cfg builds a tiered db; mesh= waits
+    # for the sharded-engine slice
+    for kw in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError):
             RagDB(StoreConfig(capacity=8, dim=4), device="cpu", **kw)
     assert b.plan().route_reason == "warm tier empty"
