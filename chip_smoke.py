@@ -103,7 +103,13 @@ Phases:
                 B 32 (>= 2 blocks an SM required); then the keep-all draw
                 (every group any tenant, no recency cut, every category
                 and ACL bit) held to the plain version (BM25 bit-exact)
-                and timed.
+                and timed. Then the split-stack baseline
+                (`two_scan_hybrid`, wsum) over the same 4 tenant groups,
+                with the predicate pushed into both sidecars and without
+                it (over-fetch, app-side filter, retries): 0 leaked slots,
+                and wherever the fused top-k lies within the union of the
+                sidecars' lists, the two-scan set equals it (ties at the
+                k-th place aside); batch medians beside the fused batch.
   9. ivf_prod -- the prod arena with the auto-sized index (8192 clusters):
                 build time (k-means and assignment on the card, layout on
                 the host), 6 batches of 32 admin requests with a recency
@@ -143,6 +149,37 @@ Phases:
                 the launch geometry (blocks per SM, >= 2 required for dense
                 at 2^15; shared memory a block; ring stages), the plain
                 version's time.
+ 11b. serve_prod (right after paged_prod, on the same RagDB with its IVF
+                index) -- the serving layer under open-loop load on the
+                wall clock: `serving.load.run_scenario` and `Scheduler`,
+                20 Zipfian tenants (s = 1.1, 32 unit queries each), k = 10,
+                batches of up to 32, a quarter of the queries with a
+                match() clause from 64 term tuples of the corpus's lanes.
+                Mix A pins the exact kernel engine, mix B the IVF probe.
+                The reference bench's rules: a capacity probe (256 events
+                due at t = 0, admission and cache off; once to warm up,
+                once measured) and a 0.8 s saturation run give the
+                sustained rate; slo = clip(50 x ms a request, 25, 500);
+                max_queue = max(8, rate x slo / 2); degrade pressure 0.3.
+                3 s traces: steady (A, 0.5x, cache on), burst (B, 0.45x
+                with a 4.5x flash crowd over [0.45, 0.55] of the trace,
+                cache off; the FIFO baseline and the scheduler on one
+                trace), writes (A, 1.2x, RagDB.update of 8 docs 4 times a
+                second, stale serves within 0.2 s). Gates: accounting
+                (offered = admitted + shed, one result each, no failure);
+                every steady result and up to 64 degraded burst results
+                equal bit for bit db.execute of the plan that ran (a probe
+                with the plans of its group in its batch); 32 steady
+                results against a plain top-k over host_mask's rows; no
+                leaked slot; no mixed state, stale ages within 0.2 s, no
+                IVF rebuild, written docs returned from their new
+                embedding; the kernels' launch counters advance and no
+                plain version runs on CUDA tensors; the first hot-only
+                launches run under set_sync_debug_mode("error"). Prints
+                capacity, throughput, goodput, p50 / p99 e2e, queue wait
+                and plan time, shed and deadline-met rates, rungs, stale
+                serves, launches, the idle share of 10 profiled steps, the
+                burst comparison, peak memory.
 
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
                 (causal and full) and the flash-decode kernel against their plain versions on
@@ -190,7 +227,9 @@ Phases:
                 serve, then 3 serves: retrieval, prefill and decode times,
                 tokens/s, 36 flash launches a prefill and 576 decode launches
                 a serve, 0 plain-version calls on CUDA tensors, equal greedy
-                tokens, no slot of another tenant; each kernel against its
+                tokens, no slot of another tenant; one more serve with
+                retrieval through a Scheduler: none shed, the same slots
+                and greedy tokens; each kernel against its
                 plain version on layer 0's and layer 35's inputs of the real
                 prefill and first decode step; chunked-vs-naive prefill
                 logits; a profile of one prefill and one decode step
@@ -228,6 +267,7 @@ HBM_BPS = 3.35e12             # H100 SXM device memory rate
 FP32_FLOPS = 67e12            # H100 SXM fp32 peak outside the tensor cores
 SEED = 0
 DEV = None                    # the card, set in setup()
+CARD = None                   # nvidia-smi's "name, power limit", set in main()
 # phase 1 grid: odd and pow2-adjacent N, serving widths D, B up to a full
 # serving batch (and past one kernel block), G with a BLOCK_ALL lane at 7
 GRID_N = (1, 513, 1000, 65_553)
@@ -287,6 +327,11 @@ DEC_TOL = 2e-5
 # row whose nprobe-th and (nprobe+1)-th sims lie this close (f32 products
 # in two reduction orders)
 TIE_MARGIN = 1e-5
+# kernel-name tags a profiled scan call must show (`profile_batch`)
+SCAN_TAGS = ("tile_scan_kernel",)
+PAGED_TAGS = ("paged_scan_kernel",)
+# serve_prod: the scheduler's batch bound (every run of the phase)
+SERVE_MAX_BATCH = 32
 # lm_serve: prefill logits through the flash kernel against the naive path
 # may differ by bf16 rounding carried through 36 layers, not by more than
 # this share of the largest logit
@@ -1442,33 +1487,43 @@ def peak_gb():
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def profile_batch(fn):
+def profile_batch(fn, tags=()):
     """Device time by kernel over one call of ``fn`` (torch.profiler, after
     an untimed warm-up call), its split into the scan's tile_scan (or
     paged_scan) / merge / finish kernels, copies and other PyTorch kernels
     (input staging, rrf_fuse), and the device's idle share of the call's
-    wall time."""
+    wall time. ``tags`` names kernels the call must launch (substrings of
+    their names): the trace can lose a call's kernels on the card, so a
+    trace that holds none of them is taken again, up to 3 times in all,
+    and a trace still without them reports ``trace_lost`` and no idle
+    share (None) instead of one for the trace rather than the card."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    # one traced warm-up call first: without it the trace can miss the
-    # first kernels of the call (seen on the card for a lone long kernel)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        sync()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        # no step here: ending the cycle would clear its events
-    rows = []
-    for ev in prof.key_averages():
-        if ev.key.startswith("ProfilerStep"):   # the step's own span
-            continue
-        dev_us = getattr(ev, "device_time_total", 0) or 0
-        if dev_us > 0 and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            rows.append((ev.key, ev.count, dev_us / 1e3))
+    for attempt in range(1, 4):
+        # one traced warm-up call first: without it the trace can miss the
+        # first kernels of the call (seen on the card for a lone long
+        # kernel)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            sync()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            # no step here: ending the cycle would clear its events
+        rows = []
+        for ev in prof.key_averages():
+            if ev.key.startswith("ProfilerStep"):   # the step's own span
+                continue
+            dev_us = getattr(ev, "device_time_total", 0) or 0
+            if dev_us > 0 and getattr(ev, "device_type", None) is not None \
+                    and "CUDA" in str(ev.device_type):
+                rows.append((ev.key, ev.count, dev_us / 1e3))
+        lost = bool(tags) and not any(tag in name for name, _, _ in rows
+                                      for tag in tags)
+        if not lost:
+            break
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     split = dict.fromkeys(("tile_scan", "page_scan", "merge", "finish",
@@ -1482,7 +1537,9 @@ def profile_batch(fn):
                     "other")
         split[part] += ms
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1 - busy_ms / (wall_us / 1e3)),
+            "idle_share": (None if lost
+                           else max(0.0, 1 - busy_ms / (wall_us / 1e3))),
+            "trace_lost": lost, "traces": attempt,
             "split_ms": split,
             "kernels": [{"name": n[:60], "calls": c, "ms": ms}
                         for n, c, ms in rows[:8]]}
@@ -1596,7 +1653,8 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
     launches = kernel_mod.LAUNCHES
     check(launches == n_batches, f"{launches} launches for {n_batches} "
           "fused batches")
-    profile = profile_batch(lambda: db.execute(plans, use_cache=False))
+    profile = profile_batch(lambda: db.execute(plans, use_cache=False),
+                            SCAN_TAGS)
 
     # the kernel's inputs exactly as the executor builds them
     snap = db.log.snapshot()
@@ -1655,7 +1713,7 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
     return dict(launches=launches, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, max_abs_err=err,
                 bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS
-                else "operations", db=db, groups=groups,
+                else "operations", db=db, groups=groups, now_ts=ccfg.now_ts,
                 ingest_host_s=sum(host_s), plans=plans, args=args)
 
 
@@ -1721,7 +1779,8 @@ def phase_hybrid_prod(dev, prod):
     launches = hyb_mod.LAUNCHES
     check(launches == 2 * n_batches, f"{launches} hybrid launches for "
           f"{2 * n_batches} fused batches")
-    profiles = {m: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False))
+    profiles = {m: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False),
+                                 SCAN_TAGS)
                 for m, ps in by_mode.items()}
 
     # the kernel's inputs exactly as the executor builds them
@@ -1800,6 +1859,9 @@ def phase_hybrid_prod(dev, prod):
                   "keep-all: bm25 list differs from the plain version's")
         keep_all[f"{mode}_ms"] = events_ms(
             lambda m=mode: hyb_mod.hybrid_score_cuda(*args_all, mode=m), 10)
+    two_scan = two_scan_prod(db, by_mode["wsum"], qs, mts, res["wsum"][:2],
+                             meta.cpu().numpy())
+    two_scan["fused_batch_ms_median"] = out["wsum"]["batch_ms_median"]
     infos = {m: kernel_mod.scan_info(ScanSpec(score=s), 32, N, 4, 10, QT=4)
              for m, s in (("wsum", "fused"), ("rrf", "both"))}
     for m, info in infos.items():
@@ -1825,11 +1887,93 @@ def phase_hybrid_prod(dev, prod):
          bound_all_lanes_ms=bound_all_ms, bound_all_lanes_bytes=bytes_all,
          scan_info=infos, keep_all=keep_all,
          yardstick_ms=yard_ms, ingest_host_s=prod["ingest_host_s"],
-         peak_mem_gb=peak_gb(), max_abs_err=max(errs), **out)
+         two_scan=two_scan, peak_mem_gb=peak_gb(), max_abs_err=max(errs),
+         **out)
     return dict(launches=launches, ms=out["wsum"]["ms"],
                 plain_ms=out["wsum"]["plain_ms"], bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=max(errs), plans=by_mode,
                 args=args)
+
+
+def two_scan_prod(db, plans, qs, mts, fused, meta, reps=3, fetch=40):
+    """The split-stack baseline (`two_scan_hybrid`, wsum) over the fused
+    wsum batch's 4 tenant-scoped groups: a dense sidecar (the arena-scan
+    kernel), a lexical sidecar (plain PyTorch, 2^20 rows a chunk) and the
+    host merge, with the predicate pushed into both sidecars and without
+    it (over-fetch, app-side filter, retries). Gates: no returned slot
+    fails its group's predicate; in every row whose fused top-k set lies
+    within the union of the two sidecars' lists (top-``fetch`` with the
+    predicate, or open at the fetch where the retry ladder stopped: the
+    union rescore sees every winner), the two-scan set equals the fused
+    kernel's but for ties at the k-th place. Batch times: medians of
+    ``reps`` batches of the 4 groups."""
+    from repro_torch.core.query import Predicate, unified_query
+    from repro_torch.index.lexical.twoscan import (_passes_pred,
+                                                   lexical_topk,
+                                                   two_scan_hybrid)
+    snap, lx = db.log.snapshot(), db.lex.snapshot()
+    f_s, f_i = fused
+    out = {}
+    for pushdown in (True, False):
+        lat, got = [], {}
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for g in range(4):
+                rows = list(range(g, 32, 4))
+                got[g] = two_scan_hybrid(
+                    snap, lx, np.stack([qs[r] for r in rows]),
+                    np.asarray([mts[r] for r in rows], np.int32),
+                    plans[g].pred, 10, pushdown=pushdown)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        leaks = checked = 0
+        for g in range(4):
+            rows = list(range(g, 32, 4))
+            pred = plans[g].pred
+            s2, i2 = got[g]
+            for j, r in enumerate(rows):
+                real = i2[j][i2[j] >= 0]
+                leaks += int((~host_mask(meta[real], pred.as_array()
+                                         .numpy()[None])[0]).sum())
+            # the sidecars' lists the merge saw: with the predicate, or
+            # open at the fetch where the over-fetch ladder stopped
+            q = torch.from_numpy(np.stack([qs[r] for r in rows])).to(DEV)
+            qt = np.asarray([mts[r] for r in rows], np.int32)
+            side, c, retries = (pred, fetch, 0) if pushdown else (
+                Predicate(), fetch, 4)
+            while True:
+                d_i = unified_query(snap, q, side, c, engine="cuda")[1]
+                l_i = lexical_topk(snap, lx["terms"], lx["lexnorm"],
+                                   lx["idf"], qt, side.as_array(DEV), c)[1]
+                d_i, l_i = d_i.cpu().numpy(), l_i.cpu().numpy()
+                if pushdown:
+                    break
+                filled = ((_passes_pred(snap, np.maximum(d_i, 0), pred)
+                           & (d_i >= 0)).sum(axis=1) >= 10) | (
+                    (_passes_pred(snap, np.maximum(l_i, 0), pred)
+                     & (l_i >= 0)).sum(axis=1) >= 10)
+                if filled.all() or c >= len(meta) or retries == 0:
+                    break
+                c, retries = min(c * 4, len(meta)), retries - 1
+            for j, r in enumerate(rows):
+                want = set(f_i[r][f_i[r] >= 0].tolist())
+                if not want <= set(d_i[j].tolist()) | set(l_i[j].tolist()):
+                    continue
+                checked += 1
+                have = set(i2[j][i2[j] >= 0].tolist())
+                kth = f_s[r][len(want) - 1]
+                for slot in want ^ have:
+                    sc = (f_s[r][f_i[r] == slot] if slot in want
+                          else s2[j][i2[j] == slot])[0]
+                    check(abs(sc - kth) <= TOL * (1 + abs(kth)),
+                          f"two-scan (pushdown={pushdown}) row {r}: slot "
+                          f"{slot} differs from the fused set away from a "
+                          "k-th place tie")
+        check(leaks == 0, f"two-scan (pushdown={pushdown}): {leaks} leaked "
+              "slots")
+        out["pushdown" if pushdown else "faithful"] = {
+            "batch_ms_median": statistics.median(lat), "batch_ms": lat,
+            "leaked_slots": leaks, "rows_held_to_fused": checked}
+    return out
 
 
 def phase_ivf_prod(dev, prod):
@@ -1903,7 +2047,8 @@ def phase_ivf_prod(dev, prod):
     compact_launches = ivf_mod.COMPACT_LAUNCHES
     check(compact_launches == n_batches,
           f"{compact_launches} compactions for {n_batches} batches")
-    profile = profile_batch(lambda: db.execute(plans, use_cache=False))
+    profile = profile_batch(lambda: db.execute(plans, use_cache=False),
+                            SCAN_TAGS + ("compact_",))
 
     # the executor's launch, with every synchronising CUDA call an error:
     # the quantizer, the compaction and the scan are queued without a wait
@@ -2037,6 +2182,7 @@ def phase_ivf_prod(dev, prod):
          build_host_s=build_s - spent["kmeans"] - spent["assign"],
          slot_map_s=slot_map_s, batch_ms_median=statistics.median(lat),
          batch_ms=lat, idle_share=profile["idle_share"],
+         trace_lost=profile["trace_lost"],
          probe_host_ms_median=statistics.median(probe_ms),
          quantizer_events_ms=quant_ms, quantizer_device_ms=quant_dev_ms,
          union_equal=union_equal,
@@ -2133,7 +2279,7 @@ def phase_paged_prod(dev, prod, hprod, ptxas=()):
               and st.fused_scans - before.fused_scans == 3 * n_batches,
               "paged_scans != one per fused scan")
         profiles = {m: profile_batch(lambda ps=ps: db.execute(
-            ps, use_cache=False)) for m, ps in paged.items()}
+            ps, use_cache=False), PAGED_TAGS) for m, ps in paged.items()}
     finally:
         db.planner_cfg = resident_cfg
 
@@ -2168,14 +2314,15 @@ def phase_paged_prod(dev, prod, hprod, ptxas=()):
                                                      None, QT=QT),
                "resident_alloc_bytes": alloc_bytes(lambda: call(None)),
                "resident_profile_ms": profile_batch(
-                   lambda: call(None))["split_ms"],
+                   lambda: call(None), SCAN_TAGS)["split_ms"],
                "bound_ms": bounds[m], "pages": {}}
         for p in PAGED_PROD_P:
             info = kernel_mod.scan_info(specs[m], B, N, G, k, p, QT=QT)
             cell = {"ms": events_ms(lambda: call(p), 10),
                     "device_ms": device_ms(lambda: call(p), 5)[0],
                     "alloc_bytes": alloc_bytes(lambda: call(p)),
-                    "profile_ms": profile_batch(lambda: call(p))["split_ms"],
+                    "profile_ms": profile_batch(lambda: call(p),
+                                                PAGED_TAGS)["split_ms"],
                     **info}
             if m == "dense" or p == P:
                 cell["plain_ms"] = events_ms(lambda: plains[m](p),
@@ -2205,6 +2352,420 @@ def phase_paged_prod(dev, prod, hprod, ptxas=()):
     return dict(launches=launches, ms=best["ms"], plain_ms=best["plain_ms"],
                 bound_ms=prod["bound_ms"], bound_by=prod["bound_by"],
                 max_abs_err=err)
+
+class LaunchLog:
+    """Stands in for ``db.launch`` while a scheduler drives ``db``: records
+    the plans of every launched batch (the plans that ran, degraded ones
+    included), and runs the first ``no_sync`` launches whose plans are all
+    hot-only under ``torch.cuda.set_sync_debug_mode("error")``, so a host
+    sync inside a launch fails the run. `close` puts the method back."""
+
+    def __init__(self, db, no_sync=0):
+        self.db, self.launch, self.no_sync = db, db.launch, no_sync
+        self.batches, self.checked = [], 0
+        db.launch = self
+
+    def __call__(self, plans, **kw):
+        self.batches.append(list(plans))
+        if self.checked < self.no_sync and all(p.route == "hot"
+                                               for p in plans):
+            self.checked += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return self.launch(plans, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return self.launch(plans, **kw)
+
+    def close(self):
+        del self.db.launch
+
+    def batch_of(self, plan):
+        """The launched plans of ``plan``'s group in the batch that ran it,
+        in batch order (its own rows and those it was probed with)."""
+        for batch in self.batches:
+            if any(p is plan for p in batch):
+                return [p for p in batch if p.group_key == plan.group_key]
+        raise AssertionError("a served plan was never launched")
+
+
+def serve_leaks(results, meta):
+    """Returned slots that fail their request's tenant / recency /
+    category / ACL clause, on the host metadata ``meta`` (N, 4)."""
+    leaks = 0
+    for res in results:
+        real = res.slots[res.slots >= 0]
+        if real.size:
+            pred = res.request.plan.pred.as_array().numpy()[None]
+            leaks += int((~host_mask(meta[real], pred)[0]).sum())
+    return leaks
+
+
+def serve_report(out, wl, kernels, plain_cuda_calls):
+    """One scenario run's printed numbers (the reference bench's report,
+    trimmed to what the phase prints), with the gates' inputs."""
+    rep = out.report()
+    hist, ctr = rep["histograms"], rep["counters"]
+    pick = lambda name: {p: hist.get(name, {}).get(p)
+                         for p in ("count", "p50", "p99", "max")}
+    return {
+        "offered": out.offered, "admitted": out.admitted, "shed": out.shed,
+        "completed": rep["completed"], "wall_s": rep["wall_s"],
+        "offered_rps": rep["offered_rps"], "rate_rps": wl.rate_rps,
+        "throughput_rps": rep["throughput_rps"],
+        "goodput_rps": rep["goodput_rps"], "shed_rate": rep["shed_rate"],
+        "deadline_met_rate": rep["deadline_met_rate"],
+        "e2e_ms": pick("e2e_ms"), "queue_wait_ms": pick("queue_wait_ms"),
+        "service_ms": pick("service_ms"), "plan_ms": pick("plan_ms"),
+        "write_ms": pick("write_ms"),
+        "served": dict(Counter(r.served for r in out.results)),
+        "degradations": {k.split("=")[1].rstrip("}"): v
+                         for k, v in ctr.items()
+                         if k.startswith("degradations{")},
+        "degraded_results": rep["degraded"], "failed": rep["failed"],
+        "stale_serves": rep["stale_serves"],
+        "max_stale_age_s": rep["max_stale_age_s"], "writes": rep["writes"],
+        "mixed_state_observed": rep["mixed_state_observed"],
+        "launches": kernels, "plain_calls_on_cuda": plain_cuda_calls}
+
+
+def serve_accounting(name, out):
+    """offered = admitted + shed; each admitted request served exactly
+    once, fresh, from the cache or stale; none failed."""
+    ids = [r.request.req_id for r in out.results]
+    check(out.offered == out.admitted + out.shed,
+          f"{name}: offered {out.offered} != admitted {out.admitted} + "
+          f"shed {out.shed}")
+    check(len(ids) == out.admitted and len(set(ids)) == len(ids),
+          f"{name}: {len(ids)} results ({len(set(ids))} requests) for "
+          f"{out.admitted} admitted")
+    served = Counter(r.served for r in out.results)
+    check(set(served) <= {"fresh", "cache", "stale"} and not
+          served.get("failed"), f"{name}: served classes {dict(served)}")
+
+
+def serve_identity(name, db, results, log=None):
+    """Each result equals, bit for bit, ``db.execute`` of the plan that
+    ran (``use_cache=False``): run alone, or (``log`` given) with the
+    plans of its group in the batch that ran it -- an ivf probe scans the
+    union of its group's probed clusters. Distinct plans run once.
+    Returns (results checked, plans run, plans run with others)."""
+    runs, shared = {}, 0
+    for res in results:
+        plan = res.request.plan
+        group = log.batch_of(plan) if log is not None else [plan]
+        key = tuple(id(p) for p in group) if len(group) > 1 else (
+            plan.group_key, plan.logical.q.tobytes(),
+            plan.logical.match_terms, plan.degraded)
+        if key not in runs:
+            shared += len(group) > 1
+            s, sl, _ = db.execute(group, use_cache=False)
+            runs[key] = {id(p): (s[i:i + 1], sl[i:i + 1])
+                         for i, p in enumerate(group)}
+        s, sl = runs[key][id(plan)] if len(group) > 1 else next(
+            iter(runs[key].values()))
+        what = (f"{name}: request {res.request.req_id} ({plan.engine}, "
+                f"{plan.degraded})")
+        check((res.slots == sl).all(),
+              f"{what}: slots != direct execution of its plan")
+        check((res.scores.view(np.int32) == s.view(np.int32)).all(),
+              f"{what}: scores != direct execution of its plan, bit for "
+              "bit")
+    return len(results), len(runs), shared
+
+
+def serve_plain(name, db, results, meta, lex):
+    """Hold results to a plain top-k written here: q . e on the card
+    (TF32 off), plus BM25 over the lanes for a match() plan, NEG_INF off
+    the rows ``host_mask`` keeps, one stable descending sort. Returns the
+    max abs score error."""
+    from repro_torch.kernels.hybrid_score.ref import qidf_of
+    emb = db.log.snapshot()["emb"]
+    errs, masks = [], {}
+    for res in results:
+        plan = res.request.plan
+        k = plan.logical.k
+        q = torch.from_numpy(np.atleast_2d(plan.logical.q)).to(DEV)
+        sc = q @ emb.T
+        if plan.engine == "hybrid":
+            qt = torch.tensor([plan.logical.match_terms], dtype=torch.int32,
+                              device=DEV)
+            sc = sc + plain_bm25(lex["terms"], lex["lexnorm"], qt,
+                                 qidf_of(lex["idf"], qt))
+        pa = plan.pred.as_array().numpy()[None]
+        keep = masks.get(pa.tobytes())
+        if keep is None:
+            keep = masks[pa.tobytes()] = host_mask(meta, pa)
+        masked = torch.where(torch.from_numpy(keep).to(DEV), sc, NEG)
+        top_s, top_i = torch.sort(masked, dim=1, descending=True,
+                                  stable=True)
+        s_p, i_p = top_s[:, :k].cpu().numpy(), top_i[:, :k].int()
+        i_p = torch.where(top_s[:, :k] > NEG, i_p, -1).cpu().numpy()
+        errs.append(compare(f"{name}-{res.request.req_id}", res.scores,
+                            res.slots, s_p, i_p, keep,
+                            scores_full=masked.cpu().numpy()))
+    return max(errs)
+
+
+def serve_capacity(db, wl, pool, n):
+    """The reference bench's capacity probe, on the card: ``n`` query
+    events all due at t = 0 through `run_scenario` with admission and the
+    cache off, once to warm up and once measured; then a saturation run
+    at that rate for 0.8 s, whose throughput is the sustained rate."""
+    from repro_torch.serving.load import make_trace, run_scenario
+    from repro_torch.serving.scheduler import SchedulerConfig
+    events = [e for e in make_trace(dataclasses.replace(
+        wl, duration_s=4 * n / max(wl.rate_rps, 1), write_rate_rps=0.0),
+        term_pool=pool) if e.kind == "query"][:n]
+    for ev in events:
+        ev.t = 0.0
+    cfg = SchedulerConfig(admission=False, max_batch=SERVE_MAX_BATCH,
+                          use_cache=False)
+    run_scenario(db, wl, cfg, events=list(events))
+    probe = run_scenario(db, wl, cfg, events=list(events))
+    probe_rps = len(probe.results) / probe.wall_s
+    sat = run_scenario(db, dataclasses.replace(wl, rate_rps=probe_rps,
+                                               duration_s=0.8),
+                       cfg, term_pool=pool)
+    service_ms = probe.wall_s / max(len(probe.results), 1) * 1e3
+    slo_ms = float(np.clip(50.0 * service_ms, 25.0, 500.0))
+    cap_rps = sat.report()["throughput_rps"]
+    return {"probe_rps": probe_rps, "service_ms_per_req": service_ms,
+            "cap_rps": cap_rps, "slo_ms": slo_ms,
+            "max_queue": max(8, int(cap_rps * slo_ms / 1e3 * 0.5))}
+
+
+def phase_serve_prod(dev, db, now_ts, duration_s=3.0, probe_n=256,
+                     sync_steps=8, burst_identity=64, plain_samples=32):
+    """The serving layer on the prod arena (after paged_prod, with the
+    IVF index of ivf_prod): open-loop Poisson traffic through the port's
+    `load.run_scenario` and `Scheduler` on the wall clock, 20 Zipfian
+    tenants, k = 10, batches of up to 32, a quarter of the queries with a
+    match() clause. Mix A pins the exact kernel engine ("cuda"), mix B the
+    IVF probe ("ivf"). Three scenarios: steady (A, half its capacity,
+    cache on), burst (B, a 4.5x flash crowd, cache off, through the FIFO
+    baseline and through the scheduler on one trace) and writes (A, 1.2x
+    capacity, RagDB.update of 8 docs 4 times a second, stale serves within
+    0.2 s)."""
+    from repro_torch.api.ragdb import ResultCache
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.kernels.arena_scan import stages
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.serving.load import (WorkloadConfig, make_trace,
+                                          run_scenario)
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               ServeRequest)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    snap = db.log.snapshot()
+    N, D = snap["emb"].shape
+    epoch0, index0 = db.index.epoch, db.index
+    meta = _packed_meta(snap["tenant"], snap["updated_at"], snap["category"],
+                        snap["acl"]).cpu().numpy()
+    del snap
+    # the term pool: 64 tuples of 2-4 terms from live rows' lanes
+    rng = np.random.default_rng(SEED + 21)
+    lanes = db.lex.snapshot()["terms"][torch.from_numpy(
+        rng.integers(0, N, 1024)).to(dev)].cpu().numpy()
+    pool = []
+    for lane in lanes:
+        live = np.unique(lane[lane >= 0])
+        if len(live) >= 2 and len(pool) < 64:
+            pool.append(tuple(int(t) for t in rng.choice(
+                live, min(len(live), int(rng.integers(2, 5))),
+                replace=False)))
+    check(len(pool) == 64, f"term pool of {len(pool)} tuples")
+    base = dict(duration_s=duration_s, n_tenants=20, zipf_s=1.1,
+                query_pool=32, k=10, dim=D, match_fraction=0.25)
+    mixes = {"A": WorkloadConfig(engine="cuda", seed=SEED + 31, **base),
+             "B": WorkloadConfig(engine="ivf", seed=SEED + 32, **base)}
+    caps = {m: serve_capacity(db, wl, pool, probe_n)
+            for m, wl in mixes.items()}
+
+    plain_on_card = PlainOnCard(stages.dense_scores)
+    stages.dense_scores = plain_on_card
+    runs, outs = {}, {}
+
+    def scenario(name, wl, cfg, events, no_sync=0, **kw):
+        db.result_cache = ResultCache(256)      # every run starts cold
+        plain_on_card.cuda_calls = 0
+        kernel_mod.LAUNCHES = hyb_mod.LAUNCHES = 0
+        ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = 0
+        log = LaunchLog(db, no_sync)
+        try:
+            out = run_scenario(db, wl, cfg, events=list(events), **kw)
+        finally:
+            log.close()
+        serve_accounting(name, out)
+        launches = {"arena_scan": kernel_mod.LAUNCHES,
+                    "hybrid_score": hyb_mod.LAUNCHES,
+                    "ivf_probe": ivf_mod.LAUNCHES,
+                    "ivf_compact": ivf_mod.COMPACT_LAUNCHES}
+        runs[name] = serve_report(out, wl, launches,
+                                  plain_on_card.cuda_calls)
+        check(plain_on_card.cuda_calls == 0,
+              f"{name}: a plain version ran on CUDA tensors")
+        runs[name]["no_sync_launches"] = log.checked
+        outs[name] = out
+        return out, log
+
+    try:
+        # steady: mix A at half its capacity, cache on
+        cap = caps["A"]
+        sched_a = SchedulerConfig(slo_ms=cap["slo_ms"],
+                                  max_queue=cap["max_queue"],
+                                  max_batch=SERVE_MAX_BATCH,
+                                  degrade_pressure=0.3, stale_within_s=0.2)
+        wl = dataclasses.replace(mixes["A"], rate_rps=0.5 * cap["cap_rps"])
+        steady_events = make_trace(wl, term_pool=pool)
+        out, log = scenario("steady", wl, sched_a, steady_events,
+                            no_sync=sync_steps)
+        check(log.checked == sync_steps, f"steady: {log.checked} launches "
+              f"under the sync check, not {sync_steps}")
+        ks = runs["steady"]["launches"]
+        check(ks["arena_scan"] > 0 and ks["hybrid_score"] > 0,
+              f"steady: kernel launches {ks}")
+        ident = serve_identity("steady", db, out.results)
+        sample = np.random.default_rng(SEED + 22).choice(
+            len(out.results), min(plain_samples, len(out.results)),
+            replace=False)
+        plain_err = serve_plain("steady-plain", db,
+                                [out.results[i] for i in sample], meta,
+                                db.lex.snapshot())
+        runs["steady"].update(identity={"results": ident[0],
+                                        "plans_run": ident[1]},
+                              plain_samples=len(sample),
+                              plain_max_abs_err=plain_err)
+        # 10 consecutive scheduler steps of the steady mix at full batches
+        # (cache off, so every step launches), profiled
+        sess, reqs = {}, []
+        for ev in [e for e in steady_events if e.kind == "query"][
+                :10 * SERVE_MAX_BATCH]:
+            s_ = sess.setdefault(ev.tenant, db.session(
+                Principal(tenant_id=ev.tenant, group_bits=0xFFFFFFFF)))
+            b = s_.search(ev.q, normalize=False).limit(wl.k)
+            b = (b.match(list(ev.terms)) if ev.terms is not None
+                 else b.using(wl.engine))
+            reqs.append(b.plan())
+        steps_sched = Scheduler(db, dataclasses.replace(
+            sched_a, admission=False, use_cache=False))
+
+        def ten_steps():
+            for i, p in enumerate(reqs):
+                steps_sched.offer(ServeRequest(plan=p, arrival_t=0.0,
+                                               req_id=i))
+            done = []
+            for _ in range(10):
+                done += steps_sched.step()
+            done += steps_sched.flush()
+            check(len(done) == len(reqs), "ten steps left requests")
+
+        steady_profile = profile_batch(ten_steps, SCAN_TAGS)
+
+        # burst: mix B, a flash crowd, cache off, the FIFO baseline and the
+        # scheduler on one trace
+        cap = caps["B"]
+        wl = dataclasses.replace(mixes["B"], rate_rps=0.45 * cap["cap_rps"],
+                                 burst_x=4.5, burst_start=0.45,
+                                 burst_len=0.1)
+        burst_events = make_trace(wl, term_pool=pool)
+        fifo = SchedulerConfig(slo_ms=cap["slo_ms"], admission=False,
+                               max_batch=SERVE_MAX_BATCH, use_cache=False)
+        sched_b = SchedulerConfig(slo_ms=cap["slo_ms"],
+                                  max_queue=cap["max_queue"],
+                                  max_batch=SERVE_MAX_BATCH,
+                                  degrade_pressure=0.3, stale_within_s=0.2,
+                                  use_cache=False)
+        scenario("burst_fifo", wl, fifo, burst_events)
+        out, log = scenario("burst_sched", wl, sched_b, burst_events,
+                            no_sync=sync_steps)
+        for name in ("burst_fifo", "burst_sched"):
+            ks = runs[name]["launches"]
+            check(ks["ivf_probe"] > 0 and ks["ivf_compact"] > 0
+                  and ks["hybrid_score"] > 0, f"{name}: kernel launches {ks}")
+        degraded = [r for r in out.results if r.degraded][:burst_identity]
+        ident = serve_identity("burst", db, degraded, log)
+        runs["burst_sched"]["identity"] = {
+            "results": ident[0], "plans_run": ident[1],
+            "run_with_their_group": ident[2]}
+        base_e2e = runs["burst_fifo"]["e2e_ms"]
+        burst_vs = {
+            "slo_ms": cap["slo_ms"],
+            "fifo_p99_over_p50": base_e2e["p99"] / base_e2e["p50"],
+            "fifo_p99_ms": base_e2e["p99"],
+            "sched_p99_ms": runs["burst_sched"]["e2e_ms"]["p99"],
+            "sched_goodput_over_fifo_throughput":
+                runs["burst_sched"]["goodput_rps"]
+                / runs["burst_fifo"]["throughput_rps"]}
+
+        # writes: mix A at 1.2x capacity, 4 writes a second of 8 docs
+        cap = caps["A"]
+        wl = dataclasses.replace(mixes["A"], rate_rps=1.2 * cap["cap_rps"],
+                                 write_rate_rps=4.0, write_batch=8)
+        write_events = make_trace(wl, term_pool=pool)
+        doc_ids = np.arange(N)
+        out, _ = scenario("writes", wl, sched_a, write_events,
+                          write_doc_ids=doc_ids, now_ts=now_ts)
+        n_writes = sum(e.kind == "write" for e in write_events)
+        check(out.writes == n_writes > 0, f"writes: {out.writes} of "
+              f"{n_writes} write events ran")
+        check(out.mixed_state_observed == 0, "writes: a freshness probe saw "
+              "a mixed state")
+        ages = [r.stale_age_s for r in out.results if r.served == "stale"]
+        check(all(a <= 0.2 for a in ages),
+              f"writes: stale age {max(ages, default=0.0)} past the 0.2 s "
+              "bound")
+        check(db.index is index0 and db.index.epoch == epoch0,
+              "writes: the IVF index was rebuilt inside the scenario")
+        ks = runs["writes"]["launches"]
+        check(ks["arena_scan"] > 0, f"writes: kernel launches {ks}")
+        # the last embedding each written doc got (the harness draws them
+        # from seed + 1 in event order), then the next fresh query aimed
+        # at a written doc returns it from that embedding
+        wrng = np.random.default_rng(wl.seed + 1)
+        final = {}
+        for ev in write_events:
+            if ev.kind == "write":
+                ids = np.unique(doc_ids[ev.doc_idx % len(doc_ids)])
+                emb = wrng.standard_normal((len(ids), D)).astype(np.float32)
+                final.update(zip(ids.tolist(), emb))
+        fresh = []
+        probe_sched = Scheduler(db, SchedulerConfig(slo_ms=1e9))
+        for doc in sorted(final)[:4]:
+            slot = db.log.slot_of(doc)
+            v = final[doc] / np.linalg.norm(final[doc])
+            plan = (db.session(Principal(tenant_id=int(meta[slot, 0]),
+                                         group_bits=0xFFFFFFFF))
+                    .search(v, normalize=False).limit(10).using("cuda")
+                    .plan())
+            probe_sched.offer(ServeRequest(plan=plan, arrival_t=0.0))
+            (res,) = probe_sched.run_until_idle()
+            check(res.served == "fresh" and int(res.slots[0, 0]) == slot
+                  and abs(float(res.scores[0, 0]) - 1.0) <= 1e-5,
+                  f"writes: doc {doc} (slot {slot}) not returned from its "
+                  f"new embedding: {res.served}, {res.slots[0, :3]}, "
+                  f"{res.scores[0, :3]}")
+            fresh.append(doc)
+        runs["writes"]["fresh_after_write_docs"] = fresh
+    finally:
+        stages.dense_scores = plain_on_card.fn
+        db.result_cache = ResultCache(256)
+
+    # isolation, every run: the tenant and ACL columns never change under
+    # a write, and the written rows' new timestamps only rise
+    leaks = {name: serve_leaks(o.results, meta) for name, o in outs.items()}
+    check(not any(leaks.values()), f"leaked slots {leaks}")
+    emit("serve_prod", card=CARD, seconds=time.perf_counter() - t_phase,
+         rows=N, dim=D, lanes=db.lex.cfg.doc_terms,
+         ivf_clusters=db.index.n_clusters, k=10, max_batch=SERVE_MAX_BATCH,
+         tenants=20, zipf_s=1.1, query_pool=32, term_pool=len(pool),
+         match_fraction=0.25, duration_s=duration_s, capacity=caps,
+         runs=runs, burst=burst_vs, leaked_slots=leaks,
+         steady_ten_steps_profile=steady_profile,
+         sync_debug="no sync in a hot-only launch",
+         peak_mem_gb=peak_gb())
+
 
 NEG = -3.4028234663852886e38    # float32's lowest: NEG_INF of the port
 
@@ -2567,7 +3128,8 @@ def phase_tiered_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20,
     # timings: each batch's idle share; the hot kernels alone (CUDA events)
     # on the tail batch's inputs; the warm probe's wall and device time per
     # probe; the host merge
-    profiles = {k: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False))
+    profiles = {k: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False),
+                                 SCAN_TAGS)
                 for k, ps in by_kind.items()}
     meta = _packed_meta(hot["tenant"], hot["updated_at"], hot["category"],
                         hot["acl"])
@@ -2926,6 +3488,24 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                   (a.doc_slots == b.doc_slots).all()
                   for a, b in zip(warm, run)), "two greedy serves differ")
 
+    # the same requests once more, retrieval through a Scheduler: nothing
+    # shed, the same slots and the same greedy tokens
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    sched_engine = RAGEngine(
+        db, cfg, model, k=k_docs, max_prompt=max_prompt, max_len=max_len,
+        doc_token_fn=doc_tokens_of(cfg.vocab_size, doc_len), engine="cuda",
+        device=dev, scheduler=Scheduler(db, SchedulerConfig(
+            use_cache=False, slo_ms=1e9)))
+    t0 = time.perf_counter()
+    sched_resps = sched_engine.serve(requests)
+    sched_ms = (time.perf_counter() - t0) * 1e3
+    check(sched_engine.last_shed_requests == 0, "the scheduled serve shed "
+          f"{sched_engine.last_shed_requests} requests")
+    check(all((a.tokens == b.tokens).all() and
+              (a.doc_slots == b.doc_slots).all()
+              for a, b in zip(warm, sched_resps)),
+          "the scheduled serve differs from the unscheduled one")
+
     # each kernel against its plain version on the path's own tensors
     errs_f, errs_d = [], []
     for i in (0, L - 1):
@@ -2961,11 +3541,12 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     lg, cache = tfm.prefill(model, cfg, toks, max_len)
     cur = lg.argmax(-1).to(torch.int32)
     profiles = {}
-    for name, fn in (("prefill", lambda: tfm.prefill(model, cfg, toks,
-                                                     max_len)),
-                     ("decode_step", lambda: tfm.decode_step(
-                         model, cfg, cur, cache, max_prompt))):
-        prof = profile_batch(fn)
+    for name, tags, fn in (
+            ("prefill", ("flash_fwd",),
+             lambda: tfm.prefill(model, cfg, toks, max_len)),
+            ("decode_step", ("decode_attention_kernel",),
+             lambda: tfm.decode_step(model, cfg, cur, cache, max_prompt))):
+        prof = profile_batch(fn, tags)
         prof.pop("split_ms")
         profiles[name] = prof
     del lg, cache
@@ -3053,6 +3634,8 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
          decode_launches=dec_launches, scan_launches=scan_launches,
          plain_calls_on_cuda=plain_f.cuda_calls + plain_d.cuda_calls,
          leaked_slots=leaks, tokens_equal=True,
+         scheduled_serve={"ms": sched_ms, "shed": 0,
+                          "slots_and_tokens_equal": True},
          flash_err_layers=errs_f, decode_err_layers=errs_d,
          logits_chunked_vs_naive={"max_abs_diff": logit_diff,
                                   "max_abs_logit": logit_scale,
@@ -3123,6 +3706,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    global CARD
+    CARD = smi[0]
 
     t0 = time.perf_counter()
     # both libraries at once: one nvcc per source, all six started together
@@ -3151,12 +3736,18 @@ def main() -> int:
     hprod = phase_hybrid_prod(dev, prod)
     iprod = phase_ivf_prod(dev, prod)
     pprod = phase_paged_prod(dev, prod, hprod, ptxas=dense_ptxas)
-    # free the 2^23-row arena (and every tensor the rows hold) before the
-    # model and its cache take the card
+    # keep the kernel rows and the db, and drop every other tensor the
+    # phases hold (the serving writes commit out of place: an old arena
+    # kept alive here would hold a third copy on the card)
+    db, now_ts = prod["db"], prod["now_ts"]
     row_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "compact")
     prod, hprod, iprod, pprod = ({key: d[key] for key in row_keys if key in d}
                                  for d in (prod, hprod, iprod, pprod))
+    gc.collect()
+    phase_serve_prod(dev, db, now_ts)
+    # free the 2^23-row arena before the next phases take the card
+    del db
     gc.collect()
     torch.cuda.empty_cache()
     phase_tiered_prod(dev)

@@ -473,20 +473,29 @@ def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
                  index=None, lex=None,
                  warm_lex: bool = False) -> PhysicalPlan | None:
     """One rung DOWN the degradation ladder, or None when it is exhausted.
-    What degrades is the query contract (probe depth), never the isolation
-    clauses. The rungs of the ivf engine:
 
-      1. nprobe shrink -- halve the probe depth (floor
+    Every rung is a real, standalone-compilable plan: executing the
+    degraded plan through the scheduler equals compiling and running it
+    directly. What degrades is the query contract (probe depth, score
+    signal), never the isolation clauses: tenant / ACL / recency
+    predicates ride through every rung untouched. The rungs, in order of
+    preference:
+
+      1. ivf nprobe shrink -- halve the probe depth (floor
          ``cfg.degrade_min_nprobe``): recall narrows, the scan shrinks,
          predicate exactness is untouched. Degraded probes also WAIVE the
          executor's completeness rescan (an under-filled k-list is the
          degraded answer);
-      2. ivf -> exact -- at the nprobe floor, switch to the store's exact
+      2. hybrid -> dense -- drop the lexical signal and recompile as a pure
+         dense plan on the engine the planner picks for it (the store's
+         exact engine, or "ivf"); the one rung that changes what the query
+         ranks on, so it is recorded in ``explain()`` and `ExecStats`;
+      3. ivf -> exact -- at the nprobe floor, switch to the store's exact
          engine when the cost model prices it under the floored probe. The
          port ships no cost model, so without one this rung is None.
 
-    The hybrid -> dense rung arrives with the serving slice; an exact plan
-    has nothing to shed.
+    Exhausted (None) leaves the scheduler one lever: a cache-stale serve
+    within the declared staleness bound (``RagDB.execute(stale_within_s=)``).
 
     >>> from repro_torch.api.plan import LogicalPlan
     >>> kw = dict(n_rows=1 << 10, hot_window_s=10, now_ts=0, warm_rows=0)
@@ -528,4 +537,11 @@ def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
                 return dataclasses.replace(
                     fresh, degraded=plan.degraded + (f"ivf->{exact}",))
         return None
+    if plan.engine == "hybrid":
+        dense = dataclasses.replace(plan.logical, match_terms=None,
+                                    fusion="wsum", w_dense=1.0, w_lex=1.0,
+                                    engine=None)
+        fresh = compile_plan(dense, **kw)
+        return dataclasses.replace(
+            fresh, degraded=plan.degraded + ("hybrid->dense",))
     return None

@@ -69,9 +69,13 @@ class Predicate:
         key = (self, str(dev))
         cached = _PRED_CACHE.get(key)
         if cached is None:
-            cached = torch.tensor(
+            host = torch.tensor(
                 [self.tenant, self.min_ts, _int32_bits(self.cat_mask),
-                 _int32_bits(self.acl_bits)], dtype=torch.int32, device=dev)
+                 _int32_bits(self.acl_bits)], dtype=torch.int32)
+            # to the card by an asynchronous copy from pinned memory: a
+            # predicate's first launch must not wait on the device either
+            cached = (host.pin_memory().to(dev, non_blocking=True)
+                      if dev.type == "cuda" else host.to(dev))
             while len(_PRED_CACHE) >= _PRED_CACHE_CAP:
                 _PRED_CACHE.popitem(last=False)
             _PRED_CACHE[key] = cached

@@ -102,11 +102,12 @@ def rrf_fuse(ds, di, ls, li, k: int, c: float):
 def _fold(q, qidf, mode, w_dense, w_lex):
     """Identical weight folding in every engine: wsum scales the inputs
     once, elementwise, in f32. RRF leaves inputs untouched (rank fusion is
-    scale-free and its lists carry RAW signal scores)."""
+    scale-free and its lists carry RAW signal scores). Each weight is a
+    0-dim f32 tensor on the host, which a CUDA operand takes as a kernel
+    argument: no copy to the card, so a launch never waits on it."""
     if mode == "wsum":
-        f32 = lambda w, x: torch.tensor(w, dtype=torch.float32,
-                                        device=x.device)
-        return q * f32(w_dense, q), qidf * f32(w_lex, qidf)
+        f32 = lambda w: torch.tensor(w, dtype=torch.float32)
+        return q * f32(w_dense), qidf * f32(w_lex)
     return q, qidf
 
 

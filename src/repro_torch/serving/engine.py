@@ -76,8 +76,12 @@ class RAGEngine:
     the engine's own `CompiledShapes`). ``engine`` is the retrieval engine
     hint, "ref" or "cuda". ``model`` is a `Transformer` on ``device`` (the
     card unless the caller asks for another; raises with no card).
-    ``scheduler=`` (admission control) waits for the serving slice.
-    `last_retrieval_device_calls` reports the retrieval calls per batch.
+    ``scheduler=`` (a `serving.scheduler.Scheduler`, front-door path only)
+    routes retrieval through admission control, deadline degradation and
+    staleness-bounded serves instead of a direct `RagDB.execute`; a shed
+    request serves with no retrieved context (slots -1, scores -inf),
+    counted in `last_shed_requests`. `last_retrieval_device_calls`
+    reports the retrieval calls per batch.
     """
 
     def __init__(self, store: Store | RagDB, cfg: tfm.TransformerConfig,
@@ -86,10 +90,6 @@ class RAGEngine:
                  doc_token_fn: Callable[[int], np.ndarray] | None = None,
                  warm_doc_token_fn: Callable[[int], np.ndarray] | None = None,
                  engine: str = "ref", scheduler=None, device=None):
-        if scheduler is not None:
-            raise NotImplementedError(
-                "scheduler-backed retrieval needs serving/scheduler.py, "
-                "which the port has not reached (ROADMAP queue 1, 'Serving')")
         if cfg.is_moe:
             raise NotImplementedError(tfm._MOE_LATER)
         if engine not in ("ref", "cuda"):
@@ -105,7 +105,12 @@ class RAGEngine:
             self.db = None
             self.store = store
         self._shapes = CompiledShapes()    # raw-store path's bucketed shapes
+        if scheduler is not None and not isinstance(store, RagDB):
+            raise ValueError("scheduler-backed retrieval needs the "
+                             "front-door path -- construct with a RagDB")
+        self.scheduler = scheduler
         self.last_retrieval_device_calls = 0
+        self.last_shed_requests = 0
         self.cfg = cfg
         self.model = model
         self.k = k
@@ -172,6 +177,36 @@ class RAGEngine:
             b = b.in_categories(r.categories)
         return b.plan()
 
+    def _serve_scheduled(self, plans):
+        """Route a batch of lowered plans through the attached scheduler:
+        admission control, deadline degradation and staleness-bounded
+        serves all apply. Results come back in request order; a shed
+        request contributes empty provenance (slots -1, -inf scores)."""
+        from repro_torch.serving.scheduler import ServeRequest
+        sched = self.scheduler
+        now = sched.clock()
+        k = plans[0].logical.k
+        B = len(plans)
+        scores = np.full((B, k), -np.inf, np.float32)
+        slots = np.full((B, k), -1, np.int32)
+        tiers = np.zeros((B, k), np.int32)
+        self.last_shed_requests = 0
+        admitted = set()
+        for i, p in enumerate(plans):
+            req = ServeRequest(plan=p, arrival_t=now, req_id=i,
+                               tenant=p.pred.tenant)
+            if sched.offer(req):
+                admitted.add(i)
+            else:
+                self.last_shed_requests += 1
+        for res in sched.run_until_idle():
+            i = res.request.req_id
+            if i in admitted:
+                scores[i] = res.scores[0]
+                slots[i] = res.slots[0]
+                tiers[i] = res.tiers[0]
+        return scores, slots, tiers
+
     # -- the serving step -------------------------------------------------
     def serve(self, requests: list[Request], *, greedy: bool = True,
               seed: int = 0) -> list[Response]:
@@ -194,7 +229,10 @@ class RAGEngine:
         if self.db is not None:
             plans = [self._lower_request(r, q[i]) for i, r in enumerate(requests)]
             calls0 = self.db.stats.device_calls
-            scores, slots, tiers = self.db.execute(plans)
+            if self.scheduler is not None:
+                scores, slots, tiers = self._serve_scheduled(plans)
+            else:
+                scores, slots, tiers = self.db.execute(plans)
             self.last_retrieval_device_calls = self.db.stats.device_calls - calls0
         else:
             if any(r.match_terms is not None for r in requests):

@@ -1,7 +1,9 @@
 """Doctest smoke for the port's front door, IVF index, warm tier, router,
-lexical arena, arena-scan tile policy, hybrid reference, observability and
-corpus docstrings (the twin of tests/test_doctests.py): every ``>>>``
-example runs here on the CPU, so the runnable examples cannot rot."""
+lexical arena, split-stack two-scan baseline, arena-scan tile policy,
+hybrid reference, observability, serving (scheduler, load harness,
+metrics, faults) and corpus docstrings (the twin of
+tests/test_doctests.py): every ``>>>`` example runs here on the CPU, so
+the runnable examples cannot rot."""
 import doctest
 
 import pytest
@@ -17,6 +19,7 @@ import repro_torch.core.router
 import repro_torch.core.splitstack
 import repro_torch.data.corpus
 import repro_torch.index.lexical.arena
+import repro_torch.index.lexical.twoscan
 import repro_torch.kernels.arena_scan.ops
 import repro_torch.kernels.arena_scan.stages
 import repro_torch.kernels.hybrid_score.ref
@@ -24,6 +27,9 @@ import repro_torch.obs.calibration
 import repro_torch.obs.recorder
 import repro_torch.obs.tracer
 import repro_torch.serving.faults
+import repro_torch.serving.load
+import repro_torch.serving.metrics
+import repro_torch.serving.scheduler
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.torch_port
@@ -39,6 +45,7 @@ MODULES = [
     repro_torch.core.splitstack,
     repro_torch.data.corpus,
     repro_torch.index.lexical.arena,
+    repro_torch.index.lexical.twoscan,
     repro_torch.kernels.arena_scan.ops,
     repro_torch.kernels.arena_scan.stages,
     repro_torch.kernels.hybrid_score.ref,
@@ -46,6 +53,9 @@ MODULES = [
     repro_torch.obs.recorder,
     repro_torch.obs.calibration,
     repro_torch.serving.faults,
+    repro_torch.serving.load,
+    repro_torch.serving.metrics,
+    repro_torch.serving.scheduler,
 ]
 
 

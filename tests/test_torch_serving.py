@@ -8,9 +8,12 @@ reference's parameters carried across by `from_numpy`: the retrieved slots
 and the greedy tokens must be equal, scores within 1e-5, and no slot of
 another tenant may surface. Sampled decoding draws from the reference's
 numpy generator and must give the same tokens. The engine's refusals are
-checked too: ``scheduler=``, an MoE config, a model on another device,
-no device with no card, and a batch whose decode would run past the KV
-cache (refused before retrieval).
+checked too: ``scheduler=`` on a raw store (the reference's ValueError),
+an MoE config, a model on another device, no device with no card, and a
+batch whose decode would run past the KV cache (refused before
+retrieval). Through a `Scheduler` whose queue is too small for the batch,
+both engines shed the same requests (served with no retrieved context) and
+retrieve the same slots and greedy tokens for the rest.
 """
 import dataclasses
 
@@ -30,6 +33,8 @@ from repro.models.transformer import TransformerConfig as JTransformerConfig
 from repro.models.transformer import init as j_init
 from repro.serving.engine import RAGEngine as JRAGEngine
 from repro.serving.engine import Request as JRequest
+from repro.serving.scheduler import Scheduler as JScheduler
+from repro.serving.scheduler import SchedulerConfig as JSchedulerConfig
 from repro_torch import configs as tconfigs
 from repro_torch.api import RagDB
 from repro_torch.core.store import StoreConfig
@@ -39,6 +44,8 @@ from repro_torch.data.corpus import CorpusConfig, make_corpus
 from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 from repro_torch.models import transformer as tt
 from repro_torch.serving.engine import RAGEngine, Request
+from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+from tests.test_torch_scheduler import FakeClock
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.torch_port
@@ -135,6 +142,40 @@ def test_engine_predicates_match_reference(path):
     _assert_same(jeng.serve(jreqs), teng.serve(treqs), (0, 1, 2, 3))
 
 
+def test_scheduled_engine_matches_reference():
+    """RAGEngine(scheduler=) on both packages, each scheduler on its own
+    fake clock: a queue of 3 sheds the fourth request of the batch, which
+    serves with no retrieved context (slots -1, scores -inf); the others
+    retrieve what the unscheduled engine does, and the greedy tokens of
+    all four are the reference's."""
+    jcfg, params, tcfg, model = _models()
+    jdb = JRagDB(JStoreConfig(capacity=CAP, dim=CCFG["dim"]))
+    jdb.ingest(j_make_corpus(JCorpusConfig(**CCFG)))
+    tdb = RagDB(StoreConfig(capacity=CAP, dim=CCFG["dim"]), device="cpu")
+    tdb.ingest(make_corpus(CorpusConfig(**CCFG), device="cpu"))
+    kw = dict(max_queue=3, max_batch=2, use_cache=False, slo_ms=1e9)
+    jeng = JRAGEngine(jdb, jcfg, params, **ENGINE_KW,
+                      scheduler=JScheduler(jdb, JSchedulerConfig(**kw),
+                                           clock=FakeClock()))
+    teng = RAGEngine(tdb, tcfg, model, **ENGINE_KW, device="cpu",
+                     scheduler=Scheduler(tdb, SchedulerConfig(**kw),
+                                         clock=FakeClock()))
+    jreqs, treqs = _requests(n_tokens=3, tenants=(0, 1, 2, 3))
+    jresps, tresps = jeng.serve(jreqs), teng.serve(treqs)
+    assert teng.last_shed_requests == jeng.last_shed_requests == 1
+    shed = tresps[3]
+    assert (shed.doc_slots == -1).all() and np.isneginf(shed.doc_scores).all()
+    _assert_same(jresps[:3], tresps[:3], (0, 1, 2))
+    assert (shed.tokens == np.asarray(jresps[3].tokens)).all()
+    assert (np.asarray(jresps[3].doc_slots) == -1).all()
+    assert (teng.last_retrieval_device_calls
+            == jeng.last_retrieval_device_calls)
+    # unscheduled, the same three requests retrieve the same slots
+    plain = RAGEngine(tdb, tcfg, model, **ENGINE_KW, device="cpu")
+    for a, b in zip(plain.serve(treqs[:3]), tresps[:3]):
+        assert (a.doc_slots == b.doc_slots).all()
+
+
 def test_sampled_decoding_matches_reference():
     jeng, teng = _raw_engines()
     jreqs, treqs = _requests(n_tokens=5)
@@ -167,7 +208,7 @@ def test_engine_refusals(monkeypatch):
     tlog = TransactionLog(StoreConfig(capacity=64, dim=CCFG["dim"]),
                           device="cpu")
     snap = tlog.snapshot()
-    with pytest.raises(NotImplementedError, match="scheduler"):
+    with pytest.raises(ValueError, match="front-door"):
         RAGEngine(snap, tcfg, model, scheduler=object(), device="cpu")
     moe = dataclasses.replace(tcfg, n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="moe"):

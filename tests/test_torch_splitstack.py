@@ -181,14 +181,18 @@ def test_cache_staleness_bounded_by_invalidation():
 def test_filter_bug_leaks_the_same_rows_as_the_reference(seed):
     """filter_bug_rate installs a ``split.filter_bug`` rule on a FaultPlan
     seeded by rng_seed: the same seed fires on the same calls in both
-    packages, so the same rows leak."""
+    packages, so the same rows leak. The metadata caches never expire
+    here: their TTL runs on the wall clock, and a slow test run would
+    otherwise drop a row between its fetch and its filter in one package
+    and not the other."""
     ccfg = CorpusConfig(**CCFG)
     split = t_split.SplitStackClient(StoreConfig(capacity=CAP, dim=DIM),
                                      filter_bug_rate=0.5, rng_seed=seed,
-                                     device="cpu")
+                                     cache_ttl_s=1e9, device="cpu")
     split.ingest(make_corpus(ccfg, device="cpu"))
     jsplit = j_split.SplitStackClient(JStoreConfig(capacity=CAP, dim=DIM),
-                                      filter_bug_rate=0.5, rng_seed=seed)
+                                      filter_bug_rate=0.5, rng_seed=seed,
+                                      cache_ttl_s=1e9)
     jsplit.ingest(j_make_corpus(JCorpusConfig(**CCFG)))
     tenant_of = make_corpus(ccfg, device="cpu").tenant.numpy()
     leaks = 0
