@@ -218,6 +218,40 @@ Phases:
                 idle shares, the hot kernels' CUDA-event times, the warm
                 probe's wall and device time beside its bound, the host
                 merge, peak memory.
+ 13b. sharded_prod (after tiered_prod, its arenas freed) -- the sharded
+                engine at production width: a RagDB over
+                rag_unified.PRODUCTION cut to 2^23 x 768 rows (16 lanes,
+                8,323,072 docs: room in each region for tenant placement's
+                uneven fill) with mesh=make_mesh((4,), ("data",),
+                devices=[card] * 4), four logical shards of 2^21 rows, built
+                with placement "hash" and then (the first dropped)
+                "tenant". Batches of 32 requests in 4 tenant groups, k = 10,
+                planned "sharded" by shard_min_rows: the kernel's launches
+                a batch (one a scanned shard), ExecStats' shard rows and
+                collective bytes, the explain() lines; (a) the lists equal
+                the unsharded fused kernel's on the same rows bit for bit,
+                0 ties straddling the k-th place, 0 leaked slots; one
+                shard's kernel against its plain version; (g) RagDB.launch
+                of a sharded batch under set_sync_debug_mode("error"); (e)
+                filtered_topk_sharded equal to filtered_topk_cuda on the
+                whole arena; (c) poisoned foreign-tenant rows (another
+                shard's tenant and the same shard's) out-scoring the corpus
+                never returned, a tenant-scoped plan one launch over one
+                shard; (b) 64 rows sharing one embedding, lists
+                bit-identical under a shuffled row order, the tie widening
+                fired; a batch of 5 rows a group (3 zero rows padding each)
+                widens no shard and equals the full batch's rows; a long
+                tie run (4,096 of 2^16 rows share one embedding, all in
+                region 0, then shuffled): the same lists, the widened
+                kernel (k 5,632 on region 0) against its plain version
+                and timed; (f) decode_attention_sharded at lm_serve's shape (B
+                8, cache 2064, 4 shards of 516, one sequence live in the
+                first shard only) within 2e-5 of the unsharded kernel, 4
+                launches. Batch medians (hash, tenant, the unsharded fused
+                batch), one shard's kernel time (events, device) beside
+                its bound, the tie widenings, collective bytes, the
+                sharded decode's time beside the kernel's, the decode
+                wrapper's host cost a call, peak memory.
  14. lm_serve (runs last, after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
@@ -241,7 +275,9 @@ Phases:
                 peak memory.
 
 Prints the card's name and power limit, one JSON line per phase, a
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line (each row with ``paths``: the phases whose
+counted runs launched it, with their launches), and last ``{"ok": true,
+"device": {...}}``.
 Exits non-zero without a result when no card is present or the package is
 missing.
 """
@@ -1032,6 +1068,11 @@ def phase_ivf_kernel():
     return max(errs)
 
 
+def same_bits(a, b):
+    """Two float32 numpy arrays equal bit for bit."""
+    return a.shape == b.shape and (a.view(np.int32) == b.view(np.int32)).all()
+
+
 def bits_equal(a, b):
     """Two result tuples equal bit for bit (scores compared as int32)."""
     return all(x.shape == y.shape and (
@@ -1167,15 +1208,15 @@ def phase_paged_kernel():
 
 def phase_bench(dev):
     from repro_torch.api import RagDB
+    from repro_torch.configs import rag_unified
     from repro_torch.core.query import unified_query_ref
-    from repro_torch.core.store import StoreConfig
     from repro_torch.core.tenancy import Principal
-    from repro_torch.data.corpus import DAY_S, CorpusConfig, make_corpus
+    from repro_torch.data.corpus import DAY_S, make_corpus
 
     t_phase = time.perf_counter()
 
-    ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
-    db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
+    ccfg = rag_unified.BENCH_CORPUS
+    db = RagDB(rag_unified.BENCH,
                device=dev)
     db.ingest(make_corpus(ccfg, device=dev))
     rng = np.random.default_rng(SEED + 1)
@@ -1202,7 +1243,8 @@ def phase_bench(dev):
     check(st.fused_scans - before.fused_scans == 1, "batch did not fuse")
     check(st.device_calls - before.device_calls == 1,
           "device_calls != dispatch units (1)")
-    check(st.rows_scanned - before.rows_scanned == 65_536,
+    check(st.rows_scanned - before.rows_scanned
+          == rag_unified.BENCH.capacity,
           "rows_scanned != arena capacity")
     check(launches >= 1, "kernel LAUNCHES did not grow")
     snap = db.log.snapshot()
@@ -1246,7 +1288,8 @@ def phase_bench(dev):
           "the deleted doc is still served")
     emit("bench", seconds=time.perf_counter() - t_phase, rows=32, groups=4,
          engine="cuda", launches=launches,
-         fused_scans=1, device_calls=1, rows_scanned=65_536,
+         fused_scans=1, device_calls=1,
+         rows_scanned=rag_unified.BENCH.capacity,
          max_abs_err=max(errs),
          writes="deleted doc gone, updated doc top-1, cache missed")
     return launches, max(errs)
@@ -1254,18 +1297,18 @@ def phase_bench(dev):
 
 def phase_hybrid_bench(dev):
     from repro_torch.api import RagDB
-    from repro_torch.core.store import DocBatch, StoreConfig
+    from repro_torch.configs import rag_unified
+    from repro_torch.core.store import DocBatch
     from repro_torch.core.tenancy import Principal
-    from repro_torch.data.corpus import (CorpusConfig, make_corpus,
-                                         make_keyword_queries)
+    from repro_torch.data.corpus import make_corpus, make_keyword_queries
     from repro_torch.index.lexical import LexicalConfig
     from repro_torch.kernels.arena_scan.ops import _packed_meta
     from repro_torch.kernels.hybrid_score.ref import hybrid_score_ref, qidf_of
 
     t_phase = time.perf_counter()
 
-    ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
-    db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
+    ccfg = rag_unified.BENCH_CORPUS
+    db = RagDB(rag_unified.BENCH,
                lexical_cfg=LexicalConfig(), device=dev)
     corpus = make_corpus(ccfg, device=dev)
     db.ingest(corpus)
@@ -1315,7 +1358,8 @@ def phase_hybrid_bench(dev):
         check(launches == 1, f"{launches} hybrid launches for one batch")
         check(st.fused_scans - before.fused_scans == 1, "batch did not fuse")
         check(st.device_calls - before.device_calls == 1, "device_calls != 1")
-        check(st.terms_scanned - before.terms_scanned == 65_536 * 16,
+        check(st.terms_scanned - before.terms_scanned
+              == rag_unified.BENCH.capacity * 16,
               "terms_scanned != arena rows x lanes")
         for r, plan in enumerate(batch):
             qt = np.full((1, plan.lex[1]), -1, np.int32)
@@ -1362,16 +1406,17 @@ def phase_hybrid_bench(dev):
 
 def phase_ivf_bench(dev):
     from repro_torch.api import RagDB
-    from repro_torch.core.store import DocBatch, StoreConfig
+    from repro_torch.configs import rag_unified
+    from repro_torch.core.store import DocBatch
     from repro_torch.core.tenancy import Principal
-    from repro_torch.data.corpus import CorpusConfig, make_corpus, make_queries
+    from repro_torch.data.corpus import make_corpus, make_queries
     from repro_torch.kernels.arena_scan.ops import _packed_meta
     from repro_torch.kernels.ivf_probe.ref import candidate_slots
 
     t_phase = time.perf_counter()
 
-    ccfg = CorpusConfig(n_docs=50_000, dim=128, n_tenants=20, n_categories=5)
-    db = RagDB(StoreConfig(capacity=65_536, dim=128, metric="cosine"),
+    ccfg = rag_unified.BENCH_CORPUS
+    db = RagDB(rag_unified.BENCH,
                device=dev)
     db.ingest(make_corpus(ccfg, device=dev))
     t0 = time.perf_counter()
@@ -1442,7 +1487,7 @@ def phase_ivf_bench(dev):
     _, _, P1 = ix.probe(res.plan.logical.q, ix.cfg.nprobe)
     check(kernel_mod.LAUNCHES == int(exact == "cuda"),
           "the completeness rescan did not run on the kernel")
-    check(db.stats.rows_scanned - rows0 == P1 + 65_536,
+    check(db.stats.rows_scanned - rows0 == P1 + rag_unified.BENCH.capacity,
           "rows_scanned != probe + one arena rescan")
     ref = admin.search(qs[1]).newer_than(min_ts).limit(10).using("cuda").run()
     check((res.slots == ref.slots).all() and (res.scores == ref.scores).all(),
@@ -1602,7 +1647,15 @@ def events_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
+def prod_cut():
+    """(rows, dim) of the prod cells: rag_unified.PRODUCTION (2^26 x 768)
+    cut to 2^23 rows, what one 80 GB card holds twice during an
+    out-of-place commit."""
+    from repro_torch.configs import rag_unified
+    return rag_unified.PRODUCTION.capacity >> 3, rag_unified.PRODUCTION.dim
+
+
+def phase_prod(dev, n_rows=None, dim=None, chunk=1 << 20, ptxas=()):
     from repro_torch.api import RagDB
     from repro_torch.core.store import StoreConfig
     from repro_torch.core.tenancy import Principal
@@ -1613,6 +1666,7 @@ def phase_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20, ptxas=()):
 
     t_phase = time.perf_counter()
 
+    n_rows, dim = n_rows or prod_cut()[0], dim or prod_cut()[1]
     ccfg = CorpusConfig(n_docs=n_rows, dim=dim, n_tenants=20, n_categories=5)
     db = RagDB(StoreConfig(capacity=n_rows, dim=dim),
                lexical_cfg=LexicalConfig(), device=dev)
@@ -2056,12 +2110,14 @@ def phase_ivf_prod(dev, prod):
     q = np.stack([p.logical.q[0] for p in plans])
     nprobe = ix.cfg.nprobe
     store = db.log.snapshot()
-    _finish_hot(_launch_hot(store, q, pred, 10, "ivf", ix, nprobe, 32))
+    _finish_hot(_launch_hot(store, q, pred, 10, "ivf", ivf=ix,
+                            nprobe=nprobe, n_valid=32))
     sync()
     ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = kernel_mod.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        hot = _launch_hot(store, q, pred, 10, "ivf", ix, nprobe, 32)
+        hot = _launch_hot(store, q, pred, 10, "ivf", ivf=ix,
+                          nprobe=nprobe, n_valid=32)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     h_s, h_i = _finish_hot(hot)
@@ -2855,7 +2911,7 @@ def plain_rrf(d_keys, l_keys, k, c):
                   key=lambda e: (-e[0], pos[e[1]]))[:k]
 
 
-def phase_tiered_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20,
+def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                       hot_cap=1 << 22, warm_cap=6_400_000, n_batches=6,
                       n_lex_batches=3):
     from repro_torch.api import RagDB
@@ -2868,6 +2924,7 @@ def phase_tiered_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20,
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    n_rows, dim = n_rows or prod_cut()[0], dim or prod_cut()[1]
     ccfg = CorpusConfig(n_docs=n_rows, dim=dim, n_tenants=20, n_categories=5)
     window = ccfg.days_span * DAY_S // 4
     lcfg = LexicalConfig()
@@ -3251,6 +3308,473 @@ def phase_tiered_prod(dev, n_rows=1 << 23, dim=768, chunk=1 << 20,
              warm.stats.inconsistency_windows_s),
          rrf_rows_skipped=rrf_rows_skipped, max_abs_err=max(errs),
          profile=profiles, peak_mem_gb=peak_gb())
+
+
+def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
+                       n_shards=4, n_batches=6, tie_rows=1 << 12,
+                       long_tie=(1 << 16, 4096),
+                       dec_shape=(8, 2064, 8, 4, 128)):
+    """The sharded engine at production width on one card: a RagDB over
+    rag_unified.PRODUCTION cut to 2^23 x 768 rows (16 lanes) with
+    ``mesh=make_mesh((4,), ("data",), devices=[card] * 4)``, built with
+    hash placement and then, the first dropped, with tenant placement;
+    then constructed ties, filtered_topk_sharded and decode_attention_
+    sharded. ``long_tie`` (rows, tied rows) sizes the arena of the long
+    tie run, whose first region holds every tied row at first. Returns
+    the launches of the main path's runs and the errors for the kernels
+    line."""
+    from repro_torch.api import RagDB
+    from repro_torch.configs import rag_unified
+    from repro_torch.core.query import Predicate
+    from repro_torch.core.store import DocBatch
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
+    from repro_torch.index.lexical import LexicalConfig
+    from repro_torch.kernels.arena_scan import sharded as sh_mod
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.filtered_topk.filtered_topk import \
+        filtered_topk_cuda
+    from repro_torch.kernels.filtered_topk.ops import filtered_topk_sharded
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    prod_cfg = rag_unified.PRODUCTION
+    n_rows, dim = n_rows or prod_cut()[0], dim or prod_cut()[1]
+    S, k = n_shards, 10
+    n_local = n_rows // S
+    # tenant placement fills the regions unevenly: leave each region room
+    # for its tenants' share to run over the mean (65,536 rows at 2^23, 13
+    # standard deviations of a region's count)
+    n_docs = n_rows - max(n_rows // 128, 16 * int(np.sqrt(n_rows)))
+    mesh = make_mesh((S,), ("data",), devices=[dev] * S)
+    ccfg = CorpusConfig(n_docs=n_docs, dim=dim, n_tenants=20, n_categories=5)
+    rng = np.random.default_rng(SEED + 9)
+    qs = rng.standard_normal((32, dim)).astype(np.float32)
+    groups = [(Principal(t, 0xFF), ccfg.now_ts - d * DAY_S, c)
+              for t, d, c in ((2, 90, [0, 1]), (5, 150, [2, 3]),
+                              (11, 45, [4]), (19, 170, [0, 2, 4]))]
+    cbytes_launch = sh_mod.sharded_collective_bytes(S, 1, k, n_local)
+    neg = np.float32(np.finfo(np.float32).min)
+
+    def plans_of(db, engine=None, n=32):
+        out = []
+        for r in range(n):
+            p, ts, cats = groups[r % 4]
+            b = (db.session(p).search(qs[r]).newer_than(ts)
+                 .in_categories(cats).limit(k))
+            out.append((b.using(engine) if engine else b).plan())
+        return out
+
+    def leaks(db, plans, sl):
+        """Returned slots failing their request's predicate (host mask)."""
+        meta = _packed_meta(*(db.log.snapshot()[c] for c in (
+            "tenant", "updated_at", "category", "acl")))
+        got = meta[torch.from_numpy(np.maximum(sl, 0)).to(dev).long()]
+        got = got.cpu().numpy()
+        n = 0
+        for r, p in enumerate(plans):
+            ok = host_mask(got[r], p.pred.as_array().numpy()[None])[0]
+            n += int((~ok & (sl[r] >= 0)).sum())
+        return n
+
+    def run(placement):
+        db = RagDB(dataclasses.replace(prod_cfg, capacity=n_rows, dim=dim),
+                   mesh=mesh, placement=placement,
+                   lexical_cfg=LexicalConfig(), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        for start in range(0, n_docs, chunk):
+            batch = device_corpus(ccfg, start, min(chunk, n_docs - start),
+                                  gen)
+            db.ingest(batch)
+            del batch
+        sync()
+        ingest_s = time.perf_counter() - t0
+        check(int(db.log.snapshot()["n_live"]) == n_docs, "n_live")
+        plans, cuda_plans = plans_of(db), plans_of(db, "cuda")
+        check(all(p.engine == "sharded" and p.shards == S
+                  and p.placement == placement for p in plans),
+              f"plans must pick 'sharded' ({plans[0].engine_reason})")
+        check("sharding:" in plans[0].explain(), "explain: no sharding line")
+        db.execute(plans, use_cache=False)            # warm-up
+        db.execute(cuda_plans, use_cache=False)
+        sync()
+
+        # the main path's run: the counts set to 0 just before, read after
+        fn = db._sharded_fn(k)
+        per_batch = [fn.active(p.pred.tenant) for p in plans[:4]]
+        rows0 = list(db.stats.shard_rows_scanned)
+        cb0 = db.stats.collective_bytes
+        widen0 = sh_mod.TIE_WIDENS
+        kernel_mod.LAUNCHES = 0
+        lat = []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            s, sl, _ = db.execute(plans, use_cache=False)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = kernel_mod.LAUNCHES
+        rows = [a - b for a, b in zip(db.stats.shard_rows_scanned, rows0)]
+        want_rows = [n_batches * n_local * sum(sh in act for act in per_batch)
+                     for sh in range(S)]
+        check(launches == n_batches * sum(map(len, per_batch)),
+              f"{placement}: {launches} kernel launches for {n_batches} "
+              f"batches of {sum(map(len, per_batch))} shard scans")
+        check(rows == want_rows, f"{placement}: shard rows {rows} != "
+              f"{want_rows}")
+        cbytes = db.stats.collective_bytes - cb0
+        check(cbytes == n_batches * 4 * cbytes_launch and
+              db.stats.shards_used == S, f"{placement}: collective bytes "
+              f"{cbytes}, shards_used {db.stats.shards_used}")
+        widens = sh_mod.TIE_WIDENS - widen0
+        explain = [ln for ln in db.explain().splitlines() if "sharded:" in ln]
+        check(len(explain) == 1, "RagDB.explain(): no sharded line")
+
+        # a batch of 5 rows a group: each group padded with 3 zero rows,
+        # which tie at every place; the tie checks read only the real rows
+        pad0, widen0 = db.stats.padded_rows, sh_mod.TIE_WIDENS
+        t0 = time.perf_counter()
+        s5, sl5, _ = db.execute(plans_of(db, n=20), use_cache=False)
+        padded_ms = (time.perf_counter() - t0) * 1e3
+        padded_widens = sh_mod.TIE_WIDENS - widen0
+        check(db.stats.padded_rows - pad0 == 12, f"{placement}: "
+              f"{db.stats.padded_rows - pad0} padding rows, not 12")
+        check(padded_widens == 0, f"{placement}: {padded_widens} shard "
+              "scans widened for a padded group")
+        check(same_bits(s5, s[:20]) and (sl5 == sl[:20]).all(),
+              f"{placement}: a padded group's lists != the full batch's")
+
+        # the unsharded fused batch on the same rows, and (a) identity
+        kernel_mod.LAUNCHES = 0
+        lat_u = []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            s_u, sl_u, _ = db.execute(cuda_plans, use_cache=False)
+            lat_u.append((time.perf_counter() - t0) * 1e3)
+        check(kernel_mod.LAUNCHES == n_batches, "unsharded: one fused "
+              "launch a batch")
+        check(same_bits(s, s_u) and (sl == sl_u).all(),
+              f"{placement}: sharded lists != the unsharded kernel's")
+        snap = db.log.snapshot()
+        meta = _packed_meta(snap["tenant"], snap["updated_at"],
+                            snap["category"], snap["acl"])
+        order = [r for g in range(4) for r in range(g, 32, 4)]
+        q = torch.from_numpy(np.concatenate([plans[r].logical.q
+                                             for r in order])).to(dev)
+        gids = torch.tensor([g for g in range(4) for _ in range(8)],
+                            dtype=torch.int32, device=dev)
+        preds = torch.stack([plans[g].pred.as_array(dev) for g in range(4)])
+        s_k1, _ = kernel_mod.arena_scan_cuda(q, snap["emb"], meta, gids,
+                                             preds, k + 1)
+        s_k1 = s_k1.cpu().numpy()
+        straddles = int(((s_k1[:, k - 1] == s_k1[:, k])
+                         & (s_k1[:, k - 1] > neg)).sum())
+        check(straddles == 0, f"{placement}: {straddles} rows with a tie "
+              "at the k-th place")
+        n_leaks = leaks(db, plans, sl)
+        check(n_leaks == 0, f"{placement}: {n_leaks} leaked slots")
+
+        # (g) no host sync in RagDB.launch of a sharded batch
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = db.launch(plans, use_cache=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        s_g, sl_g, _ = db.finish(pending)
+        del pending
+        check(same_bits(s_g, s) and (sl_g == sl).all(),
+              "launch / finish rows != execute rows")
+
+        # one shard's kernel alone (group 0's rows on region 0, k + 1 as
+        # the engine launches it) against its plain version
+        q8, g8 = q[:8].contiguous(), gids[:8]
+        region = (snap["emb"][:n_local], meta[:n_local])
+        args = (q8, *region, g8, preds[:1].contiguous(), k + 1)
+        s_1, i_1 = kernel_mod.arena_scan_cuda(*args)
+        s_p, i_p = kernel_mod.arena_scan_plain(*args)
+        sync()
+        err = compare(f"sharded_{placement}_shard0", s_1.cpu().numpy(),
+                      i_1.cpu().numpy(), s_p.cpu().numpy(),
+                      i_p.cpu().numpy(),
+                      host_mask(region[1].cpu().numpy(),
+                                preds[:1].cpu().numpy())[[0] * 8])
+        shard_ms = events_ms(lambda: kernel_mod.arena_scan_cuda(*args), 10)
+        shard_dev_ms, _ = device_ms(lambda: kernel_mod.arena_scan_cuda(*args),
+                                    5)
+        nbytes = n_local * (4 * dim + 16) + 8 * dim * 4 + 8 * (k + 1) * 8
+        flops = 2 * 8 * n_local * dim
+        shard_bound = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
+        shard_plain_ms = events_ms(
+            lambda: kernel_mod.arena_scan_plain(*args), 3)
+        profile = profile_batch(lambda: db.execute(plans, use_cache=False),
+                                SCAN_TAGS)
+        out = dict(ingest_s=ingest_s, batch_ms_median=statistics.median(lat),
+                   batch_ms=lat,
+                   unsharded_batch_ms_median=statistics.median(lat_u),
+                   unsharded_batch_ms=lat_u, launches=launches,
+                   launches_per_batch=launches // n_batches,
+                   shard_rows_scanned=rows, collective_bytes=cbytes,
+                   collective_bytes_per_launch=cbytes_launch,
+                   tie_widens=widens, padded_batch_ms=padded_ms,
+                   padded_widens=padded_widens, straddles=straddles,
+                   leaks=n_leaks,
+                   shard_kernel_ms=shard_ms,
+                   shard_kernel_device_ms=shard_dev_ms,
+                   shard_bound_ms=shard_bound, shard_plain_ms=shard_plain_ms,
+                   max_abs_err=err, explain=explain,
+                   plan_sharding=[ln.strip() for ln in
+                                  plans[0].explain().splitlines()
+                                  if "sharding:" in ln],
+                   idle_share=profile["idle_share"], profile=profile)
+        del snap, meta, region, args, s_k1
+        return db, out
+
+    db, hash_run = run("hash")
+    # (e) filtered_topk_sharded against the kernel on the whole arena
+    snap = db.log.snapshot()
+    meta = _packed_meta(snap["tenant"], snap["updated_at"],
+                        snap["category"], snap["acl"])
+    q8 = torch.from_numpy(np.stack([qs[r] / np.linalg.norm(qs[r])
+                                    for r in range(0, 32, 4)])).to(dev)
+    pred0 = groups_pred = plans_of(db)[0].pred.as_array(dev)
+    kernel_mod.LAUNCHES = 0
+    s_f, i_f = filtered_topk_sharded(mesh, "data", q8, snap["emb"], meta,
+                                     pred0, k)
+    check(kernel_mod.LAUNCHES == S, "filtered_topk_sharded: one launch a "
+          "shard")
+    s_w, i_w = filtered_topk_cuda(q8, snap["emb"], meta, pred0, k)
+    check(same_bits(s_f.cpu().numpy(), s_w.cpu().numpy())
+          and torch.equal(i_f, i_w),
+          "filtered_topk_sharded != filtered_topk_cuda on the whole arena")
+    ft_ms = events_ms(lambda: filtered_topk_sharded(
+        mesh, "data", q8, snap["emb"], meta, pred0, k), 6)
+    ft_whole_ms = events_ms(lambda: filtered_topk_cuda(
+        q8, snap["emb"], meta, pred0, k), 6)
+    del snap, meta, s_f, i_f, s_w, i_w, groups_pred
+    del db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    db, tenant_run = run("tenant")
+    # (c) the tenant-affine skip with poisoned rows: for each group, its
+    # first query's direction under two foreign tenants (one owned by
+    # another shard, one by the same shard), passing every other clause
+    poison = []
+    for p, ts, cats in groups:
+        t = p.tenant_id
+        for foreign in ((t + 1) % 20, (t + S) % 20):
+            poison.append((foreign, cats[0]))
+    q_first = np.stack([qs[g] / np.linalg.norm(qs[g]) for g in range(4)])
+    emb_p = torch.from_numpy(np.repeat(q_first, 2, axis=0)).to(dev)
+    m = len(poison)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    poison_ids = list(range(n_docs, n_docs + m))
+    db.ingest(DocBatch(emb=emb_p, tenant=i32([t for t, _ in poison]),
+                       category=i32([c for _, c in poison]),
+                       updated_at=i32([ccfg.now_ts] * m),
+                       acl=i32([-1] * m), doc_id=i32(poison_ids)))
+    poison_slots = {db.log.slot_of(d) for d in poison_ids}
+    admin = (db.admin_session().search(qs[0]).limit(k).using("sharded")
+             .run())
+    check(int(admin.slots[0, 0]) in poison_slots, "a poisoned row must "
+          "top an unscoped query (it is built to out-score the corpus)")
+    p0, ts0, cats0 = groups[0]
+    rows0 = list(db.stats.shard_rows_scanned)
+    kernel_mod.LAUNCHES = 0
+    one = (db.session(p0).search(qs[0]).newer_than(ts0).in_categories(cats0)
+           .limit(k).run())
+    one_rows = [a - b for a, b in zip(db.stats.shard_rows_scanned, rows0)]
+    owner = p0.tenant_id % S
+    check(kernel_mod.LAUNCHES == 1 and one.plan.engine == "sharded",
+          f"a tenant-scoped plan launched {kernel_mod.LAUNCHES} kernels")
+    check(one_rows == [n_local if s == owner else 0 for s in range(S)],
+          f"a tenant-scoped plan scanned {one_rows}")
+    plans = plans_of(db)
+    s_t, sl_t, _ = db.execute(plans, use_cache=False)
+    poisoned = int(np.isin(np.concatenate([sl_t, one.slots]),
+                           list(poison_slots)).sum())
+    check(poisoned == 0, f"{poisoned} poisoned foreign-tenant rows returned")
+    poison_leaks = leaks(db, plans, sl_t)
+    check(poison_leaks == 0, f"{poison_leaks} leaked slots with poison")
+    del db, admin, one, s_t, sl_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) constructed ties: 64 rows share one embedding; the lists are
+    # placement-invariant under a shuffled row order, and the widening
+    # fires
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    emb_t = torch.randn((tie_rows, dim), generator=g, device=dev)
+    emb_t = emb_t / torch.linalg.vector_norm(emb_t, dim=1, keepdim=True)
+    emb_t[:64] = emb_t[0]
+    qt = emb_t[:1] + 1e-3 * torch.randn((8, dim), generator=g, device=dev)
+    qt = (qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)).contiguous()
+    doc_t = torch.arange(tie_rows, dtype=torch.int32, device=dev)
+    cols = dict(tenant=torch.randint(0, 4, (tie_rows,), generator=g,
+                                     device=dev).to(torch.int32),
+                category=torch.zeros(tie_rows, dtype=torch.int32, device=dev),
+                updated_at=torch.full((tie_rows,), 5, dtype=torch.int32,
+                                      device=dev),
+                acl=torch.ones(tie_rows, dtype=torch.int32, device=dev))
+    tie_fn = sh_mod.make_sharded_arena_scan(mesh, "data", tie_rows, k)
+    tie_out = []
+    widen0 = sh_mod.TIE_WIDENS
+    for order in (torch.arange(tie_rows, device=dev),
+                  torch.randperm(tie_rows, generator=g, device=dev)):
+        store = {c: v[order].contiguous() for c, v in cols.items()}
+        store.update(emb=emb_t[order].contiguous(), doc_id=doc_t[order],
+                     version=torch.zeros_like(doc_t),
+                     commit_ts=i32(1), n_live=i32(tie_rows))
+        s_t, sl_t, _ = tie_fn(store, qt, Predicate())
+        ids = torch.where(sl_t >= 0, store["doc_id"][sl_t.clamp(min=0)], -1)
+        tie_out.append((s_t.cpu().numpy(), ids.cpu().numpy()))
+        del store
+    tie_widens = sh_mod.TIE_WIDENS - widen0
+    check(tie_widens > 0, "the tie widening must fire on 64 tied rows")
+    check(same_bits(tie_out[0][0], tie_out[1][0])
+          and (tie_out[0][1] == tie_out[1][1]).all(),
+          "constructed ties: lists move with the row placement")
+    check((tie_out[0][1] == np.arange(k)).all(),
+          "constructed ties: the run must resolve to the smallest doc ids")
+    del emb_t, qt, doc_t, cols
+
+    # a long tie run: the first long_tie[1] rows share one embedding, all in
+    # region 0 at first, then shuffled over the regions; the widened kernel
+    # (its last width on region 0) against its plain version, and timed
+    n_long, n_tied = long_tie
+    lt_local = n_long // S
+    emb_l = torch.randn((n_long, dim), generator=g, device=dev)
+    emb_l = emb_l / torch.linalg.vector_norm(emb_l, dim=1, keepdim=True)
+    emb_l[:n_tied] = emb_l[0]
+    ql = emb_l[:1] + 1e-3 * torch.randn((8, dim), generator=g, device=dev)
+    ql = (ql / torch.linalg.vector_norm(ql, dim=1, keepdim=True)).contiguous()
+    doc_l = torch.arange(n_long, dtype=torch.int32, device=dev)
+    cols_l = dict(tenant=torch.zeros(n_long, dtype=torch.int32, device=dev),
+                  category=torch.zeros(n_long, dtype=torch.int32, device=dev),
+                  updated_at=torch.full((n_long,), 5, dtype=torch.int32,
+                                        device=dev),
+                  acl=torch.ones(n_long, dtype=torch.int32, device=dev))
+    long_fn = sh_mod.make_sharded_arena_scan(mesh, "data", n_long, k)
+    long_out, long_widens, long_ms, long_kk = [], [], [], []
+    for order in (torch.arange(n_long, device=dev),
+                  torch.randperm(n_long, generator=g, device=dev)):
+        store = {c: v[order].contiguous() for c, v in cols_l.items()}
+        store.update(emb=emb_l[order].contiguous(), doc_id=doc_l[order],
+                     version=torch.zeros_like(doc_l),
+                     commit_ts=i32(1), n_live=i32(n_long))
+        sync()
+        widen0 = sh_mod.TIE_WIDENS
+        t0 = time.perf_counter()
+        launched = long_fn.launch(store, ql, Predicate())
+        s_l, sl_l = launched.finish()
+        ids = torch.where(sl_l >= 0, store["doc_id"][sl_l.clamp(min=0)], -1)
+        long_out.append((s_l.cpu().numpy(), ids.cpu().numpy()))
+        long_ms.append((time.perf_counter() - t0) * 1e3)
+        long_widens.append(sh_mod.TIE_WIDENS - widen0)
+        long_kk.append([int(sc.shape[1]) for _, sc, _ in launched.parts])
+        if len(long_out) == 1:
+            store0 = store
+        del launched, store
+    check(same_bits(long_out[0][0], long_out[1][0])
+          and (long_out[0][1] == long_out[1][1]).all()
+          and (long_out[0][1] == np.arange(k)).all(),
+          "long tie run: lists move with the placement, or miss the "
+          "smallest doc ids")
+    check(long_kk[0][0] > n_tied and min(long_widens) > 0,
+          f"long tie run: widths {long_kk}, widenings {long_widens}")
+    meta_l = _packed_meta(store0["tenant"], store0["updated_at"],
+                          store0["category"], store0["acl"])
+    wide_args = (ql, store0["emb"][:lt_local], meta_l[:lt_local],
+                 torch.zeros(8, dtype=torch.int32, device=dev),
+                 Predicate().as_array(dev)[None].contiguous(), long_kk[0][0])
+    s_w1, i_w1 = kernel_mod.arena_scan_cuda(*wide_args)
+    s_wp, i_wp = kernel_mod.arena_scan_plain(*wide_args)
+    sync()
+    long_err = compare("sharded_long_tie_wide", s_w1.cpu().numpy(),
+                       i_w1.cpu().numpy(), s_wp.cpu().numpy(),
+                       i_wp.cpu().numpy(),
+                       host_mask(meta_l[:lt_local].cpu().numpy(),
+                                 wide_args[4].cpu().numpy())[[0] * 8])
+    wide_ms = events_ms(lambda: kernel_mod.arena_scan_cuda(*wide_args), 5)
+    wide_plain_ms = events_ms(lambda: kernel_mod.arena_scan_plain(*wide_args),
+                              3)
+    del emb_l, ql, doc_l, cols_l, store0, meta_l, wide_args, s_w1, i_w1
+    del s_wp, i_wp
+
+    # (f) decode_attention_sharded at lm_serve's shape: 4 sequence shards,
+    # one sequence live in the first shard only
+    B, Sc, KV, G, hd = dec_shape
+    gd = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf = dict(generator=gd, device=dev, dtype=torch.bfloat16)
+    qd = torch.randn((B, KV * G, hd), **bf)
+    kc = torch.randn((B, Sc, KV, hd), **bf)
+    vc = torch.randn((B, Sc, KV, hd), **bf)
+    live = min(2049, Sc)
+    lengths = torch.tensor([live] * (B - 1) + [max(1, Sc // S // 2)],
+                           dtype=torch.int32, device=dev)
+    qg = qd.reshape(B, KV, G, hd)
+    dec_mod.LAUNCHES = 0
+    out = dec_ops.decode_attention_sharded(mesh, "data", qd, kc, vc, lengths,
+                                           n_kv=KV)
+    dec_launches = dec_mod.LAUNCHES
+    check(dec_launches == S, f"decode_attention_sharded: {dec_launches} "
+          f"launches for {S} shards")
+    acc, l_s = dec_ops.merge_sharded(mesh, "data", qg, kc, vc, lengths)
+    a1, _, l1 = dec_mod.decode_attention_cuda(qg, kc, vc, lengths)
+    a_p, _, l_p = dec_mod.decode_attention_plain(qg, kc, vc, lengths)
+    sync()
+    dec_err, ratio = attn_ok(acc / l_s, a1 / l1, DEC_TOL, DEC_TOL)
+    _, ratio_p = attn_ok(acc / l_s, a_p / l_p, DEC_TOL, DEC_TOL)
+    check(ratio <= 1 and ratio_p <= 1 and torch.isfinite(acc / l_s).all(),
+          f"sharded decode off the unsharded kernel: {dec_err} (x{ratio}), "
+          f"the plain version x{ratio_p}")
+    check(torch.equal(out, (acc / l_s).reshape(B, KV * G, hd).to(qd.dtype)),
+          "decode_attention_sharded != its merged partials")
+    dec_ms = events_ms(lambda: dec_ops.decode_attention_sharded(
+        mesh, "data", qd, kc, vc, lengths, n_kv=KV), 20)
+    dec_whole_ms = events_ms(lambda: dec_mod.decode_attention_cuda(
+        qg, kc, vc, lengths), 20)
+    dec_dev_ms, _ = device_ms(lambda: dec_ops.decode_attention_sharded(
+        mesh, "data", qd, kc, vc, lengths, n_kv=KV), 10)
+    dec_whole_dev_ms, _ = device_ms(lambda: dec_mod.decode_attention_cuda(
+        qg, kc, vc, lengths), 10)
+    # the wrapper's host cost a call (200 launches queued, no sync inside):
+    # the whole contiguous cache, and one sequence shard's strided view
+    dec_host_us = {}
+    for name, args in (("contiguous", (qg, kc, vc, lengths)),
+                       ("slice", (qg, kc[:, :Sc // S], vc[:, :Sc // S],
+                                  lengths.clamp(max=Sc // S)))):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dec_mod.decode_attention_cuda(*args)
+        dec_host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        sync()
+    del qd, kc, vc, qg, acc, l_s, a1, l1, a_p, l_p, out
+
+    emit("sharded_prod", seconds=time.perf_counter() - t_phase, rows=n_rows,
+         docs=n_docs, dim=dim, shards=S, rows_per_shard=n_local, batch=32,
+         groups=4, k=k, hash=hash_run, tenant=tenant_run,
+         filtered_topk_sharded_ms=ft_ms, filtered_topk_whole_ms=ft_whole_ms,
+         poisoned_returned=poisoned, tenant_scoped_plan_rows=one_rows,
+         tie_widens=tie_widens, tie_rows=tie_rows,
+         long_tie=dict(rows=n_long, tied=n_tied, widens=long_widens,
+                       widths=long_kk, ms=long_ms, wide_k=long_kk[0][0],
+                       wide_kernel_ms=wide_ms, wide_plain_ms=wide_plain_ms,
+                       wide_max_abs_err=long_err),
+         decode_shape=dict(B=B, S=Sc, KV=KV, G=G, hd=hd, dtype="bfloat16",
+                           lengths=lengths.tolist(), shard_len=Sc // S),
+         decode_launches=dec_launches, decode_max_abs_err=dec_err,
+         decode_sharded_ms=dec_ms, decode_whole_ms=dec_whole_ms,
+         decode_sharded_device_ms=dec_dev_ms,
+         decode_whole_device_ms=dec_whole_dev_ms,
+         decode_wrapper_host_us=dec_host_us,
+         peak_mem_gb=peak_gb())
+    return dict(launches=hash_run["launches"] + tenant_run["launches"],
+                max_abs_err=max(hash_run["max_abs_err"],
+                                tenant_run["max_abs_err"], long_err),
+                decode_launches=dec_launches, decode_err=dec_err)
 
 
 def attn_ok(got, want, rtol, atol):
@@ -3753,13 +4277,19 @@ def main() -> int:
     phase_tiered_prod(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    sprod = phase_sharded_prod(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
         "launches": prod["launches"],
-        "max_abs_err": max(err1, err2, prod["max_abs_err"]),
+        "paths": {"prod": prod["launches"],
+                  "sharded_prod": sprod["launches"]},
+        "max_abs_err": max(err1, err2, prod["max_abs_err"],
+                           sprod["max_abs_err"]),
         "ms": prod["ms"], "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
         "library_ms": None}, {
@@ -3767,6 +4297,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/hybrid_score/hybrid_score.py:55",
         "launches": hprod["launches"],
+        "paths": {"hybrid_prod": hprod["launches"]},
         "max_abs_err": max(herr1, herr2, hprod["max_abs_err"]),
         "ms": hprod["ms"], "plain_ms": hprod["plain_ms"],
         "bound_ms": hprod["bound_ms"], "bound_by": hprod["bound_by"],
@@ -3775,6 +4306,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/ivf_probe/ivf_probe.py:32",
         "launches": iprod["launches"],
+        "paths": {"ivf_prod": iprod["launches"]},
         "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"]),
         "ms": iprod["ms"], "plain_ms": iprod["plain_ms"],
         "bound_ms": iprod["bound_ms"], "bound_by": iprod["bound_by"],
@@ -3783,6 +4315,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/arena_scan_probe.cu",
         "replaces": "src/repro/kernels/ivf_probe/ops.py:34",
         "launches": iprod["compact"]["launches"],
+        "paths": {"ivf_prod": iprod["compact"]["launches"]},
         "max_abs_err": 0.0,
         "ms": iprod["compact"]["ms"],
         "plain_ms": iprod["compact"]["plain_ms"],
@@ -3793,6 +4326,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:121",
         "launches": pprod["launches"],
+        "paths": {"paged_prod": pprod["launches"]},
         "max_abs_err": max(perr1, pprod["max_abs_err"]),
         "ms": pprod["ms"], "plain_ms": pprod["plain_ms"],
         "bound_ms": pprod["bound_ms"], "bound_by": pprod["bound_by"],
@@ -3801,6 +4335,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
         "launches": lm["flash"]["launches"],
+        "paths": {"lm_serve": lm["flash"]["launches"]},
         "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"]),
         "ms": lm["flash"]["ms"], "plain_ms": lm["flash"]["plain_ms"],
         "bound_ms": lm["flash"]["bound_ms"],
@@ -3810,7 +4345,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:77",
         "launches": lm["decode"]["launches"],
-        "max_abs_err": max(derr1, lm["decode"]["max_abs_err"]),
+        "paths": {"lm_serve": lm["decode"]["launches"],
+                  "sharded_prod": sprod["decode_launches"]},
+        "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
+                           sprod["decode_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],
         "bound_by": lm["decode"]["bound_by"],

@@ -28,9 +28,14 @@ calls for the front door (port of ``repro.api.executor``):
     pushed down, or `query_hybrid` for a match() plan), and the finish
     phase merges the hot and warm k-lists on the host (`merge_tiers`; rrf
     merges per signal across the tiers, then rank-fuses). The warm probe
-    returns host arrays, so it waits behind the hot scans already queued.
+    returns host arrays, so it waits behind the hot scans already queued;
+  * the sharded engine: a mesh-built RagDB hands its cached
+    `ShardedScan` (``kernels.arena_scan.sharded``: the arena scan per
+    shard region, an exact (score, doc_id) merge) to every "sharded"
+    group; the launch queues it without a sync, the finish phase reads its
+    tie checks, and `ExecStats` audits the shard count, the merge's
+    collective bytes and the rows each shard scanned.
 
-The sharded dispatch arrives with its own slice.
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
 """
@@ -87,6 +92,16 @@ class ExecStats:
                                   # the guarded warm probe gave up
     stale_epoch_rejected: int = 0 # poisoned cache reads refused because the
                                   # entry's commit-epoch key no longer matches
+    shards_used: int = 0          # mesh shard count S of the sharded engine's
+                                  # launches (0 = never dispatched sharded)
+    collective_bytes: int = 0     # the sharded merge's wire bytes, counted
+                                  # as the reference's compiled program
+                                  # gathers them: O(S*B*k), constant in N
+    shard_rows_scanned: list = dataclasses.field(default_factory=list)
+                                  # per-shard rows scored by sharded launches
+                                  # (index = shard id); under tenant-affine
+                                  # placement a tenant-scoped query credits
+                                  # ONLY its owning shard
 
 
 class CompiledShapes:
@@ -123,8 +138,9 @@ class CompiledShapes:
 
     def touch(self, engine: str, bucket: int, k: int,
               groups: int | None = None, lex=None,
-              page_rows: int | None = None) -> bool:
-        key = (engine, bucket, k, groups, lex, page_rows)
+              page_rows: int | None = None,
+              shards: int | None = None) -> bool:
+        key = (engine, bucket, k, groups, lex, page_rows, shards)
         if key in self._lru:
             self.hits += 1
             self._lru.move_to_end(key)
@@ -154,7 +170,9 @@ class _Hot:
     grouped launch whose padding rows point at a BLOCK_ALL blocker lane:
     finish asserts those rows allocated no result rows (k=0 semantics).
     ``extra`` carries the bm25 list of a hybrid rrf launch in lists mode
-    (copied into ``extra_np`` at finish)."""
+    (copied into ``extra_np`` at finish). ``sharded`` is a sharded launch
+    in flight (its tie checks run at finish); it carries its scan and its
+    per-shard rows-scanned vector (host ints)."""
     s: torch.Tensor
     sl: torch.Tensor
     rows: int                     # arena rows this call scored
@@ -162,6 +180,7 @@ class _Hot:
     pad_check: int | None = None  # first padded (blocker-lane) row index
     extra: tuple | None = None    # (lex_s, lex_i) tensors (hybrid rrf lists)
     extra_np: tuple | None = None # their host copies
+    sharded: object = None        # a `ShardedLaunch` (sharded engine only)
     launch_ms: float = 0.0        # host-side dispatch cost (perf_counter)
     sync_ms: float = 0.0          # finish-time copy-to-host wait
                                   # (+ rescans)
@@ -181,20 +200,30 @@ def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
 
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
-                engine: str, ivf=None, nprobe=None,
+                engine: str, sharded_fn=None, ivf=None, nprobe=None,
                 n_valid: int | None = None, skip_rescan: bool = False,
                 page_rows: int | None = None) -> _Hot:
     """Launch one retrieval device call WITHOUT syncing on its result
     (the returned tensors are futures until finish copies them).
 
+    `sharded_fn` is the RagDB's cached `ShardedScan` when engine ==
+    'sharded';
     `ivf`/`nprobe` are the IVFIndex and probe depth when engine == 'ivf';
     `n_valid` is the real row count when q is bucket-padded (the probe
     union must come from real rows -- zero padding rows would drag
-    arbitrary clusters into the union). ``skip_rescan`` waives the ivf
+    arbitrary clusters into the union; a zero row ties on every row, so
+    the sharded tie checks read only the real rows). ``skip_rescan`` waives the ivf
     completeness net: degraded plans set it, because their contract is
     already "recall narrows" -- an under-filled k-list IS the degraded
     answer. ``page_rows`` selects the paged regime of the exact scans."""
     n_arena = store["emb"].shape[0]
+    if engine == "sharded":
+        if sharded_fn is None:
+            raise ValueError("engine='sharded' requires a mesh-built RagDB")
+        launched = sharded_fn.launch(store, _to_device(q, store), pred,
+                                     n_valid)
+        return _Hot(launched.scores, launched.slots, n_arena,
+                    sharded=launched)
     if engine == "ivf":
         if ivf is None:
             raise ValueError("engine='ivf' requires a built index — "
@@ -236,7 +265,12 @@ def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
     speed, and the extra arena scan shows up in `hot.rows`. ``trace_fan``
     (member request traces, tracer-enabled path only) nests a ``rescan``
     span under the caller's open ``device_sync`` span exactly when the net
-    fires."""
+    fires. A sharded launch finishes here: its tie checks are read and
+    any shard whose tie run reached its list's end is relaunched wider;
+    its rows are the per-shard vector's sum."""
+    if hot.sharded is not None:
+        hot.s, hot.sl = hot.sharded.finish()
+        hot.rows = sum(hot.sharded.rows)
     s, sl = hot.s.cpu().numpy(), hot.sl.cpu().numpy()
     if hot.extra is not None:
         hot.extra_np = tuple(a.cpu().numpy() for a in hot.extra)
@@ -262,6 +296,22 @@ def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
             if fan is not None:
                 fan.end(rows=store["emb"].shape[0])
     return s, sl
+
+
+def _note_sharded(stats: ExecStats | None, hot: _Hot) -> None:
+    """Credit one finished sharded launch to the stats: shard count, the
+    merge's collective bytes, and the per-shard rows-scanned vector
+    (extended if a later mesh is wider)."""
+    if stats is None or hot.sharded is None:
+        return
+    scan, rows = hot.sharded.scan, hot.sharded.rows
+    stats.shards_used = max(stats.shards_used, scan.n_shards)
+    stats.collective_bytes += scan.collective_bytes
+    if len(stats.shard_rows_scanned) < len(rows):
+        stats.shard_rows_scanned.extend(
+            [0] * (len(rows) - len(stats.shard_rows_scanned)))
+    for i, r in enumerate(rows):
+        stats.shard_rows_scanned[i] += r
 
 
 def _pad_group_launch(q: np.ndarray, gids: np.ndarray,
@@ -506,7 +556,8 @@ def _rrf_merge_np(ds, di, dt, ls, li, lt, k: int, c: float):
 
 def query_tiered(hot_store: Store, warm, q: np.ndarray, pred: Predicate,
                  k: int, *, engine: str = "ref", probe_warm: bool = False,
-                 ivf=None, nprobe=None, stats: ExecStats | None = None,
+                 sharded_fn=None, ivf=None, nprobe=None,
+                 stats: ExecStats | None = None,
                  n_valid: int | None = None, page_rows: int | None = None):
     """Single-predicate tiered retrieval (`TieredRouter.query`'s engine
     room). The hot call is LAUNCHED first and synced last: the warm probe
@@ -519,7 +570,7 @@ def query_tiered(hot_store: Store, warm, q: np.ndarray, pred: Predicate,
     and of ``n_valid`` rows with one; callers slice ``[:n_valid]``."""
     q = np.atleast_2d(np.asarray(q, np.float32))
     n_logical = q.shape[0] if n_valid is None else n_valid
-    hot = _launch_hot(hot_store, q, pred, k, engine, ivf, nprobe,
+    hot = _launch_hot(hot_store, q, pred, k, engine, sharded_fn, ivf, nprobe,
                       n_logical, page_rows=page_rows)
     ws = wi = None
     warm_calls = 0
@@ -531,6 +582,7 @@ def query_tiered(hot_store: Store, warm, q: np.ndarray, pred: Predicate,
         ws, wi = warm.query(q[:n_logical], pred, k, pushdown=True)
         warm_calls = warm.stats.round_trips - rt0
     hs, hi = _finish_hot(hot)
+    _note_sharded(stats, hot)
     if stats is not None:
         stats.device_calls += 1 + warm_calls
         stats.queries += n_logical
@@ -577,7 +629,7 @@ class InFlightPlans:
 
 
 def execute_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
-                  stats: ExecStats | None = None,
+                  sharded_fn=None, stats: ExecStats | None = None,
                   shapes: CompiledShapes | None = None, index=None,
                   planner_cfg=None, lex=None):
     """Batched execution of compiled plans: `launch_plans` then
@@ -586,15 +638,17 @@ def execute_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
     carry its query rows (`logical.q`, (B_i, D)) and all must share one k.
     ``index`` is the RagDB's `IVFIndex`, consumed by engine-'ivf' groups;
     ``lex`` its hot-tier `LexicalArena`, consumed by engine-'hybrid'
-    groups. Returns (scores (B, k), slots (B, k), tiers (B, k)) numpy
+    groups; ``sharded_fn`` its `ShardedScan`, consumed by
+    engine-'sharded' groups. Returns (scores (B, k), slots (B, k), tiers (B, k)) numpy
     arrays, B = total query rows, in plan order."""
-    return finish_plans(launch_plans(hot_store, warm, plans, stats=stats,
+    return finish_plans(launch_plans(hot_store, warm, plans,
+                                     sharded_fn=sharded_fn, stats=stats,
                                      shapes=shapes, index=index,
                                      planner_cfg=planner_cfg, lex=lex))
 
 
 def launch_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
-                 stats: ExecStats | None = None,
+                 sharded_fn=None, stats: ExecStats | None = None,
                  shapes: CompiledShapes | None = None, index=None,
                  planner_cfg=None, lex=None, warm_guard=None, obs=None,
                  tracer=None, calib=None) -> InFlightPlans:
@@ -603,8 +657,9 @@ def launch_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
     unit without syncing. (2) Only then, issue one warm probe per member
     plan of each "hot+warm" unit (`warm`, the `SplitStackClient`; its
     result is a host array, so the probe waits behind the hot scans already
-    queued). ``index`` (the RagDB's `IVFIndex`) serves engine-'ivf' groups
-    and ``lex`` (its `LexicalArena`) engine-'hybrid' groups.
+    queued). ``index`` (the RagDB's `IVFIndex`) serves engine-'ivf' groups,
+    ``lex`` (its `LexicalArena`) engine-'hybrid' groups and ``sharded_fn``
+    (its `ShardedScan`) engine-'sharded' groups.
 
     ``warm_guard`` (`serving.faults.WarmGuard`) wraps each warm probe with
     timeout / bounded retry / hedge / circuit breaker; when it gives up,
@@ -699,12 +754,12 @@ def launch_plans(hot_store: Store, warm, plans: list[PhysicalPlan], *,
             if shapes is not None:
                 bucket = bucket_rows(n_valid)
                 shapes.touch(plan.engine, bucket, k,
-                             page_rows=plan.page_rows)
+                             page_rows=plan.page_rows, shards=plan.shards)
                 if stats is not None:
                     stats.padded_rows += bucket - n_valid
                 q_g = _pad_rows(q_g, bucket)
             hot = _launch_hot(hot_store, q_g, plan.pred, k, plan.engine,
-                              index, plan.nprobe, n_valid,
+                              sharded_fn, index, plan.nprobe, n_valid,
                               skip_rescan=bool(plan.degraded),
                               page_rows=plan.page_rows)
         hot.launch_ms = (time.perf_counter() - t_launch0) * 1e3
@@ -808,7 +863,12 @@ def finish_plans(pending: InFlightPlans):
         t_sync0 = time.perf_counter()
         hs, hi = _finish_hot(hot, trace_fan=unit_traces)
         hot.sync_ms = (time.perf_counter() - t_sync0) * 1e3
+        _note_sharded(stats, hot)
         if sync_fan is not None:
+            if hot.sharded is not None:
+                scan = hot.sharded.scan
+                sync_fan.annotate("shards", scan.n_shards)
+                sync_fan.annotate("collective_bytes", scan.collective_bytes)
             sync_fan.end(rows_scanned=hot.rows)
         if calib is not None:
             rep = unit.plans[0]

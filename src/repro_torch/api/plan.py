@@ -8,7 +8,7 @@ already stamped from the authenticated principal (they cannot be expressed by
 the builder at all; see ragdb.Session).
 
 The planner (planner.py) *compiles* a LogicalPlan into a `PhysicalPlan`: HOW
-the engine will answer it — execution engine (ref / cuda in this slice), tier
+the engine will answer it — execution engine (ref / cuda / sharded), tier
 route (hot-only vs hot+warm merge), and the predicate-group key under which
 concurrent queries are batched into one device program.
 
@@ -101,17 +101,12 @@ class PhysicalPlan:
     """How the engine will answer it. Produced only by planner.compile_plan."""
     logical: LogicalPlan
     pred: Predicate                   # lowered clause set (the kernel contract)
-    engine: str                       # "ref" | "cuda" | "hybrid" | "ivf"
-                                      # (the port's engines so far; a later
-                                      # slice adds "sharded")
+    engine: str                       # "ref" | "cuda" | "sharded" | "ivf"
+                                      # | "hybrid"
     engine_reason: str
     route: str                        # "hot" | "hot+warm"
     route_reason: str
     n_rows: int                       # hot-tier arena rows the scan covers
-    # The fields below keep the reference's plan and key layout. The
-    # planner sets ``lex`` for hybrid plans, nprobe / ivf_est for ivf
-    # plans and ``page_rows`` for paged full-arena plans, and neither
-    # shards nor placement yet: the sharded engine arrives with its slice.
     est_cost_ms: float | None = None  # cost-model estimate for the chosen
                                       # engine at n_rows (None = no model)
     cost_source: str = "static-thresholds"   # "measured" | "static-thresholds"

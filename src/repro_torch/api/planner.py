@@ -10,9 +10,12 @@ Engine selection, first match wins:
   2. "ivf" if the RagDB carries an index and the arena is at least
      `ivf_min_rows` (the pruned scan: the probe kernel over the probed
      clusters' rows) -- unless the selectivity guard blocks it;
-  3. "cuda" for every exact plan whose store lies on a CUDA device -- the
+  3. "sharded" if the RagDB was built with a device mesh and the hot arena
+     is at least `shard_min_rows` (the arena scan per shard region, an
+     exact (score, doc_id) merge);
+  4. "cuda" for every exact plan whose store lies on a CUDA device -- the
      hand-written arena-scan kernel;
-  4. "ref" otherwise (plain PyTorch; the only exact engine for a store on
+  5. "ref" otherwise (plain PyTorch; the only exact engine for a store on
      the CPU).
 
 Selectivity guard: a pruned scan scores at most nprobe clusters' rows, so
@@ -35,9 +38,6 @@ Tier routing keeps the paper's §7.3 rule (`choose_route`): a constrained
 plan inside the hot window stays "hot"; long-tail similarity routes
 "hot+warm" and also probes the warm tier, unless that tier is empty or the
 plan has a match() clause and the warm tier carries no lexical lanes.
-
-The "sharded" engine belongs to a later slice and raises
-NotImplementedError naming its ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -50,22 +50,12 @@ import torch
 from repro_torch.api.plan import (ALL_BITS, ANY_TENANT, LogicalPlan,
                                   PhysicalPlan, bucket_rows)
 
-#: engines of later slices -> the ROADMAP queue-1 item that brings them
-LATER_ENGINES = {
-    "sharded": "sharded-engine slice (ROADMAP queue 1, 'Sharded engine')",
-}
-
-
 def check_engine_hint(engine: str | None) -> None:
-    """Refuse `.using()` hints this slice cannot honour: the TPU kernel's
-    name, and the engines of later slices."""
+    """Refuse the `.using()` hint the port cannot honour: the TPU kernel's
+    name."""
     if engine == "pallas":
         raise ValueError("engine 'pallas' is the TPU kernel; the port's "
                          "kernel engine is 'cuda'")
-    if engine in LATER_ENGINES:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: it arrives with the "
-            f"{LATER_ENGINES[engine]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +140,7 @@ class PlannerConfig:
     >>> PlannerConfig().cost_model is None
     True
     """
+    shard_min_rows: int = 1 << 20     # below this a single device wins
     ivf_min_rows: int = 1 << 12       # below this the exact scan is trivial
     ivf_nprobe: int | None = None     # probe depth; None = the index default
     fuse_min_groups: int = 2          # grouped-scan fusion floor: batches with
@@ -241,14 +232,18 @@ def exact_engine(device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "ref"
 
 
-def _candidate_engines(device="cpu", has_index: bool = False) -> list[str]:
-    """Engines the store can actually run: its exact engine always, ivf
-    when the RagDB carries a built index.
+def _candidate_engines(device="cpu", has_index: bool = False,
+                       has_mesh: bool = False) -> list[str]:
+    """Engines the store can actually run: its exact engine always,
+    sharded when the RagDB was built with a mesh, ivf when it carries a
+    built index.
 
-    >>> _candidate_engines("cpu", has_index=True)
-    ['ref', 'ivf']
+    >>> _candidate_engines("cpu", has_index=True, has_mesh=True)
+    ['ref', 'sharded', 'ivf']
     """
     cands = [exact_engine(device)]
+    if has_mesh:
+        cands.append("sharded")
     if has_index:
         cands.append("ivf")
     return cands
@@ -278,12 +273,14 @@ def ivf_blocked_reason(logical: LogicalPlan) -> str | None:
 def choose_engine(logical: LogicalPlan, *, n_rows: int,
                   cfg: PlannerConfig = PlannerConfig(),
                   device="cpu", has_index: bool = False,
-                  has_lex: bool = False) -> tuple[str, str]:
+                  has_lex: bool = False,
+                  has_mesh: bool = False) -> tuple[str, str]:
     """Pick the execution engine and an auditable reason string.
     ``device`` is the device the store lies on; ``has_index`` whether the
     RagDB carries a built IVF index; ``has_lex`` whether it carries a
-    lexical arena (which admits match() clauses). The selectivity guard
-    removes "ivf" from the candidates for constrained plans (see
+    lexical arena (which admits match() clauses); ``has_mesh`` whether it
+    was built with a device mesh (which admits "sharded"). The selectivity
+    guard removes "ivf" from the candidates for constrained plans (see
     `ivf_blocked_reason`) -- the reason string records the skip.
 
     >>> choose_engine(LogicalPlan(k=5), n_rows=512)
@@ -295,6 +292,8 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
     'ref'
     >>> choose_engine(LogicalPlan(k=5), n_rows=1 << 16, has_index=True)[0]
     'ivf'
+    >>> choose_engine(LogicalPlan(k=5), n_rows=1 << 20, has_mesh=True)
+    ('sharded', 'mesh present and 1048576 rows >= 1048576')
     >>> eng, why = choose_engine(LogicalPlan(tenant=3, k=5), n_rows=1 << 16,
     ...                          has_index=True)
     >>> eng, "ivf skipped" in why
@@ -331,7 +330,7 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
                          "ignoring the knobs would misreport the ranking")
     if logical.engine is not None:
         return logical.engine, "caller hint (.using())"
-    cands = _candidate_engines(device, has_index)
+    cands = _candidate_engines(device, has_index, has_mesh)
     note = ""
     if "ivf" in cands:
         blocked = ivf_blocked_reason(logical)
@@ -347,6 +346,9 @@ def choose_engine(logical: LogicalPlan, *, n_rows: int,
             return best, f"cost model: {detail}{note}"
     if "ivf" in cands and n_rows >= cfg.ivf_min_rows:
         return "ivf", f"index present and {n_rows} rows >= {cfg.ivf_min_rows}"
+    if has_mesh and n_rows >= cfg.shard_min_rows:
+        return "sharded", (f"mesh present and {n_rows} rows >= "
+                           f"{cfg.shard_min_rows}{note}")
     dev = torch.device(device)
     if cands[0] == "cuda":
         return "cuda", f"store on {dev}: arena-scan kernel, {n_rows} rows{note}"
@@ -393,7 +395,9 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(),
                  device="cpu", index=None, lex=None,
-                 warm_lex: bool = False) -> PhysicalPlan:
+                 warm_lex: bool = False, has_mesh: bool = False,
+                 mesh_shards: int = 0,
+                 placement: str | None = None) -> PhysicalPlan:
     """Compile WHAT (LogicalPlan) into HOW (PhysicalPlan): engine + route +
     the predicate-group batching key, with any cost estimate attached so
     ``explain()`` can render it. ``device`` is the store's device; ``index``
@@ -404,7 +408,12 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
     "hybrid" engine with the score-mix identity (fusion mode,
     query-term-count bucket, weights) stamped into the group key;
     ``warm_lex`` says whether the warm tier carries lanes (hybrid plans
-    only spill warm when it does).
+    only spill warm when it does). ``has_mesh`` / ``mesh_shards`` /
+    ``placement`` describe the RagDB's mesh (present, shard count S, row
+    placement kind): sharded plans carry S and the placement -- S shapes
+    the merge (S*k gathered candidates) and a "tenant" placement lets
+    explain() show which shards the scan touches. "sharded" without a
+    mesh raises.
 
     >>> p = compile_plan(LogicalPlan(match_terms=(5, 9), k=5), n_rows=64,
     ...                  hot_window_s=10, now_ts=0, warm_rows=0,
@@ -424,7 +433,8 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
     engine, engine_reason = choose_engine(logical, n_rows=n_rows, cfg=cfg,
                                           device=device,
                                           has_index=index is not None,
-                                          has_lex=lex is not None)
+                                          has_lex=lex is not None,
+                                          has_mesh=has_mesh)
     route, route_reason = choose_route(logical, hot_window_s=hot_window_s,
                                        now_ts=now_ts, warm_rows=warm_rows,
                                        cost_model=cfg.cost_model,
@@ -457,6 +467,12 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
         q_rows = 1 if logical.q is None else len(np.atleast_2d(logical.q))
         ivf_est = (index.n_clusters, index.cluster_cap,
                    index.candidate_rows(nprobe, rows=q_rows))
+    shards = plc = None
+    if engine == "sharded":
+        if not has_mesh or mesh_shards < 1:
+            raise ValueError("engine='sharded' requires a mesh-built RagDB")
+        shards = mesh_shards
+        plc = placement or "hash"
     return PhysicalPlan(logical=logical, pred=logical.predicate(),
                         engine=engine, engine_reason=engine_reason,
                         route=route, route_reason=route_reason, n_rows=n_rows,
@@ -464,14 +480,15 @@ def compile_plan(logical: LogicalPlan, *, n_rows: int, hot_window_s: int,
                         cost_source=("measured" if est is not None
                                      else "static-thresholds"),
                         nprobe=nprobe, ivf_est=ivf_est, lex=lex_key,
-                        page_rows=page_rows)
+                        page_rows=page_rows, shards=shards, placement=plc)
 
 
 def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
                  now_ts: int, warm_rows: int,
                  cfg: PlannerConfig = PlannerConfig(), device="cpu",
-                 index=None, lex=None,
-                 warm_lex: bool = False) -> PhysicalPlan | None:
+                 index=None, lex=None, warm_lex: bool = False,
+                 has_mesh: bool = False, mesh_shards: int = 0,
+                 placement: str | None = None) -> PhysicalPlan | None:
     """One rung DOWN the degradation ladder, or None when it is exhausted.
 
     Every rung is a real, standalone-compilable plan: executing the
@@ -505,7 +522,8 @@ def degrade_plan(plan: PhysicalPlan, *, n_rows: int, hot_window_s: int,
     """
     kw = dict(n_rows=n_rows, hot_window_s=hot_window_s, now_ts=now_ts,
               warm_rows=warm_rows, cfg=cfg, device=device, index=index,
-              lex=lex, warm_lex=warm_lex)
+              lex=lex, warm_lex=warm_lex, has_mesh=has_mesh,
+              mesh_shards=mesh_shards, placement=placement)
     if plan.engine == "ivf" and plan.nprobe is not None:
         floor = max(int(cfg.degrade_min_nprobe), 1)
         if plan.nprobe > floor:

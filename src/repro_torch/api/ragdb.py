@@ -30,8 +30,13 @@ hot window never expires, so every plan routes "hot". With
 that share its `LexicalStats`; it admits `QueryBuilder.match()` and
 `.fuse()`: the hybrid dense+BM25 scan. `RagDB.build_index()` attaches an
 `IVFIndex` as ``db.index`` (written through the log's ``ivf`` hook), which
-adds the pruned "ivf" engine. ``mesh=`` arrives with a later slice and
-raises NotImplementedError naming its ROADMAP queue item.
+adds the pruned "ivf" engine. ``mesh=`` (a `launch.mesh.Mesh`) row-shards
+the hot arena in contiguous, slot-aligned regions (`ShardPlacement`,
+"hash" or tenant-affine "tenant" placement) and adds the "sharded" engine:
+one controller scans every shard's region (on the card, one arena-scan
+kernel launch a scanned shard) and merges their lists exactly in (score,
+doc_id) order. Every device of the mesh must be the store's: S logical
+shards on one card, or on the CPU.
 """
 from __future__ import annotations
 
@@ -47,26 +52,23 @@ from repro_torch.api.executor import (CompiledShapes, ExecStats,
                                       InFlightPlans, finish_plans,
                                       launch_plans)
 from repro_torch.api.plan import ALL_BITS, ANY_TENANT, LogicalPlan, PhysicalPlan
-from repro_torch.api.planner import (LATER_ENGINES, PlannerConfig,
-                                     check_engine_hint, compile_plan,
-                                     degrade_plan)
+from repro_torch.api.planner import (PlannerConfig, check_engine_hint,
+                                     compile_plan, degrade_plan)
 from repro_torch.core.ivf import IVFConfig, IVFIndex, build_ivf
 from repro_torch.core.router import TieredRouter
-from repro_torch.core.store import DocBatch, StoreConfig
+from repro_torch.core.store import (DocBatch, ShardPlacement, StoreConfig,
+                                    resolve_device)
 from repro_torch.core.tenancy import Principal, TenantRegistry, category_mask
 from repro_torch.core.transactions import TransactionLog
 from repro_torch.index.lexical import LexicalArena, LexicalConfig
+from repro_torch.launch.mesh import n_shards as mesh_shards
+from repro_torch.launch.mesh import same_device
 from repro_torch.obs import CalibrationTable, Tracer
 from repro_torch.obs.tracer import NULL_TRACE, TraceGroup
 from repro_torch.serving.faults import (FaultPlan, HotLaunchError,
                                         WedgedBatchError)
 
 _FOREVER = (1 << 31) - 1     # hot window that never expires (single-tier mode)
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it arrives with "
-                               f"the {where}")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -218,11 +220,10 @@ class RagDB:
     def __init__(self, hot_cfg: StoreConfig, *, warm_cfg: StoreConfig | None = None,
                  hot_window_s: int | None = None, now_ts: int = 0,
                  planner_cfg: PlannerConfig = PlannerConfig(),
-                 mesh=None, lexical_cfg: LexicalConfig | None = None,
+                 mesh=None, shard_axes=None, placement: str = "hash",
+                 lexical_cfg: LexicalConfig | None = None,
                  result_cache_size: int = 256, shape_cache_size: int = 32,
                  device=None):
-        if mesh is not None:
-            raise _not_ported("mesh=", LATER_ENGINES["sharded"])
         tiered = warm_cfg is not None
         if tiered and hot_window_s is None:
             raise ValueError("a tiered RagDB (warm_cfg given) needs "
@@ -232,10 +233,36 @@ class RagDB:
             # plumbing but is never routed to (the hot window covers
             # everything) -- a 1-row arena instead of a copy of the hot one
             warm_cfg = dataclasses.replace(hot_cfg, capacity=1)
+        # mesh-built RagDB: the hot arena is row-sharded in contiguous
+        # slot-aligned regions (ShardPlacement); ``placement`` picks the
+        # routing key -- "hash" (doc_id % S) or "tenant" (tenant % S, which
+        # lets the sharded engine skip non-owning shards structurally)
+        self.mesh = mesh
+        self.shard_axes = (shard_axes if shard_axes is not None
+                           else (tuple(mesh.axis_names) if mesh is not None
+                                 else None))
+        self.placement = placement if mesh is not None else None
+        self.n_shards = 0
+        hot_placement = None
+        if mesh is not None:
+            dev = resolve_device(device)
+            if not all(same_device(d, dev) for d in mesh.devices):
+                raise ValueError(
+                    f"every device of the mesh must be the store's ({dev}), "
+                    f"got {mesh.devices}: placing arena regions on their "
+                    "own cards is ROADMAP queue 1, 'Sharded engine' "
+                    "(arena regions on their own cards)")
+            self.n_shards = mesh_shards(mesh, self.shard_axes)
+            hot_placement = ShardPlacement(n_shards=self.n_shards,
+                                           capacity=hot_cfg.capacity,
+                                           kind=placement)
         self.router = TieredRouter(
             hot_cfg, warm_cfg,
             hot_window_s=hot_window_s if tiered else _FOREVER,
-            now_ts=now_ts, device=device)
+            now_ts=now_ts, hot_placement=hot_placement, device=device)
+        # (k, n_rows, placement) -> ShardedScan (its shard count and
+        # collective bytes are what the stats audit reads)
+        self._sharded_fns: dict[tuple, object] = {}
         # lexical scoring arena (lexical_cfg given): postings lanes beside
         # the vector arena, slot-aligned and written through the log's lex
         # hook, so they commit with the rows; a tiered RagDB grows warm
@@ -457,7 +484,24 @@ class RagDB:
             hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
             warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
             device=snap["emb"].device, index=self.index, lex=self.lex,
-            warm_lex=self.router.warm.lex is not None)
+            warm_lex=self.router.warm.lex is not None,
+            has_mesh=self.mesh is not None, mesh_shards=self.n_shards,
+            placement=self.placement)
+
+    def _sharded_fn(self, k: int):
+        """The sharded scan (`kernels.arena_scan.sharded.ShardedScan`) for
+        LIMIT ``k`` over the current arena shape, cached per (k, n_rows,
+        placement)."""
+        from repro_torch.kernels.arena_scan.sharded import \
+            make_sharded_arena_scan
+        n_rows = self.log.snapshot()["emb"].shape[0]
+        key = (k, n_rows, self.placement)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            fn = make_sharded_arena_scan(self.mesh, self.shard_axes, n_rows,
+                                         k, placement_kind=self.placement)
+            self._sharded_fns[key] = fn
+        return fn
 
     def _result_key(self, plan: PhysicalPlan) -> tuple | None:
         """Snapshot-exact cache key for one plan, or None when the plan is
@@ -495,7 +539,9 @@ class RagDB:
             hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
             warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
             device=snap["emb"].device, index=self.index, lex=self.lex,
-            warm_lex=self.router.warm.lex is not None)
+            warm_lex=self.router.warm.lex is not None,
+            has_mesh=self.mesh is not None, mesh_shards=self.n_shards,
+            placement=self.placement)
 
     def execute(self, plans: list[PhysicalPlan], *, use_cache: bool = True,
                 stale_within_s: float | None = None):
@@ -575,6 +621,11 @@ class RagDB:
         before_hot = before_warm = 0
         if misses:
             run_plans = [plans[i] for i, _ in misses]
+            # only build the sharded scan when a mesh exists; otherwise
+            # the executor raises its "requires a mesh-built RagDB" error
+            needs_shard = (self.mesh is not None
+                           and any(p.engine == "sharded" for p in run_plans))
+            k = run_plans[0].logical.k
             before_hot = self.stats.hot_queries
             before_warm = self.stats.warm_queries
             run_traces = ([traces[i] for i, _ in misses]
@@ -589,6 +640,7 @@ class RagDB:
                     self.faults.raise_if("hot.launch", HotLaunchError)
                 inflight = launch_plans(
                     self.log.snapshot(), self.router.warm, run_plans,
+                    sharded_fn=self._sharded_fn(k) if needs_shard else None,
                     stats=self.stats, shapes=self.shapes, index=self.index,
                     planner_cfg=self.planner_cfg, lex=self.lex,
                     warm_guard=self.warm_guard, obs=run_traces,
@@ -733,6 +785,12 @@ class RagDB:
             lines.append(f"  tracing:      on, "
                          f"{self.tracer.traces_started} traces started, "
                          f"{recorded}")
+        if self.mesh is not None:
+            lines.append(
+                f"  sharded:      {self.n_shards} shard(s) "
+                f"({self.placement} placement), "
+                f"{st.collective_bytes} collective bytes moved, "
+                f"per-shard rows scanned {st.shard_rows_scanned}")
         if self.faults is not None:
             f = self.faults
             lines.append(
@@ -822,14 +880,16 @@ class QueryBuilder:
 
     def using(self, engine: str) -> "QueryBuilder":
         """Force an execution engine: "ref" (plain PyTorch, on the store's
-        device), "cuda" (the arena-scan kernel) or "ivf" (the pruned probe,
+        device), "cuda" (the arena-scan kernel), "sharded" (the scan per
+        shard region of a mesh-built RagDB; without a mesh plan() raises)
+        or "ivf" (the pruned probe,
         overriding the planner's selectivity guard: an under-filled probe
         is completed by the executor's exact rescan, so forcing "ivf"
         trades speed, never completeness; it requires
         `RagDB.build_index()` first, or plan() raises). match() queries
         always run on "hybrid", so a conflicting hint is refused at plan
-        time, as is "hybrid" without a match() clause. "pallas" and the
-        engines of later slices are refused here."""
+        time, as is "hybrid" without a match() clause. "pallas", the TPU
+        kernel's name, is refused here."""
         check_engine_hint(engine)
         return self._with(engine=engine)
 

@@ -1,13 +1,14 @@
-"""Architecture registry of the port: the dense LM configs it can serve,
-each with its FULL config (the assigned spec) and REDUCED config (tests),
-copied from ``repro.configs``. The MoE, GNN, recsys and rag-unified
-entries of the reference's registry arrive with their slices."""
+"""Architecture registry of the port: the dense LM configs it can serve
+and the paper's own system (rag-unified), each with its FULL config (the
+assigned spec) and REDUCED config (tests), copied from ``repro.configs``.
+The MoE, GNN and recsys entries of the reference's registry arrive with
+their slices."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-from repro_torch.configs import qwen1_5_0_5b, qwen3_4b, yi_6b
+from repro_torch.configs import qwen1_5_0_5b, qwen3_4b, rag_unified, yi_6b
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -16,11 +17,16 @@ LM_SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 
+RAG_SHAPES = {
+    "query_hot": dict(kind="rag_query", batch=64, k=16),
+    "ingest": dict(kind="rag_ingest", batch=4096),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
-    family: str                  # "lm"
+    family: str                  # "lm" | "rag"
     full: Any
     reduced: Any
     shapes: dict[str, dict]
@@ -32,6 +38,9 @@ ARCHS: dict[str, Arch] = {
     "qwen3-4b": Arch("qwen3-4b", "lm", qwen3_4b.FULL, qwen3_4b.REDUCED, LM_SHAPES),
     "qwen1.5-0.5b": Arch("qwen1.5-0.5b", "lm", qwen1_5_0_5b.FULL,
                          qwen1_5_0_5b.REDUCED, LM_SHAPES),
+    # the paper's own system
+    "rag-unified": Arch("rag-unified", "rag", rag_unified.PRODUCTION,
+                        rag_unified.REDUCED, RAG_SHAPES, extra=rag_unified),
 }
 
 

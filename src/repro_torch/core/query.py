@@ -17,7 +17,9 @@ Engines:
   * ``"ref"``  -- plain PyTorch: `unified_query_ref` for one group, the
     streaming scan for grouped batches (any device);
   * ``"cuda"`` -- the hand-written arena-scan kernel
-    (``csrc/arena_scan.cuh``) through `filtered_topk` / `grouped_topk`.
+    (``csrc/arena_scan.cuh``) through `filtered_topk` / `grouped_topk`;
+  * ``"sharded"`` -- `make_sharded_query`: the arena scan per shard region
+    and an exact (score, doc_id) merge (``kernels.arena_scan.sharded``).
 
 Both front doors take ``page_rows``: the paged arena-scan regime (the
 kernel streams pages of that many rows with one running list per page; the
@@ -120,6 +122,31 @@ def unified_query_ref(store: Store, q: torch.Tensor, pred: torch.Tensor,
         top_s = torch.cat([top_s, top_s.new_full((b, pad), NEG_INF)], dim=1)
         top_i = torch.cat([top_i, top_i.new_full((b, pad), -1)], dim=1)
     return top_s, top_i.to(torch.int32)
+
+
+def make_sharded_query(mesh, axes, n_rows: int, k: int,
+                       placement_kind: str = "hash"):
+    """Distributed unified query over a row-sharded corpus: the same masked
+    scan per shard, each shard's local top-k, and one merge of the
+    (shards x k) candidates, so the merge's payload is O(B x shards x k),
+    independent of corpus size (the naive lowering would gather the full
+    (B, N) score matrix).
+
+    Thin wrapper over `repro_torch.kernels.arena_scan.sharded.
+    make_sharded_arena_scan` (the engine entry point, which also returns
+    the per-shard ``rows_scanned`` audit vector) keeping the 2-output
+    contract ``query(store, q, pred) -> (scores, slots)``. Selection is
+    exact lexicographic (score desc, global doc_id asc) -- placement-
+    invariant by construction."""
+    from repro_torch.kernels.arena_scan.sharded import make_sharded_arena_scan
+    fn = make_sharded_arena_scan(mesh, axes, n_rows, k,
+                                 placement_kind=placement_kind)
+
+    def query(store, q, pred):
+        scores, slots, _rows = fn(store, q, pred)
+        return scores, slots
+
+    return query
 
 
 def _engine_error(engine: str) -> Exception:

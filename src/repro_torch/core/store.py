@@ -136,11 +136,15 @@ class ShardPlacement:
         """Global slot -> (shard, shard-local slot)."""
         return divmod(slot, self.rows_per_shard)
 
+    def shards_of(self, tenant, doc_id) -> np.ndarray:
+        """Write-path routing, array-valued: the shard whose region each new
+        doc allocates in (int64, the shape of the keys)."""
+        key = tenant if self.kind == "tenant" else doc_id
+        return np.mod(np.asarray(key, np.int64), self.n_shards)
+
     def shard_of_doc(self, tenant: int, doc_id: int) -> int:
-        """Write-path routing: which shard's region a new doc allocates in."""
-        if self.kind == "tenant":
-            return int(tenant) % self.n_shards
-        return int(doc_id) % self.n_shards
+        """`shards_of` for one doc."""
+        return int(self.shards_of(tenant, doc_id))
 
 
 @dataclasses.dataclass(frozen=True)

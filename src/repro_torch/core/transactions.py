@@ -274,26 +274,34 @@ class TransactionLog:
             slot_list = recycled + list(range(self._cursor, self._cursor + n_fresh))
             return slot_list, dict(free_take=n_recycled,
                                    cursor_after=self._cursor + n_fresh)
+        # each doc routes to its owning shard's region (`shards_of`): in
+        # batch order, a shard's docs take its recycled slots LIFO first,
+        # then its fresh frontier; a doc past the region's end raises (the
+        # first such doc in batch order names its shard)
         pl = self.placement
-        tenants = torch.as_tensor(batch.tenant).cpu().tolist()
-        doc_ids = torch.as_tensor(batch.doc_id).cpu().tolist()
+        shard = pl.shards_of(torch.as_tensor(batch.tenant).cpu().numpy(),
+                             torch.as_tensor(batch.doc_id).cpu().numpy())
+        slots = np.empty(m, np.int64)
         take = [0] * pl.n_shards
         cursors = list(self._shard_cursor)
-        slot_list: list[int] = []
-        for t, d in zip(tenants, doc_ids):
-            sh = pl.shard_of_doc(int(t), int(d))
+        overflow = []
+        for sh in range(pl.n_shards):
+            idx = np.flatnonzero(shard == sh)
             free = self._shard_free[sh]
-            if take[sh] < len(free):
-                take[sh] += 1
-                slot_list.append(free[len(free) - take[sh]])
-            else:
-                if cursors[sh] >= pl.region(sh)[1]:
-                    raise RuntimeError(
-                        f"shard {sh} region full — grow capacity or rebalance")
-                slot_list.append(cursors[sh])
-                cursors[sh] += 1
-        return slot_list, dict(shard_free_take=tuple(take),
-                               shard_cursors_after=tuple(cursors))
+            take[sh] = n_rec = min(len(idx), len(free))
+            n_fresh = len(idx) - n_rec
+            room = pl.region(sh)[1] - cursors[sh]
+            if n_fresh > room:
+                overflow.append((idx[n_rec + room], sh))
+                continue
+            slots[idx[:n_rec]] = free[len(free) - n_rec:][::-1]
+            slots[idx[n_rec:]] = np.arange(cursors[sh], cursors[sh] + n_fresh)
+            cursors[sh] += n_fresh
+        if overflow:
+            raise RuntimeError(f"shard {min(overflow)[1]} region full — grow "
+                               "capacity or rebalance")
+        return slots.tolist(), dict(shard_free_take=tuple(take),
+                                    shard_cursors_after=tuple(cursors))
 
     def _slots(self, slot_list) -> torch.Tensor:
         return torch.as_tensor(np.asarray(slot_list, np.int64),

@@ -30,7 +30,8 @@
 //  * Copies. Thread 0 streams the chunk's live K rows, then its V rows,
 //    through a 4-stage ring of 8 KB sub-tiles in shared memory: one TMA
 //    tile load (cp.async.bulk.tensor of a 4-D map {hd, KV, S, B}, rows past
-//    S zero-filled) a sub-tile, full and empty mbarriers, so 3-4 sub-tiles
+//    S zero-filled; sequence b's rows start S_mem rows after b - 1's, so a
+//    cache may be a slice of S positions of a longer one) a sub-tile, full and empty mbarriers, so 3-4 sub-tiles
 //    are in flight a block (~16 MB over the card) and the V rows are on
 //    their way while the chunk's softmax statistics are taken. The warps
 //    wait on the full barriers, not on each other, except at the K -> V
@@ -496,16 +497,17 @@ int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           int B, int S, int KV, int G, int split, float* part_acc,
-           float* part_m, float* part_l, int* counters, float* acc, float* m,
-           float* l, cudaStream_t stream) {
+           int B, int S, int S_mem, int KV, int G, int split,
+           float* part_acc, float* part_m, float* part_l, int* counters,
+           float* acc, float* m, float* l, cudaStream_t stream) {
   using Tl = Tile<T, HD>;
   const cuuint64_t e = sizeof(T);
   const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(KV),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {HD * e, dims[1] * HD * e,
-                                 dims[2] * dims[1] * HD * e};
+  const cuuint64_t strides[3] = {
+      HD * e, dims[1] * HD * e,
+      static_cast<cuuint64_t>(S_mem) * dims[1] * HD * e};
   const cuuint32_t box[4] = {HD, 1, Tl::TR, 1};
   const CUtensorMapDataType dt = sizeof(T) == 2
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -531,15 +533,15 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const int* lengths, int B, int S, int KV, int G, int split,
-              float* pa, float* pm, float* pl, int* counters, float* acc,
-              float* m, float* l, cudaStream_t st) {
+              const int* lengths, int B, int S, int S_mem, int KV, int G,
+              int split, float* pa, float* pm, float* pl, int* counters,
+              float* acc, float* m, float* l, cudaStream_t st) {
   if (hd == 64)
-    return launch<T, 64>(q, k, v, lengths, B, S, KV, G, split, pa, pm, pl,
-                         counters, acc, m, l, st);
+    return launch<T, 64>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa, pm,
+                         pl, counters, acc, m, l, st);
   if (hd == 128)
-    return launch<T, 128>(q, k, v, lengths, B, S, KV, G, split, pa, pm, pl,
-                          counters, acc, m, l, st);
+    return launch<T, 128>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
+                          pm, pl, counters, acc, m, l, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -567,7 +569,9 @@ const char* attention_error_string(int err) {
 }
 
 // q (B, KV, G, hd), k / v (B, S, KV, hd), all of `dtype` (0 f32, 1 bf16),
-// hd in {64, 128}, 1 <= G <= 32;
+// hd in {64, 128}, 1 <= G <= 32; k and v contiguous within a sequence, S_mem
+// >= S rows from one sequence's start to the next's (S for a contiguous
+// cache, the full length for a slice of S positions of a longer one);
 // lengths (B,) int32 -> acc (B, KV, G, hd) f32, m and l (B, KV, G) f32.
 // Workspace: part_acc (B, KV, n_split, G, hd) f32, part_m / part_l
 // (B, KV, n_split, G) f32 with n_split = ceil(S / split), and counters
@@ -576,16 +580,17 @@ const char* attention_error_string(int err) {
 // (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* lengths, int dtype, int B, int S,
-                            int KV, int G, int hd, int split, float* part_acc,
-                            float* part_m, float* part_l, int* counters,
-                            float* acc, float* m, float* l, void* stream_ptr) {
+                            int S_mem, int KV, int G, int hd, int split,
+                            float* part_acc, float* part_m, float* part_l,
+                            int* counters, float* acc, float* m, float* l,
+                            void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == attn::kBF16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, lengths, B, S, KV, G, split,
-                                    part_acc, part_m, part_l, counters, acc,
-                                    m, l, st);
+    return launch_hd<__nv_bfloat16>(hd, q, k, v, lengths, B, S, S_mem, KV, G,
+                                    split, part_acc, part_m, part_l, counters,
+                                    acc, m, l, st);
   if (dtype == attn::kF32)
-    return launch_hd<float>(hd, q, k, v, lengths, B, S, KV, G, split,
+    return launch_hd<float>(hd, q, k, v, lengths, B, S, S_mem, KV, G, split,
                             part_acc, part_m, part_l, counters, acc, m, l, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,7 +44,7 @@ def load():
                                                i, p]
         lib.flash_attention_launch.restype = i
         lib.decode_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                i, p, p, p, p, p, p, p, p]
+                                                i, i, p, p, p, p, p, p, p, p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, i]
         lib.decode_attention_blocks_per_sm.restype = i

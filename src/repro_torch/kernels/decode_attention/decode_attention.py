@@ -168,11 +168,40 @@ def _plan(dev, dt, B, S, KV, G, hd):
     return (_attention.DTYPES[dt], split, tuple(t.data_ptr() for t in ws), ws)
 
 
+def _cache_rows(name, t, dtype, shape, dev) -> int:
+    """Rows from one sequence's start to the next in a (B, S, KV, hd)
+    cache: S when it is contiguous, the full length when it is a slice
+    along S of a longer contiguous cache (a sequence shard's view). Raises
+    on any other layout, device, dtype, shape or alignment."""
+    B, S, KV, hd = shape
+    st, row = t.stride(), KV * hd
+    if t.is_contiguous():
+        rows = S
+    elif st[1:] == (row, hd, 1) and B == 1:
+        rows = S                  # one sequence: its stride is never used
+    elif st[1:] == (row, hd, 1) and st[0] % row == 0 and st[0] >= S * row:
+        rows = st[0] // row
+    else:
+        rows = None
+    if (t.device != dev or t.dtype != dtype or t.shape != shape
+            or t.data_ptr() % 16 or rows is None):
+        if rows is None and t.device == dev and t.dtype == dtype \
+                and t.shape == shape:
+            raise ValueError(f"{name} must be contiguous, or a slice along "
+                             "S of a contiguous (B, S, KV, hd) cache")
+        _nvcc.check_tensor(name, t, dtype, shape, dev)
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return rows
+
+
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the kernel on the current stream (no sync): one launch, which
     also merges the chunks. q (B, KV, G, hd), k_cache / v_cache
     (B, S, KV, hd), all f32 or all bf16, hd in {64, 128}, 1 <= G <= 32;
-    lengths (B,) int32; all contiguous on one CUDA device. Returns the
+    lengths (B,) int32; all on one CUDA device, q and lengths contiguous,
+    the caches contiguous or both the same slice along S of longer
+    contiguous caches (the kernel's tensor maps take their batch stride,
+    so a sequence shard's view is read in place). Returns the
     merged UN-normalised (acc (B, KV, G, hd), m (B, KV, G, 1),
     l (B, KV, G, 1)), f32: views of the one buffer a call allocates. The
     partials and the merge counters live in a workspace kept per (device,
@@ -198,14 +227,21 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     # pointer read once (the host paces a decode call as much as the card);
     # check_tensor names the fault
     kv_shape = (B, S, KV, hd)
+    s_mem = S
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        # a sequence shard's view, read in place through its batch stride
+        s_mem = _cache_rows("k_cache", k_cache, dt, kv_shape, dev)
+        if _cache_rows("v_cache", v_cache, dt, kv_shape, dev) != s_mem:
+            raise ValueError("k_cache and v_cache must have the same layout")
     ptrs = []
     for name, t, dtype, shape in (("q", q, dt, q.shape),
                                   ("k_cache", k_cache, dt, kv_shape),
                                   ("v_cache", v_cache, dt, kv_shape),
                                   ("lengths", lengths, torch.int32, (B,))):
         ptr = t.data_ptr()
+        # the caches' layout was checked above when they are not contiguous
         if (t.device != dev or t.dtype != dtype or t.shape != shape
-                or ptr % 16 or not t.is_contiguous()):
+                or ptr % 16 or not (t.is_contiguous() or shape is kv_shape)):
             _nvcc.check_tensor(name, t, dtype, shape, dev)
         ptrs.append(ptr)
     lib = _attention.load()
@@ -213,7 +249,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=dev)
     p_out = out.data_ptr()
     rc = lib.decode_attention_launch(
-        *ptrs, code, B, S, KV, G, hd, split, *ws, p_out, p_out + 4 * n_acc,
+        *ptrs, code, B, S, s_mem, KV, G, hd, split, *ws, p_out,
+        p_out + 4 * n_acc,
         p_out + 4 * (n_acc + n_ml), _attention.stream_of(dev))
     if rc:
         _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} "

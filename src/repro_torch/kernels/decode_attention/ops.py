@@ -1,16 +1,32 @@
 """The flash-decode dispatch the model calls (port of
 ``repro/kernels/decode_attention/ops.py``).
 
-  decode_attention   single device: the CUDA kernel for tensors on the
-                     card, its plain version for tensors on the CPU; acc / l
-                     in the (B, H, hd) layout
-
-``decode_attention_sharded`` (the sequence-parallel cache) waits for the
-sharded slice (ROADMAP queue 1, "Sharded engine").
+  decode_attention          single device: the CUDA kernel for tensors on
+                            the card, its plain version for tensors on the
+                            CPU; acc / l in the (B, H, hd) layout
+  decode_attention_sharded  sequence-parallel KV cache: one kernel launch
+                            per shard of S on its slice of the cache (read
+                            in place), partial (acc, m, l) merged with the
+                            logsumexp combine (`merge_sharded`) --
+                            flash-decode's split-K across a mesh axis
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.decode_attention import decode_attention as _dec
+from repro_torch.launch.mesh import n_shards as mesh_shards
+
+
+def _partials(qg, k_cache, v_cache, lengths):
+    """Un-normalised (acc, m, l) from the kernel on the card or its plain
+    version on the CPU; any other device raises."""
+    if qg.device.type == "cuda":
+        return _dec.decode_attention_cuda(qg.contiguous(), k_cache, v_cache,
+                                          lengths)
+    if qg.device.type == "cpu":
+        return _dec.decode_attention_plain(qg, k_cache, v_cache, lengths)
+    raise ValueError(f"no decode-attention engine for device {qg.device}")
 
 
 def decode_attention(q, k_cache, v_cache, lengths, n_kv: int,
@@ -21,13 +37,51 @@ def decode_attention(q, k_cache, v_cache, lengths, n_kv: int,
     rule (`decode_attention.split_for`) and the plain version takes S
     whole. Any device but the card and the CPU raises."""
     B, H, hd = q.shape
-    qg = q.reshape(B, n_kv, H // n_kv, hd)
-    if q.device.type == "cuda":
-        acc, m, l = _dec.decode_attention_cuda(qg.contiguous(), k_cache,
-                                               v_cache, lengths)
-    elif q.device.type == "cpu":
-        acc, m, l = _dec.decode_attention_plain(qg, k_cache, v_cache, lengths)
-    else:
-        raise ValueError(f"no decode-attention engine for device {q.device}")
+    acc, m, l = _partials(q.reshape(B, n_kv, H // n_kv, hd), k_cache,
+                          v_cache, lengths)
     out = acc / l
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def merge_sharded(mesh, seq_axis, qg, k_cache, v_cache, lengths):
+    """The sequence-parallel split of `decode_attention_sharded`, kept
+    un-normalised: qg (B, KV, G, hd), caches (B, S, KV, hd) split along S
+    into the shards of ``seq_axis``. Each shard runs the kernel (its plain
+    version on the CPU) over its slice of S_local positions -- a view of
+    the caches, not a copy -- with its own live prefix clip(lengths -
+    s * S_local, 0, S_local); the partials merge by m* = max m_i, w_i =
+    e^{m_i - m*} (0 where l_i = 0), l* = sum l_i w_i, acc* = sum acc_i w_i.
+    A shard with no live row has m_i = NEG_INF, so its weight is 0
+    whenever another shard is live; a sequence with no live row at all
+    takes every weight 1 (the mean of V, as the unsharded kernel). Returns
+    (acc* (B, KV, G, hd), l* (B, KV, G, 1)), f32."""
+    n = mesh_shards(mesh, seq_axis)
+    S = k_cache.shape[1]
+    if S % n:
+        raise ValueError(f"cache length {S} not divisible by {n} shards")
+    s_local = S // n
+    lengths = lengths.to(torch.int32)
+    parts = []
+    for s in range(n):
+        lo = s * s_local
+        local = (lengths - lo).clamp(0, s_local)
+        parts.append(_partials(qg, k_cache[:, lo:lo + s_local],
+                               v_cache[:, lo:lo + s_local], local))
+    acc, m, l = (torch.stack(t) for t in zip(*parts))     # (n, B, KV, G, .)
+    w = torch.where(l > 0, torch.exp(m - m.amax(dim=0)), 0.0)
+    return (acc * w).sum(dim=0), (l * w).sum(dim=0)
+
+
+def decode_attention_sharded(mesh, seq_axis, q, k_cache, v_cache, lengths,
+                             n_kv: int, blk_s: int = 512):
+    """KV cache sharded along S over ``seq_axis``; q (B, H, hd) and lengths
+    shared: `merge_sharded`'s partials, then out = acc* / l*. The payload
+    merged is O(B * H * hd) a shard, independent of S. ``blk_s`` is kept
+    for the reference's signature. Returns (B, H, hd) in q's dtype; every
+    mesh device must be the caches'."""
+    B, H, hd = q.shape
+    acc, l_sum = merge_sharded(mesh, seq_axis,
+                               q.reshape(B, n_kv, H // n_kv, hd), k_cache,
+                               v_cache, lengths)
+    out = acc / torch.clamp(l_sum, min=1e-30)
     return out.reshape(B, H, hd).to(q.dtype)

@@ -1,7 +1,8 @@
 """Doctest smoke for the port's front door, IVF index, warm tier, router,
 lexical arena, split-stack two-scan baseline, arena-scan tile policy,
-hybrid reference, observability, serving (scheduler, load harness,
-metrics, faults) and corpus docstrings (the twin of
+hybrid reference, sharded engine (scan, merge helpers, meshes),
+observability, serving (scheduler, load harness, metrics, faults) and
+corpus docstrings (the twin of
 tests/test_doctests.py): every ``>>>`` example runs here on the CPU, so
 the runnable examples cannot rot."""
 import doctest
@@ -18,11 +19,14 @@ import repro_torch.core.query
 import repro_torch.core.router
 import repro_torch.core.splitstack
 import repro_torch.data.corpus
+import repro_torch.distributed.collectives
 import repro_torch.index.lexical.arena
 import repro_torch.index.lexical.twoscan
 import repro_torch.kernels.arena_scan.ops
+import repro_torch.kernels.arena_scan.sharded
 import repro_torch.kernels.arena_scan.stages
 import repro_torch.kernels.hybrid_score.ref
+import repro_torch.launch.mesh
 import repro_torch.obs.calibration
 import repro_torch.obs.recorder
 import repro_torch.obs.tracer
@@ -44,11 +48,14 @@ MODULES = [
     repro_torch.core.router,
     repro_torch.core.splitstack,
     repro_torch.data.corpus,
+    repro_torch.distributed.collectives,
     repro_torch.index.lexical.arena,
     repro_torch.index.lexical.twoscan,
     repro_torch.kernels.arena_scan.ops,
+    repro_torch.kernels.arena_scan.sharded,
     repro_torch.kernels.arena_scan.stages,
     repro_torch.kernels.hybrid_score.ref,
+    repro_torch.launch.mesh,
     repro_torch.obs.tracer,
     repro_torch.obs.recorder,
     repro_torch.obs.calibration,

@@ -27,6 +27,7 @@ from repro_torch.core.store import StoreConfig
 from repro_torch.core.tenancy import Principal
 from repro_torch.data.corpus import DAY_S, CorpusConfig, make_corpus
 from repro_torch.kernels.arena_scan import kernel as kernel_mod
+from repro_torch.launch.mesh import make_mesh
 from tests.test_torch_arena_scan import assert_topk_agree
 
 torch.set_num_threads(1)
@@ -170,8 +171,10 @@ def test_misuse_probes_match_reference(probe):
 def test_later_slices_and_tpu_engine_are_refused():
     tdb = RagDB(StoreConfig(capacity=8, dim=4), device="cpu")
     b = tdb.admin_session().search(np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.using("sharded")
+    # the sharded slice is ported: "sharded" without a mesh is refused at
+    # plan time, naming the mesh, as in the reference
+    with pytest.raises(ValueError, match="mesh-built RagDB"):
+        b.using("sharded").plan()
     with pytest.raises(ValueError, match="cuda"):
         b.using("pallas")
     # the IVF slice is ported: "ivf" without a built index is refused at
@@ -184,11 +187,15 @@ def test_later_slices_and_tpu_engine_are_refused():
         b.match("error 17")
     with pytest.raises(ValueError, match="match\\(\\) clause"):
         b.using("hybrid").plan()
-    # the warm tier is ported: warm_cfg builds a tiered db; mesh= waits
-    # for the sharded-engine slice
-    for kw in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError):
-            RagDB(StoreConfig(capacity=8, dim=4), device="cpu", **kw)
+    # the warm tier and mesh= are ported: a mesh of the store's device
+    # builds a sharded db; a mesh naming another device waits for arena
+    # regions on their own cards (ROADMAP queue 1)
+    sdb = RagDB(StoreConfig(capacity=8, dim=4), device="cpu",
+                mesh=make_mesh((2,), ("data",), devices=["cpu"] * 2))
+    assert sdb.n_shards == 2 and sdb.log.placement.kind == "hash"
+    with pytest.raises(ValueError, match="ROADMAP queue 1"):
+        RagDB(StoreConfig(capacity=8, dim=4), device="cpu",
+              mesh=make_mesh((2,), ("data",), devices=["cpu", "meta"]))
     assert b.plan().route_reason == "warm tier empty"
 
 
