@@ -183,9 +183,9 @@ Phases:
 
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
                 (causal and full) and the flash-decode kernel against their plain versions on
-                the card over bf16 and f32, G 1 / 4 / 8, hd 64 / 128 and
-                S 1 / 17 / 512 / 2064 / 4096, then in bf16 at the edges of
-                the tiles: G 3 (a flash tile of 126 rows in use) and S 127 /
+                the card over bf16 and f32, G 1 / 2 / 4 / 8, hd 64 / 128
+                and S 1 / 17 / 512 / 2064 / 4096, then in bf16 at the edges
+                of the tiles: G 2 and 3 (a flash tile of 126 rows in use) at S 127 /
                 129 / 2047; decode batches lengths 0 (the mean of V, as the
                 reference), 1, random and S + 3. Flash within
                 rtol 1e-2, atol 8e-3 of its plain version (the chunked
@@ -252,7 +252,7 @@ Phases:
                 its bound, the tie widenings, collective bytes, the
                 sharded decode's time beside the kernel's, the decode
                 wrapper's host cost a call, peak memory.
- 14. lm_serve (runs last, after the prod arena is freed) -- the LM serving
+ 14. lm_serve (after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
                 requests in 4 tenants, k = 4 docs of 504 seeded tokens and a
@@ -273,6 +273,38 @@ Phases:
                 time (a yardstick the port never calls); the decode
                 workspace's bytes and 1 allocation a call (its outputs);
                 peak memory.
+
+ 15. moe_serve (after lm_serve) -- the same serving path at granite-moe-
+                1b-a400m FULL (24 layers, d_model 1024, 16 heads over 8 KV,
+                hd 64, G 2, 32 experts of d_ff 512, top-8, bf16, seeded
+                random weights) with the same shape, serves, scheduled
+                serve, captures and gates as lm_serve; besides: the router
+                choices (token, layer, k) that differ between the kernel
+                path's prefill and the naive one -- the chunked-vs-naive
+                logits gate applies only when none does, else the error is
+                reported beside the count -- and one MoE layer's CUDA-event
+                time at the prefill's groups and at a decode step's. Then
+                `launch.serve.main([--arch granite-moe-1b-a400m
+                --no-reduced --engine cuda --requests 8])` must serve 8.
+ 16. train (last) -- no kernel: the training path is plain PyTorch. (a)
+                granite at full width cut to 2 layers, f32, TF32 off: one
+                AdamW step on the card and on the CPU from the same numpy
+                weights, loss within rtol 1e-5, grad norm within 1e-4,
+                router choices equal; (b) granite FULL through `Trainer`,
+                40 steps of 8 x 1024 synthetic tokens, AdamW at the
+                launcher's peak 3e-4 on a cosine schedule of warmup 5 over
+                the 40 steps, one async checkpoint at the end (a FULL
+                train state is 13.4 GB: the script keeps its disk writes
+                to one): every loss finite, the last logged below the
+                first; step time, tokens/s, 6 N_active tokens as a share
+                of the bf16 peak, the one-hot contractions' share, peak
+                memory; (c) the straight run goes on 2 steps, and
+                resume_or_init's state (step 40) replays them bit for bit
+                ((b) and (c) under use_deterministic_algorithms); (d)
+                `launch.train.main` at FULL width for 4 steps without
+                --ckpt, then twice with --reduced --ckpt: the second
+                resumes at step 4 and trains none. The flash and decode
+                launch counts stay 0.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (each row with ``paths``: the phases whose
@@ -350,10 +382,10 @@ PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 # cache) to past the prefill shape, both dtypes; then, for the bf16 kernel's
 # tiles, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
 # use) and S 127 / 129 / 2047 (64- and 128-key tiles)
-ATTN_G = (1, 4, 8)
+ATTN_G = (1, 2, 4, 8)
 ATTN_HD = (64, 128)
 ATTN_S = (1, 17, 512, 2064, 4096)
-ATTN_EDGE_G = (1, 3, 4, 8)
+ATTN_EDGE_G = (1, 2, 3, 4, 8)
 ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
 # tolerances: flash rounds P and V to bf16 for P.V (test_kernels.py:96-97);
 # decode is all f32 math (test_kernels.py:60)
@@ -3911,11 +3943,17 @@ def doc_tokens_of(vocab, n):
 
 
 def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
-                   dim=128, doc_len=504, q_len=32, new_tokens=16, serves=3):
-    """The LM serving path at qwen3-4b full width: RAGEngine over the bench
-    RagDB -> prompt of 4 x 504 doc tokens + 32 question tokens (2048) ->
-    prefill (the flash kernel, 36 launches) -> 16 decode steps (the decode
-    kernel, 36 launches each)."""
+                   dim=128, doc_len=504, q_len=32, new_tokens=16, serves=3,
+                   name="lm_serve"):
+    """The LM serving path at full width (qwen3-4b unless ``cfg`` names
+    another): RAGEngine over the bench RagDB -> prompt of 4 x 504 doc
+    tokens + 32 question tokens (2048) -> prefill (the flash kernel, one
+    launch a layer) -> 16 decode steps (the decode kernel, one launch a
+    layer each). An MoE config also counts the router choices that differ
+    between the kernel path's prefill and the naive path's (the logits gate
+    applies only when none does: a flipped expert moves a token by a whole
+    expert's share, which the kernel does not own) and times one MoE layer
+    at the prefill's and a decode step's shapes."""
     from repro_torch.api import RagDB
     from repro_torch.configs import qwen3_4b
     from repro_torch.core.store import StoreConfig
@@ -3923,6 +3961,7 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     from repro_torch.data.corpus import CorpusConfig, make_corpus
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import RAGEngine, Request
 
@@ -4041,23 +4080,50 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
         errs_d.append(decode_check(qd.reshape(B, n_kv, H // n_kv, hd), kc,
                                    vc, lengths))
 
-    # prefill logits through the flash kernel against the naive path
+    # prefill logits through the flash kernel against the naive path; an
+    # MoE model's router choices of both prefills recorded on the way
     slots = np.stack([resp.doc_slots for resp in warm])
     prompts = engine._build_prompts(requests, slots, np.zeros_like(slots))
     toks = torch.from_numpy(prompts).to(dev)
-    lg_chunked, _ = tfm.prefill(model, dataclasses.replace(
-        cfg, attn_impl="chunked"), toks, max_len)
-    lg_naive, _ = tfm.prefill(model, dataclasses.replace(
-        cfg, attn_impl="naive"), toks, max_len)
+    chosen = {"chunked": [], "naive": []}
+    route = moe_mod._route
+    for impl in ("chunked", "naive"):
+        def spy(p, spec, x, seen=chosen[impl]):
+            out = route(p, spec, x)
+            seen.append(out[1])
+            return out
+        moe_mod._route = spy
+        try:
+            lg, _ = tfm.prefill(model, dataclasses.replace(
+                cfg, attn_impl=impl), toks, max_len)
+        finally:
+            moe_mod._route = route
+        chosen[impl] = (lg, chosen[impl])
+    (lg_chunked, r_c), (lg_naive, r_n) = chosen["chunked"], chosen["naive"]
     sync()
+    flips = None
+    if cfg.is_moe:
+        # per (token, layer), the experts of the kernel path's top-k that
+        # the naive path did not choose; and the positional differences
+        check(len(r_c) == len(r_n) == L, "one routing a layer and prefill")
+        flips = {"set": 0, "positional": 0, "tokens_routed": 0}
+        for a, b in zip(r_c, r_n):
+            same = (a[..., :, None] == b[..., None, :]).any(-1)
+            flips["set"] += int((~same).sum())
+            flips["positional"] += int((a != b).sum())
+            flips["tokens_routed"] += a.shape[0] * a.shape[1]
+    del r_c, r_n, chosen
     lg_c, lg_n = lg_chunked.float(), lg_naive.float()
     logit_diff = float((lg_c - lg_n).abs().max())
     logit_scale = float(lg_n.abs().max())
     cos = float(torch.nn.functional.cosine_similarity(lg_c, lg_n, dim=1).min())
     argmax_agree = float((lg_c.argmax(1) == lg_n.argmax(1)).float().mean())
-    check(torch.isfinite(lg_c).all() and logit_diff <= LOGIT_REL * logit_scale,
-          f"chunked vs naive logits differ by {logit_diff} "
-          f"(max |logit| {logit_scale})")
+    check(torch.isfinite(lg_c).all(), "chunked prefill logits not finite")
+    logits_gated = flips is None or flips["set"] == 0
+    if logits_gated:
+        check(logit_diff <= LOGIT_REL * logit_scale,
+              f"chunked vs naive logits differ by {logit_diff} "
+              f"(max |logit| {logit_scale})")
     del lg_chunked, lg_naive, lg_c, lg_n
 
     # device time by kernel and the device's idle share: one prefill, one
@@ -4065,15 +4131,38 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     lg, cache = tfm.prefill(model, cfg, toks, max_len)
     cur = lg.argmax(-1).to(torch.int32)
     profiles = {}
-    for name, tags, fn in (
+    for what, tags, fn in (
             ("prefill", ("flash_fwd",),
              lambda: tfm.prefill(model, cfg, toks, max_len)),
             ("decode_step", ("decode_attention_kernel",),
              lambda: tfm.decode_step(model, cfg, cur, cache, max_prompt))):
         prof = profile_batch(fn, tags)
         prof.pop("split_ms")
-        profiles[name] = prof
+        profiles[what] = prof
     del lg, cache
+
+    # one MoE layer (router, dispatch, experts, combine) by CUDA events at
+    # the prefill's groups and at a decode step's (groups of one token)
+    moe_ms = None
+    if cfg.is_moe:
+        gen_h = torch.Generator(device=dev).manual_seed(SEED + 13)
+        spec, D = cfg.moe_spec(), cfg.d_model
+        t_grp = min(cfg.moe_group, max_prompt)
+        h_pre = torch.randn((B * max_prompt // t_grp, t_grp, D),
+                            generator=gen_h, device=dev).to(torch.bfloat16)
+        h_dec = torch.randn((B, 1, D), generator=gen_h,
+                            device=dev).to(torch.bfloat16)
+        layer0 = model.layers[0].moe
+        with torch.no_grad():
+            moe_ms = {
+                "prefill_ms": events_ms(lambda: moe_mod.moe_apply(
+                    layer0, spec, h_pre), 5),
+                "decode_step_ms": events_ms(lambda: moe_mod.moe_apply(
+                    layer0, spec, h_dec), 20),
+                "groups_prefill": list(h_pre.shape[:2]),
+                "capacity_prefill": moe_mod.capacity(t_grp, spec),
+                "capacity_decode": moe_mod.capacity(1, spec)}
+        del h_pre, h_dec
 
     # kernel times at the path's shapes, beside plain and SDPA
     q, k, v, n_kv = cap_f.args[0][:4]
@@ -4132,7 +4221,10 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                                     dev).multi_processor_count)
     d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
         attn_lib.DTYPES[kc.dtype], hd, H // n_kv, d_split)
-    check(d_blocks == dec_mod.BLOCKS_PER_SM,
+    # qwen3-4b's shape is the one the split's constant was set for; at
+    # another shape the card must hold at least that many blocks an SM
+    check(d_blocks == dec_mod.BLOCKS_PER_SM if name == "lm_serve"
+          else d_blocks >= dec_mod.BLOCKS_PER_SM,
           f"{d_blocks} decode blocks an SM, the split assumes "
           f"{dec_mod.BLOCKS_PER_SM}")
     live_total = int(lengths.clamp(max=kc.shape[1]).sum())
@@ -4146,8 +4238,10 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     retrieval = [run[0].retrieval_ms * B for run in resps]
     prefill = [run[0].prefill_ms for run in resps]
     decode = [run[0].decode_ms for run in resps]
-    emit("lm_serve", seconds=time.perf_counter() - t_phase, model=cfg.name,
-         params=cfg.param_count(), layers=L, batch=B, k=k_docs,
+    emit(name, seconds=time.perf_counter() - t_phase, model=cfg.name,
+         params=cfg.param_count(), active_params=cfg.active_param_count(),
+         layers=L, head_dim=cfg.hd, group=cfg.n_heads // cfg.n_kv_heads,
+         batch=B, k=k_docs,
          prompt=max_prompt, new_tokens=new_tokens, max_len=max_len,
          init_s=init_s, serves=serves,
          retrieval_ms_median=med(retrieval), prefill_ms_median=med(prefill),
@@ -4164,7 +4258,9 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
          logits_chunked_vs_naive={"max_abs_diff": logit_diff,
                                   "max_abs_logit": logit_scale,
                                   "min_cosine": cos,
-                                  "argmax_agree": argmax_agree},
+                                  "argmax_agree": argmax_agree,
+                                  "gated": logits_gated},
+         routing_flips_chunked_vs_naive=flips, moe_layer=moe_ms,
          flash={"ms": f_ms, "device_ms": f_dev, "plain_ms": f_plain,
                 "sdpa_ms": f_lib, "sdpa_device_ms": f_lib_dev,
                 "bound_ms": f_bound, "gflop": f_flops / 1e9,
@@ -4190,6 +4286,305 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                        bound_by="bytes" if d_bytes / HBM_BPS
                        >= d_flops / FP32_FLOPS else "operations",
                        max_abs_err=max(errs_d))}
+
+
+def phase_moe_serve(dev):
+    """granite-moe-1b-a400m FULL through `phase_lm_serve` (hd 64, G 2 on
+    both attention kernels), then the serving launcher once on the card."""
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.launch import serve as serve_launch
+    out = phase_lm_serve(dev, granite_moe_1b.FULL, name="moe_serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = serve_launch.main(["--arch", "granite-moe-1b-a400m",
+                                "--no-reduced", "--engine", "cuda",
+                                "--requests", "8"])
+    check(served == 8, f"the serving launcher served {served} of 8")
+    emit("moe_serve_launcher", seconds=time.perf_counter() - t0,
+         argv="--arch granite-moe-1b-a400m --no-reduced --engine cuda "
+              "--requests 8", served=served)
+    return out
+
+
+def onehot_ms(dev, cfg, tokens):
+    """CUDA-event ms of the one-hot dispatch and combine contractions of one
+    MoE layer at a training step's groups (tokens / moe_group groups):
+    forward alone, and forward + backward (d x through the dispatch; d
+    combine and d expert outputs through the combine) -- a remat step runs
+    the forward twice and the backward once."""
+    from repro_torch.models.moe import capacity
+    t = cfg.moe_group
+    G, E, C, D = tokens // t, cfg.n_experts, capacity(t, cfg.moe_spec()), \
+        cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def rnd(*shape, grad=False):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(grad)
+
+    disp, x = rnd(G, t, E, C), rnd(G, t, D, grad=True)
+    comb, yout = rnd(G, t, E, C, grad=True), rnd(G, E, C, D, grad=True)
+    gx, gy = rnd(G, E, C, D), rnd(G, t, D)
+
+    def fwd():
+        with torch.no_grad():
+            torch.einsum("gtec,gtd->gecd", disp, x)
+            torch.einsum("gtec,gecd->gtd", comb, yout)
+
+    def fwd_bwd():
+        a = torch.einsum("gtec,gtd->gecd", disp, x)
+        b = torch.einsum("gtec,gecd->gtd", comb, yout)
+        torch.autograd.backward([a, b], [gx, gy])
+
+    return events_ms(fwd, 5), events_ms(fwd_bwd, 5)
+
+
+def phase_train(dev, cfg=None, *, steps=40, batch=8, seq=1024, peak_lr=3e-4,
+                warmup=5, cpu_layers=2, cpu_batch=2, cpu_seq=256,
+                launcher_steps=4, launcher_arch="granite-moe-1b-a400m",
+                launcher_device=None):
+    """The training path at granite-moe-1b-a400m FULL (``cfg`` takes
+    another config). It launches no kernel: the reference trains through
+    plain attention, and so does the port. Each part prints its line.
+    (a) train_card_vs_cpu: FULL width cut to ``cpu_layers`` layers, f32,
+        TF32 off, one AdamW step on the card and on the CPU from the same
+        numpy weights: loss within rtol 1e-5, global grad norm within 1e-4,
+        the router choices (every layer, forward and remat recompute)
+        equal.
+    (b) train: FULL (bf16, 24 layers) through `Trainer`, ``steps`` steps
+        of ``batch`` x ``seq`` synthetic tokens, AdamW (weight decay 0.1)
+        at the launcher's peak ``peak_lr`` on a phase-local cosine schedule
+        (warmup ``warmup`` over ``steps``; the launcher's warmup of 100
+        steps would barely move the run), one async checkpoint, at the
+        end: every loss finite, the last logged loss below the first. 40
+        steps, not 20: over the first 20 the loss moves less than its
+        batch-to-batch spread at every peak tried (3e-5 to 3e-3; above
+        3e-4 the routers' load-balancing term grows faster than the
+        cross-entropy falls; `tools/train_schedules.py`). One checkpoint:
+        a FULL train state is 13.4 GB, and the script keeps its disk
+        writes to one such state.
+    (c) train_restart: the straight run goes on 2 steps in memory;
+        resume_or_init picks the checkpoint (step ``steps``, parameters
+        equal to the run's) and the same 2 steps replayed from it equal the
+        straight run's parameters bit for bit -- (b) and (c) under
+        torch.use_deterministic_algorithms (the embedding's and the
+        gather's backward would add by atomics).
+    (d) train_launcher: `launch.train.main` at FULL width for
+        ``launcher_steps`` steps without --ckpt (with it the launcher saves
+        every steps / 4 steps: 5 FULL states, 67 GB), then twice on the
+        card with --reduced and --ckpt: the second resumes at the last
+        step and trains none."""
+    import contextlib
+    import io
+    import tempfile
+    import warnings
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.data.lm_pipeline import Prefetcher, synthetic_lm_batches
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import tree as T
+    from repro_torch.training.fault_tolerance import (StragglerDetector,
+                                                      resume_or_init)
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    from repro_torch.training.train_loop import (Trainer, TrainerConfig,
+                                                 init_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_moe_1b.FULL
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+
+    # (a) one step on the card against the CPU
+    small = dataclasses.replace(cfg, n_layers=cpu_layers, dtype="float32")
+    cpu_model = tfm.init(small, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    card_model = tfm.from_numpy(tfm.to_numpy(cpu_model), small, device=dev)
+    batch_a = next(synthetic_lm_batches(small.vocab_size, cpu_batch, cpu_seq,
+                                        seed=SEED))
+
+    def one_step(model):
+        chosen, route = [], moe_mod._route
+
+        def spy(p, spec, x):
+            out = route(p, spec, x)
+            chosen.append(out[1].cpu())
+            return out
+        moe_mod._route = spy
+        try:
+            opt = adamw(1e-4)
+            step = make_train_step(lambda p, b: tfm.loss_fn(p, small, b), opt)
+            t0 = time.perf_counter()
+            _, m = step(init_state(model, opt), batch_a)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        finally:
+            moe_mod._route = route
+        return loss, gnorm, chosen, time.perf_counter() - t0
+
+    l_cpu, g_cpu, r_cpu, cpu_s = one_step(cpu_model)
+    l_card, g_card, r_card, card_s = one_step(card_model)
+    routes_equal = len(r_cpu) == len(r_card) and all(
+        torch.equal(a, b) for a, b in zip(r_cpu, r_card))
+    emit("train_card_vs_cpu", layers=cpu_layers, batch=cpu_batch,
+         seq=cpu_seq, dtype="float32", tf32=False, loss=[l_card, l_cpu],
+         grad_norm=[g_card, g_cpu], routes=len(r_card),
+         routes_equal=routes_equal, step_s={"card": card_s, "cpu": cpu_s})
+    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+          f"card loss {l_card} vs CPU {l_cpu}")
+    check(abs(g_card - g_cpu) <= 1e-4 * g_cpu,
+          f"card grad norm {g_card} vs CPU {g_cpu}")
+    check(routes_equal, "router choices differ between the card and the CPU")
+    del cpu_model, card_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) FULL through Trainer, deterministic; (c) restart and replay
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(cosine_schedule(peak_lr, warmup, steps), weight_decay=0.1)
+    step_fn = make_train_step(lambda p, b: tfm.loss_fn(p, cfg, b), opt,
+                              donate=False)
+    losses, logs = [], []
+
+    def recorded(state, b):
+        state, m = step_fn(state, b)
+        losses.append(m["loss"])
+        return state, m
+
+    def fresh():
+        return init_state(tfm.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev), opt)
+
+    detector = StragglerDetector()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as nondet, \
+            tempfile.TemporaryDirectory() as d:
+        warnings.simplefilter("always")
+        dts = []
+        record = detector.record
+        detector.record = lambda step, dt_s: dts.append(dt_s) or record(
+            step, dt_s)
+        t0 = time.perf_counter()
+        trainer = Trainer(
+            TrainerConfig(total_steps=steps, ckpt_dir=d, ckpt_every=steps + 1,
+                          log_every=10),
+            recorded, fresh(), Prefetcher(synthetic_lm_batches(
+                cfg.vocab_size, batch, seq, seed=SEED)),
+            straggler_detector=detector, log_fn=logs.append)
+        final = trainer.run()
+        run_s = time.perf_counter() - t0
+        history = trainer.history
+        train_peak = peak_gb()
+        loss_vals = [float(x) for x in losses]
+        step_ms = statistics.median(dts[1:]) * 1e3
+        tokens = batch * seq
+        flop = 6 * cfg.active_param_count() * tokens
+        del trainer
+        gc.collect()
+        oh_f, oh_fb = onehot_ms(dev, cfg, tokens)
+        onehot_step_ms = cfg.n_layers * (oh_f + oh_fb)
+        emit("train", seconds=time.perf_counter() - t_phase, model=cfg.name,
+             params=cfg.param_count(), active_params=cfg.active_param_count(),
+             steps=steps, batch=batch, seq=seq,
+             optimizer=f"adamw(cosine_schedule({peak_lr}, {warmup}, "
+                       f"{steps}), weight_decay=0.1)",
+             kernels_launched={"flash_attention": fa_mod.LAUNCHES,
+                               "decode_attention": dec_mod.LAUNCHES,
+                               "note": "the training path launches no "
+                                       "kernel: attention trains through "
+                                       "plain PyTorch, as the reference "
+                                       "through plain jnp"},
+             run_s=run_s, step_ms=[x * 1e3 for x in dts],
+             step_ms_median=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+             model_flop_share_of_bf16_peak=flop / (step_ms / 1e3) / BF16_FLOPS,
+             flop_a_step=flop,
+             onehot_ms_a_layer={"forward": oh_f, "forward_backward": oh_fb},
+             onehot_share_of_step=onehot_step_ms / step_ms,
+             losses=loss_vals, logged=history, checkpoints=ckpt.all_steps(d),
+             peak_mem_gb=train_peak)
+        check(len(loss_vals) == steps and all(np.isfinite(loss_vals)),
+              f"non-finite losses: {loss_vals}")
+        check(history[-1]["loss"] < history[0]["loss"],
+              f"loss did not fall: {history[0]['loss']} -> "
+              f"{history[-1]['loss']}")
+        check(ckpt.all_steps(d) == [steps], f"checkpoints {ckpt.all_steps(d)}")
+
+        # the straight run goes on two steps; the restart replays them
+        t0 = time.perf_counter()
+        replay_batches = synthetic_lm_batches(cfg.vocab_size, batch, seq,
+                                              seed=SEED, start_step=steps)
+        pair = [next(replay_batches) for _ in range(2)]
+        ran = [p.detach().clone() for p in T.leaves(final["params"])]
+        for b in pair:
+            final, _ = step_fn(final, b)
+        straight = [p.detach().clone() for p in T.leaves(final["params"])]
+        del final
+        gc.collect()
+        resumed, start = resume_or_init(d, fresh)
+        resume_s = time.perf_counter() - t0
+        check(start == steps and resumed["step"] == steps,
+              f"resume_or_init picked step {start}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            ran, T.leaves(resumed["params"]))),
+            "the resumed parameters differ from the run's")
+        del ran
+        for b in pair:
+            resumed, _ = step_fn(resumed, b)
+        replay = [(a.float() - b.float()).abs().max().item()
+                  for a, b in zip(T.leaves(resumed["params"]), straight)]
+        replay_equal = all(torch.equal(a, b) for a, b in zip(
+            T.leaves(resumed["params"]), straight))
+        del resumed, straight
+    torch.use_deterministic_algorithms(False)
+    nondet_ops = sorted({str(w.message)[:80] for w in nondet
+                         if "deterministic" in str(w.message)})
+    emit("train_restart", resume_step=start, seconds=resume_s,
+         replay_steps=[steps, steps + 1], bit_equal=replay_equal,
+         max_abs_diff=max(replay),
+         gate="bit for bit under torch.use_deterministic_algorithms(True)",
+         nondeterministic_ops_warned=nondet_ops)
+    check(replay_equal, f"replay of steps {steps}-{steps + 1} differs from "
+          f"the straight run: max |diff| {max(replay)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the launcher: FULL without checkpoints, then REDUCED twice with
+    # --ckpt (the second resumes at the last step)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--arch", launcher_arch, "--steps", str(launcher_steps),
+                  "--batch", str(batch), "--seq", str(seq)]
+        if launcher_device is not None:         # a rehearsal off the card
+            common += ["--device", launcher_device]
+        for run, argv in (("full", common),
+                          ("reduced", common + ["--reduced", "--ckpt", d]),
+                          ("reduced_resumed", common + ["--reduced",
+                                                        "--ckpt", d])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                state = train_launch.main(argv)
+            runs[run] = {"argv": " ".join(argv), "seconds":
+                         time.perf_counter() - t0, "step": state["step"],
+                         "steps_logged": out.getvalue().count("step "),
+                         "checkpoints": ckpt.all_steps(d)}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit("train_launcher", runs=runs, seconds=time.perf_counter() - t_phase,
+         kernels_launched={"flash_attention": fa_mod.LAUNCHES,
+                           "decode_attention": dec_mod.LAUNCHES},
+         peak_mem_gb=peak_gb())
+    for run in ("full", "reduced"):
+        check(runs[run]["step"] == launcher_steps
+              and runs[run]["steps_logged"] >= 1,
+              f"the launcher's {run} run: {runs[run]}")
+    check(runs["reduced_resumed"]["step"] == launcher_steps
+          and runs["reduced_resumed"]["steps_logged"] == 0,
+          f"the launcher did not resume: {runs['reduced_resumed']}")
+    check(fa_mod.LAUNCHES == 0 and dec_mod.LAUNCHES == 0,
+          f"training launched {fa_mod.LAUNCHES} flash / {dec_mod.LAUNCHES} "
+          "decode kernels")
 
 
 def setup():
@@ -4223,6 +4618,10 @@ def setup():
 
 
 def main() -> int:
+    # phase_train runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's workspace fixed before the first cuBLAS call (this is
+    # PyTorch's default size on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = setup()
     if dev is None:
         return 2
@@ -4281,6 +4680,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
@@ -4335,8 +4740,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
         "launches": lm["flash"]["launches"],
-        "paths": {"lm_serve": lm["flash"]["launches"]},
-        "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"]),
+        "paths": {"lm_serve": lm["flash"]["launches"],
+                  "moe_serve": moe["flash"]["launches"]},
+        "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"],
+                           moe["flash"]["max_abs_err"]),
         "ms": lm["flash"]["ms"], "plain_ms": lm["flash"]["plain_ms"],
         "bound_ms": lm["flash"]["bound_ms"],
         "bound_by": lm["flash"]["bound_by"],
@@ -4346,8 +4753,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:77",
         "launches": lm["decode"]["launches"],
         "paths": {"lm_serve": lm["decode"]["launches"],
+                  "moe_serve": moe["decode"]["launches"],
                   "sharded_prod": sprod["decode_launches"]},
         "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
+                           moe["decode"]["max_abs_err"],
                            sprod["decode_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],

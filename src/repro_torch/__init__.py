@@ -7,7 +7,9 @@ hybrid dense+BM25 path, the IVF pruned path and the sharded engine
 (``RagDB(mesh=...)``: the scan per shard region, an exact (score, doc_id)
 merge) on one NVIDIA H100, where the arena scan is a hand-written CUDA
 kernel (``csrc/arena_scan.cuh``) in its dense, lexical and slot-indirect
-probe modes. Entry points default to
+probe modes, and behind it an LM server and trainer (dense and MoE
+decoders; the flash-attention and flash-decode kernels serve, training
+runs plain PyTorch). Entry points default to
 ``device="cuda"`` and raise when no card is present; pass ``device="cpu"``
 to run the plain PyTorch versions instead.
 """

@@ -61,6 +61,17 @@ def check_rc(lib, rc: int, what: str) -> None:
                            + lib.attention_error_string(rc).decode())
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a forward-only kernel: its
+    output would carry no grad_fn and every gradient through it would be
+    lost without a word. Training takes the plain attention math instead
+    (`models.layers.attention_full`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward-only: an input requires grad "
+                           "with grad enabled (train through models.layers."
+                           "gqa_chunked, or call under torch.no_grad())")
+
+
 #: the current stream's raw handle without a Stream object (Triton's
 #: launcher reads it the same way); the public call where torch lacks it
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

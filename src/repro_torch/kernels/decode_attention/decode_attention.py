@@ -207,8 +207,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     partials and the merge counters live in a workspace kept per (device,
     B, KV, n_split, G, hd) and allocated once; it assumes ONE stream: two
     calls of the same shape in flight on two streams at once would share
-    it. Raises on any input it cannot take."""
+    it. Raises on any input it cannot take, and on inputs that require
+    grad with grad enabled (forward-only)."""
     global LAUNCHES
+    _attention.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {dev}")

@@ -143,8 +143,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the kernel on the current stream (no sync). q (B, S, KV, G,
     hd), k / v (B, S, KV, hd), all f32 or all bf16, hd in {64, 128},
     1 <= G <= 64, any S >= 1; all contiguous on one CUDA device. Returns o
-    (B, S, KV, G, hd) in q's dtype. Raises on any input it cannot take."""
+    (B, S, KV, G, hd) in q's dtype. Raises on any input it cannot take,
+    and on inputs that require grad with grad enabled (forward-only)."""
     global LAUNCHES
+    _attention.refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")

@@ -3,8 +3,9 @@
 CUDA kernel for tensors on the card, the plain chunked online softmax for
 tensors on the CPU.
 
-Forward-only, as the reference: training's differentiable path is the
-plain ``models.layers.gqa_chunked`` (the training slice).
+Forward-only, as the reference: under autograd ``models.layers.
+attention_full`` takes the plain, differentiable ``gqa_chunked`` instead,
+and the kernel's wrapper refuses inputs that require grad.
 """
 from __future__ import annotations
 

@@ -1,0 +1,83 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --batch 8 --seq 256 --steps 50 --reduced --device cpu   # CPU-sized run
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --batch 8 --seq 1024 --steps 20  # one card
+
+A registry LM with AdamW (cosine schedule, peak 3e-4, warmup 100) or, from
+100 B parameters, Adafactor; synthetic batches; a `Trainer` with async
+checkpoints every steps / 4 under ``--ckpt`` (which also resumes from the
+newest one) and straggler detection. Runs on the card unless ``--device``
+names another. ``--mesh`` and ``--vp-loss`` (sharded training,
+vocab-parallel loss) wait for ROADMAP queue 1's 'training scale-out' and
+raise.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+SCALE_OUT = ("{} is not ported yet (ROADMAP queue 1, 'training "
+             "scale-out'): the port trains on one device")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--mesh", default=None, help="e.g. 16x16 (data x model)")
+    ap.add_argument("--vp-loss", action="store_true",
+                    help="vocab-parallel cross-entropy (needs a 'model' axis)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(SCALE_OUT.format("--mesh"))
+    if args.vp_loss:
+        raise NotImplementedError(SCALE_OUT.format("--vp-loss"))
+
+    from repro_torch.configs import get
+    from repro_torch.core.store import resolve_device
+    from repro_torch.data.lm_pipeline import Prefetcher, synthetic_lm_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.fault_tolerance import (StragglerDetector,
+                                                      resume_or_init)
+    from repro_torch.training.optimizer import (adafactor, adamw,
+                                                cosine_schedule)
+    from repro_torch.training.train_loop import (Trainer, TrainerConfig,
+                                                 init_state, make_train_step)
+
+    arch = get(args.arch)
+    if arch.family != "lm":
+        raise ValueError("train.py drives the LM family")
+    cfg = arch.reduced if args.reduced else arch.full
+    dev = resolve_device(args.device)
+
+    opt = (adafactor(1e-3) if cfg.param_count() >= 100e9
+           else adamw(cosine_schedule(3e-4, 100, args.steps), weight_decay=0.1))
+    step_fn = make_train_step(lambda p, b: tfm.loss_fn(p, cfg, b), opt,
+                              donate=False)
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return init_state(tfm.init(cfg, generator=gen, device=dev), opt)
+
+    state, start = resume_or_init(args.ckpt, fresh)
+    data = Prefetcher(synthetic_lm_batches(cfg.vocab_size, args.batch, args.seq,
+                                           start_step=start))
+    trainer = Trainer(
+        TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
+                      ckpt_every=max(args.steps // 4, 1), log_every=10),
+        step_fn, state, data, straggler_detector=StragglerDetector())
+    return trainer.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,3 @@
-"""Model zoo of the port: the dense decoder-only transformer for serving
-(``layers``, ``transformer``). MoE, GNN and recsys models, and training,
-are later slices."""
+"""Model zoo of the port: the decoder-only transformer, dense and MoE
+(``layers``, ``moe``, ``transformer``), for serving and training. GNN and
+recsys models are a later slice."""

@@ -12,11 +12,13 @@ QKV bias and RoPE, for prefill and single-token decode with a KV cache.
 ``kernels.flash_attention.ops.flash_attention`` and decode always goes
 through ``kernels.decode_attention.ops.decode_attention``: on the card
 these are the hand-written CUDA kernels, on the CPU their plain versions.
-``gqa_chunked`` is the flash kernel's plain version in the (B, S, H, hd)
-layout. ``unroll`` and ``remat`` are accepted for the reference's
-signatures and do nothing: PyTorch runs eagerly, with no scan to unroll and
-no backward pass to rematerialise for. The generic ``mlp_*`` layers belong
-to the recsys / gnn slice.
+Both kernels are forward-only, as the reference's: where autograd records
+(grad enabled and an input that requires grad), ``attention_full`` takes
+``gqa_chunked``, the flash kernel's plain version in the (B, S, H, hd)
+layout -- the reference trains through the same plain math -- and the
+kernels' wrappers raise. ``unroll`` is accepted for the reference's
+signatures and does nothing: PyTorch runs eagerly, with no scan to unroll.
+The generic ``mlp_*`` layers belong to the recsys / gnn slice.
 """
 from __future__ import annotations
 
@@ -32,6 +34,22 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 
 Params = dict[str, Any]
 NEG_INF = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Truncated-normal fan-in init in place (the reference's
+    ``dense_init``): N(0, 1) cut at +-3, times 1 / sqrt(d_in), drawn in f32
+    on ``w``'s device and cast; d_in is ``w.shape[-2]`` (an expert stack
+    (E, d_in, d_out) draws each expert's matrix by its own fan-in)."""
+    t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0,
+                                generator=generator)
+    w.copy_(t.mul_(1.0 / np.sqrt(w.shape[-2])))
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +182,13 @@ def attention_full(p: Params, spec: AttentionSpec, x: torch.Tensor, *,
                    positions: torch.Tensor | None = None, causal: bool = True,
                    segment_ids: torch.Tensor | None = None,
                    impl: str = "auto", unroll: bool = False) -> torch.Tensor:
-    """Full self-attention (prefill without cache). x: (B,S,D).
+    """Full self-attention (training / prefill without cache). x: (B,S,D).
 
     impl: "naive" materialises (Sq, Sk) scores; "chunked" runs the flash
-    kernel (its plain version on the CPU); "auto" takes chunked at
-    S >= 2048. ``segment_ids`` always takes the naive path."""
+    kernel (its plain version on the CPU) -- or, when autograd records,
+    `gqa_chunked` with the reference's 1024-row blocks, since the kernel
+    has no backward; "auto" takes chunked at S >= 2048. ``segment_ids``
+    always takes the naive path."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -177,7 +197,12 @@ def attention_full(p: Params, spec: AttentionSpec, x: torch.Tensor, *,
     if impl == "auto":
         impl = "chunked" if S >= 2048 else "naive"
     if impl == "chunked" and segment_ids is None:
-        out = fa_ops.flash_attention(q, k, v, spec.n_kv_heads, causal=causal)
+        if torch.is_grad_enabled() and q.requires_grad:
+            out = gqa_chunked(q, k, v, spec.n_heads, spec.n_kv_heads,
+                              causal=causal)
+        else:
+            out = fa_ops.flash_attention(q, k, v, spec.n_kv_heads,
+                                         causal=causal)
     else:
         mask = _naive_mask(S, causal, segment_ids, x.device)
         out = gqa_scores_softmax_out(q, k, v, mask, spec.n_heads,

@@ -1,21 +1,29 @@
-"""Decoder-only transformer for serving (port of
-``repro/models/transformer.py``, dense configs).
+"""Decoder-only transformer, dense and MoE (port of
+``repro/models/transformer.py``).
 
   init(cfg, generator=, device=)                    -> Transformer
   from_numpy(tree, cfg, device=) / to_numpy(model)  <-> the reference's
                                                        params pytree
+  backbone(model, cfg, tokens)             -> (hidden (B,S,D), aux)   # train
+  forward(model, cfg, tokens)              -> (logits (B,S,V), aux)   # train
+  loss_fn(model, cfg, batch)               -> scalar f32              # train
   make_cache(cfg, batch, max_len, device=)          -> {"k", "v"}
   prefill(model, cfg, tokens, cache_len)            -> (logits_last, cache)
   decode_step(model, cfg, token, cache, cur_index)  -> (logits, cache)
 
 The weights keep the reference's ``x @ w`` layout (d_in, d_out), so moving
 the reference's parameters across is a copy, never a transpose. Layers are
-a Python loop (``cfg.unroll_layers`` and ``cfg.remat`` are accepted and do
-nothing). The KV cache is written in place: ``prefill`` fills positions
-[0, S) of a cache it allocates, ``decode_step`` writes position cur_index
-of the cache it is given and returns the same tensors. MoE configs raise:
-``models/moe.py`` is a later slice, as are ``forward`` / ``loss_fn`` /
-``make_vp_loss_fn`` (training).
+a Python loop (``cfg.unroll_layers`` is accepted and does nothing); with
+``cfg.remat`` the training path checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint``. Parameters are built with ``requires_grad=False``:
+serving runs under ``no_grad`` and ``training.train_loop.init_state``
+switches them on. The training path's attention is plain PyTorch (the
+flash kernel is forward-only; ``layers.attention_full``). The KV cache is
+written in place: ``prefill`` fills positions [0, S) of a cache it
+allocates, ``decode_step`` writes position cur_index of the cache it is
+given and returns the same tensors. ``make_vp_loss_fn`` (vocab-parallel
+loss over a mesh) waits for ROADMAP queue 1's 'training scale-out'.
 """
 from __future__ import annotations
 
@@ -24,12 +32,12 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.store import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoESpec, moe_apply
 
-_MOE_LATER = ("MoE configs need models/moe.py, which the port has not "
-              "reached (ROADMAP queue 1, 'LM side')")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -75,8 +83,10 @@ class TransformerConfig:
             head_dim=self.hd, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
             rope_theta=self.rope_theta, norm_eps=self.norm_eps)
 
-    def moe_spec(self):
-        raise NotImplementedError(_MOE_LATER)
+    def moe_spec(self) -> MoESpec:
+        return MoESpec(d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+                       top_k=self.top_k, capacity_factor=self.capacity_factor,
+                       impl=self.moe_impl)
 
     def param_count(self) -> int:
         """Exact parameter count (for 6·N·D roofline accounting)."""
@@ -121,7 +131,9 @@ def _param(shape, dtype, device, fill=None) -> nn.Parameter:
 class DecoderLayer(nn.Module):
     """One pre-norm block: ``attn_norm``, ``attn`` (a ParameterDict with the
     reference's keys wq / wk / wv / wo, bq / bk / bv, q_norm / k_norm),
-    ``ffn_norm``, ``ffn`` (w_gate / w_up / w_down)."""
+    ``ffn_norm``, and ``ffn`` (w_gate / w_up / w_down) or, in an MoE
+    config, ``moe`` (router (D, E) f32 in any model, w_gate / w_up
+    (E, D, F), w_down (E, F, D))."""
 
     def __init__(self, cfg: TransformerConfig, dtype, device):
         super().__init__()
@@ -141,23 +153,35 @@ class DecoderLayer(nn.Module):
                         k_norm=_param((hd,), dtype, device, 1.0))
         self.attn = nn.ParameterDict(attn)
         self.ffn_norm = _param((D,), dtype, device, 1.0)
-        self.ffn = nn.ParameterDict({
-            "w_gate": _param((D, F), dtype, device),
-            "w_up": _param((D, F), dtype, device),
-            "w_down": _param((F, D), dtype, device)})
+        self.ffn_key = "moe" if cfg.is_moe else "ffn"
+        if cfg.is_moe:
+            E = cfg.n_experts
+            self.moe = nn.ParameterDict({
+                "router": _param((D, E), torch.float32, device),
+                "w_gate": _param((E, D, F), dtype, device),
+                "w_up": _param((E, D, F), dtype, device),
+                "w_down": _param((E, F, D), dtype, device)})
+        else:
+            self.ffn = nn.ParameterDict({
+                "w_gate": _param((D, F), dtype, device),
+                "w_up": _param((D, F), dtype, device),
+                "w_down": _param((F, D), dtype, device)})
+
+    @property
+    def ffn_params(self) -> nn.ParameterDict:
+        """``moe`` in an MoE layer, ``ffn`` in a dense one."""
+        return getattr(self, self.ffn_key)
 
 
 class Transformer(nn.Module):
-    """The dense decoder's parameters, named as the reference's tree:
-    ``embed``, ``layers[i]`` (`DecoderLayer`), ``final_norm`` and, unless
-    the embeddings are tied, ``lm_head`` (D, V). Construction allocates
+    """The decoder's parameters, named as the reference's tree: ``embed``,
+    ``layers[i]`` (`DecoderLayer`), ``final_norm`` and, unless the
+    embeddings are tied, ``lm_head`` (D, V). Construction allocates
     uninitialised weights on ``device`` (the card unless the caller asks
     for another; raises with no card); `init` and `from_numpy` fill them."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(_MOE_LATER)
         dev = resolve_device(device)
         dtype = compute_dtype(cfg)
         self.cfg = cfg
@@ -172,25 +196,33 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def tree(self) -> dict:
+        """The live parameters as the reference's params tree, except that
+        ``layers`` is a list of one dict a layer where the reference stacks
+        each leaf on a leading n_layers axis (``training.tree`` reads the
+        list as those stacked leaves)."""
+        def layer_tree(m: DecoderLayer) -> dict:
+            return {"attn_norm": m.attn_norm, "ffn_norm": m.ffn_norm,
+                    "attn": dict(m.attn.items()),
+                    m.ffn_key: dict(m.ffn_params.items())}
+        t = {"embed": self.embed, "final_norm": self.final_norm,
+             "layers": [layer_tree(m) for m in self.layers]}
+        if self.lm_head is not None:
+            t["lm_head"] = self.lm_head
+        return t
+
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-
-def _dense_init_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """Truncated-normal fan-in init (``dense_init``): N(0, 1) cut at +-3,
-    times 1/sqrt(d_in), drawn in f32 and cast."""
-    t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-    nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0, generator=gen)
-    w.copy_(t.mul_(1.0 / np.sqrt(w.shape[0])))
-
 
 @torch.no_grad()
 def init(cfg: TransformerConfig, *, generator: torch.Generator,
          device=None) -> Transformer:
     """A model with the reference's init laws, drawn from ``generator``
     (which must live on ``device``): dense weights truncated normal / sqrt
-    (d_in), embeddings N(0, 0.02^2), norms one, biases zero. The numbers
+    (d_in) (experts: / sqrt of their own d_in; the router f32), embeddings
+    N(0, 0.02^2), norms one, biases zero. The numbers
     differ from ``repro``'s ``init`` (another generator); the tests carry
     the reference's parameters across with `from_numpy`."""
     model = Transformer(cfg, device=device)
@@ -200,11 +232,12 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
     del t
     for layer in model.layers:
         for key in ("wq", "wk", "wv", "wo"):
-            _dense_init_(layer.attn[key], generator)
-        for key in ("w_gate", "w_up", "w_down"):
-            _dense_init_(layer.ffn[key], generator)
+            L.dense_init_(layer.attn[key], generator)
+        for key in ("router", "w_gate", "w_up", "w_down"):
+            if key in layer.ffn_params:
+                L.dense_init_(layer.ffn_params[key], generator)
     if model.lm_head is not None:
-        _dense_init_(model.lm_head, generator)
+        L.dense_init_(model.lm_head, generator)
     return model
 
 
@@ -223,8 +256,10 @@ def _tensor_of(a: np.ndarray) -> torch.Tensor:
 def from_numpy(tree: dict, cfg: TransformerConfig, device=None) -> Transformer:
     """The port's model from the reference's parameters as numpy arrays
     (``jax.tree.map(np.asarray, params)``): ``embed``, ``layers`` stacked on
-    a leading n_layers axis, ``final_norm``, ``lm_head``. Every tensor is
-    copied bit for bit into the compute dtype's storage; shapes must match."""
+    a leading n_layers axis (``layers.ffn.*`` or ``layers.moe.*``),
+    ``final_norm``, ``lm_head``. Every tensor is copied bit for bit into its
+    parameter's storage (the compute dtype; an MoE router f32); shapes and
+    dtypes must match."""
     model = Transformer(cfg, device=device)
 
     def put(dst: torch.Tensor, src, name: str):
@@ -244,8 +279,9 @@ def from_numpy(tree: dict, cfg: TransformerConfig, device=None) -> Transformer:
         put(layer.ffn_norm, stacked["ffn_norm"][i], f"layers.{i}.ffn_norm")
         for key, p in layer.attn.items():
             put(p, stacked["attn"][key][i], f"layers.{i}.attn.{key}")
-        for key, p in layer.ffn.items():
-            put(p, stacked["ffn"][key][i], f"layers.{i}.ffn.{key}")
+        for key, p in layer.ffn_params.items():
+            put(p, stacked[layer.ffn_key][key][i],
+                f"layers.{i}.{layer.ffn_key}.{key}")
     return model
 
 
@@ -261,6 +297,7 @@ def to_numpy(model: Transformer) -> dict:
     bf16 tensors come back as their uint16 bit patterns (numpy has no
     bfloat16), which `from_numpy` takes back."""
     layers = model.layers
+    ffn_key = layers[0].ffn_key
     tree = {"embed": _array_of(model.embed),
             "final_norm": _array_of(model.final_norm),
             "layers": {
@@ -268,24 +305,92 @@ def to_numpy(model: Transformer) -> dict:
                 "ffn_norm": np.stack([_array_of(m.ffn_norm) for m in layers]),
                 "attn": {k: np.stack([_array_of(m.attn[k]) for m in layers])
                          for k in layers[0].attn},
-                "ffn": {k: np.stack([_array_of(m.ffn[k]) for m in layers])
-                        for k in layers[0].ffn}}}
+                ffn_key: {k: np.stack([_array_of(m.ffn_params[k])
+                                       for m in layers])
+                          for k in layers[0].ffn_params}}}
     if model.lm_head is not None:
         tree["lm_head"] = _array_of(model.lm_head)
     return tree
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill + decode with KV cache
+# layer body (shared by train / prefill / decode)
 # ---------------------------------------------------------------------------
 
 def _ffn_block(layer: DecoderLayer, cfg: TransformerConfig, x: torch.Tensor):
-    return L.swiglu(layer.ffn, L.rmsnorm(x, layer.ffn_norm, cfg.norm_eps))
+    """x: (B,S,D) -> (y, aux). An MoE layer dispatches groups of
+    min(moe_group, S) tokens (B * S must divide by it, as the reference
+    assumes); a dense layer's aux is 0."""
+    h = L.rmsnorm(x, layer.ffn_norm, cfg.norm_eps)
+    if cfg.is_moe:
+        B, S, D = h.shape
+        t = min(cfg.moe_group, S)
+        y, aux = moe_apply(layer.moe, cfg.moe_spec(), h.reshape(B * S // t, t, D))
+        return y.reshape(B, S, D), aux
+    return L.swiglu(layer.ffn, h), 0.0
+
+
+def _train_layer(layer: DecoderLayer, cfg: TransformerConfig,
+                 x: torch.Tensor):
+    h = L.rmsnorm(x, layer.attn_norm, cfg.norm_eps)
+    x = x + L.attention_full(layer.attn, cfg.attn_spec(), h, causal=True,
+                             impl=cfg.attn_impl)
+    y, aux = _ffn_block(layer, cfg, x)
+    return x + y, aux
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training)
+# ---------------------------------------------------------------------------
+
+def backbone(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor):
+    """tokens: (B,S) -> (final-norm hidden states (B,S,D), aux_loss f32
+    scalar). With ``cfg.remat`` and grad enabled each layer is a
+    non-reentrant activation checkpoint: its inside is recomputed in the
+    backward pass."""
+    x = model.embed[tokens.to(model.device)]
+    auxs = []
+    for layer in model.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x, aux = checkpoint(_train_layer, layer, cfg, x,
+                                use_reentrant=False)
+        else:
+            x, aux = _train_layer(layer, cfg, x)
+        auxs.append(aux)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    aux = (torch.stack(auxs).sum() if cfg.is_moe
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, aux
 
 
 def lm_head_matrix(model: Transformer, cfg: TransformerConfig) -> torch.Tensor:
     return model.embed.T if cfg.tie_embeddings else model.lm_head
 
+
+def forward(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor):
+    """tokens: (B,S) int -> (logits (B,S,V) compute dtype, aux_loss f32)."""
+    x, aux = backbone(model, cfg, tokens)
+    return x @ lm_head_matrix(model, cfg), aux
+
+
+def loss_fn(model: Transformer, cfg: TransformerConfig, batch: dict):
+    """batch: {tokens (B,S), labels (B,S)}; labels == -1 are masked. Mean
+    next-token cross-entropy in f32 plus ``moe_aux_weight`` x aux."""
+    logits, aux = forward(model, cfg, batch["tokens"])
+    labels = batch["labels"].to(logits.device)
+    mask = labels >= 0
+    labels = torch.clamp_min(labels, 0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    xent = nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return xent + cfg.moe_aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
@@ -302,8 +407,6 @@ def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
             cache_len: int):
     """tokens: (B, S) int -> (last-position logits (B, V), cache dict). The
     head multiplies the last position only: no (B, S, V) tensor exists."""
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE_LATER)
     B, S = tokens.shape
     cache = make_cache(cfg, B, cache_len, device=model.device)
     x = model.embed[tokens.to(model.device)]
@@ -314,7 +417,8 @@ def prefill(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor,
             layer.attn, spec, h, cache_len, impl=cfg.attn_impl,
             cache=(cache["k"][i], cache["v"][i]))
         x = x + attn_out
-        x = x + _ffn_block(layer, cfg, x)
+        y, _ = _ffn_block(layer, cfg, x)
+        x = x + y
     x = L.rmsnorm(x[:, -1, :], model.final_norm, cfg.norm_eps)
     return x @ lm_head_matrix(model, cfg), cache
 
@@ -328,12 +432,11 @@ def decode_step(model: Transformer, cfg: TransformerConfig,
     Writes position cur_index of every layer's cache in place and returns
     (logits (B, V), the same cache). Cost is O(S_max) per token. The decode
     kernel's ``lengths`` (cur_index + 1 for every sequence) is built once
-    here for all layers. A cur_index at or past max_len raises ValueError
+    here for all layers. An MoE layer routes groups of one token. A
+    cur_index at or past max_len raises ValueError
     (`layers.attention_decode`, before any cache write): the reference
     clamps the write onto the last cached row and returns logits from a
     corrupted cache; the port refuses."""
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE_LATER)
     idx = int(cur_index)
     x = model.embed[token.to(model.device)[:, None]]
     lengths = torch.full((x.shape[0],), idx + 1, dtype=torch.int32,
@@ -344,6 +447,7 @@ def decode_step(model: Transformer, cfg: TransformerConfig,
         attn_out, _ = L.attention_decode(layer.attn, spec, h, cache["k"][i],
                                          cache["v"][i], idx, lengths)
         x = x + attn_out
-        x = x + _ffn_block(layer, cfg, x)
+        y, _ = _ffn_block(layer, cfg, x)
+        x = x + y
     x = L.rmsnorm(x[:, -1, :], model.final_norm, cfg.norm_eps)
     return x @ lm_head_matrix(model, cfg), cache

@@ -90,8 +90,6 @@ class RAGEngine:
                  doc_token_fn: Callable[[int], np.ndarray] | None = None,
                  warm_doc_token_fn: Callable[[int], np.ndarray] | None = None,
                  engine: str = "ref", scheduler=None, device=None):
-        if cfg.is_moe:
-            raise NotImplementedError(tfm._MOE_LATER)
         if engine not in ("ref", "cuda"):
             raise ValueError(f"engine must be 'ref' or 'cuda', got {engine!r}")
         self.device = resolve_device(device)

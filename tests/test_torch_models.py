@@ -262,13 +262,26 @@ def test_no_card_and_no_device_raises(monkeypatch):
 
 
 def test_moe_raises_naming_the_queue():
+    """MoE configs build and serve now; what still waits for a ROADMAP
+    queue 1 item is the mesh-local dispatch under a mesh, which raises
+    naming it."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as tm
     cfg = tt.TransformerConfig(name="moe", n_layers=1, d_model=32, n_heads=2,
                                n_kv_heads=2, d_ff=64, vocab_size=64,
-                               n_experts=4, top_k=2, dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tt.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        cfg.moe_spec()
+                               n_experts=4, top_k=2, dtype="float32",
+                               moe_impl="scatter_shmap")
+    model = tt.init(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    assert cfg.moe_spec().impl == "scatter_shmap"
+    logits, _ = tt.prefill(model, cfg, torch.zeros((1, 4), dtype=torch.int32), 4)
+    assert torch.isfinite(logits).all()
+    tm.set_moe_mesh(make_host_mesh(2, 1), ("data",))
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            tt.prefill(model, cfg, torch.zeros((1, 4), dtype=torch.int32), 4)
+    finally:
+        tm.set_moe_mesh(None, ())
 
 
 # the bf16 LM path against the reference: logits, not greedy tokens

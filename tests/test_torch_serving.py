@@ -9,7 +9,7 @@ and the greedy tokens must be equal, scores within 1e-5, and no slot of
 another tenant may surface. Sampled decoding draws from the reference's
 numpy generator and must give the same tokens. The engine's refusals are
 checked too: ``scheduler=`` on a raw store (the reference's ValueError),
-an MoE config, a model on another device, no device with no card, and a
+a model on another device, no device with no card, and a
 batch whose decode would run past the KV cache (refused before
 retrieval). Through a `Scheduler` whose queue is too small for the batch,
 both engines shed the same requests (served with no retrieved context) and
@@ -210,9 +210,10 @@ def test_engine_refusals(monkeypatch):
     snap = tlog.snapshot()
     with pytest.raises(ValueError, match="front-door"):
         RAGEngine(snap, tcfg, model, scheduler=object(), device="cpu")
-    moe = dataclasses.replace(tcfg, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="moe"):
-        RAGEngine(snap, moe, model, device="cpu")
+    moe = dataclasses.replace(tcfg, n_experts=4, top_k=2)     # served now
+    moe_model = tt.init(moe, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    assert RAGEngine(snap, moe, moe_model, device="cpu").model is moe_model
     with pytest.raises(ValueError, match="engine"):
         RAGEngine(snap, tcfg, model, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="the model lives on"):
