@@ -286,7 +286,7 @@ Phases:
                 time at the prefill's groups and at a decode step's. Then
                 `launch.serve.main([--arch granite-moe-1b-a400m
                 --no-reduced --engine cuda --requests 8])` must serve 8.
- 16. train (last) -- no kernel: the training path is plain PyTorch. (a)
+ 16. train -- no kernel: the training path is plain PyTorch. (a)
                 granite at full width cut to 2 layers, f32, TF32 off: one
                 AdamW step on the card and on the CPU from the same numpy
                 weights, loss within rtol 1e-5, grad norm within 1e-4,
@@ -305,6 +305,39 @@ Phases:
                 --ckpt, then twice with --reduced --ckpt: the second
                 resumes at step 4 and trains none. The flash and decode
                 launch counts stay 0.
+ 17. train_mesh (after train) -- no kernel. Training on a logical
+                (data 2, model 4) mesh of the card: (a) the vocab-parallel
+                loss against the plain one, granite at full width cut to 2
+                layers in f32 (loss within rel 1e-5, grads within rtol 1e-4
+                / atol 1e-5) and granite FULL in bf16 (loss within rel
+                1e-3, every leaf's worst gap within 5e-2 of its largest
+                magnitude); (b) `launch.train.main --mesh 2x4 --vp-loss`
+                against the plain run, 8 steps of 8 x 1024 each (losses
+                within rel 5e-3, step ms, peak memory); (c) the mesh-local
+                MoE dispatch at 32 groups of 512 equal to the chunks'
+                scatter (y, aux = their mean), one layer's ms; (d)
+                ef_compress over the 1.33 B FULL gradients, 50 rounds within
+                1% of 50 g, one pass's ms beside its byte bound; psum_int8
+                / psum_bf16 over the 2 dp shards' gradients within 4e-2 /
+                2e-2 of the exact sum; (e) a REDUCED state resharded onto
+                the mesh (bit for bit, pieces of shard_shape, a step after
+                it bit for bit); (f) per-device bytes of grok-1-314b FULL on
+                (16, 16) and (2, 16, 16), reckoned on the meta device.
+ 18. recsys -- no kernel. dlrm-rm2, fm, mind and bert4rec at FULL width
+                on synthetic inputs: AdamW steps at train_batch 65,536
+                (halved while it does not fit; each cut printed: MIND
+                32,768, BERT4Rec 2,048) under
+                deterministic algorithms and in the default mode, ms a step
+                and examples/s; serve_p99 (512) and serve_bulk (262,144)
+                ms a batch; retrieval_cand (1 x 1,000,000) ms; a REDUCED
+                step on the card within 1e-5 / 1e-4 of the CPU's.
+ 19. gnn (last) -- no kernel. gcn-cora FULL on synthetic graphs of
+                full_graph_sm, ogb_products (2.45 M nodes, 61.9 M edges),
+                molecule and minibatch_lg (NeighborSampler (15, 10) over a
+                Reddit-sized 232,965-node, 114.6 M-edge graph: the host
+                sampler's seconds beside the step): ms a train step in both
+                modes; a REDUCED step of each form on the card within 1e-5
+                / 1e-4 of the CPU's.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (each row with ``paths``: the phases whose
@@ -4587,6 +4620,804 @@ def phase_train(dev, cfg=None, *, steps=40, batch=8, seq=1024, peak_lr=3e-4,
           "decode kernels")
 
 
+# ---------------------------------------------------------------------------
+# training scale-out, recsys and GNN (no kernel: plain PyTorch, as the
+# reference computes all of it outside Pallas)
+# ---------------------------------------------------------------------------
+
+def grad_tree(model, loss):
+    """The gradient of ``loss`` over ``model`` as the reference's tree (a
+    model's layers stacked)."""
+    from repro_torch.training import tree as T
+    gs = torch.autograd.grad(loss, T.leaves(model))
+    it = iter(gs)
+    items = T.ref_items(T.tree_map(lambda _: next(it), model))
+    return T.unflatten([p for p, _ in items],
+                       [T.stacked(g) for _, g in items])
+
+
+def flat(tree) -> dict:
+    from repro_torch.training import tree as T
+    return {"/".join(map(str, p)): v for p, v in T.ref_items(tree)}
+
+
+def leaf_gaps(got, want) -> dict:
+    """{leaf: max |got - want| / max |want|} over two gradient trees."""
+    out = {}
+    for key, w in flat(want).items():
+        w = w.float()
+        d = (flat(got)[key].float() - w).abs().max().item()
+        out[key] = d / max(w.abs().max().item(), 1e-30)
+    return out
+
+
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launch counter."""
+    return {"arena_scan": kernel_mod.LAUNCHES,
+            "arena_scan_paged": kernel_mod.PAGED_LAUNCHES,
+            "hybrid_score": hyb_mod.LAUNCHES, "ivf_probe": ivf_mod.LAUNCHES,
+            "ivf_compact": ivf_mod.COMPACT_LAUNCHES,
+            "flash_attention": fa_mod.LAUNCHES,
+            "decode_attention": dec_mod.LAUNCHES}
+
+
+def reckon_bytes(cfg, opt, shape, axes):
+    """Bytes one device holds of a state's params and optimizer state on a
+    (shape, axes) mesh by the reference's lm_rules specs, reckoned from
+    shard shapes on the meta device (nothing allocated); and the unsharded
+    totals."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import tree as T
+    mesh = make_mesh(shape, axes, devices=["meta"] * int(np.prod(shape)))
+    model = tfm.Transformer(cfg, device="meta")
+    state = {"params": model, "opt": opt.init(model), "step": 0}
+    sh = flat(shd.state_shardings(mesh, state, shd.lm_rules(mesh)))
+    out = {"params": 0, "opt": 0, "params_unsharded": 0, "opt_unsharded": 0}
+    for path, leaf in T.ref_items(state):
+        if path[0] == "step":
+            continue
+        full, size = T.shape(leaf), T.first(leaf).element_size()
+        out[path[0]] += int(np.prod(sh["/".join(map(str, path))]
+                                    .shard_shape(full))) * size
+        out[path[0] + "_unsharded"] += int(np.prod(full)) * size
+    return out
+
+
+def phase_train_mesh(dev, cfg=None, *, batch=8, seq=1024, mesh_shape=(2, 4),
+                     small_layers=2, launcher_steps=8, moe_groups=32,
+                     ef_rounds=50, launcher_arch="granite-moe-1b-a400m",
+                     launcher_extra=()):
+    """Training on a logical (data, model) mesh of the card (the port's
+    mesh is single-controller: every shard a view on one device). No
+    kernel: plain PyTorch, as the reference trains outside Pallas.
+    (a) the vocab-parallel loss against the plain loss: granite at full
+        width cut to ``small_layers`` layers, f32, TF32 off (loss within
+        rel 1e-5, every grad leaf within rtol 1e-4 / atol 1e-5, the
+        reference's tolerances); granite FULL in bf16 from the launcher's
+        init and first batch (loss within rel 1e-3, every leaf's worst
+        |diff| within 5e-2 of its largest magnitude: bf16 sums over the
+        tp slices round in another order);
+    (b) `launch.train.main` with ``--mesh 2x4 --vp-loss`` against the
+        plain run, ``launcher_steps`` steps each from the same init and
+        batches: per-step losses within rel 5e-3, step ms, peak memory;
+    (c) `moe_apply_scatter_shmap` under set_moe_mesh(mesh, ("data",)) at
+        granite's MoE layer (``moe_groups`` groups of moe_group tokens):
+        y and aux equal the per-chunk scatter's concatenation and mean;
+        one layer's ms beside the scatter over all groups and the einsum;
+    (d) `ef_compress` over (a)'s FULL gradients, ``ef_rounds`` rounds:
+        the sum of the dequantised grads within 1% of rounds x g (every
+        leaf); one pass's ms beside its byte bound; `psum_int8` /
+        `psum_bf16` over the dp shards' gradients against their exact
+        sum (every leaf within 4e-2 / 2e-2 of its largest magnitude);
+    (e) a REDUCED state saved on the card and `reshard_state` onto the
+        mesh's shardings: leaves equal bit for bit, every piece of every
+        leaf of shard_shape, one vp-loss step after the round trip equal
+        bit for bit to one without it (deterministic algorithms);
+    (f) reckoned on the meta device, never allocated: bytes a device holds
+        of grok-1-314b FULL (Adafactor) on (16, 16) and (2, 16, 16) and of
+        granite FULL (AdamW) on ``mesh_shape``."""
+    import contextlib
+    import io
+    import tempfile
+    import warnings
+    from repro_torch.configs import get, granite_moe_1b
+    from repro_torch.data.lm_pipeline import synthetic_lm_batches
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop
+    from repro_torch.training import tree as T
+    from repro_torch.training.fault_tolerance import reshard_state
+    from repro_torch.training.optimizer import adafactor, adamw
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_moe_1b.FULL
+    before = kernel_launches()
+    mesh = make_host_mesh(*mesh_shape, device=dev)
+    n_dp = mesh_shape[0]
+    mesh_arg = "x".join(map(str, mesh_shape))
+
+    # (a) the vp loss against the plain loss: f32 cut, then FULL bf16
+    small = dataclasses.replace(cfg, n_layers=small_layers, dtype="float32")
+    model = tfm.init(small, generator=torch.Generator(device=dev).manual_seed(
+        SEED), device=dev).requires_grad_(True)
+    b = next(synthetic_lm_batches(small.vocab_size, batch, seq, seed=SEED,
+                                  device=dev))
+    plain = tfm.loss_fn(model, small, b)
+    g_plain = grad_tree(model, plain)
+    vp = tfm.make_vp_loss_fn(small, mesh)(model, b)
+    g_vp = grad_tree(model, vp)
+    f32_rel = abs(vp.item() - plain.item()) / abs(plain.item())
+    f32_close = {k: bool(torch.allclose(flat(g_vp)[k], v, rtol=1e-4,
+                                        atol=1e-5))
+                 for k, v in flat(g_plain).items()}
+    f32_gaps = leaf_gaps(g_vp, g_plain)
+    del model, g_plain, g_vp, plain, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = tfm.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev).requires_grad_(True)     # the launcher's init
+    b0 = next(synthetic_lm_batches(cfg.vocab_size, batch, seq, device=dev))
+    t0 = time.perf_counter()
+    plain = tfm.loss_fn(full, cfg, b0)
+    g_full = grad_tree(full, plain)
+    sync()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vp = tfm.make_vp_loss_fn(cfg, mesh)(full, b0)
+    g_vp = grad_tree(full, vp)
+    sync()
+    vp_s = time.perf_counter() - t0
+    bf16_rel = abs(vp.item() - plain.item()) / abs(plain.item())
+    bf16_gaps = leaf_gaps(g_vp, g_full)
+    del g_vp
+    emit("train_mesh_loss", card=CARD, mesh=list(mesh_shape),
+         f32={"layers": small_layers, "loss_rel_gap": f32_rel,
+              "leaves_within_rtol1e-4_atol1e-5": sum(f32_close.values()),
+              "leaves": len(f32_close),
+              "worst_leaf_gap": max(f32_gaps.values()),
+              "worst_leaf": max(f32_gaps, key=f32_gaps.get)},
+         bf16_full={"loss": [vp.item(), plain.item()],
+                    "loss_rel_gap": bf16_rel,
+                    "leaf_gaps": {k: round(v, 6) for k, v in
+                                  bf16_gaps.items()},
+                    "gate": "loss rel <= 1e-3, every leaf <= 5e-2 of its "
+                            "largest magnitude",
+                    "step_s": {"plain": plain_s, "vp": vp_s}})
+    check(f32_rel <= 1e-5, f"f32 vp loss gap {f32_rel}")
+    check(all(f32_close.values()), "f32 vp grads outside rtol 1e-4 / atol "
+          f"1e-5: {[k for k, ok in f32_close.items() if not ok]}")
+    check(bf16_rel <= 1e-3, f"bf16 vp loss gap {bf16_rel}")
+    check(max(bf16_gaps.values()) <= 5e-2, f"bf16 vp grad gaps {bf16_gaps}")
+
+    # (d) compression over (a)'s FULL gradients and the dp shards' ones
+    ef = comp.ef_init(full)
+    total = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+             for k, v in flat(g_full).items()}
+    for _ in range(ef_rounds):
+        q, ef = comp.ef_compress(g_full, ef)
+        for k, v in flat(q).items():
+            total[k] += v.float()
+        del q
+    ef_err = {k: ((total[k] - ef_rounds * g.float()).abs().max().item()
+                  / max(ef_rounds * g.float().abs().max().item(), 1e-30))
+              for k, g in flat(g_full).items()}
+    del total
+    ef_ms = events_ms(lambda: comp.ef_compress(g_full, ef), 3)
+    n_param = sum(v.numel() for v in flat(g_full).values())
+    ef_bytes = sum(v.numel() * (2 * v.element_size() + 8)
+                   for v in flat(g_full).values())
+    del ef, g_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    h = batch // n_dp
+    shard_g = [flat(grad_tree(full, tfm.loss_fn(
+        full, cfg, {k: v[i * h:(i + 1) * h] for k, v in b0.items()})))
+        for i in range(n_dp)]
+    psum = {"int8": {}, "bf16": {}}
+    for key in shard_g[0]:
+        parts = [g[key] for g in shard_g]
+        exact = sum(p.float() for p in parts)
+        scale = max(exact.abs().max().item(), 1e-30)
+        for name, fn in (("int8", comp.psum_int8), ("bf16", comp.psum_bf16)):
+            psum[name][key] = (fn(parts).float() - exact).abs().max().item() \
+                / scale
+    del shard_g, full, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_mesh_compression", card=CARD, params=n_param,
+         ef_rounds=ef_rounds, ef_worst_leaf_err=max(ef_err.values()),
+         ef_worst_leaf=max(ef_err, key=ef_err.get),
+         ef_pass_ms=ef_ms, ef_pass_bytes=ef_bytes,
+         ef_pass_bound_ms=ef_bytes / HBM_BPS * 1e3,
+         psum_dp_shards=n_dp,
+         psum_int8_worst_rel=max(psum["int8"].values()),
+         psum_bf16_worst_rel=max(psum["bf16"].values()),
+         psum_int8_worst_leaf=max(psum["int8"], key=psum["int8"].get),
+         psum_bf16_worst_leaf=max(psum["bf16"], key=psum["bf16"].get))
+    check(max(ef_err.values()) < 0.01, f"EF residual not carried: {ef_err}")
+    check(max(psum["int8"].values()) < 4e-2, f"psum_int8 {psum['int8']}")
+    check(max(psum["bf16"].values()) < 2e-2, f"psum_bf16 {psum['bf16']}")
+
+    # (b) the launcher on the mesh with the vp loss against the plain run
+    def launcher(argv):
+        losses, dts, real = [], [], train_loop.make_train_step
+
+        def spy(loss_fn, opt, **kw):
+            step = real(loss_fn, opt, **kw)
+
+            def timed(state, bb):
+                t0 = time.perf_counter()
+                state, m = step(state, bb)
+                losses.append(float(m["loss"]))
+                dts.append((time.perf_counter() - t0) * 1e3)
+                return state, m
+            return timed
+        train_loop.make_train_step = spy
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                state = train_launch.main(argv)
+        finally:
+            train_loop.make_train_step = real
+        out = {"argv": " ".join(argv), "seconds": time.perf_counter() - t0,
+               "step": state["step"], "losses": losses, "step_ms": dts,
+               "step_ms_median": statistics.median(dts[1:] or dts),
+               "peak_mem_gb": peak_gb()}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    common = ["--arch", launcher_arch, "--steps", str(launcher_steps),
+              "--batch", str(batch), "--seq", str(seq), *launcher_extra]
+    runs = {"plain": launcher(common),
+            "mesh_vp": launcher(common + ["--mesh", mesh_arg, "--vp-loss"])}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(runs["mesh_vp"]["losses"],
+                                                runs["plain"]["losses"])]
+    emit("train_mesh_launcher", card=CARD, runs=runs, loss_rel_gaps=gaps,
+         gate="every step's loss within rel 5e-3 of the plain run's")
+    for run in runs.values():
+        check(run["step"] == launcher_steps
+              and len(run["losses"]) == launcher_steps
+              and all(np.isfinite(run["losses"])), f"launcher run {run}")
+    check(max(gaps) <= 5e-3, f"mesh vp losses vs plain: {gaps}")
+
+    # (c) the mesh-local MoE dispatch at granite's MoE layer
+    spec = cfg.moe_spec()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    dtype = tfm.compute_dtype(cfg)
+    p = moe_mod.moe_init(gen, spec, dtype, device=dev)
+    x = torch.randn((moe_groups, cfg.moe_group, cfg.d_model), generator=gen,
+                    device=dev).to(dtype)
+    with torch.no_grad():
+        moe_mod.set_moe_mesh(mesh, ("data",))
+        try:
+            y, aux = moe_mod.moe_apply_scatter_shmap(p, spec, x)
+            shmap_ms = events_ms(
+                lambda: moe_mod.moe_apply_scatter_shmap(p, spec, x), 5)
+        finally:
+            moe_mod.set_moe_mesh(None, ())
+        parts = [moe_mod.moe_apply_scatter(p, spec, c) for c in x.chunk(n_dp)]
+        y_whole, aux_whole = moe_mod.moe_apply_scatter(p, spec, x)
+        scatter_ms = events_ms(lambda: moe_mod.moe_apply_scatter(p, spec, x), 5)
+        einsum_ms = events_ms(lambda: moe_mod.moe_apply(p, spec, x), 5)
+    y_equal = torch.equal(y, torch.cat([a for a, _ in parts]))
+    aux_chunks = torch.stack([a for _, a in parts]).mean()
+    emit("train_mesh_moe", card=CARD, groups=moe_groups,
+         tokens_a_group=cfg.moe_group, dp_shards=n_dp, y_equal=y_equal,
+         aux=[aux.item(), aux_chunks.item()], aux_all_groups=aux_whole.item(),
+         y_equal_all_groups_scatter=torch.equal(y, y_whole),
+         ms={"shmap": shmap_ms, "scatter": scatter_ms, "einsum": einsum_ms})
+    check(y_equal, "the mesh dispatch's y differs from the chunks' scatter")
+    check(aux.item() == aux_chunks.item(), f"aux {aux.item()} vs the chunks' "
+          f"mean {aux_chunks.item()}")
+    del p, x, y, parts, y_whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) reshard a REDUCED state onto the mesh's shardings
+    red = get(launcher_arch).reduced
+    opt = adamw(1e-3)
+    rb = next(synthetic_lm_batches(red.vocab_size, batch, 64, seed=SEED,
+                                   device=dev))
+    step = train_loop.make_train_step(tfm.make_vp_loss_fn(red, mesh), opt)
+
+    def fresh(seed):
+        return train_loop.init_state(tfm.init(red, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev), opt)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            state = fresh(SEED)
+            state, _ = step(state, rb)             # moments not all zero
+            ckpt.save(d, 1, state)
+            like = fresh(SEED + 1)
+            sh = shd.state_shardings(mesh, like, shd.lm_rules(mesh))
+            got = reshard_state(d, 1, like, sh)
+        saved_equal = all(
+            torch.equal(a, c) if torch.is_tensor(a) else a == c
+            for a, c in zip(T.leaves(state), T.leaves(got)))
+        shards, pieces_ok = flat(sh), True
+        n_pieces = 0
+        for path, leaf in T.ref_items(got):
+            s = shards["/".join(map(str, path))]
+            if not torch.is_tensor(T.first(leaf)):
+                continue
+            for coord in s.coords():
+                pieces_ok &= T.shape(s.piece(leaf, coord)) == \
+                    s.shard_shape(T.shape(leaf))
+                n_pieces += 1
+        a, _ = step(state, rb)
+        c, _ = step(got, rb)
+        step_equal = all(torch.equal(x1, x2) for x1, x2 in
+                         zip(T.leaves(a["params"]), T.leaves(c["params"])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit("train_mesh_reshard", card=CARD, model=red.name, mesh=list(mesh_shape),
+         leaves_bit_equal=saved_equal, pieces=n_pieces,
+         pieces_of_shard_shape=pieces_ok, step_after_bit_equal=step_equal)
+    check(saved_equal, "resharded leaves differ from the saved state")
+    check(pieces_ok, "a piece's shape differs from shard_shape")
+    check(step_equal, "a step after the reshard differs from one without it")
+    del state, like, got, a, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) reckoned per-device bytes, nothing allocated
+    reckoned = {}
+    grok = get("grok-1-314b").full
+    for shape, axes in (((16, 16), ("data", "model")),
+                        ((2, 16, 16), ("pod", "data", "model"))):
+        reckoned[f"grok-1-314b adafactor {shape}"] = reckon_bytes(
+            grok, adafactor(1e-3), shape, axes)
+    reckoned[f"{cfg.name} adamw {mesh_shape}"] = reckon_bytes(
+        cfg, adamw(1e-3), mesh_shape, ("data", "model"))
+    after = kernel_launches()
+    emit("train_mesh", card=CARD, seconds=time.perf_counter() - t_phase,
+         reckoned_bytes_a_device=reckoned,
+         kernels_launched={k: after[k] - before[k] for k in after},
+         note="the mesh training path launches no kernel (plain PyTorch, "
+              "as the reference's plain jnp)")
+    check(after == before, f"train_mesh launched kernels: {before} -> {after}")
+
+
+def oom_halving(fn, size, floor):
+    """fn(size) at the largest power-of-two fraction of ``size`` (down to
+    ``floor``) that fits the card: (result, size used, [{size, the
+    allocator's message}] of the sizes that ran out of memory)."""
+    cut = []
+    while True:
+        try:
+            return fn(size), size, cut
+        except torch.cuda.OutOfMemoryError as e:
+            msg = str(e).split(". ")[0][:160]
+        cut.append({"size": size, "error": msg})
+        gc.collect()
+        torch.cuda.empty_cache()
+        if size // 2 < floor:
+            raise AssertionError(f"out of memory down to {size}")
+        size //= 2
+
+
+def timed_steps(step, box, batch, n):
+    """``n`` steps after one untimed on ``box["state"]`` (the box holds the
+    only reference, so an old state's moments go as each step returns):
+    (ms each, losses)."""
+    box["state"], m = step(box["state"], batch)
+    sync()
+    ms, losses = [], [float(m["loss"])]
+    for _ in range(n):
+        t0 = time.perf_counter()
+        box["state"], m = step(box["state"], batch)
+        losses.append(float(m["loss"]))       # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, losses
+
+
+def train_both_modes(step, box, batch, n):
+    """``n`` timed steps under torch.use_deterministic_algorithms (as
+    `phase_train`), then ``n`` in the default mode: ({mode: ms}, all
+    losses, the deterministic mode's warnings)."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det_ms, det_l = timed_steps(step, box, batch, n)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    def_ms, def_l = timed_steps(step, box, batch, n)
+    nondet = sorted({str(w.message)[:80] for w in caught
+                     if "deterministic" in str(w.message)})
+    return {"deterministic": det_ms, "default": def_ms}, det_l + def_l, \
+        nondet
+
+
+def card_vs_cpu(dev, make, loss_fn, cfg, batch_np, lr):
+    """One AdamW step on the CPU and on the card from the same numpy
+    weights and batch: ((loss, grad norm) on the card, the same on the
+    CPU)."""
+    from repro_torch.training import tree as T
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import init_state, make_train_step
+    out = []
+    cpu_model = make(torch.Generator().manual_seed(SEED), "cpu")
+    tree = T.tree_map(lambda t: t.detach().numpy().copy(), cpu_model)
+    for model, d in ((cpu_model, "cpu"),
+                     (type(cpu_model)(cfg, device=dev), dev)):
+        if d != "cpu":
+            from repro_torch.models.layers import fill_from_numpy
+            fill_from_numpy(model, tree)
+        opt = adamw(lr, weight_decay=0.0)
+        step = make_train_step(lambda p, b: loss_fn(p, cfg, b), opt)
+        _, m = step(init_state(model, opt),
+                    {k: torch.from_numpy(v).to(d) for k, v in
+                     batch_np.items()})
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def parity_ok(card, cpu):
+    return abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0]) and \
+        abs(card[1] - cpu[1]) <= 1e-4 * abs(cpu[1])
+
+
+def recsys_batch(arch_id, cfg, B, gen, dev):
+    """A synthetic batch of ``B`` rows drawn on ``dev`` (launch/steps.py's
+    shapes: DLRM multi_hot ids, BERT4Rec M = seq_len // 10 masked
+    positions)."""
+    def ids(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    if arch_id == "dlrm-rm2":
+        return {"dense": torch.randn((B, cfg.n_dense), generator=gen,
+                                     device=dev),
+                "sparse_ids": ids(cfg.vocab, B, cfg.n_sparse, cfg.multi_hot),
+                "label": ids(2, B)}
+    if arch_id == "fm":
+        return {"sparse_ids": ids(cfg.vocab, B, cfg.n_sparse),
+                "label": ids(2, B)}
+    if arch_id == "mind":
+        return {"hist_ids": ids(cfg.vocab, B, cfg.hist_len),
+                "hist_mask": torch.ones((B, cfg.hist_len), dtype=torch.bool,
+                                        device=dev),
+                "label_id": ids(cfg.vocab, B)}
+    S, M = cfg.seq_len, max(1, cfg.seq_len // 10)
+    tokens = ids(cfg.vocab, B, S)
+    pos = ids(S, B, M).long()
+    targets = tokens.gather(1, pos)
+    tokens.scatter_(1, pos, cfg.mask_id)
+    return {"ids": tokens, "pad_mask": torch.ones((B, S), dtype=torch.bool,
+                                                  device=dev),
+            "mask_positions": pos.int(), "mask_targets": targets}
+
+
+def phase_recsys(dev, *, train_batch=None, serve_batches=None,
+                 n_candidates=None, steps=3, full=True):
+    """The recsys family at each FULL config's published widths (dlrm-rm2
+    26 x 1M x 64, bot 13-512-256-64, dot interaction; fm 39 x 1M x 10;
+    mind 1M x 64, 4 interests, 3 routing iterations, history 50; bert4rec
+    50k x 64, 2 blocks, seq 200), synthetic inputs from a seed (no
+    dataset), the registry's RECSYS_SHAPES: ``steps`` AdamW steps
+    (launch/steps.py's lr 1e-3, no weight decay) at train_batch 65,536 --
+    under torch.use_deterministic_algorithms, then as many in the default
+    mode -- ms a step and examples/s; serve_p99 (512) and serve_bulk
+    (262,144) through launch/steps.py's serve functions under no_grad; and
+    retrieval_cand (1 user x 1,000,000 candidates: DLRM / FM score the
+    candidates as a batch, MIND / BERT4Rec encode the user once). A batch
+    that does not fit the card halves to the largest power of two that
+    does, and a bulk serve runs in chunks the same way; every cut is
+    printed with the allocator's message (on one H100: MIND's (B, B)
+    in-batch scores train at 32,768; BERT4Rec's (B, 20, 50,001) f32
+    logits, 8.2 GB at 2,048 rows, and their gradients train at 2,048; its
+    bulk serve runs in chunks of 32,768). Gates:
+    at REDUCED, one AdamW step on the card within 1e-5 (loss) and 1e-4
+    (grad norm) of the CPU's, f32, TF32 off; every loss and output
+    finite. No kernel: plain PyTorch, as the reference's plain jnp."""
+    from repro_torch.configs import get
+    from repro_torch.models import recsys as rec
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    archs = ("dlrm-rm2", "fm", "mind", "bert4rec")
+    fns = {"dlrm-rm2": ("dlrm", rec.dlrm_loss,
+                        lambda p, c, b: rec.dlrm_forward(
+                            p, c, b["dense"], b["sparse_ids"])),
+           "fm": ("fm", rec.fm_loss,
+                  lambda p, c, b: rec.fm_forward(p, c, b["sparse_ids"])),
+           "mind": ("mind", rec.mind_loss,
+                    lambda p, c, b: rec.mind_score(
+                        p, c, b["hist_ids"], b["hist_mask"],
+                        b["label_id"][:, None])[:, 0]),
+           "bert4rec": ("bert4rec", rec.bert4rec_loss,
+                        lambda p, c, b: rec.bert4rec_score(
+                            p, c, b["ids"], b["pad_mask"],
+                            b["mask_targets"][:, :1])[:, 0])}
+    results = {}
+    for arch_id in archs:
+        arch = get(arch_id)
+        shapes = arch.shapes
+        cfg = arch.full if full else arch.reduced
+        name, loss_fn, serve_fn = fns[arch_id]
+        init = getattr(rec, f"{name}_init")
+        out = {"config": dataclasses.asdict(cfg),
+               "params": cfg.param_count()}
+
+        # the card against the CPU at REDUCED
+        red = arch.reduced
+        np_batch = {k: v.cpu().numpy() for k, v in recsys_batch(
+            arch_id, red, 64, torch.Generator().manual_seed(SEED),
+            "cpu").items()}
+        card, cpu = card_vs_cpu(dev, lambda g, d: init(g, red, device=d),
+                                loss_fn, red, np_batch, 1e-3)
+        out["reduced_card_vs_cpu"] = {"loss": [card[0], cpu[0]],
+                                      "grad_norm": [card[1], cpu[1]]}
+        check(parity_ok(card, cpu), f"{arch_id} REDUCED card {card} vs CPU "
+              f"{cpu}")
+
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        model = init(gen, cfg, device=dev)
+        sync()
+        out["init_s"] = time.perf_counter() - t0
+        opt = adamw(1e-3, weight_decay=0.0)
+        step = make_train_step(lambda p, b: loss_fn(p, cfg, b), opt)
+        box = {"state": init_state(model, opt)}
+
+        def train(B):
+            torch.cuda.reset_peak_memory_stats()   # this batch size's peak
+            return train_both_modes(step, box, recsys_batch(
+                arch_id, cfg, B, gen, dev), steps)
+
+        (ms, losses, nondet), B, cut = oom_halving(
+            train, train_batch or shapes["train_batch"]["batch"], 64)
+        med = {mode: statistics.median(v) for mode, v in ms.items()}
+        out["train"] = {"batch": B, "cut_from": cut, "step_ms": ms,
+                        "step_ms_median": med,
+                        "examples_per_s": {m: B / (v / 1e3)
+                                           for m, v in med.items()},
+                        "losses": losses, "peak_mem_gb": peak_gb(),
+                        "nondeterministic_ops_warned": nondet}
+        check(all(np.isfinite(losses)), f"{arch_id} losses {losses}")
+        del box
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        with torch.no_grad():
+            for shape in ("serve_p99", "serve_bulk"):
+                B = (serve_batches or {}).get(shape, shapes[shape]["batch"])
+                batch = recsys_batch(arch_id, cfg, B, gen, dev)
+
+                def serve(chunk):
+                    def run():
+                        return [serve_fn(model, cfg, {k: v[i:i + chunk]
+                                                      for k, v in batch.items()})
+                                for i in range(0, B, chunk)]
+                    got = torch.cat(run())
+                    return got, events_ms(run, 3 if B > 4096 else 20)
+                (got, t_ms), chunk, cut = oom_halving(serve, B, 512)
+                out[shape] = {"batch": B, "chunk": chunk, "cut_from": cut,
+                              "ms": t_ms, "examples_per_s": B / (t_ms / 1e3),
+                              "finite": bool(torch.isfinite(got).all())}
+                check(got.shape == (B,) and out[shape]["finite"],
+                      f"{arch_id} {shape} output")
+                del batch, got
+            C = n_candidates or shapes["retrieval_cand"]["n_candidates"]
+            if arch_id in ("mind", "bert4rec"):
+                user = recsys_batch(arch_id, cfg, 1, gen, dev)
+                cand = torch.randint(0, cfg.vocab, (1, C), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                if arch_id == "mind":
+                    def retrieve():
+                        return rec.mind_score(model, cfg, user["hist_ids"],
+                                              user["hist_mask"], cand)
+                else:
+                    def retrieve():
+                        return rec.bert4rec_score(model, cfg, user["ids"],
+                                                  user["pad_mask"], cand)
+                how = "user encoded once, dot against the candidates"
+            else:
+                cands = recsys_batch(arch_id, cfg, C, gen, dev)
+
+                def retrieve():
+                    return serve_fn(model, cfg, cands)
+                how = "candidate-major pair scoring as one batch"
+            got = retrieve()
+            out["retrieval_cand"] = {
+                "candidates": C, "how": how, "ms": events_ms(retrieve, 3),
+                "finite": bool(torch.isfinite(got).all())}
+            check(got.numel() == C and out["retrieval_cand"]["finite"],
+                  f"{arch_id} retrieval output")
+        out["serve_peak_mem_gb"] = peak_gb()   # a bulk cut's attempts included
+        results[arch_id] = out
+        emit("recsys_" + arch_id.split("-")[0], card=CARD, arch=arch_id,
+             **out)
+        del model, step, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    after = kernel_launches()
+    emit("recsys", card=CARD, seconds=time.perf_counter() - t_phase,
+         archs=list(archs),
+         kernels_launched={k: after[k] - before[k] for k in after})
+    check(after == before, f"recsys launched kernels: {before} -> {after}")
+    return results
+
+
+def gnn_graph(cfg, N, E, gen, dev):
+    """A synthetic full graph on ``dev``: uniform random edges, N(0, 1)
+    features, uniform labels, every node labelled."""
+    def ids(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    return {"feats": torch.randn((N, cfg.d_feat), generator=gen, device=dev),
+            "src": ids(N, E), "dst": ids(N, E),
+            "edge_mask": torch.ones(E, dtype=torch.bool, device=dev),
+            "labels": ids(cfg.n_classes, N),
+            "label_mask": torch.ones(N, device=dev)}
+
+
+def gnn_molecules(cfg, B, Nn, Ne, gen, dev):
+    def ids(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    return {"feats": torch.randn((B, Nn, cfg.d_feat), generator=gen,
+                                 device=dev),
+            "src": ids(Nn, B, Ne), "dst": ids(Nn, B, Ne),
+            "edge_mask": torch.ones((B, Ne), dtype=torch.bool, device=dev),
+            "node_mask": torch.ones((B, Nn), dtype=torch.bool, device=dev),
+            "labels": ids(cfg.n_classes, B)}
+
+
+def gnn_sampled(cfg, n_nodes, n_edges, batch_nodes, fanouts, seed, gen, dev):
+    """Reddit-scale sampled training's batch: a uniform random graph of
+    (n_nodes, n_edges) drawn on the host, `NeighborSampler` (host numpy)
+    over it, the sampled padded subgraph's features gathered on ``dev``
+    from an N(0, 1) table, the loss on the seeds. Returns (batch, host
+    seconds of the graph, the sampler's CSR build and its sample)."""
+    from repro_torch.models.gnn import NeighborSampler
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    src = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    dst = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    t1 = time.perf_counter()
+    sampler = NeighborSampler(n_nodes, src, dst, seed=seed)
+    del src, dst
+    t2 = time.perf_counter()
+    sub = sampler.sample(rng.integers(0, n_nodes, batch_nodes), fanouts)
+    t3 = time.perf_counter()
+    del sampler
+    table = torch.randn((n_nodes, cfg.d_feat), generator=gen, device=dev)
+    nodes = torch.from_numpy(sub["nodes"]).to(dev)
+    feats = torch.where((nodes >= 0)[:, None],
+                        table[torch.clamp_min(nodes, 0)], 0.0)
+    del table
+    n_sub = sub["n_sub"]
+    label_mask = torch.zeros(n_sub, device=dev)
+    label_mask[:batch_nodes] = 1.0
+    batch = {"feats": feats, "src": torch.from_numpy(sub["src"]).to(dev),
+             "dst": torch.from_numpy(sub["dst"]).to(dev),
+             "edge_mask": torch.from_numpy(sub["edge_mask"]).to(dev),
+             "labels": torch.randint(0, cfg.n_classes, (n_sub,),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "label_mask": label_mask}
+    return batch, {"graph_s": t1 - t0, "sampler_csr_s": t2 - t1,
+                   "sample_s": t3 - t2, "subgraph_nodes": n_sub,
+                   "subgraph_edges": int(sub["src"].shape[0]),
+                   "real_edges": int(sub["edge_mask"].sum())}
+
+
+def phase_gnn(dev, shapes=None, *, steps=5):
+    """gcn-cora FULL (2 layers, d_hidden 16, sym norm) with each shape's
+    d_feat / n_classes (the registry's GNN_SHAPES, from SHAPE_DIMS) on
+    synthetic graphs drawn from a seed: full_graph_sm (2,708 nodes /
+    10,556 edges), ogb_products (2,449,029 / 61,859,140, d_feat 100),
+    molecule (128 graphs x 30 nodes / 64 edges) and minibatch_lg (a
+    Reddit-sized uniform graph of 232,965 nodes / 114,615,892 edges on
+    the host, `NeighborSampler` fanouts (15, 10) over 1,024 seeds, the
+    host sampler's seconds beside the device step). Each: ``steps`` AdamW
+    steps (launch/steps.py's lr 1e-2, no weight decay) under
+    torch.use_deterministic_algorithms and as many in the default mode, ms
+    a step, peak memory. Gates: at REDUCED, one step of the full, sampled
+    and batched forms on the card within 1e-5 (loss) / 1e-4 (grad norm)
+    of the CPU's; every loss finite. No kernel: plain PyTorch (the
+    scatter is index_add_)."""
+    from repro_torch.configs import get
+    from repro_torch.models import gnn
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    arch = get("gcn-cora")
+    shapes = shapes or arch.shapes
+
+    # the card against the CPU at REDUCED
+    red = arch.reduced
+    rng = np.random.default_rng(SEED)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    graph = {k: v.numpy() for k, v in gnn_graph(red, 200, 800, cpu_gen,
+                                                 "cpu").items()}
+    red_m = dataclasses.replace(red, d_feat=8, n_classes=2)
+    mols = {k: v.numpy() for k, v in gnn_molecules(red_m, 16, 10, 24, cpu_gen,
+                                                   "cpu").items()}
+    samp, _ = gnn_sampled(red, 300, 3000, 16, (4, 3), SEED, cpu_gen, "cpu")
+    samp = {k: v.numpy() for k, v in samp.items()}
+    parity = {}
+    for form, c, loss_fn, b in (("full", red, gnn.gcn_loss, graph),
+                                ("sampled", red, gnn.gcn_loss, samp),
+                                ("batched", red_m, gnn.gcn_loss_batched, mols)):
+        card, cpu = card_vs_cpu(dev, lambda g, d, c=c: gnn.gcn_init(
+            g, c, device=d), loss_fn, c, b, 1e-2)
+        parity[form] = {"loss": [card[0], cpu[0]],
+                        "grad_norm": [card[1], cpu[1]]}
+        check(parity_ok(card, cpu), f"gcn {form} REDUCED card {card} vs CPU "
+              f"{cpu}")
+    emit("gnn_card_vs_cpu", card=CARD, reduced=parity)
+    del rng
+
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name in ("full_graph_sm", "ogb_products", "molecule", "minibatch_lg"):
+        if name not in shapes:
+            continue
+        shape = shapes[name]
+        cfg = dataclasses.replace(arch.full, d_feat=shape["d_feat"],
+                                  n_classes=shape["n_classes"])
+        out = {"shape": {k: v for k, v in shape.items()}}
+        torch.cuda.reset_peak_memory_stats()
+        if shape["kind"] == "gnn_batched":
+            batch = gnn_molecules(cfg, shape["batch"], shape["n_nodes"],
+                                  shape["n_edges"], gen, dev)
+            loss_fn = gnn.gcn_loss_batched
+        elif shape["kind"] == "gnn_sampled":
+            batch, host = gnn_sampled(cfg, shape["n_nodes"], shape["n_edges"],
+                                      shape["batch_nodes"],
+                                      tuple(shape["fanouts"]), SEED, gen, dev)
+            out["host"] = host
+            loss_fn = gnn.gcn_loss
+        else:
+            batch = gnn_graph(cfg, shape["n_nodes"], shape["n_edges"], gen,
+                              dev)
+            loss_fn = gnn.gcn_loss
+        model = gnn.gcn_init(gen, cfg, device=dev)
+        opt = adamw(1e-2, weight_decay=0.0)
+        step = make_train_step(lambda p, b, f=loss_fn, c=cfg: f(p, c, b), opt)
+        ms, losses, nondet = train_both_modes(
+            step, {"state": init_state(model, opt)}, batch, steps)
+        out.update(step_ms=ms,
+                   step_ms_median={m: statistics.median(v)
+                                   for m, v in ms.items()},
+                   losses=losses, peak_mem_gb=peak_gb(),
+                   nondeterministic_ops_warned=nondet,
+                   params=cfg.param_count())
+        check(all(np.isfinite(losses)), f"gcn {name} losses {losses}")
+        results[name] = out
+        emit("gnn_" + name, card=CARD, **out)
+        del batch, model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    after = kernel_launches()
+    emit("gnn", card=CARD, seconds=time.perf_counter() - t_phase,
+         shapes=list(results),
+         kernels_launched={k: after[k] - before[k] for k in after})
+    check(after == before, f"gnn launched kernels: {before} -> {after}")
+    return results
+
+
 def setup():
     """Import the port and set this module's globals; None (after saying
     why on stderr) when there is no card or no package."""
@@ -4622,6 +5453,11 @@ def main() -> int:
     # cuBLAS's workspace fixed before the first cuBLAS call (this is
     # PyTorch's default size on Hopper)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # the prod phases swap 24 GiB arenas out of place: with fixed segments a
+    # 24 GiB request failed beside 24 GiB of reserved-but-unallocated
+    # blocks (sharded_prod's ingest after tiered_prod); growable segments
+    # unmap freed pages instead
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     dev = setup()
     if dev is None:
         return 2
@@ -4686,6 +5522,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_mesh(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recsys(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gnn(dev)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",

@@ -1,1 +1,4 @@
-"""Cross-shard helpers of the port (`distributed.collectives`)."""
+"""Distribution layer of the port on a single-controller mesh:
+`distributed.sharding` (parameter rules, specs, placement),
+`distributed.compression` (bf16 / int8 reductions, error feedback) and
+`distributed.collectives` (the sharded engine's merge)."""

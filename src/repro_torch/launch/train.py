@@ -4,23 +4,25 @@
       --batch 8 --seq 256 --steps 50 --reduced --device cpu   # CPU-sized run
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --batch 8 --seq 1024 --steps 20  # one card
+  ... --mesh 2x4 --vp-loss      # a logical (data=2, model=4) mesh of it
 
 A registry LM with AdamW (cosine schedule, peak 3e-4, warmup 100) or, from
 100 B parameters, Adafactor; synthetic batches; a `Trainer` with async
 checkpoints every steps / 4 under ``--ckpt`` (which also resumes from the
 newest one) and straggler detection. Runs on the card unless ``--device``
-names another. ``--mesh`` and ``--vp-loss`` (sharded training,
-vocab-parallel loss) wait for ROADMAP queue 1's 'training scale-out' and
-raise.
+names another.
+
+``--mesh DxM`` lays the state on a logical (data, model) mesh of that
+device (the port's mesh is single-controller: D x M shards of one
+device, `launch.mesh`) by the reference's `lm_rules` specs, checked by
+`distributed.sharding.place`; ``--vp-loss`` then trains with the
+vocab-parallel loss over it. ``--vp-loss`` without ``--mesh`` is the
+plain loss, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
-
-import torch
-
-SCALE_OUT = ("{} is not ported yet (ROADMAP queue 1, 'training "
-             "scale-out'): the port trains on one device")
+import math
 
 
 def main(argv=None):
@@ -38,14 +40,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(SCALE_OUT.format("--mesh"))
-    if args.vp_loss:
-        raise NotImplementedError(SCALE_OUT.format("--vp-loss"))
+
+    import torch
 
     from repro_torch.configs import get
     from repro_torch.core.store import resolve_device
     from repro_torch.data.lm_pipeline import Prefetcher, synthetic_lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.training.fault_tolerance import (StragglerDetector,
                                                       resume_or_init)
@@ -60,16 +62,33 @@ def main(argv=None):
     cfg = arch.reduced if args.reduced else arch.full
     dev = resolve_device(args.device)
 
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(shape, ("data", "model")[: len(shape)],
+                         devices=[dev] * math.prod(shape))
+
     opt = (adafactor(1e-3) if cfg.param_count() >= 100e9
            else adamw(cosine_schedule(3e-4, 100, args.steps), weight_decay=0.1))
-    step_fn = make_train_step(lambda p, b: tfm.loss_fn(p, cfg, b), opt,
-                              donate=False)
+
+    if args.vp_loss and mesh is not None:
+        loss = tfm.make_vp_loss_fn(cfg, mesh)
+    else:
+        loss = lambda p, b: tfm.loss_fn(p, cfg, b)  # noqa: E731
+    step_fn = make_train_step(loss, opt, donate=False)
+
+    def placed(state):
+        if mesh is None:
+            return state
+        return shd.place(state, shd.state_shardings(mesh, state,
+                                                    shd.lm_rules(mesh)))
 
     def fresh():
         gen = torch.Generator(device=dev).manual_seed(0)
         return init_state(tfm.init(cfg, generator=gen, device=dev), opt)
 
     state, start = resume_or_init(args.ckpt, fresh)
+    state = placed(state)
     data = Prefetcher(synthetic_lm_batches(cfg.vocab_size, args.batch, args.seq,
                                            start_step=start))
     trainer = Trainer(

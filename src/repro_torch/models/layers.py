@@ -52,6 +52,14 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
     w.copy_(t.mul_(1.0 / np.sqrt(w.shape[-2])))
 
 
+@torch.no_grad()
+def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
+               device=None) -> torch.Tensor:
+    """A (vocab, d) table drawn N(0, 0.02^2) in f32 and cast."""
+    t = torch.empty((vocab, d), dtype=torch.float32, device=device)
+    return t.normal_(0.0, 0.02, generator=generator).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -282,3 +290,112 @@ def attention_decode(p: Params, spec: AttentionSpec, x: torch.Tensor,
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ p["w_gate"])
             * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# generic MLP (recsys / gnn substrate)
+# ---------------------------------------------------------------------------
+
+def mlp_init(generator: torch.Generator, dims: tuple[int, ...], dtype,
+             device=None) -> Params:
+    """{"layer<i>": {"w" (dims[i], dims[i+1]), "b" zeros}}, w by
+    `dense_init_`'s law."""
+    p = {f"layer{i}": {"w": torch.empty((dims[i], dims[i + 1]), dtype=dtype,
+                                        device=device),
+                       "b": torch.zeros((dims[i + 1],), dtype=dtype,
+                                        device=device)}
+         for i in range(len(dims) - 1)}
+    for lay in p.values():
+        dense_init_(lay["w"], generator)
+    return p
+
+
+def mlp_apply(p: Params, x: torch.Tensor, *, final_act: bool = False):
+    n = len(p)
+    for i in range(n):
+        lay = p[f"layer{i}"]
+        x = x @ lay["w"] + lay["b"]
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# a model as a tree of parameters
+# ---------------------------------------------------------------------------
+
+class _Node(torch.nn.Module):
+    """One dict of a parameter tree: tensors as parameters (requires_grad
+    off, as the Transformer's), dicts as child nodes, lists as
+    ModuleLists of nodes; keys keep their order."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for key, v in tree.items():
+            if torch.is_tensor(v):
+                self.register_parameter(
+                    key, torch.nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, dict):
+                self.add_module(key, _Node(v))
+            else:
+                self.add_module(key, torch.nn.ModuleList(_Node(e) for e in v))
+
+    def as_tree(self) -> dict:
+        out = {}
+        for key in self._keys:
+            v = getattr(self, key)
+            if isinstance(v, _Node):
+                v = v.as_tree()
+            elif isinstance(v, torch.nn.ModuleList):
+                v = [e.as_tree() for e in v]
+            out[key] = v
+        return out
+
+
+class ParamTree(torch.nn.Module):
+    """A model whose parameters are the reference's params pytree (nested
+    dicts and lists of tensors). ``tree()`` gives that tree of live
+    parameters, so ``training.tree``, the optimizers and the checkpoints
+    work on it as on the `Transformer`. A subclass builds its skeleton
+    from ``(cfg, device=)`` (the signature `checkpoint.restore` remakes a
+    module by)."""
+
+    def __init__(self, cfg, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.params = _Node(tree)
+
+    def tree(self) -> dict:
+        return self.params.as_tree()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+def tensor_of(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, a copy (bf16 as its uint16 bit pattern or ml_dtypes'
+    bfloat16, bit for bit; a 0-d array stays 0-d)."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def fill_from_numpy(model: ParamTree, tree) -> ParamTree:
+    """Copy the reference's params (a tree of numpy arrays of the model's
+    structure) into ``model``'s parameters bit for bit; shapes and dtypes
+    must match."""
+    from repro_torch.training import tree as T
+
+    def put(dst, src):
+        t = tensor_of(np.asarray(src))
+        if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+            raise ValueError(f"got {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(t)
+    T.tree_map(put, model, tree)
+    return model

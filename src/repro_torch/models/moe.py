@@ -33,11 +33,6 @@ from repro_torch.models.layers import dense_init_
 
 Params = dict[str, Any]
 
-#: the ROADMAP item that the mesh-local dispatch waits for
-SCALE_OUT = ("moe_apply_scatter_shmap under a mesh is not ported yet "
-             "(ROADMAP queue 1, 'training scale-out')")
-
-
 @dataclasses.dataclass(frozen=True)
 class MoESpec:
     d_model: int
@@ -179,9 +174,25 @@ def moe_apply_scatter(p: Params, spec: MoESpec, x: torch.Tensor):
 
 def moe_apply_scatter_shmap(p: Params, spec: MoESpec, x: torch.Tensor):
     """Scatter dispatch kept local to each data shard. With no mesh set
-    (`set_moe_mesh`) this is `moe_apply_scatter`, as in the reference;
-    under a mesh it raises NotImplementedError naming the ROADMAP item it
-    waits for."""
-    if _MOE_MESH["mesh"] is None:
+    (`set_moe_mesh`) this is `moe_apply_scatter`, as in the reference.
+    Under a mesh the G groups split into n_dp contiguous chunks over the
+    data axes (the reference's shard_map over ``dp_axes``); each chunk
+    runs `moe_apply_scatter` on its own, y is the chunks' outputs in
+    order, and aux is the MEAN of the chunks' aux losses (the reference's
+    ``pmean``), not the aux of all G groups at once. The port's mesh is
+    logical shards of one device: every mesh device must be x's device,
+    and G must divide by n_dp, else ValueError."""
+    mesh, dp = _MOE_MESH["mesh"], _MOE_MESH["dp_axes"]
+    if mesh is None:
         return moe_apply_scatter(p, spec, x)
-    raise NotImplementedError(SCALE_OUT)
+    from repro_torch.distributed.sharding import check_mesh_device
+    from repro_torch.launch.mesh import n_shards
+    check_mesh_device(mesh, x.device)
+    n = n_shards(mesh, dp)
+    G = x.shape[0]
+    if G % n:
+        raise ValueError(f"{G} MoE groups do not divide over the {n} data "
+                         f"shards {dp}")
+    ys, auxs = zip(*(moe_apply_scatter(p, spec, chunk)
+                     for chunk in x.chunk(n, dim=0)))
+    return torch.cat(ys, dim=0), torch.stack(auxs).mean()

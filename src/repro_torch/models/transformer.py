@@ -7,6 +7,7 @@
   backbone(model, cfg, tokens)             -> (hidden (B,S,D), aux)   # train
   forward(model, cfg, tokens)              -> (logits (B,S,V), aux)   # train
   loss_fn(model, cfg, batch)               -> scalar f32              # train
+  make_vp_loss_fn(cfg, mesh)               -> loss(model, batch)      # train
   make_cache(cfg, batch, max_len, device=)          -> {"k", "v"}
   prefill(model, cfg, tokens, cache_len)            -> (logits_last, cache)
   decode_step(model, cfg, token, cache, cur_index)  -> (logits, cache)
@@ -22,8 +23,9 @@ switches them on. The training path's attention is plain PyTorch (the
 flash kernel is forward-only; ``layers.attention_full``). The KV cache is
 written in place: ``prefill`` fills positions [0, S) of a cache it
 allocates, ``decode_step`` writes position cur_index of the cache it is
-given and returns the same tensors. ``make_vp_loss_fn`` (vocab-parallel
-loss over a mesh) waits for ROADMAP queue 1's 'training scale-out'.
+given and returns the same tensors. ``make_vp_loss_fn`` is the
+vocab-parallel loss over a single-controller mesh (`launch.mesh`): the
+reference's shard_map region run shard by shard on the mesh's device.
 """
 from __future__ import annotations
 
@@ -241,15 +243,7 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
     return model
 
 
-def _tensor_of(a: np.ndarray) -> torch.Tensor:
-    """numpy -> torch, bf16 included: a numpy ``bfloat16`` array (the
-    reference's, as ml_dtypes gives it) or its uint16 bit pattern becomes a
-    torch bfloat16 tensor bit for bit."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
-        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(a.copy())
+_tensor_of = L.tensor_of
 
 
 @torch.no_grad()
@@ -386,6 +380,79 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, batch: dict):
     nll = (logz - gold) * mask
     xent = nll.sum() / torch.clamp_min(mask.sum(), 1)
     return xent + cfg.moe_aux_weight * aux
+
+
+def make_vp_loss_fn(cfg: TransformerConfig, mesh, *, tp_axis: str = "model"):
+    """Vocab-parallel cross-entropy (Megatron-LM style) over ``mesh``.
+
+    Each (dp, tp) shard computes only its (b / n_dp, S, V_pad / n_tp) f32
+    logits from its slice of the head (the vocab padded with zero columns
+    to a multiple of n_tp, which the softmax masks to finfo(f32).min):
+
+        m     = max over the tp shards of each shard's row max
+        logz  = m + log(sum over tp of sum exp(logits - m))
+        gold  = the label's logit, from the one shard whose range holds it
+        loss  = sum of (logz - gold) over labelled tokens / their count,
+                both summed over the dp shards
+
+    The reference runs this as a shard_map region; the port's mesh is
+    logical shards of one device, so the shards run in turn and the
+    psums are sums over them. m is detached (logz does not depend on it;
+    the reference's gradient through it is zero analytically). Labels -1
+    are masked. Every mesh device must be the model's device, and the
+    batch must divide by the dp shards, else ValueError."""
+    from repro_torch.distributed.sharding import check_mesh_device
+    if tp_axis not in mesh.axis_names:
+        raise ValueError(f"the vocab-parallel loss needs a {tp_axis!r} mesh "
+                         f"axis; the mesh has {mesh.axis_names}")
+    dp_axes = tuple(a for a in mesh.axis_names if a != tp_axis)
+    n_dp = int(np.prod([mesh.shape[a] for a in dp_axes]))
+    n_tp = mesh.shape[tp_axis]
+    v_real = cfg.vocab_size
+    v_pad = (-v_real) % n_tp          # pad vocab to a tp multiple (49155)
+    neg = torch.finfo(torch.float32).min
+
+    def xent(x, head, labels):
+        B = x.shape[0]
+        if B % n_dp:
+            raise ValueError(f"batch {B} does not divide over the {n_dp} "
+                             f"data-parallel shards of the mesh")
+        b, v_local = B // n_dp, head.shape[1] // n_tp
+        nll_sum = cnt = 0.0
+        for i in range(n_dp):
+            xi, lab_i = x[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]
+            mask = lab_i >= 0
+            lab = torch.clamp_min(lab_i, 0).long()
+            logits = []
+            for j in range(n_tp):
+                off = j * v_local
+                lg = (xi @ head[:, off:off + v_local]).float()
+                col = off + torch.arange(v_local, device=lg.device)
+                logits.append(torch.where(col < v_real, lg, neg))
+            m = torch.stack([lg.detach().amax(-1) for lg in logits]).amax(0)
+            se = sum(torch.exp(lg - m[..., None]).sum(-1) for lg in logits)
+            logz = m + torch.log(se)
+            gold = 0.0
+            for j, lg in enumerate(logits):
+                off = j * v_local
+                in_range = (lab >= off) & (lab < off + v_local)
+                local = torch.clamp(lab - off, 0, v_local - 1)
+                g = lg.gather(-1, local[..., None])[..., 0]
+                gold = gold + torch.where(in_range, g, 0.0)
+            nll_sum = nll_sum + torch.sum((logz - gold) * mask)
+            cnt = cnt + mask.sum()
+        return nll_sum / torch.clamp_min(torch.as_tensor(cnt), 1)
+
+    def loss(model, batch: dict):
+        check_mesh_device(mesh, model.device)
+        x, aux = backbone(model, cfg, batch["tokens"])
+        head = lm_head_matrix(model, cfg)
+        if v_pad:
+            head = torch.nn.functional.pad(head, (0, v_pad))
+        labels = batch["labels"].to(x.device)
+        return xent(x, head, labels) + cfg.moe_aux_weight * aux
+
+    return loss
 
 
 # ---------------------------------------------------------------------------

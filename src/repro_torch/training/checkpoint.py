@@ -20,8 +20,10 @@ mid-write can never produce a directory that `latest_step` would pick up.
 Async: one background writer thread; the device -> host copy happens on the
 caller thread, serialisation off the critical path; keep-k pruning on
 every save. On restore, tensor leaves go to ``device`` (default: where the
-structure donor's leaf lives) -- the re-placement path fault_tolerance.py
-uses after an elastic re-mesh.
+structure donor's leaf lives), or onto the mesh of ``shardings`` (the
+elastic re-mesh path of fault_tolerance.py): the port's mesh is logical
+shards of one device, so the leaves go to that device and are checked
+against their specs (`distributed.sharding.place`).
 """
 from __future__ import annotations
 
@@ -130,14 +132,26 @@ def _tensor_of(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def restore(root: str, step: int, like, *, device=None):
+def restore(root: str, step: int, like, *, device=None, shardings=None):
     """Rebuild the tree of ``like`` (the structure donor) from checkpoint
     ``step``. Tensor leaves become tensors on ``device`` (default: the
     donor leaf's device), keeping the donor's ``requires_grad``; int and
     float leaves come back as Python numbers, numpy leaves as arrays. A
     module in ``like`` (the port's `Transformer`) comes back as a new
     module of the same config, its parameters filled from the checkpoint
-    (shapes must match)."""
+    (shapes must match).
+
+    ``shardings`` (a tree of `NamedSharding` matching the state, e.g.
+    `distributed.sharding.state_shardings`) restores onto that mesh: every
+    mesh device must be one device, which the leaves go to, and every spec
+    must fit its leaf (`sharding.place`); ValueError otherwise. It and
+    ``device`` exclude each other."""
+    if shardings is not None:
+        if device is not None:
+            raise ValueError("pass device= or shardings=, not both")
+        from repro_torch.distributed.sharding import mesh_device, place
+        return place(restore(root, step, like,
+                             device=mesh_device(shardings)), shardings)
     path = os.path.join(root, f"step_{step:012d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)

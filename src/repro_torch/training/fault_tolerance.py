@@ -7,9 +7,8 @@ Three mechanisms:
      steps flag the host so the scheduler can drain/replace it.
   3. Elastic re-mesh -- when the healthy device set shrinks/grows, pick the
      largest (data, model)-factorable mesh that fits, and restore the
-     newest checkpoint onto it (`checkpoint.restore` with a target device
-     does the placement; sharding a state across the mesh waits for
-     ROADMAP queue 1, 'training scale-out').
+     newest checkpoint onto its shardings (`reshard_state`; the port's
+     mesh is logical shards of one device).
 
 `StragglerDetector` and `plan_mesh_shape` are plain Python, copied from the
 reference.
@@ -112,8 +111,9 @@ def make_elastic_mesh(n_devices: int, *, model_parallel: int,
     return make_mesh((dp, mp), ("data", "model"), devices=list(devices)[: dp * mp])
 
 
-def reshard_state(root: str, step: int, like, device):
-    """Restore checkpoint `step` onto ``device`` -- the recovery path after
-    losing a host. The reference reshards onto a new mesh's shardings; the
-    port restores whole onto one device."""
-    return ckpt.restore(root, step, like, device=device)
+def reshard_state(root: str, step: int, like, new_shardings):
+    """Restore checkpoint `step` resharded onto a new mesh's shardings (a
+    tree of `distributed.sharding.NamedSharding`) -- the recovery path
+    after losing a pod/host. Every mesh device must be one device and
+    every spec must fit its leaf, else ValueError (`checkpoint.restore`)."""
+    return ckpt.restore(root, step, like, shardings=new_shardings)

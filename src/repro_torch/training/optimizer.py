@@ -49,24 +49,6 @@ def _ref_f32(tree) -> tuple[list, list[torch.Tensor]]:
             [T.stacked(leaf).float() for _, leaf in items])
 
 
-def _zeros(tree) -> dict:
-    items = T.ref_items(tree)
-    return T.unflatten([path for path, _ in items],
-                       [torch.zeros(_shape(leaf), dtype=torch.float32,
-                                    device=_first(leaf).device)
-                        for _, leaf in items])
-
-
-def _first(leaf) -> torch.Tensor:
-    return leaf[0] if isinstance(leaf, T.Group) else leaf
-
-
-def _shape(leaf) -> tuple:
-    if isinstance(leaf, T.Group):
-        return (len(leaf),) + tuple(leaf[0].shape)
-    return tuple(leaf.shape)
-
-
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in T.leaves(tree)))
@@ -102,7 +84,7 @@ def sgd(lr, momentum: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
     def init(params):
         if momentum == 0.0:
             return {}
-        return {"mu": _zeros(params)}
+        return {"mu": T.f32_zeros(params)}
 
     def update(grads, state, params, step):
         if grad_clip:
@@ -126,7 +108,7 @@ def sgd(lr, momentum: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: float = 1.0) -> Optimizer:
     def init(params):
-        return {"m": _zeros(params), "v": _zeros(params)}
+        return {"m": T.f32_zeros(params), "v": T.f32_zeros(params)}
 
     def update(grads, state, params, step):
         if grad_clip:
@@ -140,13 +122,18 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         for (_, g), (_, m_), (_, v_), (_, p) in zip(
                 T.ref_items(grads), T.ref_items(state["m"]),
                 T.ref_items(state["v"]), T.ref_items(params)):
+            # the reference's expressions, each rounding in its order, with
+            # the intermediates written in place: a 6.66 GB leaf (DLRM's
+            # tables) holds one temporary at a time, not three
             g = T.stacked(g).float()
-            m = b1 * m_ + (1 - b1) * g
-            v = b2 * v_ + (1 - b2) * torch.square(g)
+            m = torch.mul(m_, b1).add_(torch.mul(g, 1 - b1))
+            v = torch.mul(v_, b2).add_(torch.square(g).mul_(1 - b2))
             del g
-            u = -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            denom = torch.div(v, bc2).sqrt_().add_(eps)
+            u = torch.div(m, bc1).mul_(-lr_t).div_(denom)
+            del denom
             if weight_decay:
-                u = u - lr_t * weight_decay * T.stacked(p).float()
+                u.sub_(lr_t * weight_decay * T.stacked(p).float())
             ms.append(m)
             vs.append(v)
             us.append(u)
@@ -168,7 +155,7 @@ def adafactor(lr, decay: float = 0.8, eps1: float = 1e-30, eps2: float = 1e-3,
         items = T.ref_items(params)
 
         def per_param(leaf):
-            shape, dev = _shape(leaf), _first(leaf).device
+            shape, dev = T.shape(leaf), T.first(leaf).device
             f32 = dict(dtype=torch.float32, device=dev)
             if len(shape) >= 2:
                 return {"vr": torch.zeros(shape[:-1], **f32),

@@ -33,9 +33,9 @@ def expand(node):
         else node
 
 
-def _is_layer_list(node) -> bool:
-    return isinstance(node, list) and bool(node) and \
-        all(isinstance(e, dict) for e in node)
+def _is_layer_list(node, path) -> bool:
+    return bool(path) and path[-1] == "layers" and isinstance(node, list) \
+        and bool(node) and all(isinstance(e, dict) for e in node)
 
 
 def ref_items(tree, prefix=()) -> list[tuple[tuple, object]]:
@@ -45,7 +45,7 @@ def ref_items(tree, prefix=()) -> list[tuple[tuple, object]]:
     if isinstance(node, dict):
         return [item for key in sorted(node)
                 for item in ref_items(node[key], prefix + (key,))]
-    if _is_layer_list(node):
+    if _is_layer_list(node, prefix):
         return [(prefix + path, Group(_get(e, path) for e in node))
                 for path, _ in ref_items(node[0])]
     if isinstance(node, (list, tuple)):
@@ -58,6 +58,30 @@ def _get(node, path):
     for key in path:
         node = expand(node)[key]
     return node
+
+
+def first(leaf):
+    """A reference leaf's first tensor: layer 0 of a `Group`, else itself."""
+    return leaf[0] if isinstance(leaf, Group) else leaf
+
+
+def shape(leaf) -> tuple:
+    """A reference leaf's shape: a `Group` as its (n_layers, ...) stack; ()
+    for a non-tensor leaf (the step)."""
+    if isinstance(leaf, Group):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def f32_zeros(tree) -> dict:
+    """An f32 zero tensor for every leaf of ``tree``'s reference view, on
+    the leaf's device: the reference's structure (optimizer moments,
+    error-feedback residuals)."""
+    items = ref_items(tree)
+    return unflatten([path for path, _ in items],
+                     [torch.zeros(shape(leaf), dtype=torch.float32,
+                                  device=first(leaf).device)
+                      for _, leaf in items])
 
 
 def stacked(leaf) -> torch.Tensor:
@@ -114,7 +138,7 @@ def rebuild(like, values: dict, on_module=None):
             return on_module(node, new) if on_module else new
         if isinstance(node, dict):
             return {k: go(v, path + (k,), layer) for k, v in node.items()}
-        if _is_layer_list(node):
+        if _is_layer_list(node, path):
             return [go(e, path, i) for i, e in enumerate(node)]
         if isinstance(node, (list, tuple)):
             return type(node)(go(v, path + (i,), layer)

@@ -1,6 +1,7 @@
 """Doctest smoke for the port's front door, IVF index, warm tier, router,
 lexical arena, split-stack two-scan baseline, arena-scan tile policy,
 hybrid reference, sharded engine (scan, merge helpers, meshes),
+sharding rules and gradient compression,
 observability, serving (scheduler, load harness, metrics, faults) and
 corpus docstrings (the twin of
 tests/test_doctests.py): every ``>>>`` example runs here on the CPU, so
@@ -20,6 +21,8 @@ import repro_torch.core.router
 import repro_torch.core.splitstack
 import repro_torch.data.corpus
 import repro_torch.distributed.collectives
+import repro_torch.distributed.compression
+import repro_torch.distributed.sharding
 import repro_torch.index.lexical.arena
 import repro_torch.index.lexical.twoscan
 import repro_torch.kernels.arena_scan.ops
@@ -49,6 +52,8 @@ MODULES = [
     repro_torch.core.splitstack,
     repro_torch.data.corpus,
     repro_torch.distributed.collectives,
+    repro_torch.distributed.compression,
+    repro_torch.distributed.sharding,
     repro_torch.index.lexical.arena,
     repro_torch.index.lexical.twoscan,
     repro_torch.kernels.arena_scan.ops,

@@ -1,8 +1,11 @@
 """The port's launchers on the CPU (``repro_torch.launch.train`` /
 ``serve``): a REDUCED MoE run of 4 steps with a checkpoint directory,
 run twice -- the second resumes at step 4, trains no step and ends with the
-first run's parameters --, a serving run of 4 requests, and the flags that
-wait for ROADMAP queue 1's training scale-out."""
+first run's parameters --, a serving run of 4 requests, and the mesh
+flags: ``--mesh 1x2 --vp-loss`` trains on a logical mesh with the
+vocab-parallel loss and logs the plain run's losses, ``--vp-loss`` alone
+is the plain loss, and a mesh over other devices than the state's
+raises."""
 import pytest
 import torch
 
@@ -62,10 +65,32 @@ def test_serve_reduced_flag_switches_off(monkeypatch):
                             "cpu", "--docs", "100", *argv])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--vp-loss"]])
-def test_scale_out_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="training scale-out"):
-        train_mod.main(TRAIN + flag)
+def _losses(argv, capsys):
+    state = train_mod.main(TRAIN + argv)
+    out = capsys.readouterr().out
+    return state, [float(line.split("loss")[1].split()[0])
+                   for line in out.splitlines() if line.startswith("step ")]
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "1x2", "--vp-loss"],
+                                  ["--vp-loss"]])
+def test_mesh_flags_train_as_the_plain_run(flag, capsys):
+    _, plain = _losses([], capsys)
+    state, got = _losses(flag, capsys)
+    assert state["step"] == 4 and len(got) == len(plain) == 2
+    if flag == ["--vp-loss"]:                 # no mesh: the plain loss
+        assert got == plain
+    else:
+        assert got == pytest.approx(plain, rel=1e-5)
+
+
+def test_mesh_of_other_devices_raises(monkeypatch):
+    from repro_torch.launch import mesh as mesh_mod
+    make = mesh_mod.make_mesh
+    monkeypatch.setattr(mesh_mod, "make_mesh", lambda shape, axes, devices:
+                        make(shape, axes, devices=["meta"] * len(devices)))
+    with pytest.raises(ValueError, match="ROADMAP queue 1"):
+        train_mod.main(TRAIN + ["--mesh", "2x2"])
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

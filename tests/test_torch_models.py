@@ -261,27 +261,32 @@ def test_no_card_and_no_device_raises(monkeypatch):
         tt.make_cache(cfg, 1, 8)
 
 
-def test_moe_raises_naming_the_queue():
-    """MoE configs build and serve now; what still waits for a ROADMAP
-    queue 1 item is the mesh-local dispatch under a mesh, which raises
-    naming it."""
+def test_moe_shmap_prefill_under_a_mesh_matches_reference():
+    """An MoE model with moe_impl "scatter_shmap" under a (2, 1) mesh: its
+    prefill splits the 4 groups over the 2 data shards and gives the
+    reference's prefill logits (a group's dispatch does not depend on the
+    other groups; aux, which does, is held in test_torch_moe.py); groups
+    that the shards do not divide raise, as shard_map does."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as tm
-    cfg = tt.TransformerConfig(name="moe", n_layers=1, d_model=32, n_heads=2,
-                               n_kv_heads=2, d_ff=64, vocab_size=64,
-                               n_experts=4, top_k=2, dtype="float32",
-                               moe_impl="scatter_shmap")
-    model = tt.init(cfg, generator=torch.Generator().manual_seed(0),
-                    device="cpu")
-    assert cfg.moe_spec().impl == "scatter_shmap"
-    logits, _ = tt.prefill(model, cfg, torch.zeros((1, 4), dtype=torch.int32), 4)
-    assert torch.isfinite(logits).all()
+    kw = dict(name="moe", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+              d_ff=64, vocab_size=64, n_experts=4, top_k=2, dtype="float32",
+              moe_group=4, moe_impl="scatter_shmap")
+    cfg = jt.TransformerConfig(**kw)
+    params = jt.init(jax.random.PRNGKey(0), cfg)
+    tcfg = tt.TransformerConfig(**kw)
+    model = tt.from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    toks = np.random.default_rng(0).integers(0, 64, (2, 8), dtype=np.int32)
+    want, _ = jt.prefill(params, cfg, jnp.asarray(toks), 12)
     tm.set_moe_mesh(make_host_mesh(2, 1), ("data",))
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tt.prefill(model, cfg, torch.zeros((1, 4), dtype=torch.int32), 4)
+        got, _ = tt.prefill(model, tcfg, torch.from_numpy(toks), 12)
+        with pytest.raises(ValueError, match="do not divide"):
+            tt.prefill(model, tcfg, torch.from_numpy(toks[:1, :4]), 12)
     finally:
         tm.set_moe_mesh(None, ())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
 
 
 # the bf16 LM path against the reference: logits, not greedy tokens

@@ -303,10 +303,45 @@ def test_moe_shmap_without_a_mesh_is_the_scatter_path():
                         torch.from_numpy(x))
     b, _ = tm.moe_apply_scatter(tp, tm.MoESpec(**SPEC), torch.from_numpy(x))
     assert torch.equal(a, b)
-    tm.set_moe_mesh(make_host_mesh(2, 1), ("data",))
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_moe_shmap_under_a_mesh_matches_reference(dp):
+    """Under a mesh the groups split over the data shards: y is the
+    reference's scatter dispatch chunk by chunk and aux the mean of the
+    chunks' aux (the reference's shard_map body and its pmean; the
+    reference's shard_map itself is held in test_torch_sharding.py)."""
+    p = _moe_params("float32")
+    x = np.random.default_rng(2).standard_normal((4, 16, SPEC["d_model"])
+                                                 ).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, p)
+    outs = [jm.moe_apply_scatter(jp, jm.MoESpec(**SPEC), jnp.asarray(c))
+            for c in np.split(x, dp)]
+    want_y = np.concatenate([np.asarray(y) for y, _ in outs])
+    want_aux = float(np.mean([float(a) for _, a in outs]))
+    tp = {k: tt._tensor_of(v) for k, v in p.items()}
+    tm.set_moe_mesh(make_host_mesh(dp, 1), ("data",))
     try:
-        with pytest.raises(NotImplementedError, match="training scale-out"):
+        y, aux = tm.moe_apply(tp, tm.MoESpec(**SPEC, impl="scatter_shmap"),
+                              torch.from_numpy(x))
+        with pytest.raises(ValueError, match="do not divide"):
             tm.moe_apply_scatter_shmap(tp, tm.MoESpec(**SPEC),
-                                       torch.from_numpy(x))
+                                       torch.from_numpy(x[:3]))
+    finally:
+        tm.set_moe_mesh(None, ())
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux) - want_aux) <= 1e-6
+    # the chunks' mean is not the aux of all groups at once
+    _, whole = jm.moe_apply_scatter(jp, jm.MoESpec(**SPEC), jnp.asarray(x))
+    assert abs(float(whole) - want_aux) > 1e-6
+
+
+def test_moe_shmap_rejects_a_mesh_of_other_devices():
+    p = {k: tt._tensor_of(v) for k, v in _moe_params("float32").items()}
+    tm.set_moe_mesh(make_host_mesh(2, 1, device="meta"), ("data",))
+    try:
+        with pytest.raises(ValueError, match="ROADMAP queue 1"):
+            tm.moe_apply_scatter_shmap(p, tm.MoESpec(**SPEC),
+                                       torch.zeros((2, 8, SPEC["d_model"])))
     finally:
         tm.set_moe_mesh(None, ())

@@ -18,8 +18,8 @@ on the CPU, and twins of ``tests/test_training.py``.
   within 1e-6 relative;
 * `cosine_schedule` at every step, ``accum_steps=2`` against the
   reference's step, the synthetic batches token for token;
-* the ef-compression test of ``test_training.py`` waits for
-  ``distributed/compression.py`` (ROADMAP queue 1, training scale-out).
+* the ef-compression test of ``test_training.py`` has its twin in
+  ``test_torch_compression.py``.
 """
 import dataclasses
 import tempfile
