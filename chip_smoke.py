@@ -331,13 +331,37 @@ Phases:
                 and examples/s; serve_p99 (512) and serve_bulk (262,144)
                 ms a batch; retrieval_cand (1 x 1,000,000) ms; a REDUCED
                 step on the card within 1e-5 / 1e-4 of the CPU's.
- 19. gnn (last) -- no kernel. gcn-cora FULL on synthetic graphs of
+ 19. gnn -- no kernel. gcn-cora FULL on synthetic graphs of
                 full_graph_sm, ogb_products (2.45 M nodes, 61.9 M edges),
                 molecule and minibatch_lg (NeighborSampler (15, 10) over a
                 Reddit-sized 232,965-node, 114.6 M-edge graph: the host
                 sampler's seconds beside the step): ms a train step in both
                 modes; a REDUCED step of each form on the card within 1e-5
                 / 1e-4 of the CPU's.
+ 20. launch (last) -- the launch tools (`repro_torch.launch.{steps,
+                dryrun, roofline, hillclimb}`). (a) `python -m
+                repro_torch.launch.dryrun --mesh both` over all 42 cells on
+                the two production meshes of meta devices, run as a child
+                process from the start of the script (CPU only, beside the
+                card's phases): 84 of 84 entries ok, its failures (none),
+                host seconds, the three cells with the most args + temp a
+                device. (b) `roofline.analyze` of each entry in the
+                reference's one-line format, the cells each term dominates
+                and the fits_hbm counts. (c) every cell reckoned at one
+                device (a second child: `launch._cost` on meta at the
+                (1, 1) mesh) whose args + temp fit `HBM_PER_CHIP` runs on
+                the card at full width, its arguments drawn from the seed:
+                warm-up, timed steps (CUDA events; train cells step their
+                state), one step counted under `launch._cost` (FLOPs equal
+                to the meta count, bytes within 1%, differing ops printed),
+                peak memory beside the reckoning, the three roofline terms
+                at one chip and the roofline fraction (ideal over measured,
+                <= 1.05); each excluded cell with its reckoned GB; on the
+                long_500k cells the decode kernel launches n_layers times a
+                step and one layer's kernel output matches its plain
+                version at S = 524,288 within 2e-5 (the split plan
+                printed). (d) `hillclimb.main` on qwen1.5-0.5b|long_500k
+                into a temporary file, the entry's keys checked.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (each row with ``paths``: the phases whose
@@ -5418,6 +5442,322 @@ def phase_gnn(dev, shapes=None, *, steps=5):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the launch tools
+# ---------------------------------------------------------------------------
+
+#: timed steps a card cell (after one warm-up step)
+LAUNCH_STEPS = 5
+#: bytes the card count may differ from the meta count by (relative)
+LAUNCH_BYTES_REL = 0.01
+#: the highest roofline fraction a measured step may reach: above it the
+#: count (or the ideal) is wrong
+LAUNCH_FRAC_MAX = 1.05
+
+
+def reckon_one_card(out_path):
+    """Every cell reckoned on the (1, 1) mesh of meta devices: its global
+    count (`launch._cost`), args bytes and collectives, written to
+    ``out_path`` as JSON (run in a child process by `start_launch`)."""
+    sys.path.insert(0, SRC)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    traces, out = {}, {}
+    for arch_id, shape in dryrun.all_cells():
+        t0 = time.perf_counter()
+        cell = build_cell(arch_id, shape, mesh)
+        m = dryrun.measure(cell, mesh, traces)
+        c = m["cost"]
+        out[f"{arch_id}|{shape}"] = {
+            "flops": c.flops, "bytes": c.bytes,
+            "transcendentals": c.transcendentals, "temp_bytes": c.peak_bytes,
+            "args_bytes": m["args_bytes"], "coll": sum(m["coll"].values()),
+            "model_flops": cell.model_flops, "model_bytes": cell.model_bytes,
+            "launches": c.launches, "by_op": c.by_op,
+            "seconds": time.perf_counter() - t0}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_launch():
+    """Start the launch phase's two CPU children (meta device only): the
+    dry run's entry point over both production meshes, and the one-card
+    reckoning. Returns {name: (process, output path, log, start time)}."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([SRC, ROOT]))
+    cmds = {"dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--mesh", "both", "--force", "--out",
+                       os.path.join(tmp, "dryrun.json")],
+            "one_card": [sys.executable, "-c",
+                         "import chip_smoke; chip_smoke.reckon_one_card("
+                         f"{os.path.join(tmp, 'one_card.json')!r})"]}
+    kids = {"tmp": tmp}
+    for name, cmd in cmds.items():
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        kids[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT),
+                      os.path.join(tmp, f"{name}.json"), log, time.time())
+    return kids
+
+
+def stop_launch(kids):
+    """Kill whatever child is still running and drop its files."""
+    import shutil
+    for name, kid in kids.items():
+        if name == "tmp":
+            continue
+        proc, _, log, _ = kid
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+    shutil.rmtree(kids["tmp"], ignore_errors=True)
+
+
+def launch_wait(kids, name, timeout=900):
+    """A child's JSON result and its wall seconds (start to its result's
+    last write); fails the phase when it failed."""
+    proc, path, log, t0 = kids[name]
+    rc = proc.wait(timeout=timeout)
+    log.flush()
+    with open(log.name) as f:
+        text = f.read()
+    check(rc == 0, f"launch child {name} exited {rc}: {text[-2000:]}")
+    with open(path) as f:
+        return json.load(f), os.path.getmtime(path) - t0, text
+
+
+def roofline_entry(e):
+    """A dry-run entry in `roofline.analyze`'s terms."""
+    return {"flops": e["hlo_flops"], "bytes": e["hlo_bytes"],
+            "coll": float(sum(e["collective_bytes"].values())),
+            "model_flops": e["model_flops"],
+            "model_bytes": e.get("model_bytes", 0.0),
+            "temp_bytes": e["mem_temp_bytes"],
+            "args_bytes": e["mem_args_bytes"]}
+
+
+def launch_decode_checks(dev, cell, key):
+    """On a long_500k cell: one decode step launches the kernel n_layers
+    times; one layer's kernel output against its plain version at the
+    cell's S (q drawn, every row live); the split plan at that S."""
+    model, cache = cell.args[0], cell.args[1]
+    cfg = model.cfg
+    S, KV, hd = cache["k"].shape[2], cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KV
+    sync()
+    before = dec_mod.LAUNCHES
+    cell.fn(*cell.args)
+    sync()
+    per_step = dec_mod.LAUNCHES - before
+    check(per_step == cfg.n_layers,
+          f"{key}: {per_step} decode launches a step, {cfg.n_layers} layers")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = torch.randn((1, KV, G, hd), generator=gen, device=dev).to(
+        cache["k"].dtype)
+    lengths = torch.full((1,), S, dtype=torch.int32, device=dev)
+    kc, vc = cache["k"][0], cache["v"][0]
+    n0 = dec_mod.LAUNCHES
+    err = decode_check(q, kc, vc, lengths)
+    # one layer's kernel at this S beside its bound, its plain version and
+    # SDPA over the same rows (comparison launches: not the path's)
+    k_ms = events_ms(lambda: dec_mod.decode_attention_cuda(q, kc, vc,
+                                                           lengths), 10)
+    dec_mod.LAUNCHES = n0
+    plain_ms = events_ms(lambda: dec_mod.decode_attention_plain(
+        q, kc, vc, lengths), 2)
+    ql = q.reshape(1, KV * G, 1, hd)
+    kl, vl = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = events_ms(lambda: sdpa(ql, kl, vl, enable_gqa=True), 10)
+    del kl, vl
+    nbytes = 2 * S * KV * hd * kc.element_size() \
+        + q.numel() * q.element_size() + KV * G * (hd + 2) * 4
+    flops = 4 * hd * KV * G * S
+    bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = dec_mod.split_for(1, KV, G, S, n_sm)
+    chunks = -(-S // split)
+    check(chunks * split >= S and S * KV * hd < 2**31,
+          f"{key}: split {split} x {chunks} chunks or offsets past int32")
+    return {"launches_a_step": per_step, "layer0_err": err, "split": split,
+            "chunks": chunks, "layer_elems": S * KV * hd,
+            "kernel_ms": k_ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"
+            if nbytes / HBM_BPS >= flops / FP32_FLOPS else "operations",
+            "mbytes": nbytes / 1e6}
+
+
+def launch_card_cell(dev, mesh, key, rk):
+    """One fitting cell at full width on the card (see phase 20 (c))."""
+    from repro_torch.launch import _cost, roofline
+    from repro_torch.launch.steps import build_cell
+    arch_id, shape = key.split("|")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cell = build_cell(arch_id, shape, mesh, device=dev, generator=gen)
+    sync()
+    build_s = time.perf_counter() - t0
+    out = {"cell": key, "build_s": build_s}
+    if shape == "long_500k":
+        out["decode"] = launch_decode_checks(dev, cell, key)
+    fn, args = cell.fn, list(cell.args)
+    train = isinstance(args[0], dict) and "params" in args[0]
+    del cell
+
+    def step():
+        res = fn(*args)
+        if train:
+            args[0] = res[0]       # the only reference to the state
+        return res
+
+    out["ms"] = events_ms(step, LAUNCH_STEPS)
+    if shape == "long_500k":
+        # where a step's time goes: the device's busy time and idle share
+        prof = profile_batch(step, tags=("decode_attention_kernel",))
+        out["profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "idle_share", "trace_lost")} | {
+            "kernels": prof["kernels"][:4]}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cost, res = _cost.count(fn, *args)
+    if train:
+        args[0] = res[0]
+    del res
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    out.update(flops=cost.flops, meta_flops=rk["flops"], bytes=cost.bytes,
+               meta_bytes=rk["bytes"], launches=cost.launches,
+               peak_gb=peak / 1e9, allocated_before_gb=base / 1e9,
+               reckoned_gb=(rk["args_bytes"] + rk["temp_bytes"]) / 1e9)
+    diff = {op: [list(cost.by_op.get(op, (0, 0))),
+                 list(rk["by_op"].get(op, (0, 0)))]
+            for op in set(cost.by_op) | set(rk["by_op"])
+            if tuple(cost.by_op.get(op, (0, 0)))
+            != tuple(rk["by_op"].get(op, (0, 0)))}
+    out["ops_differing"] = diff
+    rel = abs(cost.bytes - rk["bytes"]) / max(rk["bytes"], 1)
+    check(cost.flops == rk["flops"] and rel <= LAUNCH_BYTES_REL,
+          f"{key}: card count {cost.flops} flops / {cost.bytes} bytes, meta "
+          f"{rk['flops']} / {rk['bytes']} (ops differing: {diff})")
+    entry = {"flops": rk["flops"], "bytes": rk["bytes"], "coll": rk["coll"],
+             "model_flops": rk["model_flops"],
+             "model_bytes": rk["model_bytes"], "temp_bytes": rk["temp_bytes"],
+             "args_bytes": rk["args_bytes"]}
+    a = roofline.analyze(entry, 1)
+    ideal_s = max(rk["model_flops"] / roofline.PEAK_FLOPS,
+                  rk["model_bytes"] / roofline.HBM_BW)
+    frac = ideal_s * 1e3 / out["ms"]
+    out.update(terms_ms={k: v * 1e3 for k, v in a["terms_s"].items()},
+               bound_ms=max(a["terms_s"].values()) * 1e3,
+               dominant=a["dominant"], ideal_ms=ideal_s * 1e3,
+               roofline_fraction=frac, bytes_rel_gap=rel)
+    check(frac <= LAUNCH_FRAC_MAX,
+          f"{key}: roofline fraction {frac} > {LAUNCH_FRAC_MAX}")
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_launch(dev, kids):
+    from repro_torch.launch import hillclimb, roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    # (a) the dry run, both production meshes of meta devices
+    dry, dry_wall, dry_log = launch_wait(kids, "dryrun")
+    bad = {k: e.get("error") for k, e in dry.items() if not e.get("ok")}
+    check(len(dry) == 84 and not bad,
+          f"dry run: {len(dry) - len(bad)} of {len(dry)} ok, failed {bad}")
+    most = sorted(dry, key=lambda k: -(dry[k]["mem_args_bytes"]
+                                       + dry[k]["mem_temp_bytes"]))[:3]
+    # (b) the H100 roofline of every entry
+    lines, dominant, fits = [], Counter(), Counter()
+    for key in sorted(dry):
+        n_chips = 512 if key.endswith("pod512_2x16x16") else 256
+        a = roofline.analyze(roofline_entry(dry[key]), n_chips)
+        lines.append(roofline.line(key, a))
+        dominant[(key.rsplit("|", 1)[1], a["dominant"])] += 1
+        fits[(key.rsplit("|", 1)[1], a["fits_hbm"])] += 1
+    for ln in lines:
+        print(ln, flush=True)
+    # (c) every cell that fits one card, at full width
+    one, one_wall, _ = launch_wait(kids, "one_card")
+    mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    saved_moe = dict(moe._MOE_MESH)
+    runs, excluded = [], {}
+    dec_mod.LAUNCHES = 0
+    fa_mod.LAUNCHES = 0
+    try:
+        for key in sorted(one):
+            rk = one[key]
+            need = rk["args_bytes"] + rk["temp_bytes"]
+            if need > roofline.HBM_PER_CHIP:
+                excluded[key] = need / 1e9
+                continue
+            runs.append(launch_card_cell(dev, mesh, key, rk))
+            print(json.dumps({"launch_cell": runs[-1]}), flush=True)
+    finally:
+        moe._MOE_MESH.clear()
+        moe._MOE_MESH.update(saved_moe)
+    dec_launches, fa_launches = dec_mod.LAUNCHES, fa_mod.LAUNCHES
+    long_runs = [r for r in runs if r["cell"].endswith("long_500k")]
+    check({r["cell"] for r in long_runs} == {
+        "qwen1.5-0.5b|long_500k", "yi-6b|long_500k",
+        "granite-moe-1b-a400m|long_500k"}
+        and "qwen3-4b|long_500k" in excluded,
+        f"long_500k cells run {[r['cell'] for r in long_runs]}, excluded "
+        f"{sorted(excluded)}")
+    check(dec_launches > 0, "no decode launch in the launch phase")
+    # (d) one hill-climb entry into a temporary file
+    hc_path = os.path.join(kids["tmp"], "perf_iterations.json")
+    try:
+        hillclimb.main(["--cell", "qwen1.5-0.5b|long_500k", "--tag",
+                        "chip_smoke", "--out", hc_path])
+    finally:
+        moe._MOE_MESH.clear()
+        moe._MOE_MESH.update(saved_moe)
+    with open(hc_path) as f:
+        hc = json.load(f)
+    want = {"analysis", "args_bytes", "bytes", "cell", "coll",
+            "coll_by_kind", "corrected", "env", "flops", "mesh",
+            "model_bytes", "model_flops", "note", "raw_flops", "tag",
+            "temp_bytes"}
+    check(len(hc) == 1 and set(hc[0]) == want and hc[0]["corrected"],
+          f"hillclimb entry keys {sorted(hc[0]) if hc else None}")
+    emit("launch", card=CARD, seconds=time.perf_counter() - t_phase,
+         dryrun={"entries": len(dry), "ok": len(dry) - len(bad),
+                 "failures": bad, "child_wall_s": dry_wall,
+                 "trace_s": sum(e.get("lower_s", 0.0) for e in dry.values()),
+                 "most_args_plus_temp_gb": {
+                     k: (dry[k]["mem_args_bytes"] + dry[k]["mem_temp_bytes"])
+                     / 1e9 for k in most},
+                 "log_tail": dry_log[-300:]},
+         roofline={"dominant": {f"{m}:{d}": n for (m, d), n in
+                                sorted(dominant.items())},
+                   "fits_hbm": {f"{m}:{f}": n for (m, f), n in
+                                sorted(fits.items())}},
+         one_card={"child_wall_s": one_wall, "runs": len(runs),
+                   "excluded_gb": excluded},
+         card_runs={r["cell"]: {k: r[k] for k in (
+             "ms", "bound_ms", "ideal_ms", "roofline_fraction", "peak_gb",
+             "reckoned_gb")} for r in runs},
+         decode_launches=dec_launches,
+         flash_launches=fa_launches,
+         hillclimb={k: hc[0][k] for k in ("cell", "tag", "mesh", "flops",
+                                          "bytes", "coll")}
+         | {"analysis": {k: hc[0]["analysis"][k] for k in
+                         ("terms_s", "dominant", "roofline_fraction")}},
+         peak_mem_gb=peak_gb())
+    return {"decode_launches": dec_launches, "flash_launches": fa_launches,
+            "decode_err": max(r["decode"]["layer0_err"] for r in long_runs)}
+
+
 def setup():
     """Import the port and set this module's globals; None (after saying
     why on stderr) when there is no card or no package."""
@@ -5467,7 +5807,16 @@ def main() -> int:
     print(smi[0], flush=True)
     global CARD
     CARD = smi[0]
+    # the launch phase's dry runs need only the host: they start now and
+    # run beside the card's phases
+    kids = start_launch()
+    try:
+        return run_phases(dev, kids)
+    finally:
+        stop_launch(kids)
 
+
+def run_phases(dev, kids) -> int:
     t0 = time.perf_counter()
     # both libraries at once: one nvcc per source, all six started together
     with ThreadPoolExecutor(2) as pool:
@@ -5531,6 +5880,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_gnn(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch = phase_launch(dev, kids)
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
@@ -5599,10 +5951,11 @@ def main() -> int:
         "launches": lm["decode"]["launches"],
         "paths": {"lm_serve": lm["decode"]["launches"],
                   "moe_serve": moe["decode"]["launches"],
-                  "sharded_prod": sprod["decode_launches"]},
+                  "sharded_prod": sprod["decode_launches"],
+                  "launch": launch["decode_launches"]},
         "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
                            moe["decode"]["max_abs_err"],
-                           sprod["decode_err"]),
+                           sprod["decode_err"], launch["decode_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],
         "bound_by": lm["decode"]["bound_by"],

@@ -46,6 +46,7 @@ from repro_torch.kernels._nvcc import check_tensor as _check
 from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
                                                 arena_scan_scan_ref)
 from repro_torch.kernels.arena_scan.stages import ScanSpec
+from repro_torch.launch import _cost
 
 #: the kernels, and the mbarrier / TMA helpers they share with the
 #: attention kernels
@@ -475,15 +476,47 @@ def emb_column(r: int, c4: int) -> int:
 arena_scan_plain = arena_scan_ref
 
 
+def scan_work(q, emb, preds, k: int, spec: ScanSpec = ScanSpec(),
+              lex: tuple | None = None) -> tuple[int, int]:
+    """(flops, bytes) of one resident or paged scan (the bound of
+    ``PERF.md``'s kernel table): 2 * B * N * D; the arena's embeddings and
+    packed metadata, q, the group ids and predicates read once, each list
+    (score, slot) written once, and with lanes the (N, T) terms and
+    weights and the (B, QT) query terms and idf read once."""
+    B, D = q.shape
+    N, G = emb.shape[0], preds.shape[0]
+    nbytes = (N * (4 * D + 16) + B * D * 4 + B * 4 + G * 16
+              + spec.n_lists * B * k * 8)
+    if lex is not None and spec.has_lex:
+        terms, _, qterms, _ = lex
+        nbytes += 8 * terms.numel() + 8 * qterms.numel()
+    return 2 * B * N * D, nbytes
+
+
 def arena_scan(q, emb, meta, gids, preds, k: int, *,
                spec: ScanSpec = ScanSpec(), lex: tuple | None = None,
                page_rows: int | None = None):
     """The unified scan: the CUDA kernel (resident, or paged with
     ``page_rows``) for tensors on the card, its plain version for tensors
-    on the CPU; any other device raises."""
+    on the CPU; on ``meta`` (the launch tools' dry run) empty lists of the
+    kernel's shapes, no launch; any other device raises. On the card and
+    on ``meta`` the call reports the kernel's work to an active
+    `launch._cost` counter (`scan_work`)."""
+    if _cost.counting() and q.device.type in ("cuda", "meta"):
+        flops, nbytes = scan_work(q, emb, preds, k, spec, lex)
+        _cost.report("arena_scan", flops=flops, nbytes=nbytes)
     if q.device.type == "cuda":
         return arena_scan_cuda(q, emb, meta, gids, preds, k, spec=spec,
                                lex=lex, page_rows=page_rows)
+    if q.device.type == "meta":
+        B = q.shape[0]
+        out_s = torch.empty((spec.n_lists * B, k), dtype=torch.float32,
+                            device=q.device)
+        out_i = torch.empty((spec.n_lists * B, k), dtype=torch.int32,
+                            device=q.device)
+        if spec.n_lists == 1:
+            return out_s, out_i
+        return out_s[:B], out_i[:B], out_s[B:], out_i[B:]
     if q.device.type == "cpu":
         if page_rows is not None:
             return arena_scan_scan_ref(q, emb, meta, gids, preds, k,

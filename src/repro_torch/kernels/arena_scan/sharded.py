@@ -262,7 +262,10 @@ class ShardedScan:
         meta = _packed_meta(store["tenant"], store["updated_at"],
                             store["category"], store["acl"])
         pred_d = _pred_array(pred, dev)
-        active = self.active(_host_tenant(pred))
+        # only a tenant-affine scan skips shards: the others never read
+        # the predicate's tenant on the host
+        active = (self.active(_host_tenant(pred)) if self.affine
+                  else list(range(self.n_shards)))
         kk = self.k + 1
         parts = [(s, *self._scan_shard(q, emb, meta, pred_d, s, kk))
                  for s in active]

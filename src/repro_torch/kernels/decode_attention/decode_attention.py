@@ -194,6 +194,20 @@ def _cache_rows(name, t, dtype, shape, dev) -> int:
     return rows
 
 
+def decode_attention_meta(q):
+    """The kernel's outputs on the ``meta`` device, allocated as
+    `decode_attention_cuda` allocates them (one buffer, three views):
+    shape propagation for the launch tools' dry run; no launch, LAUNCHES
+    unchanged."""
+    B, KV, G, hd = q.shape
+    n_acc, n_ml = B * KV * G * hd, B * KV * G
+    out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device)
+    ml = (KV * G, G, 1, 1)
+    return (out.as_strided((B, KV, G, hd), (KV * G * hd, G * hd, hd, 1)),
+            out.as_strided((B, KV, G, 1), ml, n_acc),
+            out.as_strided((B, KV, G, 1), ml, n_acc + n_ml))
+
+
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the kernel on the current stream (no sync): one launch, which
     also merges the chunks. q (B, KV, G, hd), k_cache / v_cache

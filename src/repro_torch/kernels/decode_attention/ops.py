@@ -9,36 +9,72 @@
                             in place), partial (acc, m, l) merged with the
                             logsumexp combine (`merge_sharded`) --
                             flash-decode's split-K across a mesh axis
+
+On the ``meta`` device (the launch tools' dry run) a call returns empty
+partials of the kernel's shapes and dtypes and launches nothing: shape
+propagation, not a fallback. On ``meta`` and on the card each call
+reports the kernel's work to an active `launch._cost` counter
+(`decode_work`), reckoned from ``live``, the host's count of live rows a
+sequence (the cache's length when the caller gives none): the count never
+reads ``lengths`` from the device.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention as _dec
+from repro_torch.launch import _cost
 from repro_torch.launch.mesh import n_shards as mesh_shards
 
 
-def _partials(qg, k_cache, v_cache, lengths):
+def decode_work(qg, k_cache, live: int) -> tuple[int, int]:
+    """(flops, bytes) of one kernel call on qg (B, KV, G, hd), caches
+    (B, S, KV, hd), ``live`` rows of each sequence: 4 * hd * H * B * live
+    (Q.K^T and P.V over the live rows), and the live K and V rows read
+    once, q read once, (acc, m, l) written once in f32 (the bound of
+    ``PERF.md``'s kernel table)."""
+    B, KV, G, hd = qg.shape
+    rows = B * live
+    nbytes = (2 * rows * KV * hd * k_cache.element_size()
+              + qg.numel() * qg.element_size() + B * KV * G * (hd + 2) * 4)
+    return 4 * hd * KV * G * rows, nbytes
+
+
+def _partials(qg, k_cache, v_cache, lengths, live: int | None = None):
     """Un-normalised (acc, m, l) from the kernel on the card or its plain
-    version on the CPU; any other device raises."""
-    if qg.device.type == "cuda":
-        return _dec.decode_attention_cuda(qg.contiguous(), k_cache, v_cache,
-                                          lengths)
-    if qg.device.type == "cpu":
+    version on the CPU; on ``meta`` empty partials; any other device
+    raises. ``live`` (host int) sizes the work reported to a counter."""
+    dev = qg.device.type
+    if dev == "cuda":
+        out = _dec.decode_attention_cuda(qg.contiguous(), k_cache, v_cache,
+                                         lengths)
+    elif dev == "cpu":
         return _dec.decode_attention_plain(qg, k_cache, v_cache, lengths)
-    raise ValueError(f"no decode-attention engine for device {qg.device}")
+    elif dev == "meta":
+        out = _dec.decode_attention_meta(qg.contiguous())
+    else:
+        raise ValueError(f"no decode-attention engine for device {qg.device}")
+    if _cost.counting():
+        S = k_cache.shape[1]
+        flops, nbytes = decode_work(
+            qg, k_cache, S if live is None else min(max(live, 0), S))
+        _cost.report("decode_attention", flops=flops, nbytes=nbytes)
+    return out
 
 
 def decode_attention(q, k_cache, v_cache, lengths, n_kv: int,
-                     blk_s: int = 512):
+                     blk_s: int = 512, *, live: int | None = None):
     """q: (B, H, hd); caches (B, S, KV, hd); lengths (B,) int32 ->
     (B, H, hd) in q's dtype. ``blk_s`` is the Pallas kernel's S block,
     kept for the reference's signature: the CUDA kernel splits S by its own
     rule (`decode_attention.split_for`) and the plain version takes S
-    whole. Any device but the card and the CPU raises."""
+    whole. ``live`` is the host's count of live rows of every sequence
+    (lengths' value, when the caller knows it): it sizes only the work
+    reported to a `launch._cost` counter. ``meta`` propagates the shapes;
+    any other device but the card and the CPU raises."""
     B, H, hd = q.shape
     acc, m, l = _partials(q.reshape(B, n_kv, H // n_kv, hd), k_cache,
-                          v_cache, lengths)
+                          v_cache, lengths, live)
     out = acc / l
     return out.reshape(B, H, hd).to(q.dtype)
 

@@ -279,7 +279,7 @@ def attention_decode(p: Params, spec: AttentionSpec, x: torch.Tensor,
         lengths = torch.full((B,), idx + 1, dtype=torch.int32,
                              device=x.device)
     out = dec_ops.decode_attention(q[:, 0], k_cache, v_cache, lengths,
-                                   spec.n_kv_heads)
+                                   spec.n_kv_heads, live=idx + 1)
     return out.reshape(B, 1, -1) @ p["wo"], (k_cache, v_cache)
 
 

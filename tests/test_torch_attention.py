@@ -250,6 +250,17 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(monkeypatch):
     assert calls == ["flash", "decode"]
 
 
+class _OtherDeviceClaim(_CudaClaim):
+    """Stands in for a tensor on a device with no engine (neither the
+    card, the CPU nor ``meta``)."""
+    device = torch.device("xpu")
+
+    def reshape(self, *shape):
+        out = _OtherDeviceClaim()
+        out.shape = shape
+        return out
+
+
 def test_wrappers_refuse_cpu_and_other_devices():
     x = torch.zeros((1, 4, 2, 2, 32))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -257,11 +268,18 @@ def test_wrappers_refuse_cpu_and_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         dec_mod.decode_attention_cuda(x[:, 0], x[:, :, :, 0], x[:, :, :, 0],
                                       torch.zeros(1, dtype=torch.int32))
-    m = torch.zeros((1, 4, 4, 32), device="meta")
+    o = _OtherDeviceClaim()
+    o.shape = (1, 4, 4, 32)
     with pytest.raises(ValueError, match="no flash-attention engine"):
-        fa_ops.flash_attention(m, m, m, 2)
+        fa_ops.flash_attention(o, o, o, 2)
+    o.shape = (1, 4, 32)
     with pytest.raises(ValueError, match="no decode-attention engine"):
-        dec_ops.decode_attention(m[:, 0], m, m, m[:, 0, 0, 0], 2)
+        dec_ops.decode_attention(o, o, o, o, 2)
+    # meta propagates the kernels' shapes (the launch tools' dry run)
+    m = torch.zeros((1, 4, 4, 32), device="meta")
+    assert fa_ops.flash_attention(m, m, m, 2).shape == m.shape
+    assert dec_ops.decode_attention(m[:, 0], m, m, m[:, 0, 0, 0],
+                                    2).shape == m[:, 0].shape
 
 
 # the kernels' own schedules, emulated in plain torch, against the

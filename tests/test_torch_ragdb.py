@@ -224,9 +224,17 @@ def test_wrapper_never_runs_plain_on_a_cuda_tensor(monkeypatch):
     x = torch.zeros((2, 4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_mod.arena_scan_cuda(x, x, x, x, x, 2)
-    meta_t = torch.zeros((2, 4), device="meta")
+    class OtherClaim:             # a tensor on a device with no engine
+        device = torch.device("xpu")
+
+    o = OtherClaim()
     with pytest.raises(ValueError, match="no arena-scan engine"):
-        kernel_mod.arena_scan(meta_t, meta_t, meta_t, meta_t, meta_t, 2)
+        kernel_mod.arena_scan(o, o, o, o, o, 2)
+    # meta propagates the kernel's shapes (the launch tools' dry run)
+    meta_t = torch.zeros((2, 4), device="meta")
+    s, i = kernel_mod.arena_scan(meta_t, meta_t, meta_t, meta_t[:, 0],
+                                 meta_t, 2)
+    assert s.shape == i.shape == (2, 2) and i.dtype == torch.int32
 
 
 def test_port_imports_neither_jax_nor_repro():
