@@ -252,6 +252,25 @@ Phases:
                 its bound, the tie widenings, collective bytes, the
                 sharded decode's time beside the kernel's, the decode
                 wrapper's host cost a call, peak memory.
+ 13c. regions (after sharded_prod) -- arena regions on their own cards, on
+                every card present (torch.cuda.device_count()). With n >= 2
+                a RagDB over make_mesh((4,), ("data",), devices=[cuda:(s *
+                n // 4)]) (one allocation a card, the controller cuda:0)
+                holds 2^23 x 768 rows a card (rag_unified.PRODUCTION cut),
+                built "hash" then (the first dropped) "tenant"; sharded_prod's
+                plans (32 requests in 4 tenant groups, k = 10): each card's
+                allocation on that card, the launches a batch (one a
+                scanned region), ExecStats' shard rows, every list equal bit
+                for bit to its regions' kernels run alone on their cards
+                and merged on the host, the exact engine (one fused launch
+                a card, merged by position) equal to them, 0 leaked slots,
+                RagDB.launch under set_sync_debug_mode("error"); a write
+                batch's commit ms, under "tenant" a one-tenant batch that
+                leaves the other cards' allocations untouched; every ctypes
+                entry point launched with its tensors on each other card
+                equal bit for bit to the same launch on cuda:0. Batch
+                medians, each card's peak GB. With n = 1 it says the run
+                needs two cards and computes nothing.
  14. lm_serve (after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
@@ -3866,6 +3885,300 @@ def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                 decode_launches=dec_launches, decode_err=dec_err)
 
 
+def other_card_launches(cards):
+    """Every ctypes entry point launched with its tensors on a card that
+    is not the current one (the dense, paged, fused and slot-lane scans,
+    the compaction, flash and decode attention), held bit for bit to the
+    same launches on ``cards[0]``, the current card. Returns the cards
+    checked."""
+    from repro_torch.kernels.arena_scan.stages import ScanSpec
+    rng = np.random.default_rng(SEED + 13)
+    N, D, B, G, k, T, QT = 4096, 128, 8, 3, 10, 16, 4
+    emb, meta, _ = make_arena(rng, N, D)
+    q, preds, gids = make_batch(rng, emb, B, G)
+    lex = (rng.integers(-1, 512, (N, T)).astype(np.int32),
+           rng.random((N, T)).astype(np.float32),
+           rng.integers(0, 512, (B, QT)).astype(np.int32),
+           rng.random((B, QT)).astype(np.float32))
+    members = make_cand(rng, 2048, N).reshape(16, 128)
+    clusters = np.arange(0, 16, 2, dtype=np.int32)
+    Ba, Sa, KV, Ga, hd = 2, 640, 2, 4, 128
+    qa, ka, va = (rng.standard_normal(s).astype(np.float32) for s in (
+        (Ba, Sa, KV, Ga, hd), (Ba, Sa, KV, hd), (Ba, Sa, KV, hd)))
+    qd = rng.standard_normal((Ba, KV, Ga, hd)).astype(np.float32)
+    lengths = np.array([300, Sa], np.int32)
+
+    def launches(c):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(c)
+        args = (t(q), t(emb), t(meta), t(gids), t(preds))
+        out = [kernel_mod.arena_scan_cuda(*args, k),
+               kernel_mod.arena_scan_cuda(*args, k, page_rows=512),
+               kernel_mod.arena_scan_cuda(*args, k, spec=ScanSpec("fused"),
+                                          lex=tuple(map(t, lex)))]
+        cand, n_live = kernel_mod.arena_scan_compact_cuda(
+            t(members), t(np.zeros(0, np.int32)), t(clusters), N)
+        out += [(cand, n_live), kernel_mod.arena_scan_probe_cuda(
+            *args[:3], cand, t(preds[0]), k, n_live=n_live)]
+        bf = lambda a: t(a).to(torch.bfloat16)
+        out.append((fa_mod.flash_attention_cuda(bf(qa), bf(ka), bf(va),
+                                                causal=True),))
+        out.append(dec_mod.decode_attention_cuda(bf(qd), bf(ka), bf(va),
+                                                 t(lengths)))
+        return [tuple(x.cpu() for x in o) for o in out]
+
+    check(torch.cuda.current_device() == cards[0].index,
+          f"the current card is not {cards[0]}")
+    want = launches(cards[0])
+    for c in cards[1:]:
+        got = launches(c)
+        check(torch.cuda.current_device() == cards[0].index,
+              "a launch moved the current card")
+        for j, (a, b) in enumerate(zip(got, want)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"launch {j} on {c} != the same launch on {cards[0]}")
+    return [str(c) for c in cards[1:]]
+
+
+def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
+                  chunk=1 << 20, n_batches=6, write_rows=1 << 12):
+    """Arena regions on their own cards: a RagDB over a mesh of 4 shards
+    on ``cards`` (every card present by default; ``cards[s * n // 4]``
+    holds shard s), ``rows_per_card`` rows on the fullest card, hash then
+    tenant placement, sharded_prod's plans. With fewer than two cards it
+    emits that and computes nothing. Returns the launches of the main
+    path's runs and the largest error for the kernels line."""
+    from repro_torch.api import RagDB
+    from repro_torch.configs import rag_unified
+    from repro_torch.core.store import ALLOCS, gather
+    from repro_torch.core.tenancy import Principal
+    from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.arena_scan.sharded import INT32_MAX
+    from repro_torch.launch.mesh import make_mesh
+
+    if cards is None:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    n = len(cards)
+    if n < 2:
+        emit("regions", cards=n, result=None,
+             note="arena regions on their own cards need at least two "
+                  "cards; nothing was run")
+        return dict(launches=0, max_abs_err=0.0)
+    t_phase = time.perf_counter()
+    S, k = 4, 10
+    devices = [cards[s * n // S] for s in range(S)]
+    used = list(dict.fromkeys(devices))
+    n_local = (rows_per_card or prod_cut()[0]) // max(
+        devices.count(c) for c in used)
+    n_rows, dim = S * n_local, dim or prod_cut()[1]
+    n_docs = n_rows - max(n_rows // 128, 16 * int(np.sqrt(n_rows)))
+    mesh = make_mesh((S,), ("data",), devices=devices)
+    ccfg = CorpusConfig(n_docs=n_docs, dim=dim, n_tenants=20, n_categories=5)
+    rng = np.random.default_rng(SEED + 9)
+    qs = rng.standard_normal((32, dim)).astype(np.float32)
+    groups = [(Principal(t, 0xFF), ccfg.now_ts - d * DAY_S, c)
+              for t, d, c in ((2, 90, [0, 1]), (5, 150, [2, 3]),
+                              (11, 45, [4]), (19, 170, [0, 2, 4]))]
+    on_card = [c.type == "cuda" for c in used]
+
+    def sync_cards():
+        for c, cuda in zip(used, on_card):
+            if cuda:
+                torch.cuda.synchronize(c)
+
+    def peaks():
+        return [torch.cuda.max_memory_allocated(c) / 1e9 if cuda else None
+                for c, cuda in zip(used, on_card)]
+
+    def plans_of(db, engine="sharded"):
+        return [db.session(p).search(qs[r]).newer_than(ts).in_categories(cats)
+                .limit(k).using(engine).plan()
+                for r in range(32) for p, ts, cats in [groups[r % 4]]]
+
+    def host_lists(db, plans, fn):
+        """Each group's regions scanned alone on their cards by the kernel
+        (k + 1, as the engine launches it), the lists merged on the host
+        by (score desc, doc_id asc): (scores (32, k), slots (32, k))."""
+        snap = db.log.snapshot()
+        out_s = np.full((32, k), np.finfo(np.float32).min, np.float32)
+        out_i = np.full((32, k), -1, np.int32)
+        for g in range(4):
+            rows = list(range(g, 32, 4))
+            pred = plans[g].pred
+            cand = []
+            for part, (_, shards) in zip(snap[ALLOCS], fn.groups):
+                c = part["emb"].device
+                meta = _packed_meta(part["tenant"], part["updated_at"],
+                                    part["category"], part["acl"])
+                q = torch.from_numpy(np.concatenate(
+                    [plans[r].logical.q for r in rows])).to(c)
+                gids = torch.zeros(len(rows), dtype=torch.int32, device=c)
+                for sh in shards:
+                    if sh not in fn.active(pred.tenant):
+                        continue
+                    lo = (sh - shards[0]) * n_local
+                    s_r, i_r = kernel_mod.arena_scan_cuda(
+                        q, part["emb"][lo:lo + n_local],
+                        meta[lo:lo + n_local], gids,
+                        pred.as_array(c)[None].contiguous(), k + 1)
+                    s_r, i_r = s_r.cpu().numpy(), i_r.cpu().numpy()
+                    glob = np.where(i_r >= 0, i_r + sh * n_local, -1)
+                    cand.append((s_r, glob))
+            s_all = np.concatenate([a for a, _ in cand], 1)
+            g_all = np.concatenate([b for _, b in cand], 1)
+            live = g_all >= 0
+            d_all = np.full(g_all.shape, INT32_MAX, np.int64)
+            d_all[live] = gather(snap, "doc_id", g_all[live])
+            for j, r in enumerate(rows):
+                order = np.lexsort((d_all[j], -s_all[j].astype(np.float64)))
+                top = order[:k]
+                out_s[r] = s_all[j][top]
+                out_i[r] = np.where(s_all[j][top] > np.finfo(
+                    np.float32).min, g_all[j][top], -1)
+        return out_s, out_i
+
+    def leaks(db, plans, sl):
+        snap = db.log.snapshot()
+        flat = np.maximum(sl, 0).reshape(-1)
+        meta = np.stack([np.asarray(gather(snap, c, flat)).reshape(sl.shape)
+                         for c in ("tenant", "updated_at", "category",
+                                   "acl")], -1)
+        bad = 0
+        for r, p in enumerate(plans):
+            ok = host_mask(meta[r], p.pred.as_array().numpy()[None])[0]
+            bad += int((~ok & (sl[r] >= 0)).sum())
+        return bad
+
+    def run(placement):
+        db = RagDB(dataclasses.replace(rag_unified.PRODUCTION,
+                                       capacity=n_rows, dim=dim),
+                   mesh=mesh, placement=placement, device=dev)
+        # after the db's first allocation on each card: a card the caching
+        # allocator has not used yet refuses the reset
+        for c, cuda in zip(used, on_card):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(c)
+        snap = db.log.snapshot()
+        check([(p["emb"].device, p["emb"].shape[0]) for p in snap[ALLOCS]]
+              == [(torch.device("cpu") if c.type == "cpu" else c,
+                   devices.count(c) * n_local) for c in used],
+              f"{placement}: allocations {[p['emb'].device for p in snap[ALLOCS]]}")
+        del snap
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        for start in range(0, n_docs, chunk):
+            db.ingest(device_corpus(ccfg, start, min(chunk, n_docs - start),
+                                    gen))
+        sync_cards()
+        ingest_s = time.perf_counter() - t0
+        check(int(db.log.snapshot()["n_live"]) == n_docs, "n_live")
+        plans, cuda_plans = plans_of(db), plans_of(db, "cuda")
+        db.execute(plans, use_cache=False)            # warm-up
+        db.execute(cuda_plans, use_cache=False)
+        sync_cards()
+
+        # the main path's run: the counts set to 0 just before, read after
+        fn = db._sharded_fn(k)
+        per_batch = [fn.active(p.pred.tenant) for p in plans[:4]]
+        rows0 = list(db.stats.shard_rows_scanned)
+        kernel_mod.LAUNCHES = 0
+        lat = []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            s, sl, _ = db.execute(plans, use_cache=False)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = kernel_mod.LAUNCHES
+        rows = [a - b for a, b in zip(db.stats.shard_rows_scanned, rows0)]
+        check(launches == n_batches * sum(map(len, per_batch)),
+              f"{placement}: {launches} launches for {n_batches} batches "
+              f"of {sum(map(len, per_batch))} region scans")
+        check(rows == [n_batches * n_local * sum(sh in a for a in per_batch)
+                       for sh in range(S)], f"{placement}: rows {rows}")
+
+        # each list against its regions' kernels alone, merged on the host
+        s_h, sl_h = host_lists(db, plans, fn)
+        check(same_bits(s, s_h) and (sl == sl_h).all(),
+              f"{placement}: lists != the regions' kernels merged on the "
+              "host")
+        n_leaks = leaks(db, plans, sl)
+        check(n_leaks == 0, f"{placement}: {n_leaks} leaked slots")
+
+        # the exact engine: one fused launch a card, merged by position
+        kernel_mod.LAUNCHES = 0
+        lat_x = []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            s_x, sl_x, _ = db.execute(cuda_plans, use_cache=False)
+            lat_x.append((time.perf_counter() - t0) * 1e3)
+        check(kernel_mod.LAUNCHES == n_batches * len(used),
+              f"{placement}: exact engine {kernel_mod.LAUNCHES} launches")
+        check(same_bits(s, s_x) and (sl == sl_x).all(),
+              f"{placement}: the exact engine's lists != the sharded ones")
+
+        # no host sync in RagDB.launch across the cards
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = db.launch(plans, use_cache=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        s_g, sl_g, _ = db.finish(pending)
+        del pending
+        check(same_bits(s_g, s) and (sl_g == sl).all(),
+              "launch / finish rows != execute rows")
+
+        # one write batch's commit: every card it writes copies its
+        # allocation; under "tenant" a one-tenant batch leaves the others
+        commits = {}
+        batches = [("mixed", None)] + ([("one_tenant", 7)]
+                                       if placement == "tenant" else [])
+        for name, tenant in batches:
+            wb = device_corpus(ccfg, n_docs, write_rows, gen)
+            if tenant is not None:
+                wb = dataclasses.replace(wb, tenant=torch.full_like(
+                    wb.tenant, tenant))
+            wb = dataclasses.replace(wb, doc_id=wb.doc_id + (
+                len(commits) + 1) * n_rows)
+            before = db.log.snapshot()[ALLOCS]
+            sync_cards()
+            t0 = time.perf_counter()
+            db.ingest(wb)
+            sync_cards()
+            commits[name] = (time.perf_counter() - t0) * 1e3
+            after = db.log.snapshot()[ALLOCS]
+            kept = [a["emb"] is b["emb"] for a, b in zip(after, before)]
+            if tenant is not None:
+                owner = devices[tenant % S]
+                check(kept == [c != owner for c in used],
+                      f"one-tenant commit rebuilt {kept}")
+            del before, after, wb
+        out = dict(ingest_s=ingest_s, batch_ms_median=statistics.median(lat),
+                   batch_ms=lat, exact_batch_ms_median=statistics.median(
+                       lat_x), exact_batch_ms=lat_x, launches=launches,
+                   launches_per_batch=launches // n_batches,
+                   shard_rows_scanned=rows, leaks=n_leaks,
+                   commit_ms=commits, peak_gb=peaks())
+        del db, s_x, sl_x, s_g, sl_g
+        gc.collect()
+        for c, cuda in zip(used, on_card):
+            if cuda:
+                with torch.cuda.device(c):
+                    torch.cuda.empty_cache()
+        return out
+
+    hash_run = run("hash")
+    tenant_run = run("tenant")
+    other = (other_card_launches([c for c, cuda in zip(used, on_card)
+                                  if cuda]) if all(on_card) else [])
+    emit("regions", seconds=time.perf_counter() - t_phase, cards=n,
+         devices=[str(c) for c in devices], controller=str(dev),
+         rows=n_rows, rows_per_region=n_local, docs=n_docs, dim=dim,
+         batch=32, groups=4, k=k, hash=hash_run, tenant=tenant_run,
+         launches_off_the_current_card=other)
+    return dict(launches=hash_run["launches"] + tenant_run["launches"],
+                max_abs_err=0.0)
+
+
 def attn_ok(got, want, rtol, atol):
     """(max abs error, max of |err| / (atol + rtol |want|)): the second is
     <= 1 exactly when allclose(got, want, rtol, atol) holds."""
@@ -5864,6 +6177,7 @@ def run_phases(dev, kids) -> int:
     sprod = phase_sharded_prod(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    regions = phase_regions(dev)
     lm = phase_lm_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5889,7 +6203,9 @@ def run_phases(dev, kids) -> int:
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
         "launches": prod["launches"],
         "paths": {"prod": prod["launches"],
-                  "sharded_prod": sprod["launches"]},
+                  "sharded_prod": sprod["launches"],
+                  **({"regions": regions["launches"]}
+                     if regions["launches"] else {})},
         "max_abs_err": max(err1, err2, prod["max_abs_err"],
                            sprod["max_abs_err"]),
         "ms": prod["ms"], "plain_ms": prod["plain_ms"],

@@ -34,7 +34,13 @@ calls for the front door (port of ``repro.api.executor``):
     shard region, an exact (score, doc_id) merge) to every "sharded"
     group; the launch queues it without a sync, the finish phase reads its
     tie checks, and `ExecStats` audits the shard count, the merge's
-    collective bytes and the rows each shard scanned.
+    collective bytes and the rows each shard scanned;
+  * a store held in several allocations (one a device, ``core.store``):
+    an exact-engine unit launches once per allocation, on its device, over
+    its contiguous rows, and the lists merge on the controller positionally
+    (`filtered_topk.ops.merge_positional`): the single arena's (score
+    desc, slot asc) order. ``device_calls`` counts the unit once, as the
+    reference does; the kernels' ``LAUNCHES`` count every launch.
 
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
@@ -53,7 +59,9 @@ from repro_torch.api.planner import PlannerConfig, exact_engine, fuse_batch
 from repro_torch.core.query import (BLOCK_ALL, NEG_INF, Predicate,
                                     stack_predicates, unified_query,
                                     unified_query_grouped)
-from repro_torch.core.store import Store
+from repro_torch.core.store import (ALLOCS, Store, allocations, controller,
+                                    n_rows, row_starts, upload)
+from repro_torch.kernels.filtered_topk.ops import merge_positional
 from repro_torch.obs.tracer import FanSpan
 
 #: tier tags in the returned `tiers` array
@@ -190,13 +198,31 @@ class _Hot:
 
 
 def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
-    """A host array on the store's device; to the card by an asynchronous
-    copy from pinned memory, so that a launch never waits on the device."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    dev = store["emb"].device
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.pin_memory().to(dev, non_blocking=True)
+    """A host array on the store's controller device; to the card by an
+    asynchronous copy from pinned memory, so that a launch never waits on
+    the device."""
+    return upload(x, controller(store))
+
+
+def _exact(store: Store, scan, k: int, *rows: np.ndarray):
+    """``scan(allocation, *rows on its device) -> (scores (B, k), slots
+    (B, k))`` for host ``rows``: one scan of a store of one allocation, or
+    one a device of a store held in several, each on its allocation's
+    device over its rows (the rows uploaded to each from the host, so that
+    no card waits on another), every scan queued before the lists are
+    copied to the controller without a host sync and merged there by
+    position (equal scores to the lower allocation, then the lower slot:
+    the single arena's order)."""
+    if ALLOCS not in store:
+        return scan(store, *(_to_device(r, store) for r in rows))
+    ctrl = controller(store)
+    lists = [(lo, *scan(part, *(upload(r, part["emb"].device)
+                                for r in rows)))
+             for lo, part in zip(row_starts(store), allocations(store))]
+    return merge_positional(
+        [s.to(ctrl, non_blocking=True) for _, s, _ in lists],
+        [torch.where(sl >= 0, sl + lo, -1).to(ctrl, non_blocking=True)
+         for lo, _, sl in lists], k)
 
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
@@ -216,12 +242,11 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
     completeness net: degraded plans set it, because their contract is
     already "recall narrows" -- an under-filled k-list IS the degraded
     answer. ``page_rows`` selects the paged regime of the exact scans."""
-    n_arena = store["emb"].shape[0]
+    n_arena = n_rows(store)
     if engine == "sharded":
         if sharded_fn is None:
             raise ValueError("engine='sharded' requires a mesh-built RagDB")
-        launched = sharded_fn.launch(store, _to_device(q, store), pred,
-                                     n_valid)
+        launched = sharded_fn.launch(store, q, pred, n_valid)
         return _Hot(launched.scores, launched.slots, n_arena,
                     sharded=launched)
     if engine == "ivf":
@@ -251,8 +276,8 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
                           clusters, pred.as_array(store["emb"].device), k)
         rescan = None if skip_rescan else (store, q, pred, k, exact, nv, ivf)
         return _Hot(s, sl, rows, rescan=rescan)
-    s, sl = unified_query(store, _to_device(q, store), pred, k, engine=engine,
-                          page_rows=page_rows)
+    s, sl = _exact(store, lambda part, q_d: unified_query(
+        part, q_d, pred, k, engine=engine, page_rows=page_rows), k, q)
     return _Hot(s, sl, n_arena)
 
 
@@ -358,12 +383,10 @@ def _launch_grouped(store: Store, q: np.ndarray, gids: np.ndarray,
     q, gids, preds, n_valid = _pad_group_launch(
         q, gids, preds, k, engine, stats=stats, shapes=shapes,
         page_rows=page_rows)
-    dev = store["emb"].device
-    s, sl = unified_query_grouped(store, _to_device(q, store),
-                                  _to_device(gids, store),
-                                  stack_predicates(preds, dev), k,
-                                  engine=engine, page_rows=page_rows)
-    return _Hot(s, sl, store["emb"].shape[0], pad_check=n_valid)
+    s, sl = _exact(store, lambda part, q_d, gids_d: unified_query_grouped(
+        part, q_d, gids_d, stack_predicates(preds, part["emb"].device), k,
+        engine=engine, page_rows=page_rows), k, q, gids)
+    return _Hot(s, sl, n_rows(store), pad_check=n_valid)
 
 
 def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,

@@ -35,8 +35,14 @@ the hot arena in contiguous, slot-aligned regions (`ShardPlacement`,
 "hash" or tenant-affine "tenant" placement) and adds the "sharded" engine:
 one controller scans every shard's region (on the card, one arena-scan
 kernel launch a scanned shard) and merges their lists exactly in (score,
-doc_id) order. Every device of the mesh must be the store's: S logical
-shards on one card, or on the CPU.
+doc_id) order. The mesh's shards may share one device (S logical shards
+on one card, or on the CPU: one allocation, the plain arena) or sit on
+several (`launch.mesh.device_groups`): then the hot arena is one
+allocation a device (``core.store``), each region is written and scanned
+on its own device, and the lists merge on ``device``, the controller,
+which must be one of the mesh's. Over several devices hybrid
+(``lexical_cfg``), IVF (`build_index`) and tiers (``warm_cfg``) raise:
+ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -56,13 +62,14 @@ from repro_torch.api.planner import (PlannerConfig, check_engine_hint,
                                      compile_plan, degrade_plan)
 from repro_torch.core.ivf import IVFConfig, IVFIndex, build_ivf
 from repro_torch.core.router import TieredRouter
-from repro_torch.core.store import (DocBatch, ShardPlacement, StoreConfig,
+from repro_torch.core.store import (ALLOCS, DocBatch, ShardPlacement,
+                                    StoreConfig, controller, gather, n_rows,
                                     resolve_device)
 from repro_torch.core.tenancy import Principal, TenantRegistry, category_mask
 from repro_torch.core.transactions import TransactionLog
 from repro_torch.index.lexical import LexicalArena, LexicalConfig
+from repro_torch.launch.mesh import device_groups, normalize_device
 from repro_torch.launch.mesh import n_shards as mesh_shards
-from repro_torch.launch.mesh import same_device
 from repro_torch.obs import CalibrationTable, Tracer
 from repro_torch.obs.tracer import NULL_TRACE, TraceGroup
 from repro_torch.serving.faults import (FaultPlan, HotLaunchError,
@@ -243,23 +250,20 @@ class RagDB:
                                  else None))
         self.placement = placement if mesh is not None else None
         self.n_shards = 0
-        hot_placement = None
+        hot_placement = hot_allocs = None
         if mesh is not None:
-            dev = resolve_device(device)
-            if not all(same_device(d, dev) for d in mesh.devices):
-                raise ValueError(
-                    f"every device of the mesh must be the store's ({dev}), "
-                    f"got {mesh.devices}: placing arena regions on their "
-                    "own cards is ROADMAP queue 1, 'Sharded engine' "
-                    "(arena regions on their own cards)")
             self.n_shards = mesh_shards(mesh, self.shard_axes)
             hot_placement = ShardPlacement(n_shards=self.n_shards,
                                            capacity=hot_cfg.capacity,
                                            kind=placement)
+            hot_allocs = self._mesh_allocs(mesh, hot_placement, device,
+                                           tiered=tiered,
+                                           lexical=lexical_cfg is not None)
         self.router = TieredRouter(
             hot_cfg, warm_cfg,
             hot_window_s=hot_window_s if tiered else _FOREVER,
-            now_ts=now_ts, hot_placement=hot_placement, device=device)
+            now_ts=now_ts, hot_placement=hot_placement,
+            hot_allocs=hot_allocs, device=device)
         # (k, n_rows, placement) -> ShardedScan (its shard count and
         # collective bytes are what the stats audit reads)
         self._sharded_fns: dict[tuple, object] = {}
@@ -297,6 +301,42 @@ class RagDB:
         # the tracer is OFF by default; the calibration audit is always on
         self.tracer = Tracer(enabled=False)
         self.calibration = CalibrationTable()
+
+    def _mesh_allocs(self, mesh, placement: ShardPlacement, device, *,
+                     tiered: bool, lexical: bool):
+        """The hot arena's allocations over the mesh's devices: ((device,
+        rows), ...) in row order, one a device, or None when every shard
+        is on one device (the plain arena). Raises on a mesh of mixed
+        device types, on a controller (``device``) that is not one of the
+        mesh's devices, and on the parts that do not run over regions on
+        their own cards yet."""
+        ctrl = resolve_device(device)
+        groups = device_groups(mesh, self.shard_axes)
+        if any(d.type != ctrl.type for d, _ in groups):
+            raise ValueError(
+                f"every device of the mesh must be a {ctrl.type} device, "
+                f"as the controller ({ctrl}) is, got {mesh.devices}: arena "
+                "regions on their own cards take one device type (ROADMAP "
+                "queue 1 item 2)")
+        if normalize_device(ctrl) not in {d for d, _ in groups}:
+            raise ValueError(
+                f"the controller device {ctrl} must be one of the mesh's "
+                f"devices {tuple(d for d, _ in groups)}: it uploads the "
+                "queries and merges the regions' lists")
+        if len(groups) == 1:
+            return None
+        for what, used in (("tiers (warm_cfg)", tiered),
+                           ("hybrid (lexical_cfg)", lexical)):
+            if used:
+                raise ValueError(self._regions_todo(what))
+        rows = placement.rows_per_shard
+        return tuple((d, len(shards) * rows) for d, shards in groups)
+
+    def _regions_todo(self, what: str) -> str:
+        return (f"{what} over arena regions on their own cards is not "
+                "ported yet (ROADMAP queue 1 item 2: hybrid, IVF and tiers "
+                "over regions on their own cards); use a mesh whose "
+                "shards share one device")
 
     def attach_faults(self, plan) -> None:
         """Thread one `serving.faults.FaultPlan` through the injection
@@ -413,8 +453,7 @@ class RagDB:
         if hot_ids:
             snap = self.log.snapshot()
             freed = self.log.delete(hot_ids)
-            owners += snap["tenant"][torch.as_tensor(
-                freed, device=self.device)].cpu().tolist()
+            owners += gather(snap, "tenant", freed)
         if warm_ids:
             warm = self.router.warm
             wslots = torch.as_tensor([warm.slot_of(d) for d in warm_ids],
@@ -446,6 +485,8 @@ class RagDB:
         entries key on it, so a rebuild (which changes which rows get
         scored without any arena commit) can never serve a stale hit."""
         snap = self.log.snapshot()
+        if ALLOCS in snap:
+            raise ValueError(self._regions_todo("IVF (build_index)"))
         self._index_auto = cfg is None
         if cfg is None:
             # ~2*sqrt(N) clusters (pow2): fine enough that nprobe clusters
@@ -480,10 +521,10 @@ class RagDB:
     def compile(self, logical: LogicalPlan) -> PhysicalPlan:
         snap = self.log.snapshot()
         return compile_plan(
-            logical, n_rows=snap["emb"].shape[0],
+            logical, n_rows=n_rows(snap),
             hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
             warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
-            device=snap["emb"].device, index=self.index, lex=self.lex,
+            device=controller(snap), index=self.index, lex=self.lex,
             warm_lex=self.router.warm.lex is not None,
             has_mesh=self.mesh is not None, mesh_shards=self.n_shards,
             placement=self.placement)
@@ -494,11 +535,11 @@ class RagDB:
         placement)."""
         from repro_torch.kernels.arena_scan.sharded import \
             make_sharded_arena_scan
-        n_rows = self.log.snapshot()["emb"].shape[0]
-        key = (k, n_rows, self.placement)
+        rows = n_rows(self.log.snapshot())
+        key = (k, rows, self.placement)
         fn = self._sharded_fns.get(key)
         if fn is None:
-            fn = make_sharded_arena_scan(self.mesh, self.shard_axes, n_rows,
+            fn = make_sharded_arena_scan(self.mesh, self.shard_axes, rows,
                                          k, placement_kind=self.placement)
             self._sharded_fns[key] = fn
         return fn
@@ -535,10 +576,10 @@ class RagDB:
         planner.degrade_plan)."""
         snap = self.log.snapshot()
         return degrade_plan(
-            plan, n_rows=snap["emb"].shape[0],
+            plan, n_rows=n_rows(snap),
             hot_window_s=self.router.hot_window_s, now_ts=self.router.now_ts,
             warm_rows=self.router.warm.n_docs, cfg=self.planner_cfg,
-            device=snap["emb"].device, index=self.index, lex=self.lex,
+            device=controller(snap), index=self.index, lex=self.lex,
             warm_lex=self.router.warm.lex is not None,
             has_mesh=self.mesh is not None, mesh_shards=self.n_shards,
             placement=self.placement)
@@ -754,7 +795,7 @@ class RagDB:
             lexical = "none (match() unavailable)"
         st = self.stats
         lines = [
-            f"RagDB  {snap['emb'].shape[0]} hot-tier rows "
+            f"RagDB  {n_rows(snap)} hot-tier rows "
             f"({int(snap['n_live'])} live), {self.router.warm.n_docs} warm docs, "
             f"commit_count={self.log.commit_count}",
             f"  planner:      {planner}",

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.query import Predicate
 from repro_torch.core.splitstack import SplitStackClient
-from repro_torch.core.store import DocBatch, StoreConfig
+from repro_torch.core.store import DocBatch, StoreConfig, controller, n_rows
 from repro_torch.core.transactions import TransactionLog
 
 
@@ -71,13 +71,15 @@ class TieredRouter:
     """Places documents by recency (``updated_at >= now_ts -
     hot_window_s`` goes hot) into a hot `TransactionLog` and a warm
     `SplitStackClient` on ``device`` (the card unless the caller asks for
-    another), and keeps the cold archive on the host."""
+    another), and keeps the cold archive on the host. ``hot_allocs``
+    ((device, rows), ...) lays the hot arena out in one allocation a
+    device, ``device`` the controller (`core.store.empty`)."""
 
     def __init__(self, hot_cfg: StoreConfig, warm_cfg: StoreConfig, *,
                  hot_window_s: int, now_ts: int, hot_placement=None,
-                 device=None):
+                 hot_allocs=None, device=None):
         self.hot = TransactionLog(hot_cfg, placement=hot_placement,
-                                  device=device)
+                                  device=device, allocs=hot_allocs)
         self.warm = SplitStackClient(warm_cfg, device=self.hot.device)
         self.cold: dict[int, dict[str, Any]] = {}
         self.hot_window_s = hot_window_s
@@ -114,8 +116,8 @@ class TieredRouter:
         q = np.atleast_2d(np.asarray(torch.as_tensor(q).cpu(), np.float32))
         logical = logical_from_predicate(pred, k=k, engine=engine)
         snap = self.hot.snapshot()
-        eng, _ = choose_engine(logical, n_rows=snap["emb"].shape[0],
-                               device=snap["emb"].device)
+        eng, _ = choose_engine(logical, n_rows=n_rows(snap),
+                               device=controller(snap))
         route, _ = choose_route(logical, hot_window_s=self.hot_window_s,
                                 now_ts=self.now_ts,
                                 warm_rows=self.warm.n_docs)

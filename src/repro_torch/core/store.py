@@ -17,6 +17,15 @@ Everything a production RAG query needs lives in ONE dict of tensors:
 Writes never touch a published snapshot: every write builds the next
 state out of place (see ``core.transactions``), so a reader holding an old
 dict keeps an unchanging view (MVCC by immutability).
+
+A hot arena row-sharded over a mesh of several devices (``RagDB(mesh=)``,
+`launch.mesh.device_groups`) is held in one allocation a device: each
+covers that device's regions back to back, in row order. Its snapshot is
+``{"allocs": (store, ...), "commit_ts": ..., "n_live": ...}``: the
+per-device stores of the seven row columns, and the shared scalars on the
+controller device. Whole-arena readers (``store["emb"]``) hold only on a
+store of one allocation, which is the plain dict above; `allocations`,
+`n_rows`, `controller`, `gather` and `to_numpy` read either.
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ Store = dict[str, torch.Tensor]
 #: store columns in the reference's order
 COLUMNS = ("emb", "tenant", "category", "updated_at", "acl", "doc_id",
            "version", "commit_ts", "n_live")
+#: the columns with one entry a row (an allocation holds these)
+ROW_COLUMNS = COLUMNS[:7]
+#: the key of a store held in several allocations
+ALLOCS = "allocs"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,22 +67,89 @@ class StoreConfig:
     n_acl_groups: int = 32
 
 
-def empty(cfg: StoreConfig, device=None) -> Store:
-    dev = resolve_device(device)
-    N, D = cfg.capacity, cfg.dim
+def _empty_rows(cfg: StoreConfig, n: int, dev) -> Store:
     i32 = dict(dtype=torch.int32, device=dev)
     return {
-        "emb": torch.zeros((N, D), dtype=getattr(torch, cfg.dtype),
+        "emb": torch.zeros((n, cfg.dim), dtype=getattr(torch, cfg.dtype),
                            device=dev),
-        "tenant": torch.full((N,), -1, **i32),
-        "category": torch.zeros((N,), **i32),
-        "updated_at": torch.zeros((N,), **i32),
-        "acl": torch.zeros((N,), **i32),
-        "doc_id": torch.full((N,), -1, **i32),
-        "version": torch.zeros((N,), **i32),
-        "commit_ts": torch.zeros((), **i32),
-        "n_live": torch.zeros((), **i32),
+        "tenant": torch.full((n,), -1, **i32),
+        "category": torch.zeros((n,), **i32),
+        "updated_at": torch.zeros((n,), **i32),
+        "acl": torch.zeros((n,), **i32),
+        "doc_id": torch.full((n,), -1, **i32),
+        "version": torch.zeros((n,), **i32),
     }
+
+
+def empty(cfg: StoreConfig, device=None, allocs=None) -> Store:
+    """An empty arena of ``cfg.capacity`` rows on ``device``. ``allocs``,
+    ((device, rows), ...) in row order with the rows summing to the
+    capacity, lays it out in one allocation each, the scalars on
+    ``device`` (the controller); with one entry, or None, the arena is one
+    allocation on ``device``."""
+    dev = resolve_device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    scalars = {"commit_ts": torch.zeros((), **i32),
+               "n_live": torch.zeros((), **i32)}
+    if allocs is None or len(allocs) == 1:
+        return {**_empty_rows(cfg, cfg.capacity, dev), **scalars}
+    if sum(rows for _, rows in allocs) != cfg.capacity:
+        raise ValueError(f"allocations of {[r for _, r in allocs]} rows do "
+                         f"not make the capacity {cfg.capacity}")
+    return {ALLOCS: tuple(_empty_rows(cfg, rows, resolve_device(d))
+                          for d, rows in allocs), **scalars}
+
+
+def upload(x, device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``; to a card by an
+    asynchronous copy from pinned memory on that card's current stream,
+    so that neither the host nor another card's stream waits for it (a
+    copy from one card to another would tie the two cards' streams)."""
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(
+        x, np.ndarray) else x
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def allocations(store: Store) -> tuple:
+    """The store's allocations in row order, each a dict of the row
+    columns: the store itself when it is one allocation."""
+    return store[ALLOCS] if ALLOCS in store else (store,)
+
+
+def row_starts(store: Store) -> list[int]:
+    """The first row of each allocation."""
+    starts, lo = [], 0
+    for part in allocations(store):
+        starts.append(lo)
+        lo += part["emb"].shape[0]
+    return starts
+
+
+def n_rows(store: Store) -> int:
+    """The arena's rows, all allocations together."""
+    return sum(part["emb"].shape[0] for part in allocations(store))
+
+
+def controller(store: Store) -> torch.device:
+    """The device that uploads queries and merges lists: the scalars'
+    device (the store's device when it is one allocation)."""
+    return store["n_live" if ALLOCS in store else "emb"].device
+
+
+def gather(store: Store, name: str, slots) -> list[int]:
+    """Row column ``name`` at the global ``slots``, as host ints, each
+    read on its allocation's device."""
+    slots = np.asarray(slots, np.int64)
+    out = np.zeros(len(slots), np.int64)
+    for lo, part in zip(row_starts(store), allocations(store)):
+        col = part[name]
+        pos = np.flatnonzero((slots >= lo) & (slots < lo + col.shape[0]))
+        if len(pos):
+            idx = torch.as_tensor(slots[pos] - lo, device=col.device)
+            out[pos] = col[idx].cpu().numpy()
+    return out.tolist()
 
 
 def normalize(cfg: StoreConfig, emb: torch.Tensor) -> torch.Tensor:
@@ -95,8 +175,12 @@ def from_numpy(snapshot: dict, device=None) -> Store:
 
 def to_numpy(store: Store) -> dict[str, np.ndarray]:
     """The store's columns as numpy arrays, in the reference's dtypes
-    (``acl`` as uint32)."""
-    out = {k: store[k].cpu().numpy() for k in COLUMNS}
+    (``acl`` as uint32); the allocations' rows concatenated in row order,
+    as the reference's ``jax.device_get`` gives a sharded store."""
+    parts = allocations(store)
+    out = {k: np.concatenate([p[k].cpu().numpy() for p in parts])
+           for k in ROW_COLUMNS}
+    out.update({k: store[k].cpu().numpy() for k in COLUMNS[7:]})
     out["acl"] = out["acl"].view(np.uint32)
     return out
 

@@ -9,17 +9,25 @@ the price of the arena living in memory twice while a commit is built.
 
 Writes do not synchronise with the device: the commit is enqueued on the
 current stream, and readers that need values sync when they read them.
+
+On a store held in several allocations (one a device, ``core.store``) a
+write splits its slots by allocation on the host: only the allocations it
+writes are built anew, each on its own device; the others are the previous
+snapshot's tensors, shared. The commit is still one swap of the whole
+snapshot dict, so it is atomic across devices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.store import (DocBatch, ShardPlacement, Store,
-                                    StoreConfig, empty, normalize)
+from repro_torch.core.store import (ALLOCS, DocBatch, ShardPlacement, Store,
+                                    StoreConfig, allocations, controller,
+                                    empty, normalize, row_starts, upload)
 
 
 def _col(x, dtype, device) -> torch.Tensor:
@@ -34,56 +42,121 @@ def _col(x, dtype, device) -> torch.Tensor:
 # atomic write functions (each builds the next snapshot = one commit)
 # ---------------------------------------------------------------------------
 
+def _pick(x, pos: torch.Tensor):
+    """Rows ``pos`` (host int64) of a batch column, taken where it lies."""
+    if isinstance(x, torch.Tensor):
+        return x[upload(pos, x.device)]
+    return np.asarray(x)[pos.numpy()]
+
+
+def _per_allocation(store: Store, slots: torch.Tensor, cols: tuple, write):
+    """Apply ``write(part, local slots, *rows of cols) -> (new part, count
+    or None)`` to each allocation that ``slots`` hit, and return (the next
+    store but its scalars, the counts summed on the controller).
+    A store of one allocation is written whole; on several, the slots are
+    split on the host and the allocations no slot hits stay the previous
+    snapshot's tensors."""
+    if ALLOCS not in store:
+        return write(store, slots, *cols)
+    ctrl = controller(store)
+    slots = slots.cpu().to(torch.int64)
+    parts = list(allocations(store))
+    # every allocation's rows are sent to its device before any write is
+    # queued, and the counts reach the controller after every write: a
+    # copy between cards ties the two cards' streams, so a row copy queued
+    # behind a card's write, or behind a count, would wait for that card
+    todo = []
+    for i, lo in enumerate(row_starts(store)):
+        dev = parts[i]["emb"].device
+        hit = (slots >= lo) & (slots < lo + parts[i]["emb"].shape[0])
+        pos = torch.nonzero(hit).flatten()
+        if len(pos):
+            rows = [_pick(c, pos) for c in cols]
+            todo.append((i, upload(slots[pos] - lo, dev), [
+                r.to(dev, non_blocking=True)
+                if isinstance(r, torch.Tensor) else r for r in rows]))
+    counts = []
+    for i, local, rows in todo:
+        parts[i], count = write(parts[i], local, *rows)
+        counts.append(count)
+    total = 0
+    for count in counts:
+        if count is not None:
+            total = total + count.to(ctrl, non_blocking=True)
+    return dict(store, **{ALLOCS: tuple(parts)}), total
+
+
+def _ingest_rows(cfg: StoreConfig, part, slots, batch_emb, tenant,
+                 category, updated_at, acl, doc_id):
+    """``part``'s row columns with documents written at its ``slots``, and
+    how many of those slots were free."""
+    dev = part["emb"].device
+    slots = slots.to(device=dev, dtype=torch.int64)
+    emb = normalize(cfg, _col(batch_emb, part["emb"].dtype, dev))
+    was_free = part["tenant"][slots] < 0
+    new = dict(part)
+    new["emb"] = part["emb"].index_copy(0, slots, emb)
+    for name, val in (("tenant", tenant), ("category", category),
+                      ("updated_at", updated_at), ("acl", acl),
+                      ("doc_id", doc_id)):
+        new[name] = part[name].index_copy(0, slots,
+                                          _col(val, torch.int32, dev))
+    new["version"] = part["version"].index_add(
+        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    return new, was_free.sum(dtype=torch.int32)
+
+
 def ingest(store: Store, cfg: StoreConfig, slots: torch.Tensor, batch_emb,
            tenant, category, updated_at, acl, doc_id) -> Store:
     """Insert M documents at the given slots. Embedding AND metadata
     columns are built together: atomic by construction."""
-    dev = store["emb"].device
-    slots = slots.to(device=dev, dtype=torch.int64)
-    emb = normalize(cfg, _col(batch_emb, store["emb"].dtype, dev))
-    was_free = store["tenant"][slots] < 0
-    new = dict(store)
-    new["emb"] = store["emb"].index_copy(0, slots, emb)
-    for name, val in (("tenant", tenant), ("category", category),
-                      ("updated_at", updated_at), ("acl", acl),
-                      ("doc_id", doc_id)):
-        new[name] = store[name].index_copy(0, slots,
-                                           _col(val, torch.int32, dev))
-    new["version"] = store["version"].index_add(
-        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    new, n_free = _per_allocation(
+        store, slots, (batch_emb, tenant, category, updated_at, acl, doc_id),
+        functools.partial(_ingest_rows, cfg))
     new["commit_ts"] = store["commit_ts"] + 1
-    new["n_live"] = store["n_live"] + was_free.sum(dtype=torch.int32)
+    new["n_live"] = store["n_live"] + n_free
     return new
+
+
+def _update_rows(cfg: StoreConfig, part, slots, new_emb, updated_at):
+    dev = part["emb"].device
+    slots = slots.to(device=dev, dtype=torch.int64)
+    emb = normalize(cfg, _col(new_emb, part["emb"].dtype, dev))
+    new = dict(part)
+    new["emb"] = part["emb"].index_copy(0, slots, emb)
+    new["updated_at"] = part["updated_at"].index_copy(
+        0, slots, _col(updated_at, torch.int32, dev))
+    new["version"] = part["version"].index_add(
+        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    return new, None
 
 
 def update(store: Store, cfg: StoreConfig, slots: torch.Tensor, new_emb,
            updated_at) -> Store:
     """Re-embed existing documents: the fresh embedding and the fresh
     timestamp commit together."""
-    dev = store["emb"].device
-    slots = slots.to(device=dev, dtype=torch.int64)
-    emb = normalize(cfg, _col(new_emb, store["emb"].dtype, dev))
-    new = dict(store)
-    new["emb"] = store["emb"].index_copy(0, slots, emb)
-    new["updated_at"] = store["updated_at"].index_copy(
-        0, slots, _col(updated_at, torch.int32, dev))
-    new["version"] = store["version"].index_add(
-        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    new, _ = _per_allocation(store, slots, (new_emb, updated_at),
+                             functools.partial(_update_rows, cfg))
     new["commit_ts"] = store["commit_ts"] + 1
     return new
 
 
+def _delete_rows(part, slots):
+    slots = slots.to(device=part["emb"].device, dtype=torch.int64)
+    was_live = part["tenant"][slots] >= 0
+    new = dict(part)
+    new["tenant"] = part["tenant"].index_fill(0, slots, -1)
+    new["doc_id"] = part["doc_id"].index_fill(0, slots, -1)
+    new["version"] = part["version"].index_add(
+        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    return new, was_live.sum(dtype=torch.int32)
+
+
 def delete(store: Store, slots: torch.Tensor) -> Store:
     """Tombstone rows (tenant = -1 makes them invisible to every predicate)."""
-    slots = slots.to(device=store["emb"].device, dtype=torch.int64)
-    was_live = store["tenant"][slots] >= 0
-    new = dict(store)
-    new["tenant"] = store["tenant"].index_fill(0, slots, -1)
-    new["doc_id"] = store["doc_id"].index_fill(0, slots, -1)
-    new["version"] = store["version"].index_add(
-        0, slots, torch.ones_like(slots, dtype=torch.int32))
+    new, n_gone = _per_allocation(store, slots, (), _delete_rows)
     new["commit_ts"] = store["commit_ts"] + 1
-    new["n_live"] = store["n_live"] - was_live.sum(dtype=torch.int32)
+    new["n_live"] = store["n_live"] - n_gone
     return new
 
 
@@ -133,7 +206,10 @@ class TransactionLog:
 
     Readers call `snapshot()` and get a dict no later write changes.
     Writers go through ingest/update/delete. ``store=None`` starts from an
-    empty arena on ``device`` (the card unless the caller asks for another).
+    empty arena on ``device`` (the card unless the caller asks for
+    another), laid out in ``allocs`` ((device, rows) in row order, one
+    allocation each; `core.store.empty`) when given; ``device`` is then
+    the controller.
     The ``ivf`` and ``lex`` write-through hooks are None until a RagDB
     attaches its `IVFIndex` (`RagDB.build_index`) or its `LexicalArena`
     (``lexical_cfg``); only then do writes carry their payloads (the ivf
@@ -141,10 +217,14 @@ class TransactionLog:
     """
 
     def __init__(self, cfg: StoreConfig, store: Store | None = None,
-                 placement: ShardPlacement | None = None, *, device=None):
+                 placement: ShardPlacement | None = None, *, device=None,
+                 allocs=None):
         self.cfg = cfg
-        self._store = empty(cfg, device) if store is None else store
-        self.device = self._store["emb"].device
+        self._store = empty(cfg, device, allocs) if store is None else store
+        self.device = controller(self._store)
+        # slots are split by allocation on the host, where the list is
+        self._slot_device = ("cpu" if ALLOCS in self._store
+                             else self.device)
         self._cursor = 0
         self._slot_of_doc: dict[int, int] = {}
         self._free_slots: list[int] = []      # tombstoned slots, LIFO recycled
@@ -305,7 +385,7 @@ class TransactionLog:
 
     def _slots(self, slot_list) -> torch.Tensor:
         return torch.as_tensor(np.asarray(slot_list, np.int64),
-                               device=self.device)
+                               device=self._slot_device)
 
     def ingest(self, batch: DocBatch) -> None:
         m = batch.size

@@ -84,3 +84,31 @@ def stream_of(device) -> int:
         return _raw_stream(torch.cuda.current_device() if index is None
                            else index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class on_device:
+    """``with on_device(dev) as stream:`` makes ``dev`` (the tensors' CUDA
+    device) current for the block and gives the raw handle of its current
+    stream. A ctypes launch runs on the thread's current device -- its
+    ``cudaFuncSetAttribute`` and its ``<<<>>>`` alike -- so every launch
+    of the port sits inside this: on a second card it would otherwise fail
+    with an invalid handle or a shared-memory limit, or run on the wrong
+    device. When ``dev`` is current already it switches nothing, and it
+    is a plain class, not a generator: the decode wrapper paces the host,
+    and ``torch.cuda.device`` costs it microseconds a call."""
+    __slots__ = ("device", "index", "prev")
+
+    def __init__(self, device):
+        self.device = device
+        self.index = (torch.cuda.current_device() if device.index is None
+                      else device.index)
+
+    def __enter__(self) -> int:
+        self.prev = torch.cuda.current_device()
+        if self.prev != self.index:
+            torch.cuda.set_device(self.index)
+        return stream_of(self.device)
+
+    def __exit__(self, *exc) -> None:
+        if self.prev != self.index:
+            torch.cuda.set_device(self.prev)

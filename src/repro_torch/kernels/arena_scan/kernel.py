@@ -42,6 +42,7 @@ import os
 import torch
 
 from repro_torch.kernels import _nvcc
+from repro_torch.kernels._attention import on_device
 from repro_torch.kernels._nvcc import check_tensor as _check
 from repro_torch.kernels.arena_scan.ref import (arena_scan_ref,
                                                 arena_scan_scan_ref)
@@ -147,7 +148,7 @@ def _scratch(lib, rows: int, n: int, k: int, dev,
              page_rows: int | None = None):
     """Outputs (rows, k) and the merge rounds' two candidate buffers for a
     scan of ``n`` rows in tiles (or, with ``page_rows``, pages): (out_s,
-    out_i, buffers, the launch's pointer tuple ending with the stream). The
+    out_i, buffers, the launch's pointer tuple; the stream follows it). The
     caller holds ``buffers`` until the launch is enqueued."""
     tile = page_rows or lib.arena_scan_tile_rows()
     n_tiles = -(-n // tile)
@@ -157,10 +158,8 @@ def _scratch(lib, rows: int, n: int, k: int, dev,
             for dt in (torch.float32, torch.int32) * 2]
     out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
     return out_s, out_i, bufs, (*(b.data_ptr() for b in bufs),
-                                out_s.data_ptr(), out_i.data_ptr(), stream)
+                                out_s.data_ptr(), out_i.data_ptr())
 
 
 def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
@@ -222,17 +221,19 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
     dense_in = (q.data_ptr(), emb.data_ptr(), meta.data_ptr(),
                 gids.data_ptr(), preds.data_ptr())
     paged = () if page_rows is None else (page_rows,)
-    if spec.has_lex:
-        name = f"arena_scan_{spec.score}{'_paged' * bool(paged)}_launch"
-        rc = getattr(lib, name)(*dense_in, terms.data_ptr(),
-                                lexnorm.data_ptr(), qterms.data_ptr(),
-                                qidf.data_ptr(), B, N, D, G, T, QT, k,
-                                *paged, *scratch)
-    elif paged:
-        rc = lib.arena_scan_paged_launch(*dense_in, B, N, D, G, k, *paged,
-                                         *scratch)
-    else:
-        rc = lib.arena_scan_launch(*dense_in, B, N, D, G, k, *scratch)
+    with on_device(dev) as stream:
+        if spec.has_lex:
+            name = f"arena_scan_{spec.score}{'_paged' * bool(paged)}_launch"
+            rc = getattr(lib, name)(*dense_in, terms.data_ptr(),
+                                    lexnorm.data_ptr(), qterms.data_ptr(),
+                                    qidf.data_ptr(), B, N, D, G, T, QT, k,
+                                    *paged, *scratch, stream)
+        elif paged:
+            rc = lib.arena_scan_paged_launch(*dense_in, B, N, D, G, k,
+                                             *paged, *scratch, stream)
+        else:
+            rc = lib.arena_scan_launch(*dense_in, B, N, D, G, k, *scratch,
+                                       stream)
     if rc != 0:
         raise RuntimeError(
             f"arena_scan kernel launch failed (spec {spec.score!r}, B={B} "
@@ -289,10 +290,12 @@ def arena_scan_probe_cuda(q, emb, meta, cand, pred, k: int, *,
     inputs = (q.data_ptr(), emb.data_ptr(), meta.data_ptr(), cand.data_ptr(),
               None if n_live is None else n_live.data_ptr(), pred.data_ptr(),
               B, N, P, D, k)
-    if page_rows is None:
-        rc = lib.arena_scan_probe_launch(*inputs, *scratch)
-    else:
-        rc = lib.arena_scan_probe_paged_launch(*inputs, page_rows, *scratch)
+    with on_device(dev) as stream:
+        if page_rows is None:
+            rc = lib.arena_scan_probe_launch(*inputs, *scratch, stream)
+        else:
+            rc = lib.arena_scan_probe_paged_launch(*inputs, page_rows,
+                                                   *scratch, stream)
     if rc != 0:
         raise RuntimeError(
             f"arena_scan probe kernel launch failed (B={B} N={N} P={P} "
@@ -331,12 +334,11 @@ def arena_scan_compact_cuda(members, overflow, clusters, n_arena: int):
                          device=dev)
     cand = torch.empty(P, dtype=torch.int32, device=dev)
     n_live = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-    rc = lib.arena_scan_compact_launch(
-        members.data_ptr(), C, cap, clusters.data_ptr(), U,
-        overflow.data_ptr(), O, int(n_arena), counts.data_ptr(),
-        cand.data_ptr(), n_live.data_ptr(), stream)
+    with on_device(dev) as stream:
+        rc = lib.arena_scan_compact_launch(
+            members.data_ptr(), C, cap, clusters.data_ptr(), U,
+            overflow.data_ptr(), O, int(n_arena), counts.data_ptr(),
+            cand.data_ptr(), n_live.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"candidate compaction launch failed (C={C} cap={cap} U={U} "

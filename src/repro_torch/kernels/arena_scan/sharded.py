@@ -5,11 +5,26 @@ The hot arena is row-sharded in contiguous, slot-aligned regions
 (`repro_torch.core.store.ShardPlacement`): shard s owns rows
 [s * n_local, (s + 1) * n_local). One controller drives every shard (the
 reference's single-controller ``shard_map``): each scanned shard runs the
-dense arena scan on a VIEW of its region -- row slices of ``emb`` and of
-the packed metadata, so no arena byte is copied -- keeps its local list,
-and the lists merge into the global top-k. On the card a shard's scan is
-the CUDA arena-scan kernel (`kernel.arena_scan_cuda`, dense `ScanSpec`,
-one launch a scanned shard); on the CPU its plain version.
+dense arena scan on a VIEW of its region -- row slices of its
+allocation's ``emb`` and packed metadata, so no arena byte is copied --
+keeps its local list, and the lists merge into the global top-k. On the
+card a shard's scan is the CUDA arena-scan kernel (`kernel.arena_scan_cuda`,
+dense `ScanSpec`, one launch a scanned shard); on the CPU its plain
+version.
+
+The mesh's shards may sit on several devices (`launch.mesh.device_groups`;
+the store then holds one allocation a device, ``core.store``). Each shard
+scans on its allocation's device, which receives the query rows from the
+host and the predicate once a launch; once every scan is queued, each
+list, with its doc ids and global slots, is copied to the controller (the
+store's scalars' device), where the merge runs. A copy between two cards
+is made on the source's current stream after the destination's current
+stream is caught up, and the destination's stream waits for it
+(PyTorch's device-to-device copy), so the merge is ordered after every
+copy without a host sync -- and the controller's stream waits for each
+card, which is why nothing a card needs is copied from the controller.
+A region is never scanned on another device, and a launch that fails
+raises.
 
 Determinism contract (placement invariance): the result is the exact
 lexicographic top-k in (score desc, global doc_id asc). The kernel breaks
@@ -41,7 +56,7 @@ audits it.
 The reference gathers three (B_pad, k) lists a shard (B padded to 8 lanes)
 and counts the bytes from its compiled HLO; `sharded_collective_bytes`
 counts the same lists the same way, so `ExecStats.collective_bytes` equals
-the reference's.
+the reference's (not the bytes copied between cards).
 
 >>> import torch
 >>> s, d, p = lex_topk(torch.tensor([[1.0, 3.0, 3.0, 2.0]]),
@@ -53,15 +68,20 @@ the reference's.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.core.store import allocations, controller
+from repro_torch.core.store import n_rows as store_rows
+from repro_torch.core.store import upload
 from repro_torch.distributed.collectives import (allgather_bytes,
                                                  lex_order)
 from repro_torch.kernels.arena_scan.ops import _packed_meta
 from repro_torch.kernels.arena_scan.stages import NEG_INF
 from repro_torch.kernels.filtered_topk.filtered_topk import filtered_topk_cuda
+from repro_torch.launch.mesh import device_groups, tensor_device
 from repro_torch.launch.mesh import n_shards as mesh_shards
-from repro_torch.launch.mesh import same_device
 
 INT32_MAX = 2**31 - 1
 #: shard scans launched again, wider, because a run of tied scores reached
@@ -132,30 +152,46 @@ def _pred_array(pred, dev) -> torch.Tensor:
     return torch.as_tensor(pred, dtype=torch.int32).reshape(4).to(dev)
 
 
-class ShardedLaunch:
-    """One sharded scan in flight: the shards' lists and the speculative
-    merge on the device, ``rows`` (per-shard rows scanned) on the host.
-    `finish` returns the exact lists."""
+class _Alloc(NamedTuple):
+    """What a launch's shards read on one allocation's device: the query
+    rows and predicate uploaded there, the allocation's ``emb``, packed
+    metadata and doc ids, and its first shard."""
+    q: torch.Tensor
+    pred: torch.Tensor
+    emb: torch.Tensor
+    meta: torch.Tensor
+    doc: torch.Tensor
+    first: int
 
-    def __init__(self, scan: "ShardedScan", q, emb, meta, doc, pred_d,
+
+class ShardedLaunch:
+    """One sharded scan in flight: the shards' lists on their devices,
+    their copies and the speculative merge on the controller, ``rows``
+    (per-shard rows scanned) on the host. `finish` returns the exact
+    lists."""
+
+    def __init__(self, scan: "ShardedScan", ctrl, allocs: dict,
                  parts: list, rows: list[int], n_valid: int):
-        self.scan, self.q, self.emb, self.meta = scan, q, emb, meta
-        self.doc, self.pred_d = doc, pred_d
+        self.scan, self.ctrl, self.allocs = scan, ctrl, allocs
         self.parts = parts                   # [(shard, scores, slots)]
         self.rows = rows
         self.n_valid = n_valid               # real rows (the rest pad)
-        self.scores, self.slots = scan._merge(parts, doc)
+        self.lists = [scan._lists(allocs[sh], sh, sc, sl, ctrl)
+                      for sh, sc, sl in parts]
+        self.scores, self.slots = scan._merge(self.lists)
         k, n_local = scan.k, scan.n_local
         self.checked = [j for j, (_, sc, _) in enumerate(parts)
                         if sc.shape[1] < n_local]
-        self.flags = (torch.stack([_tie_reaches_end(parts[j][1][:n_valid], k)
-                                   for j in self.checked])
-                      if self.checked else None)
+        self.flags = (torch.stack([
+            _tie_reaches_end(parts[j][1][:n_valid], k).to(
+                ctrl, non_blocking=True) for j in self.checked])
+            if self.checked else None)
 
     def finish(self):
         """(scores (B, k), slots (B, k)) tensors: the speculative merge, or,
         where a shard's tie run reached its list's end, the merge after
-        that shard's wider relaunches (this reads the flags: a sync)."""
+        that shard's wider relaunches on its own device (this reads the
+        flags: a sync)."""
         global TIE_WIDENS
         if self.flags is None:
             return self.scores, self.slots
@@ -167,15 +203,16 @@ class ShardedLaunch:
         scan = self.scan
         for j in redo:
             shard, sc, sl = self.parts[j]
+            alloc = self.allocs[shard]
             kk = sc.shape[1]
             while kk < scan.n_local and bool(
                     _tie_reaches_end(sc[:self.n_valid], scan.k)):
                 kk = min(2 * kk, scan.n_local)
-                sc, sl = scan._scan_shard(self.q, self.emb, self.meta,
-                                          self.pred_d, shard, kk)
+                sc, sl = scan._scan_shard(alloc, shard, kk)
                 TIE_WIDENS += 1
             self.parts[j] = (shard, sc, sl)
-        self.scores, self.slots = scan._merge(self.parts, self.doc)
+            self.lists[j] = scan._lists(alloc, shard, sc, sl, self.ctrl)
+        self.scores, self.slots = scan._merge(self.lists)
         return self.scores, self.slots
 
 
@@ -193,7 +230,9 @@ class ShardedScan:
     lists are the exact (score, doc_id)-lexicographic top-k of the
     unsharded arena. `launch` / `ShardedLaunch.finish` split the call at
     the first host sync. ``pred`` is a `Predicate` (or its (4,) array on
-    the CPU): its tenant clause decides the affine skip on the host."""
+    the CPU): its tenant clause decides the affine skip on the host. The
+    store holds one allocation for each of the mesh's devices
+    (`launch.mesh.device_groups`), in shard order."""
 
     def __init__(self, mesh, axes, n_rows: int, k: int, *,
                  placement_kind: str = "hash"):
@@ -204,7 +243,7 @@ class ShardedScan:
         self.n_local = n_rows // self.n_shards
         self.n_rows, self.k = n_rows, k
         self.affine = placement_kind == "tenant"
-        self.devices = tuple(dict.fromkeys(mesh.devices))
+        self.groups = device_groups(mesh, axes)
 
     def active(self, tenant: int) -> list[int]:
         """The shards a predicate with this tenant clause scans: the owning
@@ -214,26 +253,31 @@ class ShardedScan:
             return [tenant % self.n_shards]
         return list(range(self.n_shards))
 
-    def _scan_shard(self, q, emb, meta, pred_d, shard: int, kk: int):
+    def _scan_shard(self, alloc: _Alloc, shard: int, kk: int):
         """One shard's local top-kk (ties to the lower slot) on the views
-        of its region; slots are region-local."""
-        lo, hi = shard * self.n_local, (shard + 1) * self.n_local
-        return filtered_topk_cuda(q, emb[lo:hi], meta[lo:hi], pred_d, kk)
+        of its region, on its allocation's device; slots are
+        region-local."""
+        lo = (shard - alloc.first) * self.n_local
+        hi = lo + self.n_local
+        return filtered_topk_cuda(alloc.q, alloc.emb[lo:hi],
+                                  alloc.meta[lo:hi], alloc.pred, kk)
 
-    def _merge(self, parts, doc):
-        """Global (score, doc_id) top-k over the shards' lists, slots made
-        global; all on the lists' device."""
-        ss, dd, gg = [], [], []
-        for shard, sc, sl in parts:
-            lo = shard * self.n_local
-            live = sl >= 0
-            local = sl.clamp(min=0).long()
-            ss.append(sc)
-            dd.append(torch.where(live, doc[lo:lo + self.n_local][local],
-                                  INT32_MAX))
-            gg.append(torch.where(live, sl + lo, -1))
-        return lex_merge(torch.cat(ss, 1), torch.cat(dd, 1),
-                         torch.cat(gg, 1), self.k)
+    def _lists(self, alloc: _Alloc, shard: int, sc, sl, ctrl):
+        """A shard's (scores, doc ids, global slots), read on its device
+        and copied to the controller ``ctrl`` without a host sync."""
+        lo = (shard - alloc.first) * self.n_local
+        live = sl >= 0
+        local = sl.clamp(min=0).long()
+        d = torch.where(live, alloc.doc[lo:lo + self.n_local][local],
+                        INT32_MAX)
+        g = torch.where(live, sl + shard * self.n_local, -1)
+        return tuple(t.to(ctrl, non_blocking=True) for t in (sc, d, g))
+
+    def _merge(self, lists):
+        """Global (score, doc_id) top-k over the shards' lists, on the
+        controller."""
+        return lex_merge(*(torch.cat(cols, 1) for cols in zip(*lists)),
+                         self.k)
 
     @property
     def collective_bytes(self) -> int:
@@ -243,36 +287,61 @@ class ShardedScan:
         return sharded_collective_bytes(self.n_shards, 1, self.k,
                                         self.n_local)
 
+    def _check_store(self, store) -> tuple:
+        """The store's allocations, one a group of the mesh on its
+        device with its shards' rows; raises otherwise."""
+        if store_rows(store) != self.n_rows:
+            raise ValueError(f"store has {store_rows(store)} rows, the scan "
+                             f"was built for {self.n_rows}")
+        parts = allocations(store)
+        have = tuple((p["emb"].device, p["emb"].shape[0]) for p in parts)
+        want = tuple((tensor_device(d), len(sh) * self.n_local)
+                     for d, sh in self.groups)
+        if have != want:
+            raise ValueError(
+                f"the mesh's devices {tuple(d for d, _ in self.groups)} "
+                f"are not the store's devices: its allocations (device, "
+                f"rows) are {have}, the mesh's {want}")
+        return parts
+
     def launch(self, store, q, pred, n_valid: int | None = None
                ) -> ShardedLaunch:
-        """Queue every scanned shard's kernel, the merge and the tie checks
-        on the store's device; no host sync. ``n_valid`` is the count of
-        real rows when q is padded to a bucket: the tie checks read only
-        those. The packed metadata is memoised per snapshot
-        (`ops._packed_meta`), so only a snapshot's first launch packs it."""
-        emb = store["emb"]
-        dev = emb.device
-        if emb.shape[0] != self.n_rows:
-            raise ValueError(f"store has {emb.shape[0]} rows, the scan was "
-                             f"built for {self.n_rows}")
-        if not all(same_device(d, dev) for d in self.devices):
-            raise ValueError(f"the mesh's devices {self.devices} are not the "
-                             f"store's device {dev}")
-        q = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
-        meta = _packed_meta(store["tenant"], store["updated_at"],
-                            store["category"], store["acl"])
-        pred_d = _pred_array(pred, dev)
+        """Queue every scanned shard's kernel on its allocation's device,
+        the copies of the lists, the merge and the tie checks on the
+        controller; no host sync. ``q`` is best given on the host: each
+        device then receives it by its own copy, and no card's stream
+        waits on the controller's. ``n_valid`` is the count of real rows
+        when q is padded to a bucket: the tie checks read only those. The
+        packed metadata is memoised per allocation and snapshot
+        (`ops._packed_meta`), so only a snapshot's first launch packs
+        it."""
+        parts = self._check_store(store)
+        ctrl = controller(store)
+        on_card = isinstance(q, torch.Tensor) and q.device.type != "cpu"
+        if not on_card:
+            q = torch.as_tensor(q, dtype=torch.float32).contiguous()
         # only a tenant-affine scan skips shards: the others never read
         # the predicate's tenant on the host
         active = (self.active(_host_tenant(pred)) if self.affine
                   else list(range(self.n_shards)))
+        allocs = {}
+        for part, (_, shards) in zip(parts, self.groups):
+            if not any(s in active for s in shards):
+                continue
+            dev = part["emb"].device
+            alloc = _Alloc(
+                q=(q.to(dev, non_blocking=True) if on_card else
+                   upload(q, dev)),
+                pred=_pred_array(pred, dev), emb=part["emb"],
+                meta=_packed_meta(part["tenant"], part["updated_at"],
+                                  part["category"], part["acl"]),
+                doc=part["doc_id"], first=shards[0])
+            allocs.update(dict.fromkeys(shards, alloc))
         kk = self.k + 1
-        parts = [(s, *self._scan_shard(q, emb, meta, pred_d, s, kk))
-                 for s in active]
+        scanned = [(s, *self._scan_shard(allocs[s], s, kk)) for s in active]
         rows = [self.n_local if s in active else 0
                 for s in range(self.n_shards)]
-        return ShardedLaunch(self, q, emb, meta, store["doc_id"], pred_d,
-                             parts, rows,
+        return ShardedLaunch(self, ctrl, allocs, scanned, rows,
                              q.shape[0] if n_valid is None else n_valid)
 
     def __call__(self, store, q, pred):
@@ -288,6 +357,6 @@ def make_sharded_arena_scan(mesh, axes, n_rows: int, k: int, *,
     Returns a `ShardedScan`: ``fn(store, q, pred) -> (scores (B, k), slots
     (B, k), rows_scanned (S,))``. ``placement_kind="tenant"`` enables the
     affine shard skip (the arena must be placed tenant-affine --
-    `ShardPlacement(kind="tenant")` -- for it to be sound). Every device
-    of the mesh must be the store's device."""
+    `ShardPlacement(kind="tenant")` -- for it to be sound). The store
+    holds one allocation a device of the mesh."""
     return ShardedScan(mesh, axes, n_rows, k, placement_kind=placement_kind)

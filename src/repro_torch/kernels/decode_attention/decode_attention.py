@@ -123,6 +123,8 @@ def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int):
 
 
 def _sm_count(dev) -> int:
+    """The SMs of ``dev``, the tensors' own device (never the current
+    one), read once a device."""
     if dev not in _SM_COUNT:
         _SM_COUNT[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count
@@ -264,10 +266,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     n_acc, n_ml = B * KV * G * hd, B * KV * G
     out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=dev)
     p_out = out.data_ptr()
-    rc = lib.decode_attention_launch(
-        *ptrs, code, B, S, s_mem, KV, G, hd, split, *ws, p_out,
-        p_out + 4 * n_acc,
-        p_out + 4 * (n_acc + n_ml), _attention.stream_of(dev))
+    with _attention.on_device(dev) as stream:
+        rc = lib.decode_attention_launch(
+            *ptrs, code, B, S, s_mem, KV, G, hd, split, *ws, p_out,
+            p_out + 4 * n_acc, p_out + 4 * (n_acc + n_ml), stream)
     if rc:
         _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} "
                                      f"KV={KV} G={G} hd={hd} {dt})")

@@ -58,5 +58,13 @@ def filtered_topk_sharded(mesh, axis, q, emb, meta, pred, k: int):
                                     meta[lo:lo + n_local], pred, k)
         ss.append(sc)
         ii.append(torch.where(sl >= 0, sl + lo, -1))
-    top_s, top_i = topk_ordered(torch.cat(ss, 1), torch.cat(ii, 1), k)
+    return merge_positional(ss, ii, k)
+
+
+def merge_positional(scores, slots, k: int):
+    """The reference's positional merge of per-shard lists: ``scores`` and
+    GLOBAL ``slots``, (B, k_i) each, in shard order, concatenated and cut
+    to the top k by score, equal scores to the lower column. Returns
+    (scores (B, k), slots (B, k), -1 past the fill)."""
+    top_s, top_i = topk_ordered(torch.cat(scores, 1), torch.cat(slots, 1), k)
     return top_s, torch.where(top_s > NEG_INF, top_i, -1)

@@ -170,10 +170,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError("shapes past the kernel's grid or index range")
     lib = _attention.load()
     o = torch.empty_like(q)
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _attention.DTYPES[dt], B, S, KV, G, hd, int(bool(causal)),
-        _attention.stream_of(dev))
+    with _attention.on_device(dev) as stream:
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _attention.DTYPES[dt], B, S, KV, G, hd, int(bool(causal)),
+            stream)
     _attention.check_rc(lib, rc, f"flash_attention (B={B} S={S} KV={KV} "
                                  f"G={G} hd={hd} {dt} causal={causal})")
     LAUNCHES += 1

@@ -6,6 +6,10 @@ row-major order over the axes. One process drives all of them (the
 reference's single-controller `RagDB(mesh=)`); no process group is formed.
 A device may appear more than once: S logical shards on one card, or on
 "cpu" in the tests, as the reference's tests run S fake XLA host devices.
+`device_groups` gathers a mesh's shards by device: each group is one
+allocation of the hot arena (``core.store``). Distinct CPU entries
+(``torch.device("cpu", i)``) stay distinct groups while their tensors all
+land on the one CPU: that is how the tests drive several allocations.
 
 Defined as functions, so that importing this module touches no device.
 Single pod: (data=16, model=16) = 256 devices; multi-pod adds a leading
@@ -16,6 +20,9 @@ Single pod: (data=16, model=16) = 256 devices; multi-pod adds a leading
 ({'data': 4}, 4, device(type='cpu'))
 >>> dict(make_host_mesh(2, 2).shape)
 {'data': 2, 'model': 2}
+>>> cpus = [torch.device("cpu", i) for i in (0, 0, 1, 1)]
+>>> device_groups(make_mesh((4,), ("data",), devices=cpus))
+((device(type='cpu', index=0), (0, 1)), (device(type='cpu', index=1), (2, 3)))
 """
 from __future__ import annotations
 
@@ -92,3 +99,45 @@ def same_device(a, b) -> bool:
     current = torch.cuda.current_device()
     return (current if a.index is None else a.index) == \
         (current if b.index is None else b.index)
+
+
+def normalize_device(device) -> torch.device:
+    """A mesh entry as a key: "cuda" becomes "cuda:<current>"; a CPU
+    entry keeps its index as given, so ``cpu:0`` and ``cpu:1`` differ."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def tensor_device(device) -> torch.device:
+    """The device a tensor placed on ``device`` reports: the CPU is one
+    device whatever index a mesh entry gives it."""
+    d = normalize_device(device)
+    return torch.device("cpu") if d.type == "cpu" else d
+
+
+def device_groups(mesh: Mesh, axes=None) -> tuple:
+    """The mesh's shards grouped by device: ((device, shards), ...) in
+    shard order, one entry a distinct device (`normalize_device`), each
+    holding the shards placed there. Shard s of ``axes`` (all axes when
+    None) lies on the mesh's device at its coordinates on those axes and
+    index 0 on the others. A device's shards must be contiguous in shard
+    order -- the arena's regions are slot-aligned and contiguous, so one
+    allocation a device holds its regions back to back; raises
+    otherwise."""
+    ax = (mesh.axis_names if axes is None else
+          (axes,) if isinstance(axes, str) else tuple(axes))
+    grid = torch.arange(len(mesh.devices)).reshape(
+        tuple(mesh.shape[a] for a in mesh.axis_names))
+    rest = [a for a in mesh.axis_names if a not in ax]
+    grid = grid.permute([mesh.axis_names.index(a) for a in (*ax, *rest)])
+    flat = grid.reshape(n_shards(mesh, ax), -1)[:, 0].tolist()
+    groups: dict[torch.device, list[int]] = {}
+    for s, i in enumerate(flat):
+        groups.setdefault(normalize_device(mesh.devices[i]), []).append(s)
+    for dev, shards in groups.items():
+        if shards != list(range(shards[0], shards[-1] + 1)):
+            raise ValueError(f"the shards on {dev} are {shards}: a device's "
+                             "shards must be contiguous in shard order")
+    return tuple((dev, tuple(shards)) for dev, shards in groups.items())
