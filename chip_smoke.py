@@ -266,11 +266,39 @@ Phases:
                 a card, merged by position) equal to them, 0 leaked slots,
                 RagDB.launch under set_sync_debug_mode("error"); a write
                 batch's commit ms, under "tenant" a one-tenant batch that
-                leaves the other cards' allocations untouched; every ctypes
-                entry point launched with its tensors on each other card
-                equal bit for bit to the same launch on cuda:0. Batch
-                medians, each card's peak GB. With n = 1 it says the run
-                needs two cards and computes nothing.
+                leaves the other cards' allocations untouched. The db
+                carries 16 lanes a row: (a) hybrid_prod's traffic (32
+                match() requests in 4 tenant groups, wsum and rrf, then one
+                paged wsum batch at 2^15-row pages): one FUSED or BOTH
+                launch a card a batch, every list bit for bit equal to the
+                kernel alone on each card merged on the host, within 1e-5
+                of a plain top-k whose BM25 is recounted from every card's
+                lanes, no leak, RagDB.launch under set_sync_debug_mode
+                ("error"); (b) under "hash", build_index() over the
+                allocations (k-means on each card, one mirror a card) and
+                ivf_prod's plans: one compaction and one PROBE a card a
+                batch, the lists equal to the per-card kernels merged on
+                the host and within 1e-5 of a plain top-k over the probed
+                clusters' rows, recall@1 and @10 against the exact engine
+                printed, rows_scanned the padded candidate count, a write
+                batch patching every mirror, and the cross-card k-means
+                held step by step to plain Lloyd steps on one card over
+                the first 2^18 rows of every card (the same seeds bit for
+                bit, the same centroids handed to every card, each step
+                within 3e-4 relative). (d) filtered_topk_sharded and
+                decode_attention_sharded at sharded_prod's (e) / (f) shapes
+                with each shard's piece on its card, bit for bit equal to
+                the same shards on cuda:0; (c) tiered_prod's deployment and
+                gates with its 2^22-row hot arena in the 4 regions
+                (`regions_tiered`), the planner's default engines: the
+                dense plans sharded (a hot unit a group, one launch a
+                scanned region, ExecStats' rows a region), the match()
+                plans hybrid (one launch a card); every ctypes entry
+                point launched with its tensors on each other card equal
+                bit for bit to the same launch on cuda:0. Batch medians,
+                the IVF build's seconds, each card's peak GB. With n = 1
+                it says the run needs two cards and computes nothing
+                (`tools/regions_only.py` runs the phase alone).
  14. lm_serve (after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
@@ -2166,15 +2194,15 @@ def phase_ivf_prod(dev, prod):
             return out
         return run
 
-    kmeans, assign = ivf_core._kmeans, ivf_core._assign
-    ivf_core._kmeans = timed("kmeans", kmeans)
+    kmeans, assign = ivf_core._kmeans_allocations, ivf_core._assign
+    ivf_core._kmeans_allocations = timed("kmeans", kmeans)
     ivf_core._assign = timed("assign", assign)
     try:
         t0 = time.perf_counter()
         ix = db.build_index()
         build_s = time.perf_counter() - t0
     finally:
-        ivf_core._kmeans, ivf_core._assign = kmeans, assign
+        ivf_core._kmeans_allocations, ivf_core._assign = kmeans, assign
     t0 = time.perf_counter()
     ivf_core.IVFIndex(ix.cfg, ix.centroids, ix.members, ix.fill, ix.overflow,
                       ix.n_at_build, device=dev)
@@ -3019,19 +3047,52 @@ def plain_rrf(d_keys, l_keys, k, c):
                   key=lambda e: (-e[0], pos[e[1]]))[:k]
 
 
+def tiered_hot_kernel_ms(db, hot, by_kind, qs, mts, order, dev):
+    """The tiered cell's hot kernels alone (CUDA events) on the tail
+    batch's inputs, the hot arena one allocation: dense, wsum, rrf."""
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    meta = _packed_meta(hot["tenant"], hot["updated_at"], hot["category"],
+                        hot["acl"])
+    qo = torch.from_numpy(np.stack([qs[r] for r in order])).to(dev)
+    gids = torch.tensor([g for g in range(4) for _ in range(8)],
+                        dtype=torch.int32, device=dev)
+    preds = torch.stack([by_kind["tail"][g].pred.as_array(dev)
+                         for g in range(4)])
+    lx = db.lex.snapshot()
+    qt_o = torch.full((32, 4), -1, dtype=torch.int32, device=dev)
+    qt_o[:, :3] = torch.tensor([mts[r] for r in order], dtype=torch.int32,
+                               device=dev)
+    hargs = (qo, hot["emb"], meta, lx["terms"], lx["lexnorm"], gids, preds,
+             qt_o, torch.where(qt_o >= 0, lx["idf"][qt_o.clamp(min=0).long()],
+                               0.0), 10)
+    return {
+        "dense": events_ms(lambda: kernel_mod.arena_scan_cuda(
+            qo, hot["emb"], meta, gids, preds, 10), 10),
+        "wsum": events_ms(lambda: hyb_mod.hybrid_score_cuda(
+            *hargs, mode="wsum"), 10),
+        "rrf": events_ms(lambda: hyb_mod.hybrid_score_cuda(
+            *hargs, mode="rrf"), 10)}
+
+
 def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                       hot_cap=1 << 22, warm_cap=6_400_000, n_batches=6,
-                      n_lex_batches=3):
+                      n_lex_batches=3, mesh=None, phase="tiered_prod"):
+    """The three-tier deployment (phase 13). ``mesh`` (a mesh over several
+    cards, `regions`) holds the hot arena in its regions, one allocation a
+    card, the warm tier on ``dev``, the controller; the phase's gates are
+    the same, each hot unit launching once a card, and it returns what it
+    emits (as ``phase``)."""
     from repro_torch.api import RagDB
     from repro_torch.api.executor import merge_tiers
-    from repro_torch.core.store import StoreConfig
+    from repro_torch.api.planner import PlannerConfig
+    from repro_torch.core.store import (ALLOCS, StoreConfig, allocations,
+                                        n_rows as rows_of)
     from repro_torch.core.tenancy import Principal
     from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
     from repro_torch.index.lexical import LexicalConfig
-    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.index.lexical.arena import allocations as lex_views
 
     t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     n_rows, dim = n_rows or prod_cut()[0], dim or prod_cut()[1]
     ccfg = CorpusConfig(n_docs=n_rows, dim=dim, n_tenants=20, n_categories=5)
     window = ccfg.days_span * DAY_S // 4
@@ -3039,8 +3100,20 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     db = RagDB(StoreConfig(capacity=hot_cap, dim=dim),
                warm_cfg=StoreConfig(capacity=warm_cap, dim=dim),
                hot_window_s=window, now_ts=ccfg.now_ts, lexical_cfg=lcfg,
-               device=dev)
+               mesh=mesh, device=dev)
+    # the planner's own engine for the dense plans: over a mesh, with a
+    # hot arena of shard_min_rows, the sharded one (each group's scan one
+    # launch a region, on the region's card), else the exact one (one
+    # fused launch a card)
+    sharded = (mesh is not None
+               and hot_cap >= PlannerConfig().shard_min_rows)
+    dense_eng = "sharded" if sharded else "cuda"
     warm = db.router.warm
+    cards = [p["emb"].device for p in allocations(db.log.snapshot())]
+    # after the db's first allocation on each card (a card the caching
+    # allocator has not used refuses the reset)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
 
     # ingest through the router, the host time split by tier: the hot
     # commit (enqueued, not waited for), the warm tier's two synced commits,
@@ -3086,11 +3159,32 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
           "the two tiers' lanes must share one LexicalStats")
 
     # the plain answer's inputs: each tier's columns, and BM25's global
-    # statistics recounted from both tiers' lanes
+    # statistics recounted from both tiers' lanes; a hot arena held on
+    # several cards is read column by column on ``dev`` (its dense signal
+    # computed where each allocation lies)
     hot = db.log.snapshot()
-    N_h, N_w = hot["emb"].shape[0], warm.emb.shape[0]
+    parts = allocations(hot)
+    N_h, N_w = rows_of(hot), warm.emb.shape[0]
+
+    def on_dev(ts, dim=0):
+        return (ts[0] if len(ts) == 1
+                else torch.cat([t.to(dev) for t in ts], dim))
+
+    def hot_col(c):
+        return on_dev([p[c] for p in parts])
+
+    def hot_dense(q):
+        return on_dev([torch.matmul(q.to(p["emb"].device), p["emb"].T)
+                       for p in parts], 1)
+
+    def hot_row(a):
+        for p in parts:
+            if a < p["emb"].shape[0]:
+                return p["emb"][a]
+            a -= p["emb"].shape[0]
+
     metas = [torch.stack(c, dim=1).cpu().numpy() for c in (
-        (hot["tenant"], hot["updated_at"], hot["category"], hot["acl"]),
+        [hot_col(c) for c in ("tenant", "updated_at", "category", "acl")],
         (warm.meta["tenant"], warm.meta["updated_at"],
          warm.meta["category"], warm.meta["acl"]))]
     live_w = warm.valid.cpu().numpy()
@@ -3105,7 +3199,9 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                     torch.from_numpy(wm[g]).to(dev)]
                 for g, p in enumerate(preds)}
 
-    lanes = [(db.lex.snapshot()["terms"], db.lex.snapshot()["tfs"]),
+    views = lex_views(db.lex.snapshot())
+    lanes = [(on_dev([v["terms"] for v in views]),
+              on_dev([v["tfs"] for v in views])),
              (warm.lex.snapshot()["terms"], warm.lex.snapshot()["tfs"])]
     V = lcfg.vocab_size
     df = sum(torch.bincount(torch.where(t >= 0, t, V).reshape(-1).long(),
@@ -3137,15 +3233,15 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                  .in_categories(c).plan().pred for p, c in groups]
     masks = tier_masks(tail_pred)
     keep_tail = [masks[p] for p in tail_pred]
-    embs = [hot["emb"], warm.emb]
+    dense = [hot_dense, lambda q: torch.matmul(q, warm.emb.T)]
     anchors, qs, mts = [], [], []
     for r in range(32):
         t = r % 2
         rows = torch.nonzero(keep_tail[r % 4][t]).squeeze(1)
         a = int(rows[int(rng.integers(0, rows.numel()))])
         anchors.append((t, a))
-        v = embs[t][a].cpu().numpy() + 0.02 * rng.standard_normal(
-            dim).astype(np.float32)
+        v = (hot_row(a) if t == 0 else warm.emb[a]).cpu().numpy() \
+            + 0.02 * rng.standard_normal(dim).astype(np.float32)
         qs.append(v / np.linalg.norm(v))
         live = lanes[t][0][a].cpu().numpy()
         live = live[live >= 0]
@@ -3167,18 +3263,29 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     masks.update(tier_masks([p.pred for p in by_kind["hot"][:4]]))
     for kind, ps in by_kind.items():
         want_route = "hot" if kind == "hot" else "hot+warm"
-        want_eng = "hybrid" if kind in ("wsum", "rrf") else "cuda"
+        want_eng = "hybrid" if kind in ("wsum", "rrf") else dense_eng
         check(all(p.route == want_route and p.engine == want_eng
                   for p in ps), f"{kind} plans: route / engine")
+    # a dense batch's hot units and launches: the sharded engine runs each
+    # of the 4 groups apart, one launch a region it scans; the exact
+    # engine one fused unit, one launch a card
+    if sharded:
+        fn = db._sharded_fn(10)
+        scanned = {kind: [fn.active(p.pred.tenant)
+                          for p in by_kind[kind][:4]]
+                   for kind in ("hot", "tail")}
+    hot_units = 4 if sharded else 1
 
     # the main path: every batch kind through RagDB.execute, the kernels'
     # counts set to 0 just before and read just after each run
     st = db.stats
-    runs, res, lat = {}, {}, {}
+    runs, res, lat, region_rows = {}, {}, {}, {}
     for kind, ps in by_kind.items():
         nb = n_lex_batches if kind in ("wsum", "rrf") else n_batches
         kernel_mod.LAUNCHES = hyb_mod.LAUNCHES = 0
         lat[kind], res[kind] = [], []
+        dense_units = hot_units if kind in ("hot", "tail") else 1
+        rows0 = list(st.shard_rows_scanned)
         for _ in range(nb):
             w0, c0, t0_ = st.warm_queries, st.device_calls, st.terms_scanned
             t0 = time.perf_counter()
@@ -3188,11 +3295,13 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
             dw, dc = st.warm_queries - w0, st.device_calls - c0
             if kind == "hot":
                 check(dw == 0, "a hot batch probed the warm tier")
-                check(dc == 1, f"hot batch: {dc} device calls, expected 1")
+                check(dc == dense_units, f"hot batch: {dc} device calls, "
+                      f"expected {dense_units}")
                 check((out[2] == 0).all(), "hot batch returned warm rows")
             else:
                 check(dw == 32, f"{kind}: warm_queries +{dw}, expected 32")
-                check(dc == 1 + 4, f"{kind}: {dc} device calls, expected 5")
+                check(dc == dense_units + 4, f"{kind}: {dc} device calls, "
+                      f"expected {dense_units + 4}")
                 check({0, 1} <= set(out[2][out[1] >= 0].tolist()),
                       f"{kind}: tiers must hold both 0 and 1")
             if kind in ("wsum", "rrf"):
@@ -3201,10 +3310,22 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                       f"{kind}: terms_scanned +{dt}")
         runs[kind] = dict(arena_scan=kernel_mod.LAUNCHES,
                           hybrid_score=hyb_mod.LAUNCHES)
-        want = ((nb, 0) if kind in ("hot", "tail") else (0, nb))
+        if sharded and kind in ("hot", "tail"):
+            want = (nb * sum(map(len, scanned[kind])), 0)
+            rows0 += [0] * (len(st.shard_rows_scanned) - len(rows0))
+            rows = [a - b for a, b in zip(st.shard_rows_scanned, rows0)]
+            want_rows = [nb * fn.n_local * sum(sh in a for a in scanned[kind])
+                         for sh in range(fn.n_shards)]
+            check(rows == want_rows, f"{kind}: rows a region {rows}, "
+                  f"expected {want_rows}")
+            region_rows[kind] = rows
+        elif kind in ("hot", "tail"):
+            want = (nb * len(parts), 0)
+        else:
+            want = (0, nb * len(parts))
         check((kernel_mod.LAUNCHES, hyb_mod.LAUNCHES) == want,
               f"{kind}: launches {runs[kind]}, expected {want} "
-              f"(one a hot unit)")
+              f"(one a region scanned, or a hot unit and card)")
         # the batches of one kind return the same rows
         check(all((o[1] == res[kind][0][1]).all() for o in res[kind]),
               f"{kind}: batches disagree")
@@ -3229,7 +3350,7 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
         for g in range(4):
             rows = list(range(g, 32, 4))
             keeps, q, qt, qidf = group_inputs(rows, by_kind[kind][g].pred)
-            sig = [torch.matmul(q, e.T) for e in embs]
+            sig = [f(q) for f in dense]
             if kind == "wsum":
                 sig = [d + plain_bm25(lanes[t][0], lexn[t], qt, qidf)
                        for t, d in enumerate(sig)]
@@ -3259,8 +3380,8 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                   "bm25": merge_tiers(h_ls[span], h_li[span], w_ls, w_li,
                                       10)}
         keeps, q, qt, qidf = group_inputs(m, unit.plans[gi].pred)
-        sig = {"dense": [torch.where(keeps[t], torch.matmul(q, embs[t].T),
-                                     NEG) for t in (0, 1)],
+        sig = {"dense": [torch.where(keeps[t], dense[t](q), NEG)
+                         for t in (0, 1)],
                "bm25": [torch.where(keeps[t], plain_bm25(
                    lanes[t][0], lexn[t], qt, qidf), NEG) for t in (0, 1)]}
         plain = {}
@@ -3296,27 +3417,8 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     profiles = {k: profile_batch(lambda ps=ps: db.execute(ps, use_cache=False),
                                  SCAN_TAGS)
                 for k, ps in by_kind.items()}
-    meta = _packed_meta(hot["tenant"], hot["updated_at"], hot["category"],
-                        hot["acl"])
-    qo = torch.from_numpy(np.stack([qs[r] for r in order])).to(dev)
-    gids = torch.tensor([g for g in range(4) for _ in range(8)],
-                        dtype=torch.int32, device=dev)
-    preds = torch.stack([by_kind["tail"][g].pred.as_array(dev)
-                         for g in range(4)])
-    lx = db.lex.snapshot()
-    qt_o = torch.full((32, 4), -1, dtype=torch.int32, device=dev)
-    qt_o[:, :3] = torch.tensor([mts[r] for r in order], dtype=torch.int32,
-                               device=dev)
-    hargs = (qo, hot["emb"], meta, lx["terms"], lx["lexnorm"], gids, preds,
-             qt_o, torch.where(qt_o >= 0, lx["idf"][qt_o.clamp(min=0).long()],
-                               0.0), 10)
-    hot_kernel_ms = {
-        "dense": events_ms(lambda: kernel_mod.arena_scan_cuda(
-            qo, hot["emb"], meta, gids, preds, 10), 10),
-        "wsum": events_ms(lambda: hyb_mod.hybrid_score_cuda(
-            *hargs, mode="wsum"), 10),
-        "rrf": events_ms(lambda: hyb_mod.hybrid_score_cuda(
-            *hargs, mode="rrf"), 10)}
+    hot_kernel_ms = None if ALLOCS in hot else tiered_hot_kernel_ms(
+        db, hot, by_kind, qs, mts, order, dev)
     probe_ms = {}
     for kind in ("tail", "wsum", "rrf"):
         p0 = by_kind[kind][0]
@@ -3389,7 +3491,7 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     bound = lambda nb, fl: max(nb / HBM_BPS, fl / FP32_FLOPS) * 1e3
     warm_bound = {"tail": bound(probe_bytes, probe_flops),
                   "hybrid": bound(probe_bytes + N_w * 8 * T, probe_flops)}
-    emit("tiered_prod", seconds=time.perf_counter() - t_phase, rows=n_rows,
+    out = dict(seconds=time.perf_counter() - t_phase, rows=n_rows,
          dim=dim, lanes=T, hot_window_s=window, hot_capacity=N_h,
          warm_capacity=N_w, hot_rows=n_hot, warm_rows=warm.n_docs, batch=B,
          groups=G, k=k,
@@ -3397,7 +3499,8 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
          batch_ms_median={k_: statistics.median(v) for k_, v in lat.items()},
          batch_ms=lat,
          idle_share={k_: p["idle_share"] for k_, p in profiles.items()},
-         launches=runs, hot_kernel_ms=hot_kernel_ms,
+         launches=runs, dense_engine=dense_eng,
+         shard_rows_scanned=region_rows, hot_kernel_ms=hot_kernel_ms,
          warm_probe=probe_ms,
          warm_probe_batch_device_ms={
              k_: (4 * v["device_ms"] if v["device_ms"] is not None
@@ -3415,7 +3518,11 @@ def phase_tiered_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
          warm_inconsistency_window_ms_median=1e3 * statistics.median(
              warm.stats.inconsistency_windows_s),
          rrf_rows_skipped=rrf_rows_skipped, max_abs_err=max(errs),
-         profile=profiles, peak_mem_gb=peak_gb())
+         profile=profiles,
+         peak_mem_gb=[torch.cuda.max_memory_allocated(c) / 1e9
+                      for c in cards] if len(cards) > 1 else peak_gb())
+    emit(phase, **out)
+    return out
 
 
 def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
@@ -3939,19 +4046,636 @@ def other_card_launches(cards):
     return [str(c) for c in cards[1:]]
 
 
+def region_keeps(snap, preds):
+    """Each predicate's (N,) keep mask over a store held in allocations,
+    computed on each allocation's card and laid end to end on the first
+    allocation's card (the controller)."""
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.arena_scan.stages import predicate_keep
+    ctrl = snap["n_live"].device
+    out = []
+    for part in snap["allocs"]:
+        c = part["emb"].device
+        meta = _packed_meta(part["tenant"], part["updated_at"],
+                            part["category"], part["acl"])
+        out.append(predicate_keep(meta, torch.stack(
+            [p.as_array(c) for p in preds])).to(ctrl))
+    return torch.cat(out, 1)
+
+
+def region_row(parts, name, a):
+    """Global row ``a`` of column ``name`` over allocations ``parts`` (a
+    store's, or a lexical snapshot's views), on its card."""
+    for part in parts:
+        if a < part[name].shape[0]:
+            return part[name][a]
+        a -= part[name].shape[0]
+    raise IndexError(a)
+
+
+def lists_equal(got, want):
+    """Two (scores, slots) pairs, numpy or tensors, equal bit for bit."""
+    g, w = ([x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+             for x in pair[:2]] for pair in (got, want))
+    return same_bits(g[0], w[0]) and np.array_equal(g[1], w[1])
+
+
+def one_tier(name, got, want, sig, keep):
+    """`tiered_compare` of one tier's list: (scores, slots) (B, k) numpy
+    against the plain top-k ``want`` of the masked signal ``sig`` (B, N)."""
+    zeros = lambda x: np.zeros_like(x)
+    return tiered_compare(name, (*got, zeros(got[1])), want,
+                          [sig, sig[:, :0]], [keep, keep[:0]])
+
+
+def plain_sorted(sig, k):
+    """The plain top-k of (B, N) masked scores (ties to the lower slot):
+    numpy (scores, slots, tiers 0)."""
+    return union_topk(sig, sig[:, :0], k)
+
+
+def regions_hybrid(db, groups, dim, n_batches, k, page_rows, sync_cards):
+    """(a) of `phase_regions`: the hybrid engine over the regions' cards.
+    32 match() requests in 4 tenant groups, k = 10, 3 terms of a live
+    row's lanes each, q near that row: ``n_batches`` wsum and rrf batches
+    (one FUSED or BOTH launch a card a batch), one paged wsum batch at
+    ``page_rows``; every list bit for bit equal to the kernel run alone on
+    each card and merged on the host, and within 1e-5 of a plain top-k
+    whose BM25 is recounted from the global idf and avgdl; no leak; one
+    launch under set_sync_debug_mode("error")."""
+    from repro_torch.api.planner import PlannerConfig
+    from repro_torch.core.store import row_starts
+    from repro_torch.index.lexical.arena import allocations as lex_views
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.filtered_topk.ops import merge_positional
+    from repro_torch.kernels.hybrid_score.ref import qidf_of, rrf_fuse
+
+    snap, views = db.log.snapshot(), lex_views(db.lex.snapshot())
+    parts = snap["allocs"]
+    n_cards = len(parts)
+    ctrl = snap["n_live"].device
+    rng = np.random.default_rng(SEED + 14)
+    probe = [db.session(p).search(np.ones(dim, np.float32)).newer_than(ts)
+             .in_categories(c).plan().pred for p, ts, c in groups]
+    keeps = region_keeps(snap, probe)
+    qs, mts = [], []
+    for r in range(32):
+        rows = torch.nonzero(keeps[r % 4]).squeeze(1)
+        a = int(rows[int(rng.integers(0, rows.numel()))])
+        live = region_row(views, "terms", a).cpu().numpy()
+        live = live[live >= 0]
+        mts.append(tuple(int(x) for x in rng.choice(live, 3, replace=False)))
+        v = region_row(parts, "emb", a).cpu().numpy() \
+            + 0.02 * rng.standard_normal(dim).astype(np.float32)
+        qs.append(v / np.linalg.norm(v))
+
+    def plans(mode):
+        out = []
+        for r in range(32):
+            p, ts, cats = groups[r % 4]
+            out.append(db.session(p).search(qs[r]).newer_than(ts)
+                       .in_categories(cats).match(mts[r]).fuse(mode)
+                       .limit(k).plan())
+        return out
+
+    by_mode = {m: plans(m) for m in ("wsum", "rrf")}
+    check(all(p.engine == "hybrid" for ps in by_mode.values() for p in ps),
+          "regions: match() plans must pick 'hybrid'")
+    for ps in by_mode.values():
+        db.execute(ps, use_cache=False)              # warm-up
+    sync_cards()
+    # the main path's runs: the counts set to 0 just before, read after
+    hyb_mod.LAUNCHES = 0
+    st = db.stats
+    lat, res = {}, {}
+    for mode, ps in by_mode.items():
+        lat[mode] = []
+        for _ in range(n_batches):
+            c0, t0_ = st.device_calls, st.terms_scanned
+            t0 = time.perf_counter()
+            res[mode] = db.execute(ps, use_cache=False)
+            lat[mode].append((time.perf_counter() - t0) * 1e3)
+            check(st.device_calls - c0 == 1,
+                  f"regions {mode}: {st.device_calls - c0} device calls")
+            check(st.terms_scanned - t0_ == sum(
+                v["terms"].numel() for v in views),
+                f"regions {mode}: terms_scanned +{st.terms_scanned - t0_}")
+    launches = hyb_mod.LAUNCHES
+    check(launches == 2 * n_batches * n_cards,
+          f"regions: {launches} hybrid launches for {2 * n_batches} "
+          f"batches on {n_cards} cards")
+
+    # the paged regime: one wsum batch, one paged launch a card
+    db.planner_cfg = PlannerConfig(paged_min_rows=1, page_rows=page_rows)
+    paged = plans("wsum")
+    check(all(p.page_rows == page_rows for p in paged),
+          "regions: the paged plans carry no page size")
+    db.execute(paged, use_cache=False)
+    sync_cards()
+    kernel_mod.PAGED_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res_paged = db.execute(paged, use_cache=False)
+    paged_ms = (time.perf_counter() - t0) * 1e3
+    paged_launches = kernel_mod.PAGED_LAUNCHES
+    db.planner_cfg = PlannerConfig()
+    check(paged_launches == n_cards,
+          f"regions: {paged_launches} paged launches on {n_cards} cards")
+    check(lists_equal(res_paged, res["wsum"]),
+          "regions: the paged wsum batch != the resident one")
+
+    # the kernel alone on each card (the executor's inputs: rows stacked
+    # by group, 4 groups, QT 4), the lists merged on the host by position
+    order = [r for g in range(4) for r in range(g, 32, 4)]
+    inv = np.argsort(order)
+
+    def alone(mode, page=None):
+        ps = by_mode[mode]
+        outs = []
+        for lo, part, view in zip(row_starts(snap), parts, views):
+            c = part["emb"].device
+            q = torch.from_numpy(np.concatenate(
+                [ps[r].logical.q for r in order])).to(c)
+            gids = torch.tensor([g for g in range(4) for _ in range(8)],
+                                dtype=torch.int32, device=c)
+            preds = torch.stack([ps[g].pred.as_array(c) for g in range(4)])
+            qt = torch.full((32, 4), -1, dtype=torch.int32, device=c)
+            qt[:, :3] = torch.tensor([ps[r].logical.match_terms
+                                      for r in order], dtype=torch.int32,
+                                     device=c)
+            meta = _packed_meta(part["tenant"], part["updated_at"],
+                                part["category"], part["acl"])
+            out = hyb_mod.hybrid_score_cuda(
+                q, part["emb"], meta, view["terms"], view["lexnorm"], gids,
+                preds, qt, qidf_of(view["idf"], qt).contiguous(), k,
+                mode=mode, page_rows=page)
+            outs.append((lo, out))
+        outs = [(lo, [x.cpu() for x in out]) for lo, out in outs]
+        merged = []
+        for j in range(0, len(outs[0][1]), 2):
+            merged += merge_positional(
+                [o[j] for _, o in outs],
+                [torch.where(o[j + 1] >= 0, o[j + 1] + lo, -1)
+                 for lo, o in outs], k)
+        signals = [tuple(x.numpy()[inv] for x in merged[j:j + 2])
+                   for j in range(0, len(merged), 2)]
+        if mode == "rrf":
+            merged = rrf_fuse(*merged, k, RRF_C)
+        return tuple(x.numpy()[inv] for x in merged[:2]), signals
+
+    want, signals = {}, {}
+    for mode in ("wsum", "rrf"):
+        want[mode], signals[mode] = alone(mode)
+        check(lists_equal(res[mode], want[mode]),
+              f"regions {mode}: lists != the kernel alone on each card "
+              "merged on the host")
+    check(lists_equal(alone("wsum", page_rows)[0], want["wsum"]),
+          "regions: the paged kernel alone != the resident one")
+
+    # plain: dense + BM25 recounted from every card's lanes (global df,
+    # document count and length), masked, one top-k over all regions
+    lcfg = db.lex.cfg
+    V = lcfg.vocab_size
+    df = sum(torch.bincount(torch.where(v["terms"] >= 0, v["terms"], V)
+                            .reshape(-1).long(), minlength=V + 1)[:V].cpu()
+             for v in views).numpy().astype(np.float64)
+    total_len = sum(int(torch.where(v["terms"] >= 0, v["tfs"], 0).sum())
+                    for v in views)
+    n_docs = sum(int((v["terms"] >= 0).any(dim=1).sum()) for v in views)
+    idf_np = np.maximum(np.log1p((n_docs - df + 0.5) / (df + 0.5)),
+                        0.0).astype(np.float32)
+    avgdl = total_len / max(n_docs, 1)
+
+    def lexnorm(tfs):
+        tf = tfs.to(torch.float32)
+        dl = tfs.sum(dim=1, keepdim=True).to(torch.float32)
+        avg = torch.clamp(torch.tensor(avgdl, dtype=torch.float32,
+                                       device=tfs.device), min=1.0)
+        return tf * (lcfg.k1 + 1.0) / (tf + lcfg.k1 * (
+            1.0 - lcfg.b + lcfg.b * dl / avg))
+
+    errs, skipped = [], 0
+    for g in range(4):
+        rows = list(range(g, 32, 4))
+        keep = keeps[g]
+        sig = {"dense": [], "bm25": []}
+        for part, view in zip(parts, views):
+            c = part["emb"].device
+            q = torch.from_numpy(np.stack([qs[r] for r in rows])).to(c)
+            qt = torch.tensor([mts[r] + (-1,) for r in rows],
+                              dtype=torch.int32, device=c)
+            idf = torch.from_numpy(idf_np).to(c)
+            qidf = torch.where(qt >= 0, idf[qt.clamp(min=0).long()], 0.0)
+            sig["dense"].append(torch.matmul(q, part["emb"].T).to(ctrl))
+            sig["bm25"].append(plain_bm25(view["terms"],
+                                          lexnorm(view["tfs"]), qt,
+                                          qidf).to(ctrl))
+        sig = {n: torch.cat(x, 1) for n, x in sig.items()}
+        masked = {n: torch.where(keep, x, NEG) for n, x in sig.items()}
+        wsum = torch.where(keep, sig["dense"] + sig["bm25"], NEG)
+        s_g, i_g = (x[rows] for x in res["wsum"][:2])
+        errs.append(one_tier(f"regions-wsum-g{g}", (s_g, i_g),
+                             plain_sorted(wsum, k), wsum, keep))
+        plain = {}
+        for j, n in enumerate(("dense", "bm25")):
+            s_n, i_n = (x[rows] for x in signals["rrf"][j])
+            plain[n] = plain_sorted(masked[n], k)
+            errs.append(one_tier(f"regions-rrf-{n}-g{g}", (s_n, i_n),
+                                 plain[n], masked[n], keep))
+        s_f, i_f = (x[rows] for x in res["rrf"][:2])
+        for j, r in enumerate(rows):
+            keys = lambda lst: [int(x) for x in lst[1][j] if x >= 0]
+            got_n = {n: [int(x) for x in signals["rrf"][i][1][r] if x >= 0]
+                     for i, n in enumerate(("dense", "bm25"))}
+            if any(got_n[n] != keys(plain[n]) for n in plain):
+                skipped += 1
+                continue
+            fused = plain_rrf(keys(plain["dense"]), keys(plain["bm25"]), k,
+                              RRF_C)
+            check([x for x in i_f[j] if x >= 0] == [x for _, x in fused],
+                  f"regions rrf: row {r} differs from the plain fusion")
+            check(np.allclose(s_f[j][:len(fused)], [x for x, _ in fused],
+                              rtol=TOL, atol=TOL),
+                  f"regions rrf: row {r} scores")
+        del sig, masked, wsum
+    check(skipped <= 4, f"regions rrf: {skipped} rows' per-signal lists "
+          "tie-differ from the plain ones (expected few)")
+
+    # no host sync in RagDB.launch of a hybrid batch across the cards
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = db.launch(by_mode["rrf"], use_cache=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    s_l, i_l, _ = db.finish(pending)
+    check(lists_equal((s_l, i_l), res["rrf"]),
+          "regions: launch / finish rows != execute rows (rrf)")
+    return dict(batch_ms_median={m: statistics.median(v)
+                                 for m, v in lat.items()},
+                batch_ms=lat, paged_batch_ms=paged_ms,
+                launches=launches, paged_launches=paged_launches,
+                launches_per_batch=launches // (2 * n_batches),
+                rrf_rows_skipped=skipped, max_abs_err=max(errs),
+                plans={m: ps for m, ps in by_mode.items()},
+                rows=res)
+
+
+def regions_ivf(db, groups, n_batches, k, sync_cards, ccfg, gen, n_rows):
+    """(b) of `phase_regions`: `build_index()` over the allocations (each
+    card assigns its rows, the controller reduces) and ivf_prod's plans:
+    one compaction and one PROBE launch a card a batch, the lists bit for
+    bit equal to the per-card kernels merged on the host and within 1e-5
+    of a plain top-k over the probed clusters' rows, recall@1 and @10
+    against the exact engine printed, rows_scanned the reference's padded
+    count, a write batch patching every card's mirror."""
+    from repro_torch.core import ivf as ivf_core
+    from repro_torch.core.store import row_starts
+    from repro_torch.kernels.arena_scan.ops import _packed_meta
+    from repro_torch.kernels.filtered_topk.ops import merge_positional
+
+    spent = {"kmeans": 0.0}
+    kmeans = ivf_core._kmeans_allocations
+
+    def timed(*a, **kw):
+        sync_cards()
+        t0 = time.perf_counter()
+        out = kmeans(*a, **kw)
+        sync_cards()
+        spent["kmeans"] += time.perf_counter() - t0
+        return out
+
+    ivf_core._kmeans_allocations = timed
+    try:
+        t0 = time.perf_counter()
+        ix = db.build_index()
+        build_s = time.perf_counter() - t0
+    finally:
+        ivf_core._kmeans_allocations = kmeans
+    snap = db.log.snapshot()
+    parts = snap["allocs"]
+    n_cards = len(parts)
+    check(ix.regions is not None and len(ix.device_arrays()["regions"])
+          == n_cards, "regions: one IVF mirror a card")
+    listed = int(ix.fill.sum()) + len(ix.overflow)
+    check(listed == int(snap["n_live"]),
+          f"regions: {listed} slots listed of {int(snap['n_live'])} live")
+    kmeans_check = regions_kmeans_check(parts, snap["n_live"].device)
+
+    # 32 admin requests with a recency bound only, each q near a live row
+    # that clears it
+    min_ts = groups[3][1]
+    admin = db.admin_session()
+    rng = np.random.default_rng(SEED + 15)
+    pred = admin.search(np.ones(ix.centroids.shape[1], np.float32)) \
+        .newer_than(min_ts).plan().pred
+    keep = region_keeps(snap, [pred])[0]
+    rows = torch.nonzero(keep).squeeze(1)
+    anchors = [int(rows[int(rng.integers(0, rows.numel()))])
+               for _ in range(32)]
+    a_emb = np.stack([region_row(parts, "emb", a).cpu().numpy()
+                      for a in anchors])
+    qs = a_emb + 0.02 * rng.standard_normal(a_emb.shape).astype(np.float32)
+    plans = [admin.search(qs[r]).newer_than(min_ts).limit(k).plan()
+             for r in range(32)]
+    check(all(p.engine == "ivf" for p in plans),
+          "regions: plans must pick 'ivf'")
+    exact = [admin.search(qs[r]).newer_than(min_ts).limit(k).using("cuda")
+             .plan() for r in range(32)]
+    db.execute(plans, use_cache=False)               # warm-up (patches)
+    sync_cards()
+    st = db.stats
+    ivf_mod.LAUNCHES = ivf_mod.COMPACT_LAUNCHES = kernel_mod.LAUNCHES = 0
+    lat = []
+    nprobe = ix.cfg.nprobe
+    for _ in range(n_batches):
+        r0 = st.rows_scanned
+        t0 = time.perf_counter()
+        s, sl, _ = db.execute(plans, use_cache=False)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(st.rows_scanned - r0 == ix.candidate_rows(nprobe, 32),
+              f"regions ivf: rows_scanned +{st.rows_scanned - r0}")
+    launches = (ivf_mod.LAUNCHES, ivf_mod.COMPACT_LAUNCHES)
+    check(launches == (n_batches * n_cards,) * 2,
+          f"regions ivf: {launches} probe / compaction launches for "
+          f"{n_batches} batches on {n_cards} cards")
+    check(kernel_mod.LAUNCHES == 0, "regions ivf: a batch ran a rescan")
+
+    # the per-card kernels alone over each card's mirror, merged on the host
+    ctrl = snap["n_live"].device
+    q_d = torch.from_numpy(np.stack([p.logical.q[0] for p in plans])).to(
+        ctrl)
+    clusters = ix.probe_device(q_d, nprobe)
+    mirrors = ix.device_arrays()["regions"]
+    outs = []
+    for lo, part, m in zip(row_starts(snap), parts, mirrors):
+        c = part["emb"].device
+        meta = _packed_meta(part["tenant"], part["updated_at"],
+                            part["category"], part["acl"])
+        cand, n_live = ivf_mod.compact_candidates_cuda(
+            m["members"], m["overflow"], clusters.to(c).contiguous(),
+            part["emb"].shape[0])
+        outs.append((lo, ivf_mod.ivf_probe_cuda(
+            q_d.to(c).contiguous(), part["emb"], meta, cand,
+            pred.as_array(c), k, n_live=n_live)))
+    outs = [(lo, [x.cpu() for x in o]) for lo, o in outs]
+    h_s, h_i = merge_positional(
+        [o[0] for _, o in outs],
+        [torch.where(o[1] >= 0, o[1] + lo, -1) for lo, o in outs], k)
+    check(lists_equal((s, sl), (h_s, h_i)),
+          "regions ivf: lists != the per-card kernels merged on the host")
+    # the plain probe: each request's exact top-k over the live rows of
+    # the probed clusters and the overflow tail that pass the predicate
+    cl = clusters.cpu().numpy()
+    cand = np.concatenate([ix.members[cl[cl >= 0]].reshape(-1),
+                           np.asarray(ix.overflow, np.int64)])
+    in_cand = torch.zeros(sum(p["emb"].shape[0] for p in parts),
+                          dtype=torch.bool, device=ctrl)
+    in_cand[torch.from_numpy(cand[cand >= 0]).to(ctrl)] = True
+    keep_c = keep & in_cand
+    errs = []
+    for lo_r in range(0, 32, 8):
+        sig = torch.cat([torch.matmul(q_d[lo_r:lo_r + 8].to(
+            p["emb"].device), p["emb"].T).to(ctrl) for p in parts], 1)
+        sig = torch.where(keep_c, sig, NEG)
+        errs.append(one_tier(f"regions-ivf-rows{lo_r}",
+                             (s[lo_r:lo_r + 8], sl[lo_r:lo_r + 8]),
+                             plain_sorted(sig, k), sig, keep_c))
+        del sig
+    del in_cand, keep_c
+    # recall against the exact engine, printed as ivf_prod prints it: on
+    # this corpus a query's neighbours past its first are scattered over
+    # its topic, so it is low at any small nprobe (ivf_prod's one-card
+    # index reads the same)
+    s_x, i_x, _ = db.execute(exact, use_cache=False)
+    hits = sum(len(set(a[a >= 0].tolist()) & set(b[b >= 0].tolist()))
+               for a, b in zip(sl, i_x))
+    recall = hits / float((i_x >= 0).sum())
+    recall_1 = float(np.mean(sl[:, 0] == i_x[:, 0]))
+    n_leaks = regions_leaks(db, plans, sl)
+    check(n_leaks == 0, f"regions ivf: {n_leaks} leaked slots")
+
+    # no host sync at launch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = db.launch(plans, use_cache=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    s_l, i_l, _ = db.finish(pending)
+    check(lists_equal((s_l, i_l), (s, sl)),
+          "regions ivf: launch / finish rows != execute rows")
+
+    # a write batch: a doc at request 0's query, fresh; every card's mirror
+    # is patched for the dirty clusters only, and the doc is found
+    wb = device_corpus_batch(ccfg, n_rows, 64, gen, qs[0])
+    patches = ix.mirror_patches
+    db.ingest(wb)
+    s_w, i_w, _ = db.execute(plans, use_cache=False)
+    check(ix.mirror_patches == patches + 1,
+          "regions ivf: the write patched no mirror")
+    check(int(i_w[0, 0]) == db.log.slot_of(int(wb.doc_id[0])),
+          "regions ivf: the written doc does not top request 0")
+    return dict(build_s=build_s, kmeans_s=spent["kmeans"],
+                layout_s=build_s - spent["kmeans"], clusters=ix.n_clusters,
+                cluster_cap=ix.cluster_cap, overflow=len(ix.overflow),
+                batch_ms_median=statistics.median(lat), batch_ms=lat,
+                launches=launches[0], compact_launches=launches[1],
+                candidate_rows=ix.candidate_rows(nprobe, 32),
+                recall_at_10=recall, recall_at_1=recall_1, leaks=n_leaks,
+                max_abs_err=max(errs), kmeans_check=kmeans_check,
+                mirror_bytes=ix.mirror_bytes_uploaded)
+
+
+def regions_kmeans_check(parts, ctrl, rows=1 << 18, n_clusters=256,
+                         iters=3, seed=0, rel_tol=3e-4):
+    """The build's cross-card k-means held, step by step, to plain Lloyd
+    steps on one card: the first ``rows`` rows of every allocation
+    clustered where they lie (`core.ivf._kmeans_allocations`, each card
+    summing its rows, the controller adding), the centroids each card is
+    handed recorded at every step. The seeds must equal bit for bit those
+    drawn over the same rows concatenated on the controller ``ctrl``
+    (they depend on the live rows alone), every card must be handed the
+    same bits at every step, and each step's result must be within
+    ``rel_tol`` (Frobenius, relative) of one plain step on the
+    concatenated rows from the same centroids: only the order of the f32
+    sums differs there. Whole runs are not compared with each other: a
+    row whose two nearest centroids tie within rounding changes cluster,
+    and over several steps that moves the centroids by far more than the
+    rounding. A card's sums left out of the reduction move every
+    centroid by the noise of a quarter of its rows, and a seed or a
+    centroid read from the wrong card moves it further."""
+    from repro_torch.core import ivf as ivf_core
+    n = min(rows, *(p["emb"].shape[0] for p in parts))
+    embs = [p["emb"][:n] for p in parts]
+    lives = [p["tenant"][:n] >= 0 for p in parts]
+    one_e = torch.cat([e.to(ctrl) for e in embs])
+    one_l = torch.cat([x.to(ctrl) for x in lives])
+    handed = []
+    real = ivf_core._sums
+
+    def record(emb, live, cent):
+        handed.append(cent.to(ctrl))
+        return real(emb, live, cent)
+    ivf_core._sums = record
+    try:
+        last = ivf_core._kmeans_allocations(embs, lives, n_clusters, iters,
+                                            seed, ctrl)
+    finally:
+        ivf_core._sums = real
+    seeds_one = ivf_core._kmeans_allocations([one_e], [one_l], n_clusters,
+                                             0, seed, ctrl)
+    steps = [handed[i:i + len(parts)]
+             for i in range(0, len(handed), len(parts))]
+    check(len(steps) == iters and all(
+        torch.equal(c, cs[0]) for cs in steps for c in cs),
+        "regions ivf: the cards were handed different centroids")
+    check(torch.equal(steps[0][0], seeds_one),
+          "regions ivf: the cross-card seeds != one card's")
+    e_live = one_e[one_l]
+    errs = []
+    for t in range(iters):
+        prev = steps[t][0]
+        got = steps[t + 1][0] if t + 1 < iters else last
+        a = ivf_core._assign(e_live, prev)
+        sums = torch.zeros_like(prev).index_add_(0, a, e_live)
+        counts = torch.bincount(a, minlength=n_clusters).float()
+        want = torch.where(counts[:, None] > 0,
+                           sums / counts.clamp(min=1)[:, None], prev)
+        want = want / torch.linalg.vector_norm(
+            want, dim=1, keepdim=True).clamp(min=1e-12)
+        errs.append(float(torch.linalg.vector_norm(got - want)
+                          / torch.linalg.vector_norm(want)))
+    check(max(errs) <= rel_tol,
+          f"regions ivf: a cross-card Lloyd step differs from one card's "
+          f"by {max(errs):.3g} (relative) > {rel_tol}")
+    del one_e, one_l, e_live
+    return dict(rows=n * len(parts), clusters=n_clusters, iters=iters,
+                step_rel_err=errs)
+
+
+def device_corpus_batch(ccfg, first, n, gen, q):
+    """``n`` fresh docs from ``first``: the first one at ``q`` and now."""
+    from repro_torch.data.corpus import device_corpus
+    wb = device_corpus(ccfg, first, n, gen)
+    emb = wb.emb.clone()
+    emb[0] = torch.from_numpy(q / np.linalg.norm(q)).to(emb.device)
+    ts = wb.updated_at.clone()
+    ts[0] = ccfg.now_ts
+    return dataclasses.replace(wb, emb=emb, updated_at=ts)
+
+
+def regions_leaks(db, plans, sl):
+    """Returned slots failing their plan's predicate (host mask over the
+    gathered metadata)."""
+    from repro_torch.core.store import gather
+    snap = db.log.snapshot()
+    flat = np.maximum(sl, 0).reshape(-1)
+    meta = np.stack([np.asarray(gather(snap, c, flat)).reshape(sl.shape)
+                     for c in ("tenant", "updated_at", "category", "acl")],
+                    -1)
+    bad = 0
+    for r, p in enumerate(plans):
+        ok = host_mask(meta[r], p.pred.as_array().numpy()[None])[0]
+        bad += int((~ok & (sl[r] >= 0)).sum())
+    return bad
+
+
+def regions_pieces(dev, devices, dim, k, dec_shape=(8, 2064, 8, 4, 128),
+                   n_rows=None):
+    """(d) of `phase_regions`: `filtered_topk_sharded` and
+    `decode_attention_sharded` at sharded_prod's (e) and (f) shapes with
+    each shard's piece on its own card, bit for bit equal to the same
+    shards on one card (``dev``), one launch a shard."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.filtered_topk.ops import filtered_topk_sharded
+    from repro_torch.launch.mesh import device_groups, make_mesh, same_device
+
+    S = len(devices)
+    n_rows = n_rows or prod_cut()[0]
+    mesh = make_mesh((S,), ("data",), devices=devices)
+    one = make_mesh((S,), ("data",), devices=[dev] * S)
+    groups = device_groups(mesh, "data")
+    gd = torch.Generator(device=dev).manual_seed(SEED + 16)
+    emb = torch.randn((n_rows, dim), generator=gd, device=dev)
+    emb.div_(torch.linalg.vector_norm(emb, dim=1, keepdim=True))
+    ri = lambda hi: torch.randint(0, hi, (n_rows,), generator=gd, device=dev,
+                                  dtype=torch.int32)
+    meta = torch.stack([ri(20), ri(1 << 20), ri(5), ri(4) + 1], 1)
+    q8 = emb[:8] + 0.05 * torch.randn((8, dim), generator=gd, device=dev)
+    pred = torch.tensor([3, 1 << 18, 0b10111, 3], dtype=torch.int32,
+                        device=dev)
+    per = n_rows // S
+
+    def pieces(x, axis=0):
+        out = []
+        for c, shards in groups:
+            lo, hi = shards[0] * x.shape[axis] // S, \
+                (shards[-1] + 1) * x.shape[axis] // S
+            piece = x.narrow(axis, lo, hi - lo)
+            out.append(piece if same_device(c, dev) else piece.to(c))
+        return out
+
+    e_p, m_p = pieces(emb), pieces(meta)
+    kernel_mod.LAUNCHES = 0
+    s_p, i_p = filtered_topk_sharded(mesh, "data", q8, e_p, m_p, pred, k)
+    ft_launches = kernel_mod.LAUNCHES
+    check(ft_launches == S, f"regions: filtered_topk_sharded {ft_launches} "
+          f"launches for {S} shards")
+    s_w, i_w = filtered_topk_sharded(one, "data", q8, emb, meta, pred, k)
+    check(lists_equal((s_p, i_p), (s_w, i_w)),
+          "regions: filtered_topk_sharded over the cards != on one card")
+    check(bool((i_p >= 0).any()) and i_p.device == q8.device,
+          "regions: filtered_topk_sharded found nothing")
+    ft_ms = events_ms(lambda: filtered_topk_sharded(
+        mesh, "data", q8, e_p, m_p, pred, k), 6)
+    del emb, meta, e_p, m_p
+
+    B, Sc, KV, G, hd = dec_shape
+    bf = dict(generator=gd, device=dev, dtype=torch.bfloat16)
+    qd = torch.randn((B, KV * G, hd), **bf)
+    kc = torch.randn((B, Sc, KV, hd), **bf)
+    vc = torch.randn((B, Sc, KV, hd), **bf)
+    lengths = torch.tensor([min(2049, Sc)] * (B - 1)
+                           + [max(1, Sc // S // 2)], dtype=torch.int32,
+                           device=dev)
+    k_p, v_p = pieces(kc, 1), pieces(vc, 1)
+    dec_mod.LAUNCHES = 0
+    out = dec_ops.decode_attention_sharded(mesh, "data", qd, k_p, v_p,
+                                           lengths, n_kv=KV)
+    dec_launches = dec_mod.LAUNCHES
+    check(dec_launches == S, f"regions: decode_attention_sharded "
+          f"{dec_launches} launches for {S} shards")
+    whole = dec_ops.decode_attention_sharded(one, "data", qd, kc, vc,
+                                             lengths, n_kv=KV)
+    check(torch.equal(out, whole) and bool(torch.isfinite(out).all()),
+          "regions: decode_attention_sharded over the cards != on one card")
+    dec_ms = events_ms(lambda: dec_ops.decode_attention_sharded(
+        mesh, "data", qd, k_p, v_p, lengths, n_kv=KV), 20)
+    return dict(filtered_topk_launches=ft_launches, filtered_topk_ms=ft_ms,
+                decode_launches=dec_launches, decode_ms=dec_ms,
+                rows=n_rows,
+                rows_per_shard=per, dec_shape=list(dec_shape))
+
+
 def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
-                  chunk=1 << 20, n_batches=6, write_rows=1 << 12):
-    """Arena regions on their own cards: a RagDB over a mesh of 4 shards
-    on ``cards`` (every card present by default; ``cards[s * n // 4]``
-    holds shard s), ``rows_per_card`` rows on the fullest card, hash then
-    tenant placement, sharded_prod's plans. With fewer than two cards it
-    emits that and computes nothing. Returns the launches of the main
-    path's runs and the largest error for the kernels line."""
+                  chunk=1 << 20, n_batches=6, write_rows=1 << 12,
+                  page_rows=1 << 15, tier_kw=None):
+    """Arena regions on their own cards: a RagDB with lanes over a mesh of
+    4 shards on ``cards`` (every card present by default; ``cards[s * n //
+    4]`` holds shard s), ``rows_per_card`` rows on the fullest card, hash
+    then tenant placement: sharded_prod's plans, (a) the hybrid engine
+    (`regions_hybrid`), a write batch's commit, and under hash (b) the
+    IVF index (`regions_ivf`); then (d) the sharded entry points over
+    pieces on the cards (`regions_pieces`) and (c) tiered_prod's
+    deployment with its hot arena in the 4 regions (``tier_kw``
+    overrides its sizes). With
+    fewer than two cards it emits that and computes nothing. Returns the
+    launches of the main path's runs, a kernel each, and the largest
+    errors for the kernels line."""
     from repro_torch.api import RagDB
     from repro_torch.configs import rag_unified
     from repro_torch.core.store import ALLOCS, gather
     from repro_torch.core.tenancy import Principal
     from repro_torch.data.corpus import DAY_S, CorpusConfig, device_corpus
+    from repro_torch.index.lexical import LexicalConfig
     from repro_torch.kernels.arena_scan.ops import _packed_meta
     from repro_torch.kernels.arena_scan.sharded import INT32_MAX
     from repro_torch.launch.mesh import make_mesh
@@ -3964,7 +4688,7 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
         emit("regions", cards=n, result=None,
              note="arena regions on their own cards need at least two "
                   "cards; nothing was run")
-        return dict(launches=0, max_abs_err=0.0)
+        return {}
     t_phase = time.perf_counter()
     S, k = 4, 10
     devices = [cards[s * n // S] for s in range(S)]
@@ -4053,7 +4777,8 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
     def run(placement):
         db = RagDB(dataclasses.replace(rag_unified.PRODUCTION,
                                        capacity=n_rows, dim=dim),
-                   mesh=mesh, placement=placement, device=dev)
+                   mesh=mesh, placement=placement, device=dev,
+                   lexical_cfg=LexicalConfig())
         # after the db's first allocation on each card: a card the caching
         # allocator has not used yet refuses the reset
         for c, cuda in zip(used, on_card):
@@ -4127,6 +4852,12 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
         check(same_bits(s_g, s) and (sl_g == sl).all(),
               "launch / finish rows != execute rows")
 
+        # (a) the hybrid engine, one launch a card a batch
+        hybrid = regions_hybrid(db, groups, dim, n_batches, k, page_rows,
+                                sync_cards)
+        hybrid.pop("plans")
+        hybrid.pop("rows")
+
         # one write batch's commit: every card it writes copies its
         # allocation; under "tenant" a one-tenant batch leaves the others
         commits = {}
@@ -4152,12 +4883,17 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
                 check(kept == [c != owner for c in used],
                       f"one-tenant commit rebuilt {kept}")
             del before, after, wb
+        # (b) the IVF index over the allocations, after the commits (whose
+        # ms then count no index upkeep)
+        ivf = (regions_ivf(db, groups, n_batches, k, sync_cards, ccfg, gen,
+                           n_rows) if placement == "hash" else None)
         out = dict(ingest_s=ingest_s, batch_ms_median=statistics.median(lat),
                    batch_ms=lat, exact_batch_ms_median=statistics.median(
                        lat_x), exact_batch_ms=lat_x, launches=launches,
                    launches_per_batch=launches // n_batches,
                    shard_rows_scanned=rows, leaks=n_leaks,
-                   commit_ms=commits, peak_gb=peaks())
+                   commit_ms=commits, hybrid=hybrid, ivf=ivf,
+                   peak_gb=peaks())
         del db, s_x, sl_x, s_g, sl_g
         gc.collect()
         for c, cuda in zip(used, on_card):
@@ -4166,17 +4902,50 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
                     torch.cuda.empty_cache()
         return out
 
+    # each part's line as it ends, the phase's line after the last
     hash_run = run("hash")
+    emit("regions_hash", **hash_run)
     tenant_run = run("tenant")
+    emit("regions_tenant", **tenant_run)
+    # (d) the sharded entry points, each shard's piece on its own card
+    pieces = regions_pieces(dev, devices, dim, k)
+    emit("regions_pieces", **pieces)
+    gc.collect()
+    for c in used:
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+    # (c) the tiered deployment with its hot arena in the 4 regions
+    tiered = phase_tiered_prod(dev, mesh=mesh, phase="regions_tiered",
+                               **(tier_kw or {}))
+    tiered = dict(launches=tiered["launches"],
+                  dense_engine=tiered["dense_engine"],
+                  shard_rows_scanned=tiered["shard_rows_scanned"],
+                  batch_ms_median=tiered["batch_ms_median"],
+                  max_abs_err=tiered["max_abs_err"],
+                  peak_gb=tiered["peak_mem_gb"])
+    gc.collect()
     other = (other_card_launches([c for c, cuda in zip(used, on_card)
                                   if cuda]) if all(on_card) else [])
     emit("regions", seconds=time.perf_counter() - t_phase, cards=n,
          devices=[str(c) for c in devices], controller=str(dev),
          rows=n_rows, rows_per_region=n_local, docs=n_docs, dim=dim,
          batch=32, groups=4, k=k, hash=hash_run, tenant=tenant_run,
+         pieces=pieces, tiered=tiered,
          launches_off_the_current_card=other)
-    return dict(launches=hash_run["launches"] + tenant_run["launches"],
-                max_abs_err=0.0)
+    runs = (hash_run, tenant_run)
+    t_launch = lambda name: sum(v[name] for v in tiered["launches"].values())
+    return dict(
+        launches=sum(r["launches"] for r in runs) + t_launch("arena_scan")
+        + pieces["filtered_topk_launches"],
+        hybrid=sum(r["hybrid"]["launches"] for r in runs)
+        + t_launch("hybrid_score"),
+        hybrid_err=max(r["hybrid"]["max_abs_err"] for r in runs),
+        paged=sum(r["hybrid"]["paged_launches"] for r in runs),
+        ivf=hash_run["ivf"]["launches"],
+        ivf_err=hash_run["ivf"]["max_abs_err"],
+        compact=hash_run["ivf"]["compact_launches"],
+        decode=pieces["decode_launches"],
+        max_abs_err=tiered["max_abs_err"])
 
 
 def attn_ok(got, want, rtol, atol):
@@ -6197,17 +6966,21 @@ def run_phases(dev, kids) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launch = phase_launch(dev, kids)
+
+    def on_regions(key):
+        """The regions path of a kernel's row, where the phase ran."""
+        return {"regions": regions[key]} if regions.get(key) else {}
+
     print(json.dumps({"kernels": [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
         "launches": prod["launches"],
         "paths": {"prod": prod["launches"],
-                  "sharded_prod": sprod["launches"],
-                  **({"regions": regions["launches"]}
-                     if regions["launches"] else {})},
+                  "sharded_prod": sprod["launches"], **on_regions("launches")},
         "max_abs_err": max(err1, err2, prod["max_abs_err"],
-                           sprod["max_abs_err"]),
+                           sprod["max_abs_err"],
+                           regions.get("max_abs_err", 0.0)),
         "ms": prod["ms"], "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
         "library_ms": None}, {
@@ -6215,8 +6988,9 @@ def run_phases(dev, kids) -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/hybrid_score/hybrid_score.py:55",
         "launches": hprod["launches"],
-        "paths": {"hybrid_prod": hprod["launches"]},
-        "max_abs_err": max(herr1, herr2, hprod["max_abs_err"]),
+        "paths": {"hybrid_prod": hprod["launches"], **on_regions("hybrid")},
+        "max_abs_err": max(herr1, herr2, hprod["max_abs_err"],
+                           regions.get("hybrid_err", 0.0)),
         "ms": hprod["ms"], "plain_ms": hprod["plain_ms"],
         "bound_ms": hprod["bound_ms"], "bound_by": hprod["bound_by"],
         "library_ms": None}, {
@@ -6224,8 +6998,9 @@ def run_phases(dev, kids) -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/ivf_probe/ivf_probe.py:32",
         "launches": iprod["launches"],
-        "paths": {"ivf_prod": iprod["launches"]},
-        "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"]),
+        "paths": {"ivf_prod": iprod["launches"], **on_regions("ivf")},
+        "max_abs_err": max(ierr1, ierr2, iprod["max_abs_err"],
+                           regions.get("ivf_err", 0.0)),
         "ms": iprod["ms"], "plain_ms": iprod["plain_ms"],
         "bound_ms": iprod["bound_ms"], "bound_by": iprod["bound_by"],
         "library_ms": None}, {
@@ -6233,7 +7008,8 @@ def run_phases(dev, kids) -> int:
         "source": "src/repro_torch/csrc/arena_scan_probe.cu",
         "replaces": "src/repro/kernels/ivf_probe/ops.py:34",
         "launches": iprod["compact"]["launches"],
-        "paths": {"ivf_prod": iprod["compact"]["launches"]},
+        "paths": {"ivf_prod": iprod["compact"]["launches"],
+                  **on_regions("compact")},
         "max_abs_err": 0.0,
         "ms": iprod["compact"]["ms"],
         "plain_ms": iprod["compact"]["plain_ms"],
@@ -6244,7 +7020,7 @@ def run_phases(dev, kids) -> int:
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:121",
         "launches": pprod["launches"],
-        "paths": {"paged_prod": pprod["launches"]},
+        "paths": {"paged_prod": pprod["launches"], **on_regions("paged")},
         "max_abs_err": max(perr1, pprod["max_abs_err"]),
         "ms": pprod["ms"], "plain_ms": pprod["plain_ms"],
         "bound_ms": pprod["bound_ms"], "bound_by": pprod["bound_by"],
@@ -6268,7 +7044,8 @@ def run_phases(dev, kids) -> int:
         "paths": {"lm_serve": lm["decode"]["launches"],
                   "moe_serve": moe["decode"]["launches"],
                   "sharded_prod": sprod["decode_launches"],
-                  "launch": launch["decode_launches"]},
+                  "launch": launch["decode_launches"],
+                  **on_regions("decode")},
         "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
                            moe["decode"]["max_abs_err"],
                            sprod["decode_err"], launch["decode_err"]),

@@ -36,11 +36,18 @@ calls for the front door (port of ``repro.api.executor``):
     tie checks, and `ExecStats` audits the shard count, the merge's
     collective bytes and the rows each shard scanned;
   * a store held in several allocations (one a device, ``core.store``):
-    an exact-engine unit launches once per allocation, on its device, over
-    its contiguous rows, and the lists merge on the controller positionally
+    an exact, hybrid or ivf unit launches once per allocation, on its
+    device, over its contiguous rows (a hybrid scan over the allocation's
+    lanes, `LexicalArena.snapshot()`; an ivf probe over the allocation's
+    member-table mirror, the probed clusters copied there from the
+    controller's quantizer without a host sync), every launch queued
+    before any copy, and the lists merge on the controller positionally
     (`filtered_topk.ops.merge_positional`): the single arena's (score
-    desc, slot asc) order. ``device_calls`` counts the unit once, as the
-    reference does; the kernels' ``LAUNCHES`` count every launch.
+    desc, slot asc) order. A fused rrf unit merges its dense and its BM25
+    lists apart and rank-fuses the merged lists (ranks are global). The
+    starved path and the completeness rescan run the exact engine the same
+    way. ``device_calls`` counts the unit once and ``terms_scanned`` N * T,
+    as the reference does; the kernels' ``LAUNCHES`` count every launch.
 
 Tests count calls by monkeypatching `executor.unified_query` (per-group
 scans) and `executor.unified_query_grouped` (fused scans).
@@ -59,9 +66,11 @@ from repro_torch.api.planner import PlannerConfig, exact_engine, fuse_batch
 from repro_torch.core.query import (BLOCK_ALL, NEG_INF, Predicate,
                                     stack_predicates, unified_query,
                                     unified_query_grouped)
+from repro_torch.core.ivf import probe_allocations
 from repro_torch.core.store import (ALLOCS, Store, allocations, controller,
                                     n_rows, row_starts, upload)
-from repro_torch.kernels.filtered_topk.ops import merge_positional
+from repro_torch.index.lexical.arena import allocations as lex_allocations
+from repro_torch.kernels.filtered_topk.ops import merge_pieces
 from repro_torch.obs.tracer import FanSpan
 
 #: tier tags in the returned `tiers` array
@@ -204,25 +213,44 @@ def _to_device(x: np.ndarray, store: Store) -> torch.Tensor:
     return upload(x, controller(store))
 
 
+def _scan_allocations(store: Store, scan, *rows: np.ndarray, lanes=None):
+    """``scan(allocation, *rows on its device[, lanes]) -> outputs`` for
+    host ``rows``, once an allocation, each on its allocation's device
+    (the rows uploaded to each from the host, so that no card waits on
+    another; ``lanes``, a `LexicalArena.snapshot()` laid out like the
+    store, gives each scan its allocation's view). Nothing is copied:
+    returns [(first row, outputs), ...] in row order."""
+    views = (lex_allocations(lanes) if lanes is not None
+             else (None,) * len(allocations(store)))
+    out = []
+    for lo, part, view in zip(row_starts(store), allocations(store), views):
+        args = [upload(r, part["emb"].device) for r in rows]
+        out.append((lo, scan(part, *args, *(() if view is None
+                                            else (view,)))))
+    return out
+
+
+def _merge_allocations(store: Store, lists, k: int):
+    """The per-allocation lists of `_scan_allocations`, each output a
+    sequence of (scores, slots) pairs, copied to the controller without a
+    host sync and merged there pair by pair by position (equal scores to
+    the lower allocation, then the lower slot: the single arena's order).
+    One allocation's outputs come back as they are (`merge_pieces`)."""
+    ctrl = controller(store)
+    merged = []
+    for j in range(0, len(lists[0][1]), 2):
+        merged += merge_pieces([(lo, out[j], out[j + 1])
+                                for lo, out in lists], k, ctrl)
+    return tuple(merged)
+
+
 def _exact(store: Store, scan, k: int, *rows: np.ndarray):
     """``scan(allocation, *rows on its device) -> (scores (B, k), slots
     (B, k))`` for host ``rows``: one scan of a store of one allocation, or
-    one a device of a store held in several, each on its allocation's
-    device over its rows (the rows uploaded to each from the host, so that
-    no card waits on another), every scan queued before the lists are
-    copied to the controller without a host sync and merged there by
-    position (equal scores to the lower allocation, then the lower slot:
-    the single arena's order)."""
-    if ALLOCS not in store:
-        return scan(store, *(_to_device(r, store) for r in rows))
-    ctrl = controller(store)
-    lists = [(lo, *scan(part, *(upload(r, part["emb"].device)
-                                for r in rows)))
-             for lo, part in zip(row_starts(store), allocations(store))]
-    return merge_positional(
-        [s.to(ctrl, non_blocking=True) for _, s, _ in lists],
-        [torch.where(sl >= 0, sl + lo, -1).to(ctrl, non_blocking=True)
-         for lo, _, sl in lists], k)
+    one a device of a store held in several, every scan queued before the
+    lists are merged on the controller (`_merge_allocations`)."""
+    return _merge_allocations(store, _scan_allocations(store, scan, *rows),
+                              k)
 
 
 def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
@@ -253,27 +281,27 @@ def _launch_hot(store: Store, q: np.ndarray, pred: Predicate, k: int,
         if ivf is None:
             raise ValueError("engine='ivf' requires a built index — "
                              "call RagDB.build_index() first")
-        from repro_torch.kernels.ivf_probe.ops import ivf_probe
         nv = q.shape[0] if n_valid is None else n_valid
-        # the rescan's and the starved path's engine: the store's exact one
-        exact = exact_engine(store["emb"].device)
+        # the rescan's and the starved path's engine: the controller's
+        # exact one, over every allocation
+        exact = exact_engine(controller(store))
         if (pred, k) in ivf.starved:
             # learned: the WHOLE arena can't fill k for this predicate --
             # probing first would be pure waste (memo clears on any write)
-            s, sl = unified_query(store, _to_device(q, store), pred, k,
-                                  engine=exact, page_rows=page_rows)
+            s, sl = _exact(store, lambda part, q_d: unified_query(
+                part, q_d, pred, k, engine=exact, page_rows=page_rows), k, q)
             return _Hot(s, sl, n_arena)
-        # the quantizer on the device over the real rows, and rows_scanned
-        # as the host probe counts it (a function of (nv, nprobe) alone)
+        # the quantizer on the controller over the real rows (its union
+        # goes to each allocation's device without a host sync), and
+        # rows_scanned as the host probe counts it (a function of (nv,
+        # nprobe) alone)
         nprobe = nprobe or ivf.cfg.nprobe
         q_d = _to_device(q, store)
         clusters = ivf.probe_device(q_d[:nv], nprobe)
         rows = ivf.candidate_rows(nprobe, nv)
-        dev = ivf.device_arrays()
-        s, sl = ivf_probe(q_d, store["emb"], store["tenant"],
-                          store["updated_at"], store["category"],
-                          store["acl"], dev["members"], dev["overflow"],
-                          clusters, pred.as_array(store["emb"].device), k)
+        s, sl = probe_allocations(store, ivf,
+                                  q_d if ALLOCS not in store else q,
+                                  clusters, pred, k)
         rescan = None if skip_rescan else (store, q, pred, k, exact, nv, ivf)
         return _Hot(s, sl, rows, rescan=rescan)
     s, sl = _exact(store, lambda part, q_d: unified_query(
@@ -312,14 +340,14 @@ def _finish_hot(hot: _Hot, trace_fan=None) -> tuple[np.ndarray, np.ndarray]:
         if bool((sl[:nv] < 0).any()):
             fan = (FanSpan(trace_fan, "rescan", engine=exact)
                    if trace_fan is not None else None)
-            s, sl = unified_query(store, _to_device(q, store), pred, k,
-                                  engine=exact)
+            s, sl = _exact(store, lambda part, q_d: unified_query(
+                part, q_d, pred, k, engine=exact), k, q)
             s, sl = s.cpu().numpy(), sl.cpu().numpy()
             if bool((sl[:nv] < 0).any()):
                 ivf.starved.add((pred, k))
-            hot.rows += store["emb"].shape[0]
+            hot.rows += n_rows(store)
             if fan is not None:
-                fan.end(rows=store["emb"].shape[0])
+                fan.end(rows=n_rows(store))
     return s, sl
 
 
@@ -407,6 +435,7 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
     lists unfused: dense rides `_Hot.s / .sl`, bm25 `_Hot.extra`, and the
     finish phase rank-fuses after the tier merges."""
     from repro_torch.kernels.hybrid_score.ops import hybrid_score
+    from repro_torch.kernels.hybrid_score.ref import rrf_fuse
     q, gids, preds, n_valid = _pad_group_launch(
         q, gids, preds, k, "hybrid", stats=stats, shapes=shapes, lex=lex_key,
         page_rows=page_rows)
@@ -414,17 +443,26 @@ def _launch_hybrid(store: Store, lex_snap: dict, q: np.ndarray,
         qterms = np.concatenate(
             [qterms, np.full((q.shape[0] - qterms.shape[0], qterms.shape[1]),
                              -1, np.int32)])
-    dev = store["emb"].device
-    out = hybrid_score(_to_device(q, store), store["emb"], store["tenant"],
-                       store["updated_at"], store["category"], store["acl"],
-                       lex_snap["terms"], lex_snap["lexnorm"],
-                       lex_snap["idf"], _to_device(gids, store),
-                       stack_predicates(preds, dev),
-                       _to_device(qterms, store), k, mode=mode,
-                       w_dense=w_dense, w_lex=w_lex, rrf_c=rrf_c,
-                       lists=lists, page_rows=page_rows)
-    n_arena = store["emb"].shape[0]
-    terms = n_arena * int(lex_snap["terms"].shape[1])
+    # rank fusion needs global ranks: over several allocations each one
+    # returns both per-signal lists, merged per signal before rrf_fuse
+    several = ALLOCS in store
+    each_lists = lists or (several and mode == "rrf")
+
+    def scan(part, q_d, gids_d, qterms_d, view):
+        return hybrid_score(q_d, part["emb"], part["tenant"],
+                            part["updated_at"], part["category"],
+                            part["acl"], view["terms"], view["lexnorm"],
+                            view["idf"], gids_d,
+                            stack_predicates(preds, q_d.device), qterms_d, k,
+                            mode=mode, w_dense=w_dense, w_lex=w_lex,
+                            rrf_c=rrf_c, lists=each_lists,
+                            page_rows=page_rows)
+    out = _merge_allocations(store, _scan_allocations(
+        store, scan, q, gids, qterms, lanes=lex_snap), k)
+    if several and mode == "rrf" and not lists:
+        out = rrf_fuse(*out, k, rrf_c)
+    n_arena = n_rows(store)
+    terms = n_arena * int(lex_allocations(lex_snap)[0]["terms"].shape[1])
     if stats is not None:
         stats.terms_scanned += terms
     if lists:

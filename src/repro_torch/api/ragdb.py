@@ -40,9 +40,15 @@ on one card, or on the CPU: one allocation, the plain arena) or sit on
 several (`launch.mesh.device_groups`): then the hot arena is one
 allocation a device (``core.store``), each region is written and scanned
 on its own device, and the lists merge on ``device``, the controller,
-which must be one of the mesh's. Over several devices hybrid
-(``lexical_cfg``), IVF (`build_index`) and tiers (``warm_cfg``) raise:
-ROADMAP queue 1 item 2.
+which must be one of the mesh's. Over several devices the rest of the
+layer follows the regions: the lexical lanes are one pair a device beside
+each allocation (the BM25 statistics one, corpus-global), a hybrid scan
+runs on every allocation's card and its lists merge by position (rrf per
+signal, then fused), `build_index` assigns each device's rows there and
+keeps one member-table mirror a device (the centroids and the quantizer
+on the controller, every probe on its region's card), and the warm tier
+lives on the controller, where hot+warm plans merge the hot lists with
+its probes.
 """
 from __future__ import annotations
 
@@ -256,9 +262,7 @@ class RagDB:
             hot_placement = ShardPlacement(n_shards=self.n_shards,
                                            capacity=hot_cfg.capacity,
                                            kind=placement)
-            hot_allocs = self._mesh_allocs(mesh, hot_placement, device,
-                                           tiered=tiered,
-                                           lexical=lexical_cfg is not None)
+            hot_allocs = self._mesh_allocs(mesh, hot_placement, device)
         self.router = TieredRouter(
             hot_cfg, warm_cfg,
             hot_window_s=hot_window_s if tiered else _FOREVER,
@@ -276,7 +280,8 @@ class RagDB:
         self.lex: LexicalArena | None = None
         if lexical_cfg is not None:
             self.lex = LexicalArena(hot_cfg.capacity, lexical_cfg,
-                                    device=self.log.device)
+                                    device=self.log.device,
+                                    allocs=hot_allocs)
             self.log.lex = self.lex
             if tiered:
                 self.router.warm.attach_lexical(lexical_cfg, self.lex.stats)
@@ -302,22 +307,19 @@ class RagDB:
         self.tracer = Tracer(enabled=False)
         self.calibration = CalibrationTable()
 
-    def _mesh_allocs(self, mesh, placement: ShardPlacement, device, *,
-                     tiered: bool, lexical: bool):
+    def _mesh_allocs(self, mesh, placement: ShardPlacement, device):
         """The hot arena's allocations over the mesh's devices: ((device,
         rows), ...) in row order, one a device, or None when every shard
-        is on one device (the plain arena). Raises on a mesh of mixed
-        device types, on a controller (``device``) that is not one of the
-        mesh's devices, and on the parts that do not run over regions on
-        their own cards yet."""
+        is on one device (the plain arena). The lexical lanes are laid out
+        the same way. Raises on a mesh of mixed device types and on a
+        controller (``device``) that is not one of the mesh's devices."""
         ctrl = resolve_device(device)
         groups = device_groups(mesh, self.shard_axes)
         if any(d.type != ctrl.type for d, _ in groups):
             raise ValueError(
                 f"every device of the mesh must be a {ctrl.type} device, "
                 f"as the controller ({ctrl}) is, got {mesh.devices}: arena "
-                "regions on their own cards take one device type (ROADMAP "
-                "queue 1 item 2)")
+                "regions on their own cards take one device type")
         if normalize_device(ctrl) not in {d for d, _ in groups}:
             raise ValueError(
                 f"the controller device {ctrl} must be one of the mesh's "
@@ -325,18 +327,8 @@ class RagDB:
                 "queries and merges the regions' lists")
         if len(groups) == 1:
             return None
-        for what, used in (("tiers (warm_cfg)", tiered),
-                           ("hybrid (lexical_cfg)", lexical)):
-            if used:
-                raise ValueError(self._regions_todo(what))
         rows = placement.rows_per_shard
         return tuple((d, len(shards) * rows) for d, shards in groups)
-
-    def _regions_todo(self, what: str) -> str:
-        return (f"{what} over arena regions on their own cards is not "
-                "ported yet (ROADMAP queue 1 item 2: hybrid, IVF and tiers "
-                "over regions on their own cards); use a mesh whose "
-                "shards share one device")
 
     def attach_faults(self, plan) -> None:
         """Thread one `serving.faults.FaultPlan` through the injection
@@ -476,17 +468,17 @@ class RagDB:
 
     # -- ANN tier (IVF index over the hot arena) --------------------------
     def build_index(self, cfg: IVFConfig | None = None) -> IVFIndex:
-        """(Re)build the hot-arena IVF index on the arena's device and
+        """(Re)build the hot-arena IVF index on the arena's devices and
         attach it for incremental write-through maintenance. Adds "ivf" to
         the planner's candidate engines. ``cfg=None`` auto-sizes n_clusters
-        near 2*sqrt(live rows).
+        near 2*sqrt(live rows). Over allocations on several devices each
+        device assigns its own rows and holds its member-table mirror; the
+        centroids stay on the controller (`core.ivf.build_ivf`).
 
         Every (re)build bumps the index epoch -- ivf-plan result-cache
         entries key on it, so a rebuild (which changes which rows get
         scored without any arena commit) can never serve a stale hit."""
         snap = self.log.snapshot()
-        if ALLOCS in snap:
-            raise ValueError(self._regions_todo("IVF (build_index)"))
         self._index_auto = cfg is None
         if cfg is None:
             # ~2*sqrt(N) clusters (pow2): fine enough that nprobe clusters
@@ -827,9 +819,11 @@ class RagDB:
                          f"{self.tracer.traces_started} traces started, "
                          f"{recorded}")
         if self.mesh is not None:
+            held = (f", held on {len(snap[ALLOCS])} devices"
+                    if ALLOCS in snap else "")
             lines.append(
                 f"  sharded:      {self.n_shards} shard(s) "
-                f"({self.placement} placement), "
+                f"({self.placement} placement{held}), "
                 f"{st.collective_bytes} collective bytes moved, "
                 f"per-shard rows scanned {st.shard_rows_scanned}")
         if self.faults is not None:

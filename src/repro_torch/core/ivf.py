@@ -31,12 +31,20 @@ write marks the touched member-table rows, and the next probe uploads only
 those (see `IVFIndex.device_arrays`).
 
 The build differs from the reference in two ways, neither in what the
-index means. k-means seeds with ``torch.multinomial`` over the live rows
-(``jax.random.choice`` cannot be reproduced in torch), so a port-built
-index is held to recall, not to the reference's bits. And the Lloyd steps
-and the final assignment run in row chunks with ``index_add_`` for the
-cluster sums: the reference's (N, C) similarity and one-hot blocks would
-be 256 GB each at 2^23 rows and 8192 clusters.
+index means. k-means seeds are the live rows with the largest uniform
+random keys (``jax.random.choice`` cannot be reproduced in torch), so a
+port-built index is held to recall, not to the reference's bits. And the
+Lloyd steps and the final assignment run in row chunks with ``index_add_``
+for the cluster sums: the reference's (N, C) similarity and one-hot blocks
+would be 256 GB each at 2^23 rows and 8192 clusters.
+
+Over a hot arena held in several allocations (one a device,
+``core.store``) each device assigns its own rows in the Lloyd steps and
+the controller adds their cluster sums; the member table stays one, in
+global slots, on the host, and `device_arrays` keeps one mirror a device
+in that device's slots. The quantizer runs on the controller; its
+probed clusters go to every device without a host sync, and each device
+compacts and scans its own candidates (`probe_allocations`).
 """
 from __future__ import annotations
 
@@ -45,7 +53,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.store import Store, resolve_device
+from repro_torch.core.store import (ALLOCS, Store, allocations, controller,
+                                    layout, resolve_device, row_starts,
+                                    to_device)
 
 #: largest (rows, C) f32 similarity block the build materialises (2 GiB)
 _BLOCK_BYTES = 1 << 31
@@ -76,29 +86,60 @@ def _assign(emb: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
                       for s in range(0, emb.shape[0], step)])
 
 
-def _kmeans(emb: torch.Tensor, live: torch.Tensor, n_clusters: int,
-            iters: int, seed: int) -> torch.Tensor:
-    """Spherical Lloyd iterations over live rows; centroids (C, D) f32 on
-    emb's device. Seeds are C distinct live rows drawn by
-    ``torch.multinomial`` on a generator seeded with ``seed``."""
-    dev = emb.device
+def _sums(emb: torch.Tensor, live: torch.Tensor, cent: torch.Tensor):
+    """Per-cluster sums (C, D) and counts (C,) of one allocation's live
+    rows against ``cent`` (on emb's device), in row chunks; dead rows add
+    zeros, so nothing here waits on the device."""
+    C = cent.shape[0]
+    sums = torch.zeros_like(cent)
+    counts = torch.zeros(C, dtype=torch.float32, device=emb.device)
+    step = _chunk_rows(C)
+    for s in range(0, emb.shape[0], step):
+        e = emb[s:s + step].float()
+        w = live[s:s + step].float()
+        a = torch.argmax(e @ cent.T, dim=1)
+        sums.index_add_(0, a, e * w[:, None])
+        counts.index_add_(0, a, w)
+    return sums, counts
+
+
+def _kmeans_allocations(embs, lives, n_clusters: int, iters: int, seed: int,
+                        device) -> torch.Tensor:
+    """Spherical Lloyd iterations over the live rows of one or more
+    allocations (``embs`` / ``lives`` in row order); centroids (C, D) f32
+    on ``device``, the controller. Seeds are C distinct live rows of the
+    whole arena, the C largest of uniform random keys drawn over its rows
+    on a generator seeded with ``seed`` on the controller, so that they
+    depend on the live rows alone, not on how the arena is split. Each
+    allocation's device assigns its own rows and sums its clusters; the
+    sums and counts are reduced on the controller, every device's work
+    queued before the reduction waits."""
+    dev = torch.device(device)
     C = n_clusters
     gen = torch.Generator(device=dev).manual_seed(seed)
-    w = live.float()
+    w = torch.cat([live.to(dev) for live in lives])
     if not bool(w.any()):       # no live row: draw the seeds uniformly
         w = torch.ones_like(w)
-    init = torch.multinomial(w, C, replacement=False, generator=gen)
-    cent = emb[init].float()
-    step = _chunk_rows(C)
+    keys = torch.rand(w.shape, generator=gen, device=dev)
+    init = torch.topk(torch.where(w, keys, -1.0), C).indices
+    # each allocation gathers the seeds among its rows, on its device
+    cent = torch.zeros((C, embs[0].shape[1]), dtype=torch.float32,
+                       device=dev)
+    lo = 0
+    for emb in embs:
+        hit = (init >= lo) & (init < lo + emb.shape[0])
+        local = torch.where(hit, init - lo, 0).to(emb.device)
+        cent = torch.where(hit[:, None], emb[local].float().to(dev), cent)
+        lo += emb.shape[0]
     for _ in range(iters):
-        sums = torch.zeros_like(cent)
-        counts = torch.zeros(C, dtype=torch.float32, device=dev)
-        for s in range(0, emb.shape[0], step):
-            e = emb[s:s + step].float()
-            keep = live[s:s + step]
-            a = torch.argmax(e @ cent.T, dim=1)[keep]
-            sums.index_add_(0, a, e[keep])
-            counts.index_add_(0, a, torch.ones_like(a, dtype=torch.float32))
+        parts = [_sums(emb, live, cent.to(emb.device))
+                 for emb, live in zip(embs, lives)]
+        sums, counts = parts[0]
+        if len(parts) > 1:
+            sums, counts = sums.to(dev), counts.to(dev)
+            for s_i, c_i in parts[1:]:
+                sums = sums + s_i.to(dev)
+                counts = counts + c_i.to(dev)
         new = torch.where(counts[:, None] > 0,
                           sums / torch.clamp(counts, min=1)[:, None], cent)
         norm = torch.linalg.vector_norm(new, dim=1, keepdim=True)
@@ -165,7 +206,8 @@ class IVFIndex:
 
     def __init__(self, cfg: IVFConfig, centroids: np.ndarray,
                  members: np.ndarray, fill: np.ndarray, overflow: list[int],
-                 n_at_build: int, epoch: int = 0, *, device=None):
+                 n_at_build: int, epoch: int = 0, *, device=None,
+                 regions=None):
         self.cfg = cfg
         self.centroids = centroids          # (C, D) f32, unit rows
         self.members = members              # (C, cap) i32 arena slots, -1 pad
@@ -173,7 +215,12 @@ class IVFIndex:
         self.overflow = list(overflow)      # spilled slots -- scanned exactly
         self.n_at_build = n_at_build
         self.epoch = epoch
-        self.device = resolve_device(device)   # where the mirror lives
+        self.device = resolve_device(device)   # the centroids' device
+        # ((device, first row, rows), ...) of a hot arena held in several
+        # allocations (`core.store.layout`): one member-table mirror a
+        # device, in its local slots; None keeps one mirror on ``device``
+        self.regions = (tuple(regions) if regions is not None
+                        and len(regions) > 1 else None)
         self.churn = 0                      # incremental ops since (re)build
         # predicates the WHOLE arena cannot fill k for (learned by the
         # executor's exact-rescan net): probing them is pure waste, so the
@@ -231,8 +278,19 @@ class IVFIndex:
         over[:len(self.overflow)] = self.overflow
         return over
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)      # always a copy
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.tensor(a, device=self.device if device is None
+                            else device)                # always a copy
+
+    def _mirrors(self):
+        """(device, local(a) -> a in that mirror's slots) of each mirror:
+        the index's device with global slots, or one a region with the
+        slots of its rows made local and every other entry -1."""
+        if self.regions is None:
+            return [(self.device, lambda a: a)]
+        return [(dev, lambda a, lo=lo, rows=rows: np.where(
+                    (a >= lo) & (a < lo + rows), a - lo, -1).astype(np.int32))
+                for dev, lo, rows in self.regions]
 
     def device_arrays(self) -> dict[str, torch.Tensor]:
         """Cached device view, maintained INCREMENTALLY: a write marks only
@@ -241,28 +299,46 @@ class IVFIndex:
         instead of re-uploading the whole (C, cap) table. The overflow tail
         re-uploads whole when touched (it is pow2-padded and small).
         Centroids only change on rebuild, which constructs a fresh index
-        (and mirror). Counters and byte counts are the reference's."""
+        (and mirror). Counters and byte counts are the reference's.
+
+        With ``regions`` the centroids stay on ``device`` and ``"regions"``
+        holds one mirror a region on its device, ``{"members": (C, cap),
+        "overflow": (O,)}`` in the region's local slots (the table's shape,
+        another region's entries -1); a write patches its dirty clusters
+        on every device, and the counters count every device's uploads."""
+        mirrors = self._mirrors()
         if self._dev is None:
             over = self._overflow_host()
-            self._dev = {"centroids": self._upload(self.centroids),
-                         "members": self._upload(self.members),
-                         "overflow": self._upload(over)}
+            self._dev = {"centroids": self._upload(self.centroids)}
+            self.mirror_bytes_uploaded += self.centroids.nbytes
+            parts = []
+            for dev, local in mirrors:
+                parts.append({"members": self._upload(local(self.members),
+                                                      dev),
+                              "overflow": self._upload(local(over), dev)})
+                self.mirror_bytes_uploaded += (self.members.nbytes
+                                               + over.nbytes)
+            if self.regions is None:
+                self._dev.update(parts[0])
+            else:
+                self._dev["regions"] = tuple(parts)
             self.mirror_uploads += 1
-            self.mirror_bytes_uploaded += (self.centroids.nbytes
-                                           + self.members.nbytes
-                                           + over.nbytes)
         else:
+            parts = ((self._dev,) if self.regions is None
+                     else self._dev["regions"])
             if self._dirty_clusters:
                 rows = np.asarray(sorted(self._dirty_clusters), np.int64)
                 patch = self.members[rows]
-                self._dev["members"][torch.from_numpy(rows).to(
-                    self.device)] = self._upload(patch)
+                for (dev, local), part in zip(mirrors, parts):
+                    part["members"][torch.from_numpy(rows).to(dev)] = \
+                        self._upload(local(patch), dev)
+                    self.mirror_bytes_uploaded += patch.nbytes
                 self.mirror_patches += 1
-                self.mirror_bytes_uploaded += patch.nbytes
             if self._overflow_dirty:
                 over = self._overflow_host()
-                self._dev["overflow"] = self._upload(over)
-                self.mirror_bytes_uploaded += over.nbytes
+                for (dev, local), part in zip(mirrors, parts):
+                    part["overflow"] = self._upload(local(over), dev)
+                    self.mirror_bytes_uploaded += over.nbytes
         self._dirty_clusters.clear()
         self._overflow_dirty = False
         return self._dev
@@ -362,17 +438,26 @@ class IVFIndex:
 
 def build_ivf(store: Store, cfg: IVFConfig, *, epoch: int = 0) -> IVFIndex:
     """Cluster the live rows into a cluster-major member table, on the
-    store's device (k-means and the assignment), then lay the table out on
-    the host with one argsort + searchsorted scatter, as the reference
-    does; rows beyond a cluster's cap spill into the overflow tail, which
-    probes scan exactly, so capacity pressure degrades speed, never
-    recall."""
-    emb = store["emb"]
-    live = store["tenant"] >= 0
-    n_live = int(live.sum())
+    store's devices (k-means and the assignment; each allocation's device
+    assigns its own rows, the controller reduces), then lay the table out
+    on the host in global slots with one argsort + searchsorted scatter,
+    as the reference does; rows beyond a cluster's cap spill into the
+    overflow tail, which probes scan exactly, so capacity pressure
+    degrades speed, never recall. A store held in several allocations
+    gives the index its layout: one mirror a device (`device_arrays`)."""
+    parts = allocations(store)
+    ctrl = controller(store)
+    lives = [part["tenant"] >= 0 for part in parts]
+    n_live = int(sum(int(live.sum()) for live in lives))
     C = max(1, min(cfg.n_clusters, n_live))
-    cent = _kmeans(emb, live, C, cfg.kmeans_iters, cfg.seed)
-    assign = torch.where(live, _assign(emb, cent), -1).cpu().numpy()
+    cent = _kmeans_allocations([part["emb"] for part in parts], lives, C,
+                               cfg.kmeans_iters, cfg.seed, ctrl)
+    # every device's assignment queued before the first copy to the host
+    assigned = [torch.where(live, _assign(part["emb"],
+                                          to_device(cent, part["emb"].device)),
+                            -1)
+                for part, live in zip(parts, lives)]
+    assign = np.concatenate([a.cpu().numpy() for a in assigned])
 
     order = np.argsort(assign, kind="stable")
     sorted_assign = assign[order]
@@ -392,7 +477,43 @@ def build_ivf(store: Store, cfg: IVFConfig, *, epoch: int = 0) -> IVFIndex:
     overflow = rows[~in_cap].astype(int).tolist()
     fill = np.minimum(counts, cap).astype(np.int64)
     return IVFIndex(cfg, cent.cpu().numpy(), members, fill, overflow,
-                    n_at_build=len(rows), epoch=epoch, device=emb.device)
+                    n_at_build=len(rows), epoch=epoch, device=ctrl,
+                    regions=layout(store) if ALLOCS in store else None)
+
+
+def probe_allocations(store: Store, index: IVFIndex, q, clusters, pred,
+                      k: int, *, use_kernel: bool | None = None):
+    """The probe (`kernels.ivf_probe.ops.ivf_probe`: the compaction, then
+    the scan) over the probed ``clusters`` ((U_pad,) int32 on the
+    controller, `IVFIndex.probe_device`): one launch an allocation, on its
+    device over its mirror (the clusters, ``q`` and ``pred`` copied to it
+    without a host sync), every launch queued before the lists are merged
+    on the controller (`merge_pieces`). ``q`` is a host array or a tensor;
+    ``pred`` a `Predicate` or its packed (4,) int32 array. Returns (scores
+    (B, k), ARENA slots (B, k)) on the controller."""
+    from repro_torch.core.query import Predicate
+    from repro_torch.kernels.filtered_topk.ops import merge_pieces
+    from repro_torch.kernels.ivf_probe.ops import ivf_probe
+
+    def pred_on(dev):
+        if isinstance(pred, Predicate):
+            return pred.as_array(dev)
+        return to_device(torch.as_tensor(pred, dtype=torch.int32), dev)
+    d = index.device_arrays()
+    mirrors = (d,) if index.regions is None else d["regions"]
+    if len(mirrors) != len(allocations(store)):
+        raise ValueError("the index's mirrors are not laid out like the "
+                         "store's allocations: rebuild it over this store")
+    lists = []
+    for lo, part, mirror in zip(row_starts(store), allocations(store),
+                                mirrors):
+        dev = part["emb"].device
+        lists.append((lo, *ivf_probe(
+            to_device(q, dev), part["emb"], part["tenant"],
+            part["updated_at"], part["category"], part["acl"],
+            mirror["members"], mirror["overflow"], to_device(clusters, dev),
+            pred_on(dev), k, use_kernel=use_kernel)))
+    return merge_pieces(lists, k, controller(store))
 
 
 def ivf_query(store: Store, index: IVFIndex, q, pred, k: int,
@@ -401,15 +522,9 @@ def ivf_query(store: Store, index: IVFIndex, q, pred, k: int,
     the two stages itself so it can count rows_scanned).
 
     ``pred`` is a Predicate or its packed (4,) int32 array. Returns
-    (scores (B, k), ARENA slots (B, k))."""
-    from repro_torch.core.query import Predicate
-    from repro_torch.kernels.ivf_probe.ops import ivf_probe
-    dev = store["emb"].device
-    pa = (pred.as_array(dev) if isinstance(pred, Predicate)
-          else torch.as_tensor(pred, dtype=torch.int32, device=dev))
-    q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    (scores (B, k), ARENA slots (B, k)) on the store's controller."""
+    ctrl = controller(store)
+    q = torch.as_tensor(q, dtype=torch.float32, device=ctrl)
     clusters = index.probe_device(q, nprobe or index.cfg.nprobe)
-    d = index.device_arrays()
-    return ivf_probe(q, store["emb"], store["tenant"], store["updated_at"],
-                     store["category"], store["acl"], d["members"],
-                     d["overflow"], clusters, pa, k, use_kernel=use_kernel)
+    return probe_allocations(store, index, q, clusters, pred, k,
+                             use_kernel=use_kernel)

@@ -34,6 +34,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import same_device
+
 Store = dict[str, torch.Tensor]
 
 #: store columns in the reference's order
@@ -112,6 +114,17 @@ def upload(x, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_device(x, device) -> torch.Tensor:
+    """``x`` on ``device``: a host array by `upload`, a tensor on another
+    card by an asynchronous copy between the cards (no host sync; the two
+    cards' streams are tied for it), a tensor already there as it is."""
+    if isinstance(x, np.ndarray) or x.device.type == "cpu":
+        return upload(x, device)
+    if same_device(x.device, device):
+        return x
+    return x.to(device, non_blocking=True)
+
+
 def allocations(store: Store) -> tuple:
     """The store's allocations in row order, each a dict of the row
     columns: the store itself when it is one allocation."""
@@ -125,6 +138,32 @@ def row_starts(store: Store) -> list[int]:
         starts.append(lo)
         lo += part["emb"].shape[0]
     return starts
+
+
+def layout(store: Store) -> tuple:
+    """((device, first row, rows), ...): the allocations in row order, the
+    layout that the lexical lanes and the IVF mirrors of a store held in
+    several allocations copy."""
+    return tuple((part["emb"].device, lo, part["emb"].shape[0])
+                 for lo, part in zip(row_starts(store), allocations(store)))
+
+
+def split_slots(bounds, slots) -> list[tuple[int, np.ndarray, np.ndarray]]:
+    """The global ``slots`` split by allocation, ``bounds`` ((first row,
+    rows), ...) in row order: (allocation, positions in ``slots``, local
+    slots) for each allocation a slot hits, in row order.
+
+    >>> [(i, p.tolist(), s.tolist())
+    ...  for i, p, s in split_slots([(0, 4), (4, 4)], [5, 1, 6])]
+    [(0, [1], [1]), (1, [0, 2], [1, 2])]
+    """
+    slots = np.asarray(slots, np.int64).reshape(-1)
+    out = []
+    for i, (lo, rows) in enumerate(bounds):
+        pos = np.flatnonzero((slots >= lo) & (slots < lo + rows))
+        if len(pos):
+            out.append((i, pos, slots[pos] - lo))
+    return out
 
 
 def n_rows(store: Store) -> int:
@@ -143,12 +182,11 @@ def gather(store: Store, name: str, slots) -> list[int]:
     read on its allocation's device."""
     slots = np.asarray(slots, np.int64)
     out = np.zeros(len(slots), np.int64)
-    for lo, part in zip(row_starts(store), allocations(store)):
-        col = part[name]
-        pos = np.flatnonzero((slots >= lo) & (slots < lo + col.shape[0]))
-        if len(pos):
-            idx = torch.as_tensor(slots[pos] - lo, device=col.device)
-            out[pos] = col[idx].cpu().numpy()
+    parts = allocations(store)
+    for i, pos, local in split_slots([(lo, rows) for _, lo, rows
+                                      in layout(store)], slots):
+        col = parts[i][name]
+        out[pos] = col[torch.as_tensor(local, device=col.device)].cpu().numpy()
     return out.tolist()
 
 

@@ -14,7 +14,11 @@ On a store held in several allocations (one a device, ``core.store``) a
 write splits its slots by allocation on the host: only the allocations it
 writes are built anew, each on its own device; the others are the previous
 snapshot's tensors, shared. The commit is still one swap of the whole
-snapshot dict, so it is atomic across devices.
+snapshot dict, so it is atomic across devices. The write-through hooks
+keep their order (`WRITE_STEPS`): the ``lex`` step hands the global slots
+to a `LexicalArena` laid out like the store, which splits them by
+allocation the same way; the ``ivf`` step keeps global slots on the host,
+where the `IVFIndex` lives.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 
 from repro_torch.core.store import (ALLOCS, DocBatch, ShardPlacement, Store,
                                     StoreConfig, allocations, controller,
-                                    empty, normalize, row_starts, upload)
+                                    empty, layout, normalize, split_slots,
+                                    upload)
 
 
 def _col(x, dtype, device) -> torch.Tensor:
@@ -59,22 +64,20 @@ def _per_allocation(store: Store, slots: torch.Tensor, cols: tuple, write):
     if ALLOCS not in store:
         return write(store, slots, *cols)
     ctrl = controller(store)
-    slots = slots.cpu().to(torch.int64)
     parts = list(allocations(store))
     # every allocation's rows are sent to its device before any write is
     # queued, and the counts reach the controller after every write: a
     # copy between cards ties the two cards' streams, so a row copy queued
     # behind a card's write, or behind a count, would wait for that card
     todo = []
-    for i, lo in enumerate(row_starts(store)):
+    for i, pos, local in split_slots(
+            [(lo, rows) for _, lo, rows in layout(store)],
+            slots.cpu().numpy()):
         dev = parts[i]["emb"].device
-        hit = (slots >= lo) & (slots < lo + parts[i]["emb"].shape[0])
-        pos = torch.nonzero(hit).flatten()
-        if len(pos):
-            rows = [_pick(c, pos) for c in cols]
-            todo.append((i, upload(slots[pos] - lo, dev), [
-                r.to(dev, non_blocking=True)
-                if isinstance(r, torch.Tensor) else r for r in rows]))
+        rows = [_pick(c, torch.from_numpy(pos)) for c in cols]
+        todo.append((i, upload(local, dev), [
+            r.to(dev, non_blocking=True)
+            if isinstance(r, torch.Tensor) else r for r in rows]))
     counts = []
     for i, local, rows in todo:
         parts[i], count = write(parts[i], local, *rows)

@@ -6,9 +6,11 @@
                             CPU; acc / l in the (B, H, hd) layout
   decode_attention_sharded  sequence-parallel KV cache: one kernel launch
                             per shard of S on its slice of the cache (read
-                            in place), partial (acc, m, l) merged with the
-                            logsumexp combine (`merge_sharded`) --
-                            flash-decode's split-K across a mesh axis
+                            in place, on the device of the piece that
+                            holds it), partial (acc, m, l) merged on q's
+                            device with the logsumexp combine
+                            (`merge_sharded`) -- flash-decode's split-K
+                            across a mesh axis
 
 On the ``meta`` device (the launch tools' dry run) a call returns empty
 partials of the kernel's shapes and dtypes and launches nothing: shape
@@ -82,39 +84,65 @@ def decode_attention(q, k_cache, v_cache, lengths, n_kv: int,
 def merge_sharded(mesh, seq_axis, qg, k_cache, v_cache, lengths):
     """The sequence-parallel split of `decode_attention_sharded`, kept
     un-normalised: qg (B, KV, G, hd), caches (B, S, KV, hd) split along S
-    into the shards of ``seq_axis``. Each shard runs the kernel (its plain
-    version on the CPU) over its slice of S_local positions -- a view of
-    the caches, not a copy -- with its own live prefix clip(lengths -
-    s * S_local, 0, S_local); the partials merge by m* = max m_i, w_i =
-    e^{m_i - m*} (0 where l_i = 0), l* = sum l_i w_i, acc* = sum acc_i w_i.
-    A shard with no live row has m_i = NEG_INF, so its weight is 0
-    whenever another shard is live; a sequence with no live row at all
-    takes every weight 1 (the mean of V, as the unsharded kernel). Returns
-    (acc* (B, KV, G, hd), l* (B, KV, G, 1)), f32."""
+    into the shards of ``seq_axis``. The caches are one tensor each or
+    pieces along S, one a device group of the mesh in sequence order
+    (`filtered_topk.ops.shard_pieces` on dim 1). Each shard runs the
+    kernel (its plain version on the CPU) on its piece's device over its
+    slice of S_local positions -- a view of the caches, not a copy -- with
+    its own live prefix clip(lengths - s * S_local, 0, S_local), qg and
+    lengths copied there without a host sync; every launch is queued
+    before the partials go to qg's device, where they merge by m* = max
+    m_i, w_i = e^{m_i - m*} (0 where l_i = 0), l* = sum l_i w_i, acc* =
+    sum acc_i w_i. A shard with no live row has m_i = NEG_INF, so its
+    weight is 0 whenever another shard is live; a sequence with no live
+    row at all takes every weight 1 (the mean of V, as the unsharded
+    kernel). Returns (acc* (B, KV, G, hd), l* (B, KV, G, 1)), f32."""
+    from repro_torch.core.store import to_device
+    from repro_torch.kernels.filtered_topk.ops import shard_pieces
     n = mesh_shards(mesh, seq_axis)
-    S = k_cache.shape[1]
+    ks = shard_pieces(mesh, seq_axis, _seq_major(k_cache), "k_cache")
+    vs = shard_pieces(mesh, seq_axis, _seq_major(v_cache), "v_cache")
+    S = sum(piece.shape[0] for piece, _, _ in ks)
     if S % n:
         raise ValueError(f"cache length {S} not divisible by {n} shards")
     s_local = S // n
     lengths = lengths.to(torch.int32)
     parts = []
-    for s in range(n):
-        lo = s * s_local
-        local = (lengths - lo).clamp(0, s_local)
-        parts.append(_partials(qg, k_cache[:, lo:lo + s_local],
-                               v_cache[:, lo:lo + s_local], local))
-    acc, m, l = (torch.stack(t) for t in zip(*parts))     # (n, B, KV, G, .)
+    for (kp, first, count), (vp, _, _) in zip(ks, vs):
+        kp, vp = kp.transpose(0, 1), vp.transpose(0, 1)   # back to (B, S..)
+        if kp.shape[1] != count * s_local or vp.shape != kp.shape:
+            raise ValueError(f"a cache piece of {kp.shape[1]} positions "
+                             f"for {count} shards of {s_local}")
+        qg_p = to_device(qg, kp.device)
+        len_p = to_device(lengths, kp.device)
+        for j in range(count):
+            lo = j * s_local
+            local = (len_p - (first + j) * s_local).clamp(0, s_local)
+            parts.append(_partials(qg_p, kp[:, lo:lo + s_local],
+                                   vp[:, lo:lo + s_local], local))
+    acc, m, l = (torch.stack([t.to(qg.device, non_blocking=True)
+                              for t in ts])
+                 for ts in zip(*parts))                    # (n, B, KV, G, .)
     w = torch.where(l > 0, torch.exp(m - m.amax(dim=0)), 0.0)
     return (acc * w).sum(dim=0), (l * w).sum(dim=0)
+
+
+def _seq_major(cache):
+    """A cache, or each of its pieces, viewed with S first (no copy), so
+    that `shard_pieces` splits it along S."""
+    if isinstance(cache, torch.Tensor):
+        return cache.transpose(0, 1)
+    return [c.transpose(0, 1) for c in cache]
 
 
 def decode_attention_sharded(mesh, seq_axis, q, k_cache, v_cache, lengths,
                              n_kv: int, blk_s: int = 512):
     """KV cache sharded along S over ``seq_axis``; q (B, H, hd) and lengths
     shared: `merge_sharded`'s partials, then out = acc* / l*. The payload
-    merged is O(B * H * hd) a shard, independent of S. ``blk_s`` is kept
-    for the reference's signature. Returns (B, H, hd) in q's dtype; every
-    mesh device must be the caches'."""
+    merged is O(B * H * hd) a shard, independent of S. The caches are one
+    tensor each or pieces on the mesh's devices (`merge_sharded`).
+    ``blk_s`` is kept for the reference's signature. Returns (B, H, hd) in
+    q's dtype, on q's device."""
     B, H, hd = q.shape
     acc, l_sum = merge_sharded(mesh, seq_axis,
                                q.reshape(B, n_kv, H // n_kv, hd), k_cache,

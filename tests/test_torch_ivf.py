@@ -350,7 +350,7 @@ def test_index_matches_reference_over_writes(cap):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_port_kmeans_recall_at_10_on_seed_grid(seed):
-    """The port builds its own index (torch.multinomial seeds, chunked
+    """The port builds its own index (seeds by random keys, chunked
     Lloyd steps): held to recall@10 >= 0.95 against the exact engine on the
     reference test's seed grid, not to the reference's bits."""
     ccfg = CorpusConfig(n_docs=3000, dim=32, n_tenants=4, n_categories=4,
@@ -378,11 +378,11 @@ def test_chunked_kmeans_equals_one_block():
     rng = np.random.default_rng(0)
     emb = torch.from_numpy(rng.standard_normal((500, 8)).astype(np.float32))
     live = torch.from_numpy(rng.random(500) < 0.9)
-    one = ivf_core._kmeans(emb, live, 7, 4, 0)
+    one = ivf_core._kmeans_allocations([emb], [live], 7, 4, 0, "cpu")
     saved = ivf_core._BLOCK_BYTES
     try:
         ivf_core._BLOCK_BYTES = 4 * 7 * 33          # 33-row chunks
-        chunked = ivf_core._kmeans(emb, live, 7, 4, 0)
+        chunked = ivf_core._kmeans_allocations([emb], [live], 7, 4, 0, "cpu")
         a_chunk = ivf_core._assign(emb, chunked)
     finally:
         ivf_core._BLOCK_BYTES = saved

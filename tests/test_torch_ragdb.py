@@ -188,12 +188,12 @@ def test_later_slices_and_tpu_engine_are_refused():
     with pytest.raises(ValueError, match="match\\(\\) clause"):
         b.using("hybrid").plan()
     # the warm tier and mesh= are ported: a mesh of the store's device
-    # builds a sharded db; a mesh naming another device waits for arena
-    # regions on their own cards (ROADMAP queue 1)
+    # builds a sharded db; a mesh mixing device types is refused (arena
+    # regions on their own cards take one device type)
     sdb = RagDB(StoreConfig(capacity=8, dim=4), device="cpu",
                 mesh=make_mesh((2,), ("data",), devices=["cpu"] * 2))
     assert sdb.n_shards == 2 and sdb.log.placement.kind == "hash"
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match="take one device type"):
         RagDB(StoreConfig(capacity=8, dim=4), device="cpu",
               mesh=make_mesh((2,), ("data",), devices=["cpu", "meta"]))
     assert b.plan().route_reason == "warm tier empty"

@@ -26,8 +26,11 @@ with several allocations. S = 4 regions of 256 rows, D = 16:
   * `on_device`, which every ctypes launch enters: the tensors' card
     current for the launch and the thread's card restored (stand-ins for
     the CUDA calls);
-  * what raises: hybrid, IVF and tiers over several devices, and a scan
-    given a store laid out for another mesh.
+  * what raises: a scan given a store laid out for another mesh.
+
+Hybrid, IVF and tiers over regions on their own devices, and the sharded
+kernel entry points over pieces on distinct devices, are held to the
+reference in ``test_torch_regions_hybrid.py``.
 """
 import json
 import os
@@ -48,13 +51,11 @@ from repro.core.store import StoreConfig as JStoreConfig
 from repro.core.store import empty as j_empty
 from repro.core.transactions import TransactionLog as JTransactionLog
 from repro_torch.api import RagDB
-from repro_torch.core.ivf import IVFConfig
 from repro_torch.core.query import Predicate, predicate_mask
 from repro_torch.core.store import (ALLOCS, COLUMNS, DocBatch, StoreConfig,
                                     allocations, from_numpy, to_numpy)
 from repro_torch.core.tenancy import Principal
 from repro_torch.core.transactions import CRASH_POINTS
-from repro_torch.index.lexical import LexicalConfig
 from repro_torch.kernels import _attention
 from repro_torch.kernels.arena_scan import sharded as sh_mod
 from repro_torch.kernels.arena_scan.sharded import make_sharded_arena_scan
@@ -479,23 +480,6 @@ def test_launches_enter_the_tensors_device(monkeypatch):
 
 
 # -- what raises ----------------------------------------------------------
-
-def test_regions_raise_where_not_ported():
-    cfg = StoreConfig(capacity=CAP, dim=DIM)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 2"):
-        _db("hash", lexical_cfg=LexicalConfig())
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 2"):
-        _db("hash", warm_cfg=cfg, hot_window_s=100)
-    db = _db("hash")
-    _apply(db, "ingest", _docs(0, 100))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 2"):
-        db.build_index(IVFConfig(n_clusters=8))
-    # on one device each of them works
-    one = _db("hash", ["cpu"] * S, lexical_cfg=LexicalConfig(),
-              warm_cfg=cfg, hot_window_s=100)
-    _apply(one, "ingest", _docs(0, 100))
-    assert one.build_index(IVFConfig(n_clusters=8)).n_clusters == 8
-
 
 def test_scan_refuses_a_store_of_another_layout():
     single = _db("hash", ["cpu"] * S)
