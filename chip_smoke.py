@@ -5984,7 +5984,8 @@ def phase_train_mesh(dev, cfg=None, *, batch=8, seq=1024, mesh_shape=(2, 4),
         return out
 
     common = ["--arch", launcher_arch, "--steps", str(launcher_steps),
-              "--batch", str(batch), "--seq", str(seq), *launcher_extra]
+              "--batch", str(batch), "--seq", str(seq), "--device", str(dev),
+              *launcher_extra]
     runs = {"plain": launcher(common),
             "mesh_vp": launcher(common + ["--mesh", mesh_arg, "--vp-loss"])}
     gaps = [abs(a - b) / abs(b) for a, b in zip(runs["mesh_vp"]["losses"],
@@ -6095,6 +6096,604 @@ def phase_train_mesh(dev, cfg=None, *, batch=8, seq=1024, mesh_shape=(2, 4),
          note="the mesh training path launches no kernel (plain PyTorch, "
               "as the reference's plain jnp)")
     check(after == before, f"train_mesh launched kernels: {before} -> {after}")
+
+
+def cards_sync(cards):
+    for c in dict.fromkeys(cards):
+        torch.cuda.synchronize(c)
+
+
+def cards_reset_peaks(cards):
+    """Reset each card's peak memory (a card's allocator must have
+    allocated once before its stats can be reset)."""
+    for c in dict.fromkeys(cards):
+        torch.zeros(1, device=c)
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def cards_idle(fn, cards):
+    """Each card's idle share of one call of ``fn`` (torch.profiler, after
+    an untimed call): 1 - the union of its kernels' and copies' intervals
+    over the call's wall time; None for a card whose trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    cards_sync(cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        cards_sync(cards)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans: dict = {}
+    for ev in prof.events():
+        if "CUDA" in str(getattr(ev, "device_type", "")) and \
+                ev.time_range.elapsed_us() > 0:
+            spans.setdefault(ev.device_index, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    out = {}
+    for c in dict.fromkeys(cards):
+        busy, end = 0.0, -1.0
+        for a, b in sorted(spans.get(c.index, [])):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[str(c)] = (max(0.0, 1 - busy / wall_us)
+                       if spans.get(c.index) else None)
+    return {"wall_ms": wall_us / 1e3, "idle_share": out}
+
+
+def placed_bytes(state, cards) -> dict:
+    """Bytes of a placed state's params and optimizer pieces a card."""
+    from repro_torch.distributed.sharding import Placed
+    from repro_torch.launch.mesh import normalize_device
+    from repro_torch.training import tree as T
+    out = {str(c): 0 for c in dict.fromkeys(cards)}
+    for part in ("params", "opt"):
+        for _, leaf in T.ref_items(state[part]):
+            if isinstance(leaf, Placed):
+                for d, n in leaf.nbytes_by_device().items():
+                    out[str(normalize_device(d))] += n
+    return out
+
+
+def reckoned_state_bytes(cfg, opt, shape) -> int:
+    """The launch tools' per-device bytes of a state's params and
+    optimizer on a (data, model) mesh of ``shape`` (`dryrun.tree_bytes`
+    over the reference's specs, on meta)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=["meta"] * int(np.prod(shape)))
+    model = tfm.Transformer(cfg, device="meta")
+    state = {"params": model, "opt": opt.init(model)}
+    sh = shd.state_shardings(mesh, dict(state, step=0), shd.lm_rules(mesh))
+    return dryrun.tree_bytes((state,), (sh,))
+
+
+def step_roofline(arch_id, cfg, batch, seq, shape) -> dict:
+    """The launch tools' H100 roofline of one train step of ``cfg`` at
+    batch x seq on a (data, model) mesh of ``shape``, reckoned on meta: the
+    cell built and measured as the dry run does, from a registry entry
+    that holds this config and shape for the call."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=["meta"] * int(np.prod(shape)))
+    saved = configs.ARCHS[arch_id]
+    configs.ARCHS[arch_id] = dataclasses.replace(
+        saved, full=cfg, shapes={"train_cards": {"kind": "train",
+                                                 "batch": batch,
+                                                 "seq": seq}})
+    try:
+        cell = steps.build_cell(arch_id, "train_cards", mesh)
+        m = dryrun.measure(cell, mesh)
+    finally:
+        configs.ARCHS[arch_id] = saved
+    n = m["n_dev"]
+    entry = {"flops": m["cost"].flops / n, "bytes": m["cost"].bytes / n,
+             "coll": float(sum(m["coll"].values())),
+             "temp_bytes": -(-m["cost"].peak_bytes // n),
+             "args_bytes": m["args_bytes"], "model_flops": cell.model_flops,
+             "model_bytes": cell.model_bytes}
+    a = roofline.analyze(entry, n)
+    return {"terms_ms": {k: v * 1e3 for k, v in a["terms_s"].items()},
+            "bound_ms": max(a["terms_s"].values()) * 1e3,
+            "dominant": a["dominant"],
+            "roofline_fraction": a["roofline_fraction"],
+            "collective_bytes": m["coll"]}
+
+
+def cards_launcher(argv, cards):
+    """`launch.train.main` over ``argv`` with its step spied: per-step
+    losses and ms (every card synchronised), each card's peak GB, and the
+    final state with its step function and last batch."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training import train_loop
+    losses, dts, last, real = [], [], {}, train_loop.make_train_step
+
+    def spy(loss_fn, opt, **kw):
+        step = real(loss_fn, opt, **kw)
+
+        def timed(state, bb):
+            t0 = time.perf_counter()
+            state, m = step(state, bb)
+            losses.append(float(m["loss"]))
+            cards_sync(cards)
+            dts.append((time.perf_counter() - t0) * 1e3)
+            last.update(step=step, batch=bb)
+            return state, m
+        return timed
+    cards_reset_peaks(cards)
+    train_loop.make_train_step = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train_launch.main(argv)
+    finally:
+        train_loop.make_train_step = real
+    return {"argv": " ".join(argv), "seconds": time.perf_counter() - t0,
+            "losses": losses, "step_ms": dts,
+            "step_ms_median": statistics.median(dts[1:] or dts),
+            "peak_gb": {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+                        for c in dict.fromkeys(cards)}}, state, last
+
+
+def cards_free(cards):
+    gc.collect()
+    for c in dict.fromkeys(cards):
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+
+
+def cards_parity(mesh, cfg, opt_fn, *, steps, batch, seq):
+    """``cfg`` trained ``steps`` steps by the plain one-card trainer on the
+    mesh's first card and, from the same init and batches, by the step
+    over the state laid on ``mesh`` (the vocab-parallel loss): both runs'
+    losses and step ms."""
+    from repro_torch.data.lm_pipeline import synthetic_lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop
+    cards = list(mesh.devices)
+    first = cards[0]
+    data = synthetic_lm_batches(cfg.vocab_size, batch, seq, seed=SEED)
+    batches = [next(data) for _ in range(steps)]
+    skeleton = tfm.Transformer(cfg, device="meta")
+    opt = opt_fn(steps)
+    sh = shd.state_shardings(mesh, {"params": skeleton,
+                                    "opt": opt.init(skeleton), "step": 0},
+                             shd.lm_rules(mesh))
+    out = {}
+    for name in ("plain", "cards"):
+        model = tfm.init(cfg, generator=torch.Generator(device=first)
+                         .manual_seed(SEED), device=first)
+        if name == "plain":
+            state = train_loop.init_state(model, opt)
+            step = train_loop.make_train_step(
+                lambda p, b: tfm.loss_fn(p, cfg, b), opt)
+        else:
+            state = train_loop.init_state(model, opt, sh, split=True)
+            step = train_loop.make_train_step(tfm.make_vp_loss_fn(cfg, mesh),
+                                              opt)
+        del model
+        losses, dts = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            cards_sync(cards)
+            dts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"losses": losses, "step_ms": dts,
+                     "step_ms_median": statistics.median(dts[1:] or dts)}
+        del state, step
+        cards_free(cards)
+    out["loss_rel_gaps"] = [abs(a - b) / abs(b) for a, b in zip(
+        out["cards"]["losses"], out["plain"]["losses"])]
+    return out
+
+
+def cards_grads(mesh, cfg, *, batch, seq):
+    """One f32 batch's loss and gradients: the plain one-card loss on the
+    mesh's first card and the vp loss over the state laid on ``mesh``,
+    from the same init. Returns the gaps, the placed gradients and the
+    plain model."""
+    from repro_torch.data.lm_pipeline import synthetic_lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop
+    from repro_torch.training import tree as T
+    first = mesh.devices[0]
+    b = next(synthetic_lm_batches(cfg.vocab_size, batch, seq, seed=SEED + 1))
+
+    def fresh():
+        return tfm.init(cfg, generator=torch.Generator(device=first)
+                        .manual_seed(SEED), device=first)
+    plain = fresh().requires_grad_(True)
+    l_plain, g_plain = train_loop._grads(
+        lambda p, bb: tfm.loss_fn(p, cfg, bb), plain, b)
+    g_plain = {k: T.stacked(v) for k, v in flat(g_plain).items()}
+    model = fresh()
+    placed = shd.place(model, shd.named(mesh, shd.param_pspecs(
+        model, shd.lm_rules(mesh), mesh)), split=True)
+    del model
+    l_cards, g_cards = train_loop._grads(tfm.make_vp_loss_fn(cfg, mesh),
+                                         placed, b)
+    close, gaps = {}, {}
+    for key, g in flat(g_cards).items():
+        got = g.assemble(first)
+        close[key] = bool(torch.allclose(got, g_plain[key], rtol=1e-4,
+                                         atol=1e-5))
+        gaps[key] = ((got - g_plain[key]).abs().max().item()
+                     / max(g_plain[key].abs().max().item(), 1e-30))
+    rel = abs(l_cards.item() - l_plain.item()) / abs(l_plain.item())
+    return {"loss": [l_cards.item(), l_plain.item()], "loss_rel_gap": rel,
+            "leaves_within_rtol1e-4_atol1e-5": sum(close.values()),
+            "leaves": len(close), "worst_leaf_gap": max(gaps.values()),
+            "worst_leaf": max(gaps, key=gaps.get),
+            "outside": [k for k, ok in close.items() if not ok]}, \
+        g_cards, plain, b
+
+
+def phase_train_cards(dev, cards=None, *, batch=8, seq=1024, full_steps=10,
+                      cut_layers=4, parity_steps=8, f32_layers=2,
+                      moe_groups=32, ef_rounds=50, arch_id="yi-6b"):
+    """A train state laid on its own cards: every parameter and optimizer
+    leaf in pieces by the reference's specs, one allocation a card, the
+    step's gathers, reduce-scatters, the vocab-parallel loss and the MoE
+    aux as cross-card collectives. No kernel (plain PyTorch, as the
+    reference trains outside Pallas); every launch counter is checked.
+    With four or more cards, on a (data 2, model 2) mesh of cuda:0..3 (two
+    or three: (1, 2) at (b)'s cut):
+    (a) `launch.train.main --arch yi-6b --mesh 2x2 --vp-loss` at FULL
+        width, bf16: step ms, tokens/s, each card's peak GB and state
+        bytes against the launch tools' reckoning (exact), the launch
+        tools' H100 roofline of the step, the idle share of one step a
+        card (torch.profiler), finite losses;
+    (b) yi-6b at full width cut to ``cut_layers`` layers on the cards
+        against the plain one-card trainer from the same init and batches:
+        per-step losses within rel 5e-3 over ``parity_steps`` bf16 steps;
+        cut to ``f32_layers`` layers in f32 (TF32 off), one batch: loss
+        within rel 1e-5, every grad leaf within rtol 1e-4 / atol 1e-5;
+    (c) granite FULL on the cards: one vp-loss step's loss within rel 1e-3
+        of the one-card plain step's; the mesh MoE dispatch
+        (`moe_apply_scatter_shmap` under the cards' mesh) at granite's
+        layer: aux bit for bit the one-card chunks' mean, y within 2e-2 of
+        its largest magnitude (the expert slices' bf16 partial sums);
+    (d) `psum_int8` / `psum_bf16` over per-card gradients within 4e-2 /
+        2e-2 of the exact sum; `ef_compress` over (b)'s placed f32
+        gradients, ``ef_rounds`` rounds within 1% of rounds x g;
+    (e) (b)'s bf16 cut after one step: save, `restore(shardings=)` onto
+        the cards bit for bit and a step after it bit for bit;
+        `reshard_state` onto two of the cards (`make_elastic_mesh`) bit
+        for bit and a step after it equal to one on the same state placed
+        there directly (deterministic algorithms).
+    With one card: (b) on a (2, 2) mesh of cuda:0, each coordinate its own
+    pieces (``split``), through the same step."""
+    import tempfile
+    from repro_torch.configs import get, granite_moe_1b
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop
+    from repro_torch.training import tree as T
+    from repro_torch.training.fault_tolerance import (make_elastic_mesh,
+                                                      reshard_state)
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    cards = cards or [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())]
+    n = len(cards)
+    if n >= 4:
+        shape, devices = (2, 2), cards[:4]
+    elif n >= 2:
+        shape, devices = (1, 2), cards[:2]
+    else:
+        shape, devices = (2, 2), [cards[0]] * 4
+    used = list(dict.fromkeys(devices))
+    mesh = make_mesh(shape, ("data", "model"), devices=devices)
+    split = len(used) == 1      # one card: a piece a coordinate all the same
+    full = get(arch_id).full
+    cut = dataclasses.replace(full, n_layers=cut_layers)
+    mesh_arg = "x".join(map(str, shape))
+    out = {"cards": n, "mesh": list(shape),
+           "devices": [str(d) for d in devices]}
+
+    def launcher_opt(steps):
+        return adamw(cosine_schedule(3e-4, 100, steps), weight_decay=0.1)
+
+    # (a) the launcher over the cards
+    if n >= 2:
+        if n >= 4:
+            cfg_a = full
+            run, state, last = cards_launcher(
+                ["--arch", arch_id, "--mesh", mesh_arg, "--vp-loss",
+                 "--batch", str(batch), "--seq", str(seq), "--steps",
+                 str(full_steps)], used)
+        else:                  # two or three cards: (b)'s cut, same path
+            cfg_a = cut
+            run, state, last = cards_launch_cut(cut, mesh, batch, seq,
+                                                full_steps, used)
+        have = placed_bytes(state, used)
+        reckoned = reckoned_state_bytes(cfg_a, launcher_opt(full_steps),
+                                        shape)
+        prof = cards_idle(lambda: last["step"](state, last["batch"]), used)
+        del state, last
+        cards_free(used)
+        roof = step_roofline(arch_id, cfg_a, batch, seq, shape)
+        step_ms = run["step_ms_median"]
+        emit("train_cards_run", card=CARD, cards=n, mesh=list(shape),
+             model=cfg_a.name, layers=cfg_a.n_layers,
+             params=cfg_a.param_count(), batch=batch, seq=seq,
+             steps=full_steps, losses=run["losses"], step_ms=run["step_ms"],
+             step_ms_median=step_ms, tokens_per_s=batch * seq / step_ms * 1e3,
+             peak_gb=run["peak_gb"], state_bytes=have,
+             reckoned_state_bytes_a_device=reckoned,
+             roofline=roof, ms_over_bound=step_ms / roof["bound_ms"],
+             idle=prof, seconds=run["seconds"],
+             blocks="gathered before use, freed after each layer's forward "
+                    "and gathered again in its recomputation (remat)")
+        out["step_ms"], out["peak_gb"] = step_ms, run["peak_gb"]
+        check(len(run["losses"]) == full_steps
+              and all(np.isfinite(run["losses"])), f"losses {run['losses']}")
+        check(all(v == reckoned for v in have.values()),
+              f"state bytes a card {have} vs reckoned {reckoned}")
+        check(all(v < 80 for v in run["peak_gb"].values()),
+              f"peaks {run['peak_gb']}")
+
+    # (b) parity with the plain one-card trainer
+    par = cards_parity(mesh, cut, launcher_opt, steps=parity_steps,
+                       batch=batch, seq=seq)
+    f32 = dataclasses.replace(full, n_layers=f32_layers, dtype="float32")
+    grads, g_cards, plain, gb = cards_grads(mesh, f32, batch=batch, seq=seq)
+    emit("train_cards_parity", card=CARD, cards=n, mesh=list(shape),
+         split_on_one_card=split,
+         bf16={"layers": cut_layers, "steps": parity_steps,
+               "losses": {k: par[k]["losses"] for k in ("plain", "cards")},
+               "loss_rel_gaps": par["loss_rel_gaps"],
+               "step_ms_median": {k: par[k]["step_ms_median"]
+                                  for k in ("plain", "cards")},
+               "gate": "every step's loss within rel 5e-3"},
+         f32=dict(grads, layers=f32_layers,
+                  gate="loss rel <= 1e-5, every leaf within rtol 1e-4 / "
+                       "atol 1e-5"))
+    out["parity"] = {"bf16_worst": max(par["loss_rel_gaps"]),
+                     "f32_loss": grads["loss_rel_gap"]}
+    check(max(par["loss_rel_gaps"]) <= 5e-3,
+          f"cards vs plain losses {par['loss_rel_gaps']}")
+    check(grads["loss_rel_gap"] <= 1e-5, f"f32 loss gap {grads}")
+    check(not grads["outside"], f"f32 grads outside: {grads['outside']}")
+    if n < 2:
+        del g_cards, plain, gb
+        cards_free(used)
+        after = kernel_launches()
+        emit("train_cards", card=CARD, cards=n,
+             seconds=time.perf_counter() - t_phase,
+             kernels_launched={k: after[k] - before[k] for k in after},
+             note="one card: (b) on a (2, 2) mesh of cuda:0, every "
+                  "coordinate its own pieces; (a), (c)-(e) need two cards")
+        check(after == before, f"train_cards launched kernels: {before} -> "
+              f"{after}")
+        return out
+
+    # (d) compression over the cards' gradients
+    per_card = []
+    h = batch // n
+    for i, c in enumerate(used):
+        part = {k: v[i * h:(i + 1) * h] for k, v in gb.items()}
+        g = train_loop._grads(lambda p, bb: tfm.loss_fn(p, f32, bb), plain,
+                              part)[1]
+        per_card.append({k: T.stacked(v).to(c) for k, v in flat(g).items()
+                         if k in ("lm_head", "layers/ffn/w_up",
+                                  "layers/attn/wq", "final_norm")})
+        del g
+    psum = {"int8": {}, "bf16": {}}
+    for key in per_card[0]:
+        xs = [g[key] for g in per_card]
+        exact = sum(x.to(used[0]).double() for x in xs)
+        scale = max(exact.abs().max().item(), 1e-30)
+        for name, fn in (("int8", comp.psum_int8), ("bf16", comp.psum_bf16)):
+            res = fn(xs, devices=used)
+            check(len(res) == len(used) and all(
+                torch.equal(r.to(used[0]), res[0].to(used[0])) for r in res),
+                f"psum_{name} differs between cards")
+            psum[name][key] = (res[0].double() - exact).abs().max().item() \
+                / scale
+    del per_card, plain
+    cards_free(used)
+    ef = comp.ef_init(g_cards)
+    total = None
+    for _ in range(ef_rounds):
+        q, ef = comp.ef_compress(g_cards, ef)
+        total = q if total is None else T.tree_map(
+            lambda a, b: a.map(torch.add, b), total, q)
+    ef_err = {}
+    for key, leaf in flat(total).items():
+        want = flat(g_cards)[key].assemble(used[0]).double() * ef_rounds
+        ef_err[key] = ((leaf.assemble(used[0]).double() - want).abs().max()
+                       .item() / max(want.abs().max().item(), 1e-30))
+    del total, ef, q, g_cards, gb
+    cards_free(used)
+    emit("train_cards_compression", card=CARD, cards=n,
+         psum_int8_worst_rel=max(psum["int8"].values()),
+         psum_bf16_worst_rel=max(psum["bf16"].values()), psum=psum,
+         ef_rounds=ef_rounds, ef_worst_leaf_err=max(ef_err.values()),
+         ef_worst_leaf=max(ef_err, key=ef_err.get))
+    check(max(psum["int8"].values()) < 4e-2, f"psum_int8 {psum['int8']}")
+    check(max(psum["bf16"].values()) < 2e-2, f"psum_bf16 {psum['bf16']}")
+    check(max(ef_err.values()) < 0.01, f"EF residual not carried: {ef_err}")
+
+    # (c) granite FULL: a vp-loss step over the cards, the mesh dispatch
+    gcfg = granite_moe_1b.FULL
+    gpar = cards_parity(mesh, gcfg, launcher_opt, steps=1, batch=batch,
+                        seq=seq)
+    spec = gcfg.moe_spec()
+    gen = torch.Generator(device=used[0]).manual_seed(SEED + 24)
+    dtype = tfm.compute_dtype(gcfg)
+    p = moe_mod.moe_init(gen, spec, dtype, device=used[0])
+    x = torch.randn((moe_groups, gcfg.moe_group, gcfg.d_model), generator=gen,
+                    device=used[0]).to(dtype)
+    n_dp = shape[0]
+    with torch.no_grad():
+        moe_mod.set_moe_mesh(mesh, ("data",))
+        try:
+            y, aux = moe_mod.moe_apply_scatter_shmap(p, spec, x)
+            cards_sync(used)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                moe_mod.moe_apply_scatter_shmap(p, spec, x)
+            cards_sync(used)
+            shmap_ms = (time.perf_counter() - t0) / 5 * 1e3
+        finally:
+            moe_mod.set_moe_mesh(None, ())
+        parts = [moe_mod.moe_apply_scatter(p, spec, c) for c in x.chunk(n_dp)]
+    y_one = torch.cat([a for a, _ in parts])
+    aux_one = torch.stack([a for _, a in parts]).mean()
+    y_gap = ((y.float() - y_one.float()).abs().max().item()
+             / max(y_one.float().abs().max().item(), 1e-30))
+    emit("train_cards_moe", card=CARD, cards=n, model=gcfg.name,
+         step_loss={"cards": gpar["cards"]["losses"][0],
+                    "plain": gpar["plain"]["losses"][0]},
+         step_loss_rel_gap=gpar["loss_rel_gaps"][0],
+         step_ms={"cards": gpar["cards"]["step_ms"][0],
+                  "plain": gpar["plain"]["step_ms"][0]},
+         dispatch={"groups": moe_groups, "dp_shards": n_dp,
+                   "aux": [aux.item(), aux_one.item()], "y_rel_gap": y_gap,
+                   "ms": shmap_ms})
+    check(gpar["loss_rel_gaps"][0] <= 1e-3, f"granite step {gpar}")
+    check(aux.item() == aux_one.item(), f"aux {aux.item()} vs the chunks' "
+          f"{aux_one.item()}")
+    check(y_gap <= 2e-2, f"mesh dispatch y gap {y_gap}")
+    del p, x, y, parts, y_one
+    cards_free(used)
+
+    # (e) checkpoint, restore onto the cards, reshard onto two of them
+    opt = launcher_opt(parity_steps)
+    model = tfm.init(cut, generator=torch.Generator(device=used[0])
+                     .manual_seed(SEED), device=used[0])
+    skeleton = tfm.Transformer(cut, device="meta")
+    sh = shd.state_shardings(mesh, {"params": skeleton,
+                                    "opt": opt.init(skeleton), "step": 0},
+                             shd.lm_rules(mesh))
+    state = train_loop.init_state(model, opt, sh)
+    del model
+    step = train_loop.make_train_step(tfm.make_vp_loss_fn(cut, mesh), opt)
+    data = synthetic_batches(cut, batch, seq)
+    state, _ = step(state, next(data))
+    b1 = next(data)
+    two = make_elastic_mesh(2, model_parallel=2, devices=used[:2])
+    sh2 = shd.state_shardings(two, {"params": skeleton,
+                                    "opt": opt.init(skeleton), "step": 0},
+                              shd.lm_rules(two))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ckpt.save(d, 1, state)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = ckpt.restore(d, 1, state, shardings=sh)
+            restore_s = time.perf_counter() - t0
+            small = reshard_state(d, 1, state, sh2)
+        back_equal = states_equal(back, state)
+        small_equal = states_equal(small, state)
+        direct = shd.place(state, sh2)
+        step2 = train_loop.make_train_step(tfm.make_vp_loss_fn(cut, two), opt)
+        c1, _ = step2(small, b1)
+        c2, _ = step2(direct, b1)
+        two_equal = states_equal(c1, c2)
+        del c1, c2, small, direct
+        cards_free(used)
+        a1, _ = step(state, b1)
+        a2, _ = step(back, b1)
+        four_equal = states_equal(a1, a2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit("train_cards_checkpoint", card=CARD, cards=n, model=cut.name,
+         layers=cut_layers, state_gb=sum(placed_bytes(state, used).values())
+         / 1e9, save_s=save_s, restore_s=restore_s,
+         restored_bit_equal=back_equal,
+         step_after_restore_bit_equal=four_equal,
+         reshard_mesh=dict(two.shape), resharded_bit_equal=small_equal,
+         step_after_reshard_equal=two_equal)
+    check(back_equal and four_equal, "restore onto the cards differs")
+    check(small_equal and two_equal, "reshard onto two cards differs")
+    del state, back, a1, a2
+    cards_free(used)
+    after = kernel_launches()
+    emit("train_cards", card=CARD, cards=n,
+         seconds=time.perf_counter() - t_phase,
+         kernels_launched={k: after[k] - before[k] for k in after},
+         note="training over cards launches no kernel (plain PyTorch, as "
+              "the reference's plain jnp)")
+    check(after == before, f"train_cards launched kernels: {before} -> "
+          f"{after}")
+    return out
+
+
+def synthetic_batches(cfg, batch, seq):
+    from repro_torch.data.lm_pipeline import synthetic_lm_batches
+    return synthetic_lm_batches(cfg.vocab_size, batch, seq, seed=SEED + 2)
+
+
+def states_equal(a, b) -> bool:
+    """Two states (placed or not) bit for bit, leaf for leaf."""
+    from repro_torch.distributed.sharding import Placed
+    fa, fb = flat(a), flat(b)
+    if set(fa) != set(fb):
+        return False
+    for key, x in fa.items():
+        y = fb[key]
+        if isinstance(x, Placed) or isinstance(y, Placed):
+            dev = (x if isinstance(x, Placed) else y).devices[0]
+            x = x.assemble(dev) if isinstance(x, Placed) else x
+            y = y.assemble(dev) if isinstance(y, Placed) else y
+            if not torch.equal(x.to(y.device), y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def cards_launch_cut(cfg, mesh, batch, seq, steps, cards):
+    """(a) on two or three cards: the launcher's step over ``cfg`` (the
+    cut) laid on ``mesh``, as `cards_launcher` reports it."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    opt = adamw(cosine_schedule(3e-4, 100, steps), weight_decay=0.1)
+    skeleton = tfm.Transformer(cfg, device="meta")
+    sh = shd.state_shardings(mesh, {"params": skeleton,
+                                    "opt": opt.init(skeleton), "step": 0},
+                             shd.lm_rules(mesh))
+    cards_reset_peaks(cards)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(tfm.init(cfg, generator=torch.Generator(
+        device=cards[0]).manual_seed(0), device=cards[0]), opt, sh)
+    step = train_loop.make_train_step(tfm.make_vp_loss_fn(cfg, mesh), opt)
+    data = synthetic_batches(cfg, batch, seq)
+    losses, dts = [], []
+    for _ in range(steps):
+        b = next(data)
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        cards_sync(cards)
+        dts.append((time.perf_counter() - t1) * 1e3)
+    return {"seconds": time.perf_counter() - t0, "losses": losses,
+            "step_ms": dts, "step_ms_median": statistics.median(dts[1:]),
+            "peak_gb": {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+                        for c in cards}}, state, {"step": step, "batch": b}
 
 
 def oom_halving(fn, size, floor):
@@ -6957,6 +7556,9 @@ def run_phases(dev, kids) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_mesh(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_cards(dev)
     gc.collect()
     torch.cuda.empty_cache()
     phase_recsys(dev)

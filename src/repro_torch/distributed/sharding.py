@@ -13,11 +13,16 @@ are one stacked (n_layers, ...) leaf). First match wins; unmatched params
 replicate. The specs are the reference's, leaf for leaf.
 
 The port's mesh is single-controller (`launch.mesh.Mesh`): one process
-holds every shard, and a shard's piece of a leaf is a zero-copy view
-(`NamedSharding.piece`). `place` checks that a state can be laid on a
-mesh -- every spec fits its leaf and every mesh device is the leaf's
-device -- and never copies; a mesh over other devices raises, naming the
-ROADMAP item it waits for.
+holds every shard. `place` lays a state on a mesh by these specs. Over
+a mesh of one device a shard's piece of a leaf is a zero-copy view
+(`NamedSharding.piece`) and the state stays as it is. Over a mesh of
+several devices (of one type) each leaf becomes a `Placed`: one piece a
+mesh coordinate, each its own allocation on its coordinate's device
+(coordinates that share a device and a box share one), copied from the
+leaf's device; the model's forward and backward, the optimizers and
+the checkpoints work on those pieces (``models.transformer``,
+``training``), and bytes cross devices only through
+``distributed.collectives``.
 
 >>> from repro_torch.launch.mesh import make_mesh
 >>> m = make_mesh((16, 16), ("data", "model"), devices=["meta"] * 256)
@@ -36,12 +41,10 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.launch.mesh import Mesh, same_device
+from repro_torch.distributed import collectives as C
+from repro_torch.launch.mesh import (Mesh, normalize_device, same_device,
+                                     tensor_device)
 from repro_torch.training import tree as T
-
-#: the ROADMAP item that parameters on their own cards wait for
-OWN_CARDS = ("parameters placed on their own cards (ROADMAP queue 1, item "
-             "2's remainder: it waits for a four-card cell)")
 
 
 class P(tuple):
@@ -171,12 +174,6 @@ def param_pspecs(params, rules: Sequence[tuple[str, P]], mesh: Mesh):
         mesh, match_pspec(_path_str(path), rules), T.shape(leaf)))
 
 
-def _get(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
 def opt_pspecs(opt_state, params_pspecs, params):
     """Optimizer-state specs: leaves shaped like their param inherit its
     spec (Adam m/v); reduced-shape leaves (Adafactor vr/vc) drop the
@@ -185,7 +182,7 @@ def opt_pspecs(opt_state, params_pspecs, params):
     rank-complete (`param_pspecs` guarantees this)."""
     by_shape: dict[tuple, P] = {}
     for path, leaf in T.ref_items(params):
-        spec, shape = _get(params_pspecs, path), T.shape(leaf)
+        spec, shape = T.at(params_pspecs, path), T.shape(leaf)
         full = tuple(spec) + (None,) * (len(shape) - len(spec))
         by_shape.setdefault(shape, spec)
         if len(shape) >= 2:
@@ -236,17 +233,23 @@ class NamedSharding:
                                        for a in names)):
             yield dict(zip(names, idx))
 
+    def box(self, global_shape, coord: dict) -> tuple:
+        """The (start, stop) a dimension of the shard at ``coord``."""
+        out = []
+        for ax, size in zip(self._entries(len(global_shape)),
+                            self.shard_shape(global_shape)):
+            i = 0
+            for a in (() if ax is None else _group(ax)):
+                i = i * self.mesh.shape[a] + coord[a]
+            out.append((i * size, (i + 1) * size))
+        return tuple(out)
+
     def piece(self, leaf, coord: dict):
         """The shard of ``leaf`` (a tensor, or a `Group` read as its stack)
         held at mesh coordinate ``coord``: a view."""
         shape = T.shape(leaf)
         local = self.shard_shape(shape)
-        starts = []
-        for ax, size in zip(self._entries(len(shape)), local):
-            i = 0
-            for a in (() if ax is None else _group(ax)):
-                i = i * self.mesh.shape[a] + coord[a]
-            starts.append(i * size)
+        starts = [s for s, _ in self.box(shape, coord)]
         if isinstance(leaf, T.Group):
             layers = leaf[starts[0]: starts[0] + local[0]]
             return T.Group(_narrow(t, starts[1:], local[1:]) for t in layers)
@@ -271,46 +274,241 @@ def state_shardings(mesh: Mesh, state, rules):
     return named(mesh, state_pspecs(mesh, state, rules))
 
 
-def check_mesh_device(mesh: Mesh, device) -> None:
-    """Raise ValueError unless every device of ``mesh`` is ``device``: the
-    port's mesh is logical shards of one device."""
-    if not all(same_device(d, device) for d in mesh.devices):
+class Placed:
+    """A leaf laid on a mesh of several devices: its global ``shape`` and
+    ``dtype``, its ``spec``, and per mesh coordinate (``mesh.devices``
+    order) its ``boxes`` (a (start, stop) a dimension) and ``pieces``,
+    each on its coordinate's device; coordinates that share a device and
+    a box share one tensor. ``grad`` is a `Placed` of the same layout
+    while a backward pass fills it (`collectives.gather_param`)."""
+
+    def __init__(self, mesh: Mesh, spec, shape, dtype, boxes, pieces):
+        self.mesh, self.spec = mesh, spec
+        self.shape, self.dtype = tuple(shape), dtype
+        self.boxes, self.pieces = tuple(boxes), tuple(pieces)
+        self.grad = None
+
+    def __repr__(self) -> str:
+        return (f"Placed({self.shape}, {self.dtype}, {self.spec}, "
+                f"{len(self.parts())} pieces)")
+
+    @property
+    def devices(self) -> tuple:
+        return self.mesh.devices
+
+    def parts(self) -> list:
+        """(box, tensor, mesh device), once a tensor: the pieces as
+        `collectives.gather_boxes` reads them."""
+        seen, out = set(), []
+        for box, dev, t in zip(self.boxes, self.devices, self.pieces):
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append((box, t, dev))
+        return out
+
+    def distinct(self) -> list:
+        """(box, tensor, mesh device), once a box: the leaf's values each
+        counted once (a replicated piece at its first coordinate)."""
+        seen, out = set(), []
+        for box, t, dev in self.parts():
+            if box not in seen:
+                seen.add(box)
+                out.append((box, t, dev))
+        return out
+
+    def nbytes_by_device(self) -> dict:
+        """{normalised device: bytes of the pieces it holds}."""
+        out: dict = {}
+        for _, t, dev in self.parts():
+            key = normalize_device(dev)
+            out[key] = out.get(key, 0) + t.numel() * t.element_size()
+        return out
+
+    def build(self, fn) -> "Placed":
+        """A leaf of this layout whose piece at (box, device), where this
+        leaf holds ``t``, is ``fn(box, device, t)``, once a shared
+        piece."""
+        made: dict = {}
+        pieces = []
+        for box, dev, t in zip(self.boxes, self.devices, self.pieces):
+            if id(t) not in made:
+                made[id(t)] = fn(box, dev, t)
+            pieces.append(made[id(t)])
+        return Placed(self.mesh, self.spec, self.shape, pieces[0].dtype,
+                      self.boxes, pieces)
+
+    def map(self, fn, *others):
+        """``fn`` over the pieces of this leaf and of ``others`` (one
+        layout), once a shared piece; a tuple result gives a tuple of
+        leaves."""
+        for o in others:
+            if o.boxes != self.boxes or o.devices != self.devices:
+                raise ValueError("map over leaves of different layouts")
+        made: dict = {}
+        outs = []
+        for k, t in enumerate(self.pieces):
+            if id(t) not in made:
+                made[id(t)] = fn(t, *(o.pieces[k] for o in others))
+            outs.append(made[id(t)])
+        if isinstance(outs[0], tuple):
+            return tuple(Placed(self.mesh, self.spec, self.shape, o[0].dtype,
+                                self.boxes, o) for o in zip(*outs))
+        return Placed(self.mesh, self.spec, self.shape, outs[0].dtype,
+                      self.boxes, outs)
+
+    def zeros(self, dtype=None) -> "Placed":
+        return self.build(lambda box, dev, _: torch.zeros(
+            C.box_shape(box), dtype=dtype or self.dtype,
+            device=tensor_device(dev)))
+
+    def add_grad(self, contribs) -> None:
+        """Add the sum of ``contribs`` ((box, gradient) of blocks read
+        from this leaf, in shard order) into every piece's gradient."""
+        span = tuple((min(b[d][0] for b, _ in contribs),
+                      max(b[d][1] for b, _ in contribs))
+                     for d in range(len(self.shape)))
+        for (box, _, dev), (_, g, _) in zip(self.parts(), self.grad.parts()):
+            region = C.intersect(span, box)
+            if region is not None:
+                g[C.local(region, box)] += C.reduce_boxes(
+                    contribs, [(region, dev)], g.dtype)[0]
+
+    def assemble(self, device) -> torch.Tensor:
+        """The whole leaf on ``device``."""
+        return C.gather_boxes(self.parts(),
+                              [(C.full_box(self.shape), device)])[0]
+
+
+def relayout(leaf: Placed, like: Placed) -> Placed:
+    """``leaf``'s values in ``like``'s layout (its own pieces where the
+    layouts agree, else copies gathered from the pieces that hold
+    them)."""
+    if leaf.boxes == like.boxes and leaf.devices == like.devices:
+        return leaf
+    src = leaf.parts()
+    return like.build(lambda box, dev, _: C.gather_boxes(
+        src, [(box, dev)], fresh=False)[0])
+
+
+def is_placed(tree) -> bool:
+    """Whether ``tree``'s leaves are `Placed` (a tree laid on a mesh of
+    several devices)."""
+    return any(isinstance(leaf, Placed) for _, leaf in T.ref_items(tree))
+
+
+def placed_mesh(tree) -> Mesh:
+    return next(leaf.mesh for _, leaf in T.ref_items(tree)
+                if isinstance(leaf, Placed))
+
+
+def check_mesh(mesh: Mesh, device=None) -> None:
+    """ValueError unless every device of ``mesh`` has one type, and, with
+    ``device``, the type of ``device``."""
+    types = {torch.device(d).type for d in mesh.devices}
+    if device is not None:
+        types.add(torch.device(device).type)
+    if len(types) > 1:
         raise ValueError(
-            f"the mesh's devices {sorted({str(d) for d in mesh.devices})} are "
-            f"not the state's device {device}; {OWN_CARDS}")
+            f"the mesh's devices {sorted({str(d) for d in mesh.devices})} "
+            + (f"and the state's device {device} " if device is not None
+               else "") + "are of more than one type")
 
 
-def mesh_device(shardings) -> torch.device:
-    """The one device of the mesh of a tree of `NamedSharding`s; ValueError
-    when the mesh spans several devices."""
-    def walk(node):
-        if isinstance(node, NamedSharding):
-            yield node
-        else:
-            for v in node.values():
-                yield from walk(v)
-    sh = next(walk(shardings), None)
-    if sh is None:
-        raise ValueError("shardings holds no NamedSharding")
-    check_mesh_device(sh.mesh, sh.mesh.devices[0])
-    return sh.mesh.devices[0]
+def one_device(mesh: Mesh) -> bool:
+    """Whether every entry of ``mesh`` is one device (logical shards)."""
+    return len({normalize_device(d) for d in mesh.devices}) == 1
 
 
-def place(tree, shardings):
-    """Lay ``tree`` (a state or params: a model or a tree of tensors) on
-    the mesh of ``shardings`` (the matching tree of `NamedSharding`, e.g.
-    from `state_shardings`). Checks that every spec fits its leaf (each
-    sharded dim divides by its axis group) and that every mesh device is
-    the leaf's device; raises ValueError otherwise. Returns ``tree``
-    itself: each shard's piece is a view (`NamedSharding.piece`)."""
-    for path, leaf in T.ref_items(tree):
-        sh = _get(shardings, path) if path else shardings
+def _leaf_sources(leaf) -> list:
+    """(box, tensor, device) pieces that hold a leaf (a tensor, a `Group`
+    read as its stack, or a `Placed`)."""
+    if isinstance(leaf, Placed):
+        return leaf.parts()
+    if isinstance(leaf, T.Group):
+        rest = C.full_box(leaf[0].shape)
+        return [(((i, i + 1),) + rest, t.detach().unsqueeze(0), t.device)
+                for i, t in enumerate(leaf)]
+    return [(C.full_box(leaf.shape), leaf.detach(), leaf.device)]
+
+
+def place_leaf(leaf, sh: NamedSharding) -> Placed:
+    """One leaf laid on ``sh``'s mesh: a piece a coordinate, each a new
+    allocation on its device, one for coordinates that share a device and
+    a box; copied from wherever the leaf lives."""
+    shape = T.shape(leaf)
+    sh.shard_shape(shape)
+    src = _leaf_sources(leaf)
+    boxes = [sh.box(shape, coord) for coord in sh.coords()]
+    made: dict = {}
+    pieces = []
+    for box, dev in zip(boxes, sh.mesh.devices):
+        key = (normalize_device(dev), box)
+        if key not in made:
+            made[key] = C.gather_boxes(src, [(box, dev)])[0]
+        pieces.append(made[key])
+    return Placed(sh.mesh, sh.spec, shape, pieces[0].dtype, boxes, pieces)
+
+
+def zeros_on(sh: NamedSharding, shape, dtype) -> Placed:
+    """A zero leaf of ``shape`` laid on ``sh``'s mesh, each piece
+    allocated on its device."""
+    shape = tuple(shape)
+    boxes = [sh.box(shape, coord) for coord in sh.coords()]
+    made: dict = {}
+    pieces = []
+    for box, dev in zip(boxes, sh.mesh.devices):
+        key = (normalize_device(dev), box)
+        if key not in made:
+            made[key] = torch.zeros(C.box_shape(box), dtype=dtype,
+                                    device=tensor_device(dev))
+        pieces.append(made[key])
+    return Placed(sh.mesh, sh.spec, shape, dtype, boxes, pieces)
+
+
+def place(tree, shardings, *, split: bool | None = None):
+    """Lay ``tree`` (a state or params: a model or a tree of tensors, or
+    one already placed) on the mesh of ``shardings`` (the matching tree
+    of `NamedSharding`, e.g. from `state_shardings`). Every spec must fit
+    its leaf (each sharded dim divides by its axis group), a non-tensor
+    leaf takes P(), and the mesh's devices must be of the leaves' device
+    type; ValueError otherwise.
+
+    Over a mesh of one device (and ``split`` not set) returns ``tree``
+    itself, whose shards are views (`NamedSharding.piece`); the leaves
+    must live on that device. Otherwise (or with ``split=True``) returns
+    the reference's tree of the state with every tensor leaf a `Placed`,
+    its pieces on their own devices."""
+    items = T.ref_items(tree)
+    shs = []
+    for path, leaf in items:
+        sh = T.at(shardings, path)
         if not isinstance(sh, NamedSharding):
             raise ValueError(f"no sharding for {_path_str(path)}")
-        if torch.is_tensor(T.first(leaf)):
-            check_mesh_device(sh.mesh, T.first(leaf).device)
+        if isinstance(leaf, Placed) or torch.is_tensor(T.first(leaf)):
             sh.shard_shape(T.shape(leaf))
+            dev = (leaf.devices[0] if isinstance(leaf, Placed)
+                   else T.first(leaf).device)
+            check_mesh(sh.mesh, dev)
         elif tuple(sh.spec):
             raise ValueError(f"{_path_str(path)}: a non-tensor leaf takes "
                              f"P(), not {sh.spec}")
-    return tree
+        shs.append(sh)
+    if not shs:
+        return tree
+    if split is None:
+        split = not one_device(shs[0].mesh) or is_placed(tree)
+    if not split:
+        for (path, leaf), sh in zip(items, shs):
+            if torch.is_tensor(T.first(leaf)) and not all(
+                    same_device(d, T.first(leaf).device)
+                    for d in sh.mesh.devices):
+                raise ValueError(
+                    f"{_path_str(path)} lives on {T.first(leaf).device}, "
+                    f"not on the mesh's device {sh.mesh.devices[0]}")
+        return tree
+    leaves = [place_leaf(leaf, sh)
+              if isinstance(leaf, Placed) or torch.is_tensor(T.first(leaf))
+              else leaf for (_, leaf), sh in zip(items, shs)]
+    if len(items) == 1 and items[0][0] == ():
+        return leaves[0]
+    return T.unflatten([p for p, _ in items], leaves)

@@ -27,6 +27,7 @@ Single pod: (data=16, model=16) = 256 devices; multi-pod adds a leading
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from types import MappingProxyType
 
@@ -87,6 +88,26 @@ def n_shards(mesh: Mesh, axes) -> int:
     """The shard count of ``axes`` (one axis name or a tuple of them)."""
     ax = (axes,) if isinstance(axes, str) else tuple(axes)
     return math.prod(mesh.shape[a] for a in ax)
+
+
+def dp_tp_coords(mesh: Mesh, tp_axis: str = "model", dp_axes=None) -> list:
+    """(i, j) for every mesh entry in ``devices`` order: i its data shard
+    (its index over ``dp_axes``, major first; by default every axis but
+    ``tp_axis``), j its index on ``tp_axis`` (0 when the mesh has none).
+
+    >>> dp_tp_coords(make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4))
+    [(0, 0), (0, 1), (1, 0), (1, 1)]
+    """
+    names = mesh.axis_names
+    dp = [a for a in names if a != tp_axis] if dp_axes is None else dp_axes
+    out = []
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in names)):
+        c = dict(zip(names, idx))
+        i = 0
+        for a in dp:
+            i = i * mesh.shape[a] + c[a]
+        out.append((i, c.get(tp_axis, 0)))
+    return out
 
 
 def same_device(a, b) -> bool:

@@ -4,7 +4,8 @@
       --batch 8 --seq 256 --steps 50 --reduced --device cpu   # CPU-sized run
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --batch 8 --seq 1024 --steps 20  # one card
-  ... --mesh 2x4 --vp-loss      # a logical (data=2, model=4) mesh of it
+  ... --mesh 2x2 --vp-loss      # on a (data=2, model=2) mesh of cards 0-3
+  ... --mesh 2x4 --vp-loss --device cuda   # logical shards of one card
 
 A registry LM with AdamW (cosine schedule, peak 3e-4, warmup 100) or, from
 100 B parameters, Adafactor; synthetic batches; a `Trainer` with async
@@ -12,12 +13,15 @@ checkpoints every steps / 4 under ``--ckpt`` (which also resumes from the
 newest one) and straggler detection. Runs on the card unless ``--device``
 names another.
 
-``--mesh DxM`` lays the state on a logical (data, model) mesh of that
-device (the port's mesh is single-controller: D x M shards of one
-device, `launch.mesh`) by the reference's `lm_rules` specs, checked by
-`distributed.sharding.place`; ``--vp-loss`` then trains with the
-vocab-parallel loss over it. ``--vp-loss`` without ``--mesh`` is the
-plain loss, as in the reference.
+``--mesh DxM`` lays the state by the reference's `lm_rules` specs
+(`distributed.sharding.place`) on a (data, model) mesh of the first D x M
+cards, as the reference's ``make_mesh`` takes the first devices, and
+raises when there are fewer: every card holds its pieces of the
+parameters and the optimizer's state, and the step runs on all of them
+(one controller, ``training.train_loop``). With ``--device X`` the mesh
+is D x M logical shards of X instead (the state stays whole on X, its
+shards views). ``--vp-loss`` trains with the vocab-parallel loss over the
+mesh; without ``--mesh`` it is the plain loss, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ def main(argv=None):
     ap.add_argument("--vp-loss", action="store_true",
                     help="vocab-parallel cross-entropy (needs a 'model' axis)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device (default: the card); with --mesh, "
+                         "every shard on it")
     args = ap.parse_args(argv)
 
     import torch
@@ -65,8 +70,9 @@ def main(argv=None):
     mesh = None
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split("x"))
-        mesh = make_mesh(shape, ("data", "model")[: len(shape)],
-                         devices=[dev] * math.prod(shape))
+        axes = ("data", "model")[: len(shape)]
+        mesh = (make_mesh(shape, axes) if args.device is None else
+                make_mesh(shape, axes, devices=[dev] * math.prod(shape)))
 
     opt = (adafactor(1e-3) if cfg.param_count() >= 100e9
            else adamw(cosine_schedule(3e-4, 100, args.steps), weight_decay=0.1))
@@ -77,18 +83,24 @@ def main(argv=None):
         loss = lambda p, b: tfm.loss_fn(p, cfg, b)  # noqa: E731
     step_fn = make_train_step(loss, opt, donate=False)
 
-    def placed(state):
-        if mesh is None:
-            return state
-        return shd.place(state, shd.state_shardings(mesh, state,
-                                                    shd.lm_rules(mesh)))
+    shardings = None
+    if mesh is not None:
+        skeleton = tfm.Transformer(cfg, device="meta")
+        shardings = shd.state_shardings(
+            mesh, {"params": skeleton, "opt": opt.init(skeleton), "step": 0},
+            shd.lm_rules(mesh))
 
     def fresh():
         gen = torch.Generator(device=dev).manual_seed(0)
-        return init_state(tfm.init(cfg, generator=gen, device=dev), opt)
+        return init_state(tfm.init(cfg, generator=gen, device=dev), opt,
+                          shardings=shardings)
 
-    state, start = resume_or_init(args.ckpt, fresh)
-    state = placed(state)
+    on_cards = mesh is not None and not shd.one_device(mesh)
+    state, start = resume_or_init(
+        args.ckpt, fresh, like=init_state(skeleton, opt) if on_cards else None,
+        shardings=shardings if on_cards else None)
+    if mesh is not None and not on_cards:
+        state = shd.place(state, shardings)
     data = Prefetcher(synthetic_lm_batches(cfg.vocab_size, args.batch, args.seq,
                                            start_step=start))
     trainer = Trainer(

@@ -68,7 +68,7 @@ def capacity(group_tokens: int, spec: MoESpec) -> int:
 
 def _route(p: Params, spec: MoESpec, x: torch.Tensor):
     """Shared routing: returns (topk_p normalised, topk_e, pos-in-expert,
-    fits mask, aux loss). pos is first come, first served within each
+    fits mask, router probs). pos is first come, first served within each
     group, over (t, k) with k fastest."""
     G, T, D = x.shape
     E, K = spec.n_experts, spec.top_k
@@ -84,11 +84,22 @@ def _route(p: Params, spec: MoESpec, x: torch.Tensor):
     before = torch.cumsum(flat, dim=1) - flat                 # earlier (t, k)
     pos = before.gather(-1, topk_e.reshape(G, T * K, 1)).reshape(G, T, K)
     fits = pos < C
+    return topk_p, topk_e, pos, fits, probs
 
+
+def _aux(probs: torch.Tensor, topk_e: torch.Tensor, E: int) -> torch.Tensor:
+    """The load-balancing loss over every group of ``probs``."""
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(topk_e[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
-    return topk_p, topk_e, pos, fits, aux
+    return E * torch.sum(me * ce)
+
+
+def group_stats(probs: torch.Tensor, topk_e: torch.Tensor, E: int):
+    """(G, E) router-probability means and first-choice shares a group:
+    the mean of a set of groups' rows is that set's ``me`` / ``ce`` (every
+    group holds T tokens)."""
+    return (probs.mean(dim=1),
+            F.one_hot(topk_e[..., 0], E).float().mean(dim=1))
 
 
 def _experts(p: Params, xin: torch.Tensor) -> torch.Tensor:
@@ -124,10 +135,16 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor):
         return moe_apply_scatter(p, spec, x)
     if spec.impl == "scatter_shmap":
         return moe_apply_scatter_shmap(p, spec, x)
+    route = _route(p, spec, x)
+    return _einsum_dispatch(p, spec, x, route), _aux(route[4], route[1],
+                                                     spec.n_experts)
+
+
+def _einsum_dispatch(p: Params, spec: MoESpec, x: torch.Tensor, route):
     G, T, D = x.shape
     E, K = spec.n_experts, spec.top_k
     C = capacity(T, spec)
-    topk_p, topk_e, pos, fits, aux = _route(p, spec, x)
+    topk_p, topk_e, pos, fits, _ = route
     gate = topk_p * fits                                       # drop overflow
 
     # combine chain in bf16, as the reference (gate precision only weighs
@@ -140,8 +157,7 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor):
 
     xin = torch.einsum("gtec,gtd->gecd", dispatch, x)
     yout = _experts(p, xin)
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), yout)
-    return y, aux
+    return torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), yout)
 
 
 def moe_apply_scatter(p: Params, spec: MoESpec, x: torch.Tensor):
@@ -150,10 +166,16 @@ def moe_apply_scatter(p: Params, spec: MoESpec, x: torch.Tensor):
     exactly one token; overflow goes to a trash row) and combine as a
     ``gather`` mixed by gate -- O(T · K · D) data movement, no one-hot
     matmul. Identical outputs to `moe_apply` up to floating-point order."""
+    route = _route(p, spec, x)
+    return _scatter_dispatch(p, spec, x, route), _aux(route[4], route[1],
+                                                      spec.n_experts)
+
+
+def _scatter_dispatch(p: Params, spec: MoESpec, x: torch.Tensor, route):
     G, T, D = x.shape
     E, K = spec.n_experts, spec.top_k
     C = capacity(T, spec)
-    topk_p, topk_e, pos, fits, aux = _route(p, spec, x)
+    topk_p, topk_e, pos, fits, _ = route
     gate = (topk_p * fits).to(x.dtype)                         # (G,T,K)
 
     # flat destination slot for each (t, k): e*C + pos; overflow -> trash row
@@ -168,8 +190,24 @@ def moe_apply_scatter(p: Params, spec: MoESpec, x: torch.Tensor):
     # gather each (t, k)'s result back and mix by gate
     safe = torch.clamp_max(slot, E * C - 1) + base * (E * C)
     gath = yout[safe.reshape(-1)].reshape(G, T, K, D)
-    y = torch.einsum("gtk,gtkd->gtd", gate, gath)
-    return y, aux
+    return torch.einsum("gtk,gtkd->gtd", gate, gath)
+
+
+def moe_groups(p: Params, spec: MoESpec, x: torch.Tensor):
+    """x: (G, T, D) -> (y (G, T, D), me (G, E), ce (G, E)): the dispatch
+    of ``spec.impl`` ("scatter_shmap" runs the scatter) with each group's
+    routing statistics (`group_stats`) in place of the aux loss, for a
+    caller that forms aux over groups held on several devices."""
+    route = _route(p, spec, x)
+    dispatch = _einsum_dispatch if spec.impl == "einsum" else \
+        _scatter_dispatch
+    return (dispatch(p, spec, x, route),
+            *group_stats(route[4], route[1], spec.n_experts))
+
+
+def chunk_aux(me: torch.Tensor, ce: torch.Tensor, E: int) -> torch.Tensor:
+    """The aux loss of a set of groups from their `group_stats`."""
+    return E * torch.sum(me.mean(0) * ce.mean(0))
 
 
 def moe_apply_scatter_shmap(p: Params, spec: MoESpec, x: torch.Tensor):
@@ -179,20 +217,75 @@ def moe_apply_scatter_shmap(p: Params, spec: MoESpec, x: torch.Tensor):
     data axes (the reference's shard_map over ``dp_axes``); each chunk
     runs `moe_apply_scatter` on its own, y is the chunks' outputs in
     order, and aux is the MEAN of the chunks' aux losses (the reference's
-    ``pmean``), not the aux of all G groups at once. The port's mesh is
-    logical shards of one device: every mesh device must be x's device,
-    and G must divide by n_dp, else ValueError."""
+    ``pmean``), not the aux of all G groups at once. G must divide by
+    n_dp, else ValueError.
+
+    Over a mesh of one device the chunks run in turn on x's device. Over
+    a mesh of several devices (of x's device type) chunk i runs on the
+    devices of data shard i, each over its slice of the experts' hidden
+    width (``w_gate`` / ``w_up`` columns, ``w_down`` rows, when the model
+    axis divides it; whole otherwise), the slices' outputs all-reduced
+    over the model axis; y comes back to x's device and aux is the
+    all-reduced mean of the chunks' aux, every byte through
+    ``distributed.collectives``."""
     mesh, dp = _MOE_MESH["mesh"], _MOE_MESH["dp_axes"]
     if mesh is None:
         return moe_apply_scatter(p, spec, x)
-    from repro_torch.distributed.sharding import check_mesh_device
+    from repro_torch.distributed.sharding import check_mesh, one_device
     from repro_torch.launch.mesh import n_shards
-    check_mesh_device(mesh, x.device)
+    check_mesh(mesh, x.device)
     n = n_shards(mesh, dp)
     G = x.shape[0]
     if G % n:
         raise ValueError(f"{G} MoE groups do not divide over the {n} data "
                          f"shards {dp}")
-    ys, auxs = zip(*(moe_apply_scatter(p, spec, chunk)
-                     for chunk in x.chunk(n, dim=0)))
-    return torch.cat(ys, dim=0), torch.stack(auxs).mean()
+    if one_device(mesh):
+        ys, auxs = zip(*(moe_apply_scatter(p, spec, chunk)
+                         for chunk in x.chunk(n, dim=0)))
+        return torch.cat(ys, dim=0), torch.stack(auxs).mean()
+    return _scatter_over_cards(p, spec, x, mesh, dp, n)
+
+
+def _scatter_over_cards(p, spec, x, mesh, dp, n):
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import dp_tp_coords
+    n_tp = mesh.shape.get("model", 1)
+    split = n_tp > 1 and spec.d_ff % n_tp == 0
+    fw = spec.d_ff // n_tp if split else spec.d_ff
+    coords = [(i, j if split else 0) for i, j in dp_tp_coords(mesh,
+                                                             dp_axes=dp)]
+    devs = mesh.devices
+    G, T, D = x.shape
+    g = G // n
+    xs = C.move([x], [C.full_box(x.shape)],
+                [(((i * g, (i + 1) * g), (0, T), (0, D)), d)
+                 for (i, _), d in zip(coords, devs)])
+
+    def cut(name, dim):
+        w = p[name]
+        boxes = []
+        for _, j in coords:
+            box = list(C.full_box(w.shape))
+            box[dim] = (j * fw, (j + 1) * fw)
+            boxes.append(tuple(box))
+        return C.move([w], [C.full_box(w.shape)], list(zip(boxes, devs)))
+
+    router = C.move([p["router"]], [C.full_box(p["router"].shape)],
+                    [(C.full_box(p["router"].shape), d) for d in devs])
+    wg, wu, wd = cut("w_gate", 2), cut("w_up", 2), cut("w_down", 1)
+    outs = [moe_apply_scatter({"router": router[c], "w_gate": wg[c],
+                               "w_up": wu[c], "w_down": wd[c]}, spec, xs[c])
+            for c in range(len(devs))]
+    ys = [y for y, _ in outs]
+    if split:
+        for i in range(n):
+            row = [c for c, (ci, _) in enumerate(coords) if ci == i]
+            for c, y in zip(row, C.all_reduce([ys[c] for c in row])):
+                ys[c] = y
+    first = [next(c for c, (ci, j) in enumerate(coords) if ci == i and j == 0)
+             for i in range(n)]
+    y = C.move([ys[c] for c in first],
+               [((i * g, (i + 1) * g), (0, T), (0, D)) for i in range(n)],
+               [(C.full_box(x.shape), x.device)])[0]
+    total = C.all_reduce([outs[c][1] for c in first])[0]
+    return y, C.move([total], [()], [((), x.device)])[0] / n

@@ -25,7 +25,11 @@ written in place: ``prefill`` fills positions [0, S) of a cache it
 allocates, ``decode_step`` writes position cur_index of the cache it is
 given and returns the same tensors. ``make_vp_loss_fn`` is the
 vocab-parallel loss over a single-controller mesh (`launch.mesh`): the
-reference's shard_map region run shard by shard on the mesh's device.
+reference's shard_map region run on the mesh's devices. The training
+functions also take a model laid on a mesh of several devices
+(`distributed.sharding.place`: a tree of `Placed` pieces) and run it
+there, FSDP over the data axes and tensor parallel over "model"
+(`_grid_backbone`).
 """
 from __future__ import annotations
 
@@ -37,6 +41,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.store import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import dp_tp_coords, same_device, tensor_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoESpec, moe_apply
 
@@ -341,7 +348,19 @@ def backbone(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor):
     """tokens: (B,S) -> (final-norm hidden states (B,S,D), aux_loss f32
     scalar). With ``cfg.remat`` and grad enabled each layer is a
     non-reentrant activation checkpoint: its inside is recomputed in the
-    backward pass."""
+    backward pass. A placed model (`distributed.sharding.place` over
+    several devices) runs on its mesh (`_Grid`); the hidden states and
+    aux then come back to the mesh's first device."""
+    if _placed(model):
+        grid = _Grid(_mesh_of(model))
+        run = _grid_backbone(model, cfg, tokens, grid)
+        xs = [run.xs[c] for c in grid.first_of_rows()]
+        B, S = tokens.shape
+        hidden = C.move(xs, [grid.row_box(i, (B, S, cfg.d_model))
+                             for i in range(grid.n_dp)],
+                        [(C.full_box((B, S, cfg.d_model)),
+                          grid.devs[grid.ctrl])])[0]
+        return hidden, run.aux
     x = model.embed[tokens.to(model.device)]
     auxs = []
     for layer in model.layers:
@@ -358,6 +377,14 @@ def backbone(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor):
 
 
 def lm_head_matrix(model: Transformer, cfg: TransformerConfig) -> torch.Tensor:
+    """The (D, V) head; of a placed model, gathered whole on the mesh's
+    first device."""
+    if _placed(model):
+        grid = _Grid(_mesh_of(model))
+        leaf = model["embed"] if cfg.tie_embeddings else model["lm_head"]
+        w = C.gather_param(_sink(), leaf, [(C.full_box(leaf.shape),
+                                            grid.devs[grid.ctrl])])[0]
+        return w.T if cfg.tie_embeddings else w
     return model.embed.T if cfg.tie_embeddings else model.lm_head
 
 
@@ -369,7 +396,12 @@ def forward(model: Transformer, cfg: TransformerConfig, tokens: torch.Tensor):
 
 def loss_fn(model: Transformer, cfg: TransformerConfig, batch: dict):
     """batch: {tokens (B,S), labels (B,S)}; labels == -1 are masked. Mean
-    next-token cross-entropy in f32 plus ``moe_aux_weight`` x aux."""
+    next-token cross-entropy in f32 plus ``moe_aux_weight`` x aux. A
+    placed model computes it vocab-parallel on its mesh, as
+    `make_vp_loss_fn` does (the same quantity: no device holds a whole
+    row of logits)."""
+    if _placed(model):
+        return _grid_loss(model, cfg, batch, _Grid(_mesh_of(model)))
     logits, aux = forward(model, cfg, batch["tokens"])
     labels = batch["labels"].to(logits.device)
     mask = labels >= 0
@@ -385,74 +417,363 @@ def loss_fn(model: Transformer, cfg: TransformerConfig, batch: dict):
 def make_vp_loss_fn(cfg: TransformerConfig, mesh, *, tp_axis: str = "model"):
     """Vocab-parallel cross-entropy (Megatron-LM style) over ``mesh``.
 
-    Each (dp, tp) shard computes only its (b / n_dp, S, V_pad / n_tp) f32
-    logits from its slice of the head (the vocab padded with zero columns
-    to a multiple of n_tp, which the softmax masks to finfo(f32).min):
+    Mesh coordinate (i, j) holds data shard i's rows (b = B / n_dp) and
+    vocab slice j of the head (the vocab padded with zero columns to a
+    multiple of n_tp, which the softmax masks to finfo(f32).min), and
+    computes only its (b, S, V_pad / n_tp) f32 logits:
 
-        m     = max over the tp shards of each shard's row max
-        logz  = m + log(sum over tp of sum exp(logits - m))
-        gold  = the label's logit, from the one shard whose range holds it
-        loss  = sum of (logz - gold) over labelled tokens / their count,
-                both summed over the dp shards
+        m     = max over the tp slices of each slice's row max
+        logz  = m + log(all-reduce over tp of sum exp(logits - m))
+        gold  = all-reduce over tp of the label's logit where the slice
+                holds it
+        loss  = all-reduce over dp of sum (logz - gold) over labelled
+                tokens / the count of them
 
-    The reference runs this as a shard_map region; the port's mesh is
-    logical shards of one device, so the shards run in turn and the
-    psums are sums over them. m is detached (logz does not depend on it;
-    the reference's gradient through it is zero analytically). Labels -1
-    are masked. Every mesh device must be the model's device, and the
-    batch must divide by the dp shards, else ValueError."""
-    from repro_torch.distributed.sharding import check_mesh_device
+    The reference runs this as a shard_map region; the port runs it on
+    the mesh's devices (`_Grid`), every sum in shard order
+    (``distributed.collectives``). A model on one device sends each
+    coordinate its rows of the hidden states and its slice of the head
+    (views where the coordinate is the model's device); a placed model
+    gathers them where they are computed. m is detached
+    (logz does not depend on it; the reference's gradient through it is
+    zero analytically). Labels -1 are masked. The mesh's devices must be
+    of the model's device type, a placed model's mesh must be ``mesh``'s
+    shape, and the batch must divide by the dp shards, else
+    ValueError."""
     if tp_axis not in mesh.axis_names:
         raise ValueError(f"the vocab-parallel loss needs a {tp_axis!r} mesh "
                          f"axis; the mesh has {mesh.axis_names}")
-    dp_axes = tuple(a for a in mesh.axis_names if a != tp_axis)
-    n_dp = int(np.prod([mesh.shape[a] for a in dp_axes]))
-    n_tp = mesh.shape[tp_axis]
-    v_real = cfg.vocab_size
-    v_pad = (-v_real) % n_tp          # pad vocab to a tp multiple (49155)
-    neg = torch.finfo(torch.float32).min
-
-    def xent(x, head, labels):
-        B = x.shape[0]
-        if B % n_dp:
-            raise ValueError(f"batch {B} does not divide over the {n_dp} "
-                             f"data-parallel shards of the mesh")
-        b, v_local = B // n_dp, head.shape[1] // n_tp
-        nll_sum = cnt = 0.0
-        for i in range(n_dp):
-            xi, lab_i = x[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]
-            mask = lab_i >= 0
-            lab = torch.clamp_min(lab_i, 0).long()
-            logits = []
-            for j in range(n_tp):
-                off = j * v_local
-                lg = (xi @ head[:, off:off + v_local]).float()
-                col = off + torch.arange(v_local, device=lg.device)
-                logits.append(torch.where(col < v_real, lg, neg))
-            m = torch.stack([lg.detach().amax(-1) for lg in logits]).amax(0)
-            se = sum(torch.exp(lg - m[..., None]).sum(-1) for lg in logits)
-            logz = m + torch.log(se)
-            gold = 0.0
-            for j, lg in enumerate(logits):
-                off = j * v_local
-                in_range = (lab >= off) & (lab < off + v_local)
-                local = torch.clamp(lab - off, 0, v_local - 1)
-                g = lg.gather(-1, local[..., None])[..., 0]
-                gold = gold + torch.where(in_range, g, 0.0)
-            nll_sum = nll_sum + torch.sum((logz - gold) * mask)
-            cnt = cnt + mask.sum()
-        return nll_sum / torch.clamp_min(torch.as_tensor(cnt), 1)
+    grid = _Grid(mesh, tp_axis)
 
     def loss(model, batch: dict):
-        check_mesh_device(mesh, model.device)
+        if _placed(model):
+            own = _mesh_of(model)
+            if dict(own.shape) != dict(mesh.shape) or \
+                    own.axis_names != mesh.axis_names:
+                raise ValueError(f"the model is placed on a {dict(own.shape)} "
+                                 f"mesh, the loss is over {dict(mesh.shape)}")
+            return _grid_loss(model, cfg, batch, _Grid(own, tp_axis))
+        shd.check_mesh(mesh, model.device)
         x, aux = backbone(model, cfg, batch["tokens"])
+        grid.check_rows(x.shape[0])
+        D = x.shape[-1]
         head = lm_head_matrix(model, cfg)
-        if v_pad:
-            head = torch.nn.functional.pad(head, (0, v_pad))
-        labels = batch["labels"].to(x.device)
-        return xent(x, head, labels) + cfg.moe_aux_weight * aux
+        vl = grid.vocab_slice(cfg.vocab_size)
+        head = torch.nn.functional.pad(head, (0, vl * grid.n_tp
+                                              - cfg.vocab_size))
+        xboxes = [grid.row_box(i, x.shape) for i, _ in grid.ij]
+        hboxes = [((0, D), (j * vl, (j + 1) * vl)) for _, j in grid.ij]
+        if all(same_device(d, x.device) for d in grid.devs):
+            # logical shards of x's device: views, nothing copied
+            xs = [x[C.local(b, C.full_box(x.shape))] for b in xboxes]
+            heads = [head[C.local(b, C.full_box(head.shape))]
+                     for b in hboxes]
+        else:
+            xs = C.move([x], [C.full_box(x.shape)],
+                        list(zip(xboxes, grid.devs)))
+            heads = C.move([head], [C.full_box(head.shape)],
+                           list(zip(hboxes, grid.devs)))
+        xent = _grid_xent(xs, heads, batch["labels"], grid, cfg.vocab_size)
+        xent = C.move([xent], [()], [((), x.device)])[0]
+        return xent + cfg.moe_aux_weight * aux
 
     return loss
+
+
+# ---------------------------------------------------------------------------
+# training over a placed model: its pieces on the devices of a mesh
+# ---------------------------------------------------------------------------
+
+def _placed(model) -> bool:
+    return isinstance(model, dict) and shd.is_placed(model)
+
+
+def _mesh_of(model):
+    return shd.placed_mesh(model)
+
+
+def _sink() -> torch.Tensor:
+    """The scalar that puts gathered parameter blocks in the graph
+    (`collectives.gather_param`)."""
+    return torch.zeros((), requires_grad=True)
+
+
+class _Grid:
+    """A mesh read as (data shard i, tp slice j) a coordinate, in
+    ``mesh.devices`` order: i runs over the axes other than ``tp_axis``
+    (major first), j over ``tp_axis`` (0 without one). ``devs`` are the
+    mesh's entries, ``rows[i]`` the coordinates of data shard i by j (a
+    tp group)."""
+
+    def __init__(self, mesh, tp_axis: str = "model"):
+        names = mesh.axis_names
+        self.n_tp = mesh.shape[tp_axis] if tp_axis in names else 1
+        dp_axes = tuple(a for a in names if a != tp_axis)
+        self.n_dp = int(np.prod([mesh.shape[a] for a in dp_axes]))
+        self.ij = dp_tp_coords(mesh, tp_axis)
+        self.devs = list(mesh.devices)
+        self.rows = [[c for c, (ci, _) in sorted(
+            enumerate(self.ij), key=lambda e: e[1][1]) if ci == i]
+            for i in range(self.n_dp)]
+        self.ctrl = self.rows[0][0]     # (0, 0): where the loss lands
+
+    def first_of_rows(self) -> list:
+        return [row[0] for row in self.rows]
+
+    def check_rows(self, B: int) -> None:
+        if B % self.n_dp:
+            raise ValueError(f"batch {B} does not divide over the "
+                             f"{self.n_dp} data-parallel shards of the mesh")
+
+    def row_box(self, i: int, shape) -> tuple:
+        b = shape[0] // self.n_dp
+        return ((i * b, (i + 1) * b),) + C.full_box(shape[1:])
+
+    def vocab_slice(self, V: int) -> int:
+        return -(-V // self.n_tp)
+
+    def all_reduce_rows(self, xs: list) -> list:
+        """``xs`` (one a coordinate) all-reduced over each tp group."""
+        out = list(xs)
+        for row in self.rows:
+            for c, y in zip(row, C.all_reduce([xs[c] for c in row])):
+                out[c] = y
+        return out
+
+    def rows_of(self, t: torch.Tensor) -> list:
+        """Data shard i's rows of ``t`` on each coordinate's device."""
+        self.check_rows(t.shape[0])
+        return C.gather_boxes([(C.full_box(t.shape), t, t.device)],
+                              [(self.row_box(i, t.shape), d)
+                               for (i, _), d in zip(self.ij, self.devs)])
+
+
+def _block(shape, dim, j: int, n: int) -> tuple:
+    """The full box of ``shape`` with dimension ``dim`` cut to slice j of
+    n (whole with ``dim`` None)."""
+    box = list(C.full_box(shape))
+    if dim is not None:
+        size = shape[dim] // n
+        box[dim] = (j * size, (j + 1) * size)
+    return tuple(box)
+
+
+# the dimension of each per-layer weight that a tp slice cuts
+_ATTN_CUT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
+_FFN_CUT = {"w_gate": 1, "w_up": 1, "w_down": 0}
+_MOE_CUT = {"router": None, "w_gate": 2, "w_up": 2, "w_down": 1}
+
+
+class _GridRun:
+    def __init__(self, xs, aux, emb):
+        self.xs, self.aux, self.emb = xs, aux, emb
+
+
+def _grid_backbone(params: dict, cfg: TransformerConfig, tokens, grid: _Grid,
+                   sink=None) -> _GridRun:
+    """The backbone over a placed model. Coordinate (i, j) runs data shard
+    i's rows on tp slice j: its heads of wq / wk / wv / wo, its columns of
+    w_gate / w_up and rows of w_down (an expert's, in an MoE layer), its
+    vocab rows of embed; a block the tp slices do not divide (heads or
+    KV heads, d_ff, the vocab) runs whole on every slice. Each layer's
+    blocks are gathered from the pieces that hold them just before use
+    (`collectives.gather_param`) and, under ``cfg.remat``, freed after the
+    layer's forward and gathered again by its recomputation (a reentrant
+    checkpoint a layer). The partial
+    sums after wo, w_down and a split embedding lookup are all-reduced
+    over the tp group. Returns the final-norm hidden states a coordinate
+    (data shard i's rows, the same on every j), the aux loss on the
+    mesh's first device and the embedding blocks (the tied head reads
+    them)."""
+    sink = _sink() if sink is None else sink
+    n, ij, devs = grid.n_tp, grid.ij, grid.devs
+    V, D, H, KV, F = (cfg.vocab_size, cfg.d_model, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.d_ff)
+    split_v = n > 1 and V % n == 0
+    split_attn = n > 1 and H % n == 0 and KV % n == 0
+    split_ffn = n > 1 and F % n == 0
+
+    emb = params["embed"]
+    vl = V // n if split_v else V
+    E = C.gather_param(sink, emb, [(((j * vl, (j + 1) * vl) if split_v
+                                     else (0, V), (0, D)), d)
+                                   for (_, j), d in zip(ij, devs)])
+    xs = []
+    for c, tok in enumerate(grid.rows_of(tokens)):
+        tok = tok.long()
+        if split_v:
+            loc = tok - ij[c][1] * vl
+            inside = (loc >= 0) & (loc < vl)
+            xs.append(torch.where(inside[..., None],
+                                  E[c][torch.clamp(loc, 0, vl - 1)], 0.0))
+        else:
+            xs.append(E[c][tok])
+    if split_v:
+        xs = grid.all_reduce_rows(xs)
+
+    layers = params["layers"]
+    spec = cfg.attn_spec()
+    if split_attn:
+        spec = dataclasses.replace(spec, n_heads=H // n, n_kv_heads=KV // n)
+    ffn_key = "moe" if cfg.is_moe else "ffn"
+    ffn_cut = (_MOE_CUT if cfg.is_moe else _FFN_CUT) if split_ffn else {}
+    attn_cut = _ATTN_CUT if split_attn else {}
+
+    def gather(leaf, l, dim):
+        per = leaf.shape[1:]
+        return [t.squeeze(0) for t in C.gather_param(
+            sink, leaf, [(((l, l + 1),) + _block(per, dim, j, n), d)
+                         for (_, j), d in zip(ij, devs)])]
+
+    def layer(l, *xs):
+        an = gather(layers["attn_norm"], l, None)
+        pa = {k: gather(v, l, attn_cut.get(k)) for k, v in
+              layers["attn"].items()}
+        a = [L.attention_full({k: w[c] for k, w in pa.items()}, spec,
+                              L.rmsnorm(x, an[c], cfg.norm_eps), causal=True,
+                              impl=cfg.attn_impl) for c, x in enumerate(xs)]
+        if split_attn:
+            a = grid.all_reduce_rows(a)
+        xs = [x + y for x, y in zip(xs, a)]
+        fn = gather(layers["ffn_norm"], l, None)
+        pf = {k: gather(v, l, ffn_cut.get(k)) for k, v in
+              layers[ffn_key].items()}
+        hs = [L.rmsnorm(x, fn[c], cfg.norm_eps) for c, x in enumerate(xs)]
+        if cfg.is_moe:
+            ys, aux = _grid_moe(pf, cfg, hs, grid)
+        else:
+            ys = [L.swiglu({k: w[c] for k, w in pf.items()}, h)
+                  for c, h in enumerate(hs)]
+            aux = torch.zeros((), dtype=torch.float32,
+                              device=tensor_device(devs[grid.ctrl]))
+        if split_ffn:
+            ys = grid.all_reduce_rows(ys)
+        return (*[x + y for x, y in zip(xs, ys)], aux)
+
+    auxs = []
+    for l in range(cfg.n_layers):
+        if cfg.remat and torch.is_grad_enabled():
+            # reentrant: the recomputation runs once, inside this layer's
+            # backward node; the non-reentrant form recomputes from the
+            # first saved tensor unpacked, and with a layer on several
+            # cards two devices' backward threads unpack at once
+            *xs, aux = checkpoint(layer, l, *xs, use_reentrant=True,
+                                  preserve_rng_state=False)
+        else:
+            *xs, aux = layer(l, *xs)
+        auxs.append(aux)
+    fin = C.gather_param(sink, params["final_norm"],
+                         [(C.full_box((D,)), d) for d in devs])
+    xs = [L.rmsnorm(x, fin[c], cfg.norm_eps) for c, x in enumerate(xs)]
+    return _GridRun(xs, torch.stack(auxs).sum(), E)
+
+
+def _grid_moe(pf: dict, cfg: TransformerConfig, hs: list, grid: _Grid):
+    """One MoE layer a coordinate over its rows and its experts' slice:
+    (partial outputs, aux on the mesh's first device). aux is the
+    reference's: with the "scatter_shmap" dispatch under an MoE mesh, the
+    mean of the aux of that mesh's data chunks (each data shard's groups
+    cut into its share of them); otherwise the aux of all groups at once,
+    from the routing statistics all-reduced over the data shards."""
+    from repro_torch.launch.mesh import n_shards
+    from repro_torch.models.moe import _MOE_MESH, chunk_aux, moe_groups
+    spec = cfg.moe_spec()
+    E = cfg.n_experts
+    ys, stats = [], []
+    for c, h in enumerate(hs):
+        B, S, D = h.shape
+        t = min(cfg.moe_group, S)
+        y, me, ce = moe_groups({k: w[c] for k, w in pf.items()}, spec,
+                               h.reshape(B * S // t, t, D))
+        ys.append(y.reshape(B, S, D))
+        stats.append((me, ce))
+    firsts = grid.first_of_rows()
+    if cfg.moe_impl == "scatter_shmap" and _MOE_MESH["mesh"] is not None:
+        k = n_shards(_MOE_MESH["mesh"], _MOE_MESH["dp_axes"])
+        if k % grid.n_dp:
+            raise ValueError(f"{k} MoE data chunks do not divide over the "
+                             f"{grid.n_dp} data shards of the placement")
+        per = k // grid.n_dp
+        sums = []
+        for c in firsts:
+            me, ce = stats[c]
+            sums.append(sum(chunk_aux(a, b, E) for a, b in
+                            zip(me.chunk(per), ce.chunk(per))))
+        aux = C.all_reduce(sums)[0] / k
+    else:
+        me = C.all_reduce([stats[c][0].mean(0) for c in firsts])[0]
+        ce = C.all_reduce([stats[c][1].mean(0) for c in firsts])[0]
+        aux = E * torch.sum((me / grid.n_dp) * (ce / grid.n_dp))
+    return ys, aux
+
+
+def _grid_heads(params: dict, cfg: TransformerConfig, grid: _Grid, run,
+                sink) -> list:
+    """Each coordinate's (D, V_pad / n_tp) slice of the head, the vocab
+    padded with zero columns to a tp multiple."""
+    n, V, D = grid.n_tp, cfg.vocab_size, cfg.d_model
+    vl = grid.vocab_slice(V)
+    spans = [(j * vl, min((j + 1) * vl, V)) for _, j in grid.ij]
+    if cfg.tie_embeddings:
+        rows = run.emb[0].shape[0]
+        if rows == V:          # the lookup gathered the whole table
+            heads = [e[s:t].T for e, (s, t) in zip(run.emb, spans)]
+        else:                  # the lookup's vocab slice is the head's
+            heads = [e.T for e in run.emb]
+    else:
+        heads = C.gather_param(sink, params["lm_head"],
+                               [(((0, D), span), d)
+                                for span, d in zip(spans, grid.devs)])
+    return [torch.nn.functional.pad(h, (0, vl - h.shape[1])) for h in heads]
+
+
+def _grid_xent(xs: list, heads: list, labels: torch.Tensor, grid: _Grid,
+               v_real: int) -> torch.Tensor:
+    """The vocab-parallel mean cross-entropy from each coordinate's hidden
+    rows and head slice; on the mesh's first device."""
+    neg = torch.finfo(torch.float32).min
+    vl = heads[0].shape[1]
+    labs = grid.rows_of(labels)
+    logits, gold = [], []
+    for c, (x, head, lab) in enumerate(zip(xs, heads, labs)):
+        off = grid.ij[c][1] * vl
+        lg = (x @ head).float()
+        col = off + torch.arange(vl, device=lg.device)
+        lg = torch.where(col < v_real, lg, neg)
+        lab = torch.clamp_min(lab, 0).long()
+        in_range = (lab >= off) & (lab < off + vl)
+        g = lg.gather(-1, torch.clamp(lab - off, 0, vl - 1)[..., None])[..., 0]
+        logits.append(lg)
+        gold.append(torch.where(in_range, g, 0.0))
+    ms = [lg.detach().amax(-1) for lg in logits]
+    for row in grid.rows:
+        for c, m in zip(row, C.all_max([ms[c] for c in row])):
+            ms[c] = m
+    se = grid.all_reduce_rows([torch.exp(lg - m[..., None]).sum(-1)
+                               for lg, m in zip(logits, ms)])
+    gold = grid.all_reduce_rows(gold)
+    firsts = grid.first_of_rows()
+    nll, cnt = [], []
+    for c in firsts:
+        mask = labs[c] >= 0
+        logz = ms[c] + torch.log(se[c])
+        nll.append(torch.sum((logz - gold[c]) * mask))
+        cnt.append(mask.sum().float())
+    total = C.all_reduce(nll)[0]
+    with torch.no_grad():
+        count = C.all_reduce(cnt)[0]
+    return total / torch.clamp_min(count, 1)
+
+
+def _grid_loss(params: dict, cfg: TransformerConfig, batch: dict,
+               grid: _Grid) -> torch.Tensor:
+    """The vocab-parallel loss of a placed model on its mesh's first
+    device."""
+    sink = _sink()
+    run = _grid_backbone(params, cfg, batch["tokens"], grid, sink)
+    heads = _grid_heads(params, cfg, grid, run, sink)
+    xent = _grid_xent(run.xs, heads, batch["labels"], grid, cfg.vocab_size)
+    return xent + cfg.moe_aux_weight * run.aux
 
 
 # ---------------------------------------------------------------------------

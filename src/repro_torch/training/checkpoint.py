@@ -19,11 +19,15 @@ Atomicity: write into ``<root>/.tmp_<step>`` then ``os.rename`` -- a crash
 mid-write can never produce a directory that `latest_step` would pick up.
 Async: one background writer thread; the device -> host copy happens on the
 caller thread, serialisation off the critical path; keep-k pruning on
-every save. On restore, tensor leaves go to ``device`` (default: where the
-structure donor's leaf lives), or onto the mesh of ``shardings`` (the
-elastic re-mesh path of fault_tolerance.py): the port's mesh is logical
-shards of one device, so the leaves go to that device and are checked
-against their specs (`distributed.sharding.place`).
+every save. A state laid on a mesh of several devices
+(`distributed.sharding.Placed` leaves) is saved as the global arrays its
+pieces make up, in the same layout. On restore, tensor leaves go to
+``device`` (default: where the structure donor's leaf lives), or onto the
+mesh of ``shardings`` (the elastic re-mesh path of fault_tolerance.py):
+over a mesh of one device the leaves go to that device and are checked
+against their specs (`distributed.sharding.place`); over a mesh of
+several devices each leaf is read from the file and laid straight into
+its pieces on their devices, one leaf at a time.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import normalize_device, tensor_device
 from repro_torch.training import tree as T
 
 SEP = "$"
@@ -53,6 +59,8 @@ def _host_leaf(leaf):
     numpy array, or an int32 / float32 / bool numpy scalar array."""
     if isinstance(leaf, T.Group):
         return torch.stack([t.detach().cpu() for t in leaf])
+    if isinstance(leaf, shd.Placed):
+        return leaf.assemble("cpu")
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=True)
     if isinstance(leaf, np.ndarray):
@@ -142,16 +150,21 @@ def restore(root: str, step: int, like, *, device=None, shardings=None):
     (shapes must match).
 
     ``shardings`` (a tree of `NamedSharding` matching the state, e.g.
-    `distributed.sharding.state_shardings`) restores onto that mesh: every
-    mesh device must be one device, which the leaves go to, and every spec
-    must fit its leaf (`sharding.place`); ValueError otherwise. It and
-    ``device`` exclude each other."""
+    `distributed.sharding.state_shardings`) restores onto that mesh, whose
+    devices must be of one type, and every spec must fit its leaf; else
+    ValueError. Over a mesh of one device the leaves go to that device
+    (`sharding.place`, the donor's structure kept); over several devices
+    the result is the reference's tree of the state, every tensor leaf a
+    `sharding.Placed` whose pieces are read from the file straight onto
+    their devices. It and ``device`` exclude each other."""
     if shardings is not None:
         if device is not None:
             raise ValueError("pass device= or shardings=, not both")
-        from repro_torch.distributed.sharding import mesh_device, place
-        return place(restore(root, step, like,
-                             device=mesh_device(shardings)), shardings)
+        mesh = next(sh.mesh for _, sh in _shardings(shardings))
+        shd.check_mesh(mesh)
+        if shd.one_device(mesh):
+            return shd.place(restore(root, step, like, device=tensor_device(
+                normalize_device(mesh.devices[0]))), shardings)
     path = os.path.join(root, f"step_{step:012d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -165,7 +178,11 @@ def restore(root: str, step: int, like, *, device=None, shardings=None):
     values = {}
     for (p, donor), key in zip(items, keys):
         arr = data[key]
-        if isinstance(donor, T.Group) or torch.is_tensor(donor):
+        if shardings is not None and (isinstance(donor, shd.Placed) or
+                                      torch.is_tensor(T.first(donor))):
+            values[p] = shd.place_leaf(_tensor_of(arr, dtype_of[key]),
+                                       T.at(shardings, p))
+        elif isinstance(donor, T.Group) or torch.is_tensor(donor):
             first = donor[0] if isinstance(donor, T.Group) else donor
             t = _tensor_of(arr, dtype_of[key]).to(
                 device if device is not None else first.device)
@@ -183,6 +200,16 @@ def restore(root: str, step: int, like, *, device=None, shardings=None):
         else:
             values[p] = arr
 
+    if shardings is not None:
+        for p, donor in items:
+            if not (isinstance(donor, shd.Placed)
+                    or torch.is_tensor(T.first(donor))) and tuple(
+                        T.at(shardings, p).spec):
+                raise ValueError(f"{SEP.join(map(str, p))}: a non-tensor "
+                                 "leaf takes P()")
+        return T.unflatten([p for p, _ in items],
+                           [values[p] for p, _ in items])
+
     def remake(module, tree):
         dev = device if device is not None else module.device
         new = type(module)(module.cfg, device=dev)
@@ -197,6 +224,14 @@ def restore(root: str, step: int, like, *, device=None, shardings=None):
         return new
 
     return T.rebuild(like, values, on_module=remake)
+
+
+def _shardings(tree):
+    """(path, NamedSharding) over a tree of them."""
+    if isinstance(tree, shd.NamedSharding):
+        return [((), tree)]
+    return [((k,) + p, sh) for k, v in tree.items()
+            for p, sh in _shardings(v)]
 
 
 class AsyncCheckpointer:

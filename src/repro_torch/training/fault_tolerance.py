@@ -6,9 +6,10 @@ Three mechanisms:
   2. Straggler detection -- per-step wall-time EMA + robust z-score; slow
      steps flag the host so the scheduler can drain/replace it.
   3. Elastic re-mesh -- when the healthy device set shrinks/grows, pick the
-     largest (data, model)-factorable mesh that fits, and restore the
-     newest checkpoint onto its shardings (`reshard_state`; the port's
-     mesh is logical shards of one device).
+     largest (data, model)-factorable mesh that fits the cards present
+     (`make_elastic_mesh`), and restore the newest checkpoint onto its
+     shardings (`reshard_state`): over several cards every leaf lands in
+     its pieces on their cards (`checkpoint.restore`).
 
 `StragglerDetector` and `plan_mesh_shape` are plain Python, copied from the
 reference.
@@ -28,14 +29,17 @@ from repro_torch.training import checkpoint as ckpt
 # 1. checkpoint / restart
 # ---------------------------------------------------------------------------
 
-def resume_or_init(root: str | None, init_fn, like=None, *, device=None):
+def resume_or_init(root: str | None, init_fn, like=None, *, device=None,
+                   shardings=None):
     """Returns (state, start_step). `init_fn()` builds a fresh state; `like`
-    defaults to that fresh state as the structure donor for restore."""
+    defaults to that fresh state as the structure donor for restore;
+    ``shardings`` restores onto a mesh (`checkpoint.restore`)."""
     if root:
         step = ckpt.latest_step(root)
         if step is not None:
             donor = like if like is not None else init_fn()
-            state = ckpt.restore(root, step, donor, device=device)
+            state = ckpt.restore(root, step, donor, device=device,
+                                 shardings=shardings)
             return state, step
     return init_fn(), 0
 
@@ -114,6 +118,7 @@ def make_elastic_mesh(n_devices: int, *, model_parallel: int,
 def reshard_state(root: str, step: int, like, new_shardings):
     """Restore checkpoint `step` resharded onto a new mesh's shardings (a
     tree of `distributed.sharding.NamedSharding`) -- the recovery path
-    after losing a pod/host. Every mesh device must be one device and
-    every spec must fit its leaf, else ValueError (`checkpoint.restore`)."""
+    after losing a pod/host. The mesh's devices must be of one type and
+    every spec must fit its leaf, else ValueError (`checkpoint.restore`);
+    over several devices every leaf lands in its pieces on them."""
     return ckpt.restore(root, step, like, shardings=new_shardings)

@@ -10,7 +10,13 @@ A `TrainState` is ``{"params", "opt", "step"}``: the parameters (a
 optimizer's state (the reference's tree) and the step as an int.
 Gradients come from ``torch.autograd.grad`` over the parameters' tensors;
 a parameter the loss does not reach gets a zero gradient, as
-``jax.grad`` gives.
+``jax.grad`` gives. A state laid on a mesh of several devices
+(`distributed.sharding.place`: every parameter a `Placed`) takes the
+same step: the loss gathers each block where it computes with it, and
+the backward pass reduce-scatters the blocks' gradients into gradient
+pieces of each parameter's layout, in shard order
+(`collectives.gather_param`); the optimizer updates every piece on its
+device.
 """
 from __future__ import annotations
 
@@ -20,25 +26,73 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import tree as T
-from repro_torch.training.optimizer import Optimizer, apply_updates
+from repro_torch.training.optimizer import (Optimizer, apply_updates,
+                                            global_norm)
 
 TrainState = dict[str, Any]     # {"params", "opt", "step"}
 
 
-def init_state(params, optimizer: Optimizer) -> TrainState:
+def init_state(params, optimizer: Optimizer, shardings=None, *,
+               split: bool | None = None) -> TrainState:
     """The state at step 0. Switches ``requires_grad`` on for every
     floating-point parameter (a model's serving path runs under
-    ``no_grad`` and is unaffected)."""
+    ``no_grad`` and is unaffected).
+
+    With ``shardings`` (a state's tree of `NamedSharding`, e.g.
+    `sharding.state_shardings` of a state built on ``meta``) the state is
+    laid on that mesh (`sharding.place`): the parameters copied into
+    their pieces, the optimizer's state (zeros, as every optimizer here
+    starts) allocated piece by piece on the pieces' devices, never
+    whole; ``split`` as in `sharding.place` (True lays pieces on a mesh
+    of one device too)."""
+    if shardings is not None:
+        params = shd.place(params, shardings["params"], split=split)
+        if shd.is_placed(params):
+            like = optimizer.init(_meta_tree(params))
+            items = T.ref_items(like)
+            opt = T.unflatten([p for p, _ in items], [
+                shd.zeros_on(T.at(shardings["opt"], p), T.shape(leaf),
+                             T.first(leaf).dtype) for p, leaf in items])
+            return {"params": params, "opt": opt, "step": 0}
     for p in T.leaves(params):
         if torch.is_tensor(p) and p.is_floating_point():
             p.requires_grad_(True)
     return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 
+def _meta_tree(params) -> dict:
+    """A placed tree's leaves as empty tensors of their shapes on meta."""
+    items = T.ref_items(params)
+    return T.unflatten([p for p, _ in items],
+                       [torch.empty(leaf.shape, dtype=leaf.dtype,
+                                    device="meta") for _, leaf in items])
+
+
+def _placed_grads(loss_fn, params, batch):
+    """(loss detached, gradients of a placed tree: a `Placed` of each
+    parameter's layout, filled by the backward pass)."""
+    leaves = [leaf for _, leaf in T.ref_items(params)]
+    for leaf in leaves:
+        leaf.grad = leaf.zeros()
+    try:
+        loss = loss_fn(params, batch)
+        torch.autograd.backward(loss)
+        items = T.ref_items(params)
+        grads = T.unflatten([p for p, _ in items],
+                            [leaf.grad for _, leaf in items])
+    finally:
+        for leaf in leaves:
+            leaf.grad = None
+    return loss.detach(), grads
+
+
 def _grads(loss_fn, params, batch):
     """(loss detached, gradients as a tree of the params' structure)."""
+    if shd.is_placed(params):
+        return _placed_grads(loss_fn, params, batch)
     leaves = T.leaves(params)
     loss = loss_fn(params, batch)
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -68,23 +122,35 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             for i in range(accum_steps):
                 mb = {k: v[i] for k, v in batch.items()}
                 l, g = _grads(loss_fn, params, mb)
-                g = T.tree_map(lambda x: x.float(), g)
-                gsum = g if gsum is None else T.tree_map(torch.add, gsum, g)
+                g = T.tree_map(_float, g)
+                gsum = g if gsum is None else T.tree_map(_add, gsum, g)
                 lsum = lsum.to(l.device) + l
-            grads = T.tree_map(lambda x: x / accum_steps, gsum)
+            grads = T.tree_map(lambda x: _divided(x, accum_steps), gsum)
             loss = lsum / accum_steps
 
         updates, opt_state = optimizer.update(grads, state["opt"], params,
                                               state["step"])
         apply_updates(params, updates)
         del updates
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in T.leaves(grads)))
+        gnorm = global_norm(grads)
         new_state = {"params": params, "opt": opt_state,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step_fn
+
+
+def _float(x):
+    return x.map(lambda t: t.float()) if isinstance(x, shd.Placed) \
+        else x.float()
+
+
+def _add(a, b):
+    return a.map(torch.add, b) if isinstance(a, shd.Placed) else a + b
+
+
+def _divided(x, n: int):
+    return x.map(lambda t: t / n) if isinstance(x, shd.Placed) else x / n
 
 
 def _block(t: torch.Tensor) -> None:

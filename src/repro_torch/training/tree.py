@@ -46,7 +46,7 @@ def ref_items(tree, prefix=()) -> list[tuple[tuple, object]]:
         return [item for key in sorted(node)
                 for item in ref_items(node[key], prefix + (key,))]
     if _is_layer_list(node, prefix):
-        return [(prefix + path, Group(_get(e, path) for e in node))
+        return [(prefix + path, Group(at(e, path) for e in node))
                 for path, _ in ref_items(node[0])]
     if isinstance(node, (list, tuple)):
         return [item for i, v in enumerate(node)
@@ -54,7 +54,8 @@ def ref_items(tree, prefix=()) -> list[tuple[tuple, object]]:
     return [(prefix, node)]
 
 
-def _get(node, path):
+def at(node, path):
+    """The node of ``node`` at ``path`` (modules read as their trees)."""
     for key in path:
         node = expand(node)[key]
     return node
@@ -75,12 +76,14 @@ def shape(leaf) -> tuple:
 
 def f32_zeros(tree) -> dict:
     """An f32 zero tensor for every leaf of ``tree``'s reference view, on
-    the leaf's device: the reference's structure (optimizer moments,
-    error-feedback residuals)."""
+    the leaf's device (a placed leaf's: f32 zero pieces of its layout):
+    the reference's structure (optimizer moments, error-feedback
+    residuals)."""
     items = ref_items(tree)
     return unflatten([path for path, _ in items],
-                     [torch.zeros(shape(leaf), dtype=torch.float32,
-                                  device=first(leaf).device)
+                     [leaf.zeros(torch.float32) if hasattr(leaf, "zeros")
+                      else torch.zeros(shape(leaf), dtype=torch.float32,
+                                       device=first(leaf).device)
                       for _, leaf in items])
 
 

@@ -472,8 +472,12 @@ def test_constrain():
     assert tcoll.constrain(x, mesh, P(("data", "model"), None)) is x
     with pytest.raises(ValueError, match="names axis"):
         tcoll.constrain(x, mesh, P("pod", None))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tcoll.constrain(x, make_host_mesh(2, 2, device="meta"),
+    cards = make_mesh((2, 2), ("data", "model"),
+                      devices=[torch.device("cpu", i) for i in range(4)])
+    assert tcoll.constrain(x, cards, P("data", "model")) is x
+    with pytest.raises(ValueError, match="more than one type"):
+        tcoll.constrain(x, make_mesh((2,), ("data",),
+                                     devices=["cpu", "meta"]),
                         P("data", None))
 
 

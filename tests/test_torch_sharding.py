@@ -20,10 +20,11 @@ with the reference's on the CPU.
   ``NamedSharding.shard_shape``, its own ``make_vp_loss_fn`` (value and
   grads), its ``moe_apply_scatter_shmap`` under a mesh (y and aux) and an
   MoE model's loss and grads through it, each against the port's;
-* placing a state, restoring onto shardings and `reshard_state`: pieces
-  are views of their shard_shape, the restored leaves equal the saved
-  ones, and a mesh over other devices than the state's raises ValueError
-  naming the ROADMAP item.
+* placing a state, restoring onto shardings and `reshard_state`: over one
+  device pieces are views of their shard_shape and the restored leaves
+  equal the saved ones; over distinct CPU entries every piece is its own
+  tensor; a mesh whose devices differ in type from the state's raises
+  ValueError.
 """
 import dataclasses
 import os
@@ -269,7 +270,7 @@ def test_vp_loss_rejects_what_shard_map_rejects():
         tt.make_vp_loss_fn(tcfg, make_host_mesh(2, 2))(model, batch)
     with pytest.raises(ValueError, match="'model' mesh axis"):
         tt.make_vp_loss_fn(tcfg, make_mesh((2,), ("data",), devices=["cpu"] * 2))
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match="more than one type"):
         tt.make_vp_loss_fn(tcfg, make_host_mesh(1, 2, device="meta"))(model, batch)
 
 
@@ -437,11 +438,29 @@ def test_place_gives_views_of_shard_shape():
 
 
 def test_place_rejects_other_devices_and_misfit_specs():
+    """Distinct devices of one type are placed (a piece a coordinate, each
+    its own tensor, equal to the leaf's view there); a mesh whose devices
+    differ in type from the state's, or among themselves, and misfit
+    specs raise."""
     state = _small_state()
-    mesh = make_host_mesh(2, 2, device="meta")
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
-        shd.place(state, shd.state_shardings(mesh, state,
-                                             shd.lm_rules(mesh)))
+    cpus = make_mesh((2, 2), ("data", "model"),
+                     devices=[torch.device("cpu", i) for i in range(4)])
+    sh = shd.state_shardings(cpus, state, shd.lm_rules(cpus))
+    placed = shd.place(state, sh)
+    emb = placed["params"]["embed"]
+    assert isinstance(emb, shd.Placed) and len(emb.parts()) == 4
+    views = sh["params"]["embed"]
+    for coord, piece in zip(views.coords(), emb.pieces):
+        want = views.piece(state["params"].embed, coord)
+        assert torch.equal(piece, want)
+        assert piece.data_ptr() != want.data_ptr()
+    assert placed["step"] == 0
+    for mesh in (make_host_mesh(2, 2, device="meta"),
+                 make_mesh((2, 1), ("data", "model"),
+                           devices=["cpu", "meta"])):
+        with pytest.raises(ValueError, match="more than one type"):
+            shd.place(state, shd.state_shardings(mesh, state,
+                                                 shd.lm_rules(mesh)))
     cpu = make_host_mesh(2, 2)
     sh = shd.state_shardings(cpu, state, shd.lm_rules(cpu))
     sh["params"]["final_norm"] = shd.NamedSharding(cpu, shd.P("data", "model"))
@@ -463,7 +482,7 @@ def test_reshard_state_round_trip(tmp_path):
     for a, b in zip(T.leaves(state), T.leaves(got)):
         assert torch.equal(a, b) if torch.is_tensor(a) else a == b
     mixed = make_mesh((2, 1), ("data", "model"), devices=["cpu", "meta"])
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match="more than one type"):
         reshard_state(str(tmp_path), 3, like,
                       shd.state_shardings(mixed, like, shd.lm_rules(mixed)))
     with pytest.raises(ValueError, match="not both"):
