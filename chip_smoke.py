@@ -2,6 +2,8 @@
 """On-card smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py          # one NVIDIA card; exits 0 only if all pass
+    python3 chip_smoke.py --phases attn_kernel,reduced_serve   # the build
+                                   # and these phases alone (see ALONE)
 
 Phases:
   0. build   -- compile the two kernel libraries: the arena scan
@@ -182,11 +184,14 @@ Phases:
                 burst comparison, peak memory.
 
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
-                (causal and full) and the flash-decode kernel against their plain versions on
-                the card over bf16 and f32, G 1 / 2 / 4 / 8, hd 64 / 128
-                and S 1 / 17 / 512 / 2064 / 4096, then in bf16 at the edges
-                of the tiles: G 2 and 3 (a flash tile of 126 rows in use) at S 127 /
-                129 / 2047; decode batches lengths 0 (the mean of V, as the
+                (causal and full) and the flash-decode kernel against their
+                plain versions on the card over bf16 and f32, G 1 / 2 / 4 /
+                8, hd 16 / 32 / 64 / 128 (the kernels' HEAD_DIMS; 16 and 32
+                take 32- and 64-byte swizzled rows in the bf16 flash kernel)
+                and S 1 / 17 / 512 / 2064 / 4096, then in both dtypes at
+                the edges of the tiles: G 3 (a flash tile of 126 rows in
+                use) at every S of the edge grid, G 1 / 2 / 4 / 8 at S 127
+                / 129 / 2047, every hd; decode batches lengths 0 (the mean of V, as the
                 reference), 1, random and S + 3. Flash within
                 rtol 1e-2, atol 8e-3 of its plain version (the chunked
                 online softmax; P and V rounded to bf16 for P.V) and of the
@@ -298,7 +303,7 @@ Phases:
                 bit for bit to the same launch on cuda:0. Batch medians,
                 the IVF build's seconds, each card's peak GB. With n = 1
                 it says the run needs two cards and computes nothing
-                (`tools/regions_only.py` runs the phase alone).
+                (`--phases regions` runs the phase alone).
  14. lm_serve (after the prod arena is freed) -- the LM serving
                 path at qwen3-4b FULL width (36 layers, bf16, weights from a
                 seeded generator on the card) behind the bench RagDB: 8
@@ -333,6 +338,36 @@ Phases:
                 time at the prefill's groups and at a decode step's. Then
                 `launch.serve.main([--arch granite-moe-1b-a400m
                 --no-reduced --engine cuda --requests 8])` must serve 8.
+ 15b. reduced_serve (after moe_serve) -- every REDUCED config of the
+                registry on the card (hd 16: qwen1.5-0.5b, yi-6b, granite,
+                grok with G 3; hd 32: qwen3-4b; all f32): (a)
+                `launch.serve.main([--arch A --engine cuda])` at its
+                defaults (--reduced, 16 requests in batches of 4, 8
+                tokens): 16 served, the decode kernel n_layers x 8 a batch,
+                one scan launch a batch or more; (b) each config's prefill
+                of 8 x 2048 tokens through the flash kernel (n_layers
+                launches) and 8 greedy decode steps through the decode
+                kernel, held to the same calls with the plain attention
+                versions on the card: prefill logits within rtol 1e-2,
+                atol 8e-3, each step's logits (the kernel path's tokens
+                fed to both, from the kernel path's prefilled cache) within
+                2e-5, the plain path routed to the kernel path's experts
+                (so both gates hold for the MoE configs too); routing
+                choices the plain path would have made otherwise and
+                greedy-token flips reported; (c) both kernels at hd 16
+                and 32, f32 and bf16, against their plain versions and
+                timed beside them, SDPA and the bound (an f32 flash's P.V
+                at the bf16 rate: it multiplies bf16 P and V): flash at 8
+                x 2048, KV 2, G 2; decode at gen-25m's shape (B 8, KV 4, G
+                2, a 62-row cache, 60 live); then both kernels at each
+                REDUCED config's own KV, G and hd (grok: G 3) at its
+                prefill and decode shapes against their plain versions;
+                (d) the three examples:
+                torch_quickstart (unified top-5, 0 leaked, window 0 ms),
+                torch_rag_serve (gen-25m, hd 32, G 2: 8 requests x 12
+                tokens, 48 decode launches) and torch_train_lm (200 steps,
+                loss finite and falling, then a resume at 200). No plain
+                version gets a CUDA tensor in a counted run.
  16. train -- no kernel: the training path is plain PyTorch. (a)
                 granite at full width cut to 2 layers, f32, TF32 off: one
                 AdamW step on the card and on the CPU from the same numpy
@@ -419,6 +454,7 @@ missing.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -483,11 +519,11 @@ PAGED_N = (1000, 4099, 9001)
 PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 # phase attn_kernel grid: G of the three dense configs' groupings, the
 # served head dims, S from one token through ragged (17, 2064 = the serve
-# cache) to past the prefill shape, both dtypes; then, for the bf16 kernel's
-# tiles, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
+# cache) to past the prefill shape, both dtypes; then, for both kernels'
+# tiles in both dtypes, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
 # use) and S 127 / 129 / 2047 (64- and 128-key tiles)
 ATTN_G = (1, 2, 4, 8)
-ATTN_HD = (64, 128)
+ATTN_HD = (16, 32, 64, 128)   # the kernels' HEAD_DIMS
 ATTN_S = (1, 17, 512, 2064, 4096)
 ATTN_EDGE_G = (1, 2, 3, 4, 8)
 ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
@@ -4990,8 +5026,8 @@ def decode_check(q, kc, vc, lengths):
 def phase_attn_kernel():
     """Both attention kernels against their plain versions over dtypes, G,
     hd, S (ragged and past the prefill shape) and, for decode, lengths 0,
-    1, random and past S in one batch; then the bf16 kernels at the edges
-    of their tiles (G 3, S 127 / 129 / 2047)."""
+    1, random and past S in one batch; then both dtypes at the edges of
+    the tiles (G 3, S 127 / 129 / 2047)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
@@ -5024,11 +5060,12 @@ def phase_attn_kernel():
             for hd in ATTN_HD:
                 for S in ATTN_S:
                     case(dt, G, hd, S)
-    for G in ATTN_EDGE_G:
-        for hd in ATTN_HD:
-            for S in ATTN_EDGE_S:
-                if G not in ATTN_G or S not in ATTN_S:
-                    case(torch.bfloat16, G, hd, S)
+    for dt in (torch.bfloat16, torch.float32):
+        for G in ATTN_EDGE_G:
+            for hd in ATTN_HD:
+                for S in ATTN_EDGE_S:
+                    if G not in ATTN_G or S not in ATTN_S:
+                        case(dt, G, hd, S)
     cases = counts["cases"]
     check(fa_mod.LAUNCHES == 2 * cases and dec_mod.LAUNCHES == cases,
           "launch counts of the grid")
@@ -5036,7 +5073,8 @@ def phase_attn_kernel():
          grid={"dtype": ["bfloat16", "float32"], "G": ATTN_G, "hd": ATTN_HD,
                "S": ATTN_S, "lengths": "0, 1, random, S + 3",
                "causal": [True, False],
-               "bf16_tile_edges": {"G": ATTN_EDGE_G, "S": ATTN_EDGE_S}},
+               "tile_edges": {"dtype": ["bfloat16", "float32"],
+                              "G": ATTN_EDGE_G, "S": ATTN_EDGE_S}},
          flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
          max_abs_err=errs,
          tolerance={"flash": f"rtol {FLASH_RTOL}, atol {FLASH_ATOL} (bf16 "
@@ -5224,34 +5262,21 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     slots = np.stack([resp.doc_slots for resp in warm])
     prompts = engine._build_prompts(requests, slots, np.zeros_like(slots))
     toks = torch.from_numpy(prompts).to(dev)
-    chosen = {"chunked": [], "naive": []}
-    route = moe_mod._route
-    for impl in ("chunked", "naive"):
-        def spy(p, spec, x, seen=chosen[impl]):
-            out = route(p, spec, x)
-            seen.append(out[1])
-            return out
-        moe_mod._route = spy
-        try:
-            lg, _ = tfm.prefill(model, dataclasses.replace(
-                cfg, attn_impl=impl), toks, max_len)
-        finally:
-            moe_mod._route = route
-        chosen[impl] = (lg, chosen[impl])
-    (lg_chunked, r_c), (lg_naive, r_n) = chosen["chunked"], chosen["naive"]
+    (lg_chunked, _), r_c = routed(lambda: tfm.prefill(
+        model, dataclasses.replace(cfg, attn_impl="chunked"), toks, max_len))
+    (lg_naive, _), r_n = routed(lambda: tfm.prefill(
+        model, dataclasses.replace(cfg, attn_impl="naive"), toks, max_len))
     sync()
     flips = None
     if cfg.is_moe:
         # per (token, layer), the experts of the kernel path's top-k that
         # the naive path did not choose; and the positional differences
         check(len(r_c) == len(r_n) == L, "one routing a layer and prefill")
-        flips = {"set": 0, "positional": 0, "tokens_routed": 0}
-        for a, b in zip(r_c, r_n):
-            same = (a[..., :, None] == b[..., None, :]).any(-1)
-            flips["set"] += int((~same).sum())
-            flips["positional"] += int((a != b).sum())
-            flips["tokens_routed"] += a.shape[0] * a.shape[1]
-    del r_c, r_n, chosen
+        flips = {"set": route_flips(r_c, r_n),
+                 "positional": sum(int((a != b).sum())
+                                   for a, b in zip(r_c, r_n)),
+                 "tokens_routed": sum(a.shape[0] * a.shape[1] for a in r_c)}
+    del r_c, r_n
     lg_c, lg_n = lg_chunked.float(), lg_naive.float()
     logit_diff = float((lg_c - lg_n).abs().max())
     logit_scale = float(lg_n.abs().max())
@@ -5357,7 +5382,8 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     check(d_allocs == 1, f"decode allocates {d_allocs} tensors a call, not 1")
     d_split = dec_mod.split_for(B, n_kv, H // n_kv, kc.shape[1],
                                 torch.cuda.get_device_properties(
-                                    dev).multi_processor_count)
+                                    dev).multi_processor_count, hd,
+                                kc.element_size())
     d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
         attn_lib.DTYPES[kc.dtype], hd, H // n_kv, d_split)
     # qwen3-4b's shape is the one the split's constant was set for; at
@@ -5444,6 +5470,430 @@ def phase_moe_serve(dev):
          argv="--arch granite-moe-1b-a400m --no-reduced --engine cuda "
               "--requests 8", served=served)
     return out
+
+
+#: the registry's LMs, each served at its REDUCED config (hd 16 or 32)
+REDUCED_ARCHS = ("qwen1.5-0.5b", "qwen3-4b", "yi-6b", "granite-moe-1b-a400m",
+                 "grok-1-314b")
+#: (B, S) of each REDUCED config's prefill: "auto" takes the flash kernel
+#: at S >= 2048
+REDUCED_PREFILL = (8, 2048)
+REDUCED_DECODE_STEPS = 8
+#: gen-25m's decode shape in examples/torch_rag_serve.py: B 8, KV 4, G 2,
+#: a cache of max_prompt 48 + 12 tokens + 2 rows, the last step's live rows
+GEN25M_DECODE = dict(B=8, KV=4, G=2, S=62, live=60)
+
+
+class plain_attention:
+    """``with plain_attention():`` sends the attention ops' card calls to
+    the plain versions (on the same CUDA tensors) instead of the kernels:
+    the reference side of a kernel-vs-plain comparison; LAUNCHES does not
+    move."""
+
+    def __enter__(self):
+        self.fa, self.dec = (fa_mod.flash_attention_cuda,
+                             dec_mod.decode_attention_cuda)
+        # the plain versions themselves, not a `PlainOnCard` counting them
+        fa_plain = getattr(fa_mod.flash_attention_plain, "fn",
+                           fa_mod.flash_attention_plain)
+        fa_mod.flash_attention_cuda = (
+            lambda q, k, v, causal=True: fa_plain(q, k, v, causal=causal,
+                                                  blk_q=512, blk_k=512))
+        dec_mod.decode_attention_cuda = getattr(
+            dec_mod.decode_attention_plain, "fn",
+            dec_mod.decode_attention_plain)
+        return self
+
+    def __exit__(self, *exc):
+        fa_mod.flash_attention_cuda = self.fa
+        dec_mod.decode_attention_cuda = self.dec
+
+
+def load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def routed(fn, replay=None):
+    """fn() with every MoE routing's chosen experts recorded: (fn(),
+    [topk_e of each `moe._route` call]). With ``replay`` (another run's
+    list), call i routes to replay[i]'s experts instead (`forced_route`);
+    the list still records the call's own choice."""
+    from repro_torch.models import moe as moe_mod
+    route, seen = moe_mod._route, []
+
+    def spy(p, spec, x):
+        out = route(p, spec, x)
+        seen.append(out[1])
+        if replay is not None:
+            out = forced_route(spec, out[4], replay[len(seen) - 1])
+        return out
+    moe_mod._route = spy
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._route = route
+
+
+def forced_route(spec, probs, topk_e):
+    """`moe._route`'s outputs for the chosen experts ``topk_e`` (G, T, K):
+    their gates from this call's router ``probs`` (G, T, E), renormalised,
+    and positions first come, first served, as `_route` gives them."""
+    from repro_torch.models import moe as moe_mod
+    G, T, E = probs.shape
+    K = topk_e.shape[-1]
+    topk_p = probs.gather(-1, topk_e)
+    topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
+    flat = torch.nn.functional.one_hot(topk_e.reshape(G, T * K), E)
+    before = torch.cumsum(flat, dim=1) - flat
+    pos = before.gather(-1, topk_e.reshape(G, T * K, 1)).reshape(G, T, K)
+    return topk_p, topk_e, pos, pos < moe_mod.capacity(T, spec), probs
+
+
+def route_flips(a_list, b_list) -> int:
+    """(token, layer, k) choices of one run that the other did not make."""
+    return sum(int((~(a[..., :, None] == b[..., None, :]).any(-1)).sum())
+               for a, b in zip(a_list, b_list))
+
+
+def reduced_model_check(dev, arch_id, cfg):
+    """One REDUCED config: a prefill of REDUCED_PREFILL through the flash
+    kernel (n_layers launches) and REDUCED_DECODE_STEPS greedy decode steps
+    through the decode kernel (n_layers launches a step), each held to the
+    same call with the plain attention versions on the card: prefill
+    logits within FLASH_RTOL / FLASH_ATOL, each decode step's logits (fed
+    the kernel path's tokens, from the kernel path's prefilled cache)
+    within DEC_TOL. The plain path routes every MoE layer to the kernel
+    path's experts (`routed(replay=)`), so both gates hold for every
+    config: a flipped expert would move a token by a whole expert's share,
+    which no attention kernel owns. The choices the plain path would have
+    made otherwise (routing flips) and greedy-token flips are reported."""
+    from repro_torch.models import transformer as tfm
+    B, S = REDUCED_PREFILL
+    n = REDUCED_DECODE_STEPS
+    L = cfg.n_layers
+    model = tfm.init(cfg, generator=torch.Generator(device=dev)
+                     .manual_seed(SEED), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+    (lg_k, cache_k), r_k = routed(lambda: tfm.prefill(model, cfg, toks,
+                                                      S + n))
+    sync()
+    flash_launches = fa_mod.LAUNCHES
+    check(flash_launches == L, f"{arch_id}: {flash_launches} flash launches "
+                               f"for a prefill of {L} layers")
+    cache_p = {key: t.clone() for key, t in cache_k.items()}
+    with plain_attention():
+        (lg_p, _), r_p = routed(lambda: tfm.prefill(model, cfg, toks, S + n),
+                                replay=r_k)
+    sync()
+    prefill_flips = route_flips(r_k, r_p)
+    err_pre, ratio_pre = attn_ok(lg_k, lg_p, FLASH_RTOL, FLASH_ATOL)
+    check(bool(torch.isfinite(lg_k).all()), f"{arch_id}: prefill logits "
+                                            "not finite")
+    check(ratio_pre <= 1, f"{arch_id}: prefill logits off the plain path's "
+                          f"by {err_pre} (x{ratio_pre})")
+    dec_err, dec_ratio, token_flips, dec_flips = 0.0, 0.0, 0, 0
+    tok = lg_k.argmax(-1).to(torch.int32)
+    dec_mod.LAUNCHES = 0
+    for i in range(n):
+        (lk, _), rk = routed(lambda: tfm.decode_step(model, cfg, tok,
+                                                     cache_k, S + i))
+        with plain_attention():
+            (lp, _), rp = routed(lambda: tfm.decode_step(model, cfg, tok,
+                                                         cache_p, S + i),
+                                 replay=rk)
+        sync()
+        dec_flips += route_flips(rk, rp)
+        e, r = attn_ok(lk, lp, DEC_TOL, DEC_TOL)
+        check(bool(torch.isfinite(lk).all()), f"{arch_id}: decode logits "
+                                              "not finite")
+        dec_err, dec_ratio = max(dec_err, e), max(dec_ratio, r)
+        token_flips += int((lk.argmax(-1) != lp.argmax(-1)).sum())
+        tok = lk.argmax(-1).to(torch.int32)
+    dec_launches = dec_mod.LAUNCHES
+    check(dec_launches == L * n, f"{arch_id}: {dec_launches} decode "
+                                 f"launches for {n} steps of {L} layers")
+    check(dec_ratio <= 1, f"{arch_id}: decode logits off the plain path's "
+                          f"by {dec_err} (x{dec_ratio})")
+    return {"prefill": [B, S], "flash_launches": flash_launches,
+            "decode_launches": dec_launches,
+            "prefill_logits_err": err_pre, "prefill_logits_x_tol": ratio_pre,
+            "decode_logits_err": dec_err, "decode_logits_x_tol": dec_ratio,
+            "greedy_token_flips": token_flips,
+            "routing_flips_replayed": {"prefill": prefill_flips,
+                                       "decode": dec_flips}}
+
+
+def reduced_kernel_checks(dev):
+    """Both kernels at each REDUCED config's own attention shape and dtype
+    on seeded random inputs, held to their plain versions: flash at its
+    prefill (REDUCED_PREFILL, its KV, G and hd; `flash_check`, causal),
+    decode at its decode steps (a cache of S + REDUCED_DECODE_STEPS rows,
+    S to S + 7 live; `decode_check`). Run outside the counted runs."""
+    from repro_torch.configs import get
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    B, S = REDUCED_PREFILL
+    n = REDUCED_DECODE_STEPS
+    out = {}
+    for arch_id in REDUCED_ARCHS:
+        cfg = get(arch_id).reduced
+        KV, hd, dt = cfg.n_kv_heads, cfg.hd, getattr(torch, cfg.dtype)
+        G = cfg.n_heads // KV
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dt)
+        f_err, f_err_r = flash_check(rnd(B, S, KV, G, hd), rnd(B, S, KV, hd),
+                                     rnd(B, S, KV, hd), True)
+        lengths = S + torch.arange(B, dtype=torch.int32, device=dev) % n
+        d_err = decode_check(rnd(B, KV, G, hd), rnd(B, S + n, KV, hd),
+                             rnd(B, S + n, KV, hd), lengths)
+        out[arch_id] = {"shape": [B, S, KV, G, hd], "dtype": cfg.dtype,
+                        "flash_err": f_err, "flash_oracle_err": f_err_r,
+                        "decode_err": d_err}
+    return out
+
+
+def narrow_kernel_times(dev):
+    """Both kernels at hd 16 and 32, f32 (the REDUCED configs' and gen-25m's
+    type) and bf16, against their plain versions (`flash_check`,
+    `decode_check`) and timed beside them, SDPA (a yardstick the port
+    never calls) and the bound (flash: Q.K^T at its dtype's peak, P.V at
+    the bf16 one): the flash kernel at a REDUCED prefill
+    (REDUCED_PREFILL, KV 2, G 2: qwen3-4b's and yi-6b's REDUCED heads), the
+    decode kernel at gen-25m's decode shape (GEN25M_DECODE)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    B, S = REDUCED_PREFILL
+    d = GEN25M_DECODE
+    rows, errs = {}, {"flash": 0.0, "decode": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in (16, 32):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device=DEV).to(dt)
+            name = f"{str(dt).split('.')[-1]}_hd{hd}"
+            esz = torch.empty((), dtype=dt).element_size()
+            KV, G = 2, 2
+            q, k, v = rnd(B, S, KV, G, hd), rnd(B, S, KV, hd), rnd(B, S, KV,
+                                                                  hd)
+            errs["flash"] = max(errs["flash"], flash_check(q, k, v, True)[0])
+            qs = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
+            ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+            # Q.K^T and P.V, 2 hd operations a (query, key) pair each; P.V
+            # multiplies bf16 P and V in both dtypes, so the card's least
+            # time for it is at the bf16 tensor-core rate, and for an f32
+            # Q.K^T at the f32 rate
+            f_flops = 4 * hd * (S * (S + 1) // 2) * B * KV * G
+            f_ops_s = (f_flops / 2 / (FP32_FLOPS if dt == torch.float32
+                                      else BF16_FLOPS)
+                       + f_flops / 2 / BF16_FLOPS)
+            f_bytes = esz * (2 * q.numel() + k.numel() + v.numel())
+            f_dev, _ = device_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
+                                 10)
+            flash = {
+                "shape": [B, S, KV, G, hd],
+                "ms": events_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
+                                20),
+                "device_ms": f_dev,
+                "plain_ms": events_ms(lambda: fa_mod.flash_attention_plain(
+                    q, k, v, causal=True, blk_q=512, blk_k=512), 3),
+                "sdpa_ms": events_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True), 20),
+                "bound_ms": max(f_ops_s, f_bytes / HBM_BPS) * 1e3,
+                "bound_by": "operations" if f_ops_s >= f_bytes / HBM_BPS
+                else "bytes"}
+            del q, k, v, qs, ks, vs
+            qd = rnd(d["B"], d["KV"], d["G"], hd)
+            kc, vc = (rnd(d["B"], d["S"], d["KV"], hd) for _ in range(2))
+            lengths = torch.full((d["B"],), d["live"], dtype=torch.int32,
+                                 device=DEV)
+            errs["decode"] = max(errs["decode"],
+                                 decode_check(qd, kc, vc, lengths))
+            ql = qd.reshape(d["B"], d["KV"] * d["G"], 1, hd)
+            kl = kc[:, :d["live"]].transpose(1, 2).contiguous()
+            vl = vc[:, :d["live"]].transpose(1, 2).contiguous()
+            rows_live = d["B"] * d["live"]
+            d_bytes = (2 * rows_live * d["KV"] * hd * esz + qd.numel() * esz
+                       + d["B"] * d["KV"] * d["G"] * (hd + 2) * 4)
+            d_flops = 4 * hd * d["KV"] * d["G"] * rows_live
+            d_dev, _ = device_ms(lambda: dec_mod.decode_attention_cuda(
+                qd, kc, vc, lengths), 50)
+            decode = {
+                "shape": [d["B"], d["S"], d["KV"], d["G"], hd],
+                "live": d["live"],
+                "ms": events_ms(lambda: dec_mod.decode_attention_cuda(
+                    qd, kc, vc, lengths), 100),
+                "device_ms": d_dev,
+                "plain_ms": events_ms(lambda: dec_mod.decode_attention_plain(
+                    qd, kc, vc, lengths), 50),
+                "sdpa_ms": events_ms(lambda: sdpa(ql, kl, vl,
+                                                  enable_gqa=True), 100),
+                "bound_ms": max(d_bytes / HBM_BPS,
+                                d_flops / FP32_FLOPS) * 1e3,
+                "bound_by": "bytes" if d_bytes / HBM_BPS
+                >= d_flops / FP32_FLOPS else "operations",
+                "split": dec_mod.split_for(
+                    d["B"], d["KV"], d["G"], d["S"],
+                    torch.cuda.get_device_properties(
+                        DEV).multi_processor_count, hd, esz)}
+            rows[name] = {"flash": flash, "decode": decode}
+    return rows, errs
+
+
+def phase_reduced_serve(dev):
+    """Every REDUCED config and the three examples on the card: (a)
+    `launch.serve.main(["--arch", A, "--engine", "cuda"])` at its defaults
+    (--reduced) for each of the five LMs, its decode steps through the
+    decode kernel (the short prompts' prefill is naive, as in the
+    reference); (b) each config's S-2048 prefill through the flash kernel
+    and 8 decode steps, held to the plain attention versions
+    (`reduced_model_check`); (c) both kernels at hd 16 / 32 timed
+    (`narrow_kernel_times`) and held to their plain versions at each
+    config's own shapes (`reduced_kernel_checks`); (d) examples/torch_quickstart.py,
+    torch_rag_serve.py (gen-25m, hd 32, G 2: 8 requests x 12 tokens
+    through the scan and decode kernels) and torch_train_lm.py (200 steps
+    with the straggler detector, then a resume). In every counted run no
+    plain version gets a CUDA tensor."""
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve as serve_launch
+    t_phase = time.perf_counter()
+    plain_f = PlainOnCard(fa_mod.flash_attention_plain)
+    plain_d = PlainOnCard(dec_mod.decode_attention_plain)
+    launcher, models = {}, {}
+    main_path = {"flash": 0, "decode": 0, "arena_scan": 0}
+    fa_mod.flash_attention_plain = plain_f
+    dec_mod.decode_attention_plain = plain_d
+    try:
+        for arch_id in REDUCED_ARCHS:
+            cfg = get(arch_id).reduced
+            check(cfg.hd in attn_lib.HEAD_DIMS and cfg.hd < 64,
+                  f"{arch_id}: REDUCED head_dim {cfg.hd}")
+            fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            served = serve_launch.main(["--arch", arch_id, "--engine",
+                                        "cuda"])
+            sync()
+            secs = time.perf_counter() - t0
+            counts = (fa_mod.LAUNCHES, dec_mod.LAUNCHES, kernel_mod.LAUNCHES)
+            # the launcher's defaults: 16 requests in batches of 4, 8 tokens
+            check(served == 16, f"{arch_id}: the launcher served {served}")
+            check(counts[1] == cfg.n_layers * 8 * 4,
+                  f"{arch_id}: {counts[1]} decode launches")
+            check(counts[2] >= 4, f"{arch_id}: {counts[2]} scan launches "
+                                  "for 4 batches")
+            main_path["decode"] += counts[1]
+            main_path["arena_scan"] += counts[2]
+            launcher[arch_id] = {
+                "config": cfg.name, "hd": cfg.hd,
+                "G": cfg.n_heads // cfg.n_kv_heads, "served": served,
+                "seconds": secs, "flash_launches": counts[0],
+                "decode_launches": counts[1], "scan_launches": counts[2]}
+        for arch_id in REDUCED_ARCHS:
+            cfg = get(arch_id).reduced
+            models[arch_id] = reduced_model_check(dev, arch_id, cfg)
+            main_path["flash"] += models[arch_id]["flash_launches"]
+            main_path["decode"] += models[arch_id]["decode_launches"]
+        check(plain_f.cuda_calls == 0 and plain_d.cuda_calls == 0,
+              "a plain version ran on CUDA tensors")
+    finally:
+        fa_mod.flash_attention_plain = plain_f.fn
+        dec_mod.decode_attention_plain = plain_d.fn
+    times, errs = narrow_kernel_times(dev)
+    shapes = reduced_kernel_checks(dev)
+    for key in ("flash", "decode"):
+        errs[key] = max([errs[key]] + [c[f"{key}_err"]
+                                       for c in shapes.values()])
+
+    examples = {}
+    plain_f = PlainOnCard(fa_mod.flash_attention_plain)
+    plain_d = PlainOnCard(dec_mod.decode_attention_plain)
+    fa_mod.flash_attention_plain = plain_f
+    dec_mod.decode_attention_plain = plain_d
+    try:
+        fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        qs = load_example("torch_quickstart").main([])
+        sync()
+        check(qs["unified"]["leaked"] == 0
+              and qs["unified"]["window_ms"] == 0.0
+              and len(qs["unified"]["slots"]) == 5,
+              f"quickstart: {qs['unified']}")
+        check(kernel_mod.LAUNCHES >= 1, "quickstart ran no scan kernel")
+        examples["quickstart"] = {
+            "seconds": time.perf_counter() - t0, "unified": qs["unified"],
+            "split": qs["split"], "scan_launches": kernel_mod.LAUNCHES}
+        main_path["arena_scan"] += kernel_mod.LAUNCHES
+
+        fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rag_serve = load_example("torch_rag_serve")
+        rs = rag_serve.main([])
+        sync()
+        gen_cfg = rag_serve.GEN_25M
+        check(rs["served"] == 8 and all(len(r["tokens"]) == 12
+                                        for r in rs["responses"]),
+              f"rag_serve served {rs['served']}")
+        check(dec_mod.LAUNCHES == gen_cfg.n_layers * 12,
+              f"rag_serve: {dec_mod.LAUNCHES} decode launches")
+        check(kernel_mod.LAUNCHES >= 1, "rag_serve ran no scan kernel")
+        examples["rag_serve"] = {
+            "seconds": time.perf_counter() - t0, "hd": gen_cfg.hd,
+            "G": gen_cfg.n_heads // gen_cfg.n_kv_heads,
+            "served": rs["served"], "tok_s": rs["tok_s"],
+            "device_calls": rs["device_calls"],
+            "decode_launches": dec_mod.LAUNCHES,
+            "flash_launches": fa_mod.LAUNCHES,
+            "scan_launches": kernel_mod.LAUNCHES}
+        main_path["decode"] += dec_mod.LAUNCHES
+        main_path["arena_scan"] += kernel_mod.LAUNCHES
+
+        fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt_dir = os.path.join(tmp, "ckpt")
+            train_lm = load_example("torch_train_lm")
+            tl = train_lm.main(["--ckpt", ckpt_dir])
+            again = train_lm.main(["--ckpt", ckpt_dir, "--steps", "220"])
+        losses = [loss for _, loss in tl["losses"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train_lm losses {losses}")
+        check(again["start"] == 200 and all(
+            np.isfinite(loss) for _, loss in again["losses"]),
+              f"train_lm resumed at {again['start']}")
+        check(fa_mod.LAUNCHES == dec_mod.LAUNCHES == 0,
+              "training launched an attention kernel")
+        examples["train_lm"] = {
+            "seconds": time.perf_counter() - t0, "losses": tl["losses"],
+            "mean_step_ms": tl["mean_step_ms"],
+            "straggler_events": tl["straggler_events"],
+            "resumed_at": again["start"], "resumed_losses": again["losses"]}
+        check(plain_f.cuda_calls == 0 and plain_d.cuda_calls == 0,
+              "a plain version ran on CUDA tensors")
+    finally:
+        fa_mod.flash_attention_plain = plain_f.fn
+        dec_mod.decode_attention_plain = plain_d.fn
+    emit("reduced_serve", seconds=time.perf_counter() - t_phase,
+         launcher=launcher, models=models, kernel_times=times,
+         kernel_at_config_shapes=shapes, kernel_err=errs, examples=examples, main_path_launches=main_path,
+         tolerance={"prefill_logits": f"rtol {FLASH_RTOL}, atol "
+                                      f"{FLASH_ATOL} (the flash kernel and "
+                                      "its plain version round P and V to "
+                                      "bf16 for P.V)",
+                    "decode_logits": f"rtol = atol = {DEC_TOL} (all f32 "
+                                     "math on both sides)"})
+    return {"flash": main_path["flash"], "decode": main_path["decode"],
+            "arena_scan": main_path["arena_scan"],
+            "flash_err": errs["flash"], "decode_err": errs["decode"]}
 
 
 def onehot_ms(dev, cfg, tokens):
@@ -7261,7 +7711,7 @@ def launch_decode_checks(dev, cell, key):
     flops = 4 * hd * KV * G * S
     bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    split = dec_mod.split_for(1, KV, G, S, n_sm)
+    split = dec_mod.split_for(1, KV, G, S, n_sm, hd, kc.element_size())
     chunks = -(-S // split)
     check(chunks * split >= S and S * KV * hd < 2**31,
           f"{key}: split {split} x {chunks} chunks or offsets past int32")
@@ -7469,7 +7919,17 @@ def setup():
     return DEV
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="On-card smoke test of the PyTorch / CUDA port: every "
+                    "phase, then the kernels line and the result line.")
+    p.add_argument("--phases", default=None,
+                   help="comma-separated phases to run alone after the "
+                        f"build, in order, of: {', '.join(ALONE)}")
+    args = p.parse_args(argv)
+    names = args.phases.split(",") if args.phases else None
+    if names and not set(names) <= set(ALONE):
+        p.error(f"--phases takes {', '.join(ALONE)}")
     # phase_train runs under torch.use_deterministic_algorithms, which needs
     # cuBLAS's workspace fixed before the first cuBLAS call (this is
     # PyTorch's default size on Hopper)
@@ -7488,6 +7948,8 @@ def main() -> int:
     print(smi[0], flush=True)
     global CARD
     CARD = smi[0]
+    if names:
+        return run_alone(dev, names)
     # the launch phase's dry runs need only the host: they start now and
     # run beside the card's phases
     kids = start_launch()
@@ -7497,9 +7959,11 @@ def main() -> int:
         stop_launch(kids)
 
 
-def run_phases(dev, kids) -> int:
+def build_all():
+    """Phase 0: both libraries at once (one nvcc per source, all six
+    started together), ptxas's report, the scan's geometry; returns the
+    dense scan's ptxas rows."""
     t0 = time.perf_counter()
-    # both libraries at once: one nvcc per source, all six started together
     with ThreadPoolExecutor(2) as pool:
         for fut in [pool.submit(kernel_mod.build), pool.submit(attn_lib.build)]:
             fut.result()
@@ -7508,10 +7972,43 @@ def run_phases(dev, kids) -> int:
              if "registers" in ln or "Compiling" in ln or "spill" in ln]
     build_s = time.perf_counter() - t0
     all_scan_ptxas = scan_ptxas(kernel_mod.BUILD_LOG)
-    dense_ptxas = [r for r in all_scan_ptxas if r["mode"] == "dense"]
     emit("build", seconds=build_s, ptxas=ptxas, scan_ptxas=all_scan_ptxas,
          geometry_shapes=check_geometry(),
          geometry="host mirror == C launcher")
+    return [r for r in all_scan_ptxas if r["mode"] == "dense"]
+
+
+#: the phases that run alone (``--phases``): each needs only the build and
+#: the card(s), not another phase's state
+ALONE = {
+    "kernel": lambda dev: phase_kernel(),
+    "hybrid_kernel": lambda dev: phase_hybrid_kernel(),
+    "ivf_kernel": lambda dev: phase_ivf_kernel(),
+    "paged_kernel": lambda dev: phase_paged_kernel(),
+    "attn_kernel": lambda dev: phase_attn_kernel(),
+    "bench": phase_bench, "hybrid_bench": phase_hybrid_bench,
+    "ivf_bench": phase_ivf_bench, "tiered_prod": phase_tiered_prod,
+    "sharded_prod": phase_sharded_prod, "regions": phase_regions,
+    "lm_serve": phase_lm_serve, "moe_serve": phase_moe_serve,
+    "reduced_serve": phase_reduced_serve, "train": phase_train,
+    "train_mesh": phase_train_mesh, "train_cards": phase_train_cards,
+    "recsys": phase_recsys, "gnn": phase_gnn,
+}
+
+
+def run_alone(dev, names) -> int:
+    """The build, then the named phases in order, each with its gates; no
+    ``kernels`` line and no last line (those need every phase)."""
+    build_all()
+    for name in names:
+        ALONE[name](dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def run_phases(dev, kids) -> int:
+    dense_ptxas = build_all()
 
     err1 = phase_kernel()
     herr1 = phase_hybrid_kernel()
@@ -7552,6 +8049,9 @@ def run_phases(dev, kids) -> int:
     moe = phase_moe_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    red = phase_reduced_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7579,7 +8079,9 @@ def run_phases(dev, kids) -> int:
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
         "launches": prod["launches"],
         "paths": {"prod": prod["launches"],
-                  "sharded_prod": sprod["launches"], **on_regions("launches")},
+                  "sharded_prod": sprod["launches"],
+                  "reduced_serve": red["arena_scan"],
+                  **on_regions("launches")},
         "max_abs_err": max(err1, err2, prod["max_abs_err"],
                            sprod["max_abs_err"],
                            regions.get("max_abs_err", 0.0)),
@@ -7632,9 +8134,10 @@ def run_phases(dev, kids) -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:79",
         "launches": lm["flash"]["launches"],
         "paths": {"lm_serve": lm["flash"]["launches"],
-                  "moe_serve": moe["flash"]["launches"]},
+                  "moe_serve": moe["flash"]["launches"],
+                  "reduced_serve": red["flash"]},
         "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"],
-                           moe["flash"]["max_abs_err"]),
+                           moe["flash"]["max_abs_err"], red["flash_err"]),
         "ms": lm["flash"]["ms"], "plain_ms": lm["flash"]["plain_ms"],
         "bound_ms": lm["flash"]["bound_ms"],
         "bound_by": lm["flash"]["bound_by"],
@@ -7645,11 +8148,12 @@ def run_phases(dev, kids) -> int:
         "launches": lm["decode"]["launches"],
         "paths": {"lm_serve": lm["decode"]["launches"],
                   "moe_serve": moe["decode"]["launches"],
+                  "reduced_serve": red["decode"],
                   "sharded_prod": sprod["decode_launches"],
                   "launch": launch["decode_launches"],
                   **on_regions("decode")},
         "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
-                           moe["decode"]["max_abs_err"],
+                           moe["decode"]["max_abs_err"], red["decode_err"],
                            sprod["decode_err"], launch["decode_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],

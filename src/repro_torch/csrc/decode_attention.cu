@@ -38,7 +38,8 @@
 //    boundary and for the final sums.
 //  * Math, all f32 with expf. From one read of K a row group of lanes
 //    scores all G query heads of its KV head: each lane holds 16 bytes of a
-//    row, its partial dot products of 4 rows x 4 heads are summed over the
+//    row (a row group is 2 to 32 lanes: hd 16 in bf16 to hd 128 in f32, so
+//    a sub-tile holds 16 to 256 rows and a warp 1 to 16 row groups), its partial dot products of 4 rows x 4 heads are summed over the
 //    row group by a butterfly reduce-scatter (a shuffle step halves the
 //    values a lane holds), and the scores go to shared memory as
 //    [row][head]. The chunk's max and sum, p = exp(s - m), then one read of
@@ -84,6 +85,8 @@ struct Tile {
   static constexpr int RB = TR / NRG;          // rows a row group a sub-tile
   static constexpr int NV = RB * kGScore;      // dot products a lane holds
   static_assert(RB * NRG == TR, "tile shape");
+  // hd 16 in bf16 is a 32-byte row: 256 rows a sub-tile, TMA's widest box
+  static_assert(TR <= 256, "a TMA box dimension is at most 256");
 };
 
 // heads of a row of the chunk's scores: G rounded up to whole float4s
@@ -536,13 +539,22 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
               const int* lengths, int B, int S, int S_mem, int KV, int G,
               int split, float* pa, float* pm, float* pl, int* counters,
               float* acc, float* m, float* l, cudaStream_t st) {
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa, pm,
-                         pl, counters, acc, m, l, st);
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
-                          pm, pl, counters, acc, m, l, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
+                           pm, pl, counters, acc, m, l, st);
+    case 32:
+      return launch<T, 32>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
+                           pm, pl, counters, acc, m, l, st);
+    case 64:
+      return launch<T, 64>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
+                           pm, pl, counters, acc, m, l, st);
+    case 128:
+      return launch<T, 128>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
+                            pm, pl, counters, acc, m, l, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, int HD>
@@ -560,6 +572,17 @@ int occupancy(int G, int split) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+template <typename T>
+int occupancy_hd(int hd, int G, int split) {
+  switch (hd) {
+    case 16: return occupancy<T, 16>(G, split);
+    case 32: return occupancy<T, 32>(G, split);
+    case 64: return occupancy<T, 64>(G, split);
+    case 128: return occupancy<T, 128>(G, split);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -569,7 +592,8 @@ const char* attention_error_string(int err) {
 }
 
 // q (B, KV, G, hd), k / v (B, S, KV, hd), all of `dtype` (0 f32, 1 bf16),
-// hd in {64, 128}, 1 <= G <= 32; k and v contiguous within a sequence, S_mem
+// hd in {16, 32, 64, 128} (`HEAD_DIMS` in kernels/_attention.py), 1 <= G <=
+// 32; k and v contiguous within a sequence, S_mem
 // >= S rows from one sequence's start to the next's (S for a contiguous
 // cache, the full length for a slice of S positions of a longer one);
 // lengths (B,) int32 -> acc (B, KV, G, hd) f32, m and l (B, KV, G) f32.
@@ -598,14 +622,9 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
 // Resident blocks an SM of the decode kernel at (dtype, hd, G, split), or
 // minus a CUDA error.
 int decode_attention_blocks_per_sm(int dtype, int hd, int G, int split) {
-  const bool bf = dtype == attn::kBF16;
-  if ((!bf && dtype != attn::kF32) || (hd != 64 && hd != 128))
-    return -static_cast<int>(cudaErrorInvalidValue);
-  if (bf)
-    return hd == 64 ? occupancy<__nv_bfloat16, 64>(G, split)
-                    : occupancy<__nv_bfloat16, 128>(G, split);
-  return hd == 64 ? occupancy<float, 64>(G, split)
-                  : occupancy<float, 128>(G, split);
+  if (dtype == attn::kBF16) return occupancy_hd<__nv_bfloat16>(hd, G, split);
+  if (dtype == attn::kF32) return occupancy_hd<float>(hd, G, split);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

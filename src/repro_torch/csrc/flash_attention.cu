@@ -27,15 +27,17 @@
 // (skipping those above it), masks only where a tile crosses the diagonal
 // or the end of S, and runs the heaviest (last) causal q tiles first. Two
 // bodies share that schedule:
-//  * bf16, hd 64 or 128 (the served models): flash_fwd_wgmma_kernel, a
+//  * bf16 (hd 16, 32, 64 or 128): flash_fwd_wgmma_kernel, a
 //    warp-specialised block of three warpgroups. One producer thread
 //    issues TMA loads (cp.async.bulk.tensor) of Q once and of the K and V
 //    tiles into a ring in shared memory (3 stages of 64-key tiles), with
-//    full and empty mbarriers, 128-byte
-//    swizzled; q is a 5-D tensor map {hd, G, KV, S, B} and k / v 4-D maps
-//    {hd, KV, S, B}, so a ragged tile past S is zero-filled by the
-//    hardware and never reads the next sequence (hd 128 takes two 64-column
-//    boxes a row). Two consumer warpgroups own 64 rows each (setmaxnreg
+//    full and empty mbarriers, 128-byte swizzled; q is a 5-D tensor map
+//    {hd, G, KV, S, B} and k / v 4-D maps {hd, KV, S, B}, so a ragged tile
+//    past S is zero-filled by the hardware and never reads the next
+//    sequence (hd 128 takes two 64-column boxes a row; a row of hd 32 or
+//    16 is one 64- or 32-byte box, 64- or 32-byte swizzled, read through
+//    descriptors of layout B64 or B32: HD / 16 k-steps in Q . K^T, wgmma
+//    N = HD in P . V). Two consumer warpgroups own 64 rows each (setmaxnreg
 //    gives them the producer's registers): S = Q . K^T is wgmma m64nKNk16
 //    with both operands in shared memory (products of bf16 values are exact
 //    in f32, so the scores are the reference's f32 scores); the online
@@ -48,13 +50,14 @@
 //    when its S is done, a V stage when its product is. The two consumers
 //    take turns to issue (two named barriers: FA3's ping-pong), so one's
 //    softmax runs under the other's products.
-//  * f32 (hd 64 or 128): flash_fwd_kernel, scalar f32 FMAs on the same
-//    rounded values over 64-row tiles and 64-key tiles: Q (and K)
+//  * f32 (the same four head dims): flash_fwd_kernel, scalar f32 FMAs on
+//    the same rounded values over 64-row tiles and 64-key tiles: Q (and K)
 //    transposed, V and P in shared memory as f32, each thread a 4 x 8
 //    block of scores and a 4 x (hd / 8) block of the output, read in
-//    16-byte vectors laid out so that a quarter warp hits distinct banks.
-//    Q . K^T of f32 inputs cannot take bf16 operands; it is off the served
-//    path.
+//    16-byte vectors (8-byte ones at hd 16) laid out so that a quarter
+//    warp hits distinct banks. Q . K^T of f32 inputs cannot take bf16
+//    operands. The REDUCED configs and the examples' generators are f32:
+//    their chunked prefills run this kernel.
 
 #include <cmath>
 
@@ -83,7 +86,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int G, int causal, float scale) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int CH = HD / VEC;   // 16-byte chunks a row
-  constexpr int DJ = HD / 32;    // float4 output columns a thread
+  // the 8 threads of a row group split a row's HD output columns into
+  // DJ runs of CW: float4s 32 columns apart, or at hd 16 one float2 each
+  constexpr int CW = HD >= 32 ? 4 : HD / 8;
+  constexpr int DJ = HD / (8 * CW);
+  static_assert(CW * 8 * DJ == HD && (CW == 4 || CW == 2), "column split");
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
   float* Kt = Qt + HD * kRows;
@@ -125,7 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int pos[4];  // query position of each of this thread's rows
 #pragma unroll
   for (int i = 0; i < 4; ++i) pos[i] = q0 + (tr * 4 + i) / G;
-  float m_r[4], l_r[4], acc[4][DJ][4];
+  float m_r[4], l_r[4], acc[4][DJ][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_r[i] = kNegInf;
@@ -133,7 +140,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < CW; ++e) acc[i][j][e] = 0.f;
   }
 
   const int p_last = min(S, q0 + BQ) - 1;  // last live position of the tile
@@ -224,7 +231,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
+        for (int e = 0; e < CW; ++e) acc[i][j][e] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -234,7 +241,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // P . V: rows tr*4 + i, dims j*32 + tc*4 + e
+    // P . V: rows tr*4 + i, dims j*8*CW + tc*CW + e
     // keys past S, or past the tile's last position when causal, have p = 0
     const int c_end = min(kKeys, (causal ? p_last + 1 : S) - k0);
     for (int c = 0; c < c_end; ++c) {
@@ -242,13 +249,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(Vs + c * HD + j * 32 + tc * 4);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        const float* vp = Vs + c * HD + j * 8 * CW + tc * CW;
+        float wv[CW];
+        if constexpr (CW == 4) {
+          const float4 w = *reinterpret_cast<const float4*>(vp);
+          wv[0] = w.x;
+          wv[1] = w.y;
+          wv[2] = w.z;
+          wv[3] = w.w;
+        } else {
+          const float2 w = *reinterpret_cast<const float2*>(vp);
+          wv[0] = w.x;
+          wv[1] = w.y;
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = fmaf(av[i], wv[e], acc[i][j][e]);
+          for (int e = 0; e < CW; ++e) acc[i][j][e] = fmaf(av[i], wv[e], acc[i][j][e]);
       }
     }
   }
@@ -265,8 +282,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        attn::from_float(acc[i][j][e] / den, orow + j * 32 + tc * 4 + e);
+      for (int e = 0; e < CW; ++e)
+        attn::from_float(acc[i][j][e] / den, orow + j * 8 * CW + tc * CW + e);
   }
 }
 
@@ -288,33 +305,42 @@ constexpr int kConsumers = 2;                      // consumer warpgroups
 constexpr int kWgRows = 64;                        // rows a consumer: wgmma M
 constexpr int kTileRows = kConsumers * kWgRows;    // rows a block
 constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer warpgroup
-constexpr int kLine = 128;                         // bytes a swizzled line
-constexpr int kBox = kLine / 2;                    // bf16 columns a TMA box
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 // Shared memory, each region 1024-byte aligned (the 128-byte swizzle's
-// period): Q [HD / 64][128 rows][64], the K ring and the V ring
-// [kStages][HD / 64][KN rows][64], then the mbarriers full_q,
-// full_k[kStages], full_v[kStages], empty_k[kStages], empty_v[kStages].
+// period, a multiple of the 64- and 32-byte swizzles'): Q [kBoxes][128
+// rows][kBox], the K ring and the V ring [kStages][kBoxes][KN rows][kBox],
+// then the mbarriers full_q, full_k[kStages], full_v[kStages],
+// empty_k[kStages], empty_v[kStages]. A row lies in swizzled lines of
+// kLine bytes: hd 64 and 128 in one or two 128-byte lines (TMA's and
+// wgmma's 128-byte swizzle), hd 32 and 16 in one 64- or 32-byte line (the
+// 64- and 32-byte swizzles), so a line never holds parts of two rows.
 template <int HD, int KN>
 struct Layout {
+  static constexpr int kLine = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span
+  static constexpr int kBox = kLine / 2;                 // bf16 columns a box
+  static constexpr int kBoxes = HD / kBox;               // boxes a row
   static constexpr int kStages = 3;                      // ring depth
-  static constexpr int kHalves = HD / kBox;              // boxes a row
-  static constexpr int kTileBytes = kHalves * KN * kLine;  // a K or V tile
-  static constexpr int kK = kHalves * kTileRows * kLine;
+  static constexpr int kTileBytes = kBoxes * KN * kLine;  // a K or V tile
+  static constexpr int kK = kBoxes * kTileRows * kLine;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBars = kV + kStages * kTileBytes;
   static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kLine == 128 || kLine == 64 || kLine == 32,
+                "hd 16, 32, 64 or 128");
+  static_assert(kTileBytes % 1024 == 0, "regions stay 1024-byte aligned");
 };
 
-// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// A wgmma shared-memory descriptor of an operand swizzled in LINE-byte
+// lines: start address, leading and stride byte offsets (16-byte units),
+// layout type in bits 62-63: B128 1, B64 2, B32 3.
+template <int LINE>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  constexpr uint64_t kType = LINE == 128 ? 1 : LINE == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | kType << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -390,6 +416,39 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 16, f32) += A (64 x 16, bf16 in registers) . B (16 x 16, bf16
+// in shared memory, MN-major: the descriptor's transpose of B)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers) . B (16 x 32, bf16
+// in shared memory, MN-major: the descriptor's transpose of B)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16
 // in shared memory, MN-major: the descriptor's transpose of B)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -448,45 +507,52 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
 }  // namespace tma
 
 // S = Q . K^T of one key tile, issued (not waited for): Q's 64 rows of
-// this warpgroup and the tile's KN keys, k-steps of 16 columns, i.e.
-// 32 bytes into a swizzled line, the second 64 columns of hd 128 in the
-// second box of each.
+// this warpgroup and the tile's KN keys, HD / 16 k-steps of 16 columns,
+// i.e. 32 bytes into a swizzled line (4 steps a 128-byte line, 2 a 64-byte
+// one, 1 a 32-byte one), the second 64 columns of hd 128 in the second box
+// of each; 8-row groups kLine * 8 bytes apart (the stride byte offset).
 template <int HD, int KN>
 __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
                                              uint32_t q_rows, uint32_t kt) {
   using namespace tma;
+  constexpr int kLine = Layout<HD, KN>::kLine;
+  constexpr int kSteps = kLine / 32;  // k-steps a line
   static_assert(KN == 64, "S = Q . K^T is issued as wgmma m64n64k16");
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
-    const uint32_t col = (ks % 4) * 32;
-    const uint64_t da = desc_sw128(q_rows + (ks / 4) * kTileRows * kLine + col,
-                                   16, 8 * kLine);
-    const uint64_t db =
-        desc_sw128(kt + (ks / 4) * KN * kLine + col, 16, 8 * kLine);
+    const uint32_t col = (ks % kSteps) * 32;
+    const uint64_t da = desc_sw<kLine>(
+        q_rows + (ks / kSteps) * kTileRows * kLine + col, 16, 8 * kLine);
+    const uint64_t db = desc_sw<kLine>(kt + (ks / kSteps) * KN * kLine + col,
+                                       16, 8 * kLine);
     wgmma_ss_n64(sc, da, db, ks > 0);
   }
   tma::wgmma_commit();
 }
 
-// O += P . V of one key tile, issued: V [keys][hd] is B in MN-major form,
-// a k-step being 16 key lines (2 KB), the two 64-column halves of hd 128
-// one tile apart (the leading byte offset).
+// O += P . V of one key tile, issued: V [keys][hd] is B in MN-major form
+// (wgmma N = HD), a k-step being 16 key lines (16 kLine bytes), 8-key
+// groups 8 lines apart, the two 64-column halves of hd 128 one tile apart
+// (the leading byte offset; a narrower row is one swizzle atom wide).
 template <int HD, int KN>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
                                          const uint32_t (&pa)[KN / 16][4],
                                          uint32_t vt) {
   using namespace tma;
+  constexpr int kLine = Layout<HD, KN>::kLine;
 #pragma unroll
   for (int kk = 0; kk < KN / 16; ++kk)
-    wgmma_rs<HD>(acc, pa[kk],
-                 desc_sw128(vt + kk * 16 * kLine, KN * kLine, 8 * kLine));
+    wgmma_rs<HD>(acc, pa[kk], desc_sw<kLine>(vt + kk * 16 * kLine,
+                                             KN * kLine, 8 * kLine));
   tma::wgmma_commit();
 }
 
@@ -598,11 +664,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: Q once, then K and V tiles through the ring ----------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(full_q, Lt::kHalves * R * kLine);
+      mbar_expect_tx(full_q, Lt::kBoxes * R * Lt::kLine);
 #pragma unroll
-      for (int h = 0; h < Lt::kHalves; ++h)
-        tma_load_5d(sq + h * kTileRows * kLine, &qmap, full_q, h * kBox, 0,
-                    kv, q0, b);
+      for (int h = 0; h < Lt::kBoxes; ++h)
+        tma_load_5d(sq + h * kTileRows * Lt::kLine, &qmap, full_q,
+                    h * Lt::kBox, 0, kv, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % NS;
         // the consumers released this stage's previous K (then V) tile
@@ -612,15 +678,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (t >= NS) mbar_wait(empty_k + 8 * s, parity);
         mbar_expect_tx(full_k + 8 * s, Lt::kTileBytes);
 #pragma unroll
-        for (int h = 0; h < Lt::kHalves; ++h)
-          tma_load_4d(kt + h * KN * kLine, &kmap, full_k + 8 * s, h * kBox,
-                      kv, t * KN, b);
+        for (int h = 0; h < Lt::kBoxes; ++h)
+          tma_load_4d(kt + h * KN * Lt::kLine, &kmap, full_k + 8 * s,
+                      h * Lt::kBox, kv, t * KN, b);
         if (t >= NS) mbar_wait(empty_v + 8 * s, parity);
         mbar_expect_tx(full_v + 8 * s, Lt::kTileBytes);
 #pragma unroll
-        for (int h = 0; h < Lt::kHalves; ++h)
-          tma_load_4d(vt + h * KN * kLine, &vmap, full_v + 8 * s, h * kBox,
-                      kv, t * KN, b);
+        for (int h = 0; h < Lt::kBoxes; ++h)
+          tma_load_4d(vt + h * KN * Lt::kLine, &vmap, full_v + 8 * s,
+                      h * Lt::kBox, kv, t * KN, b);
       }
     }
   } else {
@@ -630,7 +696,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int tig = lane % 4;
     const int r0 = wg * kWgRows + warp * 16 + lane / 4, r1 = r0 + 8;
     const int pos0 = q0 + r0 / G, pos1 = q0 + r1 / G;
-    const uint32_t q_rows = sq + wg * kWgRows * kLine;  // this group's Q
+    const uint32_t q_rows = sq + wg * kWgRows * Lt::kLine;  // this group's Q
     float acc[HD / 2], sc[KN / 2];
     uint32_t pa[KN / 16][4];
 #pragma unroll
@@ -725,17 +791,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const cuuint64_t qstrides[4] = {HD * e, qdims[1] * HD * e,
                                   qdims[2] * qdims[1] * HD * e,
                                   qdims[3] * qdims[2] * qdims[1] * HD * e};
-  const cuuint32_t qbox[5] = {tma::kBox, static_cast<cuuint32_t>(G), 1,
+  const cuuint32_t qbox[5] = {Lt::kBox, static_cast<cuuint32_t>(G), 1,
                               static_cast<cuuint32_t>(BQ), 1};
   const cuuint64_t kdims[4] = {HD, static_cast<cuuint64_t>(KV),
                                static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(B)};
   const cuuint64_t kvstrides[3] = {HD * e, kdims[1] * HD * e,
                                    kdims[2] * kdims[1] * HD * e};
-  const cuuint32_t kbox[4] = {tma::kBox, 1, KN, 1};
+  const cuuint32_t kbox[4] = {Lt::kBox, 1, KN, 1};
   CUtensorMap qm, km, vm;
   constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr CUtensorMapSwizzle kSw =
+      Lt::kLine == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Lt::kLine == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   int err = attn::make_map(&qm, kBf16, q, 5, qdims, qstrides, qbox, kSw);
   if (err == 0)
     err = attn::make_map(&km, kBf16, k, 4, kdims, kvstrides, kbox, kSw);
@@ -783,20 +852,36 @@ constexpr int kKeyTile = 64;
 
 // q (B, S, KV, G, hd), k / v (B, S, KV, hd) -> o (B, S, KV, G, hd), all of
 // `dtype` (0 f32: the scalar kernel, 1 bf16: the TMA + wgmma kernel), hd in
-// {64, 128}, 1 <= G <= 64. One launch on `stream`, no synchronisation.
-// Returns the first CUDA error (0 on success).
+// {16, 32, 64, 128} (`HEAD_DIMS` in kernels/_attention.py), 1 <= G <= 64.
+// One launch on `stream`, no synchronisation. Returns the first CUDA error
+// (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int S, int KV, int G,
                            int hd, int causal, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const bool bf = dtype == attn::kBF16;
-  if ((!bf && dtype != attn::kF32) || (hd != 64 && hd != 128))
+  if (!bf && dtype != attn::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 64)
-    return bf ? launch_wgmma<64, kKeyTile>(q, k, v, o, B, S, KV, G, causal, st)
-              : launch<float, 64>(q, k, v, o, B, S, KV, G, causal, st);
-  return bf ? launch_wgmma<128, kKeyTile>(q, k, v, o, B, S, KV, G, causal, st)
-            : launch<float, 128>(q, k, v, o, B, S, KV, G, causal, st);
+  switch (hd) {
+    case 16:
+      return bf ? launch_wgmma<16, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
+                                             st)
+                : launch<float, 16>(q, k, v, o, B, S, KV, G, causal, st);
+    case 32:
+      return bf ? launch_wgmma<32, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
+                                             st)
+                : launch<float, 32>(q, k, v, o, B, S, KV, G, causal, st);
+    case 64:
+      return bf ? launch_wgmma<64, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
+                                             st)
+                : launch<float, 64>(q, k, v, o, B, S, KV, G, causal, st);
+    case 128:
+      return bf ? launch_wgmma<128, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
+                                              st)
+                : launch<float, 128>(q, k, v, o, B, S, KV, G, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

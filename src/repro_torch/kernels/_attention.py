@@ -18,6 +18,9 @@ SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
     "flash_attention.cu", "decode_attention.cu"))
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims both kernels are built for (their C launchers refuse any
+#: other): every config of the registry and every example's generator
+HEAD_DIMS = (16, 32, 64, 128)
 #: nvcc's output of the build that made the library, set by `build`
 BUILD_LOG = ""
 
@@ -59,6 +62,14 @@ def check_rc(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            + lib.attention_error_string(rc).decode())
+
+
+def check_head_dim(name: str, hd: int) -> None:
+    """Raise ValueError, naming the set, for a head dim the kernels are not
+    built for."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}, the "
+                         "head dims the kernel is built for")
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -30,9 +30,11 @@ LAUNCHES = 0
 #: hd 128, G 4: 47.8 KB of shared memory and 116 registers a thread); sizes
 #: the split
 BLOCKS_PER_SM = 4
-#: rows of the smallest chunk, and of the kernel's sub-tile (8 KB of bf16
-#: hd-128 rows), to which a chunk is rounded up
-MIN_SPLIT, SPLIT_ROUND = 64, 32
+#: rows of the smallest chunk
+MIN_SPLIT = 64
+#: bytes of the kernel's sub-tile (``kSubBytes``), which it loads whole: a
+#: chunk is rounded up to whole sub-tiles of its rows
+SUB_BYTES = 8192
 #: f32 scores a block keeps in shared memory (G x split)
 MAX_SCORES = 8192
 
@@ -45,13 +47,17 @@ _WORKSPACE: dict = {}
 _PLANS: dict = {}
 
 
-def split_for(B: int, KV: int, G: int, S: int, n_sm: int) -> int:
+def split_for(B: int, KV: int, G: int, S: int, n_sm: int, hd: int,
+              itemsize: int) -> int:
     """Positions a block covers: enough chunks that B * KV * chunks fill the
-    card's resident blocks about once, rounded up to whole sub-tiles, no
-    chunk under MIN_SPLIT rows and no chunk's scores past MAX_SCORES."""
+    card's resident blocks about once, rounded up to whole sub-tiles
+    (SUB_BYTES of hd-wide rows: 16 to 256 rows), so that no block loads
+    rows it does not use, no chunk under MIN_SPLIT rows and no chunk's
+    scores past MAX_SCORES."""
+    rnd = SUB_BYTES // (hd * itemsize)
     n_chunks = max(1, n_sm * BLOCKS_PER_SM // (B * KV))
     split = -(-S // n_chunks)
-    split = -(-split // SPLIT_ROUND) * SPLIT_ROUND
+    split = -(-split // rnd) * rnd
     return min(max(split, MIN_SPLIT), max(MIN_SPLIT, MAX_SCORES // G))
 
 
@@ -157,15 +163,13 @@ def _plan(dev, dt, B, S, KV, G, hd):
     if dt not in _attention.DTYPES:
         raise ValueError(f"decode_attention_cuda takes float32 or bfloat16, "
                          f"got {dt}")
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not in (64, 128): the kernel is "
-                         "built for the served models' head dims")
+    _attention.check_head_dim("decode_attention_cuda", hd)
     if not 1 <= G <= 32 or min(B, S, KV) < 1:
         raise ValueError(f"decode_attention_cuda needs 1 <= G <= 32 and B, "
                          f"S, KV >= 1, got B={B} S={S} KV={KV} G={G}")
     if B * S * KV * hd >= 1 << 62 or KV > 65535 or B > 65535:
         raise ValueError("shapes past the kernel's grid or index range")
-    split = split_for(B, KV, G, S, _sm_count(dev))
+    split = split_for(B, KV, G, S, _sm_count(dev), hd, dt.itemsize)
     ws = _workspace(dev, B, KV, -(-S // split), G, hd)
     return (_attention.DTYPES[dt], split, tuple(t.data_ptr() for t in ws), ws)
 
@@ -213,7 +217,8 @@ def decode_attention_meta(q):
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the kernel on the current stream (no sync): one launch, which
     also merges the chunks. q (B, KV, G, hd), k_cache / v_cache
-    (B, S, KV, hd), all f32 or all bf16, hd in {64, 128}, 1 <= G <= 32;
+    (B, S, KV, hd), all f32 or all bf16, hd in `_attention.HEAD_DIMS`
+    (16, 32, 64, 128), 1 <= G <= 32;
     lengths (B,) int32; all on one CUDA device, q and lengths contiguous,
     the caches contiguous or both the same slice along S of longer
     contiguous caches (the kernel's tensor maps take their batch stride,

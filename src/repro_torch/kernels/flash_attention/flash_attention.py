@@ -8,10 +8,11 @@ port of the Pallas kernel ``flash_attention_pallas``
 heads, walking the key tiles up to the diagonal with an online softmax in
 registers; f32 scores, P and V rounded to bf16 for P . V with f32
 accumulation, as the reference kernel. bf16 inputs run a warp-specialised
-kernel: TMA loads of K and V into a 2-stage ring of shared memory, both
-products on wgmma; f32 inputs run scalar f32 FMAs; head_dim 64 or 128 (the
-served models'). It is bound by operations at the prefill shape (the source
-states the bound and the design).
+kernel: TMA loads of K and V into a 3-stage ring of shared memory, both
+products on wgmma; f32 inputs run scalar f32 FMAs; head_dim 16, 32, 64 or
+128 (`_attention.HEAD_DIMS`: every config of the registry, REDUCED ones
+included, and the examples' generators). It is bound by operations at the
+prefill shape (the source states the bound and the design).
 
 `flash_attention_plain` is the chunked online softmax of the reference's
 ``models/layers.py:gqa_chunked`` in the kernel's (B, S, KV, G, hd) layout:
@@ -141,10 +142,11 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the kernel on the current stream (no sync). q (B, S, KV, G,
-    hd), k / v (B, S, KV, hd), all f32 or all bf16, hd in {64, 128},
-    1 <= G <= 64, any S >= 1; all contiguous on one CUDA device. Returns o
-    (B, S, KV, G, hd) in q's dtype. Raises on any input it cannot take,
-    and on inputs that require grad with grad enabled (forward-only)."""
+    hd), k / v (B, S, KV, hd), all f32 or all bf16, hd in
+    `_attention.HEAD_DIMS` (16, 32, 64, 128), 1 <= G <= 64, any S >= 1;
+    all contiguous on one CUDA device. Returns o (B, S, KV, G, hd) in q's
+    dtype. Raises on any input it cannot take, and on inputs that require
+    grad with grad enabled (forward-only)."""
     global LAUNCHES
     _attention.refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
@@ -160,9 +162,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     _nvcc.check_tensor("q", q, dt, (B, S, KV, G, hd), dev)
     _nvcc.check_tensor("k", k, dt, (B, S, KV, hd), dev)
     _nvcc.check_tensor("v", v, dt, (B, S, KV, hd), dev)
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not in (64, 128): the kernel is "
-                         "built for the served models' head dims")
+    _attention.check_head_dim("flash_attention_cuda", hd)
     if not 1 <= G <= 64 or min(B, S, KV) < 1:
         raise ValueError(f"flash_attention_cuda needs 1 <= G <= 64 and B, S, "
                          f"KV >= 1, got B={B} S={S} KV={KV} G={G}")

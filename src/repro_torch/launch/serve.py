@@ -1,14 +1,18 @@
 """Serving launcher (port of ``repro/launch/serve.py``): unified data
 layer + generator behind a batched request loop.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b
+                                                       # REDUCED, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --docs 20000 --requests 16 --device cpu          # REDUCED, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-1b-a400m --no-reduced --engine cuda   # FULL, card
 
 ``--reduced`` is on by default, as the reference's; ``--no-reduced`` serves
-the FULL config (the reference's flag cannot be switched off, and the
-attention kernels take head_dim 64 or 128, which no REDUCED config has).
+the FULL config (the reference's flag cannot be switched off). Either runs
+on the card: the attention kernels take every head_dim of the registry,
+the REDUCED configs' 16 and 32 included, and every decode step runs the
+decode kernel (the short prompts' prefill is naive, as in the reference).
 ``--engine`` is the retrieval engine, "ref" (plain) or "cuda" (the scan
 kernel). Weights are drawn from a seeded generator on the serving device
 (the card unless ``--device`` names another).

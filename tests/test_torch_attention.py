@@ -10,8 +10,9 @@ emulated in plain torch too (`flash_attention_tiled`: 128-row tiles of
 tile, the diagonal skip, exp2 with the scale folded in, P rounded to bf16
 and l from the unrounded p; `decode_attention_tiled`: the kernel's split of
 S into chunks and the merge in chunk order) and held to the reference's
-oracles over G 1 / 3 / 4 / 8, hd 64 / 128, S 1 / 17 / 129 / 300, causal
-and full, and lengths 0, 1, random and past S. Tolerances: decode is all f32 math
+oracles over G 1 / 3 / 4 / 8, hd 16 / 32 / 64 / 128 (the kernels'
+``HEAD_DIMS``), S 1 / 17 / 129 / 300, causal and full, and lengths 0, 1,
+random and past S; the decode split at each head dim's own rule. Tolerances: decode is all f32 math
 (rtol = atol = 2e-5, as ``test_kernels.py:60``; bf16 outputs rounded once
 more, 3e-2); flash rounds P and V to bf16 for P . V (rtol 1e-2, atol 8e-3,
 as ``test_kernels.py:96-97``); the port's f32 oracles against the
@@ -285,7 +286,7 @@ def test_wrappers_refuse_cpu_and_other_devices():
 # the kernels' own schedules, emulated in plain torch, against the
 # reference's oracles
 SCHED_G = (1, 3, 4, 8)
-SCHED_HD = (64, 128)
+SCHED_HD = (16, 32, 64, 128)
 SCHED_S = (1, 17, 129, 300)
 
 
@@ -322,7 +323,7 @@ def test_decode_split_schedule_matches_reference_oracle(G, hd, S):
     qg = q.reshape(B, KV, G, hd)
     want = np.asarray(j_dref(jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v),
                              jnp.asarray(L)))
-    split = dec_mod.split_for(B, KV, G, S, 132)
+    split = dec_mod.split_for(B, KV, G, S, 132, hd, 4)
     args = (torch.from_numpy(qg), torch.from_numpy(k), torch.from_numpy(v),
             torch.from_numpy(L))
     acc, m, l = dec_mod.decode_attention_tiled(*args, split)
@@ -339,14 +340,48 @@ def test_decode_split_rule_fills_the_card_once():
     """The serving shape takes 8 chunks of 288 rows (512 blocks for 528
     resident ones on 132 SMs); chunks are whole 32-row sub-tiles, never
     under MIN_SPLIT rows, and their scores fit the block's share."""
-    assert dec_mod.split_for(8, 8, 4, 2064, 132) == 288
+    assert dec_mod.split_for(8, 8, 4, 2064, 132, 128, 2) == 288
     for B, KV, G, S in [(1, 1, 1, 1), (1, 1, 32, 100_000), (64, 8, 8, 64),
                         (2, 2, 3, 4096), (8, 8, 4, 32_768)]:
-        split = dec_mod.split_for(B, KV, G, S, 132)
-        assert split % dec_mod.SPLIT_ROUND == 0
+        split = dec_mod.split_for(B, KV, G, S, 132, 128, 2)
+        assert split % (dec_mod.SUB_BYTES // (128 * 2)) == 0
         assert split >= dec_mod.MIN_SPLIT
         assert G * split <= max(dec_mod.MAX_SCORES,
                                 G * dec_mod.MIN_SPLIT)
+
+
+def test_decode_split_rounds_every_head_dim_to_whole_subtiles():
+    """The kernel loads a sub-tile of SUB_BYTES whole (16 rows at hd 128 in
+    f32, 256 at hd 16 in bf16): a chunk is whole sub-tiles at every head
+    dim, so no block loads rows past its chunk. gen-25m's decode (B 8, KV
+    4, G 2, hd 32, f32, a 62-row cache) is one chunk of one 64-row
+    sub-tile; granite FULL's (B 8, KV 8, G 2, hd 64, bf16, 2064 rows) 7
+    chunks of five 64-row sub-tiles."""
+    assert dec_mod.split_for(8, 4, 2, 62, 132, 32, 4) == 64
+    assert dec_mod.split_for(8, 8, 2, 2064, 132, 64, 2) == 320
+    for hd, itemsize, rows in [(16, 2, 256), (16, 4, 128), (32, 2, 128),
+                               (32, 4, 64), (64, 2, 64), (64, 4, 32),
+                               (128, 2, 32), (128, 4, 16)]:
+        assert dec_mod.SUB_BYTES // (hd * itemsize) == rows
+        for B, KV, G, S in [(1, 1, 1, 1), (8, 4, 2, 62), (2, 2, 3, 4096),
+                            (8, 8, 4, 32_768), (1, 2, 32, 100_000)]:
+            split = dec_mod.split_for(B, KV, G, S, 132, hd, itemsize)
+            assert split % rows == 0 or split == dec_mod.MAX_SCORES // G
+            assert split >= dec_mod.MIN_SPLIT
+
+
+@pytest.mark.parametrize("hd", [8, 48, 80, 96, 256])
+def test_head_dims_outside_the_set_raise(hd):
+    """Both kernels are built for HEAD_DIMS; any other head dim raises
+    ValueError naming the set, before any build or launch."""
+    from repro_torch.kernels import _attention
+    assert _attention.HEAD_DIMS == (16, 32, 64, 128)
+    with pytest.raises(ValueError, match=r"not in \(16, 32, 64, 128\)"):
+        _attention.check_head_dim("flash_attention_cuda", hd)
+    with pytest.raises(ValueError, match=r"not in \(16, 32, 64, 128\)"):
+        dec_mod._plan(torch.device("cpu"), torch.float32, 1, 8, 1, 1, hd)
+    for ok in _attention.HEAD_DIMS:
+        _attention.check_head_dim("flash_attention_cuda", ok)
 
 
 def test_decode_workspace_is_allocated_once():
