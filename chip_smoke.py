@@ -186,13 +186,21 @@ Phases:
  12. attn_kernel (runs after paged_kernel) -- the flash-attention kernel
                 (causal and full) and the flash-decode kernel against their
                 plain versions on the card over bf16 and f32, G 1 / 2 / 4 /
-                8, hd 16 / 32 / 64 / 128 (the kernels' HEAD_DIMS; 16 and 32
+                8, hd 16 / 32 / 64 / 128 (16 and 32
                 take 32- and 64-byte swizzled rows in the bf16 flash kernel)
                 and S 1 / 17 / 512 / 2064 / 4096, then in both dtypes at
                 the edges of the tiles: G 3 (a flash tile of 126 rows in
                 use) at every S of the edge grid, G 1 / 2 / 4 / 8 at S 127
                 / 129 / 2047, every hd; decode batches lengths 0 (the mean of V, as the
-                reference), 1, random and S + 3. Flash within
+                reference), 1, random and S + 3. Then every multiple of 8
+                from 8 to 256 and hd 6 / 100 (the padded copy) at G 2,
+                S 129; public models' (hd, G) -- (80, 1), (96, 1), (256,
+                1), (256, 8), (64, 71), (128, 48) -- at S 17 and 2064, with
+                each shape's rows in use a tile; a decode whose heads split
+                into blocks (hd 256, G 200). The C launchers' head-dim rule
+                is held to `_attention.launch_width` at every hd in
+                [0, 300], and ptxas's registers and spills of every
+                attention instantiation printed. Flash within
                 rtol 1e-2, atol 8e-3 of its plain version (the chunked
                 online softmax; P and V rounded to bf16 for P.V) and of the
                 f32 oracle; decode's output, m and l within rtol = atol =
@@ -368,6 +376,18 @@ Phases:
                 tokens, 48 decode launches) and torch_train_lm (200 steps,
                 loss finite and falling, then a resume at 200). No plain
                 version gets a CUDA tensor in a counted run.
+ 15c. wide_serve (after reduced_serve) -- `lm_serve`'s path at three public
+                attention widths, 4 layers each, bf16, random weights:
+                Phi-3-mini (d 3072, 32 heads, 32 KV, hd 96, d_ff 8192,
+                vocab 32064), Gemma-2B (d 2048, 8 heads, 1 KV, hd 256,
+                d_ff 16384, vocab 256000) and Falcon-7B (d 4544, 71 heads,
+                1 KV, hd 64, d_ff 18176, vocab 65024): RAGEngine over the
+                bench RagDB, a 2048-token prompt, prefill through the
+                flash kernel, 16 decode steps through the decode kernel,
+                with lm_serve's gates, times and bounds; then each config
+                in f32 (the same widths) through `reduced_model_check`:
+                prefill and decode logits within the flash and decode
+                tolerances of the plain attention path's.
  16. train -- no kernel: the training path is plain PyTorch. (a)
                 granite at full width cut to 2 layers, f32, TF32 off: one
                 AdamW step on the card and on the CPU from the same numpy
@@ -523,7 +543,18 @@ PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 # tiles in both dtypes, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
 # use) and S 127 / 129 / 2047 (64- and 128-key tiles)
 ATTN_G = (1, 2, 4, 8)
-ATTN_HD = (16, 32, 64, 128)   # the kernels' HEAD_DIMS
+ATTN_HD = (16, 32, 64, 128)   # the head dims lm_serve / moe_serve / REDUCED run
+#: every multiple of 8 up to 256 and two that take the padded copy, at G 2
+#: and S 129 (`attn_kernel`'s width sweep)
+ATTN_SWEEP_HD = tuple(range(8, 257, 8)) + (6, 100)
+ATTN_SWEEP = dict(G=2, S=129)
+#: public models' (hd, G): Phi-2 (80, 1), Phi-3-mini (96, 1), GPT-J (256,
+#: 1), Gemma-2B (256, 8), Falcon-7B (64, 71), StarCoder (128, 48)
+ATTN_PUBLIC = ((80, 1), (96, 1), (256, 1), (256, 8), (64, 71), (128, 48))
+ATTN_PUBLIC_S = (17, 2064)
+#: (hd, G) whose decode blocks split their heads (q and scores of G heads
+#: at that width outgrow a block's shared memory): bf16 hd 256, G 200
+ATTN_HEAD_BLOCKS = ((256, 200),)
 ATTN_S = (1, 17, 512, 2064, 4096)
 ATTN_EDGE_G = (1, 2, 3, 4, 8)
 ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
@@ -831,9 +862,23 @@ def phase_kernel():
                     run_case(f"edge-N{N}-D{D}-B{B}-k{k}", arena, batch, k,
                              errs, page_rows=EDGE_PAGE)
                     n_edges += 1
+    # more predicate groups than one launch stages (kernel.MAX_GROUPS): the
+    # wrapper's split, one launch a range of groups, lists scattered back
+    emb, meta, pairs = make_arena(rng, 1000, 64)
+    arena = upload(emb, meta, pairs)
+    G = kernel_mod.MAX_GROUPS + 808
+    batch = make_batch(rng, emb, 600, G, block_all=True)
+    launches0 = kernel_mod.LAUNCHES
+    for k in (10, 300):
+        run_case(f"groups{G}-k{k}", arena, batch, k, errs)
+        n_cases += 1
+    check(kernel_mod.LAUNCHES - launches0 == 4,
+          f"{G} groups took {kernel_mod.LAUNCHES - launches0} launches for "
+          "2 calls, not 2 each")
     emit("kernel", cases=n_cases + n_edges, edge_cases=n_edges,
          max_abs_err=max(errs), seconds=time.perf_counter() - t0, tol=TOL,
-         leaked_slots=0, edges_paged="bit-identical")
+         leaked_slots=0, edges_paged="bit-identical",
+         groups_past_one_launch=G)
     return max(errs)
 
 
@@ -959,7 +1004,7 @@ def lex_edge_draws(rng):
     qterms), B = 32 in 4 groups: tiles where every (row, query) pair is
     kept, where none is, and where one pair of each warp's 32 rows is; 32
     lanes against 16 query terms; 6 lanes (the one-lane-at-a-time path, T
-    % 4 != 0). Lanes carry the hot query terms in 30% of rows and no
+    % 4 != 0); 128 lanes against 128 query terms (past the old cap of 64). Lanes carry the hot query terms in 30% of rows and no
     donors, so the masks stay as built."""
     out = []
     for name, N, D, T, QT, keep in (
@@ -967,7 +1012,8 @@ def lex_edge_draws(rng):
             ("none-kept", 1000, 64, 16, 4, "none"),
             ("one-a-warp", 1000, 64, 16, 4, "one"),
             ("T32-QT16", 777, 96, 32, 16, None),
-            ("T6-QT3", 600, 64, 6, 3, None)):
+            ("T6-QT3", 600, 64, 6, 3, None),
+            ("T128-QT128", 700, 64, 128, 128, None)):
         hot = rng.integers(0, LEX_V, 3).astype(np.int32)
         emb, meta, _ = make_arena(rng, N, D)
         terms = rng.integers(-1, LEX_V, (N, T)).astype(np.int32)
@@ -5023,11 +5069,68 @@ def decode_check(q, kc, vc, lengths):
     return err
 
 
+def attn_ptxas(log):
+    """ptxas's registers and spills of every attention kernel
+    instantiation: flash (f32 body by element type, width and EXACT; bf16
+    wgmma body by width, key tile and EXACT) and decode (element type,
+    width, heads a P . V group)."""
+    rows = []
+    for name, rep in ptxas_kernels(log).items():
+        m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|"
+                      r"decode_attention_kernel)I(f|13__nv_bfloat16)?"
+                      r"((?:L[ib]\d+E)+)", name)
+        if m:
+            ints = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
+            dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                     None: "bfloat16"}[m.group(2)]
+            rows.append({"kernel": m.group(1), "dtype": dtype,
+                         "width": ints[0], "template": ints[1:], **rep})
+    rows.sort(key=lambda r: (r["kernel"], r["dtype"], r["width"],
+                             r["template"]))
+    return rows
+
+
+def attn_rule_check():
+    """The C launchers' head-dim rule (``attention_launch_width``) equals
+    `_attention.launch_width` at every hd in [0, 300], both dtypes: the
+    width a row runs at, on the padded copy's row where the rule asks for
+    one, and refused past 256."""
+    lib = attn_lib.load()
+    n = 0
+    for dt, code in attn_lib.DTYPES.items():
+        for hd in range(0, 301):
+            try:
+                width, copy = attn_lib.launch_width(dt, hd)
+            except ValueError:
+                width, copy = -1, False
+            row = attn_lib.padded_head_dim(hd) if copy else hd
+            got = lib.attention_launch_width(code, row)
+            check(got == width, f"C rule gives width {got} for hd {hd} "
+                                f"(row {row}, {dt}); Python {width}")
+            check(not copy or lib.attention_launch_width(code, hd) == -1,
+                  f"the C rule takes hd {hd} in place")
+            n += 1
+    return n
+
+
+def tile_rows_in_use(G):
+    """(rows in use of the bf16 kernel's 128-row tile, of the f32 kernel's
+    64-row tile, head chunk, chunks) at G query heads a KV head."""
+    gc_, n_gc = fa_mod.head_chunks(G)
+    return {"bf16_rows": fa_mod.TILE_ROWS // gc_ * gc_,
+            "f32_rows": 64 // gc_ * gc_, "chunk_heads": gc_,
+            "chunks": n_gc}
+
+
 def phase_attn_kernel():
     """Both attention kernels against their plain versions over dtypes, G,
     hd, S (ragged and past the prefill shape) and, for decode, lengths 0,
     1, random and past S in one batch; then both dtypes at the edges of
-    the tiles (G 3, S 127 / 129 / 2047)."""
+    the tiles (G 3, S 127 / 129 / 2047); every width from 8 to 256 (and
+    hd 6 and 100, the padded copy) at G 2, S 129; public models' (hd, G)
+    at S 17 and 2064; a decode whose heads split into blocks. The C rule
+    is held to the Python one, and ptxas's report of every instantiation
+    printed."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
@@ -5066,15 +5169,40 @@ def phase_attn_kernel():
                 for S in ATTN_EDGE_S:
                     if G not in ATTN_G or S not in ATTN_S:
                         case(dt, G, hd, S)
+    t_sweep = time.perf_counter()
+    for dt in (torch.bfloat16, torch.float32):
+        for hd in ATTN_SWEEP_HD:
+            case(dt, ATTN_SWEEP["G"], hd, ATTN_SWEEP["S"])
+    public = {}
+    for hd, G in ATTN_PUBLIC + ATTN_HEAD_BLOCKS:
+        for S in ATTN_PUBLIC_S if (hd, G) in ATTN_PUBLIC else (129,):
+            for dt in (torch.bfloat16, torch.float32):
+                case(dt, G, hd, S)
+        split, heads = dec_mod.block_heads(
+            4, 2, G, ATTN_PUBLIC_S[-1], torch.cuda.get_device_properties(
+                DEV).multi_processor_count, hd, 2)
+        public[f"hd{hd}_G{G}"] = {
+            "width": attn_lib.launch_width(torch.bfloat16, hd)[0],
+            **tile_rows_in_use(G), "decode_split_bf16_S2064": split,
+            "decode_heads_a_block": heads}
+    check(public["hd256_G200"]["decode_heads_a_block"] < 200,
+          "the head-block decode case does not split its heads")
+    sweep_s = time.perf_counter() - t_sweep
     cases = counts["cases"]
     check(fa_mod.LAUNCHES == 2 * cases and dec_mod.LAUNCHES == cases,
           "launch counts of the grid")
+    rule_cases = attn_rule_check()
     emit("attn_kernel", seconds=time.perf_counter() - t_phase, cases=cases,
          grid={"dtype": ["bfloat16", "float32"], "G": ATTN_G, "hd": ATTN_HD,
                "S": ATTN_S, "lengths": "0, 1, random, S + 3",
                "causal": [True, False],
                "tile_edges": {"dtype": ["bfloat16", "float32"],
-                              "G": ATTN_EDGE_G, "S": ATTN_EDGE_S}},
+                              "G": ATTN_EDGE_G, "S": ATTN_EDGE_S},
+               "width_sweep": {"hd": ATTN_SWEEP_HD, **ATTN_SWEEP},
+               "public": {"hd_G": ATTN_PUBLIC, "S": ATTN_PUBLIC_S},
+               "head_blocks": {"hd_G": ATTN_HEAD_BLOCKS, "S": 129}},
+         sweep_and_public_seconds=sweep_s, public_shapes=public,
+         rule_checked=rule_cases, ptxas=attn_ptxas(attn_lib.BUILD_LOG),
          flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
          max_abs_err=errs,
          tolerance={"flash": f"rtol {FLASH_RTOL}, atol {FLASH_ATOL} (bf16 "
@@ -5346,6 +5474,7 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     check(all("flash_fwd_wgmma_kernel" in name for name in f_kernels),
           f"flash calls launched other kernels: {f_kernels}")
     esz = q.element_size()
+    f_width = attn_lib.launch_width(q.dtype, hd)[0]
     f_flops = 4 * hd * (S * (S + 1) // 2) * Bq * H
     f_bytes = esz * (2 * q.numel() + k.numel() + v.numel())
     f_bound = max(f_flops / BF16_FLOPS, f_bytes / HBM_BPS) * 1e3
@@ -5380,16 +5509,17 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                 - n_alloc0) / 10
     del outs
     check(d_allocs == 1, f"decode allocates {d_allocs} tensors a call, not 1")
-    d_split = dec_mod.split_for(B, n_kv, H // n_kv, kc.shape[1],
-                                torch.cuda.get_device_properties(
-                                    dev).multi_processor_count, hd,
-                                kc.element_size())
+    d_split, d_heads = dec_mod.block_heads(
+        B, n_kv, H // n_kv, kc.shape[1], torch.cuda.get_device_properties(
+            dev).multi_processor_count, hd, kc.element_size())
     d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
-        attn_lib.DTYPES[kc.dtype], hd, H // n_kv, d_split)
+        attn_lib.DTYPES[kc.dtype], attn_lib.padded_head_dim(hd), d_heads,
+        d_split)
     # qwen3-4b's shape is the one the split's constant was set for; at
-    # another shape the card must hold at least that many blocks an SM
+    # granite's the card must hold at least that many blocks an SM (the
+    # wide head dims' blocks stage more and are reported)
     check(d_blocks == dec_mod.BLOCKS_PER_SM if name == "lm_serve"
-          else d_blocks >= dec_mod.BLOCKS_PER_SM,
+          else d_blocks >= dec_mod.BLOCKS_PER_SM or name != "moe_serve",
           f"{d_blocks} decode blocks an SM, the split assumes "
           f"{dec_mod.BLOCKS_PER_SM}")
     live_total = int(lengths.clamp(max=kc.shape[1]).sum())
@@ -5429,7 +5559,9 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
          flash={"ms": f_ms, "device_ms": f_dev, "plain_ms": f_plain,
                 "sdpa_ms": f_lib, "sdpa_device_ms": f_lib_dev,
                 "bound_ms": f_bound, "gflop": f_flops / 1e9,
-                "mbytes": f_bytes / 1e6, "key_tile": fa_mod.KEY_TILE,
+                "width": f_width, "padded_arithmetic_share": 1 - hd / f_width,
+                "rows_in_use_a_tile": tile_rows_in_use(H // n_kv),
+                "mbytes": f_bytes / 1e6, "key_tile": fa_mod.key_tile(f_width),
                 "kernels_traced_in_10_calls": f_kernels},
          decode={"ms": d_ms, "device_ms": d_dev, "plain_ms": d_plain,
                  "sdpa_ms": d_lib, "sdpa_device_ms": d_lib_dev,
@@ -5438,7 +5570,8 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                  "kernels_traced_in_50_calls": d_kernels,
                  "allocations_a_call": d_allocs,
                  "workspace_bytes": dec_mod.workspace_bytes(),
-                 "split": d_split, "blocks_per_sm": d_blocks},
+                 "split": d_split, "heads_a_block": d_heads,
+                 "blocks_per_sm": d_blocks},
          profile=profiles, peak_mem_gb=peak_gb())
     return {
         "flash": dict(launches=flash_launches, ms=f_ms, plain_ms=f_plain,
@@ -5488,7 +5621,13 @@ class plain_attention:
     """``with plain_attention():`` sends the attention ops' card calls to
     the plain versions (on the same CUDA tensors) instead of the kernels:
     the reference side of a kernel-vs-plain comparison; LAUNCHES does not
-    move."""
+    move. ``oracle`` sends flash calls to the f32 oracle
+    (`flash_attention_ref`: f32 softmax and P . V, nothing rounded to
+    bf16) instead of the plain version, whose P . V rounds each key
+    block's product to bf16 as the reference's ``gqa_chunked`` does."""
+
+    def __init__(self, oracle=False):
+        self.oracle = oracle
 
     def __enter__(self):
         self.fa, self.dec = (fa_mod.flash_attention_cuda,
@@ -5497,8 +5636,10 @@ class plain_attention:
         fa_plain = getattr(fa_mod.flash_attention_plain, "fn",
                            fa_mod.flash_attention_plain)
         fa_mod.flash_attention_cuda = (
-            lambda q, k, v, causal=True: fa_plain(q, k, v, causal=causal,
-                                                  blk_q=512, blk_k=512))
+            (lambda q, k, v, causal=True: fa_ref(q, k, v, causal=causal))
+            if self.oracle else
+            (lambda q, k, v, causal=True: fa_plain(q, k, v, causal=causal,
+                                                   blk_q=512, blk_k=512)))
         dec_mod.decode_attention_cuda = getattr(
             dec_mod.decode_attention_plain, "fn",
             dec_mod.decode_attention_plain)
@@ -5561,7 +5702,7 @@ def route_flips(a_list, b_list) -> int:
                for a, b in zip(a_list, b_list))
 
 
-def reduced_model_check(dev, arch_id, cfg):
+def reduced_model_check(dev, arch_id, cfg, oracle=False):
     """One REDUCED config: a prefill of REDUCED_PREFILL through the flash
     kernel (n_layers launches) and REDUCED_DECODE_STEPS greedy decode steps
     through the decode kernel (n_layers launches a step), each held to the
@@ -5572,7 +5713,17 @@ def reduced_model_check(dev, arch_id, cfg):
     path's experts (`routed(replay=)`), so both gates hold for every
     config: a flipped expert would move a token by a whole expert's share,
     which no attention kernel owns. The choices the plain path would have
-    made otherwise (routing flips) and greedy-token flips are reported."""
+    made otherwise (routing flips) and greedy-token flips are reported.
+    With ``oracle`` (the wide configs, f32) the prefill runs a third time
+    with its flash calls on the f32 oracle (`plain_attention(True)`), and
+    the prefill gate holds when the kernel path's logits are within the
+    tolerance of the plain path's OR no farther (in multiples of the
+    tolerance) from the oracle path's than the plain path's are: the
+    plain version and the kernel both round V (and P) to bf16 for P . V,
+    as the reference does, and four 2048- to 4544-wide layers carry that
+    rounding past the elementwise tolerance (Phi-3-mini: 1.5x kernel
+    against plain, 1.9x kernel against the oracle); the gate then asks
+    the kernel to be as accurate as its plain version."""
     from repro_torch.models import transformer as tfm
     B, S = REDUCED_PREFILL
     n = REDUCED_DECODE_STEPS
@@ -5598,8 +5749,21 @@ def reduced_model_check(dev, arch_id, cfg):
     err_pre, ratio_pre = attn_ok(lg_k, lg_p, FLASH_RTOL, FLASH_ATOL)
     check(bool(torch.isfinite(lg_k).all()), f"{arch_id}: prefill logits "
                                             "not finite")
-    check(ratio_pre <= 1, f"{arch_id}: prefill logits off the plain path's "
-                          f"by {err_pre} (x{ratio_pre})")
+    vs_oracle = None
+    if oracle:
+        with plain_attention(oracle=True):
+            (lg_o, _), _ = routed(lambda: tfm.prefill(model, cfg, toks,
+                                                      S + n), replay=r_k)
+        sync()
+        vs_oracle = {"kernel_x_tol": attn_ok(lg_k, lg_o, FLASH_RTOL,
+                                             FLASH_ATOL)[1],
+                     "plain_x_tol": attn_ok(lg_p, lg_o, FLASH_RTOL,
+                                            FLASH_ATOL)[1]}
+        del lg_o
+    check(ratio_pre <= 1 or (vs_oracle is not None and vs_oracle[
+              "kernel_x_tol"] <= vs_oracle["plain_x_tol"]),
+          f"{arch_id}: prefill logits off the plain path's by {err_pre} "
+          f"(x{ratio_pre}); against the f32 oracle {vs_oracle}")
     dec_err, dec_ratio, token_flips, dec_flips = 0.0, 0.0, 0, 0
     tok = lg_k.argmax(-1).to(torch.int32)
     dec_mod.LAUNCHES = 0
@@ -5626,6 +5790,7 @@ def reduced_model_check(dev, arch_id, cfg):
     return {"prefill": [B, S], "flash_launches": flash_launches,
             "decode_launches": dec_launches,
             "prefill_logits_err": err_pre, "prefill_logits_x_tol": ratio_pre,
+            "prefill_logits_vs_f32_oracle": vs_oracle,
             "decode_logits_err": dec_err, "decode_logits_x_tol": dec_ratio,
             "greedy_token_flips": token_flips,
             "routing_flips_replayed": {"prefill": prefill_flips,
@@ -5776,8 +5941,9 @@ def phase_reduced_serve(dev):
     try:
         for arch_id in REDUCED_ARCHS:
             cfg = get(arch_id).reduced
-            check(cfg.hd in attn_lib.HEAD_DIMS and cfg.hd < 64,
-                  f"{arch_id}: REDUCED head_dim {cfg.hd}")
+            check(attn_lib.launch_width(getattr(torch, cfg.dtype),
+                                        cfg.hd) == (cfg.hd, False)
+                  and cfg.hd < 64, f"{arch_id}: REDUCED head_dim {cfg.hd}")
             fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
             t0 = time.perf_counter()
             served = serve_launch.main(["--arch", arch_id, "--engine",
@@ -5894,6 +6060,83 @@ def phase_reduced_serve(dev):
     return {"flash": main_path["flash"], "decode": main_path["decode"],
             "arena_scan": main_path["arena_scan"],
             "flash_err": errs["flash"], "decode_err": errs["decode"]}
+
+
+#: wide_serve's configs: the attention widths (d_model, heads, KV heads,
+#: head_dim, d_ff, vocab) of three public models' config.json --
+#: microsoft/Phi-3-mini-4k-instruct (hd 96, G 1), google/gemma-2b (hd 256,
+#: G 8: the flash kernel's two-stage ring) and tiiuae/falcon-7b (hd 64,
+#: G 71: past both kernels' old head-group caps) -- on the repo's decoder
+#: block, bf16, WIDE_LAYERS layers
+WIDE_CONFIGS = (
+    ("phi-3-mini", dict(d_model=3072, n_heads=32, n_kv_heads=32,
+                        head_dim=96, d_ff=8192, vocab_size=32064)),
+    ("gemma-2b", dict(d_model=2048, n_heads=8, n_kv_heads=1, head_dim=256,
+                      d_ff=16384, vocab_size=256000)),
+    ("falcon-7b", dict(d_model=4544, n_heads=71, n_kv_heads=1, head_dim=64,
+                       d_ff=18176, vocab_size=65024)),
+)
+#: layers of each wide config: the depth cut that bounds the phase's time
+WIDE_LAYERS = 4
+
+
+def phase_wide_serve(dev):
+    """The serving path at the three WIDE_CONFIGS: each through
+    `phase_lm_serve` (RAGEngine over the bench RagDB, a 2048-token prompt,
+    prefill through the flash kernel, 16 decode steps through the decode
+    kernel, its gates, times, SDPA and bounds; 2 counted serves), then the
+    same widths in f32 through `reduced_model_check` (a prefill of
+    REDUCED_PREFILL through the flash kernel and REDUCED_DECODE_STEPS
+    decode steps, logits within the flash and decode tolerances of the
+    plain attention path's on the same weights -- or, for the prefill, no
+    farther from the f32 oracle path's than the plain path's are
+    (`reduced_model_check(oracle=True)`); the bf16 logits of the two paths
+    part by bf16 roundings of the attention outputs, which no kernel
+    tolerance covers). No plain version gets a CUDA tensor in a counted
+    run."""
+    from repro_torch.models.transformer import TransformerConfig
+    t_phase = time.perf_counter()
+    served, models = {}, {}
+    totals = {"flash": 0, "decode": 0, "flash_err": 0.0, "decode_err": 0.0}
+    for tag, widths in WIDE_CONFIGS:
+        cfg = TransformerConfig(name=f"{tag}-widths-{WIDE_LAYERS}l",
+                                n_layers=WIDE_LAYERS, dtype="bfloat16",
+                                **widths)
+        row = phase_lm_serve(dev, cfg, serves=2, name=f"wide_serve_{tag}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain_f = PlainOnCard(fa_mod.flash_attention_plain)
+        plain_d = PlainOnCard(dec_mod.decode_attention_plain)
+        fa_mod.flash_attention_plain = plain_f
+        dec_mod.decode_attention_plain = plain_d
+        try:
+            chk = reduced_model_check(
+                dev, tag, dataclasses.replace(cfg, dtype="float32"),
+                oracle=True)
+            check(plain_f.cuda_calls == 0 and plain_d.cuda_calls == 0,
+                  f"{tag}: a plain version ran on CUDA tensors")
+        finally:
+            fa_mod.flash_attention_plain = plain_f.fn
+            dec_mod.decode_attention_plain = plain_d.fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[tag] = {key: row[key] for key in ("flash", "decode")}
+        models[tag] = chk
+        totals["flash"] += row["flash"]["launches"] + chk["flash_launches"]
+        totals["decode"] += row["decode"]["launches"] + chk["decode_launches"]
+        totals["flash_err"] = max(totals["flash_err"],
+                                  row["flash"]["max_abs_err"])
+        totals["decode_err"] = max(totals["decode_err"],
+                                   row["decode"]["max_abs_err"])
+    emit("wide_serve", seconds=time.perf_counter() - t_phase,
+         layers=WIDE_LAYERS, configs=dict(WIDE_CONFIGS), served=served,
+         f32_model_checks=models, main_path_launches=totals,
+         tolerance={"prefill_logits": f"rtol {FLASH_RTOL}, atol "
+                                      f"{FLASH_ATOL} (f32 model), or the "
+                                      "kernel path no farther from the f32 "
+                                      "oracle path than the plain path",
+                    "decode_logits": f"rtol = atol = {DEC_TOL} (f32 model)"})
+    return totals
 
 
 def onehot_ms(dev, cfg, tokens):
@@ -7990,7 +8233,8 @@ ALONE = {
     "ivf_bench": phase_ivf_bench, "tiered_prod": phase_tiered_prod,
     "sharded_prod": phase_sharded_prod, "regions": phase_regions,
     "lm_serve": phase_lm_serve, "moe_serve": phase_moe_serve,
-    "reduced_serve": phase_reduced_serve, "train": phase_train,
+    "reduced_serve": phase_reduced_serve, "wide_serve": phase_wide_serve,
+    "train": phase_train,
     "train_mesh": phase_train_mesh, "train_cards": phase_train_cards,
     "recsys": phase_recsys, "gnn": phase_gnn,
 }
@@ -8050,6 +8294,9 @@ def run_phases(dev, kids) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     red = phase_reduced_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = phase_wide_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(dev)
@@ -8135,9 +8382,11 @@ def run_phases(dev, kids) -> int:
         "launches": lm["flash"]["launches"],
         "paths": {"lm_serve": lm["flash"]["launches"],
                   "moe_serve": moe["flash"]["launches"],
-                  "reduced_serve": red["flash"]},
+                  "reduced_serve": red["flash"],
+                  "wide_serve": wide["flash"]},
         "max_abs_err": max(ferr1, lm["flash"]["max_abs_err"],
-                           moe["flash"]["max_abs_err"], red["flash_err"]),
+                           moe["flash"]["max_abs_err"], red["flash_err"],
+                           wide["flash_err"]),
         "ms": lm["flash"]["ms"], "plain_ms": lm["flash"]["plain_ms"],
         "bound_ms": lm["flash"]["bound_ms"],
         "bound_by": lm["flash"]["bound_by"],
@@ -8149,11 +8398,13 @@ def run_phases(dev, kids) -> int:
         "paths": {"lm_serve": lm["decode"]["launches"],
                   "moe_serve": moe["decode"]["launches"],
                   "reduced_serve": red["decode"],
+                  "wide_serve": wide["decode"],
                   "sharded_prod": sprod["decode_launches"],
                   "launch": launch["decode_launches"],
                   **on_regions("decode")},
         "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
                            moe["decode"]["max_abs_err"], red["decode_err"],
+                           wide["decode_err"],
                            sprod["decode_err"], launch["decode_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],

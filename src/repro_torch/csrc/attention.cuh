@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cfloat>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -22,6 +23,23 @@ constexpr float kNegInf = -FLT_MAX;
 // dtype codes of the C interface
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+
+// The head-dim rule of both kernels (`launch_width` in
+// kernels/_attention.py): a row of `hd` elements -- a multiple of 8, so
+// that a tensor map reads it in place (the wrappers copy any other head
+// dim, zero-padded, to the next multiple) and at most 256 (wgmma's N) --
+// runs at the first built width that holds it; the columns past hd come in
+// as zeros from the tensor map's out-of-bounds fill. -1 when hd is refused.
+inline int launch_width(int hd) {
+  if (hd < 1 || hd > 256 || hd % 8 != 0) return -1;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 192 ? 192 : 256;
+}
+
+// 1 / sqrt(hd) of the true head dim (a padded copy's width never sets it)
+inline float head_scale(int hd_true) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(hd_true)));
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

@@ -26,7 +26,12 @@
 // split in chunks of `split` positions (the wrapper sizes them so that the
 // chunks of all (b, kv) fill the card's resident blocks once: 512 blocks
 // of 288 rows, 4 an SM, at the serving shape) and every (chunk, kv, b) is
-// a block of 4 warps, in ONE launch:
+// a block of 4 warps, in ONE launch. Any head dim up to 256 runs at the
+// first built width (16, 32, 64, 128, 192, 256) that holds it, the tensor
+// maps filling the columns past hd with zeros, and any G: a block takes
+// all G heads of its KV head unless their q and scores outgrow its shared
+// memory, and then balanced head blocks on the grid (`block_heads` in the
+// wrapper), each reading the chunk's rows again:
 //  * Copies. Thread 0 streams the chunk's live K rows, then its V rows,
 //    through a 4-stage ring of 8 KB sub-tiles in shared memory: one TMA
 //    tile load (cp.async.bulk.tensor of a 4-D map {hd, KV, S, B}, rows past
@@ -38,8 +43,10 @@
 //    boundary and for the final sums.
 //  * Math, all f32 with expf. From one read of K a row group of lanes
 //    scores all G query heads of its KV head: each lane holds 16 bytes of a
-//    row (a row group is 2 to 32 lanes: hd 16 in bf16 to hd 128 in f32, so
-//    a sub-tile holds 16 to 256 rows and a warp 1 to 16 row groups), its partial dot products of 4 rows x 4 heads are summed over the
+//    row, or 32 for f32 past width 128 (a row group is 2 to 32 lanes:
+//    width 16 in bf16 to 128 and up in f32, so a sub-tile holds 8 to 256
+//    rows and a warp 1 to 16 row groups; at width 192 a row group's last 8
+//    lanes hold no column), its partial dot products of 4 rows x 4 heads are summed over the
 //    row group by a butterfly reduce-scatter (a shuffle step halves the
 //    values a lane holds), and the scores go to shared memory as
 //    [row][head]. The chunk's max and sum, p = exp(s - m), then one read of
@@ -73,19 +80,37 @@ constexpr int kStages = 4;       // depth of the ring
 constexpr int kSubBytes = 8192;  // bytes of a ring stage (a sub-tile)
 constexpr int kMergeBatch = 8;   // chunks whose partials load at once
 
+constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+constexpr int pow2_floor(int x) { return x <= 1 ? 1 : 2 * pow2_floor(x / 2); }
+
+// A row of width HD (`launch_width`: 16 to 256) over the lanes of a row
+// group: LPR lanes (a power of two, at most 32) of EPL elements each --
+// one 16-byte vector, or two (32 bytes) for f32 past width 128 -- so a row
+// group covers LPR * EPL >= HD columns; at width 192 the last 8 lanes of
+// each row group hold no column (kFull false) and load nothing. A
+// sub-tile is TR rows: a power of two of rows a row group, as many as
+// kSubBytes holds (6 KB at width 192, else 8 KB) -- `tile_rows` in
+// kernels/decode_attention/decode_attention.py mirrors it.
 template <typename T, int HD>
 struct Tile {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  static constexpr int LPR = (HD / VEC) < 32 ? (HD / VEC) : 32;  // lanes a row
-  static constexpr int EPL = HD / LPR;       // elements a lane holds (16 B)
+  static constexpr int NVEC = HD / VEC;      // 16-byte vectors a row
+  static constexpr int LPR = pow2_ceil(NVEC) < 32 ? pow2_ceil(NVEC) : 32;
+  static constexpr int EPL = (NVEC + LPR - 1) / LPR * VEC;  // elements a lane
+  static constexpr bool kFull = LPR * EPL == HD;
   static constexpr int RPW = 32 / LPR;       // rows a warp holds at once
   static constexpr int NRG = kWarps * RPW;   // row groups in a block
   static constexpr int ROWB = HD * static_cast<int>(sizeof(T));  // bytes a row
-  static constexpr int TR = kSubBytes / ROWB;  // rows a sub-tile
-  static constexpr int RB = TR / NRG;          // rows a row group a sub-tile
+  static constexpr int RB = pow2_floor(kSubBytes / ROWB / NRG);  // rows a
+                                             // row group a sub-tile
+  static constexpr int TR = RB * NRG;          // rows a sub-tile
+  static constexpr int kTileBytes = TR * ROWB;  // bytes a sub-tile's load
   static constexpr int NV = RB * kGScore;      // dot products a lane holds
-  static_assert(RB * NRG == TR, "tile shape");
-  // hd 16 in bf16 is a 32-byte row: 256 rows a sub-tile, TMA's widest box
+  static_assert(LPR * EPL >= HD && (EPL == VEC || EPL == 2 * VEC),
+                "lanes of a row");
+  static_assert(kTileBytes <= kSubBytes && TR * ROWB == kTileBytes,
+                "tile shape");
+  // width 16 in bf16 is a 32-byte row: 256 rows a sub-tile, TMA's widest box
   static_assert(TR <= 256, "a TMA box dimension is at most 256");
 };
 
@@ -130,14 +155,24 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// EPL elements of a row from shared memory (one or two 16-byte vectors),
+// widened to f32
+template <int EPL, typename T>
+__device__ __forceinline__ void widen_lane(const T* p, float* out) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int u = 0; u < EPL / VEC; ++u) widen(p + u * VEC, out + u * VEC);
+}
+
 // q of heads gs .. gs + kGScore - 1 at this lane's dims d0.., zero past G
+// and on a lane that holds no column (`on` false)
 template <int EPL>
 __device__ __forceinline__ void load_q(const float* q_s, int G, int gs,
-                                       int d0, int hd,
+                                       int d0, int hd, bool on,
                                        float (&qf)[kGScore][EPL]) {
 #pragma unroll
   for (int gi = 0; gi < kGScore; ++gi) {
-    if (gs + gi < G) {
+    if (on && gs + gi < G) {
       widen(q_s + (gs + gi) * hd + d0, qf[gi]);
       if constexpr (EPL == 8) widen(q_s + (gs + gi) * hd + d0 + 4, qf[gi] + 4);
     } else {
@@ -182,22 +217,33 @@ __device__ __forceinline__ void issue_subtile(uint32_t ring, uint32_t full,
                                               const CUtensorMap* kmap,
                                               const CUtensorMap* vmap, int j,
                                               int n_k, int n_v, int tr,
-                                              int start, int kv, int b) {
+                                              int bytes, int start, int kv,
+                                              int b) {
   const int s = j % kStages;
   const bool is_k = j < n_k;
   const int r0 = (is_k ? j : (j - n_k) % n_v) * tr;
-  attn::mbar_expect_tx(full + 8 * s, kSubBytes);
+  attn::mbar_expect_tx(full + 8 * s, bytes);
   attn::tma_load_4d(ring + s * kSubBytes, is_k ? kmap : vmap, full + 8 * s,
                     0, kv, start + r0, b);
 }
 
-template <typename T, int HD, int GC>
+// A block: chunk blockIdx.x of S, query heads [g_lo, g_lo + Gb) of KV
+// head kv (blockIdx.y = kv * n_hc + head chunk; n_hc is 1 unless G heads
+// of width HD outgrow a block's shared memory, `block_heads`), sequence
+// blockIdx.z; built at a width HD >= hd: q_s holds zeros past hd, the
+// tensor maps fill the cache rows' columns past hd with zeros, the
+// partials are HD wide and the merge writes hd columns. EXACT (hd == HD
+// and one block of all G heads: every served shape but the wide ones)
+// fixes hd and GB when compiling, so that code carries no column or
+// head-block arithmetic.
+template <typename T, int HD, int GC, bool EXACT>
 __global__ void __launch_bounds__(kThreads, 4)
 decode_attention_kernel(const T* __restrict__ q,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const int* __restrict__ lengths, int S, int KV, int G,
-                        int split, float scale, float* __restrict__ part_acc,
+                        int hd_arg, int gb_arg, int split, float scale,
+                        float* __restrict__ part_acc,
                         float* __restrict__ part_m,
                         float* __restrict__ part_l, int* __restrict__ counters,
                         float* __restrict__ acc_out, float* __restrict__ m_out,
@@ -206,17 +252,21 @@ decode_attention_kernel(const T* __restrict__ q,
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = attn::smem_u32(smem_raw);
   uint8_t* ring = smem_raw + (((raw + 127u) & ~127u) - raw);  // TMA: 128 B
+  const int hd = EXACT ? HD : hd_arg, GB = EXACT ? G : gb_arg;
+  const int n_hc = EXACT ? 1 : (G + GB - 1) / GB;
+  const int kv = blockIdx.y / n_hc, g_lo = blockIdx.y % n_hc * GB;
+  const int Gb = min(GB, G - g_lo);       // this block's query heads
   float* red = reinterpret_cast<float*>(ring + kStages * kSubBytes);
-  float* q_s = red + kWarps * GC * HD;  // [G][HD]
-  float* p_s = q_s + G * HD;                 // [split][GP]
-  const int GP = score_stride(G);
+  float* q_s = red + kWarps * GC * HD;  // [Gb][HD]
+  float* p_s = q_s + Gb * HD;                // [split][GP]
+  const int GP = score_stride(Gb);
   const uint32_t ring_u32 = attn::smem_u32(ring);
   const uint32_t full =
       (attn::smem_u32(p_s + static_cast<size_t>(GP) * split) + 7u) & ~7u;
   const uint32_t empty = full + 8 * kStages;
   __shared__ int is_last;
 
-  const int sp = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, b = blockIdx.z;
   const int n_split = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid == 0) {
@@ -232,6 +282,10 @@ decode_attention_kernel(const T* __restrict__ q,
   const int n = min(split, S - start);
   const size_t bk = static_cast<size_t>(b) * KV + kv;
   const size_t part = bk * n_split + sp;
+  // partials and outputs of this block's heads: head g_lo + g of (b, kv)
+  float* pm = part_m + part * G + g_lo;
+  float* pl = part_l + part * G + g_lo;
+  float* pacc = part_acc + (part * G + g_lo) * HD;
 
   if (none_live || start < len) {
     const int live = none_live ? 0 : min(len - start, n);
@@ -240,7 +294,7 @@ decode_attention_kernel(const T* __restrict__ q,
     const int n_pv = none_live ? n : live;
     const int n_k = (live + Tl::TR - 1) / Tl::TR;
     const int n_v = (n_pv + Tl::TR - 1) / Tl::TR;
-    const int total = n_k + (G + GC - 1) / GC * n_v;
+    const int total = n_k + (Gb + GC - 1) / GC * n_v;
     if (tid == 0) {
       for (int s = 0; s < kStages; ++s) {
         attn::mbar_init(full + 8 * s, 1);
@@ -248,8 +302,11 @@ decode_attention_kernel(const T* __restrict__ q,
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    const T* qb = q + bk * G * HD;
-    for (int i = tid; i < G * HD; i += kThreads) q_s[i] = attn::to_float(qb[i]);
+    const T* qb = q + (bk * G + g_lo) * hd;
+    for (int i = tid; i < Gb * HD; i += kThreads) {
+      const int g = i / HD, d = i % HD;
+      q_s[i] = d < hd ? attn::to_float(qb[g * hd + d]) : 0.f;
+    }
     __syncthreads();  // the barriers are set up and q is in shared memory
     // the first loads after the barrier: the issue may wait for the copy
     // engine while the whole grid's first loads queue, and no other warp
@@ -257,10 +314,11 @@ decode_attention_kernel(const T* __restrict__ q,
     if (tid == 0)
       for (int j = 0; j < min(kStages, total); ++j)
         issue_subtile(ring_u32, full, &kmap, &vmap, j, n_k, n_v, Tl::TR,
-                      start, kv, b);
+                      Tl::kTileBytes, start, kv, b);
 
     const int rg = warp * Tl::RPW + lane / Tl::LPR;  // this lane's row group
     const int d0 = (lane % Tl::LPR) * Tl::EPL;
+    const bool on = Tl::kFull || d0 < HD;  // the lane holds columns
     float acc[GC][Tl::EPL];
     for (int j = 0; j < total; ++j) {
       const int s = j % kStages;
@@ -275,17 +333,17 @@ decode_attention_kernel(const T* __restrict__ q,
         float kf[Tl::RB][Tl::EPL];
 #pragma unroll
         for (int i = 0; i < Tl::RB; ++i) {
-          if (rg + i * Tl::NRG < rows) {
-            widen(tile + (rg + i * Tl::NRG) * HD + d0, kf[i]);
+          if (on && rg + i * Tl::NRG < rows) {
+            widen_lane<Tl::EPL>(tile + (rg + i * Tl::NRG) * HD + d0, kf[i]);
           } else {
 #pragma unroll
             for (int e = 0; e < Tl::EPL; ++e) kf[i][e] = 0.f;
           }
         }
-        for (int gs = 0; gs < G; gs += kGScore) {
+        for (int gs = 0; gs < Gb; gs += kGScore) {
           float v[Tl::NV];
           float qf[kGScore][Tl::EPL];
-          load_q<Tl::EPL>(q_s, G, gs, d0, HD, qf);
+          load_q<Tl::EPL>(q_s, Gb, gs, d0, HD, on, qf);
 #pragma unroll
           for (int gi = 0; gi < kGScore; ++gi) {
 #pragma unroll
@@ -306,17 +364,17 @@ decode_attention_kernel(const T* __restrict__ q,
           for (int f = 0; f < kHeld; ++f) {
             const int r = rg + (idx + f) / kGScore * Tl::NRG;
             const int g = gs + (idx + f) % kGScore;
-            if (writer && r < rows && g < G)
+            if (writer && r < rows && g < Gb)
               p_s[(r0 + r) * GP + g] = v[f] * scale;
           }
         }
       } else {
         const int jv = j - n_k, g0 = jv / n_v * GC, jr = jv % n_v;
-        const int gn = min(GC, G - g0);
+        const int gn = min(GC, Gb - g0);
         if (jv == 0) {
           // the chunk's softmax statistics, one warp a query head
           __syncthreads();  // every score of the chunk is in p_s
-          for (int g = warp; g < G; g += kWarps) {
+          for (int g = warp; g < Gb; g += kWarps) {
             float* pg = p_s + g;  // row r at pg[r * GP]
             float m = kNegInf, l = 0.f;
             if (none_live) {
@@ -337,8 +395,8 @@ decode_attention_kernel(const T* __restrict__ q,
                 l += __shfl_xor_sync(0xffffffffu, l, off);
             }
             if (lane == 0) {
-              part_m[part * G + g] = m;
-              part_l[part * G + g] = l;
+              pm[g] = m;
+              pl[g] = l;
             }
           }
           __syncthreads();
@@ -355,9 +413,9 @@ decode_attention_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < Tl::RB; ++i) {
           const int r = rg + i * Tl::NRG;
-          if (r < rows) {
+          if (on && r < rows) {
             float vf[Tl::EPL];
-            widen(tile + r * HD + d0, vf);
+            widen_lane<Tl::EPL>(tile + r * HD + d0, vf);
             const float4* pr =
                 reinterpret_cast<const float4*>(p_s + (r0 + r) * GP + g0);
 #pragma unroll
@@ -385,7 +443,7 @@ decode_attention_kernel(const T* __restrict__ q,
 #pragma unroll
               for (int off = Tl::LPR; off < 32; off *= 2)
                 acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-          if (lane < Tl::LPR) {
+          if (lane < Tl::LPR && on) {
 #pragma unroll
             for (int g = 0; g < GC; ++g)
               if (g < gn)
@@ -400,7 +458,7 @@ decode_attention_kernel(const T* __restrict__ q,
 #pragma unroll
             for (int w = 0; w < kWarps; ++w)
               sum += red[(w * GC + g) * HD + d];
-            part_acc[(part * G + g0 + g) * HD + d] = sum;
+            pacc[(g0 + g) * HD + d] = sum;
           }
           __syncthreads();
         }
@@ -411,24 +469,27 @@ decode_attention_kernel(const T* __restrict__ q,
       if (tid == 0 && j + kStages < total) {
         attn::mbar_wait(empty + 8 * s, (j / kStages) & 1);
         issue_subtile(ring_u32, full, &kmap, &vmap, j + kStages, n_k, n_v,
-                      Tl::TR, start, kv, b);
+                      Tl::TR, Tl::kTileBytes, start, kv, b);
       }
     }
   }
 
-  // the last block of this (b, kv) merges the chunks that wrote partials
+  // the last block of this (b, kv, head chunk) merges the chunks that
+  // wrote partials
+  const size_t ck = bk * n_hc + blockIdx.y % n_hc;
   __threadfence();
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counters + bk, 1) == n_split - 1;
+  if (tid == 0) is_last = atomicAdd(counters + ck, 1) == n_split - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
   // a thread merges 4 consecutive dims of one head, in chunk order, the
-  // loads of kMergeBatch chunks issued together
+  // loads of kMergeBatch chunks issued together; the hd columns only
   const int n_live = none_live ? n_split : (len + split - 1) / split;
   const size_t first = bk * n_split;
-  for (int i = tid; i < G * HD / 4; i += kThreads) {
-    const int g = i / (HD / 4), d = i % (HD / 4) * 4;
+  const int hd4 = hd / 4;
+  for (int i = tid; i < Gb * hd4; i += kThreads) {
+    const int g = g_lo + i / hd4, d = i % hd4 * 4;
     float m = kNegInf;
     for (int c0 = 0; c0 < n_live; c0 += kMergeBatch) {
       float mv[kMergeBatch];
@@ -466,24 +527,25 @@ decode_attention_kernel(const T* __restrict__ q,
         }
       }
     }
-    *reinterpret_cast<float4*>(acc_out + (bk * G + g) * HD + d) = a;
+    *reinterpret_cast<float4*>(acc_out + (bk * G + g) * hd + d) = a;
     if (d == 0) {
       m_out[bk * G + g] = m;
       l_out[bk * G + g] = l;
     }
   }
-  if (tid == 0) counters[bk] = 0;  // ready for the next call
+  if (tid == 0) counters[ck] = 0;  // ready for the next call
 }
 
-template <typename T, int HD, int GC>
+template <typename T, int HD, int GC, bool EXACT>
 int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
-                  const int* lengths, int B, int S, int KV, int G, int split,
-                  float scale, float* part_acc, float* part_m, float* part_l,
-                  int* counters, float* acc, float* m, float* l,
-                  cudaStream_t stream) {
+                  const int* lengths, int B, int S, int KV, int G, int hd,
+                  int GB, int split, float scale, float* part_acc,
+                  float* part_m, float* part_l, int* counters, float* acc,
+                  float* m, float* l, cudaStream_t stream) {
   const int n_split = (S + split - 1) / split;
-  const size_t smem = smem_bytes<HD>(G, split);
-  auto kern = decode_attention_kernel<T, HD, GC>;
+  const int n_hc = (G + GB - 1) / GB;
+  const size_t smem = smem_bytes<HD>(GB, split);
+  auto kern = decode_attention_kernel<T, HD, GC, EXACT>;
   static size_t smem_set = 0;  // the largest size this kernel was allowed
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -492,25 +554,27 @@ int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  kern<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), km, vm, lengths, S, KV, G, split, scale,
-      part_acc, part_m, part_l, counters, acc, m, l);
+  kern<<<dim3(n_split, KV * n_hc, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), km, vm, lengths, S, KV, G, hd, GB, split,
+      scale, part_acc, part_m, part_l, counters, acc, m, l);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           int B, int S, int S_mem, int KV, int G, int split,
-           float* part_acc, float* part_m, float* part_l, int* counters,
-           float* acc, float* m, float* l, cudaStream_t stream) {
+           int B, int S, int S_mem, int KV, int G, int hd, int hd_scale,
+           int split, int GB, float* part_acc, float* part_m, float* part_l,
+           int* counters, float* acc, float* m, float* l,
+           cudaStream_t stream) {
   using Tl = Tile<T, HD>;
   const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(KV),
+  const cuuint64_t w = static_cast<cuuint64_t>(hd);
+  const cuuint64_t dims[4] = {w, static_cast<cuuint64_t>(KV),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {
-      HD * e, dims[1] * HD * e,
-      static_cast<cuuint64_t>(S_mem) * dims[1] * HD * e};
+      w * e, dims[1] * w * e,
+      static_cast<cuuint64_t>(S_mem) * dims[1] * w * e};
   const cuuint32_t box[4] = {HD, 1, Tl::TR, 1};
   const CUtensorMapDataType dt = sizeof(T) == 2
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -522,47 +586,46 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
     err = attn::make_map(&vm, dt, v, 4, dims, strides, box,
                          CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
-  const size_t smem = smem_bytes<HD>(G, split);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  if (head_group(G) == 4)
-    return launch_kernel<T, HD, 4>(q, km, vm, lengths, B, S, KV, G, split,
-                                   scale, part_acc, part_m, part_l, counters,
-                                   acc, m, l, stream);
-  return launch_kernel<T, HD, kGChunkMax>(q, km, vm, lengths, B, S, KV, G,
-                                          split, scale, part_acc, part_m,
-                                          part_l, counters, acc, m, l,
-                                          stream);
+  const float scale = attn::head_scale(hd_scale);
+  const bool exact = hd == HD && GB == G;
+#define DECODE_KERNEL(GCV, EX)                                                \
+  launch_kernel<T, HD, GCV, EX>(q, km, vm, lengths, B, S, KV, G, hd, GB,      \
+                                split, scale, part_acc, part_m, part_l,       \
+                                counters, acc, m, l, stream)
+  if (head_group(GB) == 4)
+    return exact ? DECODE_KERNEL(4, true) : DECODE_KERNEL(4, false);
+  return exact ? DECODE_KERNEL(kGChunkMax, true)
+               : DECODE_KERNEL(kGChunkMax, false);
+#undef DECODE_KERNEL
 }
 
+#define DECODE_WIDTHS(X) X(16) X(32) X(64) X(128) X(192) X(256)
+
 template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const int* lengths, int B, int S, int S_mem, int KV, int G,
-              int split, float* pa, float* pm, float* pl, int* counters,
-              float* acc, float* m, float* l, cudaStream_t st) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
-                           pm, pl, counters, acc, m, l, st);
-    case 32:
-      return launch<T, 32>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
-                           pm, pl, counters, acc, m, l, st);
-    case 64:
-      return launch<T, 64>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
-                           pm, pl, counters, acc, m, l, st);
-    case 128:
-      return launch<T, 128>(q, k, v, lengths, B, S, S_mem, KV, G, split, pa,
-                            pm, pl, counters, acc, m, l, st);
+int launch_hd(int hd, int hd_scale, const void* q, const void* k,
+              const void* v, const int* lengths, int B, int S, int S_mem,
+              int KV, int G, int split, int GB, float* pa, float* pm,
+              float* pl, int* counters, float* acc, float* m, float* l,
+              cudaStream_t st) {
+  switch (attn::launch_width(hd)) {
+#define DECODE_CASE(W)                                                       \
+  case W:                                                                    \
+    return launch<T, W>(q, k, v, lengths, B, S, S_mem, KV, G, hd, hd_scale, \
+                        split, GB, pa, pm, pl, counters, acc, m, l, st);
+    DECODE_WIDTHS(DECODE_CASE)
+#undef DECODE_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, int HD>
-int occupancy(int G, int split) {
+int occupancy(int GB, int split) {
   int blocks = 0;
-  const size_t smem = smem_bytes<HD>(G, split);
-  auto kern = head_group(G) == 4 ? decode_attention_kernel<T, HD, 4>
-                                 : decode_attention_kernel<T, HD, kGChunkMax>;
+  const size_t smem = smem_bytes<HD>(GB, split);
+  auto kern = head_group(GB) == 4
+                  ? decode_attention_kernel<T, HD, 4, true>
+                  : decode_attention_kernel<T, HD, kGChunkMax, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -573,12 +636,13 @@ int occupancy(int G, int split) {
 }
 
 template <typename T>
-int occupancy_hd(int hd, int G, int split) {
-  switch (hd) {
-    case 16: return occupancy<T, 16>(G, split);
-    case 32: return occupancy<T, 32>(G, split);
-    case 64: return occupancy<T, 64>(G, split);
-    case 128: return occupancy<T, 128>(G, split);
+int occupancy_hd(int hd, int GB, int split) {
+  switch (attn::launch_width(hd)) {
+#define OCC_CASE(W) \
+  case W:           \
+    return occupancy<T, W>(GB, split);
+    DECODE_WIDTHS(OCC_CASE)
+#undef OCC_CASE
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -592,38 +656,46 @@ const char* attention_error_string(int err) {
 }
 
 // q (B, KV, G, hd), k / v (B, S, KV, hd), all of `dtype` (0 f32, 1 bf16),
-// hd in {16, 32, 64, 128} (`HEAD_DIMS` in kernels/_attention.py), 1 <= G <=
-// 32; k and v contiguous within a sequence, S_mem
+// hd a multiple of 8 in [8, 256] run at `attn::launch_width(hd)` (the rule
+// of `launch_width` in kernels/_attention.py), the scale 1 / sqrt(hd_scale)
+// (the true head dim: hd_scale < hd when the wrapper passed a zero-padded
+// copy), any G >= 1 in blocks of GB heads (`block_heads`: GB = G unless a
+// block's shared memory cannot stage G heads); k and v contiguous within a
+// sequence, S_mem
 // >= S rows from one sequence's start to the next's (S for a contiguous
 // cache, the full length for a slice of S positions of a longer one);
 // lengths (B,) int32 -> acc (B, KV, G, hd) f32, m and l (B, KV, G) f32.
-// Workspace: part_acc (B, KV, n_split, G, hd) f32, part_m / part_l
-// (B, KV, n_split, G) f32 with n_split = ceil(S / split), and counters
-// (B, KV) int32, zero before the first call (each call leaves them zero).
+// Workspace: part_acc (B, KV, n_split, G, launch_width(hd)) f32, part_m /
+// part_l (B, KV, n_split, G) f32 with n_split = ceil(S / split), and
+// counters (B, KV, ceil(G / GB)) int32, zero before the first call (each
+// call leaves them zero).
 // One launch on `stream`, no synchronisation. Returns the first CUDA error
 // (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* lengths, int dtype, int B, int S,
-                            int S_mem, int KV, int G, int hd, int split,
-                            float* part_acc, float* part_m, float* part_l,
-                            int* counters, float* acc, float* m, float* l,
-                            void* stream_ptr) {
+                            int S_mem, int KV, int G, int hd, int hd_scale,
+                            int split, int GB, float* part_acc, float* part_m,
+                            float* part_l, int* counters, float* acc,
+                            float* m, float* l, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  if (G < 1 || GB < 1 || GB > G || hd_scale < 1 || hd_scale > hd)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == attn::kBF16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, lengths, B, S, S_mem, KV, G,
-                                    split, part_acc, part_m, part_l, counters,
-                                    acc, m, l, st);
+    return launch_hd<__nv_bfloat16>(hd, hd_scale, q, k, v, lengths, B, S,
+                                    S_mem, KV, G, split, GB, part_acc,
+                                    part_m, part_l, counters, acc, m, l, st);
   if (dtype == attn::kF32)
-    return launch_hd<float>(hd, q, k, v, lengths, B, S, S_mem, KV, G, split,
-                            part_acc, part_m, part_l, counters, acc, m, l, st);
+    return launch_hd<float>(hd, hd_scale, q, k, v, lengths, B, S, S_mem, KV,
+                            G, split, GB, part_acc, part_m, part_l, counters,
+                            acc, m, l, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Resident blocks an SM of the decode kernel at (dtype, hd, G, split), or
-// minus a CUDA error.
-int decode_attention_blocks_per_sm(int dtype, int hd, int G, int split) {
-  if (dtype == attn::kBF16) return occupancy_hd<__nv_bfloat16>(hd, G, split);
-  if (dtype == attn::kF32) return occupancy_hd<float>(hd, G, split);
+// Resident blocks an SM of the decode kernel at (dtype, hd, GB heads a
+// block, split), or minus a CUDA error.
+int decode_attention_blocks_per_sm(int dtype, int hd, int GB, int split) {
+  if (dtype == attn::kBF16) return occupancy_hd<__nv_bfloat16>(hd, GB, split);
+  if (dtype == attn::kF32) return occupancy_hd<float>(hd, GB, split);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

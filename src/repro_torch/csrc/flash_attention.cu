@@ -23,21 +23,30 @@
 // row being a (query position, query head) pair of one (b, kv):
 // 128 / G positions times all G heads of that KV head (the rows in use are
 // (128 / G) * G when G does not divide 128), so every K and V tile it loads
-// serves the G heads at once. It walks the key tiles up to the diagonal
+// serves the G heads at once; past 64 heads the G heads split into
+// balanced chunks of at most 64 (Falcon-7B's 71: 36 + 35, 3 positions x 36
+// = 108 rows), one block a chunk, each loading the same K / V tiles (the
+// rereads come from L2). Each body is built at the widths 16, 32, 64, 128,
+// 192 and 256 and runs a head dim (a multiple of 8; the wrappers pass any
+// other as a zero-padded copy) at the first that holds it: the columns
+// past hd are zeros, the scale is the true hd's. It walks the key tiles up to the diagonal
 // (skipping those above it), masks only where a tile crosses the diagonal
 // or the end of S, and runs the heaviest (last) causal q tiles first. Two
 // bodies share that schedule:
-//  * bf16 (hd 16, 32, 64 or 128): flash_fwd_wgmma_kernel, a
+//  * bf16: flash_fwd_wgmma_kernel, a
 //    warp-specialised block of three warpgroups. One producer thread
 //    issues TMA loads (cp.async.bulk.tensor) of Q once and of the K and V
-//    tiles into a ring in shared memory (3 stages of 64-key tiles), with
-//    full and empty mbarriers, 128-byte swizzled; q is a 5-D tensor map
-//    {hd, G, KV, S, B} and k / v 4-D maps {hd, KV, S, B}, so a ragged tile
-//    past S is zero-filled by the hardware and never reads the next
-//    sequence (hd 128 takes two 64-column boxes a row; a row of hd 32 or
-//    16 is one 64- or 32-byte box, 64- or 32-byte swizzled, read through
-//    descriptors of layout B64 or B32: HD / 16 k-steps in Q . K^T, wgmma
-//    N = HD in P . V). Two consumer warpgroups own 64 rows each (setmaxnreg
+//    tiles into a ring in shared memory (3 stages of 64-key tiles; 32-key
+//    tiles past width 128, whose consumers hold HD / 2 accumulators), with
+//    full and empty mbarriers, 128-byte swizzled (2 stages at width 256,
+//    whose 3 would take 256 KB); q is a 5-D tensor map {hd, G, KV, S, B}
+//    and k / v 4-D maps {hd, KV, S, B}, so a ragged tile past S, and the
+//    columns past hd, are zero-filled by the hardware and never read the
+//    next sequence or row (widths 64 to 256 take one to four 64-column
+//    boxes a row; a row of width 32 or 16 is one 64- or 32-byte box, 64- or
+//    32-byte swizzled, read through descriptors of layout B64 or B32:
+//    HD / 16 k-steps in Q . K^T, wgmma N = HD in P . V up to 128, pieces of
+//    N = 128 and 64 past it). Two consumer warpgroups own 64 rows each (setmaxnreg
 //    gives them the producer's registers): S = Q . K^T is wgmma m64nKNk16
 //    with both operands in shared memory (products of bf16 values are exact
 //    in f32, so the scores are the reference's f32 scores); the online
@@ -50,7 +59,7 @@
 //    when its S is done, a V stage when its product is. The two consumers
 //    take turns to issue (two named barriers: FA3's ping-pong), so one's
 //    softmax runs under the other's products.
-//  * f32 (the same four head dims): flash_fwd_kernel, scalar f32 FMAs on
+//  * f32 (the same widths): flash_fwd_kernel, scalar f32 FMAs on
 //    the same rounded values over 64-row tiles and 64-key tiles: Q (and K)
 //    transposed, V and P in shared memory as f32, each thread a 4 x 8
 //    block of scores and a 4 x (hd / 8) block of the output, read in
@@ -79,11 +88,23 @@ constexpr size_t smem_bytes() {
                           static_cast<size_t>(kKeys) * kRows);  // Pt [keys][rows]
 }
 
-template <typename T, int HD>
+// Blocks run at a built width HD >= hd (`launch_width`): a row's hd
+// columns come from device memory, the rest of its HD columns are zeros in
+// shared memory (they add exact zeros to Q . K^T) and the epilogue writes
+// only the hd columns. A block takes the heads [g0, g0 + GC) of one KV head
+// (head chunk `blockIdx.x % n_gc`, `head_chunks`): kRows / GC positions of
+// GC heads each, heads past G being zero rows it never writes. EXACT
+// (hd == HD, one chunk of all G heads: every served shape but the wide
+// ones) fixes hd, GC and n_gc when compiling, so that code carries no
+// column or chunk arithmetic.
+template <typename T, int HD, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int KV,
-                 int G, int causal, float scale) {
+                 int G, int hd_arg, int gc_arg, int n_gc_arg, int causal,
+                 float scale) {
+  const int hd = EXACT ? HD : hd_arg;
+  const int GC = EXACT ? G : gc_arg, n_gc = EXACT ? 1 : n_gc_arg;
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int CH = HD / VEC;   // 16-byte chunks a row
   // the 8 threads of a row group split a row's HD output columns into
@@ -91,35 +112,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int CW = HD >= 32 ? 4 : HD / 8;
   constexpr int DJ = HD / (8 * CW);
   static_assert(CW * 8 * DJ == HD && (CW == 4 || CW == 2), "column split");
+  const int ch_live = hd / VEC;  // chunks of a row in device memory
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
   float* Kt = Qt + HD * kRows;
   float* Vs = Kt + HD * kKeys;
   float* Pt = Vs + kKeys * HD;
 
-  const int BQ = kRows / G;      // query positions a tile
-  const int R = BQ * G;          // rows in use
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int BQ = kRows / GC;     // query positions a tile
+  const int R = BQ * GC;         // rows in use
+  // heaviest causal tiles first, the head chunks of a tile side by side
+  const int rev = gridDim.x - 1 - blockIdx.x;
+  const int qt = rev / n_gc, g0 = rev % n_gc * GC;
   const int kv = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x, tr = tid / 8, tc = tid % 8;
 
-  const size_t q_row = static_cast<size_t>(KV) * G * HD;  // one position
-  const size_t k_row = static_cast<size_t>(KV) * HD;
+  const size_t q_row = static_cast<size_t>(KV) * G * hd;  // one position
+  const size_t k_row = static_cast<size_t>(KV) * hd;
   const T* qb = q + static_cast<size_t>(b) * S * q_row +
-                static_cast<size_t>(kv) * G * HD;
+                (static_cast<size_t>(kv) * G + g0) * hd;
   const T* kb = k + static_cast<size_t>(b) * S * k_row +
-                static_cast<size_t>(kv) * HD;
+                static_cast<size_t>(kv) * hd;
   const T* vb = v + static_cast<size_t>(b) * S * k_row +
-                static_cast<size_t>(kv) * HD;
+                static_cast<size_t>(kv) * hd;
 
-  // the Q tile, transposed: Qt[d][r], row r = (position r / G, head r % G)
+  // the Q tile, transposed: Qt[d][r], row r = (position r / GC, head
+  // g0 + r % GC)
   for (int idx = tid; idx < kRows * CH; idx += kThreads) {
     const int r = idx % kRows, ch = idx / kRows;
-    const int p = r / G, g = r % G;
+    const int p = r / GC, g = r % GC;
     float x[VEC];
-    if (r < R && q0 + p < S) {
-      attn::load_vec(qb + static_cast<size_t>(q0 + p) * q_row + g * HD +
+    if (r < R && q0 + p < S && g0 + g < G && ch < ch_live) {
+      attn::load_vec(qb + static_cast<size_t>(q0 + p) * q_row + g * hd +
                      ch * VEC, x);
     } else {
 #pragma unroll
@@ -131,7 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int pos[4];  // query position of each of this thread's rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) pos[i] = q0 + (tr * 4 + i) / G;
+  for (int i = 0; i < 4; ++i) pos[i] = q0 + (tr * 4 + i) / GC;
   float m_r[4], l_r[4], acc[4][DJ][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -154,7 +179,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kKeys * CH; idx += kThreads) {
       const int c = idx % kKeys, ch = idx / kKeys;
       float x[VEC];
-      if (k0 + c < S) {
+      if (k0 + c < S && ch < ch_live) {
         attn::load_vec(kb + static_cast<size_t>(k0 + c) * k_row + ch * VEC, x);
       } else {
 #pragma unroll
@@ -166,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kKeys * CH; idx += kThreads) {
       const int ch = idx % CH, c = idx / CH;
       float x[VEC];
-      if (k0 + c < S) {
+      if (k0 + c < S && ch < ch_live) {
         attn::load_vec(vb + static_cast<size_t>(k0 + c) * k_row + ch * VEC, x);
       } else {
 #pragma unroll
@@ -270,20 +295,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // o = acc / max(l, 1e-30), rows in use and positions inside S only
+  // o = acc / max(l, 1e-30), rows in use, heads below G, positions inside
+  // S and the hd columns only (hd is a multiple of 8, so a run of CW
+  // columns lies wholly inside or outside)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr * 4 + i;
-    const int p = r / G, g = r % G;
-    if (r >= R || q0 + p >= S) continue;
+    const int p = r / GC, g = r % GC;
+    if (r >= R || q0 + p >= S || (!EXACT && g0 + g >= G)) continue;
     const float den = fmaxf(l_r[i], 1e-30f);
     T* orow = o + (static_cast<size_t>(b) * S + q0 + p) * q_row +
-              static_cast<size_t>(kv) * G * HD + g * HD;
+              (static_cast<size_t>(kv) * G + g0 + g) * hd;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
+    for (int j = 0; j < DJ; ++j) {
+      const int c = j * 8 * CW + tc * CW;
+      if (c >= hd) continue;
 #pragma unroll
       for (int e = 0; e < CW; ++e)
-        attn::from_float(acc[i][j][e] / den, orow + j * 8 * CW + tc * CW + e);
+        attn::from_float(acc[i][j][e] / den, orow + c + e);
+    }
   }
 }
 
@@ -312,22 +342,26 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // rows][kBox], the K ring and the V ring [kStages][kBoxes][KN rows][kBox],
 // then the mbarriers full_q, full_k[kStages], full_v[kStages],
 // empty_k[kStages], empty_v[kStages]. A row lies in swizzled lines of
-// kLine bytes: hd 64 and 128 in one or two 128-byte lines (TMA's and
-// wgmma's 128-byte swizzle), hd 32 and 16 in one 64- or 32-byte line (the
-// 64- and 32-byte swizzles), so a line never holds parts of two rows.
+// kLine bytes: widths 64 to 256 in one to four 128-byte lines (TMA's and
+// wgmma's 128-byte swizzle), 32 and 16 in one 64- or 32-byte line (the
+// 64- and 32-byte swizzles), so a line never holds parts of two rows. At
+// width 256 Q takes 64 KB and a stage of K and V 64 KB: two stages fit the
+// 227 KB a block may use, three (256 KB) do not.
 template <int HD, int KN>
 struct Layout {
   static constexpr int kLine = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span
   static constexpr int kBox = kLine / 2;                 // bf16 columns a box
   static constexpr int kBoxes = HD / kBox;               // boxes a row
-  static constexpr int kStages = 3;                      // ring depth
+  static constexpr int kStages = HD > 192 ? 2 : 3;       // ring depth
   static constexpr int kTileBytes = kBoxes * KN * kLine;  // a K or V tile
   static constexpr int kK = kBoxes * kTileRows * kLine;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBars = kV + kStages * kTileBytes;
   static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
-  static_assert(kLine == 128 || kLine == 64 || kLine == 32,
-                "hd 16, 32, 64 or 128");
+  static_assert((kLine == 128 && HD % 64 == 0) || kLine == 64 ||
+                    kLine == 32,
+                "widths 16, 32 and multiples of 64");
+  static_assert(kSmem <= 232448, "a block's shared memory");
   static_assert(kTileBytes % 1024 == 0, "regions stay 1024-byte aligned");
 };
 
@@ -413,6 +447,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16) . B (16 x 32): both bf16 in shared
+// memory, K-major; ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -516,7 +567,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }  // namespace tma
 
 // S = Q . K^T of one key tile, issued (not waited for): Q's 64 rows of
-// this warpgroup and the tile's KN keys, HD / 16 k-steps of 16 columns,
+// this warpgroup and the tile's KN (64 or 32) keys, wgmma N = KN, HD / 16
+// k-steps of 16 columns,
 // i.e. 32 bytes into a swizzled line (4 steps a 128-byte line, 2 a 64-byte
 // one, 1 a 32-byte one), the second 64 columns of hd 128 in the second box
 // of each; 8-row groups kLine * 8 bytes apart (the stride byte offset).
@@ -526,7 +578,8 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
   using namespace tma;
   constexpr int kLine = Layout<HD, KN>::kLine;
   constexpr int kSteps = kLine / 32;  // k-steps a line
-  static_assert(KN == 64, "S = Q . K^T is issued as wgmma m64n64k16");
+  static_assert(KN == 64 || KN == 32,
+                "S = Q . K^T is issued as wgmma m64n64k16 or m64n32k16");
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
     const uint32_t col = (ks % kSteps) * 32;
@@ -534,15 +587,22 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
         q_rows + (ks / kSteps) * kTileRows * kLine + col, 16, 8 * kLine);
     const uint64_t db = desc_sw<kLine>(kt + (ks / kSteps) * KN * kLine + col,
                                        16, 8 * kLine);
-    wgmma_ss_n64(sc, da, db, ks > 0);
+    if constexpr (KN == 64)
+      wgmma_ss_n64(sc, da, db, ks > 0);
+    else
+      wgmma_ss_n32(sc, da, db, ks > 0);
   }
   tma::wgmma_commit();
 }
 
 // O += P . V of one key tile, issued: V [keys][hd] is B in MN-major form
-// (wgmma N = HD), a k-step being 16 key lines (16 kLine bytes), 8-key
-// groups 8 lines apart, the two 64-column halves of hd 128 one tile apart
+// (wgmma N = HD up to 128), a k-step being 16 key lines (16 kLine bytes),
+// 8-key groups 8 lines apart, the 64-column boxes of a row one tile apart
 // (the leading byte offset; a narrower row is one swizzle atom wide).
+// Widths past 128 issue a product of N = 128 a pair of boxes (and N = 64
+// for the last box of 192): accumulator j of the whole row holds column
+// 8 (j / 4) + 2 (lane % 4) + (j % 2), so the piece from column c0 is
+// acc[c0 / 2 ..] in the same layout.
 template <int HD, int KN>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
                                          const uint32_t (&pa)[KN / 16][4],
@@ -550,9 +610,25 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
   using namespace tma;
   constexpr int kLine = Layout<HD, KN>::kLine;
 #pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk)
-    wgmma_rs<HD>(acc, pa[kk], desc_sw<kLine>(vt + kk * 16 * kLine,
-                                             KN * kLine, 8 * kLine));
+  for (int kk = 0; kk < KN / 16; ++kk) {
+    if constexpr (HD <= 128) {
+      wgmma_rs<HD>(acc, pa[kk], desc_sw<kLine>(vt + kk * 16 * kLine,
+                                               KN * kLine, 8 * kLine));
+    } else {
+#pragma unroll
+      for (int c0 = 0; c0 < HD; c0 += 128) {
+        const uint64_t db = desc_sw<kLine>(
+            vt + (c0 / 64) * KN * kLine + kk * 16 * kLine, KN * kLine,
+            8 * kLine);
+        if (HD - c0 >= 128)
+          wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(acc + c0 / 2),
+                        pa[kk], db);
+        else
+          wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc + c0 / 2),
+                       pa[kk], db);
+      }
+    }
+  }
   tma::wgmma_commit();
 }
 
@@ -613,7 +689,11 @@ __device__ __forceinline__ void pack_p(const float (&sc)[KN / 2],
   }
 }
 
-// One block: 128 rows (position, head) of one (b, kv), three warpgroups.
+// One block: 128 rows (position, head) of one (b, kv) -- kTileRows / GC
+// positions of the GC heads [g0, g0 + GC) of head chunk blockIdx.x % n_gc
+// -- three warpgroups, built at a width HD >= hd (`launch_width`): the
+// tensor maps' inner dimension is hd, so TMA fills the columns past it
+// with zeros and the epilogue writes hd columns.
 // Warpgroup 2 is the producer (one thread issues every TMA load);
 // warpgroups 0 and 1 are the consumers, 64 rows each. A consumer thread
 // holds rows r0 = 64 wg + 16 warp + lane / 4 and r1 = r0 + 8: the wgmma
@@ -622,15 +702,18 @@ __device__ __forceinline__ void pack_p(const float (&sc)[KN / 2],
 // pipelines its tiles: it issues S_t = Q . K_t^T and O += P_{t-1} . V_{t-1}
 // together, takes the softmax of S_t while the second product runs, then
 // rescales O and packs P_t; K_t's stage is released as soon as S_t is
-// done, V_{t-1}'s when its product is.
-template <int HD, int KN>
+// done, V_{t-1}'s when its product is. EXACT as in flash_fwd_kernel.
+template <int HD, int KN, bool EXACT>
 __global__ void __launch_bounds__(tma::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        __nv_bfloat16* __restrict__ o, int S, int KV, int G,
-                       int causal, float scale_log2) {
+                       int hd_arg, int gc_arg, int n_gc_arg, int causal,
+                       float scale_log2) {
   using namespace tma;
+  const int hd = EXACT ? HD : hd_arg;
+  const int GC = EXACT ? G : gc_arg, n_gc = EXACT ? 1 : n_gc_arg;
   using Lt = Layout<HD, KN>;
   constexpr int NS = Lt::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -640,8 +723,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t full_k = full_q + 8, full_v = full_k + 8 * NS;
   const uint32_t empty_k = full_v + 8 * NS, empty_v = empty_k + 8 * NS;
 
-  const int BQ = kTileRows / G, R = BQ * G;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int BQ = kTileRows / GC, R = BQ * GC;
+  // heaviest causal tiles first, the head chunks of a tile side by side
+  const int rev = gridDim.x - 1 - blockIdx.x;
+  const int qt = rev / n_gc, g0 = rev % n_gc * GC;
   const int kv = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
   const int p_last = min(S, q0 + BQ) - 1;  // last live position of the tile
@@ -668,7 +753,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int h = 0; h < Lt::kBoxes; ++h)
         tma_load_5d(sq + h * kTileRows * Lt::kLine, &qmap, full_q,
-                    h * Lt::kBox, 0, kv, q0, b);
+                    h * Lt::kBox, g0, kv, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % NS;
         // the consumers released this stage's previous K (then V) tile
@@ -695,7 +780,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int tig = lane % 4;
     const int r0 = wg * kWgRows + warp * 16 + lane / 4, r1 = r0 + 8;
-    const int pos0 = q0 + r0 / G, pos1 = q0 + r1 / G;
+    const int pos0 = q0 + r0 / GC, pos1 = q0 + r1 / GC;
     const uint32_t q_rows = sq + wg * kWgRows * Lt::kLine;  // this group's Q
     float acc[HD / 2], sc[KN / 2];
     uint32_t pa[KN / 16][4];
@@ -753,7 +838,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(acc);
     fence_regs(pa);
 
-    // o = acc / max(l, 1e-30), rows in use and positions inside S only
+    // o = acc / max(l, 1e-30), rows in use, heads below G, positions
+    // inside S and the hd columns only
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -761,43 +847,64 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = h ? r1 : r0;
-      const int p = r / G, g = r % G;
-      if (r >= R || q0 + p >= S) continue;
+      const int p = r / GC, g = g0 + r % GC;
+      if (r >= R || q0 + p >= S || (!EXACT && g >= G)) continue;
       const float den = fmaxf(h ? l1 : l0, 1e-30f);
       __nv_bfloat16* orow =
-          o + ((static_cast<size_t>(b) * S + q0 + p) * KV + kv) * G * HD +
-          static_cast<size_t>(g) * HD;
+          o + ((static_cast<size_t>(b) * S + q0 + p) * KV + kv) * G * hd +
+          static_cast<size_t>(g) * hd;
 #pragma unroll
       for (int nb = 0; nb < HD / 8; ++nb) {
-        const __nv_bfloat162 y = __floats2bfloat162_rn(
-            acc[4 * nb + 2 * h] / den, acc[4 * nb + 2 * h + 1] / den);
-        *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) = y;
+        if (nb * 8 < hd) {
+          const __nv_bfloat162 y = __floats2bfloat162_rn(
+              acc[4 * nb + 2 * h] / den, acc[4 * nb + 2 * h + 1] / den);
+          *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) = y;
+        }
       }
     }
   }
 }
 
+// Query heads a block of G: balanced chunks of at most kMaxChunk heads
+// (`head_chunks` in kernels/flash_attention/flash_attention.py), so a
+// tile keeps >= 2 positions in the bf16 kernel's 128 rows and >= 1 in the
+// f32 kernel's 64; chunk c holds heads [c GC, min(G, (c + 1) GC)).
+constexpr int kMaxChunk = 64;
+inline int chunk_heads(int G) {
+  const int n_gc = (G + kMaxChunk - 1) / kMaxChunk;
+  return (G + n_gc - 1) / n_gc;
+}
+
+// A launch takes the kernels' EXACT instantiation when its rows fill the
+// width and one chunk holds all G heads
+inline bool exact_launch(int HD, int hd, int n_gc) {
+  return hd == HD && n_gc == 1;
+}
+
 template <int HD, int KN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int KV, int G, int causal, cudaStream_t stream) {
+                 int S, int KV, int G, int hd, int hd_scale, int causal,
+                 cudaStream_t stream) {
   using Lt = tma::Layout<HD, KN>;
-  const int BQ = tma::kTileRows / G;
+  const int GC = chunk_heads(G), n_gc = (G + GC - 1) / GC;
+  const int BQ = tma::kTileRows / GC;
   const int n_qt = (S + BQ - 1) / BQ;
   const cuuint64_t e = sizeof(__nv_bfloat16);
-  const cuuint64_t qdims[5] = {HD, static_cast<cuuint64_t>(G),
+  const cuuint64_t w = static_cast<cuuint64_t>(hd);
+  const cuuint64_t qdims[5] = {w, static_cast<cuuint64_t>(G),
                                static_cast<cuuint64_t>(KV),
                                static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(B)};
-  const cuuint64_t qstrides[4] = {HD * e, qdims[1] * HD * e,
-                                  qdims[2] * qdims[1] * HD * e,
-                                  qdims[3] * qdims[2] * qdims[1] * HD * e};
-  const cuuint32_t qbox[5] = {Lt::kBox, static_cast<cuuint32_t>(G), 1,
+  const cuuint64_t qstrides[4] = {w * e, qdims[1] * w * e,
+                                  qdims[2] * qdims[1] * w * e,
+                                  qdims[3] * qdims[2] * qdims[1] * w * e};
+  const cuuint32_t qbox[5] = {Lt::kBox, static_cast<cuuint32_t>(GC), 1,
                               static_cast<cuuint32_t>(BQ), 1};
-  const cuuint64_t kdims[4] = {HD, static_cast<cuuint64_t>(KV),
+  const cuuint64_t kdims[4] = {w, static_cast<cuuint64_t>(KV),
                                static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(B)};
-  const cuuint64_t kvstrides[3] = {HD * e, kdims[1] * HD * e,
-                                   kdims[2] * kdims[1] * HD * e};
+  const cuuint64_t kvstrides[3] = {w * e, kdims[1] * w * e,
+                                   kdims[2] * kdims[1] * w * e};
   const cuuint32_t kbox[4] = {Lt::kBox, 1, KN, 1};
   CUtensorMap qm, km, vm;
   constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -811,77 +918,100 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (err == 0)
     err = attn::make_map(&vm, kBf16, v, 4, kdims, kvstrides, kbox, kSw);
   if (err != 0) return err;
-  auto kern = flash_fwd_wgmma_kernel<HD, KN>;
+  auto kern = exact_launch(HD, hd, n_gc)
+                  ? flash_fwd_wgmma_kernel<HD, KN, true>
+                  : flash_fwd_wgmma_kernel<HD, KN, false>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::kSmem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const float scale_log2 = static_cast<float>(
-      1.4426950408889634 / sqrt(static_cast<double>(HD)));
-  kern<<<dim3(n_qt, KV, B), tma::kThreads, Lt::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, KV, G, causal,
-      scale_log2);
+      1.4426950408889634 / sqrt(static_cast<double>(hd_scale)));
+  kern<<<dim3(n_qt * n_gc, KV, B), tma::kThreads, Lt::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, KV, G, hd, GC, n_gc,
+      causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int KV, int G, int causal, cudaStream_t stream) {
-  const int BQ = kRows / G;
+           int KV, int G, int hd, int hd_scale, int causal,
+           cudaStream_t stream) {
+  const int GC = chunk_heads(G), n_gc = (G + GC - 1) / GC;
+  const int BQ = kRows / GC;
   const int n_qt = (S + BQ - 1) / BQ;
   constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+  auto kern = exact_launch(HD, hd, n_gc) ? flash_fwd_kernel<T, HD, true>
+                                         : flash_fwd_kernel<T, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kern<<<dim3(n_qt, KV, B), kThreads, smem, stream>>>(
+  kern<<<dim3(n_qt * n_gc, KV, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, KV, G, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), S, KV, G, hd, GC, n_gc,
+      causal, attn::head_scale(hd_scale));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Keys a tile of the bf16 kernel at width HD (`key_tile` in
+// kernels/flash_attention/flash_attention.py): 64 measured faster than 128
+// at the prefill shape (at 128 the consumers' accumulators outgrow their
+// registers and ptxas serializes the wgmmas); past width 128 the HD / 2
+// accumulators leave room for 32 keys' scores and P (64 spill: at width
+// 192 100 bytes and 16% slower, tools/flash_width_probe.py).
+constexpr int key_tile(int HD) { return HD > 128 ? 32 : 64; }
+
+template <int HD>
+int launch_at(bool bf, const void* q, const void* k, const void* v, void* o,
+              int B, int S, int KV, int G, int hd, int hd_scale, int causal,
+              cudaStream_t st) {
+  return bf ? launch_wgmma<HD, key_tile(HD)>(q, k, v, o, B, S, KV, G, hd,
+                                             hd_scale, causal, st)
+            : launch<float, HD>(q, k, v, o, B, S, KV, G, hd, hd_scale,
+                                causal, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Keys a tile of the bf16 kernel: 64 measured faster than 128 at the
-// prefill shape (at 128 the consumers' accumulators outgrow their registers
-// and ptxas serializes the wgmmas).
-constexpr int kKeyTile = 64;
-
 // q (B, S, KV, G, hd), k / v (B, S, KV, hd) -> o (B, S, KV, G, hd), all of
-// `dtype` (0 f32: the scalar kernel, 1 bf16: the TMA + wgmma kernel), hd in
-// {16, 32, 64, 128} (`HEAD_DIMS` in kernels/_attention.py), 1 <= G <= 64.
-// One launch on `stream`, no synchronisation. Returns the first CUDA error
-// (0 on success).
+// `dtype` (0 f32: the scalar kernel, 1 bf16: the TMA + wgmma kernel), hd a
+// multiple of 8 in [8, 256] run at `attn::launch_width(hd)` (the rule of
+// `launch_width` in kernels/_attention.py), the scale 1 / sqrt(hd_scale)
+// (the true head dim: hd_scale < hd when the wrapper passed a zero-padded
+// copy), any G >= 1 (head chunks of at most 64 on the grid). One launch on
+// `stream`, no synchronisation. Returns the first CUDA error (0 on
+// success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int S, int KV, int G,
-                           int hd, int causal, void* stream_ptr) {
+                           int hd, int hd_scale, int causal,
+                           void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const bool bf = dtype == attn::kBF16;
-  if (!bf && dtype != attn::kF32)
+  if ((!bf && dtype != attn::kF32) || G < 1 || hd_scale < 1 ||
+      hd_scale > hd)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (hd) {
-    case 16:
-      return bf ? launch_wgmma<16, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
-                                             st)
-                : launch<float, 16>(q, k, v, o, B, S, KV, G, causal, st);
-    case 32:
-      return bf ? launch_wgmma<32, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
-                                             st)
-                : launch<float, 32>(q, k, v, o, B, S, KV, G, causal, st);
-    case 64:
-      return bf ? launch_wgmma<64, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
-                                             st)
-                : launch<float, 64>(q, k, v, o, B, S, KV, G, causal, st);
-    case 128:
-      return bf ? launch_wgmma<128, kKeyTile>(q, k, v, o, B, S, KV, G, causal,
-                                              st)
-                : launch<float, 128>(q, k, v, o, B, S, KV, G, causal, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_AT(W) \
+  launch_at<W>(bf, q, k, v, o, B, S, KV, G, hd, hd_scale, causal, st)
+  switch (attn::launch_width(hd)) {
+    case 16: return FLASH_AT(16);
+    case 32: return FLASH_AT(32);
+    case 64: return FLASH_AT(64);
+    case 128: return FLASH_AT(128);
+    case 192: return FLASH_AT(192);
+    case 256: return FLASH_AT(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_AT
+}
+
+// The width a row of hd elements runs at (`attn::launch_width`), or -1
+// when the launchers refuse hd: the C side of `launch_width` in
+// kernels/_attention.py, which the card checks against it.
+int attention_launch_width(int dtype, int hd) {
+  if (dtype != attn::kBF16 && dtype != attn::kF32) return -1;
+  return attn::launch_width(hd);
 }
 
 }  // extern "C"

@@ -18,9 +18,16 @@ SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
     "flash_attention.cu", "decode_attention.cu"))
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims both kernels are built for (their C launchers refuse any
-#: other): every config of the registry and every example's generator
-HEAD_DIMS = (16, 32, 64, 128)
+#: the widths both kernels are built at (``launch_width`` in both C
+#: launchers): a head dim runs at the first that holds it
+WIDTHS = (16, 32, 64, 128, 192, 256)
+#: the largest head dim: wgmma's N, and so the width of P . V, is at most
+#: 256 (and a TMA box at most 256 elements a dimension)
+MAX_HEAD_DIM = WIDTHS[-1]
+#: a row a tensor map reads in place is a multiple of 8 elements (16 bytes
+#: of bf16: TMA's rule for global strides); any other head dim is copied,
+#: zero-padded, to the next multiple
+ROW_ALIGN = 8
 #: nvcc's output of the build that made the library, set by `build`
 BUILD_LOG = ""
 
@@ -44,13 +51,16 @@ def load():
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                               i, p]
+                                               i, i, p]
         lib.flash_attention_launch.restype = i
         lib.decode_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                i, i, p, p, p, p, p, p, p, p]
+                                                i, i, i, i, p, p, p, p, p, p,
+                                                p, p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, i]
         lib.decode_attention_blocks_per_sm.restype = i
+        lib.attention_launch_width.argtypes = [i, i]
+        lib.attention_launch_width.restype = i
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -64,12 +74,38 @@ def check_rc(lib, rc: int, what: str) -> None:
                            + lib.attention_error_string(rc).decode())
 
 
-def check_head_dim(name: str, hd: int) -> None:
-    """Raise ValueError, naming the set, for a head dim the kernels are not
-    built for."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}, the "
-                         "head dims the kernel is built for")
+def launch_width(dtype, hd: int, name: str = "attention") -> tuple[int, bool]:
+    """The one head-dim rule of both kernels, for (dtype, hd): (HDP, copy).
+    HDP is the width the kernel is built at, the first of WIDTHS that holds
+    ``hd`` rounded up to ROW_ALIGN; ``copy`` says the wrapper must pass
+    q, k and v (q and the caches in decode) as a zero-padded copy of that
+    rounded width, since a tensor map cannot read a row that is not a
+    multiple of 16 bytes in place. Columns past hd up to HDP come in as
+    zeros from the tensor map's out-of-bounds fill, so the scores are the
+    true ones; the scale is always 1 / sqrt(hd) of the true hd. Raises
+    ValueError, naming the rule, for an unknown dtype or hd outside
+    [1, MAX_HEAD_DIM]. Both C launchers hold the same rule
+    (``attention_launch_width``)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {dtype} not float32 or bfloat16")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd} outside [1, {MAX_HEAD_DIM}]"
+                         f": P . V is one wgmma of N = head_dim <= "
+                         f"{MAX_HEAD_DIM}")
+    row = padded_head_dim(hd)
+    return next(w for w in WIDTHS if w >= row), row != hd
+
+
+def padded_head_dim(hd: int) -> int:
+    """hd rounded up to ROW_ALIGN: the width of the padded copy."""
+    return -(-hd // ROW_ALIGN) * ROW_ALIGN
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its last dimension zero-padded to ``width`` (a copy), or x
+    itself when it is that wide already."""
+    extra = width - x.shape[-1]
+    return x if extra == 0 else torch.nn.functional.pad(x, (0, extra))
 
 
 def refuse_grad(name: str, *tensors) -> None:

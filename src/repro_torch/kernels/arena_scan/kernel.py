@@ -36,6 +36,7 @@ no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 import os
 
@@ -162,6 +163,41 @@ def _scratch(lib, rows: int, n: int, k: int, dev,
                                 out_s.data_ptr(), out_i.data_ptr())
 
 
+#: predicate groups one launch takes: the kernel stages the batch's (G, 4)
+#: predicate block in shared memory; `split_by_groups` takes more
+MAX_GROUPS = 8192
+
+
+def split_by_groups(scan, q, gids, preds, lex=None, cap: int = MAX_GROUPS):
+    """A batch of more than ``cap`` predicate groups as launches of at most
+    ``cap``: the rows ordered by group, one ``scan(q, gids, preds, lex)``
+    a range of ``cap`` groups that holds rows -- its rows' queries (and
+    query terms), their gids rebased to the range, the range's predicates
+    -- and each list scattered back to its rows. Returns what one scan of
+    the whole batch returns (a row's lists depend on its own query, group
+    and terms only). Reads the group counts on the host: a batch this
+    large waits for the card once."""
+    G = preds.shape[0]
+    order = torch.argsort(gids, stable=True)
+    ends = torch.bincount(gids.long(), minlength=G).cumsum(0).tolist()
+    outs = None
+    for g0 in range(0, G, cap):
+        g1 = min(G, g0 + cap)
+        r0, r1 = ends[g0 - 1] if g0 else 0, ends[g1 - 1]
+        if r0 == r1:
+            continue
+        rows = order[r0:r1]
+        sub = None if lex is None else (lex[0], lex[1], lex[2][rows],
+                                        lex[3][rows])
+        lists = scan(q[rows], gids[rows] - g0, preds[g0:g1].contiguous(), sub)
+        if outs is None:
+            outs = [torch.empty((q.shape[0],) + t.shape[1:], dtype=t.dtype,
+                                device=t.device) for t in lists]
+        for out, t in zip(outs, lists):
+            out[rows] = t
+    return tuple(outs)
+
+
 def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
                     spec: ScanSpec = ScanSpec(), lex: tuple | None = None,
                     page_rows: int | None = None):
@@ -172,8 +208,10 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
     CUDA device. ``page_rows`` None launches the resident kernel, an int
     >= 1 the paged kernel (pages of that many rows, the same lists). Returns
     `spec.n_lists` (scores (B, k) f32, slots (B, k) int32) pairs flattened.
-    Raises on any input it cannot take; the slot-lane spec is
-    `arena_scan_probe_cuda`'s."""
+    Any T and QT whose launch fits a block (`scan_geometry`); more than
+    MAX_GROUPS predicate groups run as several launches
+    (`split_by_groups`). Raises on any input it cannot take; the
+    slot-lane spec is `arena_scan_probe_cuda`'s."""
     global LAUNCHES, PAGED_LAUNCHES
     page_rows = _check_page_rows(page_rows)
     dev = q.device
@@ -194,9 +232,6 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
     if B < 1 or N < 1 or D < 1 or G < 1 or k < 1:
         raise ValueError(f"arena_scan_cuda needs B, N, D, G, k >= 1, got "
                          f"B={B} N={N} D={D} G={G} k={k}")
-    if G > 8192:       # the (G, 4) predicate block lives in shared memory
-        raise ValueError(f"G={G} predicate groups exceed the kernel's "
-                         "shared-memory block (8192)")
     if max(B, N, k) >= 1 << 31:
         raise ValueError("B, N and k must fit in int32")
     T = QT = 0
@@ -212,9 +247,16 @@ def arena_scan_cuda(q, emb, meta, gids, preds, k: int, *,
         _check("lexnorm", lexnorm, torch.float32, (N, T), dev)
         _check("qterms", qterms, torch.int32, (B, QT), dev)
         _check("qidf", qidf, torch.float32, (B, QT), dev)
-        if not (1 <= T <= 64 and 1 <= QT <= 64):
+        if T < 1 or QT < 1:
             raise ValueError(f"the kernel takes T={T} lanes and QT={QT} "
-                             "query terms: each in [1, 64]")
+                             "query terms: each at least 1")
+    if G > MAX_GROUPS:
+        return split_by_groups(
+            lambda q_, g_, p_, lex_: arena_scan_cuda(
+                q_, emb, meta, g_, p_, k, spec=spec, lex=lex_,
+                page_rows=page_rows), q, gids, preds, lex)
+    if spec.has_lex:
+        _lexical_fits(spec, block_rows(B), G, k, page_rows, QT)
     lib = _load()
     out_s, out_i, _bufs, scratch = _scratch(lib, spec.n_lists * B, N, k,
                                             dev, page_rows)
@@ -446,6 +488,15 @@ def scan_geometry(spec: ScanSpec, B: int, G: int, k: int,
                                 run_lists_in_smem=run_smem, smem_bytes=smem)
     raise ValueError(f"no launch of BB={BB} G={G} QT={QT} L={L} fits a "
                      "block's shared memory")
+
+
+@functools.lru_cache(maxsize=256)
+def _lexical_fits(spec: ScanSpec, BB: int, G: int, k: int, page_rows, QT):
+    """Raise when no lexical launch fits a block's shared memory: the modes
+    stage the batch's query terms there, so QT sets the size (the lanes
+    are read from device memory: T does not). Cached, as the wrapper
+    asks once a launch."""
+    scan_geometry(spec, BB, G, k, page_rows, QT=QT)
 
 
 def micro_tile(tid: int, BB: int) -> tuple[list[int], list[int]]:

@@ -16,6 +16,16 @@ kernel's own schedule (the split into chunks, dead chunks skipped, the
 merge in chunk order) so that the CPU tests check its algorithm. The
 Pallas kernel's (B, KV, G, 128) lane-uniform m and l are (B, KV, G, 1)
 here: the lanes were a TPU artefact.
+
+Any head_dim in [1, 256] (`_attention.launch_width`: the kernel runs at
+the first built width that holds it, the tensor maps filling the columns
+past hd with zeros) and any G: a block stages its heads' q and scores in
+shared memory, and only where G heads of that width do not fit
+(`block_heads`) do the heads split into chunks on the grid, each chunk's
+blocks reading the chunk's cache rows again. A head dim that is not a
+multiple of 8 goes in as zero-padded copies of q and BOTH caches, made on
+every call: a decode step then copies the whole cache (read and written
+once more) before the kernel reads it.
 """
 from __future__ import annotations
 
@@ -32,11 +42,19 @@ LAUNCHES = 0
 BLOCKS_PER_SM = 4
 #: rows of the smallest chunk
 MIN_SPLIT = 64
-#: bytes of the kernel's sub-tile (``kSubBytes``), which it loads whole: a
-#: chunk is rounded up to whole sub-tiles of its rows
+#: bytes of the kernel's ring stage (``kSubBytes``); a sub-tile, which it
+#: loads whole, is `tile_rows` rows of it: a chunk is rounded up to whole
+#: sub-tiles of its rows
 SUB_BYTES = 8192
 #: f32 scores a block keeps in shared memory (G x split)
 MAX_SCORES = 8192
+#: the kernel's warps, ring stages and most heads accumulated at once in
+#: P . V (``kWarps``, ``kStages``, ``kGChunkMax``): its shared memory's
+#: terms
+WARPS, STAGES, G_CHUNK_MAX = 4, 4, 8
+#: dynamic shared memory a block may use, less 1 KB for the static
+#: ``is_last`` and the alignment slack
+SMEM_LIMIT = 227 * 1024 - 1024
 
 _SM_COUNT: dict = {}
 #: the kernel's workspace by (device, B, KV, n_split, G, hd): partials and
@@ -47,18 +65,80 @@ _WORKSPACE: dict = {}
 _PLANS: dict = {}
 
 
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+def lane_layout(hdp: int, itemsize: int) -> tuple[int, int]:
+    """(LPR, EPL) of the kernel's ``Tile``: a row of width ``hdp`` over LPR
+    lanes (a power of two, at most 32) of EPL elements (one 16-byte
+    vector, or two for f32 past width 128). LPR * EPL >= hdp: at width 192
+    the last 8 lanes of a row group hold no column."""
+    vec = 16 // itemsize
+    nvec = hdp // vec
+    lpr = min(32, 1 << (nvec - 1).bit_length())
+    return lpr, -(-nvec // lpr) * vec
+
+
+def tile_rows(hdp: int, itemsize: int) -> int:
+    """Rows of the kernel's sub-tile at width ``hdp`` (``Tile::TR``): a
+    power of two of rows for each of the block's row groups, as many as
+    SUB_BYTES holds -- 16 (f32 width 128) to 256 (bf16 width 16) rows;
+    16 and 8 at width 192 (6 KB), whose rows do not divide 8 KB."""
+    lpr, _ = lane_layout(hdp, itemsize)
+    groups = WARPS * (32 // lpr)
+    return groups * _pow2_floor(SUB_BYTES // (hdp * itemsize) // groups)
+
+
+def smem_bytes(hdp: int, heads: int, split: int) -> int:
+    """The kernel's dynamic shared memory (``smem_bytes``) for blocks of
+    ``heads`` query heads and chunks of ``split`` positions: the ring, the
+    cross-warp sums, q and the chunk's f32 scores, the mbarriers."""
+    group = 4 if heads <= 4 else G_CHUNK_MAX
+    floats = (WARPS * group * hdp + heads * hdp
+              + -(-heads // 4) * 4 * split)
+    return 128 + STAGES * SUB_BYTES + -(-4 * floats // 8) * 8 + 16 * STAGES
+
+
+def _split(B, KV, G, S, n_sm, hdp, itemsize):
+    rnd = tile_rows(hdp, itemsize)
+    n_chunks = max(1, n_sm * BLOCKS_PER_SM // (B * KV))
+    split = -(-S // n_chunks)
+    split = -(-split // rnd) * rnd
+    low = -(-MIN_SPLIT // rnd) * rnd
+    cap = max(rnd, MAX_SCORES // G // rnd * rnd)
+    return min(max(split, low), cap)
+
+
+def block_heads(B: int, KV: int, G: int, S: int, n_sm: int, hd: int,
+                itemsize: int) -> tuple[int, int]:
+    """(split, GB): the positions a block covers and the query heads it
+    takes. GB = G -- one block reads a chunk's K and V rows once for all G
+    heads of its KV head -- unless q and the scores of G heads at the
+    launch width do not fit a block's shared memory; then the fewest
+    balanced head chunks that fit, each a block of its own (the cache rows
+    read again per chunk, from L2 when they are close). The split as in
+    `split_for`, for the blocks' heads."""
+    hdp, _ = _attention.launch_width(
+        torch.float32 if itemsize == 4 else torch.bfloat16, hd,
+        "decode_attention_cuda")
+    for n_hc in range(1, G + 1):
+        gb = -(-G // n_hc)
+        split = _split(B, KV * n_hc, gb, S, n_sm, hdp, itemsize)
+        if smem_bytes(hdp, gb, split) <= SMEM_LIMIT:
+            return split, gb
+    raise ValueError(f"decode_attention_cuda: no block of hd {hd} fits "
+                     "shared memory")
+
+
 def split_for(B: int, KV: int, G: int, S: int, n_sm: int, hd: int,
               itemsize: int) -> int:
     """Positions a block covers: enough chunks that B * KV * chunks fill the
     card's resident blocks about once, rounded up to whole sub-tiles
-    (SUB_BYTES of hd-wide rows: 16 to 256 rows), so that no block loads
-    rows it does not use, no chunk under MIN_SPLIT rows and no chunk's
-    scores past MAX_SCORES."""
-    rnd = SUB_BYTES // (hd * itemsize)
-    n_chunks = max(1, n_sm * BLOCKS_PER_SM // (B * KV))
-    split = -(-S // n_chunks)
-    split = -(-split // rnd) * rnd
-    return min(max(split, MIN_SPLIT), max(MIN_SPLIT, MAX_SCORES // G))
+    (`tile_rows` of the launch width: 8 to 256 rows), so that no block
+    loads rows it does not use; no chunk's scores past MAX_SCORES unless
+    one sub-tile's do, and within that no chunk under MIN_SPLIT rows."""
+    return block_heads(B, KV, G, S, n_sm, hd, itemsize)[0]
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths):
@@ -81,16 +161,33 @@ def decode_attention_plain(q, k_cache, v_cache, lengths):
     return acc, m, l
 
 
-def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int):
+def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int,
+                           heads: int | None = None):
     """The kernel's schedule in plain PyTorch, same contract as
-    `decode_attention_plain`: S cut in chunks of ``split`` positions; a
-    chunk that starts at or past lengths[b] > 0 is skipped; a live chunk
-    takes (acc, m, l) over its live rows (every row, with p = 1, when
-    lengths[b] <= 0); the chunks merge in order by m* = max m_i,
-    w_i = exp(m_i - m*), l* = sum w_i l_i, acc* = sum w_i acc_i."""
+    `decode_attention_plain`: rows zero-padded to the launch width
+    (`_attention.launch_width`), the scale the true hd's; the G heads in
+    blocks of ``heads`` (all G when None; `block_heads`); S cut in chunks
+    of ``split`` positions; a chunk that starts at or past lengths[b] > 0
+    is skipped; a live chunk takes (acc, m, l) over its live rows (every
+    row, with p = 1, when lengths[b] <= 0); the chunks merge in order by
+    m* = max m_i, w_i = exp(m_i - m*), l* = sum w_i l_i, acc* = sum w_i
+    acc_i; acc's hd columns are returned."""
+    B, KV, G, hd = q.shape
+    hdp, _ = _attention.launch_width(q.dtype, hd, "decode_attention_tiled")
+    gb = heads or G
+    parts = [_chunks(_attention.pad_head_dim(q[:, :, g:g + gb], hdp),
+                     _attention.pad_head_dim(k_cache, hdp),
+                     _attention.pad_head_dim(v_cache, hdp), lengths, split,
+                     1.0 / (hd ** 0.5))
+             for g in range(0, G, gb)]
+    acc, m, l = (torch.cat(t, dim=2) for t in zip(*parts))
+    return acc[..., :hd], m, l
+
+
+def _chunks(q, k_cache, v_cache, lengths, split, scale):
+    """One head block's split and merge (`decode_attention_tiled`)."""
     B, KV, G, hd = q.shape
     S = k_cache.shape[1]
-    scale = 1.0 / (hd ** 0.5)
     qf = q.float()
     acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     m_out = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
@@ -137,15 +234,17 @@ def _sm_count(dev) -> int:
     return _SM_COUNT[dev]
 
 
-def _workspace(dev, B, KV, n_split, G, hd):
-    key = (dev, B, KV, n_split, G, hd)
+def _workspace(dev, B, KV, n_split, G, hd, n_hc=1):
+    """Partials of width ``hd`` (the launch width) and one merge counter a
+    (b, kv, head block)."""
+    key = (dev, B, KV, n_split, G, hd, n_hc)
     ws = _WORKSPACE.get(key)
     if ws is None:
         f32 = dict(dtype=torch.float32, device=dev)
         ws = (torch.empty((B, KV, n_split, G, hd), **f32),
               torch.empty((B, KV, n_split, G), **f32),
               torch.empty((B, KV, n_split, G), **f32),
-              torch.zeros((B, KV), dtype=torch.int32, device=dev))
+              torch.zeros((B, KV * n_hc), dtype=torch.int32, device=dev))
         _WORKSPACE[key] = ws
     return ws
 
@@ -158,20 +257,25 @@ def workspace_bytes() -> int:
 
 def _plan(dev, dt, B, S, KV, G, hd):
     """Validate a shape the kernel takes and size its launch: (dtype code,
-    split, workspace pointers (part_acc, part_m, part_l, counters), the
-    workspace itself, which the plan keeps alive)."""
+    split, heads a block, the row width (hd, or its padded copy's), the
+    workspace pointers (part_acc, part_m, part_l, counters), the workspace
+    itself, which the plan keeps alive)."""
     if dt not in _attention.DTYPES:
         raise ValueError(f"decode_attention_cuda takes float32 or bfloat16, "
                          f"got {dt}")
-    _attention.check_head_dim("decode_attention_cuda", hd)
-    if not 1 <= G <= 32 or min(B, S, KV) < 1:
-        raise ValueError(f"decode_attention_cuda needs 1 <= G <= 32 and B, "
-                         f"S, KV >= 1, got B={B} S={S} KV={KV} G={G}")
-    if B * S * KV * hd >= 1 << 62 or KV > 65535 or B > 65535:
+    hdp, _ = _attention.launch_width(dt, hd, "decode_attention_cuda")
+    row = _attention.padded_head_dim(hd)
+    if min(B, S, KV, G) < 1:
+        raise ValueError(f"decode_attention_cuda needs B, S, KV, G >= 1, got "
+                         f"B={B} S={S} KV={KV} G={G}")
+    split, gb = block_heads(B, KV, G, S, _sm_count(dev), hd, dt.itemsize)
+    n_hc = -(-G // gb)
+    if (B * S * KV * row >= 1 << 62 or KV * n_hc > 65535 or B > 65535
+            or B * KV * G * hdp * -(-S // split) >= 1 << 62):
         raise ValueError("shapes past the kernel's grid or index range")
-    split = split_for(B, KV, G, S, _sm_count(dev), hd, dt.itemsize)
-    ws = _workspace(dev, B, KV, -(-S // split), G, hd)
-    return (_attention.DTYPES[dt], split, tuple(t.data_ptr() for t in ws), ws)
+    ws = _workspace(dev, B, KV, -(-S // split), G, hdp, n_hc)
+    return (_attention.DTYPES[dt], split, gb, row,
+            tuple(t.data_ptr() for t in ws), ws)
 
 
 def _cache_rows(name, t, dtype, shape, dev) -> int:
@@ -217,8 +321,10 @@ def decode_attention_meta(q):
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the kernel on the current stream (no sync): one launch, which
     also merges the chunks. q (B, KV, G, hd), k_cache / v_cache
-    (B, S, KV, hd), all f32 or all bf16, hd in `_attention.HEAD_DIMS`
-    (16, 32, 64, 128), 1 <= G <= 32;
+    (B, S, KV, hd), all f32 or all bf16, any hd in [1, 256]
+    (`_attention.launch_width`; one that is not a multiple of 8 is
+    launched on zero-padded copies of q and of both caches, made on every
+    call), any G >= 1;
     lengths (B,) int32; all on one CUDA device, q and lengths contiguous,
     the caches contiguous or both the same slice along S of longer
     contiguous caches (the kernel's tensor maps take their batch stride,
@@ -226,7 +332,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     merged UN-normalised (acc (B, KV, G, hd), m (B, KV, G, 1),
     l (B, KV, G, 1)), f32: views of the one buffer a call allocates. The
     partials and the merge counters live in a workspace kept per (device,
-    B, KV, n_split, G, hd) and allocated once; it assumes ONE stream: two
+    B, KV, n_split, G, width, head blocks) and allocated once; it assumes
+    ONE stream: two
     calls of the same shape in flight on two streams at once would share
     it. Raises on any input it cannot take, and on inputs that require
     grad with grad enabled (forward-only)."""
@@ -245,11 +352,14 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     plan = _PLANS.get(key)
     if plan is None:
         plan = _PLANS[key] = _plan(dev, dt, B, S, KV, G, hd)
-    code, split, ws, _ = plan
+    code, split, gb, row, ws, _ = plan
+    if row != hd:
+        q, k_cache, v_cache = (_attention.pad_head_dim(t, row)
+                               for t in (q, k_cache, v_cache))
     # device, dtype, shape, contiguity and alignment of each argument, each
     # pointer read once (the host paces a decode call as much as the card);
     # check_tensor names the fault
-    kv_shape = (B, S, KV, hd)
+    kv_shape = (B, S, KV, row)
     s_mem = S
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         # a sequence shard's view, read in place through its batch stride
@@ -268,12 +378,12 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
             _nvcc.check_tensor(name, t, dtype, shape, dev)
         ptrs.append(ptr)
     lib = _attention.load()
-    n_acc, n_ml = B * KV * G * hd, B * KV * G
+    n_acc, n_ml = B * KV * G * row, B * KV * G
     out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=dev)
     p_out = out.data_ptr()
     with _attention.on_device(dev) as stream:
         rc = lib.decode_attention_launch(
-            *ptrs, code, B, S, s_mem, KV, G, hd, split, *ws, p_out,
+            *ptrs, code, B, S, s_mem, KV, G, row, hd, split, gb, *ws, p_out,
             p_out + 4 * n_acc, p_out + 4 * (n_acc + n_ml), stream)
     if rc:
         _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} "
@@ -282,6 +392,6 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     # acc, m and l as views of the one buffer (as_strided: the cheapest
     # view on the host, which paces a decode call as much as the card)
     ml = (KV * G, G, 1, 1)
-    return (out.as_strided((B, KV, G, hd), (KV * G * hd, G * hd, hd, 1)),
+    return (out.as_strided((B, KV, G, hd), (KV * G * row, G * row, row, 1)),
             out.as_strided((B, KV, G, 1), ml, n_acc),
             out.as_strided((B, KV, G, 1), ml, n_acc + n_ml))

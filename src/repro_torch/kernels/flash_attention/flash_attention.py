@@ -8,11 +8,14 @@ port of the Pallas kernel ``flash_attention_pallas``
 heads, walking the key tiles up to the diagonal with an online softmax in
 registers; f32 scores, P and V rounded to bf16 for P . V with f32
 accumulation, as the reference kernel. bf16 inputs run a warp-specialised
-kernel: TMA loads of K and V into a 3-stage ring of shared memory, both
-products on wgmma; f32 inputs run scalar f32 FMAs; head_dim 16, 32, 64 or
-128 (`_attention.HEAD_DIMS`: every config of the registry, REDUCED ones
-included, and the examples' generators). It is bound by operations at the
-prefill shape (the source states the bound and the design).
+kernel: TMA loads of K and V into a 3-stage ring of shared memory (2 at
+width 256), both products on wgmma; f32 inputs run scalar f32 FMAs. Any
+head_dim in [1, 256] (`_attention.launch_width`: the kernel runs at the
+first built width that holds it, the columns past hd zeros; a head dim
+that is not a multiple of 8 goes in as a zero-padded copy) and any G (more
+than 64 heads a KV head split into balanced chunks on the grid,
+`head_chunks`). It is bound by operations at the prefill shape (the source
+states the bound and the design).
 
 `flash_attention_plain` is the chunked online softmax of the reference's
 ``models/layers.py:gqa_chunked`` in the kernel's (B, S, KV, G, hd) layout:
@@ -23,10 +26,11 @@ which contribute exactly nothing. It is the CPU path of ``ops`` and of the
 port's ``gqa_chunked``, and the kernel's on-card reference.
 
 `flash_attention_tiled` replays the bf16 kernel's own schedule in plain
-PyTorch (128-row tiles of (position, head) rows, ``KEY_TILE``-key tiles,
-the diagonal skip, edge-only masks, exp2 with the scale folded in, P
-rounded to bf16 with l from the unrounded p), so that the CPU tests check
-the kernel's algorithm against the reference.
+PyTorch (the head chunks, 128-row tiles of (position, head) rows, the
+launch width's zero columns, `key_tile`-key tiles, the diagonal skip,
+edge-only masks, exp2 with the true hd's scale folded in, P rounded to
+bf16 with l from the unrounded p), so that the CPU tests check the
+kernel's algorithm against the reference.
 """
 from __future__ import annotations
 
@@ -40,9 +44,28 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 LAUNCHES = 0
 #: rows (query position, head) a block of the bf16 kernel
 TILE_ROWS = 128
-#: keys a tile of the bf16 kernel (``kKeyTile`` in the source)
+#: keys a tile of the bf16 kernel up to width 128 (``key_tile`` in the
+#: source; `key_tile`)
 KEY_TILE = 64
+#: most query heads a block takes (``kMaxChunk`` in the source)
+MAX_CHUNK_HEADS = 64
 LOG2E = 1.4426950408889634
+
+
+def key_tile(width: int) -> int:
+    """Keys a tile of the bf16 kernel at a launch width: KEY_TILE, or 32
+    past width 128, where a consumer's width / 2 accumulators leave room
+    for 32 keys' scores and P only (``key_tile`` in the source)."""
+    return 32 if width > 128 else KEY_TILE
+
+
+def head_chunks(G: int) -> tuple[int, int]:
+    """(GC, n_gc): the G query heads of a KV head in n_gc balanced chunks
+    of at most MAX_CHUNK_HEADS, chunk c holding heads [c GC, min(G, (c + 1)
+    GC)) -- ``chunk_heads`` of the source. Falcon-7B's G 71 is 36 + 35."""
+    n_gc = -(-G // MAX_CHUNK_HEADS)
+    gc = -(-G // n_gc)
+    return gc, -(-G // gc)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -88,18 +111,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True):
     """The bf16 kernel's schedule in plain PyTorch, same contract as
-    `flash_attention_plain`: per (b, kv), tiles of TILE_ROWS // G positions
-    times G heads (rows (position, head), (TILE_ROWS // G) * G of them in
-    use); per tile the key tiles of KEY_TILE keys up to the diagonal,
-    zero-padded past S, masked only where a tile crosses the diagonal or
-    the end of S; the online softmax in the log2 domain, the row max taken
-    on the raw scores and scaled by scale * log2(e), p = exp2(s c - m);
-    P rounded to bf16 (RNE)
-    and V to bf16 for P . V with f32 products and sums; l summed from the
-    unrounded p; o = acc / max(l, 1e-30)."""
+    `flash_attention_plain`: rows of hd columns zero-padded to the launch
+    width (`_attention.launch_width`), the scale the true hd's; per
+    (b, kv) the G heads in the chunks of `head_chunks`, and per chunk
+    tiles of TILE_ROWS // GC positions times its heads (rows (position,
+    head), (TILE_ROWS // GC) * GC of them in use); per tile the key tiles
+    of `key_tile` keys up to the diagonal, zero-padded past S, masked only
+    where a tile crosses the diagonal or the end of S; the online softmax
+    in the log2 domain, the row max taken on the raw scores and scaled by
+    scale * log2(e), p = exp2(s c - m); P rounded to bf16 (RNE) and V to
+    bf16 for P . V with f32 products and sums; l summed from the unrounded
+    p; o = acc / max(l, 1e-30), its hd columns."""
     B, S, KV, G, hd = q.shape
-    BQ, kn = TILE_ROWS // G, KEY_TILE
-    scale_log2 = float(np.float32(LOG2E / np.sqrt(hd)))
+    hdp, _ = _attention.launch_width(q.dtype, hd, "flash_attention_tiled")
+    gc, n_gc = head_chunks(G)
+    out = torch.empty_like(q)
+    for c in range(n_gc):
+        heads = slice(c * gc, min(G, (c + 1) * gc))
+        out[:, :, :, heads] = _tiles(
+            _attention.pad_head_dim(q[:, :, :, heads], hdp),
+            _attention.pad_head_dim(k, hdp), _attention.pad_head_dim(v, hdp),
+            TILE_ROWS // gc, key_tile(hdp),
+            float(np.float32(LOG2E / np.sqrt(hd))), causal)[..., :hd]
+    return out
+
+
+def _tiles(q, k, v, BQ, kn, scale_log2, causal):
+    """One head chunk's tiles of BQ positions and ``kn``-key tiles
+    (`flash_attention_tiled`)."""
+    B, S, KV, G, hd = q.shape
     dev = q.device
     n_keys = -(-S // kn) * kn
     pad = (0, 0, 0, 0, 0, n_keys - S)                       # keys to a tile
@@ -142,11 +182,13 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the kernel on the current stream (no sync). q (B, S, KV, G,
-    hd), k / v (B, S, KV, hd), all f32 or all bf16, hd in
-    `_attention.HEAD_DIMS` (16, 32, 64, 128), 1 <= G <= 64, any S >= 1;
-    all contiguous on one CUDA device. Returns o (B, S, KV, G, hd) in q's
-    dtype. Raises on any input it cannot take, and on inputs that require
-    grad with grad enabled (forward-only)."""
+    hd), k / v (B, S, KV, hd), all f32 or all bf16, any hd in [1, 256]
+    (`_attention.launch_width`), any G >= 1, any S >= 1; all contiguous on
+    one CUDA device. A head dim that is not a multiple of 8 is launched on
+    zero-padded copies of q, k and v (the one copy the wrapper makes; the
+    output is then a view of the padded one's hd columns). Returns o (B,
+    S, KV, G, hd) in q's dtype. Raises on any input it cannot take, and on
+    inputs that require grad with grad enabled (forward-only)."""
     global LAUNCHES
     _attention.refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
@@ -162,20 +204,25 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     _nvcc.check_tensor("q", q, dt, (B, S, KV, G, hd), dev)
     _nvcc.check_tensor("k", k, dt, (B, S, KV, hd), dev)
     _nvcc.check_tensor("v", v, dt, (B, S, KV, hd), dev)
-    _attention.check_head_dim("flash_attention_cuda", hd)
-    if not 1 <= G <= 64 or min(B, S, KV) < 1:
-        raise ValueError(f"flash_attention_cuda needs 1 <= G <= 64 and B, S, "
-                         f"KV >= 1, got B={B} S={S} KV={KV} G={G}")
-    if B > 65535 or KV > 65535 or B * S * KV * G * hd >= 1 << 62:
+    _, copy = _attention.launch_width(dt, hd, "flash_attention_cuda")
+    if min(B, S, KV, G) < 1:
+        raise ValueError(f"flash_attention_cuda needs B, S, KV, G >= 1, got "
+                         f"B={B} S={S} KV={KV} G={G}")
+    gc, n_gc = head_chunks(G)
+    if (B > 65535 or KV > 65535 or -(-S // (TILE_ROWS // gc)) * n_gc >= 1 << 31
+            or B * S * KV * G * _attention.padded_head_dim(hd) >= 1 << 62):
         raise ValueError("shapes past the kernel's grid or index range")
+    row = _attention.padded_head_dim(hd)
+    if copy:
+        q, k, v = (_attention.pad_head_dim(t, row) for t in (q, k, v))
     lib = _attention.load()
     o = torch.empty_like(q)
     with _attention.on_device(dev) as stream:
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _attention.DTYPES[dt], B, S, KV, G, hd, int(bool(causal)),
+            _attention.DTYPES[dt], B, S, KV, G, row, hd, int(bool(causal)),
             stream)
     _attention.check_rc(lib, rc, f"flash_attention (B={B} S={S} KV={KV} "
                                  f"G={G} hd={hd} {dt} causal={causal})")
     LAUNCHES += 1
-    return o
+    return o[..., :hd] if copy else o

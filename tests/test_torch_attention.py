@@ -10,8 +10,8 @@ emulated in plain torch too (`flash_attention_tiled`: 128-row tiles of
 tile, the diagonal skip, exp2 with the scale folded in, P rounded to bf16
 and l from the unrounded p; `decode_attention_tiled`: the kernel's split of
 S into chunks and the merge in chunk order) and held to the reference's
-oracles over G 1 / 3 / 4 / 8, hd 16 / 32 / 64 / 128 (the kernels'
-``HEAD_DIMS``), S 1 / 17 / 129 / 300, causal and full, and lengths 0, 1,
+oracles over G 1 / 3 / 4 / 8, hd 16 / 32 / 64 / 128 (the other head
+dims and G past 64 in ``test_torch_wide_heads.py``), S 1 / 17 / 129 / 300, causal and full, and lengths 0, 1,
 random and past S; the decode split at each head dim's own rule. Tolerances: decode is all f32 math
 (rtol = atol = 2e-5, as ``test_kernels.py:60``; bf16 outputs rounded once
 more, 3e-2); flash rounds P and V to bf16 for P . V (rtol 1e-2, atol 8e-3,
@@ -370,18 +370,31 @@ def test_decode_split_rounds_every_head_dim_to_whole_subtiles():
             assert split >= dec_mod.MIN_SPLIT
 
 
-@pytest.mark.parametrize("hd", [8, 48, 80, 96, 256])
-def test_head_dims_outside_the_set_raise(hd):
-    """Both kernels are built for HEAD_DIMS; any other head dim raises
-    ValueError naming the set, before any build or launch."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,width,copy", [
+    (8, 16, False), (48, 64, False), (80, 128, False), (96, 128, False),
+    (256, 256, False), (6, 16, True), (100, 128, True), (1, 16, True),
+    (264, None, None), (512, None, None), (0, None, None)])
+def test_head_dims_outside_the_set_raise(hd, width, copy, dtype):
+    """The one head-dim rule of both kernels (`_attention.launch_width`):
+    every hd in [1, 256] runs at the first built width that holds it --
+    in place when a row is a multiple of 8 elements, else through a
+    zero-padded copy of the next multiple -- and a head dim past 256 (or
+    under 1) raises ValueError naming the rule, in both wrappers' checks,
+    before any build or launch."""
     from repro_torch.kernels import _attention
-    assert _attention.HEAD_DIMS == (16, 32, 64, 128)
-    with pytest.raises(ValueError, match=r"not in \(16, 32, 64, 128\)"):
-        _attention.check_head_dim("flash_attention_cuda", hd)
-    with pytest.raises(ValueError, match=r"not in \(16, 32, 64, 128\)"):
-        dec_mod._plan(torch.device("cpu"), torch.float32, 1, 8, 1, 1, hd)
-    for ok in _attention.HEAD_DIMS:
-        _attention.check_head_dim("flash_attention_cuda", ok)
+    if width is None:
+        with pytest.raises(ValueError, match=r"outside \[1, 256\]"):
+            _attention.launch_width(dtype, hd)
+        with pytest.raises(ValueError, match=r"outside \[1, 256\]"):
+            dec_mod._plan(torch.device("cpu"), dtype, 1, 8, 1, 1, hd)
+        return
+    assert _attention.launch_width(dtype, hd) == (width, copy)
+    assert _attention.padded_head_dim(hd) % _attention.ROW_ALIGN == 0
+    assert (_attention.padded_head_dim(hd) == hd) != copy
+    split, heads = dec_mod.block_heads(1, 1, 1, 8, 132, hd, dtype.itemsize)
+    assert heads == 1 and split % dec_mod.tile_rows(width,
+                                                   dtype.itemsize) == 0
 
 
 def test_decode_workspace_is_allocated_once():

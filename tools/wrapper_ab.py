@@ -11,8 +11,9 @@ card and times each wrapper by CUDA events over a run of launches:
 ``arena_scan_cuda`` at the prod cell's shape (2^23 x 768 rows, 32 query
 rows in 4 groups, k = 10) resident and paged (pages of 2^15 rows),
 ``flash_attention_cuda`` at lm_serve's prefill (B 8, S 2048, KV 8, G 4,
-hd 128, bf16) and ``decode_attention_cuda`` at its decode step (cache
-2064, 2049 live), with the decode wrapper's host time a call (200 calls
+hd 128, bf16) and moe_serve's (G 2, hd 64) and ``decode_attention_cuda``
+at their decode steps (cache 2064, 2049 live), with the decode wrapper's
+host time a call at lm_serve's (200 calls
 queued, no sync inside). Prints one JSON line a child, then the median of
 each side. The children run one after the other, so the two sides share
 the card, its clocks and its power limit.
@@ -61,6 +62,10 @@ def child(src: str) -> dict:
     dq = torch.randn((8, 8, 4, 128), **bf)
     dk, dv = (torch.randn((8, 2064, 8, 128), **bf) for _ in range(2))
     lengths = torch.full((8,), 2049, dtype=torch.int32, device=dev)
+    mq = torch.randn((8, 2048, 8, 2, 64), **bf)
+    mk, mv = (torch.randn((8, 2048, 8, 64), **bf) for _ in range(2))
+    mdq = torch.randn((8, 8, 2, 64), **bf)
+    mdk, mdv = (torch.randn((8, 2064, 8, 64), **bf) for _ in range(2))
 
     def events_ms(fn, iters):
         fn()
@@ -83,6 +88,10 @@ def child(src: str) -> dict:
             fq, fk, fv, causal=True), 20),
         "decode_ms": events_ms(lambda: dec.decode_attention_cuda(
             dq, dk, dv, lengths), 200),
+        "flash_hd64_ms": events_ms(lambda: fa.flash_attention_cuda(
+            mq, mk, mv, causal=True), 50),
+        "decode_hd64_ms": events_ms(lambda: dec.decode_attention_cuda(
+            mdq, mdk, mdv, lengths), 200),
     }
     torch.cuda.synchronize()
     t0 = time.perf_counter()
