@@ -24,16 +24,33 @@ constexpr float kNegInf = -FLT_MAX;
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-// The head-dim rule of both kernels (`launch_width` in
-// kernels/_attention.py): a row of `hd` elements -- a multiple of 8, so
+// The head-dim rule of both kernels (`launch_width` and `row_pieces` in
+// kernels/_attention.py). A row of `hd` elements -- a multiple of 8, so
 // that a tensor map reads it in place (the wrappers copy any other head
-// dim, zero-padded, to the next multiple) and at most 256 (wgmma's N) --
-// runs at the first built width that holds it; the columns past hd come in
-// as zeros from the tensor map's out-of-bounds fill. -1 when hd is refused.
-inline int launch_width(int hd) {
-  if (hd < 1 || hd > 256 || hd % 8 != 0) return -1;
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
-       : hd <= 192 ? 192 : 256;
+// dim, zero-padded, to the next multiple) -- runs as column pieces of
+// piece_cols(dtype, hd) columns: the whole row up to 256 (wgmma's N, and a
+// TMA box's widest dimension), else the fewest pieces of at most
+// piece_max(dtype) columns, balanced to multiples of 8 (the last one may
+// be narrower). Every piece scores with the whole row and writes its own
+// columns of the output. A piece runs at the first built width that holds
+// it; the columns past hd come in as zeros from the tensor map's
+// out-of-bounds fill. launch_width is -1 when hd is refused (under 1, or
+// not a multiple of 8) or the dtype is unknown. Past 256 bf16 pieces are
+// at most 128 columns (the wgmma body's accumulators spill at 256: 2.9x
+// slower at hd 512, PERF.md), f32 ones at most 256 (its scalar body has
+// no such cap, and fewer pieces recompute Q . K^T fewer times).
+inline int piece_max(int dtype) { return dtype == kBF16 ? 128 : 256; }
+inline int piece_cols(int dtype, int hd) {
+  if (hd <= 256) return hd;
+  const int pmax = piece_max(dtype);
+  const int n = (hd + pmax - 1) / pmax;
+  return ((hd + n - 1) / n + 7) / 8 * 8;
+}
+inline int launch_width(int dtype, int hd) {
+  if (hd < 1 || hd % 8 != 0 || (dtype != kF32 && dtype != kBF16)) return -1;
+  const int p = piece_cols(dtype, hd);
+  return p <= 16 ? 16 : p <= 32 ? 32 : p <= 64 ? 64 : p <= 128 ? 128
+       : p <= 192 ? 192 : 256;
 }
 
 // 1 / sqrt(hd) of the true head dim (a padded copy's width never sets it)

@@ -28,10 +28,12 @@
 // of 288 rows, 4 an SM, at the serving shape) and every (chunk, kv, b) is
 // a block of 4 warps, in ONE launch. Any head dim up to 256 runs at the
 // first built width (16, 32, 64, 128, 192, 256) that holds it, the tensor
-// maps filling the columns past hd with zeros, and any G: a block takes
-// all G heads of its KV head unless their q and scores outgrow its shared
-// memory, and then balanced head blocks on the grid (`block_heads` in the
-// wrapper), each reading the chunk's rows again:
+// maps filling the columns past hd with zeros (a wider row as column
+// pieces on the grid, each scoring with the whole row: DEEP below), and
+// any G: a block takes all G heads of its KV head unless their q and
+// scores outgrow its shared memory, and then balanced head blocks on the
+// grid (`block_heads` in the wrapper), each reading the chunk's rows
+// again:
 //  * Copies. Thread 0 streams the chunk's live K rows, then its V rows,
 //    through a 4-stage ring of 8 KB sub-tiles in shared memory: one TMA
 //    tile load (cp.async.bulk.tensor of a 4-D map {hd, KV, S, B}, rows past
@@ -124,13 +126,14 @@ __host__ __device__ __forceinline__ int score_stride(int G) {
 inline int head_group(int G) { return G <= 4 ? 4 : kGChunkMax; }
 
 // 128 bytes of alignment slack, the ring, the cross-warp reduction
-// [kWarps][GC][HD], q [G][HD] and the chunk's scores
+// [kWarps][GC][HD], q [G][QW] and the chunk's scores
 // [split][score_stride(G)] (f32), then the mbarriers full[kStages] and
-// empty[kStages]
+// empty[kStages]. QW, q's row in shared memory, is HD, or past 256 the row
+// rounded up to whole HD-wide column chunks (`q_width`).
 template <int HD>
-size_t smem_bytes(int G, int split) {
+size_t smem_bytes(int G, int split, int QW = HD) {
   const size_t floats = static_cast<size_t>(kWarps) * head_group(G) * HD +
-                        static_cast<size_t>(G) * HD +
+                        static_cast<size_t>(G) * QW +
                         static_cast<size_t>(score_stride(G)) * split;
   return 128 + static_cast<size_t>(kStages) * kSubBytes +
          (sizeof(float) * floats + 7) / 8 * 8 + 16 * kStages;
@@ -208,23 +211,42 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane,
   }
 }
 
-// Sub-tile j of a block's sequence -- the K sub-tiles of the `live` rows,
-// then the V sub-tiles of the n_pv rows once for every group of GC
-// heads -- into ring stage j % kStages: one TMA load of TR cache rows
-// (rows past S come back zero; the rows of a last sub-tile past the live
-// ones arrive and go unused).
+// q's row in shared memory past 256: the row rounded up to whole column
+// chunks of the width HD the block runs at
+inline int q_width(int HD, int hd) { return (hd + HD - 1) / HD * HD; }
+
+template <typename T>
+constexpr int dtype_of() {
+  return sizeof(T) == 2 ? attn::kBF16 : attn::kF32;
+}
+
+// The widths a piece of a row past 256 runs at (`attn::piece_cols`): 128
+// in bf16, 192 or 256 in f32; only they get a DEEP instantiation
+template <typename T>
+constexpr bool deep_width(int HD) {
+  return sizeof(T) == 2 ? HD == 128 : HD >= 192;
+}
+
+// Sub-tile j of a block's sequence -- the K sub-tiles of the `live` rows
+// (past 256 each row's n_ck column chunks of HD, chunk fastest), then the
+// V sub-tiles of the n_pv rows once for every group of GC heads (past 256
+// the piece's HD columns from p0) -- into ring stage j % kStages: one TMA
+// load of TR cache rows (rows past S and columns past hd come back zero;
+// the rows of a last sub-tile past the live ones arrive and go unused).
 __device__ __forceinline__ void issue_subtile(uint32_t ring, uint32_t full,
                                               const CUtensorMap* kmap,
                                               const CUtensorMap* vmap, int j,
                                               int n_k, int n_v, int tr,
                                               int bytes, int start, int kv,
-                                              int b) {
+                                              int b, int n_ck, int cw,
+                                              int p0) {
   const int s = j % kStages;
   const bool is_k = j < n_k;
-  const int r0 = (is_k ? j : (j - n_k) % n_v) * tr;
+  const int r0 = (is_k ? j / n_ck : (j - n_k) % n_v) * tr;
+  const int c0 = is_k ? j % n_ck * cw : p0;
   attn::mbar_expect_tx(full + 8 * s, bytes);
   attn::tma_load_4d(ring + s * kSubBytes, is_k ? kmap : vmap, full + 8 * s,
-                    0, kv, start + r0, b);
+                    c0, kv, start + r0, b);
 }
 
 // A block: chunk blockIdx.x of S, query heads [g_lo, g_lo + Gb) of KV
@@ -235,14 +257,22 @@ __device__ __forceinline__ void issue_subtile(uint32_t ring, uint32_t full,
 // partials are HD wide and the merge writes hd columns. EXACT (hd == HD
 // and one block of all G heads: every served shape but the wide ones)
 // fixes hd and GB when compiling, so that code carries no column or
-// head-block arithmetic.
-template <typename T, int HD, int GC, bool EXACT>
+// head-block arithmetic. DEEP (a row past 256: `attn::piece_cols`) puts
+// the row's n_pc column pieces on the grid (blockIdx.y = (kv * n_hc + head
+// chunk) * n_pc + piece): a block scores with the whole row -- K read in
+// n_ck column chunks of HD, the partial dot products summed in the scores
+// -- and accumulates only its piece's pw columns of V (from p0 = piece *
+// pw, at width HD >= pw); each piece keeps its own m and l, equal across
+// the pieces by construction (the same scores in the same order), and
+// piece 0 writes m_out and l_out.
+template <typename T, int HD, int GC, bool EXACT, bool DEEP = false>
 __global__ void __launch_bounds__(kThreads, 4)
 decode_attention_kernel(const T* __restrict__ q,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const int* __restrict__ lengths, int S, int KV, int G,
                         int hd_arg, int gb_arg, int split, float scale,
+                        int pw_arg, int n_pc_arg,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_m,
                         float* __restrict__ part_l, int* __restrict__ counters,
@@ -252,13 +282,22 @@ decode_attention_kernel(const T* __restrict__ q,
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = attn::smem_u32(smem_raw);
   uint8_t* ring = smem_raw + (((raw + 127u) & ~127u) - raw);  // TMA: 128 B
+  static_assert(!(EXACT && DEEP), "a piece is never the whole row");
   const int hd = EXACT ? HD : hd_arg, GB = EXACT ? G : gb_arg;
   const int n_hc = EXACT ? 1 : (G + GB - 1) / GB;
-  const int kv = blockIdx.y / n_hc, g_lo = blockIdx.y % n_hc * GB;
+  const int n_pc = DEEP ? n_pc_arg : 1;
+  const int n_ck = DEEP ? (hd + HD - 1) / HD : 1;  // K's column chunks
+  const int QW = n_ck * HD;                         // q's row in q_s
+  const int yb = DEEP ? blockIdx.y / n_pc : blockIdx.y;
+  const int pc = DEEP ? blockIdx.y % n_pc : 0;
+  const int kv = yb / n_hc, g_lo = yb % n_hc * GB;
   const int Gb = min(GB, G - g_lo);       // this block's query heads
+  // this block's columns of the output: [p0, p0 + pw_live)
+  const int p0 = DEEP ? pc * pw_arg : 0;
+  const int pw_live = DEEP ? min(pw_arg, hd - p0) : hd;
   float* red = reinterpret_cast<float*>(ring + kStages * kSubBytes);
-  float* q_s = red + kWarps * GC * HD;  // [Gb][HD]
-  float* p_s = q_s + Gb * HD;                // [split][GP]
+  float* q_s = red + kWarps * GC * HD;  // [Gb][QW]
+  float* p_s = q_s + Gb * QW;                // [split][GP]
   const int GP = score_stride(Gb);
   const uint32_t ring_u32 = attn::smem_u32(ring);
   const uint32_t full =
@@ -281,8 +320,9 @@ decode_attention_kernel(const T* __restrict__ q,
   const int start = sp * split;
   const int n = min(split, S - start);
   const size_t bk = static_cast<size_t>(b) * KV + kv;
-  const size_t part = bk * n_split + sp;
-  // partials and outputs of this block's heads: head g_lo + g of (b, kv)
+  // partials of (b, kv, chunk sp, piece pc) and outputs of this block's
+  // heads: head g_lo + g of (b, kv)
+  const size_t part = (bk * n_split + sp) * n_pc + pc;
   float* pm = part_m + part * G + g_lo;
   float* pl = part_l + part * G + g_lo;
   float* pacc = part_acc + (part * G + g_lo) * HD;
@@ -292,7 +332,7 @@ decode_attention_kernel(const T* __restrict__ q,
     // rows whose p can be nonzero: all n when nothing is live (p = 1), else
     // the live ones (a masked row's p = exp(NEG_INF - m) is 0)
     const int n_pv = none_live ? n : live;
-    const int n_k = (live + Tl::TR - 1) / Tl::TR;
+    const int n_k = (live + Tl::TR - 1) / Tl::TR * n_ck;
     const int n_v = (n_pv + Tl::TR - 1) / Tl::TR;
     const int total = n_k + (Gb + GC - 1) / GC * n_v;
     if (tid == 0) {
@@ -303,8 +343,8 @@ decode_attention_kernel(const T* __restrict__ q,
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     const T* qb = q + (bk * G + g_lo) * hd;
-    for (int i = tid; i < Gb * HD; i += kThreads) {
-      const int g = i / HD, d = i % HD;
+    for (int i = tid; i < Gb * QW; i += kThreads) {
+      const int g = i / QW, d = i % QW;
       q_s[i] = d < hd ? attn::to_float(qb[g * hd + d]) : 0.f;
     }
     __syncthreads();  // the barriers are set up and q is in shared memory
@@ -314,7 +354,7 @@ decode_attention_kernel(const T* __restrict__ q,
     if (tid == 0)
       for (int j = 0; j < min(kStages, total); ++j)
         issue_subtile(ring_u32, full, &kmap, &vmap, j, n_k, n_v, Tl::TR,
-                      Tl::kTileBytes, start, kv, b);
+                      Tl::kTileBytes, start, kv, b, n_ck, HD, p0);
 
     const int rg = warp * Tl::RPW + lane / Tl::LPR;  // this lane's row group
     const int d0 = (lane % Tl::LPR) * Tl::EPL;
@@ -328,8 +368,11 @@ decode_attention_kernel(const T* __restrict__ q,
         // scores of the sub-tile's rows: row group rg holds rows
         // rg + i NRG (i < RB); a lane's partial dot products of RB rows x
         // kGScore heads are summed over the row group's LPR lanes by a
-        // butterfly reduce-scatter, every lane on every step
-        const int r0 = j * Tl::TR, rows = min(Tl::TR, live - r0);
+        // butterfly reduce-scatter, every lane on every step; past 256 the
+        // sub-tile is column chunk ck of its rows, its sums added to the
+        // earlier chunks' (the same lane writes a score every chunk)
+        const int ck = j % n_ck;
+        const int r0 = j / n_ck * Tl::TR, rows = min(Tl::TR, live - r0);
         float kf[Tl::RB][Tl::EPL];
 #pragma unroll
         for (int i = 0; i < Tl::RB; ++i) {
@@ -343,7 +386,7 @@ decode_attention_kernel(const T* __restrict__ q,
         for (int gs = 0; gs < Gb; gs += kGScore) {
           float v[Tl::NV];
           float qf[kGScore][Tl::EPL];
-          load_q<Tl::EPL>(q_s, Gb, gs, d0, HD, on, qf);
+          load_q<Tl::EPL>(q_s + ck * HD, Gb, gs, d0, QW, on, qf);
 #pragma unroll
           for (int gi = 0; gi < kGScore; ++gi) {
 #pragma unroll
@@ -364,8 +407,15 @@ decode_attention_kernel(const T* __restrict__ q,
           for (int f = 0; f < kHeld; ++f) {
             const int r = rg + (idx + f) / kGScore * Tl::NRG;
             const int g = gs + (idx + f) % kGScore;
-            if (writer && r < rows && g < Gb)
-              p_s[(r0 + r) * GP + g] = v[f] * scale;
+            if (writer && r < rows && g < Gb) {
+              float* ps = p_s + (r0 + r) * GP + g;
+              if constexpr (DEEP) {
+                const float x = ck ? *ps + v[f] : v[f];
+                *ps = ck == n_ck - 1 ? x * scale : x;
+              } else {
+                *ps = v[f] * scale;
+              }
+            }
           }
         }
       } else {
@@ -469,14 +519,14 @@ decode_attention_kernel(const T* __restrict__ q,
       if (tid == 0 && j + kStages < total) {
         attn::mbar_wait(empty + 8 * s, (j / kStages) & 1);
         issue_subtile(ring_u32, full, &kmap, &vmap, j + kStages, n_k, n_v,
-                      Tl::TR, Tl::kTileBytes, start, kv, b);
+                      Tl::TR, Tl::kTileBytes, start, kv, b, n_ck, HD, p0);
       }
     }
   }
 
-  // the last block of this (b, kv, head chunk) merges the chunks that
-  // wrote partials
-  const size_t ck = bk * n_hc + blockIdx.y % n_hc;
+  // the last block of this (b, kv, head chunk, piece) merges the chunks
+  // that wrote partials
+  const size_t ck = static_cast<size_t>(b) * gridDim.y + blockIdx.y;
   __threadfence();
   __syncthreads();
   if (tid == 0) is_last = atomicAdd(counters + ck, 1) == n_split - 1;
@@ -484,10 +534,10 @@ decode_attention_kernel(const T* __restrict__ q,
   if (!is_last) return;
   __threadfence();
   // a thread merges 4 consecutive dims of one head, in chunk order, the
-  // loads of kMergeBatch chunks issued together; the hd columns only
+  // loads of kMergeBatch chunks issued together; the piece's columns only
   const int n_live = none_live ? n_split : (len + split - 1) / split;
   const size_t first = bk * n_split;
-  const int hd4 = hd / 4;
+  const int hd4 = pw_live / 4;
   for (int i = tid; i < Gb * hd4; i += kThreads) {
     const int g = g_lo + i / hd4, d = i % hd4 * 4;
     float m = kNegInf;
@@ -495,8 +545,9 @@ decode_attention_kernel(const T* __restrict__ q,
       float mv[kMergeBatch];
 #pragma unroll
       for (int u = 0; u < kMergeBatch; ++u)
-        mv[u] = c0 + u < n_live ? __ldcg(part_m + (first + c0 + u) * G + g)
-                                : kNegInf;
+        mv[u] = c0 + u < n_live
+                    ? __ldcg(part_m + ((first + c0 + u) * n_pc + pc) * G + g)
+                    : kNegInf;
 #pragma unroll
       for (int u = 0; u < kMergeBatch; ++u) m = fmaxf(m, mv[u]);
     }
@@ -508,11 +559,11 @@ decode_attention_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int u = 0; u < kMergeBatch; ++u) {
         if (c0 + u < n_live) {
-          const size_t pc = (first + c0 + u) * G + g;
-          mv[u] = __ldcg(part_m + pc);
-          lv[u] = __ldcg(part_l + pc);
+          const size_t pi = ((first + c0 + u) * n_pc + pc) * G + g;
+          mv[u] = __ldcg(part_m + pi);
+          lv[u] = __ldcg(part_l + pi);
           av[u] = __ldcg(
-              reinterpret_cast<const float4*>(part_acc + pc * HD + d));
+              reinterpret_cast<const float4*>(part_acc + pi * HD + d));
         }
       }
 #pragma unroll
@@ -527,8 +578,8 @@ decode_attention_kernel(const T* __restrict__ q,
         }
       }
     }
-    *reinterpret_cast<float4*>(acc_out + (bk * G + g) * hd + d) = a;
-    if (d == 0) {
+    *reinterpret_cast<float4*>(acc_out + (bk * G + g) * hd + p0 + d) = a;
+    if (d == 0 && pc == 0) {
       m_out[bk * G + g] = m;
       l_out[bk * G + g] = l;
     }
@@ -536,16 +587,18 @@ decode_attention_kernel(const T* __restrict__ q,
   if (tid == 0) counters[ck] = 0;  // ready for the next call
 }
 
-template <typename T, int HD, int GC, bool EXACT>
+template <typename T, int HD, int GC, bool EXACT, bool DEEP>
 int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
                   const int* lengths, int B, int S, int KV, int G, int hd,
-                  int GB, int split, float scale, float* part_acc,
-                  float* part_m, float* part_l, int* counters, float* acc,
-                  float* m, float* l, cudaStream_t stream) {
+                  int GB, int split, float scale, int pw, int n_pc,
+                  float* part_acc, float* part_m, float* part_l,
+                  int* counters, float* acc, float* m, float* l,
+                  cudaStream_t stream) {
   const int n_split = (S + split - 1) / split;
   const int n_hc = (G + GB - 1) / GB;
-  const size_t smem = smem_bytes<HD>(GB, split);
-  auto kern = decode_attention_kernel<T, HD, GC, EXACT>;
+  const size_t smem =
+      smem_bytes<HD>(GB, split, DEEP ? q_width(HD, hd) : HD);
+  auto kern = decode_attention_kernel<T, HD, GC, EXACT, DEEP>;
   static size_t smem_set = 0;  // the largest size this kernel was allowed
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -554,9 +607,9 @@ int launch_kernel(const void* q, const CUtensorMap& km, const CUtensorMap& vm,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  kern<<<dim3(n_split, KV * n_hc, B), kThreads, smem, stream>>>(
+  kern<<<dim3(n_split, KV * n_hc * n_pc, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), km, vm, lengths, S, KV, G, hd, GB, split,
-      scale, part_acc, part_m, part_l, counters, acc, m, l);
+      scale, pw, n_pc, part_acc, part_m, part_l, counters, acc, m, l);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,14 +641,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   if (err != 0) return err;
   const float scale = attn::head_scale(hd_scale);
   const bool exact = hd == HD && GB == G;
-#define DECODE_KERNEL(GCV, EX)                                                \
-  launch_kernel<T, HD, GCV, EX>(q, km, vm, lengths, B, S, KV, G, hd, GB,      \
-                                split, scale, part_acc, part_m, part_l,       \
-                                counters, acc, m, l, stream)
+  const int pw = attn::piece_cols(dtype_of<T>(), hd);
+  const int n_pc = (hd + pw - 1) / pw;
+#define DECODE_KERNEL(GCV, EX, DP)                                            \
+  launch_kernel<T, HD, GCV, EX, DP>(q, km, vm, lengths, B, S, KV, G, hd, GB,  \
+                                    split, scale, pw, n_pc, part_acc, part_m, \
+                                    part_l, counters, acc, m, l, stream)
+  if constexpr (deep_width<T>(HD)) {
+    if (n_pc > 1)
+      return head_group(GB) == 4 ? DECODE_KERNEL(4, false, true)
+                                 : DECODE_KERNEL(kGChunkMax, false, true);
+  }
   if (head_group(GB) == 4)
-    return exact ? DECODE_KERNEL(4, true) : DECODE_KERNEL(4, false);
-  return exact ? DECODE_KERNEL(kGChunkMax, true)
-               : DECODE_KERNEL(kGChunkMax, false);
+    return exact ? DECODE_KERNEL(4, true, false)
+                 : DECODE_KERNEL(4, false, false);
+  return exact ? DECODE_KERNEL(kGChunkMax, true, false)
+               : DECODE_KERNEL(kGChunkMax, false, false);
 #undef DECODE_KERNEL
 }
 
@@ -607,7 +668,7 @@ int launch_hd(int hd, int hd_scale, const void* q, const void* k,
               int KV, int G, int split, int GB, float* pa, float* pm,
               float* pl, int* counters, float* acc, float* m, float* l,
               cudaStream_t st) {
-  switch (attn::launch_width(hd)) {
+  switch (attn::launch_width(dtype_of<T>(), hd)) {
 #define DECODE_CASE(W)                                                       \
   case W:                                                                    \
     return launch<T, W>(q, k, v, lengths, B, S, S_mem, KV, G, hd, hd_scale, \
@@ -620,15 +681,30 @@ int launch_hd(int hd, int hd_scale, const void* q, const void* k,
 }
 
 template <typename T, int HD>
-int occupancy(int GB, int split) {
+int occupancy(int hd, int GB, int split) {
   int blocks = 0;
-  const size_t smem = smem_bytes<HD>(GB, split);
+  const bool deep = attn::piece_cols(dtype_of<T>(), hd) < hd;
+  const size_t smem =
+      smem_bytes<HD>(GB, split, deep ? q_width(HD, hd) : HD);
   auto kern = head_group(GB) == 4
                   ? decode_attention_kernel<T, HD, 4, true>
                   : decode_attention_kernel<T, HD, kGChunkMax, true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if constexpr (deep_width<T>(HD)) {
+    if (deep)
+      kern = head_group(GB) == 4
+                 ? decode_attention_kernel<T, HD, 4, false, true>
+                 : decode_attention_kernel<T, HD, kGChunkMax, false, true>;
+  }
+  // raise the kernel's allowance only: `launch_kernel` keeps the largest
+  // it set, and an allowance lowered behind it failed the next launch of
+  // a larger block with an invalid argument
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess &&
+      smem > static_cast<size_t>(attr.maxDynamicSharedSizeBytes))
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
                                                         kThreads, smem);
@@ -637,10 +713,10 @@ int occupancy(int GB, int split) {
 
 template <typename T>
 int occupancy_hd(int hd, int GB, int split) {
-  switch (attn::launch_width(hd)) {
+  switch (attn::launch_width(dtype_of<T>(), hd)) {
 #define OCC_CASE(W) \
   case W:           \
-    return occupancy<T, W>(GB, split);
+    return occupancy<T, W>(hd, GB, split);
     DECODE_WIDTHS(OCC_CASE)
 #undef OCC_CASE
     default: return -static_cast<int>(cudaErrorInvalidValue);
@@ -656,8 +732,10 @@ const char* attention_error_string(int err) {
 }
 
 // q (B, KV, G, hd), k / v (B, S, KV, hd), all of `dtype` (0 f32, 1 bf16),
-// hd a multiple of 8 in [8, 256] run at `attn::launch_width(hd)` (the rule
-// of `launch_width` in kernels/_attention.py), the scale 1 / sqrt(hd_scale)
+// hd any multiple of 8 run at `attn::launch_width(dtype, hd)` (the rule of
+// `launch_width` in kernels/_attention.py; past 256 n_pc column pieces of
+// `attn::piece_cols(dtype, hd)` columns on the grid), the scale
+// 1 / sqrt(hd_scale)
 // (the true head dim: hd_scale < hd when the wrapper passed a zero-padded
 // copy), any G >= 1 in blocks of GB heads (`block_heads`: GB = G unless a
 // block's shared memory cannot stage G heads); k and v contiguous within a
@@ -665,10 +743,11 @@ const char* attention_error_string(int err) {
 // >= S rows from one sequence's start to the next's (S for a contiguous
 // cache, the full length for a slice of S positions of a longer one);
 // lengths (B,) int32 -> acc (B, KV, G, hd) f32, m and l (B, KV, G) f32.
-// Workspace: part_acc (B, KV, n_split, G, launch_width(hd)) f32, part_m /
-// part_l (B, KV, n_split, G) f32 with n_split = ceil(S / split), and
-// counters (B, KV, ceil(G / GB)) int32, zero before the first call (each
-// call leaves them zero).
+// Workspace: part_acc (B, KV, n_split, n_pc * G, launch_width) f32,
+// part_m / part_l (B, KV, n_split, n_pc * G) f32 with n_split =
+// ceil(S / split) (n_pc = 1 up to 256), and counters (B, KV,
+// ceil(G / GB), n_pc) int32, zero before the first call (each call leaves
+// them zero).
 // One launch on `stream`, no synchronisation. Returns the first CUDA error
 // (0 on success).
 int decode_attention_launch(const void* q, const void* k, const void* v,

@@ -21,9 +21,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widths both kernels are built at (``launch_width`` in both C
 #: launchers): a head dim runs at the first that holds it
 WIDTHS = (16, 32, 64, 128, 192, 256)
-#: the largest head dim: wgmma's N, and so the width of P . V, is at most
-#: 256 (and a TMA box at most 256 elements a dimension)
-MAX_HEAD_DIM = WIDTHS[-1]
+#: the widest row a block takes whole: wgmma's N, and so the width of
+#: P . V, is at most 256 (and a TMA box at most 256 elements a dimension);
+#: a wider row runs as column pieces (`row_pieces`)
+ROW_MAX = WIDTHS[-1]
+#: the widest column piece of a row past ROW_MAX, by dtype: 128 in bf16
+#: (the wgmma body's consumers hold a piece's accumulators; at 256 they
+#: spill and ran 2.9x slower at hd 512, PERF.md), 256 in f32 (the scalar
+#: body has no such cap, and fewer pieces recompute Q . K^T fewer times)
+PIECE_MAX = {torch.float32: 256, torch.bfloat16: 128}
 #: a row a tensor map reads in place is a multiple of 8 elements (16 bytes
 #: of bf16: TMA's rule for global strides); any other head dim is copied,
 #: zero-padded, to the next multiple
@@ -61,6 +67,8 @@ def load():
         lib.decode_attention_blocks_per_sm.restype = i
         lib.attention_launch_width.argtypes = [i, i]
         lib.attention_launch_width.restype = i
+        lib.attention_piece_cols.argtypes = [i, i]
+        lib.attention_piece_cols.restype = i
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -77,23 +85,41 @@ def check_rc(lib, rc: int, what: str) -> None:
 def launch_width(dtype, hd: int, name: str = "attention") -> tuple[int, bool]:
     """The one head-dim rule of both kernels, for (dtype, hd): (HDP, copy).
     HDP is the width the kernel is built at, the first of WIDTHS that holds
-    ``hd`` rounded up to ROW_ALIGN; ``copy`` says the wrapper must pass
-    q, k and v (q and the caches in decode) as a zero-padded copy of that
+    a piece of the row (`row_pieces`: the whole row, ``hd`` rounded up to
+    ROW_ALIGN, up to ROW_MAX); ``copy`` says the wrapper must pass q, k
+    and v (q and the caches in decode) as a zero-padded copy of that
     rounded width, since a tensor map cannot read a row that is not a
     multiple of 16 bytes in place. Columns past hd up to HDP come in as
     zeros from the tensor map's out-of-bounds fill, so the scores are the
-    true ones; the scale is always 1 / sqrt(hd) of the true hd. Raises
-    ValueError, naming the rule, for an unknown dtype or hd outside
-    [1, MAX_HEAD_DIM]. Both C launchers hold the same rule
-    (``attention_launch_width``)."""
+    true ones; the scale is always 1 / sqrt(hd) of the true hd. Past
+    ROW_MAX a row runs as column pieces, each scoring with the whole row
+    and writing its own columns. Raises ValueError, naming the rule, for
+    an unknown dtype or hd under 1. Both C launchers hold the same rule
+    (``attention_launch_width``, ``attention_piece_cols``)."""
     if dtype not in DTYPES:
         raise ValueError(f"{name}: dtype {dtype} not float32 or bfloat16")
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {hd} outside [1, {MAX_HEAD_DIM}]"
-                         f": P . V is one wgmma of N = head_dim <= "
-                         f"{MAX_HEAD_DIM}")
+    if hd < 1:
+        raise ValueError(f"{name}: head_dim {hd} under 1")
     row = padded_head_dim(hd)
-    return next(w for w in WIDTHS if w >= row), row != hd
+    piece, _ = row_pieces(dtype, row)
+    return next(w for w in WIDTHS if w >= piece), row != hd
+
+
+def row_pieces(dtype, hd: int) -> tuple[int, int]:
+    """(P, n): a row of ``hd`` columns (rounded up to ROW_ALIGN) as n
+    column pieces of P columns, the last one possibly narrower: the whole
+    row (n = 1) up to ROW_MAX, else the fewest pieces of at most
+    PIECE_MAX[dtype], balanced to multiples of ROW_ALIGN (bf16: 320 = 3 x
+    112 at width 128, 512 = 4 x 128; f32: 320 = 2 x 160 at width 192, 512
+    = 2 x 256, 1000 = 3 x 256 + 232 at 256). Piece i holds columns
+    [i P, min(row, (i + 1) P)). ``attn::piece_cols`` in
+    ``csrc/attention.cuh`` is the same rule."""
+    row = padded_head_dim(hd)
+    if row <= ROW_MAX:
+        return row, 1
+    n = -(-row // PIECE_MAX[dtype])
+    piece = padded_head_dim(-(-row // n))
+    return piece, -(-row // piece)
 
 
 def padded_head_dim(hd: int) -> int:

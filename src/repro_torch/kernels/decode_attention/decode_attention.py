@@ -17,13 +17,16 @@ merge in chunk order) so that the CPU tests check its algorithm. The
 Pallas kernel's (B, KV, G, 128) lane-uniform m and l are (B, KV, G, 1)
 here: the lanes were a TPU artefact.
 
-Any head_dim in [1, 256] (`_attention.launch_width`: the kernel runs at
-the first built width that holds it, the tensor maps filling the columns
-past hd with zeros) and any G: a block stages its heads' q and scores in
-shared memory, and only where G heads of that width do not fit
-(`block_heads`) do the heads split into chunks on the grid, each chunk's
-blocks reading the chunk's cache rows again. A head dim that is not a
-multiple of 8 goes in as zero-padded copies of q and BOTH caches, made on
+Any head_dim >= 1 (`_attention.launch_width`: the kernel runs at the
+first built width that holds the row, the tensor maps filling the columns
+past hd with zeros; past 256 the row's column pieces (`_attention.
+row_pieces`) are blocks of their own on the grid, each scoring with the
+whole row -- K read in column chunks of the launch width -- and
+accumulating its own columns of V) and any G: a block stages its heads' q
+and scores in shared memory, and only where G heads of that width do not
+fit (`block_heads`) do the heads split into chunks on the grid, each
+chunk's blocks reading the chunk's cache rows again. A head dim that is not
+a multiple of 8 goes in as zero-padded copies of q and BOTH caches, made on
 every call: a decode step then copies the whole cache (read and written
 once more) before the kernel reads it.
 """
@@ -90,12 +93,22 @@ def tile_rows(hdp: int, itemsize: int) -> int:
     return groups * _pow2_floor(SUB_BYTES // (hdp * itemsize) // groups)
 
 
-def smem_bytes(hdp: int, heads: int, split: int) -> int:
+def q_width(hdp: int, hd: int) -> int:
+    """q's row in the kernel's shared memory (``q_width``): the launch
+    width up to 256, past it the row rounded up to whole column chunks of
+    the launch width (512 at hd 512; 384 at hd 320, on width 128 or
+    192)."""
+    row = _attention.padded_head_dim(hd)
+    return hdp if row <= _attention.ROW_MAX else -(-row // hdp) * hdp
+
+
+def smem_bytes(hdp: int, heads: int, split: int, qw: int | None = None) -> int:
     """The kernel's dynamic shared memory (``smem_bytes``) for blocks of
     ``heads`` query heads and chunks of ``split`` positions: the ring, the
-    cross-warp sums, q and the chunk's f32 scores, the mbarriers."""
+    cross-warp sums, q (rows of ``qw``, `q_width`; ``hdp`` when None) and
+    the chunk's f32 scores, the mbarriers."""
     group = 4 if heads <= 4 else G_CHUNK_MAX
-    floats = (WARPS * group * hdp + heads * hdp
+    floats = (WARPS * group * hdp + heads * (qw or hdp)
               + -(-heads // 4) * 4 * split)
     return 128 + STAGES * SUB_BYTES + -(-4 * floats // 8) * 8 + 16 * STAGES
 
@@ -118,14 +131,16 @@ def block_heads(B: int, KV: int, G: int, S: int, n_sm: int, hd: int,
     launch width do not fit a block's shared memory; then the fewest
     balanced head chunks that fit, each a block of its own (the cache rows
     read again per chunk, from L2 when they are close). The split as in
-    `split_for`, for the blocks' heads."""
-    hdp, _ = _attention.launch_width(
-        torch.float32 if itemsize == 4 else torch.bfloat16, hd,
-        "decode_attention_cuda")
+    `split_for`, for the blocks' heads (and, past 256, the row's column
+    pieces, each a block of its own)."""
+    dt = torch.float32 if itemsize == 4 else torch.bfloat16
+    hdp, _ = _attention.launch_width(dt, hd, "decode_attention_cuda")
+    n_pc = _attention.row_pieces(dt, hd)[1]
+    qw = q_width(hdp, hd)
     for n_hc in range(1, G + 1):
         gb = -(-G // n_hc)
-        split = _split(B, KV * n_hc, gb, S, n_sm, hdp, itemsize)
-        if smem_bytes(hdp, gb, split) <= SMEM_LIMIT:
+        split = _split(B, KV * n_hc * n_pc, gb, S, n_sm, hdp, itemsize)
+        if smem_bytes(hdp, gb, split, qw) <= SMEM_LIMIT:
             return split, gb
     raise ValueError(f"decode_attention_cuda: no block of hd {hd} fits "
                      "shared memory")
@@ -171,23 +186,52 @@ def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int,
     is skipped; a live chunk takes (acc, m, l) over its live rows (every
     row, with p = 1, when lengths[b] <= 0); the chunks merge in order by
     m* = max m_i, w_i = exp(m_i - m*), l* = sum w_i l_i, acc* = sum w_i
-    acc_i; acc's hd columns are returned."""
+    acc_i; acc's hd columns are returned. Past 256 each column piece
+    (`decode_attention_pieces`) fills its own columns, and m and l are
+    piece 0's, as the kernel's piece 0 writes them."""
+    B, KV, G, hd = q.shape
+    pieces = decode_attention_pieces(q, k_cache, v_cache, lengths, split,
+                                     heads)
+    acc = torch.cat([p[0] for p in pieces], dim=-1)
+    return acc[..., :hd], pieces[0][1], pieces[0][2]
+
+
+def decode_attention_pieces(q, k_cache, v_cache, lengths, split: int,
+                            heads: int | None = None):
+    """The kernel's blocks of each column piece of the row
+    (`_attention.row_pieces`: one piece up to 256), as in
+    `decode_attention_tiled`: a list of (acc, m, l) a piece, acc holding
+    the piece's own columns (the last piece's up to the padded row). Every
+    piece scores with the whole row zero-padded to whole column chunks of
+    the launch width, the chunks' partial dot products summed, and
+    accumulates only its piece's columns of V (zero-padded to the launch
+    width); each keeps its own m and l, which are equal across the pieces
+    by construction."""
     B, KV, G, hd = q.shape
     hdp, _ = _attention.launch_width(q.dtype, hd, "decode_attention_tiled")
+    pw, n_pc = _attention.row_pieces(q.dtype, hd)
+    row, qw = _attention.padded_head_dim(hd), q_width(hdp, hd)
     gb = heads or G
-    parts = [_chunks(_attention.pad_head_dim(q[:, :, g:g + gb], hdp),
-                     _attention.pad_head_dim(k_cache, hdp),
-                     _attention.pad_head_dim(v_cache, hdp), lengths, split,
-                     1.0 / (hd ** 0.5))
-             for g in range(0, G, gb)]
-    acc, m, l = (torch.cat(t, dim=2) for t in zip(*parts))
-    return acc[..., :hd], m, l
+    qp, kp, vp = (_attention.pad_head_dim(t, qw)
+                  for t in (q, k_cache, v_cache))
+    out = []
+    for pc in range(n_pc):
+        p0 = pc * pw
+        vpc = _attention.pad_head_dim(vp[..., p0:p0 + hdp], hdp)
+        parts = [_chunks(qp[:, :, g:g + gb], kp, vpc, lengths, split,
+                         1.0 / (hd ** 0.5), hdp)
+                 for g in range(0, G, gb)]
+        acc, m, l = (torch.cat(t, dim=2) for t in zip(*parts))
+        out.append((acc[..., :min(pw, row - p0)], m, l))
+    return out
 
 
-def _chunks(q, k_cache, v_cache, lengths, split, scale):
-    """One head block's split and merge (`decode_attention_tiled`)."""
-    B, KV, G, hd = q.shape
-    S = k_cache.shape[1]
+def _chunks(q, k_cache, v_cache, lengths, split, scale, cw):
+    """One head block's split and merge (`decode_attention_tiled`): the
+    scores summed over the row's column chunks of ``cw``, P . V over
+    v_cache's columns."""
+    B, KV, G, _ = q.shape
+    S, hd = k_cache.shape[1], v_cache.shape[-1]
     qf = q.float()
     acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     m_out = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
@@ -207,8 +251,10 @@ def _chunks(q, k_cache, v_cache, lengths, split, scale):
                                device=q.device)
             else:
                 n = min(length - start, n)
-                s = torch.einsum("kgh,skh->kgs", qf[b],
-                                 k_cache[b, start:start + n].float()) * scale
+                kb = k_cache[b, start:start + n].float()
+                s = sum(torch.einsum("kgh,skh->kgs", qf[b, ..., c:c + cw],
+                                     kb[..., c:c + cw])
+                        for c in range(0, kb.shape[-1], cw)) * scale
                 m = s.amax(dim=-1, keepdim=True)
                 p = torch.exp(s - m)
             parts.append((torch.einsum("kgs,skh->kgh", p,
@@ -234,17 +280,19 @@ def _sm_count(dev) -> int:
     return _SM_COUNT[dev]
 
 
-def _workspace(dev, B, KV, n_split, G, hd, n_hc=1):
-    """Partials of width ``hd`` (the launch width) and one merge counter a
-    (b, kv, head block)."""
-    key = (dev, B, KV, n_split, G, hd, n_hc)
+def _workspace(dev, B, KV, n_split, G, hd, n_hc=1, n_pc=1):
+    """Partials of width ``hd`` (the launch width), a set a column piece of
+    the row (``n_pc``, past 256), and one merge counter a (b, kv, head
+    block, piece)."""
+    key = (dev, B, KV, n_split, G, hd, n_hc, n_pc)
     ws = _WORKSPACE.get(key)
     if ws is None:
         f32 = dict(dtype=torch.float32, device=dev)
-        ws = (torch.empty((B, KV, n_split, G, hd), **f32),
-              torch.empty((B, KV, n_split, G), **f32),
-              torch.empty((B, KV, n_split, G), **f32),
-              torch.zeros((B, KV * n_hc), dtype=torch.int32, device=dev))
+        ws = (torch.empty((B, KV, n_split, n_pc * G, hd), **f32),
+              torch.empty((B, KV, n_split, n_pc * G), **f32),
+              torch.empty((B, KV, n_split, n_pc * G), **f32),
+              torch.zeros((B, KV * n_hc * n_pc), dtype=torch.int32,
+                          device=dev))
         _WORKSPACE[key] = ws
     return ws
 
@@ -270,10 +318,12 @@ def _plan(dev, dt, B, S, KV, G, hd):
                          f"B={B} S={S} KV={KV} G={G}")
     split, gb = block_heads(B, KV, G, S, _sm_count(dev), hd, dt.itemsize)
     n_hc = -(-G // gb)
-    if (B * S * KV * row >= 1 << 62 or KV * n_hc > 65535 or B > 65535
-            or B * KV * G * hdp * -(-S // split) >= 1 << 62):
+    n_pc = _attention.row_pieces(dt, hd)[1]
+    if (B * S * KV * row >= 1 << 62 or KV * n_hc * n_pc > 65535
+            or B > 65535
+            or B * KV * n_pc * G * hdp * -(-S // split) >= 1 << 62):
         raise ValueError("shapes past the kernel's grid or index range")
-    ws = _workspace(dev, B, KV, -(-S // split), G, hdp, n_hc)
+    ws = _workspace(dev, B, KV, -(-S // split), G, hdp, n_hc, n_pc)
     return (_attention.DTYPES[dt], split, gb, row,
             tuple(t.data_ptr() for t in ws), ws)
 
@@ -321,10 +371,10 @@ def decode_attention_meta(q):
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the kernel on the current stream (no sync): one launch, which
     also merges the chunks. q (B, KV, G, hd), k_cache / v_cache
-    (B, S, KV, hd), all f32 or all bf16, any hd in [1, 256]
-    (`_attention.launch_width`; one that is not a multiple of 8 is
-    launched on zero-padded copies of q and of both caches, made on every
-    call), any G >= 1;
+    (B, S, KV, hd), all f32 or all bf16, any hd >= 1
+    (`_attention.launch_width`; past 256 as column pieces on the grid; one
+    that is not a multiple of 8 is launched on zero-padded copies of q and
+    of both caches, made on every call), any G >= 1;
     lengths (B,) int32; all on one CUDA device, q and lengths contiguous,
     the caches contiguous or both the same slice along S of longer
     contiguous caches (the kernel's tensor maps take their batch stride,
@@ -332,11 +382,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     merged UN-normalised (acc (B, KV, G, hd), m (B, KV, G, 1),
     l (B, KV, G, 1)), f32: views of the one buffer a call allocates. The
     partials and the merge counters live in a workspace kept per (device,
-    B, KV, n_split, G, width, head blocks) and allocated once; it assumes
-    ONE stream: two
-    calls of the same shape in flight on two streams at once would share
-    it. Raises on any input it cannot take, and on inputs that require
-    grad with grad enabled (forward-only)."""
+    B, KV, n_split, G, width, head blocks, pieces) and allocated once; it
+    assumes ONE stream: two calls of the same shape in flight on two
+    streams at once would share it. Raises on any input it cannot take,
+    and on inputs that require grad with grad enabled (forward-only)."""
     global LAUNCHES
     _attention.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     dev = q.device

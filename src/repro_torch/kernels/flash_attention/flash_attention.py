@@ -10,12 +10,14 @@ registers; f32 scores, P and V rounded to bf16 for P . V with f32
 accumulation, as the reference kernel. bf16 inputs run a warp-specialised
 kernel: TMA loads of K and V into a 3-stage ring of shared memory (2 at
 width 256), both products on wgmma; f32 inputs run scalar f32 FMAs. Any
-head_dim in [1, 256] (`_attention.launch_width`: the kernel runs at the
-first built width that holds it, the columns past hd zeros; a head dim
-that is not a multiple of 8 goes in as a zero-padded copy) and any G (more
-than 64 heads a KV head split into balanced chunks on the grid,
-`head_chunks`). It is bound by operations at the prefill shape (the source
-states the bound and the design).
+head_dim >= 1 (`_attention.launch_width`: the kernel runs at the first
+built width that holds the row, the columns past hd zeros; a head dim that
+is not a multiple of 8 goes in as a zero-padded copy; past 256 the row's
+column pieces (`_attention.row_pieces`) are blocks of their own, each
+scoring with the whole row, streamed in 64-column chunks, and writing its
+own columns) and any G (more than 64 heads a KV head split into balanced
+chunks on the grid, `head_chunks`). It is bound by operations at the
+prefill shape (the source states the bound and the design).
 
 `flash_attention_plain` is the chunked online softmax of the reference's
 ``models/layers.py:gqa_chunked`` in the kernel's (B, S, KV, G, hd) layout:
@@ -29,8 +31,9 @@ port's ``gqa_chunked``, and the kernel's on-card reference.
 PyTorch (the head chunks, 128-row tiles of (position, head) rows, the
 launch width's zero columns, `key_tile`-key tiles, the diagonal skip,
 edge-only masks, exp2 with the true hd's scale folded in, P rounded to
-bf16 with l from the unrounded p), so that the CPU tests check the
-kernel's algorithm against the reference.
+bf16 with l from the unrounded p; past 256 the column pieces, each scoring
+with the whole row), so that the CPU tests check the kernel's algorithm
+against the reference.
 """
 from __future__ import annotations
 
@@ -121,32 +124,45 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True):
     in the log2 domain, the row max taken on the raw scores and scaled by
     scale * log2(e), p = exp2(s c - m); P rounded to bf16 (RNE) and V to
     bf16 for P . V with f32 products and sums; l summed from the unrounded
-    p; o = acc / max(l, 1e-30), its hd columns."""
+    p; o = acc / max(l, 1e-30), its hd columns. Past 256 each column piece
+    of the row (`_attention.row_pieces`) is a run of its own: the scores
+    over the whole (padded) row, P . V over the piece's columns zero-padded
+    to the launch width, the piece's own columns written."""
     B, S, KV, G, hd = q.shape
     hdp, _ = _attention.launch_width(q.dtype, hd, "flash_attention_tiled")
+    pw, n_pc = _attention.row_pieces(q.dtype, hd)
+    row = _attention.padded_head_dim(hd)
+    qk_w = hdp if n_pc == 1 else row
     gc, n_gc = head_chunks(G)
-    out = torch.empty_like(q)
+    kp, vp = (_attention.pad_head_dim(t, qk_w) for t in (k, v))
+    out = torch.empty(q.shape[:-1] + (row,), dtype=q.dtype, device=q.device)
     for c in range(n_gc):
         heads = slice(c * gc, min(G, (c + 1) * gc))
-        out[:, :, :, heads] = _tiles(
-            _attention.pad_head_dim(q[:, :, :, heads], hdp),
-            _attention.pad_head_dim(k, hdp), _attention.pad_head_dim(v, hdp),
-            TILE_ROWS // gc, key_tile(hdp),
-            float(np.float32(LOG2E / np.sqrt(hd))), causal)[..., :hd]
-    return out
+        qc = _attention.pad_head_dim(q[:, :, :, heads], qk_w)
+        for pc in range(n_pc):
+            p0 = pc * pw
+            cols = min(pw, row - p0)
+            out[:, :, :, heads, p0:p0 + cols] = _tiles(
+                qc, kp,
+                _attention.pad_head_dim(vp[..., p0:p0 + hdp], hdp),
+                TILE_ROWS // gc, key_tile(hdp),
+                float(np.float32(LOG2E / np.sqrt(hd))), causal)[..., :cols]
+    return out[..., :hd]
 
 
 def _tiles(q, k, v, BQ, kn, scale_log2, causal):
     """One head chunk's tiles of BQ positions and ``kn``-key tiles
-    (`flash_attention_tiled`)."""
+    (`flash_attention_tiled`): scores over q's and k's columns, P . V over
+    v's."""
     B, S, KV, G, hd = q.shape
+    vw = v.shape[-1]
     dev = q.device
     n_keys = -(-S // kn) * kn
     pad = (0, 0, 0, 0, 0, n_keys - S)                       # keys to a tile
     kt = torch.nn.functional.pad(k.float(), pad).permute(0, 2, 3, 1)
     vb = torch.nn.functional.pad(v.to(torch.bfloat16).float(),
                                  pad).permute(0, 2, 1, 3)   # (B,KV,keys,hd)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape[:-1] + (vw,), dtype=q.dtype, device=dev)
     for q0 in range(0, S, BQ):
         n = min(S, q0 + BQ) - q0                            # live positions
         rows = q[:, q0:q0 + n].float().permute(0, 2, 1, 3, 4).reshape(
@@ -155,7 +171,7 @@ def _tiles(q, k, v, BQ, kn, scale_log2, causal):
         m = torch.full((B, KV, n * G, 1), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, KV, n * G, 1), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, KV, n * G, hd), dtype=torch.float32,
+        acc = torch.zeros((B, KV, n * G, vw), dtype=torch.float32,
                           device=dev)
         n_tiles = (q0 + n - 1) // kn + 1 if causal else n_keys // kn
         for t in range(n_tiles):
@@ -175,15 +191,16 @@ def _tiles(q, k, v, BQ, kn, scale_log2, causal):
                 p.to(torch.bfloat16).float(), vb[:, :, k0:k0 + kn])
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)
-        out[:, q0:q0 + n] = o.reshape(B, KV, n, G, hd).permute(
+        out[:, q0:q0 + n] = o.reshape(B, KV, n, G, vw).permute(
             0, 2, 1, 3, 4).to(q.dtype)
     return out
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the kernel on the current stream (no sync). q (B, S, KV, G,
-    hd), k / v (B, S, KV, hd), all f32 or all bf16, any hd in [1, 256]
-    (`_attention.launch_width`), any G >= 1, any S >= 1; all contiguous on
+    hd), k / v (B, S, KV, hd), all f32 or all bf16, any hd >= 1
+    (`_attention.launch_width`; past 256 as column pieces on the grid,
+    `_attention.row_pieces`), any G >= 1, any S >= 1; all contiguous on
     one CUDA device. A head dim that is not a multiple of 8 is launched on
     zero-padded copies of q, k and v (the one copy the wrapper makes; the
     output is then a view of the padded one's hd columns). Returns o (B,
@@ -209,7 +226,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError(f"flash_attention_cuda needs B, S, KV, G >= 1, got "
                          f"B={B} S={S} KV={KV} G={G}")
     gc, n_gc = head_chunks(G)
-    if (B > 65535 or KV > 65535 or -(-S // (TILE_ROWS // gc)) * n_gc >= 1 << 31
+    n_pc = _attention.row_pieces(dt, hd)[1]
+    if (B > 65535 or KV > 65535
+            or -(-S // (TILE_ROWS // gc)) * n_gc * n_pc >= 1 << 31
             or B * S * KV * G * _attention.padded_head_dim(hd) >= 1 << 62):
         raise ValueError("shapes past the kernel's grid or index range")
     row = _attention.padded_head_dim(hd)

@@ -371,25 +371,34 @@ def test_decode_split_rounds_every_head_dim_to_whole_subtiles():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,width,copy", [
-    (8, 16, False), (48, 64, False), (80, 128, False), (96, 128, False),
-    (256, 256, False), (6, 16, True), (100, 128, True), (1, 16, True),
-    (264, None, None), (512, None, None), (0, None, None)])
-def test_head_dims_outside_the_set_raise(hd, width, copy, dtype):
-    """The one head-dim rule of both kernels (`_attention.launch_width`):
-    every hd in [1, 256] runs at the first built width that holds it --
-    in place when a row is a multiple of 8 elements, else through a
-    zero-padded copy of the next multiple -- and a head dim past 256 (or
-    under 1) raises ValueError naming the rule, in both wrappers' checks,
-    before any build or launch."""
+@pytest.mark.parametrize("hd,width,copy,pieces", [
+    (8, 16, False, 1), (48, 64, False, 1), (80, 128, False, 1),
+    (96, 128, False, 1), (256, 256, False, 1), (6, 16, True, 1),
+    (100, 128, True, 1), (1, 16, True, 1),
+    (264, (192, 128), False, (2, 3)), (512, (256, 128), False, (2, 4)),
+    (0, None, None, None)])
+def test_head_dims_outside_the_set_raise(hd, width, copy, pieces, dtype):
+    """The one head-dim rule of both kernels (`_attention.launch_width`,
+    `_attention.row_pieces`): every hd runs at the first built width that
+    holds a piece of its row -- in place when a row is a multiple of 8
+    elements, else through a zero-padded copy of the next multiple --,
+    the whole row up to 256 and past it column pieces (f32: of at most
+    256, 264 = 2 x 136 at width 192, 512 = 2 x 256; bf16: of at most 128,
+    264 = 3 x 88, 512 = 4 x 128, at width 128); a head dim under 1 raises
+    ValueError naming the rule, in both wrappers' checks, before any build
+    or launch."""
     from repro_torch.kernels import _attention
     if width is None:
-        with pytest.raises(ValueError, match=r"outside \[1, 256\]"):
+        with pytest.raises(ValueError, match="under 1"):
             _attention.launch_width(dtype, hd)
-        with pytest.raises(ValueError, match=r"outside \[1, 256\]"):
+        with pytest.raises(ValueError, match="under 1"):
             dec_mod._plan(torch.device("cpu"), dtype, 1, 8, 1, 1, hd)
         return
+    if isinstance(width, tuple):
+        k = dtype == torch.bfloat16
+        width, pieces = width[k], pieces[k]
     assert _attention.launch_width(dtype, hd) == (width, copy)
+    assert _attention.row_pieces(dtype, hd)[1] == pieces
     assert _attention.padded_head_dim(hd) % _attention.ROW_ALIGN == 0
     assert (_attention.padded_head_dim(hd) == hd) != copy
     split, heads = dec_mod.block_heads(1, 1, 1, 8, 132, hd, dtype.itemsize)

@@ -263,13 +263,13 @@ def test_decode_tiled_matches_pallas_triple(B, S, KV, G, hd, blk, lengths):
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_decode_split_is_whole_padded_subtiles_at_every_head_dim(itemsize):
-    """At every hd in [1, 256] the split is whole sub-tiles of the PADDED
-    row (`tile_rows` of the launch width: a power of two of rows for each
-    row group, within SUB_BYTES), so no block loads rows it does not use;
-    the lanes of a row group cover the width; the block fits shared
-    memory."""
+    """At every hd in [1, 2048] the split is whole sub-tiles of the PADDED
+    row (`tile_rows` of the launch width -- a piece's, past 256: a power of
+    two of rows for each row group, within SUB_BYTES), so no block loads
+    rows it does not use; the lanes of a row group cover the width; the
+    block fits shared memory, q's row counted at `q_width`."""
     dt = torch.float32 if itemsize == 4 else torch.bfloat16
-    for hd in range(1, 257):
+    for hd in range(1, 2049):
         hdp, _ = _attention.launch_width(dt, hd)
         rows = dec_mod.tile_rows(hdp, itemsize)
         lpr, epl = dec_mod.lane_layout(hdp, itemsize)
@@ -284,7 +284,8 @@ def test_decode_split_is_whole_padded_subtiles_at_every_head_dim(itemsize):
             split, heads = dec_mod.block_heads(B, KV, G, S, 132, hd,
                                                itemsize)
             assert split % rows == 0 and split >= rows
-            assert dec_mod.smem_bytes(hdp, heads, split) \
+            assert dec_mod.smem_bytes(hdp, heads, split,
+                                      dec_mod.q_width(hdp, hd)) \
                 <= dec_mod.SMEM_LIMIT
     # the served shapes keep their splits (hd 128 / 64 bf16, hd 32 f32)
     assert dec_mod.split_for(8, 8, 4, 2064, 132, 128, 2) == 288
