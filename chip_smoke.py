@@ -559,6 +559,8 @@ PAGED_PROD_P = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
 # cache) to past the prefill shape, both dtypes; then, for both kernels'
 # tiles in both dtypes, their edges: G 3 (128 % 3 != 0: 126 of a flash tile's 128 rows in
 # use) and S 127 / 129 / 2047 (64- and 128-key tiles)
+#: the decode kernel's two bodies by name: SIMT, tensor-core
+DECODE_KERNELS = ("decode_attention_kernel", "decode_tc_kernel")
 ATTN_G = (1, 2, 4, 8)
 ATTN_HD = (16, 32, 64, 128)   # the head dims lm_serve / moe_serve / REDUCED run
 #: every multiple of 8 up to 256 and two that take the padded copy, at G 2
@@ -569,9 +571,16 @@ ATTN_SWEEP = dict(G=2, S=129)
 #: 1), Gemma-2B (256, 8), Falcon-7B (64, 71), StarCoder (128, 48)
 ATTN_PUBLIC = ((80, 1), (96, 1), (256, 1), (256, 8), (64, 71), (128, 48))
 ATTN_PUBLIC_S = (17, 2064)
-#: (hd, G) whose decode blocks split their heads (q and scores of G heads
-#: at that width outgrow a block's shared memory): bf16 hd 256, G 200
+#: (hd, G) whose decode blocks split their heads: hd 256, G 200 (f32: q and
+#: scores of G heads at that width outgrow a block's shared memory; bf16:
+#: the tensor-core body takes at most 128 heads a block)
 ATTN_HEAD_BLOCKS = ((256, 200),)
+#: the decode kernel's tensor-core body over G (it takes bf16 rows up to
+#: 256 at every G): G 1 .. 8 at lm_serve's and moe_serve's widths, G 8 and
+#: 71 at Gemma-2B's and Falcon-7B's, G 1 at Phi-3-mini's, S 2064
+#: (`phase_attn_kernel`)
+ATTN_TC_SWEEP = tuple((hd, G) for hd in (64, 128) for G in range(1, 9)) + (
+    (256, 8), (64, 71), (96, 1))
 #: past 256 (column pieces): every multiple of 8 to 512 and wider rows, at
 #: G 2, S 129; hd 2048 once; then some of them at G 71 and G 8, S 2064
 #: (`attn_kernel`'s deep sweep; the S 2064 subset bounds its time)
@@ -1832,32 +1841,39 @@ def profile_batch(fn, tags=()):
                         for n, c, ms in rows[:8]]}
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, tries=3):
     """Device time a call of ``fn`` under torch.profiler over ``iters``
     calls (after a traced warm-up cycle, as in `profile_batch`), and the
     kernels the calls launched, by name, with their launches captured. The
     trace may drop some or all launches of a long kernel, so a call's time
     is the sum over kernels of the mean time a launch times the launches a
-    call (one when fewer than ``iters`` were captured), and None when none
-    was captured (the CUDA-event time stands then)."""
+    call (one when fewer than ``iters`` were captured). A trace that
+    captured no kernel (two of a whole run's on an H100) is taken again,
+    up to ``tries`` times; None when none did (the CUDA-event time stands
+    then)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        sync()
-        prof.step()
-        for _ in range(iters):
-            fn()
-        sync()
     ms, kernels = 0.0, {}
-    for ev in prof.key_averages():
-        if ev.key.startswith("ProfilerStep"):
-            continue
-        dev_us = getattr(ev, "device_time_total", 0) or 0
-        if dev_us > 0 and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            kernels[ev.key[:60]] = ev.count
-            ms += dev_us / ev.count * max(1, round(ev.count / iters)) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            sync()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            sync()
+        for ev in prof.key_averages():
+            if ev.key.startswith("ProfilerStep"):
+                continue
+            dev_us = getattr(ev, "device_time_total", 0) or 0
+            if dev_us > 0 and getattr(ev, "device_type", None) is not None \
+                    and "CUDA" in str(ev.device_type):
+                kernels[ev.key[:60]] = ev.count
+                ms += (dev_us / ev.count * max(1, round(ev.count / iters))
+                       / 1e3)
+        if kernels:
+            break
     return (ms if kernels else None), kernels
 
 
@@ -4035,12 +4051,14 @@ def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     lengths = torch.tensor([live] * (B - 1) + [max(1, Sc // S // 2)],
                            dtype=torch.int32, device=dev)
     qg = qd.reshape(B, KV, G, hd)
-    dec_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     out = dec_ops.decode_attention_sharded(mesh, "data", qd, kc, vc, lengths,
                                            n_kv=KV)
-    dec_launches = dec_mod.LAUNCHES
-    check(dec_launches == S, f"decode_attention_sharded: {dec_launches} "
-          f"launches for {S} shards")
+    dec_launches, dec_tc_launches = dec_mod.LAUNCHES, dec_mod.TC_LAUNCHES
+    check(dec_launches == S and dec_tc_launches
+          == S * dec_mod.uses_tc(kc.dtype, hd),
+          f"decode_attention_sharded: {dec_launches} launches for {S} "
+          f"shards, {dec_tc_launches} of the tensor-core body")
     acc, l_s = dec_ops.merge_sharded(mesh, "data", qg, kc, vc, lengths)
     a1, _, l1 = dec_mod.decode_attention_cuda(qg, kc, vc, lengths)
     a_p, _, l_p = dec_mod.decode_attention_plain(qg, kc, vc, lengths)
@@ -4086,7 +4104,8 @@ def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
                        wide_max_abs_err=long_err),
          decode_shape=dict(B=B, S=Sc, KV=KV, G=G, hd=hd, dtype="bfloat16",
                            lengths=lengths.tolist(), shard_len=Sc // S),
-         decode_launches=dec_launches, decode_max_abs_err=dec_err,
+         decode_launches=dec_launches,
+         decode_tc_launches=dec_tc_launches, decode_max_abs_err=dec_err,
          decode_sharded_ms=dec_ms, decode_whole_ms=dec_whole_ms,
          decode_sharded_device_ms=dec_dev_ms,
          decode_whole_device_ms=dec_whole_dev_ms,
@@ -4095,7 +4114,8 @@ def phase_sharded_prod(dev, n_rows=None, dim=None, chunk=1 << 20,
     return dict(launches=hash_run["launches"] + tenant_run["launches"],
                 max_abs_err=max(hash_run["max_abs_err"],
                                 tenant_run["max_abs_err"], long_err),
-                decode_launches=dec_launches, decode_err=dec_err)
+                decode_launches=dec_launches,
+                decode_tc_launches=dec_tc_launches, decode_err=dec_err)
 
 
 def other_card_launches(cards):
@@ -4743,12 +4763,14 @@ def regions_pieces(dev, devices, dim, k, dec_shape=(8, 2064, 8, 4, 128),
                            + [max(1, Sc // S // 2)], dtype=torch.int32,
                            device=dev)
     k_p, v_p = pieces(kc, 1), pieces(vc, 1)
-    dec_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     out = dec_ops.decode_attention_sharded(mesh, "data", qd, k_p, v_p,
                                            lengths, n_kv=KV)
-    dec_launches = dec_mod.LAUNCHES
-    check(dec_launches == S, f"regions: decode_attention_sharded "
-          f"{dec_launches} launches for {S} shards")
+    dec_launches, dec_tc_launches = dec_mod.LAUNCHES, dec_mod.TC_LAUNCHES
+    check(dec_launches == S and dec_tc_launches
+          == S * dec_mod.uses_tc(kc.dtype, hd),
+          f"regions: decode_attention_sharded {dec_launches} launches for "
+          f"{S} shards, {dec_tc_launches} of the tensor-core body")
     whole = dec_ops.decode_attention_sharded(one, "data", qd, kc, vc,
                                              lengths, n_kv=KV)
     check(torch.equal(out, whole) and bool(torch.isfinite(out).all()),
@@ -4756,7 +4778,8 @@ def regions_pieces(dev, devices, dim, k, dec_shape=(8, 2064, 8, 4, 128),
     dec_ms = events_ms(lambda: dec_ops.decode_attention_sharded(
         mesh, "data", qd, k_p, v_p, lengths, n_kv=KV), 20)
     return dict(filtered_topk_launches=ft_launches, filtered_topk_ms=ft_ms,
-                decode_launches=dec_launches, decode_ms=dec_ms,
+                decode_launches=dec_launches,
+                decode_tc_launches=dec_tc_launches, decode_ms=dec_ms,
                 rows=n_rows,
                 rows_per_shard=per, dec_shape=list(dec_shape))
 
@@ -5050,7 +5073,8 @@ def phase_regions(dev, cards=None, rows_per_card=None, dim=None,
         ivf=hash_run["ivf"]["launches"],
         ivf_err=hash_run["ivf"]["max_abs_err"],
         compact=hash_run["ivf"]["compact_launches"],
-        decode=pieces["decode_launches"],
+        decode_simt=pieces["decode_launches"] - pieces["decode_tc_launches"],
+        decode_tc=pieces["decode_tc_launches"],
         max_abs_err=tiered["max_abs_err"])
 
 
@@ -5091,6 +5115,33 @@ def flash_check(q, k, v, causal, what="", oracle_seen=None):
     return err, err_r
 
 
+def decode_ops_s(dt, hd, flops):
+    """The least time of a decode call's ``flops`` -- the function's own,
+    4 hd a query head and live key (Q . K^T and P . V) -- at the rate of
+    the units of the body that runs it: the f32 rate for the SIMT body's
+    FMAs, the tensor cores' bf16 rate for the tensor-core body (what its
+    own schedule adds is `tc_products`, reported beside the bound)."""
+    return flops / (BF16_FLOPS if dec_mod.uses_tc(dt, hd) else FP32_FLOPS)
+
+
+def tc_products(hd, G, flops):
+    """The tensor-core body's own products beside the function's ``flops``
+    at G query heads a KV head: P . V taken three times (P's three bf16
+    terms) makes 8 hd a head and key, twice the function's 4 hd, on wgmma
+    rows that are a head block's heads padded to whole warpgroups of 64,
+    at the launch width. The kernel's overhead, with its least time at the
+    tensor cores' rate; not in the bound."""
+    hdp = attn_lib.launch_width(torch.bfloat16, hd)[0]
+    wg = dec_mod.TC_WG_HEADS
+    n_hc = -(-G // (wg * dec_mod.TC_MAX_WGS))
+    rows = n_hc * -(-(-(-G // n_hc)) // wg) * wg
+    padded = rows * hdp / (G * hd)
+    kernel_flops = 2 * flops * padded
+    return {"function_gflop": flops / 1e9, "split_factor": 2,
+            "padding_factor": padded, "kernel_gflop": kernel_flops / 1e9,
+            "kernel_ops_ms": kernel_flops / BF16_FLOPS * 1e3}
+
+
 def decode_check(q, kc, vc, lengths, what=""):
     """The decode kernel against its plain version: the normalised output,
     m and l, all f32 math on both sides; ``what`` names the case in a
@@ -5101,10 +5152,11 @@ def decode_check(q, kc, vc, lengths, what=""):
     err, ratio = attn_ok(a_k / l_k, a_p / l_p, DEC_TOL, DEC_TOL)
     _, ratio_m = attn_ok(m_k, m_p, DEC_TOL, DEC_TOL)
     _, ratio_l = attn_ok(l_k, l_p, DEC_TOL, DEC_TOL)
+    body = "tensor-core" if dec_mod.uses_tc(q.dtype, q.shape[-1]) else "SIMT"
     check(max(ratio, ratio_m, ratio_l) <= 1 and torch.isfinite(a_k).all(),
-          f"decode kernel off its plain version{what}: out err {err} "
-          f"(x{ratio}), "
-          f"m x{ratio_m}, l x{ratio_l} of the tolerance")
+          f"decode kernel ({body} body) off its plain version{what}: out "
+          f"err {err} (x{ratio}), m x{ratio_m}, l x{ratio_l} of the "
+          "tolerance")
     return err
 
 
@@ -5112,12 +5164,14 @@ def attn_ptxas(log):
     """ptxas's registers and spills of every attention kernel
     instantiation: flash (f32 body by element type, width, EXACT and DEEP;
     bf16 wgmma body by width, key tile and EXACT; the bf16 body of rows
-    past 256 by width and key tile) and decode (element type, width, heads
-    a P . V group, EXACT, DEEP)."""
+    past 256 by width and key tile) and decode (the SIMT body by element
+    type, width, heads a P . V group, EXACT, DEEP; the tensor-core body by
+    width and warpgroups)."""
     rows = []
     for name, rep in ptxas_kernels(log).items():
         m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_deep_kernel|"
-                      r"flash_fwd_kernel|decode_attention_kernel)"
+                      r"flash_fwd_kernel|decode_attention_kernel|"
+                      r"decode_tc_kernel)"
                       r"I(f|13__nv_bfloat16)?"
                       r"((?:L[ib]\d+E)+)", name)
         if m:
@@ -5160,6 +5214,30 @@ def attn_rule_check():
     return n
 
 
+def tc_info_check():
+    """The wrapper's mirror of the tensor-core body's shared memory, key
+    tile and ring stages (`tc_smem_bytes`, `tc_key_tile`, `tc_stages`)
+    against the library's (``decode_attention_tc_info``) at every width,
+    one and two warpgroups; the resident blocks an SM of each."""
+    import ctypes
+    lib = attn_lib.load()
+    out = (ctypes.c_int * 4)()
+    rows = {}
+    for hdp in attn_lib.WIDTHS:
+        for heads in (dec_mod.TC_WG_HEADS, 2 * dec_mod.TC_WG_HEADS):
+            rc = lib.decode_attention_tc_info(hdp, heads, out)
+            mirror = (dec_mod.tc_smem_bytes(hdp, heads),
+                      dec_mod.tc_key_tile(hdp), dec_mod.tc_stages(hdp))
+            check(rc == 0 and (out[0], out[2], out[3]) == mirror
+                  and out[1] >= 1,
+                  f"tensor-core body at width {hdp}, {heads} heads: C "
+                  f"{tuple(out)} (rc {rc}), mirror {mirror}")
+            rows[f"w{hdp}_h{heads}"] = {"smem": out[0],
+                                        "blocks_per_sm": out[1],
+                                        "key_tile": out[2], "stages": out[3]}
+    return rows
+
+
 def tile_rows_in_use(G):
     """(rows in use of the bf16 kernel's 128-row tile, of the f32 kernel's
     64-row tile, head chunk, chunks) at G query heads a KV head."""
@@ -5182,13 +5260,23 @@ def phase_attn_kernel():
     instantiation printed."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
-    errs = {"flash": {}, "flash_oracle": {}, "decode": {}}
-    counts = {"cases": 0}
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
+    errs = {"flash": {}, "flash_oracle": {}, "decode": {}, "decode_tc": {}}
+    counts = {"cases": 0, "decode": 0, "tc": 0}
 
     #: rows past 256: the kernel's and the plain version's distance from
     #: the f32 oracle (recorded, not gated: `flash_check`)
     deep_oracle = []
+
+    def decode_case(q, k, v, lengths, what):
+        """The body the shape takes against the plain version."""
+        name = str(q.dtype).split(".")[-1]
+        tc = dec_mod.uses_tc(q.dtype, q.shape[-1])
+        e = decode_check(q, k, v, lengths, what)
+        row = errs["decode_tc" if tc else "decode"]
+        row[name] = max(row.get(name, 0), e)
+        counts["decode"] += 1
+        counts["tc"] += tc
 
     def case(dt, G, hd, S, deep=False):
         name = str(dt).split(".")[-1]
@@ -5203,8 +5291,7 @@ def phase_attn_kernel():
         lengths = torch.tensor([0, 1, rand_len, S + 3], dtype=torch.int32,
                                device=DEV)
         what = f" ({name}, G {G}, hd {hd}, S {S})"
-        e = decode_check(rnd(B, KV, G, hd), k, v, lengths, what)
-        errs["decode"][name] = max(errs["decode"].get(name, 0), e)
+        decode_case(rnd(B, KV, G, hd), k, v, lengths, what)
         for causal in (True, False):
             e, e_r = flash_check(rnd(2, S, KV, G, hd), k[:2], v[:2], causal,
                                  f"{what[:-1]}, causal {causal})",
@@ -5234,14 +5321,19 @@ def phase_attn_kernel():
         for S in ATTN_PUBLIC_S if (hd, G) in ATTN_PUBLIC else (129,):
             for dt in (torch.bfloat16, torch.float32):
                 case(dt, G, hd, S)
-        split, heads = dec_mod.block_heads(
-            4, 2, G, ATTN_PUBLIC_S[-1], torch.cuda.get_device_properties(
-                DEV).multi_processor_count, hd, 2)
+        n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+        split, heads = dec_mod.block_heads(4, 2, G, ATTN_PUBLIC_S[-1], n_sm,
+                                           hd, 4)
+        tc_split, tc_heads = dec_mod.tc_plan(4, 2, G, ATTN_PUBLIC_S[-1],
+                                             n_sm, hd)
         public[f"hd{hd}_G{G}"] = {
             "width": attn_lib.launch_width(torch.bfloat16, hd)[0],
-            **tile_rows_in_use(G), "decode_split_bf16_S2064": split,
-            "decode_heads_a_block": heads}
-    check(public["hd256_G200"]["decode_heads_a_block"] < 200,
+            **tile_rows_in_use(G), "decode_split_f32_S2064": split,
+            "decode_heads_a_block_f32": heads,
+            "decode_tc_split_bf16_S2064": tc_split,
+            "decode_tc_heads_a_block_bf16": tc_heads}
+    check(public["hd256_G200"]["decode_heads_a_block_f32"] < 200
+          and public["hd256_G200"]["decode_tc_heads_a_block_bf16"] < 200,
           "the head-block decode case does not split its heads")
     sweep_s = time.perf_counter() - t_sweep
     t_deep = time.perf_counter()
@@ -5268,8 +5360,26 @@ def phase_attn_kernel():
                 "decode_blocks_per_sm": blocks}
         gc.collect()
     deep_s = time.perf_counter() - t_deep
+    # the tensor-core body's G sweep (bf16, decode only): lm_serve's and
+    # moe_serve's widths, Gemma-2B's, Falcon-7B's and Phi-3-mini's
+    t_tc = time.perf_counter()
+    B, KV, S = 4, 2, ATTN_PUBLIC_S[-1]
+    lengths = torch.tensor([0, 1, 1000, S + 3], dtype=torch.int32,
+                           device=DEV)
+
+    def rnd_bf(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(
+            torch.bfloat16)
+
+    for hd, G in ATTN_TC_SWEEP:
+        q = rnd_bf(B, KV, G, hd)
+        decode_case(q, rnd_bf(B, S, KV, hd), rnd_bf(B, S, KV, hd), lengths,
+                    f" (bfloat16, G {G}, hd {hd}, S {S})")
+    tc_sweep_s = time.perf_counter() - t_tc
     cases = counts["cases"]
-    check(fa_mod.LAUNCHES == 2 * cases and dec_mod.LAUNCHES == cases,
+    check(fa_mod.LAUNCHES == 2 * cases
+          and dec_mod.LAUNCHES == counts["decode"]
+          and dec_mod.TC_LAUNCHES == counts["tc"] > 0,
           "launch counts of the grid")
     rule_cases = attn_rule_check()
     emit("attn_kernel", seconds=time.perf_counter() - t_phase, cases=cases,
@@ -5297,6 +5407,9 @@ def phase_attn_kernel():
                                           o["plain_x_tol"]) > 1]},
          rule_checked=rule_cases, ptxas=attn_ptxas(attn_lib.BUILD_LOG),
          flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
+         decode_tc_launches=dec_mod.TC_LAUNCHES,
+         tc_sweep={"hd_G": ATTN_TC_SWEEP, "seconds": tc_sweep_s},
+         tc_info=tc_info_check(),
          max_abs_err=errs,
          tolerance={"flash": f"rtol {FLASH_RTOL}, atol {FLASH_ATOL} (bf16 "
                              "P.V, as test_kernels.py:96-97)",
@@ -5305,7 +5418,8 @@ def phase_attn_kernel():
                     "flash_oracle_past_256": "recorded for the kernel and "
                                              "the plain version, not gated "
                                              "(deep_oracle)"})
-    return (max(errs["flash"].values()), max(errs["decode"].values()))
+    return (max(errs["flash"].values()), max(errs["decode"].values()),
+            max(errs["decode_tc"].values()))
 
 
 class Capture:
@@ -5447,7 +5561,8 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     plain_d = PlainOnCard(dec_mod.decode_attention_plain)
     fa_mod.flash_attention_plain = plain_f
     dec_mod.decode_attention_plain = plain_d
-    fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    fa_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     resps, wall = [], []
     try:
         for _ in range(serves):
@@ -5458,11 +5573,15 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
         fa_mod.flash_attention_plain = plain_f.fn
         dec_mod.decode_attention_plain = plain_d.fn
     flash_launches, dec_launches = fa_mod.LAUNCHES, dec_mod.LAUNCHES
+    dec_tc_launches = dec_mod.TC_LAUNCHES
     scan_launches = kernel_mod.LAUNCHES
+    dec_tc = dec_mod.uses_tc(tfm.compute_dtype(cfg), cfg.hd)
     check(flash_launches == L * serves,
           f"{flash_launches} flash launches for {serves} prefills")
-    check(dec_launches == L * new_tokens * serves,
-          f"{dec_launches} decode launches for {serves} serves")
+    check(dec_launches == L * new_tokens * serves
+          and dec_tc_launches == (dec_launches if dec_tc else 0),
+          f"{dec_launches} decode launches for {serves} serves, "
+          f"{dec_tc_launches} of them the tensor-core body's")
     check(scan_launches >= serves, "retrieval did not run the arena scan")
     check(plain_f.cuda_calls == 0 and plain_d.cuda_calls == 0,
           "a plain version ran on CUDA tensors")
@@ -5557,7 +5676,7 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     for what, tags, fn in (
             ("prefill", ("flash_fwd",),
              lambda: tfm.prefill(model, cfg, toks, max_len)),
-            ("decode_step", ("decode_attention_kernel",),
+            ("decode_step", DECODE_KERNELS,
              lambda: tfm.decode_step(model, cfg, cur, cache, max_prompt))):
         prof = profile_batch(fn, tags)
         prof.pop("split_ms")
@@ -5630,10 +5749,11 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
         qg, kc, vc, lengths), 50)
     d_lib_dev, _ = device_ms(lambda: sdpa(ql, kl, vl, enable_gqa=True), 50)
     d_sdpa_backend = sdpa_backends(ql, kl, vl, enable_gqa=True)
-    check(all("decode_attention_kernel" in name for name in d_kernels)
+    check(all(DECODE_KERNELS[dec_tc] in name for name in d_kernels)
           and sum(d_kernels.values()) <= 50,
           f"decode calls launched {d_kernels} (one kernel a call, merge "
-          "included)")
+          "included, the " + ("tensor-core" if dec_tc else "SIMT")
+          + " body's)")
     # a call allocates one buffer (its three outputs) and nothing else: the
     # partials and counters live in the workspace, allocated once
     sync()
@@ -5644,24 +5764,34 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                 - n_alloc0) / 10
     del outs
     check(d_allocs == 1, f"decode allocates {d_allocs} tensors a call, not 1")
-    d_split, d_heads = dec_mod.block_heads(
-        B, n_kv, H // n_kv, kc.shape[1], torch.cuda.get_device_properties(
-            dev).multi_processor_count, hd, kc.element_size())
-    d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
-        attn_lib.DTYPES[kc.dtype], attn_lib.padded_head_dim(hd), d_heads,
-        d_split)
-    # qwen3-4b's shape is the one the split's constant was set for; at
-    # granite's the card must hold at least that many blocks an SM (the
-    # wide head dims' blocks stage more and are reported)
-    check(d_blocks == dec_mod.BLOCKS_PER_SM if name == "lm_serve"
-          else d_blocks >= dec_mod.BLOCKS_PER_SM or name != "moe_serve",
-          f"{d_blocks} decode blocks an SM, the split assumes "
-          f"{dec_mod.BLOCKS_PER_SM}")
+    # the card must hold at least one block an SM of the body that serves
+    # the decode: the tensor-core body for bf16 rows up to 256 (lm_serve's
+    # and moe_serve's), the SIMT body past 256 (deep_serve's)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if dec_tc:
+        d_split, d_heads = dec_mod.tc_plan(B, n_kv, H // n_kv, kc.shape[1],
+                                           n_sm, hd)
+        d_blocks = tc_info_check()[
+            f"w{attn_lib.launch_width(kc.dtype, hd)[0]}_h"
+            f"{-(-d_heads // dec_mod.TC_WG_HEADS) * dec_mod.TC_WG_HEADS}"][
+            "blocks_per_sm"]
+    else:
+        check(name not in ("lm_serve", "moe_serve"),
+              f"{name}'s decode ({kc.dtype}, hd {hd}) does not take the "
+              "tensor-core body")
+        d_split, d_heads = dec_mod.block_heads(
+            B, n_kv, H // n_kv, kc.shape[1], n_sm, hd, kc.element_size())
+        d_blocks = attn_lib.load().decode_attention_blocks_per_sm(
+            attn_lib.DTYPES[kc.dtype], attn_lib.padded_head_dim(hd), d_heads,
+            d_split)
+    check(d_blocks >= 1, f"{d_blocks} decode blocks an SM "
+                         f"({'tensor-core' if dec_tc else 'SIMT'} body)")
     live_total = int(lengths.clamp(max=kc.shape[1]).sum())
     d_bytes = (2 * live_total * n_kv * hd * kc.element_size()
                + qd.numel() * qd.element_size() + B * H * (hd + 2) * 4)
     d_flops = 4 * hd * H * live_total
-    d_bound = max(d_bytes / HBM_BPS, d_flops / FP32_FLOPS) * 1e3
+    d_ops_s = decode_ops_s(kc.dtype, hd, d_flops)
+    d_bound = max(d_bytes / HBM_BPS, d_ops_s) * 1e3
     del kl, vl
 
     med = statistics.median
@@ -5679,7 +5809,10 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
          tokens_per_s_median=B * new_tokens / (med(decode) / 1e3),
          serve_ms=wall, retrieval_ms=retrieval, prefill_ms=prefill,
          decode_ms=decode, flash_launches=flash_launches,
-         decode_launches=dec_launches, scan_launches=scan_launches,
+         decode_launches=dec_launches,
+         decode_launches_by_body={"simt": dec_launches - dec_tc_launches,
+                                  "tc": dec_tc_launches},
+         scan_launches=scan_launches,
          plain_calls_on_cuda=plain_f.cuda_calls + plain_d.cuda_calls,
          leaked_slots=leaks, tokens_equal=True,
          scheduled_serve={"ms": sched_ms, "shed": 0,
@@ -5709,8 +5842,11 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                  "kernels_traced_in_50_calls": d_kernels,
                  "allocations_a_call": d_allocs,
                  "workspace_bytes": dec_mod.workspace_bytes(),
+                 "body": "tc" if dec_tc else "simt",
                  "split": d_split, "heads_a_block": d_heads,
-                 "blocks_per_sm": d_blocks},
+                 "blocks_per_sm": d_blocks,
+                 **({"tc_products": tc_products(hd, H // n_kv, d_flops)}
+                    if dec_tc else {})},
          profile=profiles, peak_mem_gb=peak_gb())
     return {
         "flash": dict(launches=flash_launches, ms=f_ms, plain_ms=f_plain,
@@ -5718,10 +5854,12 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                       bound_by="operations" if f_flops / BF16_FLOPS
                       >= f_bytes / HBM_BPS else "bytes",
                       max_abs_err=max(errs_f)),
-        "decode": dict(launches=dec_launches, ms=d_ms, plain_ms=d_plain,
-                       bound_ms=d_bound, library_ms=d_lib,
+        "decode": dict(launches=dec_launches, tc_launches=dec_tc_launches,
+                       body="tc" if dec_tc else "simt", ms=d_ms,
+                       plain_ms=d_plain, bound_ms=d_bound, library_ms=d_lib,
+                       device_ms=d_dev,
                        bound_by="bytes" if d_bytes / HBM_BPS
-                       >= d_flops / FP32_FLOPS else "operations",
+                       >= d_ops_s else "operations",
                        max_abs_err=max(errs_d))}
 
 
@@ -5872,7 +6010,7 @@ def reduced_model_check(dev, arch_id, cfg, oracle=False):
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=dev, dtype=torch.int32)
-    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     (lg_k, cache_k), r_k = routed(lambda: tfm.prefill(model, cfg, toks,
                                                       S + n))
     sync()
@@ -5905,7 +6043,7 @@ def reduced_model_check(dev, arch_id, cfg, oracle=False):
           f"(x{ratio_pre}); against the f32 oracle {vs_oracle}")
     dec_err, dec_ratio, token_flips, dec_flips = 0.0, 0.0, 0, 0
     tok = lg_k.argmax(-1).to(torch.int32)
-    dec_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     for i in range(n):
         (lk, _), rk = routed(lambda: tfm.decode_step(model, cfg, tok,
                                                      cache_k, S + i))
@@ -6028,6 +6166,9 @@ def narrow_kernel_times(dev):
             d_bytes = (2 * rows_live * d["KV"] * hd * esz + qd.numel() * esz
                        + d["B"] * d["KV"] * d["G"] * (hd + 2) * 4)
             d_flops = 4 * hd * d["KV"] * d["G"] * rows_live
+            d_ops_s = decode_ops_s(dt, hd, d_flops)
+            tc = dec_mod.uses_tc(dt, hd)
+            n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
             d_dev, _ = device_ms(lambda: dec_mod.decode_attention_cuda(
                 qd, kc, vc, lengths), 50)
             decode = {
@@ -6040,14 +6181,16 @@ def narrow_kernel_times(dev):
                     qd, kc, vc, lengths), 50),
                 "sdpa_ms": events_ms(lambda: sdpa(ql, kl, vl,
                                                   enable_gqa=True), 100),
-                "bound_ms": max(d_bytes / HBM_BPS,
-                                d_flops / FP32_FLOPS) * 1e3,
-                "bound_by": "bytes" if d_bytes / HBM_BPS
-                >= d_flops / FP32_FLOPS else "operations",
-                "split": dec_mod.split_for(
-                    d["B"], d["KV"], d["G"], d["S"],
-                    torch.cuda.get_device_properties(
-                        DEV).multi_processor_count, hd, esz)}
+                "bound_ms": max(d_bytes / HBM_BPS, d_ops_s) * 1e3,
+                "bound_by": "bytes" if d_bytes / HBM_BPS >= d_ops_s
+                else "operations",
+                "body": "tc" if tc else "simt",
+                "split": (dec_mod.tc_plan(d["B"], d["KV"], d["G"], d["S"],
+                                          n_sm, hd)[0] if tc else
+                          dec_mod.split_for(d["B"], d["KV"], d["G"], d["S"],
+                                            n_sm, hd, esz))}
+            if tc:
+                decode["tc_products"] = tc_products(hd, d["G"], d_flops)
             rows[name] = {"flash": flash, "decode": decode}
     return rows, errs
 
@@ -6083,7 +6226,8 @@ def phase_reduced_serve(dev):
             check(attn_lib.launch_width(getattr(torch, cfg.dtype),
                                         cfg.hd) == (cfg.hd, False)
                   and cfg.hd < 64, f"{arch_id}: REDUCED head_dim {cfg.hd}")
-            fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+            fa_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+            dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
             t0 = time.perf_counter()
             served = serve_launch.main(["--arch", arch_id, "--engine",
                                         "cuda"])
@@ -6125,7 +6269,8 @@ def phase_reduced_serve(dev):
     fa_mod.flash_attention_plain = plain_f
     dec_mod.decode_attention_plain = plain_d
     try:
-        fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        fa_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
         t0 = time.perf_counter()
         qs = load_example("torch_quickstart").main([])
         sync()
@@ -6139,7 +6284,8 @@ def phase_reduced_serve(dev):
             "split": qs["split"], "scan_launches": kernel_mod.LAUNCHES}
         main_path["arena_scan"] += kernel_mod.LAUNCHES
 
-        fa_mod.LAUNCHES = dec_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        fa_mod.LAUNCHES = kernel_mod.LAUNCHES = 0
+        dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
         t0 = time.perf_counter()
         rag_serve = load_example("torch_rag_serve")
         rs = rag_serve.main([])
@@ -6162,7 +6308,7 @@ def phase_reduced_serve(dev):
         main_path["decode"] += dec_mod.LAUNCHES
         main_path["arena_scan"] += kernel_mod.LAUNCHES
 
-        fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+        fa_mod.LAUNCHES = dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             ckpt_dir = os.path.join(tmp, "ckpt")
@@ -6236,7 +6382,9 @@ def phase_wide_serve(dev):
     from repro_torch.models.transformer import TransformerConfig
     t_phase = time.perf_counter()
     served, models = {}, {}
-    totals = {"flash": 0, "decode": 0, "flash_err": 0.0, "decode_err": 0.0}
+    totals = {"flash": 0, "decode": 0, "decode_tc": 0, "flash_err": 0.0,
+              "decode_err": 0.0}
+    bodies = {}
     for tag, widths in WIDE_CONFIGS:
         cfg = TransformerConfig(name=f"{tag}-widths-{WIDE_LAYERS}l",
                                 n_layers=WIDE_LAYERS, dtype="bfloat16",
@@ -6263,6 +6411,13 @@ def phase_wide_serve(dev):
         models[tag] = chk
         totals["flash"] += row["flash"]["launches"] + chk["flash_launches"]
         totals["decode"] += row["decode"]["launches"] + chk["decode_launches"]
+        totals["decode_tc"] += row["decode"]["tc_launches"]
+        # the served bf16 steps' launches by body (the f32 check's are the
+        # SIMT body's: its Q . K^T takes no bf16 operands)
+        bodies[tag] = {"tc": row["decode"]["tc_launches"],
+                       "simt": row["decode"]["launches"]
+                       - row["decode"]["tc_launches"],
+                       "f32_check_simt": chk["decode_launches"]}
         totals["flash_err"] = max(totals["flash_err"],
                                   row["flash"]["max_abs_err"])
         totals["decode_err"] = max(totals["decode_err"],
@@ -6270,6 +6425,7 @@ def phase_wide_serve(dev):
     emit("wide_serve", seconds=time.perf_counter() - t_phase,
          layers=WIDE_LAYERS, configs=dict(WIDE_CONFIGS), served=served,
          f32_model_checks=models, main_path_launches=totals,
+         decode_launches_by_body=bodies,
          tolerance={"prefill_logits": f"rtol {FLASH_RTOL}, atol "
                                       f"{FLASH_ATOL} (f32 model), or the "
                                       "kernel path no farther from the f32 "
@@ -6347,7 +6503,7 @@ def phase_deep_serve(dev, widths=None, *, serve_kw=None,
     lengths = torch.tensor([Sc - 15] * (B - 1) + [Sc // n_sh // 2],
                            dtype=torch.int32, device=dev)
     qg = qd.reshape(B, KV, G, hd)
-    dec_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     out = dec_ops.decode_attention_sharded(mesh, "data", qd, kc, vc, lengths,
                                            n_kv=KV)
     sharded_launches = dec_mod.LAUNCHES
@@ -6368,11 +6524,15 @@ def phase_deep_serve(dev, widths=None, *, serve_kw=None,
         mesh, "data", qd, kc, vc, lengths, n_kv=KV), 20)
     del qd, kc, vc, a1, a_p, out, acc
 
+    # past 256 every decode launch is the SIMT body's (column pieces)
+    check(row["decode"]["tc_launches"] == 0,
+          "deep_serve launched the tensor-core decode body")
     totals = {"flash": row["flash"]["launches"] + chk["flash_launches"],
               "decode": (row["decode"]["launches"] + chk["decode_launches"]
                          + sharded_launches),
               "flash_err": row["flash"]["max_abs_err"],
-              "decode_err": max(row["decode"]["max_abs_err"], sh_err)}
+              "decode_err": max(row["decode"]["max_abs_err"], sh_err),
+              "decode_row": row["decode"]}
     emit("deep_serve", seconds=time.perf_counter() - t_phase,
          layers=WIDE_LAYERS, config={tag: widths},
          shape_note="gemma-2b's widths with 8 x 256 query heads regrouped "
@@ -6481,7 +6641,7 @@ def phase_train(dev, cfg=None, *, steps=40, batch=8, seq=1024, peak_lr=3e-4,
 
     t_phase = time.perf_counter()
     cfg = cfg or granite_moe_1b.FULL
-    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
 
     # (a) one step on the card against the CPU
     small = dataclasses.replace(cfg, n_layers=cpu_layers, dtype="float32")
@@ -8179,24 +8339,27 @@ def launch_decode_checks(dev, cell, key):
     S, KV, hd = cache["k"].shape[2], cfg.n_kv_heads, cfg.hd
     G = cfg.n_heads // KV
     sync()
-    before = dec_mod.LAUNCHES
+    before, tc_before = dec_mod.LAUNCHES, dec_mod.TC_LAUNCHES
     cell.fn(*cell.args)
     sync()
     per_step = dec_mod.LAUNCHES - before
-    check(per_step == cfg.n_layers,
-          f"{key}: {per_step} decode launches a step, {cfg.n_layers} layers")
+    tc_step = dec_mod.TC_LAUNCHES - tc_before
+    tc_want = dec_mod.uses_tc(cache["k"].dtype, hd)
+    check(per_step == cfg.n_layers and tc_step == per_step * tc_want,
+          f"{key}: {per_step} decode launches a step ({tc_step} of the "
+          f"tensor-core body), {cfg.n_layers} layers")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     q = torch.randn((1, KV, G, hd), generator=gen, device=dev).to(
         cache["k"].dtype)
     lengths = torch.full((1,), S, dtype=torch.int32, device=dev)
     kc, vc = cache["k"][0], cache["v"][0]
-    n0 = dec_mod.LAUNCHES
+    n0, tc0 = dec_mod.LAUNCHES, dec_mod.TC_LAUNCHES
     err = decode_check(q, kc, vc, lengths)
     # one layer's kernel at this S beside its bound, its plain version and
     # SDPA over the same rows (comparison launches: not the path's)
     k_ms = events_ms(lambda: dec_mod.decode_attention_cuda(q, kc, vc,
                                                            lengths), 10)
-    dec_mod.LAUNCHES = n0
+    dec_mod.LAUNCHES, dec_mod.TC_LAUNCHES = n0, tc0
     plain_ms = events_ms(lambda: dec_mod.decode_attention_plain(
         q, kc, vc, lengths), 2)
     ql = q.reshape(1, KV * G, 1, hd)
@@ -8207,9 +8370,12 @@ def launch_decode_checks(dev, cell, key):
     nbytes = 2 * S * KV * hd * kc.element_size() \
         + q.numel() * q.element_size() + KV * G * (hd + 2) * 4
     flops = 4 * hd * KV * G * S
-    bound_ms = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
+    ops_s = decode_ops_s(kc.dtype, hd, flops)
+    bound_ms = max(nbytes / HBM_BPS, ops_s) * 1e3
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    split = dec_mod.split_for(1, KV, G, S, n_sm, hd, kc.element_size())
+    tc = dec_mod.uses_tc(kc.dtype, hd)
+    split = (dec_mod.tc_plan(1, KV, G, S, n_sm, hd)[0] if tc else
+             dec_mod.split_for(1, KV, G, S, n_sm, hd, kc.element_size()))
     chunks = -(-S // split)
     check(chunks * split >= S and S * KV * hd < 2**31,
           f"{key}: split {split} x {chunks} chunks or offsets past int32")
@@ -8217,8 +8383,10 @@ def launch_decode_checks(dev, cell, key):
             "chunks": chunks, "layer_elems": S * KV * hd,
             "kernel_ms": k_ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": "bytes"
-            if nbytes / HBM_BPS >= flops / FP32_FLOPS else "operations",
-            "mbytes": nbytes / 1e6}
+            if nbytes / HBM_BPS >= ops_s else "operations",
+            "body": "tc" if tc else "simt", "tc_launches_a_step": tc_step,
+            "mbytes": nbytes / 1e6,
+            **({"tc_products": tc_products(hd, G, flops)} if tc else {})}
 
 
 def launch_card_cell(dev, mesh, key, rk):
@@ -8247,7 +8415,7 @@ def launch_card_cell(dev, mesh, key, rk):
     out["ms"] = events_ms(step, LAUNCH_STEPS)
     if shape == "long_500k":
         # where a step's time goes: the device's busy time and idle share
-        prof = profile_batch(step, tags=("decode_attention_kernel",))
+        prof = profile_batch(step, tags=DECODE_KERNELS)
         out["profile"] = {k: prof[k] for k in (
             "wall_ms", "device_busy_ms", "idle_share", "trace_lost")} | {
             "kernels": prof["kernels"][:4]}
@@ -8320,7 +8488,7 @@ def phase_launch(dev, kids):
     mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
     saved_moe = dict(moe._MOE_MESH)
     runs, excluded = [], {}
-    dec_mod.LAUNCHES = 0
+    dec_mod.LAUNCHES = dec_mod.TC_LAUNCHES = 0
     fa_mod.LAUNCHES = 0
     try:
         for key in sorted(one):
@@ -8335,6 +8503,7 @@ def phase_launch(dev, kids):
         moe._MOE_MESH.clear()
         moe._MOE_MESH.update(saved_moe)
     dec_launches, fa_launches = dec_mod.LAUNCHES, fa_mod.LAUNCHES
+    dec_tc_launches = dec_mod.TC_LAUNCHES
     long_runs = [r for r in runs if r["cell"].endswith("long_500k")]
     check({r["cell"] for r in long_runs} == {
         "qwen1.5-0.5b|long_500k", "yi-6b|long_500k",
@@ -8377,6 +8546,9 @@ def phase_launch(dev, kids):
              "ms", "bound_ms", "ideal_ms", "roofline_fraction", "peak_gb",
              "reckoned_gb")} for r in runs},
          decode_launches=dec_launches,
+         decode_launches_by_body={"simt": dec_launches - dec_tc_launches,
+                                  "tc": dec_tc_launches},
+         long_500k_decode={r["cell"]: r["decode"] for r in long_runs},
          flash_launches=fa_launches,
          hillclimb={k: hc[0][k] for k in ("cell", "tag", "mesh", "flops",
                                           "bytes", "coll")}
@@ -8384,7 +8556,14 @@ def phase_launch(dev, kids):
                          ("terms_s", "dominant", "roofline_fraction")}},
          peak_mem_gb=peak_gb())
     return {"decode_launches": dec_launches, "flash_launches": fa_launches,
-            "decode_err": max(r["decode"]["layer0_err"] for r in long_runs)}
+            "decode_tc_launches": dec_tc_launches,
+            "decode_err": max((r["decode"]["layer0_err"] for r in long_runs
+                               if r["decode"]["body"] == "simt"),
+                              default=0.0),
+            "decode_tc_err": max((r["decode"]["layer0_err"]
+                                  for r in long_runs
+                                  if r["decode"]["body"] == "tc"),
+                                 default=0.0)}
 
 
 def setup():
@@ -8513,7 +8692,7 @@ def run_phases(dev, kids) -> int:
     herr1 = phase_hybrid_kernel()
     ierr1 = phase_ivf_kernel()
     perr1 = phase_paged_kernel()
-    ferr1, derr1 = phase_attn_kernel()
+    ferr1, derr1, tcerr1 = phase_attn_kernel()
     _, err2 = phase_bench(dev)
     herr2 = phase_hybrid_bench(dev)
     ierr2 = phase_ivf_bench(dev)
@@ -8574,11 +8753,16 @@ def run_phases(dev, kids) -> int:
     torch.cuda.empty_cache()
     launch = phase_launch(dev, kids)
 
+    def nonzero(paths):
+        """The paths that launched a kernel (the decode kernel's two
+        bodies split each phase's launches)."""
+        return {key: n for key, n in paths.items() if n}
+
     def on_regions(key):
         """The regions path of a kernel's row, where the phase ran."""
         return {"regions": regions[key]} if regions.get(key) else {}
 
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "arena_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/arena_scan.cuh",
         "replaces": "src/repro/kernels/arena_scan/kernel.py:171",
@@ -8650,26 +8834,54 @@ def run_phases(dev, kids) -> int:
         "bound_ms": lm["flash"]["bound_ms"],
         "bound_by": lm["flash"]["bound_by"],
         "library_ms": lm["flash"]["library_ms"]}, {
+        # the SIMT body: f32 (the REDUCED configs, the f32 model checks)
+        # and rows past 256 (deep_serve, whose decode it times)
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:77",
-        "launches": lm["decode"]["launches"],
-        "paths": {"lm_serve": lm["decode"]["launches"],
-                  "moe_serve": moe["decode"]["launches"],
-                  "reduced_serve": red["decode"],
-                  "wide_serve": wide["decode"],
-                  "deep_serve": deep["decode"],
-                  "sharded_prod": sprod["decode_launches"],
-                  "launch": launch["decode_launches"],
-                  **on_regions("decode")},
-        "max_abs_err": max(derr1, lm["decode"]["max_abs_err"],
-                           moe["decode"]["max_abs_err"], red["decode_err"],
-                           wide["decode_err"], deep["decode_err"],
-                           sprod["decode_err"], launch["decode_err"]),
+        "launches": deep["decode"],
+        "paths": nonzero({"lm_serve": lm["decode"]["launches"]
+                          - lm["decode"]["tc_launches"],
+                          "moe_serve": moe["decode"]["launches"]
+                          - moe["decode"]["tc_launches"],
+                          "reduced_serve": red["decode"],
+                          "wide_serve": wide["decode"] - wide["decode_tc"],
+                          "deep_serve": deep["decode"],
+                          "sharded_prod": sprod["decode_launches"]
+                          - sprod["decode_tc_launches"],
+                          "launch": launch["decode_launches"]
+                          - launch["decode_tc_launches"],
+                          **on_regions("decode_simt")}),
+        "max_abs_err": max(derr1, red["decode_err"], deep["decode_err"],
+                           launch["decode_err"]),
+        "ms": deep["decode_row"]["ms"],
+        "plain_ms": deep["decode_row"]["plain_ms"],
+        "bound_ms": deep["decode_row"]["bound_ms"],
+        "bound_by": deep["decode_row"]["bound_by"],
+        "library_ms": deep["decode_row"]["library_ms"]}, {
+        # the tensor-core body: bf16 rows up to 256 (lm_serve's decode,
+        # which it times)
+        "name": "decode_attention_tc", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:77",
+        "launches": lm["decode"]["tc_launches"],
+        "paths": nonzero({"lm_serve": lm["decode"]["tc_launches"],
+                          "moe_serve": moe["decode"]["tc_launches"],
+                          "wide_serve": wide["decode_tc"],
+                          "sharded_prod": sprod["decode_tc_launches"],
+                          "launch": launch["decode_tc_launches"],
+                          # bf16 sequence shards at lm_serve's widths
+                          **on_regions("decode_tc")}),
+        "max_abs_err": max(tcerr1, lm["decode"]["max_abs_err"],
+                           moe["decode"]["max_abs_err"], wide["decode_err"],
+                           sprod["decode_err"], launch["decode_tc_err"]),
         "ms": lm["decode"]["ms"], "plain_ms": lm["decode"]["plain_ms"],
         "bound_ms": lm["decode"]["bound_ms"],
         "bound_by": lm["decode"]["bound_by"],
-        "library_ms": lm["decode"]["library_ms"]}]}), flush=True)
+        "library_ms": lm["decode"]["library_ms"]}]
+    idle = [r["name"] for r in rows if r["launches"] < 1]
+    check(not idle, f"kernels launched no time on their main path: {idle}")
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

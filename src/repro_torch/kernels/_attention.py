@@ -63,6 +63,12 @@ def load():
                                                 i, i, i, i, p, p, p, p, p, p,
                                                 p, p]
         lib.decode_attention_launch.restype = i
+        lib.decode_attention_tc_launch.argtypes = [p, p, p, p, i, i, i, i,
+                                                   i, i, i, i, i, p, p, p, p,
+                                                   p, p, p, p]
+        lib.decode_attention_tc_launch.restype = i
+        lib.decode_attention_tc_info.argtypes = [i, i, p]
+        lib.decode_attention_tc_info.restype = i
         lib.decode_attention_blocks_per_sm.argtypes = [i, i, i, i]
         lib.decode_attention_blocks_per_sm.restype = i
         lib.attention_launch_width.argtypes = [i, i]

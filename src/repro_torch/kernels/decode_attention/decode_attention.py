@@ -29,6 +29,17 @@ chunk's blocks reading the chunk's cache rows again. A head dim that is not
 a multiple of 8 goes in as zero-padded copies of q and BOTH caches, made on
 every call: a decode step then copies the whole cache (read and written
 once more) before the kernel reads it.
+
+Two bodies share the workspace and the merge (`uses_tc` picks): the SIMT
+body above (f32, and rows past 256) scores and accumulates with f32 FMAs;
+the tensor-core body (bf16 rows up to 256, at every G: it ran faster than
+the SIMT body at each G measured, 1 included) takes a block's query heads
+as the rows of wgmma products -- 64 a warpgroup, one or two warpgroups a
+block (`tc_plan`) -- and so reads a chunk's K and V rows once for all of
+them: S = Q . K^T and O += P . V on the tensor cores with an online
+softmax over 64- (32-, past width 128) key tiles, P split into three bf16
+terms whose sum is P, so that every product is exact in f32 as the SIMT
+body's widened FMAs are. `decode_attention_tc_tiled` replays its schedule.
 """
 from __future__ import annotations
 
@@ -37,11 +48,14 @@ import torch
 from repro_torch.kernels import _attention, _nvcc
 from repro_torch.kernels.decode_attention.ref import NEG_INF
 
-#: kernel launches through `decode_attention_cuda` (the main-path audit)
+#: kernel launches through `decode_attention_cuda` (the main-path audit),
+#: both bodies
 LAUNCHES = 0
-#: resident blocks of the kernel an SM at the served shapes (4 at bf16,
-#: hd 128, G 4: 47.8 KB of shared memory and 116 registers a thread); sizes
-#: the split
+#: those of them that launched the tensor-core body (`uses_tc`)
+TC_LAUNCHES = 0
+#: resident blocks of the SIMT body an SM that its split assumes: those it
+#: had at lm_serve's bf16 shape, which it served before the tensor-core body
+#: (4 at hd 128, G 4: 47.8 KB of shared memory, 116 registers a thread)
 BLOCKS_PER_SM = 4
 #: rows of the smallest chunk
 MIN_SPLIT = 64
@@ -59,12 +73,28 @@ WARPS, STAGES, G_CHUNK_MAX = 4, 4, 8
 #: ``is_last`` and the alignment slack
 SMEM_LIMIT = 227 * 1024 - 1024
 
+#: the tensor-core body (``tc::`` in csrc/decode_attention.cu): query heads
+#: a warpgroup (wgmma's M), most warpgroups a block, and the bytes of K and
+#: V its ring holds at most (``kWgHeads``, ``kMaxWgs``, ``kRingBytes``)
+TC_WG_HEADS, TC_MAX_WGS, TC_RING_BYTES = 64, 2, 65536
+#: the tensor-core body's chunks (`tc_plan`): enough that the blocks of all
+#: (b, kv, head block) fill TC_BLOCKS_PER_SM an SM once (bytes in flight),
+#: but at least TC_MERGE_ROWS cache rows for each 16-byte load of partials
+#: a thread of the merging block makes a chunk (the merge runs alone after
+#: every other block: at Falcon-7B's 71 heads 33 chunks of 64 rows took
+#: 34 us, 11 of 192 17 us on an NVIDIA H100 80GB HBM3 at 700 W), and at
+#: least TC_MIN_TILES key tiles
+TC_BLOCKS_PER_SM = 2
+TC_MERGE_ROWS = 40
+TC_MIN_TILES = 2
+
 _SM_COUNT: dict = {}
 #: the kernel's workspace by (device, B, KV, n_split, G, hd): partials and
 #: counters, allocated once (see `decode_attention_cuda`)
 _WORKSPACE: dict = {}
 #: a shape's launch plan by (device, dtype, B, S, KV, G, hd): its dtype
-#: code, split and workspace pointers, checked and sized on first use
+#: code, split, workspace pointers and body, checked and sized on first
+#: use
 _PLANS: dict = {}
 
 
@@ -156,6 +186,65 @@ def split_for(B: int, KV: int, G: int, S: int, n_sm: int, hd: int,
     return block_heads(B, KV, G, S, n_sm, hd, itemsize)[0]
 
 
+def uses_tc(dtype, hd: int) -> bool:
+    """Whether `decode_attention_cuda` launches the tensor-core body: bf16
+    and a row of at most 256 (one piece), at any G -- it ran faster than
+    the SIMT body at every G measured on an NVIDIA H100 80GB HBM3 at
+    700 W, 1 included (PERF.md). f32 (the tensor cores' products would
+    round its q and caches) and rows past 256 (the column pieces) take the
+    SIMT body."""
+    return (dtype == torch.bfloat16
+            and _attention.padded_head_dim(hd) <= _attention.ROW_MAX)
+
+
+def tc_key_tile(hdp: int) -> int:
+    """Keys a tile of the tensor-core body at width ``hdp`` (``key_tile``):
+    64, or 32 past 128, where a thread's hdp / 2 accumulators leave room
+    for 16 scores and three P fragments."""
+    return 32 if hdp > 128 else 64
+
+
+def tc_stages(hdp: int) -> int:
+    """Ring stages of the tensor-core body (``Layout::kStages``): as many K
+    and V tiles as TC_RING_BYTES holds, 2 to 8."""
+    tile = hdp * 2 * tc_key_tile(hdp)
+    return min(8, max(2, TC_RING_BYTES // (2 * tile)))
+
+
+def tc_smem_bytes(hdp: int, heads: int) -> int:
+    """The tensor-core body's dynamic shared memory at width ``hdp`` for
+    blocks of ``heads`` query heads (``Layout::kSmem``): q of 64 heads a
+    warpgroup, the ring of K and V tiles, the mbarriers, 1 KB of alignment
+    slack."""
+    nwg = -(-heads // TC_WG_HEADS)
+    q = hdp * 2 * nwg * TC_WG_HEADS
+    ring = 2 * tc_stages(hdp) * hdp * 2 * tc_key_tile(hdp)
+    return q + ring + 8 * (1 + 3 * tc_stages(hdp)) + 1024
+
+
+def tc_plan(B: int, KV: int, G: int, S: int, n_sm: int,
+            hd: int) -> tuple[int, int]:
+    """(split, GB) of the tensor-core body: GB query heads a block, all G
+    up to 128 (two warpgroups past 64), else the fewest balanced head
+    blocks of at most 128, each reading the chunk's rows again; chunks of
+    ``split`` positions, whole key tiles: enough that the blocks of all
+    (b, kv, head block) fill TC_BLOCKS_PER_SM an SM once, but no fewer
+    rows than TC_MERGE_ROWS for each 16-byte load of partials a thread of
+    the merging block makes a chunk (GB x width x 4 bytes over its 128 or
+    256 threads), nor than TC_MIN_TILES key tiles. No score array bounds a
+    chunk: the softmax runs online."""
+    hdp, _ = _attention.launch_width(torch.bfloat16, hd,
+                                     "decode_attention_cuda")
+    kn = tc_key_tile(hdp)
+    n_hc = -(-G // (TC_WG_HEADS * TC_MAX_WGS))
+    gb = -(-G // n_hc)
+    threads = 128 * -(-gb // TC_WG_HEADS)
+    n_chunks = max(1, n_sm * TC_BLOCKS_PER_SM // (B * KV * n_hc))
+    rows = max(-(-S // n_chunks), TC_MIN_TILES * kn,
+               -(-TC_MERGE_ROWS * gb * hdp // (4 * threads)))
+    return -(-rows // kn) * kn, gb
+
+
 def decode_attention_plain(q, k_cache, v_cache, lengths):
     """q (B, KV, G, hd); caches (B, S, KV, hd); lengths (B,) int32 ->
     UN-normalised (acc (B, KV, G, hd), m (B, KV, G, 1), l (B, KV, G, 1)),
@@ -177,8 +266,9 @@ def decode_attention_plain(q, k_cache, v_cache, lengths):
 
 
 def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int,
-                           heads: int | None = None):
-    """The kernel's schedule in plain PyTorch, same contract as
+                           heads: int | None = None, tc: bool = False):
+    """The kernel's schedule in plain PyTorch -- with ``tc`` the
+    tensor-core body's (`decode_attention_tc_tiled`) --, same contract as
     `decode_attention_plain`: rows zero-padded to the launch width
     (`_attention.launch_width`), the scale the true hd's; the G heads in
     blocks of ``heads`` (all G when None; `block_heads`); S cut in chunks
@@ -189,6 +279,9 @@ def decode_attention_tiled(q, k_cache, v_cache, lengths, split: int,
     acc_i; acc's hd columns are returned. Past 256 each column piece
     (`decode_attention_pieces`) fills its own columns, and m and l are
     piece 0's, as the kernel's piece 0 writes them."""
+    if tc:
+        return decode_attention_tc_tiled(q, k_cache, v_cache, lengths, split,
+                                         heads)
     B, KV, G, hd = q.shape
     pieces = decode_attention_pieces(q, k_cache, v_cache, lengths, split,
                                      heads)
@@ -271,6 +364,93 @@ def _chunks(q, k_cache, v_cache, lengths, split, scale, cw):
     return acc, m_out, l_out
 
 
+def split3(p: torch.Tensor):
+    """p (f32) as three bf16 tensors hi, mid, lo (the tensor-core body's
+    ``split3``): hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi -
+    mid), each rounded to nearest even; hi + mid + lo == p wherever p's
+    bits lie at or above bf16's smallest subnormal, 2^-133."""
+    hi = p.to(torch.bfloat16)
+    r = p - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def decode_attention_tc_tiled(q, k_cache, v_cache, lengths, split: int,
+                              heads: int | None = None):
+    """The tensor-core body's schedule in plain PyTorch, same contract as
+    `decode_attention_plain` (bf16 rows up to 256): rows zero-padded to the
+    launch width, the scale the true hd's; the G heads in blocks of
+    ``heads`` (all G when None; `tc_plan`), each padded with zero q rows to
+    whole warpgroups of 64; S cut in chunks of ``split`` positions, a chunk
+    that starts at or past lengths[b] > 0 skipped; in a live chunk an
+    online softmax over key tiles of `tc_key_tile` keys in order (keys past
+    the live ones masked; every key of the chunk with p = 1 when lengths[b]
+    <= 0): the running max m of the raw scores, p = 2^(s c - m c) with c =
+    scale * log2(e), l and acc rescaled by 2^((m_old - m) c), and P . V as
+    the sum of three f32 products of V with P's bf16 terms (`split3`); the
+    chunk's m is the raw max times the scale (NEG_INF with nothing live);
+    the chunks merge in order as in `decode_attention_tiled`."""
+    B, KV, G, hd = q.shape
+    S = k_cache.shape[1]
+    hdp, _ = _attention.launch_width(q.dtype, hd, "decode_attention_tc_tiled")
+    scale = 1.0 / (hd ** 0.5)
+    c = scale * 1.4426950408889634
+    kn = tc_key_tile(hdp)
+    gb = heads or G
+    qp, kp, vp = (_attention.pad_head_dim(t, hdp).float()
+                  for t in (q, k_cache, v_cache))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, KV, G, hdp), **f32)
+    m_out = torch.empty((B, KV, G, 1), **f32)
+    l_out = torch.empty_like(m_out)
+    for g0 in range(0, G, gb):
+        gn = min(gb, G - g0)
+        rows = -(-gn // TC_WG_HEADS) * TC_WG_HEADS
+        qb = torch.zeros((B, KV, rows, hdp), **f32)
+        qb[:, :, :gn] = qp[:, :, g0:g0 + gn]
+        for b in range(B):
+            length = int(lengths[b])
+            none_live, length = length <= 0, min(length, S)
+            parts = []
+            for start in range(0, S, split):
+                n = min(split, S - start)
+                if not none_live and start >= length:
+                    continue
+                live = n if none_live else min(length - start, n)
+                m = torch.full((KV, rows, 1), NEG_INF, **f32)
+                l = torch.zeros((KV, rows, 1), **f32)
+                a = torch.zeros((KV, rows, hdp), **f32)
+                for k0 in range(0, live, kn):
+                    ks = slice(start + k0, start + min(k0 + kn, live))
+                    kb, vb = kp[b, ks], vp[b, ks]
+                    s = torch.einsum("kgh,skh->kgs", qb[b], kb)
+                    if none_live:
+                        s = torch.zeros_like(s)
+                    mn = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                    alpha = torch.exp2((m - mn) * c)
+                    p = torch.exp2(s * c - mn * c)
+                    pv = sum(torch.einsum("kgs,skh->kgh", t.float(), vb)
+                             for t in split3(p))
+                    a = a * alpha + pv
+                    l = l * alpha + p.sum(dim=-1, keepdim=True)
+                    m = mn
+                parts.append((a[:, :gn], NEG_INF if none_live
+                              else m[:, :gn] * scale, l[:, :gn]))
+            ms = torch.stack([torch.as_tensor(part[1], **f32).expand(
+                KV, gn, 1) for part in parts])
+            mx = ms.amax(dim=0)
+            a_b = torch.zeros((KV, gn, hdp), **f32)
+            l_b = torch.zeros((KV, gn, 1), **f32)
+            for (acc_i, _, l_i), m_i in zip(parts, ms):
+                w = torch.exp(m_i - mx)
+                l_b = l_b + l_i * w
+                a_b = a_b + acc_i * w
+            acc[b, :, g0:g0 + gn] = a_b
+            m_out[b, :, g0:g0 + gn] = mx
+            l_out[b, :, g0:g0 + gn] = l_b
+    return acc[..., :hd], m_out, l_out
+
+
 def _sm_count(dev) -> int:
     """The SMs of ``dev``, the tensors' own device (never the current
     one), read once a device."""
@@ -307,7 +487,8 @@ def _plan(dev, dt, B, S, KV, G, hd):
     """Validate a shape the kernel takes and size its launch: (dtype code,
     split, heads a block, the row width (hd, or its padded copy's), the
     workspace pointers (part_acc, part_m, part_l, counters), the workspace
-    itself, which the plan keeps alive)."""
+    itself, which the plan keeps alive, whether the tensor-core body runs
+    (`uses_tc`))."""
     if dt not in _attention.DTYPES:
         raise ValueError(f"decode_attention_cuda takes float32 or bfloat16, "
                          f"got {dt}")
@@ -316,7 +497,9 @@ def _plan(dev, dt, B, S, KV, G, hd):
     if min(B, S, KV, G) < 1:
         raise ValueError(f"decode_attention_cuda needs B, S, KV, G >= 1, got "
                          f"B={B} S={S} KV={KV} G={G}")
-    split, gb = block_heads(B, KV, G, S, _sm_count(dev), hd, dt.itemsize)
+    tc = uses_tc(dt, hd)
+    split, gb = (tc_plan(B, KV, G, S, _sm_count(dev), hd) if tc else
+                 block_heads(B, KV, G, S, _sm_count(dev), hd, dt.itemsize))
     n_hc = -(-G // gb)
     n_pc = _attention.row_pieces(dt, hd)[1]
     if (B * S * KV * row >= 1 << 62 or KV * n_hc * n_pc > 65535
@@ -325,7 +508,7 @@ def _plan(dev, dt, B, S, KV, G, hd):
         raise ValueError("shapes past the kernel's grid or index range")
     ws = _workspace(dev, B, KV, -(-S // split), G, hdp, n_hc, n_pc)
     return (_attention.DTYPES[dt], split, gb, row,
-            tuple(t.data_ptr() for t in ws), ws)
+            tuple(t.data_ptr() for t in ws), ws, tc)
 
 
 def _cache_rows(name, t, dtype, shape, dev) -> int:
@@ -384,9 +567,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     partials and the merge counters live in a workspace kept per (device,
     B, KV, n_split, G, width, head blocks, pieces) and allocated once; it
     assumes ONE stream: two calls of the same shape in flight on two
-    streams at once would share it. Raises on any input it cannot take,
-    and on inputs that require grad with grad enabled (forward-only)."""
-    global LAUNCHES
+    streams at once would share it. `uses_tc` picks the body. Raises on
+    any input it cannot take, and on inputs that require grad with grad
+    enabled (forward-only)."""
+    global LAUNCHES, TC_LAUNCHES
     _attention.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     dev = q.device
     if dev.type != "cuda":
@@ -401,7 +585,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     plan = _PLANS.get(key)
     if plan is None:
         plan = _PLANS[key] = _plan(dev, dt, B, S, KV, G, hd)
-    code, split, gb, row, ws, _ = plan
+    code, split, gb, row, ws, _, tc = plan
     if row != hd:
         q, k_cache, v_cache = (_attention.pad_head_dim(t, row)
                                for t in (q, k_cache, v_cache))
@@ -431,13 +615,21 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     out = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=dev)
     p_out = out.data_ptr()
     with _attention.on_device(dev) as stream:
-        rc = lib.decode_attention_launch(
-            *ptrs, code, B, S, s_mem, KV, G, row, hd, split, gb, *ws, p_out,
-            p_out + 4 * n_acc, p_out + 4 * (n_acc + n_ml), stream)
+        if tc:
+            rc = lib.decode_attention_tc_launch(
+                *ptrs, B, S, s_mem, KV, G, row, hd, split, gb, *ws, p_out,
+                p_out + 4 * n_acc, p_out + 4 * (n_acc + n_ml), stream)
+        else:
+            rc = lib.decode_attention_launch(
+                *ptrs, code, B, S, s_mem, KV, G, row, hd, split, gb, *ws,
+                p_out, p_out + 4 * n_acc, p_out + 4 * (n_acc + n_ml), stream)
     if rc:
         _attention.check_rc(lib, rc, f"decode_attention (B={B} S={S} "
-                                     f"KV={KV} G={G} hd={hd} {dt})")
+                                     f"KV={KV} G={G} hd={hd} {dt}, "
+                                     f"{'tensor-core' if tc else 'SIMT'} "
+                                     "body)")
     LAUNCHES += 1
+    TC_LAUNCHES += tc
     # acc, m and l as views of the one buffer (as_strided: the cheapest
     # view on the host, which paces a decode call as much as the card)
     ml = (KV * G, G, 1, 1)
