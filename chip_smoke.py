@@ -588,6 +588,14 @@ ATTN_DEEP_HD = tuple(range(264, 513, 8)) + (576, 640, 768, 1000, 1024, 2048)
 ATTN_DEEP_WIDE_HD = (264, 320, 384, 512, 1000, 1024)
 ATTN_DEEP_WIDE_G = (71, 8)
 ATTN_DEEP_WIDE_S = 2064
+#: the bf16 flash body's chunk plan and widths: G about and past 64
+#: (chunks of 64 and the rest: 65 = 64 + 1, 71 = 64 + 7, 130 = 64 + 64 +
+#: 2) at widths 96 (hd 80, 96; 128-key tiles), 192 and 256 (64-key
+#: tiles), S 17 (a tile's first positions) and 300 (ragged tiles of 2 to
+#: 128 positions, 3 to 5 key tiles), both dtypes (`attn_kernel`)
+ATTN_PLAN_G = (63, 64, 65, 71, 130)
+ATTN_PLAN_HD = (80, 96, 192, 256)
+ATTN_PLAN_S = (17, 300)
 ATTN_S = (1, 17, 512, 2064, 4096)
 ATTN_EDGE_G = (1, 2, 3, 4, 8)
 ATTN_EDGE_S = (1, 17, 127, 129, 512, 2047, 2064, 4096)
@@ -609,6 +617,8 @@ SERVE_MAX_BATCH = 32
 # this share of the largest logit
 LOGIT_REL = 0.05
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+EX2_PER_CLOCK_SM = 16         # ex2.approx results a clock an SM (Hopper's
+                              # special-function units: 4 a sub-partition)
 
 
 def check(cond, msg):
@@ -1890,6 +1900,21 @@ def sampled(fn):
         text = proc.communicate(timeout=30)[0]
     return out, [[float(x) for x in ln.split(",")]
                  for ln in text.splitlines() if ln.count(",") == 1]
+
+
+def sm_clock_mhz(fn, seconds=0.5):
+    """The card's median SM clock (MHz, nvidia-smi) while ``fn`` runs
+    back to back for about ``seconds``; the clock read once after when no
+    sample fell inside."""
+    per = events_ms(fn, 3) / 1e3
+    n = max(1, int(seconds / max(per, 1e-6)))
+    _, samples = sampled(lambda: events_ms(fn, n))
+    if samples:
+        return statistics.median(mhz for mhz, _ in samples)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
 
 
 def events_ms(fn, iters):
@@ -5239,10 +5264,12 @@ def tc_info_check():
 
 
 def tile_rows_in_use(G):
-    """(rows in use of the bf16 kernel's 128-row tile, of the f32 kernel's
-    64-row tile, head chunk, chunks) at G query heads a KV head."""
+    """The rows in use of the bf16 body's 128-row tile of each of its
+    chunks (`chunk_plan`), and of the f32 body's 64-row tile, its balanced
+    chunk and chunks (`head_chunks`), at G query heads a KV head."""
     gc_, n_gc = fa_mod.head_chunks(G)
-    return {"bf16_rows": fa_mod.TILE_ROWS // gc_ * gc_,
+    return {"bf16_rows": fa_mod.tile_rows(G),
+            "bf16_chunk_heads": fa_mod.chunk_plan(G),
             "f32_rows": 64 // gc_ * gc_, "chunk_heads": gc_,
             "chunks": n_gc}
 
@@ -5278,7 +5305,13 @@ def phase_attn_kernel():
         counts["decode"] += 1
         counts["tc"] += tc
 
-    def case(dt, G, hd, S, deep=False):
+    #: the f32 cases of the bf16 body's chunk plan: the kernel's and the
+    #: plain version's distance from the f32 oracle, recorded (the f32 body
+    #: is unchanged; at G 64, hd 256, S 300 it reads 1.16x the tolerance
+    #: off the oracle while 0.27x off the plain version, PERF.md)
+    plan_oracle = []
+
+    def case(dt, G, hd, S, deep=False, record=None):
         name = str(dt).split(".")[-1]
         B, KV = 4, 2
 
@@ -5295,7 +5328,7 @@ def phase_attn_kernel():
         for causal in (True, False):
             e, e_r = flash_check(rnd(2, S, KV, G, hd), k[:2], v[:2], causal,
                                  f"{what[:-1]}, causal {causal})",
-                                 deep_oracle if deep else None)
+                                 deep_oracle if deep else record)
             errs["flash"][name] = max(errs["flash"].get(name, 0), e)
             errs["flash_oracle"][name] = max(
                 errs["flash_oracle"].get(name, 0), e_r)
@@ -5332,6 +5365,13 @@ def phase_attn_kernel():
             "decode_heads_a_block_f32": heads,
             "decode_tc_split_bf16_S2064": tc_split,
             "decode_tc_heads_a_block_bf16": tc_heads}
+    for G in ATTN_PLAN_G:
+        for hd in ATTN_PLAN_HD:
+            for S in ATTN_PLAN_S:
+                for dt in (torch.bfloat16, torch.float32):
+                    case(dt, G, hd, S, record=plan_oracle
+                         if dt == torch.float32 else None)
+        public[f"plan_G{G}"] = tile_rows_in_use(G)
     check(public["hd256_G200"]["decode_heads_a_block_f32"] < 200
           and public["hd256_G200"]["decode_tc_heads_a_block_bf16"] < 200,
           "the head-block decode case does not split its heads")
@@ -5391,6 +5431,8 @@ def phase_attn_kernel():
                "width_sweep": {"hd": ATTN_SWEEP_HD, **ATTN_SWEEP},
                "public": {"hd_G": ATTN_PUBLIC, "S": ATTN_PUBLIC_S},
                "head_blocks": {"hd_G": ATTN_HEAD_BLOCKS, "S": 129},
+               "bf16_plan": {"G": ATTN_PLAN_G, "hd": ATTN_PLAN_HD,
+                             "S": ATTN_PLAN_S},
                "deep": {"hd": ATTN_DEEP_HD, **ATTN_SWEEP,
                         "wide": {"hd": ATTN_DEEP_WIDE_HD,
                                  "G": ATTN_DEEP_WIDE_G,
@@ -5405,6 +5447,16 @@ def phase_attn_kernel():
                       "past_tol": [o for o in deep_oracle
                                    if max(o["kernel_x_tol"],
                                           o["plain_x_tol"]) > 1]},
+         plan_f32_oracle={"cases": len(plan_oracle),
+                          "kernel_x_tol_max": max(
+                              (o["kernel_x_tol"] for o in plan_oracle),
+                              default=0),
+                          "plain_x_tol_max": max(
+                              (o["plain_x_tol"] for o in plan_oracle),
+                              default=0),
+                          "past_tol": [o for o in plan_oracle
+                                       if max(o["kernel_x_tol"],
+                                              o["plain_x_tol"]) > 1]},
          rule_checked=rule_cases, ptxas=attn_ptxas(attn_lib.BUILD_LOG),
          flash_launches=fa_mod.LAUNCHES, decode_launches=dec_mod.LAUNCHES,
          decode_tc_launches=dec_mod.TC_LAUNCHES,
@@ -5415,6 +5467,10 @@ def phase_attn_kernel():
                              "P.V, as test_kernels.py:96-97)",
                     "decode": f"rtol = atol = {DEC_TOL} (all f32 math, as "
                               "test_kernels.py:60)",
+                    "flash_oracle_f32_plan": "recorded for the kernel and "
+                                             "the plain version, not gated "
+                                             "(plan_f32_oracle); gated "
+                                             "against the plain version",
                     "flash_oracle_past_256": "recorded for the kernel and "
                                              "the plain version, not gated "
                                              "(deep_oracle)"})
@@ -5719,6 +5775,7 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                                    enable_gqa=True), 5)
     f_dev, f_kernels = device_ms(lambda: fa_mod.flash_attention_cuda(q5, k, v),
                                  10)
+    f_mhz = sm_clock_mhz(lambda: fa_mod.flash_attention_cuda(q5, k, v))
     f_lib_dev, _ = device_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
                                           enable_gqa=True), 10)
     check(all("flash_fwd_wgmma_kernel" in name
@@ -5730,7 +5787,25 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     n_pc = attn_lib.row_pieces(q.dtype, hd)[1]
     f_flops = 4 * hd * (S * (S + 1) // 2) * Bq * H
     f_bytes = esz * (2 * q.numel() + k.numel() + v.numel())
-    f_bound = max(f_flops / BF16_FLOPS, f_bytes / HBM_BPS) * 1e3
+    # the softmax's exponentials, one a visible (query head, key) pair, at
+    # 16 a clock an SM (ex2 on the special-function units) at the SM clock
+    # read while the kernel ran
+    f_exps = (S * (S + 1) // 2) * Bq * H
+    n_sm_f = torch.cuda.get_device_properties(dev).multi_processor_count
+    f_terms = {"tensor_ms": f_flops / BF16_FLOPS * 1e3,
+               "exp2_ms": f_exps / (EX2_PER_CLOCK_SM * n_sm_f
+                                    * f_mhz * 1e6) * 1e3,
+               "bytes_ms": f_bytes / HBM_BPS * 1e3, "sm_clock_mhz": f_mhz}
+    f_bound = max(f_terms["tensor_ms"], f_terms["exp2_ms"],
+                  f_terms["bytes_ms"])
+    f_units = (fa_mod.n_units(Bq, S, n_kv, H // n_kv, hd)
+               if q.dtype == torch.bfloat16 and n_pc == 1 else None)
+    f_blocks = (fa_mod.persistent_blocks(f_units, n_sm_f)
+                if f_units else None)
+    f_ptxas = [r for r in attn_ptxas(attn_lib.BUILD_LOG)
+               if r["kernel"] == ("flash_fwd_wgmma_kernel" if n_pc == 1
+                                  else "flash_fwd_deep_kernel")
+               and r["width"] == f_width]
     del qs, ks, vs
 
     qd, kc, vc, lengths, n_kv = cap_d.args[0][:5]
@@ -5829,10 +5904,17 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
                 "sdpa_backend": sdpa_backend,
                 "bound_ms": f_bound, "gflop": f_flops / 1e9,
                 "width": f_width, "pieces": n_pc,
+                "bound_terms": f_terms,
+                "persistent": {"units": f_units, "blocks": f_blocks,
+                               "units_a_block": (f_units / f_blocks
+                                                 if f_units else None)},
+                "ptxas_bf16_body": f_ptxas,
                 "padded_arithmetic_share": 1 - hd / (n_pc * f_width),
                 **qk_recompute(hd, f_width, n_pc),
                 "rows_in_use_a_tile": tile_rows_in_use(H // n_kv),
-                "mbytes": f_bytes / 1e6, "key_tile": fa_mod.key_tile(f_width),
+                "mbytes": f_bytes / 1e6,
+                "key_tile": (fa_mod.key_tile(f_width) if n_pc == 1
+                             else fa_mod.KEY_TILE),
                 "kernels_traced_in_10_calls": f_kernels},
          decode={"ms": d_ms, "device_ms": d_dev, "plain_ms": d_plain,
                  "sdpa_ms": d_lib, "sdpa_device_ms": d_lib_dev,
@@ -5851,8 +5933,8 @@ def phase_lm_serve(dev, cfg=None, *, n_docs=50_000, capacity=65_536,
     return {
         "flash": dict(launches=flash_launches, ms=f_ms, plain_ms=f_plain,
                       bound_ms=f_bound, library_ms=f_lib,
-                      bound_by="operations" if f_flops / BF16_FLOPS
-                      >= f_bytes / HBM_BPS else "bytes",
+                      bound_by="operations" if f_bound
+                      > f_terms["bytes_ms"] else "bytes",
                       max_abs_err=max(errs_f)),
         "decode": dict(launches=dec_launches, tc_launches=dec_tc_launches,
                        body="tc" if dec_tc else "simt", ms=d_ms,

@@ -33,9 +33,11 @@ constexpr int kBF16 = 1;
 // piece_max(dtype) columns, balanced to multiples of 8 (the last one may
 // be narrower). Every piece scores with the whole row and writes its own
 // columns of the output. A piece runs at the first built width that holds
-// it; the columns past hd come in as zeros from the tensor map's
-// out-of-bounds fill. launch_width is -1 when hd is refused (under 1, or
-// not a multiple of 8) or the dtype is unknown. Past 256 bf16 pieces are
+// it -- 96 only for a whole row (hd <= 96): the pieces of a row past 256
+// keep the widths they were built at, 128 in bf16 (`launch_deep_bf16`),
+// 192 and 256 in f32 --; the columns past hd come in as zeros from the
+// tensor map's out-of-bounds fill. launch_width is -1 when hd is refused
+// (under 1, or not a multiple of 8) or the dtype is unknown. Past 256 bf16 pieces are
 // at most 128 columns (the wgmma body's accumulators spill at 256: 2.9x
 // slower at hd 512, PERF.md), f32 ones at most 256 (its scalar body has
 // no such cap, and fewer pieces recompute Q . K^T fewer times).
@@ -49,8 +51,8 @@ inline int piece_cols(int dtype, int hd) {
 inline int launch_width(int dtype, int hd) {
   if (hd < 1 || hd % 8 != 0 || (dtype != kF32 && dtype != kBF16)) return -1;
   const int p = piece_cols(dtype, hd);
-  return p <= 16 ? 16 : p <= 32 ? 32 : p <= 64 ? 64 : p <= 128 ? 128
-       : p <= 192 ? 192 : 256;
+  return p <= 16 ? 16 : p <= 32 ? 32 : p <= 64 ? 64
+       : p <= 96 && p == hd ? 96 : p <= 128 ? 128 : p <= 192 ? 192 : 256;
 }
 
 // 1 / sqrt(hd) of the true head dim (a padded copy's width never sets it)
@@ -230,12 +232,12 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType dtype,
 // The tensor-core pieces of the bf16 flash body (flash_attention.cu) and of
 // the decode kernel's tensor-core body (decode_attention.cu). A tile of
 // rows of width HD lies in shared memory as HD / (line / 2) boxes of
-// [rows][line bytes], each line swizzled by TMA: widths 64 to 256 in
-// 128-byte lines, 32 and 16 in one 64- or 32-byte line (`line_bytes`), so
-// a line never holds parts of two rows.
+// [rows][line bytes], each line swizzled by TMA: widths 64, 128, 192 and
+// 256 in 128-byte lines, 96 in three 64-byte lines, 32 and 16 in one 64- or
+// 32-byte line (`line_bytes`), so a line never holds parts of two rows.
 
 __host__ __device__ constexpr int line_bytes(int HD) {
-  return HD * 2 < 128 ? HD * 2 : 128;
+  return HD * 2 < 128 ? HD * 2 : HD % 64 != 0 ? 64 : 128;
 }
 
 // A wgmma shared-memory descriptor of an operand swizzled in LINE-byte
@@ -312,6 +314,37 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 128, f32) (+)= A (64 x 16) . B (16 x 128): both bf16 in shared
+// memory, K-major; ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 32, f32) (+)= A (64 x 16) . B (16 x 32): both bf16 in shared
 // memory, K-major; ``accumulate`` 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
@@ -385,6 +418,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 96, f32) += A (64 x 16, bf16 in registers) . B (16 x 96, bf16
+// in shared memory, MN-major: the descriptor's transpose of B)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16
 // in shared memory, MN-major: the descriptor's transpose of B)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -423,12 +483,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
 // S = A . K^T of one key tile, issued (not waited for): A's 64 rows from
-// a_rows (a tile of QROWS rows a box) and the tile's KN (64 or 32) keys,
-// wgmma N = KN, HD / 16 k-steps of 16 columns, i.e. 32 bytes into a
+// a_rows (a tile of QROWS rows a box) and the tile's KN (32, 64 or 128)
+// keys, wgmma N = KN, HD / 16 k-steps of 16 columns, i.e. 32 bytes into a
 // swizzled line (4 steps a 128-byte line, 2 a 64-byte one, 1 a 32-byte
 // one), the second 64 columns of hd 128 in the second box of each; 8-row
 // groups line * 8 bytes apart (the stride byte offset).
@@ -437,8 +498,8 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
                                              uint32_t a_rows, uint32_t kt) {
   constexpr int kLine = line_bytes(HD);
   constexpr int kSteps = kLine / 32;  // k-steps a line
-  static_assert(KN == 64 || KN == 32,
-                "S = Q . K^T is issued as wgmma m64n64k16 or m64n32k16");
+  static_assert(KN == 128 || KN == 64 || KN == 32,
+                "S = Q . K^T is issued as wgmma m64nKNk16, KN 32, 64, 128");
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
     const uint32_t col = (ks % kSteps) * 32;
@@ -446,7 +507,9 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
         a_rows + (ks / kSteps) * QROWS * kLine + col, 16, 8 * kLine);
     const uint64_t db = desc_sw<kLine>(kt + (ks / kSteps) * KN * kLine + col,
                                        16, 8 * kLine);
-    if constexpr (KN == 64)
+    if constexpr (KN == 128)
+      wgmma_ss_n128(sc, da, db, ks > 0);
+    else if constexpr (KN == 64)
       wgmma_ss_n64(sc, da, db, ks > 0);
     else
       wgmma_ss_n32(sc, da, db, ks > 0);
@@ -455,7 +518,8 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KN / 2],
 }
 
 // O += P . V of one key tile, issued but not committed: V [keys][hd] is B
-// in MN-major form (wgmma N = HD up to 128), a k-step being 16 key lines
+// in MN-major form (wgmma N = HD up to 128; at 96 three 32-column atoms of
+// the 64-byte swizzle), a k-step being 16 key lines
 // (16 line bytes), 8-key groups 8 lines apart, the 64-column boxes of a
 // row one tile apart (the leading byte offset; a narrower row is one
 // swizzle atom wide). Widths past 128 issue a product of N = 128 a pair of

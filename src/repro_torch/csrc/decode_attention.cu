@@ -134,10 +134,11 @@ cudaError_t allow_smem(Kern kern, size_t smem, size_t* allowed) {
 // A row of width HD (`launch_width`: 16 to 256) over the lanes of a row
 // group: LPR lanes (a power of two, at most 32) of EPL elements each --
 // one 16-byte vector, or two (32 bytes) for f32 past width 128 -- so a row
-// group covers LPR * EPL >= HD columns; at width 192 the last 8 lanes of
-// each row group hold no column (kFull false) and load nothing. A
-// sub-tile is TR rows: a power of two of rows a row group, as many as
-// kSubBytes holds (6 KB at width 192, else 8 KB) -- `tile_rows` in
+// group covers LPR * EPL >= HD columns; at widths 96 (f32) and 192 the
+// last 8 lanes of each row group hold no column (kFull false) and load
+// nothing. A sub-tile is TR rows: a power of two of rows a row group, as
+// many as kSubBytes holds (6 KB at widths 96 and 192 in f32 and at 192 in
+// bf16, else 8 KB) -- `tile_rows` in
 // kernels/decode_attention/decode_attention.py mirrors it.
 template <typename T, int HD>
 struct Tile {
@@ -741,7 +742,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 #undef DECODE_KERNEL
 }
 
-#define DECODE_WIDTHS(X) X(16) X(32) X(64) X(128) X(192) X(256)
+#define DECODE_WIDTHS(X) X(16) X(32) X(64) X(96) X(128) X(192) X(256)
 
 template <typename T>
 int launch_hd(int hd, int hd_scale, const void* q, const void* k,

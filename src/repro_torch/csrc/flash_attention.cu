@@ -12,54 +12,66 @@
 // type. S need not be a multiple of any block (the reference asserts it).
 //
 // Bound. Operations: 4 hd flops a (query head, visible key) pair, half the
-// S^2 pairs when causal. At the prefill shape (B 8, S 2048, KV 8, G 4,
-// hd 128, bf16, causal) that is 274.9 GFLOP, 0.278 ms at the card's
-// 989 TFLOP/s bf16 peak, against 335.5 MB of q, k, v and o (0.100 ms at
-// 3.35 TB/s): bound by operations, and only wgmma reaches the tensor
-// cores' full rate.
+// S^2 pairs when causal, and one exponential a pair. At the prefill shape
+// (B 8, S 2048, KV 8, G 4, hd 128, bf16, causal) that is 274.9 GFLOP,
+// 0.278 ms at the card's 989 TFLOP/s bf16 peak, against 335.5 MB of q, k,
+// v and o (0.100 ms at 3.35 TB/s): bound by operations, and only wgmma
+// reaches the tensor cores' full rate. At hd 64 the exponentials (16 a
+// clock an SM) take as long as the products.
 //
 // Design. The Pallas grid walks the kv blocks of a q block in sequence
-// with its accumulators in VMEM. Here one block owns a tile of 128 rows, a
-// row being a (query position, query head) pair of one (b, kv):
-// 128 / G positions times all G heads of that KV head (the rows in use are
-// (128 / G) * G when G does not divide 128), so every K and V tile it loads
-// serves the G heads at once; past 64 heads the G heads split into
-// balanced chunks of at most 64 (Falcon-7B's 71: 36 + 35, 3 positions x 36
-// = 108 rows), one block a chunk, each loading the same K / V tiles (the
-// rereads come from L2). Each body is built at the widths 16, 32, 64, 128,
-// 192 and 256 and runs a head dim (a multiple of 8; the wrappers pass any
-// other as a zero-padded copy) at the first that holds it: the columns
-// past hd are zeros, the scale is the true hd's. It walks the key tiles up to the diagonal
-// (skipping those above it), masks only where a tile crosses the diagonal
-// or the end of S, and runs the heaviest (last) causal q tiles first. Two
-// bodies share that schedule:
-//  * bf16: flash_fwd_wgmma_kernel, a
-//    warp-specialised block of three warpgroups. One producer thread
-//    issues TMA loads (cp.async.bulk.tensor) of Q once and of the K and V
-//    tiles into a ring in shared memory (3 stages of 64-key tiles; 32-key
-//    tiles past width 128, whose consumers hold HD / 2 accumulators), with
-//    full and empty mbarriers, 128-byte swizzled (2 stages at width 256,
-//    whose 3 would take 256 KB); q is a 5-D tensor map {hd, G, KV, S, B}
-//    and k / v 4-D maps {hd, KV, S, B}, so a ragged tile past S, and the
-//    columns past hd, are zero-filled by the hardware and never read the
-//    next sequence or row (widths 64 to 256 take one to four 64-column
-//    boxes a row; a row of width 32 or 16 is one 64- or 32-byte box, 64- or
-//    32-byte swizzled, read through descriptors of layout B64 or B32:
+// with its accumulators in VMEM. Here a tile of 128 rows, a row being a
+// (query position, query head) pair of one (b, kv): 128 / G positions
+// times all G heads of that KV head (the rows in use are (128 / G) * G when
+// G does not divide 128), so every K and V tile it loads serves the G heads
+// at once. Each body is built at the widths 16, 32, 64, 96, 128, 192 and 256
+// and runs a head dim (a multiple of 8; the wrappers pass any other as a
+// zero-padded copy) at the first that holds it (96 for whole rows only):
+// the columns past hd are zeros, the scale is the true hd's. A tile walks
+// the key tiles up to the diagonal (skipping those above it), masks only
+// where a key tile crosses the diagonal or the end of S, and the heaviest
+// (last) causal q tiles go first. Two bodies:
+//  * bf16: flash_fwd_wgmma_kernel, persistent warp-specialised blocks of
+//    three warpgroups, one an SM, walking a list of units (a tile of one
+//    head chunk, kv and b; `Plan`, `unit_of`: heaviest first within
+//    groups of (kv, b) pairs, all pairs one group unless their K and V
+//    pass 2.5x the L2) in rounds that alternate direction over the
+//    blocks (`unit_at`), so that a block's fixed costs -- its launch,
+//    barriers, the next tile's Q and first K / V tiles -- overlap the
+//    current tile's products instead of idling the SM (one key tile a
+//    block took 16-27% of the one-block-a-tile grid's time at the wide
+//    shapes, PERF.md). Past 64 heads a KV head the heads go in chunks of
+//    64 and the rest (`make_plan`: Falcon-7B's 71 = 64 + 7, 128 and 126 rows
+//    of a tile in use, against 108 in balanced chunks of 36 + 35), each
+//    chunk reading the same K / V tiles (from L2). One producer thread
+//    issues TMA loads (cp.async.bulk.tensor) of each unit's Q and of the K
+//    and V tiles into a ring in shared memory (`key_tile`: 128-key tiles
+//    at widths 64 to 128, else 64; 3 stages, 2 at width 256), with full
+//    and empty mbarriers, swizzled (`attn::line_bytes`); q is a 5-D tensor
+//    map {hd, G, KV, S, B} (one a chunk size) and k / v 4-D maps {hd, KV,
+//    S, B}, so a ragged tile past S, and the columns past hd, are
+//    zero-filled by the hardware and never read the next sequence or row
+//    (widths 64 to 256 take one to four 64-column boxes a row, 96 three
+//    32-column boxes of a 64-byte swizzle; a row of width 32 or 16 is one
+//    64- or 32-byte box, read through descriptors of layout B64 or B32:
 //    HD / 16 k-steps in Q . K^T, wgmma N = HD in P . V up to 128, pieces of
-//    N = 128 and 64 past it). Two consumer warpgroups own 64 rows each (setmaxnreg
-//    gives them the producer's registers): S = Q . K^T is wgmma m64nKNk16
-//    with both operands in shared memory (products of bf16 values are exact
-//    in f32, so the scores are the reference's f32 scores); the online
-//    softmax runs in registers in the log2 domain, scale * log2(e) folded
-//    into one multiply, exponentials on ex2.approx; P is rounded to bf16 in
-//    registers and O += P . V is wgmma with P from registers and V read in
-//    its natural [keys][hd] layout through the descriptor's transpose. A
-//    consumer issues S_t and P_{t-1} . V_{t-1} together and takes the
-//    softmax of S_t while the second product runs; a K stage is released
-//    when its S is done, a V stage when its product is. The two consumers
-//    take turns to issue (two named barriers: FA3's ping-pong), so one's
-//    softmax runs under the other's products.
-//  * f32 (the same widths): flash_fwd_kernel, scalar f32 FMAs on
+//    N = 128 and 64 past it). Two consumer warpgroups own 64 rows each
+//    (setmaxnreg gives them the producer's registers): S = Q . K^T is wgmma
+//    m64nKNk16 with both operands in shared memory (products of bf16 values
+//    are exact in f32, so the scores are the reference's f32 scores); the
+//    online softmax runs in registers in the log2 domain, scale * log2(e)
+//    folded into one multiply, exponentials on ex2.approx; P is rounded to
+//    bf16 in registers and O += P . V is wgmma with P from registers and V
+//    read in its natural [keys][hd] layout through the descriptor's
+//    transpose. A consumer issues S_t and P_{t-1} . V_{t-1} together and
+//    takes the softmax of S_t while the second product runs; a K stage is
+//    released when its S is done, a V stage when its product is, Q when the
+//    unit's last S is. The two consumers take turns to issue (two named
+//    barriers: FA3's ping-pong), so one's softmax runs under the other's
+//    products.
+//  * f32 (the same widths): flash_fwd_kernel, one block a tile (past 64
+//    heads in balanced chunks of at most 64 on the grid, `chunk_heads`, as
+//    the bf16 pieces of rows past 256 take them), scalar f32 FMAs on
 //    the same rounded values over 64-row tiles and 64-key tiles: Q (and K)
 //    transposed, V and P in shared memory as f32, each thread a 4 x 8
 //    block of scores and a 4 x (hd / 8) block of the output, read in
@@ -387,31 +399,56 @@ constexpr int kWgRows = 64;                        // rows a consumer: wgmma M
 constexpr int kTileRows = kConsumers * kWgRows;    // rows a block
 constexpr int kThreads = (kConsumers + 1) * 128;   // + the producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+// the persistent body's producer walks the unit list (`unit_of`): 24
+// registers spilled 52 bytes there, so it takes 40 and its consumers 232
+// (40 x 128 + 232 x 256 fits the 168 x 384 a block is launched with)
+constexpr int kUnitProducerRegs = 40, kUnitConsumerRegs = 232;
+
+// Keys a tile of the bf16 kernel at width HD (`key_tile` in
+// kernels/flash_attention/flash_attention.py): 128 at widths 64 to 128, 64
+// elsewhere. There a tile's products are short beside the fixed cost of
+// its step (barriers, waits, the turn): 128 keys took 0.78x the time of 64
+// at Falcon-7B's shape, 0.93x at lm_serve's and 0.86x at Phi-3-mini's
+// (PERF.md D, N), a consumer holding HD / 2 accumulators, 64 scores and
+// 32 P registers (no spill; 128-key tiles without setmaxnreg's 232
+// consumer registers made ptxas serialize the wgmmas). Up to
+// width 32 a 64-key tile is already most of a short row's work. Past 128
+// a consumer holds HD / 2 accumulators beside 32 scores and 16 P
+// registers, and spills nothing at 256 in this body (up to R229 in its
+// SASS); 32-key tiles spilled 260 bytes there, in a one-block-a-tile
+// body, and Q . K^T re-read Q from shared memory for
+// every 32 keys: 64 keys took 0.52x their time at Gemma-2B's shape.
+constexpr int key_tile(int HD) { return HD >= 64 && HD <= 128 ? 128 : 64; }
 
 // Shared memory, each region 1024-byte aligned (the 128-byte swizzle's
 // period, a multiple of the 64- and 32-byte swizzles'): Q [kBoxes][128
 // rows][kBox], the K ring and the V ring [kStages][kBoxes][KN rows][kBox],
-// then the mbarriers full_q, full_k[kStages], full_v[kStages],
-// empty_k[kStages], empty_v[kStages]. A row lies in swizzled lines of
-// kLine bytes: widths 64 to 256 in one to four 128-byte lines (TMA's and
-// wgmma's 128-byte swizzle), 32 and 16 in one 64- or 32-byte line (the
-// 64- and 32-byte swizzles), so a line never holds parts of two rows. At
-// width 256 Q takes 64 KB and a stage of K and V 64 KB: two stages fit the
-// 227 KB a block may use, three (256 KB) do not.
+// then the mbarriers full_q, empty_q, full_k[kStages], full_v[kStages],
+// empty_k[kStages], empty_v[kStages], then the unit the producer loaded Q
+// for (written before it arms full_q: the consumers read it after their
+// wait, which acquires it). A row lies in swizzled lines of
+// kLine bytes (`attn::line_bytes`): widths 64, 128, 192 and 256 in one to
+// four 128-byte lines (TMA's and wgmma's 128-byte swizzle), 96 in three
+// 64-byte lines, 32 and 16 in one 64- or 32-byte line (the 64- and 32-byte
+// swizzles), so a line never holds parts of two rows. At width 256 Q takes
+// 64 KB and a stage of K and V 64 KB: two stages fit the 227 KB a block
+// may use, three (256 KB) do not; deeper rings of smaller tiles (5 of 32
+// keys, 3 of 48) ran no faster (PERF.md).
 template <int HD, int KN>
 struct Layout {
-  static constexpr int kLine = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span
+  static constexpr int kLine = attn::line_bytes(HD);     // swizzle span
   static constexpr int kBox = kLine / 2;                 // bf16 columns a box
   static constexpr int kBoxes = HD / kBox;               // boxes a row
-  static constexpr int kStages = HD > 192 ? 2 : 3;       // ring depth
   static constexpr int kTileBytes = kBoxes * KN * kLine;  // a K or V tile
   static constexpr int kK = kBoxes * kTileRows * kLine;
+  static constexpr int kStages = HD > 192 ? 2 : 3;       // ring depth
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBars = kV + kStages * kTileBytes;
-  static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int kUnit = kBars + 8 * (2 + 4 * kStages);  // a Unit
+  static constexpr int kSmem = kUnit + 32 + 1024;
   static_assert((kLine == 128 && HD % 64 == 0) || kLine == 64 ||
                     kLine == 32,
-                "widths 16, 32 and multiples of 64");
+                "widths 16, 32, 96 and multiples of 64");
   static_assert(kSmem <= 232448, "a block's shared memory");
   static_assert(kTileBytes % 1024 == 0, "regions stay 1024-byte aligned");
 };
@@ -486,56 +523,152 @@ __device__ __forceinline__ void online_softmax(
   l1 = l1 * al1 + sum1;
 }
 
-// One block: 128 rows (position, head) of one (b, kv) -- kTileRows / GC
-// positions of the GC heads [g0, g0 + GC) of head chunk blockIdx.x % n_gc
-// -- three warpgroups, built at a width HD >= hd (`launch_width`): the
-// tensor maps' inner dimension is hd, so TMA fills the columns past it
-// with zeros and the epilogue writes hd columns.
-// Warpgroup 2 is the producer (one thread issues every TMA load);
-// warpgroups 0 and 1 are the consumers, 64 rows each. A consumer thread
-// holds rows r0 = 64 wg + 16 warp + lane / 4 and r1 = r0 + 8: the wgmma
-// accumulator layout, element j of a row's accumulators being column
-// 8 (j / 4) + 2 (lane % 4) + (j % 2) of row (j & 2 ? r1 : r0). A consumer
-// pipelines its tiles: it issues S_t = Q . K_t^T and O += P_{t-1} . V_{t-1}
-// together, takes the softmax of S_t while the second product runs, then
-// rescales O and packs P_t; K_t's stage is released as soon as S_t is
-// done, V_{t-1}'s when its product is. EXACT as in flash_fwd_kernel.
+// The bf16 body's work: units of 128 rows (position, head) of one (b, kv)
+// -- a q tile of BQ positions times the GC heads [g0, g0 + GC) of a head
+// chunk -- and the order persistent blocks walk them in (`work_units` in
+// kernels/flash_attention/flash_attention.py mirrors both). Head chunks
+// fill the tile (`make_plan`): all G heads up to 64, past it n_a chunks of
+// 64 heads (2 positions) and one of the G mod 64 left (Falcon-7B's 71:
+// 64 + 7, 128 and 126 rows of 128 in use). The (kv, b) pairs go in
+// groups; within a group units go heaviest first -- by the key tiles a
+// unit walks, the chunks of 64 before the last chunk among equals, later q
+// tiles first -- each rank over the group's pairs (kv fastest). All pairs
+// go in one group unless their K and V together
+// pass kL2All (2.5x the 50 MB L2), and then in groups of kL2Group: with
+// every pair at once the blocks in flight streamed 200 MB of K and V at
+// Phi-3-mini's shape (0.679 ms against 0.636 in groups of 8 MB) and 256
+// MB at GPT-J's (0.839 against 0.610), while in groups of 8 MB lm_serve's
+// 64 MB ran 0.807 ms against 0.678 in one group, Gemma-2B's 16 MB 0.318
+// against 0.277, and width 192's 96 MB 0.301 against 0.260 (PERF.md, D).
+constexpr long long kL2All = 128LL << 20;
+constexpr int kL2Group = 8 << 20;
+
+struct Plan {
+  int n_a, gc_a, bq_a, n_qa;  // n_a chunks of gc_a heads: q tiles of bq_a
+  int gc_b, bq_b, n_qb;       // the last chunk of gc_b heads (0: none)
+  int KV, kvb, group;         // kvb = KV B pairs, in groups of `group`
+  int n_units;                // ranks (n_a n_qa + n_qb) x kvb
+  int n_tiles;                // the most key tiles a unit walks
+};
+
+struct Unit {
+  int q0, bq, gc, g0, kv, b, n_tiles;
+  int last;  // the last chunk's (its own tensor map)
+};
+
+// q tiles of bq positions (of n_q) that walk at least w key tiles of kn
+__device__ __forceinline__ int tiles_at_least(int w, int n_q, int bq, int S,
+                                              int kn, int causal) {
+  const int x = (w - 1) * kn;
+  if (n_q == 0 || x >= S) return 0;
+  return causal ? n_q - x / bq : n_q;
+}
+
+// Unit u of the order above: the group, then the rank's work w by a
+// binary search for the largest w with more than r units at least as
+// heavy, then the unit among those of work w
+template <int KN>
+__device__ __forceinline__ Unit unit_of(const Plan& p, int u, int S,
+                                        int causal) {
+  Unit un;
+  const int ranks = p.n_a * p.n_qa + p.n_qb;
+  const int sg = u / (ranks * p.group);
+  const int size = min(p.group, p.kvb - sg * p.group);  // the group's pairs
+  const int in = u - sg * ranks * p.group;
+  const int r = in / size, e = sg * p.group + in % size;
+  un.kv = e % p.KV;
+  un.b = e / p.KV;
+  int lo = 1, hi = p.n_tiles;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    const int c = p.n_a * tiles_at_least(mid, p.n_qa, p.bq_a, S, KN, causal) +
+                  tiles_at_least(mid, p.n_qb, p.bq_b, S, KN, causal);
+    if (c > r) lo = mid; else hi = mid - 1;
+  }
+  const int ta = tiles_at_least(lo + 1, p.n_qa, p.bq_a, S, KN, causal);
+  const int tb = tiles_at_least(lo + 1, p.n_qb, p.bq_b, S, KN, causal);
+  int o = r - (p.n_a * ta + tb);  // rank among the units of work lo
+  const int na_w =
+      p.n_a * (tiles_at_least(lo, p.n_qa, p.bq_a, S, KN, causal) - ta);
+  un.n_tiles = lo;
+  if (o < na_w) {
+    un.last = 0;
+    un.bq = p.bq_a;
+    un.gc = p.gc_a;
+    un.q0 = (p.n_qa - ta - 1 - o / p.n_a) * p.bq_a;
+    un.g0 = o % p.n_a * p.gc_a;
+  } else {
+    o -= na_w;
+    un.last = 1;
+    un.bq = p.bq_b;
+    un.gc = p.gc_b;
+    un.q0 = (p.n_qb - tb - 1 - o) * p.bq_b;
+    un.g0 = p.n_a * p.gc_a;
+  }
+  return un;
+}
+
+// The unit a persistent block takes in its round j: rounds alternate in
+// direction over the blocks (block i takes units i, 2 n - 1 - i, 2 n + i,
+// ...), so that within a group, where work falls from unit to unit, each
+// block's heavy and light units pair up.
+__device__ __forceinline__ int unit_at(int j, int i, int n) {
+  return j * n + ((j & 1) ? n - 1 - i : i);
+}
+
+// A persistent block: the units `unit_at(j, blockIdx.x, gridDim.x)`, one
+// after the other, three warpgroups, built at a width HD >= hd
+// (`launch_width`): the tensor maps' inner dimension is hd, so TMA fills
+// the columns past it with zeros and the epilogue writes hd columns.
+// Warpgroup 2 is the producer (one thread issues every TMA load): a unit's
+// Q once the consumers are done with the previous unit's (empty_q), then
+// its K and V tiles through the ring, one running count of tiles over the
+// block's units, so the next unit's Q and first tiles load while the
+// consumers finish the current one. It computes each unit (`unit_of`)
+// before it waits for empty_q and hands it to the consumers in shared
+// memory with the unit's Q: computed by the consumers themselves, on their
+// way from one unit to the next, it cost Falcon-7B's shape 18% (PERF.md,
+// H). Warpgroups 0 and 1 are the consumers, 64 rows each. A
+// consumer thread holds rows r0 = 64 wg + 16 warp + lane / 4 and r1 = r0 +
+// 8: the wgmma accumulator layout, element j of a row's accumulators being
+// column 8 (j / 4) + 2 (lane % 4) + (j % 2) of row (j & 2 ? r1 : r0). A
+// consumer pipelines its tiles: it issues S_t = Q . K_t^T and O +=
+// P_{t-1} . V_{t-1} together, takes the softmax of S_t while the second
+// product runs, then rescales O and packs P_t; K_t's stage is released as
+// soon as S_t is done, V_{t-1}'s when its product is, Q once the unit's
+// last S is. EXACT (hd == HD and one chunk of all G heads) fixes hd and the
+// chunk when compiling.
 template <int HD, int KN, bool EXACT>
 __global__ void __launch_bounds__(tma::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap qmap_last,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        __nv_bfloat16* __restrict__ o, int S, int KV, int G,
-                       int hd_arg, int gc_arg, int n_gc_arg, int causal,
-                       float scale_log2) {
+                       int hd_arg, const __grid_constant__ Plan plan,
+                       int causal, float scale_log2) {
   using namespace tma;
   const int hd = EXACT ? HD : hd_arg;
-  const int GC = EXACT ? G : gc_arg, n_gc = EXACT ? 1 : n_gc_arg;
   using Lt = Layout<HD, KN>;
   constexpr int NS = Lt::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sk = sq + Lt::kK, sv = sq + Lt::kV;
-  const uint32_t full_q = sq + Lt::kBars;
-  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * NS;
+  const uint32_t full_q = sq + Lt::kBars, empty_q = full_q + 8;
+  const uint32_t full_k = empty_q + 8, full_v = full_k + 8 * NS;
   const uint32_t empty_k = full_v + 8 * NS, empty_v = empty_k + 8 * NS;
-
-  const int BQ = kTileRows / GC, R = BQ * GC;
-  // heaviest causal tiles first, the head chunks of a tile side by side
-  const int rev = gridDim.x - 1 - blockIdx.x;
-  const int qt = rev / n_gc, g0 = rev % n_gc * GC;
-  const int kv = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BQ;
-  const int p_last = min(S, q0 + BQ) - 1;  // last live position of the tile
-  const int n_tiles = causal ? p_last / KN + 1 : (S + KN - 1) / KN;
+  // the unit whose Q is in flight, for the consumers
+  Unit* slot = reinterpret_cast<Unit*>(smem_raw + (sq + Lt::kUnit -
+                                                    smem_u32(smem_raw)));
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
+    mbar_init(empty_q, kConsumers * 4);  // one arrival a warp
     for (int s = 0; s < NS; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty_k + 8 * s, kConsumers * 4);  // one arrival a warp
+      mbar_init(empty_k + 8 * s, kConsumers * 4);
       mbar_init(empty_v + 8 * s, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -543,120 +676,151 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (wg == kConsumers) {
-    // ---- producer: Q once, then K and V tiles through the ring ----------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    // ---- producer: each unit's Q, then its K and V tiles ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(kUnitProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(full_q, Lt::kBoxes * R * Lt::kLine);
-#pragma unroll
-      for (int h = 0; h < Lt::kBoxes; ++h)
-        tma_load_5d(sq + h * kTileRows * Lt::kLine, &qmap, full_q,
-                    h * Lt::kBox, g0, kv, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % NS;
-        // the consumers released this stage's previous K (then V) tile
-        const uint32_t parity = (t / NS - 1) & 1;
-        const uint32_t kt = sk + s * Lt::kTileBytes;
-        const uint32_t vt = sv + s * Lt::kTileBytes;
-        if (t >= NS) mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, Lt::kTileBytes);
+      int g = 0;  // tiles issued
+      for (int j = 0;; ++j) {
+        const int u = unit_at(j, blockIdx.x, gridDim.x);
+        if (u >= plan.n_units) break;
+        const Unit un = unit_of<KN>(plan, u, S, causal);
+        if (j > 0) mbar_wait(empty_q, (j - 1) & 1);
+        *slot = un;
+        mbar_expect_tx(full_q, Lt::kBoxes * un.bq * un.gc * Lt::kLine);
 #pragma unroll
         for (int h = 0; h < Lt::kBoxes; ++h)
-          tma_load_4d(kt + h * KN * Lt::kLine, &kmap, full_k + 8 * s,
-                      h * Lt::kBox, kv, t * KN, b);
-        if (t >= NS) mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, Lt::kTileBytes);
+          tma_load_5d(sq + h * kTileRows * Lt::kLine,
+                      un.last ? &qmap_last : &qmap, full_q, h * Lt::kBox,
+                      un.g0, un.kv, un.q0, un.b);
+        for (int t = 0; t < un.n_tiles; ++t, ++g) {
+          const int s = g % NS;
+          // the consumers released this stage's previous K (then V) tile
+          const uint32_t parity = (g / NS - 1) & 1;
+          const uint32_t kt = sk + s * Lt::kTileBytes;
+          const uint32_t vt = sv + s * Lt::kTileBytes;
+          if (g >= NS) mbar_wait(empty_k + 8 * s, parity);
+          mbar_expect_tx(full_k + 8 * s, Lt::kTileBytes);
 #pragma unroll
-        for (int h = 0; h < Lt::kBoxes; ++h)
-          tma_load_4d(vt + h * KN * Lt::kLine, &vmap, full_v + 8 * s,
-                      h * Lt::kBox, kv, t * KN, b);
+          for (int h = 0; h < Lt::kBoxes; ++h)
+            tma_load_4d(kt + h * KN * Lt::kLine, &kmap, full_k + 8 * s,
+                        h * Lt::kBox, un.kv, t * KN, un.b);
+          if (g >= NS) mbar_wait(empty_v + 8 * s, parity);
+          mbar_expect_tx(full_v + 8 * s, Lt::kTileBytes);
+#pragma unroll
+          for (int h = 0; h < Lt::kBoxes; ++h)
+            tma_load_4d(vt + h * KN * Lt::kLine, &vmap, full_v + 8 * s,
+                        h * Lt::kBox, un.kv, t * KN, un.b);
+        }
       }
     }
   } else {
     // ---- consumers: 64 rows each ----------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 ::"n"(kUnitConsumerRegs));
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int tig = lane % 4;
     const int r0 = wg * kWgRows + warp * 16 + lane / 4, r1 = r0 + 8;
-    const int pos0 = q0 + r0 / GC, pos1 = q0 + r1 / GC;
     const uint32_t q_rows = sq + wg * kWgRows * Lt::kLine;  // this group's Q
-    float acc[HD / 2], sc[KN / 2];
-    uint32_t pa[KN / 16][4];
+    int g = 0;  // tiles consumed
+    for (int j = 0;; ++j) {
+      if (unit_at(j, blockIdx.x, gridDim.x) >= plan.n_units) break;
+      // tile 0: its scores and softmax (O is zero: nothing to rescale);
+      // warpgroup 0 takes the first turn
+      if (wg == 1) pass_turn(wg);
+      mbar_wait(full_q, j & 1);
+      const Unit un = *slot;
+      const int GC = EXACT ? G : un.gc;
+      const int q0 = un.q0, R = un.bq * GC;
+      const int pos0 = q0 + r0 / GC, pos1 = q0 + r1 / GC;
+      const int n_tiles = un.n_tiles;
+      float acc[HD / 2], sc[KN / 2];
+      uint32_t pa[KN / 16][4];
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
-    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, al0, al1;
-
-    // tile 0: its scores and softmax (O is zero: nothing to rescale);
-    // warpgroup 0 takes the first turn
-    if (wg == 1) pass_turn(wg);
-    mbar_wait(full_q, 0);
-    mbar_wait(full_k, 0);
-    wait_turn(wg);
-    wgmma_fence();
-    attn::issue_scores<HD, KN, tma::kTileRows>(sc, q_rows, sk);
-    pass_turn(wg);
-    wgmma_wait<0>();
-    fence_regs(sc);
-    if (lane == 0) mbar_arrive(empty_k);
-    online_softmax<KN>(sc, 0, KN > S || (causal && KN - 1 > q0), S, causal,
-                       pos0, pos1, tig, scale_log2, m0, m1, l0, l1, al0, al1);
-    pack_p<KN>(sc, pa);
-    for (int t = 1; t < n_tiles; ++t) {
-      const int s = t % NS, sp = (t - 1) % NS;
-      const int k0 = t * KN;
-      mbar_wait(full_k + 8 * s, (t / NS) & 1);
-      mbar_wait(full_v + 8 * sp, ((t - 1) / NS) & 1);
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, al0, al1;
+      const int s0 = g % NS;
+      mbar_wait(full_k + 8 * s0, (g / NS) & 1);
       wait_turn(wg);
       wgmma_fence();
-      attn::issue_scores<HD, KN, tma::kTileRows>(sc, q_rows,
-                                                 sk + s * Lt::kTileBytes);
-      issue_pv<HD, KN>(acc, pa, sv + sp * Lt::kTileBytes);
+      attn::issue_scores<HD, KN, tma::kTileRows>(
+          sc, q_rows, sk + s0 * Lt::kTileBytes);
       pass_turn(wg);
-      wgmma_wait<1>();  // S_t is done, P_{t-1} . V_{t-1} may still run
+      wgmma_wait<0>();
       fence_regs(sc);
-      if (lane == 0) mbar_arrive(empty_k + 8 * s);
-      online_softmax<KN>(sc, k0, k0 + KN > S || (causal && k0 + KN - 1 > q0),
-                         S, causal, pos0, pos1, tig, scale_log2, m0, m1, l0,
-                         l1, al0, al1);
+      if (lane == 0) {
+        mbar_arrive(empty_k + 8 * s0);
+        if (n_tiles == 1) mbar_arrive(empty_q);
+      }
+      online_softmax<KN>(sc, 0, KN > S || (causal && KN - 1 > q0), S, causal,
+                         pos0, pos1, tig, scale_log2, m0, m1, l0, l1, al0,
+                         al1);
+      pack_p<KN>(sc, pa);
+      for (int t = 1; t < n_tiles; ++t) {
+        const int s = (g + t) % NS, sp = (g + t - 1) % NS;
+        const int k0 = t * KN;
+        mbar_wait(full_k + 8 * s, ((g + t) / NS) & 1);
+        mbar_wait(full_v + 8 * sp, ((g + t - 1) / NS) & 1);
+        wait_turn(wg);
+        wgmma_fence();
+        attn::issue_scores<HD, KN, tma::kTileRows>(
+            sc, q_rows, sk + s * Lt::kTileBytes);
+        issue_pv<HD, KN>(acc, pa, sv + sp * Lt::kTileBytes);
+        pass_turn(wg);
+        wgmma_wait<1>();  // S_t is done, P_{t-1} . V_{t-1} may still run
+        fence_regs(sc);
+        if (lane == 0) {
+          mbar_arrive(empty_k + 8 * s);
+          if (t == n_tiles - 1) mbar_arrive(empty_q);
+        }
+        online_softmax<KN>(sc, k0,
+                           k0 + KN > S || (causal && k0 + KN - 1 > q0), S,
+                           causal, pos0, pos1, tig, scale_log2, m0, m1, l0,
+                           l1, al0, al1);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(empty_v + 8 * sp);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+        pack_p<KN>(sc, pa);
+      }
+      const int sl = (g + n_tiles - 1) % NS;
+      mbar_wait(full_v + 8 * sl, ((g + n_tiles - 1) / NS) & 1);
+      fence_regs(acc);
+      wait_turn(wg);
+      wgmma_fence();
+      issue_pv<HD, KN>(acc, pa, sv + sl * Lt::kTileBytes);
+      if (wg == 0) pass_turn(wg);  // the turns balance: n_tiles + 1 each
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(pa);
-      if (lane == 0) mbar_arrive(empty_v + 8 * sp);
-#pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
-      pack_p<KN>(sc, pa);
-    }
-    const int sl = (n_tiles - 1) % NS;
-    mbar_wait(full_v + 8 * sl, ((n_tiles - 1) / NS) & 1);
-    fence_regs(acc);
-    wait_turn(wg);
-    wgmma_fence();
-    issue_pv<HD, KN>(acc, pa, sv + sl * Lt::kTileBytes);
-    if (wg == 0) pass_turn(wg);  // the turns balance: n_tiles + 1 each
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty_v + 8 * sl);
+      g += n_tiles;
 
-    // o = acc / max(l, 1e-30), rows in use, heads below G, positions
-    // inside S and the hd columns only
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      // o = acc / max(l, 1e-30), rows in use, heads below G, positions
+      // inside S and the hd columns only
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = h ? r1 : r0;
-      const int p = r / GC, g = g0 + r % GC;
-      if (r >= R || q0 + p >= S || (!EXACT && g >= G)) continue;
-      const float den = fmaxf(h ? l1 : l0, 1e-30f);
-      __nv_bfloat16* orow =
-          o + ((static_cast<size_t>(b) * S + q0 + p) * KV + kv) * G * hd +
-          static_cast<size_t>(g) * hd;
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r1 : r0;
+        const int p = r / GC, gh = un.g0 + r % GC;
+        if (r >= R || q0 + p >= S || (!EXACT && gh >= G)) continue;
+        const float den = fmaxf(h ? l1 : l0, 1e-30f);
+        __nv_bfloat16* orow =
+            o + ((static_cast<size_t>(un.b) * S + q0 + p) * KV + un.kv) * G *
+                    hd +
+            static_cast<size_t>(gh) * hd;
 #pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        if (nb * 8 < hd) {
-          const __nv_bfloat162 y = __floats2bfloat162_rn(
-              acc[4 * nb + 2 * h] / den, acc[4 * nb + 2 * h + 1] / den);
-          *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) = y;
+        for (int nb = 0; nb < HD / 8; ++nb) {
+          if (nb * 8 < hd) {
+            const __nv_bfloat162 y = __floats2bfloat162_rn(
+                acc[4 * nb + 2 * h] / den, acc[4 * nb + 2 * h + 1] / den);
+            *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) = y;
+          }
         }
       }
     }
@@ -918,10 +1082,12 @@ flash_fwd_deep_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// Query heads a block of G: balanced chunks of at most kMaxChunk heads
-// (`head_chunks` in kernels/flash_attention/flash_attention.py), so a
-// tile keeps >= 2 positions in the bf16 kernel's 128 rows and >= 1 in the
-// f32 kernel's 64; chunk c holds heads [c GC, min(G, (c + 1) GC)).
+// Query heads a block of G in the f32 body and the bf16 body of rows past
+// 256: balanced chunks of at most kMaxChunk heads (`head_chunks` in
+// kernels/flash_attention/flash_attention.py), so a tile keeps >= 2
+// positions in the bf16 kernels' 128 rows and >= 1 in the f32 kernel's 64;
+// chunk c holds heads [c GC, min(G, (c + 1) GC)). The bf16 body of rows up
+// to 256 takes `make_plan`'s chunks instead.
 constexpr int kMaxChunk = 64;
 inline int chunk_heads(int G) {
   const int n_gc = (G + kMaxChunk - 1) / kMaxChunk;
@@ -934,14 +1100,53 @@ inline bool exact_launch(int HD, int hd, int n_gc) {
   return hd == HD && n_gc == 1;
 }
 
+// The bf16 body's units (`Plan`; `chunk_plan` and `work_units` in
+// kernels/flash_attention/flash_attention.py): chunks of all G heads up to
+// kMaxChunk, past it G / kMaxChunk chunks of kMaxChunk and one of G mod
+// kMaxChunk, each chunk's q tiles of kTileRows / GC positions; (kv, b)
+// pairs in one group, or past kL2All in groups of as many as kL2Group
+// bytes hold the K and V of (at least one).
+inline Plan make_plan(int B, int S, int KV, int G, int hd, int KN) {
+  Plan p;
+  const bool one = G <= kMaxChunk;
+  p.n_a = one ? 1 : G / kMaxChunk;
+  p.gc_a = one ? G : kMaxChunk;
+  p.gc_b = one ? 0 : G % kMaxChunk;
+  p.bq_a = tma::kTileRows / p.gc_a;
+  p.n_qa = (S + p.bq_a - 1) / p.bq_a;
+  p.bq_b = p.gc_b > 0 ? tma::kTileRows / p.gc_b : 0;
+  p.n_qb = p.gc_b > 0 ? (S + p.bq_b - 1) / p.bq_b : 0;
+  p.KV = KV;
+  p.kvb = KV * B;
+  const long long pair = 4LL * S * hd;  // K and V bytes of a pair
+  const long long fit = kL2Group / pair;
+  p.group = pair * p.kvb <= kL2All ? p.kvb
+            : fit < 1               ? 1
+                                    : static_cast<int>(fit);
+  p.n_units = (p.n_a * p.n_qa + p.n_qb) * p.kvb;
+  p.n_tiles = (S + KN - 1) / KN;
+  return p;
+}
+
+// Streaming multiprocessors of the current device: persistent blocks
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
 template <int HD, int KN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int KV, int G, int hd, int hd_scale, int causal,
                  cudaStream_t stream) {
   using Lt = tma::Layout<HD, KN>;
-  const int GC = chunk_heads(G), n_gc = (G + GC - 1) / GC;
-  const int BQ = tma::kTileRows / GC;
-  const int n_qt = (S + BQ - 1) / BQ;
+  const Plan plan = make_plan(B, S, KV, G, hd, KN);
+  const int n_sm = sm_count();
+  if (n_sm <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int n_blocks = plan.n_units < n_sm ? plan.n_units : n_sm;
   const cuuint64_t e = sizeof(__nv_bfloat16);
   const cuuint64_t w = static_cast<cuuint64_t>(hd);
   const cuuint64_t qdims[5] = {w, static_cast<cuuint64_t>(G),
@@ -951,15 +1156,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const cuuint64_t qstrides[4] = {w * e, qdims[1] * w * e,
                                   qdims[2] * qdims[1] * w * e,
                                   qdims[3] * qdims[2] * qdims[1] * w * e};
-  const cuuint32_t qbox[5] = {Lt::kBox, static_cast<cuuint32_t>(GC), 1,
-                              static_cast<cuuint32_t>(BQ), 1};
+  const cuuint32_t qbox[5] = {Lt::kBox, static_cast<cuuint32_t>(plan.gc_a),
+                              1, static_cast<cuuint32_t>(plan.bq_a), 1};
+  const bool last = plan.gc_b > 0;
+  const cuuint32_t qbox_last[5] = {
+      Lt::kBox, static_cast<cuuint32_t>(last ? plan.gc_b : plan.gc_a), 1,
+      static_cast<cuuint32_t>(last ? plan.bq_b : plan.bq_a), 1};
   const cuuint64_t kdims[4] = {w, static_cast<cuuint64_t>(KV),
                                static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(B)};
   const cuuint64_t kvstrides[3] = {w * e, kdims[1] * w * e,
                                    kdims[2] * kdims[1] * w * e};
   const cuuint32_t kbox[4] = {Lt::kBox, 1, KN, 1};
-  CUtensorMap qm, km, vm;
+  CUtensorMap qm, qm_last, km, vm;
   constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr CUtensorMapSwizzle kSw =
       Lt::kLine == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -967,11 +1176,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                         : CU_TENSOR_MAP_SWIZZLE_32B;
   int err = attn::make_map(&qm, kBf16, q, 5, qdims, qstrides, qbox, kSw);
   if (err == 0)
+    err = attn::make_map(&qm_last, kBf16, q, 5, qdims, qstrides, qbox_last,
+                         kSw);
+  if (err == 0)
     err = attn::make_map(&km, kBf16, k, 4, kdims, kvstrides, kbox, kSw);
   if (err == 0)
     err = attn::make_map(&vm, kBf16, v, 4, kdims, kvstrides, kbox, kSw);
   if (err != 0) return err;
-  auto kern = exact_launch(HD, hd, n_gc)
+  auto kern = exact_launch(HD, hd, plan.n_a + last)
                   ? flash_fwd_wgmma_kernel<HD, KN, true>
                   : flash_fwd_wgmma_kernel<HD, KN, false>;
   cudaError_t cerr = cudaFuncSetAttribute(
@@ -979,9 +1191,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const float scale_log2 = static_cast<float>(
       1.4426950408889634 / sqrt(static_cast<double>(hd_scale)));
-  kern<<<dim3(n_qt * n_gc, KV, B), tma::kThreads, Lt::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, KV, G, hd, GC, n_gc,
-      causal, scale_log2);
+  kern<<<n_blocks, tma::kThreads, Lt::kSmem, stream>>>(
+      qm, qm_last, km, vm, static_cast<__nv_bfloat16*>(o), S, KV, G, hd,
+      plan, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1071,20 +1283,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Keys a tile of the bf16 kernel at width HD (`key_tile` in
-// kernels/flash_attention/flash_attention.py): 64 measured faster than 128
-// at the prefill shape (at 128 the consumers' accumulators outgrow their
-// registers and ptxas serializes the wgmmas); past width 128 the HD / 2
-// accumulators leave room for 32 keys' scores and P (64 spill: at width
-// 192 100 bytes and 16% slower, tools/flash_width_probe.py).
-constexpr int key_tile(int HD) { return HD > 128 ? 32 : 64; }
-
 template <int HD>
 int launch_at(bool bf, const void* q, const void* k, const void* v, void* o,
               int B, int S, int KV, int G, int hd, int hd_scale, int causal,
               cudaStream_t st) {
-  return bf ? launch_wgmma<HD, key_tile(HD)>(q, k, v, o, B, S, KV, G, hd,
-                                             hd_scale, causal, st)
+  return bf ? launch_wgmma<HD, tma::key_tile(HD)>(q, k, v, o, B, S, KV, G,
+                                                  hd, hd_scale, causal, st)
             : launch<float, HD, false>(q, k, v, o, B, S, KV, G, hd,
                                        hd_scale, causal, st);
 }
@@ -1094,7 +1298,7 @@ int launch_at(bool bf, const void* q, const void* k, const void* v, void* o,
 int launch_deep_bf16(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int KV, int G, int hd, int hd_scale,
                      int causal, cudaStream_t st) {
-  constexpr int HD = 128, KN = key_tile(HD);
+  constexpr int HD = 128, KN = 64;
   return deep_resident<HD, KN>(hd)
              ? launch_wgmma_deep<HD, KN, true>(q, k, v, o, B, S, KV, G, hd,
                                                hd_scale, causal, st)
@@ -1141,6 +1345,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 16: return FLASH_AT(16);
     case 32: return FLASH_AT(32);
     case 64: return FLASH_AT(64);
+    case 96: return FLASH_AT(96);
     case 128: return FLASH_AT(128);
     case 192: return FLASH_AT(192);
     case 256: return FLASH_AT(256);

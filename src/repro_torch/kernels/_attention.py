@@ -19,8 +19,13 @@ SOURCES = tuple(os.path.join(_nvcc.CSRC, f) for f in (
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widths both kernels are built at (``launch_width`` in both C
-#: launchers): a head dim runs at the first that holds it
-WIDTHS = (16, 32, 64, 128, 192, 256)
+#: launchers): a head dim runs at the first that holds it -- 96 only for a
+#: whole row (a row of 96 bf16 columns is three 64-byte swizzled lines);
+#: the column pieces of a row past ROW_MAX run at PIECE_WIDTHS
+WIDTHS = (16, 32, 64, 96, 128, 192, 256)
+#: the widths a column piece of a row past ROW_MAX runs at: the bf16
+#: pieces' body is built at 128 alone, the f32 pieces' at 192 and 256
+PIECE_WIDTHS = tuple(w for w in WIDTHS if w != 96)
 #: the widest row a block takes whole: wgmma's N, and so the width of
 #: P . V, is at most 256 (and a TMA box at most 256 elements a dimension);
 #: a wider row runs as column pieces (`row_pieces`)
@@ -92,8 +97,9 @@ def launch_width(dtype, hd: int, name: str = "attention") -> tuple[int, bool]:
     """The one head-dim rule of both kernels, for (dtype, hd): (HDP, copy).
     HDP is the width the kernel is built at, the first of WIDTHS that holds
     a piece of the row (`row_pieces`: the whole row, ``hd`` rounded up to
-    ROW_ALIGN, up to ROW_MAX); ``copy`` says the wrapper must pass q, k
-    and v (q and the caches in decode) as a zero-padded copy of that
+    ROW_ALIGN, up to ROW_MAX; past it the first of PIECE_WIDTHS); ``copy``
+    says the wrapper must pass q, k and v (q and the caches in decode) as
+    a zero-padded copy of that
     rounded width, since a tensor map cannot read a row that is not a
     multiple of 16 bytes in place. Columns past hd up to HDP come in as
     zeros from the tensor map's out-of-bounds fill, so the scores are the
@@ -107,8 +113,9 @@ def launch_width(dtype, hd: int, name: str = "attention") -> tuple[int, bool]:
     if hd < 1:
         raise ValueError(f"{name}: head_dim {hd} under 1")
     row = padded_head_dim(hd)
-    piece, _ = row_pieces(dtype, row)
-    return next(w for w in WIDTHS if w >= piece), row != hd
+    piece, n = row_pieces(dtype, row)
+    widths = WIDTHS if n == 1 else PIECE_WIDTHS
+    return next(w for w in widths if w >= piece), row != hd
 
 
 def row_pieces(dtype, hd: int) -> tuple[int, int]:

@@ -372,8 +372,8 @@ def test_decode_split_rounds_every_head_dim_to_whole_subtiles():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,width,copy,pieces", [
-    (8, 16, False, 1), (48, 64, False, 1), (80, 128, False, 1),
-    (96, 128, False, 1), (256, 256, False, 1), (6, 16, True, 1),
+    (8, 16, False, 1), (48, 64, False, 1), (80, 96, False, 1),
+    (96, 96, False, 1), (256, 256, False, 1), (6, 16, True, 1),
     (100, 128, True, 1), (1, 16, True, 1),
     (264, (192, 128), False, (2, 3)), (512, (256, 128), False, (2, 4)),
     (0, None, None, None)])
@@ -381,7 +381,8 @@ def test_head_dims_outside_the_set_raise(hd, width, copy, pieces, dtype):
     """The one head-dim rule of both kernels (`_attention.launch_width`,
     `_attention.row_pieces`): every hd runs at the first built width that
     holds a piece of its row -- in place when a row is a multiple of 8
-    elements, else through a zero-padded copy of the next multiple --,
+    elements, else through a zero-padded copy of the next multiple; 80 and
+    96 at width 96, 100 (padded to 104) at 128 --,
     the whole row up to 256 and past it column pieces (f32: of at most
     256, 264 = 2 x 136 at width 192, 512 = 2 x 256; bf16: of at most 128,
     264 = 3 x 88, 512 = 4 x 128, at width 128); a head dim under 1 raises

@@ -128,7 +128,8 @@ def test_rule_pieces_cover_every_row_up_to_2048():
     """At every hd in [1, 2048] the pieces cover the padded row, no piece
     is wider than 256 (past 256: than the dtype's PIECE_MAX) or other than
     a ROW_ALIGN multiple, the launch width is the first built width that
-    holds a piece, the count is the fewest pieces of at most PIECE_MAX,
+    holds a piece (past 256, of the widths pieces are built at,
+    PIECE_WIDTHS), the count is the fewest pieces of at most PIECE_MAX,
     and up to 256 the rule is the whole row at the first built width
     that holds it."""
     for dtype in DTYPES:
@@ -141,7 +142,9 @@ def test_rule_pieces_cover_every_row_up_to_2048():
             assert pw % _attention.ROW_ALIGN == 0 and pw <= 256
             assert (n - 1) * pw < row <= n * pw
             assert width in _attention.WIDTHS and width >= pw
-            assert width == min(w for w in _attention.WIDTHS if w >= pw)
+            widths = (_attention.WIDTHS if row <= 256
+                      else _attention.PIECE_WIDTHS)
+            assert width == min(w for w in widths if w >= pw)
             if row <= 256:
                 assert (pw, n) == (row, 1)
             else:

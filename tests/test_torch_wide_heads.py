@@ -297,14 +297,21 @@ def test_decode_split_is_whole_padded_subtiles_at_every_head_dim(itemsize):
     (1, 1, 1, 128), (4, 4, 1, 128), (48, 48, 1, 96), (64, 64, 1, 128),
     (71, 36, 2, 108), (128, 64, 2, 128), (130, 44, 3, 88)])
 def test_flash_head_chunks(G, chunk, n_chunks, rows):
-    """Balanced chunks of at most 64 heads a KV head (Falcon-7B's 71 is
-    36 + 35: 3 positions x 36 = 108 rows of a 128-row tile in use); 64-key
-    tiles up to width 128, 32-key ones past it."""
-    assert [fa_mod.key_tile(w) for w in (16, 64, 128, 192, 256)] == [
-        64, 64, 64, 32, 32]
+    """The f32 body's (and the bf16 rows past 256's) balanced chunks of at
+    most 64 heads a KV head (Falcon-7B's 71 is 36 + 35: 3 positions x 36 =
+    108 rows of a 128-row tile); the bf16 body up to 256 fills its tiles
+    instead (`chunk_plan`: 64-head chunks and the rest, 71 = 64 + 7, 128
+    and 126 rows); 128-key tiles at widths 64 to 128, 64-key ones
+    elsewhere."""
+    assert [fa_mod.key_tile(w) for w in (16, 64, 96, 128, 192, 256)] == [
+        64, 128, 128, 128, 64, 64]
     assert fa_mod.head_chunks(G) == (chunk, n_chunks)
     assert (fa_mod.TILE_ROWS // chunk) * chunk == rows
     assert chunk * (n_chunks - 1) < G <= chunk * n_chunks
+    bf16 = {1: ([1], [128]), 4: ([4], [128]), 48: ([48], [96]),
+            64: ([64], [128]), 71: ([64, 7], [128, 126]),
+            128: ([64, 64], [128, 128]), 130: ([64, 64, 2], [128] * 3)}
+    assert (fa_mod.chunk_plan(G), fa_mod.tile_rows(G)) == bf16[G]
 
 
 # ---------------------------------------------------------------------------

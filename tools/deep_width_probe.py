@@ -45,7 +45,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 _CAP = "inline int piece_max(int dtype) { return dtype == kBF16 ? 128 : 256; }"
 _DEEP_WIDTH = "  return sizeof(T) == 2 ? HD == 128 : HD >= 192;"
-_BF16_LAUNCH = "  constexpr int HD = 128, KN = key_tile(HD);\n"
+_BF16_LAUNCH = "  constexpr int HD = 128, KN = 64;\n"
 
 
 def _bf16_widths(widths):
@@ -58,7 +58,7 @@ def _bf16_widths(widths):
         "void* o,\n",
         "template <int HD>\nint deep_bf16_at(const void* q, const void* k, "
         "const void* v, void* o,\n"), (
-        _BF16_LAUNCH, "  constexpr int KN = key_tile(HD);\n"), (
+        _BF16_LAUNCH, "  constexpr int KN = HD > 128 ? 32 : 64;\n"), (
         "// `deep_resident` picks QRES wherever it fits.\n",
         "// `deep_resident` picks QRES wherever it fits.\n"
         "template <int HD>\nint deep_bf16_at(const void*, const void*, "

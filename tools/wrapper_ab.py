@@ -15,7 +15,9 @@ rows in 4 groups, k = 10) resident and paged (pages of 2^15 rows),
 hd 128, bf16) and moe_serve's (G 2, hd 64) and ``decode_attention_cuda``
 at their decode steps (cache 2064, 2049 live), both at wide_serve's
 three attention widths (Phi-3-mini: KV 32, G 1, hd 96; Gemma-2B: KV 1,
-G 8, hd 256; Falcon-7B: KV 1, G 71, hd 64), ``decode_attention_cuda``
+G 8, hd 256; Falcon-7B: KV 1, G 71, hd 64; flash also in f32 there),
+``flash_attention_cuda`` also at the REDUCED configs' hd 16 / 32 (KV 2, G
+2, bf16 and f32) and deep_serve's hd 512 (KV 1, G 4), ``decode_attention_cuda``
 also at deep_serve's (KV 1, G 4, hd 512) and at the three ``long_500k``
 cells' (B 1, S 524,288: qwen1.5-0.5b KV 16, G 1, hd 64; yi-6b KV 4, G
 8, hd 128; granite-moe KV 8, G 2, hd 64) and over G (1, 2, 4, 8 at
@@ -34,8 +36,13 @@ above, at every width 8..256 and hd 6 / 100 (G 2, S 129), at G 71 / 8
 checks that both sides' hashes agree: every flash output, and every
 decode output that the SIMT body gives on both sides (a checkout with a
 tensor-core body gives the bf16 rows up to 256 through it: those are held
-to the plain version by ``chip_smoke.py``). Each side's first child also
-prints ptxas's registers and spills of every decode kernel it built.
+to the plain version by ``chip_smoke.py``), but for those the change
+alters by design (`may_differ`), which it lists; and each side's first
+child saves its flash outputs at the served shapes (`SERVED_FLASH`,
+under ``_trees/ab_out``), of which it prints, side against side, whether
+they are equal bit for bit and their largest difference, and fails when
+one it expects equal (all but `SERVED_MAY_DIFFER`) is not. Each side's
+first child also prints ptxas's registers and spills of every decode kernel it built.
 ``--sass`` compares the SASS (``cuobjdump -sass``) of every attention
 kernel of the two libraries, by function name, and lists the kernels
 whose code differs; with ``--order ''`` it runs no timing child.
@@ -57,17 +64,34 @@ import subprocess
 import sys
 import time
 
+import torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: decode over G at lm_serve's (KV 8, hd 128) and moe_serve's (KV 8, hd 64)
 #: widths, their steps' cache (B 8, S 2064, 2049 live) -- G 4 and G 2 are
 #: their own steps, timed as such: (B, S, KV, G, hd)
 G_SWEEP = {f"hd{hd}_G{G}": (8, 2064, 8, G, hd)
            for hd, gs in ((128, (1, 2, 8)), (64, (1, 4, 8))) for G in gs}
+#: flash only, beside the served shapes the child times with decode: the
+#: REDUCED configs' hd 16 / 32 prefill (8 x 2048, KV 2, G 2) in bf16 and
+#: f32 and deep_serve's hd 512 (KV 1, G 4): (B, S, KV, G, hd, dtype, calls)
+FLASH_ONLY = {
+    **{f"hd{hd}_{str(dt)[6:]}": (8, 2048, 2, 2, hd, dt,
+                                 20 if dt == torch.bfloat16 else 5)
+       for hd in (16, 32) for dt in (torch.bfloat16, torch.float32)},
+    "deep_hd512": (8, 2048, 1, 4, 512, torch.bfloat16, 10)}
+#: the served bf16 flash shapes whose outputs ``--identity`` compares
+#: across the two sides: (B, S, KV, G, hd, dtype)
+SERVED_FLASH = {
+    name: (8, 2048, KV, G, hd, torch.bfloat16)
+    for name, (KV, G, hd) in {
+        "lm_serve": (8, 4, 128), "moe_serve": (8, 2, 64),
+        "phi3": (32, 1, 96), "gemma": (1, 8, 256), "falcon": (1, 71, 64),
+        "hd16": (2, 2, 16), "hd32": (2, 2, 32), "deep": (1, 4, 512)}.items()}
 
 
-def child(src: str, identity: bool) -> dict:
+def child(src: str, identity: bool, save: str | None) -> dict:
     sys.path.insert(0, src)
-    import torch
     from repro_torch.kernels import _attention
     from repro_torch.kernels.arena_scan import kernel
     from repro_torch.kernels.decode_attention import decode_attention as dec
@@ -134,7 +158,7 @@ def child(src: str, identity: bool) -> dict:
         "paged_ms": events_ms(lambda: kernel.arena_scan_cuda(
             q, emb, meta, gids, preds, k, page_rows=1 << 15), 10),
         "flash_ms": events_ms(lambda: fa.flash_attention_cuda(
-            fq, fk, fv, causal=True), 20),
+            fq, fk, fv, causal=True), 100),
         "decode_ms": events_ms(lambda: dec.decode_attention_cuda(
             dq, dk, dv, lengths), 200),
         "flash_hd64_ms": events_ms(lambda: fa.flash_attention_cuda(
@@ -148,12 +172,22 @@ def child(src: str, identity: bool) -> dict:
         torch, lambda: dec.decode_attention_cuda(mdq, mdk, mdv, lengths), 100)
     for name, (q, k, v, q1, kc, vc) in wide_in.items():
         out[f"flash_{name}_ms"] = events_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=True), 10)
+            q, k, v, causal=True), 50)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        out[f"flash_{name}_f32_ms"] = events_ms(
+            lambda: fa.flash_attention_cuda(qf, kf, vf, causal=True), 2)
+        del qf, kf, vf
         out[f"decode_{name}_ms"] = events_ms(
             lambda: dec.decode_attention_cuda(q1, kc, vc, lengths), 200)
         out[f"decode_{name}_device_ms"] = device_ms(
             torch, lambda: dec.decode_attention_cuda(q1, kc, vc, lengths), 100)
     del wide_in
+    for name, (B, S, KV, G, hd, dt, iters) in FLASH_ONLY.items():
+        q = torch.randn((B, S, KV, G, hd), **bf).to(dt)
+        k, v = (torch.randn((B, S, KV, hd), **bf).to(dt) for _ in range(2))
+        out[f"flash_{name}_ms"] = events_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True), iters)
+        del q, k, v
     for name, (B, S, KV, G, hd) in dec_only.items():
         q1 = torch.randn((B, KV, G, hd), **bf)
         kc, vc = (torch.randn((B, S, KV, hd), **bf) for _ in range(2))
@@ -185,9 +219,66 @@ def child(src: str, identity: bool) -> dict:
     torch.cuda.synchronize()
     if identity:
         out["identity"] = output_hashes(torch, fa, dec, dev)
+    if save:
+        save_flash_outputs(torch, fa, dev, save)
     out["lib"] = lib_path
     out["ptxas"] = decode_ptxas(_attention.BUILD_LOG)
     return out
+
+
+def may_differ(key: str) -> bool:
+    """Whether the hashed output ``key`` (``<dtype>_<B>x<S>x<KV>x<G>x<hd>_
+    <part>``) may differ between the two sides by design of the change
+    under test (edit with the change): rows of 72 to 96 columns run at
+    width 96 (was 128) in every body, and the bf16 flash
+    body takes 128-key tiles at widths 64 to 128 (was 64) and 64-key ones
+    past 128 (was 32): a tile's online-softmax steps, and so its
+    roundings, move."""
+    dt, shape, part = key.split("_", 2)
+    row = -(-int(shape.split("x")[-1]) // 8) * 8
+    return 64 < row <= 96 or (part == "flash" and dt == "bfloat16"
+                              and 32 < row <= 256)
+
+
+#: the served flash shapes whose outputs may differ from the parent's (by
+#: `may_differ`'s rule): widths 64 to 256
+SERVED_MAY_DIFFER = ("lm_serve", "moe_serve", "phi3", "gemma", "falcon")
+
+
+def served_flash_inputs(torch, dev, name):
+    """q, k, v of a served flash shape (`SERVED_FLASH`), from one seed a
+    shape: the same tensors on both sides."""
+    B, S, KV, G, hd, dt = SERVED_FLASH[name]
+    g = torch.Generator(device=dev).manual_seed(
+        sum(map(ord, name)) + 7 * hd + G)
+    kw = dict(generator=g, device=dev)
+    return (torch.randn((B, S, KV, G, hd), **kw).to(dt),
+            *(torch.randn((B, S, KV, hd), **kw).to(dt) for _ in range(2)))
+
+
+def save_flash_outputs(torch, fa, dev, out_dir):
+    """Each served flash shape's causal output, saved under ``out_dir``
+    for the parent process to compare with the other side's."""
+    os.makedirs(out_dir, exist_ok=True)
+    for name in SERVED_FLASH:
+        q, k, v = served_flash_inputs(torch, dev, name)
+        o = fa.flash_attention_cuda(q, k, v, causal=True)
+        torch.save(o.cpu(), os.path.join(out_dir, f"{name}.pt"))
+        del q, k, v, o
+
+
+def flash_vs_parent(p_dir, c_dir) -> dict:
+    """Per served flash shape: whether the two sides' outputs are equal bit
+    for bit, and the largest absolute difference (f32 of the outputs)."""
+    rows = {}
+    for name in SERVED_FLASH:
+        a = torch.load(os.path.join(p_dir, f"{name}.pt"))
+        b = torch.load(os.path.join(c_dir, f"{name}.pt"))
+        same = bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+        rows[name] = {"bit_for_bit": same, "max_abs_diff":
+                      float((a.float() - b.float()).abs().max()),
+                      "max_abs": float(a.float().abs().max())}
+    return rows
 
 
 def decode_ptxas(log: str) -> dict:
@@ -236,7 +327,6 @@ def sweep_child(src: str) -> dict:
     shape up to width 256 over the splits of its planner's constants: by
     shape, {split: [constants that give it, ms]}."""
     sys.path.insert(0, src)
-    import torch
     from repro_torch.kernels import _attention
     from repro_torch.kernels.decode_attention import decode_attention as dec
     _attention.build()
@@ -363,10 +453,11 @@ def main() -> int:
                     help="also time the change's tensor-core decode body "
                          "over its planner's constants")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         res = (sweep_child(args.child) if args.sweep
-               else child(args.child, args.identity))
+               else child(args.child, args.identity, args.save))
         print("RESULT" + json.dumps(res), flush=True)
         return 0
     srcs = {"P": os.path.abspath(args.parent),
@@ -374,10 +465,15 @@ def main() -> int:
     runs = {"P": [], "C": []}
     ids = {"P": [], "C": []}
     libs = {}
+    saved = {}
     for side in args.order:
+        save = []
+        if args.identity and side not in saved:
+            saved[side] = os.path.join(ROOT, "_trees", "ab_out", side)
+            save = ["--save", saved[side]]
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--child", srcs[side]]
-                              + ["--identity"] * args.identity,
+                              + ["--identity"] * args.identity + save,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode:
             print(proc.stderr[-3000:], file=sys.stderr)
@@ -405,12 +501,18 @@ def main() -> int:
         common = sorted(set.intersection(*(set(h) for h in every)))
         differ = [key for key in common
                   if any(h[key] != every[0][key] for h in every)]
+        unexpected = [key for key in differ if not may_differ(key)]
         print(json.dumps({"identity_outputs": len(common),
                           "tc_outputs_not_compared": sorted(
                               {k for h in ids["C"] for k in h
                                if k.endswith("decode_tc")}),
-                          "differing": differ}), flush=True)
-        rc = 1 if differ else 0
+                          "differing": differ,
+                          "differing_unexpected": unexpected}), flush=True)
+        rows = flash_vs_parent(saved["P"], saved["C"])
+        print(json.dumps({"flash_vs_parent": rows}), flush=True)
+        rc = 1 if unexpected or any(
+            not rows[name]["bit_for_bit"] for name in rows
+            if name not in SERVED_MAY_DIFFER) else 0
     if args.sass:
         sp, sc = (sass_of(libs.get(side) or built_library(srcs[side]))
                   for side in "PC")
